@@ -1,0 +1,115 @@
+"""Build the CUDA sources of the port with nvcc and load them with ctypes.
+
+The kernels in ``csrc/*.cu`` expose a plain C interface, so one nvcc call
+builds them into a shared library in seconds (no PyTorch headers). The
+library goes to ``fourd_ray_tracing_tpu_torch/_build/<hash>/``, keyed by a
+hash of the sources and flags, built at first use and reused after. A
+missing nvcc or a failed build raises with the compiler's output.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+LIB_NAME = "libfourd_kernels.so"
+# -fmad=false: no a*b+c -> FMA contraction, so the kernel rounds like its
+# plain torch version (csrc/megakernel.cu, "Numerics"). Never fast math.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+
+
+def find_nvcc() -> str:
+    for candidate in (shutil.which("nvcc"),
+                      os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if candidate and os.path.isfile(candidate):
+            return candidate
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin: cannot build the CUDA kernels")
+
+
+def sources() -> list:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def build_key() -> str:
+    h = hashlib.sha256()
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / build_key() / LIB_NAME
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the keyed shared library unless it exists;
+    returns its path. The compiler's output (with -Xptxas -v register and
+    shared-memory counts) is kept beside it in build.log."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    with tempfile.NamedTemporaryFile(dir=lib.parent, suffix=".so", delete=False) as tmp:
+        tmp_path = Path(tmp.name)
+    try:
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp_path), *cu],
+            capture_output=True, text=True, check=False,
+        )
+        log = proc.stdout + proc.stderr
+        (lib.parent / "build.log").write_text(log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+        os.replace(tmp_path, lib)
+    finally:
+        tmp_path.unlink(missing_ok=True)
+    return lib
+
+
+def build_log() -> str:
+    path = library_path().parent / "build.log"
+    return path.read_text() if path.exists() else ""
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built and loaded at the first call of the
+    process, with argtypes set; later calls return it at once."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(str(build()))
+        fn = lib.fourd_forward_launch
+        fn.argtypes = [
+            ctypes.c_void_p,                  # params (P,) float32, device
+            ctypes.c_void_p,                  # seeds (F,) uint32, device
+            ctypes.c_int,                     # n_frames
+            ctypes.c_void_p,                  # layout table (int[14]), host
+            ctypes.c_int, ctypes.c_int,       # width, height
+            ctypes.c_int, ctypes.c_int,       # samples, reflections
+            ctypes.c_float,                   # small_indent
+            ctypes.c_void_p,                  # out (F, V, H, W, 3) float32, device
+            ctypes.c_void_p,                  # cudaStream_t
+        ]
+        fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
