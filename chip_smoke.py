@@ -17,10 +17,27 @@ on any failure, or when no CUDA device is available. Phases:
 6. the kernel alone and the plain pipeline timed at phase 4's shape, and
    their 4 frames held against each other;
 7. the kernel against the plain pipeline on each of the app's view groups
-   (1 view at 121x75, 2 views at 60x37), with the app's own cameras.
+   (1 view at 121x75, 2 views at 60x37), with the app's own cameras;
+8. the value-and-grad kernel K4 against its plain version (torch autograd
+   over the plain pipeline) on the card: both scenes, 1 and 3 views,
+   256x144, 4 spp, 4 bounces, a (2,) seed vector, a seeded random target;
+   bitwise across two launches; the (2,) launch against the mean of the
+   two scalar-seed launches; K4 and its plain version timed at
+   256x144x8spp x4 bounces; at phase 9's shape (1280x720x8spp x4, 1 and 4
+   frames) K4 held against the plain version taken in row bands, both
+   timed; at phase 10's shape the forward kernel's target render and K4
+   held against their plain versions;
+9. the training main path: make_packed_train_step (Adam on the packed
+   vector, one K4 launch per step) on room_with_sphere at 1280x720, 8 spp,
+   4 bounces, a zero target, lr 1e-3, timed with CUDA events, for 1 and 4
+   frames per step;
+10. the entry point: ``inverse_render --param glow --impl kernel`` with
+   and without ``--packed`` recovers the lamp's glow.
 
-Every kernel-vs-plain check holds the two within the image bounds of
-``CHECK_BOUNDS`` and reports whether they are bitwise equal.
+Every forward kernel-vs-plain check holds the two within the image bounds
+of ``CHECK_BOUNDS`` and reports whether they are bitwise equal; K4's checks
+use ``GRAD_BOUNDS``. The kernel launch counts are set to 0 before each main
+path (phases 4-5: rendering; phases 9-10: training) and read after it.
 
 The line before the last is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.
@@ -43,11 +60,12 @@ sys.path.insert(0, str(ROOT))
 
 from fourd_ray_tracing_tpu_torch import app  # noqa: E402
 from fourd_ray_tracing_tpu_torch import camera as cam  # noqa: E402
+from fourd_ray_tracing_tpu_torch import diff, inverse_render  # noqa: E402
 from fourd_ray_tracing_tpu_torch.engine import RenderEngine  # noqa: E402
 from fourd_ray_tracing_tpu_torch.models import library, params, renderer  # noqa: E402
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig  # noqa: E402
 from fourd_ray_tracing_tpu_torch.ops.cuda import build  # noqa: E402
-from fourd_ray_tracing_tpu_torch.ops.cuda import megakernel  # noqa: E402
+from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel, megakernel  # noqa: E402
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4  # noqa: E402
 from fourd_ray_tracing_tpu_torch.utils.config import AppConfig  # noqa: E402
 
@@ -58,6 +76,27 @@ APP_CONFIG, APP_SCENE = ROOT / "configs" / "properties.txt", "room_with_sphere"
 HEADLINE = dict(width=1280, height=720, samples=8, reflections_amount=4, rng_mode="per_sample")
 FRAMES_PER_LAUNCH = 4
 CALLS, REPEATS = 5, 5  # timed: REPEATS runs of CALLS back-to-back calls
+# K4 against its plain version: loss within rtol, every gradient within a
+# mixed-scale relative error (|a - b| / max(|b|, 1e-3 max|b| + 1e-8), as
+# tests/test_gradkernel.py:74-76) with the same non-zero pattern; the
+# (F,) launch against the mean of the scalar-seed launches within rtol.
+# Both sides round alike (no FMA contraction) and differ only in the order
+# of their sums, so the gradient bound is 1e-4 here (the largest error read
+# on the card was 4.38e-6); the CPU tests against XLA, which contracts
+# FMAs, keep 1e-3.
+GRAD_BOUNDS = dict(loss_rtol=1e-6, grad_mixed_rel=1e-4, minibatch_rtol=1e-5)
+GRAD_CHECK = dict(width=256, height=144, samples=4, reflections_amount=4, rng_mode="per_sample",
+                  light_coefficient=0.12)
+# Training shapes of the JAX package's bench (bench.py train_scan4 and
+# train_minibatch4): room 1280x720x8spp x4 bounces, light_coefficient
+# 0.12. At that shape the plain version runs one frame and BAND_ROWS rows
+# at a time (gradkernel.loss_and_grad_plain's band_rows); at 256x144 it
+# runs whole.
+TRAIN = dict(HEADLINE, light_coefficient=0.12)
+TRAIN_SMALL = dict(TRAIN, width=256, height=144)
+BAND_ROWS = 144
+TRAIN_FRAMES = (1, 4)
+TRAIN_CALLS, TRAIN_REPEATS = 3, 3
 
 
 def phase(name: str) -> None:
@@ -185,6 +224,182 @@ def check_app_groups(device) -> float:
     return worst
 
 
+def mixed_rel(a: np.ndarray, b: np.ndarray) -> float:
+    scale = np.maximum(np.abs(b), 1e-3 * np.abs(b).max() + 1e-8)
+    return float((np.abs(a - b) / scale).max())
+
+
+def compare_grad(label: str, kernel, plain):
+    """Hold K4's (loss, grad) against the plain version's within
+    GRAD_BOUNDS; prints the comparison and returns (max |K4 - plain| over
+    loss and gradient, mixed-scale relative gradient error)."""
+    k_l, p_l = float(kernel[0]), float(plain[0])
+    k_g, p_g = kernel[1].cpu().numpy(), plain[1].cpu().numpy()
+    assert k_g.shape == p_g.shape, f"{label}: {k_g.shape} vs {p_g.shape}"
+    assert np.isfinite(k_g).all() and np.isfinite(k_l), f"{label}: non-finite K4 output"
+    rel = mixed_rel(k_g, p_g)
+    err = max(abs(k_l - p_l), float(np.abs(k_g - p_g).max()))
+    same_nz = bool(((k_g != 0) == (p_g != 0)).all())
+    print(f"K4 {label} P={k_g.size} loss={k_l} plain={p_l} loss_rel={abs(k_l - p_l) / abs(p_l):.3g} "
+          f"grad_mixed_rel={rel:.3g} max_abs_err={err:.3g} "
+          f"nonzero={int((k_g != 0).sum())}/{int((p_g != 0).sum())} same_pattern={same_nz}",
+          flush=True)
+    assert abs(k_l - p_l) <= GRAD_BOUNDS["loss_rtol"] * abs(p_l), f"{label}: loss"
+    assert rel <= GRAD_BOUNDS["grad_mixed_rel"], f"{label}: gradient error {rel}"
+    assert same_nz, f"{label}: non-zero patterns differ"
+    return err, rel
+
+
+def check_grad_kernel(device):
+    """Phase 8 checks; returns (max |K4 - plain| over loss and gradients,
+    max mixed-scale relative gradient error)."""
+    cfg = RenderConfig(**GRAD_CHECK)
+    seeds = np.array([0x12345678, 0x9ABCDEF0], np.uint32)
+    worst_abs = worst_rel = 0.0
+    for name in sorted(library.SCENES):
+        scene = library.SCENES[name](device)
+        for views in (("yxz",), cam.VIEWS_ALL):
+            label = f"{name} views={len(views)}"
+            camera = camera_for(views, device)
+            packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+            shape = (cfg.height, cfg.width, 3) if len(views) == 1 else (len(views), cfg.height,
+                                                                          cfg.width, 3)
+            target = torch.from_numpy(
+                np.random.default_rng(1).uniform(0, 1, shape).astype(np.float32)).to(device)
+            words = megakernel.seed_tensor(seeds, device)
+            loss, grad = gradkernel.launch_loss_grad(packed, lay, cfg, words, target)
+            loss2, grad2 = gradkernel.launch_loss_grad(packed, lay, cfg, words, target)
+            plain = gradkernel.loss_and_grad_plain(packed, scene, camera, cfg, seeds, target)
+            torch.cuda.synchronize()
+            assert torch.equal(loss, loss2) and torch.equal(grad, grad2), f"{label}: launches differ"
+            err, rel = compare_grad(label, (loss, grad), plain)
+            singles = [gradkernel.launch_loss_grad(packed, lay, cfg,
+                                                   megakernel.seed_tensor([s], device), target)
+                       for s in seeds]
+            mean_l = sum(float(sl) for sl, _ in singles) / len(seeds)
+            mean_g = sum(sg.cpu().numpy() for _, sg in singles) / len(seeds)
+            k_l = float(loss)
+            print(f"K4 {label} minibatch_vs_mean_loss_rel={abs(k_l - mean_l) / abs(mean_l):.3g}",
+                  flush=True)
+            np.testing.assert_allclose(k_l, mean_l, rtol=GRAD_BOUNDS["minibatch_rtol"])
+            np.testing.assert_allclose(
+                grad.cpu().numpy(), mean_g, rtol=GRAD_BOUNDS["minibatch_rtol"],
+                atol=1e-7 * max(1.0, float(np.abs(mean_g).max())))
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+    return worst_abs, worst_rel
+
+
+def peak_gb(fn):
+    """(fn(), peak bytes the CUDA allocator held during it, in GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def time_grad_kernel(device):
+    """Phase 8 at the training shapes: K4 and its plain version on the same
+    inputs at TRAIN_SMALL (plain whole) and at TRAIN for each frame count
+    of phase 9 (plain in row bands), held against each other and timed.
+    Returns a dict of the timings, errors and the plain version's peak
+    memory."""
+    scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
+    packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+    small = RenderConfig(**TRAIN_SMALL)
+    target = torch.zeros((small.height, small.width, 3), device=device)
+    words = megakernel.seed_tensor([1], device)
+    out = []
+    res = {"k4_small_ms": cuda_ms(lambda: out.append(
+        gradkernel.launch_loss_grad(packed, lay, small, words, target)))}
+    plain = []
+    gradkernel.loss_and_grad_plain(packed, scene, camera, small, 1, target)  # warm-up
+    res["plain_small_ms"], res["plain_small_peak_gb"] = peak_gb(lambda: cuda_ms(
+        lambda: plain.append(gradkernel.loss_and_grad_plain(packed, scene, camera, small, 1,
+                                                            target)),
+        calls=1, repeats=3))
+    errs = [compare_grad(f"room {small.width}x{small.height}x{small.samples}spp "
+                         f"x{small.reflections_amount} F=1", out[-1], plain[-1])]
+    full = RenderConfig(**TRAIN)
+    target = torch.zeros((full.height, full.width, 3), device=device)
+    for key in ("k4_full_ms", "plain_full_ms", "plain_band_peak_gb"):
+        res[key] = {}
+    for frames in TRAIN_FRAMES:
+        seeds = list(range(1, frames + 1))
+        words = megakernel.seed_tensor(seeds, device)
+        kernel = gradkernel.launch_loss_grad(packed, lay, full, words, target)  # and warm-up
+        plain = []
+        ms, res["plain_band_peak_gb"][frames] = peak_gb(lambda: cuda_ms(
+            lambda: plain.append(gradkernel.loss_and_grad_plain(
+                packed, scene, camera, full, seeds, target, band_rows=BAND_ROWS)),
+            calls=1, repeats=1))
+        res["plain_full_ms"][frames] = ms[0]
+        errs.append(compare_grad(f"room 1280x720x8spp x4 F={frames} (plain in {BAND_ROWS}-row "
+                                 "bands)", kernel, plain[0]))
+        res["k4_full_ms"][frames] = cuda_ms(
+            lambda: gradkernel.launch_loss_grad(packed, lay, full, words, target),
+            calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)
+    res["err"], res["rel"] = max(e for e, _ in errs), max(r for _, r in errs)
+    print(f"plain version peak memory: {res['plain_small_peak_gb']:.3f} GB whole at 256x144, "
+          f"{res['plain_band_peak_gb'][1]:.3f} GB per {BAND_ROWS}-row band at 1280x720", flush=True)
+    return res
+
+
+def check_inverse_render_shapes(device):
+    """Phase 8 at phase 10's shape: the forward kernel's target render and
+    K4 at the starting scene, each against its plain version. Returns
+    (max |K1 - plain| light, max |K4 - plain|, K4 mixed relative error)."""
+    args = inverse_render.parse_args([])
+    cfg, camera, target, scene0 = inverse_render.setup(args, device)
+    truth = inverse_render.make_scene(1.0, inverse_render.TRUE_GLOW, device)
+    label = f"inverse_render {cfg.width}x{cfg.height}x{cfg.samples}spp x{cfg.reflections_amount}"
+    light_err = check_close(f"{label} target", megakernel.render_light_cuda(
+        truth, camera, cfg, args.seed), renderer.render_light(truth, camera, cfg, args.seed))
+    packed = params.pack(scene0, camera)
+    err, rel = compare_grad(label, gradkernel.loss_and_grad_cuda(
+        packed, scene0, camera, cfg, args.seed, target), gradkernel.loss_and_grad_plain(
+        packed, scene0, camera, cfg, args.seed, target))
+    return light_err, err, rel
+
+
+def train_main_path(device, frames: int) -> list:
+    """Phase 9: the packed train step at TRAIN, ``frames`` frames per step;
+    one warm-up step, then timed steps. Returns ms per step."""
+    cfg = RenderConfig(**TRAIN)
+    scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=device)
+    step, init, unpack = diff.make_packed_train_step(cfg, 1e-3, camera, scene,
+                                                     frames_per_step=frames)
+    model, opt = init(scene)
+    vec0 = model.scene_vec.detach().clone()
+    before = gradkernel.LAUNCHES
+    losses = []
+    losses.append(step(model, opt, 1, target))  # warm-up
+    ms = cuda_ms(lambda: losses.append(step(model, opt, len(losses) + 1, target)),
+                 calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)
+    assert gradkernel.LAUNCHES - before == len(losses), "one K4 launch per step"
+    losses = torch.stack(losses).cpu().numpy()
+    assert np.isfinite(losses).all(), losses
+    assert not torch.equal(model.scene_vec.detach(), vec0), "the step did not move the scene"
+    assert np.isfinite(params.pack(unpack(model), camera).cpu().numpy()).all()
+    rays = cfg.width * cfg.height * cfg.samples * frames
+    med = statistics.median(ms)
+    print(f"train step F={frames}: ms={ms} median={med} grad_mrays_per_s={rays / med / 1e3} "
+          f"losses {losses[0]} -> {losses[-1]}", flush=True)
+    return ms
+
+
+def run_inverse_render() -> None:
+    """Phase 10: the entry point on the card, with and without --packed."""
+    for extra in ([], ["--packed"]):
+        before = gradkernel.LAUNCHES
+        rc = inverse_render.main(["--param", "glow", "--impl", "kernel", "--device", "cuda",
+                                  *extra])
+        assert rc == 0, f"inverse_render {extra}: glow not recovered"
+        assert gradkernel.LAUNCHES - before == 60, "one K4 launch per step"
+
+
 def run_app() -> None:
     """Phase 5: the batch app at the config's own settings; its PNGs go
     to out/chip_smoke_app/."""
@@ -226,12 +441,12 @@ def main() -> int:
     max_err = check_kernel_against_plain(device)
 
     phase("4 main path: RenderEngine -> kernel, headline shape")
-    megakernel.LAUNCHES = 0
+    megakernel.LAUNCHES = gradkernel.LAUNCHES = 0
     engine, engine_ms = main_path(device)
     phase("5 app")
     run_app()
-    launches = megakernel.LAUNCHES
-    assert launches == 1 + CALLS * REPEATS + 2, launches
+    launches = {"render": (megakernel.LAUNCHES, gradkernel.LAUNCHES)}
+    assert launches["render"] == (1 + CALLS * REPEATS + 2, 0), launches
 
     phase("6 kernel alone and plain pipeline, headline shape")
     kernel_ms, plain_ms, headline_err = time_kernel_and_plain(engine)
@@ -249,17 +464,75 @@ def main() -> int:
         "plain_ms": plain_ms, "plain_mrays_per_s": rays / plain_ms / 1e3,
     }), flush=True)
 
+    phase("8 value-and-grad kernel vs plain on the card")
+    grad_err, grad_rel = check_grad_kernel(device)
+    k4 = time_grad_kernel(device)
+    light_err, ir_err, ir_rel = check_inverse_render_shapes(device)
+    max_err = max(max_err, light_err)
+    grad_err, grad_rel = max(grad_err, k4["err"], ir_err), max(grad_rel, k4["rel"], ir_rel)
+
+    phase("9 training main path: packed Adam step -> K4, 1280x720")
+    megakernel.LAUNCHES = gradkernel.LAUNCHES = 0
+    train_ms = {f: train_main_path(device, f) for f in TRAIN_FRAMES}
+    phase("10 inverse_render --impl kernel")
+    run_inverse_render()
+    launches["train"] = (megakernel.LAUNCHES, gradkernel.LAUNCHES)
+    n_steps = (1 + TRAIN_CALLS * TRAIN_REPEATS) * len(TRAIN_FRAMES)
+    assert launches["train"] == (2, n_steps + 2 * 60), launches
+    train_rays = TRAIN["width"] * TRAIN["height"] * TRAIN["samples"]
+    small_rays = TRAIN_SMALL["width"] * TRAIN_SMALL["height"] * TRAIN_SMALL["samples"]
+    med_small, med_plain = statistics.median(k4["k4_small_ms"]), statistics.median(k4["plain_small_ms"])
+    k4_full_med = {f: statistics.median(k4["k4_full_ms"][f]) for f in TRAIN_FRAMES}
+    print(json.dumps({
+        "cell": "room_with_sphere 1280x720 8spp 4 bounces, packed Adam train step",
+        "card": card,
+        "train_step_ms": {str(f): train_ms[f] for f in TRAIN_FRAMES},
+        "train_step_ms_median": {str(f): statistics.median(train_ms[f]) for f in TRAIN_FRAMES},
+        "train_grad_mrays_per_s": {str(f): train_rays * f / statistics.median(train_ms[f]) / 1e3
+                                   for f in TRAIN_FRAMES},
+        "k4_ms_1280x720": {str(f): k4["k4_full_ms"][f] for f in TRAIN_FRAMES},
+        "k4_ms_1280x720_median": {str(f): k4_full_med[f] for f in TRAIN_FRAMES},
+        "plain_banded_ms_1280x720": {str(f): k4["plain_full_ms"][f] for f in TRAIN_FRAMES},
+        "plain_band_peak_gb_1280x720": k4["plain_band_peak_gb"][1],
+        "k4_ms_256x144": k4["k4_small_ms"], "k4_ms_256x144_median": med_small,
+        "k4_grad_mrays_per_s_256x144": small_rays / med_small / 1e3,
+        "plain_autograd_ms_256x144": k4["plain_small_ms"],
+        "plain_autograd_ms_256x144_median": med_plain,
+        "plain_grad_mrays_per_s_256x144": small_rays / med_plain / 1e3,
+        "plain_peak_gb_256x144": k4["plain_small_peak_gb"],
+    }), flush=True)
+
     summary = {"kernels": [{
         "name": "forward_megakernel",
         "route": "cuda",
         "source": "fourd_ray_tracing_tpu_torch/csrc/megakernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/megakernel.py:316",
-        "launches": launches,
+        "launches": launches["render"][0] + launches["train"][0],
+        "launches_by_path": {"render": launches["render"][0], "train": launches["train"][0]},
         "max_abs_err": max_err,
         "tolerance": CHECK_BOUNDS,
         "ms": med_kernel,
         "plain_ms": plain_ms,
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, 4 frames per launch",
+        "build_s": build_s,
+    }, {
+        "name": "loss_grad_kernel",
+        "route": "cuda",
+        "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
+        "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:117",
+        "launches": launches["train"][1],
+        "launches_by_path": {"render": launches["render"][1], "train": launches["train"][1]},
+        "max_abs_err": grad_err,
+        "max_grad_mixed_rel_err": grad_rel,
+        "tolerance": GRAD_BOUNDS,
+        "ms": k4_full_med[1],
+        "plain_ms": k4["plain_full_ms"][1],
+        "shape": "room_with_sphere 1280x720 8spp 4 bounces, 1 frame, zero target "
+                 f"(plain version in {BAND_ROWS}-row bands)",
+        "ms_4_frames": k4_full_med[4],
+        "plain_ms_4_frames": k4["plain_full_ms"][4],
+        "ms_256x144": med_small,
+        "plain_ms_256x144": med_plain,
         "build_s": build_s,
     }]}
     print(json.dumps(summary), flush=True)

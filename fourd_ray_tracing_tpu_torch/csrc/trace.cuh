@@ -1,0 +1,413 @@
+// Device math of the path tracer, shared by the forward kernel
+// (megakernel.cu, K1) and the value-and-grad kernel (gradkernel.cu, K4).
+//
+// Counterpart of the JAX package's ops/{vec4,rng,fastmath,sampler,sky}.py,
+// models/scene.py:intersect_scene_fast (hyperplanes and spheres, no hints)
+// and the per-pixel body of ops/pallas/megakernel.py::_kernel with
+// _trace_rays_kernel. Every operation keeps the order of the plain torch
+// pipeline (models/renderer.py); the build passes -fmad=false, so on the
+// card a kernel built from this header rounds like its plain version.
+// Float constants are hex literals of the JAX package's float32 values.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// Offsets into the packed parameter vector (models/params.py:Layout, in
+// the same order).
+struct Layout {
+  int n_spaces, n_spheres, n_views, env_enabled;
+  int spaces, spheres, env, focus, vec_to_mtr, top, right, mtr_width, mtr_height, size;
+};
+constexpr int kLayoutInts = 14;
+constexpr int kSpaceFloats = 13;   // point(4) norm(4) glow refl color(3)
+constexpr int kSphereFloats = 10;  // center(4) r glow refl color(3)
+constexpr int kBlock = 128;
+
+constexpr float kFar = 0x1.93e594p+99f;          // float32(1e30)
+constexpr float kHalfFar = 0x1.93e594p+98f;      // float32(1e30) * 0.5
+constexpr float kSmallFloat = 0x1.3a92a4p-12f;   // float32(0.0003)
+constexpr float kSmall2 = 0x1.828c0ep-24f;       // float32(0.0003^2)
+constexpr float kTiny37 = 0x1.1039d4p-123f;      // float32(1e-37)
+constexpr float kTiny30 = 0x1.4484c0p-100f;      // float32(1e-30)
+constexpr float kTiny12 = 0x1.197998p-40f;       // float32(1e-12)
+constexpr float kPi = 0x1.921fb6p+1f;            // float32(pi) == float32(3.14159265)
+constexpr float kHalfPi = 0x1.921fb6p+0f;        // float32(pi / 2)
+constexpr float kTwoPi = 0x1.921fb6p+2f;         // float32(2) * float32(3.14159265)
+constexpr float kThird = 0x1.555556p-2f;         // float32(1 / 3)
+constexpr uint32_t kCallDelta = 0x79A010A9u;
+constexpr uint32_t kSampleFold = 0x9E3779B9u;
+constexpr uint32_t kCbrtMagic = 0x548FE000u;
+
+// atan(t)/t in u = t^2, lowest degree first (fastmath.py _ATAN_COEFFS).
+__constant__ float kAtan[10] = {
+    0x1.000000p+0f, -0x1.55553ap-2f, 0x1.9991e8p-3f, -0x1.24251ep-3f, 0x1.c0dac6p-4f,
+    -0x1.593228p-4f, 0x1.dee324p-5f, -0x1.0419e8p-5f, 0x1.70e44cp-7f, -0x1.ec31d6p-10f};
+// sin(2 pi x)/x and cos(2 pi x) in u = x^2 (fastmath.py).
+__constant__ float kSin2Pi[5] = {
+    0x1.921fb6p+2f, -0x1.4abbcep+5f, 0x1.466bbap+6f, -0x1.32ca7cp+6f, 0x1.4bc86cp+5f};
+__constant__ float kCos2Pi[5] = {
+    0x1.000000p+0f, -0x1.3bd3ccp+4f, 0x1.03c1dap+6f, -0x1.55c540p+6f, 0x1.d9c304p+5f};
+// w(u) of the S^3 sampler's inverse CDF (sampler.py _W_POLY).
+__constant__ float kWPoly[9] = {
+    0x1.fffff6p-1f, -0x1.fffd22p-4f, -0x1.9b5f96p-10f, -0x1.c403f6p-15f, -0x1.fe5930p-18f,
+    0x1.5bacc6p-20f, -0x1.42d4fep-22f, 0x1.ff41f8p-26f, -0x1.987168p-30f};
+
+struct V3 { float x, y, z; };
+struct V4 { float x, y, z, w; };
+
+__device__ __forceinline__ V3 add3(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3 mul3(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ V3 mul3s(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ V4 add4(V4 a, V4 b) { return {a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w}; }
+__device__ __forceinline__ V4 sub4(V4 a, V4 b) { return {a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w}; }
+__device__ __forceinline__ V4 mul4s(V4 a, float s) { return {a.x * s, a.y * s, a.z * s, a.w * s}; }
+__device__ __forceinline__ float dot3(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ float dot4(V4 a, V4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+__device__ __forceinline__ V3 ld3(const float* p) { return {p[0], p[1], p[2]}; }
+__device__ __forceinline__ V4 ld4(const float* p) { return {p[0], p[1], p[2], p[3]}; }
+__device__ __forceinline__ float sign_of(float x) {
+  return static_cast<float>((x > 0.0f) - (x < 0.0f));
+}
+
+// --- ops/vec4.py ------------------------------------------------------
+__device__ __forceinline__ V4 reflect(V4 d, V4 n) { return sub4(d, mul4s(n, 2.0f * dot4(d, n))); }
+__device__ __forceinline__ V4 redirect(V4 v, V4 n) {
+  float d = dot4(v, n);
+  V4 flipped = sub4(v, mul4s(n, 2.0f * d));
+  return d >= 0.0f ? v : flipped;
+}
+
+// --- ops/rng.py -------------------------------------------------------
+__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
+  x = x + (x << 10);
+  x = x ^ (x >> 6);
+  x = x + (x << 3);
+  x = x ^ (x >> 11);
+  x = x + (x << 15);
+  x = x ^ (x >> 9);
+  return x;
+}
+
+// uniform01 with the counter advanced (masked_uniform01 on an active lane).
+__device__ __forceinline__ float draw(uint32_t bits, uint32_t seed, uint32_t& counter) {
+  counter = counter + kCallDelta;
+  uint32_t h = hash_u32(bits ^ counter ^ seed);
+  return __uint_as_float((h & 0x007FFFFFu) | 0x3F800000u) - 1.0f;
+}
+
+// --- ops/fastmath.py --------------------------------------------------
+__device__ __forceinline__ float atan_unit(float t) {
+  float u = t * t;
+  float acc = kAtan[9];
+  for (int i = 8; i >= 0; --i) acc = acc * u + kAtan[i];
+  return acc * t;
+}
+
+__device__ __forceinline__ float arctan(float x) {
+  float ax = fabsf(x);
+  bool big = ax > 1.0f;
+  float inv = 1.0f / (big ? ax : 1.0f);
+  float core = atan_unit(big ? inv : ax);
+  float res = big ? kHalfPi - core : core;
+  return x < 0.0f ? -res : res;
+}
+
+__device__ __forceinline__ float arctan2(float y, float x) {
+  float base = arctan(y / (x == 0.0f ? 1.0f : x));
+  if (x > 0.0f) return base;
+  if (x < 0.0f) return y < 0.0f ? base - kPi : base + kPi;
+  return y < 0.0f ? -kHalfPi : kHalfPi;
+}
+
+__device__ __forceinline__ float arccos(float x) {
+  x = fminf(fmaxf(x, -1.0f), 1.0f);
+  float s = sqrtf(fmaxf((1.0f - x) * (1.0f + x), 0.0f));
+  return arctan2(s, x);
+}
+
+__device__ __forceinline__ void sincos_2pi(float u, float& sin_out, float& cos_out) {
+  float n = rintf(u * 4.0f);  // round half to even, like jnp.round
+  float x = u - n * 0.25f;
+  float u2 = x * x;
+  float sp = kSin2Pi[4];
+  for (int i = 3; i >= 0; --i) sp = sp * u2 + kSin2Pi[i];
+  float c0 = kCos2Pi[4];
+  for (int i = 3; i >= 0; --i) c0 = c0 * u2 + kCos2Pi[i];
+  float s0 = x * sp;
+  float q = n - 4.0f * floorf(n * 0.25f);
+  bool odd = (q == 1.0f) || (q == 3.0f);
+  float sin_base = odd ? c0 : s0;
+  float cos_base = odd ? s0 : c0;
+  sin_out = q >= 2.0f ? -sin_base : sin_base;
+  cos_out = (q == 1.0f || q == 2.0f) ? -cos_base : cos_base;
+}
+
+// --- ops/sampler.py ("poly") -------------------------------------------
+__device__ __forceinline__ uint32_t div3_u32(uint32_t i) {
+  uint32_t acc = i >> 2;
+  uint32_t t = acc;
+  for (int k = 0; k < 7; ++k) {
+    t = t >> 2;
+    acc = acc + t;
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float cbrt_sq_bits(float a) {
+  a = fmaxf(a, kTiny30);
+  float z = __uint_as_float(kCbrtMagic - div3_u32(__float_as_uint(a)));
+  for (int k = 0; k < 3; ++k) z = z * (4.0f - a * z * z * z) * kThird;
+  return a * z * z;
+}
+
+__device__ __forceinline__ float w_by_volume_poly(float v) {
+  float c = kTwoPi * (1.0f - v);
+  bool mirrored = c > kPi;
+  float c_half = mirrored ? kTwoPi - c : c;
+  float u = cbrt_sq_bits(36.0f * c_half * c_half);
+  float acc = kWPoly[8];
+  for (int i = 7; i >= 0; --i) acc = acc * u + kWPoly[i];
+  return mirrored ? -acc : acc;
+}
+
+__device__ __forceinline__ V4 direction_from_uniforms(float u_w, float u_z, float u_fi) {
+  float w = w_by_volume_poly(u_w);
+  float r = sqrtf(fmaxf(1.0f - w * w, 0.0f));
+  float z = (u_z * 2.0f - 1.0f) * r;
+  float rho = sqrtf(fmaxf(r * r - z * z, 0.0f));
+  float sin_fi, cos_fi;
+  sincos_2pi(u_fi, sin_fi, cos_fi);
+  return {rho * cos_fi, rho * sin_fi, z, w};
+}
+
+// --- ops/sky.py -------------------------------------------------------
+__device__ V3 final_light(const float* env, V4 d) {
+  V4 drct = ld4(env);
+  float angular_size = env[4];
+  V3 light = ld3(env + 5);
+  float sharpness = env[8];
+  V3 sky = ld3(env + 9);
+  float cos_dev = dot4(d, drct) / (sqrtf(dot4(d, d)) * sqrtf(dot4(drct, drct)));
+  cos_dev = fminf(fmaxf(cos_dev, -1.0f), 1.0f);
+  bool interior = fabsf(cos_dev) < 1.0f;
+  float dev_safe = arccos(interior ? cos_dev : 0.0f);
+  float deviation = interior ? dev_safe : (cos_dev > 0.0f ? 0.0f : kPi);
+  if (!(deviation < angular_size)) return sky;
+  float k = deviation / angular_size;
+  float denom = 1.0f - sharpness * k;
+  float k2 = (sharpness * sharpness * k / (fabsf(denom) < kTiny12 ? kTiny12 : denom) + 1.0f) *
+             (1.0f - k);
+  float rest = 1.0f - k2;
+  return add3(mul3s(light, k2), mul3s(sky, rest));
+}
+
+// --- models/scene.py:intersect_scene_fast (no hints) -------------------
+struct Hit {
+  bool hit;
+  int idx;  // winner: plane idx, or sphere idx - n_spaces
+  float dist;
+  V4 norm;
+  float glow, refl;
+  V3 color;
+};
+
+__device__ __forceinline__ float plane_dot_vn(const float* sp, V4 o) {
+  V4 n = ld4(sp + 4);
+  return dot4(ld4(sp), n) - dot4(o, n);
+}
+
+__device__ Hit intersect(const float* P, const Layout& L, V4 o, V4 d) {
+  float best = kFar;
+  int idx = 0;
+  int k = 0;
+  for (int i = 0; i < L.n_spaces; ++i, ++k) {
+    const float* sp = P + L.spaces + kSpaceFloats * i;
+    float dot_vn = plane_dot_vn(sp, o);
+    float dn = dot4(d, ld4(sp + 4));
+    bool hit = sign_of(dot_vn) * dn >= kSmallFloat;
+    float dist = dot_vn / (hit ? dn : 1.0f);
+    float cand = hit ? dist : kFar;
+    if (k == 0 || cand < best) { best = cand; idx = k; }
+  }
+  for (int j = 0; j < L.n_spheres; ++j, ++k) {
+    const float* s = P + L.spheres + kSphereFloats * j;
+    float r = s[4];
+    float r2 = r * r;
+    V4 po = sub4(ld4(s), o);
+    float b = dot4(po, d);
+    float l2 = dot4(po, po) + kTiny37;
+    bool degenerate = l2 < kSmall2;
+    b = degenerate ? 0.0f : b;
+    bool receding = !degenerate && (l2 >= r2 && b < 0.0f);
+    float disc = r2 - (l2 - b * b);
+    bool tangent = disc <= 0.0f;
+    float sq = sqrtf(tangent ? 1.0f : disc);
+    sq = tangent ? 0.0f : sq;
+    float dist = l2 > r2 ? b - sq : b + sq;
+    bool hit = !(receding || tangent);
+    float cand = hit ? dist : kFar;
+    if (k == 0 || cand < best) { best = cand; idx = k; }
+  }
+
+  Hit h;
+  h.hit = best < kHalfFar;
+  h.idx = idx;
+  h.dist = h.hit ? best : 0.0f;
+  if (!h.hit) {
+    h.norm = {0.0f, 0.0f, 0.0f, 0.0f};
+    h.glow = h.refl = 0.0f;
+    h.color = {0.0f, 0.0f, 0.0f};
+    return h;
+  }
+  // Resolve the winner's normal and material (same ops as its resolver).
+  const float* mat;
+  if (idx < L.n_spaces) {
+    const float* sp = P + L.spaces + kSpaceFloats * idx;
+    float flip = -sign_of(plane_dot_vn(sp, o));
+    h.norm = {flip * sp[4], flip * sp[5], flip * sp[6], flip * sp[7]};
+    mat = sp + 8;
+  } else {
+    const float* s = P + L.spheres + kSphereFloats * (idx - L.n_spaces);
+    V4 c = ld4(s);
+    float r = s[4];
+    float r2 = r * r;
+    V4 po = sub4(c, o);
+    float l2 = dot4(po, po) + kTiny37;
+    float inv_r = 1.0f / fmaxf(r, kTiny30);
+    float scale = l2 > r2 ? -inv_r : inv_r;
+    V4 hit_p = add4(o, mul4s(d, h.dist));
+    h.norm = mul4s(sub4(c, hit_p), scale);
+    mat = s + 5;
+  }
+  h.glow = mat[0];
+  h.refl = mat[1];
+  h.color = ld3(mat + 2);
+  return h;
+}
+
+// Direction update of one bounce on a live lane: Bernoulli mirror vs
+// diffuse; a diffuse lane draws three more uniforms for the sampler.
+// ``mirror`` and ``v`` (the diffuse sample before redirect) report the
+// outcome, for the adjoint.
+__device__ __forceinline__ V4 scatter(V4 norm, V4 mirrored, float refl_prob, uint32_t bits,
+                                      uint32_t seed, uint32_t& counter, bool& mirror, V4& v) {
+  float u_refl = draw(bits, seed, counter);
+  mirror = u_refl <= refl_prob;
+  if (mirror) return mirrored;
+  float u_w = draw(bits, seed, counter);
+  float u_z = draw(bits, seed, counter);
+  float u_fi = draw(bits, seed, counter);
+  v = direction_from_uniforms(u_w, u_z, u_fi);
+  return redirect(v, norm);
+}
+
+// --- one pixel: primary ray and bounce 0 (renderer.precompute_bounce0) --
+struct Pixel {
+  float scr_x, scr_y, mx, my;
+  V4 a;       // unnormalized primary direction
+  V4 d0;      // primary direction
+  V4 focus;
+  uint32_t bits;
+  Hit h0;
+  V3 result0, throughput0;
+  V4 o0, mirrored0;
+};
+
+__device__ Pixel setup_pixel(const float* P, const Layout& L, int view, int px, int py,
+                             int width, int height, float small_indent) {
+  Pixel p;
+  // Primary ray of this pixel's view (row 0 at the top).
+  p.scr_x = (static_cast<float>(px) + 0.5f) / static_cast<float>(width);
+  p.scr_y = (static_cast<float>(py) + 0.5f) / static_cast<float>(height);
+  const int V = L.n_views;
+  V4 top = {P[L.top + view], P[L.top + V + view], P[L.top + 2 * V + view],
+            P[L.top + 3 * V + view]};
+  V4 right = {P[L.right + view], P[L.right + V + view], P[L.right + 2 * V + view],
+              P[L.right + 3 * V + view]};
+  p.mx = (p.scr_x - 0.5f) * P[L.mtr_width];
+  p.my = (0.5f - p.scr_y) * P[L.mtr_height];
+  p.a = add4(add4(ld4(P + L.vec_to_mtr), mul4s(top, p.my)), mul4s(right, p.mx));
+  p.d0 = mul4s(p.a, 1.0f / sqrtf(dot4(p.a, p.a)));
+  p.focus = ld4(P + L.focus);
+  p.bits = __float_as_uint(p.scr_x) ^ (__float_as_uint(p.scr_y) << 9);
+
+  // Bounce 0, shared by every sample (renderer.precompute_bounce0).
+  p.h0 = intersect(P, L, p.focus, p.d0);
+  p.result0 = {0.0f, 0.0f, 0.0f};
+  if (L.env_enabled && !p.h0.hit) p.result0 = add3(p.result0, final_light(P + L.env, p.d0));
+  p.throughput0 = {1.0f, 1.0f, 1.0f};
+  p.o0 = p.focus;
+  if (p.h0.hit) {
+    p.result0 = add3(p.result0, mul3s(p.h0.color, p.h0.glow));
+    p.throughput0 = p.h0.color;
+    p.o0 = add4(add4(p.focus, mul4s(p.d0, p.h0.dist)), mul4s(p.h0.norm, small_indent));
+  }
+  p.mirrored0 = reflect(p.d0, p.h0.norm);
+  return p;
+}
+
+// One bounce after bounce 0, as the adjoint needs it: the ray, the
+// throughput before the bounce, its hit, and its scatter outcome.
+struct Bounce {
+  V4 o, d;
+  V3 throughput;
+  Hit h;
+  bool mirror;
+  V4 v;
+};
+
+// The trace of sample ``s`` from the hoisted bounce 0 (renderer.trace_rays);
+// returns its light. With kRecord, bounce 0's scatter outcome goes to
+// *mirror0 / *v0 and every later bounce to rec[0..*n_rec).
+template <bool kRecord>
+__device__ V3 trace_sample(const float* P, const Layout& L, const Pixel& p, int s, uint32_t seed,
+                           int reflections, float small_indent, Bounce* rec, int* n_rec,
+                           bool* mirror0, V4* v0) {
+  V3 result = p.result0;
+  if (reflections <= 0 || !p.h0.hit) return result;
+  const bool env_on = L.env_enabled != 0;
+  const float* env = P + L.env;
+  const uint32_t bits = p.bits ^ hash_u32((static_cast<uint32_t>(s) + 1u) * kSampleFold);
+  uint32_t counter = seed;
+  bool mirror;
+  V4 v = {0.0f, 0.0f, 0.0f, 0.0f};
+  V4 d = scatter(p.h0.norm, p.mirrored0, p.h0.refl, bits, seed, counter, mirror, v);
+  if constexpr (kRecord) {
+    *mirror0 = mirror;
+    *v0 = v;
+    *n_rec = 0;
+  }
+  V4 o = p.o0;
+  V3 throughput = p.throughput0;
+  bool alive = true;
+  for (int b = 1; b < reflections && alive; ++b) {
+    Hit h = intersect(P, L, o, d);
+    if constexpr (kRecord) rec[(*n_rec)++] = {o, d, throughput, h, false, v};
+    if (env_on && !h.hit) result = add3(result, mul3(throughput, final_light(env, d)));
+    alive = h.hit;
+    if (alive) {
+      result = add3(result, mul3(mul3s(h.color, h.glow), throughput));
+      throughput = mul3(throughput, h.color);
+      o = add4(add4(o, mul4s(d, h.dist)), mul4s(h.norm, small_indent));
+      d = scatter(h.norm, reflect(d, h.norm), h.refl, bits, seed, counter, mirror, v);
+      if constexpr (kRecord) {
+        rec[*n_rec - 1].mirror = mirror;
+        rec[*n_rec - 1].v = v;
+      }
+    }
+  }
+  if (alive) {  // the last bounce only shades
+    Hit h = intersect(P, L, o, d);
+    if constexpr (kRecord) rec[(*n_rec)++] = {o, d, throughput, h, false, v};
+    if (env_on && !h.hit) result = add3(result, mul3(throughput, final_light(env, d)));
+    if (h.hit) result = add3(result, mul3(mul3s(h.color, h.glow), throughput));
+  }
+  return result;
+}
+
+}  // namespace

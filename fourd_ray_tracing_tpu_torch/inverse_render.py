@@ -1,0 +1,150 @@
+"""End-to-end inverse rendering: recover a scene parameter from a target.
+
+Counterpart of the JAX package's tools/inverse_render.py, with the same
+flags and defaults: render a target image of the lamp scene, start from a
+perturbed lamp glow, and optimize it back with Adam, logging one JSON
+metrics line every ``--log-every`` steps. ``--impl kernel`` trains through
+the value-and-grad kernel (diff.image_loss_kernel: one K4 launch per step
+on the card), ``--impl plain`` through torch autograd over the plain
+pipeline; ``--packed`` runs the packed-space loop
+(diff.make_packed_train_step). Exits 0 when the recovered value is within
+``--tol`` of the truth.
+
+    python -m fourd_ray_tracing_tpu_torch.inverse_render --param glow --impl kernel
+
+Not ported yet, and raising: ``--param position`` (the soft-silhouette
+loss, ROADMAP queue 1, item 11), ``--mesh`` (item 12), ``--freeze-hints``
+(item 4) and ``--ckpt`` (item 13).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from fourd_ray_tracing_tpu_torch import camera as cam
+from fourd_ray_tracing_tpu_torch import diff
+from fourd_ray_tracing_tpu_torch.app import resolve_device
+from fourd_ray_tracing_tpu_torch.models import library, params
+from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
+from fourd_ray_tracing_tpu_torch.models.scene import Scene, material, sphere
+from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import render_image_cuda
+from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
+from fourd_ray_tracing_tpu_torch.utils.logging import log0, log_metrics
+
+TRUE_GLOW, INIT_GLOW = 20.0, 8.0
+
+
+def make_scene(cx: float, glow: float, device) -> Scene:
+    """Floor + mirror-ish sphere + optimizable lamp sphere (the
+    sphere-plane-light family)."""
+    base = library.sphere_plane_light(device)
+    lamp = sphere((cx, 1, 0, 0), 0.5, material(glow, 0.0, (1, 1, 1), device), device)
+    return base._replace(spheres=(base.spheres[0], lamp))
+
+
+def only_lamp_glow(g: Scene) -> Scene:
+    """The gradient filter of --param glow: every gradient but the lamp's
+    glow zeroed."""
+    z = params.map_leaves(torch.zeros_like, g)
+    mat = z.spheres[1].material._replace(glow=g.spheres[1].material.glow)
+    return z._replace(spheres=(z.spheres[0], z.spheres[1]._replace(material=mat)))
+
+
+def read_glow(scene: Scene) -> float:
+    return float(scene.spheres[1].material.glow.detach())
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--param", choices=("glow", "position"), default="glow")
+    ap.add_argument("--steps", type=int, default=60)
+    ap.add_argument("--width", type=int, default=64)
+    ap.add_argument("--height", type=int, default=40)
+    ap.add_argument("--samples", type=int, default=2)
+    ap.add_argument("--bounces", type=int, default=2)
+    ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--seed", type=int, default=11)
+    ap.add_argument("--mesh", action="store_true", help="not ported yet (ROADMAP queue 1, item 12)")
+    ap.add_argument("--impl", choices=diff.IMPLS, default="plain",
+                    help="kernel = the value-and-grad kernel K4 (one launch per step on the "
+                    "card); plain = torch autograd over the plain pipeline")
+    ap.add_argument("--freeze-hints", action="store_true",
+                    help="not ported yet (ROADMAP queue 1, item 4)")
+    ap.add_argument("--packed", action="store_true",
+                    help="with --impl kernel: the packed-space loop "
+                    "(diff.make_packed_train_step, Adam on the kernel's flat parameter "
+                    "vector). Unlike the JAX tool's --packed, which forces the frozen "
+                    "static hints, this trains without hints, with exact gradients for "
+                    "every parameter; for --param glow that changes nothing, since the "
+                    "gradient filter zeroes every other gradient")
+    ap.add_argument("--ckpt", default=None, help="not ported yet (ROADMAP queue 1, item 13)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--tol", type=float, default=None,
+                    help="success threshold on |recovered - true| (default 2.0)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    return ap.parse_args(argv)
+
+
+def setup(args: argparse.Namespace, device):
+    """(cfg, camera, target image, starting scene) of the run: the target
+    renders the lamp at its true glow through the forward kernel."""
+    cfg = RenderConfig(width=args.width, height=args.height, samples=args.samples,
+                       reflections_amount=args.bounces, rng_mode="per_sample")
+    camera = cam.camera_from_state(Vec4.of(0.0, -2.0, 0.0, 0.0, device=device),
+                                   cam.CameraAngles.of(0.0, 0.0, 0.0, device=device),
+                                   1.5, 2.0, device=device)
+    target = render_image_cuda(make_scene(1.0, TRUE_GLOW, device), camera, cfg, args.seed)
+    return cfg, camera, target, make_scene(1.0, INIT_GLOW, device)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if args.param == "position":
+        raise NotImplementedError("--param position needs the soft-silhouette loss, which is "
+                                  "not ported yet (ROADMAP queue 1, item 11)")
+    if args.mesh:
+        raise NotImplementedError("--mesh is not ported yet (ROADMAP queue 1, item 12)")
+    if args.freeze_hints:
+        raise NotImplementedError("--freeze-hints needs the static hints, which are not "
+                                  "ported yet (ROADMAP queue 1, item 4)")
+    if args.ckpt:
+        raise NotImplementedError("--ckpt is not ported yet (ROADMAP queue 1, item 13)")
+    if args.packed and args.impl != "kernel":
+        raise SystemExit("--packed is the kernel's packed-space loop (use --impl kernel)")
+
+    device = resolve_device(args.device)
+    cfg, camera, target, scene0 = setup(args, device)
+    lr = args.lr or 0.5
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    log0(f"inverse_render param={args.param} impl={args.impl} packed={args.packed} "
+         f"{cfg.width}x{cfg.height}x{cfg.samples}spp x{cfg.reflections_amount} device={name}",
+         flush=True)
+
+    if args.packed:
+        step, init, unpack = diff.make_packed_train_step(cfg, lr, camera, scene0,
+                                                         param_filter=only_lamp_glow)
+        model, opt = init(scene0)
+        for k in range(args.steps):
+            loss = step(model, opt, args.seed, target)
+            if k % args.log_every == 0 or k == args.steps - 1:
+                log_metrics(k, {"loss": loss, "value": read_glow(unpack(model))})
+        scene = unpack(model)
+    else:
+        step, init = diff.make_train_step(cfg, lr, camera, param_filter=only_lamp_glow,
+                                          impl=args.impl)
+        scene, opt = init(scene0)
+        for k in range(args.steps):
+            scene, opt, loss, metrics = step(scene, opt, args.seed, target)
+            if k % args.log_every == 0 or k == args.steps - 1:
+                log_metrics(k, {**metrics, "value": read_glow(scene)})
+    err = abs(read_glow(scene) - TRUE_GLOW)
+    log0(f"recovered {args.param}={read_glow(scene):.4f} (true {TRUE_GLOW}, err {err:.4f})",
+         flush=True)
+    tol = args.tol if args.tol is not None else 2.0
+    return 0 if err < tol else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,7 +5,10 @@ the leaves of (scene, camera) concatenate in jax ``tree_flatten`` order
 (NamedTuple fields in order, None and empty tuples contribute nothing,
 the static ``Environment.enabled`` flag is not a leaf), so the vector is
 bitwise the JAX package's. ``Layout`` is the static offset table of that
-vector that the kernel is launched with.
+vector that the kernels are launched with. ``unpack`` is the differentiable
+way back (the counterpart of _pack_pytree's ``rebuild`` and of
+gradkernel.make_packed_loss_and_grad's ``unpack``): training keeps its state
+in the packed vector and autograd flows from the rebuilt scene into it.
 """
 from __future__ import annotations
 
@@ -26,26 +29,27 @@ SPHERE_FLOATS = 10
 ENV_FLOATS = 12
 
 
-def _leaves(tree) -> Iterator[torch.Tensor]:
+def tree_leaves(tree) -> Iterator[torch.Tensor]:
+    """The tensor leaves of a parameter tree, in jax tree_flatten order."""
     if tree is None:
         return
     if isinstance(tree, torch.Tensor):
         yield tree
         return
     if isinstance(tree, Environment):
-        yield from _leaves(tree.sun)
-        yield from _leaves(tree.sky_light)
+        yield from tree_leaves(tree.sun)
+        yield from tree_leaves(tree.sky_light)
         return
     if isinstance(tree, tuple):
         for child in tree:
-            yield from _leaves(child)
+            yield from tree_leaves(child)
         return
     raise TypeError(f"unexpected parameter node {type(tree).__name__}")
 
 
 def leaves(scene: Scene, camera: Camera) -> List[torch.Tensor]:
     """The tensors of (scene, camera) in jax tree_flatten order."""
-    return list(_leaves((scene, camera)))
+    return list(tree_leaves((scene, camera)))
 
 
 def pack(scene: Scene, camera: Camera) -> torch.Tensor:
@@ -53,19 +57,19 @@ def pack(scene: Scene, camera: Camera) -> torch.Tensor:
     return torch.cat([t.to(torch.float32).reshape(-1) for t in leaves(scene, camera)])
 
 
-def _rebuild(like, it, device):
-    if like is None:
+def map_leaves(fn, tree):
+    """``tree`` with every tensor leaf replaced by ``fn(leaf)``, in
+    tree_flatten order (the counterpart of jax.tree_util.tree_map)."""
+    if tree is None:
         return None
-    if isinstance(like, torch.Tensor):
-        arr = np.asarray(next(it), np.float32)
-        return torch.tensor(arr, dtype=torch.float32, device=device)
-    if isinstance(like, Environment):
-        return Environment(_rebuild(like.sun, it, device),
-                           _rebuild(like.sky_light, it, device), like.enabled)
-    if isinstance(like, tuple):
-        children = [_rebuild(c, it, device) for c in like]
-        return type(like)(*children) if hasattr(like, "_fields") else tuple(children)
-    raise TypeError(f"unexpected parameter node {type(like).__name__}")
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, Environment):
+        return Environment(map_leaves(fn, tree.sun), map_leaves(fn, tree.sky_light), tree.enabled)
+    if isinstance(tree, tuple):
+        children = [map_leaves(fn, c) for c in tree]
+        return type(tree)(*children) if hasattr(tree, "_fields") else tuple(children)
+    raise TypeError(f"unexpected parameter node {type(tree).__name__}")
 
 
 def from_numpy_leaves(np_leaves, like_scene: Scene, like_camera: Camera, device=None):
@@ -75,11 +79,50 @@ def from_numpy_leaves(np_leaves, like_scene: Scene, like_camera: Camera, device=
     if device is None:
         device = leaves(like_scene, like_camera)[0].device
     it = iter(np_leaves)
-    scene = _rebuild(like_scene, it, device)
-    camera = _rebuild(like_camera, it, device)
+
+    def take(_like):
+        arr = np.asarray(next(it), np.float32)
+        return torch.tensor(arr, dtype=torch.float32, device=device)
+
+    scene = map_leaves(take, like_scene)
+    camera = map_leaves(take, like_camera)
     if next(it, None) is not None:
         raise ValueError("more leaves than the structure holds")
     return scene, camera
+
+
+def unpack(vec: torch.Tensor, like_scene: Scene, like_camera: Camera):
+    """(Scene, Camera) shaped like the given ones whose leaves are views of
+    the (P,) vector ``vec``, so autograd flows from them back into it;
+    ``pack(*unpack(v, ...))`` equals ``v`` bitwise."""
+    size = sum(t.numel() for t in leaves(like_scene, like_camera))
+    if vec.dim() != 1 or vec.numel() != size:
+        raise ValueError(f"expected a ({size},) vector of floats, got {tuple(vec.shape)}")
+    offset = 0
+
+    def take(like):
+        nonlocal offset
+        n = like.numel()
+        part = vec[offset:offset + n].reshape(like.shape)
+        offset += n
+        return part
+
+    return map_leaves(take, like_scene), map_leaves(take, like_camera)
+
+
+def n_scene(scene: Scene) -> int:
+    """Floats of the scene's leaves: the scene/camera split point of the
+    packed vector (gradkernel.py:1006-1008)."""
+    return sum(t.numel() for t in tree_leaves(scene))
+
+
+def leaf_mask(filter_fn, like_scene: Scene) -> torch.Tensor:
+    """The (n_scene,) float32 0/1 vector that a gradient filter becomes in
+    packed space: ``filter_fn`` (a Scene -> Scene map that zeroes the
+    gradients of frozen parameters) applied to an all-ones scene, packed
+    (diff.py:1035-1044)."""
+    ones = map_leaves(lambda t: torch.ones_like(t, dtype=torch.float32), like_scene)
+    return torch.cat([t.to(torch.float32).reshape(-1) for t in tree_leaves(filter_fn(ones))])
 
 
 class Layout(NamedTuple):

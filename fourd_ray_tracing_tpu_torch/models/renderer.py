@@ -43,8 +43,12 @@ class RenderConfig:
     RenderConfig (renderer.py:48-147) with the same defaults. This port
     renders rng_mode="per_sample", sampler_method="poly", intersect="fast"
     and no hints; other values raise (check_supported). The Mosaic-only
-    knobs (bounce_loop, tile_sublanes, tiles_per_program) and the training
-    ones (remat, freeze_hints, grad_sample_chunk) are carried and ignored."""
+    knobs (bounce_loop, tile_sublanes, tiles_per_program) and ``remat``
+    are carried and ignored. Of the training knobs, ``freeze_hints`` raises
+    (the hints are not ported), and ``grad_sample_chunk`` must divide
+    ``samples`` as in the JAX package, but changes nothing here: on the TPU
+    it only chunked the grad kernel's VMEM residuals, which re-associates
+    its sums."""
 
     width: int = 256
     height: int = 256
@@ -88,6 +92,16 @@ def check_supported(cfg: RenderConfig) -> None:
         raise NotImplementedError(
             f"intersect={cfg.intersect!r} is not ported yet (ROADMAP queue 1, "
             "item 4); use 'fast'"
+        )
+    if cfg.freeze_hints:
+        raise NotImplementedError(
+            "freeze_hints needs the static hints, which are not ported yet "
+            "(ROADMAP queue 1, item 4); train without it: every gradient is exact"
+        )
+    if cfg.samples % max(1, cfg.grad_sample_chunk):
+        raise ValueError(
+            f"samples ({cfg.samples}) must be divisible by grad_sample_chunk "
+            f"({cfg.grad_sample_chunk})"
         )
 
 
@@ -218,8 +232,9 @@ def sample_stream_bits(pixel_bits: torch.Tensor, sample_index: int) -> torch.Ten
     return pixel_bits ^ fold
 
 
-def _render_light_one(scene: Scene, camera: Camera, cfg: RenderConfig, seed: int):
+def _render_light_one(scene: Scene, camera: Camera, cfg: RenderConfig, seed: int, rows: slice):
     scr_x, scr_y = screen_coords(cfg, camera.focus.x.device)
+    scr_x, scr_y = scr_x[rows], scr_y[rows]
     d = primary_directions(camera, scr_x, scr_y)
     pixel_bits = rng.pixel_stream_bits(scr_x, scr_y).expand(d.x.shape)
     o = _expand_cam_vec(camera.focus, d.x.dim())
@@ -245,21 +260,32 @@ def seed_words(seed) -> tuple[list, bool]:
     return [int(s) & rng.MASK32 for s in arr.reshape(-1)], arr.ndim == 1
 
 
-def render_light(scene: Scene, camera: Camera, cfg: RenderConfig, seed) -> torch.Tensor:
+def render_light(scene: Scene, camera: Camera, cfg: RenderConfig, seed,
+                 rows: slice = slice(None)) -> torch.Tensor:
     """Sample-averaged light, float32 (H, W, 3) or (V, H, W, 3).
 
     ``seed`` may be a (K,) vector: K frames, with a leading frame axis on
-    the result; frame k equals the call with seed[k].
+    the result; frame k equals the call with seed[k]. ``rows`` renders
+    only those pixel rows of the image (every pixel is computed on its
+    own, so a row band is the full image's rows).
     """
     check_supported(cfg)
     words, batched = seed_words(seed)
-    frames = [_render_light_one(scene, camera, cfg, s) for s in words]
+    frames = [_render_light_one(scene, camera, cfg, s, rows) for s in words]
     return torch.stack(frames) if batched else frames[0]
 
 
-def render_image(scene: Scene, camera: Camera, cfg: RenderConfig, seed) -> torch.Tensor:
+def render_image(scene: Scene, camera: Camera, cfg: RenderConfig, seed,
+                 rows: slice = slice(None)) -> torch.Tensor:
     """Tone-mapped color image in [0, 1), shape (..., H, W, 3)."""
-    return light_to_color(render_light(scene, camera, cfg, seed), cfg.light_coefficient)
+    return light_to_color(render_light(scene, camera, cfg, seed, rows), cfg.light_coefficient)
+
+
+def image_loss(scene: Scene, camera: Camera, cfg: RenderConfig, seed, target) -> torch.Tensor:
+    """MSE between the rendered (tone-mapped) image and ``target``; with a
+    (F,) seed vector the mean runs over the F frames too. The plain
+    version of the value-and-grad kernel differentiates it by autograd."""
+    return torch.mean((render_image(scene, camera, cfg, seed) - target) ** 2)
 
 
 def accumulate(old_frame: torch.Tensor, new_frame: torch.Tensor, part: float) -> torch.Tensor:

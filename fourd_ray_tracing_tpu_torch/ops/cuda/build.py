@@ -1,7 +1,8 @@
 """Build the CUDA sources of the port with nvcc and load them with ctypes.
 
-The kernels in ``csrc/*.cu`` expose a plain C interface, so one nvcc call
-builds them into a shared library in seconds (no PyTorch headers). The
+The kernels in ``csrc/*.cu`` expose a plain C interface (no PyTorch
+headers). Each source compiles in its own nvcc process, all started
+together, and one more nvcc links the objects into a shared library. The
 library goes to ``fourd_ray_tracing_tpu_torch/_build/<hash>/``, keyed by a
 hash of the sources and flags, built at first use and reused after. A
 missing nvcc or a failed build raises with the compiler's output.
@@ -23,10 +24,14 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libfourd_kernels.so"
 # -fmad=false: no a*b+c -> FMA contraction, so the kernel rounds like its
 # plain torch version (csrc/megakernel.cu, "Numerics"). Never fast math.
+# The value-and-grad kernel's per-thread array sizes: packed parameters
+# (cotangents) and bounce records per sample. Its wrapper reads them here.
+K4_MAX_PARAMS, K4_MAX_BOUNCES = 256, 16
+DEFINES = (f"-DFOURD_K4_MAX_PARAMS={K4_MAX_PARAMS}", f"-DFOURD_K4_MAX_BOUNCES={K4_MAX_BOUNCES}")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", *DEFINES,
 )
 
 _lock = threading.Lock()
@@ -60,28 +65,40 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/*.cu into the keyed shared library unless it exists;
-    returns its path. The compiler's output (with -Xptxas -v register and
+    returns its path. The compilers' output (with -Xptxas -v register and
     shared-memory counts) is kept beside it in build.log."""
     lib = library_path()
     if lib.exists():
         return lib
     nvcc = find_nvcc()
     lib.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    with tempfile.NamedTemporaryFile(dir=lib.parent, suffix=".so", delete=False) as tmp:
-        tmp_path = Path(tmp.name)
+    work = Path(tempfile.mkdtemp(dir=lib.parent))
     try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp_path), *cu],
-            capture_output=True, text=True, check=False,
-        )
-        log = proc.stdout + proc.stderr
+        jobs = []
+        for src in (p for p in sources() if p.suffix == ".cu"):
+            obj = work / f"{src.stem}.o"
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.append((src, obj, proc))
+        log, failed = "", []
+        for src, _, proc in jobs:
+            out, _ = proc.communicate()
+            log += f"== nvcc {src.name} (exit {proc.returncode})\n{out}"
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if not failed:
+            proc = subprocess.run([nvcc, "-shared", "-o", str(work / LIB_NAME),
+                                   *(str(obj) for _, obj, _ in jobs)],
+                                  capture_output=True, text=True, check=False)
+            log += f"== nvcc -shared (exit {proc.returncode})\n{proc.stdout}{proc.stderr}"
+            if proc.returncode != 0:
+                failed.append("link")
         (lib.parent / "build.log").write_text(log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
-        os.replace(tmp_path, lib)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+        os.replace(work / LIB_NAME, lib)
     finally:
-        tmp_path.unlink(missing_ok=True)
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 
@@ -110,6 +127,27 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,                  # out (F, V, H, W, 3) float32, device
             ctypes.c_void_p,                  # cudaStream_t
         ]
+        fn.restype = ctypes.c_int
+        fn = lib.fourd_loss_grad_launch
+        fn.argtypes = [
+            ctypes.c_void_p,                  # params (P,) float32, device
+            ctypes.c_void_p,                  # seeds (F,) uint32, device
+            ctypes.c_int,                     # n_frames
+            ctypes.c_void_p,                  # layout table (int[14]), host
+            ctypes.c_int, ctypes.c_int,       # width, height
+            ctypes.c_int, ctypes.c_int,       # samples, reflections
+            ctypes.c_float, ctypes.c_float,   # small_indent, light_coefficient
+            ctypes.c_void_p,                  # target (V, H, W, 3) float32, device
+            ctypes.c_float,                   # scale
+            ctypes.c_void_p,                  # grad_parts (P, n_cols) float32, device
+            ctypes.c_void_p,                  # loss_parts (n_cols,) float64, device
+            ctypes.c_void_p,                  # grad out (P,) float32, device
+            ctypes.c_void_p,                  # loss out () float32, device
+            ctypes.c_void_p,                  # cudaStream_t
+        ]
+        fn.restype = ctypes.c_int
+        fn = lib.fourd_loss_grad_scratch_cols
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
         fn.restype = ctypes.c_int
         _lib = lib
         return lib

@@ -30,6 +30,11 @@ def _device_of(scene: Scene, camera: Camera) -> torch.device:
     return devices.pop()
 
 
+def seed_tensor(words, device) -> torch.Tensor:
+    """uint32 seed words as the kernels' (F,) int32 tensor on ``device``."""
+    return torch.from_numpy(np.asarray(words, np.uint32).view(np.int32)).to(device)
+
+
 def launch_forward(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
                    seeds: torch.Tensor) -> torch.Tensor:
     """One kernel launch: (F, V, H, W, 3) float32 light from the packed
@@ -73,8 +78,7 @@ def render_light_cuda(scene: Scene, camera: Camera, cfg: RenderConfig, seeds) ->
     renderer.check_supported(cfg)
     lay = params.layout(scene, camera)
     words, batched = renderer.seed_words(seeds)
-    seed_arr = torch.from_numpy(np.asarray(words, np.uint32).view(np.int32)).to(device)
-    out = launch_forward(params.pack(scene, camera), lay, cfg, seed_arr)
+    out = launch_forward(params.pack(scene, camera), lay, cfg, seed_tensor(words, device))
     if camera.top.x.dim() == 0:
         out = out[:, 0]
     return out if batched else out[0]

@@ -181,7 +181,7 @@ def test_light_to_color(rng_np):
 
 
 def _cu_constants(name):
-    src = (Path(tfast.__file__).resolve().parents[1] / "csrc" / "megakernel.cu").read_text()
+    src = (Path(tfast.__file__).resolve().parents[1] / "csrc" / "trace.cuh").read_text()
     body = re.search(rf"{name}\[\d+\] = \{{(.*?)\}};", src, re.S).group(1)
     return [float.fromhex(tok.strip().rstrip("f")) for tok in body.split(",")]
 
@@ -193,6 +193,7 @@ def _cu_constants(name):
     ("kWPoly", tsampler._W_POLY),
 ])
 def test_kernel_coefficients_match_plain(name, ref):
-    """The CUDA kernel's hex float tables equal the plain version's
-    float32 coefficients (and hence the JAX package's) exactly."""
+    """The CUDA kernels' hex float tables (csrc/trace.cuh, shared by both
+    kernels) equal the plain version's float32 coefficients (and hence the
+    JAX package's) exactly."""
     assert _cu_constants(name) == list(ref)

@@ -80,11 +80,12 @@ def test_layout_points_at_the_leaves(name):
 
 def test_layout_matches_the_kernel_struct():
     """The offset table crosses to CUDA as int[14] in Layout's field
-    order: it must be the field order of the kernel's struct Layout."""
+    order: it must be the field order of the kernels' struct Layout
+    (csrc/trace.cuh)."""
     import re
     from pathlib import Path
 
-    src = (Path(params.__file__).resolve().parents[1] / "csrc" / "megakernel.cu").read_text()
+    src = (Path(params.__file__).resolve().parents[1] / "csrc" / "trace.cuh").read_text()
     body = re.search(r"struct Layout \{(.*?)\};", src, re.S).group(1)
     fields = re.findall(r"\b([a-z_]+)\s*[,;]", body.replace("int ", ""))
     assert tuple(fields) == params.Layout._fields
