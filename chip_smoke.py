@@ -6,7 +6,7 @@ card and the CUDA toolkit's nvcc, and exits non-zero (printing no result)
 on any failure, or when no CUDA device is available. Phases:
 
 1. device: the card's name and power limit;
-2. build: the forward kernel from fourd_ray_tracing_tpu_torch/csrc;
+2. build: the kernels from fourd_ray_tracing_tpu_torch/csrc;
 3. kernel vs plain torch pipeline on the card, 256x144, 4 spp, 4 bounces,
    both scenes, 1 and 3 views, a (2,) seed vector; bitwise self-consistency;
 4. main path: RenderEngine on room_with_sphere at 1280x720, 8 spp,
@@ -32,12 +32,36 @@ on any failure, or when no CUDA device is available. Phases:
    4 bounces, a zero target, lr 1e-3, timed with CUDA events, for 1 and 4
    frames per step;
 10. the entry point: ``inverse_render --param glow --impl kernel`` with
-   and without ``--packed`` recovers the lamp's glow.
+   and without ``--packed`` recovers the lamp's glow;
+11. the light-VJP kernel K5 against its plain version (torch autograd of
+   sum(render_light * cot)) on the card: both scenes, 1 and 3 views,
+   256x144, 4 spp, 4 bounces, a seeded random cotangent; bitwise across
+   launches; K2 (the forward kernel over (F, P) params rows: a scene and
+   its zero_object copy) row by row bitwise single K1 renders, and K5's
+   two-row launch row by row bitwise single K5 launches and held against
+   the plain version; then K5 at the soft main path's 1280x720x8spp x4
+   against the plain version, both timed;
+12. the fused soft value-and-grad kernel K6 against its plain version
+   (autograd over the plain blend, alpha an independent leaf): the room's
+   sphere 0 and the lamp scene's sphere 1, 1 and 3 views, 256x144, 4 spp,
+   4 bounces, the coverage alpha and a seeded random target; bitwise
+   across launches; the zeroed row's light bitwise the drop_object light;
+   then at 1280x720x8spp x4 against the plain version in row bands, both
+   timed, and at ``inverse_render --param position``'s shape;
+13. the soft training main path: make_train_step(impl="kernel",
+   soft_object_ref=("spheres", 0)) on room_with_sphere at 1280x720, 8 spp,
+   4 bounces, a zero target, edge width 0.05, lr 1e-3, one K6 launch per
+   step, timed with CUDA events beside K6 alone, the coverage's forward
+   and backward alone and Adam alone; the hyperplane fallback
+   (("spaces", 0): two K1 and two K5 launches per step), timed; then
+   ``inverse_render --param position --impl kernel`` recovers the lamp's
+   x.
 
 Every forward kernel-vs-plain check holds the two within the image bounds
-of ``CHECK_BOUNDS`` and reports whether they are bitwise equal; K4's checks
-use ``GRAD_BOUNDS``. The kernel launch counts are set to 0 before each main
-path (phases 4-5: rendering; phases 9-10: training) and read after it.
+of ``CHECK_BOUNDS`` and reports whether they are bitwise equal; the
+gradient kernels' checks use ``GRAD_BOUNDS``. The kernel launch counts are
+set to 0 before each main path (phases 4-5: rendering; phases 9-10:
+training; phase 13: soft training) and read after it.
 
 The line before the last is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.
@@ -97,6 +121,12 @@ TRAIN_SMALL = dict(TRAIN, width=256, height=144)
 BAND_ROWS = 144
 TRAIN_FRAMES = (1, 4)
 TRAIN_CALLS, TRAIN_REPEATS = 3, 3
+# The soft-silhouette slice: the object each scene's soft checks take
+# (the JAX bench's soft_step takes the room's sphere 0; inverse_render
+# --param position the lamp, sphere 1), and the main path's edge width.
+SOFT_REFS = {"room_with_sphere": ("spheres", 0), "sphere_plane_light": ("spheres", 1)}
+SOFT_EDGE = 0.05
+FALLBACK_REF = ("spaces", 0)
 
 
 def phase(name: str) -> None:
@@ -414,6 +444,270 @@ def run_app() -> None:
     assert megakernel.LAUNCHES == before + 2, "one 8-frame launch per view group"
 
 
+def reset_counts() -> None:
+    megakernel.LAUNCHES = megakernel.ROW_LAUNCHES = 0
+    gradkernel.LAUNCHES = gradkernel.VJP_LAUNCHES = gradkernel.SOFT_LAUNCHES = 0
+
+
+def counts() -> dict:
+    """Launches since the last reset_counts, per kernel (K2 = the forward
+    kernel's launches over params rows, counted among K1's too)."""
+    return {"k1": megakernel.LAUNCHES, "k2_rows": megakernel.ROW_LAUNCHES,
+            "k4": gradkernel.LAUNCHES, "k5": gradkernel.VJP_LAUNCHES,
+            "k6": gradkernel.SOFT_LAUNCHES}
+
+
+def image_shape(views, cfg) -> tuple:
+    return (cfg.height, cfg.width) if len(views) == 1 else (len(views), cfg.height, cfg.width)
+
+
+def compare_vec(label: str, kernel, plain, same_pattern: bool = True):
+    """Hold a gradient kernel's output array against its plain version's
+    within GRAD_BOUNDS' mixed-scale relative error and, if
+    ``same_pattern``, with the same non-zero pattern; prints the comparison
+    and returns (max |kernel - plain|, mixed-scale relative error)."""
+    k, p = kernel.detach().cpu().numpy(), plain.detach().cpu().numpy()
+    assert k.shape == p.shape, f"{label}: {k.shape} vs {p.shape}"
+    assert np.isfinite(k).all() and np.isfinite(p).all(), f"{label}: non-finite values"
+    assert np.abs(p).max() > 0, f"{label}: the plain version is all zeros"
+    rel, err = mixed_rel(k, p), float(np.abs(k - p).max())
+    mismatch = int(((k != 0) != (p != 0)).sum())
+    print(f"{label} size={k.size} mixed_rel={rel:.3g} max_abs_err={err:.3g} "
+          f"nonzero={int((k != 0).sum())}/{int((p != 0).sum())} pattern_mismatches={mismatch}",
+          flush=True)
+    assert rel <= GRAD_BOUNDS["grad_mixed_rel"], f"{label}: error {rel}"
+    assert not same_pattern or mismatch == 0, f"{label}: non-zero patterns differ"
+    return err, rel
+
+
+def compare_soft(label: str, kernel, plain):
+    """Hold K6's (loss, grad, alpha cotangent) against the plain version's
+    within GRAD_BOUNDS. The alpha cotangent's pattern is not required to
+    match: it is sum_ch 2 (img - t)(c_with - c_without), which the plain
+    version's autograd takes as a difference of two channel sums, so a
+    pixel whose two rows differ by an ulp may round to 0 on one side only;
+    the mixed-scale bound still holds every pixel. Returns (max abs error,
+    max mixed-scale relative error)."""
+    k_l, p_l = float(kernel[0]), float(plain[0])
+    assert np.isfinite(k_l), f"{label}: non-finite loss"
+    loss_rel = abs(k_l - p_l) / abs(p_l)
+    print(f"K6 {label} loss={k_l} plain={p_l} loss_rel={loss_rel:.3g}", flush=True)
+    assert loss_rel <= GRAD_BOUNDS["loss_rtol"], f"{label}: loss"
+    e_g, r_g = compare_vec(f"K6 {label} grad", kernel[1], plain[1])
+    e_a, r_a = compare_vec(f"K6 {label} alpha_cot", kernel[2], plain[2], same_pattern=False)
+    return max(abs(k_l - p_l), e_g, e_a), max(r_g, r_a)
+
+
+def check_light_vjp(device):
+    """Phase 11 at 256x144: K5 against its plain version, single and two
+    rows, and K2. Returns (max abs error, max mixed-scale relative error)."""
+    cfg = RenderConfig(**GRAD_CHECK)
+    seed = 0x2468ACE1
+    errs = []
+    for name in sorted(library.SCENES):
+        scene = library.SCENES[name](device)
+        pair = (scene, diff.zero_object(scene, SOFT_REFS[name]))
+        for views in (("yxz",), cam.VIEWS_ALL):
+            label = f"{name} views={len(views)}"
+            camera = camera_for(views, device)
+            packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+            rng = np.random.default_rng(2)
+            shape = (*image_shape(views, cfg), 3)
+            cot = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(device)
+            grad = gradkernel.launch_light_vjp(packed, lay, cfg, seed, cot)
+            again = gradkernel.launch_light_vjp(packed, lay, cfg, seed, cot)
+            plain = gradkernel.render_light_vjp_plain(packed, scene, camera, cfg, seed, cot)
+            torch.cuda.synchronize()
+            assert torch.equal(grad, again), f"K5 {label}: launches differ"
+            errs.append(compare_vec(f"K5 {label}", grad, plain))
+            # K2: the pair's params rows in one launch, row f bitwise K1 of scene f.
+            light = megakernel.render_light_cuda_multi(pair, camera, cfg, seed)
+            for f, s in enumerate(pair):
+                single = megakernel.render_light_cuda(s, camera, cfg, seed)
+                assert torch.equal(light[f], single), f"K2 {label}: row {f} != its K1 render"
+            rows = params.stack_rows(pair, camera)
+            cots = torch.from_numpy(rng.normal(0, 1, (2, *shape)).astype(np.float32)).to(device)
+            multi = gradkernel.launch_light_vjp(rows, lay, cfg, seed, cots)
+            plain = gradkernel.render_light_vjp_plain(rows, scene, camera, cfg, seed, cots)
+            for f in range(len(pair)):
+                single = gradkernel.launch_light_vjp(rows[f].contiguous(), lay, cfg, seed,
+                                                     cots[f].contiguous())
+                assert torch.equal(multi[f], single), f"K5 {label}: row {f} != its single launch"
+                errs.append(compare_vec(f"K5 {label} row {f} of 2", multi[f], plain[f]))
+            print(f"K2 {label}: rows bitwise single K1 renders; K5 two-row launch bitwise "
+                  "single launches", flush=True)
+    return max(e for e, _ in errs), max(r for _, r in errs)
+
+
+def time_light_vjp(device):
+    """Phase 11 at the soft fallback's shape (TRAIN): K5 and its plain
+    version (whole) on a seeded random cotangent, held against each other
+    and timed. Returns a dict of timings, errors and the plain version's
+    peak memory."""
+    cfg = RenderConfig(**TRAIN)
+    scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
+    packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+    cot = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)).to(device)
+    kernel = gradkernel.launch_light_vjp(packed, lay, cfg, 1, cot)  # and warm-up
+    plain = []
+    ms, peak = peak_gb(lambda: cuda_ms(lambda: plain.append(gradkernel.render_light_vjp_plain(
+        packed, scene, camera, cfg, 1, cot)), calls=1, repeats=1))
+    err, rel = compare_vec("K5 room 1280x720x8spp x4 (plain whole)", kernel, plain[0])
+    k5_ms = cuda_ms(lambda: gradkernel.launch_light_vjp(packed, lay, cfg, 1, cot),
+                    calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)
+    print(f"K5 1280x720: ms={k5_ms} plain_ms={ms[0]} plain_peak_gb={peak:.3f}", flush=True)
+    return {"ms": k5_ms, "plain_ms": ms[0], "plain_peak_gb": peak, "err": err, "rel": rel}
+
+
+def soft_inputs(scene, camera, cfg, ref, edge, target):
+    """(packed, layout, zero map, coverage alpha, target) of a K6 launch."""
+    alpha = diff.object_coverage(scene, ref, camera, cfg, edge).detach().contiguous()
+    return (params.pack(scene, camera), params.layout(scene, camera),
+            params.soft_zero_map(scene, camera, ref), alpha, target.contiguous())
+
+
+def check_soft_kernel(device):
+    """Phase 12 at 256x144: K6 against its plain version, and the zeroed
+    row's light against the drop_object light. Returns (max abs error, max
+    mixed-scale relative error)."""
+    cfg = RenderConfig(**GRAD_CHECK)
+    seed = 0x13579BDF
+    errs = []
+    for name, ref in SOFT_REFS.items():
+        scene = library.SCENES[name](device)
+        for views in (("yxz",), cam.VIEWS_ALL):
+            label = f"{name} {ref} views={len(views)}"
+            camera = camera_for(views, device)
+            target = torch.from_numpy(np.random.default_rng(3).uniform(
+                0, 1, (*image_shape(views, cfg), 3)).astype(np.float32)).to(device)
+            packed, lay, zero_map, alpha, target = soft_inputs(scene, camera, cfg, ref,
+                                                               SOFT_EDGE, target)
+            out = gradkernel.launch_soft_loss_grad(packed, lay, cfg, seed, target, alpha, zero_map)
+            again = gradkernel.launch_soft_loss_grad(packed, lay, cfg, seed, target, alpha,
+                                                     zero_map)
+            plain = gradkernel.render_soft_loss_and_grad_plain(packed, scene, camera, cfg, seed,
+                                                               target, alpha, zero_map)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(out, again)), f"K6 {label}: launches differ"
+            errs.append(compare_soft(label, out, plain))
+            zeroed = megakernel.render_light_cuda(diff.zero_object(scene, ref), camera, cfg, seed)
+            dropped = megakernel.render_light_cuda(diff.drop_object(scene, ref), camera, cfg, seed)
+            assert torch.equal(zeroed, dropped), f"{label}: zeroed light != drop_object light"
+    print("zero_object light bitwise drop_object light on every K6 check", flush=True)
+    return max(e for e, _ in errs), max(r for _, r in errs)
+
+
+def time_soft_kernel(device):
+    """Phase 12 at the soft main path's shape (TRAIN, the room's sphere 0,
+    a zero target): K6 and its plain version in row bands, held against
+    each other and timed; then K6 at inverse_render --param position's
+    shape against its plain version, with K1's target render. Returns a
+    dict of timings, errors and the banded plain version's peak memory."""
+    cfg = RenderConfig(**TRAIN)
+    scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
+    ref = SOFT_REFS["room_with_sphere"]
+    packed, lay, zero_map, alpha, target = soft_inputs(
+        scene, camera, cfg, ref, SOFT_EDGE, torch.zeros((cfg.height, cfg.width, 3), device=device))
+    kernel = gradkernel.launch_soft_loss_grad(packed, lay, cfg, 1, target, alpha, zero_map)
+    plain = []
+    ms, peak = peak_gb(lambda: cuda_ms(lambda: plain.append(
+        gradkernel.render_soft_loss_and_grad_plain(packed, scene, camera, cfg, 1, target, alpha,
+                                                   zero_map, band_rows=BAND_ROWS)),
+        calls=1, repeats=1))
+    errs = [compare_soft(f"room 1280x720x8spp x4 (plain in {BAND_ROWS}-row bands)", kernel,
+                         plain[0])]
+    k6_ms = cuda_ms(lambda: gradkernel.launch_soft_loss_grad(packed, lay, cfg, 1, target, alpha,
+                                                             zero_map),
+                    calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)
+    print(f"K6 1280x720: ms={k6_ms} plain_banded_ms={ms[0]} plain_band_peak_gb={peak:.3f}",
+          flush=True)
+    args = inverse_render.parse_args(["--param", "position"])
+    ir_cfg, ir_camera, ir_target, scene0 = inverse_render.setup(args, device)
+    truth = inverse_render.make_scene(inverse_render.TRUE_X, inverse_render.TRUE_GLOW, device)
+    label = f"inverse_render position {ir_cfg.width}x{ir_cfg.height}x{ir_cfg.samples}spp"
+    light_err = check_close(f"{label} target", megakernel.render_light_cuda(
+        truth, ir_camera, ir_cfg, args.seed), renderer.render_light(truth, ir_camera, ir_cfg,
+                                                                     args.seed))
+    ir_ref = ("spheres", inverse_render.SOFT_SPHERE)
+    packed, _, zero_map, alpha, target = soft_inputs(scene0, ir_camera, ir_cfg, ir_ref,
+                                                     inverse_render.EDGE_WIDTH, ir_target)
+    errs.append(compare_soft(label, gradkernel.render_soft_loss_and_grad_cuda(
+        packed, scene0, ir_camera, ir_cfg, args.seed, target, alpha, zero_map),
+        gradkernel.render_soft_loss_and_grad_plain(packed, scene0, ir_camera, ir_cfg, args.seed,
+                                                   target, alpha, zero_map)))
+    return {"ms": k6_ms, "plain_ms": ms[0], "plain_band_peak_gb": peak, "light_err": light_err,
+            "err": max(e for e, _ in errs), "rel": max(r for _, r in errs)}
+
+
+def soft_train(device, ref, calls: int, repeats: int):
+    """Phase 13: make_train_step(impl="kernel", soft_object_ref=ref) at
+    TRAIN; one warm-up step, then timed steps. Returns (ms per step, the
+    trained scene, its optimizer, the target)."""
+    cfg = RenderConfig(**TRAIN)
+    scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=device)
+    step, init = diff.make_train_step(cfg, 1e-3, camera, impl="kernel", soft_object_ref=ref,
+                                      edge_width=SOFT_EDGE)
+    state = list(init(scene))
+    start = params.pack(state[0], camera).detach().clone()
+    losses = []
+
+    def one():
+        state[0], state[1], loss, _ = step(state[0], state[1], len(losses) + 1, target)
+        losses.append(loss)
+
+    one()  # warm-up
+    ms = cuda_ms(one, calls=calls, repeats=repeats)
+    out = torch.stack(losses).cpu().numpy()
+    assert np.isfinite(out).all(), out
+    vec = params.pack(state[0], camera).detach()
+    assert np.isfinite(vec.cpu().numpy()).all() and not torch.equal(vec, start), \
+        f"{ref}: the step did not move the scene"
+    rays = cfg.width * cfg.height * cfg.samples
+    med = statistics.median(ms)
+    print(f"soft train step {ref}: ms={ms} median={med} grad_mrays_per_s={rays / med / 1e3} "
+          f"losses {out[0]} -> {out[-1]}", flush=True)
+    return ms, len(losses), state, target
+
+
+def soft_step_split(device, state, target):
+    """Phase 13: the parts of the sphere soft step alone, at its state:
+    K6, the coverage's forward and backward, and Adam. It runs after the
+    main path's counts are read: its launches are timing runs. Returns a
+    dict of ms lists."""
+    cfg = RenderConfig(**TRAIN)
+    camera = camera_for(("yxz",), device)
+    scene, opt = state
+    ref = SOFT_REFS["room_with_sphere"]
+    packed, lay, zero_map, alpha, target = soft_inputs(scene, camera, cfg, ref, SOFT_EDGE, target)
+
+    def coverage():
+        vec = packed.clone().requires_grad_(True)
+        a = diff.object_coverage(params.unpack(vec, scene, camera)[0], ref, camera, cfg,
+                                 SOFT_EDGE)
+        a.backward(alpha)
+
+    return {
+        "k6": cuda_ms(lambda: gradkernel.launch_soft_loss_grad(packed, lay, cfg, 1, target, alpha,
+                                                               zero_map),
+                      calls=TRAIN_CALLS, repeats=TRAIN_REPEATS),
+        "coverage_fwd_bwd": cuda_ms(coverage, calls=TRAIN_CALLS, repeats=TRAIN_REPEATS),
+        "adam": cuda_ms(opt.step, calls=TRAIN_CALLS, repeats=TRAIN_REPEATS),
+    }
+
+
+def run_inverse_render_position() -> int:
+    """Phase 13: the entry point of the soft path on the card. Returns its
+    steps."""
+    args = inverse_render.parse_args(["--param", "position"])
+    before = gradkernel.SOFT_LAUNCHES
+    rc = inverse_render.main(["--param", "position", "--impl", "kernel", "--device", "cuda"])
+    assert rc == 0, "inverse_render --param position: x not recovered"
+    assert gradkernel.SOFT_LAUNCHES - before == args.steps, "one K6 launch per step"
+    return args.steps
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -441,12 +735,13 @@ def main() -> int:
     max_err = check_kernel_against_plain(device)
 
     phase("4 main path: RenderEngine -> kernel, headline shape")
-    megakernel.LAUNCHES = gradkernel.LAUNCHES = 0
+    reset_counts()
     engine, engine_ms = main_path(device)
     phase("5 app")
     run_app()
     launches = {"render": (megakernel.LAUNCHES, gradkernel.LAUNCHES)}
     assert launches["render"] == (1 + CALLS * REPEATS + 2, 0), launches
+    assert counts()["k2_rows"] == counts()["k5"] == counts()["k6"] == 0, counts()
 
     phase("6 kernel alone and plain pipeline, headline shape")
     kernel_ms, plain_ms, headline_err = time_kernel_and_plain(engine)
@@ -472,13 +767,14 @@ def main() -> int:
     grad_err, grad_rel = max(grad_err, k4["err"], ir_err), max(grad_rel, k4["rel"], ir_rel)
 
     phase("9 training main path: packed Adam step -> K4, 1280x720")
-    megakernel.LAUNCHES = gradkernel.LAUNCHES = 0
+    reset_counts()
     train_ms = {f: train_main_path(device, f) for f in TRAIN_FRAMES}
     phase("10 inverse_render --impl kernel")
     run_inverse_render()
     launches["train"] = (megakernel.LAUNCHES, gradkernel.LAUNCHES)
     n_steps = (1 + TRAIN_CALLS * TRAIN_REPEATS) * len(TRAIN_FRAMES)
     assert launches["train"] == (2, n_steps + 2 * 60), launches
+    assert counts()["k2_rows"] == counts()["k5"] == counts()["k6"] == 0, counts()
     train_rays = TRAIN["width"] * TRAIN["height"] * TRAIN["samples"]
     small_rays = TRAIN_SMALL["width"] * TRAIN_SMALL["height"] * TRAIN_SMALL["samples"]
     med_small, med_plain = statistics.median(k4["k4_small_ms"]), statistics.median(k4["plain_small_ms"])
@@ -502,13 +798,58 @@ def main() -> int:
         "plain_peak_gb_256x144": k4["plain_small_peak_gb"],
     }), flush=True)
 
+    phase("11 light-VJP kernel K5 and rows kernel K2 vs plain on the card")
+    vjp_err, vjp_rel = check_light_vjp(device)
+    k5 = time_light_vjp(device)
+    vjp_err, vjp_rel = max(vjp_err, k5["err"]), max(vjp_rel, k5["rel"])
+    phase("12 soft value-and-grad kernel K6 vs plain on the card")
+    soft_err, soft_rel = check_soft_kernel(device)
+    k6 = time_soft_kernel(device)
+    max_err = max(max_err, k6["light_err"])
+    soft_err, soft_rel = max(soft_err, k6["err"]), max(soft_rel, k6["rel"])
+
+    phase("13 soft training main path: make_train_step(soft) -> K6, 1280x720")
+    reset_counts()
+    soft_ms, n_soft, soft_state, soft_target = soft_train(
+        device, SOFT_REFS["room_with_sphere"], TRAIN_CALLS, TRAIN_REPEATS)
+    fallback_ms, n_fallback, _, _ = soft_train(device, FALLBACK_REF, TRAIN_CALLS, 1)
+    n_ir = run_inverse_render_position()
+    launches["soft"] = counts()
+    expect = {"k1": 2 * n_fallback + 1, "k2_rows": 0, "k4": 0, "k5": 2 * n_fallback,
+              "k6": n_soft + n_ir}
+    assert launches["soft"] == expect, (launches["soft"], expect)
+    split = soft_step_split(device, soft_state, soft_target)
+    soft_med = statistics.median(soft_ms)
+    split_med = {k: statistics.median(v) for k, v in split.items()}
+    print(json.dumps({
+        "cell": "room_with_sphere 1280x720 8spp 4 bounces, soft train step, sphere 0, zero "
+                "target, edge width 0.05, lr 1e-3, no hints",
+        "card": card,
+        "soft_step_ms": soft_ms, "soft_step_ms_median": soft_med,
+        "soft_grad_mrays_per_s": train_rays / soft_med / 1e3,
+        "split_ms": split, "split_ms_median": split_med,
+        "split_rest_ms": soft_med - sum(split_med.values()),
+        "fallback_spaces0_step_ms": fallback_ms,
+        "fallback_step_ms_median": statistics.median(fallback_ms),
+        "k6_ms_1280x720": k6["ms"], "k6_ms_1280x720_median": statistics.median(k6["ms"]),
+        "k6_plain_banded_ms_1280x720": k6["plain_ms"],
+        "k6_plain_band_peak_gb": k6["plain_band_peak_gb"],
+        "k5_ms_1280x720": k5["ms"], "k5_ms_1280x720_median": statistics.median(k5["ms"]),
+        "k5_plain_ms_1280x720": k5["plain_ms"], "k5_plain_peak_gb": k5["plain_peak_gb"],
+        "launches": launches["soft"],
+    }), flush=True)
+
     summary = {"kernels": [{
         "name": "forward_megakernel",
         "route": "cuda",
         "source": "fourd_ray_tracing_tpu_torch/csrc/megakernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/megakernel.py:316",
-        "launches": launches["render"][0] + launches["train"][0],
-        "launches_by_path": {"render": launches["render"][0], "train": launches["train"][0]},
+        "launches": launches["render"][0] + launches["train"][0] + launches["soft"]["k1"],
+        "launches_by_path": {"render": launches["render"][0], "train": launches["train"][0],
+                             "soft": launches["soft"]["k1"]},
+        # K2 is this kernel over (F, P) params rows (render_light_pair); no
+        # main path renders rows, phase 11 holds them bitwise single renders.
+        "rows_launches": launches["soft"]["k2_rows"],
         "max_abs_err": max_err,
         "tolerance": CHECK_BOUNDS,
         "ms": med_kernel,
@@ -533,6 +874,34 @@ def main() -> int:
         "plain_ms_4_frames": k4["plain_full_ms"][4],
         "ms_256x144": med_small,
         "plain_ms_256x144": med_plain,
+        "build_s": build_s,
+    }, {
+        "name": "light_vjp_kernel",
+        "route": "cuda",
+        "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
+        "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:294",
+        "launches": launches["soft"]["k5"],
+        "max_abs_err": vjp_err,
+        "max_grad_mixed_rel_err": vjp_rel,
+        "tolerance": GRAD_BOUNDS,
+        "ms": statistics.median(k5["ms"]),
+        "plain_ms": k5["plain_ms"],
+        "shape": "room_with_sphere 1280x720 8spp 4 bounces, 1 row, seeded random cotangent "
+                 "(plain version whole)",
+        "build_s": build_s,
+    }, {
+        "name": "soft_loss_grad_kernel",
+        "route": "cuda",
+        "source": "fourd_ray_tracing_tpu_torch/csrc/softkernel.cu",
+        "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:1207",
+        "launches": launches["soft"]["k6"],
+        "max_abs_err": soft_err,
+        "max_grad_mixed_rel_err": soft_rel,
+        "tolerance": GRAD_BOUNDS,
+        "ms": statistics.median(k6["ms"]),
+        "plain_ms": k6["plain_ms"],
+        "shape": "room_with_sphere 1280x720 8spp 4 bounces, sphere 0, zero target, edge "
+                 f"width 0.05 (plain version in {BAND_ROWS}-row bands)",
         "build_s": build_s,
     }]}
     print(json.dumps(summary), flush=True)

@@ -8,6 +8,11 @@
 // environment light, Bernoulli mirror vs uniform-S^3 diffuse with masked
 // counter RNG, shade-only last bounce), and the mean light.
 //
+// With a row stride it is also K2, ops/pallas/megakernel.py::_kernel with
+// frame_params=True (render_light_pallas_multi, _RowView): the frame axis
+// carries F same-structure scenes instead of F seeds, each block reading
+// its own params row. A row is bitwise the single-scene launch.
+//
 // Design. One thread per (frame, view, y, x) pixel: the trace is a long
 // per-pixel control-flow program (runtime primitive loops, per-lane RNG
 // counters, uint32 hashing, float bit tricks), which one thread states
@@ -44,11 +49,12 @@
 namespace {
 
 __global__ void __launch_bounds__(kBlock)
-forward_kernel(const float* __restrict__ params, const uint32_t* __restrict__ seeds, Layout L,
-               int width, int height, int samples, int reflections, float small_indent,
-               float* __restrict__ out) {
+forward_kernel(const float* __restrict__ params, long long row_stride,
+               const uint32_t* __restrict__ seeds, Layout L, int width, int height, int samples,
+               int reflections, float small_indent, float* __restrict__ out) {
   extern __shared__ float P[];
-  for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = params[i];
+  const float* row = params + blockIdx.y * row_stride;
+  for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = row[i];
   __syncthreads();
 
   const long long total = static_cast<long long>(L.n_views) * height * width;
@@ -77,23 +83,27 @@ forward_kernel(const float* __restrict__ params, const uint32_t* __restrict__ se
 
 }  // namespace
 
-// Launch on ``stream``: out (F, V, H, W, 3) float32 <- params (layout[13],) float32
-// and seeds (F,) uint32. Returns cudaGetLastError() after the launch.
-extern "C" int fourd_forward_launch(const float* params, const uint32_t* seeds, int n_frames,
-                                    const int* layout, int width, int height, int samples,
-                                    int reflections, float small_indent, float* out,
-                                    void* stream) {
+// Launch on ``stream``: out (F, V, H, W, 3) float32 <- params and seeds (F,)
+// uint32. Frame f reads the P = layout[13] floats at params + f * row_stride:
+// row_stride 0 renders one scene at F seeds (K1), row_stride P renders F
+// same-structure scenes, one params row per frame (K2; the wrapper then
+// gives every frame the same seed). Returns cudaGetLastError() after the
+// launch.
+extern "C" int fourd_forward_launch(const float* params, long long row_stride,
+                                    const uint32_t* seeds, int n_frames, const int* layout,
+                                    int width, int height, int samples, int reflections,
+                                    float small_indent, float* out, void* stream) {
   Layout L;
   int* dst = reinterpret_cast<int*>(&L);
   for (int i = 0; i < kLayoutInts; ++i) dst[i] = layout[i];
   const long long total = static_cast<long long>(L.n_views) * height * width;
   const size_t smem = static_cast<size_t>(L.size) * sizeof(float);
-  if (total <= 0 || n_frames <= 0 || samples <= 0 || smem > 48 * 1024 ||
+  if (total <= 0 || n_frames <= 0 || samples <= 0 || row_stride < 0 || smem > 48 * 1024 ||
       (total + kBlock - 1) / kBlock > 0x7FFFFFFFLL || n_frames > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   dim3 grid(static_cast<unsigned>((total + kBlock - 1) / kBlock), static_cast<unsigned>(n_frames));
   forward_kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-      params, seeds, L, width, height, samples, reflections, small_indent, out);
+      params, row_stride, seeds, L, width, height, samples, reflections, small_indent, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,26 +1,43 @@
-"""Differentiable rendering, hard loss: losses, gradients, training steps.
+"""Differentiable rendering: losses, gradients, training steps.
 
-Counterpart of fourd_ray_tracing_tpu/diff.py:67-87, 457-484 and 895-1065.
-Gradients are those of the estimator at a fixed seed (the JAX package's
-diff.py:8-24): uniforms are constants, hit/miss and mirror/diffuse
-decisions stay at their sampled outcomes, and cotangents flow through the
-continuous geometry and shading.
+Counterpart of fourd_ray_tracing_tpu/diff.py:67-402, 457-484, 542-627,
+690-726 and 829-1065. Gradients are those of the estimator at a fixed seed
+(the JAX package's diff.py:8-24): uniforms are constants, hit/miss and
+mirror/diffuse decisions stay at their sampled outcomes, and cotangents
+flow through the continuous geometry and shading. So an object whose only
+effect on the image is its outline gets no position gradient from
+``image_loss``; ``soft_image_loss`` gives it one, by blending the render
+with and without the object through a differentiable primary-ray
+coverage.
 
-Two routes compute them. The plain one is torch autograd over the plain
-pipeline (models/renderer.py), the counterpart of ``impl="xla"``. The
-kernel one is the value-and-grad kernel K4 (ops/cuda/gradkernel.py), the
-counterpart of ``impl="pallas"``: ``ImageLoss`` launches it once in its
-forward and scales the saved gradient in its backward. On CPU tensors the
-kernel route runs the plain expression instead, as every kernel wrapper of
-the port does.
+Two routes compute the gradients. The plain one is torch autograd over
+the plain pipeline (models/renderer.py), the counterpart of
+``impl="xla"``. The kernel one is the counterpart of ``impl="pallas"``:
+
+* ``ImageLoss`` (hard loss) launches the value-and-grad kernel K4 once in
+  its forward and scales the saved gradient in its backward;
+* ``SoftImageLoss`` (soft loss of a sphere) launches the fused soft
+  kernel K6 once; the coverage alpha is plain torch outside it, and the
+  kernel returns alpha's cotangent for autograd to carry back;
+* ``RenderLight`` renders the mean light with K1 (K2 for params rows) and
+  differentiates it with the light-VJP kernel K5, so any torch loss over
+  rendered light trains on the kernels: the soft loss of a hyperplane,
+  which cannot be zeroed into a miss, and ``render_light_pair``.
+
+On CPU tensors the kernel route runs the plain expression instead, as
+every kernel wrapper of the port does.
 
 Not ported yet, and raising: mesh sharding (ROADMAP queue 1, item 12),
-the soft-silhouette loss (item 11) and the frozen static hints (item 4).
+the frozen static hints (item 4), and the coverage, ``drop_object`` and
+``zero_object`` of the composite primitives (item 4). Without hints the
+JAX package's ``_stop_frozen_for_coverage`` and ``_hints_for_dropped``
+are the identity, so they are left out.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -28,17 +45,16 @@ from fourd_ray_tracing_tpu_torch.camera import Camera
 from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
 from fourd_ray_tracing_tpu_torch.models.scene import Scene
-from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel
+from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel, megakernel
+from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
+from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4, dot
 
 IMPLS = ("plain", "kernel")
 
 
-def _check_unported(mesh=None, soft_sphere_index=None, soft_object_ref=None) -> None:
+def _check_unported(mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError("mesh sharding is not ported yet (ROADMAP queue 1, item 12)")
-    if soft_sphere_index is not None or soft_object_ref is not None:
-        raise NotImplementedError(
-            "the soft-silhouette loss is not ported yet (ROADMAP queue 1, item 11)")
 
 
 def image_loss(scene: Scene, camera: Camera, cfg: RenderConfig, seed, target,
@@ -56,6 +72,132 @@ def render_grad(scene: Scene, camera: Camera, cfg: RenderConfig, seed, target, m
     loss, grad = gradkernel.loss_and_grad_plain(params.pack(scene, camera), scene, camera, cfg,
                                                 seed, target)
     return loss, params.unpack(grad, scene, camera)
+
+
+# --- Soft-silhouette boundary gradients --------------------------------------
+
+COMPOSITE_KINDS = ("cylinders", "cylinders_union", "hypercube", "tiger")
+
+
+def _check_kind(kind) -> None:
+    if kind in COMPOSITE_KINDS:
+        raise NotImplementedError(
+            f"the soft loss of {kind!r} needs the composite primitives, which are not "
+            "ported yet (ROADMAP queue 1, item 4)")
+    if kind not in ("spheres", "spaces"):
+        raise ValueError(f"unknown object kind: {kind!r}")
+
+
+def _inv_width(edge_width: float) -> float:
+    """1 / edge_width in float32, as jnp computes it."""
+    return float(np.float32(1.0) / np.float32(edge_width))
+
+
+def _primary_rays(camera: Camera, cfg: RenderConfig):
+    """Every pixel's primary ray: (origin, direction), (H, W) or (V, H, W)
+    components."""
+    scr_x, scr_y = renderer.screen_coords(cfg, camera.focus.x.device)
+    d = renderer.primary_directions(camera, scr_x, scr_y)
+    o = renderer._expand_cam_vec(camera.focus, d.x.dim())
+    return Vec4(*(c.expand(d.x.shape) for c in o)), d
+
+
+def _sphere_coverage(center: Vec4, r, o: Vec4, d: Vec4, inv_w: float) -> torch.Tensor:
+    """sigmoid((r - d_perp) / w), d_perp the distance of the center from
+    the ray line, gated by the approach margin; 1 inside the sphere."""
+    po = center - o
+    b = dot(po, d)
+    l2 = dot(po, po)
+    perp2 = torch.clamp_min(l2 - b * b, 0.0)
+    perp = torch.sqrt(perp2 + 1e-20)
+    alpha = torch.sigmoid((r - perp) * inv_w)
+    # Receding rays cannot see the sphere: gate on the approach margin.
+    approaching = torch.sigmoid((b + r) * inv_w)
+    inside = l2 < r * r  # camera inside the sphere: fully covered
+    return torch.where(inside, torch.ones_like(alpha), alpha * approaching)
+
+
+def _plane_coverage(sp, o: Vec4, d: Vec4, inv_w: float) -> torch.Tensor:
+    """A double-sided hyperplane is hit iff the ray heads toward it; the
+    product s * cos relaxes that test."""
+    s = dot(sp.point - o, sp.norm)
+    cos_n = dot(d, sp.norm)
+    return torch.sigmoid(s * cos_n * inv_w * 4.0)
+
+
+def primary_coverage(center: Vec4, r, camera: Camera, cfg: RenderConfig,
+                     edge_width: float) -> torch.Tensor:
+    """Differentiable per-pixel coverage of a sphere by the primary rays,
+    (H, W) or (V, H, W), values in (0, 1]."""
+    o, d = _primary_rays(camera, cfg)
+    return _sphere_coverage(center, r, o, d, _inv_width(edge_width))
+
+
+def object_coverage(scene: Scene, object_ref, camera: Camera, cfg: RenderConfig,
+                    edge_width: float) -> torch.Tensor:
+    """Differentiable primary-ray coverage of one scene object,
+    ``object_ref`` = ("spheres", i) or ("spaces", i); (H, W) or (V, H, W)."""
+    kind, idx = object_ref
+    _check_kind(kind)
+    o, d = _primary_rays(camera, cfg)
+    inv_w = _inv_width(edge_width)
+    if kind == "spheres":
+        sp = scene.spheres[idx]
+        return _sphere_coverage(sp.center, sp.r, o, d, inv_w)
+    return _plane_coverage(scene.spaces[idx], o, d, inv_w)
+
+
+def drop_sphere(scene: Scene, sphere_index: int) -> Scene:
+    """The scene without sphere ``sphere_index``."""
+    return scene._replace(spheres=tuple(s for k, s in enumerate(scene.spheres)
+                                        if k != sphere_index))
+
+
+def drop_object(scene: Scene, object_ref) -> Scene:
+    """The scene without the referenced object (a change of structure)."""
+    kind, idx = object_ref
+    _check_kind(kind)
+    items = getattr(scene, kind)
+    return scene._replace(**{kind: tuple(x for k, x in enumerate(items) if k != idx)})
+
+
+def zero_object(scene: Scene, object_ref) -> Scene:
+    """The scene with the referenced sphere made a guaranteed miss, keeping
+    its structure: radius 0, so the discriminant is never positive and
+    every ray is tangent (models/scene.py). The light is bitwise that of
+    ``drop_object``. A hyperplane has no miss radius: ("spaces", i) raises
+    ValueError, and the soft loss falls back to drop_object for it."""
+    kind, idx = object_ref
+    _check_kind(kind)
+    if kind == "spaces":
+        raise ValueError("zero_object does not support kind 'spaces' (hyperplanes fall back "
+                         "to drop_object)")
+    spheres = tuple(s._replace(r=torch.zeros_like(s.r)) if k == idx else s
+                    for k, s in enumerate(scene.spheres))
+    return scene._replace(spheres=spheres)
+
+
+def _blend_loss(alpha, img_with, img_without, target) -> torch.Tensor:
+    alpha = alpha[..., None]
+    img = alpha * img_with + (1.0 - alpha) * img_without
+    return torch.mean((img - target) ** 2)
+
+
+def soft_image_loss(scene: Scene, camera: Camera, cfg: RenderConfig, seed, target,
+                    sphere_index: int = 0, edge_width: float = 0.05, mesh=None,
+                    object_ref=None) -> torch.Tensor:
+    """MSE with soft-silhouette gradients for one designated object: the
+    scene and the scene without the object render at the same seed and
+    blend by ``object_coverage``. ``object_ref`` defaults to ("spheres",
+    sphere_index). The plain reference of the soft training slice."""
+    _check_unported(mesh=mesh)
+    if object_ref is None:
+        object_ref = ("spheres", sphere_index)
+    without = drop_object(scene, object_ref)
+    img_with = renderer.render_image(scene, camera, cfg, seed)
+    img_without = renderer.render_image(without, camera, cfg, seed)
+    alpha = object_coverage(scene, object_ref, camera, cfg, edge_width)
+    return _blend_loss(alpha, img_with, img_without, target)
 
 
 class ImageLoss(torch.autograd.Function):
@@ -89,6 +231,117 @@ def image_loss_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camera,
     return ImageLoss.apply(vec, like_scene, like_camera, cfg, seed, target)
 
 
+class RenderLight(torch.autograd.Function):
+    """The mean light of the scene(s) packed in ``vec`` at one seed, through
+    the kernels: a (P,) vector renders with K1 and differentiates with K5
+    (the counterpart of the pallas_render_light custom_vjp,
+    diff.py:542-576); (F, P) params rows render with K2 and differentiate
+    with K5's multi-row launch (pallas_render_light_pair, diff.py:589-627).
+    CUDA only."""
+
+    @staticmethod
+    def forward(ctx, vec, like_scene, like_camera, cfg, seed):
+        renderer.check_supported(cfg)
+        words, batched = renderer.seed_words(seed)
+        if batched:
+            raise ValueError("the light-VJP path takes one scalar seed")
+        rows = vec.dim() == 2
+        seeds = megakernel.seed_tensor(words * (vec.shape[0] if rows else 1), vec.device)
+        light = megakernel.launch_forward(vec.detach().contiguous(),
+                                          params.layout(like_scene, like_camera), cfg, seeds)
+        if like_camera.top.x.dim() == 0:
+            light = light[:, 0]
+        ctx.save_for_backward(vec)
+        ctx.meta = (like_scene, like_camera, cfg, seed)
+        return light if rows else light[0]
+
+    @staticmethod
+    def backward(ctx, cot):
+        (vec,) = ctx.saved_tensors
+        like_scene, like_camera, cfg, seed = ctx.meta
+        grad = gradkernel.render_light_vjp_cuda(vec, like_scene, like_camera, cfg, seed, cot)
+        return grad, None, None, None, None
+
+
+def render_light_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camera,
+                        cfg: RenderConfig, seed) -> torch.Tensor:
+    """Mean light (H, W, 3) or (V, H, W, 3) of the scene and camera packed
+    in ``vec`` (P,), differentiable w.r.t. ``vec``: K1 forward and K5
+    backward for a CUDA vector, the plain pipeline for a CPU one."""
+    if vec.device.type == "cpu":
+        scene, camera = params.unpack(vec, like_scene, like_camera)
+        return renderer.render_light(scene, camera, cfg, seed)
+    if vec.device.type != "cuda":
+        raise ValueError(f"render_light_kernel takes CPU or CUDA tensors, got {vec.device}")
+    return RenderLight.apply(vec, like_scene, like_camera, cfg, seed)
+
+
+def render_light_pair(scene_a: Scene, scene_b: Scene, camera: Camera, cfg: RenderConfig,
+                      seed) -> torch.Tensor:
+    """Mean-light renders of two same-structure scenes (e.g. a scene and its
+    ``zero_object`` copy) at one seed, stacked (2, ...): one K2 launch
+    forward and one two-row K5 launch backward on the card. Row i equals
+    ``render_light_kernel`` of scene i; differentiable w.r.t. both scenes
+    and the camera, whose gradient sums over the rows."""
+    rows = params.stack_rows((scene_a, scene_b), camera)
+    if rows.device.type == "cpu":
+        return torch.stack([renderer.render_light(*params.unpack(row, scene_a, camera), cfg, seed)
+                            for row in rows])
+    if rows.device.type != "cuda":
+        raise ValueError(f"render_light_pair takes CPU or CUDA tensors, got {rows.device}")
+    return RenderLight.apply(rows, scene_a, camera, cfg, seed)
+
+
+class SoftImageLoss(torch.autograd.Function):
+    """The soft loss of the scene packed in ``vec`` blended with its
+    zero-map copy by ``alpha``, through K6: the forward launches it once
+    and keeps the parameter and alpha gradients, the backward scales them
+    by the incoming cotangent (the counterpart of the _soft_kernel_loss
+    custom_vjp, diff.py:690-726). CUDA only."""
+
+    @staticmethod
+    def forward(ctx, vec, alpha, like_scene, like_camera, cfg, seed, target, zero_map):
+        loss, grad, g_alpha = gradkernel.render_soft_loss_and_grad_cuda(
+            vec, like_scene, like_camera, cfg, seed, target, alpha, zero_map)
+        ctx.save_for_backward(grad, g_alpha)
+        return loss
+
+    @staticmethod
+    def backward(ctx, ct):
+        grad, g_alpha = ctx.saved_tensors
+        return grad * ct, g_alpha * ct, None, None, None, None, None, None
+
+
+def soft_image_loss_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camera,
+                           cfg: RenderConfig, seed, target, object_ref,
+                           edge_width: float = 0.05) -> torch.Tensor:
+    """``soft_image_loss`` of the scene and camera packed in ``vec`` (P,),
+    differentiable w.r.t. ``vec`` (the counterpart of soft_image_loss_pallas,
+    diff.py:829-892). On the card, a sphere runs one K6 launch, its coverage
+    alpha plain torch; a hyperplane, which cannot be zeroed into a miss,
+    renders with and without itself through two ``render_light_kernel``
+    nodes (two K1 and two K5 launches) and blends in torch. A CPU vector
+    takes the plain expression."""
+    scene, camera = params.unpack(vec, like_scene, like_camera)
+    if vec.device.type == "cpu":
+        return soft_image_loss(scene, camera, cfg, seed, target, edge_width=edge_width,
+                               object_ref=object_ref)
+    if vec.device.type != "cuda":
+        raise ValueError(f"soft_image_loss_kernel takes CPU or CUDA tensors, got {vec.device}")
+    alpha = object_coverage(scene, object_ref, camera, cfg, edge_width)
+    if object_ref[0] == "spaces":
+        without = drop_object(scene, object_ref)
+        light_with = render_light_kernel(vec, like_scene, like_camera, cfg, seed)
+        light_without = render_light_kernel(params.pack(without, camera),
+                                            drop_object(like_scene, object_ref), like_camera,
+                                            cfg, seed)
+        return _blend_loss(alpha, light_to_color(light_with, cfg.light_coefficient),
+                           light_to_color(light_without, cfg.light_coefficient),
+                           torch.as_tensor(target, dtype=torch.float32, device=vec.device))
+    zero_map = params.soft_zero_map(like_scene, like_camera, object_ref)
+    return SoftImageLoss.apply(vec, alpha, like_scene, like_camera, cfg, seed, target, zero_map)
+
+
 def frame_seeds(seed, frames_per_step: int):
     """The step's seed, or for a minibatch step its frames' seeds
     seed * F + arange(F) as uint32 words (diff.py:1055-1057)."""
@@ -100,10 +353,10 @@ def frame_seeds(seed, frames_per_step: int):
     return [(words[0] * frames_per_step + k) & 0xFFFFFFFF for k in range(frames_per_step)]
 
 
-def _check_impl(impl: str, frames_per_step: int) -> None:
+def _check_impl(impl: str, frames_per_step: int, soft: bool = False) -> None:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if frames_per_step > 1 and impl != "kernel":
+    if frames_per_step > 1 and (impl != "kernel" or soft):
         raise ValueError("frames_per_step > 1 is the value-and-grad kernel's minibatch "
                          "(impl='kernel', hard loss only)")
 
@@ -111,7 +364,7 @@ def _check_impl(impl: str, frames_per_step: int) -> None:
 def make_train_step(cfg: RenderConfig, lr: float, camera: Camera,
                     param_filter: Optional[Callable] = None, impl: str = "plain",
                     frames_per_step: int = 1, mesh=None, soft_sphere_index=None,
-                    soft_object_ref=None):
+                    soft_object_ref=None, edge_width: float = 0.05):
     """Inverse-rendering step over the scene's leaves with
     ``torch.optim.Adam(lr)``. Returns ``(step, init)``:
 
@@ -125,11 +378,17 @@ def make_train_step(cfg: RenderConfig, lr: float, camera: Camera,
     gradients to apply (zeroing frozen parameters). ``impl="kernel"``
     trains through K4 (``image_loss_kernel``); ``frames_per_step`` > 1,
     kernel only, averages that many estimator samples per step in one
-    launch.
+    launch. ``soft_sphere_index`` or ``soft_object_ref`` switches to the
+    soft-silhouette loss of that object, with coverage band ``edge_width``
+    (``soft_image_loss``; with ``impl="kernel"`` ``soft_image_loss_kernel``,
+    one K6 launch per step for a sphere), which gives silhouette-driven
+    position and radius gradients; it takes one frame per step.
     """
-    _check_unported(mesh, soft_sphere_index, soft_object_ref)
-    _check_impl(impl, frames_per_step)
+    _check_unported(mesh)
+    soft = soft_sphere_index is not None or soft_object_ref is not None
+    _check_impl(impl, frames_per_step, soft)
     renderer.check_supported(cfg)
+    ref = soft_object_ref or ("spheres", soft_sphere_index or 0)
 
     def init(scene: Scene):
         scene = params.map_leaves(
@@ -139,7 +398,13 @@ def make_train_step(cfg: RenderConfig, lr: float, camera: Camera,
     def loss_fn(scene, seed, target):
         if impl == "kernel":
             vec = params.pack(scene, camera)
+            if soft:
+                return soft_image_loss_kernel(vec, scene, camera, cfg, seed, target, ref,
+                                              edge_width)
             return image_loss_kernel(vec, scene, camera, cfg, seed, target)
+        if soft:
+            return soft_image_loss(scene, camera, cfg, seed, target, edge_width=edge_width,
+                                   object_ref=ref)
         return renderer.image_loss(scene, camera, cfg, seed, target)
 
     def step(scene, optimizer, seed, target):

@@ -2,24 +2,28 @@
 
 Counterpart of the JAX package's tools/inverse_render.py, with the same
 flags and defaults: render a target image of the lamp scene, start from a
-perturbed lamp glow, and optimize it back with Adam, logging one JSON
-metrics line every ``--log-every`` steps. ``--impl kernel`` trains through
-the value-and-grad kernel (diff.image_loss_kernel: one K4 launch per step
-on the card), ``--impl plain`` through torch autograd over the plain
-pipeline; ``--packed`` runs the packed-space loop
-(diff.make_packed_train_step). Exits 0 when the recovered value is within
-``--tol`` of the truth.
+perturbed lamp, and optimize it back with Adam, logging one JSON metrics
+line every ``--log-every`` steps. ``--param glow`` recovers the lamp's
+glow with the plain MSE; ``--param position`` recovers the lamp's center x
+through its silhouette, with the soft-silhouette loss of the lamp
+(sphere 1, edge width 0.08). ``--impl kernel`` trains through the kernels
+(one K4 launch per step for glow, one K6 launch per step for position),
+``--impl plain`` through torch autograd over the plain pipeline;
+``--packed`` runs the packed-space loop (diff.make_packed_train_step,
+hard loss only). Exits 0 when the recovered value is within ``--tol`` of
+the truth.
 
     python -m fourd_ray_tracing_tpu_torch.inverse_render --param glow --impl kernel
+    python -m fourd_ray_tracing_tpu_torch.inverse_render --param position --impl kernel
 
-Not ported yet, and raising: ``--param position`` (the soft-silhouette
-loss, ROADMAP queue 1, item 11), ``--mesh`` (item 12), ``--freeze-hints``
-(item 4) and ``--ckpt`` (item 13).
+Not ported yet, and raising: ``--mesh`` (ROADMAP queue 1, item 12),
+``--freeze-hints`` (item 4) and ``--ckpt`` (item 13).
 """
 from __future__ import annotations
 
 import argparse
 import sys
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -34,6 +38,8 @@ from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
 from fourd_ray_tracing_tpu_torch.utils.logging import log0, log_metrics
 
 TRUE_GLOW, INIT_GLOW = 20.0, 8.0
+TRUE_X, INIT_X = 1.4, 1.0
+SOFT_SPHERE, EDGE_WIDTH = 1, 0.08  # the lamp, and the soft loss's coverage band
 
 
 def make_scene(cx: float, glow: float, device) -> Scene:
@@ -56,6 +62,40 @@ def read_glow(scene: Scene) -> float:
     return float(scene.spheres[1].material.glow.detach())
 
 
+def only_lamp_center_x(g: Scene) -> Scene:
+    """The gradient filter of --param position: every gradient but the
+    lamp's center x zeroed."""
+    z = params.map_leaves(torch.zeros_like, g)
+    center = z.spheres[1].center._replace(x=g.spheres[1].center.x)
+    return z._replace(spheres=(z.spheres[0], z.spheres[1]._replace(center=center)))
+
+
+def read_center_x(scene: Scene) -> float:
+    return float(scene.spheres[1].center.x.detach())
+
+
+class Task(NamedTuple):
+    """What --param recovers: its true and starting values, the default
+    learning rate and tolerance, the gradient filter, the reader, and the
+    lamp scene at a value of it."""
+
+    true: float
+    init: float
+    lr: float
+    tol: float
+    param_filter: Callable
+    read: Callable
+    scene: Callable
+
+
+def task(param: str) -> Task:
+    if param == "glow":
+        return Task(TRUE_GLOW, INIT_GLOW, 0.5, 2.0, only_lamp_glow, read_glow,
+                    lambda glow, device: make_scene(1.0, glow, device))
+    return Task(TRUE_X, INIT_X, 0.03, 0.1, only_lamp_center_x, read_center_x,
+                lambda x, device: make_scene(x, TRUE_GLOW, device))
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--param", choices=("glow", "position"), default="glow")
@@ -68,8 +108,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=11)
     ap.add_argument("--mesh", action="store_true", help="not ported yet (ROADMAP queue 1, item 12)")
     ap.add_argument("--impl", choices=diff.IMPLS, default="plain",
-                    help="kernel = the value-and-grad kernel K4 (one launch per step on the "
-                    "card); plain = torch autograd over the plain pipeline")
+                    help="kernel = the gradient kernels (one K4 launch per step for glow, one "
+                    "K6 launch per step for position, on the card); plain = torch autograd "
+                    "over the plain pipeline")
     ap.add_argument("--freeze-hints", action="store_true",
                     help="not ported yet (ROADMAP queue 1, item 4)")
     ap.add_argument("--packed", action="store_true",
@@ -82,28 +123,28 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt", default=None, help="not ported yet (ROADMAP queue 1, item 13)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--tol", type=float, default=None,
-                    help="success threshold on |recovered - true| (default 2.0)")
+                    help="success threshold on |recovered - true| (default 2.0 glow, 0.1 "
+                    "position)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap.parse_args(argv)
 
 
 def setup(args: argparse.Namespace, device):
     """(cfg, camera, target image, starting scene) of the run: the target
-    renders the lamp at its true glow through the forward kernel."""
+    renders the lamp at the parameter's true value through the forward
+    kernel."""
     cfg = RenderConfig(width=args.width, height=args.height, samples=args.samples,
                        reflections_amount=args.bounces, rng_mode="per_sample")
     camera = cam.camera_from_state(Vec4.of(0.0, -2.0, 0.0, 0.0, device=device),
                                    cam.CameraAngles.of(0.0, 0.0, 0.0, device=device),
                                    1.5, 2.0, device=device)
-    target = render_image_cuda(make_scene(1.0, TRUE_GLOW, device), camera, cfg, args.seed)
-    return cfg, camera, target, make_scene(1.0, INIT_GLOW, device)
+    t = task(args.param)
+    target = render_image_cuda(t.scene(t.true, device), camera, cfg, args.seed)
+    return cfg, camera, target, t.scene(t.init, device)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.param == "position":
-        raise NotImplementedError("--param position needs the soft-silhouette loss, which is "
-                                  "not ported yet (ROADMAP queue 1, item 11)")
     if args.mesh:
         raise NotImplementedError("--mesh is not ported yet (ROADMAP queue 1, item 12)")
     if args.freeze_hints:
@@ -111,12 +152,14 @@ def main(argv=None) -> int:
                                   "ported yet (ROADMAP queue 1, item 4)")
     if args.ckpt:
         raise NotImplementedError("--ckpt is not ported yet (ROADMAP queue 1, item 13)")
-    if args.packed and args.impl != "kernel":
-        raise SystemExit("--packed is the kernel's packed-space loop (use --impl kernel)")
+    if args.packed and (args.impl != "kernel" or args.param != "glow"):
+        raise SystemExit("--packed is the kernel's hard-loss packed-space loop (use --impl "
+                         "kernel, --param glow)")
 
     device = resolve_device(args.device)
     cfg, camera, target, scene0 = setup(args, device)
-    lr = args.lr or 0.5
+    t = task(args.param)
+    lr = args.lr or t.lr
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     log0(f"inverse_render param={args.param} impl={args.impl} packed={args.packed} "
          f"{cfg.width}x{cfg.height}x{cfg.samples}spp x{cfg.reflections_amount} device={name}",
@@ -124,25 +167,26 @@ def main(argv=None) -> int:
 
     if args.packed:
         step, init, unpack = diff.make_packed_train_step(cfg, lr, camera, scene0,
-                                                         param_filter=only_lamp_glow)
+                                                         param_filter=t.param_filter)
         model, opt = init(scene0)
         for k in range(args.steps):
             loss = step(model, opt, args.seed, target)
             if k % args.log_every == 0 or k == args.steps - 1:
-                log_metrics(k, {"loss": loss, "value": read_glow(unpack(model))})
+                log_metrics(k, {"loss": loss, "value": t.read(unpack(model))})
         scene = unpack(model)
     else:
-        step, init = diff.make_train_step(cfg, lr, camera, param_filter=only_lamp_glow,
-                                          impl=args.impl)
+        soft = SOFT_SPHERE if args.param == "position" else None
+        step, init = diff.make_train_step(cfg, lr, camera, param_filter=t.param_filter,
+                                          impl=args.impl, soft_sphere_index=soft,
+                                          edge_width=EDGE_WIDTH)
         scene, opt = init(scene0)
         for k in range(args.steps):
             scene, opt, loss, metrics = step(scene, opt, args.seed, target)
             if k % args.log_every == 0 or k == args.steps - 1:
-                log_metrics(k, {**metrics, "value": read_glow(scene)})
-    err = abs(read_glow(scene) - TRUE_GLOW)
-    log0(f"recovered {args.param}={read_glow(scene):.4f} (true {TRUE_GLOW}, err {err:.4f})",
-         flush=True)
-    tol = args.tol if args.tol is not None else 2.0
+                log_metrics(k, {**metrics, "value": t.read(scene)})
+    err = abs(t.read(scene) - t.true)
+    log0(f"recovered {args.param}={t.read(scene):.4f} (true {t.true}, err {err:.4f})", flush=True)
+    tol = args.tol if args.tol is not None else t.tol
     return 0 if err < tol else 1
 
 

@@ -110,6 +110,43 @@ def unpack(vec: torch.Tensor, like_scene: Scene, like_camera: Camera):
     return map_leaves(take, like_scene), map_leaves(take, like_camera)
 
 
+def stack_rows(scenes, camera: Camera) -> torch.Tensor:
+    """(F, P) float32: the packed vectors of F same-structure scenes with
+    one camera, a params row per scene, as the multi-row kernels read them
+    (the counterpart of megakernel._pack_scene_rows,
+    ops/pallas/megakernel.py:564-578). Raises when a scene's layout or
+    leaf shapes differ from the first's (use diff.zero_object, not
+    diff.drop_object, for a without-object row)."""
+    shapes = [t.shape for t in leaves(scenes[0], camera)]
+    lay = layout(scenes[0], camera)
+    for s in scenes[1:]:
+        if layout(s, camera) != lay or [t.shape for t in leaves(s, camera)] != shapes:
+            raise ValueError("params rows need same-structure scenes (use diff.zero_object, "
+                             "not diff.drop_object, for the without-object scene)")
+    return torch.stack([pack(s, camera) for s in scenes])
+
+
+def soft_zero_map(scene: Scene, camera: Camera, object_ref) -> tuple:
+    """The static ``(packed_index, miss_value)`` pairs that turn
+    ``pack(scene, camera)`` into ``pack(diff.zero_object(scene, object_ref),
+    camera)`` (gradkernel.py:1177-1204): for sphere j the single radius slot
+    ``layout.spheres + 10*j + 4``, set to 0.0. Computed, as in the JAX
+    package, on an all-ones template of the same structure, so every slot
+    the zeroing rewrites differs from 1.0 there and no other slot does."""
+    from fourd_ray_tracing_tpu_torch.diff import zero_object
+
+    def ones(t):
+        return torch.ones(t.shape, dtype=torch.float32)
+
+    t_scene, t_camera = map_leaves(ones, scene), map_leaves(ones, camera)
+    base = pack(t_scene, t_camera).numpy()
+    zeroed = pack(zero_object(t_scene, object_ref), t_camera).numpy()
+    idx = np.nonzero(base != zeroed)[0]
+    if idx.size == 0:
+        raise ValueError(f"object_ref {object_ref!r} produced no zeroable radius slots")
+    return tuple((int(i), float(zeroed[i])) for i in idx)
+
+
 def n_scene(scene: Scene) -> int:
     """Floats of the scene's leaves: the scene/camera split point of the
     packed vector (gradkernel.py:1006-1008)."""

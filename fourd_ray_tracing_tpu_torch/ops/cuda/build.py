@@ -24,10 +24,12 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libfourd_kernels.so"
 # -fmad=false: no a*b+c -> FMA contraction, so the kernel rounds like its
 # plain torch version (csrc/megakernel.cu, "Numerics"). Never fast math.
-# The value-and-grad kernel's per-thread array sizes: packed parameters
-# (cotangents) and bounce records per sample. Its wrapper reads them here.
-K4_MAX_PARAMS, K4_MAX_BOUNCES = 256, 16
-DEFINES = (f"-DFOURD_K4_MAX_PARAMS={K4_MAX_PARAMS}", f"-DFOURD_K4_MAX_BOUNCES={K4_MAX_BOUNCES}")
+# The gradient kernels' per-thread array sizes: packed parameters
+# (cotangents) and bounce records per sample; and the slots K6's zero map
+# may overwrite. Their wrappers read them here.
+K4_MAX_PARAMS, K4_MAX_BOUNCES, K6_MAX_ZERO_SLOTS = 256, 16, 16
+DEFINES = (f"-DFOURD_K4_MAX_PARAMS={K4_MAX_PARAMS}", f"-DFOURD_K4_MAX_BOUNCES={K4_MAX_BOUNCES}",
+           f"-DFOURD_K6_MAX_ZERO_SLOTS={K6_MAX_ZERO_SLOTS}")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-fmad=false",
@@ -117,7 +119,8 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         fn = lib.fourd_forward_launch
         fn.argtypes = [
-            ctypes.c_void_p,                  # params (P,) float32, device
+            ctypes.c_void_p,                  # params (P,) or (F, P) float32, device
+            ctypes.c_longlong,                # row_stride: 0, or P for (F, P) rows
             ctypes.c_void_p,                  # seeds (F,) uint32, device
             ctypes.c_int,                     # n_frames
             ctypes.c_void_p,                  # layout table (int[14]), host
@@ -146,8 +149,45 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,                  # cudaStream_t
         ]
         fn.restype = ctypes.c_int
-        fn = lib.fourd_loss_grad_scratch_cols
+        fn = lib.fourd_grad_scratch_cols
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        fn = lib.fourd_light_vjp_launch
+        fn.argtypes = [
+            ctypes.c_void_p,                  # params (P,) or (F, P) float32, device
+            ctypes.c_longlong,                # row_stride: 0, or P for (F, P) rows
+            ctypes.c_int,                     # n_rows F
+            ctypes.c_uint32,                  # seed
+            ctypes.c_void_p,                  # layout table (int[14]), host
+            ctypes.c_int, ctypes.c_int,       # width, height
+            ctypes.c_int, ctypes.c_int,       # samples, reflections
+            ctypes.c_float,                   # small_indent
+            ctypes.c_void_p,                  # cot (F, V, H, W, 3) float32, device
+            ctypes.c_void_p,                  # grad_parts (F*P, n_cols) float32, device
+            ctypes.c_void_p,                  # grad out (F, P) float32, device
+            ctypes.c_void_p,                  # cudaStream_t
+        ]
+        fn.restype = ctypes.c_int
+        fn = lib.fourd_soft_loss_grad_launch
+        fn.argtypes = [
+            ctypes.c_void_p,                  # params (P,) float32, device
+            ctypes.c_uint32,                  # seed
+            ctypes.c_void_p,                  # layout table (int[14]), host
+            ctypes.c_int,                     # n_zero
+            ctypes.c_void_p, ctypes.c_void_p,  # zero-map slots (int[n]), values (float[n]), host
+            ctypes.c_int, ctypes.c_int,       # width, height
+            ctypes.c_int, ctypes.c_int,       # samples, reflections
+            ctypes.c_float, ctypes.c_float,   # small_indent, light_coefficient
+            ctypes.c_void_p,                  # target (V, H, W, 3) float32, device
+            ctypes.c_void_p,                  # alpha (V, H, W) float32, device
+            ctypes.c_float,                   # scale
+            ctypes.c_void_p,                  # grad_parts (P, n_cols) float32, device
+            ctypes.c_void_p,                  # loss_parts (n_cols,) float64, device
+            ctypes.c_void_p,                  # grad out (P,) float32, device
+            ctypes.c_void_p,                  # loss out () float32, device
+            ctypes.c_void_p,                  # alpha_cot out (V, H, W) float32, device
+            ctypes.c_void_p,                  # cudaStream_t
+        ]
         fn.restype = ctypes.c_int
         _lib = lib
         return lib

@@ -1,16 +1,28 @@
-"""Wrapper of the value-and-grad kernel (csrc/gradkernel.cu), and its plain version.
+"""Wrappers of the gradient kernels (csrc/gradkernel.cu, csrc/softkernel.cu),
+each with its plain version.
 
-Counterpart of fourd_ray_tracing_tpu/ops/pallas/gradkernel.py's
-render_loss_and_grad_pallas and make_packed_loss_and_grad: the MSE of the
-tone-mapped render against a target, and the gradient of every packed
-scene and camera parameter, at a fixed seed. A (F,) seed vector takes F
-estimator samples of the same loss in one launch (the minibatch): loss
-and gradients are the mean of the F scalar-seed calls.
+Counterpart of fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:
 
-The plain version is torch autograd over the plain pipeline
-(models/renderer.py). Tensors on the CPU go through it; tensors on a CUDA
-device go through the kernel, or the call raises. ``LAUNCHES`` counts
-kernel launches (one per call of ``launch_loss_grad``).
+* K4, the value-and-grad kernel (render_loss_and_grad_pallas,
+  make_packed_loss_and_grad): the MSE of the tone-mapped render against a
+  target, and the gradient of every packed scene and camera parameter, at
+  a fixed seed. A (F,) seed vector takes F estimator samples of the same
+  loss in one launch (the minibatch): loss and gradients are the mean of
+  the F scalar-seed calls.
+* K5, the light-VJP kernel (render_light_vjp_pallas[_multi]): the VJP of
+  the mean-light render for a given per-pixel light cotangent, for one
+  packed vector (P,) or for (F, P) rows of same-structure scenes.
+* K6, the fused soft value-and-grad kernel
+  (render_soft_loss_and_grad_pallas): the soft-silhouette MSE of the
+  scene blended by a coverage alpha with its zero-map copy, the gradient
+  of every packed parameter and the cotangent of alpha.
+
+Each plain version is torch autograd over the plain pipeline
+(models/renderer.py); ``band_rows`` runs it a band of rows at a time for
+shapes whose whole graph would not fit. ``LAUNCHES``,
+``VJP_LAUNCHES`` and ``SOFT_LAUNCHES`` count the launches of K4, K5 and
+K6, each raised once per ``launch_*`` call, so a run can show that its
+main path went through them.
 """
 from __future__ import annotations
 
@@ -26,9 +38,13 @@ from fourd_ray_tracing_tpu_torch.models.scene import Scene
 from fourd_ray_tracing_tpu_torch.ops.cuda import build
 from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import seed_tensor
 
-LAUNCHES = 0
-# Sizes of the kernel's per-thread arrays, which the build passes to it.
+LAUNCHES = 0  # K4
+VJP_LAUNCHES = 0  # K5
+SOFT_LAUNCHES = 0  # K6
+# Sizes of the kernels' per-thread arrays and K6's zero-map slots, which
+# the build passes to them.
 MAX_PARAMS, MAX_BOUNCES = build.K4_MAX_PARAMS, build.K4_MAX_BOUNCES
+MAX_ZERO_SLOTS = build.K6_MAX_ZERO_SLOTS
 
 
 def loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
@@ -64,13 +80,39 @@ def loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Ca
 
 
 def check_shape(lay: params.Layout, cfg: RenderConfig) -> None:
-    """Raise for what the kernel's per-thread arrays cannot hold."""
+    """Raise for what the gradient kernels' per-thread arrays cannot hold."""
     if lay.size > MAX_PARAMS:
-        raise ValueError(f"the value-and-grad kernel holds at most {MAX_PARAMS} packed "
+        raise ValueError(f"the gradient kernels hold at most {MAX_PARAMS} packed "
                          f"parameters per thread; this scene and camera have {lay.size}")
     if not 0 <= cfg.reflections_amount <= MAX_BOUNCES:
-        raise ValueError(f"the value-and-grad kernel records at most {MAX_BOUNCES} bounces "
+        raise ValueError(f"the gradient kernels record at most {MAX_BOUNCES} bounces "
                          f"per sample; reflections_amount is {cfg.reflections_amount}")
+
+
+def _check_launch(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig, *tensors) -> None:
+    """The checks every gradient launch makes of its packed params (P,) or
+    (F, P) and its other float32 tensors."""
+    device = packed.device
+    if device.type != "cuda" or any(t.device != device for t in tensors):
+        raise ValueError(f"kernel inputs must share one CUDA device, got {device}, "
+                         f"{[str(t.device) for t in tensors]}")
+    if packed.dtype != torch.float32 or packed.dim() not in (1, 2) or not packed.is_contiguous():
+        raise ValueError("packed params must be a contiguous (P,) or (F, P) float32 tensor")
+    if packed.shape[-1] != lay.size:
+        raise ValueError(f"packed params hold {packed.shape[-1]} floats, layout expects {lay.size}")
+    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in tensors):
+        raise ValueError("kernel inputs must be contiguous float32 tensors")
+    check_shape(lay, cfg)
+
+
+def _scratch_cols(lib, table, cfg: RenderConfig, n_frames: int = 1) -> int:
+    """Columns of a launch's (rows, n_cols) partials, as the library sizes
+    them: blocks per frame or row, times ``n_frames``."""
+    n_cols = lib.fourd_grad_scratch_cols(ctypes.addressof(table), cfg.width, cfg.height, n_frames)
+    if n_cols < 0:
+        raise ValueError(f"the gradient kernels cannot launch {n_frames} frames of "
+                         f"{cfg.height} x {cfg.width} pixels")
+    return n_cols
 
 
 def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
@@ -80,31 +122,22 @@ def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
     params, (F,) int32 seed words and the (V, H, W, 3) or (H, W, 3) float32
     target, on their CUDA device."""
     global LAUNCHES
+    _check_launch(packed, lay, cfg, target)
     device = packed.device
-    if device.type != "cuda" or seeds.device != device or target.device != device:
-        raise ValueError(f"kernel inputs must share one CUDA device, got {device}, "
-                         f"{seeds.device}, {target.device}")
-    if packed.dtype != torch.float32 or packed.dim() != 1 or not packed.is_contiguous():
-        raise ValueError("packed params must be a contiguous (P,) float32 tensor")
-    if packed.numel() != lay.size:
-        raise ValueError(f"packed params hold {packed.numel()} floats, layout expects {lay.size}")
-    if seeds.dtype != torch.int32 or seeds.dim() != 1 or not seeds.is_contiguous():
-        raise ValueError("seeds must be a contiguous (F,) int32 tensor of uint32 words")
+    if packed.dim() != 1:
+        raise ValueError("the value-and-grad kernel takes one (P,) params vector")
+    if (seeds.device != device or seeds.dtype != torch.int32 or seeds.dim() != 1
+            or not seeds.is_contiguous()):
+        raise ValueError("seeds must be a contiguous (F,) int32 tensor of uint32 words on the "
+                         "params' CUDA device")
     total = lay.n_views * cfg.height * cfg.width
-    if (target.dtype != torch.float32 or not target.is_contiguous()
-            or target.numel() != total * 3 or target.shape[-1] != 3):
-        raise ValueError(f"target must be a contiguous float32 tensor of {lay.n_views} x "
-                         f"{cfg.height} x {cfg.width} x 3 values, got {tuple(target.shape)} "
-                         f"{target.dtype}")
-    check_shape(lay, cfg)
+    if target.numel() != total * 3 or target.shape[-1] != 3:
+        raise ValueError(f"target must hold {lay.n_views} x {cfg.height} x {cfg.width} x 3 "
+                         f"values, got {tuple(target.shape)}")
     lib = build.load()
     n_frames = seeds.numel()
     table = (ctypes.c_int * len(lay))(*lay)
-    n_cols = lib.fourd_loss_grad_scratch_cols(ctypes.addressof(table), cfg.width, cfg.height,
-                                              n_frames)
-    if n_cols < 0:
-        raise ValueError(f"the value-and-grad kernel cannot launch {n_frames} frames of "
-                         f"{lay.n_views} x {cfg.height} x {cfg.width} pixels")
+    n_cols = _scratch_cols(lib, table, cfg, n_frames)
     grad_parts = torch.empty((lay.size, n_cols), dtype=torch.float32, device=device)
     loss_parts = torch.empty((n_cols,), dtype=torch.float64, device=device)
     grad = torch.empty((lay.size,), dtype=torch.float32, device=device)
@@ -179,3 +212,176 @@ def make_packed_loss_and_grad(scene: Scene, camera: Camera, cfg: RenderConfig):
         return params.unpack(torch.cat([scene_vec, cam_vec]), scene, camera)[0]
 
     return fn, packed[:n].clone(), unpack
+
+
+def _scalar_seed(seed) -> int:
+    words, batched = renderer.seed_words(seed)
+    if batched:
+        raise ValueError("the light-VJP and soft kernels take one scalar seed")
+    return words[0]
+
+
+# --- K5: the light-VJP kernel ------------------------------------------------
+
+def render_light_vjp_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
+                           cfg: RenderConfig, seed, cot_light) -> torch.Tensor:
+    """The plain version of K5: the gradient of sum(render_light * cot_light)
+    w.r.t. the packed vector, by autograd over the plain pipeline. A (P,)
+    vector takes an (H, W, 3) or (V, H, W, 3) cotangent and gives (P,);
+    (F, P) rows of same-structure scenes take (F, ...) cotangents and give
+    (F, P)."""
+    seed = _scalar_seed(seed)
+    vec = packed.detach().clone().requires_grad_(True)
+    rows = vec if vec.dim() == 2 else vec[None]
+    light = torch.stack([renderer.render_light(*params.unpack(row, like_scene, like_camera), cfg,
+                                               seed) for row in rows])
+    cot = torch.as_tensor(cot_light, dtype=torch.float32, device=vec.device).reshape(light.shape)
+    (grad,) = torch.autograd.grad(light, vec, cot)
+    return grad
+
+
+def launch_light_vjp(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig, seed: int,
+                     cot: torch.Tensor) -> torch.Tensor:
+    """One K5 launch: the unscaled packed gradient, (P,) or (F, P) like
+    ``packed``, from the light cotangent ``cot`` ((F,) V, H, W, 3 float32)
+    at one uint32 seed, on their CUDA device."""
+    global VJP_LAUNCHES
+    _check_launch(packed, lay, cfg, cot)
+    rows = packed.dim() == 2
+    n_rows = packed.shape[0] if rows else 1
+    total = lay.n_views * cfg.height * cfg.width
+    if cot.numel() != n_rows * total * 3 or cot.shape[-1] != 3:
+        raise ValueError(f"the light cotangent must hold {n_rows} x {lay.n_views} x {cfg.height} "
+                         f"x {cfg.width} x 3 values, got {tuple(cot.shape)}")
+    lib = build.load()
+    table = (ctypes.c_int * len(lay))(*lay)
+    n_cols = _scratch_cols(lib, table, cfg)
+    grad_parts = torch.empty((n_rows * lay.size, n_cols), dtype=torch.float32, device=packed.device)
+    grad = torch.empty(packed.shape, dtype=torch.float32, device=packed.device)
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fourd_light_vjp_launch(
+            packed.data_ptr(), lay.size if rows else 0, n_rows, seed, ctypes.addressof(table),
+            cfg.width, cfg.height, cfg.samples, cfg.reflections_amount,
+            float(np.float32(cfg.small_indent)), cot.data_ptr(), grad_parts.data_ptr(),
+            grad.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"light-VJP kernel launch failed: cudaError {err}")
+    VJP_LAUNCHES += 1
+    return grad
+
+
+def render_light_vjp_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
+                          cfg: RenderConfig, seed, cot_light) -> torch.Tensor:
+    """K5 on a CUDA vector, as ``render_light_vjp_plain`` computes it: one
+    launch for (P,) or for (F, P) rows; another device raises."""
+    renderer.check_supported(cfg)
+    cot = torch.as_tensor(cot_light, dtype=torch.float32, device=packed.device).contiguous()
+    return launch_light_vjp(packed.detach().contiguous(), params.layout(like_scene, like_camera),
+                            cfg, _scalar_seed(seed), cot)
+
+
+# --- K6: the fused soft value-and-grad kernel --------------------------------
+
+def zero_row(vec: torch.Tensor, zero_map) -> torch.Tensor:
+    """``vec`` with the zero map's (slot, value) pairs written in: the packed
+    row of the zeroed scene, whose zero-map slots are constants (no
+    gradient flows to them from this row)."""
+    idx = torch.tensor([i for i, _ in zero_map], device=vec.device)
+    vals = torch.tensor([v for _, v in zero_map], dtype=torch.float32, device=vec.device)
+    return vec.index_put((idx,), vals)
+
+
+def render_soft_loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene,
+                                    like_camera: Camera, cfg: RenderConfig, seed, target, alpha,
+                                    zero_map, band_rows: int | None = None):
+    """The plain version of K6: (loss, (P,) gradient, alpha cotangent) of
+    mean((alpha * img_a + (1 - alpha) * img_b - target)^2), img_a the
+    render of the packed scene and img_b of its zero-map row at the same
+    seed, by autograd over the plain pipeline with ``alpha`` ((V,) H, W)
+    an independent leaf. The loss sums in float64 over row bands of
+    ``band_rows`` rows (the whole image by default), as
+    ``loss_and_grad_plain`` does."""
+    seed = _scalar_seed(seed)
+    device = packed.device
+    target = torch.as_tensor(target, dtype=torch.float32, device=device)
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device).detach()
+    count = torch.tensor(float(target.numel()), dtype=torch.float64, device=device)
+    loss, grad = torch.zeros((), dtype=torch.float64, device=device), 0.0
+    g_alpha = torch.zeros_like(alpha)
+    step = band_rows or cfg.height
+    for top in range(0, cfg.height, step):
+        rows = slice(top, top + step)
+        vec = packed.detach().clone().requires_grad_(True)
+        a = alpha[..., rows, :].clone().requires_grad_(True)
+        scene_a, camera = params.unpack(vec, like_scene, like_camera)
+        scene_b, _ = params.unpack(zero_row(vec, zero_map), like_scene, like_camera)
+        img_a = renderer.render_image(scene_a, camera, cfg, seed, rows)
+        img_b = renderer.render_image(scene_b, camera, cfg, seed, rows)
+        img = a[..., None] * img_a + (1.0 - a[..., None]) * img_b
+        part = torch.sum(((img - target[..., rows, :, :]) ** 2).double()) / count
+        g, ga = torch.autograd.grad(part, (vec, a))
+        loss, grad = loss + part.detach(), grad + g.double()
+        g_alpha[..., rows, :] = ga
+    return loss.float(), grad.float(), g_alpha
+
+
+def launch_soft_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig, seed: int,
+                          target: torch.Tensor, alpha: torch.Tensor, zero_map):
+    """One K6 launch: (loss (), grad (P,), alpha cotangent shaped like
+    ``alpha``) float32, all scaled to the mean over views, pixels and
+    channels, from the packed (P,) params, one uint32 seed, the
+    (V,) H, W, 3 target, the (V,) H, W coverage alpha and the zero map's
+    static (slot, value) pairs, on their CUDA device."""
+    global SOFT_LAUNCHES
+    _check_launch(packed, lay, cfg, target, alpha)
+    total = lay.n_views * cfg.height * cfg.width
+    if packed.dim() != 1:
+        raise ValueError("the soft kernel takes one (P,) params vector")
+    if target.numel() != total * 3 or target.shape[-1] != 3 or alpha.numel() != total:
+        raise ValueError(f"target and alpha must hold {lay.n_views} x {cfg.height} x {cfg.width} "
+                         f"(x 3) values, got {tuple(target.shape)} and {tuple(alpha.shape)}")
+    if not 0 < len(zero_map) <= MAX_ZERO_SLOTS or any(not 0 <= i < lay.size for i, _ in zero_map):
+        raise ValueError(f"the zero map needs 1 to {MAX_ZERO_SLOTS} slots of the packed vector, "
+                         f"got {zero_map!r}")
+    lib = build.load()
+    table = (ctypes.c_int * len(lay))(*lay)
+    n_cols = _scratch_cols(lib, table, cfg)
+    n = len(zero_map)
+    slots = (ctypes.c_int * n)(*(i for i, _ in zero_map))
+    values = (ctypes.c_float * n)(*(v for _, v in zero_map))
+    device = packed.device
+    grad_parts = torch.empty((lay.size, n_cols), dtype=torch.float32, device=device)
+    loss_parts = torch.empty((n_cols,), dtype=torch.float64, device=device)
+    grad = torch.empty((lay.size,), dtype=torch.float32, device=device)
+    loss = torch.empty((), dtype=torch.float32, device=device)
+    alpha_cot = torch.empty_like(alpha)
+    scale = float(np.float32(1.0 / (total * 3)))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fourd_soft_loss_grad_launch(
+            packed.data_ptr(), seed, ctypes.addressof(table), n, ctypes.addressof(slots),
+            ctypes.addressof(values), cfg.width, cfg.height, cfg.samples,
+            cfg.reflections_amount, float(np.float32(cfg.small_indent)),
+            float(np.float32(cfg.light_coefficient)), target.data_ptr(), alpha.data_ptr(), scale,
+            grad_parts.data_ptr(), loss_parts.data_ptr(), grad.data_ptr(), loss.data_ptr(),
+            alpha_cot.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"soft value-and-grad kernel launch failed: cudaError {err}")
+    SOFT_LAUNCHES += 1
+    return loss, grad, alpha_cot
+
+
+def render_soft_loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
+                                   cfg: RenderConfig, seed, target, alpha, zero_map):
+    """K6 on a CUDA vector, as ``render_soft_loss_and_grad_plain``
+    computes it, in one launch; another device raises."""
+    renderer.check_supported(cfg)
+    device = packed.device
+    target = torch.as_tensor(target, dtype=torch.float32, device=device).contiguous()
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device).detach().contiguous()
+    return launch_soft_loss_grad(packed.detach().contiguous(),
+                                 params.layout(like_scene, like_camera), cfg, _scalar_seed(seed),
+                                 target, alpha, zero_map)

@@ -213,15 +213,13 @@ def test_frame_seeds_follow_the_jax_minibatch():
 
 @pytest.mark.parametrize("make", [
     lambda c, cam, s: diff.make_train_step(c, LR, cam, mesh=object()),
-    lambda c, cam, s: diff.make_train_step(c, LR, cam, soft_sphere_index=0),
-    lambda c, cam, s: diff.make_train_step(c, LR, cam, soft_object_ref=("spheres", 0)),
     lambda c, cam, s: diff.make_train_step(dataclasses.replace(c, freeze_hints=True), LR, cam),
     lambda c, cam, s: diff.make_packed_train_step(dataclasses.replace(c, freeze_hints=True), LR,
                                                   cam, s),
     lambda c, cam, s: diff.image_loss(s, cam, c, 1, torch.zeros(16, 32, 3), mesh=object()),
     lambda c, cam, s: diff.render_grad(s, cam, dataclasses.replace(c, freeze_hints=True), 1,
                                        torch.zeros(16, 32, 3)),
-], ids=["mesh", "soft_sphere", "soft_object", "freeze_hints", "packed_freeze_hints",
+], ids=["mesh", "freeze_hints", "packed_freeze_hints",
         "loss_mesh", "grad_freeze_hints"])
 def test_unported_options_raise(make):
     _, _, ts, tc = crossed("sphere_plane_light")
@@ -233,6 +231,7 @@ def test_unported_options_raise(make):
     dict(impl="xla"),
     dict(impl="plain", frames_per_step=4),
     dict(cfg=dataclasses.replace(T_CFG, grad_sample_chunk=3)),
+    dict(impl="kernel", frames_per_step=4, soft_sphere_index=0),
 ])
 def test_bad_training_arguments_raise(kwargs):
     _, _, _, tc = crossed("sphere_plane_light")
@@ -241,8 +240,7 @@ def test_bad_training_arguments_raise(kwargs):
         diff.make_train_step(cfg, LR, tc, **kwargs)
 
 
-@pytest.mark.parametrize("flags", [["--param", "position"], ["--mesh"], ["--freeze-hints"],
-                                   ["--ckpt", "ckpt"]])
+@pytest.mark.parametrize("flags", [["--mesh"], ["--freeze-hints"], ["--ckpt", "ckpt"]])
 def test_inverse_render_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
         inverse_render.main(["--device", "cpu", *flags])

@@ -252,10 +252,13 @@ def test_image_loss_function_has_no_cpu_route():
 
 
 def test_kernel_array_sizes_have_one_source():
-    """The kernel's per-thread array sizes come from the build's defines,
-    which the wrapper reads; the source holds no number of its own."""
-    assert (tgrad.MAX_PARAMS, tgrad.MAX_BOUNCES) == (256, 16)
+    """The gradient kernels' per-thread array sizes (and K6's zero-map
+    slots) come from the build's defines, which the wrappers read; the
+    shared adjoint header, where the kernels take them, holds no number of
+    its own."""
+    assert (tgrad.MAX_PARAMS, tgrad.MAX_BOUNCES, tgrad.MAX_ZERO_SLOTS) == (256, 16, 16)
     assert all(flag in build.NVCC_FLAGS for flag in build.DEFINES)
-    source = (build.CSRC_DIR / "gradkernel.cu").read_text()
+    source = (build.CSRC_DIR / "adjoint.cuh").read_text()
     assert "kMaxParams = FOURD_K4_MAX_PARAMS" in source
     assert "kMaxBounces = FOURD_K4_MAX_BOUNCES" in source
+    assert "kMaxZeroSlots = FOURD_K6_MAX_ZERO_SLOTS" in source
