@@ -55,13 +55,38 @@ on any failure, or when no CUDA device is available. Phases:
    and backward alone and Adam alone; the hyperplane fallback
    (("spaces", 0): two K1 and two K5 launches per step), timed; then
    ``inverse_render --param position --impl kernel`` recovers the lamp's
-   x.
+   x;
+14. the row-sharded launches (K3) in one process: K1 and K2 cut into 2
+   and 4 row blocks (``parallel.mesh.row_block``) are bitwise the single
+   launch at 1280x720x8spp x4 (4 frames) and at 256x144 with 3 views; the
+   blocks of K4 (1 and 4 frames), K5 (two rows) and K6 at 1280x720x8spp x4,
+   added in rank order, within ``GRAD_BOUNDS`` of the single launch, K6's
+   alpha cotangent blocks bitwise its rows; each of the ``PLAIN_SPLIT``
+   blocks of K1, K2 (both shapes), K4 (1 frame), K5 and K6 held against its
+   plain version on the same rows (CHECK_BOUNDS, GRAD_BOUNDS); each
+   block's launch and the single launch timed with CUDA events;
+15. the distributed main path: ``multihost_run`` with 2 ranks (gloo, both
+   on this card; NCCL, one card each, when there are two): the sharded
+   image bitwise the single-process K1 render, 3 steps of
+   ``make_train_step(impl="kernel", mesh=...)`` at 1280x720x8spp x4 for the
+   hard loss and the soft loss (sphere 0) within loss and parameter rtol
+   1e-5 of the single process with one K4 (K6) launch per rank and step,
+   the soft pair's gradient (K2 + two-row K5 on each rank's rows), and
+   ``inverse_render --mesh --impl kernel`` recovering the glow. Both ranks
+   share one card, so its step times are no scaling figure.
+
+Every kernel's entry in the summary carries its bound: the larger of its
+plain version's flops (utils/flops.py, counted on the card over
+``BOUND_ROWS`` rows of the timed shape and scaled to the whole image) over
+the card's fp32 peak and the bytes it must move (each input read once,
+each output written once) over its memory rate (``PEAKS``).
 
 Every forward kernel-vs-plain check holds the two within the image bounds
 of ``CHECK_BOUNDS`` and reports whether they are bitwise equal; the
 gradient kernels' checks use ``GRAD_BOUNDS``. The kernel launch counts are
 set to 0 before each main path (phases 4-5: rendering; phases 9-10:
-training; phase 13: soft training) and read after it.
+training; phase 13: soft training; phase 15: the ranks, fresh processes,
+count their own) and read after it.
 
 The line before the last is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.
@@ -84,14 +109,16 @@ sys.path.insert(0, str(ROOT))
 
 from fourd_ray_tracing_tpu_torch import app  # noqa: E402
 from fourd_ray_tracing_tpu_torch import camera as cam  # noqa: E402
-from fourd_ray_tracing_tpu_torch import diff, inverse_render  # noqa: E402
+from fourd_ray_tracing_tpu_torch import diff, inverse_render, multihost_run  # noqa: E402
 from fourd_ray_tracing_tpu_torch.engine import RenderEngine  # noqa: E402
 from fourd_ray_tracing_tpu_torch.models import library, params, renderer  # noqa: E402
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig  # noqa: E402
 from fourd_ray_tracing_tpu_torch.ops.cuda import build  # noqa: E402
 from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel, megakernel  # noqa: E402
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4  # noqa: E402
+from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from fourd_ray_tracing_tpu_torch.utils.config import AppConfig  # noqa: E402
+from fourd_ray_tracing_tpu_torch.utils.flops import count_flops  # noqa: E402
 
 # All but boundary_frac of pixels within atol, image-wide mean |diff|
 # under mean_atol: visibility-boundary pixels may flip on ulp noise.
@@ -127,6 +154,16 @@ TRAIN_CALLS, TRAIN_REPEATS = 3, 3
 SOFT_REFS = {"room_with_sphere": ("spheres", 0), "sphere_plane_light": ("spheres", 1)}
 SOFT_EDGE = 0.05
 FALLBACK_REF = ("spaces", 0)
+# Phase 14: the row shards (K3), and the split whose blocks are each held
+# against their plain version on the same rows (phase 15's, one block per
+# rank); phase 15: the ranks of the distributed run.
+SHARDS = (2, 4)
+RANKS = 2
+PLAIN_SPLIT = RANKS
+# Published H100 SXM peaks at 700 W (NVIDIA's data sheet): fp32 outside the
+# tensor cores, and HBM3. The bounds count flops over BOUND_ROWS rows.
+PEAKS = dict(fp32_flops_per_s=67e12, bytes_per_s=3.35e12)
+BOUND_ROWS = 8
 
 
 def phase(name: str) -> None:
@@ -445,8 +482,9 @@ def run_app() -> None:
 
 
 def reset_counts() -> None:
-    megakernel.LAUNCHES = megakernel.ROW_LAUNCHES = 0
+    megakernel.LAUNCHES = megakernel.ROW_LAUNCHES = megakernel.SHARD_LAUNCHES = 0
     gradkernel.LAUNCHES = gradkernel.VJP_LAUNCHES = gradkernel.SOFT_LAUNCHES = 0
+    gradkernel.SHARD_LAUNCHES = gradkernel.SHARD_VJP_LAUNCHES = gradkernel.SHARD_SOFT_LAUNCHES = 0
 
 
 def counts() -> dict:
@@ -461,15 +499,17 @@ def image_shape(views, cfg) -> tuple:
     return (cfg.height, cfg.width) if len(views) == 1 else (len(views), cfg.height, cfg.width)
 
 
-def compare_vec(label: str, kernel, plain, same_pattern: bool = True):
+def compare_vec(label: str, kernel, plain, same_pattern: bool = True, nonzero: bool = True):
     """Hold a gradient kernel's output array against its plain version's
     within GRAD_BOUNDS' mixed-scale relative error and, if
-    ``same_pattern``, with the same non-zero pattern; prints the comparison
-    and returns (max |kernel - plain|, mixed-scale relative error)."""
+    ``same_pattern``, with the same non-zero pattern; unless ``nonzero``
+    is False, the plain version must not be all zeros (a block of rows
+    the object does not reach may be). Prints the comparison and returns
+    (max |kernel - plain|, mixed-scale relative error)."""
     k, p = kernel.detach().cpu().numpy(), plain.detach().cpu().numpy()
     assert k.shape == p.shape, f"{label}: {k.shape} vs {p.shape}"
     assert np.isfinite(k).all() and np.isfinite(p).all(), f"{label}: non-finite values"
-    assert np.abs(p).max() > 0, f"{label}: the plain version is all zeros"
+    assert not nonzero or np.abs(p).max() > 0, f"{label}: the plain version is all zeros"
     rel, err = mixed_rel(k, p), float(np.abs(k - p).max())
     mismatch = int(((k != 0) != (p != 0)).sum())
     print(f"{label} size={k.size} mixed_rel={rel:.3g} max_abs_err={err:.3g} "
@@ -480,21 +520,23 @@ def compare_vec(label: str, kernel, plain, same_pattern: bool = True):
     return err, rel
 
 
-def compare_soft(label: str, kernel, plain):
+def compare_soft(label: str, kernel, plain, block: bool = False):
     """Hold K6's (loss, grad, alpha cotangent) against the plain version's
     within GRAD_BOUNDS. The alpha cotangent's pattern is not required to
     match: it is sum_ch 2 (img - t)(c_with - c_without), which the plain
     version's autograd takes as a difference of two channel sums, so a
     pixel whose two rows differ by an ulp may round to 0 on one side only;
-    the mixed-scale bound still holds every pixel. Returns (max abs error,
-    max mixed-scale relative error)."""
+    the mixed-scale bound still holds every pixel. A ``block`` of rows may
+    have an alpha cotangent of zeros. Returns (max abs error, max
+    mixed-scale relative error)."""
     k_l, p_l = float(kernel[0]), float(plain[0])
     assert np.isfinite(k_l), f"{label}: non-finite loss"
     loss_rel = abs(k_l - p_l) / abs(p_l)
     print(f"K6 {label} loss={k_l} plain={p_l} loss_rel={loss_rel:.3g}", flush=True)
     assert loss_rel <= GRAD_BOUNDS["loss_rtol"], f"{label}: loss"
     e_g, r_g = compare_vec(f"K6 {label} grad", kernel[1], plain[1])
-    e_a, r_a = compare_vec(f"K6 {label} alpha_cot", kernel[2], plain[2], same_pattern=False)
+    e_a, r_a = compare_vec(f"K6 {label} alpha_cot", kernel[2], plain[2], same_pattern=False,
+                           nonzero=not block)
     return max(abs(k_l - p_l), e_g, e_a), max(r_g, r_a)
 
 
@@ -708,6 +750,239 @@ def run_inverse_render_position() -> int:
     return args.steps
 
 
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of flops over the
+    fp32 peak and bytes over the memory rate, and which of the two."""
+    by_ops = flops / PEAKS["fp32_flops_per_s"] * 1e3
+    by_bytes = nbytes / PEAKS["bytes_per_s"] * 1e3
+    return {"bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def kernel_bounds(device) -> dict:
+    """Each kernel's bound at the shape its summary time was taken: K1 at
+    the headline 4-frame launch, K4, K5 (one row) and K6 at TRAIN. The
+    flops are its plain version's over the first BOUND_ROWS rows (K4, K5
+    and K6: forward and autograd backward), counted here and scaled to the
+    image's rows; the plain versions are dense, so masked lanes count."""
+    scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
+    packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+    p = lay.size
+    head, cfg = RenderConfig(**HEADLINE), RenderConfig(**TRAIN)
+    rows, scale = (0, BOUND_ROWS), cfg.height / BOUND_ROWS
+    pixels = cfg.height * cfg.width
+    frames = np.arange(1, FRAMES_PER_LAUNCH + 1, dtype=np.uint32)
+    rng = np.random.default_rng(8)
+    block = torch.from_numpy(rng.uniform(0, 1, (BOUND_ROWS, cfg.width, 3)).astype(np.float32)
+                             ).to(device)
+    ref = SOFT_REFS["room_with_sphere"]
+    alpha = diff.object_coverage(scene, ref, camera, cfg, SOFT_EDGE).detach()[:BOUND_ROWS]
+    zero_map = params.soft_zero_map(scene, camera, ref)
+    f1 = count_flops(renderer.render_light, scene, camera, head, frames,
+                     slice(0, BOUND_ROWS))[1]
+    f4 = count_flops(gradkernel.loss_and_grad_plain, packed, scene, camera, cfg, [1], block,
+                     rows=rows)[1]
+    f5 = count_flops(gradkernel.render_light_vjp_plain, packed, scene, camera, cfg, 1, block,
+                     rows=rows)[1]
+    f6 = count_flops(gradkernel.render_soft_loss_and_grad_plain, packed, scene, camera, cfg, 1,
+                     block, alpha, zero_map, rows=rows)[1]
+    rays = pixels * cfg.samples
+    out = {
+        "k1": bound(f1 * scale, 4 * (p + FRAMES_PER_LAUNCH + FRAMES_PER_LAUNCH * pixels * 3)),
+        "k4": bound(f4 * scale, 4 * (p + 1 + pixels * 3 + p + 1)),
+        "k5": bound(f5 * scale, 4 * (p + pixels * 3 + p)),
+        "k6": bound(f6 * scale, 4 * (p + pixels * 3 + pixels + p + 1 + pixels)),
+    }
+    out["k1"]["flops_per_ray"] = f1 * scale / (rays * FRAMES_PER_LAUNCH)
+    for k in ("k4", "k5", "k6"):
+        out[k]["flops_per_ray"] = out[k]["flops"] / rays
+    print(json.dumps({"bounds": out, "peaks": PEAKS}), flush=True)
+    return out
+
+
+def shard_blocks(height: int, n: int) -> list:
+    return [pmesh.row_block(height, n, i) for i in range(n)]
+
+
+def time_shards(label: str, whole_fn, block_fn, height: int) -> dict:
+    """CUDA-event milliseconds of the single launch and of each block's
+    launch for every split of SHARDS; prints them."""
+    res = {"whole_ms": statistics.median(cuda_ms(whole_fn, calls=TRAIN_CALLS,
+                                                  repeats=TRAIN_REPEATS))}
+    for n in SHARDS:
+        res[n] = [statistics.median(cuda_ms(lambda r=r: block_fn(r), calls=TRAIN_CALLS,
+                                            repeats=TRAIN_REPEATS))
+                  for r in shard_blocks(height, n)]
+    print(f"{label} launch ms: whole {res['whole_ms']}, "
+          + ", ".join(f"{n} blocks {res[n]} (sum {sum(res[n])})" for n in SHARDS), flush=True)
+    return res
+
+
+def rows_of(x: torch.Tensor, block) -> torch.Tensor:
+    """Rows block (row0, n_rows) of an (..., H, W, C) array, contiguous."""
+    return x[..., block[0]:block[0] + block[1], :, :].contiguous()
+
+
+def check_row_shards(device) -> dict:
+    """Phase 14: every kernel's row blocks against its single launch, each
+    block of PLAIN_SPLIT against its plain version on the same rows, and
+    their times. Returns the largest errors of the block sums against the
+    single launch (``sum_errs``) and of the blocks against their plain
+    versions (``block_errs``), and the times."""
+    room = library.room_with_sphere(device)
+    ref = SOFT_REFS["room_with_sphere"]
+    sum_errs = {"k1": 0.0, "k4": 0.0, "k5": 0.0, "k6": 0.0}
+    block_errs = dict(sum_errs)
+    ms = {}
+    for cfg, views, seeds in ((RenderConfig(**HEADLINE), ("yxz",), [1, 2, 3, 4]),
+                              (RenderConfig(**GRAD_CHECK), cam.VIEWS_ALL, [5, 6])):
+        camera = camera_for(views, device)
+        packed, lay = params.pack(room, camera), params.layout(room, camera)
+        words = megakernel.seed_tensor(seeds, device)
+        scenes = (room, diff.zero_object(room, ref))
+        pair = params.stack_rows(scenes, camera)
+        pair_words = megakernel.seed_tensor(seeds[:1] * 2, device)
+        whole = megakernel.launch_forward(packed, lay, cfg, words)
+        whole2 = megakernel.launch_forward(pair, lay, cfg, pair_words)
+        for n in SHARDS:
+            blocks = shard_blocks(cfg.height, n)
+            cut = [megakernel.launch_forward(packed, lay, cfg, words, b) for b in blocks]
+            cut2 = [megakernel.launch_forward(pair, lay, cfg, pair_words, b) for b in blocks]
+            torch.cuda.synchronize()
+            assert torch.equal(torch.cat(cut, dim=2), whole), f"K1 {n} row blocks != one launch"
+            assert torch.equal(torch.cat(cut2, dim=2), whole2), f"K2 {n} row blocks != one launch"
+            if n != PLAIN_SPLIT:
+                continue
+            for b, k1, k2 in zip(blocks, cut, cut2):
+                band = slice(b[0], b[0] + b[1])
+                label = f"{cfg.width}x{cfg.height} views={len(views)} rows {b}"
+                plain = renderer.render_light(room, camera, cfg, np.asarray(seeds, np.uint32), band)
+                plain2 = torch.stack([renderer.render_light(s, camera, cfg, seeds[0], band)
+                                      for s in scenes])
+                block_errs["k1"] = max(block_errs["k1"], check_close(
+                    f"K1 block {label}", k1[:, 0] if len(views) == 1 else k1, plain),
+                    check_close(f"K2 block {label}", k2[:, 0] if len(views) == 1 else k2, plain2))
+        print(f"K1 and K2 {cfg.width}x{cfg.height} views={len(views)} frames={len(seeds)}: "
+              f"{' and '.join(map(str, SHARDS))} row blocks bitwise the single launch",
+              flush=True)
+        if cfg.height == HEADLINE["height"]:
+            ms["k1"] = time_shards("K1 4 frames 1280x720", lambda: megakernel.launch_forward(
+                packed, lay, cfg, words), lambda b: megakernel.launch_forward(
+                packed, lay, cfg, words, b), cfg.height)
+
+    cfg, camera = RenderConfig(**TRAIN), camera_for(("yxz",), device)
+    packed, lay = params.pack(room, camera), params.layout(room, camera)
+    rng = np.random.default_rng(9)
+    target = torch.from_numpy(rng.uniform(0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)
+                              ).to(device)
+    for frames in TRAIN_FRAMES:
+        seeds = list(range(1, frames + 1))
+        words = megakernel.seed_tensor(seeds, device)
+        whole = gradkernel.launch_loss_grad(packed, lay, cfg, words, target)
+        for n in SHARDS:
+            blocks = shard_blocks(cfg.height, n)
+            parts = [gradkernel.launch_loss_grad(packed, lay, cfg, words, rows_of(target, b), b)
+                     for b in blocks]
+            summed = (sum(p[0] for p in parts), sum(p[1] for p in parts))
+            sum_errs["k4"] = max(sum_errs["k4"], compare_grad(
+                f"{n} row blocks summed, 1280x720x8spp x4 F={frames}", summed, whole)[0])
+            if n != PLAIN_SPLIT or frames != 1:
+                continue
+            for b, part in zip(blocks, parts):
+                block_errs["k4"] = max(block_errs["k4"], compare_grad(
+                    f"block rows {b} of 1280x720x8spp x4 F=1 vs plain (in {BAND_ROWS}-row bands)",
+                    part, gradkernel.loss_and_grad_plain(packed, room, camera, cfg, seeds,
+                                                         rows_of(target, b), BAND_ROWS, b))[0])
+        if frames == 1:
+            ms["k4"] = time_shards("K4 1 frame 1280x720", lambda: gradkernel.launch_loss_grad(
+                packed, lay, cfg, words, target), lambda b: gradkernel.launch_loss_grad(
+                packed, lay, cfg, words, rows_of(target, b), b), cfg.height)
+
+    pair = params.stack_rows((room, diff.zero_object(room, ref)), camera)
+    cot = torch.from_numpy(rng.normal(0, 1, (2, cfg.height, cfg.width, 3)).astype(np.float32)
+                           ).to(device)
+    whole = gradkernel.launch_light_vjp(pair, lay, cfg, 1, cot)
+    for n in SHARDS:
+        blocks = shard_blocks(cfg.height, n)
+        parts = [gradkernel.launch_light_vjp(pair, lay, cfg, 1, rows_of(cot, b), b)
+                 for b in blocks]
+        sum_errs["k5"] = max(sum_errs["k5"], compare_vec(
+            f"K5 two rows, {n} row blocks summed, 1280x720x8spp x4", sum(parts), whole)[0])
+        if n == PLAIN_SPLIT:
+            for b, part in zip(blocks, parts):
+                block_errs["k5"] = max(block_errs["k5"], compare_vec(
+                    f"K5 two rows, block rows {b} of 1280x720x8spp x4 vs plain", part,
+                    gradkernel.render_light_vjp_plain(pair, room, camera, cfg, 1,
+                                                      rows_of(cot, b), b))[0])
+    ms["k5"] = time_shards("K5 two rows 1280x720", lambda: gradkernel.launch_light_vjp(
+        pair, lay, cfg, 1, cot), lambda b: gradkernel.launch_light_vjp(
+        pair, lay, cfg, 1, rows_of(cot, b), b), cfg.height)
+
+    packed, lay, zero_map, alpha, target = soft_inputs(room, camera, cfg, ref, SOFT_EDGE, target)
+
+    def alpha_of(b):
+        return alpha[b[0]:b[0] + b[1]].contiguous()
+
+    def k6_block(b):
+        return gradkernel.launch_soft_loss_grad(packed, lay, cfg, 1, rows_of(target, b),
+                                                alpha_of(b), zero_map, b)
+
+    whole = gradkernel.launch_soft_loss_grad(packed, lay, cfg, 1, target, alpha, zero_map)
+    for n in SHARDS:
+        blocks = shard_blocks(cfg.height, n)
+        parts = [k6_block(b) for b in blocks]
+        alpha_cot = torch.cat([p[2] for p in parts])
+        assert torch.equal(alpha_cot, whole[2]), f"K6 {n} blocks: alpha cotangent not bitwise"
+        summed = (sum(p[0] for p in parts), sum(p[1] for p in parts), alpha_cot)
+        sum_errs["k6"] = max(sum_errs["k6"], compare_soft(
+            f"{n} row blocks summed, 1280x720x8spp x4 (alpha cotangent bitwise)", summed,
+            whole)[0])
+        if n == PLAIN_SPLIT:
+            for b, part in zip(blocks, parts):
+                block_errs["k6"] = max(block_errs["k6"], compare_soft(
+                    f"block rows {b} of 1280x720x8spp x4 vs plain (in {BAND_ROWS}-row bands)",
+                    part, gradkernel.render_soft_loss_and_grad_plain(
+                        packed, room, camera, cfg, 1, rows_of(target, b), alpha_of(b), zero_map,
+                        BAND_ROWS, b), block=True)[0])
+    ms["k6"] = time_shards("K6 1280x720", lambda: gradkernel.launch_soft_loss_grad(
+        packed, lay, cfg, 1, target, alpha, zero_map), k6_block, cfg.height)
+    return {"sum_errs": sum_errs, "block_errs": block_errs, "ms": ms}
+
+
+def run_distributed(card: str) -> dict:
+    """Phase 15: multihost_run on RANKS ranks at TRAIN, 3 steps, against
+    the single process; checks the launches of every rank. Returns the
+    runner's summary."""
+    backend = "nccl" if torch.cuda.device_count() >= RANKS else "gloo"
+    work = multihost_run.Work(width=TRAIN["width"], height=TRAIN["height"],
+                              samples=TRAIN["samples"], bounces=TRAIN["reflections_amount"],
+                              light_coefficient=TRAIN["light_coefficient"], steps=3,
+                              soft_ref=SOFT_REFS["room_with_sphere"], edge_width=SOFT_EDGE)
+    items = (*multihost_run.DEFAULT_ITEMS, "inverse_render")
+    t0 = time.perf_counter()
+    summary = multihost_run.run(RANKS, backend, "cuda", work, items, timeout=600)
+    print(json.dumps({"phase": 15, "card": card, "wall_s": time.perf_counter() - t0,
+                      "note": ("both ranks share one card: no scaling figure"
+                               if backend == "gloo" else "one card per rank"),
+                      **{k: v for k, v in summary.items() if k != "work"}}), flush=True)
+    assert summary["ok"], summary["items"]
+    steps = work.steps
+    for rank, launches in enumerate(summary["launches_per_rank"]):
+        expect = {"image": {"k1": 1, "k1_shard": 1},
+                  "kernel_hard": {"k4": steps, "k4_shard": steps},
+                  "kernel_soft": {"k6": steps, "k6_shard": steps},
+                  "pair": {"k1": 1, "k1_shard": 1, "k2": 1, "k5": 1, "k5_shard": 1}}
+        for item, want in expect.items():
+            assert launches[item] == want, (rank, item, launches[item], want)
+        ir = launches["inverse_render"]
+        assert ir.get("k4") == ir.get("k4_shard") == 60 and ir.get("k1") == 1, (rank, ir)
+    print(f"phase 15 backend={backend}: every rank made one K4 (K6) launch per step on its "
+          f"rows; step ms per rank {summary['step_ms_per_rank']}, single process "
+          f"{summary['single_step_ms']}", flush=True)
+    return summary
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -839,21 +1114,44 @@ def main() -> int:
         "launches": launches["soft"],
     }), flush=True)
 
+    phase("14 row-sharded launches (K3) on one card")
+    shards = check_row_shards(device)
+    bounds = kernel_bounds(device)
+
+    phase("15 distributed main path: multihost_run, 2 ranks")
+    reset_counts()
+    dist_summary = run_distributed(card)
+    ranks = dist_summary["launches_per_rank"]
+    launches["sharded"] = {key: sum(item.get(key, 0) for rank in ranks for item in rank.values())
+                           for key in ("k1", "k1_shard", "k2", "k4", "k4_shard", "k5", "k5_shard",
+                                       "k6", "k6_shard")}
+    print(json.dumps({"sharded_path_launches_all_ranks": launches["sharded"]}), flush=True)
+    sharded = launches["sharded"]
+    no_library = {"library_ms": None,
+                  "library_note": "no single PyTorch call computes a path trace or its adjoint"}
+
     summary = {"kernels": [{
         "name": "forward_megakernel",
         "route": "cuda",
         "source": "fourd_ray_tracing_tpu_torch/csrc/megakernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/megakernel.py:316",
-        "launches": launches["render"][0] + launches["train"][0] + launches["soft"]["k1"],
+        "launches": (launches["render"][0] + launches["train"][0] + launches["soft"]["k1"]
+                     + sharded["k1"]),
         "launches_by_path": {"render": launches["render"][0], "train": launches["train"][0],
-                             "soft": launches["soft"]["k1"]},
-        # K2 is this kernel over (F, P) params rows (render_light_pair); no
-        # main path renders rows, phase 11 holds them bitwise single renders.
-        "rows_launches": launches["soft"]["k2_rows"],
+                             "soft": launches["soft"]["k1"], "sharded": sharded["k1"]},
+        # K2 is this kernel over (F, P) params rows (render_light_pair): the
+        # sharded path's soft pair renders rows; phases 11 and 14 hold them
+        # bitwise single renders. K3 is this kernel on a block of rows.
+        "rows_launches": launches["soft"]["k2_rows"] + sharded["k2"],
+        "sharded_launches": sharded["k1_shard"],
+        "shard_max_abs_err": shards["block_errs"]["k1"],
+        "shard_sum_max_abs_err": shards["sum_errs"]["k1"],
+        "shard_ms": shards["ms"]["k1"],
         "max_abs_err": max_err,
         "tolerance": CHECK_BOUNDS,
         "ms": med_kernel,
         "plain_ms": plain_ms,
+        **bounds["k1"], **no_library,
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, 4 frames per launch",
         "build_s": build_s,
     }, {
@@ -861,13 +1159,19 @@ def main() -> int:
         "route": "cuda",
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:117",
-        "launches": launches["train"][1],
-        "launches_by_path": {"render": launches["render"][1], "train": launches["train"][1]},
+        "launches": launches["train"][1] + sharded["k4"],
+        "launches_by_path": {"render": launches["render"][1], "train": launches["train"][1],
+                             "sharded": sharded["k4"]},
+        "sharded_launches": sharded["k4_shard"],
+        "shard_max_abs_err": shards["block_errs"]["k4"],
+        "shard_sum_max_abs_err": shards["sum_errs"]["k4"],
+        "shard_ms": shards["ms"]["k4"],
         "max_abs_err": grad_err,
         "max_grad_mixed_rel_err": grad_rel,
         "tolerance": GRAD_BOUNDS,
         "ms": k4_full_med[1],
         "plain_ms": k4["plain_full_ms"][1],
+        **bounds["k4"], **no_library,
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, 1 frame, zero target "
                  f"(plain version in {BAND_ROWS}-row bands)",
         "ms_4_frames": k4_full_med[4],
@@ -880,12 +1184,18 @@ def main() -> int:
         "route": "cuda",
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:294",
-        "launches": launches["soft"]["k5"],
+        "launches": launches["soft"]["k5"] + sharded["k5"],
+        "launches_by_path": {"soft": launches["soft"]["k5"], "sharded": sharded["k5"]},
+        "sharded_launches": sharded["k5_shard"],
+        "shard_max_abs_err": shards["block_errs"]["k5"],
+        "shard_sum_max_abs_err": shards["sum_errs"]["k5"],
+        "shard_ms": shards["ms"]["k5"],
         "max_abs_err": vjp_err,
         "max_grad_mixed_rel_err": vjp_rel,
         "tolerance": GRAD_BOUNDS,
         "ms": statistics.median(k5["ms"]),
         "plain_ms": k5["plain_ms"],
+        **bounds["k5"], **no_library,
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, 1 row, seeded random cotangent "
                  "(plain version whole)",
         "build_s": build_s,
@@ -894,12 +1204,18 @@ def main() -> int:
         "route": "cuda",
         "source": "fourd_ray_tracing_tpu_torch/csrc/softkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:1207",
-        "launches": launches["soft"]["k6"],
+        "launches": launches["soft"]["k6"] + sharded["k6"],
+        "launches_by_path": {"soft": launches["soft"]["k6"], "sharded": sharded["k6"]},
+        "sharded_launches": sharded["k6_shard"],
+        "shard_max_abs_err": shards["block_errs"]["k6"],
+        "shard_sum_max_abs_err": shards["sum_errs"]["k6"],
+        "shard_ms": shards["ms"]["k6"],
         "max_abs_err": soft_err,
         "max_grad_mixed_rel_err": soft_rel,
         "tolerance": GRAD_BOUNDS,
         "ms": statistics.median(k6["ms"]),
         "plain_ms": k6["plain_ms"],
+        **bounds["k6"], **no_library,
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, sphere 0, zero target, edge "
                  f"width 0.05 (plain version in {BAND_ROWS}-row bands)",
         "build_s": build_s,

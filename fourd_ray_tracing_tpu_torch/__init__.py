@@ -11,8 +11,14 @@ Module names mirror the JAX package's:
 * ``models/renderer.py`` — the plain forward pipeline, the plain version
   of the forward kernel; ``models/params.py`` — its packed parameters;
 * ``ops/cuda/megakernel.py`` — the forward kernel's wrapper;
+* ``ops/cuda/gradkernel.py`` — the gradient kernels' wrappers;
+* ``diff.py``, ``inverse_render.py`` — losses, train steps, inverse
+  rendering;
+* ``parallel/mesh.py``, ``multihost_run.py`` — the row-sharded path over
+  torch.distributed ranks and its multi-process runner;
 * ``engine.py``, ``app.py`` — progressive accumulation and batch PNGs;
-* ``utils/`` — the properties/AppConfig parser and the PNG writer.
+* ``utils/`` — the properties/AppConfig parser, the PNG writer, the
+  JSON-line logger and the flop counter.
 
 This package never imports jax, nor anything of the JAX package: its
 properties parser and PNG writer (``utils/``) are its own copies.

@@ -13,6 +13,13 @@
 // carries F same-structure scenes instead of F seeds, each block reading
 // its own params row. A row is bitwise the single-scene launch.
 //
+// With a row offset it is K3, the launch of K1/K2 under shard_map
+// (sharded_render_light_pallas[_multi], tile0 = device x tiles_local): a
+// launch renders the image rows [row0, row0 + n_rows) only. A thread's
+// pixel keeps its global coordinates (py = row0 + local row), which feed
+// the primary ray and the RNG, so a row block is bitwise those rows of
+// the whole image for any split; the output holds the block alone.
+//
 // Design. One thread per (frame, view, y, x) pixel: the trace is a long
 // per-pixel control-flow program (runtime primitive loops, per-lane RNG
 // counters, uint32 hashing, float bit tricks), which one thread states
@@ -50,22 +57,24 @@ namespace {
 
 __global__ void __launch_bounds__(kBlock)
 forward_kernel(const float* __restrict__ params, long long row_stride,
-               const uint32_t* __restrict__ seeds, Layout L, int width, int height, int samples,
-               int reflections, float small_indent, float* __restrict__ out) {
+               const uint32_t* __restrict__ seeds, Layout L, int width, int height, int row0,
+               int n_rows, int samples, int reflections, float small_indent,
+               float* __restrict__ out) {
   extern __shared__ float P[];
   const float* row = params + blockIdx.y * row_stride;
   for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = row[i];
   __syncthreads();
 
-  const long long total = static_cast<long long>(L.n_views) * height * width;
+  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
   const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lin >= total) return;
   const int frame = blockIdx.y;
-  const int hw = height * width;
+  const int hw = n_rows * width;
   const int view = static_cast<int>(lin / hw);
   const int rem = static_cast<int>(lin - static_cast<long long>(view) * hw);
-  const int py = rem / width;
-  const int px = rem - py * width;
+  const int ly = rem / width;
+  const int px = rem - ly * width;
+  const int py = row0 + ly;
   const uint32_t seed = seeds[frame];
 
   const Pixel p = setup_pixel(P, L, view, px, py, width, height, small_indent);
@@ -83,27 +92,31 @@ forward_kernel(const float* __restrict__ params, long long row_stride,
 
 }  // namespace
 
-// Launch on ``stream``: out (F, V, H, W, 3) float32 <- params and seeds (F,)
-// uint32. Frame f reads the P = layout[13] floats at params + f * row_stride:
-// row_stride 0 renders one scene at F seeds (K1), row_stride P renders F
-// same-structure scenes, one params row per frame (K2; the wrapper then
-// gives every frame the same seed). Returns cudaGetLastError() after the
-// launch.
+// Launch on ``stream``: out (F, V, n_rows, W, 3) float32, image rows
+// [row0, row0 + n_rows) of H, <- params and seeds (F,) uint32 (row0 0 and
+// n_rows H: the whole image). Frame f reads the P = layout[13] floats at
+// params + f * row_stride: row_stride 0 renders one scene at F seeds (K1),
+// row_stride P renders F same-structure scenes, one params row per frame
+// (K2; the wrapper then gives every frame the same seed). Returns
+// cudaGetLastError() after the launch.
 extern "C" int fourd_forward_launch(const float* params, long long row_stride,
                                     const uint32_t* seeds, int n_frames, const int* layout,
-                                    int width, int height, int samples, int reflections,
-                                    float small_indent, float* out, void* stream) {
+                                    int width, int height, int row0, int n_rows, int samples,
+                                    int reflections, float small_indent, float* out,
+                                    void* stream) {
   Layout L;
   int* dst = reinterpret_cast<int*>(&L);
   for (int i = 0; i < kLayoutInts; ++i) dst[i] = layout[i];
-  const long long total = static_cast<long long>(L.n_views) * height * width;
+  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
   const size_t smem = static_cast<size_t>(L.size) * sizeof(float);
-  if (total <= 0 || n_frames <= 0 || samples <= 0 || row_stride < 0 || smem > 48 * 1024 ||
+  if (total <= 0 || row0 < 0 || n_rows <= 0 || row0 + n_rows > height || n_frames <= 0 ||
+      samples <= 0 || row_stride < 0 || smem > 48 * 1024 ||
       (total + kBlock - 1) / kBlock > 0x7FFFFFFFLL || n_frames > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   dim3 grid(static_cast<unsigned>((total + kBlock - 1) / kBlock), static_cast<unsigned>(n_frames));
   forward_kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-      params, row_stride, seeds, L, width, height, samples, reflections, small_indent, out);
+      params, row_stride, seeds, L, width, height, row0, n_rows, samples, reflections,
+      small_indent, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -88,10 +88,10 @@ inline Layout layout_from(const int* table) {
   return L;
 }
 
-// Blocks per frame or row of a launch over V * H * W pixels, or -1 for a
-// shape the launch refuses.
-inline long long pixel_blocks(const Layout& L, int width, int height) {
-  const long long total = static_cast<long long>(L.n_views) * height * width;
+// Blocks per frame or params row of a launch over V * n_rows * W pixels (a
+// block of n_rows image rows), or -1 for a shape the launch refuses.
+inline long long pixel_blocks(const Layout& L, int width, int n_rows) {
+  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
   if (total <= 0) return -1;
   return (total + kBlock - 1) / kBlock;
 }

@@ -27,11 +27,27 @@ the plain pipeline (models/renderer.py), the counterpart of
 On CPU tensors the kernel route runs the plain expression instead, as
 every kernel wrapper of the port does.
 
-Not ported yet, and raising: mesh sharding (ROADMAP queue 1, item 12),
-the frozen static hints (item 4), and the coverage, ``drop_object`` and
-``zero_object`` of the composite primitives (item 4). Without hints the
-JAX package's ``_stop_frozen_for_coverage`` and ``_hints_for_dropped``
-are the identity, so they are left out.
+With a ``mesh`` (parallel/mesh.py) rank (r, s) holds rows block r
+(``mesh.rows``), and every rank takes the same Adam step:
+
+* the plain route renders samples block s of those rows and takes their
+  part of the global mean loss; ``make_train_step`` all-reduces the loss
+  and the parameter gradients after the local backward in one packed
+  collective. A term that every rank of a samples group computes alike
+  (the coverage of a rows block) is differentiated by one rank of the
+  group only, so the all-reduce counts it once;
+* the kernel route (a mesh with no samples axis) runs the sharded
+  wrappers inside its autograd Functions: one K4 or K6 launch per rank on
+  its rows, whose [loss, grad] the wrapper all-reduces, so the Function
+  returns the whole image's loss and scales the whole image's gradient.
+  The soft loss's coverage is differentiated through each rank's rows and
+  summed over the ranks in its backward (``pmesh.SumGrad``).
+
+Not ported yet, and raising: the frozen static hints (ROADMAP queue 1,
+item 4), and the coverage, ``drop_object`` and ``zero_object`` of the
+composite primitives (item 4). Without hints the JAX package's
+``_stop_frozen_for_coverage`` and ``_hints_for_dropped`` are the
+identity, so they are left out.
 """
 from __future__ import annotations
 
@@ -48,29 +64,54 @@ from fourd_ray_tracing_tpu_torch.models.scene import Scene
 from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel, megakernel
 from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4, dot
+from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh
 
 IMPLS = ("plain", "kernel")
 
 
-def _check_unported(mesh=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding is not ported yet (ROADMAP queue 1, item 12)")
+def _rows_part(image_rows: torch.Tensor, target, rows, height: int) -> torch.Tensor:
+    """The part of mean((image - target)^2) over the whole image that image
+    rows [row0, row0 + n_rows) make: ``image_rows`` those rows of the
+    image, ``target`` the whole target."""
+    row0, n_rows = rows
+    target = torch.as_tensor(target, dtype=torch.float32, device=image_rows.device)
+    count = image_rows.numel() // n_rows * height
+    return torch.sum((image_rows - target[..., row0:row0 + n_rows, :, :]) ** 2) / count
 
 
 def image_loss(scene: Scene, camera: Camera, cfg: RenderConfig, seed, target,
                mesh=None) -> torch.Tensor:
     """MSE between the rendered (tone-mapped) image and a target,
-    differentiable by torch autograd."""
-    _check_unported(mesh=mesh)
-    return renderer.image_loss(scene, camera, cfg, seed, target)
+    differentiable by torch autograd. With a mesh, this rank's part of it:
+    its rows of the image, rendered over the mesh (the rows' parts sum to
+    the MSE over the rays group)."""
+    if mesh is None:
+        return renderer.image_loss(scene, camera, cfg, seed, target)
+    image = pmesh.sharded_render_image(scene, camera, cfg, seed, mesh, gather=False)
+    return _rows_part(image, target, mesh.rows(cfg.height), cfg.height)
+
+
+def _reduce(loss: torch.Tensor, grads, mesh):
+    """(loss, grads) of the whole image on every rank from each rank's
+    part on the plain route: one all-reduce over the world. The loss of a
+    rows block counts once: every rank of a samples group holds the same
+    part, and only the group's first rank adds it."""
+    own = loss.detach() if mesh.sample_index == 0 else torch.zeros_like(loss)
+    out = pmesh.all_reduce_sum([own, *grads], mesh)
+    return out[0], out[1:]
 
 
 def render_grad(scene: Scene, camera: Camera, cfg: RenderConfig, seed, target, mesh=None):
     """(loss, (grad_scene, grad_camera)) at a fixed seed, by autograd over
-    the plain pipeline."""
-    _check_unported(mesh=mesh)
-    loss, grad = gradkernel.loss_and_grad_plain(params.pack(scene, camera), scene, camera, cfg,
-                                                seed, target)
+    the plain pipeline; with a mesh, the whole image's on every rank."""
+    if mesh is None:
+        loss, grad = gradkernel.loss_and_grad_plain(params.pack(scene, camera), scene, camera,
+                                                    cfg, seed, target)
+        return loss, params.unpack(grad, scene, camera)
+    vec = params.pack(scene, camera).detach().requires_grad_(True)
+    loss = image_loss(*params.unpack(vec, scene, camera), cfg, seed, target, mesh)
+    (grad,) = torch.autograd.grad(loss, vec)
+    loss, (grad,) = _reduce(loss, [grad], mesh)
     return loss, params.unpack(grad, scene, camera)
 
 
@@ -177,10 +218,13 @@ def zero_object(scene: Scene, object_ref) -> Scene:
     return scene._replace(spheres=spheres)
 
 
-def _blend_loss(alpha, img_with, img_without, target) -> torch.Tensor:
+def _blend(alpha, img_with, img_without) -> torch.Tensor:
     alpha = alpha[..., None]
-    img = alpha * img_with + (1.0 - alpha) * img_without
-    return torch.mean((img - target) ** 2)
+    return alpha * img_with + (1.0 - alpha) * img_without
+
+
+def _blend_loss(alpha, img_with, img_without, target) -> torch.Tensor:
+    return torch.mean((_blend(alpha, img_with, img_without) - target) ** 2)
 
 
 def soft_image_loss(scene: Scene, camera: Camera, cfg: RenderConfig, seed, target,
@@ -189,40 +233,59 @@ def soft_image_loss(scene: Scene, camera: Camera, cfg: RenderConfig, seed, targe
     """MSE with soft-silhouette gradients for one designated object: the
     scene and the scene without the object render at the same seed and
     blend by ``object_coverage``. ``object_ref`` defaults to ("spheres",
-    sphere_index). The plain reference of the soft training slice."""
-    _check_unported(mesh=mesh)
+    sphere_index). The plain reference of the soft training slice. With a
+    mesh, this rank's part: its rows, rendered over the mesh."""
     if object_ref is None:
         object_ref = ("spheres", sphere_index)
     without = drop_object(scene, object_ref)
-    img_with = renderer.render_image(scene, camera, cfg, seed)
-    img_without = renderer.render_image(without, camera, cfg, seed)
     alpha = object_coverage(scene, object_ref, camera, cfg, edge_width)
-    return _blend_loss(alpha, img_with, img_without, target)
+    if mesh is None:
+        img_with = renderer.render_image(scene, camera, cfg, seed)
+        img_without = renderer.render_image(without, camera, cfg, seed)
+        return _blend_loss(alpha, img_with, img_without, target)
+    img_with = pmesh.sharded_render_image(scene, camera, cfg, seed, mesh, gather=False)
+    img_without = pmesh.sharded_render_image(without, camera, cfg, seed, mesh, gather=False)
+    rows = mesh.rows(cfg.height)
+    alpha = alpha[..., rows[0]:rows[0] + rows[1], :]
+    if mesh.sample_index:  # the rows' coverage is differentiated once per samples group
+        alpha = alpha.detach()
+    return _rows_part(_blend(alpha, img_with, img_without), target, rows, cfg.height)
 
 
 class ImageLoss(torch.autograd.Function):
     """``image_loss`` of the packed vector through K4: the forward launches
     the kernel once and keeps its gradient, the backward scales it by the
     incoming cotangent (the counterpart of the pallas_image_loss
-    custom_vjp, diff.py:457-484)."""
+    custom_vjp, diff.py:457-484). With a ``mesh``, K4 row-sharded
+    (``gradkernel.sharded_loss_and_grad``: the whole image's loss and
+    gradient on every rank; pallas_image_loss_sharded, diff.py:488-527)."""
 
     @staticmethod
-    def forward(ctx, vec, like_scene, like_camera, cfg, seed, target):
-        loss, grad = gradkernel.loss_and_grad_cuda(vec, like_scene, like_camera, cfg, seed, target)
+    def forward(ctx, vec, like_scene, like_camera, cfg, seed, target, mesh=None):
+        if mesh is None:
+            loss, grad = gradkernel.loss_and_grad_cuda(vec, like_scene, like_camera, cfg, seed,
+                                                       target)
+        else:
+            loss, grad = gradkernel.sharded_loss_and_grad(vec, like_scene, like_camera, cfg, seed,
+                                                          target, mesh)
         ctx.save_for_backward(grad)
         return loss
 
     @staticmethod
     def backward(ctx, ct):
         (grad,) = ctx.saved_tensors
-        return grad * ct, None, None, None, None, None
+        return grad * ct, None, None, None, None, None, None
 
 
 def image_loss_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camera,
-                      cfg: RenderConfig, seed, target) -> torch.Tensor:
+                      cfg: RenderConfig, seed, target, mesh=None) -> torch.Tensor:
     """``image_loss`` of the scene and camera packed in ``vec`` (P,),
     differentiable w.r.t. ``vec``: K4 for a CUDA vector, the plain
-    expression for a CPU one."""
+    expression for a CPU one. With a mesh, the whole image's loss and
+    gradient on every rank from one K4 launch per rank on its rows (on
+    the CPU, K4's plain version on them)."""
+    if mesh is not None:
+        return ImageLoss.apply(vec, like_scene, like_camera, cfg, seed, target, mesh)
     if vec.device.type == "cpu":
         scene, camera = params.unpack(vec, like_scene, like_camera)
         return renderer.image_loss(scene, camera, cfg, seed, target)
@@ -237,30 +300,43 @@ class RenderLight(torch.autograd.Function):
     (the counterpart of the pallas_render_light custom_vjp,
     diff.py:542-576); (F, P) params rows render with K2 and differentiate
     with K5's multi-row launch (pallas_render_light_pair, diff.py:589-627).
-    CUDA only."""
+    CUDA only, but with a ``mesh`` (F, P) rows run row-sharded on either
+    device: the rank's rows of the light
+    (``megakernel.sharded_render_light_cuda_multi``), and the whole image's
+    gradient from the rank's rows of the cotangent
+    (``gradkernel.sharded_render_light_vjp_multi``;
+    pallas_render_light_pair_sharded, diff.py:631-673)."""
 
     @staticmethod
-    def forward(ctx, vec, like_scene, like_camera, cfg, seed):
+    def forward(ctx, vec, like_scene, like_camera, cfg, seed, mesh=None):
         renderer.check_supported(cfg)
         words, batched = renderer.seed_words(seed)
         if batched:
             raise ValueError("the light-VJP path takes one scalar seed")
-        rows = vec.dim() == 2
-        seeds = megakernel.seed_tensor(words * (vec.shape[0] if rows else 1), vec.device)
+        ctx.save_for_backward(vec)
+        ctx.meta = (like_scene, like_camera, cfg, seed, mesh)
+        if mesh is not None:
+            unpacked = [params.unpack(v, like_scene, like_camera) for v in vec.detach()]
+            return megakernel.sharded_render_light_cuda_multi(
+                [s for s, _ in unpacked], unpacked[0][1], cfg, seed, mesh, gather=False)
+        multi = vec.dim() == 2
+        seeds = megakernel.seed_tensor(words * (vec.shape[0] if multi else 1), vec.device)
         light = megakernel.launch_forward(vec.detach().contiguous(),
                                           params.layout(like_scene, like_camera), cfg, seeds)
         if like_camera.top.x.dim() == 0:
             light = light[:, 0]
-        ctx.save_for_backward(vec)
-        ctx.meta = (like_scene, like_camera, cfg, seed)
-        return light if rows else light[0]
+        return light if multi else light[0]
 
     @staticmethod
     def backward(ctx, cot):
         (vec,) = ctx.saved_tensors
-        like_scene, like_camera, cfg, seed = ctx.meta
-        grad = gradkernel.render_light_vjp_cuda(vec, like_scene, like_camera, cfg, seed, cot)
-        return grad, None, None, None, None
+        like_scene, like_camera, cfg, seed, mesh = ctx.meta
+        if mesh is None:
+            grad = gradkernel.render_light_vjp_cuda(vec, like_scene, like_camera, cfg, seed, cot)
+        else:
+            grad = gradkernel.sharded_render_light_vjp_multi(vec, like_scene, like_camera, cfg,
+                                                             seed, cot.contiguous(), mesh)
+        return grad, None, None, None, None, None
 
 
 def render_light_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camera,
@@ -277,19 +353,26 @@ def render_light_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camer
 
 
 def render_light_pair(scene_a: Scene, scene_b: Scene, camera: Camera, cfg: RenderConfig,
-                      seed) -> torch.Tensor:
+                      seed, mesh=None) -> torch.Tensor:
     """Mean-light renders of two same-structure scenes (e.g. a scene and its
     ``zero_object`` copy) at one seed, stacked (2, ...): one K2 launch
     forward and one two-row K5 launch backward on the card. Row i equals
     ``render_light_kernel`` of scene i; differentiable w.r.t. both scenes
-    and the camera, whose gradient sums over the rows."""
-    rows = params.stack_rows((scene_a, scene_b), camera)
-    if rows.device.type == "cpu":
-        return torch.stack([renderer.render_light(*params.unpack(row, scene_a, camera), cfg, seed)
-                            for row in rows])
-    if rows.device.type != "cuda":
-        raise ValueError(f"render_light_pair takes CPU or CUDA tensors, got {rows.device}")
-    return RenderLight.apply(rows, scene_a, camera, cfg, seed)
+    and the camera, whose gradient sums over the rows. With a mesh, the
+    rank's rows block (``mesh.rows``), one launch each way per rank (their
+    plain versions on the CPU), whose backward all-reduces the gradient:
+    a loss over each rank's block gives every rank the whole image's
+    gradient (the counterpart of pallas_render_light_pair_sharded,
+    diff.py:631-673)."""
+    vecs = params.stack_rows((scene_a, scene_b), camera)
+    if mesh is not None:
+        return RenderLight.apply(vecs, scene_a, camera, cfg, seed, mesh)
+    if vecs.device.type == "cpu":
+        return torch.stack([renderer.render_light(*params.unpack(v, scene_a, camera), cfg, seed)
+                            for v in vecs])
+    if vecs.device.type != "cuda":
+        raise ValueError(f"render_light_pair takes CPU or CUDA tensors, got {vecs.device}")
+    return RenderLight.apply(vecs, scene_a, camera, cfg, seed)
 
 
 class SoftImageLoss(torch.autograd.Function):
@@ -297,31 +380,56 @@ class SoftImageLoss(torch.autograd.Function):
     zero-map copy by ``alpha``, through K6: the forward launches it once
     and keeps the parameter and alpha gradients, the backward scales them
     by the incoming cotangent (the counterpart of the _soft_kernel_loss
-    custom_vjp, diff.py:690-726). CUDA only."""
+    custom_vjp, diff.py:690-726). CUDA only, but with a ``mesh`` K6
+    row-sharded on either device (``gradkernel.sharded_soft_loss_and_grad``:
+    the whole image's loss and parameter gradient on every rank, alpha's
+    cotangent on the rank's rows and 0 elsewhere; _soft_kernel_loss_sharded,
+    diff.py:730-770)."""
 
     @staticmethod
-    def forward(ctx, vec, alpha, like_scene, like_camera, cfg, seed, target, zero_map):
-        loss, grad, g_alpha = gradkernel.render_soft_loss_and_grad_cuda(
-            vec, like_scene, like_camera, cfg, seed, target, alpha, zero_map)
+    def forward(ctx, vec, alpha, like_scene, like_camera, cfg, seed, target, zero_map,
+                mesh=None):
+        if mesh is None:
+            loss, grad, g_alpha = gradkernel.render_soft_loss_and_grad_cuda(
+                vec, like_scene, like_camera, cfg, seed, target, alpha, zero_map)
+        else:
+            loss, grad, block = gradkernel.sharded_soft_loss_and_grad(
+                vec, like_scene, like_camera, cfg, seed, target, alpha, zero_map, mesh)
+            row0, n_rows = mesh.rows(cfg.height)
+            g_alpha = torch.zeros_like(alpha)
+            g_alpha[..., row0:row0 + n_rows, :] = block
         ctx.save_for_backward(grad, g_alpha)
         return loss
 
     @staticmethod
     def backward(ctx, ct):
         grad, g_alpha = ctx.saved_tensors
-        return grad * ct, g_alpha * ct, None, None, None, None, None, None
+        return grad * ct, g_alpha * ct, None, None, None, None, None, None, None
 
 
 def soft_image_loss_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camera,
                            cfg: RenderConfig, seed, target, object_ref,
-                           edge_width: float = 0.05) -> torch.Tensor:
+                           edge_width: float = 0.05, mesh=None) -> torch.Tensor:
     """``soft_image_loss`` of the scene and camera packed in ``vec`` (P,),
     differentiable w.r.t. ``vec`` (the counterpart of soft_image_loss_pallas,
     diff.py:829-892). On the card, a sphere runs one K6 launch, its coverage
     alpha plain torch; a hyperplane, which cannot be zeroed into a miss,
     renders with and without itself through two ``render_light_kernel``
     nodes (two K1 and two K5 launches) and blends in torch. A CPU vector
-    takes the plain expression."""
+    takes the plain expression. With a mesh, the whole image's loss and
+    gradient on every rank from one K6 launch per rank on its rows (on the
+    CPU, K6's plain version on them), the coverage differentiated through
+    the rank's rows and summed over the ranks; a hyperplane with a mesh
+    raises ValueError, as in the JAX package."""
+    if mesh is not None:
+        if object_ref[0] == "spaces":
+            raise ValueError("mesh-sharded soft training supports zero-emulatable object "
+                             "kinds only (hyperplanes have no miss radius)")
+        scene, camera = params.unpack(pmesh.SumGrad.apply(vec, mesh), like_scene, like_camera)
+        alpha = object_coverage(scene, object_ref, camera, cfg, edge_width)
+        zero_map = params.soft_zero_map(like_scene, like_camera, object_ref)
+        return SoftImageLoss.apply(vec, alpha, like_scene, like_camera, cfg, seed, target,
+                                   zero_map, mesh)
     scene, camera = params.unpack(vec, like_scene, like_camera)
     if vec.device.type == "cpu":
         return soft_image_loss(scene, camera, cfg, seed, target, edge_width=edge_width,
@@ -383,8 +491,15 @@ def make_train_step(cfg: RenderConfig, lr: float, camera: Camera,
     (``soft_image_loss``; with ``impl="kernel"`` ``soft_image_loss_kernel``,
     one K6 launch per step for a sphere), which gives silhouette-driven
     position and radius gradients; it takes one frame per step.
+
+    ``mesh`` (parallel/mesh.py) shards the step over the mesh's ranks, each
+    with its rows (the module's docstring): ``impl="plain"`` takes the
+    rows' part of the loss and all-reduces the packed loss and gradients
+    after the local backward; ``impl="kernel"`` (a mesh with no samples
+    axis) makes one K4 or K6 launch per rank whose wrapper all-reduces
+    them. Every rank takes the same step; the loss and ``grad_norm`` are
+    the whole image's.
     """
-    _check_unported(mesh)
     soft = soft_sphere_index is not None or soft_object_ref is not None
     _check_impl(impl, frames_per_step, soft)
     renderer.check_supported(cfg)
@@ -400,12 +515,12 @@ def make_train_step(cfg: RenderConfig, lr: float, camera: Camera,
             vec = params.pack(scene, camera)
             if soft:
                 return soft_image_loss_kernel(vec, scene, camera, cfg, seed, target, ref,
-                                              edge_width)
-            return image_loss_kernel(vec, scene, camera, cfg, seed, target)
+                                              edge_width, mesh)
+            return image_loss_kernel(vec, scene, camera, cfg, seed, target, mesh)
         if soft:
             return soft_image_loss(scene, camera, cfg, seed, target, edge_width=edge_width,
-                                   object_ref=ref)
-        return renderer.image_loss(scene, camera, cfg, seed, target)
+                                   mesh=mesh, object_ref=ref)
+        return image_loss(scene, camera, cfg, seed, target, mesh)
 
     def step(scene, optimizer, seed, target):
         optimizer.zero_grad(set_to_none=False)
@@ -415,6 +530,10 @@ def make_train_step(cfg: RenderConfig, lr: float, camera: Camera,
         for leaf in leaves:  # a leaf that only enters comparisons (refl_prob) has grad 0
             if leaf.grad is None:
                 leaf.grad = torch.zeros_like(leaf)
+        if mesh is not None and impl == "plain":
+            loss, grads = _reduce(loss, [leaf.grad for leaf in leaves], mesh)
+            for leaf, g in zip(leaves, grads):
+                leaf.grad.copy_(g)
         if param_filter is not None:
             filtered = param_filter(params.map_leaves(lambda t: t.grad, scene))
             for leaf, g in zip(leaves, params.tree_leaves(filtered)):

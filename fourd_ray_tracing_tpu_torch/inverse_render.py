@@ -13,19 +13,30 @@ through its silhouette, with the soft-silhouette loss of the lamp
 hard loss only). Exits 0 when the recovered value is within ``--tol`` of
 the truth.
 
+``--mesh`` shards the steps over the ranks of a torch.distributed process
+group (parallel/mesh.py: rows over every rank, one all-reduce of the loss
+and gradients per step). Under torchrun it joins the group the
+environment names (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``), with NCCL when every rank has a card of its own and gloo
+otherwise; in a process that already joined one, that group; with
+neither, a 1-rank mesh. Only rank 0 prints.
+
     python -m fourd_ray_tracing_tpu_torch.inverse_render --param glow --impl kernel
     python -m fourd_ray_tracing_tpu_torch.inverse_render --param position --impl kernel
+    torchrun --nproc-per-node 2 -m fourd_ray_tracing_tpu_torch.inverse_render --mesh
 
-Not ported yet, and raising: ``--mesh`` (ROADMAP queue 1, item 12),
-``--freeze-hints`` (item 4) and ``--ckpt`` (item 13).
+Not ported yet, and raising: ``--freeze-hints`` (ROADMAP queue 1, item 4)
+and ``--ckpt`` (item 13).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from fourd_ray_tracing_tpu_torch import camera as cam
 from fourd_ray_tracing_tpu_torch import diff
@@ -35,6 +46,7 @@ from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
 from fourd_ray_tracing_tpu_torch.models.scene import Scene, material, sphere
 from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import render_image_cuda
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
+from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh
 from fourd_ray_tracing_tpu_torch.utils.logging import log0, log_metrics
 
 TRUE_GLOW, INIT_GLOW = 20.0, 8.0
@@ -106,7 +118,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--bounces", type=int, default=2)
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--seed", type=int, default=11)
-    ap.add_argument("--mesh", action="store_true", help="not ported yet (ROADMAP queue 1, item 12)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="shard the steps' rows over the ranks of the process group (torchrun's, "
+                    "or one rank)")
     ap.add_argument("--impl", choices=diff.IMPLS, default="plain",
                     help="kernel = the gradient kernels (one K4 launch per step for glow, one "
                     "K6 launch per step for position, on the card); plain = torch autograd "
@@ -143,20 +157,39 @@ def setup(args: argparse.Namespace, device):
     return cfg, camera, target, t.scene(t.init, device)
 
 
+def join_mesh(args: argparse.Namespace, device: torch.device):
+    """(mesh, device, whether this call joined the process group) of
+    ``--mesh``: the group of the environment or of the caller, or one
+    rank. Under torchrun a CUDA rank takes card LOCAL_RANK (modulo the
+    cards there are)."""
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    backend = "nccl" if device.type == "cuda" and torch.cuda.device_count() >= world else "gloo"
+    joined = not dist.is_initialized() and pmesh.initialize_distributed(backend, device)
+    mesh = pmesh.make_mesh(samples=1, device=device)
+    if args.height % mesh.world:
+        raise SystemExit(f"--height must divide by {mesh.world} ranks")
+    log0(f"mesh {mesh.rays}x{mesh.samples} backend={mesh.backend or 'none (one process)'}",
+         flush=True)
+    return mesh, mesh.device, joined
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP queue 1, item 12)")
     if args.freeze_hints:
         raise NotImplementedError("--freeze-hints needs the static hints, which are not "
                                   "ported yet (ROADMAP queue 1, item 4)")
     if args.ckpt:
         raise NotImplementedError("--ckpt is not ported yet (ROADMAP queue 1, item 13)")
-    if args.packed and (args.impl != "kernel" or args.param != "glow"):
-        raise SystemExit("--packed is the kernel's hard-loss packed-space loop (use --impl "
-                         "kernel, --param glow)")
+    if args.packed and (args.impl != "kernel" or args.param != "glow" or args.mesh):
+        raise SystemExit("--packed is the kernel's hard-loss packed-space loop on one device "
+                         "(use --impl kernel, --param glow, no --mesh)")
 
     device = resolve_device(args.device)
+    mesh, joined = None, False
+    if args.mesh:
+        mesh, device, joined = join_mesh(args, device)
     cfg, camera, target, scene0 = setup(args, device)
     t = task(args.param)
     lr = args.lr or t.lr
@@ -178,7 +211,7 @@ def main(argv=None) -> int:
         soft = SOFT_SPHERE if args.param == "position" else None
         step, init = diff.make_train_step(cfg, lr, camera, param_filter=t.param_filter,
                                           impl=args.impl, soft_sphere_index=soft,
-                                          edge_width=EDGE_WIDTH)
+                                          edge_width=EDGE_WIDTH, mesh=mesh)
         scene, opt = init(scene0)
         for k in range(args.steps):
             scene, opt, loss, metrics = step(scene, opt, args.seed, target)
@@ -187,6 +220,8 @@ def main(argv=None) -> int:
     err = abs(t.read(scene) - t.true)
     log0(f"recovered {args.param}={t.read(scene):.4f} (true {t.true}, err {err:.4f})", flush=True)
     tol = args.tol if args.tol is not None else t.tol
+    if joined:
+        dist.destroy_process_group()
     return 0 if err < tol else 1
 
 

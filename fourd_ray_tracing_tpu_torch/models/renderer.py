@@ -105,16 +105,20 @@ def check_supported(cfg: RenderConfig) -> None:
         )
 
 
-def screen_coords(cfg: RenderConfig, device):
-    """Normalized pixel-center coordinates (H, W), row 0 at the top."""
+def screen_coords(cfg: RenderConfig, device, row0: int = 0, n_rows: int | None = None):
+    """Normalized pixel-center coordinates (n_rows, W) of image rows
+    [row0, row0 + n_rows) (all H by default), row 0 at the top. They
+    normalize by the global resolution, so a pixel's coordinates, and
+    with them its RNG stream, do not depend on how the image was cut."""
+    n_rows = cfg.height if n_rows is None else n_rows
     j = torch.arange(cfg.width, dtype=torch.float32, device=device)
-    i = torch.arange(cfg.height, dtype=torch.float32, device=device)
+    i = torch.arange(row0, row0 + n_rows, dtype=torch.float32, device=device)
     # Divide by tensors: on CUDA, torch turns division by a Python scalar
     # into a multiply by its reciprocal, which moves some coordinates by
     # an ulp and so reseeds those pixels' RNG streams.
     scr_x = (j[None, :] + 0.5) / torch.tensor(float(cfg.width), device=device)
     scr_y = (i[:, None] + 0.5) / torch.tensor(float(cfg.height), device=device)
-    shape = (cfg.height, cfg.width)
+    shape = (n_rows, cfg.width)
     return scr_x.expand(shape), scr_y.expand(shape)
 
 
@@ -232,9 +236,19 @@ def sample_stream_bits(pixel_bits: torch.Tensor, sample_index: int) -> torch.Ten
     return pixel_bits ^ fold
 
 
-def _render_light_one(scene: Scene, camera: Camera, cfg: RenderConfig, seed: int, rows: slice):
-    scr_x, scr_y = screen_coords(cfg, camera.focus.x.device)
-    scr_x, scr_y = scr_x[rows], scr_y[rows]
+def render_light_tile(scene: Scene, camera: Camera, cfg: RenderConfig, seed: int, row0: int = 0,
+                      n_rows: int | None = None, sample0: int = 0,
+                      n_samples: int | None = None) -> torch.Tensor:
+    """Light of image rows [row0, row0 + n_rows) SUMMED over samples
+    [sample0, sample0 + n_samples), (n_rows, W, 3) or (V, n_rows, W, 3),
+    at one scalar seed; the caller divides by the global sample count
+    (the counterpart of the JAX renderer's render_light_tile,
+    renderer.py:409-496). Row and sample offsets are absolute, so any
+    partition of rows x samples reassembles into the same image: the unit
+    of the row-sharded path (parallel/mesh.py)."""
+    n_rows = cfg.height if n_rows is None else n_rows
+    n_samples = cfg.samples if n_samples is None else n_samples
+    scr_x, scr_y = screen_coords(cfg, camera.focus.x.device, row0, n_rows)
     d = primary_directions(camera, scr_x, scr_y)
     pixel_bits = rng.pixel_stream_bits(scr_x, scr_y).expand(d.x.shape)
     o = _expand_cam_vec(camera.focus, d.x.dim())
@@ -242,11 +256,22 @@ def _render_light_one(scene: Scene, camera: Camera, cfg: RenderConfig, seed: int
     counter0 = rng.init_counter(seed, d.x)
     pre0 = precompute_bounce0(scene, o, d, cfg)
     acc = Vec3.full(0.0, like=d.x)
-    for s in range(cfg.samples):
+    for s in range(sample0, sample0 + n_samples):
         bits = sample_stream_bits(pixel_bits, s)
         acc = acc + trace_rays(scene, d, bits, seed, counter0, cfg, pre0)
-    inv = float(np.float32(1.0) / np.float32(cfg.samples))
-    return acc.stack(-1) * inv
+    return acc.stack(-1)
+
+
+def inv_samples(cfg: RenderConfig) -> float:
+    """1 / samples in float32, the mean's factor."""
+    return float(np.float32(1.0) / np.float32(cfg.samples))
+
+
+def _render_light_one(scene: Scene, camera: Camera, cfg: RenderConfig, seed: int, rows: slice):
+    row0, stop, step = rows.indices(cfg.height)
+    if step != 1:
+        raise ValueError(f"rows must be a contiguous band, got {rows}")
+    return render_light_tile(scene, camera, cfg, seed, row0, max(0, stop - row0)) * inv_samples(cfg)
 
 
 def seed_words(seed) -> tuple[list, bool]:

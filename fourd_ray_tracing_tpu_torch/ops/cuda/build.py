@@ -125,9 +125,10 @@ def load() -> ctypes.CDLL:
             ctypes.c_int,                     # n_frames
             ctypes.c_void_p,                  # layout table (int[14]), host
             ctypes.c_int, ctypes.c_int,       # width, height
+            ctypes.c_int, ctypes.c_int,       # row0, n_rows: the launch's block of image rows
             ctypes.c_int, ctypes.c_int,       # samples, reflections
             ctypes.c_float,                   # small_indent
-            ctypes.c_void_p,                  # out (F, V, H, W, 3) float32, device
+            ctypes.c_void_p,                  # out (F, V, n_rows, W, 3) float32, device
             ctypes.c_void_p,                  # cudaStream_t
         ]
         fn.restype = ctypes.c_int
@@ -138,9 +139,10 @@ def load() -> ctypes.CDLL:
             ctypes.c_int,                     # n_frames
             ctypes.c_void_p,                  # layout table (int[14]), host
             ctypes.c_int, ctypes.c_int,       # width, height
+            ctypes.c_int, ctypes.c_int,       # row0, n_rows: the launch's block of image rows
             ctypes.c_int, ctypes.c_int,       # samples, reflections
             ctypes.c_float, ctypes.c_float,   # small_indent, light_coefficient
-            ctypes.c_void_p,                  # target (V, H, W, 3) float32, device
+            ctypes.c_void_p,                  # target (V, n_rows, W, 3) float32, device
             ctypes.c_float,                   # scale
             ctypes.c_void_p,                  # grad_parts (P, n_cols) float32, device
             ctypes.c_void_p,                  # loss_parts (n_cols,) float64, device
@@ -156,13 +158,14 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [
             ctypes.c_void_p,                  # params (P,) or (F, P) float32, device
             ctypes.c_longlong,                # row_stride: 0, or P for (F, P) rows
-            ctypes.c_int,                     # n_rows F
+            ctypes.c_int,                     # params rows F
             ctypes.c_uint32,                  # seed
             ctypes.c_void_p,                  # layout table (int[14]), host
             ctypes.c_int, ctypes.c_int,       # width, height
+            ctypes.c_int, ctypes.c_int,       # row0, n_rows: the launch's block of image rows
             ctypes.c_int, ctypes.c_int,       # samples, reflections
             ctypes.c_float,                   # small_indent
-            ctypes.c_void_p,                  # cot (F, V, H, W, 3) float32, device
+            ctypes.c_void_p,                  # cot (F, V, n_rows, W, 3) float32, device
             ctypes.c_void_p,                  # grad_parts (F*P, n_cols) float32, device
             ctypes.c_void_p,                  # grad out (F, P) float32, device
             ctypes.c_void_p,                  # cudaStream_t
@@ -176,16 +179,17 @@ def load() -> ctypes.CDLL:
             ctypes.c_int,                     # n_zero
             ctypes.c_void_p, ctypes.c_void_p,  # zero-map slots (int[n]), values (float[n]), host
             ctypes.c_int, ctypes.c_int,       # width, height
+            ctypes.c_int, ctypes.c_int,       # row0, n_rows: the launch's block of image rows
             ctypes.c_int, ctypes.c_int,       # samples, reflections
             ctypes.c_float, ctypes.c_float,   # small_indent, light_coefficient
-            ctypes.c_void_p,                  # target (V, H, W, 3) float32, device
-            ctypes.c_void_p,                  # alpha (V, H, W) float32, device
+            ctypes.c_void_p,                  # target (V, n_rows, W, 3) float32, device
+            ctypes.c_void_p,                  # alpha (V, n_rows, W) float32, device
             ctypes.c_float,                   # scale
             ctypes.c_void_p,                  # grad_parts (P, n_cols) float32, device
             ctypes.c_void_p,                  # loss_parts (n_cols,) float64, device
             ctypes.c_void_p,                  # grad out (P,) float32, device
             ctypes.c_void_p,                  # loss out () float32, device
-            ctypes.c_void_p,                  # alpha_cot out (V, H, W) float32, device
+            ctypes.c_void_p,                  # alpha_cot out (V, n_rows, W) float32, device
             ctypes.c_void_p,                  # cudaStream_t
         ]
         fn.restype = ctypes.c_int

@@ -17,12 +17,25 @@ Counterpart of fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:
   scene blended by a coverage alpha with its zero-map copy, the gradient
   of every packed parameter and the cotangent of alpha.
 
+Each takes ``rows`` = (row0, n_rows): image rows [row0, row0 + n_rows)
+only, with the target, cotangent, alpha and alpha cotangent the blocks of
+those rows, and the loss and gradient those rows' part of the whole
+image's (the scale stays the whole image's). The sharded wrappers
+(``sharded_loss_and_grad``, ``sharded_render_light_vjp_multi``,
+``sharded_soft_loss_and_grad``: K3's launches of K4, K5 and K6, the
+counterparts of gradkernel.py:1060, :535 and :1456) launch once per rank
+on its rows (parallel/mesh.py) and all-reduce one packed [loss, grad]
+vector over the ranks.
+
 Each plain version is torch autograd over the plain pipeline
-(models/renderer.py); ``band_rows`` runs it a band of rows at a time for
+(models/renderer.py), with grad mode on so that it runs inside an autograd
+Function's forward or backward too; ``band_rows`` runs it a band of rows at a time for
 shapes whose whole graph would not fit. ``LAUNCHES``,
 ``VJP_LAUNCHES`` and ``SOFT_LAUNCHES`` count the launches of K4, K5 and
 K6, each raised once per ``launch_*`` call, so a run can show that its
-main path went through them.
+main path went through them; ``SHARD_LAUNCHES``, ``SHARD_VJP_LAUNCHES``
+and ``SHARD_SOFT_LAUNCHES`` count those of them over fewer rows than the
+image.
 """
 from __future__ import annotations
 
@@ -36,19 +49,23 @@ from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
 from fourd_ray_tracing_tpu_torch.models.scene import Scene
 from fourd_ray_tracing_tpu_torch.ops.cuda import build
-from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import seed_tensor
+from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import launch_rows, seed_tensor
+from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh
 
 LAUNCHES = 0  # K4
 VJP_LAUNCHES = 0  # K5
 SOFT_LAUNCHES = 0  # K6
+SHARD_LAUNCHES = SHARD_VJP_LAUNCHES = SHARD_SOFT_LAUNCHES = 0  # of them, on a block of rows
 # Sizes of the kernels' per-thread arrays and K6's zero-map slots, which
 # the build passes to them.
 MAX_PARAMS, MAX_BOUNCES = build.K4_MAX_PARAMS, build.K4_MAX_BOUNCES
 MAX_ZERO_SLOTS = build.K6_MAX_ZERO_SLOTS
 
 
+@torch.enable_grad()
 def loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
-                        cfg: RenderConfig, seed, target, band_rows: int | None = None):
+                        cfg: RenderConfig, seed, target, band_rows: int | None = None,
+                        rows=None):
     """The plain version of the kernel: (loss, (P,) gradient of the packed
     vector) by autograd over the plain pipeline (renderer.image_loss).
 
@@ -56,24 +73,28 @@ def loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Ca
     of that many rows at a time, and sums the bands' losses and gradients
     in float64: the same values (up to the order of the sums) with the
     autograd graph of one band in memory, for shapes whose whole graph
-    would not fit."""
-    if band_rows is None:
+    would not fit. ``rows`` (the module's docstring) sums over those rows
+    alone, ``target`` their block."""
+    if band_rows is None and rows is None:
         vec = packed.detach().clone().requires_grad_(True)
         scene, camera = params.unpack(vec, like_scene, like_camera)
         loss = renderer.image_loss(scene, camera, cfg, seed, target)
         (grad,) = torch.autograd.grad(loss, vec)
         return loss.detach(), grad
+    row0, n_rows = launch_rows(cfg, rows)
+    band_rows = band_rows or n_rows
     words, _ = renderer.seed_words(seed)
-    count = torch.tensor(float(len(words) * target.numel()), dtype=torch.float64,
-                         device=packed.device)
+    count = torch.tensor(float(len(words) * target.numel() // n_rows * cfg.height),
+                         dtype=torch.float64, device=packed.device)
     loss, grad = torch.zeros((), dtype=torch.float64, device=packed.device), 0.0
     for word in words:
-        for top in range(0, cfg.height, band_rows):
-            rows = slice(top, top + band_rows)
+        for top in range(0, n_rows, band_rows):
+            band = slice(top, min(top + band_rows, n_rows))
             vec = packed.detach().clone().requires_grad_(True)
             scene, camera = params.unpack(vec, like_scene, like_camera)
-            image = renderer.render_image(scene, camera, cfg, word, rows)
-            part = torch.sum(((image - target[..., rows, :, :]) ** 2).double()) / count
+            image = renderer.render_image(scene, camera, cfg, word,
+                                          slice(row0 + band.start, row0 + band.stop))
+            part = torch.sum(((image - target[..., band, :, :]) ** 2).double()) / count
             (g,) = torch.autograd.grad(part, vec)
             loss, grad = loss + part.detach(), grad + g.double()
     return loss.float(), grad.float()
@@ -105,24 +126,27 @@ def _check_launch(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig, *
     check_shape(lay, cfg)
 
 
-def _scratch_cols(lib, table, cfg: RenderConfig, n_frames: int = 1) -> int:
-    """Columns of a launch's (rows, n_cols) partials, as the library sizes
-    them: blocks per frame or row, times ``n_frames``."""
-    n_cols = lib.fourd_grad_scratch_cols(ctypes.addressof(table), cfg.width, cfg.height, n_frames)
+def _scratch_cols(lib, table, cfg: RenderConfig, n_rows: int, n_frames: int = 1) -> int:
+    """Columns of a launch's (rows, n_cols) partials over ``n_rows`` image
+    rows, as the library sizes them: blocks per frame or params row, times
+    ``n_frames``."""
+    n_cols = lib.fourd_grad_scratch_cols(ctypes.addressof(table), cfg.width, n_rows, n_frames)
     if n_cols < 0:
         raise ValueError(f"the gradient kernels cannot launch {n_frames} frames of "
-                         f"{cfg.height} x {cfg.width} pixels")
+                         f"{n_rows} x {cfg.width} pixels")
     return n_cols
 
 
 def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
-                     seeds: torch.Tensor, target: torch.Tensor):
+                     seeds: torch.Tensor, target: torch.Tensor, rows=None):
     """One kernel launch: (loss (), grad (P,)) float32, both scaled to the
     mean over F frames, views, pixels and channels, from the packed (P,)
     params, (F,) int32 seed words and the (V, H, W, 3) or (H, W, 3) float32
-    target, on their CUDA device."""
-    global LAUNCHES
+    target, on their CUDA device; with ``rows``, those rows' part, the
+    target their (V, n_rows, W, 3) block."""
+    global LAUNCHES, SHARD_LAUNCHES
     _check_launch(packed, lay, cfg, target)
+    row0, n_rows = launch_rows(cfg, rows)
     device = packed.device
     if packed.dim() != 1:
         raise ValueError("the value-and-grad kernel takes one (P,) params vector")
@@ -131,13 +155,13 @@ def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
         raise ValueError("seeds must be a contiguous (F,) int32 tensor of uint32 words on the "
                          "params' CUDA device")
     total = lay.n_views * cfg.height * cfg.width
-    if target.numel() != total * 3 or target.shape[-1] != 3:
-        raise ValueError(f"target must hold {lay.n_views} x {cfg.height} x {cfg.width} x 3 "
+    if target.numel() != lay.n_views * n_rows * cfg.width * 3 or target.shape[-1] != 3:
+        raise ValueError(f"target must hold {lay.n_views} x {n_rows} x {cfg.width} x 3 "
                          f"values, got {tuple(target.shape)}")
     lib = build.load()
     n_frames = seeds.numel()
     table = (ctypes.c_int * len(lay))(*lay)
-    n_cols = _scratch_cols(lib, table, cfg, n_frames)
+    n_cols = _scratch_cols(lib, table, cfg, n_rows, n_frames)
     grad_parts = torch.empty((lay.size, n_cols), dtype=torch.float32, device=device)
     loss_parts = torch.empty((n_cols,), dtype=torch.float64, device=device)
     grad = torch.empty((lay.size,), dtype=torch.float32, device=device)
@@ -147,7 +171,7 @@ def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fourd_loss_grad_launch(
             packed.data_ptr(), seeds.data_ptr(), n_frames, ctypes.addressof(table),
-            cfg.width, cfg.height, cfg.samples, cfg.reflections_amount,
+            cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
             float(np.float32(cfg.small_indent)), float(np.float32(cfg.light_coefficient)),
             target.data_ptr(), scale, grad_parts.data_ptr(), loss_parts.data_ptr(),
             grad.data_ptr(), loss.data_ptr(), stream,
@@ -155,30 +179,32 @@ def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
     if err != 0:
         raise RuntimeError(f"value-and-grad kernel launch failed: cudaError {err}")
     LAUNCHES += 1
+    SHARD_LAUNCHES += int(n_rows < cfg.height)
     return loss, grad
 
 
 def loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
-                       cfg: RenderConfig, seed, target):
+                       cfg: RenderConfig, seed, target, rows=None):
     """(loss, (P,) gradient) of the packed CUDA vector by one kernel
-    launch; a vector on another device raises."""
+    launch (with ``rows``, those rows' part, ``target`` their block); a
+    vector on another device raises."""
     renderer.check_supported(cfg)
     lay = params.layout(like_scene, like_camera)
     target = torch.as_tensor(target, dtype=torch.float32, device=packed.device).contiguous()
     words, _ = renderer.seed_words(seed)
     return launch_loss_grad(packed.detach().contiguous(), lay, cfg,
-                            seed_tensor(words, packed.device), target)
+                            seed_tensor(words, packed.device), target, rows)
 
 
 def loss_and_grad_packed(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
-                         cfg: RenderConfig, seed, target):
+                         cfg: RenderConfig, seed, target, rows=None):
     """(loss, (P,) gradient) of the packed vector: the plain version for a
     CPU vector, the kernel for a CUDA one."""
     if packed.device.type == "cpu":
-        return loss_and_grad_plain(packed, like_scene, like_camera, cfg, seed, target)
+        return loss_and_grad_plain(packed, like_scene, like_camera, cfg, seed, target, rows=rows)
     if packed.device.type != "cuda":
         raise ValueError(f"the value-and-grad path takes CPU or CUDA tensors, got {packed.device}")
-    return loss_and_grad_cuda(packed, like_scene, like_camera, cfg, seed, target)
+    return loss_and_grad_cuda(packed, like_scene, like_camera, cfg, seed, target, rows)
 
 
 def render_loss_and_grad_kernel(scene: Scene, camera: Camera, cfg: RenderConfig, seed, target):
@@ -223,63 +249,69 @@ def _scalar_seed(seed) -> int:
 
 # --- K5: the light-VJP kernel ------------------------------------------------
 
+@torch.enable_grad()
 def render_light_vjp_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
-                           cfg: RenderConfig, seed, cot_light) -> torch.Tensor:
+                           cfg: RenderConfig, seed, cot_light, rows=None) -> torch.Tensor:
     """The plain version of K5: the gradient of sum(render_light * cot_light)
     w.r.t. the packed vector, by autograd over the plain pipeline. A (P,)
     vector takes an (H, W, 3) or (V, H, W, 3) cotangent and gives (P,);
     (F, P) rows of same-structure scenes take (F, ...) cotangents and give
-    (F, P)."""
+    (F, P). With ``rows``, over those image rows, the cotangent their
+    block."""
     seed = _scalar_seed(seed)
+    row0, n_rows = launch_rows(cfg, rows)
+    band = slice(row0, row0 + n_rows)
     vec = packed.detach().clone().requires_grad_(True)
-    rows = vec if vec.dim() == 2 else vec[None]
-    light = torch.stack([renderer.render_light(*params.unpack(row, like_scene, like_camera), cfg,
-                                               seed) for row in rows])
+    vecs = vec if vec.dim() == 2 else vec[None]
+    light = torch.stack([renderer.render_light(*params.unpack(v, like_scene, like_camera), cfg,
+                                               seed, band) for v in vecs])
     cot = torch.as_tensor(cot_light, dtype=torch.float32, device=vec.device).reshape(light.shape)
     (grad,) = torch.autograd.grad(light, vec, cot)
     return grad
 
 
 def launch_light_vjp(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig, seed: int,
-                     cot: torch.Tensor) -> torch.Tensor:
+                     cot: torch.Tensor, rows=None) -> torch.Tensor:
     """One K5 launch: the unscaled packed gradient, (P,) or (F, P) like
-    ``packed``, from the light cotangent ``cot`` ((F,) V, H, W, 3 float32)
-    at one uint32 seed, on their CUDA device."""
-    global VJP_LAUNCHES
+    ``packed``, from the light cotangent ``cot`` ((F,) V, H, W, 3 float32;
+    with ``rows``, the block of those rows) at one uint32 seed, on their
+    CUDA device."""
+    global VJP_LAUNCHES, SHARD_VJP_LAUNCHES
     _check_launch(packed, lay, cfg, cot)
-    rows = packed.dim() == 2
-    n_rows = packed.shape[0] if rows else 1
-    total = lay.n_views * cfg.height * cfg.width
-    if cot.numel() != n_rows * total * 3 or cot.shape[-1] != 3:
-        raise ValueError(f"the light cotangent must hold {n_rows} x {lay.n_views} x {cfg.height} "
+    row0, n_rows = launch_rows(cfg, rows)
+    multi = packed.dim() == 2
+    n_vecs = packed.shape[0] if multi else 1
+    if cot.numel() != n_vecs * lay.n_views * n_rows * cfg.width * 3 or cot.shape[-1] != 3:
+        raise ValueError(f"the light cotangent must hold {n_vecs} x {lay.n_views} x {n_rows} "
                          f"x {cfg.width} x 3 values, got {tuple(cot.shape)}")
     lib = build.load()
     table = (ctypes.c_int * len(lay))(*lay)
-    n_cols = _scratch_cols(lib, table, cfg)
-    grad_parts = torch.empty((n_rows * lay.size, n_cols), dtype=torch.float32, device=packed.device)
+    n_cols = _scratch_cols(lib, table, cfg, n_rows)
+    grad_parts = torch.empty((n_vecs * lay.size, n_cols), dtype=torch.float32, device=packed.device)
     grad = torch.empty(packed.shape, dtype=torch.float32, device=packed.device)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fourd_light_vjp_launch(
-            packed.data_ptr(), lay.size if rows else 0, n_rows, seed, ctypes.addressof(table),
-            cfg.width, cfg.height, cfg.samples, cfg.reflections_amount,
+            packed.data_ptr(), lay.size if multi else 0, n_vecs, seed, ctypes.addressof(table),
+            cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
             float(np.float32(cfg.small_indent)), cot.data_ptr(), grad_parts.data_ptr(),
             grad.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"light-VJP kernel launch failed: cudaError {err}")
     VJP_LAUNCHES += 1
+    SHARD_VJP_LAUNCHES += int(n_rows < cfg.height)
     return grad
 
 
 def render_light_vjp_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
-                          cfg: RenderConfig, seed, cot_light) -> torch.Tensor:
+                          cfg: RenderConfig, seed, cot_light, rows=None) -> torch.Tensor:
     """K5 on a CUDA vector, as ``render_light_vjp_plain`` computes it: one
     launch for (P,) or for (F, P) rows; another device raises."""
     renderer.check_supported(cfg)
     cot = torch.as_tensor(cot_light, dtype=torch.float32, device=packed.device).contiguous()
     return launch_light_vjp(packed.detach().contiguous(), params.layout(like_scene, like_camera),
-                            cfg, _scalar_seed(seed), cot)
+                            cfg, _scalar_seed(seed), cot, rows)
 
 
 # --- K6: the fused soft value-and-grad kernel --------------------------------
@@ -293,61 +325,69 @@ def zero_row(vec: torch.Tensor, zero_map) -> torch.Tensor:
     return vec.index_put((idx,), vals)
 
 
+@torch.enable_grad()
 def render_soft_loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene,
                                     like_camera: Camera, cfg: RenderConfig, seed, target, alpha,
-                                    zero_map, band_rows: int | None = None):
+                                    zero_map, band_rows: int | None = None, rows=None):
     """The plain version of K6: (loss, (P,) gradient, alpha cotangent) of
     mean((alpha * img_a + (1 - alpha) * img_b - target)^2), img_a the
     render of the packed scene and img_b of its zero-map row at the same
     seed, by autograd over the plain pipeline with ``alpha`` ((V,) H, W)
     an independent leaf. The loss sums in float64 over row bands of
     ``band_rows`` rows (the whole image by default), as
-    ``loss_and_grad_plain`` does."""
+    ``loss_and_grad_plain`` does; with ``rows``, over those image rows,
+    target, alpha and the alpha cotangent their blocks."""
     seed = _scalar_seed(seed)
     device = packed.device
+    row0, n_rows = launch_rows(cfg, rows)
     target = torch.as_tensor(target, dtype=torch.float32, device=device)
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device).detach()
-    count = torch.tensor(float(target.numel()), dtype=torch.float64, device=device)
+    count = torch.tensor(float(target.numel() // n_rows * cfg.height), dtype=torch.float64,
+                         device=device)
     loss, grad = torch.zeros((), dtype=torch.float64, device=device), 0.0
     g_alpha = torch.zeros_like(alpha)
-    step = band_rows or cfg.height
-    for top in range(0, cfg.height, step):
-        rows = slice(top, top + step)
+    step = band_rows or n_rows
+    for top in range(0, n_rows, step):
+        band = slice(top, min(top + step, n_rows))
+        image_rows = slice(row0 + band.start, row0 + band.stop)
         vec = packed.detach().clone().requires_grad_(True)
-        a = alpha[..., rows, :].clone().requires_grad_(True)
+        a = alpha[..., band, :].clone().requires_grad_(True)
         scene_a, camera = params.unpack(vec, like_scene, like_camera)
         scene_b, _ = params.unpack(zero_row(vec, zero_map), like_scene, like_camera)
-        img_a = renderer.render_image(scene_a, camera, cfg, seed, rows)
-        img_b = renderer.render_image(scene_b, camera, cfg, seed, rows)
+        img_a = renderer.render_image(scene_a, camera, cfg, seed, image_rows)
+        img_b = renderer.render_image(scene_b, camera, cfg, seed, image_rows)
         img = a[..., None] * img_a + (1.0 - a[..., None]) * img_b
-        part = torch.sum(((img - target[..., rows, :, :]) ** 2).double()) / count
+        part = torch.sum(((img - target[..., band, :, :]) ** 2).double()) / count
         g, ga = torch.autograd.grad(part, (vec, a))
         loss, grad = loss + part.detach(), grad + g.double()
-        g_alpha[..., rows, :] = ga
+        g_alpha[..., band, :] = ga
     return loss.float(), grad.float(), g_alpha
 
 
 def launch_soft_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig, seed: int,
-                          target: torch.Tensor, alpha: torch.Tensor, zero_map):
+                          target: torch.Tensor, alpha: torch.Tensor, zero_map, rows=None):
     """One K6 launch: (loss (), grad (P,), alpha cotangent shaped like
     ``alpha``) float32, all scaled to the mean over views, pixels and
     channels, from the packed (P,) params, one uint32 seed, the
     (V,) H, W, 3 target, the (V,) H, W coverage alpha and the zero map's
-    static (slot, value) pairs, on their CUDA device."""
-    global SOFT_LAUNCHES
+    static (slot, value) pairs, on their CUDA device; with ``rows``, those
+    rows' part, target, alpha and alpha cotangent their blocks."""
+    global SOFT_LAUNCHES, SHARD_SOFT_LAUNCHES
     _check_launch(packed, lay, cfg, target, alpha)
+    row0, n_rows = launch_rows(cfg, rows)
     total = lay.n_views * cfg.height * cfg.width
+    block = lay.n_views * n_rows * cfg.width
     if packed.dim() != 1:
         raise ValueError("the soft kernel takes one (P,) params vector")
-    if target.numel() != total * 3 or target.shape[-1] != 3 or alpha.numel() != total:
-        raise ValueError(f"target and alpha must hold {lay.n_views} x {cfg.height} x {cfg.width} "
+    if target.numel() != block * 3 or target.shape[-1] != 3 or alpha.numel() != block:
+        raise ValueError(f"target and alpha must hold {lay.n_views} x {n_rows} x {cfg.width} "
                          f"(x 3) values, got {tuple(target.shape)} and {tuple(alpha.shape)}")
     if not 0 < len(zero_map) <= MAX_ZERO_SLOTS or any(not 0 <= i < lay.size for i, _ in zero_map):
         raise ValueError(f"the zero map needs 1 to {MAX_ZERO_SLOTS} slots of the packed vector, "
                          f"got {zero_map!r}")
     lib = build.load()
     table = (ctypes.c_int * len(lay))(*lay)
-    n_cols = _scratch_cols(lib, table, cfg)
+    n_cols = _scratch_cols(lib, table, cfg, n_rows)
     n = len(zero_map)
     slots = (ctypes.c_int * n)(*(i for i, _ in zero_map))
     values = (ctypes.c_float * n)(*(v for _, v in zero_map))
@@ -362,7 +402,7 @@ def launch_soft_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderC
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fourd_soft_loss_grad_launch(
             packed.data_ptr(), seed, ctypes.addressof(table), n, ctypes.addressof(slots),
-            ctypes.addressof(values), cfg.width, cfg.height, cfg.samples,
+            ctypes.addressof(values), cfg.width, cfg.height, row0, n_rows, cfg.samples,
             cfg.reflections_amount, float(np.float32(cfg.small_indent)),
             float(np.float32(cfg.light_coefficient)), target.data_ptr(), alpha.data_ptr(), scale,
             grad_parts.data_ptr(), loss_parts.data_ptr(), grad.data_ptr(), loss.data_ptr(),
@@ -371,11 +411,12 @@ def launch_soft_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderC
     if err != 0:
         raise RuntimeError(f"soft value-and-grad kernel launch failed: cudaError {err}")
     SOFT_LAUNCHES += 1
+    SHARD_SOFT_LAUNCHES += int(n_rows < cfg.height)
     return loss, grad, alpha_cot
 
 
 def render_soft_loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
-                                   cfg: RenderConfig, seed, target, alpha, zero_map):
+                                   cfg: RenderConfig, seed, target, alpha, zero_map, rows=None):
     """K6 on a CUDA vector, as ``render_soft_loss_and_grad_plain``
     computes it, in one launch; another device raises."""
     renderer.check_supported(cfg)
@@ -384,4 +425,73 @@ def render_soft_loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device).detach().contiguous()
     return launch_soft_loss_grad(packed.detach().contiguous(),
                                  params.layout(like_scene, like_camera), cfg, _scalar_seed(seed),
-                                 target, alpha, zero_map)
+                                 target, alpha, zero_map, rows)
+
+
+# --- K3: the row-sharded launches of K4, K5 and K6 -------------------------------
+
+def _shard(packed: torch.Tensor, cfg: RenderConfig, mesh: pmesh.Mesh) -> tuple:
+    """The rank's (row0, n_rows) and the slice of them; raises for a
+    vector off the mesh's device."""
+    row0, n_rows = mesh.kernel_rows(cfg.height, packed.device)
+    return (row0, n_rows), slice(row0, row0 + n_rows)
+
+
+def _as_block(x, band: slice, device, channels: bool) -> torch.Tensor:
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    return (x[..., band, :, :] if channels else x[..., band, :]).contiguous()
+
+
+def sharded_loss_and_grad(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
+                          cfg: RenderConfig, seed, target, mesh: pmesh.Mesh):
+    """K4 row-sharded over the mesh's ranks (sharded_loss_and_grad_pallas,
+    gradkernel.py:1060-1137): each rank launches once on its rows of the
+    whole-image ``target``, then one all-reduce of the packed [loss, grad]
+    gives every rank the whole image's (loss, (P,) gradient), equal to the
+    single launch up to the order of the sums (the forward of
+    ``diff.image_loss_kernel`` with a mesh). CPU vectors run the plain
+    version on the rank's rows."""
+    rows, band = _shard(packed, cfg, mesh)
+    target = _as_block(target, band, packed.device, channels=True)
+    loss, grad = loss_and_grad_packed(packed, like_scene, like_camera, cfg, seed, target, rows)
+    loss, grad = pmesh.all_reduce_sum([loss, grad], mesh)
+    return loss, grad
+
+
+def sharded_render_light_vjp_multi(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
+                                   cfg: RenderConfig, seed, cot_block, mesh: pmesh.Mesh):
+    """K5 row-sharded over the mesh's ranks
+    (sharded_render_light_vjp_pallas_multi, gradkernel.py:535-622): each
+    rank launches once on its rows with ``cot_block``, its rows' block
+    (F, ..., n_rows, W, 3) of the light cotangent of (F, P) params rows
+    (or (P,)), and one all-reduce gives every rank the whole image's
+    gradient (the backward of ``diff.render_light_pair`` with a mesh)."""
+    rows, _ = _shard(packed, cfg, mesh)
+    if packed.device.type == "cpu":
+        grad = render_light_vjp_plain(packed, like_scene, like_camera, cfg, seed, cot_block, rows)
+    else:
+        grad = render_light_vjp_cuda(packed, like_scene, like_camera, cfg, seed, cot_block, rows)
+    (grad,) = pmesh.all_reduce_sum([grad], mesh)
+    return grad
+
+
+def sharded_soft_loss_and_grad(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
+                               cfg: RenderConfig, seed, target, alpha, zero_map,
+                               mesh: pmesh.Mesh):
+    """K6 row-sharded over the mesh's ranks
+    (sharded_soft_loss_and_grad_pallas, gradkernel.py:1456-1515): each rank
+    launches once on its rows of the whole-image ``target`` and ``alpha``,
+    and one all-reduce of the packed [loss, grad] gives every rank the
+    whole image's (the forward of ``diff.soft_image_loss_kernel`` with a
+    mesh). The alpha cotangent stays the rank's block of rows."""
+    rows, band = _shard(packed, cfg, mesh)
+    target = _as_block(target, band, packed.device, channels=True)
+    alpha = _as_block(alpha, band, packed.device, channels=False)
+    if packed.device.type == "cpu":
+        loss, grad, g_alpha = render_soft_loss_and_grad_plain(
+            packed, like_scene, like_camera, cfg, seed, target, alpha, zero_map, rows=rows)
+    else:
+        loss, grad, g_alpha = render_soft_loss_and_grad_cuda(
+            packed, like_scene, like_camera, cfg, seed, target, alpha, zero_map, rows)
+    loss, grad = pmesh.all_reduce_sum([loss, grad], mesh)
+    return loss, grad, g_alpha

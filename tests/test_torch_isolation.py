@@ -1,5 +1,6 @@
 """The port stands alone: it never imports jax, and its chip smoke test
 never falls back to the CPU."""
+import json
 import os
 import subprocess
 import sys
@@ -87,6 +88,33 @@ def test_port_never_imports_jax(tmp_path):
     for name in ("yxz.png", "ywz.png", "yxw.png", "layout.json"):
         assert (tmp_path / "out" / name).is_file()
     assert len(port_modules()) >= 15
+
+
+def test_sharded_runner_and_its_workers_never_import_jax(tmp_path):
+    """parallel/ and multihost_run, in the parent and in the spawned
+    workers: a sitecustomize on PYTHONPATH blocks jax and the JAX package
+    in every process, and the 2-rank run matches the single process."""
+    (tmp_path / "sitecustomize.py").write_text(textwrap.dedent("""
+        import sys
+
+        class BlockJax:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "fourd_ray_tracing_tpu"):
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, BlockJax())
+    """))
+    env = {**os.environ, "PYTHONPATH": f"{tmp_path}{os.pathsep}{ROOT}"}
+    proc = subprocess.run([sys.executable, "-m", "fourd_ray_tracing_tpu_torch.multihost_run",
+                           "--nprocs", "2", "--device", "cpu", "--timeout", "300"],
+                          cwd=tmp_path, env=env, capture_output=True, text=True, timeout=400)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert summary["ok"] and summary["nprocs"] == 2 and summary["backend"] == "gloo"
+    assert summary["items"]["image"]["bitwise"]
+    assert {"parallel.mesh", "multihost_run"} <= {m.split("fourd_ray_tracing_tpu_torch.")[-1]
+                                                   for m in port_modules()}
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

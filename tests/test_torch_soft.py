@@ -284,9 +284,6 @@ def test_soft_minibatch_raises():
     with pytest.raises(ValueError, match="hard loss only"):
         diff.make_train_step(T_CFG, LR, tc, impl="kernel", frames_per_step=4,
                              soft_object_ref=("spheres", 0))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        diff.soft_image_loss(*crossed("room_with_sphere")[2:], T_CFG, SEED,
-                             torch.zeros(16, 32, 3), mesh=object())
 
 
 @pytest.mark.parametrize("impl", diff.IMPLS)
