@@ -73,20 +73,45 @@ on any failure, or when no CUDA device is available. Phases:
    1e-5 of the single process with one K4 (K6) launch per rank and step,
    the soft pair's gradient (K2 + two-row K5 on each rank's rows), and
    ``inverse_render --mesh --impl kernel`` recovering the glow. Both ranks
-   share one card, so its step times are no scaling figure.
+   share one card, so its step times are no scaling figure;
+16. the fp32 FMA-peak kernel K7: its main loop in the built library's SASS
+   (cuobjdump) is FFMAs with no FMUL/FADD, for each n_acc; its block sums
+   against its plain version at 64 steps on the sweep's grid; then the
+   measurement path, ``tools.vpu_peak.run``: the n_acc sweep, the 2x-rounds
+   linearity check, no rate above the card's peak at its max SM clock, the
+   SM clock read during a burst of launches, and the measured peak; then
+   each n_acc's block sums at the sweep's own steps against the plain
+   version that rounds once a step and sums in the kernel's order, and the
+   peak's n_acc against the same at half its steps;
+17. the value-and-grad pass-budget kernel K8 against its plain version
+   (acc, loss, vjp) and loss and vjp against K4's loss, at 256x144x4spp x4
+   bounces, both scenes, 1 and 3 views; K1's stub variants
+   (tools/fwd_ablate.py's own functions, 8 frames a launch) against the
+   plain pipeline under the same patches at 256x144 (both scenes) and at
+   fwd_ablate's 1280x720x8spp x4 (the room); then the attribution tools
+   grad_ablate, train_ablate, soft_ablate and fwd_ablate at 1280x720x8spp
+   x4 bounces (rounds cut, ``TOOL_ROUNDS``), each from zeroed counts, with
+   every kernel launch each tool's variants must make checked; then the K8
+   values grad_ablate printed against the plain version on the same
+   inputs, and its loss x scale against K4's.
 
 Every kernel's entry in the summary carries its bound: the larger of its
 plain version's flops (utils/flops.py, counted on the card over
 ``BOUND_ROWS`` rows of the timed shape and scaled to the whole image) over
-the card's fp32 peak and the bytes it must move (each input read once,
-each output written once) over its memory rate (``PEAKS``).
+NVIDIA's published fp32 peak and the bytes it must move (each input read
+once, each output written once) over the published memory rate
+(``PEAKS``). Beside it stand the shares of two peaks that the kernel's
+achieved fp32 rate reaches: the published 67 TFLOP/s (data sheet, H100
+SXM at 700 W) and the rate K7 sustained on this card in this run (phase
+16), which is what the card really offers a kernel of plain FMAs.
 
 Every forward kernel-vs-plain check holds the two within the image bounds
 of ``CHECK_BOUNDS`` and reports whether they are bitwise equal; the
 gradient kernels' checks use ``GRAD_BOUNDS``. The kernel launch counts are
 set to 0 before each main path (phases 4-5: rendering; phases 9-10:
 training; phase 13: soft training; phase 15: the ranks, fresh processes,
-count their own) and read after it.
+count their own; phase 16: the peak sweep; phase 17: each tool) and read
+after it.
 
 The line before the last is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.
@@ -114,9 +139,13 @@ from fourd_ray_tracing_tpu_torch.engine import RenderEngine  # noqa: E402
 from fourd_ray_tracing_tpu_torch.models import library, params, renderer  # noqa: E402
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig  # noqa: E402
 from fourd_ray_tracing_tpu_torch.ops.cuda import build  # noqa: E402
-from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel, megakernel  # noqa: E402
+from fourd_ray_tracing_tpu_torch.ops.cuda import ablate, gradkernel, megakernel  # noqa: E402
+from fourd_ray_tracing_tpu_torch.ops.cuda import vpu_peak as k7  # noqa: E402
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4  # noqa: E402
 from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from fourd_ray_tracing_tpu_torch.tools import (  # noqa: E402
+    fwd_ablate, grad_ablate, soft_ablate, train_ablate, vpu_peak)
+from fourd_ray_tracing_tpu_torch.tools import common as tool_common  # noqa: E402
 from fourd_ray_tracing_tpu_torch.utils.config import AppConfig  # noqa: E402
 from fourd_ray_tracing_tpu_torch.utils.flops import count_flops  # noqa: E402
 
@@ -160,10 +189,32 @@ FALLBACK_REF = ("spaces", 0)
 SHARDS = (2, 4)
 RANKS = 2
 PLAIN_SPLIT = RANKS
-# Published H100 SXM peaks at 700 W (NVIDIA's data sheet): fp32 outside the
-# tensor cores, and HBM3. The bounds count flops over BOUND_ROWS rows.
+# Two fp32 peaks: NVIDIA's published H100 SXM rate at 700 W (data sheet;
+# fp32 outside the tensor cores), on which every bound_ms is computed, and
+# the rate K7 sustains on this card in this run (phase 16,
+# tools/vpu_peak.py), added as measured_fp32_flops_per_s; every kernel's
+# entry gives its share of both. bytes_per_s is the published HBM3 rate.
+# The bounds count flops over BOUND_ROWS rows.
 PEAKS = dict(fp32_flops_per_s=67e12, bytes_per_s=3.35e12)
 BOUND_ROWS = 8
+# Phase 16: K7 against its plain version at PEAK_CHECK_ROUNDS steps, block
+# sums within PEAK_RTOL (the kernel rounds once a step, the plain version
+# twice: a few ulps apart after 64 steps); then at each n_acc's sweep steps
+# against k7.block_sum_plain (one rounding a step, the kernel's order of
+# sums: bitwise so far) within PEAK_RTOL, where the block sum at half the
+# steps must lie more than PEAK_RESOLVE x PEAK_RTOL away for the n_acc that
+# gives the peak, so that a kernel running half its trips would fail.
+PEAK_CHECK_ROUNDS, PEAK_RTOL, PEAK_RESOLVE = 64, 1e-5, 10
+# Phase 17: K8's acc against its plain version within ACC_RTOL (the pixel
+# values are bitwise K1's; only the order of the double sums differs), loss
+# and vjp within GRAD_BOUNDS["loss_rtol"]; the attribution tools at full
+# width with their rounds cut (rounds, calls per round) to keep the
+# script's time.
+ACC_RTOL = 1e-6
+# K1's stub variants against the plain pipeline: both scenes at this
+# shape, and the room at fwd_ablate's own (TRAIN: 1280x720x8spp x4).
+VARIANT_CHECK = dict(width=256, height=144, samples=4, reflections_amount=4, rng_mode="per_sample")
+TOOL_ROUNDS = {"train_ablate": (3, 8), "soft_ablate": (3, 4), "fwd_ablate": (3, 4)}
 
 
 def phase(name: str) -> None:
@@ -483,6 +534,7 @@ def run_app() -> None:
 
 def reset_counts() -> None:
     megakernel.LAUNCHES = megakernel.ROW_LAUNCHES = megakernel.SHARD_LAUNCHES = 0
+    megakernel.VARIANT_LAUNCHES = k7.LAUNCHES = ablate.LAUNCHES = 0
     gradkernel.LAUNCHES = gradkernel.VJP_LAUNCHES = gradkernel.SOFT_LAUNCHES = 0
     gradkernel.SHARD_LAUNCHES = gradkernel.SHARD_VJP_LAUNCHES = gradkernel.SHARD_SOFT_LAUNCHES = 0
 
@@ -762,7 +814,7 @@ def bound(flops: float, nbytes: float) -> dict:
 
 def kernel_bounds(device) -> dict:
     """Each kernel's bound at the shape its summary time was taken: K1 at
-    the headline 4-frame launch, K4, K5 (one row) and K6 at TRAIN. The
+    the headline 4-frame launch, K4, K5 (one row), K6 and K8 at TRAIN. The
     flops are its plain version's over the first BOUND_ROWS rows (K4, K5
     and K6: forward and autograd backward), counted here and scaled to the
     image's rows; the plain versions are dense, so masked lanes count."""
@@ -794,6 +846,12 @@ def kernel_bounds(device) -> dict:
         "k5": bound(f5 * scale, 4 * (p + pixels * 3 + p)),
         "k6": bound(f6 * scale, 4 * (p + pixels * 3 + pixels + p + 1 + pixels)),
     }
+    # K8 (each mode, one frame): the params, the target (loss and vjp) and
+    # the value.
+    out["k8"] = {mode: bound(count_flops(ablate.variant_plain, mode, scene, camera, cfg, 1, block,
+                                         rows)[1] * scale,
+                             4 * (p + 1 + (0 if mode == "acc" else pixels * 3)))
+                 for mode in ablate.MODES}
     out["k1"]["flops_per_ray"] = f1 * scale / (rays * FRAMES_PER_LAUNCH)
     for k in ("k4", "k5", "k6"):
         out[k]["flops_per_ray"] = out[k]["flops"] / rays
@@ -983,6 +1041,206 @@ def run_distributed(card: str) -> dict:
     return summary
 
 
+def check_peak_kernel(device, lib_path) -> float:
+    """Phase 16: the SASS of each K7 instantiation's main loop (FFMAs, no
+    FMUL/FADD: the -fmad=false trap), then K7 against its plain version at
+    PEAK_CHECK_ROUNDS steps on the sweep's grid. Returns the largest
+    |K7 - plain| block-sum difference."""
+    for n_acc, c in sorted(k7.sass_loop_counts(lib_path).items()):
+        print(f"K7 n_acc={n_acc} main loop SASS: FFMA={c['FFMA']} FMUL={c['FMUL']} "
+              f"FADD={c['FADD']} (at least {k7.UNROLL * n_acc} FFMAs, no FMUL/FADD)", flush=True)
+        assert c["FFMA"] >= k7.UNROLL * n_acc and c["FMUL"] == c["FADD"] == 0, (n_acc, c)
+    blocks = vpu_peak.grid_blocks(device)
+    worst = 0.0
+    for n_acc in k7.N_ACCS:
+        out = k7.launch_peak(n_acc, PEAK_CHECK_ROUNDS, vpu_peak.B,
+                             torch.empty((blocks,), dtype=torch.float32, device=device))
+        plain = k7.peak_plain(n_acc, PEAK_CHECK_ROUNDS, vpu_peak.B, programs=blocks,
+                              rows=k7.ROWS_PER_BLOCK, device=device)
+        a, b = out.cpu().numpy().astype(np.float64), plain.cpu().numpy().astype(np.float64)
+        assert np.isfinite(a).all(), f"K7 n_acc={n_acc}: non-finite block sums"
+        err, rel = float(np.abs(a - b).max()), float((np.abs(a - b) / np.abs(b)).max())
+        print(f"K7 n_acc={n_acc} rounds={PEAK_CHECK_ROUNDS} blocks={blocks}: max_abs_err={err} "
+              f"max_rel_err={rel} bitwise={bool(np.array_equal(a, b))}", flush=True)
+        assert rel <= PEAK_RTOL, f"K7 n_acc={n_acc}: block sums off by {rel}"
+        worst = max(worst, err)
+    return worst
+
+
+def check_peak_at_sweep(device, peak: dict) -> float:
+    """Phase 16, after the sweep: K7 at each n_acc's sweep steps against
+    k7.block_sum_plain; the sum at half the steps of the peak's n_acc must
+    differ by more than PEAK_RESOLVE x PEAK_RTOL. Returns the largest
+    |K7 - plain| block-sum difference."""
+    blocks = vpu_peak.grid_blocks(device)
+    worst = 0.0
+    for n_acc in k7.N_ACCS:
+        rounds = vpu_peak.default_rounds(n_acc)
+        out = k7.launch_peak(n_acc, rounds, vpu_peak.B,
+                             torch.empty((blocks,), dtype=torch.float32, device=device))
+        a = out.cpu().numpy().astype(np.float64)
+        p = float(k7.block_sum_plain(n_acc, rounds, vpu_peak.B, device))
+        err, rel = float(np.abs(a - p).max()), float(np.abs(a - p).max() / abs(p))
+        line = (f"K7 n_acc={n_acc} rounds={rounds} (the sweep's) blocks={blocks}: max_abs_err={err} "
+                f"max_rel_err={rel} bitwise={bool((a == p).all())}")
+        if n_acc == peak["n_acc"]:
+            half = rounds // 2 // k7.UNROLL * k7.UNROLL
+            resolve = abs(float(k7.block_sum_plain(n_acc, half, vpu_peak.B, device)) - p) / abs(p)
+            line += f"; plain at {half} steps off by rel {resolve}"
+            assert resolve > PEAK_RESOLVE * PEAK_RTOL, \
+                f"K7 n_acc={n_acc}: the check cannot tell {rounds} steps from {half}"
+        print(line, flush=True)
+        assert np.isfinite(a).all() and rel <= PEAK_RTOL, f"K7 n_acc={n_acc}: {line}"
+        worst = max(worst, err)
+    return worst
+
+
+def measure_counts() -> dict:
+    """Launches since the last reset_counts of every kernel the
+    measurement tools run."""
+    return {**counts(), "k1_variant": megakernel.VARIANT_LAUNCHES, "k7": k7.LAUNCHES,
+            "k8": ablate.LAUNCHES}
+
+
+def check_ablate_kernel(device) -> dict:
+    """Phase 17: each K8 mode against its plain version at GRAD_CHECK (both
+    scenes, 1 and 3 views, a seeded random target); loss and vjp against
+    K4's loss from the same inputs too. Returns the largest absolute and
+    relative errors against the plain version, by mode."""
+    cfg = RenderConfig(**GRAD_CHECK)
+    seed = 0x2468ACE1
+    errs = {m: [0.0, 0.0] for m in ablate.MODES}
+    for name in sorted(library.SCENES):
+        scene = library.SCENES[name](device)
+        for views in (("yxz",), cam.VIEWS_ALL):
+            label = f"K8 {name} views={len(views)}"
+            camera = camera_for(views, device)
+            packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+            target = torch.from_numpy(np.random.default_rng(6).uniform(
+                0, 1, (*image_shape(views, cfg), 3)).astype(np.float32)).to(device)
+            values = {}
+            for mode in ablate.MODES:
+                k = float(ablate.launch_variant(mode, packed, lay, cfg, seed, target))
+                p = float(ablate.variant_plain(mode, scene, camera, cfg, seed, target))
+                rel = abs(k - p) / abs(p)
+                print(f"{label} {mode}: kernel={k} plain={p} rel={rel:.3g}", flush=True)
+                assert rel <= (ACC_RTOL if mode == "acc" else GRAD_BOUNDS["loss_rtol"]), label
+                values[mode] = k
+                errs[mode] = [max(errs[mode][0], abs(k - p)), max(errs[mode][1], rel)]
+            assert values["vjp"] == values["loss"], f"{label}: vjp changed the loss"
+            k4 = float(gradkernel.launch_loss_grad(packed, lay, cfg,
+                                                   megakernel.seed_tensor([seed], device),
+                                                   target)[0])
+            scaled = float(np.float32(values["loss"])
+                           * np.float32(1.0 / (lay.n_views * cfg.height * cfg.width * 3)))
+            print(f"{label} loss * scale={scaled} K4 loss={k4} rel={abs(scaled - k4) / k4:.3g} "
+                  f"bitwise={scaled == k4}", flush=True)
+            assert abs(scaled - k4) <= GRAD_BOUNDS["loss_rtol"] * abs(k4), label
+    return errs
+
+
+def check_forward_variants(device, cfg: RenderConfig, scenes) -> float:
+    """Phase 17: K1 with each stub variant compiled in against the plain
+    pipeline under the same patches, through fwd_ablate's own functions
+    (fwd_ablate.fpl() frames a launch, the tool's camera, seed 1); each
+    variant's light differs from K1's. Returns the largest |kernel -
+    plain|."""
+    worst = 0.0
+    for name in scenes:
+        scene, camera = library.SCENES[name](device), tool_common.default_camera(device)
+        base = fwd_ablate.build_fn(scene, camera, cfg)(1)
+        for variant in megakernel.VARIANTS:
+            out = fwd_ablate.build_fn(scene, camera, cfg, variant)(1)
+            plain = fwd_ablate.plain_fn(scene, camera, cfg, variant)(1)
+            label = f"K1 {variant} {name} {cfg.width}x{cfg.height} {fwd_ablate.fpl()} frames"
+            worst = max(worst, check_close(label, out, plain))
+            assert not torch.equal(out, base), f"{variant}: the stubs changed nothing"
+    return worst
+
+
+def check_ablate_at_tool_shape(device, values: dict) -> dict:
+    """Phase 17: the K8 values grad_ablate printed (seed 1, its shape,
+    scene, camera and zero target) against the plain version on the same
+    inputs, each plain mode timed once; K4's value against loss x scale.
+    Returns {"errs": {mode: (abs, rel)}, "plain_ms": {mode: ms}}."""
+    scene, camera, cfg, target = grad_ablate.workload(device)
+    errs, plain_ms = {}, {}
+    for mode in ablate.MODES:
+        got = []
+        plain_ms[mode] = cuda_ms(lambda: got.append(ablate.variant_plain(
+            mode, scene, camera, cfg, 1, target)), calls=1, repeats=1)[0]
+        p, k = float(got[0]), values[mode]
+        rel = abs(k - p) / abs(p)
+        print(f"K8 {mode} at grad_ablate's {cfg.width}x{cfg.height}x{cfg.samples}spp "
+              f"x{cfg.reflections_amount}, seed 1: kernel={k} plain={p} rel={rel:.3g} "
+              f"plain_ms={plain_ms[mode]}", flush=True)
+        assert rel <= (ACC_RTOL if mode == "acc" else GRAD_BOUNDS["loss_rtol"]), (mode, k, p)
+        errs[mode] = (abs(k - p), rel)
+    scaled = float(np.float32(values["loss"]) * np.float32(1.0 / target.numel()))
+    print(f"K8 loss * scale={scaled} K4 loss={values['k4']} bitwise={scaled == values['k4']}",
+          flush=True)
+    assert abs(scaled - values["k4"]) <= GRAD_BOUNDS["loss_rtol"] * abs(values["k4"])
+    return {"errs": errs, "plain_ms": plain_ms}
+
+
+def run_tools(device) -> dict:
+    """Phase 17: the four attribution tools at 1280x720x8spp x4 bounces,
+    each from zeroed counts, every tool's launches checked against the
+    variants it times (each variant: one warm-up call, then rounds x calls
+    timed calls). Returns their results and launches."""
+    res, launches = {}, {}
+
+    def ran(tool, expect):
+        got = measure_counts()
+        launches[tool] = got
+        want = {k: 0 for k in got} | expect
+        print(json.dumps({"tool": tool, "launches": got}), flush=True)
+        assert got == want, (tool, got, want)
+
+    reset_counts()
+    res["grad_ablate"] = grad_ablate.run(device)
+    n = 1 + 4 * 3  # its defaults: 4 calls x 3 rounds
+    ran("grad_ablate", {"k8": 3 * n, "k4": n})
+
+    rounds, calls = TOOL_ROUNDS["train_ablate"]
+    reset_counts()
+    res["train_ablate"] = train_ablate.run(device, calls=calls, rounds=rounds)
+    n = 1 + rounds * calls
+    scan = (1 + rounds * max(1, calls // train_ablate.SCAN)) * train_ablate.SCAN
+    # fwd: K1; pass1: K8; kernel, loss_grad, vg, step: K4; scan4: SCAN K4 a call
+    ran("train_ablate", {"k1": n, "k8": n, "k4": 4 * n + scan})
+
+    rounds, calls = TOOL_ROUNDS["soft_ablate"]
+    reset_counts()
+    res["soft_ablate"] = soft_ablate.run(device, calls=calls, rounds=rounds)
+    n = 1 + rounds * calls
+    # fwd_pair (+ the premade rows' launch), pair_vg and pair_soft: K2;
+    # pair_vg and pair_soft: two-row K5; soft_full: K6; glue_only: none
+    ran("soft_ablate", {"k1": 3 * n + 1, "k2_rows": 3 * n + 1, "k5": 2 * n, "k6": n})
+
+    rounds, calls = TOOL_ROUNDS["fwd_ablate"]
+    reset_counts()
+    res["fwd_ablate"] = fwd_ablate.run(device, calls=calls, rounds=rounds)
+    n = 1 + rounds * calls
+    names = [v[0] for v in fwd_ablate.variants(library.room_with_sphere(device),
+                                               RenderConfig(**HEADLINE))]
+    stubbed = len(megakernel.VARIANTS)
+    ran("fwd_ablate", {"k1": (len(names) - stubbed) * n, "k1_variant": stubbed * n})
+    return {"results": res, "launches": launches}
+
+
+def with_shares(entry: dict) -> dict:
+    """The entry with its achieved fp32 rate's share of the published and
+    of the measured peak, and its bound at the measured peak."""
+    rate = entry["flops"] / (entry["ms"] * 1e-3)
+    measured = PEAKS["measured_fp32_flops_per_s"]
+    entry["share_of_published_peak"] = rate / PEAKS["fp32_flops_per_s"]
+    entry["share_of_measured_peak"] = rate / measured
+    entry["bound_ms_at_measured_peak"] = max(entry["flops"] / measured,
+                                             entry["bytes"] / PEAKS["bytes_per_s"]) * 1e3
+    return entry
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1127,6 +1385,47 @@ def main() -> int:
                                        "k6", "k6_shard")}
     print(json.dumps({"sharded_path_launches_all_ranks": launches["sharded"]}), flush=True)
     sharded = launches["sharded"]
+
+    phase("16 fp32 FMA peak kernel K7: SASS, vs plain, the vpu_peak sweep")
+    peak_err = check_peak_kernel(device, lib_path)
+    reset_counts()
+    peak = vpu_peak.run(device)
+    launches["peak"] = measure_counts()
+    n_peak = (len(k7.N_ACCS) + 1) * (1 + vpu_peak.CALLS) + vpu_peak.CLOCK_BURST
+    assert launches["peak"]["k7"] == n_peak and sum(launches["peak"].values()) == n_peak, \
+        launches["peak"]
+    PEAKS["measured_fp32_flops_per_s"] = peak["value"] * 1e9
+    peak_err = max(peak_err, check_peak_at_sweep(device, peak))
+    blocks = vpu_peak.grid_blocks(device)
+    peak_plain_ms = cuda_ms(lambda: k7.peak_plain(
+        peak["n_acc"], peak["rounds"], vpu_peak.B, programs=blocks, rows=k7.ROWS_PER_BLOCK,
+        device=device), calls=1, repeats=1)[0]
+    bounds["k7"] = bound(k7.flops(peak["n_acc"], peak["rounds"], blocks * k7.BLOCK_THREADS),
+                         4 * (1 + blocks))
+    print(json.dumps({"peaks": PEAKS, "card": card, "sm_clock_mhz": peak["sm_clock_mhz"],
+                      "peak_at_clock_gflops": peak["peak_at_clock_gflops"],
+                      "k7_plain_ms": peak_plain_ms}), flush=True)
+
+    phase("17 K8, the forward stub variants, and the attribution tools")
+    ablate_errs = check_ablate_kernel(device)
+    variant_err = max(check_forward_variants(device, RenderConfig(**VARIANT_CHECK),
+                                             sorted(library.SCENES)),
+                      check_forward_variants(device, RenderConfig(**TRAIN),
+                                             ("room_with_sphere",)))
+    max_err = max(max_err, variant_err)
+    tools = run_tools(device)
+    measure = {k: sum(t[k] for t in tools["launches"].values())
+               for k in ("k1", "k1_variant", "k4", "k5", "k6", "k8")}
+    k8_ms = tools["results"]["grad_ablate"]["ms"]
+    k8_tool = check_ablate_at_tool_shape(device, tools["results"]["grad_ablate"]["values"])
+    for mode, (err, rel) in k8_tool["errs"].items():
+        ablate_errs[mode] = [max(ablate_errs[mode][0], err), max(ablate_errs[mode][1], rel)]
+    k8_plain_ms = k8_tool["plain_ms"]["vjp"]
+    print(json.dumps({"phase": 17, "card": card, "k4_split_ms":
+                      tools["results"]["grad_ablate"]["split_ms"], "k8_ms": k8_ms,
+                      "k8_plain_ms": k8_tool["plain_ms"], "measure_path_launches": measure}),
+          flush=True)
+
     no_library = {"library_ms": None,
                   "library_note": "no single PyTorch call computes a path trace or its adjoint"}
 
@@ -1136,9 +1435,14 @@ def main() -> int:
         "source": "fourd_ray_tracing_tpu_torch/csrc/megakernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/megakernel.py:316",
         "launches": (launches["render"][0] + launches["train"][0] + launches["soft"]["k1"]
-                     + sharded["k1"]),
+                     + sharded["k1"] + measure["k1"] + measure["k1_variant"]),
         "launches_by_path": {"render": launches["render"][0], "train": launches["train"][0],
-                             "soft": launches["soft"]["k1"], "sharded": sharded["k1"]},
+                             "soft": launches["soft"]["k1"], "sharded": sharded["k1"],
+                             "measure": measure["k1"]},
+        # The stub variants of tools/fwd_ablate.py: this kernel with stubs
+        # compiled in, held against the plain pipeline under the same
+        # patches in phase 17.
+        "variant_launches": measure["k1_variant"],
         # K2 is this kernel over (F, P) params rows (render_light_pair): the
         # sharded path's soft pair renders rows; phases 11 and 14 hold them
         # bitwise single renders. K3 is this kernel on a block of rows.
@@ -1159,9 +1463,9 @@ def main() -> int:
         "route": "cuda",
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:117",
-        "launches": launches["train"][1] + sharded["k4"],
+        "launches": launches["train"][1] + sharded["k4"] + measure["k4"],
         "launches_by_path": {"render": launches["render"][1], "train": launches["train"][1],
-                             "sharded": sharded["k4"]},
+                             "sharded": sharded["k4"], "measure": measure["k4"]},
         "sharded_launches": sharded["k4_shard"],
         "shard_max_abs_err": shards["block_errs"]["k4"],
         "shard_sum_max_abs_err": shards["sum_errs"]["k4"],
@@ -1184,8 +1488,9 @@ def main() -> int:
         "route": "cuda",
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:294",
-        "launches": launches["soft"]["k5"] + sharded["k5"],
-        "launches_by_path": {"soft": launches["soft"]["k5"], "sharded": sharded["k5"]},
+        "launches": launches["soft"]["k5"] + sharded["k5"] + measure["k5"],
+        "launches_by_path": {"soft": launches["soft"]["k5"], "sharded": sharded["k5"],
+                             "measure": measure["k5"]},
         "sharded_launches": sharded["k5_shard"],
         "shard_max_abs_err": shards["block_errs"]["k5"],
         "shard_sum_max_abs_err": shards["sum_errs"]["k5"],
@@ -1204,8 +1509,9 @@ def main() -> int:
         "route": "cuda",
         "source": "fourd_ray_tracing_tpu_torch/csrc/softkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:1207",
-        "launches": launches["soft"]["k6"] + sharded["k6"],
-        "launches_by_path": {"soft": launches["soft"]["k6"], "sharded": sharded["k6"]},
+        "launches": launches["soft"]["k6"] + sharded["k6"] + measure["k6"],
+        "launches_by_path": {"soft": launches["soft"]["k6"], "sharded": sharded["k6"],
+                             "measure": measure["k6"]},
         "sharded_launches": sharded["k6_shard"],
         "shard_max_abs_err": shards["block_errs"]["k6"],
         "shard_sum_max_abs_err": shards["sum_errs"]["k6"],
@@ -1219,7 +1525,49 @@ def main() -> int:
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, sphere 0, zero target, edge "
                  f"width 0.05 (plain version in {BAND_ROWS}-row bands)",
         "build_s": build_s,
+    }, {
+        "name": "fp32_peak_kernel",
+        "route": "cuda",
+        "source": "fourd_ray_tracing_tpu_torch/csrc/vpu_peak.cu",
+        "replaces": "tools/vpu_peak.py:55",
+        "launches": launches["peak"]["k7"],
+        "launches_by_path": {"measure": launches["peak"]["k7"]},
+        "max_abs_err": peak_err,
+        "tolerance": {"rtol": PEAK_RTOL, "rounds": [PEAK_CHECK_ROUNDS, "the sweep's"]},
+        "ms": peak["ms"],
+        "plain_ms": peak_plain_ms,
+        **bounds["k7"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a chain of dependent FMAs",
+        "shape": f"n_acc {peak['n_acc']} (the sweep's best), {peak['rounds']} steps, "
+                 f"{blocks} blocks of {k7.BLOCK_THREADS} threads",
+        "measured_gflops": peak["value"],
+        "sm_clock_mhz": peak["sm_clock_mhz"],
+        "peak_at_clock_gflops": peak["peak_at_clock_gflops"],
+        "linearity_ratio": peak["linearity_ratio"],
+        "build_s": build_s,
+    }, {
+        "name": "grad_ablate_kernel",
+        "route": "cuda",
+        "source": "fourd_ray_tracing_tpu_torch/csrc/ablate.cu",
+        "replaces": "tools/grad_ablate.py:57",
+        "launches": measure["k8"],
+        "launches_by_path": {"measure": measure["k8"]},
+        "max_abs_err": max(e for e, _ in ablate_errs.values()),
+        "max_rel_err_by_mode": {m: r for m, (_, r) in ablate_errs.items()},
+        "tolerance": {"acc_rtol": ACC_RTOL, "loss_rtol": GRAD_BOUNDS["loss_rtol"]},
+        "ms": k8_ms["vjp"],
+        "ms_by_mode": {m: k8_ms[m] for m in ablate.MODES},
+        "plain_ms": k8_plain_ms,
+        **bounds["k8"]["vjp"],
+        "bound_ms_by_mode": {m: bounds["k8"][m]["bound_ms"] for m in ablate.MODES},
+        **no_library,
+        "shape": "room_with_sphere 1280x720 8spp 4 bounces, zero target, mode vjp (plain "
+                 "version whole)",
+        "build_s": build_s,
     }]}
+    for entry in summary["kernels"]:
+        with_shares(entry)
     print(json.dumps(summary), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

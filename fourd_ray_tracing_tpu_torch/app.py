@@ -16,7 +16,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 from dataclasses import replace
 from pathlib import Path
 
@@ -30,6 +29,7 @@ from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
 from fourd_ray_tracing_tpu_torch.utils.config import AppConfig
 from fourd_ray_tracing_tpu_torch.utils.image import write_png
+from fourd_ray_tracing_tpu_torch.utils.profiling import Meter
 
 NOT_PORTED_FLAGS = ("--interactive", "--serve", "--serve-fps", "--precompile",
                     "--no-precompile", "--load-state", "--save-state", "--fps-overlay")
@@ -152,14 +152,12 @@ def main(argv=None) -> int:
     print(f"scene={app.scene} windows={res} spp={engine.cfg.samples} "
           f"bounces={engine.cfg.reflections_amount} device={name}", flush=True)
 
-    t0 = time.perf_counter()
-    engine.step_frames(args.frames)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    seconds = time.perf_counter() - t0
-    rays = engine.rays_per_frame() * args.frames
-    print(json.dumps({"frames": args.frames, "seconds": seconds,
-                      "rays_per_s": rays / seconds if seconds > 0 else None}), flush=True)
+    meter = Meter()
+    with meter.measure(engine.rays_per_frame() * args.frames, frames=args.frames) as h:
+        h["result"] = engine.step_frames(args.frames)
+    stats = meter.stats
+    print(json.dumps({"frames": stats.frames, "seconds": stats.seconds,
+                      "rays_per_s": stats.rays_per_s if stats.seconds > 0 else None}), flush=True)
 
     out_dir = Path(args.out)
     upscale = None

@@ -1,0 +1,135 @@
+// The value-and-grad kernel's pass-budget variants (K8), for Hopper
+// (sm_90a): measurement only.
+//
+// Replaces tools/grad_ablate.py::_variant_kernel of the JAX package: K4's
+// per-pixel math (gradkernel.cu, adjoint.cuh pixel_loss_grad) stopped at
+// ``mode``, so that timing the variants beside K4 splits K4's time between
+// its stages instead of guessing it:
+//   kAcc  (0): pass 1 only, the sample loop (pixel_light_sum, bitwise K1's);
+//              a pixel's value is the sum of the three channels of its light
+//              summed over samples;
+//   kLoss (1): + the tone map and the pixel's masked MSE, exactly as K4
+//              computes its loss;
+//   kVjp  (2): + the loss's cotangent with respect to the light (K4's
+//              g_light), folded into the value as 0 * (g.x + g.y + g.z), so
+//              that it is not dead code and the value stays the loss.
+// K4 minus vjp is then the pixel sweep plus the parameter reduction, vjp
+// minus loss the cotangent, loss minus acc the tone map and the MSE, and acc
+// pass 1 (tools/grad_ablate.py prints the split).
+//
+// Design: K4's, without the sweep. One thread per (view, y, x) pixel of the
+// whole image, the packed parameters in shared memory. There is no
+// cotangent array: the P-float array and its reduction are what the
+// variants leave out. The block reduces its threads' values in double with
+// K4's loss reduction (reduce.cuh reduce_block with no parameters) into one
+// partial per block, and sum_parts_kernel sums the partials in K4's fixed
+// order, in double, unscaled. So the loss variant's output times K4's scale
+// is K4's loss bitwise. Padded lanes contribute 0.
+//
+// What bounds them: pass 1's arithmetic, as K1's (acc is one K1 frame plus
+// a reduction of 4 bytes per pixel).
+
+#include "reduce.cuh"
+
+namespace {
+
+constexpr int kModeAcc = 0;
+constexpr int kModeLoss = 1;
+constexpr int kModeVjp = 2;
+
+template <int kMode>
+__global__ void __launch_bounds__(kBlock)
+ablate_kernel(const float* __restrict__ params, uint32_t seed, Layout L, int width, int height,
+              int samples, int reflections, float small_indent, float light_coefficient,
+              const float* __restrict__ target, double* __restrict__ loss_parts, int n_cols) {
+  extern __shared__ float P[];
+  for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = params[i];
+  __syncthreads();
+
+  const long long total = static_cast<long long>(L.n_views) * height * width;
+  const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  float value = 0.0f;
+  if (lin < total) {  // no early return: every lane joins the reduction
+    const int hw = height * width;
+    const int view = static_cast<int>(lin / hw);
+    const int rem = static_cast<int>(lin - static_cast<long long>(view) * hw);
+    const int py = rem / width;
+    const int px = rem - py * width;
+    const Pixel p = setup_pixel(P, L, view, px, py, width, height, small_indent);
+    const V3 acc = pixel_light_sum(P, L, p, samples, reflections, small_indent, seed);
+    if constexpr (kMode == kModeAcc) {
+      value = acc.x + acc.y + acc.z;
+    } else {
+      // pixel_loss_grad's loss (adjoint.cuh), operation for operation.
+      const float inv = 1.0f / static_cast<float>(samples);
+      const V3 light = mul3s(acc, inv);
+      const V3 u = tone_denominator(light, light_coefficient);
+      const V3 color = tone_color(u);
+      const V3 diff = sub3(color, ld3(target + lin * 3));
+      value = diff.x * diff.x + diff.y * diff.y + diff.z * diff.z;
+      if constexpr (kMode == kModeVjp) {
+        const V3 g_light = {2.0f * diff.x * light_coefficient / (u.x * u.x) * inv,
+                            2.0f * diff.y * light_coefficient / (u.y * u.y) * inv,
+                            2.0f * diff.z * light_coefficient / (u.z * u.z) * inv};
+        value = value + 0.0f * (g_light.x + g_light.y + g_light.z);
+      }
+    }
+  }
+  reduce_block(nullptr, 0, value, nullptr, loss_parts, n_cols, blockIdx.x);
+}
+
+template <int kMode>
+void launch(const float* params, uint32_t seed, const Layout& L, int width, int height,
+            int samples, int reflections, float small_indent, float light_coefficient,
+            const float* target, double* loss_parts, int n_cols, size_t smem, cudaStream_t s) {
+  ablate_kernel<kMode><<<n_cols, kBlock, smem, s>>>(params, seed, L, width, height, samples,
+                                                    reflections, small_indent, light_coefficient,
+                                                    target, loss_parts, n_cols);
+}
+
+}  // namespace
+
+// K8 on ``stream``: value_out () float32, the unscaled sum over the image's
+// pixels of the variant's per-pixel value (mode 0 acc, 1 loss, 2 vjp), from
+// params (P,) float32, one seed and the target (V, H, W, 3) float32 (not
+// read by mode 0). The arguments keep fourd_loss_grad_launch's order, less
+// what the variants do not take (frames, row offset, scale, gradients).
+// loss_parts (n_cols,) float64 is scratch of the caller's, n_cols as
+// fourd_grad_scratch_cols(layout, width, height, 1) gives it (one column
+// per block). Returns cudaGetLastError() after each launch.
+extern "C" int fourd_ablate_launch(int mode, const float* params, uint32_t seed, const int* layout,
+                                   int width, int height, int samples, int reflections,
+                                   float small_indent, float light_coefficient,
+                                   const float* target, double* loss_parts, float* value_out,
+                                   void* stream) {
+  const Layout L = layout_from(layout);
+  const long long blocks = pixel_blocks(L, width, height);
+  const int n_cols = static_cast<int>(blocks);
+  const size_t smem = static_cast<size_t>(L.size) * sizeof(float);
+  if (blocks <= 0 || blocks > 0x7FFFFFFFLL || samples <= 0 || reflections < 0 || L.size <= 0 ||
+      L.size > kMaxParams) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kModeAcc:
+      launch<kModeAcc>(params, seed, L, width, height, samples, reflections, small_indent,
+                       light_coefficient, target, loss_parts, n_cols, smem, s);
+      break;
+    case kModeLoss:
+      launch<kModeLoss>(params, seed, L, width, height, samples, reflections, small_indent,
+                        light_coefficient, target, loss_parts, n_cols, smem, s);
+      break;
+    case kModeVjp:
+      launch<kModeVjp>(params, seed, L, width, height, samples, reflections, small_indent,
+                       light_coefficient, target, loss_parts, n_cols, smem, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_parts_kernel<<<1, kSumThreads, 0, s>>>(nullptr, loss_parts, 0, n_cols, 1.0f, nullptr,
+                                             value_out);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -46,6 +46,11 @@
 // is matched within image tolerances). Float constants are hex literals
 // of the JAX package's float32 values.
 //
+// The same kernel with stubs compiled in (trace.cuh kStub*) is the
+// measurement variant launch of tools/fwd_ablate.py
+// (fourd_forward_variant_launch); the production launch instantiates no
+// stub, so its code is the trace alone.
+//
 // Still to do for speed (later work): static hints and wall-pair folding
 // (models/scene.py:plane_norm_hints / plane_pair_hints in the JAX
 // package), FMA contraction once its effect on the image is measured,
@@ -55,6 +60,9 @@
 
 namespace {
 
+// kStub selects a measurement variant's stubs (trace.cuh); the production
+// kernel is kStubNone.
+template <int kStub>
 __global__ void __launch_bounds__(kBlock)
 forward_kernel(const float* __restrict__ params, long long row_stride,
                const uint32_t* __restrict__ seeds, Layout L, int width, int height, int row0,
@@ -80,14 +88,37 @@ forward_kernel(const float* __restrict__ params, long long row_stride,
   const Pixel p = setup_pixel(P, L, view, px, py, width, height, small_indent);
   V3 acc = {0.0f, 0.0f, 0.0f};
   for (int s = 0; s < samples; ++s) {
-    acc = add3(acc, trace_sample<false>(P, L, p, s, seed, reflections, small_indent, nullptr,
-                                        nullptr, nullptr, nullptr));
+    acc = add3(acc, trace_sample<false, kStub>(P, L, p, s, seed, reflections, small_indent,
+                                               nullptr, nullptr, nullptr, nullptr));
   }
   const float inv = 1.0f / static_cast<float>(samples);
   float* px_out = out + (static_cast<long long>(frame) * total + lin) * 3;
   px_out[0] = acc.x * inv;
   px_out[1] = acc.y * inv;
   px_out[2] = acc.z * inv;
+}
+
+// Validates the arguments and launches forward_kernel<kStub>; returns
+// cudaGetLastError() after the launch.
+template <int kStub>
+int launch_forward(const float* params, long long row_stride, const uint32_t* seeds, int n_frames,
+                   const int* layout, int width, int height, int row0, int n_rows, int samples,
+                   int reflections, float small_indent, float* out, void* stream) {
+  Layout L;
+  int* dst = reinterpret_cast<int*>(&L);
+  for (int i = 0; i < kLayoutInts; ++i) dst[i] = layout[i];
+  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
+  const size_t smem = static_cast<size_t>(L.size) * sizeof(float);
+  if (total <= 0 || row0 < 0 || n_rows <= 0 || row0 + n_rows > height || n_frames <= 0 ||
+      samples <= 0 || row_stride < 0 || smem > 48 * 1024 ||
+      (total + kBlock - 1) / kBlock > 0x7FFFFFFFLL || n_frames > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  dim3 grid(static_cast<unsigned>((total + kBlock - 1) / kBlock), static_cast<unsigned>(n_frames));
+  forward_kernel<kStub><<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+      params, row_stride, seeds, L, width, height, row0, n_rows, samples, reflections,
+      small_indent, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -104,19 +135,34 @@ extern "C" int fourd_forward_launch(const float* params, long long row_stride,
                                     int width, int height, int row0, int n_rows, int samples,
                                     int reflections, float small_indent, float* out,
                                     void* stream) {
-  Layout L;
-  int* dst = reinterpret_cast<int*>(&L);
-  for (int i = 0; i < kLayoutInts; ++i) dst[i] = layout[i];
-  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
-  const size_t smem = static_cast<size_t>(L.size) * sizeof(float);
-  if (total <= 0 || row0 < 0 || n_rows <= 0 || row0 + n_rows > height || n_frames <= 0 ||
-      samples <= 0 || row_stride < 0 || smem > 48 * 1024 ||
-      (total + kBlock - 1) / kBlock > 0x7FFFFFFFLL || n_frames > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_forward<kStubNone>(params, row_stride, seeds, n_frames, layout, width, height,
+                                   row0, n_rows, samples, reflections, small_indent, out, stream);
+}
+
+// The measurement variants of the forward kernel (tools/fwd_ablate.py):
+// fourd_forward_launch with the stubs of ``variant`` compiled in, 1 =
+// kStubSampler, 2 = kStubRng, 3 = both. Any other variant returns
+// cudaErrorInvalidValue.
+extern "C" int fourd_forward_variant_launch(int variant, const float* params,
+                                            long long row_stride, const uint32_t* seeds,
+                                            int n_frames, const int* layout, int width,
+                                            int height, int row0, int n_rows, int samples,
+                                            int reflections, float small_indent, float* out,
+                                            void* stream) {
+  switch (variant) {
+    case kStubSampler:
+      return launch_forward<kStubSampler>(params, row_stride, seeds, n_frames, layout, width,
+                                          height, row0, n_rows, samples, reflections,
+                                          small_indent, out, stream);
+    case kStubRng:
+      return launch_forward<kStubRng>(params, row_stride, seeds, n_frames, layout, width, height,
+                                      row0, n_rows, samples, reflections, small_indent, out,
+                                      stream);
+    case kStubSampler | kStubRng:
+      return launch_forward<kStubSampler | kStubRng>(params, row_stride, seeds, n_frames, layout,
+                                                     width, height, row0, n_rows, samples,
+                                                     reflections, small_indent, out, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  dim3 grid(static_cast<unsigned>((total + kBlock - 1) / kBlock), static_cast<unsigned>(n_frames));
-  forward_kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-      params, row_stride, seeds, L, width, height, row0, n_rows, samples, reflections,
-      small_indent, out);
-  return static_cast<int>(cudaGetLastError());
 }

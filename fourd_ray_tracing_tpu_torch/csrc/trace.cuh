@@ -93,8 +93,19 @@ __device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
   return x;
 }
 
+// Stubs of the forward kernel's measurement variants (tools/fwd_ablate.py,
+// the counterparts of the JAX tool's patches, fwd_ablate.py:113-118). They
+// change the image and serve only to time a stage by its absence. The
+// default, kStubNone, is the production trace, which every kernel but the
+// variant launch instantiates.
+constexpr int kStubNone = 0;
+constexpr int kStubSampler = 1;  // the S^3 sampler returns (0.5, 0.5, 0.5, 0.5); draws kept
+constexpr int kStubRng = 2;      // every uniform is 0.5, no hash, the counter unchanged
+
 // uniform01 with the counter advanced (masked_uniform01 on an active lane).
+template <int kStub = kStubNone>
 __device__ __forceinline__ float draw(uint32_t bits, uint32_t seed, uint32_t& counter) {
+  if constexpr ((kStub & kStubRng) != 0) return 0.5f;
   counter = counter + kCallDelta;
   uint32_t h = hash_u32(bits ^ counter ^ seed);
   return __uint_as_float((h & 0x007FFFFFu) | 0x3F800000u) - 1.0f;
@@ -175,7 +186,14 @@ __device__ __forceinline__ float w_by_volume_poly(float v) {
   return mirrored ? -acc : acc;
 }
 
+template <int kStub = kStubNone>
 __device__ __forceinline__ V4 direction_from_uniforms(float u_w, float u_z, float u_fi) {
+  if constexpr ((kStub & kStubSampler) != 0) {
+    // 0 * (u_w + u_z + u_fi) keeps the three draws live; the uniforms are
+    // finite, so the value is 0.5 exactly.
+    const float half = 0.0f * (u_w + u_z + u_fi) + 0.5f;
+    return {half, half, half, half};
+  }
   float w = w_by_volume_poly(u_w);
   float r = sqrtf(fmaxf(1.0f - w * w, 0.0f));
   float z = (u_z * 2.0f - 1.0f) * r;
@@ -294,15 +312,16 @@ __device__ Hit intersect(const float* P, const Layout& L, V4 o, V4 d) {
 // diffuse; a diffuse lane draws three more uniforms for the sampler.
 // ``mirror`` and ``v`` (the diffuse sample before redirect) report the
 // outcome, for the adjoint.
+template <int kStub = kStubNone>
 __device__ __forceinline__ V4 scatter(V4 norm, V4 mirrored, float refl_prob, uint32_t bits,
                                       uint32_t seed, uint32_t& counter, bool& mirror, V4& v) {
-  float u_refl = draw(bits, seed, counter);
+  float u_refl = draw<kStub>(bits, seed, counter);
   mirror = u_refl <= refl_prob;
   if (mirror) return mirrored;
-  float u_w = draw(bits, seed, counter);
-  float u_z = draw(bits, seed, counter);
-  float u_fi = draw(bits, seed, counter);
-  v = direction_from_uniforms(u_w, u_z, u_fi);
+  float u_w = draw<kStub>(bits, seed, counter);
+  float u_z = draw<kStub>(bits, seed, counter);
+  float u_fi = draw<kStub>(bits, seed, counter);
+  v = direction_from_uniforms<kStub>(u_w, u_z, u_fi);
   return redirect(v, norm);
 }
 
@@ -363,8 +382,9 @@ struct Bounce {
 
 // The trace of sample ``s`` from the hoisted bounce 0 (renderer.trace_rays);
 // returns its light. With kRecord, bounce 0's scatter outcome goes to
-// *mirror0 / *v0 and every later bounce to rec[0..*n_rec).
-template <bool kRecord>
+// *mirror0 / *v0 and every later bounce to rec[0..*n_rec). kStub selects a
+// measurement variant's stubs (kStubNone: the production trace).
+template <bool kRecord, int kStub = kStubNone>
 __device__ V3 trace_sample(const float* P, const Layout& L, const Pixel& p, int s, uint32_t seed,
                            int reflections, float small_indent, Bounce* rec, int* n_rec,
                            bool* mirror0, V4* v0) {
@@ -376,7 +396,7 @@ __device__ V3 trace_sample(const float* P, const Layout& L, const Pixel& p, int 
   uint32_t counter = seed;
   bool mirror;
   V4 v = {0.0f, 0.0f, 0.0f, 0.0f};
-  V4 d = scatter(p.h0.norm, p.mirrored0, p.h0.refl, bits, seed, counter, mirror, v);
+  V4 d = scatter<kStub>(p.h0.norm, p.mirrored0, p.h0.refl, bits, seed, counter, mirror, v);
   if constexpr (kRecord) {
     *mirror0 = mirror;
     *v0 = v;
@@ -394,7 +414,7 @@ __device__ V3 trace_sample(const float* P, const Layout& L, const Pixel& p, int 
       result = add3(result, mul3(mul3s(h.color, h.glow), throughput));
       throughput = mul3(throughput, h.color);
       o = add4(add4(o, mul4s(d, h.dist)), mul4s(h.norm, small_indent));
-      d = scatter(h.norm, reflect(d, h.norm), h.refl, bits, seed, counter, mirror, v);
+      d = scatter<kStub>(h.norm, reflect(d, h.norm), h.refl, bits, seed, counter, mirror, v);
       if constexpr (kRecord) {
         rec[*n_rec - 1].mirror = mirror;
         rec[*n_rec - 1].v = v;

@@ -132,6 +132,33 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,                  # cudaStream_t
         ]
         fn.restype = ctypes.c_int
+        fn = lib.fourd_forward_variant_launch
+        fn.argtypes = [ctypes.c_int, *lib.fourd_forward_launch.argtypes]  # variant, then K1's
+        fn.restype = ctypes.c_int
+        fn = lib.fourd_peak_launch
+        fn.argtypes = [
+            ctypes.c_int,                     # n_acc: 8, 16, 32 or 48
+            ctypes.c_float,                   # b
+            ctypes.c_int, ctypes.c_int,       # trips (rounds / 16), blocks
+            ctypes.c_void_p,                  # block_sums (blocks,) float32, device
+            ctypes.c_void_p,                  # cudaStream_t
+        ]
+        fn.restype = ctypes.c_int
+        fn = lib.fourd_ablate_launch
+        fn.argtypes = [
+            ctypes.c_int,                     # mode: 0 acc, 1 loss, 2 vjp
+            ctypes.c_void_p,                  # params (P,) float32, device
+            ctypes.c_uint32,                  # seed
+            ctypes.c_void_p,                  # layout table (int[14]), host
+            ctypes.c_int, ctypes.c_int,       # width, height
+            ctypes.c_int, ctypes.c_int,       # samples, reflections
+            ctypes.c_float, ctypes.c_float,   # small_indent, light_coefficient
+            ctypes.c_void_p,                  # target (V, H, W, 3) float32, device
+            ctypes.c_void_p,                  # loss_parts (n_cols,) float64, device
+            ctypes.c_void_p,                  # value out () float32, device
+            ctypes.c_void_p,                  # cudaStream_t
+        ]
+        fn.restype = ctypes.c_int
         fn = lib.fourd_loss_grad_launch
         fn.argtypes = [
             ctypes.c_void_p,                  # params (P,) float32, device

@@ -12,9 +12,15 @@ the call raises. ``LAUNCHES`` counts kernel launches, so a run can show
 that its main path went through the kernel; ``ROW_LAUNCHES`` counts those
 of them that read per-frame params rows (K2), ``SHARD_LAUNCHES`` those
 that render a block of rows smaller than the image (K3).
+
+The forward kernel's measurement variants (tools/fwd_ablate.py) launch the
+same kernel with stubs compiled in (``launch_forward_variant``, counted in
+``VARIANT_LAUNCHES``); their plain version is the plain pipeline under
+``stubs``, which patches the renderer as the JAX tool patches its own.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -24,13 +30,18 @@ from fourd_ray_tracing_tpu_torch.camera import Camera
 from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
 from fourd_ray_tracing_tpu_torch.models.scene import Scene
+from fourd_ray_tracing_tpu_torch.ops import rng
 from fourd_ray_tracing_tpu_torch.ops.cuda import build
 from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
+from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
 from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh
 
 LAUNCHES = 0
 ROW_LAUNCHES = 0
 SHARD_LAUNCHES = 0
+VARIANT_LAUNCHES = 0
+# The stub variants and their kStub codes (csrc/trace.cuh).
+VARIANTS = {"sampler_const": 1, "rng_const": 2, "both_const": 3}
 
 
 def _device_of(scene: Scene, camera: Camera) -> torch.device:
@@ -191,3 +202,66 @@ def sharded_render_light_cuda_multi(scenes, camera: Camera, cfg: RenderConfig, s
                              cfg, seed_tensor(words * len(scenes), device), (row0, n_rows))
         out = out[:, 0] if camera.top.x.dim() == 0 else out
     return pmesh.gather_rows(out, mesh, cfg.height) if gather else out
+
+
+# --- the measurement variants (tools/fwd_ablate.py) ---------------------------
+
+def const_direction(u_w, u_z, u_fi, **_):
+    """The stubbed S^3 sampler: (0.5, 0.5, 0.5, 0.5), a unit vector
+    (the JAX tool's const_dir, fwd_ablate.py:113-115)."""
+    half = torch.full_like(u_w, 0.5)
+    return Vec4(half, half, half, half)
+
+
+def const_uniform(pixel_bits, seed, counter, active):
+    """The stubbed RNG: every uniform 0.5, no hash, the counter unchanged
+    (the JAX tool's const_mu, fwd_ablate.py:117-118)."""
+    return torch.full(pixel_bits.shape, 0.5, dtype=torch.float32, device=pixel_bits.device), counter
+
+
+@contextlib.contextmanager
+def stubs(variant: str | None):
+    """The plain pipeline with ``variant``'s stubs (None: none): patches
+    ``renderer.direction_from_uniforms`` and ``rng.masked_uniform01``, the
+    names the renderer calls them by, and restores them on exit."""
+    code = 0 if variant is None else VARIANTS[variant]
+    saved = renderer.direction_from_uniforms, rng.masked_uniform01
+    try:
+        if code & 1:
+            renderer.direction_from_uniforms = const_direction
+        if code & 2:
+            rng.masked_uniform01 = const_uniform
+        yield
+    finally:
+        renderer.direction_from_uniforms, rng.masked_uniform01 = saved
+
+
+def launch_forward_variant(variant: str, packed: torch.Tensor, lay: params.Layout,
+                           cfg: RenderConfig, seeds: torch.Tensor) -> torch.Tensor:
+    """``launch_forward`` (one scene, the whole image) with ``variant``'s
+    stubs compiled into the kernel: (F, V, H, W, 3) float32 light."""
+    global VARIANT_LAUNCHES
+    if packed.device.type != "cuda" or seeds.device != packed.device:
+        raise ValueError(f"kernel inputs must share one CUDA device, got {packed.device}, {seeds.device}")
+    if (packed.dtype != torch.float32 or packed.dim() != 1 or not packed.is_contiguous()
+            or packed.shape[0] != lay.size):
+        raise ValueError(f"packed params must be a contiguous ({lay.size},) float32 tensor")
+    if seeds.dtype != torch.int32 or seeds.dim() != 1 or not seeds.is_contiguous():
+        raise ValueError("seeds must be a contiguous (F,) int32 tensor of uint32 words")
+    lib = build.load()
+    n_frames = seeds.numel()
+    out = torch.empty((n_frames, lay.n_views, cfg.height, cfg.width, 3),
+                      dtype=torch.float32, device=packed.device)
+    table = (ctypes.c_int * len(lay))(*lay)
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fourd_forward_variant_launch(
+            VARIANTS[variant], packed.data_ptr(), 0, seeds.data_ptr(), n_frames,
+            ctypes.addressof(table), cfg.width, cfg.height, 0, cfg.height, cfg.samples,
+            cfg.reflections_amount, float(np.float32(cfg.small_indent)), out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"forward variant kernel launch failed: cudaError {err}")
+    VARIANT_LAUNCHES += 1
+    return out
+
