@@ -6,7 +6,10 @@ card and the CUDA toolkit's nvcc, and exits non-zero (printing no result)
 on any failure, or when no CUDA device is available. Phases:
 
 1. device: the card's name and power limit;
-2. build: the kernels from fourd_ray_tracing_tpu_torch/csrc;
+2. build: the kernels from fourd_ray_tracing_tpu_torch/csrc; every
+   kernel's registers, stack frame and spill stores from the build log, and
+   the resident warps per SM that the gradient kernels K4, K5 and K6 reach
+   at the training shape;
 3. kernel vs plain torch pipeline on the card, 256x144, 4 spp, 4 bounces,
    both scenes, 1 and 3 views, a (2,) seed vector; bitwise self-consistency;
 4. main path: RenderEngine on room_with_sphere at 1280x720, 8 spp,
@@ -24,9 +27,9 @@ on any failure, or when no CUDA device is available. Phases:
    bitwise across two launches; the (2,) launch against the mean of the
    two scalar-seed launches; K4 and its plain version timed at
    256x144x8spp x4 bounces; at phase 9's shape (1280x720x8spp x4, 1 and 4
-   frames) K4 held against the plain version taken in row bands, both
-   timed; at phase 10's shape the forward kernel's target render and K4
-   held against their plain versions;
+   frames) K4 bitwise across two launches and held against the plain
+   version taken in row bands, both timed; at phase 10's shape the forward
+   kernel's target render and K4 held against their plain versions;
 9. the training main path: make_packed_train_step (Adam on the packed
    vector, one K4 launch per step) on room_with_sphere at 1280x720, 8 spp,
    4 bounces, a zero target, lr 1e-3, timed with CUDA events, for 1 and 4
@@ -39,15 +42,19 @@ on any failure, or when no CUDA device is available. Phases:
    launches; K2 (the forward kernel over (F, P) params rows: a scene and
    its zero_object copy) row by row bitwise single K1 renders, and K5's
    two-row launch row by row bitwise single K5 launches and held against
-   the plain version; then K5 at the soft main path's 1280x720x8spp x4
-   against the plain version, both timed;
+   the plain version; then K5 at the soft main path's 1280x720x8spp x4,
+   bitwise across two launches, against the plain version, both timed;
 12. the fused soft value-and-grad kernel K6 against its plain version
    (autograd over the plain blend, alpha an independent leaf): the room's
    sphere 0 and the lamp scene's sphere 1, 1 and 3 views, 256x144, 4 spp,
    4 bounces, the coverage alpha and a seeded random target; bitwise
    across launches; the zeroed row's light bitwise the drop_object light;
-   then at 1280x720x8spp x4 against the plain version in row bands, both
-   timed, and at ``inverse_render --param position``'s shape;
+   with one view, K6 again with wall 0's color added to the zero map (slots
+   that row b reaches and must drop; its rows are swept apart); then at
+   1280x720x8spp x4,
+   bitwise across two launches, against the plain version in row bands,
+   both timed beside the pair K6 fused (K2 over both rows and the two-row
+   K5), and at ``inverse_render --param position``'s shape;
 13. the soft training main path: make_train_step(impl="kernel",
    soft_object_ref=("spheres", 0)) on room_with_sphere at 1280x720, 8 spp,
    4 bounces, a zero target, edge width 0.05, lr 1e-3, one K6 launch per
@@ -100,7 +107,11 @@ plain version's flops (utils/flops.py, counted on the card over
 ``BOUND_ROWS`` rows of the timed shape and scaled to the whole image) over
 NVIDIA's published fp32 peak and the bytes it must move (each input read
 once, each output written once) over the published memory rate
-(``PEAKS``). Beside it stand the shares of two peaks that the kernel's
+(``PEAKS``). The entries of K4, K5 and K6 also name the kernels each
+launch runs (a pass-1 kernel, then a sweep) and carry the registers, stack
+frame and spill stores of the sweep's main-path instance, the resident
+warps per SM it reaches, and the same of its generic instance and of the
+pass-1 kernel. Beside it stand the shares of two peaks that the kernel's
 achieved fp32 rate reaches: the published 67 TFLOP/s (data sheet, H100
 SXM at 700 W) and the rate K7 sustained on this card in this run (phase
 16), which is what the card really offers a kernel of plain FMAs.
@@ -165,6 +176,18 @@ CALLS, REPEATS = 5, 5  # timed: REPEATS runs of CALLS back-to-back calls
 # on the card was 4.38e-6); the CPU tests against XLA, which contracts
 # FMAs, keep 1e-3.
 GRAD_BOUNDS = dict(loss_rtol=1e-6, grad_mixed_rel=1e-4, minibatch_rtol=1e-5)
+# The gradient launches' kernels, by their names in the build log: the
+# sweeps (each an unrolled instance at the main paths' bounce count and a
+# generic one) of K4 and K5 and of K6's row a and row b, and K4's and K6's
+# pass 1; the kernels each launch runs, in order; and each launch's main
+# sweep, whose resources its summary carries.
+GRAD_KERNELS = {"sweep": "sweep_kernel", "loss_cot": "loss_cot_kernel",
+                "soft_sum": "soft_sum_kernel", "soft_row_a": "soft_row_a_kernel",
+                "soft_row_b": "soft_row_b_kernel"}
+GRAD_LAUNCHES = {"k4": ("loss_cot", "sweep"), "k5": ("sweep",),
+                 "k6": ("soft_sum", "soft_row_a", "soft_row_b")}
+MAIN_SWEEP = {"k4": "sweep", "k5": "sweep", "k6": "soft_row_a"}
+SWEEPS = ("sweep", "soft_row_a", "soft_row_b")
 GRAD_CHECK = dict(width=256, height=144, samples=4, reflections_amount=4, rng_mode="per_sample",
                   light_coefficient=0.12)
 # Training shapes of the JAX package's bench (bench.py train_scan4 and
@@ -447,6 +470,9 @@ def time_grad_kernel(device):
         seeds = list(range(1, frames + 1))
         words = megakernel.seed_tensor(seeds, device)
         kernel = gradkernel.launch_loss_grad(packed, lay, full, words, target)  # and warm-up
+        again = gradkernel.launch_loss_grad(packed, lay, full, words, target)
+        assert all(torch.equal(a, b) for a, b in zip(kernel, again)), \
+            f"K4 1280x720 F={frames}: two launches differ"
         plain = []
         ms, res["plain_band_peak_gb"][frames] = peak_gb(lambda: cuda_ms(
             lambda: plain.append(gradkernel.loss_and_grad_plain(
@@ -644,6 +670,8 @@ def time_light_vjp(device):
     cot = torch.from_numpy(np.random.default_rng(4).normal(
         0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)).to(device)
     kernel = gradkernel.launch_light_vjp(packed, lay, cfg, 1, cot)  # and warm-up
+    assert torch.equal(kernel, gradkernel.launch_light_vjp(packed, lay, cfg, 1, cot)), \
+        "K5 1280x720: two launches differ"
     plain = []
     ms, peak = peak_gb(lambda: cuda_ms(lambda: plain.append(gradkernel.render_light_vjp_plain(
         packed, scene, camera, cfg, 1, cot)), calls=1, repeats=1))
@@ -688,6 +716,16 @@ def check_soft_kernel(device):
             zeroed = megakernel.render_light_cuda(diff.zero_object(scene, ref), camera, cfg, seed)
             dropped = megakernel.render_light_cuda(diff.drop_object(scene, ref), camera, cfg, seed)
             assert torch.equal(zeroed, dropped), f"{label}: zeroed light != drop_object light"
+            if views == cam.VIEWS_ALL:
+                continue
+            # A zero map that also rewrites wall 0's color, which row b's
+            # lanes do reach: they must drop their cotangents of it.
+            wall = lay.spaces + 10
+            wider = [*zero_map, *((wall + k, 0.25) for k in range(3))]
+            out = gradkernel.launch_soft_loss_grad(packed, lay, cfg, seed, target, alpha, wider)
+            errs.append(compare_soft(f"{label} + wall 0 color in the zero map", out,
+                                     gradkernel.render_soft_loss_and_grad_plain(
+                                         packed, scene, camera, cfg, seed, target, alpha, wider)))
     print("zero_object light bitwise drop_object light on every K6 check", flush=True)
     return max(e for e, _ in errs), max(r for _, r in errs)
 
@@ -704,6 +742,8 @@ def time_soft_kernel(device):
     packed, lay, zero_map, alpha, target = soft_inputs(
         scene, camera, cfg, ref, SOFT_EDGE, torch.zeros((cfg.height, cfg.width, 3), device=device))
     kernel = gradkernel.launch_soft_loss_grad(packed, lay, cfg, 1, target, alpha, zero_map)
+    again = gradkernel.launch_soft_loss_grad(packed, lay, cfg, 1, target, alpha, zero_map)
+    assert all(torch.equal(a, b) for a, b in zip(kernel, again)), "K6 1280x720: launches differ"
     plain = []
     ms, peak = peak_gb(lambda: cuda_ms(lambda: plain.append(
         gradkernel.render_soft_loss_and_grad_plain(packed, scene, camera, cfg, 1, target, alpha,
@@ -716,6 +756,19 @@ def time_soft_kernel(device):
                     calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)
     print(f"K6 1280x720: ms={k6_ms} plain_banded_ms={ms[0]} plain_band_peak_gb={peak:.3f}",
           flush=True)
+    # The pair K6 fused, at the same shape: K2 over the scene and its
+    # zero_object row, and the two-row K5 (a seeded random cotangent).
+    rows = params.stack_rows((scene, diff.zero_object(scene, ref)), camera)
+    words = megakernel.seed_tensor([1, 1], device)
+    cots = torch.from_numpy(np.random.default_rng(5).normal(
+        0, 1, (2, cfg.height, cfg.width, 3)).astype(np.float32)).to(device)
+    pair_ms = {"k2": cuda_ms(lambda: megakernel.launch_forward(rows, lay, cfg, words),
+                             calls=TRAIN_CALLS, repeats=TRAIN_REPEATS),
+               "k5_two_rows": cuda_ms(lambda: gradkernel.launch_light_vjp(rows, lay, cfg, 1, cots),
+                                      calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)}
+    pair_med = sum(statistics.median(v) for v in pair_ms.values())
+    print(f"K6 {statistics.median(k6_ms)} ms against the pair it fused, K2 + two-row K5: "
+          f"{pair_med} ms ({pair_ms})", flush=True)
     args = inverse_render.parse_args(["--param", "position"])
     ir_cfg, ir_camera, ir_target, scene0 = inverse_render.setup(args, device)
     truth = inverse_render.make_scene(inverse_render.TRUE_X, inverse_render.TRUE_GLOW, device)
@@ -731,7 +784,8 @@ def time_soft_kernel(device):
         gradkernel.render_soft_loss_and_grad_plain(packed, scene0, ir_camera, ir_cfg, args.seed,
                                                    target, alpha, zero_map)))
     return {"ms": k6_ms, "plain_ms": ms[0], "plain_band_peak_gb": peak, "light_err": light_err,
-            "err": max(e for e, _ in errs), "rel": max(r for _, r in errs)}
+            "err": max(e for e, _ in errs), "rel": max(r for _, r in errs),
+            "pair_ms": pair_med, "pair_split_ms": pair_ms}
 
 
 def soft_train(device, ref, calls: int, repeats: int):
@@ -1241,6 +1295,57 @@ def with_shares(entry: dict) -> dict:
     return entry
 
 
+def grad_resources(log: str) -> dict:
+    """Prints every kernel's registers, stack frame and spill stores from
+    the build log; returns those of the gradient launches' kernels, keyed as
+    GRAD_KERNELS (a sweep's generic instance with the suffix "_generic")."""
+    res = build.kernel_resources(log)
+    for name, r in sorted(res.items()):
+        if r:
+            print(f"  {name}: {r}", flush=True)
+    out = {}
+    for key, name in GRAD_KERNELS.items():
+        mangled = f"{len(name)}{name}"
+        patterns = ({key: f"{mangled}ILi{gradkernel.MAIN_BOUNCES}E",
+                     key + "_generic": f"{mangled}ILi{gradkernel.MAX_BOUNCES}E"}
+                    if key in SWEEPS else {key: f"{mangled}E"})
+        for k, pattern in patterns.items():
+            hits = [r for n, r in res.items() if pattern in n]
+            assert len(hits) == 1, (k, hits)
+            out[k] = hits[0]
+    assert out["sweep"]["spill_bytes"] == out["loss_cot"]["spill_bytes"] == 0, \
+        f"K4's kernels spill: {out}"
+    return out
+
+
+def resident_warps(device) -> dict:
+    """Resident warps per SM of the gradient launches' kernels at the
+    training shape (room, one view, TRAIN's bounces); prints them."""
+    scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
+    lay, cfg = params.layout(scene, camera), RenderConfig(**TRAIN)
+    out = {key: gradkernel.resident_warps(key, lay, cfg) for key in GRAD_KERNELS}
+    print(json.dumps({"resident_warps_per_sm_at_train_shape": out}), flush=True)
+    return out
+
+
+def kernel_resources(key: str, resources: dict, warps: dict) -> dict:
+    """A gradient launch's summary keys from the build and the occupancy
+    query: its main sweep's main-path instance's registers, stack and spill
+    bytes and resident warps per SM, its generic instance's resources, and
+    those of the launch's pass-1 kernel and other sweep."""
+    sweep_key = MAIN_SWEEP[key]
+    sweep = resources[sweep_key]
+    out = {"kernels": [GRAD_KERNELS[k] for k in GRAD_LAUNCHES[key]],
+           "registers": sweep["registers"], "stack_bytes": sweep["stack_bytes"],
+           "spill_bytes": sweep["spill_bytes"], "resident_warps_per_sm": warps[sweep_key],
+           "generic_instance": resources[sweep_key + "_generic"]}
+    for kernel in (k for k in GRAD_LAUNCHES[key] if k != sweep_key):
+        part = "other_sweep" if kernel in SWEEPS else "pass1"
+        out[part] = {"kernel": GRAD_KERNELS[kernel], **resources[kernel],
+                     "resident_warps_per_sm": warps[kernel]}
+    return out
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1260,9 +1365,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     build.load()
     print(f"built {lib_path.relative_to(ROOT)} in {build_s:.2f} s", flush=True)
-    for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            print("  " + line.strip(), flush=True)
+    resources = grad_resources(build.build_log())
+    warps = resident_warps(device)
 
     phase("3 kernel vs plain on the card")
     max_err = check_kernel_against_plain(device)
@@ -1461,6 +1565,7 @@ def main() -> int:
     }, {
         "name": "loss_grad_kernel",
         "route": "cuda",
+        **kernel_resources("k4", resources, warps),
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:117",
         "launches": launches["train"][1] + sharded["k4"] + measure["k4"],
@@ -1486,6 +1591,7 @@ def main() -> int:
     }, {
         "name": "light_vjp_kernel",
         "route": "cuda",
+        **kernel_resources("k5", resources, warps),
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:294",
         "launches": launches["soft"]["k5"] + sharded["k5"] + measure["k5"],
@@ -1507,7 +1613,8 @@ def main() -> int:
     }, {
         "name": "soft_loss_grad_kernel",
         "route": "cuda",
-        "source": "fourd_ray_tracing_tpu_torch/csrc/softkernel.cu",
+        **kernel_resources("k6", resources, warps),
+        "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:1207",
         "launches": launches["soft"]["k6"] + sharded["k6"] + measure["k6"],
         "launches_by_path": {"soft": launches["soft"]["k6"], "sharded": sharded["k6"],
@@ -1521,6 +1628,8 @@ def main() -> int:
         "tolerance": GRAD_BOUNDS,
         "ms": statistics.median(k6["ms"]),
         "plain_ms": k6["plain_ms"],
+        "pair_ms": k6["pair_ms"],
+        "pair_note": "K2 over both rows + the two-row K5, the launches K6 fused, same shape",
         **bounds["k6"], **no_library,
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, sphere 0, zero target, edge "
                  f"width 0.05 (plain version in {BAND_ROWS}-row bands)",

@@ -38,7 +38,7 @@ constexpr int kModeLoss = 1;
 constexpr int kModeVjp = 2;
 
 template <int kMode>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kGradBlock)
 ablate_kernel(const float* __restrict__ params, uint32_t seed, Layout L, int width, int height,
               int samples, int reflections, float small_indent, float light_coefficient,
               const float* __restrict__ target, double* __restrict__ loss_parts, int n_cols) {
@@ -60,18 +60,11 @@ ablate_kernel(const float* __restrict__ params, uint32_t seed, Layout L, int wid
     if constexpr (kMode == kModeAcc) {
       value = acc.x + acc.y + acc.z;
     } else {
-      // pixel_loss_grad's loss (adjoint.cuh), operation for operation.
-      const float inv = 1.0f / static_cast<float>(samples);
-      const V3 light = mul3s(acc, inv);
-      const V3 u = tone_denominator(light, light_coefficient);
-      const V3 color = tone_color(u);
-      const V3 diff = sub3(color, ld3(target + lin * 3));
-      value = diff.x * diff.x + diff.y * diff.y + diff.z * diff.z;
+      // K4's pass 1 (gradkernel.cu loss_cot_kernel): adjoint.cuh loss_cot.
+      const LossCot lc = loss_cot(acc, target + lin * 3, light_coefficient, samples);
+      value = lc.loss;
       if constexpr (kMode == kModeVjp) {
-        const V3 g_light = {2.0f * diff.x * light_coefficient / (u.x * u.x) * inv,
-                            2.0f * diff.y * light_coefficient / (u.y * u.y) * inv,
-                            2.0f * diff.z * light_coefficient / (u.z * u.z) * inv};
-        value = value + 0.0f * (g_light.x + g_light.y + g_light.z);
+        value = value + 0.0f * (lc.g_mean.x + lc.g_mean.y + lc.g_mean.z);
       }
     }
   }
@@ -82,7 +75,7 @@ template <int kMode>
 void launch(const float* params, uint32_t seed, const Layout& L, int width, int height,
             int samples, int reflections, float small_indent, float light_coefficient,
             const float* target, double* loss_parts, int n_cols, size_t smem, cudaStream_t s) {
-  ablate_kernel<kMode><<<n_cols, kBlock, smem, s>>>(params, seed, L, width, height, samples,
+  ablate_kernel<kMode><<<n_cols, kGradBlock, smem, s>>>(params, seed, L, width, height, samples,
                                                     reflections, small_indent, light_coefficient,
                                                     target, loss_parts, n_cols);
 }

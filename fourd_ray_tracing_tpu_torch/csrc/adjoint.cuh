@@ -1,7 +1,7 @@
 // Hand-written adjoint of the path tracer, and the per-pixel bodies of the
-// gradient kernels built on it: the value-and-grad kernel (gradkernel.cu,
-// K4), the light-VJP kernel (gradkernel.cu, K5) and the fused soft
-// value-and-grad kernel (softkernel.cu, K6).
+// gradient kernels built on it (gradkernel.cu): the value-and-grad kernel
+// (K4), the light-VJP kernel (K5) and the fused soft value-and-grad kernel
+// (K6).
 //
 // Like the JAX package's kernels, they differentiate the estimator at fixed
 // RNG (the JAX package's diff.py:8-24): uniforms are constants, hit/miss
@@ -17,46 +17,96 @@
 //           so the light is bitwise K1's); the kernel's loss turns the
 //           light into the cotangent of every sample's light (g_light).
 //   pass 2, the pixel sweep: per sample, re-trace while recording each
-//           bounce (ray, hit, throughput, scatter outcome), then sweep the
-//           records in reverse, accumulating parameter cotangents. Bounce 0
-//           is shared by all samples, so the cotangents of its outputs sum
-//           over the samples and go through bounce 0, the primary ray and
-//           the camera once per pixel.
-// K4 runs both passes, K5 only the sweep (its g_light is an input), K6
-// pass 1 on two parameter rows and the sweep on each.
+//           bounce (ray, hit primitive and distance, scatter outcome),
+//           then sweep the records in reverse. Bounce 0 is shared by all
+//           samples, so the cotangents of its outputs sum over the samples
+//           and go through bounce 0, the primary ray and the camera once
+//           per pixel.
+// The gradient kernels run them as two kernels: pass 1 (K4 with its loss,
+// loss_cot, which writes each pixel's cotangent of its mean light; K6 each
+// row's light sum, which its sweep blends, soft_blend), then the sweep:
+// pixel_sweep (K5's cotangent is its input; K6 sweeps each of its rows).
+//
+// The sweep's parameter cotangents leave it as Slots: one step of one
+// thread touches the slots of one primitive (or of the environment, or a
+// camera vector) and nothing else. The sweep hands each step's Slots to an
+// accumulator, a template parameter with one member, add(const Slots&),
+// which adds the slots' values to the thread's parameter cotangents: on
+// the card a per-thread column in shared memory (reduce.cuh ColumnAcc), on
+// the host a dense array. The bounce records are a template on the bounce
+// count kB: the main paths' count (kMainBounces) is unrolled, so every
+// record index is a compile-time constant and the records stay in
+// registers; kB == kMaxBounces is the generic instance for any count up to
+// it, with the loops rolled.
 //
 // This header uses no CUDA API beyond what trace.cuh does, so the tests
-// compile it for the host behind a shim header and hold it against torch
-// autograd (tests/test_torch_adjoint_host.py).
+// compile it for the host behind a shim header, with a dense accumulator,
+// and hold it against torch autograd (tests/test_torch_adjoint_host.py).
 #pragma once
 
 #include "trace.cuh"
 
 namespace {
 
-// The sizes of the per-thread arrays come from ops/cuda/build.py (its
+// The cap on packed parameters, the bounce counts of the unrolled and the
+// generic instance and K6's zero-map slots come from ops/cuda/build.py (its
 // DEFINES), which the Python wrappers read too.
 #if !defined(FOURD_K4_MAX_PARAMS) || !defined(FOURD_K4_MAX_BOUNCES) || \
-    !defined(FOURD_K6_MAX_ZERO_SLOTS)
-#error "build with ops/cuda/build.py, which defines FOURD_K4_MAX_* and FOURD_K6_MAX_ZERO_SLOTS"
+    !defined(FOURD_K4_MAIN_BOUNCES) || !defined(FOURD_K6_MAX_ZERO_SLOTS)
+#error "build with ops/cuda/build.py, which defines FOURD_K4_* and FOURD_K6_MAX_ZERO_SLOTS"
 #endif
-constexpr int kMaxParams = FOURD_K4_MAX_PARAMS;  // per-thread cotangent array
-constexpr int kMaxBounces = FOURD_K4_MAX_BOUNCES;  // per-sample bounce records
+constexpr int kMaxParams = FOURD_K4_MAX_PARAMS;  // packed parameters a launch takes
+constexpr int kMaxBounces = FOURD_K4_MAX_BOUNCES;  // the generic instance's records per sample
 // Packed slots K6's second row may overwrite (zero_object of a sphere
 // rewrites one radius; a composite rewrites a few).
 constexpr int kMaxZeroSlots = FOURD_K6_MAX_ZERO_SLOTS;
+// RenderConfig.reflections_amount of every main-path configuration: the
+// bounce count with its own unrolled instance.
+constexpr int kMainBounces = FOURD_K4_MAIN_BOUNCES;
 
 __device__ __forceinline__ V3 sub3(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ void acc4(float* g, V4 v) {
-  g[0] += v.x;
-  g[1] += v.y;
-  g[2] += v.z;
-  g[3] += v.w;
+
+// The cotangents of one sweep step: values v[0..n) for the packed slots
+// key, key + stride, ..., or nothing when key is -1. At most a hyperplane's
+// 13 slots.
+constexpr int kSlotsMax = kSpaceFloats;
+struct Slots {
+  int key, n, stride;
+  float v[kSlotsMax];
+};
+__device__ __forceinline__ Slots no_slots() {
+  Slots c;
+  c.key = -1;
+  c.n = 0;
+  c.stride = 1;
+  return c;
 }
-__device__ __forceinline__ void acc3(float* g, V3 v) {
-  g[0] += v.x;
-  g[1] += v.y;
-  g[2] += v.z;
+__device__ __forceinline__ void put4(float* v, V4 x) {
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ void put3(float* v, V3 x) {
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+}
+__device__ __forceinline__ Slots slots4(int key, int stride, V4 x) {
+  Slots c;
+  c.key = key;
+  c.n = 4;
+  c.stride = stride;
+  put4(c.v, x);
+  return c;
+}
+__device__ __forceinline__ Slots slot1(int key, float x) {
+  Slots c;
+  c.key = key;
+  c.n = 1;
+  c.stride = 1;
+  c.v[0] = x;
+  return c;
 }
 
 // d/dx of the polynomial arccos of ops/fastmath.py:94-98 for |x| < 1:
@@ -88,11 +138,15 @@ __device__ float arccos_grad(float x) {
 }
 
 // Adjoint of final_light (ops/sky.py:35-54) for a ray d with light
-// cotangent g_out: adds to the environment's slots of g and to g_d.
-__device__ void final_light_adj(const float* P, const Layout& L, V4 d, V3 g_out, float* g,
+// cotangent g_out: the environment's 12 slots go to c, the ray's cotangent
+// is added to g_d.
+__device__ void final_light_adj(const float* P, const Layout& L, V4 d, V3 g_out, Slots& c,
                                 V4& g_d) {
   const float* env = P + L.env;
-  float* g_env = g + L.env;
+  c.key = L.env;
+  c.n = 12;
+  c.stride = 1;
+  for (int k = 0; k < 12; ++k) c.v[k] = 0.0f;
   V4 drct = ld4(env);
   float angular_size = env[4];
   V3 light = ld3(env + 5);
@@ -106,7 +160,7 @@ __device__ void final_light_adj(const float* P, const Layout& L, V4 d, V3 g_out,
   bool interior = fabsf(cos_dev) < 1.0f;
   float deviation = interior ? arccos(cos_dev) : (cos_dev > 0.0f ? 0.0f : kPi);
   if (!(deviation < angular_size)) {  // sky.py:53-54: the sky alone
-    acc3(g_env + 9, g_out);
+    put3(c.v + 9, g_out);
     return;
   }
   float k = deviation / angular_size;                    // sky.py:48
@@ -118,8 +172,8 @@ __device__ void final_light_adj(const float* P, const Layout& L, V4 d, V3 g_out,
   float rest_k = 1.0f - k;
   float k2 = m * rest_k;
   // blended = light * k2 + sky * (1 - k2)                  sky.py:52
-  acc3(g_env + 5, mul3s(g_out, k2));
-  acc3(g_env + 9, mul3s(g_out, 1.0f - k2));
+  put3(c.v + 5, mul3s(g_out, k2));
+  put3(c.v + 9, mul3s(g_out, 1.0f - k2));
   float g_k2 = dot3(g_out, light) - dot3(g_out, sky);
   // k2 = (s*s*k / q + 1) * (1 - k)                         sky.py:51
   float g_m = g_k2 * rest_k;
@@ -128,9 +182,9 @@ __device__ void final_light_adj(const float* P, const Layout& L, V4 d, V3 g_out,
   float g_denom = guarded ? 0.0f : -g_m * num / (q * q);
   float g_sharp = 2.0f * sharpness * k * g_num - k * g_denom;
   g_k += sharpness * sharpness * g_num - sharpness * g_denom;
-  g_env[8] += g_sharp;
+  c.v[8] = g_sharp;
   // k = deviation / angular_size                           sky.py:48
-  g_env[4] += -g_k * k / angular_size;
+  c.v[4] = -g_k * k / angular_size;
   float g_dev = g_k / angular_size;
   // deviation = where(interior, arccos(cos), const); clamp passes [-1, 1].
   float g_cos = interior ? g_dev * arccos_grad(cos_dev) : 0.0f;
@@ -141,16 +195,17 @@ __device__ void final_light_adj(const float* P, const Layout& L, V4 d, V3 g_out,
   float g_len_d = g_den * len_s;
   float g_len_s = g_den * len_d;
   g_d = add4(g_d, add4(mul4s(drct, g_dot), mul4s(d, g_len_d / len_d)));
-  acc4(g_env, add4(mul4s(d, g_dot), mul4s(drct, g_len_s / len_s)));
+  put4(c.v, add4(mul4s(d, g_dot), mul4s(drct, g_len_s / len_s)));
 }
 
 // Adjoint of a hit's normal and distance (models/scene.py:63-142) and of
 // its material: only the winner receives the cotangents of the fold's
-// best distance and of the resolved normal, glow and color; refl_prob only
-// enters a comparison and gets none. A zero-radius sphere never wins (its
+// best distance and of the resolved normal, glow and color, in c; refl_prob
+// only enters a comparison and gets 0. A zero-radius sphere never wins (its
 // discriminant is never positive), so it never receives any.
 __device__ void hit_adj(const float* P, const Layout& L, V4 o, V4 d, const Hit& h, float g_dist,
-                        V4 g_norm, float g_glow, V3 g_color, float* g, V4& g_o, V4& g_d) {
+                        V4 g_norm, float g_glow, V3 g_color, Slots& c, V4& g_o, V4& g_d) {
+  c.stride = 1;
   if (h.idx < L.n_spaces) {
     const int base = L.spaces + kSpaceFloats * h.idx;
     const float* sp = P + base;
@@ -167,18 +222,21 @@ __device__ void hit_adj(const float* P, const Layout& L, V4 o, V4 d, const Hit& 
     g_n = add4(g_n, add4(mul4s(sub4(p, o), g_dot_vn), mul4s(d, g_dn)));
     g_o = sub4(g_o, mul4s(n, g_dot_vn));
     g_d = add4(g_d, mul4s(n, g_dn));
-    acc4(g + base, mul4s(n, g_dot_vn));
-    acc4(g + base + 4, g_n);
-    g[base + 8] += g_glow;
-    acc3(g + base + 10, g_color);
+    c.key = base;
+    c.n = kSpaceFloats;
+    put4(c.v, mul4s(n, g_dot_vn));
+    put4(c.v + 4, g_n);
+    c.v[8] = g_glow;
+    c.v[9] = 0.0f;
+    put3(c.v + 10, g_color);
     return;
   }
   const int base = L.spheres + kSphereFloats * (h.idx - L.n_spaces);
   const float* s = P + base;
-  V4 c = ld4(s);
+  V4 ctr = ld4(s);
   float r = s[4];
   float r2 = r * r;                                        // scene.py:95
-  V4 po = sub4(c, o);                                      // scene.py:96
+  V4 po = sub4(ctr, o);                                    // scene.py:96
   float b_raw = dot4(po, d);                               // scene.py:97
   float l2 = dot4(po, po) + kTiny37;                       // scene.py:98
   bool degenerate = l2 < kSmall2;
@@ -192,7 +250,7 @@ __device__ void hit_adj(const float* P, const Layout& L, V4 o, V4 d, const Hit& 
   // norm = (c - hit_p) * scale                             scene.py:114
   V4 g_c = mul4s(g_norm, scale);
   V4 g_hit_p = mul4s(g_norm, -scale);
-  float g_scale = dot4(g_norm, sub4(c, hit_p));
+  float g_scale = dot4(g_norm, sub4(ctr, hit_p));
   g_o = add4(g_o, g_hit_p);
   g_d = add4(g_d, mul4s(g_hit_p, h.dist));
   g_dist += dot4(g_hit_p, d);
@@ -210,10 +268,13 @@ __device__ void hit_adj(const float* P, const Layout& L, V4 o, V4 d, const Hit& 
   g_d = add4(g_d, mul4s(po, g_b_raw));
   g_c = add4(g_c, g_po);
   g_o = sub4(g_o, g_po);
-  acc4(g + base, g_c);
-  g[base + 4] += g_r;
-  g[base + 5] += g_glow;
-  acc3(g + base + 7, g_color);
+  c.key = base;
+  c.n = kSphereFloats;
+  put4(c.v, g_c);
+  c.v[4] = g_r;
+  c.v[5] = g_glow;
+  c.v[6] = 0.0f;
+  put3(c.v + 7, g_color);
 }
 
 // Adjoint of reflect(d, n) = d - n * (2 dot(d, n))          ops/vec4.py:109-111
@@ -233,62 +294,150 @@ __device__ __forceinline__ void redirect_adj(V4 v, V4 n, V4 g_out, V4& g_n) {
   g_n = sub4(g_n, add4(mul4s(g_out, 2.0f * vn), mul4s(v, 2.0f * ng)));
 }
 
-// The reverse sweep of one sample's recorded bounces 1..n (renderer.py
-// trace_rays / _shade, :194-211). g_light is the sample's light cotangent.
-// Returns the cotangents of the bounce-1 ray origin and direction and of
-// the throughput entering bounce 1.
-__device__ void sample_adj(const float* P, const Layout& L, const Bounce* rec, int n_rec,
-                           int reflections, float small_indent, V3 g_light, float* g, V4& g_o,
-                           V4& g_d, V3& g_thr) {
-  g_o = {0.0f, 0.0f, 0.0f, 0.0f};
-  g_d = {0.0f, 0.0f, 0.0f, 0.0f};
-  g_thr = {0.0f, 0.0f, 0.0f};
-  for (int i = n_rec - 1; i >= 0; --i) {
-    const Bounce& r = rec[i];
-    const bool last = i == reflections - 1;  // the last bounce only shades
-    V4 g_o_in = {0.0f, 0.0f, 0.0f, 0.0f};
-    V4 g_d_in = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (!r.h.hit) {
-      // result += throughput * final_light(d); the lane ends    renderer.py:186-188
-      V3 g_thr_in = {0.0f, 0.0f, 0.0f};
-      if (L.env_enabled) {
-        g_thr_in = mul3(g_light, final_light(P + L.env, r.d));
-        final_light_adj(P, L, r.d, mul3(g_light, r.throughput), g, g_d_in);
-      }
-      g_o = g_o_in;
-      g_d = g_d_in;
-      g_thr = g_thr_in;
-      continue;
+// One bounce after bounce 0, as the reverse sweep reads it: the ray, the
+// hit's primitive and distance, and the scatter outcome. The hit's normal
+// and material are rebuilt from the packed row (resolve_hit), the
+// throughput before the bounce from the colors of the bounces before it.
+struct Bounce {
+  V4 o, d, v;
+  float dist;
+  int idx;
+  bool hit, mirror;
+};
+
+// Re-trace sample ``s`` (trace.cuh trace_sample's rays and draws, without
+// the light) while recording bounces 1..R into rec[0..n); returns n, and
+// bounce 0's scatter outcome in mirror0 / v0. R = reflections.
+template <int kB>
+__device__ int record_sample(const float* P, const Layout& L, const Pixel& p, int s, uint32_t seed,
+                             int R, float small_indent, Bounce (&rec)[kB], bool& mirror0,
+                             V4& v0) {
+  const uint32_t bits = p.bits ^ hash_u32((static_cast<uint32_t>(s) + 1u) * kSampleFold);
+  uint32_t counter = seed;
+  bool mirror;
+  V4 v = {0.0f, 0.0f, 0.0f, 0.0f};
+  V4 d = scatter(p.h0.norm, p.mirrored0, p.h0.refl, bits, seed, counter, mirror, v);
+  mirror0 = mirror;
+  v0 = v;
+  V4 o = p.o0;
+  int n = 0;
+  bool alive = true;
+#pragma unroll (kB == kMaxBounces ? 1 : kB)  // rolled: the generic instance
+  for (int i = 0; i < kB; ++i) {
+    if (i >= R || !alive) break;
+    const Hit h = intersect(P, L, o, d);
+    Bounce& r = rec[i];
+    r.o = o;
+    r.d = d;
+    r.dist = h.dist;
+    r.idx = h.idx;
+    r.hit = h.hit;
+    r.mirror = false;
+    r.v = {0.0f, 0.0f, 0.0f, 0.0f};
+    n = i + 1;
+    alive = h.hit;
+    if (alive && i < R - 1) {  // the last bounce only shades
+      o = add4(add4(o, mul4s(d, h.dist)), mul4s(h.norm, small_indent));
+      d = scatter(h.norm, reflect(d, h.norm), h.refl, bits, seed, counter, mirror, v);
+      r.mirror = mirror;
+      r.v = v;
     }
-    // result += color * glow * throughput                   renderer.py:190
-    const V3 color = r.h.color;
-    const float glow = r.h.glow;
-    V3 g_thr_in = mul3(g_light, mul3s(color, glow));
-    V3 g_color = mul3s(mul3(g_light, r.throughput), glow);
-    float g_glow = dot3(mul3(g_light, r.throughput), color);
-    float g_dist = 0.0f;
-    V4 g_norm = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (!last) {
-      // throughput' = throughput * color                    renderer.py:204
-      g_thr_in = add3(g_thr_in, mul3(g_thr, color));
-      g_color = add3(g_color, mul3(g_thr, r.throughput));
-      // o' = o + d * dist + norm * small_indent             renderer.py:205
-      g_o_in = g_o;
-      g_d_in = mul4s(g_o, r.h.dist);
-      g_dist = dot4(g_o, r.d);
-      g_norm = mul4s(g_o, small_indent);
-      // d' = mirror ? reflect(d, norm) : redirect(v, norm)  renderer.py:160-171
-      if (r.mirror) {
-        reflect_adj(r.d, r.h.norm, g_d, g_d_in, g_norm);
-      } else {
-        redirect_adj(r.v, r.h.norm, g_d, g_norm);
-      }
+  }
+  return n;
+}
+
+// A recorded hit's normal and material: the resolver at the end of
+// trace.cuh intersect, operation for operation, so the rebuilt normal is
+// bitwise the trace's. (intersect keeps its own copy: factoring it out
+// changes the forward kernel's code.)
+__device__ __forceinline__ void resolve_hit(const float* P, const Layout& L, V4 o, V4 d, Hit& h) {
+  const float* mat;
+  if (h.idx < L.n_spaces) {
+    const float* sp = P + L.spaces + kSpaceFloats * h.idx;
+    float flip = -sign_of(plane_dot_vn(sp, o));
+    h.norm = {flip * sp[4], flip * sp[5], flip * sp[6], flip * sp[7]};
+    mat = sp + 8;
+  } else {
+    const float* s = P + L.spheres + kSphereFloats * (h.idx - L.n_spaces);
+    V4 c = ld4(s);
+    float r = s[4];
+    float r2 = r * r;
+    V4 po = sub4(c, o);
+    float l2 = dot4(po, po) + kTiny37;
+    float inv_r = 1.0f / fmaxf(r, kTiny30);
+    float scale = l2 > r2 ? -inv_r : inv_r;
+    V4 hit_p = add4(o, mul4s(d, h.dist));
+    h.norm = mul4s(sub4(c, hit_p), scale);
+    mat = s + 5;
+  }
+  h.glow = mat[0];
+  h.refl = mat[1];
+  h.color = ld3(mat + 2);
+}
+
+// The color of primitive idx (its resolver's ld3(mat + 2)).
+__device__ __forceinline__ V3 color_of(const float* P, const Layout& L, int idx) {
+  return ld3(idx < L.n_spaces ? P + L.spaces + kSpaceFloats * idx + 10
+                              : P + L.spheres + kSphereFloats * (idx - L.n_spaces) + 7);
+}
+
+// Adjoint of recorded bounce i (renderer.py trace_rays / _shade,
+// :186-211): (g_o, g_d, g_thr) are the cotangents of the ray and the
+// throughput leaving it (zeros after the last) and become those entering
+// it; its parameter cotangents go to c. g_light is the sample's light
+// cotangent.
+template <int kB>
+__device__ void bounce_adj(const float* P, const Layout& L, const Pixel& p,
+                           const Bounce (&rec)[kB], int i, bool last, float small_indent,
+                           V3 g_light, V4& g_o, V4& g_d, V3& g_thr, Slots& c) {
+  const Bounce& r = rec[i];
+  V3 throughput = p.throughput0;  // throughput' = throughput * color, bounce by bounce
+  for (int j = 0; j < i; ++j) throughput = mul3(throughput, color_of(P, L, rec[j].idx));
+  V4 g_o_in = {0.0f, 0.0f, 0.0f, 0.0f};
+  V4 g_d_in = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (!r.hit) {
+    // result += throughput * final_light(d); the lane ends    renderer.py:186-188
+    V3 g_thr_in = {0.0f, 0.0f, 0.0f};
+    if (L.env_enabled) {
+      g_thr_in = mul3(g_light, final_light(P + L.env, r.d));
+      final_light_adj(P, L, r.d, mul3(g_light, throughput), c, g_d_in);
     }
-    hit_adj(P, L, r.o, r.d, r.h, g_dist, g_norm, g_glow, g_color, g, g_o_in, g_d_in);
     g_o = g_o_in;
     g_d = g_d_in;
     g_thr = g_thr_in;
+    return;
   }
+  Hit h;
+  h.hit = true;
+  h.idx = r.idx;
+  h.dist = r.dist;
+  resolve_hit(P, L, r.o, r.d, h);
+  // result += color * glow * throughput                   renderer.py:190
+  V3 g_thr_in = mul3(g_light, mul3s(h.color, h.glow));
+  V3 g_color = mul3s(mul3(g_light, throughput), h.glow);
+  float g_glow = dot3(mul3(g_light, throughput), h.color);
+  float g_dist = 0.0f;
+  V4 g_norm = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (!last) {
+    // throughput' = throughput * color                    renderer.py:204
+    g_thr_in = add3(g_thr_in, mul3(g_thr, h.color));
+    g_color = add3(g_color, mul3(g_thr, throughput));
+    // o' = o + d * dist + norm * small_indent             renderer.py:205
+    g_o_in = g_o;
+    g_d_in = mul4s(g_o, h.dist);
+    g_dist = dot4(g_o, r.d);
+    g_norm = mul4s(g_o, small_indent);
+    // d' = mirror ? reflect(d, norm) : redirect(v, norm)  renderer.py:160-171
+    if (r.mirror) {
+      reflect_adj(r.d, h.norm, g_d, g_d_in, g_norm);
+    } else {
+      redirect_adj(r.v, h.norm, g_d, g_norm);
+    }
+  }
+  hit_adj(P, L, r.o, r.d, h, g_dist, g_norm, g_glow, g_color, c, g_o_in, g_d_in);
+  g_o = g_o_in;
+  g_d = g_d_in;
+  g_thr = g_thr_in;
 }
 
 // Pass 1: the pixel's light summed over its samples, bitwise the forward
@@ -297,67 +446,82 @@ __device__ V3 pixel_light_sum(const float* P, const Layout& L, const Pixel& p, i
                               int reflections, float small_indent, uint32_t seed) {
   V3 acc = {0.0f, 0.0f, 0.0f};
   for (int s = 0; s < samples; ++s) {
-    acc = add3(acc, trace_sample<false>(P, L, p, s, seed, reflections, small_indent, nullptr,
-                                        nullptr, nullptr, nullptr));
+    acc = add3(acc, trace_sample(P, L, p, s, seed, reflections, small_indent));
   }
   return acc;
 }
 
-// Pass 2, the pixel sweep: adds to g the parameter cotangents of the
-// pixel's sample lights, each with cotangent g_light (the cotangent of
-// the light summed over samples).
-__device__ void pixel_sweep(const float* P, const Layout& L, const Pixel& p, int view,
-                            int samples, int reflections, float small_indent, uint32_t seed,
-                            V3 g_light, float* g) {
-  // Each sample's reverse sweep; bounce 0's output cotangents sum over the
-  // samples. Every sample's light starts from result0.
-  const V3 g_result0 = mul3s(g_light, static_cast<float>(samples));
-  V3 g_thr0 = {0.0f, 0.0f, 0.0f};
-  V4 g_o0 = {0.0f, 0.0f, 0.0f, 0.0f};
-  V4 g_mirrored0 = {0.0f, 0.0f, 0.0f, 0.0f};
-  V4 g_norm0 = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (reflections > 0 && p.h0.hit) {
-    Bounce rec[kMaxBounces];
-    for (int s = 0; s < samples; ++s) {
-      int n_rec = 0;
-      bool mirror0 = false;
-      V4 v0 = {0.0f, 0.0f, 0.0f, 0.0f};
-      trace_sample<true>(P, L, p, s, seed, reflections, small_indent, rec, &n_rec, &mirror0, &v0);
-      V4 g_o, g_d;
-      V3 g_thr;
-      sample_adj(P, L, rec, n_rec, reflections, small_indent, g_light, g, g_o, g_d, g_thr);
-      g_o0 = add4(g_o0, g_o);
-      g_thr0 = add3(g_thr0, g_thr);
-      // bounce 0's direction update                         renderer.py:174-177
-      if (mirror0) {
-        g_mirrored0 = add4(g_mirrored0, g_d);
-      } else {
-        redirect_adj(v0, p.h0.norm, g_d, g_norm0);
-      }
-    }
-  }
+// The cotangents of bounce 0's outputs (renderer.py:143-177) that the
+// samples' sweeps hand back: the throughput and origin leaving bounce 0,
+// its mirrored direction and its normal.
+struct Bounce0Cot {
+  V3 g_thr0;
+  V4 g_o0, g_mirrored0, g_norm0;
+};
 
-  // bounce 0 (renderer.py:143-157), then the primary ray.
+// Re-trace sample ``s`` on P (record_sample, R = reflections bounces) and
+// sweep its records in reverse with light cotangent g_light: the parameter
+// cotangents go to acc, those of bounce 0's outputs are added to b0.
+// Returns whether the recorded path hit primitive ``obj`` (never, for -1).
+template <int kB, class Acc>
+__device__ bool sample_sweep(const float* P, const Layout& L, const Pixel& p, int s,
+                             uint32_t seed, int R, float small_indent, int obj, V3 g_light,
+                             V3 g_shared, Acc& acc, Bounce0Cot& b0) {
+  Bounce rec[kB];
+  bool mirror0 = false;
+  V4 v0 = {0.0f, 0.0f, 0.0f, 0.0f};
+  const int n_rec = record_sample<kB>(P, L, p, s, seed, R, small_indent, rec, mirror0, v0);
+  bool hits = false;
+#pragma unroll (kB == kMaxBounces ? 1 : kB)
+  for (int i = 0; i < kB; ++i) hits = hits || (i < n_rec && rec[i].hit && rec[i].idx == obj);
+  // A path that misses obj carries g_shared too (pixel_sweep).
+  if (!hits) g_light = add3(g_light, g_shared);
+  V4 g_o = {0.0f, 0.0f, 0.0f, 0.0f};
+  V4 g_d = {0.0f, 0.0f, 0.0f, 0.0f};
+  V3 g_thr = {0.0f, 0.0f, 0.0f};
+#pragma unroll (kB == kMaxBounces ? 1 : kB)  // rolled: the generic instance
+  for (int i = kB - 1; i >= 0; --i) {
+    if (i >= n_rec) continue;
+    Slots c = no_slots();
+    bounce_adj<kB>(P, L, p, rec, i, i == R - 1, small_indent, g_light, g_o, g_d, g_thr, c);
+    acc.add(c);
+  }
+  b0.g_o0 = add4(b0.g_o0, g_o);
+  b0.g_thr0 = add3(b0.g_thr0, g_thr);
+  // bounce 0's direction update                             renderer.py:174-177
+  if (mirror0) {
+    b0.g_mirrored0 = add4(b0.g_mirrored0, g_d);
+  } else {
+    redirect_adj(v0, p.h0.norm, g_d, b0.g_norm0);
+  }
+  return hits;
+}
+
+// Bounce 0 (renderer.py:143-157), the primary ray and the camera, for the
+// cotangent g_result0 of bounce 0's light (every sample's light starts from
+// it) and the samples' b0. Linear in (g_result0, b0).
+template <class Acc>
+__device__ void bounce0_sweep(const float* P, const Layout& L, const Pixel& p, int view,
+                              V3 g_result0, const Bounce0Cot& b0, float small_indent, Acc& acc) {
   V4 g_d0 = {0.0f, 0.0f, 0.0f, 0.0f};
-  V4 g_focus = {0.0f, 0.0f, 0.0f, 0.0f};
+  V4 g_focus = b0.g_o0;
+  Slots c = no_slots();
   if (!p.h0.hit) {
-    if (L.env_enabled) final_light_adj(P, L, p.d0, g_result0, g, g_d0);
-    g_focus = g_o0;
+    if (L.env_enabled) final_light_adj(P, L, p.d0, g_result0, c, g_d0);
   } else {
     const Hit& h = p.h0;
     // result0 = color * glow; throughput0 = color           renderer.py:152-153
-    V3 g_color = add3(mul3s(g_result0, h.glow), g_thr0);
+    V3 g_color = add3(mul3s(g_result0, h.glow), b0.g_thr0);
     float g_glow = dot3(g_result0, h.color);
     // o0 = focus + d0 * dist + norm * small_indent          renderer.py:154
-    g_focus = g_o0;
-    g_d0 = mul4s(g_o0, h.dist);
-    float g_dist = dot4(g_o0, p.d0);
-    g_norm0 = add4(g_norm0, mul4s(g_o0, small_indent));
+    g_d0 = mul4s(b0.g_o0, h.dist);
+    float g_dist = dot4(b0.g_o0, p.d0);
+    V4 g_norm0 = add4(b0.g_norm0, mul4s(b0.g_o0, small_indent));
     // mirrored0 = reflect(d0, norm0)                        renderer.py:156
-    reflect_adj(p.d0, h.norm, g_mirrored0, g_d0, g_norm0);
-    hit_adj(P, L, p.focus, p.d0, h, g_dist, g_norm0, g_glow, g_color, g, g_focus, g_d0);
+    reflect_adj(p.d0, h.norm, b0.g_mirrored0, g_d0, g_norm0);
+    hit_adj(P, L, p.focus, p.d0, h, g_dist, g_norm0, g_glow, g_color, c, g_focus, g_d0);
   }
-  acc4(g + L.focus, g_focus);
+  acc.add(c);
 
   // d0 = a / |a|, a = vec_to_mtr + top * my + right * mx   renderer.py:119-127, vec4.py:105
   const V4 a = p.a;
@@ -366,23 +530,61 @@ __device__ void pixel_sweep(const float* P, const Layout& L, const Pixel& p, int
   const float g_inv = dot4(g_d0, a);
   const float g_len = -g_inv * inv_len * inv_len;
   const V4 g_a = add4(mul4s(g_d0, inv_len), mul4s(a, g_len / len));
-  acc4(g + L.vec_to_mtr, g_a);
   const int V = L.n_views;
   const V4 top = {P[L.top + view], P[L.top + V + view], P[L.top + 2 * V + view],
                   P[L.top + 3 * V + view]};
   const V4 right = {P[L.right + view], P[L.right + V + view], P[L.right + 2 * V + view],
                     P[L.right + 3 * V + view]};
-  g[L.top + view] += g_a.x * p.my;
-  g[L.top + V + view] += g_a.y * p.my;
-  g[L.top + 2 * V + view] += g_a.z * p.my;
-  g[L.top + 3 * V + view] += g_a.w * p.my;
-  g[L.right + view] += g_a.x * p.mx;
-  g[L.right + V + view] += g_a.y * p.mx;
-  g[L.right + 2 * V + view] += g_a.z * p.mx;
-  g[L.right + 3 * V + view] += g_a.w * p.mx;
+  acc.add(slots4(L.focus, 1, g_focus));
+  acc.add(slots4(L.vec_to_mtr, 1, g_a));
+  acc.add(slots4(L.top + view, V, mul4s(g_a, p.my)));
+  acc.add(slots4(L.right + view, V, mul4s(g_a, p.mx)));
   // mx = (scr_x - 0.5) * mtr_width; my = (0.5 - scr_y) * mtr_height
-  g[L.mtr_width] += dot4(g_a, right) * (p.scr_x - 0.5f);
-  g[L.mtr_height] += dot4(g_a, top) * (0.5f - p.scr_y);
+  acc.add(slot1(L.mtr_width, dot4(g_a, right) * (p.scr_x - 0.5f)));
+  acc.add(slot1(L.mtr_height, dot4(g_a, top) * (0.5f - p.scr_y)));
+}
+
+// Pass 2, the pixel sweep: hands to acc the parameter cotangents of the
+// pixel's sample lights, each with cotangent g_light (the cotangent of the
+// light summed over samples), and of bounce 0's light, which every sample's
+// light starts from. kB is kMainBounces, with reflections equal to it, or
+// kMaxBounces for any count up to it.
+//
+// K6 sweeps its two rows with it. The rows of a pixel whose bounce 0
+// misses primitive obj, which row b never hits (zero_map_object), trace
+// alike but for the samples whose path hits obj. So row a's sweep (P = Pa,
+// obj) sweeps a sample that misses obj with g_light + g_shared (row b's
+// cotangent: the sweep is linear in it) and one that hits it with g_light
+// alone, bounce 0 with both, and returns the mask of the samples that hit
+// obj. Row b (Pb, obj -1) then sweeps those samples ``only``, and not
+// bounce 0's light, which row a carried; or, where bounce 0 hits obj or
+// obj is -1, all of its samples and bounce 0.
+template <int kB, class Acc>
+__device__ unsigned pixel_sweep(const float* P, const Layout& L, const Pixel& p, int view,
+                                int samples, int reflections, float small_indent, uint32_t seed,
+                                V3 g_light, Acc& acc, unsigned only = 0u, int obj = -1,
+                                V3 g_shared = {0.0f, 0.0f, 0.0f}) {
+  const int R = kB == kMaxBounces ? reflections : kB;
+  unsigned hit_obj = 0;
+  Bounce0Cot b0 = {};
+  if (R > 0 && p.h0.hit) {
+    unsigned left = only;
+    for (int k = 0; k < samples; ++k) {
+      int s = k;
+      if (only != 0) {  // the mask's next sample: as many rounds as it has bits
+        if (left == 0) break;
+        s = __ffs(static_cast<int>(left)) - 1;
+        left &= left - 1;
+      }
+      if (sample_sweep<kB>(P, L, p, s, seed, R, small_indent, obj, g_light, g_shared, acc, b0)) {
+        hit_obj |= 1u << s;
+      }
+    }
+  }
+  const V3 g_result0 = only != 0 ? V3{0.0f, 0.0f, 0.0f}
+                                 : mul3s(add3(g_light, g_shared), static_cast<float>(samples));
+  bounce0_sweep(P, L, p, view, g_result0, b0, small_indent, acc);
+  return hit_obj;
 }
 
 // color = 1 - 1 / u, u = c * light + 1                     ops/sky.py:57-60
@@ -394,39 +596,26 @@ __device__ __forceinline__ V3 tone_color(V3 u) {
   return {1.0f - 1.0f / u.x, 1.0f - 1.0f / u.y, 1.0f - 1.0f / u.z};
 }
 
-// K4: loss and parameter cotangents of one pixel; adds to g and returns
-// the pixel's unscaled loss, sum over channels of (color - target)^2.
-__device__ float pixel_loss_grad(const float* P, const Layout& L, int view, int px, int py,
-                                 int width, int height, int samples, int reflections,
-                                 float small_indent, float light_coefficient, uint32_t seed,
-                                 const float* target, float* g) {
-  const Pixel p = setup_pixel(P, L, view, px, py, width, height, small_indent);
-  const V3 acc = pixel_light_sum(P, L, p, samples, reflections, small_indent, seed);
+// K4's loss of one pixel from its light summed over samples: the unscaled
+// loss, sum over channels of (color - target)^2, and its cotangent of the
+// mean light, 2 (color - t) c / u^2; every sample's light carries that
+// times 1 / samples.
+struct LossCot {
+  float loss;
+  V3 g_mean;
+};
+__device__ LossCot loss_cot(V3 sum, const float* target, float light_coefficient, int samples) {
   const float inv = 1.0f / static_cast<float>(samples);
-  const V3 light = mul3s(acc, inv);
+  const V3 light = mul3s(sum, inv);
   const V3 u = tone_denominator(light, light_coefficient);
   const V3 color = tone_color(u);
   const V3 diff = sub3(color, ld3(target));
-  const float loss = diff.x * diff.x + diff.y * diff.y + diff.z * diff.z;
-  // d loss / d acc = 2 (color - t) * c / u^2 * (1 / samples): the cotangent
-  // of every sample's light.
-  const V3 g_light = {2.0f * diff.x * light_coefficient / (u.x * u.x) * inv,
-                      2.0f * diff.y * light_coefficient / (u.y * u.y) * inv,
-                      2.0f * diff.z * light_coefficient / (u.z * u.z) * inv};
-  pixel_sweep(P, L, p, view, samples, reflections, small_indent, seed, g_light, g);
-  return loss;
-}
-
-// K5: adds to g the parameter cotangents of the pixel's MEAN light for the
-// given light cotangent cot (3 floats); light = sum / samples, so every
-// sample's light carries cot / samples (gradkernel.py:419-424).
-__device__ void pixel_light_vjp(const float* P, const Layout& L, int view, int px, int py,
-                                int width, int height, int samples, int reflections,
-                                float small_indent, uint32_t seed, const float* cot, float* g) {
-  const Pixel p = setup_pixel(P, L, view, px, py, width, height, small_indent);
-  const float inv = 1.0f / static_cast<float>(samples);
-  const V3 g_light = mul3s(ld3(cot), inv);
-  pixel_sweep(P, L, p, view, samples, reflections, small_indent, seed, g_light, g);
+  LossCot out;
+  out.loss = diff.x * diff.x + diff.y * diff.y + diff.z * diff.z;
+  out.g_mean = {2.0f * diff.x * light_coefficient / (u.x * u.x),
+                2.0f * diff.y * light_coefficient / (u.y * u.y),
+                2.0f * diff.z * light_coefficient / (u.z * u.z)};
+  return out;
 }
 
 // The static (packed slot, value) pairs that turn the params row into the
@@ -437,24 +626,38 @@ struct ZeroMap {
   float val[kMaxZeroSlots];
 };
 
-// K6: one pixel of the soft-silhouette loss. Row a is the scene (Pa), row
-// b the same scene with its object zeroed (Pb, Pa with zm applied); both
-// are traced at the same seed and blended with the pixel's coverage alpha,
-// img = alpha * color_a + (1 - alpha) * color_b (gradkernel.py:1250-1261).
-// Adds the parameter cotangents of both rows to g (row b's cotangents of
-// the zm slots are dropped: those slots are constants of row b,
-// gradkernel.py:1268-1271), sets *g_alpha to d loss / d alpha, and returns
-// the pixel's unscaled loss, sum over channels of (img - target)^2.
-__device__ float pixel_soft_loss_grad(const float* Pa, const float* Pb, const Layout& L,
-                                      const ZeroMap& zm, int view, int px, int py, int width,
-                                      int height, int samples, int reflections,
-                                      float small_indent, float light_coefficient,
-                                      uint32_t seed, const float* target, float alpha, float* g,
-                                      float* g_alpha) {
-  const Pixel pa = setup_pixel(Pa, L, view, px, py, width, height, small_indent);
-  const Pixel pb = setup_pixel(Pb, L, view, px, py, width, height, small_indent);
-  const V3 acc_a = pixel_light_sum(Pa, L, pa, samples, reflections, small_indent, seed);
-  const V3 acc_b = pixel_light_sum(Pb, L, pb, samples, reflections, small_indent, seed);
+// The sphere (as Hit.idx) that the zero map makes a guaranteed miss and
+// whose slots hold every slot of the map: it writes the sphere's radius to
+// 0 (diff.zero_object), so row b never hits it and traces as row a does
+// wherever row a misses it (pixel_sweep). -1 for any other map, whose rows
+// are swept apart. Host code: the launch computes it once.
+inline int zero_map_object(const Layout& L, const ZeroMap& zm) {
+  const int j = (zm.idx[0] - L.spheres) / kSphereFloats;
+  if (zm.idx[0] < L.spheres || j >= L.n_spheres) return -1;
+  const int base = L.spheres + kSphereFloats * j;
+  bool radius_zero = false;
+  for (int i = 0; i < zm.n; ++i) {
+    if (zm.idx[i] < base || zm.idx[i] >= base + kSphereFloats) return -1;
+    if (zm.idx[i] == base + 4) radius_zero = zm.val[i] == 0.0f;  // the last write holds
+  }
+  return radius_zero ? L.n_spaces + j : -1;
+}
+
+// K6's blend of one pixel. Row a is the scene, row b the same scene with
+// its object zeroed (the zero map applied); both are traced at the same
+// seed (pass 1 sums acc_a, acc_b) and blended with the pixel's coverage
+// alpha, img = alpha * color_a + (1 - alpha) * color_b
+// (gradkernel.py:1250-1261). Gives the pixel's unscaled loss, sum over
+// channels of (img - target)^2, d loss / d alpha, and each row's
+// cotangent of its mean light. Row b's sweep must drop its cotangents of
+// the zero map's slots: they are constants of row b
+// (gradkernel.py:1268-1271).
+struct SoftBlend {
+  float loss, g_alpha;
+  V3 g_a, g_b;
+};
+__device__ SoftBlend soft_blend(V3 acc_a, V3 acc_b, float alpha, const float* target,
+                                float light_coefficient, int samples) {
   const float inv = 1.0f / static_cast<float>(samples);
   const V3 u_a = tone_denominator(mul3s(acc_a, inv), light_coefficient);
   const V3 u_b = tone_denominator(mul3s(acc_b, inv), light_coefficient);
@@ -465,23 +668,19 @@ __device__ float pixel_soft_loss_grad(const float* Pa, const float* Pb, const La
   // img = alpha * ca + (1 - alpha) * cb                    diff.py:401
   const V3 diff = {alpha * ca.x + beta * cb.x - t.x, alpha * ca.y + beta * cb.y - t.y,
                    alpha * ca.z + beta * cb.z - t.z};
-  const float loss = diff.x * diff.x + diff.y * diff.y + diff.z * diff.z;
+  SoftBlend out;
+  out.loss = diff.x * diff.x + diff.y * diff.y + diff.z * diff.z;
   // d loss / d alpha = sum_ch 2 (img - t) (ca - cb)
-  *g_alpha = 2.0f * diff.x * (ca.x - cb.x) + 2.0f * diff.y * (ca.y - cb.y) +
-             2.0f * diff.z * (ca.z - cb.z);
-  // d loss / d acc_a = 2 (img - t) alpha c / u_a^2 / samples; row b with 1 - alpha.
-  const V3 g_a = {2.0f * diff.x * alpha * light_coefficient / (u_a.x * u_a.x) * inv,
-                  2.0f * diff.y * alpha * light_coefficient / (u_a.y * u_a.y) * inv,
-                  2.0f * diff.z * alpha * light_coefficient / (u_a.z * u_a.z) * inv};
-  const V3 g_b = {2.0f * diff.x * beta * light_coefficient / (u_b.x * u_b.x) * inv,
-                  2.0f * diff.y * beta * light_coefficient / (u_b.y * u_b.y) * inv,
-                  2.0f * diff.z * beta * light_coefficient / (u_b.z * u_b.z) * inv};
-  pixel_sweep(Pa, L, pa, view, samples, reflections, small_indent, seed, g_a, g);
-  float kept[kMaxZeroSlots];
-  for (int i = 0; i < zm.n; ++i) kept[i] = g[zm.idx[i]];
-  pixel_sweep(Pb, L, pb, view, samples, reflections, small_indent, seed, g_b, g);
-  for (int i = 0; i < zm.n; ++i) g[zm.idx[i]] = kept[i];
-  return loss;
+  out.g_alpha = 2.0f * diff.x * (ca.x - cb.x) + 2.0f * diff.y * (ca.y - cb.y) +
+                2.0f * diff.z * (ca.z - cb.z);
+  // d loss / d light_a = 2 (img - t) alpha c / u_a^2; row b with 1 - alpha.
+  out.g_a = {2.0f * diff.x * alpha * light_coefficient / (u_a.x * u_a.x),
+             2.0f * diff.y * alpha * light_coefficient / (u_a.y * u_a.y),
+             2.0f * diff.z * alpha * light_coefficient / (u_a.z * u_a.z)};
+  out.g_b = {2.0f * diff.x * beta * light_coefficient / (u_b.x * u_b.x),
+             2.0f * diff.y * beta * light_coefficient / (u_b.y * u_b.y),
+             2.0f * diff.z * beta * light_coefficient / (u_b.z * u_b.z)};
+  return out;
 }
 
 }  // namespace

@@ -1,46 +1,78 @@
 // Gradient kernels for Hopper (sm_90a) over the hand-written adjoint of
 // adjoint.cuh:
 //
-// K4, loss_grad_kernel: the masked tone-mapped MSE of a render against a
-// target, and its cotangent for every packed scene, environment and camera
-// parameter. Replaces fourd_ray_tracing_tpu/ops/pallas/gradkernel.py::
-// _loss_grad_kernel (launched by _launch). Per pixel it runs pass 1 (the
-// light, bitwise K1's), the loss and its light cotangent, then the pixel
-// sweep (adjoint.cuh pixel_loss_grad).
+// K4, the value-and-grad launch: the masked tone-mapped MSE of a render
+// against a target, and its cotangent for every packed scene, environment
+// and camera parameter. Replaces fourd_ray_tracing_tpu/ops/pallas/
+// gradkernel.py::_loss_grad_kernel (launched by _launch).
 //
-// K5, light_vjp_kernel: the VJP of the mean light for a given per-pixel
-// light cotangent, so that any torch loss over rendered light trains on
-// the kernels (diff.RenderLight, diff.render_light_pair). Replaces
-// gradkernel.py::_light_vjp_kernel (launched by _render_light_vjp_jit and,
-// with frame_params, by _render_light_vjp_multi_jit). It is the pixel
-// sweep alone: no loss, no pass 1. A launch takes F parameter rows (row
-// stride 0 for one scene, P for F same-structure scenes, as K2 does) and an
+// K5, the light-VJP launch: the VJP of the mean light for a given
+// per-pixel light cotangent, so that any torch loss over rendered light
+// trains on the kernels (diff.RenderLight, diff.render_light_pair).
+// Replaces gradkernel.py::_light_vjp_kernel (launched by
+// _render_light_vjp_jit and, with frame_params, by
+// _render_light_vjp_multi_jit). A launch takes F parameter rows (row stride
+// 0 for one scene, P for F same-structure scenes, as K2 does) and an
 // (F, V, H, W, 3) cotangent, at one seed, and returns (F, P).
 //
-// With a row offset both are K3's sharded launches
-// (sharded_loss_and_grad_pallas, sharded_render_light_vjp_pallas_multi): a
-// launch covers image rows [row0, row0 + n_rows) only, its target or
-// cotangent is that block of rows, and its sums are that block's part of
+// K6, the fused soft-silhouette value-and-grad launch: both rows of the
+// soft loss (the scene, and the same scene with one object zeroed into a
+// guaranteed miss), their blend by the per-pixel coverage alpha, the MSE
+// against a target, every packed parameter's cotangent and the cotangent
+// of alpha. Replaces gradkernel.py::_soft_loss_grad_kernel (launched by
+// _soft_launch). Like it, alpha is an input and its cotangent an output:
+// the coverage that makes alpha is plain torch outside the kernel
+// (diff.object_coverage), and autograd carries the alpha cotangent back
+// through it (diff.SoftImageLoss). All its outputs are scaled by
+// 1 / (V*H*W*3) (gradkernel.py:1448-1452).
+//
+// With a row offset all three are K3's sharded launches
+// (sharded_loss_and_grad_pallas, sharded_render_light_vjp_pallas_multi,
+// sharded_soft_loss_and_grad_pallas): a launch covers image rows
+// [row0, row0 + n_rows) only, its target, cotangent, alpha and alpha
+// cotangent are that block of rows, and its sums are that block's part of
 // the whole image's (the scale stays the global one). A thread's pixel
-// keeps its global coordinates for the math; only its reads of the target
-// and the cotangent index the block.
+// keeps its global coordinates for the math; only its reads and writes
+// index the block.
 //
-// Design. One thread per (frame or row, view, y, x) pixel; the packed
-// parameters of its frame or row sit in shared memory. Each thread holds
-// its P cotangents in a local array; the block reduces them in a fixed
-// order into one column of partials (reduce.cuh), and sum_parts_kernel sums
-// each row in a fixed order in double and applies the scale. No float
-// atomics: two launches give bitwise equal results. Padded lanes
-// (lin >= V*H*W) compute nothing and contribute zeros.
+// Design. Each launch runs a pass-1 kernel, a sweep and sum_parts_kernel,
+// one thread per pixel (and frame or row), the packed parameters in shared
+// memory:
+//   pass 1: loss_cot_kernel (K4: every frame's pass 1, the loss and the
+//           cotangent of the mean light) or soft_sum_kernel (K6: each row's
+//           light summed over samples, the two rows in row blocks, as K2
+//           runs them). Pass 1 is K1's trace (bitwise its light) at K1's
+//           occupancy. K5's cotangent is its input.
+//   sweep:  sweep_kernel (K4, K5): per (row, pixel) the re-trace of every
+//           sample with its bounce records in registers (the kMainBounces
+//           instance, loops unrolled; any other count runs the generic
+//           kMaxBounces instance, records in local memory) and the reverse
+//           sweep, each step's cotangents (one primitive's, the
+//           environment's or a camera vector's slots) added to the
+//           thread's own column of P floats in shared memory (reduce.cuh
+//           ColumnAcc). K6 sweeps its rows in two kernels: soft_row_a_kernel
+//           blends the rows' sums into the loss, alpha's cotangent and each
+//           row's light cotangent and sweeps row a; where a pixel's bounce 0
+//           misses the zeroed sphere, row b traces as row a does but for the
+//           samples whose path hits it, so row a's sweep carries row b's
+//           cotangent on the others and leaves those samples in scratch.
+//           soft_row_b_kernel then sweeps only them, or row b whole where
+//           bounce 0 hits the sphere: about half a row instead of one.
+// The blocks sum their columns, and their losses in double, in a fixed
+// order into one column of partials each, and sum_parts_kernel sums each
+// row in a fixed order in double and applies the scale: no atomics, two
+// launches give bitwise equal results. Padded threads compute nothing and
+// contribute zeros.
 //
-// What bounds them: arithmetic, as in K1, plus the pixel sweep (a second
-// trace with its reverse sweep) and the per-thread cotangent array, which
-// lives in local memory (L1-cached) because it is indexed by the hit
-// primitive. The block reduction costs 5 shuffles per parameter per thread.
-//
-// Still to do for speed (later work): register-resident bounce records, a
-// sparse per-primitive accumulation instead of the dense array, occupancy
-// tuning, and the static hints.
+// What bounds them: the trace's and the adjoint's arithmetic, at the
+// occupancy the sweeps' registers allow. ptxas keeps the records and the
+// adjoint in registers with no spill at 200-240 registers a thread, four
+// blocks of two warps a SM (asking for five blocks caps it at 168
+// registers, spills and measured slower). The columns, (P + 1) x 65 floats
+// a block (40 KB at the room's P = 154), cap P (FOURD_K4_MAX_PARAMS; above
+// 48 KB a launch opts in to more shared memory). Pass 1 runs apart: fused
+// into the sweep it ran at the sweep's occupancy and cost 1.5-2.2 ms more
+// than its own kernel's 1.0 at the bench shape (PERF.md).
 
 #include <cstddef>
 
@@ -48,76 +80,241 @@
 
 namespace {
 
-// Grid (blocks, frames). Block (x, f) writes column f * gridDim.x + x of
-// grad_parts (P rows of n_cols) and of loss_parts.
-__global__ void __launch_bounds__(kBlock)
-loss_grad_kernel(const float* __restrict__ params, const uint32_t* __restrict__ seeds, Layout L,
-                 int width, int height, int row0, int n_rows, int samples, int reflections,
-                 float small_indent,
-                 float light_coefficient, const float* __restrict__ target,
-                 float* __restrict__ grad_parts, double* __restrict__ loss_parts, int n_cols) {
+// K4's pass 1. Grid (blocks, frames): block (x, f) writes the cotangent of
+// its pixels' mean light of frame f (g_mean, (F, V, n_rows, W, 3)) and
+// column f * gridDim.x + x of loss_parts.
+__global__ void __launch_bounds__(kGradBlock)
+loss_cot_kernel(const float* __restrict__ params, const uint32_t* __restrict__ seeds, Layout L,
+                int width, int height, int row0, int n_rows, int samples, int reflections,
+                float small_indent, float light_coefficient, const float* __restrict__ target,
+                float* __restrict__ g_mean, double* __restrict__ loss_parts) {
   extern __shared__ float P[];
   for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = params[i];
   __syncthreads();
 
   const long long total = static_cast<long long>(L.n_views) * n_rows * width;
   const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float g[kMaxParams];
-  for (int k = 0; k < L.size; ++k) g[k] = 0.0f;
   float loss = 0.0f;
-  if (lin < total) {  // no early return: every lane joins the reduction
-    const int hw = n_rows * width;
-    const int view = static_cast<int>(lin / hw);
-    const int rem = static_cast<int>(lin - static_cast<long long>(view) * hw);
-    const int ly = rem / width;
-    const int px = rem - ly * width;
-    const int py = row0 + ly;
-    loss = pixel_loss_grad(P, L, view, px, py, width, height, samples, reflections,
-                           small_indent, light_coefficient, seeds[blockIdx.y], target + lin * 3,
-                           g);
+  if (lin < total) {  // no early return: every thread joins the reduction
+    const PixelIndex px = pixel_index(lin, width, row0, n_rows);
+    const Pixel p = setup_pixel(P, L, px.view, px.px, px.py, width, height, small_indent);
+    const V3 sum =
+        pixel_light_sum(P, L, p, samples, reflections, small_indent, seeds[blockIdx.y]);
+    const LossCot lc = loss_cot(sum, target + lin * 3, light_coefficient, samples);
+    loss = lc.loss;
+    float* out = g_mean + (static_cast<long long>(blockIdx.y) * total + lin) * 3;
+    out[0] = lc.g_mean.x;
+    out[1] = lc.g_mean.y;
+    out[2] = lc.g_mean.z;
   }
-  reduce_block(g, L.size, loss, grad_parts, loss_parts, n_cols,
-               static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x);
+  reduce_block(nullptr, 0, loss, nullptr, loss_parts,
+               0, static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x);
 }
 
-// Grid (blocks, rows). Block (x, f) reads params row f (at f * row_stride)
-// and cotangent row f, and writes column x of rows f*P .. f*P + P-1 of
-// grad_parts (F*P rows of n_cols = blocks).
-__global__ void __launch_bounds__(kBlock)
-light_vjp_kernel(const float* __restrict__ params, long long row_stride, uint32_t seed, Layout L,
-                 int width, int height, int row0, int n_rows, int samples, int reflections,
-                 float small_indent, const float* __restrict__ cot,
-                 float* __restrict__ grad_parts, int n_cols) {
+// K6's pass 1. Grid (blocks, 2): row r of blockIdx.y (0: params, 1: params
+// with the zero map applied) writes its pixels' light summed over samples
+// to sums, (2, V, n_rows, W, 3).
+__global__ void __launch_bounds__(kGradBlock)
+soft_sum_kernel(const float* __restrict__ params, uint32_t seed, Layout L, ZeroMap zm, int width,
+                int height, int row0, int n_rows, int samples, int reflections,
+                float small_indent, float* __restrict__ sums) {
   extern __shared__ float P[];
-  const int row = blockIdx.y;
-  for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = params[row * row_stride + i];
+  for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = params[i];
+  __syncthreads();
+  if (blockIdx.y == 1 && threadIdx.x == 0) {
+    for (int i = 0; i < zm.n; ++i) P[zm.idx[i]] = zm.val[i];
+  }
   __syncthreads();
 
   const long long total = static_cast<long long>(L.n_views) * n_rows * width;
   const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float g[kMaxParams];
-  for (int k = 0; k < L.size; ++k) g[k] = 0.0f;
-  if (lin < total) {  // no early return: every lane joins the reduction
-    const int hw = n_rows * width;
-    const int view = static_cast<int>(lin / hw);
-    const int rem = static_cast<int>(lin - static_cast<long long>(view) * hw);
-    const int ly = rem / width;
-    const int px = rem - ly * width;
-    const int py = row0 + ly;
-    pixel_light_vjp(P, L, view, px, py, width, height, samples, reflections, small_indent, seed,
-                    cot + (static_cast<long long>(row) * total + lin) * 3, g);
+  if (lin >= total) return;
+  const PixelIndex px = pixel_index(lin, width, row0, n_rows);
+  const Pixel p = setup_pixel(P, L, px.view, px.px, px.py, width, height, small_indent);
+  const V3 sum = pixel_light_sum(P, L, p, samples, reflections, small_indent, seed);
+  float* out = sums + (blockIdx.y * total + lin) * 3;
+  out[0] = sum.x;
+  out[1] = sum.y;
+  out[2] = sum.z;
+}
+
+// The sweep of K4 and K5. Grid (blocks, rows): block (x, f) takes params
+// row f (at f * row_stride), the seed seeds[f] (or ``seed`` when seeds is
+// null) and row f of the cotangent of the mean light, and writes column
+// f * col_offset + x of the (P, n_cols) partials at grad_parts +
+// f * row_offset.
+template <int kB>
+__global__ void __launch_bounds__(kGradBlock, kGradMinBlocks)
+sweep_kernel(const float* __restrict__ params, long long row_stride,
+             const uint32_t* __restrict__ seeds, uint32_t seed, Layout L, int width, int height,
+             int row0, int n_rows, int samples, int reflections, float small_indent,
+             const float* __restrict__ g_mean, float* __restrict__ grad_parts,
+             long long row_offset, int col_offset, int n_cols) {
+  extern __shared__ float smem[];
+  const GradSmem sm = grad_smem(smem, L.size);
+  const int row = blockIdx.y;
+  for (int i = threadIdx.x; i < L.size; i += blockDim.x) sm.params[i] = params[row * row_stride + i];
+  __syncthreads();
+
+  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
+  const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (lin < total) {  // no early return: every thread joins the reduction
+    const PixelIndex px = pixel_index(lin, width, row0, n_rows);
+    const Pixel p = setup_pixel(sm.params, L, px.view, px.px, px.py, width, height, small_indent);
+    const V3 g = ld3(g_mean + (static_cast<long long>(row) * total + lin) * 3);
+    ColumnAcc acc = ColumnAcc::of(sm, nullptr);
+    pixel_sweep<kB>(sm.params, L, p, px.view, samples, reflections, small_indent,
+                    seeds != nullptr ? seeds[row] : seed,
+                    mul3s(g, 1.0f / static_cast<float>(samples)), acc);
   }
-  reduce_block(g, L.size, 0.0f,
-               grad_parts + static_cast<long long>(row) * L.size * n_cols, nullptr, n_cols,
-               blockIdx.x);
+  reduce_block(sm.cols, L.size, 0.0f, grad_parts + row * row_offset, nullptr, n_cols,
+               static_cast<long long>(row) * col_offset + blockIdx.x);
+}
+
+// K6's row-b work of a pixel, as its row-a sweep leaves it in row_b: the
+// samples row b sweeps alone, or kRowBWhole for all of them with bounce 0.
+constexpr uint32_t kRowBWhole = 1u << 31;
+
+// The blend of K6's pixel lin from pass 1's sums (2, V, n_rows, W, 3).
+__device__ __forceinline__ SoftBlend blend_of(const float* __restrict__ sums, long long total,
+                                              long long lin, const float* __restrict__ alpha,
+                                              const float* __restrict__ target,
+                                              float light_coefficient, int samples) {
+  return soft_blend(ld3(sums + lin * 3), ld3(sums + (total + lin) * 3), alpha[lin],
+                    target + lin * 3, light_coefficient, samples);
+}
+
+// K6's sweep of row a (params), one thread per pixel: the blend, the loss
+// (column x of loss_parts) and alpha's cotangent, then row a's sweep
+// (adjoint.cuh pixel_sweep), which carries row b's cotangent where the
+// rows trace alike: where bounce 0 misses the zero map's sphere obj. Writes
+// row_b[lin], row b's work, and column x of the (P, n_cols) partials.
+template <int kB>
+__global__ void __launch_bounds__(kGradBlock, kGradMinBlocks)
+soft_row_a_kernel(const float* __restrict__ params, uint32_t seed, Layout L, int obj, int width,
+                  int height, int row0, int n_rows, int samples, int reflections,
+                  float small_indent, float light_coefficient, const float* __restrict__ target,
+                  const float* __restrict__ alpha, float scale, const float* __restrict__ sums,
+                  float* __restrict__ alpha_cot, uint32_t* __restrict__ row_b,
+                  float* __restrict__ grad_parts, double* __restrict__ loss_parts, int n_cols) {
+  extern __shared__ float smem[];
+  const GradSmem sm = grad_smem(smem, L.size);
+  for (int i = threadIdx.x; i < L.size; i += blockDim.x) sm.params[i] = params[i];
+  __syncthreads();
+
+  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
+  const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  float loss = 0.0f;
+  if (lin < total) {  // no early return: every thread joins the reduction
+    const PixelIndex px = pixel_index(lin, width, row0, n_rows);
+    const SoftBlend b = blend_of(sums, total, lin, alpha, target, light_coefficient, samples);
+    loss = b.loss;
+    alpha_cot[lin] = b.g_alpha * scale;
+    const float inv = 1.0f / static_cast<float>(samples);
+    const V3 g_a = mul3s(b.g_a, inv);
+    const V3 g_b = mul3s(b.g_b, inv);
+    const Pixel p = setup_pixel(sm.params, L, px.view, px.px, px.py, width, height, small_indent);
+    const bool whole = obj < 0 || (p.h0.hit && p.h0.idx == obj);
+    const V3 g_shared = whole ? V3{0.0f, 0.0f, 0.0f} : g_b;
+    ColumnAcc acc = ColumnAcc::of(sm, nullptr);
+    const unsigned alone = pixel_sweep<kB>(sm.params, L, p, px.view, samples, reflections,
+                                           small_indent, seed, g_a, acc, 0u, whole ? -1 : obj,
+                                           g_shared);
+    row_b[lin] = whole ? kRowBWhole : alone;
+  }
+  reduce_block(sm.cols, L.size, loss, grad_parts, loss_parts, n_cols, blockIdx.x);
+}
+
+// K6's sweep of row b (params with the zero map applied, its slots'
+// cotangents dropped), one thread per pixel with row-b work (row_b): the
+// samples row a's sweep left to it, with none of bounce 0's light, or all
+// of them and bounce 0. Writes column col0 + x of the partials and of
+// loss_parts (a zero: the loss is row a's).
+template <int kB>
+__global__ void __launch_bounds__(kGradBlock, kGradMinBlocks)
+soft_row_b_kernel(const float* __restrict__ params, uint32_t seed, Layout L, ZeroMap zm, int width,
+                  int height, int row0, int n_rows, int samples, int reflections,
+                  float small_indent, float light_coefficient, const float* __restrict__ target,
+                  const float* __restrict__ alpha, const float* __restrict__ sums,
+                  const uint32_t* __restrict__ row_b, float* __restrict__ grad_parts,
+                  double* __restrict__ loss_parts, int n_cols, int col0) {
+  extern __shared__ float smem[];
+  const GradSmem sm = grad_smem(smem, L.size);
+  for (int i = threadIdx.x; i < L.size; i += blockDim.x) {
+    sm.params[i] = params[i];
+    sm.skip[i] = 0;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < zm.n; ++i) {
+      sm.params[zm.idx[i]] = zm.val[i];
+      sm.skip[zm.idx[i]] = 1;
+    }
+  }
+  __syncthreads();
+
+  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
+  const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const uint32_t work = lin < total ? row_b[lin] : 0u;
+  if (work != 0) {  // no early return: every thread joins the reduction
+    const PixelIndex px = pixel_index(lin, width, row0, n_rows);
+    const SoftBlend b = blend_of(sums, total, lin, alpha, target, light_coefficient, samples);
+    const V3 g_b = mul3s(b.g_b, 1.0f / static_cast<float>(samples));
+    const Pixel p = setup_pixel(sm.params, L, px.view, px.px, px.py, width, height, small_indent);
+    ColumnAcc acc = ColumnAcc::of(sm, sm.skip);
+    pixel_sweep<kB>(sm.params, L, p, px.view, samples, reflections, small_indent, seed, g_b, acc,
+                    work == kRowBWhole ? 0u : work);
+  }
+  reduce_block(sm.cols, L.size, 0.0f, grad_parts, loss_parts, n_cols, col0 + blockIdx.x);
+}
+
+// The sweeps' instances for ``reflections`` bounces.
+using SweepFn = decltype(&sweep_kernel<kMainBounces>);
+SweepFn sweep_for(int reflections) {
+  return reflections == kMainBounces ? sweep_kernel<kMainBounces> : sweep_kernel<kMaxBounces>;
+}
+using SoftRowAFn = decltype(&soft_row_a_kernel<kMainBounces>);
+SoftRowAFn soft_row_a_for(int reflections) {
+  return reflections == kMainBounces ? soft_row_a_kernel<kMainBounces>
+                                     : soft_row_a_kernel<kMaxBounces>;
+}
+using SoftRowBFn = decltype(&soft_row_b_kernel<kMainBounces>);
+SoftRowBFn soft_row_b_for(int reflections) {
+  return reflections == kMainBounces ? soft_row_b_kernel<kMainBounces>
+                                     : soft_row_b_kernel<kMaxBounces>;
+}
+
+// The launch arguments every gradient launch checks.
+bool bad_shape(const Layout& L, int height, int row0, int n_rows, int samples,
+               int reflections) {
+  return row0 < 0 || n_rows <= 0 || row0 + n_rows > height || samples <= 0 || reflections < 0 ||
+         reflections > kMaxBounces || L.size <= 0 || L.size > kMaxParams;
+}
+
+// Launches the sweep over ``n_param_rows`` rows (see sweep_kernel); returns
+// cudaGetLastError() after it.
+int launch_sweep(const float* params, long long row_stride, int n_param_rows,
+                 const uint32_t* seeds, uint32_t seed, const Layout& L, int width, int height,
+                 int row0, int n_rows, int samples, int reflections, float small_indent,
+                 const float* g_mean, float* grad_parts, long long row_offset, int col_offset,
+                 int n_cols, cudaStream_t s) {
+  const SweepFn kernel = sweep_for(reflections);
+  const size_t smem = grad_smem_bytes(L.size, false);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(static_cast<unsigned>(pixel_blocks(L, width, n_rows)),
+            static_cast<unsigned>(n_param_rows));
+  kernel<<<grid, kGradBlock, smem, s>>>(params, row_stride, seeds, seed, L, width, height, row0,
+                                        n_rows, samples, reflections, small_indent, g_mean,
+                                        grad_parts, row_offset, col_offset, n_cols);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Columns of a gradient launch's scratch over n_rows image rows (F *
-// blocks, blocks = ceil(V*n_rows*W / kBlock)), or -1 for a shape the launch
-// refuses. K5 and K6 take it with n_frames = 1: their scratch has one
-// column per block of a row.
+// Columns of a gradient launch's partials over n_rows image rows: n_frames
+// (K4's frames, K5's 1, K6's 2 rows) times the blocks of a row,
+// ceil(V * n_rows * W / kGradBlock); or -1 for a shape the launch refuses.
 extern "C" int fourd_grad_scratch_cols(const int* layout, int width, int n_rows, int n_frames) {
   const long long blocks = pixel_blocks(layout_from(layout), width, n_rows);
   const long long cols = blocks * n_frames;
@@ -128,33 +325,33 @@ extern "C" int fourd_grad_scratch_cols(const int* layout, int width, int n_rows,
 // K4 on ``stream``: loss (1,) and grad (P,) float32, both scaled by
 // ``scale``, of image rows [row0, row0 + n_rows) of H, from params (P,)
 // float32, seeds (F,) uint32 and that block of the target (V, n_rows, W, 3)
-// float32. grad_parts (P, n_cols) float32 and loss_parts (n_cols,) float64
-// are scratch of the caller's, n_cols as fourd_grad_scratch_cols(layout,
-// width, n_rows, n_frames) gives it. Returns cudaGetLastError() after each
-// launch.
+// float32. g_mean (F, V, n_rows, W, 3) float32, grad_parts (P, n_cols)
+// float32 and loss_parts (n_cols,) float64 are scratch of the caller's,
+// n_cols as fourd_grad_scratch_cols(layout, width, n_rows, n_frames) gives
+// it. Returns cudaGetLastError() after each launch.
 extern "C" int fourd_loss_grad_launch(const float* params, const uint32_t* seeds, int n_frames,
                                       const int* layout, int width, int height, int row0,
                                       int n_rows, int samples, int reflections,
                                       float small_indent, float light_coefficient,
-                                      const float* target, float scale, float* grad_parts,
-                                      double* loss_parts, float* grad_out, float* loss_out,
-                                      void* stream) {
+                                      const float* target, float scale, float* g_mean,
+                                      float* grad_parts, double* loss_parts, float* grad_out,
+                                      float* loss_out, void* stream) {
   const Layout L = layout_from(layout);
   const int n_cols = fourd_grad_scratch_cols(layout, width, n_rows, n_frames);
-  const size_t smem = static_cast<size_t>(L.size) * sizeof(float);
-  if (n_cols < 0 || row0 < 0 || row0 + n_rows > height || samples <= 0 || reflections < 0 ||
-      reflections > kMaxBounces || L.size <= 0 || L.size > kMaxParams) {
+  if (n_cols < 0 || bad_shape(L, height, row0, n_rows, samples, reflections)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long blocks = n_cols / n_frames;
+  const int blocks = n_cols / n_frames;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n_frames));
-  loss_grad_kernel<<<grid, kBlock, smem, s>>>(params, seeds, L, width, height, row0, n_rows,
-                                              samples, reflections, small_indent,
-                                              light_coefficient, target, grad_parts, loss_parts,
-                                              n_cols);
+  loss_cot_kernel<<<dim3(blocks, n_frames), kGradBlock, L.size * sizeof(float), s>>>(
+      params, seeds, L, width, height, row0, n_rows, samples, reflections, small_indent,
+      light_coefficient, target, g_mean, loss_parts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int rc = launch_sweep(params, 0, n_frames, seeds, 0u, L, width, height, row0, n_rows,
+                              samples, reflections, small_indent, g_mean, grad_parts, 0, blocks,
+                              n_cols, s);
+  if (rc != 0) return rc;
   sum_parts_kernel<<<L.size + 1, kSumThreads, 0, s>>>(grad_parts, loss_parts, L.size, n_cols,
                                                       scale, grad_out, loss_out);
   return static_cast<int>(cudaGetLastError());
@@ -175,21 +372,103 @@ extern "C" int fourd_light_vjp_launch(const float* params, long long row_stride,
                                       float* grad_out, void* stream) {
   const Layout L = layout_from(layout);
   const int n_cols = fourd_grad_scratch_cols(layout, width, n_rows, 1);
-  const size_t smem = static_cast<size_t>(L.size) * sizeof(float);
-  if (n_cols < 0 || row0 < 0 || row0 + n_rows > height || n_params_rows <= 0 ||
-      n_params_rows > 65535 || row_stride < 0 || samples <= 0 || reflections < 0 ||
-      reflections > kMaxBounces || L.size <= 0 || L.size > kMaxParams) {
+  if (n_cols < 0 || bad_shape(L, height, row0, n_rows, samples, reflections) ||
+      n_params_rows <= 0 || n_params_rows > 65535 || row_stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(static_cast<unsigned>(n_cols), static_cast<unsigned>(n_params_rows));
-  light_vjp_kernel<<<grid, kBlock, smem, s>>>(params, row_stride, seed, L, width, height, row0,
-                                              n_rows, samples, reflections, small_indent, cot,
-                                              grad_parts, n_cols);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rc = launch_sweep(params, row_stride, n_params_rows, nullptr, seed, L, width, height,
+                              row0, n_rows, samples, reflections, small_indent, cot, grad_parts,
+                              static_cast<long long>(L.size) * n_cols, 0, n_cols, s);
+  if (rc != 0) return rc;
   const int n_sums = n_params_rows * L.size;
   sum_parts_kernel<<<n_sums, kSumThreads, 0, s>>>(grad_parts, nullptr, n_sums, n_cols, 1.0f,
                                                   grad_out, nullptr);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K6 on ``stream``: loss (1,), grad (P,) and alpha_cot (V, n_rows, W)
+// float32, all scaled by ``scale``, of image rows [row0, row0 + n_rows) of
+// H, from params (P,) float32, one seed, the zero map (n_zero slots and
+// values, host arrays), and those rows of the target (V, n_rows, W, 3) and
+// of alpha (V, n_rows, W) float32. sums (2, V, n_rows, W, 3) float32,
+// row_b (V, n_rows, W) uint32, grad_parts (P, n_cols) float32 and
+// loss_parts (n_cols,) float64 are scratch of the caller's, n_cols as
+// fourd_grad_scratch_cols(layout, width, n_rows, 2) gives it. Returns
+// cudaGetLastError() after each launch.
+extern "C" int fourd_soft_loss_grad_launch(const float* params, uint32_t seed, const int* layout,
+                                           int n_zero, const int* zero_idx,
+                                           const float* zero_val, int width, int height,
+                                           int row0, int n_rows, int samples, int reflections,
+                                           float small_indent, float light_coefficient,
+                                           const float* target, const float* alpha, float scale,
+                                           float* sums, uint32_t* row_b, float* grad_parts,
+                                           double* loss_parts, float* grad_out, float* loss_out,
+                                           float* alpha_cot, void* stream) {
+  const Layout L = layout_from(layout);
+  const int n_cols = fourd_grad_scratch_cols(layout, width, n_rows, 2);
+  if (n_cols < 0 || bad_shape(L, height, row0, n_rows, samples, reflections) || n_zero <= 0 ||
+      n_zero > kMaxZeroSlots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ZeroMap zm;
+  zm.n = n_zero;
+  for (int i = 0; i < kMaxZeroSlots; ++i) {
+    zm.idx[i] = i < n_zero ? zero_idx[i] : 0;
+    zm.val[i] = i < n_zero ? zero_val[i] : 0.0f;
+    if (zm.idx[i] < 0 || zm.idx[i] >= L.size) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // Row b's samples fit 31 bits of row_b beside kRowBWhole.
+  const int obj = samples < 32 ? zero_map_object(L, zm) : -1;
+  const int blocks = n_cols / 2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  soft_sum_kernel<<<dim3(blocks, 2), kGradBlock, L.size * sizeof(float), s>>>(
+      params, seed, L, zm, width, height, row0, n_rows, samples, reflections, small_indent, sums);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const SoftRowAFn row_a = soft_row_a_for(reflections);
+  const size_t smem_a = grad_smem_bytes(L.size, false);
+  err = allow_smem(reinterpret_cast<const void*>(row_a), smem_a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  row_a<<<blocks, kGradBlock, smem_a, s>>>(params, seed, L, obj, width, height, row0, n_rows,
+                                           samples, reflections, small_indent, light_coefficient,
+                                           target, alpha, scale, sums, alpha_cot, row_b,
+                                           grad_parts, loss_parts, n_cols);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const SoftRowBFn row_b_sweep = soft_row_b_for(reflections);
+  const size_t smem_b = grad_smem_bytes(L.size, true);
+  err = allow_smem(reinterpret_cast<const void*>(row_b_sweep), smem_b);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  row_b_sweep<<<blocks, kGradBlock, smem_b, s>>>(params, seed, L, zm, width, height, row0, n_rows,
+                                                 samples, reflections, small_indent,
+                                                 light_coefficient, target, alpha, sums, row_b,
+                                                 grad_parts, loss_parts, n_cols, blocks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_parts_kernel<<<L.size + 1, kSumThreads, 0, s>>>(grad_parts, loss_parts, L.size, n_cols,
+                                                      scale, grad_out, loss_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Resident warps per SM that the sweep of K4 and K5 (which 0), K4's pass 1
+// (1), K6's pass 1 (2), K6's row-a sweep (3) or its row-b sweep (4)
+// reaches for a launch at ``reflections`` bounces over P packed parameters
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor with the launch's block
+// and shared memory), or -1 on an error.
+extern "C" int fourd_grad_occupancy(int which, int reflections, int P) {
+  const void* kernels[] = {reinterpret_cast<const void*>(sweep_for(reflections)),
+                           reinterpret_cast<const void*>(loss_cot_kernel),
+                           reinterpret_cast<const void*>(soft_sum_kernel),
+                           reinterpret_cast<const void*>(soft_row_a_for(reflections)),
+                           reinterpret_cast<const void*>(soft_row_b_for(reflections))};
+  const size_t smem[] = {grad_smem_bytes(P, false), P * sizeof(float), P * sizeof(float),
+                         grad_smem_bytes(P, false), grad_smem_bytes(P, true)};
+  int blocks = -1;
+  if (which < 0 || which > 4 || allow_smem(kernels[which], smem[which]) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernels[which], kGradBlock,
+                                                    smem[which]) != cudaSuccess) {
+    return -1;
+  }
+  return blocks * kWarps;
 }

@@ -88,8 +88,7 @@ forward_kernel(const float* __restrict__ params, long long row_stride,
   const Pixel p = setup_pixel(P, L, view, px, py, width, height, small_indent);
   V3 acc = {0.0f, 0.0f, 0.0f};
   for (int s = 0; s < samples; ++s) {
-    acc = add3(acc, trace_sample<false, kStub>(P, L, p, s, seed, reflections, small_indent,
-                                               nullptr, nullptr, nullptr, nullptr));
+    acc = add3(acc, trace_sample<kStub>(P, L, p, s, seed, reflections, small_indent));
   }
   const float inv = 1.0f / static_cast<float>(samples);
   float* px_out = out + (static_cast<long long>(frame) * total + lin) * 3;

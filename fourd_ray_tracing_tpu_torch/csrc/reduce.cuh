@@ -1,44 +1,111 @@
-// The fixed-order reductions of the gradient kernels (K4, K5 in
-// gradkernel.cu, K6 in softkernel.cu). No float atomics: a block reduces
-// its threads' per-thread cotangent arrays in a fixed order (a warp-shuffle
-// tree, then the warps in order) into one column of a (rows, n_cols)
-// partials array, and sum_parts_kernel sums each row in a fixed order in
-// double. Two launches give bitwise equal results.
+// The accumulation and fixed-order reductions of the gradient kernels (K4,
+// K5 and K6 in gradkernel.cu; K8 in ablate.cu takes the loss reduction
+// alone). No atomics, shared memory included: two launches give
+// bitwise equal results.
+//
+// Each thread of a gradient block owns one column of P floats in shared
+// memory, laid out [P][kGradBlock + 1] so that the threads of a warp,
+// adding to the slots of any primitives, hit different banks. A sweep
+// step's Slots (adjoint.cuh) go to the thread's own column (ColumnAcc): no
+// two threads write one address, and each column's sums run in the
+// thread's own order. At the end the block sums each slot's row over its
+// threads in a fixed order into one column of a (rows, n_cols) partials
+// array, and sum_parts_kernel sums each row in a fixed order in double.
+//
+// What bounds it: per step and thread, n shared-memory read-add-writes;
+// and the room of the columns, P x (kGradBlock + 1) floats a block (40 KB
+// at the room's P = 154), which with the registers sets the resident
+// blocks, and caps P. A warp-row alternative (one row of P sums per warp,
+// the lanes of a primitive summed in lane order through
+// __match_any_sync) needs little shared memory but measured slower on
+// every gradient kernel (PERF.md): its per-group loops cost more
+// instructions than the trace.
 #pragma once
 
 #include "adjoint.cuh"
 
 namespace {
 
-constexpr int kWarps = kBlock / 32;
+// Threads a block of the gradient kernels (and of K8, whose loss reduction
+// is K4's): small blocks, so that the per-thread columns of several fit an
+// SM at once. The launch bounds ask ptxas for room for kGradMinBlocks of
+// them: at most 65536 / (kGradBlock x kGradMinBlocks) registers a thread.
+constexpr int kGradBlock = 64;
+constexpr int kGradMinBlocks = 4;
+constexpr int kWarps = kGradBlock / 32;
+constexpr int kGradPitch = kGradBlock + 1;
 constexpr int kSumThreads = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
 
-// Every thread of the block calls this with its n cotangents g and its
-// loss; writes column col of grad_parts (n rows of n_cols) and, when
-// loss_parts is not null, loss_parts[col].
-__device__ __forceinline__ void reduce_block(const float* g, int n, float loss,
+// A sweep block's dynamic shared memory: the packed params row, the
+// threads' columns and, with skip, one byte per slot (K6's row b: the zero
+// map's).
+inline size_t grad_smem_bytes(int P, bool skip) {
+  return sizeof(float) * static_cast<size_t>(1 + kGradPitch) * P +
+         (skip ? static_cast<size_t>(P) : 0);
+}
+struct GradSmem {
+  float* params;  // P
+  float* cols;    // P x kGradPitch, zeroed
+  unsigned char* skip;
+};
+__device__ __forceinline__ GradSmem grad_smem(float* base, int P) {
+  GradSmem s;
+  s.params = base;
+  s.cols = base + P;
+  s.skip = reinterpret_cast<unsigned char*>(s.cols + P * kGradPitch);
+  for (int i = threadIdx.x; i < P * kGradPitch; i += blockDim.x) s.cols[i] = 0.0f;
+  return s;
+}
+
+// The card's accumulator of adjoint.cuh: this thread's column; with skip,
+// the thread drops its values for the slots skip marks.
+struct ColumnAcc {
+  float* col;
+  const unsigned char* skip;
+
+  __device__ static ColumnAcc of(const GradSmem& s, const unsigned char* skip) {
+    return {s.cols + threadIdx.x, skip};
+  }
+
+  __device__ void add(const Slots& c) {
+    if (c.key < 0) return;
+#pragma unroll
+    for (int k = 0; k < kSlotsMax; ++k) {
+      if (k >= c.n) break;
+      const int slot = c.key + k * c.stride;
+      if (skip == nullptr || skip[slot] == 0) col[slot * kGradPitch] += c.v[k];
+    }
+  }
+};
+
+// Every thread of the block calls this after its last add, with its loss;
+// writes column col of grad_parts (n rows of n_cols: each slot's row of
+// the threads' columns, summed as four interleaved partial sums added in
+// order) and, when loss_parts is not null, loss_parts[col] (the threads'
+// losses in double: a shuffle tree per warp, then the warps in order).
+__device__ __forceinline__ void reduce_block(const float* cols, int n, float loss,
                                              float* __restrict__ grad_parts,
                                              double* __restrict__ loss_parts, int n_cols,
                                              long long col) {
-  __shared__ float red[kWarps][kMaxParams];
   __shared__ double red_loss[kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int k = 0; k < n; ++k) {
-    float v = g[k];
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp][k] = v;
-  }
   if (loss_parts != nullptr) {
     double lv = loss;
-    for (int off = 16; off > 0; off >>= 1) lv += __shfl_down_sync(0xffffffffu, lv, off);
+    for (int off = 16; off > 0; off >>= 1) lv += __shfl_down_sync(kFullMask, lv, off);
     if (lane == 0) red_loss[warp] = lv;
   }
   __syncthreads();
 
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    float s = red[0][k];
-    for (int w = 1; w < kWarps; ++w) s += red[w][k];
+    const float* row = cols + k * kGradPitch;
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int t = 0; t < kGradBlock; t += 4) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[j] += row[t + j];
+    }
+    const float s = (part[0] + part[1]) + (part[2] + part[3]);
     grad_parts[static_cast<long long>(k) * n_cols + col] = s;
   }
   if (loss_parts != nullptr && threadIdx.x == 0) {
@@ -88,12 +155,35 @@ inline Layout layout_from(const int* table) {
   return L;
 }
 
-// Blocks per frame or params row of a launch over V * n_rows * W pixels (a
-// block of n_rows image rows), or -1 for a shape the launch refuses.
+// The (view, x, global row) pixel of linear index lin of a launch over
+// n_rows image rows from row0.
+struct PixelIndex {
+  int view, px, py;
+};
+__device__ __forceinline__ PixelIndex pixel_index(long long lin, int width, int row0, int n_rows) {
+  const int hw = n_rows * width;
+  const int view = static_cast<int>(lin / hw);
+  const int rem = static_cast<int>(lin - static_cast<long long>(view) * hw);
+  const int ly = rem / width;
+  return {view, rem - ly * width, row0 + ly};
+}
+
+// Blocks of kGradBlock threads per frame or params row of a launch over
+// V * n_rows * W pixels (a block of n_rows image rows), or -1 for a shape
+// the launch refuses.
 inline long long pixel_blocks(const Layout& L, int width, int n_rows) {
   const long long total = static_cast<long long>(L.n_views) * n_rows * width;
   if (total <= 0) return -1;
-  return (total + kBlock - 1) / kBlock;
+  return (total + kGradBlock - 1) / kGradBlock;
+}
+
+// The launch's dynamic shared memory: above the 48 KB a launch gets by
+// default, the kernel is opted in to it first (the cap on P keeps it under
+// the SM's 227 KB). Returns the error of the opt-in.
+inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace

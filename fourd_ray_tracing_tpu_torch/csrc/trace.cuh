@@ -370,24 +370,12 @@ __device__ Pixel setup_pixel(const float* P, const Layout& L, int view, int px, 
   return p;
 }
 
-// One bounce after bounce 0, as the adjoint needs it: the ray, the
-// throughput before the bounce, its hit, and its scatter outcome.
-struct Bounce {
-  V4 o, d;
-  V3 throughput;
-  Hit h;
-  bool mirror;
-  V4 v;
-};
-
 // The trace of sample ``s`` from the hoisted bounce 0 (renderer.trace_rays);
-// returns its light. With kRecord, bounce 0's scatter outcome goes to
-// *mirror0 / *v0 and every later bounce to rec[0..*n_rec). kStub selects a
-// measurement variant's stubs (kStubNone: the production trace).
-template <bool kRecord, int kStub = kStubNone>
+// returns its light. kStub selects a measurement variant's stubs
+// (kStubNone: the production trace).
+template <int kStub = kStubNone>
 __device__ V3 trace_sample(const float* P, const Layout& L, const Pixel& p, int s, uint32_t seed,
-                           int reflections, float small_indent, Bounce* rec, int* n_rec,
-                           bool* mirror0, V4* v0) {
+                           int reflections, float small_indent) {
   V3 result = p.result0;
   if (reflections <= 0 || !p.h0.hit) return result;
   const bool env_on = L.env_enabled != 0;
@@ -397,17 +385,11 @@ __device__ V3 trace_sample(const float* P, const Layout& L, const Pixel& p, int 
   bool mirror;
   V4 v = {0.0f, 0.0f, 0.0f, 0.0f};
   V4 d = scatter<kStub>(p.h0.norm, p.mirrored0, p.h0.refl, bits, seed, counter, mirror, v);
-  if constexpr (kRecord) {
-    *mirror0 = mirror;
-    *v0 = v;
-    *n_rec = 0;
-  }
   V4 o = p.o0;
   V3 throughput = p.throughput0;
   bool alive = true;
   for (int b = 1; b < reflections && alive; ++b) {
     Hit h = intersect(P, L, o, d);
-    if constexpr (kRecord) rec[(*n_rec)++] = {o, d, throughput, h, false, v};
     if (env_on && !h.hit) result = add3(result, mul3(throughput, final_light(env, d)));
     alive = h.hit;
     if (alive) {
@@ -415,15 +397,10 @@ __device__ V3 trace_sample(const float* P, const Layout& L, const Pixel& p, int 
       throughput = mul3(throughput, h.color);
       o = add4(add4(o, mul4s(d, h.dist)), mul4s(h.norm, small_indent));
       d = scatter<kStub>(h.norm, reflect(d, h.norm), h.refl, bits, seed, counter, mirror, v);
-      if constexpr (kRecord) {
-        rec[*n_rec - 1].mirror = mirror;
-        rec[*n_rec - 1].v = v;
-      }
     }
   }
   if (alive) {  // the last bounce only shades
     Hit h = intersect(P, L, o, d);
-    if constexpr (kRecord) rec[(*n_rec)++] = {o, d, throughput, h, false, v};
     if (env_on && !h.hit) result = add3(result, mul3(throughput, final_light(env, d)));
     if (h.hit) result = add3(result, mul3(mul3s(h.color, h.glow), throughput));
   }

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,11 +25,16 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libfourd_kernels.so"
 # -fmad=false: no a*b+c -> FMA contraction, so the kernel rounds like its
 # plain torch version (csrc/megakernel.cu, "Numerics"). Never fast math.
-# The gradient kernels' per-thread array sizes: packed parameters
-# (cotangents) and bounce records per sample; and the slots K6's zero map
-# may overwrite. Their wrappers read them here.
-K4_MAX_PARAMS, K4_MAX_BOUNCES, K6_MAX_ZERO_SLOTS = 256, 16, 16
+# The gradient kernels' caps: packed parameters (a sweep block holds the
+# params row and its threads' columns, (P + 1) x 65 floats, and a byte a
+# slot in shared memory, which must fit the SM's 227 KB: 265 P bytes),
+# bounce records per sample (the generic instance), and the slots K6's zero
+# map may overwrite; and the bounce count of every main-path
+# configuration, which has its own unrolled instance. Their wrappers read
+# them here.
+K4_MAX_PARAMS, K4_MAX_BOUNCES, K4_MAIN_BOUNCES, K6_MAX_ZERO_SLOTS = 768, 16, 4, 16
 DEFINES = (f"-DFOURD_K4_MAX_PARAMS={K4_MAX_PARAMS}", f"-DFOURD_K4_MAX_BOUNCES={K4_MAX_BOUNCES}",
+           f"-DFOURD_K4_MAIN_BOUNCES={K4_MAIN_BOUNCES}",
            f"-DFOURD_K6_MAX_ZERO_SLOTS={K6_MAX_ZERO_SLOTS}")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -109,116 +115,147 @@ def build_log() -> str:
     return path.read_text() if path.exists() else ""
 
 
+def kernel_resources(log: str) -> dict:
+    """Each function's registers, stack frame and spill stores (bytes), by
+    mangled name, as ``-Xptxas -v`` reports them in a build log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m and name:
+            out[name].update(stack_bytes=int(m.group(1)), spill_bytes=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def load() -> ctypes.CDLL:
     """The kernels' library, built and loaded at the first call of the
     process, with argtypes set; later calls return it at once."""
     global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.fourd_forward_launch
-        fn.argtypes = [
-            ctypes.c_void_p,                  # params (P,) or (F, P) float32, device
-            ctypes.c_longlong,                # row_stride: 0, or P for (F, P) rows
-            ctypes.c_void_p,                  # seeds (F,) uint32, device
-            ctypes.c_int,                     # n_frames
-            ctypes.c_void_p,                  # layout table (int[14]), host
-            ctypes.c_int, ctypes.c_int,       # width, height
-            ctypes.c_int, ctypes.c_int,       # row0, n_rows: the launch's block of image rows
-            ctypes.c_int, ctypes.c_int,       # samples, reflections
-            ctypes.c_float,                   # small_indent
-            ctypes.c_void_p,                  # out (F, V, n_rows, W, 3) float32, device
-            ctypes.c_void_p,                  # cudaStream_t
-        ]
-        fn.restype = ctypes.c_int
-        fn = lib.fourd_forward_variant_launch
-        fn.argtypes = [ctypes.c_int, *lib.fourd_forward_launch.argtypes]  # variant, then K1's
-        fn.restype = ctypes.c_int
-        fn = lib.fourd_peak_launch
-        fn.argtypes = [
-            ctypes.c_int,                     # n_acc: 8, 16, 32 or 48
-            ctypes.c_float,                   # b
-            ctypes.c_int, ctypes.c_int,       # trips (rounds / 16), blocks
-            ctypes.c_void_p,                  # block_sums (blocks,) float32, device
-            ctypes.c_void_p,                  # cudaStream_t
-        ]
-        fn.restype = ctypes.c_int
-        fn = lib.fourd_ablate_launch
-        fn.argtypes = [
-            ctypes.c_int,                     # mode: 0 acc, 1 loss, 2 vjp
-            ctypes.c_void_p,                  # params (P,) float32, device
-            ctypes.c_uint32,                  # seed
-            ctypes.c_void_p,                  # layout table (int[14]), host
-            ctypes.c_int, ctypes.c_int,       # width, height
-            ctypes.c_int, ctypes.c_int,       # samples, reflections
-            ctypes.c_float, ctypes.c_float,   # small_indent, light_coefficient
-            ctypes.c_void_p,                  # target (V, H, W, 3) float32, device
-            ctypes.c_void_p,                  # loss_parts (n_cols,) float64, device
-            ctypes.c_void_p,                  # value out () float32, device
-            ctypes.c_void_p,                  # cudaStream_t
-        ]
-        fn.restype = ctypes.c_int
-        fn = lib.fourd_loss_grad_launch
-        fn.argtypes = [
-            ctypes.c_void_p,                  # params (P,) float32, device
-            ctypes.c_void_p,                  # seeds (F,) uint32, device
-            ctypes.c_int,                     # n_frames
-            ctypes.c_void_p,                  # layout table (int[14]), host
-            ctypes.c_int, ctypes.c_int,       # width, height
-            ctypes.c_int, ctypes.c_int,       # row0, n_rows: the launch's block of image rows
-            ctypes.c_int, ctypes.c_int,       # samples, reflections
-            ctypes.c_float, ctypes.c_float,   # small_indent, light_coefficient
-            ctypes.c_void_p,                  # target (V, n_rows, W, 3) float32, device
-            ctypes.c_float,                   # scale
-            ctypes.c_void_p,                  # grad_parts (P, n_cols) float32, device
-            ctypes.c_void_p,                  # loss_parts (n_cols,) float64, device
-            ctypes.c_void_p,                  # grad out (P,) float32, device
-            ctypes.c_void_p,                  # loss out () float32, device
-            ctypes.c_void_p,                  # cudaStream_t
-        ]
-        fn.restype = ctypes.c_int
-        fn = lib.fourd_grad_scratch_cols
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        fn.restype = ctypes.c_int
-        fn = lib.fourd_light_vjp_launch
-        fn.argtypes = [
-            ctypes.c_void_p,                  # params (P,) or (F, P) float32, device
-            ctypes.c_longlong,                # row_stride: 0, or P for (F, P) rows
-            ctypes.c_int,                     # params rows F
-            ctypes.c_uint32,                  # seed
-            ctypes.c_void_p,                  # layout table (int[14]), host
-            ctypes.c_int, ctypes.c_int,       # width, height
-            ctypes.c_int, ctypes.c_int,       # row0, n_rows: the launch's block of image rows
-            ctypes.c_int, ctypes.c_int,       # samples, reflections
-            ctypes.c_float,                   # small_indent
-            ctypes.c_void_p,                  # cot (F, V, n_rows, W, 3) float32, device
-            ctypes.c_void_p,                  # grad_parts (F*P, n_cols) float32, device
-            ctypes.c_void_p,                  # grad out (F, P) float32, device
-            ctypes.c_void_p,                  # cudaStream_t
-        ]
-        fn.restype = ctypes.c_int
-        fn = lib.fourd_soft_loss_grad_launch
-        fn.argtypes = [
-            ctypes.c_void_p,                  # params (P,) float32, device
-            ctypes.c_uint32,                  # seed
-            ctypes.c_void_p,                  # layout table (int[14]), host
-            ctypes.c_int,                     # n_zero
-            ctypes.c_void_p, ctypes.c_void_p,  # zero-map slots (int[n]), values (float[n]), host
-            ctypes.c_int, ctypes.c_int,       # width, height
-            ctypes.c_int, ctypes.c_int,       # row0, n_rows: the launch's block of image rows
-            ctypes.c_int, ctypes.c_int,       # samples, reflections
-            ctypes.c_float, ctypes.c_float,   # small_indent, light_coefficient
-            ctypes.c_void_p,                  # target (V, n_rows, W, 3) float32, device
-            ctypes.c_void_p,                  # alpha (V, n_rows, W) float32, device
-            ctypes.c_float,                   # scale
-            ctypes.c_void_p,                  # grad_parts (P, n_cols) float32, device
-            ctypes.c_void_p,                  # loss_parts (n_cols,) float64, device
-            ctypes.c_void_p,                  # grad out (P,) float32, device
-            ctypes.c_void_p,                  # loss out () float32, device
-            ctypes.c_void_p,                  # alpha_cot out (V, n_rows, W) float32, device
-            ctypes.c_void_p,                  # cudaStream_t
-        ]
-        fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib = bind(ctypes.CDLL(str(build())))
+        return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argument and result types of the library's entry points;
+    returns it."""
+    fn = lib.fourd_forward_launch
+    fn.argtypes = [
+        ctypes.c_void_p,                  # params (P,) or (F, P) float32, device
+        ctypes.c_longlong,                # row_stride: 0, or P for (F, P) rows
+        ctypes.c_void_p,                  # seeds (F,) uint32, device
+        ctypes.c_int,                     # n_frames
+        ctypes.c_void_p,                  # layout table (int[14]), host
+        ctypes.c_int, ctypes.c_int,       # width, height
+        ctypes.c_int, ctypes.c_int,       # row0, n_rows: the launch's block of image rows
+        ctypes.c_int, ctypes.c_int,       # samples, reflections
+        ctypes.c_float,                   # small_indent
+        ctypes.c_void_p,                  # out (F, V, n_rows, W, 3) float32, device
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.fourd_forward_variant_launch
+    fn.argtypes = [ctypes.c_int, *lib.fourd_forward_launch.argtypes]  # variant, then K1's
+    fn.restype = ctypes.c_int
+    fn = lib.fourd_peak_launch
+    fn.argtypes = [
+        ctypes.c_int,                     # n_acc: 8, 16, 32 or 48
+        ctypes.c_float,                   # b
+        ctypes.c_int, ctypes.c_int,       # trips (rounds / 16), blocks
+        ctypes.c_void_p,                  # block_sums (blocks,) float32, device
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.fourd_ablate_launch
+    fn.argtypes = [
+        ctypes.c_int,                     # mode: 0 acc, 1 loss, 2 vjp
+        ctypes.c_void_p,                  # params (P,) float32, device
+        ctypes.c_uint32,                  # seed
+        ctypes.c_void_p,                  # layout table (int[14]), host
+        ctypes.c_int, ctypes.c_int,       # width, height
+        ctypes.c_int, ctypes.c_int,       # samples, reflections
+        ctypes.c_float, ctypes.c_float,   # small_indent, light_coefficient
+        ctypes.c_void_p,                  # target (V, H, W, 3) float32, device
+        ctypes.c_void_p,                  # loss_parts (n_cols,) float64, device
+        ctypes.c_void_p,                  # value out () float32, device
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.fourd_loss_grad_launch
+    fn.argtypes = [
+        ctypes.c_void_p,                  # params (P,) float32, device
+        ctypes.c_void_p,                  # seeds (F,) uint32, device
+        ctypes.c_int,                     # n_frames
+        ctypes.c_void_p,                  # layout table (int[14]), host
+        ctypes.c_int, ctypes.c_int,       # width, height
+        ctypes.c_int, ctypes.c_int,       # row0, n_rows: the launch's block of image rows
+        ctypes.c_int, ctypes.c_int,       # samples, reflections
+        ctypes.c_float, ctypes.c_float,   # small_indent, light_coefficient
+        ctypes.c_void_p,                  # target (V, n_rows, W, 3) float32, device
+        ctypes.c_float,                   # scale
+        ctypes.c_void_p,                  # g_mean (F, V, n_rows, W, 3) float32, device
+        ctypes.c_void_p,                  # grad_parts (P, n_cols) float32, device
+        ctypes.c_void_p,                  # loss_parts (n_cols,) float64, device
+        ctypes.c_void_p,                  # grad out (P,) float32, device
+        ctypes.c_void_p,                  # loss out () float32, device
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.fourd_grad_scratch_cols
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    fn = lib.fourd_grad_occupancy
+    # which (0 K4's and K5's sweep, 1 K4's pass 1, 2 K6's pass 1, 3 and 4 K6's
+    # sweeps of row a and row b), bounces, P
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    fn = lib.fourd_light_vjp_launch
+    fn.argtypes = [
+        ctypes.c_void_p,                  # params (P,) or (F, P) float32, device
+        ctypes.c_longlong,                # row_stride: 0, or P for (F, P) rows
+        ctypes.c_int,                     # params rows F
+        ctypes.c_uint32,                  # seed
+        ctypes.c_void_p,                  # layout table (int[14]), host
+        ctypes.c_int, ctypes.c_int,       # width, height
+        ctypes.c_int, ctypes.c_int,       # row0, n_rows: the launch's block of image rows
+        ctypes.c_int, ctypes.c_int,       # samples, reflections
+        ctypes.c_float,                   # small_indent
+        ctypes.c_void_p,                  # cot (F, V, n_rows, W, 3) float32, device
+        ctypes.c_void_p,                  # grad_parts (F*P, n_cols) float32, device
+        ctypes.c_void_p,                  # grad out (F, P) float32, device
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.fourd_soft_loss_grad_launch
+    fn.argtypes = [
+        ctypes.c_void_p,                  # params (P,) float32, device
+        ctypes.c_uint32,                  # seed
+        ctypes.c_void_p,                  # layout table (int[14]), host
+        ctypes.c_int,                     # n_zero
+        ctypes.c_void_p, ctypes.c_void_p,  # zero-map slots (int[n]), values (float[n]), host
+        ctypes.c_int, ctypes.c_int,       # width, height
+        ctypes.c_int, ctypes.c_int,       # row0, n_rows: the launch's block of image rows
+        ctypes.c_int, ctypes.c_int,       # samples, reflections
+        ctypes.c_float, ctypes.c_float,   # small_indent, light_coefficient
+        ctypes.c_void_p,                  # target (V, n_rows, W, 3) float32, device
+        ctypes.c_void_p,                  # alpha (V, n_rows, W) float32, device
+        ctypes.c_float,                   # scale
+        ctypes.c_void_p,                  # sums (2, V, n_rows, W, 3) float32, device
+        ctypes.c_void_p,                  # row_b (V, n_rows, W) uint32, device
+        ctypes.c_void_p,                  # grad_parts (P, n_cols) float32, device
+        ctypes.c_void_p,                  # loss_parts (n_cols,) float64, device
+        ctypes.c_void_p,                  # grad out (P,) float32, device
+        ctypes.c_void_p,                  # loss out () float32, device
+        ctypes.c_void_p,                  # alpha_cot out (V, n_rows, W) float32, device
+        ctypes.c_void_p,                  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    return lib

@@ -1,5 +1,5 @@
-"""Wrappers of the gradient kernels (csrc/gradkernel.cu, csrc/softkernel.cu),
-each with its plain version.
+"""Wrappers of the gradient kernels (csrc/gradkernel.cu), each with its plain
+version.
 
 Counterpart of fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:
 
@@ -56,9 +56,10 @@ LAUNCHES = 0  # K4
 VJP_LAUNCHES = 0  # K5
 SOFT_LAUNCHES = 0  # K6
 SHARD_LAUNCHES = SHARD_VJP_LAUNCHES = SHARD_SOFT_LAUNCHES = 0  # of them, on a block of rows
-# Sizes of the kernels' per-thread arrays and K6's zero-map slots, which
-# the build passes to them.
+# The kernels' caps on packed parameters and bounces and K6's zero-map
+# slots, which the build passes to them.
 MAX_PARAMS, MAX_BOUNCES = build.K4_MAX_PARAMS, build.K4_MAX_BOUNCES
+MAIN_BOUNCES = build.K4_MAIN_BOUNCES  # the bounce count with an unrolled instance
 MAX_ZERO_SLOTS = build.K6_MAX_ZERO_SLOTS
 
 
@@ -101,10 +102,10 @@ def loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Ca
 
 
 def check_shape(lay: params.Layout, cfg: RenderConfig) -> None:
-    """Raise for what the gradient kernels' per-thread arrays cannot hold."""
+    """Raise for what the gradient kernels cannot hold."""
     if lay.size > MAX_PARAMS:
         raise ValueError(f"the gradient kernels hold at most {MAX_PARAMS} packed "
-                         f"parameters per thread; this scene and camera have {lay.size}")
+                         f"parameters in shared memory; this scene and camera have {lay.size}")
     if not 0 <= cfg.reflections_amount <= MAX_BOUNCES:
         raise ValueError(f"the gradient kernels record at most {MAX_BOUNCES} bounces "
                          f"per sample; reflections_amount is {cfg.reflections_amount}")
@@ -126,10 +127,26 @@ def _check_launch(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig, *
     check_shape(lay, cfg)
 
 
+# The kernels of the gradient launches, as fourd_grad_occupancy numbers
+# them: the sweep of K4 and K5, K4's pass 1, and K6's pass 1 and its
+# sweeps of row a and row b.
+GRAD_KERNELS = {"sweep": 0, "loss_cot": 1, "soft_sum": 2, "soft_row_a": 3, "soft_row_b": 4}
+
+
+def resident_warps(kernel: str, lay: params.Layout, cfg: RenderConfig) -> int:
+    """Resident warps per SM that ``kernel`` (a key of GRAD_KERNELS)
+    reaches at this layout and bounce count on the current card."""
+    warps = build.load().fourd_grad_occupancy(GRAD_KERNELS[kernel], cfg.reflections_amount,
+                                              lay.size)
+    if warps < 0:
+        raise RuntimeError(f"occupancy query of {kernel} failed")
+    return warps
+
+
 def _scratch_cols(lib, table, cfg: RenderConfig, n_rows: int, n_frames: int = 1) -> int:
     """Columns of a launch's (rows, n_cols) partials over ``n_rows`` image
     rows, as the library sizes them: blocks per frame or params row, times
-    ``n_frames``."""
+    ``n_frames`` (K6: its 2 rows)."""
     n_cols = lib.fourd_grad_scratch_cols(ctypes.addressof(table), cfg.width, n_rows, n_frames)
     if n_cols < 0:
         raise ValueError(f"the gradient kernels cannot launch {n_frames} frames of "
@@ -162,6 +179,7 @@ def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
     n_frames = seeds.numel()
     table = (ctypes.c_int * len(lay))(*lay)
     n_cols = _scratch_cols(lib, table, cfg, n_rows, n_frames)
+    g_mean = torch.empty((n_frames, *target.shape), dtype=torch.float32, device=device)
     grad_parts = torch.empty((lay.size, n_cols), dtype=torch.float32, device=device)
     loss_parts = torch.empty((n_cols,), dtype=torch.float64, device=device)
     grad = torch.empty((lay.size,), dtype=torch.float32, device=device)
@@ -173,8 +191,8 @@ def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
             packed.data_ptr(), seeds.data_ptr(), n_frames, ctypes.addressof(table),
             cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
             float(np.float32(cfg.small_indent)), float(np.float32(cfg.light_coefficient)),
-            target.data_ptr(), scale, grad_parts.data_ptr(), loss_parts.data_ptr(),
-            grad.data_ptr(), loss.data_ptr(), stream,
+            target.data_ptr(), scale, g_mean.data_ptr(), grad_parts.data_ptr(),
+            loss_parts.data_ptr(), grad.data_ptr(), loss.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"value-and-grad kernel launch failed: cudaError {err}")
@@ -387,11 +405,13 @@ def launch_soft_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderC
                          f"got {zero_map!r}")
     lib = build.load()
     table = (ctypes.c_int * len(lay))(*lay)
-    n_cols = _scratch_cols(lib, table, cfg, n_rows)
+    n_cols = _scratch_cols(lib, table, cfg, n_rows, n_frames=2)
     n = len(zero_map)
     slots = (ctypes.c_int * n)(*(i for i, _ in zero_map))
     values = (ctypes.c_float * n)(*(v for _, v in zero_map))
     device = packed.device
+    sums = torch.empty((2, *target.shape), dtype=torch.float32, device=device)
+    row_b = torch.empty(alpha.shape, dtype=torch.int32, device=device)
     grad_parts = torch.empty((lay.size, n_cols), dtype=torch.float32, device=device)
     loss_parts = torch.empty((n_cols,), dtype=torch.float64, device=device)
     grad = torch.empty((lay.size,), dtype=torch.float32, device=device)
@@ -405,8 +425,9 @@ def launch_soft_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderC
             ctypes.addressof(values), cfg.width, cfg.height, row0, n_rows, cfg.samples,
             cfg.reflections_amount, float(np.float32(cfg.small_indent)),
             float(np.float32(cfg.light_coefficient)), target.data_ptr(), alpha.data_ptr(), scale,
-            grad_parts.data_ptr(), loss_parts.data_ptr(), grad.data_ptr(), loss.data_ptr(),
-            alpha_cot.data_ptr(), stream,
+            sums.data_ptr(), row_b.data_ptr(), grad_parts.data_ptr(), loss_parts.data_ptr(),
+            grad.data_ptr(),
+            loss.data_ptr(), alpha_cot.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"soft value-and-grad kernel launch failed: cudaError {err}")

@@ -2,18 +2,26 @@
 autograd over the plain pipeline.
 
 The CUDA kernels themselves run only on a card (chip_smoke.py phases 8,
-11 and 12). Their per-pixel code, csrc/trace.cuh and csrc/adjoint.cuh,
-uses no CUDA API, so g++ builds it behind a small header that defines the
-CUDA keywords and bit casts it needs; these tests call each kernel's
-per-pixel function for every pixel and sum in double:
+11, 12, 14 and 17). Their per-pixel code, csrc/trace.cuh and
+csrc/adjoint.cuh, uses no CUDA API, so g++ builds it behind a small header
+that defines the CUDA keywords and bit casts it needs. The accumulator is a
+template parameter of the sweep: here a dense array of P cotangents (the
+card adds to per-thread shared-memory columns, reduce.cuh). These tests
+call each kernel's per-pixel functions for every pixel and sum in double:
 
-* K4's ``pixel_loss_grad`` (pass 1 and the pixel sweep) against
+* K4's pass 1 with ``loss_cot``, then the pixel sweep, against
   ``loss_and_grad_plain``, and its light against the plain render;
-* K5's ``pixel_light_vjp`` (the pixel sweep alone) with a seeded random
-  light cotangent against ``render_light_vjp_plain``, one row and two
-  rows (a scene and its ``zero_object`` copy);
-* K6's ``pixel_soft_loss_grad`` (both rows, the blend, both sweeps)
-  against ``render_soft_loss_and_grad_plain``.
+* K5's pixel sweep alone with a seeded random light cotangent against
+  ``render_light_vjp_plain``, one row and two rows (a scene and its
+  ``zero_object`` copy);
+* K6 split as the card splits it (pass 1 on each row, ``soft_blend`` of
+  both rows' sums, row a's sweep carrying row b's cotangent where the
+  rows trace alike, row b's sweeps where they part, without the zero
+  map's slots) against ``render_soft_loss_and_grad_plain``;
+
+each at SHAPE's 3 bounces through the generic instance of the bounce
+records, and at the main paths' count through the unrolled instance the
+card runs there (K4 through the generic one too).
 
 That holds the hand-written adjoint (every partial derivative of the
 trace) to autograd on the CPU: losses within rtol 1e-6, every gradient
@@ -55,11 +63,41 @@ SHIM = r"""
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return u; }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 """
 
 HARNESS = r"""
 #include "adjoint.cuh"
-extern "C" void host_loss_grad(const float* P, const uint32_t* seeds, int n_frames,
+
+// The host's accumulator of adjoint.cuh: a dense array of P cotangents;
+// skip marks the slots whose values are dropped (K6's row b).
+struct DenseAcc {
+  float* g;
+  const unsigned char* skip;
+  void add(const Slots& c) {
+    if (c.key < 0) return;
+    for (int k = 0; k < c.n; ++k) {
+      const int slot = c.key + k * c.stride;
+      if (skip == nullptr || skip[slot] == 0) g[slot] += c.v[k];
+    }
+  }
+};
+
+// The pixel sweep's instance: kMainBounces (reflections must equal it) or
+// the generic kMaxBounces; only, obj and g_shared as K6's rows take them.
+static unsigned sweep(bool generic, const float* P, const Layout& L, const Pixel& p, int view,
+                      int samples, int reflections, float indent, uint32_t seed, V3 g_light,
+                      DenseAcc& acc, unsigned only = 0u, int obj = -1,
+                      V3 g_shared = {0.0f, 0.0f, 0.0f}) {
+  if (generic) {
+    return pixel_sweep<kMaxBounces>(P, L, p, view, samples, reflections, indent, seed, g_light,
+                                    acc, only, obj, g_shared);
+  }
+  return pixel_sweep<kMainBounces>(P, L, p, view, samples, reflections, indent, seed, g_light,
+                                   acc, only, obj, g_shared);
+}
+
+extern "C" void host_loss_grad(int generic, const float* P, const uint32_t* seeds, int n_frames,
                                const int* layout, int width, int height, int samples,
                                int reflections, float indent, float coef, const float* target,
                                double* loss_out, double* grad_out, float* light_out) {
@@ -71,26 +109,27 @@ extern "C" void host_loss_grad(const float* P, const uint32_t* seeds, int n_fram
       const int view = lin / (height * width), rem = lin % (height * width);
       const int py = rem / width, px = rem % width;
       float g[kMaxParams] = {0.0f};
-      *loss_out += pixel_loss_grad(P, L, view, px, py, width, height, samples, reflections,
-                                   indent, coef, seeds[f], target + lin * 3, g);
-      for (int k = 0; k < L.size; ++k) grad_out[k] += g[k];
+      DenseAcc acc{g, nullptr};
       const Pixel p = setup_pixel(P, L, view, px, py, width, height, indent);
-      V3 acc = {0.0f, 0.0f, 0.0f};
-      for (int s = 0; s < samples; ++s)
-        acc = add3(acc, trace_sample<false>(P, L, p, s, seeds[f], reflections, indent, nullptr,
-                                            nullptr, nullptr, nullptr));
+      const V3 sum = pixel_light_sum(P, L, p, samples, reflections, indent, seeds[f]);
+      const LossCot lc = loss_cot(sum, target + lin * 3, coef, samples);
+      *loss_out += lc.loss;
+      sweep(generic, P, L, p, view, samples, reflections, indent, seeds[f],
+            mul3s(lc.g_mean, 1.0f / (float)samples), acc);
+      for (int k = 0; k < L.size; ++k) grad_out[k] += g[k];
       const float inv = 1.0f / (float)samples;
       float* out = light_out + (f * total + lin) * 3;
-      out[0] = acc.x * inv;
-      out[1] = acc.y * inv;
-      out[2] = acc.z * inv;
+      out[0] = sum.x * inv;
+      out[1] = sum.y * inv;
+      out[2] = sum.z * inv;
     }
   }
 }
 
-extern "C" void host_light_vjp(const float* P, int n_rows, uint32_t seed, const int* layout,
-                               int width, int height, int samples, int reflections, float indent,
-                               const float* cot, double* grad_out) {
+extern "C" void host_light_vjp(int generic, const float* P, int n_rows, uint32_t seed,
+                               const int* layout, int width, int height, int samples,
+                               int reflections, float indent, const float* cot,
+                               double* grad_out) {
   Layout L;
   memcpy(&L, layout, sizeof(int) * kLayoutInts);
   const long long total = (long long)L.n_views * height * width;
@@ -99,42 +138,88 @@ extern "C" void host_light_vjp(const float* P, int n_rows, uint32_t seed, const 
       const int view = lin / (height * width), rem = lin % (height * width);
       const int py = rem / width, px = rem % width;
       float g[kMaxParams] = {0.0f};
-      pixel_light_vjp(P + r * L.size, L, view, px, py, width, height, samples, reflections,
-                      indent, seed, cot + (r * total + lin) * 3, g);
+      DenseAcc acc{g, nullptr};
+      const float* Pr = P + r * L.size;
+      const Pixel p = setup_pixel(Pr, L, view, px, py, width, height, indent);
+      const V3 g_light = mul3s(ld3(cot + (r * total + lin) * 3), 1.0f / (float)samples);
+      sweep(generic, Pr, L, p, view, samples, reflections, indent, seed, g_light, acc);
       for (int k = 0; k < L.size; ++k) grad_out[r * L.size + k] += g[k];
     }
   }
 }
 
-extern "C" void host_soft_loss_grad(const float* P, int n_zero, const int* zero_idx,
+// K6 split as the card splits it: pass 1 on each row (soft_sum_kernel's
+// row blocks), the blend of both rows' sums, then row a's sweep
+// (soft_row_a_kernel), carrying row b's cotangent on the samples that
+// trace alike when bounce 0 misses the zero map's sphere, and row b's
+// (soft_row_b_kernel): whole where bounce 0 hits the sphere (or for a map
+// zero_map_object refuses), else the samples row a's sweep left to it;
+// row b's without the zero map's slots. paths counts the pixels whose row
+// b is swept whole and the samples row b sweeps alone.
+extern "C" void host_soft_loss_grad(int generic, const float* P, int n_zero, const int* zero_idx,
                                     const float* zero_val, const int* layout, int width,
                                     int height, int samples, int reflections, float indent,
                                     float coef, uint32_t seed, const float* target,
                                     const float* alpha, double* loss_out, double* grad_out,
-                                    float* alpha_cot_out) {
+                                    float* alpha_cot_out, long long* paths) {
   Layout L;
   memcpy(&L, layout, sizeof(int) * kLayoutInts);
+  float Pb[kMaxParams];
+  unsigned char skip[kMaxParams] = {0};
   ZeroMap zm;
   zm.n = n_zero;
-  float Pb[kMaxParams];
   for (int k = 0; k < L.size; ++k) Pb[k] = P[k];
   for (int i = 0; i < n_zero; ++i) {
     zm.idx[i] = zero_idx[i];
     zm.val[i] = zero_val[i];
     Pb[zero_idx[i]] = zero_val[i];
+    skip[zero_idx[i]] = 1;
   }
+  const int obj = samples <= 32 ? zero_map_object(L, zm) : -1;
   const long long total = (long long)L.n_views * height * width;
   for (long long lin = 0; lin < total; ++lin) {
     const int view = lin / (height * width), rem = lin % (height * width);
     const int py = rem / width, px = rem % width;
+    const Pixel pa = setup_pixel(P, L, view, px, py, width, height, indent);
+    const Pixel pb = setup_pixel(Pb, L, view, px, py, width, height, indent);
+    const V3 sum_a = pixel_light_sum(P, L, pa, samples, reflections, indent, seed);
+    const V3 sum_b = pixel_light_sum(Pb, L, pb, samples, reflections, indent, seed);
+    const SoftBlend b = soft_blend(sum_a, sum_b, alpha[lin], target + lin * 3, coef, samples);
     float g[kMaxParams] = {0.0f};
-    *loss_out += pixel_soft_loss_grad(P, Pb, L, zm, view, px, py, width, height, samples,
-                                      reflections, indent, coef, seed, target + lin * 3,
-                                      alpha[lin], g, alpha_cot_out + lin);
+    DenseAcc acc_a{g, nullptr};
+    DenseAcc acc_b{g, skip};
+    const float inv = 1.0f / (float)samples;
+    const V3 g_a = mul3s(b.g_a, inv), g_b = mul3s(b.g_b, inv);
+    const bool whole = obj < 0 || (pa.h0.hit && pa.h0.idx == obj);
+    const unsigned alone = sweep(generic, P, L, pa, view, samples, reflections, indent, seed, g_a,
+                                 acc_a, 0u, whole ? -1 : obj, whole ? V3{0.0f, 0.0f, 0.0f} : g_b);
+    if (whole) {
+      sweep(generic, Pb, L, pb, view, samples, reflections, indent, seed, g_b, acc_b);
+      paths[0] += 1;
+    } else if (alone != 0) {
+      sweep(generic, Pb, L, pb, view, samples, reflections, indent, seed, g_b, acc_b, alone);
+      paths[1] += __builtin_popcount(alone);
+    }
+    *loss_out += b.loss;
+    alpha_cot_out[lin] = b.g_alpha;
     for (int k = 0; k < L.size; ++k) grad_out[k] += g[k];
   }
 }
 """
+
+# (reflections_amount, instance) of the cases beyond SHAPE's 3 bounces,
+# which the generic instance (kMaxBounces) runs: the main paths' unrolled
+# instance at its own count (kMainBounces), and the generic one at it too.
+MAIN_BOUNCES = gradkernel.MAIN_BOUNCES
+INSTANCES = [(MAIN_BOUNCES, "main"), (MAIN_BOUNCES, "generic")]
+
+
+def config(bounces=SHAPE["reflections_amount"]):
+    return renderer.RenderConfig(**dict(SHAPE, reflections_amount=bounces))
+
+
+def is_generic(instance):
+    return ctypes.c_int(instance == "generic")
 
 
 @pytest.fixture(scope="module")
@@ -154,7 +239,7 @@ def host_lib(tmp_path_factory):
     return ctypes.CDLL(str(lib))
 
 
-def host_loss_grad(lib, scene, camera, cfg, seeds, target):
+def host_loss_grad(lib, scene, camera, cfg, seeds, target, instance="generic"):
     lay = params.layout(scene, camera)
     packed = params.pack(scene, camera).numpy()
     seeds = np.asarray(seeds, np.uint32)
@@ -162,9 +247,8 @@ def host_loss_grad(lib, scene, camera, cfg, seeds, target):
     loss, grad = ctypes.c_double(0.0), np.zeros(lay.size, np.float64)
     light = np.zeros((len(seeds), total * 3), np.float32)
     table = (ctypes.c_int * len(lay))(*lay)
-    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
-    lib.host_loss_grad(ptr(packed), ptr(seeds), ctypes.c_int(len(seeds)), table,
-                       ctypes.c_int(cfg.width), ctypes.c_int(cfg.height),
+    lib.host_loss_grad(is_generic(instance), ptr(packed), ptr(seeds), ctypes.c_int(len(seeds)),
+                       table, ctypes.c_int(cfg.width), ctypes.c_int(cfg.height),
                        ctypes.c_int(cfg.samples), ctypes.c_int(cfg.reflections_amount),
                        ctypes.c_float(cfg.small_indent), ctypes.c_float(cfg.light_coefficient),
                        ptr(target), ctypes.byref(loss), ptr(grad), ptr(light))
@@ -172,28 +256,38 @@ def host_loss_grad(lib, scene, camera, cfg, seeds, target):
     return loss.value * scale, (grad * scale).astype(np.float32), light
 
 
-@pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
-@pytest.mark.parametrize("name", sorted(library.SCENES))
-def test_host_adjoint_matches_autograd(host_lib, name, views):
-    cfg = renderer.RenderConfig(**SHAPE)
+def check_loss_grad(lib, name, views, cfg, instance):
+    """K4's pass 1, loss_cot and sweep over every pixel against autograd,
+    and its pass-1 light against the plain render."""
     scene = library.SCENES[name](CPU)
-    orient = tcam.orientation_from_angles(*tcam.CameraAngles.of(0.1, -0.2, 0.3, device=CPU), CPU)
-    camera = tcam.make_camera(Vec4.of(0.0, -2.0, 0.3, 0.1, device=CPU), orient, 1.5, 2.0, views,
-                              CPU)
+    camera = camera_of(views)
     shape = (len(views), cfg.height, cfg.width, 3) if len(views) > 1 else (cfg.height, cfg.width, 3)
     target = np.random.default_rng(4).uniform(0, 1, shape).astype(np.float32)
     seeds = np.array([0x12345678, 9], np.uint32)
-    loss, grad, light = host_loss_grad(host_lib, scene, camera, cfg, seeds, target)
+    loss, grad, light = host_loss_grad(lib, scene, camera, cfg, seeds, target, instance)
     ref_loss, ref_grad = gradkernel.loss_and_grad_plain(
         params.pack(scene, camera), scene, camera, cfg, seeds, torch.from_numpy(target))
-    ref_grad = ref_grad.numpy()
     np.testing.assert_allclose(loss, float(ref_loss), rtol=1e-6)
-    scale = np.maximum(np.abs(ref_grad), 1e-3 * np.abs(ref_grad).max() + 1e-8)
-    assert (np.abs(grad - ref_grad) / scale).max() < 1e-3
-    np.testing.assert_array_equal(grad != 0, ref_grad != 0)
+    assert_grad_close(grad, ref_grad.numpy())
     ref_light = renderer.render_light(scene, camera, cfg, seeds).numpy()
     assert_images_close(light.reshape(ref_light.shape), ref_light, atol=1e-5,
                         boundary_frac=0.02, mean_atol=0.05)
+
+
+@pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
+@pytest.mark.parametrize("name", sorted(library.SCENES))
+def test_host_adjoint_matches_autograd(host_lib, name, views):
+    """K4's per-pixel body, generic instance, at SHAPE's 3 bounces."""
+    check_loss_grad(host_lib, name, views, config(), "generic")
+
+
+@pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
+@pytest.mark.parametrize("name", sorted(library.SCENES))
+@pytest.mark.parametrize("bounces,instance", INSTANCES, ids=[i for _, i in INSTANCES])
+def test_host_adjoint_instances_match_autograd(host_lib, name, views, bounces, instance):
+    """K4's per-pixel body at the main paths' bounce count, through the
+    unrolled instance the card runs there and through the generic one."""
+    check_loss_grad(host_lib, name, views, config(bounces), instance)
 
 
 def ptr(a):
@@ -218,13 +312,7 @@ def assert_grad_close(grad, ref):
     assert np.abs(ref).max() > 0
 
 
-@pytest.mark.parametrize("rows", [1, 2], ids=["single", "two_rows"])
-@pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
-@pytest.mark.parametrize("name", sorted(library.SCENES))
-def test_host_light_vjp_matches_autograd(host_lib, name, views, rows):
-    """K5's pixel sweep with a seeded random light cotangent; two rows are
-    the scene and its zero_object copy (sphere 0), as the soft pair sends."""
-    cfg = renderer.RenderConfig(**SHAPE)
+def check_light_vjp(lib, name, views, rows, cfg, instance):
     scene = library.SCENES[name](CPU)
     camera = camera_of(views)
     scenes = [scene, diff.zero_object(scene, ("spheres", 0))][:rows]
@@ -234,28 +322,47 @@ def test_host_light_vjp_matches_autograd(host_lib, name, views, rows):
     lay = params.layout(scene, camera)
     table = (ctypes.c_int * len(lay))(*lay)
     grad = np.zeros(rows * lay.size, np.float64)
-    host_lib.host_light_vjp(ptr(packed.numpy()), ctypes.c_int(rows), ctypes.c_uint32(9), table,
-                            ctypes.c_int(cfg.width), ctypes.c_int(cfg.height),
-                            ctypes.c_int(cfg.samples), ctypes.c_int(cfg.reflections_amount),
-                            ctypes.c_float(cfg.small_indent), ptr(cot), ptr(grad))
+    lib.host_light_vjp(is_generic(instance), ptr(packed.numpy()), ctypes.c_int(rows),
+                       ctypes.c_uint32(9), table, ctypes.c_int(cfg.width),
+                       ctypes.c_int(cfg.height), ctypes.c_int(cfg.samples),
+                       ctypes.c_int(cfg.reflections_amount), ctypes.c_float(cfg.small_indent),
+                       ptr(cot), ptr(grad))
     ref = gradkernel.render_light_vjp_plain(packed, scene, camera, cfg, 9,
                                             torch.from_numpy(cot)).numpy()
     assert_grad_close(grad.astype(np.float32).reshape(rows, lay.size), ref)
 
 
+@pytest.mark.parametrize("rows", [1, 2], ids=["single", "two_rows"])
 @pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
-@pytest.mark.parametrize("name,ref", [("room_with_sphere", ("spheres", 0)),
-                                      ("sphere_plane_light", ("spheres", 1))])
-def test_host_soft_loss_grad_matches_autograd(host_lib, name, ref, views):
-    """K6's per-pixel body: both rows, the alpha blend, the loss, both
-    sweeps and the alpha cotangent, with a seeded random alpha and target."""
-    cfg = renderer.RenderConfig(**SHAPE)
+@pytest.mark.parametrize("name", sorted(library.SCENES))
+def test_host_light_vjp_matches_autograd(host_lib, name, views, rows):
+    """K5's pixel sweep (generic instance, 3 bounces) with a seeded random
+    light cotangent; two rows are the scene and its zero_object copy
+    (sphere 0), as the soft pair sends."""
+    check_light_vjp(host_lib, name, views, rows, config(), "generic")
+
+
+@pytest.mark.parametrize("rows", [1, 2], ids=["single", "two_rows"])
+@pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
+@pytest.mark.parametrize("name", sorted(library.SCENES))
+def test_host_light_vjp_main_instance_matches_autograd(host_lib, name, views, rows):
+    """K5's pixel sweep through the unrolled instance, at its bounce count."""
+    check_light_vjp(host_lib, name, views, rows, config(MAIN_BOUNCES), "main")
+
+
+def check_soft(lib, name, ref, views, cfg, instance, alpha_of, extra=()):
+    """K6's split (pass 1 on each row, the blend of both rows' sums, row
+    a's sweep carrying row b's cotangent where the rows trace alike, row
+    b's sweeps of the pixels and samples where they part, without the zero
+    map's slots) against autograd over the plain blend; ``extra`` adds
+    (slot, value) pairs to the object's zero map. Returns the gradient and
+    the counts of pixels swept apart and of samples swept on row b alone."""
     scene = library.SCENES[name](CPU)
     camera = camera_of(views)
     rng = np.random.default_rng(5)
     target = rng.uniform(0, 1, (*image_shape(views, cfg), 3)).astype(np.float32)
-    alpha = rng.uniform(0, 1, image_shape(views, cfg)).astype(np.float32)
-    zero_map = params.soft_zero_map(scene, camera, ref)
+    alpha = alpha_of(rng, image_shape(views, cfg)).astype(np.float32)
+    zero_map = [*params.soft_zero_map(scene, camera, ref), *extra]
     packed = params.pack(scene, camera)
     lay = params.layout(scene, camera)
     table = (ctypes.c_int * len(lay))(*lay)
@@ -263,15 +370,67 @@ def test_host_soft_loss_grad_matches_autograd(host_lib, name, ref, views):
     val = np.array([v for _, v in zero_map], np.float32)
     loss, grad = ctypes.c_double(0.0), np.zeros(lay.size, np.float64)
     alpha_cot = np.zeros(alpha.shape, np.float32)
-    host_lib.host_soft_loss_grad(
-        ptr(packed.numpy()), ctypes.c_int(len(idx)), ptr(idx), ptr(val), table,
-        ctypes.c_int(cfg.width), ctypes.c_int(cfg.height), ctypes.c_int(cfg.samples),
+    paths = np.zeros(2, np.int64)
+    lib.host_soft_loss_grad(
+        is_generic(instance), ptr(packed.numpy()), ctypes.c_int(len(idx)), ptr(idx), ptr(val),
+        table, ctypes.c_int(cfg.width), ctypes.c_int(cfg.height), ctypes.c_int(cfg.samples),
         ctypes.c_int(cfg.reflections_amount), ctypes.c_float(cfg.small_indent),
         ctypes.c_float(cfg.light_coefficient), ctypes.c_uint32(3), ptr(target), ptr(alpha),
-        ctypes.byref(loss), ptr(grad), ptr(alpha_cot))
+        ctypes.byref(loss), ptr(grad), ptr(alpha_cot), ptr(paths))
     scale = 1.0 / target.size
     ref_loss, ref_grad, ref_acot = gradkernel.render_soft_loss_and_grad_plain(
         packed, scene, camera, cfg, 3, torch.from_numpy(target), torch.from_numpy(alpha), zero_map)
     np.testing.assert_allclose(loss.value * scale, float(ref_loss), rtol=1e-6)
     assert_grad_close((grad * scale).astype(np.float32), ref_grad.numpy())
     assert_grad_close(alpha_cot * np.float32(scale), ref_acot.numpy())
+    return grad, paths
+
+
+SOFT_OBJECTS = [("room_with_sphere", ("spheres", 0)), ("sphere_plane_light", ("spheres", 1))]
+
+
+def pixels(views, cfg):
+    return len(views) * cfg.height * cfg.width
+
+
+@pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
+@pytest.mark.parametrize("name,ref", SOFT_OBJECTS)
+def test_host_soft_loss_grad_matches_autograd(host_lib, name, ref, views):
+    """K6's per-pixel body (generic instance, 3 bounces): both rows, the
+    alpha blend, the loss, both sweeps and the alpha cotangent, with a
+    seeded random alpha and target. The sphere's own zero map: some pixels
+    share row a's traces."""
+    _, paths = check_soft(host_lib, name, ref, views, config(), "generic",
+                          lambda rng, shape: rng.uniform(0, 1, shape))
+    assert paths[0] < pixels(views, config())
+
+
+@pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
+@pytest.mark.parametrize("name,ref", SOFT_OBJECTS)
+def test_host_soft_shared_rows_main_instance(host_lib, name, ref, views):
+    """K6 through the unrolled instance the card runs at the main paths'
+    bounce count, with the sphere's own zero map: pixels swept apart (bounce
+    0 on the sphere), pixels whose rows share row a's traces, and samples
+    that hit the sphere swept again on row b alone all occur."""
+    cfg = config(MAIN_BOUNCES)
+    _, paths = check_soft(host_lib, name, ref, views, cfg, "main",
+                          lambda rng, shape: rng.uniform(0, 1, shape))
+    assert 0 < paths[0] < pixels(views, cfg) and paths[1] > 0
+
+
+@pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
+@pytest.mark.parametrize("name,ref", SOFT_OBJECTS)
+@pytest.mark.parametrize("rows", ["both", "row_b"])
+def test_host_soft_rows_skip_zero_map(host_lib, name, ref, views, rows):
+    """K6's split through the unrolled instance with a zero map that also
+    rewrites wall 0's color, which row b's sweep does reach: row b must
+    drop its cotangents of those slots, and no pixel shares row a's traces
+    (zero_map_object refuses the map). ``row_b``: alpha 0, so the loss sees
+    row b alone and row a's sweep adds zeros."""
+    wall = params.layout(library.SCENES[name](CPU), camera_of(views)).spaces + 10
+    alpha = ((lambda rng, shape: rng.uniform(0, 1, shape)) if rows == "both"
+             else (lambda rng, shape: np.zeros(shape)))
+    grad, paths = check_soft(host_lib, name, ref, views, config(MAIN_BOUNCES), "main", alpha,
+                             extra=[(wall + k, 0.25) for k in range(3)])
+    assert np.abs(grad[wall:wall + 3]).max() > 0 or rows == "row_b"
+    assert paths[0] == pixels(views, config(MAIN_BOUNCES))

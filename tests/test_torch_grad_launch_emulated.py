@@ -1,0 +1,312 @@
+"""The gradient launches themselves (csrc/gradkernel.cu: K4, K5 and K6 with
+their pass-1 kernels, sweeps, warp schedules and fixed-order reductions),
+compiled for the host and run by a CPU stand-in for the card, against
+torch autograd over the plain pipeline.
+
+tests/test_torch_adjoint_host.py holds the per-pixel math; this file
+holds what only the kernels do: the blocks' shared memory, the per-thread
+columns and their reduction, sum_parts_kernel, and K6's split of its rows
+over its kernels (row a's sweep leaves each pixel's row-b work in scratch,
+row b's sweep takes it). EMU stands in for the CUDA runtime: a launch runs
+its blocks one after another, each block as blockDim.x std::threads;
+__shfl_*_sync, __ballot_sync and __syncthreads are barriers over the
+warp's or the block's threads, so a shuffle that not every lane of a warp
+reaches hangs (the test's timeout fails it). g++ builds every csrc/*.cu
+with the launch syntax rewritten (``k<<<g, b, s, st>>>(a)`` becomes
+``emu_launch(k, g, b, s, st, a)``), and build.bind types the entry
+points as on the card. The card's own runs are chip_smoke.py's phases 8,
+11, 12 and 14.
+"""
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from fourd_ray_tracing_tpu_torch import camera as tcam
+from fourd_ray_tracing_tpu_torch import diff
+from fourd_ray_tracing_tpu_torch.models import library, params, renderer
+from fourd_ray_tracing_tpu_torch.ops.cuda import build, gradkernel
+
+from test_torch_adjoint_host import assert_grad_close, camera_of, image_shape, ptr
+
+CPU = torch.device("cpu")
+VIEWS_1 = ("yxz",)
+# Wide enough for a warp to hold pixels whose rows part at bounce 0 and
+# pixels whose rows share row a's traces.
+SHAPE = dict(width=48, height=24, samples=4, reflections_amount=4, rng_mode="per_sample",
+             light_coefficient=0.7)
+
+EMU = r"""// A CPU stand-in for the CUDA runtime: a launch runs its blocks one after
+// another, each as blockDim.x std::threads; warp shuffles, ballots and
+// __syncthreads are barriers over the warp's or the block's threads.
+#pragma once
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+#include <stddef.h>
+#include <algorithm>
+#include <barrier>
+#include <thread>
+#include <vector>
+using std::max;
+using std::min;
+#define __device__
+#define __global__
+#define __host__
+#define __noinline__
+#define __forceinline__ inline
+#define __constant__
+#define __shared__ static
+#define __restrict__
+#define __launch_bounds__(...)
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+typedef void* cudaStream_t;
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct U3 { unsigned x, y, z; };
+inline thread_local U3 threadIdx, blockIdx;
+inline U3 blockDim, gridDim;
+inline std::vector<float> emu_smem;
+struct EmuWarp {
+  std::barrier<> bar{32};
+  uint64_t vals[32];
+};
+inline std::barrier<>* emu_block_bar;
+inline EmuWarp* emu_warps;
+inline EmuWarp& emu_warp() { return emu_warps[threadIdx.x / 32]; }
+inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
+template <class T> T emu_exchange(T v, int src, bool keep) {
+  EmuWarp& w = emu_warp();
+  const int lane = threadIdx.x & 31;
+  uint64_t u = 0;
+  memcpy(&u, &v, sizeof(T));
+  w.vals[lane] = u;
+  w.bar.arrive_and_wait();
+  T out = v;
+  if (!keep) memcpy(&out, &w.vals[src & 31], sizeof(T));
+  w.bar.arrive_and_wait();
+  return out;
+}
+template <class T> T __shfl_sync(unsigned, T v, int src) { return emu_exchange(v, src, false); }
+template <class T> T __shfl_up_sync(unsigned, T v, unsigned off) {
+  const int src = static_cast<int>(threadIdx.x & 31) - static_cast<int>(off);
+  return emu_exchange(v, src, src < 0);
+}
+template <class T> T __shfl_down_sync(unsigned, T v, unsigned off) {
+  const int src = static_cast<int>(threadIdx.x & 31) + static_cast<int>(off);
+  return emu_exchange(v, src, src > 31);
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  EmuWarp& w = emu_warp();
+  w.vals[threadIdx.x & 31] = pred != 0;
+  w.bar.arrive_and_wait();
+  unsigned bits = 0;
+  for (int l = 0; l < 32; ++l) bits |= static_cast<unsigned>(w.vals[l]) << l;
+  w.bar.arrive_and_wait();
+  return bits;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
+inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return u; }
+inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) { return cudaSuccess; }
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, const void*, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+template <class F, class... A>
+void emu_launch(F f, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... a) {
+  gridDim = {grid.x, grid.y, grid.z};
+  blockDim = {block.x, block.y, block.z};
+  const int n = static_cast<int>(block.x);
+  for (unsigned by = 0; by < grid.y; ++by) {
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      emu_smem.assign(smem / sizeof(float) + 1, 0.0f);
+      std::barrier<> bar(n);
+      std::vector<EmuWarp> warps((n + 31) / 32);
+      emu_block_bar = &bar;
+      emu_warps = warps.data();
+      std::vector<std::thread> threads;
+      for (int t = 0; t < n; ++t) {
+        threads.emplace_back([=] {
+          threadIdx = {static_cast<unsigned>(t), 0, 0};
+          blockIdx = {bx, by, 0};
+          f(a...);
+        });
+      }
+      for (auto& th : threads) th.join();
+    }
+  }
+}
+"""
+
+
+def config(**kw):
+    return renderer.RenderConfig(**dict(SHAPE, **kw))
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no g++ to build the kernels for the host")
+    work = tmp_path_factory.mktemp("grad_launch_emulated")
+    (work / "cuda_runtime.h").write_text(EMU)
+    procs = []
+    for src in sorted(build.CSRC_DIR.iterdir()):
+        text = src.read_text()
+        text = re.sub(r"extern __shared__ float (\w+)\[\];", r"float* \1 = emu_smem.data();", text)
+        text = re.sub(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\(",
+                      lambda m: f"emu_launch({m.group(1)}, {m.group(2)}, ", text, flags=re.S)
+        (work / src.name).write_text('#include "cuda_runtime.h"\n' + text)
+        if src.suffix == ".cu":
+            procs.append(subprocess.Popen(
+                [cxx, "-O2", "-std=c++20", "-ffp-contract=off", "-fPIC", "-pthread",
+                 *build.DEFINES, f"-I{work}", "-c", "-o", str(work / f"{src.stem}.o"), "-x",
+                 "c++", str(work / src.name)], stderr=subprocess.PIPE, text=True))
+    for proc in procs:
+        _, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-4000:]
+    so = work / "libemulated.so"
+    proc = subprocess.run([cxx, "-shared", "-pthread", "-o", str(so),
+                           *map(str, sorted(work.glob("*.o")))], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    return build.bind(ctypes.CDLL(str(so)))
+
+
+def layout_table(lay):
+    return (ctypes.c_int * len(lay))(*lay)
+
+
+def scratch_cols(lib, table, cfg, n_rows, n_frames=1):
+    n_cols = lib.fourd_grad_scratch_cols(ctypes.addressof(table), cfg.width, n_rows, n_frames)
+    assert n_cols > 0
+    return n_cols
+
+
+def f32(x):
+    return float(np.float32(x))
+
+
+def soft_launch(lib, packed, lay, cfg, seed, target, alpha, zero_map, rows):
+    """fourd_soft_loss_grad_launch on host arrays, as launch_soft_loss_grad
+    makes it on the card: (loss, grad, alpha cotangent)."""
+    row0, n_rows = rows
+    table = layout_table(lay)
+    n_cols = scratch_cols(lib, table, cfg, n_rows, n_frames=2)
+    slots = (ctypes.c_int * len(zero_map))(*(i for i, _ in zero_map))
+    values = (ctypes.c_float * len(zero_map))(*(v for _, v in zero_map))
+    sums = np.zeros((2, *target.shape), np.float32)
+    row_b = np.zeros(alpha.shape, np.uint32)
+    grad_parts = np.zeros((lay.size, n_cols), np.float32)
+    loss_parts = np.zeros(n_cols, np.float64)
+    grad, loss = np.zeros(lay.size, np.float32), np.zeros(1, np.float32)
+    alpha_cot = np.zeros(alpha.shape, np.float32)
+    scale = f32(1.0 / (lay.n_views * cfg.height * cfg.width * 3))
+    err = lib.fourd_soft_loss_grad_launch(
+        ptr(packed), seed, ctypes.addressof(table), len(zero_map), ctypes.addressof(slots),
+        ctypes.addressof(values), cfg.width, cfg.height, row0, n_rows, cfg.samples,
+        cfg.reflections_amount, f32(cfg.small_indent), f32(cfg.light_coefficient), ptr(target),
+        ptr(alpha), scale, ptr(sums), ptr(row_b), ptr(grad_parts), ptr(loss_parts), ptr(grad),
+        ptr(loss), ptr(alpha_cot), None)
+    assert err == 0
+    return loss[0], grad, alpha_cot
+
+
+def rows_of(x, rows, channels):
+    band = slice(rows[0], rows[0] + rows[1])
+    return np.ascontiguousarray(x[..., band, :, :] if channels else x[..., band, :])
+
+
+@pytest.mark.parametrize("name,ref,views,bounces,rows,wider", [
+    ("room_with_sphere", ("spheres", 0), VIEWS_1, 4, None, False),
+    ("room_with_sphere", ("spheres", 0), VIEWS_1, 3, None, False),
+    ("room_with_sphere", ("spheres", 0), VIEWS_1, 4, (5, 13), False),
+    ("room_with_sphere", ("spheres", 0), VIEWS_1, 4, None, True),
+    ("sphere_plane_light", ("spheres", 1), tcam.VIEWS_ALL, 4, None, False),
+], ids=["room_main", "room_generic", "room_row_block", "room_wider_zero_map", "lamp_3view"])
+def test_soft_launch_matches_autograd(lib, name, ref, views, bounces, rows, wider):
+    """K6's launch: pass 1 on both rows, then the sweep's job rounds, its
+    reduction and sum_parts, against the plain blend by autograd (loss rtol
+    1e-6, gradient and alpha cotangent the mixed-scale 1e-3 of the host
+    tests); bitwise across two launches. ``wider``: a zero map that also
+    rewrites wall 0's color, whose rows are swept apart on every pixel."""
+    cfg = config(reflections_amount=bounces)
+    scene, camera = library.SCENES[name](CPU), camera_of(views)
+    rows = rows or (0, cfg.height)
+    rng = np.random.default_rng(5)
+    target = rng.uniform(0, 1, (*image_shape(views, cfg), 3)).astype(np.float32)
+    alpha = rng.uniform(0, 1, image_shape(views, cfg)).astype(np.float32)
+    lay = params.layout(scene, camera)
+    zero_map = params.soft_zero_map(scene, camera, ref)
+    if wider:
+        zero_map = [*zero_map, *((lay.spaces + 10 + k, 0.25) for k in range(3))]
+    packed = params.pack(scene, camera).numpy()
+    block_t, block_a = rows_of(target, rows, True), rows_of(alpha, rows, False)
+    out = soft_launch(lib, packed, lay, cfg, 3, block_t, block_a, zero_map, rows)
+    again = soft_launch(lib, packed, lay, cfg, 3, block_t, block_a, zero_map, rows)
+    assert all(np.array_equal(a, b) for a, b in zip(out, again))
+    ref_loss, ref_grad, ref_acot = gradkernel.render_soft_loss_and_grad_plain(
+        torch.from_numpy(packed), scene, camera, cfg, 3, torch.from_numpy(block_t),
+        torch.from_numpy(block_a), zero_map, rows=rows)
+    np.testing.assert_allclose(out[0], float(ref_loss), rtol=1e-6)
+    assert_grad_close(out[1], ref_grad.numpy())
+    assert_grad_close(out[2], ref_acot.numpy())
+
+
+def test_loss_grad_launch_matches_autograd(lib):
+    """K4's launch over two frames (its pass-1 kernel with the loss
+    reduction, the sweep over frame rows, sum_parts) against
+    loss_and_grad_plain."""
+    cfg = config()
+    scene, camera = library.room_with_sphere(CPU), camera_of(VIEWS_1)
+    lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
+    target = np.random.default_rng(4).uniform(0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)
+    seeds = np.array([0x12345678, 9], np.uint32)
+    table = layout_table(lay)
+    n_cols = scratch_cols(lib, table, cfg, cfg.height, len(seeds))
+    g_mean = np.zeros((len(seeds), *target.shape), np.float32)
+    grad_parts = np.zeros((lay.size, n_cols), np.float32)
+    loss_parts = np.zeros(n_cols, np.float64)
+    grad, loss = np.zeros(lay.size, np.float32), np.zeros(1, np.float32)
+    err = lib.fourd_loss_grad_launch(
+        ptr(packed), ptr(seeds), len(seeds), ctypes.addressof(table), cfg.width, cfg.height, 0,
+        cfg.height, cfg.samples, cfg.reflections_amount, f32(cfg.small_indent),
+        f32(cfg.light_coefficient), ptr(target), f32(1.0 / (len(seeds) * target.size)),
+        ptr(g_mean), ptr(grad_parts), ptr(loss_parts), ptr(grad), ptr(loss), None)
+    assert err == 0
+    ref_loss, ref_grad = gradkernel.loss_and_grad_plain(
+        torch.from_numpy(packed), scene, camera, cfg, seeds, torch.from_numpy(target))
+    np.testing.assert_allclose(loss[0], float(ref_loss), rtol=1e-6)
+    assert_grad_close(grad, ref_grad.numpy())
+
+
+def test_light_vjp_launch_matches_autograd(lib):
+    """K5's launch over two params rows (the scene and its zero_object
+    copy, as the soft pair sends them) against render_light_vjp_plain."""
+    cfg = config()
+    scene, camera = library.room_with_sphere(CPU), camera_of(VIEWS_1)
+    lay = params.layout(scene, camera)
+    rows = params.stack_rows([scene, diff.zero_object(scene, ("spheres", 0))], camera).numpy()
+    cot = np.random.default_rng(7).normal(0, 1, (2, cfg.height, cfg.width, 3)).astype(np.float32)
+    table = layout_table(lay)
+    n_cols = scratch_cols(lib, table, cfg, cfg.height)
+    grad_parts = np.zeros((2 * lay.size, n_cols), np.float32)
+    grad = np.zeros((2, lay.size), np.float32)
+    err = lib.fourd_light_vjp_launch(
+        ptr(rows), lay.size, 2, 9, ctypes.addressof(table), cfg.width, cfg.height, 0, cfg.height,
+        cfg.samples, cfg.reflections_amount, f32(cfg.small_indent), ptr(cot), ptr(grad_parts),
+        ptr(grad), None)
+    assert err == 0
+    ref = gradkernel.render_light_vjp_plain(torch.from_numpy(rows), scene, camera, cfg, 9,
+                                            torch.from_numpy(cot)).numpy()
+    assert_grad_close(grad, ref)

@@ -252,13 +252,47 @@ def test_image_loss_function_has_no_cpu_route():
 
 
 def test_kernel_array_sizes_have_one_source():
-    """The gradient kernels' per-thread array sizes (and K6's zero-map
-    slots) come from the build's defines, which the wrappers read; the
-    shared adjoint header, where the kernels take them, holds no number of
-    its own."""
-    assert (tgrad.MAX_PARAMS, tgrad.MAX_BOUNCES, tgrad.MAX_ZERO_SLOTS) == (256, 16, 16)
+    """The gradient kernels' caps (packed parameters in shared memory, the
+    generic instance's bounce records, K6's zero-map slots) come from the
+    build's defines, which the wrappers read; the shared adjoint header,
+    where the kernels take them, holds no number of its own."""
+    assert (tgrad.MAX_PARAMS, tgrad.MAX_BOUNCES, tgrad.MAX_ZERO_SLOTS) == (768, 16, 16)
     assert all(flag in build.NVCC_FLAGS for flag in build.DEFINES)
     source = (build.CSRC_DIR / "adjoint.cuh").read_text()
     assert "kMaxParams = FOURD_K4_MAX_PARAMS" in source
     assert "kMaxBounces = FOURD_K4_MAX_BOUNCES" in source
+    assert "kMainBounces = FOURD_K4_MAIN_BOUNCES" in source
+    assert tgrad.MAIN_BOUNCES == 4
     assert "kMaxZeroSlots = FOURD_K6_MAX_ZERO_SLOTS" in source
+
+
+@pytest.mark.parametrize("size", [288, tgrad.MAX_PARAMS])
+def test_kernel_takes_the_hypercube_layouts(size):
+    """The cap holds the hypercube's packed vector with 3 views (288
+    floats) and everything up to itself; one more float is refused
+    (test_kernel_refuses_what_its_arrays_cannot_hold)."""
+    lay = params.layout(tlib.room_with_sphere(CPU), torch_camera())._replace(size=size)
+    tgrad.check_shape(lay, T_CFG)
+
+
+PTXAS_LOG = """== nvcc gradkernel.cu (exit 0)
+ptxas info    : Compiling entry function '_ZN1_16loss_grad_kernelILi4EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN1_16loss_grad_kernelILi4EEEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 32 bytes smem
+ptxas info    : Compiling entry function '_ZN1_16loss_grad_kernelILi16EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN1_16loss_grad_kernelILi16EEEvPKf
+    960 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 154 registers, used 1 barriers, 960 bytes cumulative stack size
+"""
+
+
+def test_kernel_resources_reads_the_ptxas_report():
+    """chip_smoke reports each gradient kernel's registers, stack and
+    spill from the build log through build.kernel_resources."""
+    res = build.kernel_resources(PTXAS_LOG)
+    assert res == {
+        "_ZN1_16loss_grad_kernelILi4EEEvPKf": dict(registers=168, stack_bytes=0, spill_bytes=0),
+        "_ZN1_16loss_grad_kernelILi16EEEvPKf": dict(registers=154, stack_bytes=960,
+                                                     spill_bytes=12),
+    }
