@@ -7,20 +7,26 @@ on any failure, or when no CUDA device is available. Phases:
 
 1. device: the card's name and power limit;
 2. build: the kernels from fourd_ray_tracing_tpu_torch/csrc; every
-   kernel's registers, stack frame and spill stores from the build log, and
-   the resident warps per SM that the gradient kernels K4, K5 and K6 reach
-   at the training shape;
+   kernel's registers, stack frame and spill stores from the build log, the
+   resident warps per SM that the gradient kernels K4, K5 and K6 reach at
+   the training shape, and those of every instance of the forward kernel K1
+   at the headline launch;
 3. kernel vs plain torch pipeline on the card, 256x144, 4 spp, 4 bounces,
-   both scenes, 1 and 3 views, a (2,) seed vector; bitwise self-consistency;
+   both scenes, 1 and 3 views, a (2,) seed vector: K1 with the static
+   hints its entry point derives against K1 without them and against the
+   plain pipeline with and without them; bitwise self-consistency;
 4. main path: RenderEngine on room_with_sphere at 1280x720, 8 spp,
-   4 bounces, per-sample RNG, step_frames(4) = one 4-frame launch, timed
-   with CUDA events;
+   4 bounces, per-sample RNG, step_frames(4) = one 4-frame launch with the
+   hints the engine derived (every launch counted hinted), timed with CUDA
+   events;
 5. the batch app on configs/properties.txt (121x75 + 2x60x37, 100 spp);
    the kernel launches of phases 4-5 are counted;
-6. the kernel alone and the plain pipeline timed at phase 4's shape, and
-   their 4 frames held against each other;
-7. the kernel against the plain pipeline on each of the app's view groups
-   (1 view at 121x75, 2 views at 60x37), with the app's own cameras;
+6. the kernel alone, hinted and unhinted, and the plain pipeline timed at
+   phase 4's shape, and their 4 frames held against each other as in
+   phase 3;
+7. the kernel against the unhinted kernel and the plain pipelines on each
+   of the app's view groups (1 view at 121x75, 2 views at 60x37), with the
+   app's own cameras and hints;
 8. the value-and-grad kernel K4 against its plain version (torch autograd
    over the plain pipeline) on the card: both scenes, 1 and 3 views,
    256x144, 4 spp, 4 bounces, a (2,) seed vector, a seeded random target;
@@ -63,14 +69,17 @@ on any failure, or when no CUDA device is available. Phases:
    (("spaces", 0): two K1 and two K5 launches per step), timed; then
    ``inverse_render --param position --impl kernel`` recovers the lamp's
    x;
-14. the row-sharded launches (K3) in one process: K1 and K2 cut into 2
-   and 4 row blocks (``parallel.mesh.row_block``) are bitwise the single
-   launch at 1280x720x8spp x4 (4 frames) and at 256x144 with 3 views; the
+14. the row-sharded launches (K3) in one process: K1 and K2 with the
+   room's hints (K2's two rows share them) against their unhinted launches;
+   cut into 2 and 4 row blocks (``parallel.mesh.row_block``) bitwise the
+   single launch at 1280x720x8spp x4 (4 frames) and at 256x144 with 3
+   views; the
    blocks of K4 (1 and 4 frames), K5 (two rows) and K6 at 1280x720x8spp x4,
    added in rank order, within ``GRAD_BOUNDS`` of the single launch, K6's
    alpha cotangent blocks bitwise its rows; each of the ``PLAIN_SPLIT``
-   blocks of K1, K2 (both shapes), K4 (1 frame), K5 and K6 held against its
-   plain version on the same rows (CHECK_BOUNDS, GRAD_BOUNDS); each
+   blocks of K1, K2 (both shapes; against both plain pipelines), K4 (1
+   frame), K5 and K6 held against its plain version on the same rows
+   (CHECK_BOUNDS, GRAD_BOUNDS); each
    block's launch and the single launch timed with CUDA events;
 15. the distributed main path: ``multihost_run`` with 2 ranks (gloo, both
    on this card; NCCL, one card each, when there are two): the sharded
@@ -92,10 +101,11 @@ on any failure, or when no CUDA device is available. Phases:
    peak's n_acc against the same at half its steps;
 17. the value-and-grad pass-budget kernel K8 against its plain version
    (acc, loss, vjp) and loss and vjp against K4's loss, at 256x144x4spp x4
-   bounces, both scenes, 1 and 3 views; K1's stub variants
+   bounces, both scenes, 1 and 3 views; K1's stub variants with the hints
    (tools/fwd_ablate.py's own functions, 8 frames a launch) against the
    plain pipeline under the same patches at 256x144 (both scenes) and at
-   fwd_ablate's 1280x720x8spp x4 (the room); then the attribution tools
+   fwd_ablate's 1280x720x8spp x4 (the room), the fold's generic instance and
+   the unhinted launch bitwise the hinted K1; then the attribution tools
    grad_ablate, train_ablate, soft_ablate and fwd_ablate at 1280x720x8spp
    x4 bounces (rounds cut, ``TOOL_ROUNDS``), each from zeroed counts, with
    every kernel launch each tool's variants must make checked; then the K8
@@ -117,8 +127,11 @@ SXM at 700 W) and the rate K7 sustained on this card in this run (phase
 16), which is what the card really offers a kernel of plain FMAs.
 
 Every forward kernel-vs-plain check holds the two within the image bounds
-of ``CHECK_BOUNDS`` and reports whether they are bitwise equal; the
-gradient kernels' checks use ``GRAD_BOUNDS``. The kernel launch counts are
+of ``CHECK_BOUNDS`` and reports whether they are bitwise equal (K1's
+summary entry lists any that was not); the gradient kernels' checks use
+``GRAD_BOUNDS``. K1's bound counts the flops of the plain pipeline with the
+static hints, the production forward's work; the unhinted count stands
+beside it. The kernel launch counts are
 set to 0 before each main path (phases 4-5: rendering; phases 9-10:
 training; phase 13: soft training; phase 15: the ranks, fresh processes,
 count their own; phase 16: the peak sweep; phase 17: each tool) and read
@@ -130,6 +143,7 @@ The line before the last is the kernels' JSON summary, the last line
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -181,6 +195,9 @@ GRAD_BOUNDS = dict(loss_rtol=1e-6, grad_mixed_rel=1e-4, minibatch_rtol=1e-5)
 # generic one) of K4 and K5 and of K6's row a and row b, and K4's and K6's
 # pass 1; the kernels each launch runs, in order; and each launch's main
 # sweep, whose resources its summary carries.
+# K1's production instance on the main path: the room's hint pattern (4
+# wall pairs, no single plane), no stub.
+K1_MAIN = r"forward_kernelILi0E\w*?TableFoldILi4ELi0EE"
 GRAD_KERNELS = {"sweep": "sweep_kernel", "loss_cot": "loss_cot_kernel",
                 "soft_sum": "soft_sum_kernel", "soft_row_a": "soft_row_a_kernel",
                 "soft_row_b": "soft_row_b_kernel"}
@@ -267,11 +284,16 @@ def cuda_ms(fn, calls: int = CALLS, repeats: int = REPEATS) -> list:
     return times
 
 
+# Whether each forward comparison of check_close was bitwise, by label.
+BITWISE = {}
+
+
 def check_close(label: str, kernel: torch.Tensor, plain: torch.Tensor) -> float:
-    """Hold a kernel result against the plain pipeline's within
-    CHECK_BOUNDS; prints the comparison and returns max |kernel - plain|."""
+    """Hold a kernel result against the plain pipeline's (or another
+    kernel's) within CHECK_BOUNDS; prints the comparison, records in
+    BITWISE whether it was bitwise and returns max |kernel - plain|."""
     assert kernel.shape == plain.shape, f"{label}: {tuple(kernel.shape)} vs {tuple(plain.shape)}"
-    bitwise = bool(torch.equal(kernel, plain))
+    bitwise = BITWISE[label] = bool(torch.equal(kernel, plain))
     a, b = kernel.cpu().numpy(), plain.cpu().numpy()
     assert np.isfinite(a).all() and np.isfinite(b).all(), f"{label}: non-finite values"
     diff = np.abs(a - b)
@@ -289,6 +311,37 @@ def camera_for(views, device):
     return cam.make_camera(Vec4.of(0.0, -2.0, 0.0, 0.0, device=device), orient, 1.5, 2.0, views, device)
 
 
+def unhinted(cfg: RenderConfig) -> RenderConfig:
+    return replace(cfg, plane_hints=None, plane_pairs=None)
+
+
+def unhinted_k1(scene, camera, cfg: RenderConfig, seeds) -> torch.Tensor:
+    """K1 without the static hints, shaped as render_light_cuda shapes its
+    light (which derives them)."""
+    words, batched = renderer.seed_words(seeds)
+    out = megakernel.launch_forward(params.pack(scene, camera), params.layout(scene, camera),
+                                    unhinted(cfg),
+                                    megakernel.seed_tensor(words, camera.top.x.device))
+    out = out[:, 0] if camera.top.x.dim() == 0 else out
+    return out if batched else out[0]
+
+
+def check_hinted(label: str, scene, camera, hinted: torch.Tensor, cfg: RenderConfig, seeds,
+                 rows=slice(None), unhinted_kernel=None) -> float:
+    """The hinted K1's light against the unhinted K1's (``unhinted_kernel``,
+    launched here by default) and both plain pipelines, hinted (``cfg``'s
+    hints) and not, each within CHECK_BOUNDS (bitwise so far). Returns the
+    largest difference."""
+    assert cfg.plane_hints is not None, f"{label}: no hints to hold"
+    if unhinted_kernel is None:
+        unhinted_kernel = unhinted_k1(scene, camera, cfg, seeds)
+    plain_h = renderer.render_light(scene, camera, cfg, seeds, rows)
+    plain_u = renderer.render_light(scene, camera, unhinted(cfg), seeds, rows)
+    return max(check_close(f"{label} hinted K1 vs unhinted K1", hinted, unhinted_kernel),
+               check_close(f"{label} hinted K1 vs hinted plain", hinted, plain_h),
+               check_close(f"{label} hinted K1 vs unhinted plain", hinted, plain_u))
+
+
 def check_kernel_against_plain(device) -> float:
     """Phase 3; returns the largest |kernel - plain| light difference."""
     cfg = RenderConfig(width=256, height=144, samples=4, reflections_amount=4, rng_mode="per_sample")
@@ -296,18 +349,50 @@ def check_kernel_against_plain(device) -> float:
     worst = 0.0
     for name in sorted(library.SCENES):
         scene = library.SCENES[name](device)
+        hinted = megakernel.with_hints(scene, cfg)
         for views in (("yxz",), cam.VIEWS_ALL):
             camera = camera_for(views, device)
+            before = megakernel.HINTED_LAUNCHES
             out = megakernel.render_light_cuda(scene, camera, cfg, seeds)
+            assert megakernel.HINTED_LAUNCHES == before + 1, f"{name}: the launch ran no hints"
             again = megakernel.render_light_cuda(scene, camera, cfg, seeds)
-            plain = renderer.render_light(scene, camera, cfg, seeds)
             torch.cuda.synchronize()
             assert torch.equal(out, again), f"{name} {views}: two launches differ"
             for k, s in enumerate(seeds):
                 single = megakernel.render_light_cuda(scene, camera, cfg, int(s))
                 assert torch.equal(out[k], single), f"{name} {views}: frame {k} != scalar-seed launch"
-            worst = max(worst, check_close(f"{name} views={len(views)}", out, plain))
+            worst = max(worst, check_hinted(f"{name} views={len(views)}", scene, camera, out,
+                                            hinted, seeds))
     return worst
+
+
+def short_k1(name: str) -> str:
+    """A K1 instance's mangled name as ``stub S fold (pairs, singles)``
+    (-1: read from the table; -2: every single plane all live)."""
+    m = re.search(r"forward_kernelILi(\d+)E\w*?TableFoldILi(n?)(\d+)ELi(n?)(\d+)E", name)
+    if m is None:
+        return name
+    pairs = -int(m.group(3)) if m.group(2) else int(m.group(3))
+    singles = -int(m.group(5)) if m.group(4) else int(m.group(5))
+    return f"stub {m.group(1)} fold ({pairs}, {singles})"
+
+
+def k1_resources(device, lib_path: Path) -> dict:
+    """Phase 2: the registers, stack frame and spill stores of every K1
+    instance (the build log) and the resident warps per SM of each at the
+    headline launch (the room's hints; build.resident_warps). Returns them
+    by instance, and the room's production instance's as "main"."""
+    res = {n: r for n, r in build.kernel_resources(build.build_log()).items()
+           if "forward_kernel" in n and r}
+    scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
+    threads, smem = megakernel.launch_shape(scene, params.layout(scene, camera))
+    warps = build.resident_warps(lib_path, {"forward_kernel": (threads, smem)})
+    out = {n: {**r, "resident_warps_per_sm": warps.get(n)} for n, r in res.items()}
+    main = [r for n, r in out.items() if re.search(K1_MAIN, n)]
+    assert len(main) == 1 and main[0]["resident_warps_per_sm"], (K1_MAIN, list(out))
+    print(json.dumps({"k1_instances": out, "block_threads": threads, "smem_bytes": smem}),
+          flush=True)
+    return {"main": main[0], "instances": out, "block_threads": threads, "smem_bytes": smem}
 
 
 def main_path(device):
@@ -318,12 +403,15 @@ def main_path(device):
         scene, RenderConfig(**HEADLINE), Vec4.of(0.0, -2.0, 0.0, 0.0, device=device),
         cam.CameraAngles.of(0.0, 0.0, 0.0, device=device), device=device, deterministic=True,
     )
-    before = megakernel.LAUNCHES
+    assert engine.cfg.plane_pairs is not None, "the engine derived no wall pairs"
+    before = megakernel.LAUNCHES, megakernel.HINTED_LAUNCHES
     engine.step_frames(FRAMES_PER_LAUNCH)  # warm-up launch
     torch.cuda.synchronize()
-    assert megakernel.LAUNCHES == before + 1, "step_frames(4) must be one kernel launch"
+    assert megakernel.LAUNCHES == before[0] + 1, "step_frames(4) must be one kernel launch"
     engine_ms = cuda_ms(lambda: engine.step_frames(FRAMES_PER_LAUNCH))
-    assert megakernel.LAUNCHES == before + 1 + CALLS * REPEATS
+    assert megakernel.LAUNCHES == before[0] + 1 + CALLS * REPEATS
+    assert megakernel.HINTED_LAUNCHES - before[1] == megakernel.LAUNCHES - before[0], \
+        "an engine step ran no hints"
     img = engine.accum
     assert img.shape == (720, 1280, 3) and bool(torch.isfinite(img).all())
     assert float(img.std()) > 0.0, "the headline image is constant"
@@ -331,22 +419,27 @@ def main_path(device):
 
 
 def time_kernel_and_plain(engine):
-    """Phase 6: the kernel alone on prepacked inputs, and the plain
-    pipeline once, on the same 4 frames of the headline shape; the two
-    results are held against each other. Returns (kernel ms, plain ms,
-    max |kernel - plain|)."""
+    """Phase 6: the kernel alone on prepacked inputs, with the engine's
+    hints and without, and the plain pipeline once, on the same 4 frames
+    of the headline shape; the hinted kernel is held against the unhinted
+    one and both plain pipelines. Returns (hinted kernel ms, unhinted
+    kernel ms, hinted plain ms, max |kernel - plain|)."""
     scene, cfg = engine.scene, engine.cfg
     camera = engine.groups[0].camera(engine)
     packed, lay = params.pack(scene, camera), params.layout(scene, camera)
     seed_words = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=engine.device)
     out = megakernel.launch_forward(packed, lay, cfg, seed_words)[:, 0]
+    out_u = megakernel.launch_forward(packed, lay, unhinted(cfg), seed_words)[:, 0]
     kernel_ms = cuda_ms(lambda: megakernel.launch_forward(packed, lay, cfg, seed_words))
+    unhinted_ms = cuda_ms(lambda: megakernel.launch_forward(packed, lay, unhinted(cfg), seed_words))
     renderer.render_light(scene, camera, cfg, 1)  # warms the allocator at this shape
     plain = []
     plain_ms = cuda_ms(lambda: plain.append(renderer.render_light(
         scene, camera, cfg, np.arange(1, 5, dtype=np.uint32))), calls=1, repeats=1)[0]
-    err = check_close("room headline 4 frames", out, plain[0])
-    return kernel_ms, plain_ms, err
+    del plain
+    err = check_hinted("room headline 4 frames", scene, camera, out, cfg,
+                       np.arange(1, 5, dtype=np.uint32), unhinted_kernel=out_u)
+    return kernel_ms, unhinted_ms, plain_ms, err
 
 
 def check_app_groups(device) -> float:
@@ -359,9 +452,8 @@ def check_app_groups(device) -> float:
     for g in engine.groups:
         camera = g.camera(engine)
         out = megakernel.render_light_cuda(engine.scene, camera, g.cfg, seeds)
-        plain = renderer.render_light(engine.scene, camera, g.cfg, seeds)
         label = f"app group {g.cfg.width}x{g.cfg.height} views={','.join(g.views)}"
-        worst = max(worst, check_close(label, out, plain))
+        worst = max(worst, check_hinted(label, engine.scene, camera, out, g.cfg, seeds))
     return worst
 
 
@@ -560,6 +652,7 @@ def run_app() -> None:
 
 def reset_counts() -> None:
     megakernel.LAUNCHES = megakernel.ROW_LAUNCHES = megakernel.SHARD_LAUNCHES = 0
+    megakernel.HINTED_LAUNCHES = 0
     megakernel.VARIANT_LAUNCHES = k7.LAUNCHES = ablate.LAUNCHES = 0
     gradkernel.LAUNCHES = gradkernel.VJP_LAUNCHES = gradkernel.SOFT_LAUNCHES = 0
     gradkernel.SHARD_LAUNCHES = gradkernel.SHARD_VJP_LAUNCHES = gradkernel.SHARD_SOFT_LAUNCHES = 0
@@ -868,7 +961,8 @@ def bound(flops: float, nbytes: float) -> dict:
 
 def kernel_bounds(device) -> dict:
     """Each kernel's bound at the shape its summary time was taken: K1 at
-    the headline 4-frame launch, K4, K5 (one row), K6 and K8 at TRAIN. The
+    the headline 4-frame launch (hinted, and unhinted beside it), K4, K5
+    (one row), K6 and K8 at TRAIN. The
     flops are its plain version's over the first BOUND_ROWS rows (K4, K5
     and K6: forward and autograd backward), counted here and scaled to the
     image's rows; the plain versions are dense, so masked lanes count."""
@@ -885,8 +979,10 @@ def kernel_bounds(device) -> dict:
     ref = SOFT_REFS["room_with_sphere"]
     alpha = diff.object_coverage(scene, ref, camera, cfg, SOFT_EDGE).detach()[:BOUND_ROWS]
     zero_map = params.soft_zero_map(scene, camera, ref)
-    f1 = count_flops(renderer.render_light, scene, camera, head, frames,
-                     slice(0, BOUND_ROWS))[1]
+    f1 = count_flops(renderer.render_light, scene, camera, megakernel.with_hints(scene, head),
+                     frames, slice(0, BOUND_ROWS))[1]
+    f1_unhinted = count_flops(renderer.render_light, scene, camera, head, frames,
+                              slice(0, BOUND_ROWS))[1]
     f4 = count_flops(gradkernel.loss_and_grad_plain, packed, scene, camera, cfg, [1], block,
                      rows=rows)[1]
     f5 = count_flops(gradkernel.render_light_vjp_plain, packed, scene, camera, cfg, 1, block,
@@ -906,7 +1002,10 @@ def kernel_bounds(device) -> dict:
                                          rows)[1] * scale,
                              4 * (p + 1 + (0 if mode == "acc" else pixels * 3)))
                  for mode in ablate.MODES}
+    # K1's bound counts the hinted plain version's flops, the production
+    # forward's work; the unhinted count beside it.
     out["k1"]["flops_per_ray"] = f1 * scale / (rays * FRAMES_PER_LAUNCH)
+    out["k1"]["unhinted"] = bound(f1_unhinted * scale, out["k1"]["bytes"])
     for k in ("k4", "k5", "k6"):
         out[k]["flops_per_ray"] = out[k]["flops"] / rays
     print(json.dumps({"bounds": out, "peaks": PEAKS}), flush=True)
@@ -947,16 +1046,24 @@ def check_row_shards(device) -> dict:
     sum_errs = {"k1": 0.0, "k4": 0.0, "k5": 0.0, "k6": 0.0}
     block_errs = dict(sum_errs)
     ms = {}
-    for cfg, views, seeds in ((RenderConfig(**HEADLINE), ("yxz",), [1, 2, 3, 4]),
-                              (RenderConfig(**GRAD_CHECK), cam.VIEWS_ALL, [5, 6])):
+    for base, views, seeds in ((RenderConfig(**HEADLINE), ("yxz",), [1, 2, 3, 4]),
+                               (RenderConfig(**GRAD_CHECK), cam.VIEWS_ALL, [5, 6])):
         camera = camera_for(views, device)
         packed, lay = params.pack(room, camera), params.layout(room, camera)
         words = megakernel.seed_tensor(seeds, device)
         scenes = (room, diff.zero_object(room, ref))
+        cfg = megakernel.with_hints(scenes, base)  # K2's rows share the room's hints
+        assert cfg == megakernel.with_hints(room, base) and cfg.plane_pairs is not None
         pair = params.stack_rows(scenes, camera)
         pair_words = megakernel.seed_tensor(seeds[:1] * 2, device)
         whole = megakernel.launch_forward(packed, lay, cfg, words)
         whole2 = megakernel.launch_forward(pair, lay, cfg, pair_words)
+        label = f"{cfg.width}x{cfg.height} views={len(views)}"
+        block_errs["k1"] = max(block_errs["k1"], check_close(
+            f"K1 {label} hinted vs unhinted", whole,
+            megakernel.launch_forward(packed, lay, base, words)), check_close(
+            f"K2 {label} hinted vs unhinted", whole2,
+            megakernel.launch_forward(pair, lay, base, pair_words)))
         for n in SHARDS:
             blocks = shard_blocks(cfg.height, n)
             cut = [megakernel.launch_forward(packed, lay, cfg, words, b) for b in blocks]
@@ -969,14 +1076,17 @@ def check_row_shards(device) -> dict:
             for b, k1, k2 in zip(blocks, cut, cut2):
                 band = slice(b[0], b[0] + b[1])
                 label = f"{cfg.width}x{cfg.height} views={len(views)} rows {b}"
-                plain = renderer.render_light(room, camera, cfg, np.asarray(seeds, np.uint32), band)
-                plain2 = torch.stack([renderer.render_light(s, camera, cfg, seeds[0], band)
-                                      for s in scenes])
-                block_errs["k1"] = max(block_errs["k1"], check_close(
-                    f"K1 block {label}", k1[:, 0] if len(views) == 1 else k1, plain),
-                    check_close(f"K2 block {label}", k2[:, 0] if len(views) == 1 else k2, plain2))
-        print(f"K1 and K2 {cfg.width}x{cfg.height} views={len(views)} frames={len(seeds)}: "
-              f"{' and '.join(map(str, SHARDS))} row blocks bitwise the single launch",
+                for c, kind in ((cfg, "hinted"), (base, "unhinted")):
+                    plain = renderer.render_light(room, camera, c, np.asarray(seeds, np.uint32),
+                                                  band)
+                    plain2 = torch.stack([renderer.render_light(s, camera, c, seeds[0], band)
+                                          for s in scenes])
+                    block_errs["k1"] = max(block_errs["k1"], check_close(
+                        f"K1 block {label} vs {kind} plain", k1[:, 0] if len(views) == 1 else k1,
+                        plain), check_close(f"K2 block {label} vs {kind} plain",
+                                            k2[:, 0] if len(views) == 1 else k2, plain2))
+        print(f"K1 and K2 {cfg.width}x{cfg.height} views={len(views)} frames={len(seeds)}, "
+              f"hinted: {' and '.join(map(str, SHARDS))} row blocks bitwise the single launch",
               flush=True)
         if cfg.height == HEADLINE["height"]:
             ms["k1"] = time_shards("K1 4 frames 1280x720", lambda: megakernel.launch_forward(
@@ -1194,21 +1304,29 @@ def check_ablate_kernel(device) -> dict:
 
 
 def check_forward_variants(device, cfg: RenderConfig, scenes) -> float:
-    """Phase 17: K1 with each stub variant compiled in against the plain
-    pipeline under the same patches, through fwd_ablate's own functions
-    (fwd_ablate.fpl() frames a launch, the tool's camera, seed 1); each
-    variant's light differs from K1's. Returns the largest |kernel -
-    plain|."""
+    """Phase 17: K1 with each stub variant compiled in, with the static
+    hints fwd_ablate derives, against the plain pipeline under the same
+    patches and hints, through fwd_ablate's own functions (fwd_ablate.fpl()
+    frames a launch, the tool's camera, seed 1); each variant's light
+    differs from K1's. The generic_fold variant (the fold's generic
+    instance) and the unhinted launch must give K1's light, bitwise.
+    Returns the largest |kernel - plain|."""
     worst = 0.0
     for name in scenes:
         scene, camera = library.SCENES[name](device), tool_common.default_camera(device)
-        base = fwd_ablate.build_fn(scene, camera, cfg)(1)
-        for variant in megakernel.VARIANTS:
-            out = fwd_ablate.build_fn(scene, camera, cfg, variant)(1)
-            plain = fwd_ablate.plain_fn(scene, camera, cfg, variant)(1)
+        hinted = megakernel.with_hints(scene, cfg)
+        base = fwd_ablate.build_fn(scene, camera, hinted)(1)
+        for variant in (*megakernel.VARIANTS, megakernel.GENERIC_FOLD):
+            out = fwd_ablate.build_fn(scene, camera, hinted, variant)(1)
+            plain = fwd_ablate.plain_fn(scene, camera, hinted, variant)(1)
             label = f"K1 {variant} {name} {cfg.width}x{cfg.height} {fwd_ablate.fpl()} frames"
             worst = max(worst, check_close(label, out, plain))
-            assert not torch.equal(out, base), f"{variant}: the stubs changed nothing"
+            if variant == megakernel.GENERIC_FOLD:
+                assert torch.equal(out, base), f"{name}: the generic fold differs from K1"
+            else:
+                assert not torch.equal(out, base), f"{variant}: the stubs changed nothing"
+        out = fwd_ablate.build_fn(scene, camera, cfg)(1)
+        assert torch.equal(out, base), f"{name}: the unhinted K1 differs from the hinted"
     return worst
 
 
@@ -1278,8 +1396,8 @@ def run_tools(device) -> dict:
     n = 1 + rounds * calls
     names = [v[0] for v in fwd_ablate.variants(library.room_with_sphere(device),
                                                RenderConfig(**HEADLINE))]
-    stubbed = len(megakernel.VARIANTS)
-    ran("fwd_ablate", {"k1": (len(names) - stubbed) * n, "k1_variant": stubbed * n})
+    variant = len(megakernel.VARIANTS) + 1  # the stubs and generic_fold: the variant launch
+    ran("fwd_ablate", {"k1": (len(names) - variant) * n, "k1_variant": variant * n})
     return {"results": res, "launches": launches}
 
 
@@ -1304,26 +1422,44 @@ def grad_resources(log: str) -> dict:
         if r:
             print(f"  {name}: {r}", flush=True)
     out = {}
-    for key, name in GRAD_KERNELS.items():
-        mangled = f"{len(name)}{name}"
-        patterns = ({key: f"{mangled}ILi{gradkernel.MAIN_BOUNCES}E",
-                     key + "_generic": f"{mangled}ILi{gradkernel.MAX_BOUNCES}E"}
-                    if key in SWEEPS else {key: f"{mangled}E"})
-        for k, pattern in patterns.items():
-            hits = [r for n, r in res.items() if pattern in n]
-            assert len(hits) == 1, (k, hits)
-            out[k] = hits[0]
+    for k, pattern in grad_patterns().items():
+        hits = [r for n, r in res.items() if pattern in n]
+        assert len(hits) == 1, (k, hits)
+        out[k] = hits[0]
     assert out["sweep"]["spill_bytes"] == out["loss_cot"]["spill_bytes"] == 0, \
         f"K4's kernels spill: {out}"
     return out
 
 
-def resident_warps(device) -> dict:
-    """Resident warps per SM of the gradient launches' kernels at the
-    training shape (room, one view, TRAIN's bounces); prints them."""
+def grad_patterns() -> dict:
+    """A part of the mangled name of each gradient launch kernel's instance,
+    keyed as GRAD_KERNELS: a sweep's main-path instance (MAIN_BOUNCES),
+    and its generic one with the suffix "_generic"."""
+    out = {}
+    for key, name in GRAD_KERNELS.items():
+        mangled = f"{len(name)}{name}"
+        out.update({key: f"{mangled}ILi{gradkernel.MAIN_BOUNCES}E",
+                    key + "_generic": f"{mangled}ILi{gradkernel.MAX_BOUNCES}E"}
+                   if key in SWEEPS else {key: f"{mangled}E"})
+    return out
+
+
+def resident_warps(lib_path: Path, device) -> dict:
+    """Resident warps per SM of the gradient launches' kernels (their
+    main-path instances) at the training shape (room, one view):
+    build.resident_warps at each launch's block and shared memory. Prints
+    them."""
     scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
-    lay, cfg = params.layout(scene, camera), RenderConfig(**TRAIN)
-    out = {key: gradkernel.resident_warps(key, lay, cfg) for key in GRAD_KERNELS}
+    assert TRAIN["reflections_amount"] == gradkernel.MAIN_BOUNCES, TRAIN
+    shapes = gradkernel.launch_shapes(params.layout(scene, camera))
+    patterns = {k: p for k, p in grad_patterns().items() if not k.endswith("_generic")}
+    warps = build.resident_warps(lib_path, {re.escape(p): shapes[GRAD_KERNELS[k]]
+                                            for k, p in patterns.items()})
+    out = {}
+    for key, pattern in patterns.items():
+        hits = [w for n, w in warps.items() if pattern in n]
+        assert len(hits) == 1 and hits[0] > 0, (key, warps)
+        out[key] = hits[0]
     print(json.dumps({"resident_warps_per_sm_at_train_shape": out}), flush=True)
     return out
 
@@ -1366,7 +1502,8 @@ def main() -> int:
     build.load()
     print(f"built {lib_path.relative_to(ROOT)} in {build_s:.2f} s", flush=True)
     resources = grad_resources(build.build_log())
-    warps = resident_warps(device)
+    warps = resident_warps(lib_path, device)
+    k1_res = k1_resources(device, lib_path)
 
     phase("3 kernel vs plain on the card")
     max_err = check_kernel_against_plain(device)
@@ -1378,21 +1515,24 @@ def main() -> int:
     run_app()
     launches = {"render": (megakernel.LAUNCHES, gradkernel.LAUNCHES)}
     assert launches["render"] == (1 + CALLS * REPEATS + 2, 0), launches
+    assert megakernel.HINTED_LAUNCHES == megakernel.LAUNCHES, "a render launch ran no hints"
     assert counts()["k2_rows"] == counts()["k5"] == counts()["k6"] == 0, counts()
 
     phase("6 kernel alone and plain pipeline, headline shape")
-    kernel_ms, plain_ms, headline_err = time_kernel_and_plain(engine)
+    kernel_ms, unhinted_ms, plain_ms, headline_err = time_kernel_and_plain(engine)
     phase("7 app view groups: kernel vs plain on the card")
     max_err = max(max_err, headline_err, check_app_groups(device))
     rays = HEADLINE["width"] * HEADLINE["height"] * HEADLINE["samples"] * FRAMES_PER_LAUNCH
     med_engine, med_kernel = statistics.median(engine_ms), statistics.median(kernel_ms)
     print(json.dumps({
         "cell": "room_with_sphere 1280x720 8spp 4 bounces per_sample, 4 frames per launch",
-        "card": card, "rays_per_launch": rays,
+        "card": card, "rays_per_launch": rays, "hints": "4 wall pairs, the engine's",
         "engine_step_frames_ms": engine_ms, "engine_ms_median": med_engine,
         "engine_mrays_per_s": rays / med_engine / 1e3,
         "kernel_ms": kernel_ms, "kernel_ms_median": med_kernel,
         "kernel_mrays_per_s": rays / med_kernel / 1e3,
+        "unhinted_kernel_ms": unhinted_ms,
+        "unhinted_kernel_ms_median": statistics.median(unhinted_ms),
         "plain_ms": plain_ms, "plain_mrays_per_s": rays / plain_ms / 1e3,
     }), flush=True)
 
@@ -1557,9 +1697,20 @@ def main() -> int:
         "shard_ms": shards["ms"]["k1"],
         "max_abs_err": max_err,
         "tolerance": CHECK_BOUNDS,
+        # Every forward comparison (kernel vs plain, hinted vs unhinted) and
+        # whether it was bitwise.
+        "bitwise": all(BITWISE.values()),
+        "not_bitwise": sorted(k for k, v in BITWISE.items() if not v),
         "ms": med_kernel,
         "plain_ms": plain_ms,
         **bounds["k1"], **no_library,
+        "hints": "the room's 4 wall pairs, derived by the engine (static hyperplane hints)",
+        "registers": k1_res["main"]["registers"], "stack_bytes": k1_res["main"]["stack_bytes"],
+        "spill_bytes": k1_res["main"]["spill_bytes"],
+        "resident_warps_per_sm": k1_res["main"]["resident_warps_per_sm"],
+        "block_threads": k1_res["block_threads"], "smem_bytes": k1_res["smem_bytes"],
+        "instances": {short_k1(n): r for n, r in k1_res["instances"].items()},
+        "unhinted_ms": statistics.median(unhinted_ms),
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, 4 frames per launch",
         "build_s": build_s,
     }, {
@@ -1677,6 +1828,9 @@ def main() -> int:
     }]}
     for entry in summary["kernels"]:
         with_shares(entry)
+    k1 = summary["kernels"][0]  # the shares at the unhinted flops, as PRs 1-6 counted them
+    k1["unhinted"]["share_of_published_peak"] = (
+        k1["unhinted"]["flops"] / (k1["ms"] * 1e-3) / PEAKS["fp32_flops_per_s"])
     print(json.dumps(summary), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

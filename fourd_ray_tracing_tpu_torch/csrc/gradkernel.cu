@@ -450,25 +450,3 @@ extern "C" int fourd_soft_loss_grad_launch(const float* params, uint32_t seed, c
                                                       scale, grad_out, loss_out);
   return static_cast<int>(cudaGetLastError());
 }
-
-// Resident warps per SM that the sweep of K4 and K5 (which 0), K4's pass 1
-// (1), K6's pass 1 (2), K6's row-a sweep (3) or its row-b sweep (4)
-// reaches for a launch at ``reflections`` bounces over P packed parameters
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor with the launch's block
-// and shared memory), or -1 on an error.
-extern "C" int fourd_grad_occupancy(int which, int reflections, int P) {
-  const void* kernels[] = {reinterpret_cast<const void*>(sweep_for(reflections)),
-                           reinterpret_cast<const void*>(loss_cot_kernel),
-                           reinterpret_cast<const void*>(soft_sum_kernel),
-                           reinterpret_cast<const void*>(soft_row_a_for(reflections)),
-                           reinterpret_cast<const void*>(soft_row_b_for(reflections))};
-  const size_t smem[] = {grad_smem_bytes(P, false), P * sizeof(float), P * sizeof(float),
-                         grad_smem_bytes(P, false), grad_smem_bytes(P, true)};
-  int blocks = -1;
-  if (which < 0 || which > 4 || allow_smem(kernels[which], smem[which]) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernels[which], kGradBlock,
-                                                    smem[which]) != cudaSuccess) {
-    return -1;
-  }
-  return blocks * kWarps;
-}

@@ -4,9 +4,10 @@
 // _trace_rays_kernel, _tile_pixels and _tile_camera): per frame seed and
 // per pixel, the primary ray of the pixel's view, bounce 0 computed once
 // per pixel, then `samples` per-sample traces of `reflections_amount`
-// bounces (closest hit over hyperplanes and hyperspheres, emission and
-// environment light, Bernoulli mirror vs uniform-S^3 diffuse with masked
-// counter RNG, shade-only last bounce), and the mean light.
+// bounces (closest hit over hyperplanes and hyperspheres with the static
+// hints, emission and environment light, Bernoulli mirror vs uniform-S^3
+// diffuse with masked counter RNG, shade-only last bounce), and the mean
+// light.
 //
 // With a row stride it is also K2, ops/pallas/megakernel.py::_kernel with
 // frame_params=True (render_light_pallas_multi, _RowView): the frame axis
@@ -30,47 +31,74 @@
 // by every thread. The light goes straight to its (F, V, H, W, 3) place,
 // written once, so there is no tile transpose after the launch.
 //
-// What bounds it: arithmetic and issue. Per pixel and sample the kernel
-// runs reflections_amount fold-and-shade passes over every primitive and
-// reads no memory but shared memory; the output is 12 bytes per pixel.
+// The fold is the JAX production forward's (megakernel.py:162-165,
+// 207-210): the wrapper derives the static hyperplane hints from the
+// scene (models/scene.py plane_norm_hints, plane_pair_hints) and passes
+// them as a descriptor (trace.cuh Hints); each block turns the params into
+// a fold table in shared memory once (trace.cuh build_fold_table: the
+// wall pairs' axis offsets, the single planes' dot(point, n), the
+// spheres' r^2 and 1 / r), and every bounce folds over the table
+// (intersect_table): the room's 8 walls as 4 pairs of two compares and one
+// division each, a record of 16 bytes a pair, where the unhinted fold read
+// 8 floats of every wall and did three 4-term dots and a division. The
+// fold's counts are template arguments where a hint pattern has its own
+// instance (the room's 4 pairs, each on its axis: x, y, z, w, so each
+// pair reads its ray components without a select), runtime values read
+// from the table otherwise (the generic instance; sphere_plane_light's
+// single plane takes it). A launch without hints runs the same table fold
+// with every plane a single of four live components (an instance of its
+// own, the masks fixed): the unhinted fold, bitwise.
 //
-// The device math (vectors, RNG, fastmath, sampler, sky, the closest-hit
-// fold, the per-pixel primary ray, bounce 0 and one sample's trace) lives
-// in trace.cuh, shared with the value-and-grad kernel (gradkernel.cu).
+// What bounds it: arithmetic and issue. Per pixel and sample the kernel
+// runs reflections_amount fold-and-shade passes over every candidate and
+// reads no memory but shared memory; the output is 12 bytes per pixel.
+// 128 threads a block, no minimum of resident blocks: 256 threads and
+// minimums of 4-8 blocks timed alike on the H100 (PERF.md).
+//
+// The device math (vectors, RNG, fastmath, sampler, sky, both folds, the
+// per-pixel primary ray, bounce 0 and one sample's trace) lives in
+// trace.cuh, shared with the gradient kernels (gradkernel.cu, ablate.cu),
+// which run the unhinted fold over the packed params (trace.cuh
+// ParamsFold, the template default): their code is as before the table.
 //
 // Numerics: every operation keeps the order of the plain torch pipeline
-// (models/renderer.py) and of the JAX package, and the build passes
-// -fmad=false so nvcc does not contract a*b+c into an FMA. Torch's eager
-// ops do not contract either, so on the card the kernel is bitwise equal
-// to its plain version (XLA on the CPU does contract, so the JAX package
-// is matched within image tolerances). Float constants are hex literals
-// of the JAX package's float32 values.
+// (models/renderer.py, models/scene.py) and of the JAX package, and the
+// build passes -fmad=false so nvcc does not contract a*b+c into an FMA.
+// Torch's eager ops do not contract either, so on the card the kernel is
+// bitwise equal to its plain version, hinted or not (XLA on the CPU does
+// contract, so the JAX package is matched within image tolerances). Float
+// constants are hex literals of the JAX package's float32 values.
 //
 // The same kernel with stubs compiled in (trace.cuh kStub*) is the
 // measurement variant launch of tools/fwd_ablate.py
-// (fourd_forward_variant_launch); the production launch instantiates no
-// stub, so its code is the trace alone.
+// (fourd_forward_variant_launch), which can also force the generic
+// instance of the fold (kGenericFold); the production launch instantiates
+// no stub, so its code is the trace alone.
 //
-// Still to do for speed (later work): static hints and wall-pair folding
-// (models/scene.py:plane_norm_hints / plane_pair_hints in the JAX
-// package), FMA contraction once its effect on the image is measured,
-// register and occupancy tuning, and a persistent-block schedule.
+// Still to do for speed (later work): FMA contraction once its effect on
+// the image is measured, and a persistent-block schedule.
 
 #include "trace.cuh"
 
 namespace {
 
+constexpr int kK1Block = 128;
+// The variant launch's flag that forces the generic instance of the fold.
+constexpr int kGenericFold = 4;
+
 // kStub selects a measurement variant's stubs (trace.cuh); the production
-// kernel is kStubNone.
-template <int kStub>
-__global__ void __launch_bounds__(kBlock)
+// kernel is kStubNone. Fold is the table fold's instance.
+template <int kStub, class Fold>
+__global__ void __launch_bounds__(kK1Block)
 forward_kernel(const float* __restrict__ params, long long row_stride,
-               const uint32_t* __restrict__ seeds, Layout L, int width, int height, int row0,
-               int n_rows, int samples, int reflections, float small_indent,
+               const uint32_t* __restrict__ seeds, Layout L, Hints H, int width, int height,
+               int row0, int n_rows, int samples, int reflections, float small_indent,
                float* __restrict__ out) {
   extern __shared__ float P[];
   const float* row = params + blockIdx.y * row_stride;
   for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = row[i];
+  __syncthreads();
+  build_fold_table(P, L, H, threadIdx.x, blockDim.x);
   __syncthreads();
 
   const long long total = static_cast<long long>(L.n_views) * n_rows * width;
@@ -85,10 +113,10 @@ forward_kernel(const float* __restrict__ params, long long row_stride,
   const int py = row0 + ly;
   const uint32_t seed = seeds[frame];
 
-  const Pixel p = setup_pixel(P, L, view, px, py, width, height, small_indent);
+  const Pixel p = setup_pixel<Fold>(P, L, view, px, py, width, height, small_indent);
   V3 acc = {0.0f, 0.0f, 0.0f};
   for (int s = 0; s < samples; ++s) {
-    acc = add3(acc, trace_sample<kStub>(P, L, p, s, seed, reflections, small_indent));
+    acc = add3(acc, trace_sample<kStub, Fold>(P, L, p, s, seed, reflections, small_indent));
   }
   const float inv = 1.0f / static_cast<float>(samples);
   float* px_out = out + (static_cast<long long>(frame) * total + lin) * 3;
@@ -97,27 +125,100 @@ forward_kernel(const float* __restrict__ params, long long row_stride,
   px_out[2] = acc.z * inv;
 }
 
-// Validates the arguments and launches forward_kernel<kStub>; returns
-// cudaGetLastError() after the launch.
-template <int kStub>
+// The launch's dynamic shared memory: the params, padded to 16 bytes, and
+// the fold table.
+size_t shared_bytes(const Layout& L, const Hints& H) {
+  const int singles = H.n_singles < 0 ? L.n_spaces : H.n_singles;
+  const size_t recs = 1 + H.n_pairs + 2 * singles + 2 * L.n_spheres;
+  return static_cast<size_t>((L.size + 3) / 4) * sizeof(Rec) + recs * sizeof(Rec);
+}
+
+// Whether the descriptor is one the table can hold and fold: counts in
+// range, pairs' axes 0-3, live masks 0-15, and the pairs' and singles'
+// plane indices cover each of the layout's planes exactly once (a pair's
+// two planes differ). Without hints (n_singles -1) the fold covers every
+// plane itself.
+bool hints_valid(const Layout& L, const Hints& H) {
+  if (H.n_singles < 0) return H.n_singles == -1 && H.n_pairs == 0;
+  if (H.n_pairs < 0 || H.n_pairs > kMaxHintPlanes / 2 || H.n_singles > kMaxHintPlanes ||
+      L.n_spaces > kMaxHintPlanes || 2 * H.n_pairs + H.n_singles != L.n_spaces) {
+    return false;
+  }
+  uint64_t seen = 0;
+  const auto cover = [&](int plane) {
+    const uint64_t bit = uint64_t{1} << plane;
+    const bool fresh = plane < L.n_spaces && (seen & bit) == 0;
+    seen |= bit;
+    return fresh;
+  };
+  for (int k = 0; k < H.n_pairs; ++k) {
+    const int i = H.pair[k] & 0xFF, j = (H.pair[k] >> 8) & 0xFF, axis = H.pair[k] >> 16;
+    if (!cover(i) || !cover(j) || axis < 0 || axis > 3) return false;
+  }
+  for (int k = 0; k < H.n_singles; ++k) {
+    const int live = H.single[k] >> 8;
+    if (!cover(H.single[k] & 0xFF) || live < 0 || live > 15) return false;
+  }
+  // 2 * n_pairs + n_singles planes, none repeated, all below n_spaces: all.
+  return true;
+}
+
+// Validates the arguments and launches forward_kernel<kStub, Fold>;
+// returns cudaGetLastError() after the launch.
+template <int kStub, class Fold>
 int launch_forward(const float* params, long long row_stride, const uint32_t* seeds, int n_frames,
-                   const int* layout, int width, int height, int row0, int n_rows, int samples,
-                   int reflections, float small_indent, float* out, void* stream) {
-  Layout L;
-  int* dst = reinterpret_cast<int*>(&L);
-  for (int i = 0; i < kLayoutInts; ++i) dst[i] = layout[i];
+                   const Layout& L, const Hints& H, int width, int height, int row0, int n_rows,
+                   int samples, int reflections, float small_indent, float* out, void* stream) {
   const long long total = static_cast<long long>(L.n_views) * n_rows * width;
-  const size_t smem = static_cast<size_t>(L.size) * sizeof(float);
+  const size_t smem = shared_bytes(L, H);
   if (total <= 0 || row0 < 0 || n_rows <= 0 || row0 + n_rows > height || n_frames <= 0 ||
-      samples <= 0 || row_stride < 0 || smem > 48 * 1024 ||
-      (total + kBlock - 1) / kBlock > 0x7FFFFFFFLL || n_frames > 65535) {
+      samples <= 0 || row_stride < 0 || smem > 48 * 1024 || !hints_valid(L, H) ||
+      (total + kK1Block - 1) / kK1Block > 0x7FFFFFFFLL || n_frames > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  dim3 grid(static_cast<unsigned>((total + kBlock - 1) / kBlock), static_cast<unsigned>(n_frames));
-  forward_kernel<kStub><<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-      params, row_stride, seeds, L, width, height, row0, n_rows, samples, reflections,
+  dim3 grid(static_cast<unsigned>((total + kK1Block - 1) / kK1Block),
+            static_cast<unsigned>(n_frames));
+  forward_kernel<kStub, Fold><<<grid, kK1Block, smem, static_cast<cudaStream_t>(stream)>>>(
+      params, row_stride, seeds, L, H, width, height, row0, n_rows, samples, reflections,
       small_indent, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Whether pair k of the descriptor lies on axis k, for every pair.
+bool pairs_in_axis_order(const Hints& H) {
+  for (int k = 0; k < H.n_pairs; ++k) {
+    if ((H.pair[k] >> 16) != k) return false;
+  }
+  return true;
+}
+
+// Picks the fold's instance: the room's 4 pairs on the axes in order
+// have their own, a launch without hints its own (every single all live),
+// any other hint pattern the generic one.
+template <int kStub>
+int launch_fold(bool generic, const float* params, long long row_stride, const uint32_t* seeds,
+                int n_frames, const int* layout, const int* hints, int width, int height,
+                int row0, int n_rows, int samples, int reflections, float small_indent,
+                float* out, void* stream) {
+  Layout L;
+  Hints H;
+  int* dst = reinterpret_cast<int*>(&L);
+  for (int i = 0; i < kLayoutInts; ++i) dst[i] = layout[i];
+  dst = reinterpret_cast<int*>(&H);
+  for (int i = 0; i < kHintInts; ++i) dst[i] = hints[i];
+  if (!generic && H.n_pairs == 4 && H.n_singles == 0 && pairs_in_axis_order(H)) {
+    return launch_forward<kStub, TableFold<4, 0>>(params, row_stride, seeds, n_frames, L, H,
+                                                  width, height, row0, n_rows, samples,
+                                                  reflections, small_indent, out, stream);
+  }
+  if (!generic && H.n_singles < 0) {
+    return launch_forward<kStub, TableFold<0, kAllLive>>(params, row_stride, seeds, n_frames, L,
+                                                         H, width, height, row0, n_rows, samples,
+                                                         reflections, small_indent, out, stream);
+  }
+  return launch_forward<kStub, TableFold<-1, -1>>(params, row_stride, seeds, n_frames, L, H,
+                                                  width, height, row0, n_rows, samples,
+                                                  reflections, small_indent, out, stream);
 }
 
 }  // namespace
@@ -127,40 +228,50 @@ int launch_forward(const float* params, long long row_stride, const uint32_t* se
 // n_rows H: the whole image). Frame f reads the P = layout[13] floats at
 // params + f * row_stride: row_stride 0 renders one scene at F seeds (K1),
 // row_stride P renders F same-structure scenes, one params row per frame
-// (K2; the wrapper then gives every frame the same seed). Returns
-// cudaGetLastError() after the launch.
+// (K2; the wrapper then gives every frame the same seed). ``hints`` is the
+// host int[kHintInts] descriptor of the static hints (trace.cuh Hints;
+// n_singles -1: none), which every row shares. Returns cudaGetLastError()
+// after the launch.
 extern "C" int fourd_forward_launch(const float* params, long long row_stride,
                                     const uint32_t* seeds, int n_frames, const int* layout,
-                                    int width, int height, int row0, int n_rows, int samples,
-                                    int reflections, float small_indent, float* out,
+                                    const int* hints, int width, int height, int row0, int n_rows,
+                                    int samples, int reflections, float small_indent, float* out,
                                     void* stream) {
-  return launch_forward<kStubNone>(params, row_stride, seeds, n_frames, layout, width, height,
-                                   row0, n_rows, samples, reflections, small_indent, out, stream);
+  return launch_fold<kStubNone>(false, params, row_stride, seeds, n_frames, layout, hints, width,
+                                height, row0, n_rows, samples, reflections, small_indent, out,
+                                stream);
 }
 
 // The measurement variants of the forward kernel (tools/fwd_ablate.py):
-// fourd_forward_launch with the stubs of ``variant`` compiled in, 1 =
-// kStubSampler, 2 = kStubRng, 3 = both. Any other variant returns
-// cudaErrorInvalidValue.
+// fourd_forward_launch with the stubs of ``variant & 3`` compiled in (1 =
+// kStubSampler, 2 = kStubRng, 3 = both, 0 = none) and, with
+// kGenericFold set, the generic instance of the fold whatever the hints.
+// Any other variant returns cudaErrorInvalidValue.
 extern "C" int fourd_forward_variant_launch(int variant, const float* params,
                                             long long row_stride, const uint32_t* seeds,
-                                            int n_frames, const int* layout, int width,
-                                            int height, int row0, int n_rows, int samples,
-                                            int reflections, float small_indent, float* out,
-                                            void* stream) {
-  switch (variant) {
+                                            int n_frames, const int* layout, const int* hints,
+                                            int width, int height, int row0, int n_rows,
+                                            int samples, int reflections, float small_indent,
+                                            float* out, void* stream) {
+  const bool generic = (variant & kGenericFold) != 0;
+  switch (variant & ~kGenericFold) {
+    case kStubNone:
+      return launch_fold<kStubNone>(generic, params, row_stride, seeds, n_frames, layout, hints,
+                                    width, height, row0, n_rows, samples, reflections,
+                                    small_indent, out, stream);
     case kStubSampler:
-      return launch_forward<kStubSampler>(params, row_stride, seeds, n_frames, layout, width,
-                                          height, row0, n_rows, samples, reflections,
-                                          small_indent, out, stream);
+      return launch_fold<kStubSampler>(generic, params, row_stride, seeds, n_frames, layout,
+                                       hints, width, height, row0, n_rows, samples, reflections,
+                                       small_indent, out, stream);
     case kStubRng:
-      return launch_forward<kStubRng>(params, row_stride, seeds, n_frames, layout, width, height,
-                                      row0, n_rows, samples, reflections, small_indent, out,
-                                      stream);
+      return launch_fold<kStubRng>(generic, params, row_stride, seeds, n_frames, layout, hints,
+                                   width, height, row0, n_rows, samples, reflections,
+                                   small_indent, out, stream);
     case kStubSampler | kStubRng:
-      return launch_forward<kStubSampler | kStubRng>(params, row_stride, seeds, n_frames, layout,
-                                                     width, height, row0, n_rows, samples,
-                                                     reflections, small_indent, out, stream);
+      return launch_fold<kStubSampler | kStubRng>(generic, params, row_stride, seeds, n_frames,
+                                                  layout, hints, width, height, row0, n_rows,
+                                                  samples, reflections, small_indent, out,
+                                                  stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,9 +1,11 @@
 // Device math of the path tracer, shared by the forward kernel
-// (megakernel.cu, K1) and the value-and-grad kernel (gradkernel.cu, K4).
+// (megakernel.cu, K1) and the gradient kernels (gradkernel.cu, ablate.cu).
 //
 // Counterpart of the JAX package's ops/{vec4,rng,fastmath,sampler,sky}.py,
-// models/scene.py:intersect_scene_fast (hyperplanes and spheres, no hints)
-// and the per-pixel body of ops/pallas/megakernel.py::_kernel with
+// models/scene.py:intersect_scene_fast (hyperplanes and spheres: unhinted
+// over the packed params, ``intersect``, which the gradient kernels run;
+// with the static hints over a per-block table, ``intersect_table``, which
+// K1 runs) and the per-pixel body of ops/pallas/megakernel.py::_kernel with
 // _trace_rays_kernel. Every operation keeps the order of the plain torch
 // pipeline (models/renderer.py); the build passes -fmad=false, so on the
 // card a kernel built from this header rounds like its plain version.
@@ -24,7 +26,6 @@ struct Layout {
 constexpr int kLayoutInts = 14;
 constexpr int kSpaceFloats = 13;   // point(4) norm(4) glow refl color(3)
 constexpr int kSphereFloats = 10;  // center(4) r glow refl color(3)
-constexpr int kBlock = 128;
 
 constexpr float kFar = 0x1.93e594p+99f;          // float32(1e30)
 constexpr float kHalfFar = 0x1.93e594p+98f;      // float32(1e30) * 0.5
@@ -224,10 +225,10 @@ __device__ V3 final_light(const float* env, V4 d) {
   return add3(mul3s(light, k2), mul3s(sky, rest));
 }
 
-// --- models/scene.py:intersect_scene_fast (no hints) -------------------
+// --- models/scene.py:intersect_scene_fast, no hints --------------------
 struct Hit {
   bool hit;
-  int idx;  // winner: plane idx, or sphere idx - n_spaces
+  int idx;  // winner: plane idx, or sphere idx - n_spaces (intersect_table: its candidate)
   float dist;
   V4 norm;
   float glow, refl;
@@ -308,6 +309,250 @@ __device__ Hit intersect(const float* P, const Layout& L, V4 o, V4 d) {
   return h;
 }
 
+// --- models/scene.py:intersect_scene_fast with the static hints ---------
+//
+// The hinted fold of the JAX production forward (scene.py:373-455):
+// opposite unit walls on one axis fold as one candidate (a pair: the nearer
+// wall in the travel direction by two compares, one division), a single
+// plane's dots keep only its live normal components, and the candidates
+// come in the JAX order: pairs, singles, spheres. Every per-scene value
+// (each pair's axis offsets, each single's dot(point, n), each sphere's r^2
+// and 1 / max(r, 1e-30)) is computed once per block into a table in
+// shared memory after the params, in the plain version's operation order,
+// so a bounce reads a record of 16 bytes per pair and two per single or
+// sphere (the room: 8 loads) where the unhinted fold reads 8 floats of
+// every plane and recomputes dot(point, n). Without hints (n_singles < 0)
+// every plane is a single with four live components: the unhinted fold,
+// with its per-scene dots hoisted.
+
+// A 16-byte record of the fold table (one shared-memory vector load).
+struct alignas(16) Rec { float x, y, z, w; };
+
+// The wrapper's descriptor of the hints (ops/cuda/megakernel.py
+// hint_table): the wall pairs, then the single planes, in fold order.
+constexpr int kMaxHintPlanes = 64;
+struct Hints {
+  int n_pairs;
+  int n_singles;                   // -1: no hints (every plane, all live)
+  int pair[kMaxHintPlanes / 2];    // i | j << 8 | axis << 16, offset_i < offset_j
+  int single[kMaxHintPlanes];      // plane | live components << 8 (bit c: component c)
+};
+constexpr int kHintInts = 2 + kMaxHintPlanes / 2 + kMaxHintPlanes;
+
+// The table's records (1 + pairs + 2 singles + 2 spheres): [0] the header
+// (pairs, singles); per pair {ca, cb, axis, a's offset | b's offset << 16};
+// per single {n} and {dot(point, n), live mask, offset, 0}; per sphere
+// {center} and {r^2, 1 / max(r, 1e-30), r, offset} (offsets into the
+// params, integers as float bits).
+
+// The table starts at the first 16-byte boundary after the params (the
+// dynamic shared memory starts 16-byte aligned).
+__device__ __forceinline__ const Rec* fold_table(const float* P, const Layout& L) {
+  return reinterpret_cast<const Rec*>(P + 4 * ((L.size + 3) / 4));
+}
+
+__device__ __forceinline__ float bits(uint32_t u) { return __uint_as_float(u); }
+
+// Writes the fold table from the params P (both in shared memory); thread
+// ``t`` of ``n_threads`` writes every n_threads-th record. The caller
+// synchronises after it.
+__device__ void build_fold_table(const float* P, const Layout& L, const Hints& H, int t,
+                                 int n_threads) {
+  Rec* T = const_cast<Rec*>(fold_table(P, L));
+  const int np = H.n_pairs;
+  const int ns = H.n_singles < 0 ? L.n_spaces : H.n_singles;
+  const int n = 1 + np + ns + L.n_spheres;
+  for (int e = t; e < n; e += n_threads) {
+    if (e == 0) {
+      T[0] = {bits(np), bits(ns), 0.0f, 0.0f};
+      continue;
+    }
+    int k = e - 1;
+    if (k < np) {
+      const int i = H.pair[k] & 0xFF, j = (H.pair[k] >> 8) & 0xFF, axis = H.pair[k] >> 16;
+      const float* a = P + L.spaces + kSpaceFloats * i;
+      const float* b = P + L.spaces + kSpaceFloats * j;
+      const float ca = dot4(ld4(a), ld4(a + 4)) / a[4 + axis];
+      const float cb = dot4(ld4(b), ld4(b + 4)) / b[4 + axis];
+      const uint32_t off_a = static_cast<uint32_t>(a - P), off_b = static_cast<uint32_t>(b - P);
+      T[1 + k] = {ca, cb, bits(axis), bits(off_a | off_b << 16)};
+      continue;
+    }
+    k -= np;
+    if (k < ns) {
+      const int plane = H.n_singles < 0 ? k : H.single[k] & 0xFF;
+      const uint32_t mask = H.n_singles < 0 ? 0xFu : static_cast<uint32_t>(H.single[k] >> 8);
+      const float* sp = P + L.spaces + kSpaceFloats * plane;
+      Rec* r = T + 1 + np + 2 * k;
+      r[0] = {sp[4], sp[5], sp[6], sp[7]};
+      r[1] = {dot4(ld4(sp), ld4(sp + 4)), bits(mask), bits(static_cast<uint32_t>(sp - P)), 0.0f};
+      continue;
+    }
+    k -= ns;
+    const float* s = P + L.spheres + kSphereFloats * k;
+    const float r = s[4];
+    Rec* rec = T + 1 + np + 2 * ns + 2 * k;
+    rec[0] = {s[0], s[1], s[2], s[3]};
+    rec[1] = {r * r, 1.0f / fmaxf(r, kTiny30), r, bits(static_cast<uint32_t>(s - P))};
+  }
+}
+
+__device__ __forceinline__ float axis_of(V4 v, int axis) {
+  return axis == 0 ? v.x : axis == 1 ? v.y : axis == 2 ? v.z : v.w;
+}
+
+// Whether a pair's nearer wall in the travel direction is wall a (below
+// both walls going up, or not above both going down).
+__device__ __forceinline__ bool pair_takes_a(float ca, float cb, float o_k, float d_k) {
+  return d_k > 0.0f ? o_k < ca : !(o_k > cb);
+}
+
+// dot(o, n) and dot(d, n) over a single plane's live components, summed x,
+// y, z, w left to right; with none live, over x (scene.py:379-385).
+__device__ __forceinline__ void live_dots(V4 o, V4 d, const Rec& n, uint32_t mask, float& on,
+                                          float& dn) {
+  const float oc[4] = {o.x, o.y, o.z, o.w}, dc[4] = {d.x, d.y, d.z, d.w};
+  const float nc[4] = {n.x, n.y, n.z, n.w};
+  if (mask == 0u) mask = 1u;
+  on = dn = 0.0f;
+  bool first = true;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if ((mask >> c) & 1u) {
+      const float t = oc[c] * nc[c], u = dc[c] * nc[c];
+      on = first ? t : on + t;
+      dn = first ? u : dn + u;
+      first = false;
+    }
+  }
+}
+
+// kSingles of a table without hints: the count read from the table, every
+// single plane's four components live.
+constexpr int kAllLive = -2;
+
+// The closest hit over the fold table (scene.py:373-455). kPairs and
+// kSingles, when not negative, are the table's counts, fixed for an
+// instance, whose pair i then lies on axis i (the room's x, y, z and w
+// walls; the launch checks it); kSingles kAllLive fixes every live mask to
+// 0xF. Inlined at each of its three sites: a call kept its live values on
+// the stack.
+template <int kPairs, int kSingles>
+__device__ __forceinline__ Hit intersect_table(const float* P, const Layout& L, V4 o, V4 d) {
+  const Rec* T = fold_table(P, L);
+  const Rec head = T[0];
+  const int np = kPairs >= 0 ? kPairs : static_cast<int>(__float_as_uint(head.x));
+  const int ns = kSingles >= 0 ? kSingles : static_cast<int>(__float_as_uint(head.y));
+  const Rec* singles = T + 1 + np;
+  const Rec* spheres = singles + 2 * ns;
+  float best = kFar;
+  int idx = 0;
+  int k = 0;
+  for (int i = 0; i < np; ++i, ++k) {
+    const Rec r = T[1 + i];
+    const int axis = kPairs > 0 ? i : static_cast<int>(__float_as_uint(r.z));
+    const float o_k = axis_of(o, axis), d_k = axis_of(d, axis);
+    const float dot_vn = (pair_takes_a(r.x, r.y, o_k, d_k) ? r.x : r.y) - o_k;
+    const bool hit = sign_of(dot_vn) * d_k >= kSmallFloat;
+    const float dist = dot_vn / (hit ? d_k : 1.0f);
+    const float cand = hit ? dist : kFar;
+    if (k == 0 || cand < best) { best = cand; idx = k; }
+  }
+  for (int i = 0; i < ns; ++i, ++k) {
+    const Rec n = singles[2 * i], c = singles[2 * i + 1];
+    float on, dn;
+    live_dots(o, d, n, kSingles == kAllLive ? 0xFu : __float_as_uint(c.y), on, dn);
+    const float dot_vn = c.x - on;
+    const bool hit = sign_of(dot_vn) * dn >= kSmallFloat;
+    const float dist = dot_vn / (hit ? dn : 1.0f);
+    const float cand = hit ? dist : kFar;
+    if (k == 0 || cand < best) { best = cand; idx = k; }
+  }
+  for (int j = 0; j < L.n_spheres; ++j, ++k) {
+    const Rec c = spheres[2 * j];
+    const float r2 = spheres[2 * j + 1].x;
+    V4 po = {c.x - o.x, c.y - o.y, c.z - o.z, c.w - o.w};
+    float b = dot4(po, d);
+    float l2 = dot4(po, po) + kTiny37;
+    bool degenerate = l2 < kSmall2;
+    b = degenerate ? 0.0f : b;
+    bool receding = !degenerate && (l2 >= r2 && b < 0.0f);
+    float disc = r2 - (l2 - b * b);
+    bool tangent = disc <= 0.0f;
+    float sq = sqrtf(tangent ? 1.0f : disc);
+    sq = tangent ? 0.0f : sq;
+    float dist = l2 > r2 ? b - sq : b + sq;
+    bool hit = !(receding || tangent);
+    float cand = hit ? dist : kFar;
+    if (k == 0 || cand < best) { best = cand; idx = k; }
+  }
+
+  Hit h;
+  h.hit = best < kHalfFar;
+  h.idx = idx;
+  h.dist = h.hit ? best : 0.0f;
+  if (!h.hit) {
+    h.norm = {0.0f, 0.0f, 0.0f, 0.0f};
+    h.glow = h.refl = 0.0f;
+    h.color = {0.0f, 0.0f, 0.0f};
+    return h;
+  }
+  // Resolve the winner's normal and material (the resolvers' ops).
+  const float* mat;
+  if (idx < np) {
+    // The ray-facing normal of an axis wall: -sign(offset - o_k) along the
+    // axis, +0 elsewhere.
+    const Rec r = T[1 + idx];
+    const int axis = kPairs > 0 ? idx : static_cast<int>(__float_as_uint(r.z));
+    const uint32_t walls = __float_as_uint(r.w);
+    const float o_k = axis_of(o, axis), d_k = axis_of(d, axis);
+    const bool take_a = pair_takes_a(r.x, r.y, o_k, d_k);
+    const float nk = -sign_of((take_a ? r.x : r.y) - o_k);
+    h.norm = {axis == 0 ? nk : 0.0f, axis == 1 ? nk : 0.0f, axis == 2 ? nk : 0.0f,
+              axis == 3 ? nk : 0.0f};
+    mat = P + (take_a ? walls & 0xFFFFu : walls >> 16) + 8;
+  } else if (idx < np + ns) {
+    // flip * n on the live components, +0 on the hinted ones.
+    const Rec n = singles[2 * (idx - np)], c = singles[2 * (idx - np) + 1];
+    const uint32_t mask = kSingles == kAllLive ? 0xFu : __float_as_uint(c.y);
+    float on, dn;
+    live_dots(o, d, n, mask, on, dn);
+    const float flip = -sign_of(c.x - on);
+    h.norm = {(mask & 1u) ? flip * n.x : 0.0f, (mask & 2u) ? flip * n.y : 0.0f,
+              (mask & 4u) ? flip * n.z : 0.0f, (mask & 8u) ? flip * n.w : 0.0f};
+    mat = P + __float_as_uint(c.z) + 8;
+  } else {
+    const Rec c4 = spheres[2 * (idx - np - ns)], e = spheres[2 * (idx - np - ns) + 1];
+    V4 c = {c4.x, c4.y, c4.z, c4.w};
+    V4 po = sub4(c, o);
+    float l2 = dot4(po, po) + kTiny37;
+    float scale = l2 > e.x ? -e.y : e.y;
+    V4 hit_p = add4(o, mul4s(d, h.dist));
+    h.norm = mul4s(sub4(c, hit_p), scale);
+    mat = P + __float_as_uint(e.w) + 5;
+  }
+  h.glow = mat[0];
+  h.refl = mat[1];
+  h.color = ld3(mat + 2);
+  return h;
+}
+
+// The fold a trace runs, as a template argument of setup_pixel and
+// trace_sample: ParamsFold is intersect over the packed params, no hints
+// (the gradient kernels); TableFold<kPairs, kSingles> is intersect_table
+// (K1; negative: the counts read from the table).
+struct ParamsFold {};
+template <int kPairs, int kSingles> struct TableFold {};
+
+__device__ __forceinline__ Hit fold(ParamsFold, const float* P, const Layout& L, V4 o, V4 d) {
+  return intersect(P, L, o, d);
+}
+template <int kPairs, int kSingles>
+__device__ __forceinline__ Hit fold(TableFold<kPairs, kSingles>, const float* P, const Layout& L,
+                                    V4 o, V4 d) {
+  return intersect_table<kPairs, kSingles>(P, L, o, d);
+}
+
 // Direction update of one bounce on a live lane: Bernoulli mirror vs
 // diffuse; a diffuse lane draws three more uniforms for the sampler.
 // ``mirror`` and ``v`` (the diffuse sample before redirect) report the
@@ -337,6 +582,7 @@ struct Pixel {
   V4 o0, mirrored0;
 };
 
+template <class Fold = ParamsFold>
 __device__ Pixel setup_pixel(const float* P, const Layout& L, int view, int px, int py,
                              int width, int height, float small_indent) {
   Pixel p;
@@ -356,7 +602,7 @@ __device__ Pixel setup_pixel(const float* P, const Layout& L, int view, int px, 
   p.bits = __float_as_uint(p.scr_x) ^ (__float_as_uint(p.scr_y) << 9);
 
   // Bounce 0, shared by every sample (renderer.precompute_bounce0).
-  p.h0 = intersect(P, L, p.focus, p.d0);
+  p.h0 = fold(Fold{}, P, L, p.focus, p.d0);
   p.result0 = {0.0f, 0.0f, 0.0f};
   if (L.env_enabled && !p.h0.hit) p.result0 = add3(p.result0, final_light(P + L.env, p.d0));
   p.throughput0 = {1.0f, 1.0f, 1.0f};
@@ -372,8 +618,8 @@ __device__ Pixel setup_pixel(const float* P, const Layout& L, int view, int px, 
 
 // The trace of sample ``s`` from the hoisted bounce 0 (renderer.trace_rays);
 // returns its light. kStub selects a measurement variant's stubs
-// (kStubNone: the production trace).
-template <int kStub = kStubNone>
+// (kStubNone: the production trace), Fold the fold.
+template <int kStub = kStubNone, class Fold = ParamsFold>
 __device__ V3 trace_sample(const float* P, const Layout& L, const Pixel& p, int s, uint32_t seed,
                            int reflections, float small_indent) {
   V3 result = p.result0;
@@ -389,7 +635,7 @@ __device__ V3 trace_sample(const float* P, const Layout& L, const Pixel& p, int 
   V3 throughput = p.throughput0;
   bool alive = true;
   for (int b = 1; b < reflections && alive; ++b) {
-    Hit h = intersect(P, L, o, d);
+    Hit h = fold(Fold{}, P, L, o, d);
     if (env_on && !h.hit) result = add3(result, mul3(throughput, final_light(env, d)));
     alive = h.hit;
     if (alive) {
@@ -400,7 +646,7 @@ __device__ V3 trace_sample(const float* P, const Layout& L, const Pixel& p, int 
     }
   }
   if (alive) {  // the last bounce only shades
-    Hit h = intersect(P, L, o, d);
+    Hit h = fold(Fold{}, P, L, o, d);
     if (env_on && !h.hit) result = add3(result, mul3(throughput, final_light(env, d)));
     if (h.hit) result = add3(result, mul3(mul3s(h.color, h.glow), throughput));
   }

@@ -43,9 +43,14 @@ With a ``mesh`` (parallel/mesh.py) rank (r, s) holds rows block r
   The soft loss's coverage is differentiated through each rank's rows and
   summed over the ranks in its backward (``pmesh.SumGrad``).
 
-Not ported yet, and raising: the frozen static hints (ROADMAP queue 1,
-item 4), and the coverage, ``drop_object`` and ``zero_object`` of the
-composite primitives (item 4). Without hints the JAX package's
+Every gradient path runs without static hints (renderer.check_trainable
+refuses a config that carries them, as the JAX gradient kernels do
+outside their freeze_hints contract), so the kernel route's K1 and K2
+launches in ``RenderLight`` render the unhinted fold too, as the JAX
+custom_vjp forward does on traced values. Not ported yet, and raising:
+that contract, ``freeze_hints`` (ROADMAP queue 1, item 4a, training
+half), and the coverage, ``drop_object`` and ``zero_object`` of the
+composite primitives (item 4b). Without frozen hints the JAX package's
 ``_stop_frozen_for_coverage`` and ``_hints_for_dropped`` are the
 identity, so they are left out.
 """
@@ -85,6 +90,7 @@ def image_loss(scene: Scene, camera: Camera, cfg: RenderConfig, seed, target,
     differentiable by torch autograd. With a mesh, this rank's part of it:
     its rows of the image, rendered over the mesh (the rows' parts sum to
     the MSE over the rays group)."""
+    renderer.check_trainable(cfg)
     if mesh is None:
         return renderer.image_loss(scene, camera, cfg, seed, target)
     image = pmesh.sharded_render_image(scene, camera, cfg, seed, mesh, gather=False)
@@ -235,6 +241,7 @@ def soft_image_loss(scene: Scene, camera: Camera, cfg: RenderConfig, seed, targe
     blend by ``object_coverage``. ``object_ref`` defaults to ("spheres",
     sphere_index). The plain reference of the soft training slice. With a
     mesh, this rank's part: its rows, rendered over the mesh."""
+    renderer.check_trainable(cfg)
     if object_ref is None:
         object_ref = ("spheres", sphere_index)
     without = drop_object(scene, object_ref)
@@ -309,7 +316,7 @@ class RenderLight(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, vec, like_scene, like_camera, cfg, seed, mesh=None):
-        renderer.check_supported(cfg)
+        renderer.check_trainable(cfg)
         words, batched = renderer.seed_words(seed)
         if batched:
             raise ValueError("the light-VJP path takes one scalar seed")
@@ -344,6 +351,7 @@ def render_light_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camer
     """Mean light (H, W, 3) or (V, H, W, 3) of the scene and camera packed
     in ``vec`` (P,), differentiable w.r.t. ``vec``: K1 forward and K5
     backward for a CUDA vector, the plain pipeline for a CPU one."""
+    renderer.check_trainable(cfg)
     if vec.device.type == "cpu":
         scene, camera = params.unpack(vec, like_scene, like_camera)
         return renderer.render_light(scene, camera, cfg, seed)
@@ -364,6 +372,7 @@ def render_light_pair(scene_a: Scene, scene_b: Scene, camera: Camera, cfg: Rende
     a loss over each rank's block gives every rank the whole image's
     gradient (the counterpart of pallas_render_light_pair_sharded,
     diff.py:631-673)."""
+    renderer.check_trainable(cfg)
     vecs = params.stack_rows((scene_a, scene_b), camera)
     if mesh is not None:
         return RenderLight.apply(vecs, scene_a, camera, cfg, seed, mesh)
@@ -502,7 +511,7 @@ def make_train_step(cfg: RenderConfig, lr: float, camera: Camera,
     """
     soft = soft_sphere_index is not None or soft_object_ref is not None
     _check_impl(impl, frames_per_step, soft)
-    renderer.check_supported(cfg)
+    renderer.check_trainable(cfg)
     ref = soft_object_ref or ("spheres", soft_sphere_index or 0)
 
     def init(scene: Scene):
@@ -575,7 +584,7 @@ def make_packed_train_step(cfg: RenderConfig, lr: float, camera: Camera, scene_t
     ``param_filter`` (the make_train_step contract) becomes a packed 0/1
     vector that multiplies the gradient before the optimizer.
     """
-    renderer.check_supported(cfg)
+    renderer.check_trainable(cfg)
     n = params.n_scene(scene_template)
     cam_vec = params.pack(scene_template, camera).detach()[n:]
     mask = None if param_filter is None else params.leaf_mask(param_filter, scene_template)

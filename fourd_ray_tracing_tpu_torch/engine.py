@@ -13,12 +13,17 @@ camera state (the JAX engine's use_native_controls="python"):
 
 ``impl="cuda"`` renders through the forward kernel's wrapper
 (ops/cuda/megakernel.py), which takes the plain pipeline for tensors on
-the CPU; ``impl="torch"`` always takes the plain pipeline. Accumulation
-buffers live on the engine's device and update in place.
+the CPU; ``impl="torch"`` always takes the plain pipeline. With
+``impl="cuda"`` the engine derives the static hyperplane hints from the
+scene once, at construction, into every group's config (the JAX engine,
+engine.py:196-228), so a step reads nothing back from the card to derive
+them. Accumulation buffers live on the engine's device and update in
+place.
 """
 from __future__ import annotations
 
 import time
+from dataclasses import replace
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -27,7 +32,7 @@ import torch
 from fourd_ray_tracing_tpu_torch import camera as cam
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig, accumulate, render_image
 from fourd_ray_tracing_tpu_torch.models.scene import Scene
-from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import render_image_cuda
+from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import render_image_cuda, with_hints
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4, f32
 
 RENDERERS = {"cuda": render_image_cuda, "torch": render_image}
@@ -109,6 +114,11 @@ class RenderEngine:
         self.angles = angles.normalized(*(psi_constraint or (None, None)))
 
         render = RENDERERS[impl]
+        if impl == "cuda":
+            cfg = self.cfg = with_hints(scene, cfg)
+            if additional is not None and additional[0].plane_hints is None:
+                additional = (replace(additional[0], plane_hints=cfg.plane_hints,
+                                      plane_pairs=cfg.plane_pairs), additional[1])
         self.groups: List[_ViewGroup] = [_ViewGroup(cfg, self.views, render, self.device)]
         if additional is not None:
             add_cfg, add_views = additional

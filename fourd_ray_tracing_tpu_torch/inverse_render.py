@@ -25,8 +25,8 @@ neither, a 1-rank mesh. Only rank 0 prints.
     python -m fourd_ray_tracing_tpu_torch.inverse_render --param position --impl kernel
     torchrun --nproc-per-node 2 -m fourd_ray_tracing_tpu_torch.inverse_render --mesh
 
-Not ported yet, and raising: ``--freeze-hints`` (ROADMAP queue 1, item 4)
-and ``--ckpt`` (item 13).
+Not ported yet, and raising: ``--freeze-hints`` (ROADMAP queue 1, item 4a,
+training half) and ``--ckpt`` (item 13).
 """
 from __future__ import annotations
 
@@ -126,7 +126,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "K6 launch per step for position, on the card); plain = torch autograd "
                     "over the plain pipeline")
     ap.add_argument("--freeze-hints", action="store_true",
-                    help="not ported yet (ROADMAP queue 1, item 4)")
+                    help="not ported yet (ROADMAP queue 1, item 4a, training half)")
     ap.add_argument("--packed", action="store_true",
                     help="with --impl kernel: the packed-space loop "
                     "(diff.make_packed_train_step, Adam on the kernel's flat parameter "
@@ -178,8 +178,8 @@ def join_mesh(args: argparse.Namespace, device: torch.device):
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.freeze_hints:
-        raise NotImplementedError("--freeze-hints needs the static hints, which are not "
-                                  "ported yet (ROADMAP queue 1, item 4)")
+        raise NotImplementedError("--freeze-hints (the hinted gradient kernels) is not "
+                                  "ported yet (ROADMAP queue 1, item 4a, training half)")
     if args.ckpt:
         raise NotImplementedError("--ckpt is not ported yet (ROADMAP queue 1, item 13)")
     if args.packed and (args.impl != "kernel" or args.param != "glow" or args.mesh):

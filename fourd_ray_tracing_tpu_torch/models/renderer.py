@@ -41,11 +41,14 @@ from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec3, Vec4, normalize, redirect
 class RenderConfig:
     """Static render parameters, field for field the JAX package's
     RenderConfig (renderer.py:48-147) with the same defaults. This port
-    renders rng_mode="per_sample", sampler_method="poly", intersect="fast"
-    and no hints; other values raise (check_supported). The Mosaic-only
-    knobs (bounce_loop, tile_sublanes, tiles_per_program) and ``remat``
-    are carried and ignored. Of the training knobs, ``freeze_hints`` raises
-    (the hints are not ported), and ``grad_sample_chunk`` must divide
+    renders rng_mode="per_sample", sampler_method="poly", intersect="fast",
+    with or without the static hyperplane hints (``plane_hints``,
+    ``plane_pairs``: models/scene.py); ``axis_hints`` and other values raise
+    (check_supported). The hints are the forward's: the gradient paths
+    refuse them (check_trainable). The Mosaic-only knobs (bounce_loop,
+    tile_sublanes, tiles_per_program) and ``remat`` are carried and
+    ignored. Of the training knobs, ``freeze_hints`` raises (the training
+    half of the hints is not ported), and ``grad_sample_chunk`` must divide
     ``samples`` as in the JAX package, but changes nothing here: on the TPU
     it only chunked the grad kernel's VMEM residuals, which re-associates
     its sums."""
@@ -78,10 +81,10 @@ def check_supported(cfg: RenderConfig) -> None:
             f"rng_mode={cfg.rng_mode!r} is not ported yet (ROADMAP queue 1, "
             "items 5-6); use 'per_sample'"
         )
-    if cfg.plane_hints is not None or cfg.plane_pairs is not None or cfg.axis_hints is not None:
+    if cfg.axis_hints is not None:
         raise NotImplementedError(
-            "plane_hints/plane_pairs/axis_hints are not ported yet (ROADMAP "
-            "queue 1, item 4)"
+            "axis_hints belong to the composite primitives, which are not ported "
+            "yet (ROADMAP queue 1, item 4b)"
         )
     if cfg.sampler_method != "poly":
         raise NotImplementedError(
@@ -95,13 +98,29 @@ def check_supported(cfg: RenderConfig) -> None:
         )
     if cfg.freeze_hints:
         raise NotImplementedError(
-            "freeze_hints needs the static hints, which are not ported yet "
-            "(ROADMAP queue 1, item 4); train without it: every gradient is exact"
+            "freeze_hints (the hinted folds in the gradient kernels) is not ported "
+            "yet (ROADMAP queue 1, item 4a, training half); train without it: "
+            "every gradient is exact"
         )
     if cfg.samples % max(1, cfg.grad_sample_chunk):
         raise ValueError(
             f"samples ({cfg.samples}) must be divisible by grad_sample_chunk "
             f"({cfg.grad_sample_chunk})"
+        )
+
+
+def check_trainable(cfg: RenderConfig) -> None:
+    """The gradient paths' check (the plain autograd route, K4-K6, K8):
+    check_supported, and ValueError when ``cfg`` carries static hints:
+    hinted normal components would get no gradient and the pair fold
+    rewrites the walls' math (the JAX package refuses them there too,
+    gradkernel.py:663-671)."""
+    check_supported(cfg)
+    if cfg.plane_hints is not None or cfg.plane_pairs is not None or cfg.axis_hints is not None:
+        raise ValueError(
+            "static scene hints are the forward's: the gradient paths run without "
+            "them (their freeze_hints contract is ROADMAP queue 1, item 4a, "
+            "training half, not ported yet)"
         )
 
 
@@ -160,7 +179,7 @@ class Bounce0(NamedTuple):
 
 def precompute_bounce0(scene: Scene, ray_o: Vec4, ray_d: Vec4, cfg: RenderConfig) -> Bounce0:
     o, d = ray_o, ray_d
-    inter = intersect_scene_fast(scene, o, d)
+    inter = intersect_scene_fast(scene, o, d, cfg.plane_hints, cfg.plane_pairs)
     zero3 = Vec3.full(0.0, like=d.x)
     result = zero3
     env = scene.environment
@@ -195,10 +214,10 @@ def bounce0_direction_update(pre0: Bounce0, ray_d: Vec4, pixel_bits, seed, count
                     pixel_bits, seed, counter)
 
 
-def _shade(scene: Scene, o, d, result, throughput, alive):
+def _shade(scene: Scene, o, d, result, throughput, alive, cfg: RenderConfig):
     """Intersect; add escaped environment light, then emission.
     Returns (intersection, result, alive)."""
-    inter = intersect_scene_fast(scene, o, d)
+    inter = intersect_scene_fast(scene, o, d, cfg.plane_hints, cfg.plane_pairs)
     zero3 = Vec3.full(0.0, like=result.x)
     env = scene.environment
     if env is not None and env.enabled:
@@ -218,14 +237,14 @@ def trace_rays(scene: Scene, ray_d: Vec4, pixel_bits, seed, counter, cfg: Render
     o, result, throughput, alive = pre0.o, pre0.result, pre0.throughput, pre0.alive
     small_indent = float(np.float32(cfg.small_indent))
     for _ in range(1, cfg.reflections_amount):
-        inter, result, alive = _shade(scene, o, d, result, throughput, alive)
+        inter, result, alive = _shade(scene, o, d, result, throughput, alive, cfg)
         throughput = (throughput * inter.color).where(alive, throughput)
         new_o = o + d * inter.dist + inter.norm * small_indent
         o = new_o.where(alive, o)
         d, counter = _scatter(d, inter.norm, reflect(d, inter.norm), alive,
                               inter.refl_prob, pixel_bits, seed, counter)
     # Final bounce: shade only; its direction draws would be dead.
-    _, result, _ = _shade(scene, o, d, result, throughput, alive)
+    _, result, _ = _shade(scene, o, d, result, throughput, alive, cfg)
     return result
 
 

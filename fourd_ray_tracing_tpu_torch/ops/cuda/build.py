@@ -33,6 +33,10 @@ LIB_NAME = "libfourd_kernels.so"
 # configuration, which has its own unrolled instance. Their wrappers read
 # them here.
 K4_MAX_PARAMS, K4_MAX_BOUNCES, K4_MAIN_BOUNCES, K6_MAX_ZERO_SLOTS = 768, 16, 4, 16
+# K1's static hints descriptor (csrc/trace.cuh Hints): the counts, then up
+# to MAX_HINT_PLANES / 2 pairs and MAX_HINT_PLANES singles.
+MAX_HINT_PLANES = 64
+HINT_INTS = 2 + MAX_HINT_PLANES // 2 + MAX_HINT_PLANES
 DEFINES = (f"-DFOURD_K4_MAX_PARAMS={K4_MAX_PARAMS}", f"-DFOURD_K4_MAX_BOUNCES={K4_MAX_BOUNCES}",
            f"-DFOURD_K4_MAIN_BOUNCES={K4_MAIN_BOUNCES}",
            f"-DFOURD_K6_MAX_ZERO_SLOTS={K6_MAX_ZERO_SLOTS}")
@@ -111,8 +115,7 @@ def build() -> Path:
 
 
 def build_log() -> str:
-    path = library_path().parent / "build.log"
-    return path.read_text() if path.exists() else ""
+    return build_log_of(library_path())
 
 
 def kernel_resources(log: str) -> dict:
@@ -134,6 +137,55 @@ def kernel_resources(log: str) -> dict:
     return out
 
 
+# CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES (cuda.h): a launch with
+# more than 48 KB of dynamic shared memory sets it first, and so does the
+# occupancy query of such a launch.
+_MAX_DYNAMIC_SHARED = 8
+
+
+def resident_warps(lib: Path, launches: dict) -> dict:
+    """Resident warps per SM on the current card of the kernels of the
+    built library ``lib``, by mangled name: ``launches`` maps a pattern of
+    mangled names to the (threads a block, dynamic shared-memory bytes) of
+    their launch, and every kernel that matches a pattern (the first it
+    matches) is queried at that launch, with libcuda's
+    cuOccupancyMaxActiveBlocksPerMultiprocessor on the library's cubins,
+    which ``cuobjdump -xelf`` extracts. Works on any build of the sources,
+    an older tree's too. The CUDA context must exist (torch made it)."""
+    tool = Path(find_nvcc()).with_name("cuobjdump")
+    shapes = {}
+    for name in kernel_resources(build_log_of(lib)):
+        shape = next((v for pattern, v in launches.items() if re.search(pattern, name)), None)
+        if shape is not None:
+            shapes[name] = shape
+    cuda = ctypes.CDLL("libcuda.so.1")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([str(tool), "-xelf", "all", str(Path(lib).resolve())], cwd=tmp,
+                       capture_output=True, check=True)
+        for cubin in sorted(Path(tmp).glob("*.cubin")):
+            mod = ctypes.c_void_p()
+            if cuda.cuModuleLoad(ctypes.byref(mod), str(cubin).encode()) != 0:
+                continue
+            for name, (threads, smem) in shapes.items():
+                fn, blocks = ctypes.c_void_p(), ctypes.c_int()
+                if cuda.cuModuleGetFunction(ctypes.byref(fn), mod, name.encode()) != 0:
+                    continue
+                if smem > 48 * 1024 and cuda.cuFuncSetAttribute(fn, _MAX_DYNAMIC_SHARED,
+                                                                 ctypes.c_int(smem)) != 0:
+                    continue
+                if cuda.cuOccupancyMaxActiveBlocksPerMultiprocessor(
+                        ctypes.byref(blocks), fn, threads, ctypes.c_size_t(smem)) == 0:
+                    out[name] = blocks.value * threads // 32
+            cuda.cuModuleUnload(mod)
+    return out
+
+
+def build_log_of(lib: Path) -> str:
+    path = Path(lib).parent / "build.log"
+    return path.read_text() if path.exists() else ""
+
+
 def load() -> ctypes.CDLL:
     """The kernels' library, built and loaded at the first call of the
     process, with argtypes set; later calls return it at once."""
@@ -144,38 +196,33 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Sets the argument and result types of the library's entry points;
-    returns it."""
-    fn = lib.fourd_forward_launch
-    fn.argtypes = [
-        ctypes.c_void_p,                  # params (P,) or (F, P) float32, device
-        ctypes.c_longlong,                # row_stride: 0, or P for (F, P) rows
-        ctypes.c_void_p,                  # seeds (F,) uint32, device
-        ctypes.c_int,                     # n_frames
-        ctypes.c_void_p,                  # layout table (int[14]), host
-        ctypes.c_int, ctypes.c_int,       # width, height
-        ctypes.c_int, ctypes.c_int,       # row0, n_rows: the launch's block of image rows
-        ctypes.c_int, ctypes.c_int,       # samples, reflections
-        ctypes.c_float,                   # small_indent
-        ctypes.c_void_p,                  # out (F, V, n_rows, W, 3) float32, device
-        ctypes.c_void_p,                  # cudaStream_t
-    ]
-    fn.restype = ctypes.c_int
-    fn = lib.fourd_forward_variant_launch
-    fn.argtypes = [ctypes.c_int, *lib.fourd_forward_launch.argtypes]  # variant, then K1's
-    fn.restype = ctypes.c_int
-    fn = lib.fourd_peak_launch
-    fn.argtypes = [
+# K1's arguments (csrc/megakernel.cu fourd_forward_launch).
+_FORWARD_ARGS = [
+    ctypes.c_void_p,                  # params (P,) or (F, P) float32, device
+    ctypes.c_longlong,                # row_stride: 0, or P for (F, P) rows
+    ctypes.c_void_p,                  # seeds (F,) uint32, device
+    ctypes.c_int,                     # n_frames
+    ctypes.c_void_p,                  # layout table (int[14]), host
+    ctypes.c_void_p,                  # static hints (int[HINT_INTS]), host
+    ctypes.c_int, ctypes.c_int,       # width, height
+    ctypes.c_int, ctypes.c_int,       # row0, n_rows: the launch's block of image rows
+    ctypes.c_int, ctypes.c_int,       # samples, reflections
+    ctypes.c_float,                   # small_indent
+    ctypes.c_void_p,                  # out (F, V, n_rows, W, 3) float32, device
+    ctypes.c_void_p,                  # cudaStream_t
+]
+# Each entry point's (argtypes, restype).
+SIGNATURES = {
+    "fourd_forward_launch": (_FORWARD_ARGS, ctypes.c_int),
+    "fourd_forward_variant_launch": ([ctypes.c_int, *_FORWARD_ARGS], ctypes.c_int),  # variant
+    "fourd_peak_launch": ([
         ctypes.c_int,                     # n_acc: 8, 16, 32 or 48
         ctypes.c_float,                   # b
         ctypes.c_int, ctypes.c_int,       # trips (rounds / 16), blocks
         ctypes.c_void_p,                  # block_sums (blocks,) float32, device
         ctypes.c_void_p,                  # cudaStream_t
-    ]
-    fn.restype = ctypes.c_int
-    fn = lib.fourd_ablate_launch
-    fn.argtypes = [
+    ], ctypes.c_int),
+    "fourd_ablate_launch": ([
         ctypes.c_int,                     # mode: 0 acc, 1 loss, 2 vjp
         ctypes.c_void_p,                  # params (P,) float32, device
         ctypes.c_uint32,                  # seed
@@ -187,10 +234,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p,                  # loss_parts (n_cols,) float64, device
         ctypes.c_void_p,                  # value out () float32, device
         ctypes.c_void_p,                  # cudaStream_t
-    ]
-    fn.restype = ctypes.c_int
-    fn = lib.fourd_loss_grad_launch
-    fn.argtypes = [
+    ], ctypes.c_int),
+    "fourd_loss_grad_launch": ([
         ctypes.c_void_p,                  # params (P,) float32, device
         ctypes.c_void_p,                  # seeds (F,) uint32, device
         ctypes.c_int,                     # n_frames
@@ -207,18 +252,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p,                  # grad out (P,) float32, device
         ctypes.c_void_p,                  # loss out () float32, device
         ctypes.c_void_p,                  # cudaStream_t
-    ]
-    fn.restype = ctypes.c_int
-    fn = lib.fourd_grad_scratch_cols
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    fn = lib.fourd_grad_occupancy
-    # which (0 K4's and K5's sweep, 1 K4's pass 1, 2 K6's pass 1, 3 and 4 K6's
-    # sweeps of row a and row b), bounces, P
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    fn = lib.fourd_light_vjp_launch
-    fn.argtypes = [
+    ], ctypes.c_int),
+    "fourd_grad_scratch_cols": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+                                ctypes.c_int),
+    "fourd_light_vjp_launch": ([
         ctypes.c_void_p,                  # params (P,) or (F, P) float32, device
         ctypes.c_longlong,                # row_stride: 0, or P for (F, P) rows
         ctypes.c_int,                     # params rows F
@@ -232,10 +269,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p,                  # grad_parts (F*P, n_cols) float32, device
         ctypes.c_void_p,                  # grad out (F, P) float32, device
         ctypes.c_void_p,                  # cudaStream_t
-    ]
-    fn.restype = ctypes.c_int
-    fn = lib.fourd_soft_loss_grad_launch
-    fn.argtypes = [
+    ], ctypes.c_int),
+    "fourd_soft_loss_grad_launch": ([
         ctypes.c_void_p,                  # params (P,) float32, device
         ctypes.c_uint32,                  # seed
         ctypes.c_void_p,                  # layout table (int[14]), host
@@ -256,6 +291,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p,                  # loss out () float32, device
         ctypes.c_void_p,                  # alpha_cot out (V, n_rows, W) float32, device
         ctypes.c_void_p,                  # cudaStream_t
-    ]
-    fn.restype = ctypes.c_int
+    ], ctypes.c_int),
+}
+
+
+def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
+    """Sets the argument and result types of the library's entry points
+    (``names``, every entry of SIGNATURES by default); returns it."""
+    for name in names or SIGNATURES:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = SIGNATURES[name]
     return lib

@@ -76,6 +76,7 @@ def loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Ca
     autograd graph of one band in memory, for shapes whose whole graph
     would not fit. ``rows`` (the module's docstring) sums over those rows
     alone, ``target`` their block."""
+    renderer.check_trainable(cfg)
     if band_rows is None and rows is None:
         vec = packed.detach().clone().requires_grad_(True)
         scene, camera = params.unpack(vec, like_scene, like_camera)
@@ -102,7 +103,9 @@ def loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Ca
 
 
 def check_shape(lay: params.Layout, cfg: RenderConfig) -> None:
-    """Raise for what the gradient kernels cannot hold."""
+    """Raise for what the gradient kernels cannot hold, and for static
+    hints (renderer.check_trainable)."""
+    renderer.check_trainable(cfg)
     if lay.size > MAX_PARAMS:
         raise ValueError(f"the gradient kernels hold at most {MAX_PARAMS} packed "
                          f"parameters in shared memory; this scene and camera have {lay.size}")
@@ -127,20 +130,22 @@ def _check_launch(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig, *
     check_shape(lay, cfg)
 
 
-# The kernels of the gradient launches, as fourd_grad_occupancy numbers
-# them: the sweep of K4 and K5, K4's pass 1, and K6's pass 1 and its
-# sweeps of row a and row b.
-GRAD_KERNELS = {"sweep": 0, "loss_cot": 1, "soft_sum": 2, "soft_row_a": 3, "soft_row_b": 4}
+# The gradient kernels' threads a block and a sweep thread's shared-memory
+# column pitch in floats (csrc/reduce.cuh kGradBlock, kGradPitch).
+GRAD_BLOCK, GRAD_PITCH = 64, 65
 
 
-def resident_warps(kernel: str, lay: params.Layout, cfg: RenderConfig) -> int:
-    """Resident warps per SM that ``kernel`` (a key of GRAD_KERNELS)
-    reaches at this layout and bounce count on the current card."""
-    warps = build.load().fourd_grad_occupancy(GRAD_KERNELS[kernel], cfg.reflections_amount,
-                                              lay.size)
-    if warps < 0:
-        raise RuntimeError(f"occupancy query of {kernel} failed")
-    return warps
+def launch_shapes(lay: params.Layout) -> dict:
+    """(threads a block, dynamic shared-memory bytes) of each kernel of the
+    gradient launches over ``lay`` (csrc/gradkernel.cu, reduce.cuh
+    grad_smem_bytes): the sweeps (K4's and K5's, K6's rows a and b) hold
+    the params row and their threads' columns, row b one byte a slot more;
+    the pass-1 kernels (K4's loss_cot, K6's soft_sum) the params row."""
+    sweep = 4 * (1 + GRAD_PITCH) * lay.size
+    row = 4 * lay.size
+    return {"sweep_kernel": (GRAD_BLOCK, sweep), "soft_row_a_kernel": (GRAD_BLOCK, sweep),
+            "soft_row_b_kernel": (GRAD_BLOCK, sweep + lay.size),
+            "loss_cot_kernel": (GRAD_BLOCK, row), "soft_sum_kernel": (GRAD_BLOCK, row)}
 
 
 def _scratch_cols(lib, table, cfg: RenderConfig, n_rows: int, n_frames: int = 1) -> int:
@@ -206,7 +211,7 @@ def loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: Cam
     """(loss, (P,) gradient) of the packed CUDA vector by one kernel
     launch (with ``rows``, those rows' part, ``target`` their block); a
     vector on another device raises."""
-    renderer.check_supported(cfg)
+    renderer.check_trainable(cfg)
     lay = params.layout(like_scene, like_camera)
     target = torch.as_tensor(target, dtype=torch.float32, device=packed.device).contiguous()
     words, _ = renderer.seed_words(seed)
@@ -242,7 +247,7 @@ def make_packed_loss_and_grad(scene: Scene, camera: Camera, cfg: RenderConfig):
     * ``scene_vec0`` the scene's slice of the packed vector;
     * ``unpack(scene_vec) -> Scene``.
     """
-    renderer.check_supported(cfg)
+    renderer.check_trainable(cfg)
     packed = params.pack(scene, camera).detach()
     n = params.n_scene(scene)
     cam_vec = packed[n:]
@@ -276,6 +281,7 @@ def render_light_vjp_plain(packed: torch.Tensor, like_scene: Scene, like_camera:
     (F, P) rows of same-structure scenes take (F, ...) cotangents and give
     (F, P). With ``rows``, over those image rows, the cotangent their
     block."""
+    renderer.check_trainable(cfg)
     seed = _scalar_seed(seed)
     row0, n_rows = launch_rows(cfg, rows)
     band = slice(row0, row0 + n_rows)
@@ -326,7 +332,7 @@ def render_light_vjp_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: 
                           cfg: RenderConfig, seed, cot_light, rows=None) -> torch.Tensor:
     """K5 on a CUDA vector, as ``render_light_vjp_plain`` computes it: one
     launch for (P,) or for (F, P) rows; another device raises."""
-    renderer.check_supported(cfg)
+    renderer.check_trainable(cfg)
     cot = torch.as_tensor(cot_light, dtype=torch.float32, device=packed.device).contiguous()
     return launch_light_vjp(packed.detach().contiguous(), params.layout(like_scene, like_camera),
                             cfg, _scalar_seed(seed), cot, rows)
@@ -355,6 +361,7 @@ def render_soft_loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene,
     ``band_rows`` rows (the whole image by default), as
     ``loss_and_grad_plain`` does; with ``rows``, over those image rows,
     target, alpha and the alpha cotangent their blocks."""
+    renderer.check_trainable(cfg)
     seed = _scalar_seed(seed)
     device = packed.device
     row0, n_rows = launch_rows(cfg, rows)
@@ -440,7 +447,7 @@ def render_soft_loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like
                                    cfg: RenderConfig, seed, target, alpha, zero_map, rows=None):
     """K6 on a CUDA vector, as ``render_soft_loss_and_grad_plain``
     computes it, in one launch; another device raises."""
-    renderer.check_supported(cfg)
+    renderer.check_trainable(cfg)
     device = packed.device
     target = torch.as_tensor(target, dtype=torch.float32, device=device).contiguous()
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device).detach().contiguous()

@@ -9,19 +9,30 @@ here one launch per rank on its block of image rows, parallel/mesh.py).
 Tensors on the CPU go through the plain torch pipeline
 (models/renderer.py); tensors on a CUDA device go through the kernel, or
 the call raises. ``LAUNCHES`` counts kernel launches, so a run can show
-that its main path went through the kernel; ``ROW_LAUNCHES`` counts those
-of them that read per-frame params rows (K2), ``SHARD_LAUNCHES`` those
-that render a block of rows smaller than the image (K3).
+that its main path went through the kernel; ``HINTED_LAUNCHES`` counts
+those of them that ran the static hints, ``ROW_LAUNCHES`` those that read
+per-frame params rows (K2), ``SHARD_LAUNCHES`` those that render a block
+of rows smaller than the image (K3).
+
+The static hyperplane hints (``cfg.plane_hints``, ``cfg.plane_pairs``)
+select the kernel's fold; the render entry points derive them from a
+concrete scene when the config has none (``with_hints``, as
+megakernel.py:426-436 does) and hand them to the plain pipeline too on
+the CPU. A scene whose normals require grad gets none (plane_norm_hints).
+``launch_forward`` renders what its config says: the gradient paths'
+launches (diff.RenderLight) carry no hints.
 
 The forward kernel's measurement variants (tools/fwd_ablate.py) launch the
-same kernel with stubs compiled in (``launch_forward_variant``, counted in
-``VARIANT_LAUNCHES``); their plain version is the plain pipeline under
-``stubs``, which patches the renderer as the JAX tool patches its own.
+same kernel with stubs compiled in, or with the generic instance of its
+fold (``launch_forward_variant``, counted in ``VARIANT_LAUNCHES``); their
+plain version is the plain pipeline under ``stubs``, which patches the
+renderer as the JAX tool patches its own.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -29,7 +40,7 @@ import torch
 from fourd_ray_tracing_tpu_torch.camera import Camera
 from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
-from fourd_ray_tracing_tpu_torch.models.scene import Scene
+from fourd_ray_tracing_tpu_torch.models.scene import Scene, plane_norm_hints, plane_pair_hints
 from fourd_ray_tracing_tpu_torch.ops import rng
 from fourd_ray_tracing_tpu_torch.ops.cuda import build
 from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
@@ -37,11 +48,19 @@ from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
 from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh
 
 LAUNCHES = 0
+HINTED_LAUNCHES = 0
 ROW_LAUNCHES = 0
 SHARD_LAUNCHES = 0
 VARIANT_LAUNCHES = 0
-# The stub variants and their kStub codes (csrc/trace.cuh).
+# The stub variants and their kStub codes (csrc/trace.cuh); with
+# GENERIC_FOLD, the variant launch's code for the fold's generic instance
+# (megakernel.cu kGenericFold), which computes what the production kernel
+# does.
 VARIANTS = {"sampler_const": 1, "rng_const": 2, "both_const": 3}
+GENERIC_FOLD = "generic_fold"
+_VARIANT_CODES = {**VARIANTS, GENERIC_FOLD: 4}
+# The kernel's threads a block (csrc/megakernel.cu kK1Block).
+K1_BLOCK = 128
 
 
 def _device_of(scene: Scene, camera: Camera) -> torch.device:
@@ -49,6 +68,68 @@ def _device_of(scene: Scene, camera: Camera) -> torch.device:
     if len(devices) != 1:
         raise ValueError(f"scene and camera tensors lie on several devices: {devices}")
     return devices.pop()
+
+
+def with_hints(scenes, cfg: RenderConfig) -> RenderConfig:
+    """``cfg`` with the static hyperplane hints of ``scenes`` (a Scene, or
+    same-structure scenes that one launch renders as rows) when it has none
+    and they can be derived: one set that every scene gives (a soft pair's
+    zero_object row keeps the walls), at most build.MAX_HINT_PLANES
+    hyperplanes, no normal that requires grad. Otherwise ``cfg`` as it is.
+    Reads the scenes' hyperplanes, a copy to the host each."""
+    if cfg.intersect != "fast" or cfg.plane_hints is not None:
+        return cfg
+    found = set()
+    for scene in [scenes] if isinstance(scenes, Scene) else scenes:
+        if len(scene.spaces) > build.MAX_HINT_PLANES:
+            return cfg
+        hints = plane_norm_hints(scene)
+        found.add((hints, plane_pair_hints(scene, hints)))
+    if len(found) != 1:
+        return cfg
+    hints, pairs = found.pop()
+    if hints is None:
+        return cfg
+    return dataclasses.replace(cfg, plane_hints=hints, plane_pairs=pairs)
+
+
+def hint_table(cfg: RenderConfig, n_spaces: int):
+    """The kernel's int[HINT_INTS] descriptor of ``cfg``'s static hints
+    (csrc/trace.cuh Hints): the pairs (i | j << 8 | axis << 16), then the
+    single planes (index | live components << 8), in the fold's order;
+    n_singles -1 without hints."""
+    words = (ctypes.c_int * build.HINT_INTS)()
+    if cfg.plane_hints is None:
+        words[1] = -1
+        return words
+    if len(cfg.plane_hints) != n_spaces:
+        raise ValueError(f"plane_hints has {len(cfg.plane_hints)} entries for {n_spaces} "
+                         "hyperplanes")
+    if n_spaces > build.MAX_HINT_PLANES:
+        raise ValueError(f"the forward kernel takes the hints of at most "
+                         f"{build.MAX_HINT_PLANES} hyperplanes, got {n_spaces}")
+    pairs, singles = cfg.plane_pairs or ((), range(n_spaces))
+    words[0], words[1] = len(pairs), len(singles)
+    for k, (i, j, axis) in enumerate(pairs):
+        words[2 + k] = i | j << 8 | axis << 16
+    for k, i in enumerate(singles):
+        live = sum(1 << c for c, zero in enumerate(cfg.plane_hints[i]) if not zero)
+        words[2 + build.MAX_HINT_PLANES // 2 + k] = i | live << 8
+    return words
+
+
+def shared_bytes(lay: params.Layout, table) -> int:
+    """The launch's dynamic shared memory (csrc/megakernel.cu
+    shared_bytes): the params padded to 16 bytes, and the fold table."""
+    singles = lay.n_spaces if table[1] < 0 else table[1]
+    return 16 * ((lay.size + 3) // 4) + 16 * (1 + table[0] + 2 * singles + 2 * lay.n_spheres)
+
+
+def launch_shape(scene: Scene, lay: params.Layout) -> tuple:
+    """(threads a block, dynamic shared-memory bytes) of the launch that
+    renders ``scene`` (its hints derived) with layout ``lay``."""
+    cfg = with_hints(scene, RenderConfig())
+    return K1_BLOCK, shared_bytes(lay, hint_table(cfg, lay.n_spaces))
 
 
 def seed_tensor(words, device) -> torch.Tensor:
@@ -72,8 +153,9 @@ def launch_forward(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
     and (F,) int32 seed words, on their CUDA device. ``packed`` is (P,),
     one scene rendered at every seed (K1), or (F, P), frame f rendering
     row f at seeds[f] (K2). A block of rows is bitwise those rows of the
-    whole image (K3)."""
-    global LAUNCHES, ROW_LAUNCHES, SHARD_LAUNCHES
+    whole image (K3). The fold takes ``cfg``'s static hints, if any, which
+    every row shares."""
+    global LAUNCHES, HINTED_LAUNCHES, ROW_LAUNCHES, SHARD_LAUNCHES
     row0, n_rows = launch_rows(cfg, rows)
     if packed.device.type != "cuda" or seeds.device != packed.device:
         raise ValueError(f"kernel inputs must share one CUDA device, got {packed.device}, {seeds.device}")
@@ -87,6 +169,7 @@ def launch_forward(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
     multi = packed.dim() == 2
     if multi and packed.shape[0] != seeds.numel():
         raise ValueError(f"{packed.shape[0]} params rows for {seeds.numel()} seeds")
+    hints = hint_table(cfg, lay.n_spaces)
     lib = build.load()
     n_frames = seeds.numel()
     out = torch.empty((n_frames, lay.n_views, n_rows, cfg.width, 3),
@@ -96,13 +179,14 @@ def launch_forward(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fourd_forward_launch(
             packed.data_ptr(), lay.size if multi else 0, seeds.data_ptr(), n_frames,
-            ctypes.addressof(table),
+            ctypes.addressof(table), ctypes.addressof(hints),
             cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
             float(np.float32(cfg.small_indent)), out.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"forward kernel launch failed: cudaError {err}")
     LAUNCHES += 1
+    HINTED_LAUNCHES += int(cfg.plane_hints is not None)
     ROW_LAUNCHES += int(multi)
     SHARD_LAUNCHES += int(n_rows < cfg.height)
     return out
@@ -111,8 +195,10 @@ def launch_forward(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
 def render_light_cuda(scene: Scene, camera: Camera, cfg: RenderConfig, seeds) -> torch.Tensor:
     """Sample-averaged light: (H, W, 3), (V, H, W, 3), or with a (K,)
     seed vector (K, H, W, 3) / (K, V, H, W, 3) from ONE launch; frame k
-    is bitwise the launch with the scalar seed seeds[k]."""
+    is bitwise the launch with the scalar seed seeds[k]. The static hints
+    are derived when ``cfg`` has none (``with_hints``)."""
     device = _device_of(scene, camera)
+    cfg = with_hints(scene, cfg)
     if device.type == "cpu":
         return renderer.render_light(scene, camera, cfg, seeds)
     if device.type != "cuda":
@@ -136,6 +222,7 @@ def render_light_cuda_multi(scenes, camera: Camera, cfg: RenderConfig, seed) -> 
     a leading scene axis: (F, H, W, 3) or (F, V, H, W, 3) from ONE launch
     (K2); row f is bitwise ``render_light_cuda(scenes[f], ...)``."""
     device = _device_of(scenes[0], camera)
+    cfg = with_hints(scenes, cfg)
     if device.type == "cpu":
         return torch.stack([renderer.render_light(s, camera, cfg, seed) for s in scenes])
     if device.type != "cuda":
@@ -161,6 +248,7 @@ def sharded_render_light_cuda(scene: Scene, camera: Camera, cfg: RenderConfig, s
     ``gather=False`` the rank's block. Tensors on the CPU run the plain pipeline on the rank's rows;
     tensors off the mesh's device raise."""
     device = _device_of(scene, camera)
+    cfg = with_hints(scene, cfg)
     row0, n_rows = mesh.kernel_rows(cfg.height, device)
     if device.type == "cpu":
         out = renderer.render_light(scene, camera, cfg, seeds, slice(row0, row0 + n_rows))
@@ -189,6 +277,7 @@ def sharded_render_light_cuda_multi(scenes, camera: Camera, cfg: RenderConfig, s
     one launch per rank on its block of rows, (F, [V,] rows, W, 3) (the
     forward of ``diff.render_light_pair`` with a mesh)."""
     device = _device_of(scenes[0], camera)
+    cfg = with_hints(scenes, cfg)
     row0, n_rows = mesh.kernel_rows(cfg.height, device)
     if device.type == "cpu":
         out = torch.stack([renderer.render_light(s, camera, cfg, seed, slice(row0, row0 + n_rows))
@@ -221,10 +310,11 @@ def const_uniform(pixel_bits, seed, counter, active):
 
 @contextlib.contextmanager
 def stubs(variant: str | None):
-    """The plain pipeline with ``variant``'s stubs (None: none): patches
-    ``renderer.direction_from_uniforms`` and ``rng.masked_uniform01``, the
-    names the renderer calls them by, and restores them on exit."""
-    code = 0 if variant is None else VARIANTS[variant]
+    """The plain pipeline with ``variant``'s stubs (None and GENERIC_FOLD:
+    none): patches ``renderer.direction_from_uniforms`` and
+    ``rng.masked_uniform01``, the names the renderer calls them by, and
+    restores them on exit."""
+    code = 0 if variant is None else _VARIANT_CODES[variant]
     saved = renderer.direction_from_uniforms, rng.masked_uniform01
     try:
         if code & 1:
@@ -239,7 +329,8 @@ def stubs(variant: str | None):
 def launch_forward_variant(variant: str, packed: torch.Tensor, lay: params.Layout,
                            cfg: RenderConfig, seeds: torch.Tensor) -> torch.Tensor:
     """``launch_forward`` (one scene, the whole image) with ``variant``'s
-    stubs compiled into the kernel: (F, V, H, W, 3) float32 light."""
+    stubs compiled into the kernel, or the fold's generic instance:
+    (F, V, H, W, 3) float32 light."""
     global VARIANT_LAUNCHES
     if packed.device.type != "cuda" or seeds.device != packed.device:
         raise ValueError(f"kernel inputs must share one CUDA device, got {packed.device}, {seeds.device}")
@@ -248,6 +339,7 @@ def launch_forward_variant(variant: str, packed: torch.Tensor, lay: params.Layou
         raise ValueError(f"packed params must be a contiguous ({lay.size},) float32 tensor")
     if seeds.dtype != torch.int32 or seeds.dim() != 1 or not seeds.is_contiguous():
         raise ValueError("seeds must be a contiguous (F,) int32 tensor of uint32 words")
+    hints = hint_table(cfg, lay.n_spaces)
     lib = build.load()
     n_frames = seeds.numel()
     out = torch.empty((n_frames, lay.n_views, cfg.height, cfg.width, 3),
@@ -256,9 +348,10 @@ def launch_forward_variant(variant: str, packed: torch.Tensor, lay: params.Layou
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fourd_forward_variant_launch(
-            VARIANTS[variant], packed.data_ptr(), 0, seeds.data_ptr(), n_frames,
-            ctypes.addressof(table), cfg.width, cfg.height, 0, cfg.height, cfg.samples,
-            cfg.reflections_amount, float(np.float32(cfg.small_indent)), out.data_ptr(), stream,
+            _VARIANT_CODES[variant], packed.data_ptr(), 0, seeds.data_ptr(), n_frames,
+            ctypes.addressof(table), ctypes.addressof(hints), cfg.width, cfg.height, 0, cfg.height,
+            cfg.samples, cfg.reflections_amount, float(np.float32(cfg.small_indent)),
+            out.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"forward variant kernel launch failed: cudaError {err}")

@@ -5,20 +5,25 @@
 OTHER is another checkout of the repository, for example the parent
 commit unpacked with ``git archive`` into a git-ignored directory. Both
 trees build their kernels (each from its own sources, into its own build
-directory). Then each tree's gradient launches are timed in a process of
-its own, the trees in turns (other, this, this, other), at the soft bench
-shape (room_with_sphere, 1280x720, 8 spp, 4 bounces, light_coefficient
-0.12, sphere 0, edge width 0.05, a zero target, the bench camera): K4 at
-1 and 4 frames, K5 over 1 and 2 rows (a seeded random cotangent), K2
-over the scene and its zero_object row, and K6; ms per call, the median of
-``--repeats`` runs of 4 back-to-back calls, CUDA events; one JSON line a
-turn, with the gradient kernels' registers, stack and spill from the
-tree's build log. Last, the SASS of K1 and its stub variants in both
-builds, instruction for instruction (cuobjdump).
+directory). Then each tree's launches are timed in a process of its own,
+the trees in turns (other, this, this, other), on room_with_sphere at
+1280x720, 8 spp, 4 bounces, the bench camera: the forward kernel K1 at the
+headline 4-frame launch (with the static hints where the tree has them)
+and the engine's ``step_frames(4)``; at light_coefficient 0.12, sphere 0,
+edge width 0.05 and a zero target, K4 at 1 and 4 frames, K5 over 1 and 2
+rows (a seeded random cotangent), K2 over the scene and its zero_object
+row, and K6. Each figure is ms per call, the median of ``--repeats`` runs
+of 4 back-to-back calls, CUDA events; one JSON line a turn. Then each
+tree's kernels' registers, stack and spill (its build log) and K1's
+resident warps per SM (libcuda's occupancy query on its cubins), and
+last the SASS of every kernel but K1 in both builds, instruction for
+instruction (cuobjdump): the gradient kernels K4-K6 and K8, which a change
+of the forward fold must leave as they are, and K7.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import statistics
@@ -28,7 +33,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve()
 ROOT = HERE.parents[2]
-K1_KINDS = {f"forward_kernel<{v}>": rf"14forward_kernelILi{v}E" for v in range(4)}
+K1 = r"forward_kernel"  # every instance of K1 and of its measurement variants
 
 
 def time_tree(tree: Path, repeats: int) -> dict:
@@ -38,10 +43,13 @@ def time_tree(tree: Path, repeats: int) -> dict:
     import numpy as np
     import torch
 
+    from fourd_ray_tracing_tpu_torch import camera as cam
     from fourd_ray_tracing_tpu_torch import diff
+    from fourd_ray_tracing_tpu_torch.engine import RenderEngine
     from fourd_ray_tracing_tpu_torch.models import library, params
     from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
     from fourd_ray_tracing_tpu_torch.ops.cuda import build, gradkernel, megakernel
+    from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
     from fourd_ray_tracing_tpu_torch.tools import common
 
     def ms(fn, calls=4):
@@ -60,10 +68,15 @@ def time_tree(tree: Path, repeats: int) -> dict:
 
     dev = torch.device("cuda")
     build.load()
-    cfg = RenderConfig(width=1280, height=720, samples=8, reflections_amount=4,
-                       rng_mode="per_sample", light_coefficient=0.12)
+    head = RenderConfig(width=1280, height=720, samples=8, reflections_amount=4,
+                        rng_mode="per_sample")
+    cfg = dataclasses.replace(head, light_coefficient=0.12)
     scene, camera = library.room_with_sphere(dev), common.default_camera(dev)
     packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+    hinted = getattr(megakernel, "with_hints", lambda s, c: c)(scene, head)
+    engine = RenderEngine(scene, head, Vec4.of(0.0, -2.0, 0.0, 0.0, device=dev),
+                          cam.CameraAngles.of(0.0, 0.0, 0.0, device=dev), device=dev,
+                          deterministic=True)
     target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
     ref = ("spheres", 0)
     pair = params.stack_rows((scene, diff.zero_object(scene, ref)), camera)
@@ -75,6 +88,9 @@ def time_tree(tree: Path, repeats: int) -> dict:
     w1, w4 = megakernel.seed_tensor([1], dev), megakernel.seed_tensor([1, 2, 3, 4], dev)
     pw = megakernel.seed_tensor([1, 1], dev)
     out = {
+        "k1_4f": ms(lambda: megakernel.launch_forward(packed, lay, hinted, w4)),
+        "k1_hints": hinted.plane_pairs is not None,
+        "engine_step_frames_4": ms(lambda: engine.step_frames(4)),
         "k4_1f": ms(lambda: gradkernel.launch_loss_grad(packed, lay, cfg, w1, target)),
         "k4_4f": ms(lambda: gradkernel.launch_loss_grad(packed, lay, cfg, w4, target), calls=2),
         "k5_1row": ms(lambda: gradkernel.launch_light_vjp(packed, lay, cfg, 1, cot1)),
@@ -84,12 +100,45 @@ def time_tree(tree: Path, repeats: int) -> dict:
                                                           zero_map)),
     }
     out["pair_k2_plus_k5"] = out["k2_pair"] + out["k5_2rows"]
-    if hasattr(build, "kernel_resources"):  # trees older than this tool have none
-        out["resources"] = {name: res for name, res in
-                            build.kernel_resources(build.build_log()).items()
-                            if "gradkernel" in name and res}
     out["card"] = common.smi("name,power.limit")
     return out
+
+
+def k1_launch_shape(tree: Path) -> tuple:
+    """(threads a block, dynamic shared-memory bytes) of ``tree``'s K1 at
+    the headline launch: its wrapper says so where it can, else the first
+    design's 128 threads and the packed params alone."""
+    code = ("import json; from fourd_ray_tracing_tpu_torch.ops.cuda import megakernel as m; "
+            "from fourd_ray_tracing_tpu_torch.models import library, params; "
+            "from fourd_ray_tracing_tpu_torch.tools import common; import torch; "
+            "d = torch.device('cpu'); s = library.room_with_sphere(d); "
+            "c = common.default_camera(d); lay = params.layout(s, c); "
+            "f = getattr(m, 'launch_shape', None); "
+            "print(json.dumps(f(s, lay) if f else (128, 4 * lay.size)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True, text=True,
+                         check=True)
+    return tuple(json.loads(out.stdout.strip().splitlines()[-1]))
+
+
+def resources(tree: Path, lib: str) -> dict:
+    """Registers, stack and spill of every kernel of ``tree``'s build, and
+    the resident warps per SM of its K1 instances at the headline launch."""
+    import torch
+
+    from fourd_ray_tracing_tpu_torch.ops.cuda import build
+
+    torch.zeros(1, device="cuda")  # the context the occupancy query runs in
+    res = {n: r for n, r in build.kernel_resources(build.build_log_of(Path(lib))).items() if r}
+    threads, smem = k1_launch_shape(tree)
+    try:
+        warps = build.resident_warps(Path(lib), {K1: (threads, smem)})
+    except (OSError, RuntimeError, subprocess.CalledProcessError) as err:
+        print(json.dumps({"resident_warps_error": repr(err)}), flush=True)
+        warps = {}
+    k1 = {n: {**r, "resident_warps_per_sm": warps.get(n)} for n, r in res.items()
+          if re.search(K1, n)}
+    return {"k1": k1, "k1_block_threads": threads, "k1_smem_bytes": smem,
+            "others": {n: r for n, r in res.items() if not re.search(K1, n)}}
 
 
 def build_tree(tree: Path) -> subprocess.Popen:
@@ -116,18 +165,24 @@ def sass(lib: str) -> dict:
     return out
 
 
-def compare_k1(other_lib: str, this_lib: str) -> bool:
-    """Prints, for K1 and each stub variant, how many SASS instructions
-    differ between the two builds; True when none does."""
-    old, new = sass(other_lib), sass(this_lib)
-    same = True
-    for kind, pattern in K1_KINDS.items():
-        a = [f for n, f in old.items() if re.search(pattern, n)]
-        b = [f for n, f in new.items() if re.search(pattern, n)]
-        assert len(a) == len(b) == 1, (kind, len(a), len(b))
-        a, b = a[0], b[0]
+def compare_others(other_lib: str, this_lib: str) -> bool:
+    """Prints, for every function of the two builds but K1's, how many SASS
+    instructions differ; True when none does and both builds have the same
+    such functions. Names are compared from the kernel's own name on, without
+    the anonymous namespace's per-build prefix."""
+    def key(name):
+        for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", name):
+            if m.group(2)[:int(m.group(1))].endswith("_kernel"):
+                return name[m.start():]
+        return name
+
+    old = {key(n): f for n, f in sass(other_lib).items() if not re.search(K1, n)}
+    new = {key(n): f for n, f in sass(this_lib).items() if not re.search(K1, n)}
+    same = old.keys() == new.keys()
+    for name in sorted(old.keys() | new.keys()):
+        a, b = old.get(name, []), new.get(name, [])
         diff = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
-        print(json.dumps({"sass": kind, "other": len(a), "this": len(b), "differing": diff}),
+        print(json.dumps({"sass": name, "other": len(a), "this": len(b), "differing": diff}),
               flush=True)
         same = same and diff == 0
     return same
@@ -154,8 +209,10 @@ def main(argv=None) -> int:
     for tree in (other, ROOT, ROOT, other):
         subprocess.run([sys.executable, str(HERE), str(other), "--time", str(tree),
                         "--repeats", str(args.repeats)], check=True)
-    same = compare_k1(libs[other], libs[ROOT])
-    print(json.dumps({"k1_sass_identical": same}), flush=True)
+    for tree in (other, ROOT):
+        print(json.dumps({"resources": str(tree), **resources(tree, libs[tree])}), flush=True)
+    same = compare_others(libs[other], libs[ROOT])
+    print(json.dumps({"sass_identical_but_k1": same}), flush=True)
     return 0
 
 

@@ -4,14 +4,23 @@ and serve only to time a stage by its absence).
 
 Counterpart of the JAX package's tools/fwd_ablate.py:
 
-  baseline          the production K1, ABLATE_FPL (default 8) frames a launch
+  baseline          the production K1 with the static hints derived from the
+                    scene (megakernel.with_hints, as the JAX tool's
+                    render_light_pallas derives them), ABLATE_FPL (default
+                    8) frames a launch
   sampler_const     the S^3 sampler returns (0.5, 0.5, 0.5, 0.5); the RNG
                     draws are kept
   rng_const         every uniform is 0.5 without hashing, the counter
                     unchanged (the sampler then sees constants)
   both_const        both stubs
+  generic_fold      the baseline through the fold's generic instance (its
+                    counts read from the table), whatever the hint pattern;
+                    the same image
+  unhinted          the baseline without hints: every plane a single of
+                    four live components; the same image
   drop_<group>      the scene with one primitive group emptied (the port's
-                    groups: spaces, spheres), unless nothing would be left
+                    groups: spaces, spheres), unless nothing would be left;
+                    its own hints
   bounces_0/1/2     reflections_amount 0, 1, 2
   baseline_recheck  the baseline again, to bound drift over the run
 
@@ -22,8 +31,8 @@ megakernel.stubs, which patches the renderer as the JAX tool patches its
 own. Every variant times the light of ABLATE_FPL frames per launch (the
 tone map, a separate elementwise pass in the port, is left out). One JSON
 line per variant (grays/s: min, median, max of ``--rounds`` rounds of
-``--calls`` launches, CUDA events), then ``drift_check`` and
-``time_delta_pct_vs_baseline``. ABLATE_SCENE picks the scene:
+``--calls`` launches, CUDA events; the hints it ran), then
+``drift_check`` and ``time_delta_pct_vs_baseline``. ABLATE_SCENE picks the scene:
 room_with_sphere (default) or sphere_plane_light.
 
     [ABLATE_SCENE=sphere_plane_light] python -m fourd_ray_tracing_tpu_torch.tools.fwd_ablate [width height samples bounces]
@@ -89,19 +98,30 @@ def build_fn(scene, camera, cfg: RenderConfig, variant: str | None = None):
 
 
 def variants(scene, cfg: RenderConfig) -> list:
-    """(name, scene, cfg, stub variant) of every variant, in order."""
-    out = [("baseline", scene, cfg, None)]
-    out += [(name, scene, cfg, name) for name in megakernel.VARIANTS]
+    """(name, scene, cfg, kernel variant) of every variant, in order; each
+    cfg with the static hints of its scene but ``unhinted``'s."""
+    hinted = megakernel.with_hints(scene, cfg)
+    out = [("baseline", scene, hinted, None)]
+    out += [(name, scene, hinted, name) for name in (*megakernel.VARIANTS, megakernel.GENERIC_FOLD)]
+    out.append(("unhinted", scene, cfg, None))
     for field in GROUPS:
         if not getattr(scene, field):
             continue
         emptied = scene._replace(**{field: ()})
         if any(getattr(emptied, f) for f in GROUPS):  # keep at least one primitive
-            out.append((f"drop_{field}", emptied, cfg, None))
-    out += [(f"bounces_{k}", scene, dataclasses.replace(cfg, reflections_amount=k), None)
+            out.append((f"drop_{field}", emptied, megakernel.with_hints(emptied, cfg), None))
+    out += [(f"bounces_{k}", scene, dataclasses.replace(hinted, reflections_amount=k), None)
             for k in (0, 1, 2)]
-    out.append(("baseline_recheck", scene, cfg, None))
+    out.append(("baseline_recheck", scene, hinted, None))
     return out
+
+
+def hints_of(cfg: RenderConfig) -> str:
+    """The static hints a variant ran, in words."""
+    if cfg.plane_hints is None:
+        return "none"
+    pairs, singles = cfg.plane_pairs or ((), range(len(cfg.plane_hints)))
+    return f"{len(pairs)} wall pairs, {len(singles)} single planes"
 
 
 def run(device, width=1280, height=720, samples=8, bounces=4, calls=4, rounds=4) -> dict:
@@ -122,7 +142,7 @@ def run(device, width=1280, height=720, samples=8, bounces=4, calls=4, rounds=4)
         common.emit({"tool": "fwd_ablate", "variant": name, "gray_per_s": rates[name],
                      "min": min(rate), "max": max(rate), "ms": rays / rates[name] / 1e6,
                      "scene": scene_name, "frames_per_launch": fpl(), "device": str(device),
-                     "card": card, "hints": common.HINTS_NOTE})
+                     "card": card, "hints": f"{common.HINTS_NOTE['fwd_ablate']}: {hints_of(c)}"})
     base = rates["baseline"]
     common.emit({"tool": "fwd_ablate", "drift_check": rates["baseline_recheck"] / base - 1.0})
     common.emit({"tool": "fwd_ablate", "time_delta_pct_vs_baseline": {

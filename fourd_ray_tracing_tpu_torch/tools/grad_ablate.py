@@ -16,7 +16,8 @@ the split. Defaults: room_with_sphere, the bench camera, 1280x720, 8 spp,
 4 bounces, light_coefficient 0.12, a zero target; CUDA events around
 ``--calls`` launches (4) per round, ``--rounds`` rounds (3), the median
 round. The JAX tool ran with the static hints (with_frozen_hints); the
-port has none yet.
+port's gradient kernels run none yet (ROADMAP queue 1, item 4a, training
+half).
 
     python -m fourd_ray_tracing_tpu_torch.tools.grad_ablate [width height samples bounces]
     python -m fourd_ray_tracing_tpu_torch.tools.grad_ablate 32 16 2 2 --device cpu --rounds 1 --calls 1
@@ -88,7 +89,8 @@ def run(device, width=1280, height=720, samples=8, bounces=4, calls=4, rounds=3)
         ms[mode] = statistics.median(times)
         common.emit({"tool": "grad_ablate", "mode": mode, "ms": ms[mode], "ms_rounds": times,
                      "grays_per_s": rays / ms[mode] / 1e6, "value": values[mode], "shape": shape,
-                     "device": str(device), "card": card, "hints": common.HINTS_NOTE})
+                     "device": str(device), "card": card,
+                     "hints": common.HINTS_NOTE["grad_ablate"]})
     split = {"pass1": ms["acc"], "tone_map_loss": ms["loss"] - ms["acc"],
              "cotangent": ms["vjp"] - ms["loss"], "sweep_reduction": ms["k4"] - ms["vjp"]}
     common.emit({"tool": "grad_ablate", "k4_split_ms": split, "k4_ms": ms["k4"], "shape": shape,

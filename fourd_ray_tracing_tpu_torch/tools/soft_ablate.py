@@ -109,7 +109,7 @@ def run(device, width=1280, height=720, samples=8, bounces=4, calls=8, rounds=30
         ms[name], losses[name], rounds_ms[name] = statistics.median(times), value, times
         common.emit({"tool": "soft_ablate", "variant": name, "ms": ms[name], "ms_rounds": times,
                      "grays_per_s": rays / ms[name] / 1e6, "loss": value, "device": str(device),
-                     "card": card, "hints": common.HINTS_NOTE})
+                     "card": card, "hints": common.HINTS_NOTE["soft_ablate"]})
     win = ms["pair_soft"] - ms["soft_full"]
     by_round = [p - f for p, f in zip(rounds_ms["pair_soft"], rounds_ms["soft_full"])]
     quartiles = statistics.quantiles(by_round, n=4) if len(by_round) > 1 else by_round * 3

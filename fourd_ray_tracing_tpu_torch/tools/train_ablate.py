@@ -112,7 +112,7 @@ def run(device, width=1280, height=720, samples=8, bounces=4, calls=8, rounds=5)
         line = {"tool": "train_ablate", "stage": name, "ms": ms[name],
                 "ms_rounds": [t / per_call for t in times], "grays_per_s": rays / ms[name] / 1e6,
                 "x_vs_prev": None if prev is None else ms[name] / ms[prev],
-                "device": str(device), "card": card, "hints": common.HINTS_NOTE}
+                "device": str(device), "card": card, "hints": common.HINTS_NOTE["train_ablate"]}
         if name == "scan4":
             line["note"] = (f"no scan in the port: {SCAN} packed steps issued back to back, one "
                             "sync; ms per step")

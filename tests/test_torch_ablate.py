@@ -216,9 +216,12 @@ def test_fwd_ablate_cpu_route(capsys, monkeypatch):
     monkeypatch.setenv("ABLATE_FPL", "2")
     assert fwd_ablate.main([*TINY, "--device", "cpu", "--rounds", "1", "--calls", "1"]) == 0
     lines = lines_of(capsys)
-    names = ["baseline", "sampler_const", "rng_const", "both_const", "drop_spaces", "drop_spheres",
-             "bounces_0", "bounces_1", "bounces_2", "baseline_recheck"]
+    names = ["baseline", "sampler_const", "rng_const", "both_const", "generic_fold", "unhinted",
+             "drop_spaces", "drop_spheres", "bounces_0", "bounces_1", "bounces_2",
+             "baseline_recheck"]
     assert [line["variant"] for line in lines[:-2]] == names
+    assert [line["hints"].split(": ")[-1] for line in lines[4:7]] == [
+        "4 wall pairs, 0 single planes", "none", "none"]
     assert all(line["frames_per_launch"] == 2 and line["gray_per_s"] > 0 for line in lines[:-2])
     assert "drift_check" in lines[-2]
     assert set(lines[-1]["time_delta_pct_vs_baseline"]) == set(names[1:])

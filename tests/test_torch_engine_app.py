@@ -207,7 +207,10 @@ def test_app_engine_matches_jax_build_engine(tiny_config, monkeypatch):
     """Same window configs, cameras and first frame as the JAX app's
     engine (first frame against its eager renderer, as above). The JAX
     engine keeps its Python camera state: its native library is not
-    loaded (nor built) here."""
+    loaded (nor built) here. On the CPU the JAX engine runs impl="xla",
+    without hints; the port's engine (impl="cuda") holds the static hints
+    that the JAX engine derives for impl="pallas" (engine.py:196-228)."""
+    from fourd_ray_tracing_tpu.models.scene import plane_norm_hints, plane_pair_hints
     from fourd_ray_tracing_tpu.native import binding
     from fourd_ray_tracing_tpu.ops.pallas.megakernel import _pack_pytree
     from fourd_ray_tracing_tpu_torch.models import params
@@ -219,9 +222,13 @@ def test_app_engine_matches_jax_build_engine(tiny_config, monkeypatch):
     je = japp.build_engine(jax_config(tiny_config), deterministic=True)
     assert je._native is None
     te = tapp.build_engine(TAppConfig.load(tiny_config), CPU, deterministic=True)
+    hints = plane_norm_hints(je.scene)
     for gt, gj in zip(te.groups, je.groups):
         assert gt.views == gj.views
-        assert dataclasses.asdict(gt.cfg) == dataclasses.asdict(gj.cfg)
+        assert (gt.cfg.plane_hints, gt.cfg.plane_pairs) == (
+            hints, plane_pair_hints(je.scene, hints))
+        unhinted = dataclasses.replace(gt.cfg, plane_hints=None, plane_pairs=None)
+        assert dataclasses.asdict(unhinted) == dataclasses.asdict(gj.cfg)
         np.testing.assert_array_equal(params.pack(te.scene, gt.camera(te)).numpy(),
                                       np.asarray(_pack_pytree((je.scene, gj.camera(je)))[0]))
     eager = eager_jax_windows(je, 1)

@@ -1,0 +1,147 @@
+"""The forward kernel's launch itself (csrc/megakernel.cu: K1, its row
+stride K2 and its row offset K3, with and without the static hints),
+compiled for the host and run by the CPU stand-in for the card of
+tests/test_torch_grad_launch_emulated.py, against the plain pipeline.
+
+g++ builds megakernel.cu alone, with -ffp-contract=off, behind EMU: a
+launch runs its blocks one after another, each block as its threads, so
+the per-block fold table (built by the block's threads, then a
+__syncthreads) and the kernel's pixel indexing run as on the card. Built
+so, the kernel rounds like torch's CPU pipeline: every launch is held
+bitwise against models/renderer.py with the same config, hinted or not.
+The card's own runs are chip_smoke.py's phases 3, 6, 7 and 14.
+"""
+import ctypes
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from fourd_ray_tracing_tpu_torch import camera as tcam
+from fourd_ray_tracing_tpu_torch import diff
+from fourd_ray_tracing_tpu_torch.models import library, params, renderer
+from fourd_ray_tracing_tpu_torch.ops.cuda import build, megakernel
+
+from test_torch_adjoint_host import camera_of, ptr
+from test_torch_grad_launch_emulated import emulated_library
+
+CPU = torch.device("cpu")
+SHAPE = dict(width=48, height=24, samples=3, reflections_amount=4, rng_mode="per_sample")
+SEEDS = np.array([0x12345678, 9], np.uint32)
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    so = emulated_library(tmp_path_factory.mktemp("forward_launch_emulated"), ("megakernel.cu",))
+    return build.bind(ctypes.CDLL(str(so)), ("fourd_forward_launch",
+                                             "fourd_forward_variant_launch"))
+
+
+def launch(lib, packed, lay, cfg, seeds, rows=None, variant=None):
+    """fourd_forward_launch (or the variant launch) on host arrays, as
+    megakernel.launch_forward makes it on the card: (F, V, n_rows, W, 3)."""
+    row0, n_rows = megakernel.launch_rows(cfg, rows)
+    table = (ctypes.c_int * len(lay))(*lay)
+    hints = megakernel.hint_table(cfg, lay.n_spaces)
+    out = np.zeros((len(seeds), lay.n_views, n_rows, cfg.width, 3), np.float32)
+    args = (ptr(packed), lay.size if packed.ndim == 2 else 0, ptr(seeds), len(seeds),
+            ctypes.addressof(table), ctypes.addressof(hints), cfg.width, cfg.height, row0,
+            n_rows, cfg.samples, cfg.reflections_amount, float(np.float32(cfg.small_indent)),
+            ptr(out), None)
+    if variant is None:
+        err = lib.fourd_forward_launch(*args)
+    else:
+        err = lib.fourd_forward_variant_launch(4 if variant == "generic_fold" else 0, *args)
+    assert err == 0
+    return out
+
+
+def configs(scene):
+    cfg = renderer.RenderConfig(**SHAPE)
+    return {"unhinted": cfg, "hinted": megakernel.with_hints(scene, cfg)}
+
+
+@pytest.mark.parametrize("hints", ["hinted", "unhinted"])
+@pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
+@pytest.mark.parametrize("name", ["room_with_sphere", "sphere_plane_light"])
+def test_forward_launch_is_bitwise_the_plain_pipeline(lib, name, views, hints):
+    """K1 over a (2,) seed vector, each frame bitwise the plain render."""
+    scene, camera = library.SCENES[name](CPU), camera_of(views)
+    cfg = configs(scene)[hints]
+    assert (cfg.plane_hints is not None) == (hints == "hinted")
+    packed, lay = params.pack(scene, camera).numpy(), params.layout(scene, camera)
+    out = launch(lib, packed, lay, cfg, SEEDS)
+    ref = renderer.render_light(scene, camera, cfg, SEEDS).numpy()
+    np.testing.assert_array_equal(out if len(views) > 1 else out[:, 0], ref)
+
+
+def test_forward_launch_folds_alike(lib):
+    """The room's hinted launch through its pattern instance (4 pairs), the
+    generic instance and the unhinted table: bitwise one image."""
+    scene, camera = library.room_with_sphere(CPU), camera_of(("yxz",))
+    cfgs = configs(scene)
+    packed, lay = params.pack(scene, camera).numpy(), params.layout(scene, camera)
+    base = launch(lib, packed, lay, cfgs["hinted"], SEEDS)
+    np.testing.assert_array_equal(launch(lib, packed, lay, cfgs["hinted"], SEEDS,
+                                         variant="generic_fold"), base)
+    np.testing.assert_array_equal(launch(lib, packed, lay, cfgs["unhinted"], SEEDS), base)
+    assert float(np.abs(base).max()) > 0.0
+
+
+def test_forward_launch_pairs_off_axis_order(lib):
+    """The room with its walls listed y, x, z, w: its 4 pairs do not lie on
+    the axes in their order, so the launch takes the generic instance of
+    the fold; bitwise the plain pipeline, hinted and not."""
+    room, camera = library.room_with_sphere(CPU), camera_of(("yxz",))
+    walls = room.spaces
+    scene = room._replace(spaces=(*walls[2:4], *walls[:2], *walls[4:]))
+    cfgs = configs(scene)
+    assert [axis for _, _, axis in cfgs["hinted"].plane_pairs[0]] == [1, 0, 2, 3]
+    packed, lay = params.pack(scene, camera).numpy(), params.layout(scene, camera)
+    for cfg in cfgs.values():
+        out = launch(lib, packed, lay, cfg, SEEDS)
+        np.testing.assert_array_equal(out[:, 0], renderer.render_light(scene, camera, cfg,
+                                                                       SEEDS).numpy())
+
+
+@pytest.mark.parametrize("hints", ["hinted", "unhinted"])
+def test_row_stride_and_row_block_launches(lib, hints):
+    """K2: the room and its zero_object copy as two params rows at one
+    seed, each row bitwise its own render; K3: a block of rows (5, 13) of
+    that launch, bitwise those rows of the plain render."""
+    room, camera = library.room_with_sphere(CPU), camera_of(("yxz",))
+    scenes = (room, diff.zero_object(room, ("spheres", 0)))
+    cfg = configs(room)[hints]
+    if hints == "hinted":
+        assert megakernel.with_hints(scenes, renderer.RenderConfig(**SHAPE)) == cfg
+    rows_p = params.stack_rows(scenes, camera).numpy()
+    lay = params.layout(room, camera)
+    seeds = SEEDS[:1].repeat(2)
+    whole = launch(lib, rows_p, lay, cfg, seeds)
+    block = launch(lib, rows_p, lay, cfg, seeds, rows=(5, 13))
+    for k, scene in enumerate(scenes):
+        ref = renderer.render_light(scene, camera, cfg, int(SEEDS[0])).numpy()
+        np.testing.assert_array_equal(whole[k, 0], ref)
+        np.testing.assert_array_equal(block[k, 0], ref[5:18])
+    assert not np.array_equal(whole[0], whole[1])
+
+
+def test_launch_refuses_a_bad_descriptor(lib):
+    """A descriptor that does not cover each of the layout's planes exactly
+    once is refused (cudaErrorInvalidValue), not traced: too few planes, a
+    pair of one plane twice, a plane in two pairs (another left out), a
+    single that repeats a pair's plane."""
+    scene, camera = library.room_with_sphere(CPU), camera_of(("yxz",))
+    packed, lay = params.pack(scene, camera).numpy(), params.layout(scene, camera)
+    cfg = configs(scene)["hinted"]
+    pairs = cfg.plane_pairs[0]
+    (i0, j0, a0), (i1, _, a1) = pairs[:2]
+    bad = {"too_few": (pairs[:3], ()),
+           "pair_of_one_plane": (((i0, i0, a0), *pairs[1:]), ()),
+           "plane_in_two_pairs": ((pairs[0], (i1, j0, a1), *pairs[2:]), ()),
+           "single_repeats_a_pair": (pairs[:3], (i0, j0))}
+    for plane_pairs in bad.values():
+        with pytest.raises(AssertionError):
+            launch(lib, packed, lay, dataclasses.replace(cfg, plane_pairs=plane_pairs), SEEDS)
+    launch(lib, packed, lay, cfg, SEEDS)

@@ -154,12 +154,13 @@ def config(**kw):
     return renderer.RenderConfig(**dict(SHAPE, **kw))
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def emulated_library(work, names=None):
+    """g++ builds the csrc/*.cu files ``names`` (all by default) behind EMU
+    in ``work`` and links them; returns the shared library's path. Skips
+    the test where there is no g++."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++ to build the kernels for the host")
-    work = tmp_path_factory.mktemp("grad_launch_emulated")
     (work / "cuda_runtime.h").write_text(EMU)
     procs = []
     for src in sorted(build.CSRC_DIR.iterdir()):
@@ -168,7 +169,7 @@ def lib(tmp_path_factory):
         text = re.sub(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\(",
                       lambda m: f"emu_launch({m.group(1)}, {m.group(2)}, ", text, flags=re.S)
         (work / src.name).write_text('#include "cuda_runtime.h"\n' + text)
-        if src.suffix == ".cu":
+        if src.suffix == ".cu" and (names is None or src.name in names):
             procs.append(subprocess.Popen(
                 [cxx, "-O2", "-std=c++20", "-ffp-contract=off", "-fPIC", "-pthread",
                  *build.DEFINES, f"-I{work}", "-c", "-o", str(work / f"{src.stem}.o"), "-x",
@@ -180,7 +181,13 @@ def lib(tmp_path_factory):
     proc = subprocess.run([cxx, "-shared", "-pthread", "-o", str(so),
                            *map(str, sorted(work.glob("*.o")))], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
-    return build.bind(ctypes.CDLL(str(so)))
+    return so
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return build.bind(ctypes.CDLL(str(emulated_library(
+        tmp_path_factory.mktemp("grad_launch_emulated")))))
 
 
 def layout_table(lay):

@@ -119,7 +119,7 @@ def test_launch_forward_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("change", [
     dict(rng_mode="sequential"),
-    dict(plane_hints=((True, False, True, True),)),
+    dict(axis_hints=((0, 1.0),)),
     dict(sampler_method="kepler"),
     dict(intersect="spec"),
 ])

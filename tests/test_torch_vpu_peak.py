@@ -11,6 +11,7 @@ step count and the start values (the tool's -0.75, and 0.25, the map's
 neutral fixed point): at the JAX tool's 0.01 every chain reaches its
 fixed point within ~8 steps and any number of steps gives the same sums.
 """
+import ctypes
 import json
 import re
 
@@ -110,7 +111,7 @@ def test_card_route_without_a_card_raises():
 
 def test_entry_point_and_signature_declared():
     """From the source text, without a build: the C entry point, its
-    ctypes signature in build.load(), and each step one __fmaf_rn (the
+    ctypes signature in build.SIGNATURES, and each step one __fmaf_rn (the
     build's -fmad=false would split y*y + b into FMUL + FADD)."""
     src = (build.CSRC_DIR / "vpu_peak.cu").read_text()
     assert re.search(r'extern "C" int fourd_peak_launch\(int n_acc, float b, int trips, '
@@ -118,10 +119,9 @@ def test_entry_point_and_signature_declared():
     assert "__fmaf_rn(y[k], y[k], b)" in src
     for n_acc in k7.N_ACCS:
         assert f"case {n_acc}: fourd_peak_kernel<{n_acc}>" in src
-    loader = (build.PACKAGE_DIR / "ops" / "cuda" / "build.py").read_text()
-    block = loader.split("fn = lib.fourd_peak_launch", 1)[1].split("fn.restype", 1)[0]
-    assert block.count("ctypes.c_int") == 3 and block.count("ctypes.c_float") == 1
-    assert block.count("ctypes.c_void_p") == 2
+    argtypes, restype = build.SIGNATURES["fourd_peak_launch"]
+    assert argtypes == [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_void_p] and restype is ctypes.c_int
 
 
 def test_launch_refuses_cpu_tensors_and_bad_arguments():
