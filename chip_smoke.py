@@ -10,25 +10,37 @@ on any failure, or when no CUDA device is available. Phases:
    kernel's registers, stack frame and spill stores from the build log, the
    resident warps per SM that the gradient kernels K4, K5 and K6 reach at
    the training shape, and those of every instance of the forward kernel K1
-   at the headline launch;
+   at the headline launch (the composite instances at the tiger's 3-view
+   launch);
 3. kernel vs plain torch pipeline on the card, 256x144, 4 spp, 4 bounces,
-   both scenes, 1 and 3 views, a (2,) seed vector: K1 with the static
-   hints its entry point derives against K1 without them and against the
-   plain pipeline with and without them; bitwise self-consistency;
+   all five library scenes, 1 and 3 views, a (2,) seed vector: K1 with the
+   static hints its entry point derives (plane and axis hints) against K1
+   without them and against the plain pipeline with and without them;
+   bitwise self-consistency;
 4. main path: RenderEngine on room_with_sphere at 1280x720, 8 spp,
    4 bounces, per-sample RNG, step_frames(4) = one 4-frame launch with the
    hints the engine derived (every launch counted hinted), timed with CUDA
    events;
-5. the batch app on configs/properties.txt (121x75 + 2x60x37, 100 spp);
-   the kernel launches of phases 4-5 are counted;
+5. the batch app on configs/properties.txt (121x75 + 2x60x37, 100 spp,
+   its own scene: the tiger); the kernel launches of phases 4-5 are
+   counted;
 6. the kernel alone, hinted and unhinted, and the plain pipeline timed at
    phase 4's shape, and their 4 frames held against each other as in
    phase 3;
 7. the kernel against the unhinted kernel and the plain pipelines on each
    of the app's view groups (1 view at 121x75, 2 views at 60x37), with the
    app's own cameras and hints;
+7b. the JAX bench's composite forward lines (bench.py:602-614) at
+   1280x720, 8 spp, 4 bounces, 4 frames a launch: hypercube with 1 view,
+   duocylinder and tiger with 3; each through RenderEngine.step_frames(4)
+   (its main path, its launches counted from zeroed counts) and K1 alone
+   with the hints the engine derived and without, timed with CUDA events
+   and held against each other; the hinted plain pipeline in 144-row
+   bands, timed once and held against K1; each scene's bound;
 8. the value-and-grad kernel K4 against its plain version (torch autograd
-   over the plain pipeline) on the card: both scenes, 1 and 3 views,
+   over the plain pipeline) on the card: the two scenes the gradient paths
+   take (room_with_sphere, sphere_plane_light; a composite scene is
+   refused there), 1 and 3 views,
    256x144, 4 spp, 4 bounces, a (2,) seed vector, a seeded random target;
    bitwise across two launches; the (2,) launch against the mean of the
    two scalar-seed launches; K4 and its plain version timed at
@@ -43,7 +55,7 @@ on any failure, or when no CUDA device is available. Phases:
 10. the entry point: ``inverse_render --param glow --impl kernel`` with
    and without ``--packed`` recovers the lamp's glow;
 11. the light-VJP kernel K5 against its plain version (torch autograd of
-   sum(render_light * cot)) on the card: both scenes, 1 and 3 views,
+   sum(render_light * cot)) on the card: the gradient scenes, 1 and 3 views,
    256x144, 4 spp, 4 bounces, a seeded random cotangent; bitwise across
    launches; K2 (the forward kernel over (F, P) params rows: a scene and
    its zero_object copy) row by row bitwise single K1 renders, and K5's
@@ -73,7 +85,8 @@ on any failure, or when no CUDA device is available. Phases:
    room's hints (K2's two rows share them) against their unhinted launches;
    cut into 2 and 4 row blocks (``parallel.mesh.row_block``) bitwise the
    single launch at 1280x720x8spp x4 (4 frames) and at 256x144 with 3
-   views; the
+   views; the tiger's hinted 3-view launch at 1280x720x8spp x4 (4 frames)
+   in 2 and 4 row blocks bitwise its single launch; the
    blocks of K4 (1 and 4 frames), K5 (two rows) and K6 at 1280x720x8spp x4,
    added in rank order, within ``GRAD_BOUNDS`` of the single launch, K6's
    alpha cotangent blocks bitwise its rows; each of the ``PLAIN_SPLIT``
@@ -101,9 +114,10 @@ on any failure, or when no CUDA device is available. Phases:
    peak's n_acc against the same at half its steps;
 17. the value-and-grad pass-budget kernel K8 against its plain version
    (acc, loss, vjp) and loss and vjp against K4's loss, at 256x144x4spp x4
-   bounces, both scenes, 1 and 3 views; K1's stub variants with the hints
-   (tools/fwd_ablate.py's own functions, 8 frames a launch) against the
-   plain pipeline under the same patches at 256x144 (both scenes) and at
+   bounces, the gradient scenes, 1 and 3 views; K1's stub variants with the
+   hints (tools/fwd_ablate.py's own functions, 8 frames a launch) against
+   the plain pipeline under the same patches at 256x144 (all five scenes)
+   and at
    fwd_ablate's 1280x720x8spp x4 (the room), the fold's generic instance and
    the unhinted launch bitwise the hinted K1; then the attribution tools
    grad_ablate, train_ablate, soft_ablate and fwd_ablate at 1280x720x8spp
@@ -129,10 +143,14 @@ SXM at 700 W) and the rate K7 sustained on this card in this run (phase
 Every forward kernel-vs-plain check holds the two within the image bounds
 of ``CHECK_BOUNDS`` and reports whether they are bitwise equal (K1's
 summary entry lists any that was not); the gradient kernels' checks use
-``GRAD_BOUNDS``. K1's bound counts the flops of the plain pipeline with the
-static hints, the production forward's work; the unhinted count stands
-beside it. The kernel launch counts are
-set to 0 before each main path (phases 4-5: rendering; phases 9-10:
+``GRAD_BOUNDS``. K1's bounds (the room's and each composite cell's)
+count the flops of the plain pipeline with the static hints, the
+production forward's work, on the lanes still alive (``live_lane_flops``:
+K1 stops a lane that left the scene; in the closed room every lane
+counts); the dense and the unhinted counts stand beside them. The kernel
+launch counts are
+set to 0 before each main path (phases 4-5: rendering; phase 7b: each
+composite cell's engine; phases 9-10:
 training; phase 13: soft training; phase 15: the ranks, fresh processes,
 count their own; phase 16: the peak sweep; phase 17: each tool) and read
 after it.
@@ -172,14 +190,22 @@ from fourd_ray_tracing_tpu_torch.tools import (  # noqa: E402
     fwd_ablate, grad_ablate, soft_ablate, train_ablate, vpu_peak)
 from fourd_ray_tracing_tpu_torch.tools import common as tool_common  # noqa: E402
 from fourd_ray_tracing_tpu_torch.utils.config import AppConfig  # noqa: E402
-from fourd_ray_tracing_tpu_torch.utils.flops import count_flops  # noqa: E402
+from fourd_ray_tracing_tpu_torch.utils.flops import FlopCounter, count_flops  # noqa: E402
 
 # All but boundary_frac of pixels within atol, image-wide mean |diff|
 # under mean_atol: visibility-boundary pixels may flip on ulp noise.
 CHECK_BOUNDS = dict(atol=1e-5, boundary_frac=0.01, mean_atol=0.005)
-APP_CONFIG, APP_SCENE = ROOT / "configs" / "properties.txt", "room_with_sphere"
+APP_CONFIG = ROOT / "configs" / "properties.txt"
 HEADLINE = dict(width=1280, height=720, samples=8, reflections_amount=4, rng_mode="per_sample")
 FRAMES_PER_LAUNCH = 4
+# The scenes the gradient kernels take (the composite primitives' adjoint
+# is not ported yet: ROADMAP queue 1, item 4b, training half).
+GRAD_SCENES = ("room_with_sphere", "sphere_plane_light")
+# Phase 7b: the JAX bench's composite forward lines (bench.py:602-614), at
+# the headline shape, 4 frames a launch, with their views; the plain
+# pipeline renders them in BAND_ROWS-row bands.
+COMPOSITE_CELLS = (("hypercube", ("yxz",)), ("duocylinder", cam.VIEWS_ALL),
+                   ("tiger", cam.VIEWS_ALL))
 CALLS, REPEATS = 5, 5  # timed: REPEATS runs of CALLS back-to-back calls
 # K4 against its plain version: loss within rtol, every gradient within a
 # mixed-scale relative error (|a - b| / max(|b|, 1e-3 max|b| + 1e-8), as
@@ -251,14 +277,18 @@ PEAK_CHECK_ROUNDS, PEAK_RTOL, PEAK_RESOLVE = 64, 1e-5, 10
 # width with their rounds cut (rounds, calls per round) to keep the
 # script's time.
 ACC_RTOL = 1e-6
-# K1's stub variants against the plain pipeline: both scenes at this
+# K1's stub variants against the plain pipeline: all five scenes at this
 # shape, and the room at fwd_ablate's own (TRAIN: 1280x720x8spp x4).
 VARIANT_CHECK = dict(width=256, height=144, samples=4, reflections_amount=4, rng_mode="per_sample")
 TOOL_ROUNDS = {"train_ablate": (3, 8), "soft_ablate": (3, 4), "fwd_ablate": (3, 4)}
 
 
+START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """Announces a phase, with the seconds since the script started."""
+    print(f"== {name} (at {time.perf_counter() - START:.1f} s)", flush=True)
 
 
 def smi_line() -> str:
@@ -312,7 +342,7 @@ def camera_for(views, device):
 
 
 def unhinted(cfg: RenderConfig) -> RenderConfig:
-    return replace(cfg, plane_hints=None, plane_pairs=None)
+    return replace(cfg, plane_hints=None, plane_pairs=None, axis_hints=None)
 
 
 def unhinted_k1(scene, camera, cfg: RenderConfig, seeds) -> torch.Tensor:
@@ -367,31 +397,39 @@ def check_kernel_against_plain(device) -> float:
 
 
 def short_k1(name: str) -> str:
-    """A K1 instance's mangled name as ``stub S fold (pairs, singles)``
-    (-1: read from the table; -2: every single plane all live)."""
-    m = re.search(r"forward_kernelILi(\d+)E\w*?TableFoldILi(n?)(\d+)ELi(n?)(\d+)E", name)
+    """A K1 instance's mangled name as ``stub S fold (pairs, singles)`` (-1:
+    read from the table; -2: every single plane all live), or ``stub S
+    composite fold (pairs, singles, kinds, families, hypercube)`` (trace.cuh
+    CompositeFold)."""
+    m = re.search(r"forward_kernelILi(\d+)E\w*?(TableFold|CompositeFold)I((?:Lin?\d+E)+)E", name)
     if m is None:
         return name
-    pairs = -int(m.group(3)) if m.group(2) else int(m.group(3))
-    singles = -int(m.group(5)) if m.group(4) else int(m.group(5))
-    return f"stub {m.group(1)} fold ({pairs}, {singles})"
+    args = [int(a.replace("n", "-")) for a in re.findall(r"Li(n?\d+)E", m.group(3))]
+    kind = "fold" if m.group(2) == "TableFold" else "composite fold"
+    return f"stub {m.group(1)} {kind} ({', '.join(map(str, args))})"
 
 
 def k1_resources(device, lib_path: Path) -> dict:
     """Phase 2: the registers, stack frame and spill stores of every K1
     instance (the build log) and the resident warps per SM of each at the
-    headline launch (the room's hints; build.resident_warps). Returns them
-    by instance, and the room's production instance's as "main"."""
+    headline launch (the room's hints) or, for the composite instances, at
+    the tiger's 3-view launch (build.resident_warps). Returns them by
+    instance, and the room's production instance's as "main"."""
     res = {n: r for n, r in build.kernel_resources(build.build_log()).items()
            if "forward_kernel" in n and r}
     scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
     threads, smem = megakernel.launch_shape(scene, params.layout(scene, camera))
-    warps = build.resident_warps(lib_path, {"forward_kernel": (threads, smem)})
+    tiger, views3 = library.tiger(device), camera_for(cam.VIEWS_ALL, device)
+    comp_shape = megakernel.launch_shape(tiger, params.layout(tiger, views3))
+    warps = build.resident_warps(lib_path, {"CompositeFold": comp_shape,
+                                            "forward_kernel": (threads, smem)})
     out = {n: {**r, "resident_warps_per_sm": warps.get(n)} for n, r in res.items()}
     main = [r for n, r in out.items() if re.search(K1_MAIN, n)]
     assert len(main) == 1 and main[0]["resident_warps_per_sm"], (K1_MAIN, list(out))
-    print(json.dumps({"k1_instances": out, "block_threads": threads, "smem_bytes": smem}),
-          flush=True)
+    assert all(r["resident_warps_per_sm"] for r in out.values()), out
+    print(json.dumps({"k1_instances": {short_k1(n): r for n, r in out.items()},
+                      "block_threads": threads, "smem_bytes": smem,
+                      "composite_smem_bytes_tiger_3view": comp_shape[1]}), flush=True)
     return {"main": main[0], "instances": out, "block_threads": threads, "smem_bytes": smem}
 
 
@@ -446,7 +484,7 @@ def check_app_groups(device) -> float:
     """Phase 7: the kernel against the plain pipeline on each view group
     of the app's engine, with its cameras, configs and a (2,) seed vector.
     Returns the largest |kernel - plain|."""
-    engine = app.build_engine(replace(AppConfig.load(APP_CONFIG), scene=APP_SCENE), device)
+    engine = app.build_engine(AppConfig.load(APP_CONFIG), device)
     seeds = np.array([0x0BADF00D, 0xC0FFEE11], np.uint32)
     worst = 0.0
     for g in engine.groups:
@@ -455,6 +493,151 @@ def check_app_groups(device) -> float:
         label = f"app group {g.cfg.width}x{g.cfg.height} views={','.join(g.views)}"
         worst = max(worst, check_hinted(label, engine.scene, camera, out, g.cfg, seeds))
     return worst
+
+
+def plain_in_bands(scene, camera, cfg: RenderConfig, seeds) -> tuple:
+    """(light, calls): the plain pipeline's light of the whole image,
+    rendered BAND_ROWS rows at a time (every pixel is computed on its own,
+    so the bands are the whole image's rows), and each band's lane_calls
+    (lanes alive as device counts: nothing waits on them)."""
+    bands, calls = [], []
+    for r in range(0, cfg.height, BAND_ROWS):
+        light, band_calls, _ = lane_calls(scene, camera, cfg, seeds, slice(r, r + BAND_ROWS))
+        bands.append(light)
+        calls.append(band_calls)
+    return torch.cat(bands, dim=-3), calls
+
+
+def lane_calls(scene, camera, cfg: RenderConfig, seeds, rows, counter=None) -> tuple:
+    """(light, calls, flops) of the plain pipeline on ``rows``: its light;
+    each shade and scatter call in order as (lanes alive, lanes), the
+    first a device count; and, with a FlopCounter running as ``counter``,
+    the flops each of those calls stands for (a shade its own; a scatter
+    its own with the updates since the shade before it), else None."""
+    calls, flops, mark = [], [], [None]
+    real = renderer.trace_rays, renderer._shade, renderer._scatter
+
+    def now() -> float:
+        return 0.0 if counter is None else counter.flops
+
+    def trace_rays(*args, **kwargs):
+        mark[0] = None
+        return real[0](*args, **kwargs)
+
+    def shade(scene_, o, d, result, throughput, alive, cfg_):
+        before = now()
+        out = real[1](scene_, o, d, result, throughput, alive, cfg_)
+        calls.append((alive.sum(), alive.numel()))
+        flops.append(now() - before)
+        mark[0] = now()
+        return out
+
+    def scatter(d, norm, mirrored, alive, *rest):
+        before = now()
+        out = real[2](d, norm, mirrored, alive, *rest)
+        calls.append((alive.sum(), alive.numel()))
+        flops.append(now() - (before if mark[0] is None else mark[0]))
+        mark[0] = None
+        return out
+
+    renderer.trace_rays, renderer._shade, renderer._scatter = trace_rays, shade, scatter
+    try:
+        light = renderer.render_light(scene, camera, cfg, seeds, rows)
+    finally:
+        renderer.trace_rays, renderer._shade, renderer._scatter = real
+    return light, calls, (flops if counter is not None else None)
+
+
+def live_of(dense: float, calls, flops) -> float:
+    """The flops of a run of ``dense`` flops that K1's live lanes need:
+    each call's flops count for the share of its lanes alive."""
+    return dense - sum((1.0 - int(alive) / lanes) * f for (alive, lanes), f in zip(calls, flops))
+
+
+def live_lane_flops(scene, camera, cfg: RenderConfig, seeds, rows) -> tuple:
+    """(dense, live) flops of the plain pipeline on ``rows``: ``dense``
+    counts every lane of every bounce (utils/flops.py), ``live`` what this
+    run's data needs of K1, which stops a lane that left the scene where
+    the plain version computes on: each bounce's shade counts for the share
+    of lanes alive entering it, and each scatter, with the updates before
+    it, for the share alive after that bounce's shade (bounce 0's: the
+    pixels whose primary ray hit). Both count final_light on every such
+    lane, where K1 runs it on a lane that misses only. (A call's flops
+    depend on the shapes alone, not on the data: composite_cells counts
+    one band and takes every band's shares.)"""
+    with FlopCounter() as counter:
+        _, calls, flops = lane_calls(scene, camera, cfg, seeds, rows, counter)
+    return counter.flops, live_of(counter.flops, calls, flops)
+
+
+def composite_cells(device) -> dict:
+    """Phase 7b: each of COMPOSITE_CELLS at the headline shape through
+    RenderEngine.step_frames(4) (its main path: the engine derives the
+    plane and axis hints once; the launches counted from zeroed counts),
+    timed; K1 alone on the same 4 frames with those hints and without,
+    timed and held against each other; the hinted plain pipeline in
+    BAND_ROWS-row bands, timed once and held against K1; the bound from the
+    hinted plain version's flops (one band counted, each band's live
+    shares from the timed pass). Returns the cells by scene."""
+    cells = {}
+    for name, views in COMPOSITE_CELLS:
+        scene = library.SCENES[name](device)
+        reset_counts()
+        engine = RenderEngine(
+            scene, RenderConfig(**HEADLINE), Vec4.of(0.0, -2.0, 0.0, 0.0, device=device),
+            cam.CameraAngles.of(0.0, 0.0, 0.0, device=device), device=device,
+            deterministic=True, views=views)
+        cfg = engine.cfg
+        assert cfg.axis_hints is not None and cfg.plane_hints is not None, f"{name}: no hints"
+        engine.step_frames(FRAMES_PER_LAUNCH)  # warm-up launch
+        torch.cuda.synchronize()
+        engine_ms = cuda_ms(lambda: engine.step_frames(FRAMES_PER_LAUNCH))
+        launches = counts()
+        assert launches["k1"] == 1 + CALLS * REPEATS == megakernel.HINTED_LAUNCHES, launches
+        img = engine.accum
+        assert img.shape == image_shape(views, cfg) + (3,) and bool(torch.isfinite(img).all())
+        assert float(img.std()) > 0.0, f"{name}: the image is constant"
+        camera = engine.groups[0].camera(engine)
+        packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+        frames = np.arange(1, FRAMES_PER_LAUNCH + 1, dtype=np.uint32)
+        words = megakernel.seed_tensor(frames, device)
+        one = (lambda x: x[:, 0]) if len(views) == 1 else (lambda x: x)
+        out = one(megakernel.launch_forward(packed, lay, cfg, words))
+        out_u = one(megakernel.launch_forward(packed, lay, unhinted(cfg), words))
+        kernel_ms = cuda_ms(lambda: megakernel.launch_forward(packed, lay, cfg, words))
+        unhinted_ms = cuda_ms(lambda: megakernel.launch_forward(packed, lay, unhinted(cfg), words))
+        label = f"{name} {cfg.width}x{cfg.height} views={len(views)} 4 frames"
+        err = check_close(f"{label} hinted K1 vs unhinted K1", out, out_u)
+        plain = []
+        plain_ms = cuda_ms(lambda: plain.append(plain_in_bands(scene, camera, cfg, frames)),
+                           calls=1, repeats=1)[0]
+        light, band_calls = plain.pop()
+        err = max(err, check_close(f"{label} hinted K1 vs hinted plain ({BAND_ROWS}-row bands)",
+                                   out, light))
+        # The flops of one band's calls, counted, stand for every band's.
+        assert cfg.height % BAND_ROWS == 0
+        with FlopCounter() as counter:
+            _, _, flops = lane_calls(scene, camera, cfg, frames, slice(0, BAND_ROWS), counter)
+        assert all(len(c) == len(flops) for c in band_calls)
+        dense = counter.flops * len(band_calls)
+        live = sum(live_of(counter.flops, c, flops) for c in band_calls)
+        pixels = len(views) * cfg.height * cfg.width
+        rays = pixels * cfg.samples * FRAMES_PER_LAUNCH
+        med = statistics.median(kernel_ms)
+        cells[name] = {
+            "views": len(views), "rays_per_launch": rays, "engine_launches": launches["k1"],
+            "engine_step_frames_ms": engine_ms, "engine_ms_median": statistics.median(engine_ms),
+            "kernel_ms": kernel_ms, "ms": med, "kernel_mrays_per_s": rays / med / 1e3,
+            "unhinted_ms": statistics.median(unhinted_ms), "plain_ms": plain_ms,
+            "max_abs_err": err, "bitwise": BITWISE[f"{label} hinted K1 vs hinted plain "
+                                                   f"({BAND_ROWS}-row bands)"],
+            **bound(live, 4 * (lay.size + FRAMES_PER_LAUNCH + FRAMES_PER_LAUNCH * pixels * 3)),
+            "dense": bound(dense, 4 * (lay.size + FRAMES_PER_LAUNCH + FRAMES_PER_LAUNCH * pixels * 3)),
+        }
+        cells[name]["flops_per_ray"] = live / rays
+        print(json.dumps({"cell": f"{name} {label} per_sample, hints derived by the engine",
+                          **cells[name]}), flush=True)
+    return cells
 
 
 def mixed_rel(a: np.ndarray, b: np.ndarray) -> float:
@@ -489,7 +672,7 @@ def check_grad_kernel(device):
     cfg = RenderConfig(**GRAD_CHECK)
     seeds = np.array([0x12345678, 0x9ABCDEF0], np.uint32)
     worst_abs = worst_rel = 0.0
-    for name in sorted(library.SCENES):
+    for name in GRAD_SCENES:
         scene = library.SCENES[name](device)
         for views in (("yxz",), cam.VIEWS_ALL):
             label = f"{name} views={len(views)}"
@@ -637,12 +820,11 @@ def run_inverse_render() -> None:
 
 
 def run_app() -> None:
-    """Phase 5: the batch app at the config's own settings; its PNGs go
-    to out/chip_smoke_app/."""
+    """Phase 5: the batch app at the config's own settings and scene (the
+    tiger); its PNGs go to out/chip_smoke_app/."""
     before = megakernel.LAUNCHES
     out = ROOT / "out" / "chip_smoke_app"
-    rc = app.main(["--config", str(APP_CONFIG), "--scene", APP_SCENE,
-                   "--frames", "8", "--out", str(out)])
+    rc = app.main(["--config", str(APP_CONFIG), "--frames", "8", "--out", str(out)])
     assert rc == 0
     for view in ("yxz", "ywz", "yxw"):
         assert (out / f"{view}.png").stat().st_size > 0, view
@@ -717,7 +899,7 @@ def check_light_vjp(device):
     cfg = RenderConfig(**GRAD_CHECK)
     seed = 0x2468ACE1
     errs = []
-    for name in sorted(library.SCENES):
+    for name in GRAD_SCENES:
         scene = library.SCENES[name](device)
         pair = (scene, diff.zero_object(scene, SOFT_REFS[name]))
         for views in (("yxz",), cam.VIEWS_ALL):
@@ -965,7 +1147,9 @@ def kernel_bounds(device) -> dict:
     (one row), K6 and K8 at TRAIN. The
     flops are its plain version's over the first BOUND_ROWS rows (K4, K5
     and K6: forward and autograd backward), counted here and scaled to the
-    image's rows; the plain versions are dense, so masked lanes count."""
+    image's rows; the plain versions are dense, so masked lanes count, but
+    K1's hinted count takes the live lanes (live_lane_flops: all of them in
+    the closed room)."""
     scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
     packed, lay = params.pack(scene, camera), params.layout(scene, camera)
     p = lay.size
@@ -979,8 +1163,8 @@ def kernel_bounds(device) -> dict:
     ref = SOFT_REFS["room_with_sphere"]
     alpha = diff.object_coverage(scene, ref, camera, cfg, SOFT_EDGE).detach()[:BOUND_ROWS]
     zero_map = params.soft_zero_map(scene, camera, ref)
-    f1 = count_flops(renderer.render_light, scene, camera, megakernel.with_hints(scene, head),
-                     frames, slice(0, BOUND_ROWS))[1]
+    f1_dense, f1 = live_lane_flops(scene, camera, megakernel.with_hints(scene, head), frames,
+                                   slice(0, BOUND_ROWS))
     f1_unhinted = count_flops(renderer.render_light, scene, camera, head, frames,
                               slice(0, BOUND_ROWS))[1]
     f4 = count_flops(gradkernel.loss_and_grad_plain, packed, scene, camera, cfg, [1], block,
@@ -1005,6 +1189,7 @@ def kernel_bounds(device) -> dict:
     # K1's bound counts the hinted plain version's flops, the production
     # forward's work; the unhinted count beside it.
     out["k1"]["flops_per_ray"] = f1 * scale / (rays * FRAMES_PER_LAUNCH)
+    out["k1"]["dense_flops"] = f1_dense * scale  # the room is closed: every lane lives on
     out["k1"]["unhinted"] = bound(f1_unhinted * scale, out["k1"]["bytes"])
     for k in ("k4", "k5", "k6"):
         out[k]["flops_per_ray"] = out[k]["flops"] / rays
@@ -1092,6 +1277,25 @@ def check_row_shards(device) -> dict:
             ms["k1"] = time_shards("K1 4 frames 1280x720", lambda: megakernel.launch_forward(
                 packed, lay, cfg, words), lambda b: megakernel.launch_forward(
                 packed, lay, cfg, words, b), cfg.height)
+
+    # The tiger's 3-view launch (its own instance of the fold, with the plane
+    # and axis hints) cut into row blocks.
+    tiger, camera = library.tiger(device), camera_for(cam.VIEWS_ALL, device)
+    cfg = megakernel.with_hints(tiger, RenderConfig(**HEADLINE))
+    assert cfg.axis_hints is not None
+    packed, lay = params.pack(tiger, camera), params.layout(tiger, camera)
+    words = megakernel.seed_tensor([1, 2, 3, 4], device)
+    whole = megakernel.launch_forward(packed, lay, cfg, words)
+    for n in SHARDS:
+        cut = [megakernel.launch_forward(packed, lay, cfg, words, b)
+               for b in shard_blocks(cfg.height, n)]
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat(cut, dim=2), whole), f"tiger K1 {n} row blocks != one launch"
+    print(f"K1 tiger 1280x720 views=3 frames=4, hinted: {' and '.join(map(str, SHARDS))} row "
+          "blocks bitwise the single launch", flush=True)
+    ms["k1_tiger_3view"] = time_shards("K1 tiger 3 views 4 frames 1280x720", lambda: (
+        megakernel.launch_forward(packed, lay, cfg, words)), lambda b: megakernel.launch_forward(
+        packed, lay, cfg, words, b), cfg.height)
 
     cfg, camera = RenderConfig(**TRAIN), camera_for(("yxz",), device)
     packed, lay = params.pack(room, camera), params.layout(room, camera)
@@ -1267,14 +1471,14 @@ def measure_counts() -> dict:
 
 
 def check_ablate_kernel(device) -> dict:
-    """Phase 17: each K8 mode against its plain version at GRAD_CHECK (both
-    scenes, 1 and 3 views, a seeded random target); loss and vjp against
+    """Phase 17: each K8 mode against its plain version at GRAD_CHECK (the
+    GRAD_SCENES, 1 and 3 views, a seeded random target); loss and vjp against
     K4's loss from the same inputs too. Returns the largest absolute and
     relative errors against the plain version, by mode."""
     cfg = RenderConfig(**GRAD_CHECK)
     seed = 0x2468ACE1
     errs = {m: [0.0, 0.0] for m in ablate.MODES}
-    for name in sorted(library.SCENES):
+    for name in GRAD_SCENES:
         scene = library.SCENES[name](device)
         for views in (("yxz",), cam.VIEWS_ALL):
             label = f"K8 {name} views={len(views)}"
@@ -1536,6 +1740,11 @@ def main() -> int:
         "plain_ms": plain_ms, "plain_mrays_per_s": rays / plain_ms / 1e3,
     }), flush=True)
 
+    phase("7b composite cells: the engine and K1 at 1280x720x8spp x4, 4 frames a launch")
+    cells = composite_cells(device)
+    launches["composite"] = sum(c["engine_launches"] for c in cells.values())
+    max_err = max(max_err, max(c["max_abs_err"] for c in cells.values()))
+
     phase("8 value-and-grad kernel vs plain on the card")
     grad_err, grad_rel = check_grad_kernel(device)
     k4 = time_grad_kernel(device)
@@ -1678,11 +1887,12 @@ def main() -> int:
         "route": "cuda",
         "source": "fourd_ray_tracing_tpu_torch/csrc/megakernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/megakernel.py:316",
-        "launches": (launches["render"][0] + launches["train"][0] + launches["soft"]["k1"]
-                     + sharded["k1"] + measure["k1"] + measure["k1_variant"]),
-        "launches_by_path": {"render": launches["render"][0], "train": launches["train"][0],
-                             "soft": launches["soft"]["k1"], "sharded": sharded["k1"],
-                             "measure": measure["k1"]},
+        "launches": (launches["render"][0] + launches["composite"] + launches["train"][0]
+                     + launches["soft"]["k1"] + sharded["k1"] + measure["k1"]
+                     + measure["k1_variant"]),
+        "launches_by_path": {"render": launches["render"][0], "composite": launches["composite"],
+                             "train": launches["train"][0], "soft": launches["soft"]["k1"],
+                             "sharded": sharded["k1"], "measure": measure["k1"]},
         # The stub variants of tools/fwd_ablate.py: this kernel with stubs
         # compiled in, held against the plain pipeline under the same
         # patches in phase 17.
@@ -1712,6 +1922,10 @@ def main() -> int:
         "instances": {short_k1(n): r for n, r in k1_res["instances"].items()},
         "unhinted_ms": statistics.median(unhinted_ms),
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, 4 frames per launch",
+        # Phase 7b: bench.py's composite forward lines, each through the
+        # engine (its launches counted) and K1 alone, hinted and unhinted.
+        "composite_cells": {name: with_shares(dict(cell)) for name, cell in cells.items()},
+        "tiger_3view_shard_ms": shards["ms"]["k1_tiger_3view"],
         "build_s": build_s,
     }, {
         "name": "loss_grad_kernel",

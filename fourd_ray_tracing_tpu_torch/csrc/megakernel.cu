@@ -4,8 +4,9 @@
 // _trace_rays_kernel, _tile_pixels and _tile_camera): per frame seed and
 // per pixel, the primary ray of the pixel's view, bounce 0 computed once
 // per pixel, then `samples` per-sample traces of `reflections_amount`
-// bounces (closest hit over hyperplanes and hyperspheres with the static
-// hints, emission and environment light, Bernoulli mirror vs uniform-S^3
+// bounces (closest hit over hyperplanes, hyperspheres, cylinders, the
+// duocylinder, the hypercube and the tiger with the static hints,
+// emission and environment light, Bernoulli mirror vs uniform-S^3
 // diffuse with masked counter RNG, shade-only last bounce), and the mean
 // light.
 //
@@ -48,6 +49,22 @@
 // single plane takes it). A launch without hints runs the same table fold
 // with every plane a single of four live components (an instance of its
 // own, the masks fixed): the unhinted fold, bitwise.
+//
+// The composite primitives fold after the spheres, in the JAX order
+// (scene.py:495-653): each cylinder, the duocylinder's two faces, the
+// hypercube's four opposite-cell candidates, the tiger's four merged
+// candidates. Their per-scene values go into the same table (trace.cuh
+// build_fold_table): each cylinder family's point and axes with its axis
+// hint and live masks, each face's r^2, 1 / max(r, 1e-30) and material,
+// the hypercube's center, axes, half-width, hinted signs and cell
+// materials; a bounce computes a family's projections once for all its
+// faces and reads nothing else. A scene with composites takes an instance
+// of its own (CompositeFold): the three library composite scenes with
+// their axis hints each one whose kind and families' aligned components
+// are template arguments (the projections then pick components with no
+// select), any other composite scene, hinted or not, the generic one,
+// which reads kinds and hints from the table. The walls' instances and the
+// gradient kernels compile as before.
 //
 // What bounds it: arithmetic and issue. Per pixel and sample the kernel
 // runs reflections_amount fold-and-shade passes over every candidate and
@@ -129,16 +146,49 @@ forward_kernel(const float* __restrict__ params, long long row_stride,
 // the fold table.
 size_t shared_bytes(const Layout& L, const Hints& H) {
   const int singles = H.n_singles < 0 ? L.n_spaces : H.n_singles;
-  const size_t recs = 1 + H.n_pairs + 2 * singles + 2 * L.n_spheres;
+  const size_t recs = 1 + H.n_pairs + 2 * singles + 2 * L.n_spheres +
+                      kCylinderRecs * (H.n_cylinders > 0 ? H.n_cylinders : 0) +
+                      (H.cylinders_union >= 0 ? kUnionRecs : 0) +
+                      (H.hypercube >= 0 ? kHypercubeRecs : 0) + (H.tiger >= 0 ? kTigerRecs : 0);
   return static_cast<size_t>((L.size + 3) / 4) * sizeof(Rec) + recs * sizeof(Rec);
 }
 
-// Whether the descriptor is one the table can hold and fold: counts in
-// range, pairs' axes 0-3, live masks 0-15, and the pairs' and singles'
-// plane indices cover each of the layout's planes exactly once (a pair's
-// two planes differ). Without hints (n_singles -1) the fold covers every
-// plane itself.
+// Whether a composite's offset is none (-1) or holds ``floats`` floats
+// inside the params.
+bool offset_valid(const Layout& L, int offset, int floats) {
+  return offset == -1 || (offset >= 0 && offset + floats <= L.size);
+}
+
+// Whether a family's axis hint is none (-1) or two different components.
+bool family_hint_valid(int code) {
+  return code == -1 || (code >= 0 && code < 16 && (code & 3) != (code >> 2));
+}
+
+// Whether the descriptor's composites are ones the table can hold: counts
+// in range, every spec inside the params, every axis hint well formed.
+bool composites_valid(const Layout& L, const Hints& H) {
+  if (H.n_cylinders < 0 || H.n_cylinders > kMaxCylinders ||
+      (H.n_cylinders > 0) != (H.cylinders >= 0) ||
+      !offset_valid(L, H.cylinders, kCylinderFloats * H.n_cylinders) ||
+      !offset_valid(L, H.cylinders_union, 2 * kCylinderFloats) ||
+      !offset_valid(L, H.hypercube, kHypercubeFloats) || !offset_valid(L, H.tiger, kTigerFloats) ||
+      H.hypercube_axes < -1 || H.hypercube_axes > 0xFFF) {
+    return false;
+  }
+  for (int i = 0; i < H.n_cylinders; ++i) {
+    if (!family_hint_valid(H.cylinder_axes[i])) return false;
+  }
+  return family_hint_valid(H.union_axes[0]) && family_hint_valid(H.union_axes[1]) &&
+         family_hint_valid(H.tiger_axes[0]) && family_hint_valid(H.tiger_axes[1]);
+}
+
+// Whether the descriptor is one the table can hold and fold: the
+// composites valid, counts in range, pairs' axes 0-3, live masks 0-15, and
+// the pairs' and singles' plane indices cover each of the layout's planes
+// exactly once (a pair's two planes differ). Without hints (n_singles -1)
+// the fold covers every plane itself.
 bool hints_valid(const Layout& L, const Hints& H) {
+  if (!composites_valid(L, H)) return false;
   if (H.n_singles < 0) return H.n_singles == -1 && H.n_pairs == 0;
   if (H.n_pairs < 0 || H.n_pairs > kMaxHintPlanes / 2 || H.n_singles > kMaxHintPlanes ||
       L.n_spaces > kMaxHintPlanes || 2 * H.n_pairs + H.n_singles != L.n_spaces) {
@@ -192,7 +242,53 @@ bool pairs_in_axis_order(const Hints& H) {
   return true;
 }
 
-// Picks the fold's instance: the room's 4 pairs on the axes in order
+// The library's composite scenes' axis hints (models/library.py): the
+// duocylinder's and the tiger's families on axes (x, w) and (z, y), as an
+// instance's kFams, and the hypercube's axes x, y, z, w, all +, as kCube.
+constexpr int kLibraryFams = (0 | 3 << 2) | (2 | 1 << 2) << 4;
+constexpr int kLibraryCube = 0 | 1 << 2 | 2 << 4 | 3 << 6;
+
+// The composite instance of the fold: one for each library composite
+// scene with its hints (its single kind, its families' hints fixed; its
+// floor plane by the table) in the production kernel, the generic one
+// (kinds and hints read from the table) for any other composite scene and
+// for the measurement variants. On the H100 the generic instance, reading
+// the same hints from the table, takes 23-33% longer on the library's
+// three composite scenes (PERF.md, tools/fwd_ablate.py generic_fold).
+template <int kStub>
+int launch_composites(bool generic, const float* params, long long row_stride,
+                      const uint32_t* seeds, int n_frames, const Layout& L, const Hints& H,
+                      int width, int height, int row0, int n_rows, int samples, int reflections,
+                      float small_indent, float* out, void* stream) {
+#define FOURD_LAUNCH(...)                                                                    \
+  return launch_forward<kStub, __VA_ARGS__>(params, row_stride, seeds, n_frames, L, H, width, \
+                                            height, row0, n_rows, samples, reflections,       \
+                                            small_indent, out, stream)
+  const int kinds = composite_kinds(H);
+  if constexpr (kStub == kStubNone) {
+    if (!generic && H.n_singles >= 0) {
+      const bool lib_fams = kinds == kCompUnion
+                                ? H.union_axes[0] == (kLibraryFams & 15) &&
+                                      H.union_axes[1] == kLibraryFams >> 4
+                                : H.tiger_axes[0] == (kLibraryFams & 15) &&
+                                      H.tiger_axes[1] == kLibraryFams >> 4;
+      if (kinds == kCompUnion && lib_fams) {
+        FOURD_LAUNCH(CompositeFold<-1, -1, kCompUnion, kLibraryFams, -1>);
+      }
+      if (kinds == kCompTiger && lib_fams) {
+        FOURD_LAUNCH(CompositeFold<-1, -1, kCompTiger, kLibraryFams, -1>);
+      }
+      if (kinds == kCompHypercube && H.hypercube_axes == kLibraryCube) {
+        FOURD_LAUNCH(CompositeFold<-1, -1, kCompHypercube, -1, kLibraryCube>);
+      }
+    }
+  }
+  FOURD_LAUNCH(CompositeFold<-1, -1, -1, -1, -1>);
+#undef FOURD_LAUNCH
+}
+
+// Picks the fold's instance: a scene with composites has its own
+// (launch_composites); otherwise the room's 4 pairs on the axes in order
 // have their own, a launch without hints its own (every single all live),
 // any other hint pattern the generic one.
 template <int kStub>
@@ -206,6 +302,11 @@ int launch_fold(bool generic, const float* params, long long row_stride, const u
   for (int i = 0; i < kLayoutInts; ++i) dst[i] = layout[i];
   dst = reinterpret_cast<int*>(&H);
   for (int i = 0; i < kHintInts; ++i) dst[i] = hints[i];
+  if (composite_kinds(H) != 0) {
+    return launch_composites<kStub>(generic, params, row_stride, seeds, n_frames, L, H, width,
+                                    height, row0, n_rows, samples, reflections, small_indent, out,
+                                    stream);
+  }
   if (!generic && H.n_pairs == 4 && H.n_singles == 0 && pairs_in_axis_order(H)) {
     return launch_forward<kStub, TableFold<4, 0>>(params, row_stride, seeds, n_frames, L, H,
                                                   width, height, row0, n_rows, samples,

@@ -2,11 +2,11 @@
 // (megakernel.cu, K1) and the gradient kernels (gradkernel.cu, ablate.cu).
 //
 // Counterpart of the JAX package's ops/{vec4,rng,fastmath,sampler,sky}.py,
-// models/scene.py:intersect_scene_fast (hyperplanes and spheres: unhinted
+// models/scene.py:intersect_scene_fast (hyperplanes and spheres unhinted
 // over the packed params, ``intersect``, which the gradient kernels run;
-// with the static hints over a per-block table, ``intersect_table``, which
-// K1 runs) and the per-pixel body of ops/pallas/megakernel.py::_kernel with
-// _trace_rays_kernel. Every operation keeps the order of the plain torch
+// every primitive, composites included, with the static hints over a
+// per-block table, ``intersect_table``, which K1 runs) and the per-pixel
+// body of ops/pallas/megakernel.py::_kernel with _trace_rays_kernel. Every operation keeps the order of the plain torch
 // pipeline (models/renderer.py); the build passes -fmad=false, so on the
 // card a kernel built from this header rounds like its plain version.
 // Float constants are hex literals of the JAX package's float32 values.
@@ -329,21 +329,51 @@ __device__ Hit intersect(const float* P, const Layout& L, V4 o, V4 d) {
 struct alignas(16) Rec { float x, y, z, w; };
 
 // The wrapper's descriptor of the hints (ops/cuda/megakernel.py
-// hint_table): the wall pairs, then the single planes, in fold order.
+// hint_table): the wall pairs, then the single planes, in fold order; then
+// the composite primitives: where their specs lie in the params
+// (models/params.py Layout) and their axis hints (models/scene.py
+// AxisHints).
 constexpr int kMaxHintPlanes = 64;
+constexpr int kMaxCylinders = 16;
 struct Hints {
   int n_pairs;
   int n_singles;                   // -1: no hints (every plane, all live)
   int pair[kMaxHintPlanes / 2];    // i | j << 8 | axis << 16, offset_i < offset_j
   int single[kMaxHintPlanes];      // plane | live components << 8 (bit c: component c)
+  int n_cylinders;
+  int cylinders, cylinders_union, hypercube, tiger;  // offsets of the specs; -1: none
+  int cylinder_axes[kMaxCylinders];  // a family: k1 | k2 << 2; -1: not aligned
+  int union_axes[2];
+  int hypercube_axes;              // k_i << 2i | (s_i < 0) << (8 + i); -1: not aligned
+  int tiger_axes[2];
 };
-constexpr int kHintInts = 2 + kMaxHintPlanes / 2 + kMaxHintPlanes;
+constexpr int kHintComposites = 2 + kMaxHintPlanes / 2 + kMaxHintPlanes;
+constexpr int kHintInts = kHintComposites + 5 + kMaxCylinders + 2 + 1 + 2;
 
-// The table's records (1 + pairs + 2 singles + 2 spheres): [0] the header
-// (pairs, singles); per pair {ca, cb, axis, a's offset | b's offset << 16};
-// per single {n} and {dot(point, n), live mask, offset, 0}; per sphere
-// {center} and {r^2, 1 / max(r, 1e-30), r, offset} (offsets into the
-// params, integers as float bits).
+// Floats of the composites' specs in the params (models/params.py).
+constexpr int kCylinderFloats = 18;  // point(4) axis1(4) axis2(4) r glow refl color(3)
+constexpr int kCubeFloats = 26;      // space_point(4) space_norm(4) x y z (4 each) r material(5)
+constexpr int kHypercubeFloats = 8 * kCubeFloats + 4 + 16 + 1;  // cells, point, axes, r
+constexpr int kTigerFloats = 4 * kCylinderFloats;
+// The composite kinds, as bits of a fold instance's kComp and of the
+// table header.
+constexpr int kCompCylinders = 1, kCompUnion = 2, kCompHypercube = 4, kCompTiger = 8;
+// The composites' records in the table.
+constexpr int kCylinderRecs = 5, kUnionRecs = 10, kHypercubeRecs = 8, kTigerRecs = 12;
+
+// The table's records (1 + pairs + 2 singles + 2 spheres + the
+// composites'): [0] the header (pairs, singles, cylinders, composite
+// kinds); per pair {ca, cb, axis, a's offset | b's offset << 16}; per
+// single {n} and {dot(point, n), live mask, offset, 0}; per sphere
+// {center} and {r^2, 1 / max(r, 1e-30), r, offset}; then the composites
+// in fold order (offsets into the params, integers as float bits): a
+// cylinder family is {point}, {axis1}, {axis2}, {axis hint, live mask,
+// first projection's live mask, 0} and a face {r^2, 1 / max(r, 1e-30), r,
+// material offset}; a cylinder is its family and face; the duocylinder its
+// two families and two faces; the hypercube {center}, its 4 axes, {r, axis
+// hint, 0, 0}, the hinted axes' signs and per axis the +cell's | the
+// -cell's material offset << 16; the tiger its families A and B and the
+// faces A r_in, A r_out, B r_in, B r_out.
 
 // The table starts at the first 16-byte boundary after the params (the
 // dynamic shared memory starts 16-byte aligned).
@@ -353,6 +383,78 @@ __device__ __forceinline__ const Rec* fold_table(const float* P, const Layout& L
 
 __device__ __forceinline__ float bits(uint32_t u) { return __uint_as_float(u); }
 
+// A cylinder family's records from its spec ``c`` in the params and its
+// axis hint ``code`` (k1 | k2 << 2, -1: not aligned).
+__device__ __forceinline__ void write_family(Rec* r, const float* c, int code) {
+  uint32_t live = 0u, l1 = 0u;
+  if (code >= 0) {
+    live = 0xFu & ~((1u << (code & 3)) | (1u << (code >> 2)));
+    l1 = 0xFu & ~(1u << (code & 3));
+  }
+  r[0] = {c[0], c[1], c[2], c[3]};
+  r[1] = {c[4], c[5], c[6], c[7]};
+  r[2] = {c[8], c[9], c[10], c[11]};
+  r[3] = {bits(static_cast<uint32_t>(code)), bits(live), bits(l1), 0.0f};
+}
+
+// A face's record: the radius of the spec at ``c`` and the material at
+// ``mat`` (both in the params P).
+__device__ __forceinline__ Rec face_rec(const float* P, const float* c, const float* mat) {
+  const float r = c[12];
+  return {r * r, 1.0f / fmaxf(r, kTiny30), r, bits(static_cast<uint32_t>(mat - P))};
+}
+
+// Writes the records of the composite kind ``kind`` (one cylinder, index
+// ``j``) at ``T`` from the descriptor.
+__device__ void write_composite(Rec* T, const float* P, const Hints& H, int kind, int j) {
+  if (kind == kCompCylinders) {
+    const float* c = P + H.cylinders + kCylinderFloats * j;
+    write_family(T, c, H.cylinder_axes[j]);
+    T[4] = face_rec(P, c, c + 13);
+  } else if (kind == kCompUnion) {
+    const float* c1 = P + H.cylinders_union;
+    const float* c2 = c1 + kCylinderFloats;
+    write_family(T, c1, H.union_axes[0]);
+    write_family(T + 4, c2, H.union_axes[1]);
+    T[8] = face_rec(P, c1, c1 + 13);
+    T[9] = face_rec(P, c2, c2 + 13);
+  } else if (kind == kCompHypercube) {
+    const float* hc = P + H.hypercube;
+    const float* g = hc + 8 * kCubeFloats;  // the generators: point, axes, r
+    const int code = H.hypercube_axes;
+    for (int i = 0; i < 5; ++i) T[i] = {g[4 * i], g[4 * i + 1], g[4 * i + 2], g[4 * i + 3]};
+    T[5] = {g[20], bits(static_cast<uint32_t>(code)), 0.0f, 0.0f};
+    float sg[4];
+    uint32_t mats[4];
+    for (int i = 0; i < 4; ++i) {
+      sg[i] = code >= 0 && ((code >> (8 + i)) & 1) ? -1.0f : 1.0f;
+      const uint32_t pos = static_cast<uint32_t>(kCubeFloats * i + 21 + H.hypercube);
+      mats[i] = pos | (pos + 4u * kCubeFloats) << 16;
+    }
+    T[6] = {sg[0], sg[1], sg[2], sg[3]};
+    T[7] = {bits(mats[0]), bits(mats[1]), bits(mats[2]), bits(mats[3])};
+  } else {  // the tiger: inner_cyl1, outer_cyl1, inner_cyl2, outer_cyl2
+    const float* t = P + H.tiger;
+    const float* a_in = t;
+    const float* a_out = t + kCylinderFloats;
+    const float* b_in = t + 2 * kCylinderFloats;
+    const float* b_out = t + 3 * kCylinderFloats;
+    write_family(T, a_in, H.tiger_axes[0]);
+    write_family(T + 4, b_in, H.tiger_axes[1]);
+    T[8] = face_rec(P, a_in, a_in + 13);
+    T[9] = face_rec(P, a_out, a_in + 13);
+    T[10] = face_rec(P, b_in, b_in + 13);
+    T[11] = face_rec(P, b_out, b_in + 13);
+  }
+}
+
+// The composite kinds of the descriptor, as kComp* bits (on the card for
+// the table, on the host for the launch's choice of instance).
+__host__ __device__ __forceinline__ int composite_kinds(const Hints& H) {
+  return (H.n_cylinders > 0 ? kCompCylinders : 0) | (H.cylinders_union >= 0 ? kCompUnion : 0) |
+         (H.hypercube >= 0 ? kCompHypercube : 0) | (H.tiger >= 0 ? kCompTiger : 0);
+}
+
 // Writes the fold table from the params P (both in shared memory); thread
 // ``t`` of ``n_threads`` writes every n_threads-th record. The caller
 // synchronises after it.
@@ -361,10 +463,13 @@ __device__ void build_fold_table(const float* P, const Layout& L, const Hints& H
   Rec* T = const_cast<Rec*>(fold_table(P, L));
   const int np = H.n_pairs;
   const int ns = H.n_singles < 0 ? L.n_spaces : H.n_singles;
-  const int n = 1 + np + ns + L.n_spheres;
+  const int kinds = composite_kinds(H);
+  const int n_cyl = (kinds & kCompCylinders) ? H.n_cylinders : 0;
+  const int n = 1 + np + ns + L.n_spheres + n_cyl + ((kinds & kCompUnion) ? 1 : 0) +
+                ((kinds & kCompHypercube) ? 1 : 0) + ((kinds & kCompTiger) ? 1 : 0);
   for (int e = t; e < n; e += n_threads) {
     if (e == 0) {
-      T[0] = {bits(np), bits(ns), 0.0f, 0.0f};
+      T[0] = {bits(np), bits(ns), bits(n_cyl), bits(kinds)};
       continue;
     }
     int k = e - 1;
@@ -389,11 +494,33 @@ __device__ void build_fold_table(const float* P, const Layout& L, const Hints& H
       continue;
     }
     k -= ns;
-    const float* s = P + L.spheres + kSphereFloats * k;
-    const float r = s[4];
-    Rec* rec = T + 1 + np + 2 * ns + 2 * k;
-    rec[0] = {s[0], s[1], s[2], s[3]};
-    rec[1] = {r * r, 1.0f / fmaxf(r, kTiny30), r, bits(static_cast<uint32_t>(s - P))};
+    if (k < L.n_spheres) {
+      const float* s = P + L.spheres + kSphereFloats * k;
+      const float r = s[4];
+      Rec* rec = T + 1 + np + 2 * ns + 2 * k;
+      rec[0] = {s[0], s[1], s[2], s[3]};
+      rec[1] = {r * r, 1.0f / fmaxf(r, kTiny30), r, bits(static_cast<uint32_t>(s - P))};
+      continue;
+    }
+    // The composites, in fold order: the cylinders, then one job a kind.
+    k -= L.n_spheres;
+    Rec* rec = T + 1 + np + 2 * ns + 2 * L.n_spheres;
+    if (k < n_cyl) {
+      write_composite(rec + kCylinderRecs * k, P, H, kCompCylinders, k);
+      continue;
+    }
+    k -= n_cyl;
+    rec += kCylinderRecs * n_cyl;
+    const int order[3] = {kCompUnion, kCompHypercube, kCompTiger};
+    for (int q = 0; q < 3; ++q) {
+      const int kind = order[q];
+      if (!(kinds & kind)) continue;
+      if (k-- == 0) {
+        write_composite(rec, P, H, kind, 0);
+        break;
+      }
+      rec += kind == kCompUnion ? kUnionRecs : kind == kCompHypercube ? kHypercubeRecs : kTigerRecs;
+    }
   }
 }
 
@@ -431,13 +558,289 @@ __device__ __forceinline__ void live_dots(V4 o, V4 d, const Rec& n, uint32_t mas
 // single plane's four components live.
 constexpr int kAllLive = -2;
 
-// The closest hit over the fold table (scene.py:373-455). kPairs and
+// --- The composites' fold (scene.py:495-653, geometry.py:419-524) -------
+//
+// A cylinder family's projected-ray quantities (geometry._CylFamily), from
+// its table records: with an axis hint (k1 | k2 << 2) the projections zero
+// components k1 and k2 and the dots sum the live components alone, in
+// ascending order from the first (scene._cyl_family_aligned); without, the
+// full projections and dots of geometry._cyl_family. 1 / sqrt is two
+// correctly rounded operations, as the plain version's rsqrt.
+struct Fam {
+  V4 po, d12;
+  float l2, b_raw, len12_sq, inv_len, b, perp2;
+  bool proj_ok, degenerate;
+};
+
+// The sum of t's components on the set bits of ``mask``, in ascending
+// order, starting at the first.
+__device__ __forceinline__ float masked_sum(V4 t, uint32_t mask) {
+  const float c[4] = {t.x, t.y, t.z, t.w};
+  float acc = 0.0f;
+  bool first = true;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if ((mask >> i) & 1u) {
+      acc = first ? c[i] : acc + c[i];
+      first = false;
+    }
+  }
+  return acc;
+}
+
+__device__ __forceinline__ V4 masked(V4 v, uint32_t mask) {
+  return {(mask & 1u) ? v.x : 0.0f, (mask & 2u) ? v.y : 0.0f, (mask & 4u) ? v.z : 0.0f,
+          (mask & 8u) ? v.w : 0.0f};
+}
+
+__device__ __forceinline__ V4 v4(Rec r) { return {r.x, r.y, r.z, r.w}; }
+
+// kCode >= 0: the family's axis hint, fixed for the instance; -1: read from
+// its records.
+template <int kCode>
+__device__ __forceinline__ Fam family(const Rec* f, V4 o, V4 d) {
+  const V4 co = sub4(v4(f[0]), o);
+  int code;
+  uint32_t live, l1;
+  if constexpr (kCode >= 0) {
+    code = kCode;
+    live = 0xFu & ~((1u << (kCode & 3)) | (1u << (kCode >> 2)));
+    l1 = 0xFu & ~(1u << (kCode & 3));
+  } else {
+    const Rec m = f[3];
+    code = static_cast<int>(__float_as_uint(m.x));
+    live = __float_as_uint(m.y);
+    l1 = __float_as_uint(m.z);
+  }
+  Fam F;
+  float len1_sq;
+  if (code >= 0) {
+    const V4 dd = {d.x * d.x, d.y * d.y, d.z * d.z, d.w * d.w};
+    F.po = masked(co, live);
+    F.d12 = masked(d, live);
+    F.l2 = masked_sum({co.x * co.x, co.y * co.y, co.z * co.z, co.w * co.w}, live) + kTiny37;
+    F.b_raw = masked_sum({co.x * d.x, co.y * d.y, co.z * d.z, co.w * d.w}, live);
+    len1_sq = masked_sum(dd, l1);
+    F.len12_sq = masked_sum(dd, live);
+  } else {
+    const V4 a1 = v4(f[1]), a2 = v4(f[2]);
+    const float a1c = dot4(co, a1), a2c = dot4(co, a2);
+    F.po = sub4(sub4(co, mul4s(a1, a1c)), mul4s(a2, a2c));
+    const V4 d1 = sub4(d, mul4s(a1, dot4(d, a1)));
+    len1_sq = dot4(d1, d1);
+    F.d12 = sub4(d1, mul4s(a2, dot4(d1, a2)));
+    F.len12_sq = dot4(F.d12, F.d12);
+    F.l2 = dot4(F.po, F.po) + kTiny37;
+    F.b_raw = dot4(F.po, F.d12);
+  }
+  F.proj_ok = len1_sq >= kSmall2 && F.len12_sq >= kSmall2;
+  F.inv_len = 1.0f / sqrtf(F.proj_ok ? F.len12_sq : 1.0f);
+  F.degenerate = F.l2 < kSmall2;
+  F.b = F.degenerate ? 0.0f : F.b_raw * F.inv_len;
+  F.perp2 = F.l2 - F.b * F.b;
+  return F;
+}
+
+// The family's circle test at radius^2 r2 (geometry._family_circle): the
+// two roots as ray parameters, the hit mask and the outer face's near-root
+// select.
+__device__ __forceinline__ void circle(const Fam& F, float r2, float& near, float& far,
+                                       bool& hit, bool& use_near) {
+  const bool receding = !F.degenerate && (F.l2 >= r2 && F.b < 0.0f);
+  const float disc = r2 - F.perp2;
+  const bool tangent = disc <= 0.0f;
+  float sq = sqrtf(tangent ? 1.0f : disc);
+  sq = tangent ? 0.0f : sq;
+  near = (F.b - sq) * F.inv_len;
+  far = (F.b + sq) * F.inv_len;
+  hit = F.proj_ok && !(receding || tangent);
+  use_near = F.l2 > r2;
+}
+
+// Squared distance to the family's axis plane at ray parameter t
+// (geometry._family_clip_sq).
+__device__ __forceinline__ float clip_sq(const Fam& F, float t) {
+  return (F.l2 - (2.0f * t) * F.b_raw) + (t * t) * F.len12_sq;
+}
+
+// A family's hint of an instance's kFams (family i: bits 4i..4i+3; -1:
+// read from the records).
+template <int kFams, int kI>
+constexpr int kFamCode = kFams < 0 ? -1 : (kFams >> (4 * kI)) & 15;
+
+// The closest-fold step: a strictly nearer candidate wins, ties keep the
+// earlier; ``aux`` is the winner's flip (a family face) or +cell (the
+// hypercube).
+__device__ __forceinline__ void take(float cand, int k, bool a, float& best, int& idx, bool& aux) {
+  if (k == 0 || cand < best) {
+    best = cand;
+    idx = k;
+    aux = a;
+  }
+}
+
+// The composites' candidates, from the table's composite records ``C``,
+// numbered from k on: each cylinder, the duocylinder's two faces (each
+// clipped against the other family, both against cylinder 2's radius),
+// the hypercube's four opposite-cell pairs and the tiger's four merged
+// candidates. kComp (kComp* bits; -1: the header's) fixes the kinds
+// present, kFams the duocylinder's or tiger's family hints and kCube the
+// hypercube's (-1: read from the records).
+template <int kComp, int kFams, int kCube>
+__device__ __forceinline__ void fold_composites(const Rec* C, Rec head, V4 o, V4 d, int& k,
+                                                float& best, int& idx, bool& aux) {
+  const int kinds = kComp >= 0 ? kComp : static_cast<int>(__float_as_uint(head.w));
+  const Rec* rec = C;
+  if (kinds & kCompCylinders) {
+    const int n_cyl = static_cast<int>(__float_as_uint(head.z));
+    for (int c = 0; c < n_cyl; ++c, ++k, rec += kCylinderRecs) {
+      const Fam F = family<-1>(rec, o, d);
+      float near, far;
+      bool hit, use_near;
+      circle(F, rec[4].x, near, far, hit, use_near);
+      take(hit ? (use_near ? near : far) : kFar, k, use_near, best, idx, aux);
+    }
+  }
+  if (kinds & kCompUnion) {
+    const Fam F1 = family<kFamCode<kFams, 0>>(rec, o, d);
+    const Fam F2 = family<kFamCode<kFams, 1>>(rec + 4, o, d);
+    const float r2sq = rec[9].x;  // cylinder 2's radius clips both faces
+    float near, far;
+    bool hit, use_near;
+    circle(F1, rec[8].x, near, far, hit, use_near);
+    float dist = use_near ? near : far;
+    take(hit && clip_sq(F2, dist) <= r2sq ? dist : kFar, k++, use_near, best, idx, aux);
+    circle(F2, r2sq, near, far, hit, use_near);
+    dist = use_near ? near : far;
+    take(hit && clip_sq(F1, dist) <= r2sq ? dist : kFar, k++, use_near, best, idx, aux);
+    rec += kUnionRecs;
+  }
+  if (kinds & kCompHypercube) {
+    const Rec meta = rec[5];
+    const float r = meta.x;
+    const int code = kCube >= 0 ? kCube : static_cast<int>(__float_as_uint(meta.y));
+    float co[4], dd[4];
+    if (code >= 0) {  // aligned: co_i = s_i (c_k - o_k), dd_i = s_i d_k
+      const Rec sg = rec[6];
+      const float sgn[4] = {sg.x, sg.y, sg.z, sg.w};
+      const V4 c = v4(rec[0]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kk = (code >> (2 * i)) & 3;
+        const float s = kCube >= 0 ? (((kCube >> (8 + i)) & 1) ? -1.0f : 1.0f) : sgn[i];
+        co[i] = s * (axis_of(c, kk) - axis_of(o, kk));
+        dd[i] = s * axis_of(d, kk);
+      }
+    } else {
+      const V4 cmo = sub4(v4(rec[0]), o);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const V4 a = v4(rec[1 + i]);
+        co[i] = dot4(cmo, a);
+        dd[i] = dot4(d, a);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool pos = dd[i] <= 0.0f;  // the +cell faces the ray
+      const float h = pos ? -(co[i] + r) : co[i] - r;
+      const float cos_dn = fabsf(dd[i]);
+      bool inside = h >= 0.0f;
+      const float dist = h / (cos_dn == 0.0f ? kTiny30 : cos_dn);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j != i) inside = inside && fabsf(dist * dd[j] - co[j]) <= r;
+      }
+      take(inside ? dist : kFar, k++, pos, best, idx, aux);
+    }
+    rec += kHypercubeRecs;
+  }
+  if (kinds & kCompTiger) {
+    const Fam FA = family<kFamCode<kFams, 0>>(rec, o, d);
+    const Fam FB = family<kFamCode<kFams, 1>>(rec + 4, o, d);
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      const Fam& F = f == 0 ? FA : FB;
+      const Fam& G = f == 0 ? FB : FA;
+      const float o_in2 = rec[f == 0 ? 10 : 8].x, o_out2 = rec[f == 0 ? 11 : 9].x;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float near, far;
+        bool hit, use_near;
+        circle(F, rec[8 + 2 * f + q].x, near, far, hit, use_near);
+        const float clip_near = clip_sq(G, near), clip_far = clip_sq(G, far);
+        const bool keep_near = clip_near <= o_out2 && clip_near >= o_in2;
+        const bool keep_far = clip_far <= o_out2 && clip_far >= o_in2;
+        const bool take_near = use_near && keep_near;
+        const float dist = take_near ? near : far;
+        take(hit && (take_near || keep_far) ? dist : kFar, k++, take_near, best, idx, aux);
+      }
+    }
+  }
+}
+
+// A family face's normal at the folded distance, (po - d12 dist) * (flip ?
+// -1/r : 1/r) (geometry._family_norm); returns the face's material.
+template <int kCode>
+__device__ __forceinline__ const float* face_norm(const float* P, const Rec* fam, Rec face, V4 o,
+                                                  V4 d, bool flip, float dist, V4& norm) {
+  const Fam F = family<kCode>(fam, o, d);
+  const float scale = flip ? -face.y : face.y;
+  norm = {(F.po.x - F.d12.x * dist) * scale, (F.po.y - F.d12.y * dist) * scale,
+          (F.po.z - F.d12.z * dist) * scale, (F.po.w - F.d12.w * dist) * scale};
+  return P + __float_as_uint(face.w);
+}
+
+// The normal and material of composite candidate ``c`` (numbered as
+// fold_composites numbers them from 0), the fold's winner.
+template <int kComp, int kFams, int kCube>
+__device__ __forceinline__ const float* resolve_composite(const float* P, const Rec* C, Rec head,
+                                                          int c, V4 o, V4 d, bool aux, float dist,
+                                                          V4& norm) {
+  const int kinds = kComp >= 0 ? kComp : static_cast<int>(__float_as_uint(head.w));
+  const Rec* rec = C;
+  if (kinds & kCompCylinders) {
+    const int n_cyl = static_cast<int>(__float_as_uint(head.z));
+    if (c < n_cyl) {
+      rec += kCylinderRecs * c;
+      return face_norm<-1>(P, rec, rec[4], o, d, aux, dist, norm);
+    }
+    c -= n_cyl;
+    rec += kCylinderRecs * n_cyl;
+  }
+  if (kinds & kCompUnion) {
+    if (c < 2) {
+      return c == 0 ? face_norm<kFamCode<kFams, 0>>(P, rec, rec[8], o, d, aux, dist, norm)
+                    : face_norm<kFamCode<kFams, 1>>(P, rec + 4, rec[9], o, d, aux, dist, norm);
+    }
+    c -= 2;
+    rec += kUnionRecs;
+  }
+  if (kinds & kCompHypercube) {
+    if (c < 4) {
+      const V4 a = v4(rec[1 + c]);
+      const float sgn = aux ? 1.0f : -1.0f;
+      norm = {sgn * a.x, sgn * a.y, sgn * a.z, sgn * a.w};
+      const Rec m = rec[7];
+      const uint32_t mats = __float_as_uint(c == 0 ? m.x : c == 1 ? m.y : c == 2 ? m.z : m.w);
+      return P + (aux ? mats & 0xFFFFu : mats >> 16);
+    }
+    c -= 4;
+    rec += kHypercubeRecs;
+  }
+  // The tiger: candidates 0-1 on family A, 2-3 on family B.
+  return c < 2 ? face_norm<kFamCode<kFams, 0>>(P, rec, rec[8 + c], o, d, aux, dist, norm)
+               : face_norm<kFamCode<kFams, 1>>(P, rec + 4, rec[8 + c], o, d, aux, dist, norm);
+}
+
+// The closest hit over the fold table (scene.py:373-653). kPairs and
 // kSingles, when not negative, are the table's counts, fixed for an
 // instance, whose pair i then lies on axis i (the room's x, y, z and w
 // walls; the launch checks it); kSingles kAllLive fixes every live mask to
-// 0xF. Inlined at each of its three sites: a call kept its live values on
-// the stack.
-template <int kPairs, int kSingles>
+// 0xF. kComp (0: none; -1: the header's), kFams and kCube fix the
+// composites' kinds and hints (fold_composites). Inlined at each of its
+// three sites: a call kept its live values on the stack.
+template <int kPairs, int kSingles, int kComp = 0, int kFams = -1, int kCube = -1>
 __device__ __forceinline__ Hit intersect_table(const float* P, const Layout& L, V4 o, V4 d) {
   const Rec* T = fold_table(P, L);
   const Rec head = T[0];
@@ -486,6 +889,11 @@ __device__ __forceinline__ Hit intersect_table(const float* P, const Layout& L, 
     float cand = hit ? dist : kFar;
     if (k == 0 || cand < best) { best = cand; idx = k; }
   }
+  bool aux = false;
+  if constexpr (kComp != 0) {
+    fold_composites<kComp, kFams, kCube>(spheres + 2 * L.n_spheres, head, o, d, k, best, idx,
+                                         aux);
+  }
 
   Hit h;
   h.hit = best < kHalfFar;
@@ -521,7 +929,7 @@ __device__ __forceinline__ Hit intersect_table(const float* P, const Layout& L, 
     h.norm = {(mask & 1u) ? flip * n.x : 0.0f, (mask & 2u) ? flip * n.y : 0.0f,
               (mask & 4u) ? flip * n.z : 0.0f, (mask & 8u) ? flip * n.w : 0.0f};
     mat = P + __float_as_uint(c.z) + 8;
-  } else {
+  } else if (kComp == 0 || idx < np + ns + L.n_spheres) {
     const Rec c4 = spheres[2 * (idx - np - ns)], e = spheres[2 * (idx - np - ns) + 1];
     V4 c = {c4.x, c4.y, c4.z, c4.w};
     V4 po = sub4(c, o);
@@ -530,6 +938,10 @@ __device__ __forceinline__ Hit intersect_table(const float* P, const Layout& L, 
     V4 hit_p = add4(o, mul4s(d, h.dist));
     h.norm = mul4s(sub4(c, hit_p), scale);
     mat = P + __float_as_uint(e.w) + 5;
+  } else {
+    mat = resolve_composite<kComp, kFams, kCube>(P, spheres + 2 * L.n_spheres, head,
+                                                 idx - np - ns - L.n_spheres, o, d, aux, h.dist,
+                                                 h.norm);
   }
   h.glow = mat[0];
   h.refl = mat[1];
@@ -540,9 +952,12 @@ __device__ __forceinline__ Hit intersect_table(const float* P, const Layout& L, 
 // The fold a trace runs, as a template argument of setup_pixel and
 // trace_sample: ParamsFold is intersect over the packed params, no hints
 // (the gradient kernels); TableFold<kPairs, kSingles> is intersect_table
-// (K1; negative: the counts read from the table).
+// without composites (K1; negative: the counts read from the table);
+// CompositeFold<kPairs, kSingles, kComp, kFams, kCube> intersect_table
+// with them.
 struct ParamsFold {};
 template <int kPairs, int kSingles> struct TableFold {};
+template <int kPairs, int kSingles, int kComp, int kFams, int kCube> struct CompositeFold {};
 
 __device__ __forceinline__ Hit fold(ParamsFold, const float* P, const Layout& L, V4 o, V4 d) {
   return intersect(P, L, o, d);
@@ -551,6 +966,11 @@ template <int kPairs, int kSingles>
 __device__ __forceinline__ Hit fold(TableFold<kPairs, kSingles>, const float* P, const Layout& L,
                                     V4 o, V4 d) {
   return intersect_table<kPairs, kSingles>(P, L, o, d);
+}
+template <int kPairs, int kSingles, int kComp, int kFams, int kCube>
+__device__ __forceinline__ Hit fold(CompositeFold<kPairs, kSingles, kComp, kFams, kCube>,
+                                    const float* P, const Layout& L, V4 o, V4 d) {
+  return intersect_table<kPairs, kSingles, kComp, kFams, kCube>(P, L, o, d);
 }
 
 // Direction update of one bounce on a live lane: Bernoulli mirror vs

@@ -49,8 +49,10 @@ outside their freeze_hints contract), so the kernel route's K1 and K2
 launches in ``RenderLight`` render the unhinted fold too, as the JAX
 custom_vjp forward does on traced values. Not ported yet, and raising:
 that contract, ``freeze_hints`` (ROADMAP queue 1, item 4a, training
-half), and the coverage, ``drop_object`` and ``zero_object`` of the
-composite primitives (item 4b). Without frozen hints the JAX package's
+half), and the gradient of a scene with composite primitives, with their
+coverage, ``drop_object`` and ``zero_object`` (item 4b, training half;
+renderer.check_trainable refuses such a scene on every gradient path).
+Without frozen hints the JAX package's
 ``_stop_frozen_for_coverage`` and ``_hints_for_dropped`` are the
 identity, so they are left out.
 """
@@ -65,7 +67,7 @@ from torch import nn
 from fourd_ray_tracing_tpu_torch.camera import Camera
 from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
-from fourd_ray_tracing_tpu_torch.models.scene import Scene
+from fourd_ray_tracing_tpu_torch.models.scene import COMPOSITE_KINDS, Scene, check_trainable_scene
 from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel, megakernel
 from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4, dot
@@ -90,7 +92,7 @@ def image_loss(scene: Scene, camera: Camera, cfg: RenderConfig, seed, target,
     differentiable by torch autograd. With a mesh, this rank's part of it:
     its rows of the image, rendered over the mesh (the rows' parts sum to
     the MSE over the rays group)."""
-    renderer.check_trainable(cfg)
+    renderer.check_trainable(cfg, scene)
     if mesh is None:
         return renderer.image_loss(scene, camera, cfg, seed, target)
     image = pmesh.sharded_render_image(scene, camera, cfg, seed, mesh, gather=False)
@@ -123,14 +125,11 @@ def render_grad(scene: Scene, camera: Camera, cfg: RenderConfig, seed, target, m
 
 # --- Soft-silhouette boundary gradients --------------------------------------
 
-COMPOSITE_KINDS = ("cylinders", "cylinders_union", "hypercube", "tiger")
-
-
 def _check_kind(kind) -> None:
     if kind in COMPOSITE_KINDS:
         raise NotImplementedError(
-            f"the soft loss of {kind!r} needs the composite primitives, which are not "
-            "ported yet (ROADMAP queue 1, item 4)")
+            f"the soft loss of {kind!r} (its coverage, drop_object and zero_object) is "
+            "not ported yet (ROADMAP queue 1, item 4b, training half)")
     if kind not in ("spheres", "spaces"):
         raise ValueError(f"unknown object kind: {kind!r}")
 
@@ -241,7 +240,7 @@ def soft_image_loss(scene: Scene, camera: Camera, cfg: RenderConfig, seed, targe
     blend by ``object_coverage``. ``object_ref`` defaults to ("spheres",
     sphere_index). The plain reference of the soft training slice. With a
     mesh, this rank's part: its rows, rendered over the mesh."""
-    renderer.check_trainable(cfg)
+    renderer.check_trainable(cfg, scene)
     if object_ref is None:
         object_ref = ("spheres", sphere_index)
     without = drop_object(scene, object_ref)
@@ -316,7 +315,7 @@ class RenderLight(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, vec, like_scene, like_camera, cfg, seed, mesh=None):
-        renderer.check_trainable(cfg)
+        renderer.check_trainable(cfg, like_scene)
         words, batched = renderer.seed_words(seed)
         if batched:
             raise ValueError("the light-VJP path takes one scalar seed")
@@ -351,7 +350,7 @@ def render_light_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camer
     """Mean light (H, W, 3) or (V, H, W, 3) of the scene and camera packed
     in ``vec`` (P,), differentiable w.r.t. ``vec``: K1 forward and K5
     backward for a CUDA vector, the plain pipeline for a CPU one."""
-    renderer.check_trainable(cfg)
+    renderer.check_trainable(cfg, like_scene)
     if vec.device.type == "cpu":
         scene, camera = params.unpack(vec, like_scene, like_camera)
         return renderer.render_light(scene, camera, cfg, seed)
@@ -372,7 +371,7 @@ def render_light_pair(scene_a: Scene, scene_b: Scene, camera: Camera, cfg: Rende
     a loss over each rank's block gives every rank the whole image's
     gradient (the counterpart of pallas_render_light_pair_sharded,
     diff.py:631-673)."""
-    renderer.check_trainable(cfg)
+    renderer.check_trainable(cfg, scene_a)
     vecs = params.stack_rows((scene_a, scene_b), camera)
     if mesh is not None:
         return RenderLight.apply(vecs, scene_a, camera, cfg, seed, mesh)
@@ -511,10 +510,11 @@ def make_train_step(cfg: RenderConfig, lr: float, camera: Camera,
     """
     soft = soft_sphere_index is not None or soft_object_ref is not None
     _check_impl(impl, frames_per_step, soft)
-    renderer.check_trainable(cfg)
+    renderer.check_trainable(cfg, None)
     ref = soft_object_ref or ("spheres", soft_sphere_index or 0)
 
     def init(scene: Scene):
+        check_trainable_scene(scene)
         scene = params.map_leaves(
             lambda t: t.detach().to(torch.float32).clone().requires_grad_(True), scene)
         return scene, torch.optim.Adam(list(params.tree_leaves(scene)), lr=lr)
@@ -584,7 +584,7 @@ def make_packed_train_step(cfg: RenderConfig, lr: float, camera: Camera, scene_t
     ``param_filter`` (the make_train_step contract) becomes a packed 0/1
     vector that multiplies the gradient before the optimizer.
     """
-    renderer.check_trainable(cfg)
+    renderer.check_trainable(cfg, scene_template)
     n = params.n_scene(scene_template)
     cam_vec = params.pack(scene_template, camera).detach()[n:]
     mask = None if param_filter is None else params.leaf_mask(param_filter, scene_template)

@@ -14,10 +14,10 @@ camera state (the JAX engine's use_native_controls="python"):
 ``impl="cuda"`` renders through the forward kernel's wrapper
 (ops/cuda/megakernel.py), which takes the plain pipeline for tensors on
 the CPU; ``impl="torch"`` always takes the plain pipeline. With
-``impl="cuda"`` the engine derives the static hyperplane hints from the
-scene once, at construction, into every group's config (the JAX engine,
-engine.py:196-228), so a step reads nothing back from the card to derive
-them. Accumulation buffers live on the engine's device and update in
+``impl="cuda"`` the engine derives the static hints (the hyperplanes' and
+the composite primitives' axes) from the scene once, at construction,
+into every group's config (the JAX engine, engine.py:196-228), so a step
+reads nothing back from the card to derive them. Accumulation buffers live on the engine's device and update in
 place.
 """
 from __future__ import annotations
@@ -32,7 +32,7 @@ import torch
 from fourd_ray_tracing_tpu_torch import camera as cam
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig, accumulate, render_image
 from fourd_ray_tracing_tpu_torch.models.scene import Scene
-from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import render_image_cuda, with_hints
+from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import hinted, render_image_cuda, with_hints
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4, f32
 
 RENDERERS = {"cuda": render_image_cuda, "torch": render_image}
@@ -116,9 +116,10 @@ class RenderEngine:
         render = RENDERERS[impl]
         if impl == "cuda":
             cfg = self.cfg = with_hints(scene, cfg)
-            if additional is not None and additional[0].plane_hints is None:
+            if additional is not None and not hinted(additional[0]):
                 additional = (replace(additional[0], plane_hints=cfg.plane_hints,
-                                      plane_pairs=cfg.plane_pairs), additional[1])
+                                      plane_pairs=cfg.plane_pairs, axis_hints=cfg.axis_hints),
+                              additional[1])
         self.groups: List[_ViewGroup] = [_ViewGroup(cfg, self.views, render, self.device)]
         if additional is not None:
             add_cfg, add_views = additional

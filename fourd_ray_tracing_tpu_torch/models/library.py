@@ -1,8 +1,9 @@
-"""The canonical scenes of this slice, with the JAX package's numbers.
+"""The five canonical scenes, with the JAX package's numbers.
 
-Counterpart of fourd_ray_tracing_tpu/models/library.py:26-69. The other
-three scenes (hypercube, duocylinder, tiger) need the composite folds,
-which are still to be ported (ROADMAP queue 1, item 4).
+Counterpart of fourd_ray_tracing_tpu/models/library.py. The forward
+renders all five; the gradient paths take the two without composite
+primitives (sphere_plane_light, room_with_sphere) and refuse the others
+(ROADMAP queue 1, item 4b, training half).
 """
 from __future__ import annotations
 
@@ -10,15 +11,17 @@ import numpy as np
 
 from fourd_ray_tracing_tpu_torch.models.scene import (
     Scene,
+    cylinder,
     environment,
     material,
     space,
     sphere,
     sun,
 )
+from fourd_ray_tracing_tpu_torch.ops.geometry import make_hypercube, make_tiger
+from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
 
 PI = float(np.pi)
-NOT_PORTED = ("hypercube", "duocylinder", "tiger")
 
 
 def sphere_plane_light(device) -> Scene:
@@ -71,19 +74,92 @@ def room_with_sphere(device) -> Scene:
     )
 
 
+def hypercube(device) -> Scene:
+    """White floor and the 8-cell hypercube, one material a cell, bright
+    sun."""
+    colors = ((0.72, 0.07, 0.20), (0.00, 0.61, 0.28), (1.00, 0.84, 0.00), (0.40, 0.00, 0.80),
+              (1.00, 0.35, 0.00), (0.00, 0.27, 0.68), (1.00, 1.00, 1.00), (0.01, 0.01, 0.01))
+    mats = tuple(material(0, 0, c, device) for c in colors)
+    return Scene(
+        spaces=(
+            space((0, 0, -1.5, 0), (0, 0, 1, 0), material(0, 0, (1, 1, 1), device), device),
+        ),
+        hypercube=make_hypercube(
+            Vec4.of(0, 2, 0, 0, device=device),
+            Vec4.of(1, 0, 0, 0, device=device),
+            Vec4.of(0, 1, 0, 0, device=device),
+            Vec4.of(0, 0, 1, 0, device=device),
+            Vec4.of(0, 0, 0, 1, device=device),
+            1.0,
+            mats,
+        ),
+        environment=environment(
+            sun((0, 1, 1, 0), PI * 0.09, (2100, 1000, 20), 0.0, device),
+            (0.4, 0.6, 1.53),
+            device=device,
+        ),
+    )
+
+
+def duocylinder(device) -> Scene:
+    """Floor and the duocylinder (two axis-swapped infinite cylinders)."""
+    return Scene(
+        spaces=(
+            space((0, 0, -1.5, 0), (0, 0, 1, 0), material(0, 0, (0.4, 0.25, 0.07), device),
+                  device),
+        ),
+        cylinders_union=(
+            cylinder((0, 2, 0, 0), (1, 0, 0, 0), (0, 0, 0, 1), 1.0,
+                     material(0, 0, (1.0, 0.0, 0.0), device), device),
+            cylinder((0, 2, 0, 0), (0, 0, 1, 0), (0, 1, 0, 0), 1.0,
+                     material(0, 0, (0.07, 0.67, 0.25), device), device),
+        ),
+        environment=environment(
+            sun((0, 1, 1, 0), PI * 0.09, (500, 500, 10), 0.0, device),
+            (0.2, 0.6, 1.2),
+            device=device,
+        ),
+    )
+
+
+def tiger(device) -> Scene:
+    """Floor and the 4D tiger (the annulus of two cylinder families); the
+    reference shader's built-in default scene."""
+    return Scene(
+        spaces=(
+            space((0, 0, -1.5, 0), (0, 0, 1, 0), material(0, 0, (0.4, 0.25, 0.07), device),
+                  device),
+        ),
+        tiger=make_tiger(
+            Vec4.of(0, 2, 0, 0, device=device),
+            Vec4.of(1, 0, 0, 0, device=device),
+            Vec4.of(0, 0, 0, 1, device=device),
+            Vec4.of(0, 0, 1, 0, device=device),
+            Vec4.of(0, 1, 0, 0, device=device),
+            0.9,
+            1.4,
+            material(0, 0, (1.0, 0.0, 0.0), device),
+            material(0, 0, (0.07, 0.67, 0.25), device),
+        ),
+        environment=environment(
+            sun((0, 1, 1, 0), PI * 0.09, (500, 500, 10), 0.0, device),
+            (0.2, 0.6, 1.2),
+            device=device,
+        ),
+    )
+
+
 SCENES = {
     "sphere_plane_light": sphere_plane_light,
     "room_with_sphere": room_with_sphere,
+    "hypercube": hypercube,
+    "duocylinder": duocylinder,
+    "tiger": tiger,
 }
 
 
 def scene_by_name(name: str, device) -> Scene:
-    """Build a library scene on ``device``; names still to be ported raise."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"scene {name!r} needs the composite primitives, which are not "
-            f"ported yet (ROADMAP queue 1, item 4); ported scenes: {sorted(SCENES)}"
-        )
+    """Build a library scene on ``device``."""
     if name not in SCENES:
-        raise KeyError(f"unknown scene {name!r}; ported scenes: {sorted(SCENES)}")
+        raise KeyError(f"unknown scene {name!r}; scenes: {sorted(SCENES)}")
     return SCENES[name](device)

@@ -18,14 +18,21 @@ import numpy as np
 import torch
 
 from fourd_ray_tracing_tpu_torch.camera import Camera
-from fourd_ray_tracing_tpu_torch.models.scene import Scene, check_supported
+from fourd_ray_tracing_tpu_torch.models.scene import COMPOSITE_KINDS, Scene, check_supported
 from fourd_ray_tracing_tpu_torch.ops.sky import Environment
 
 # Floats per packed primitive: point(4) norm(4) glow refl color(3), and
-# center(4) r glow refl color(3). The environment is sun drct(4),
-# angular_size, light(3), sharpness, sky_light(3).
+# center(4) r glow refl color(3); a cylinder point(4) axis1(4) axis2(4) r
+# glow refl color(3); the duocylinder two cylinders, the tiger four; the
+# hypercube 8 cells of space_point(4) space_norm(4) x(4) y(4) z(4) r glow
+# refl color(3), then its point(4), axes(16) and r. The environment is sun
+# drct(4), angular_size, light(3), sharpness, sky_light(3).
 SPACE_FLOATS = 13
 SPHERE_FLOATS = 10
+CYLINDER_FLOATS = 18
+CUBE_FLOATS = 26
+HYPERCUBE_FLOATS = 8 * CUBE_FLOATS + 4 + 16 + 1
+TIGER_FLOATS = 4 * CYLINDER_FLOATS
 ENV_FLOATS = 12
 
 
@@ -162,9 +169,17 @@ def leaf_mask(filter_fn, like_scene: Scene) -> torch.Tensor:
     return torch.cat([t.to(torch.float32).reshape(-1) for t in tree_leaves(filter_fn(ones))])
 
 
+# The fields of Layout that the kernels' struct Layout holds (csrc/trace.cuh
+# kLayoutInts); the composite primitives' fields follow them.
+KERNEL_LAYOUT_INTS = 14
+
+
 class Layout(NamedTuple):
-    """Offsets into the packed vector, as the kernel reads them. A camera
-    ``top``/``right`` component c of view v sits at top + c*n_views + v."""
+    """Offsets into the packed vector, as the kernels read them. A camera
+    ``top``/``right`` component c of view v sits at top + c*n_views + v.
+    The first KERNEL_LAYOUT_INTS fields are the kernels' Layout; the
+    composite primitives' count and offsets follow (-1 when the scene has
+    none), which the forward kernel takes in its hints descriptor."""
 
     n_spaces: int
     n_spheres: int
@@ -180,6 +195,18 @@ class Layout(NamedTuple):
     mtr_width: int
     mtr_height: int
     size: int
+    n_cylinders: int = 0
+    cylinders: int = -1
+    cylinders_union: int = -1
+    hypercube: int = -1
+    tiger: int = -1
+
+    def composite_kinds(self) -> tuple:
+        """The composite primitives' fields the scene holds (as
+        Scene.composite_kinds)."""
+        present = (self.n_cylinders > 0, self.cylinders_union >= 0, self.hypercube >= 0,
+                   self.tiger >= 0)
+        return tuple(k for k, p in zip(COMPOSITE_KINDS, present) if p)
 
 
 def layout(scene: Scene, camera: Camera) -> Layout:
@@ -190,7 +217,16 @@ def layout(scene: Scene, camera: Camera) -> Layout:
         raise ValueError("camera top/right must be scalars or share one (V,) view axis")
     env = scene.environment
     spheres = SPACE_FLOATS * len(scene.spaces)
-    env_off = spheres + SPHERE_FLOATS * len(scene.spheres)
+    offset = spheres + SPHERE_FLOATS * len(scene.spheres)
+    composite = {}
+    for name, floats, present in (
+            ("cylinders", CYLINDER_FLOATS * len(scene.cylinders), bool(scene.cylinders)),
+            ("cylinders_union", 2 * CYLINDER_FLOATS, scene.cylinders_union is not None),
+            ("hypercube", HYPERCUBE_FLOATS, scene.hypercube is not None),
+            ("tiger", TIGER_FLOATS, scene.tiger is not None)):
+        composite[name] = offset if present else -1
+        offset += floats if present else 0
+    env_off = offset
     focus = env_off + (ENV_FLOATS if env is not None else 0)
     top = focus + 8
     right = top + 4 * n_views
@@ -200,7 +236,7 @@ def layout(scene: Scene, camera: Camera) -> Layout:
         env_enabled=int(env is not None and env.enabled),
         spaces=0, spheres=spheres, env=env_off, focus=focus, vec_to_mtr=focus + 4,
         top=top, right=right, mtr_width=mtr_width, mtr_height=mtr_width + 1,
-        size=mtr_width + 2,
+        size=mtr_width + 2, n_cylinders=len(scene.cylinders), **composite,
     )
     sizes = [t.numel() for t in leaves(scene, camera)]
     if sum(sizes) != out.size:

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from fourd_ray_tracing_tpu_torch.camera import Camera
-from fourd_ray_tracing_tpu_torch.models.scene import Scene, intersect_scene_fast
+from fourd_ray_tracing_tpu_torch.models.scene import (Scene, check_trainable_scene,
+                                                       intersect_scene_fast)
 from fourd_ray_tracing_tpu_torch.ops import rng
 from fourd_ray_tracing_tpu_torch.ops.sampler import direction_from_uniforms
 from fourd_ray_tracing_tpu_torch.ops.sky import final_light, light_to_color
@@ -42,10 +43,10 @@ class RenderConfig:
     """Static render parameters, field for field the JAX package's
     RenderConfig (renderer.py:48-147) with the same defaults. This port
     renders rng_mode="per_sample", sampler_method="poly", intersect="fast",
-    with or without the static hyperplane hints (``plane_hints``,
-    ``plane_pairs``: models/scene.py); ``axis_hints`` and other values raise
-    (check_supported). The hints are the forward's: the gradient paths
-    refuse them (check_trainable). The Mosaic-only knobs (bounce_loop,
+    with or without the static hints (``plane_hints``, ``plane_pairs``,
+    ``axis_hints``: models/scene.py); other values raise (check_supported).
+    The hints are the forward's: the gradient paths refuse them
+    (check_trainable). The Mosaic-only knobs (bounce_loop,
     tile_sublanes, tiles_per_program) and ``remat`` are carried and
     ignored. Of the training knobs, ``freeze_hints`` raises (the training
     half of the hints is not ported), and ``grad_sample_chunk`` must divide
@@ -81,11 +82,6 @@ def check_supported(cfg: RenderConfig) -> None:
             f"rng_mode={cfg.rng_mode!r} is not ported yet (ROADMAP queue 1, "
             "items 5-6); use 'per_sample'"
         )
-    if cfg.axis_hints is not None:
-        raise NotImplementedError(
-            "axis_hints belong to the composite primitives, which are not ported "
-            "yet (ROADMAP queue 1, item 4b)"
-        )
     if cfg.sampler_method != "poly":
         raise NotImplementedError(
             f"sampler_method={cfg.sampler_method!r} is not ported yet (ROADMAP "
@@ -93,8 +89,8 @@ def check_supported(cfg: RenderConfig) -> None:
         )
     if cfg.intersect != "fast":
         raise NotImplementedError(
-            f"intersect={cfg.intersect!r} is not ported yet (ROADMAP queue 1, "
-            "item 4); use 'fast'"
+            f"intersect={cfg.intersect!r} (the literal per-primitive fold) is not "
+            "ported yet (ROADMAP queue 1, items 5-6, with the oracle goldens); use 'fast'"
         )
     if cfg.freeze_hints:
         raise NotImplementedError(
@@ -109,12 +105,15 @@ def check_supported(cfg: RenderConfig) -> None:
         )
 
 
-def check_trainable(cfg: RenderConfig) -> None:
+def check_trainable(cfg: RenderConfig, scene) -> None:
     """The gradient paths' check (the plain autograd route, K4-K6, K8):
-    check_supported, and ValueError when ``cfg`` carries static hints:
-    hinted normal components would get no gradient and the pair fold
-    rewrites the walls' math (the JAX package refuses them there too,
-    gradkernel.py:663-671)."""
+    check_supported; ValueError when ``cfg`` carries static hints (hinted
+    normal and axis components would get no gradient and the pair fold
+    rewrites the walls' math; the JAX package refuses them there too,
+    gradkernel.py:663-671); NotImplementedError when ``scene`` (a Scene or
+    its params.Layout) holds a composite primitive, whose adjoint is not
+    ported yet (scene.check_trainable_scene). ``scene`` is None only where
+    the scene comes later (make_train_step, whose steps check it)."""
     check_supported(cfg)
     if cfg.plane_hints is not None or cfg.plane_pairs is not None or cfg.axis_hints is not None:
         raise ValueError(
@@ -122,6 +121,8 @@ def check_trainable(cfg: RenderConfig) -> None:
             "them (their freeze_hints contract is ROADMAP queue 1, item 4a, "
             "training half, not ported yet)"
         )
+    if scene is not None:
+        check_trainable_scene(scene)
 
 
 def screen_coords(cfg: RenderConfig, device, row0: int = 0, n_rows: int | None = None):
@@ -179,7 +180,7 @@ class Bounce0(NamedTuple):
 
 def precompute_bounce0(scene: Scene, ray_o: Vec4, ray_d: Vec4, cfg: RenderConfig) -> Bounce0:
     o, d = ray_o, ray_d
-    inter = intersect_scene_fast(scene, o, d, cfg.plane_hints, cfg.plane_pairs)
+    inter = intersect_scene_fast(scene, o, d, cfg.plane_hints, cfg.plane_pairs, cfg.axis_hints)
     zero3 = Vec3.full(0.0, like=d.x)
     result = zero3
     env = scene.environment
@@ -217,7 +218,7 @@ def bounce0_direction_update(pre0: Bounce0, ray_d: Vec4, pixel_bits, seed, count
 def _shade(scene: Scene, o, d, result, throughput, alive, cfg: RenderConfig):
     """Intersect; add escaped environment light, then emission.
     Returns (intersection, result, alive)."""
-    inter = intersect_scene_fast(scene, o, d, cfg.plane_hints, cfg.plane_pairs)
+    inter = intersect_scene_fast(scene, o, d, cfg.plane_hints, cfg.plane_pairs, cfg.axis_hints)
     zero3 = Vec3.full(0.0, like=result.x)
     env = scene.environment
     if env is not None and env.enabled:

@@ -1,12 +1,13 @@
 """Scenes as NamedTuples of tensors, and the fused closest-hit fold.
 
-Counterpart of fourd_ray_tracing_tpu/models/scene.py for the primitives
-of this slice: hyperplanes and hyperspheres, with the static hyperplane
-hints of the production fold (``plane_norm_hints``, ``plane_pair_hints``). `Scene` keeps the JAX
-package's field layout (the composite fields stay, empty), so a scene
-packs to the same flat vector (models/params.py). A scene that holds a
-cylinder, duocylinder, hypercube or tiger raises: those folds are still
-to be ported (ROADMAP queue 1, item 4).
+Counterpart of fourd_ray_tracing_tpu/models/scene.py: hyperplanes,
+hyperspheres, cylinders, the duocylinder, the hypercube and the tiger,
+with the static hints of the production fold (``plane_norm_hints``,
+``plane_pair_hints``, ``axis_alignment_hints``). `Scene` keeps the JAX
+package's field layout, so a scene packs to the same flat vector
+(models/params.py). The forward renders every primitive; the gradient
+paths refuse the composite ones (``check_trainable_scene``: ROADMAP queue
+1, item 4b, training half).
 """
 from __future__ import annotations
 
@@ -15,10 +16,18 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from fourd_ray_tracing_tpu_torch.ops.geometry import Intersection, Material, miss_like
+from fourd_ray_tracing_tpu_torch.ops import geometry as geo
+from fourd_ray_tracing_tpu_torch.ops.geometry import (
+    CylinderSpec,
+    HypercubeSpec,
+    Intersection,
+    Material,
+    TigerSpec,
+    miss_like,
+)
 from fourd_ray_tracing_tpu_torch.ops.sampler import SMALL_FLOAT
 from fourd_ray_tracing_tpu_torch.ops.sky import Environment, Sun
-from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec3, Vec4, dot, f32
+from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec3, Vec4, dot, f32, sqrt
 
 
 class SpaceSpec(NamedTuple):
@@ -33,31 +42,54 @@ class SphereSpec(NamedTuple):
     material: Material
 
 
+# The composite primitives' fields of a Scene, in fold order.
+COMPOSITE_KINDS = ("cylinders", "cylinders_union", "hypercube", "tiger")
+
+
 class Scene(NamedTuple):
     """Primitive tuples (static length) plus the environment."""
 
     spaces: Tuple[SpaceSpec, ...] = ()
     spheres: Tuple[SphereSpec, ...] = ()
-    cylinders: tuple = ()
-    cylinders_union: Optional[tuple] = None
-    hypercube: Optional[object] = None
-    tiger: Optional[object] = None
+    cylinders: Tuple[CylinderSpec, ...] = ()
+    cylinders_union: Optional[Tuple[CylinderSpec, CylinderSpec]] = None
+    hypercube: Optional[HypercubeSpec] = None
+    tiger: Optional[TigerSpec] = None
     environment: Optional[Environment] = None
+
+    def composite_kinds(self) -> tuple:
+        """The composite primitives' fields this scene holds."""
+        return tuple(name for name in COMPOSITE_KINDS if getattr(self, name))
 
 
 # Miss sentinel of the fold, and the degenerate-origin threshold squared.
 FAR = float(np.float32(1e30))
-SMALL2 = float(np.float32(SMALL_FLOAT * SMALL_FLOAT))
+SMALL2 = geo.SMALL2
 
 
 def check_supported(scene: Scene) -> None:
-    """Raise for the primitives whose fold is not ported yet."""
-    composite = [name for name in ("cylinders", "cylinders_union", "hypercube", "tiger")
-                 if getattr(scene, name)]
-    if composite:
+    """Raise for a hypercube without its generator parameters: its fold is
+    the literal cell-by-cell one, which belongs with intersect="spec"
+    (ROADMAP queue 1, items 5-6)."""
+    hc = scene.hypercube
+    if hc is not None and (hc.point is None or hc.axes is None or hc.r is None):
         raise NotImplementedError(
-            f"scene primitives {composite} are not ported yet (ROADMAP queue 1, "
-            "item 4): this port renders hyperplanes and hyperspheres only"
+            "a hypercube without generator parameters (point, axes, r) folds cell by "
+            "cell, which is not ported yet (ROADMAP queue 1, items 5-6, with "
+            "intersect='spec'); build it with make_hypercube"
+        )
+
+
+def check_trainable_scene(scene) -> None:
+    """The gradient paths' check of a scene (or of a params.Layout, which
+    knows the same): NotImplementedError for a composite primitive, whose
+    adjoint is not ported yet."""
+    kinds = scene.composite_kinds()
+    if kinds:
+        raise NotImplementedError(
+            f"the gradient of the composite primitives {list(kinds)} is not ported yet "
+            "(ROADMAP queue 1, item 4b, training half): the forward renders them, the "
+            "gradient paths take hyperplanes and hyperspheres only"
         )
 
 
@@ -150,8 +182,116 @@ def check_plane_hints(scene: Scene, plane_hints) -> None:
                                  "plane_norm_hints")
 
 
+class AxisHints(NamedTuple):
+    """Static axis-alignment hints of the composite primitives (the JAX
+    package's AxisHints, scene.py:144-163). An axis entry is
+    (component_index, sign) when the axis is exactly a signed unit basis
+    vector: the family's projections then become component picks with the
+    zero terms dropped, which leaves every value as the full dots compute
+    it. A family entry is (axis1_entry, axis2_entry) or None."""
+
+    cylinders: tuple = ()                 # per cylinder: ((k1, s1), (k2, s2)) or None
+    cylinders_union: Optional[tuple] = None  # (family 1, family 2) or None
+    hypercube: Optional[tuple] = None     # ((k, s),) * 4 or None
+    tiger: Optional[tuple] = None         # (family A, family B) or None
+
+
+def _unit_axes(vecs) -> list:
+    """(component_index, sign) per Vec4 of ``vecs`` that is exactly a
+    signed unit basis vector, else None (scene.py:166-178); None for all
+    when a component requires grad. One copy to the host."""
+    if not vecs:
+        return []
+    comps = [c for v in vecs for c in v]
+    if any(c.requires_grad for c in comps):
+        return [None] * len(vecs)
+    out = []
+    for row in _host_values(comps).reshape(-1, 4):
+        nonzero = [(k, float(c)) for k, c in enumerate(row) if c != 0.0]
+        ok = len(nonzero) == 1 and abs(nonzero[0][1]) == 1.0
+        out.append(nonzero[0] if ok else None)
+    return out
+
+
+def _axis_pair(h1, h2):
+    if h1 is None or h2 is None or h1[0] == h2[0]:
+        return None
+    return (h1, h2)
+
+
+def axis_alignment_hints(scene: Scene):
+    """AxisHints of the scene's composite primitives, or None when nothing
+    is axis-aligned (scene.py:188-216). Reads the axes' values, one copy to
+    the host; a component that requires grad makes its axis unaligned."""
+    cyl_axes = [a for c in scene.cylinders for a in (c.axis1, c.axis2)]
+    union = scene.cylinders_union
+    union_axes = [a for c in union for a in (c.axis1, c.axis2)] if union is not None else []
+    hc = scene.hypercube
+    hc_axes = list(hc.axes) if hc is not None and hc.axes is not None else []
+    tg = scene.tiger
+    tiger_axes = ([tg.inner_cyl1.axis1, tg.inner_cyl1.axis2, tg.inner_cyl2.axis1,
+                   tg.inner_cyl2.axis2] if tg is not None else [])
+    units = iter(_unit_axes(cyl_axes + union_axes + hc_axes + tiger_axes))
+    cyl_hints = tuple(_axis_pair(next(units), next(units)) for _ in scene.cylinders)
+    union_hints = None
+    if union_axes:
+        p1, p2 = _axis_pair(next(units), next(units)), _axis_pair(next(units), next(units))
+        if p1 is not None and p2 is not None:
+            union_hints = (p1, p2)
+    hc_hints = None
+    if hc_axes:
+        hs = tuple(next(units) for _ in hc_axes)
+        if all(h is not None for h in hs):
+            hc_hints = hs
+    tiger_hints = None
+    if tiger_axes:
+        pa, pb = _axis_pair(next(units), next(units)), _axis_pair(next(units), next(units))
+        if pa is not None and pb is not None:
+            tiger_hints = (pa, pb)
+    if (all(h is None for h in cyl_hints) and union_hints is None and hc_hints is None
+            and tiger_hints is None):
+        return None
+    return AxisHints(cyl_hints, union_hints, hc_hints, tiger_hints)
+
+
+def _cyl_family_aligned(point: Vec4, pair, ray_o: Vec4, ray_d: Vec4) -> geo._CylFamily:
+    """geo._cyl_family for a family whose axes are signed unit basis
+    vectors ((k1, s1), (k2, s2)) (scene.py:274-306): the projections zero
+    components k1 and k2, and the dots sum the live components alone, in
+    ascending order from the first live one; equal to the full dots (the
+    dropped terms are exact zeros there), a zero's sign aside."""
+    (k1, _s1), (k2, _s2) = pair
+    live = [j for j in range(4) if j not in (k1, k2)]
+    zero = torch.zeros_like(ray_d.x)
+    co = [pc - oc for pc, oc in zip(point, ray_o)]
+    po_c = [zero if j in (k1, k2) else co[j] for j in range(4)]
+    d_c = list(ray_d)
+    d12_c = [zero if j in (k1, k2) else d_c[j] for j in range(4)]
+    a, b = live
+    l2 = co[a] * co[a] + co[b] * co[b] + 1e-37
+    b_raw = co[a] * d_c[a] + co[b] * d_c[b]
+    # len1_sq drops only k1 (the first projection).
+    l1_live = [j for j in range(4) if j != k1]
+    len1_sq = d_c[l1_live[0]] * d_c[l1_live[0]]
+    for j in l1_live[1:]:
+        len1_sq = len1_sq + d_c[j] * d_c[j]
+    len12_sq = d_c[a] * d_c[a] + d_c[b] * d_c[b]
+    proj_ok = (len1_sq >= SMALL2) & (len12_sq >= SMALL2)
+    inv_len = geo.rsqrt(torch.where(proj_ok, len12_sq, 1.0))
+    degenerate = l2 < SMALL2
+    b_unit = torch.where(degenerate, 0.0, b_raw * inv_len)
+    return geo._CylFamily(Vec4(*po_c), Vec4(*d12_c), l2, b_raw, len1_sq, len12_sq, inv_len,
+                          proj_ok, b_unit, degenerate, l2 - b_unit * b_unit)
+
+
+def _make_family(point, axis1, axis2, pair, o, d) -> geo._CylFamily:
+    if pair is None:
+        return geo._cyl_family(point, axis1, axis2, o, d)
+    return _cyl_family_aligned(point, pair, o, d)
+
+
 def intersect_scene_fast(scene: Scene, ray_o: Vec4, ray_d: Vec4, plane_hints=None,
-                         plane_pairs=None) -> Intersection:
+                         plane_pairs=None, axis_hints=None) -> Intersection:
     """Closest hit over all primitives (scene.py:315-720), with the static
     hints of the JAX production fold when they are given.
 
@@ -160,13 +300,17 @@ def intersect_scene_fast(scene: Scene, ray_o: Vec4, ray_d: Vec4, plane_hints=Non
     normal and material resolve once, after the fold, through a serial
     masked chain. The candidates come in the JAX order: with
     ``plane_pairs`` (and ``plane_hints``) the wall pairs, then the single
-    planes, then the spheres; without, the planes in scene order, then the
-    spheres. ``plane_hints`` drops the hinted normal components from a
-    single plane's dots, and its resolver writes +0 there, where the
-    unhinted one writes flip * 0.0; the pair fold picks the nearer wall with
-    two compares and divides once. Both leave every hit, distance, glow,
-    reflectivity and color as the unhinted fold computes them, and every
-    normal component equal (a zero's sign aside).
+    planes; without, the planes in scene order; then the spheres, the
+    cylinders, the duocylinder's two faces, the hypercube's four
+    opposite-cell candidates and the tiger's four merged candidates.
+    ``plane_hints`` drops the hinted normal components from a single
+    plane's dots, and its resolver writes +0 there, where the unhinted one
+    writes flip * 0.0; the pair fold picks the nearer wall with two
+    compares and divides once; ``axis_hints`` (AxisHints) turns an aligned
+    family's or the hypercube's projections into component picks. All
+    leave every hit, distance, glow, reflectivity and color as the
+    unhinted fold computes them, and every normal component equal (a
+    zero's sign aside).
     """
     check_supported(scene)
     if plane_hints is not None:
@@ -250,7 +394,7 @@ def intersect_scene_fast(scene: Scene, ray_o: Vec4, ray_d: Vec4, plane_hints=Non
         receding = ~degenerate & (l2 >= r2) & (b < 0.0)
         disc = r2 - (l2 - b * b)
         tangent = disc <= 0.0
-        sq = torch.sqrt(torch.where(tangent, 1.0, disc))
+        sq = sqrt(torch.where(tangent, 1.0, disc))
         sq = torch.where(tangent, 0.0, sq)
         use_near = l2 > r2
         dist = torch.where(use_near, b - sq, b + sq)
@@ -264,6 +408,101 @@ def intersect_scene_fast(scene: Scene, ray_o: Vec4, ray_d: Vec4, plane_hints=Non
             return nrm, mat.glow, mat.refl_prob, mat.color
 
         resolvers.append(resolve)
+
+    # Cylinder-family faces fold a masked distance each; the resolver
+    # computes the family's normal at the folded distance.
+    def add_family_face(fam, dist_c, hit_c, flip, r, mat):
+        dists.append(torch.where(hit_c, dist_c, FAR))
+
+        def resolve(dist, hit_p, fam=fam, r=r, flip=flip, mat=mat):
+            return geo._family_norm(fam, dist, r, flip), mat.glow, mat.refl_prob, mat.color
+
+        resolvers.append(resolve)
+
+    ah = axis_hints if axis_hints is not None else AxisHints()
+
+    for k_cyl, cyl in enumerate(scene.cylinders):
+        pair = ah.cylinders[k_cyl] if k_cyl < len(ah.cylinders) else None
+        fam = _make_family(cyl.point, cyl.axis1, cyl.axis2, pair, o, d)
+        dist_c, hit_c, use_near = geo._family_circle_dist(fam, cyl.r)
+        add_family_face(fam, dist_c, hit_c, use_near, cyl.r, cyl.material)
+
+    if scene.cylinders_union is not None:
+        # The duocylinder: two faces, each clipped against the other
+        # family, both against cylinder 2's radius (the reference's quirk,
+        # geometry.py:18-20).
+        c1, c2 = scene.cylinders_union
+        u1, u2 = ah.cylinders_union or (None, None)
+        fam1 = _make_family(c1.point, c1.axis1, c1.axis2, u1, o, d)
+        fam2 = _make_family(c2.point, c2.axis1, c2.axis2, u2, o, d)
+        r2sq = c2.r * c2.r
+        for fam, other, r, mat in ((fam1, fam2, c1.r, c1.material),
+                                   (fam2, fam1, c2.r, c2.material)):
+            dist_c, hit_c, use_near = geo._family_circle_dist(fam, r)
+            hit_c = hit_c & (geo._family_clip_sq(other, dist_c) <= r2sq)
+            add_family_face(fam, dist_c, hit_c, use_near, r, mat)
+
+    if scene.hypercube is not None:
+        # Opposite cells paired per axis: the +cell faces the ray iff
+        # dd_i <= 0, the -cell iff dd_i >= 0, so each axis folds one
+        # candidate with its h and material picked by that sign; at most
+        # one cell hits (entry hits of a convex boundary), so the closest
+        # fold is the reference's first hit in cell order.
+        hc = scene.hypercube
+        c, axes, r = hc.point, hc.axes, hc.r
+        if ah.hypercube is not None:
+            co = [s * (c[k] - o[k]) for k, s in ah.hypercube]
+            dd = [s * d[k] for k, s in ah.hypercube]
+        else:
+            co = [dot(c - o, a) for a in axes]
+            dd = [dot(d, a) for a in axes]
+        for i in range(4):
+            pos = dd[i] <= 0.0  # the +cell is the facing one
+            h = torch.where(pos, -(co[i] + r), co[i] - r)
+            cos_dn = torch.abs(dd[i])
+            inside = h >= 0.0  # facing; cos_dn >= 0 by construction
+            dist_c = h / torch.where(cos_dn == 0.0, 1e-30, cos_dn)
+            for j in range(4):
+                if j != i:
+                    inside = inside & (torch.abs(dist_c * dd[j] - co[j]) <= r)
+            dists.append(torch.where(inside, dist_c, FAR))
+
+            def resolve(dist, hit_p, a=axes[i], pos=pos, mat_p=hc.cubes[i].material,
+                        mat_n=hc.cubes[4 + i].material):
+                sgn = torch.where(pos, 1.0, -1.0)
+                glow = torch.where(pos, mat_p.glow, mat_n.glow)
+                refl = torch.where(pos, mat_p.refl_prob, mat_n.refl_prob)
+                return Vec4(*(sgn * ac for ac in a)), glow, refl, mat_p.color.where(pos, mat_n.color)
+
+            resolvers.append(resolve)
+
+    if scene.tiger is not None:
+        # Four merged candidates, (A, r_in), (A, r_out), (B, r_in), (B,
+        # r_out): each (family, radius)'s outer and inner face fold as one,
+        # the near root where the origin is outside the circle and the near
+        # clip keeps it, else the far root (scene.py:600-653).
+        tg = scene.tiger
+        ta, tb = ah.tiger or (None, None)
+        fam_a = _make_family(tg.inner_cyl1.point, tg.inner_cyl1.axis1, tg.inner_cyl1.axis2, ta,
+                             o, d)
+        fam_b = _make_family(tg.inner_cyl2.point, tg.inner_cyl2.axis1, tg.inner_cyl2.axis2, tb,
+                             o, d)
+        for fam, other, r_in, r_out, o_in, o_out, mat in (
+            (fam_a, fam_b, tg.inner_cyl1.r, tg.outer_cyl1.r, tg.inner_cyl2.r, tg.outer_cyl2.r,
+             tg.inner_cyl1.material),
+            (fam_b, fam_a, tg.inner_cyl2.r, tg.outer_cyl2.r, tg.inner_cyl1.r, tg.outer_cyl1.r,
+             tg.inner_cyl2.material),
+        ):
+            o_in2, o_out2 = o_in * o_in, o_out * o_out
+            for r in (r_in, r_out):
+                near, far, hit_c, use_near_outer = geo._family_circle(fam, r)
+                clip_near = geo._family_clip_sq(other, near)
+                clip_far = geo._family_clip_sq(other, far)
+                keep_near = (clip_near <= o_out2) & (clip_near >= o_in2)
+                keep_far = (clip_far <= o_out2) & (clip_far >= o_in2)
+                take_near = use_near_outer & keep_near
+                dist_c = torch.where(take_near, near, far)
+                add_family_face(fam, dist_c, hit_c & (take_near | keep_far), take_near, r, mat)
 
     if not dists:
         return miss_like(d.x)
@@ -303,6 +542,12 @@ def space(point: tuple, norm: tuple, mat: Material, device) -> SpaceSpec:
 
 def sphere(center: tuple, r: float, mat: Material, device) -> SphereSpec:
     return SphereSpec(Vec4.of(*center, device=device), f32(r, device), mat)
+
+
+def cylinder(point: tuple, axis1: tuple, axis2: tuple, r: float, mat: Material,
+             device) -> CylinderSpec:
+    return CylinderSpec(Vec4.of(*point, device=device), Vec4.of(*axis1, device=device),
+                        Vec4.of(*axis2, device=device), f32(r, device), mat)
 
 
 def sun(drct: tuple, angular_size: float, light: tuple, sharpness: float, device) -> Sun:

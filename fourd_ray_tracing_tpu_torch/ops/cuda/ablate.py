@@ -46,7 +46,7 @@ def variant_plain(mode: str, scene: Scene, camera: Camera, cfg: RenderConfig, se
     over those image rows only, ``target`` their block."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    renderer.check_trainable(cfg)
+    renderer.check_trainable(cfg, scene)
     seed = gradkernel._scalar_seed(seed)
     light_sum = renderer.render_light_tile(scene, camera, cfg, seed, *launch_rows(cfg, rows))
     if mode == "acc":

@@ -34,9 +34,15 @@ LIB_NAME = "libfourd_kernels.so"
 # them here.
 K4_MAX_PARAMS, K4_MAX_BOUNCES, K4_MAIN_BOUNCES, K6_MAX_ZERO_SLOTS = 768, 16, 4, 16
 # K1's static hints descriptor (csrc/trace.cuh Hints): the counts, then up
-# to MAX_HINT_PLANES / 2 pairs and MAX_HINT_PLANES singles.
+# to MAX_HINT_PLANES / 2 pairs and MAX_HINT_PLANES singles; then the
+# composite primitives: the cylinder count and the four offsets
+# (HINT_COMPOSITES is the first), and the axis hints of up to
+# MAX_CYLINDERS cylinders, the duocylinder's two families, the hypercube
+# and the tiger's two families.
 MAX_HINT_PLANES = 64
-HINT_INTS = 2 + MAX_HINT_PLANES // 2 + MAX_HINT_PLANES
+MAX_CYLINDERS = 16
+HINT_COMPOSITES = 2 + MAX_HINT_PLANES // 2 + MAX_HINT_PLANES
+HINT_INTS = HINT_COMPOSITES + 5 + MAX_CYLINDERS + 2 + 1 + 2
 DEFINES = (f"-DFOURD_K4_MAX_PARAMS={K4_MAX_PARAMS}", f"-DFOURD_K4_MAX_BOUNCES={K4_MAX_BOUNCES}",
            f"-DFOURD_K4_MAIN_BOUNCES={K4_MAIN_BOUNCES}",
            f"-DFOURD_K6_MAX_ZERO_SLOTS={K6_MAX_ZERO_SLOTS}")

@@ -76,7 +76,7 @@ def loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Ca
     autograd graph of one band in memory, for shapes whose whole graph
     would not fit. ``rows`` (the module's docstring) sums over those rows
     alone, ``target`` their block."""
-    renderer.check_trainable(cfg)
+    renderer.check_trainable(cfg, like_scene)
     if band_rows is None and rows is None:
         vec = packed.detach().clone().requires_grad_(True)
         scene, camera = params.unpack(vec, like_scene, like_camera)
@@ -105,7 +105,7 @@ def loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Ca
 def check_shape(lay: params.Layout, cfg: RenderConfig) -> None:
     """Raise for what the gradient kernels cannot hold, and for static
     hints (renderer.check_trainable)."""
-    renderer.check_trainable(cfg)
+    renderer.check_trainable(cfg, lay)
     if lay.size > MAX_PARAMS:
         raise ValueError(f"the gradient kernels hold at most {MAX_PARAMS} packed "
                          f"parameters in shared memory; this scene and camera have {lay.size}")
@@ -211,7 +211,7 @@ def loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: Cam
     """(loss, (P,) gradient) of the packed CUDA vector by one kernel
     launch (with ``rows``, those rows' part, ``target`` their block); a
     vector on another device raises."""
-    renderer.check_trainable(cfg)
+    renderer.check_trainable(cfg, like_scene)
     lay = params.layout(like_scene, like_camera)
     target = torch.as_tensor(target, dtype=torch.float32, device=packed.device).contiguous()
     words, _ = renderer.seed_words(seed)
@@ -247,7 +247,7 @@ def make_packed_loss_and_grad(scene: Scene, camera: Camera, cfg: RenderConfig):
     * ``scene_vec0`` the scene's slice of the packed vector;
     * ``unpack(scene_vec) -> Scene``.
     """
-    renderer.check_trainable(cfg)
+    renderer.check_trainable(cfg, scene)
     packed = params.pack(scene, camera).detach()
     n = params.n_scene(scene)
     cam_vec = packed[n:]
@@ -281,7 +281,7 @@ def render_light_vjp_plain(packed: torch.Tensor, like_scene: Scene, like_camera:
     (F, P) rows of same-structure scenes take (F, ...) cotangents and give
     (F, P). With ``rows``, over those image rows, the cotangent their
     block."""
-    renderer.check_trainable(cfg)
+    renderer.check_trainable(cfg, like_scene)
     seed = _scalar_seed(seed)
     row0, n_rows = launch_rows(cfg, rows)
     band = slice(row0, row0 + n_rows)
@@ -332,7 +332,7 @@ def render_light_vjp_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: 
                           cfg: RenderConfig, seed, cot_light, rows=None) -> torch.Tensor:
     """K5 on a CUDA vector, as ``render_light_vjp_plain`` computes it: one
     launch for (P,) or for (F, P) rows; another device raises."""
-    renderer.check_trainable(cfg)
+    renderer.check_trainable(cfg, like_scene)
     cot = torch.as_tensor(cot_light, dtype=torch.float32, device=packed.device).contiguous()
     return launch_light_vjp(packed.detach().contiguous(), params.layout(like_scene, like_camera),
                             cfg, _scalar_seed(seed), cot, rows)
@@ -361,7 +361,7 @@ def render_soft_loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene,
     ``band_rows`` rows (the whole image by default), as
     ``loss_and_grad_plain`` does; with ``rows``, over those image rows,
     target, alpha and the alpha cotangent their blocks."""
-    renderer.check_trainable(cfg)
+    renderer.check_trainable(cfg, like_scene)
     seed = _scalar_seed(seed)
     device = packed.device
     row0, n_rows = launch_rows(cfg, rows)
@@ -447,7 +447,7 @@ def render_soft_loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like
                                    cfg: RenderConfig, seed, target, alpha, zero_map, rows=None):
     """K6 on a CUDA vector, as ``render_soft_loss_and_grad_plain``
     computes it, in one launch; another device raises."""
-    renderer.check_trainable(cfg)
+    renderer.check_trainable(cfg, like_scene)
     device = packed.device
     target = torch.as_tensor(target, dtype=torch.float32, device=device).contiguous()
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device).detach().contiguous()

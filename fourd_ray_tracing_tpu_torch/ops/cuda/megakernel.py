@@ -10,17 +10,18 @@ Tensors on the CPU go through the plain torch pipeline
 (models/renderer.py); tensors on a CUDA device go through the kernel, or
 the call raises. ``LAUNCHES`` counts kernel launches, so a run can show
 that its main path went through the kernel; ``HINTED_LAUNCHES`` counts
-those of them that ran the static hints, ``ROW_LAUNCHES`` those that read
+those of them that ran static hints, ``ROW_LAUNCHES`` those that read
 per-frame params rows (K2), ``SHARD_LAUNCHES`` those that render a block
 of rows smaller than the image (K3).
 
-The static hyperplane hints (``cfg.plane_hints``, ``cfg.plane_pairs``)
-select the kernel's fold; the render entry points derive them from a
-concrete scene when the config has none (``with_hints``, as
-megakernel.py:426-436 does) and hand them to the plain pipeline too on
-the CPU. A scene whose normals require grad gets none (plane_norm_hints).
-``launch_forward`` renders what its config says: the gradient paths'
-launches (diff.RenderLight) carry no hints.
+The static hints (``cfg.plane_hints``, ``cfg.plane_pairs``: the
+hyperplanes'; ``cfg.axis_hints``: the composite primitives' axes) select
+the kernel's fold; the render entry points derive them from a concrete
+scene when the config has none (``with_hints``, as megakernel.py:426-436
+does) and hand them to the plain pipeline too on the CPU. A scene whose
+normals or axes require grad gets none there. ``launch_forward`` renders
+what its config says: the gradient paths' launches (diff.RenderLight)
+carry no hints.
 
 The forward kernel's measurement variants (tools/fwd_ablate.py) launch the
 same kernel with stubs compiled in, or with the generic instance of its
@@ -40,7 +41,8 @@ import torch
 from fourd_ray_tracing_tpu_torch.camera import Camera
 from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
-from fourd_ray_tracing_tpu_torch.models.scene import Scene, plane_norm_hints, plane_pair_hints
+from fourd_ray_tracing_tpu_torch.models.scene import (Scene, axis_alignment_hints, plane_norm_hints,
+                                                       plane_pair_hints)
 from fourd_ray_tracing_tpu_torch.ops import rng
 from fourd_ray_tracing_tpu_torch.ops.cuda import build
 from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
@@ -71,65 +73,116 @@ def _device_of(scene: Scene, camera: Camera) -> torch.device:
 
 
 def with_hints(scenes, cfg: RenderConfig) -> RenderConfig:
-    """``cfg`` with the static hyperplane hints of ``scenes`` (a Scene, or
-    same-structure scenes that one launch renders as rows) when it has none
-    and they can be derived: one set that every scene gives (a soft pair's
-    zero_object row keeps the walls), at most build.MAX_HINT_PLANES
-    hyperplanes, no normal that requires grad. Otherwise ``cfg`` as it is.
-    Reads the scenes' hyperplanes, a copy to the host each."""
-    if cfg.intersect != "fast" or cfg.plane_hints is not None:
+    """``cfg`` with the static hints of ``scenes`` (a Scene, or
+    same-structure scenes that one launch renders as rows) where it has
+    none and they can be derived: the hyperplanes' (plane_hints and
+    plane_pairs: one set that every scene gives, a soft pair's zero_object
+    row keeps the walls; at most build.MAX_HINT_PLANES hyperplanes; no
+    normal that requires grad) and, apart from them, the composite
+    primitives' axes (axis_hints, one set that every scene gives), as
+    megakernel.py:426-436 derives both. Otherwise ``cfg`` as it is. Reads
+    the scenes' hyperplanes and axes, a copy to the host each."""
+    if cfg.intersect != "fast":
         return cfg
-    found = set()
-    for scene in [scenes] if isinstance(scenes, Scene) else scenes:
-        if len(scene.spaces) > build.MAX_HINT_PLANES:
-            return cfg
-        hints = plane_norm_hints(scene)
-        found.add((hints, plane_pair_hints(scene, hints)))
-    if len(found) != 1:
-        return cfg
-    hints, pairs = found.pop()
-    if hints is None:
-        return cfg
-    return dataclasses.replace(cfg, plane_hints=hints, plane_pairs=pairs)
+    scenes = [scenes] if isinstance(scenes, Scene) else list(scenes)
+    updates = {}
+    if cfg.plane_hints is None and all(len(s.spaces) <= build.MAX_HINT_PLANES for s in scenes):
+        found = set()
+        for scene in scenes:
+            hints = plane_norm_hints(scene)
+            found.add((hints, plane_pair_hints(scene, hints)))
+        if len(found) == 1:
+            hints, pairs = found.pop()
+            if hints is not None:
+                updates.update(plane_hints=hints, plane_pairs=pairs)
+    if cfg.axis_hints is None:
+        found = {axis_alignment_hints(scene) for scene in scenes}
+        if len(found) == 1 and None not in found:
+            updates["axis_hints"] = found.pop()
+    return dataclasses.replace(cfg, **updates) if updates else cfg
 
 
-def hint_table(cfg: RenderConfig, n_spaces: int):
+def hinted(cfg: RenderConfig) -> bool:
+    """Whether ``cfg`` carries any static hint."""
+    return cfg.plane_hints is not None or cfg.axis_hints is not None
+
+
+def _family_code(pair) -> int:
+    """A cylinder family's axis hint as the kernel reads it: k1 | k2 << 2,
+    -1 when it is not aligned."""
+    return -1 if pair is None else pair[0][0] | pair[1][0] << 2
+
+
+def hint_table(cfg: RenderConfig, lay: params.Layout):
     """The kernel's int[HINT_INTS] descriptor of ``cfg``'s static hints
-    (csrc/trace.cuh Hints): the pairs (i | j << 8 | axis << 16), then the
-    single planes (index | live components << 8), in the fold's order;
-    n_singles -1 without hints."""
+    and of the scene's composite primitives (csrc/trace.cuh Hints): the
+    pairs (i | j << 8 | axis << 16), then the single planes (index | live
+    components << 8), in the fold's order, n_singles -1 without plane
+    hints; then the cylinder count, the composites' offsets in the params
+    (``lay``; -1: none) and their axis hints (a family k1 | k2 << 2, the
+    hypercube k_i << 2i | (s_i < 0) << (8 + i); -1: not aligned)."""
     words = (ctypes.c_int * build.HINT_INTS)()
+    n_spaces = lay.n_spaces
     if cfg.plane_hints is None:
         words[1] = -1
-        return words
-    if len(cfg.plane_hints) != n_spaces:
-        raise ValueError(f"plane_hints has {len(cfg.plane_hints)} entries for {n_spaces} "
-                         "hyperplanes")
-    if n_spaces > build.MAX_HINT_PLANES:
-        raise ValueError(f"the forward kernel takes the hints of at most "
-                         f"{build.MAX_HINT_PLANES} hyperplanes, got {n_spaces}")
-    pairs, singles = cfg.plane_pairs or ((), range(n_spaces))
-    words[0], words[1] = len(pairs), len(singles)
-    for k, (i, j, axis) in enumerate(pairs):
-        words[2 + k] = i | j << 8 | axis << 16
-    for k, i in enumerate(singles):
-        live = sum(1 << c for c, zero in enumerate(cfg.plane_hints[i]) if not zero)
-        words[2 + build.MAX_HINT_PLANES // 2 + k] = i | live << 8
+    else:
+        if len(cfg.plane_hints) != n_spaces:
+            raise ValueError(f"plane_hints has {len(cfg.plane_hints)} entries for {n_spaces} "
+                             "hyperplanes")
+        if n_spaces > build.MAX_HINT_PLANES:
+            raise ValueError(f"the forward kernel takes the hints of at most "
+                             f"{build.MAX_HINT_PLANES} hyperplanes, got {n_spaces}")
+        pairs, singles = cfg.plane_pairs or ((), range(n_spaces))
+        words[0], words[1] = len(pairs), len(singles)
+        for k, (i, j, axis) in enumerate(pairs):
+            words[2 + k] = i | j << 8 | axis << 16
+        for k, i in enumerate(singles):
+            live = sum(1 << c for c, zero in enumerate(cfg.plane_hints[i]) if not zero)
+            words[2 + build.MAX_HINT_PLANES // 2 + k] = i | live << 8
+    if lay.n_cylinders > build.MAX_CYLINDERS:
+        raise ValueError(f"the forward kernel takes at most {build.MAX_CYLINDERS} cylinders, "
+                         f"got {lay.n_cylinders}")
+    ah = cfg.axis_hints
+    cyl_axes = list(ah.cylinders) if ah is not None else []
+    if len(cyl_axes) not in (0, lay.n_cylinders):
+        raise ValueError(f"axis_hints has {len(cyl_axes)} cylinders for {lay.n_cylinders}")
+    union = (ah.cylinders_union if ah is not None else None) or (None, None)
+    tiger = (ah.tiger if ah is not None else None) or (None, None)
+    cube = -1
+    if ah is not None and ah.hypercube is not None:
+        cube = sum(k << 2 * i | int(s < 0) << 8 + i for i, (k, s) in enumerate(ah.hypercube))
+    c = build.HINT_COMPOSITES
+    words[c:c + 5] = [lay.n_cylinders, lay.cylinders, lay.cylinders_union, lay.hypercube, lay.tiger]
+    c += 5
+    for k in range(build.MAX_CYLINDERS):
+        words[c + k] = _family_code(cyl_axes[k] if k < len(cyl_axes) else None)
+    c += build.MAX_CYLINDERS
+    words[c:c + 5] = [_family_code(union[0]), _family_code(union[1]), cube,
+                      _family_code(tiger[0]), _family_code(tiger[1])]
     return words
+
+
+# Fold-table records (16 bytes each) of a cylinder (its family's 4 and its
+# face's), the duocylinder, the hypercube and the tiger (csrc/trace.cuh
+# build_fold_table).
+_CYLINDER_RECS, _UNION_RECS, _HYPERCUBE_RECS, _TIGER_RECS = 5, 10, 8, 12
 
 
 def shared_bytes(lay: params.Layout, table) -> int:
     """The launch's dynamic shared memory (csrc/megakernel.cu
     shared_bytes): the params padded to 16 bytes, and the fold table."""
     singles = lay.n_spaces if table[1] < 0 else table[1]
-    return 16 * ((lay.size + 3) // 4) + 16 * (1 + table[0] + 2 * singles + 2 * lay.n_spheres)
+    recs = (1 + table[0] + 2 * singles + 2 * lay.n_spheres + _CYLINDER_RECS * lay.n_cylinders
+            + _UNION_RECS * (lay.cylinders_union >= 0) + _HYPERCUBE_RECS * (lay.hypercube >= 0)
+            + _TIGER_RECS * (lay.tiger >= 0))
+    return 16 * ((lay.size + 3) // 4) + 16 * recs
 
 
 def launch_shape(scene: Scene, lay: params.Layout) -> tuple:
     """(threads a block, dynamic shared-memory bytes) of the launch that
     renders ``scene`` (its hints derived) with layout ``lay``."""
     cfg = with_hints(scene, RenderConfig())
-    return K1_BLOCK, shared_bytes(lay, hint_table(cfg, lay.n_spaces))
+    return K1_BLOCK, shared_bytes(lay, hint_table(cfg, lay))
 
 
 def seed_tensor(words, device) -> torch.Tensor:
@@ -169,7 +222,7 @@ def launch_forward(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
     multi = packed.dim() == 2
     if multi and packed.shape[0] != seeds.numel():
         raise ValueError(f"{packed.shape[0]} params rows for {seeds.numel()} seeds")
-    hints = hint_table(cfg, lay.n_spaces)
+    hints = hint_table(cfg, lay)
     lib = build.load()
     n_frames = seeds.numel()
     out = torch.empty((n_frames, lay.n_views, n_rows, cfg.width, 3),
@@ -186,7 +239,7 @@ def launch_forward(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
     if err != 0:
         raise RuntimeError(f"forward kernel launch failed: cudaError {err}")
     LAUNCHES += 1
-    HINTED_LAUNCHES += int(cfg.plane_hints is not None)
+    HINTED_LAUNCHES += int(hinted(cfg))
     ROW_LAUNCHES += int(multi)
     SHARD_LAUNCHES += int(n_rows < cfg.height)
     return out
@@ -339,7 +392,7 @@ def launch_forward_variant(variant: str, packed: torch.Tensor, lay: params.Layou
         raise ValueError(f"packed params must be a contiguous ({lay.size},) float32 tensor")
     if seeds.dtype != torch.int32 or seeds.dim() != 1 or not seeds.is_contiguous():
         raise ValueError("seeds must be a contiguous (F,) int32 tensor of uint32 words")
-    hints = hint_table(cfg, lay.n_spaces)
+    hints = hint_table(cfg, lay)
     lib = build.load()
     n_frames = seeds.numel()
     out = torch.empty((n_frames, lay.n_views, cfg.height, cfg.width, 3),

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fourd_ray_tracing_tpu_torch.ops.vec4 import sqrt
+
 _HALF_PI = float(np.float32(np.pi / 2))
 _PI = float(np.float32(np.pi))
 
@@ -94,7 +96,7 @@ def arctan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def arccos(x: torch.Tensor) -> torch.Tensor:
     """acos(x) via atan2(sqrt((1-x)(1+x)), x); inputs clamp to [-1, 1]."""
     x = torch.clamp(x, -1.0, 1.0)
-    s = torch.sqrt(torch.clamp_min((1.0 - x) * (1.0 + x), 0.0))
+    s = sqrt(torch.clamp_min((1.0 - x) * (1.0 + x), 0.0))
     return arctan2(s, x)
 
 

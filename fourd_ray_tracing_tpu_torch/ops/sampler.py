@@ -14,7 +14,7 @@ import torch
 
 from fourd_ray_tracing_tpu_torch.ops import rng
 from fourd_ray_tracing_tpu_torch.ops.fastmath import sincos_2pi
-from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
+from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4, sqrt
 
 PI = float(np.float32(3.14159265))
 TWO_PI = float(np.float32(2.0) * np.float32(PI))
@@ -82,8 +82,8 @@ def direction_from_uniforms(u_w, u_z, u_fi, *, method: str = "poly") -> Vec4:
     if method != "poly":
         raise ValueError(f"unknown method {method!r}")
     w = w_by_volume_poly(u_w)
-    r = torch.sqrt(torch.clamp_min(1.0 - w * w, 0.0))
+    r = sqrt(torch.clamp_min(1.0 - w * w, 0.0))
     z = (u_z * 2.0 - 1.0) * r
-    rho = torch.sqrt(torch.clamp_min(r * r - z * z, 0.0))
+    rho = sqrt(torch.clamp_min(r * r - z * z, 0.0))
     sin_fi, cos_fi = sincos_2pi(u_fi)
     return Vec4(rho * cos_fi, rho * sin_fi, z, w)

@@ -81,6 +81,9 @@ class Vec4(NamedTuple):
     def __mul__(self, s: Scalar) -> "Vec4":
         return Vec4(self.x * s, self.y * s, self.z * s, self.w * s)
 
+    def __neg__(self) -> "Vec4":
+        return Vec4(-self.x, -self.y, -self.z, -self.w)
+
     __rmul__ = __mul__
 
     def where(self, mask: torch.Tensor, other: "Vec4") -> "Vec4":
@@ -98,8 +101,19 @@ def dot(a: Vec4, b: Vec4) -> torch.Tensor:
     return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of the kernels' sqrtf. torch.sqrt
+    is one on CUDA; on the CPU its vectorized float32 kernel is not (about
+    0.5% of values come out an ulp off), so a float32 tensor there goes
+    through float64, whose square root rounded to float32 is correctly
+    rounded (53 >= 2 * 24 + 2 bits)."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def length(a: Vec4) -> torch.Tensor:
-    return torch.sqrt(dot(a, a))
+    return sqrt(dot(a, a))
 
 
 def normalize(a: Vec4) -> Vec4:

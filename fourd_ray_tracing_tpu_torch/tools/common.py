@@ -17,11 +17,13 @@ import torch
 from fourd_ray_tracing_tpu_torch import camera as cam
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
 
-# What each tool runs of the static hyperplane hints. The forward tool
-# times K1 with the hints its entry points derive (each line names them);
-# the training tools time the gradient paths, whose kernels (K4-K6, K8, and
-# the K1/K2 launches of diff.RenderLight) run no hints: their frozen-hints
-# contract is not ported yet (ROADMAP queue 1, item 4a, training half).
+# What each tool runs of the static hints. The forward tool times K1 with
+# the hints its entry points derive (each line names them); the training
+# tools time the gradient paths, whose kernels (K4-K6, K8, and the K1/K2
+# launches of diff.RenderLight) run no hints: their frozen-hints contract
+# is not ported yet (ROADMAP queue 1, item 4a, training half). The training
+# tools take the scenes without composite primitives only (ROADMAP queue 1,
+# item 4b, training half).
 _UNHINTED = ("none: the gradient paths' frozen-hints contract is ROADMAP queue 1, item 4a, "
              "training half")
 HINTS_NOTE = {"fwd_ablate": "the static hints derived from each variant's scene",

@@ -33,9 +33,13 @@ tone map, a separate elementwise pass in the port, is left out). One JSON
 line per variant (grays/s: min, median, max of ``--rounds`` rounds of
 ``--calls`` launches, CUDA events; the hints it ran), then
 ``drift_check`` and ``time_delta_pct_vs_baseline``. ABLATE_SCENE picks the scene:
-room_with_sphere (default) or sphere_plane_light.
+room_with_sphere (default) or any other of models/library.py's;
+ABLATE_VIEWS the views, 1 (default, yxz) or 3 (the 3-view batch);
+ABLATE_VARIANTS, a comma-separated list of names, keeps only those
+variants (with baseline and baseline_recheck).
 
-    [ABLATE_SCENE=sphere_plane_light] python -m fourd_ray_tracing_tpu_torch.tools.fwd_ablate [width height samples bounces]
+    [ABLATE_SCENE=tiger ABLATE_VIEWS=3] python -m fourd_ray_tracing_tpu_torch.tools.fwd_ablate [width height samples bounces]
+    ABLATE_FPL=4 ABLATE_VARIANTS=generic_fold,unhinted python -m fourd_ray_tracing_tpu_torch.tools.fwd_ablate --rounds 8
     ABLATE_FPL=2 python -m fourd_ray_tracing_tpu_torch.tools.fwd_ablate 32 16 2 2 --device cpu --rounds 1 --calls 1
 """
 from __future__ import annotations
@@ -47,6 +51,7 @@ import sys
 
 import numpy as np
 
+from fourd_ray_tracing_tpu_torch import camera as cam
 from fourd_ray_tracing_tpu_torch.app import resolve_device
 from fourd_ray_tracing_tpu_torch.models import library, params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
@@ -59,6 +64,14 @@ MAX_SEED = 1024
 
 def fpl() -> int:
     return int(os.environ.get("ABLATE_FPL", 8))
+
+
+def views() -> tuple:
+    """The views ABLATE_VIEWS asks for: 1 (yxz) or 3 (camera.VIEWS_ALL)."""
+    n = int(os.environ.get("ABLATE_VIEWS", 1))
+    if n not in (1, 3):
+        raise ValueError(f"ABLATE_VIEWS must be 1 or 3, not {n}")
+    return ("yxz",) if n == 1 else tuple(cam.VIEWS_ALL)
 
 
 def plain_fn(scene, camera, cfg: RenderConfig, variant: str | None = None):
@@ -113,15 +126,25 @@ def variants(scene, cfg: RenderConfig) -> list:
     out += [(f"bounces_{k}", scene, dataclasses.replace(hinted, reflections_amount=k), None)
             for k in (0, 1, 2)]
     out.append(("baseline_recheck", scene, hinted, None))
+    keep = os.environ.get("ABLATE_VARIANTS")
+    if keep:
+        names = {"baseline", "baseline_recheck", *keep.split(",")}
+        unknown = names - {v[0] for v in out}
+        if unknown:
+            raise ValueError(f"ABLATE_VARIANTS: no variant {sorted(unknown)}")
+        out = [v for v in out if v[0] in names]
     return out
 
 
 def hints_of(cfg: RenderConfig) -> str:
     """The static hints a variant ran, in words."""
-    if cfg.plane_hints is None:
-        return "none"
-    pairs, singles = cfg.plane_pairs or ((), range(len(cfg.plane_hints)))
-    return f"{len(pairs)} wall pairs, {len(singles)} single planes"
+    words = []
+    if cfg.plane_hints is not None:
+        pairs, singles = cfg.plane_pairs or ((), range(len(cfg.plane_hints)))
+        words.append(f"{len(pairs)} wall pairs, {len(singles)} single planes")
+    if cfg.axis_hints is not None:
+        words.append("the composites' axis hints")
+    return ", ".join(words) or "none"
 
 
 def run(device, width=1280, height=720, samples=8, bounces=4, calls=4, rounds=4) -> dict:
@@ -131,8 +154,8 @@ def run(device, width=1280, height=720, samples=8, bounces=4, calls=4, rounds=4)
                        light_coefficient=0.12, rng_mode="per_sample")
     scene_name = os.environ.get("ABLATE_SCENE", "room_with_sphere")
     scene = library.scene_by_name(scene_name, device)
-    camera = common.default_camera(device)
-    rays = width * height * samples * fpl()
+    camera = common.default_camera(device, views())
+    rays = width * height * samples * fpl() * len(views())
     card = common.card(device)
     rates = {}
     for name, sc, c, variant in variants(scene, cfg):
@@ -141,7 +164,8 @@ def run(device, width=1280, height=720, samples=8, bounces=4, calls=4, rounds=4)
         rates[name] = statistics.median(rate)
         common.emit({"tool": "fwd_ablate", "variant": name, "gray_per_s": rates[name],
                      "min": min(rate), "max": max(rate), "ms": rays / rates[name] / 1e6,
-                     "scene": scene_name, "frames_per_launch": fpl(), "device": str(device),
+                     "scene": scene_name, "views": len(views()),
+                     "frames_per_launch": fpl(), "device": str(device),
                      "card": card, "hints": f"{common.HINTS_NOTE['fwd_ablate']}: {hints_of(c)}"})
     base = rates["baseline"]
     common.emit({"tool": "fwd_ablate", "drift_check": rates["baseline_recheck"] / base - 1.0})

@@ -36,6 +36,7 @@ SHIM = r"""
 #include <stdint.h>
 #include <string.h>
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __constant__
 #define __launch_bounds__(x)

@@ -227,6 +227,29 @@ def test_fwd_ablate_cpu_route(capsys, monkeypatch):
     assert set(lines[-1]["time_delta_pct_vs_baseline"]) == set(names[1:])
 
 
+def test_fwd_ablate_composite_views_and_variant_filter(capsys, monkeypatch):
+    """ABLATE_SCENE takes a composite scene, ABLATE_VIEWS=3 the 3-view batch
+    (its rays counted), ABLATE_VARIANTS keeps the named variants beside the
+    baseline and its recheck, and an unknown name is refused."""
+    for key, value in (("ABLATE_FPL", "2"), ("ABLATE_SCENE", "tiger"), ("ABLATE_VIEWS", "3"),
+                       ("ABLATE_VARIANTS", "generic_fold,unhinted")):
+        monkeypatch.setenv(key, value)
+    assert fwd_ablate.main(["8", "4", "1", "1", "--device", "cpu", "--rounds", "1",
+                            "--calls", "1"]) == 0
+    lines = lines_of(capsys)
+    assert [line["variant"] for line in lines[:-2]] == ["baseline", "generic_fold", "unhinted",
+                                                        "baseline_recheck"]
+    assert all(line["views"] == 3 and line["scene"] == "tiger" for line in lines[:-2])
+    assert lines[0]["ms"] == pytest.approx(8 * 4 * 1 * 2 * 3 / lines[0]["gray_per_s"] / 1e6)
+    assert lines[0]["hints"].endswith("the composites' axis hints")
+    monkeypatch.setenv("ABLATE_VARIANTS", "generic_fold,nothing")
+    with pytest.raises(ValueError, match="nothing"):
+        fwd_ablate.variants(tlib.tiger(CPU), trenderer.RenderConfig(**SHAPE))
+    monkeypatch.setenv("ABLATE_VIEWS", "2")
+    with pytest.raises(ValueError, match="ABLATE_VIEWS"):
+        fwd_ablate.views()
+
+
 def test_fwd_ablate_plain_fn_is_the_cpu_route(monkeypatch):
     """build_fn on CPU tensors is plain_fn: fpl() frames at seeds seed * fpl
     + arange(fpl), under the variant's stubs, without a launch."""

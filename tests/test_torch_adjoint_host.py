@@ -47,6 +47,9 @@ from fourd_ray_tracing_tpu_torch.ops.cuda import build, gradkernel
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
 
 CPU = torch.device("cpu")
+# The scenes the gradient paths take (the composite primitives' adjoint is
+# not ported yet: ROADMAP queue 1, item 4b, training half).
+GRAD_SCENES = ["room_with_sphere", "sphere_plane_light"]
 SHAPE = dict(width=32, height=16, samples=2, reflections_amount=3, rng_mode="per_sample",
              light_coefficient=0.7)
 
@@ -56,6 +59,7 @@ SHIM = r"""
 #include <stdint.h>
 #include <string.h>
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 #define __constant__
@@ -275,14 +279,14 @@ def check_loss_grad(lib, name, views, cfg, instance):
 
 
 @pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
-@pytest.mark.parametrize("name", sorted(library.SCENES))
+@pytest.mark.parametrize("name", GRAD_SCENES)
 def test_host_adjoint_matches_autograd(host_lib, name, views):
     """K4's per-pixel body, generic instance, at SHAPE's 3 bounces."""
     check_loss_grad(host_lib, name, views, config(), "generic")
 
 
 @pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
-@pytest.mark.parametrize("name", sorted(library.SCENES))
+@pytest.mark.parametrize("name", GRAD_SCENES)
 @pytest.mark.parametrize("bounces,instance", INSTANCES, ids=[i for _, i in INSTANCES])
 def test_host_adjoint_instances_match_autograd(host_lib, name, views, bounces, instance):
     """K4's per-pixel body at the main paths' bounce count, through the
@@ -334,7 +338,7 @@ def check_light_vjp(lib, name, views, rows, cfg, instance):
 
 @pytest.mark.parametrize("rows", [1, 2], ids=["single", "two_rows"])
 @pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
-@pytest.mark.parametrize("name", sorted(library.SCENES))
+@pytest.mark.parametrize("name", GRAD_SCENES)
 def test_host_light_vjp_matches_autograd(host_lib, name, views, rows):
     """K5's pixel sweep (generic instance, 3 bounces) with a seeded random
     light cotangent; two rows are the scene and its zero_object copy
@@ -344,7 +348,7 @@ def test_host_light_vjp_matches_autograd(host_lib, name, views, rows):
 
 @pytest.mark.parametrize("rows", [1, 2], ids=["single", "two_rows"])
 @pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
-@pytest.mark.parametrize("name", sorted(library.SCENES))
+@pytest.mark.parametrize("name", GRAD_SCENES)
 def test_host_light_vjp_main_instance_matches_autograd(host_lib, name, views, rows):
     """K5's pixel sweep through the unrolled instance, at its bounce count."""
     check_light_vjp(host_lib, name, views, rows, config(MAIN_BOUNCES), "main")

@@ -259,6 +259,14 @@ def test_app_cuda_without_a_card_raises(tiny_config, tmp_path, monkeypatch):
 
 
 def test_app_unported_scene_raises(tiny_config, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapp.main(["--config", str(tiny_config), "--scene", "tiger", "--device", "cpu",
-                   "--out", str(tmp_path / "o")])
+    """Once refused, the tiger (configs/properties.txt's own scene) now
+    renders: the tiny app on the CPU writes its windows, not constant."""
+    out = tmp_path / "o"
+    assert tapp.main(["--config", str(tiny_config), "--scene", "tiger", "--device", "cpu",
+                      "--frames", "1", "--out", str(out)]) == 0
+    assert png_size(out / "yxz.png") == (16, 9) and png_size(out / "ywz.png") == (10, 6)
+    app = dataclasses.replace(TAppConfig.load(tiny_config), scene="tiger")
+    engine = tapp.build_engine(app, torch.device("cpu"), deterministic=True)
+    assert engine.cfg.axis_hints is not None  # derived beside the plane hints
+    engine.step_frames(1)
+    assert all(float(g.accum.std()) > 0 for g in engine.groups)

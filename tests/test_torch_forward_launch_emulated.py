@@ -43,7 +43,7 @@ def launch(lib, packed, lay, cfg, seeds, rows=None, variant=None):
     megakernel.launch_forward makes it on the card: (F, V, n_rows, W, 3)."""
     row0, n_rows = megakernel.launch_rows(cfg, rows)
     table = (ctypes.c_int * len(lay))(*lay)
-    hints = megakernel.hint_table(cfg, lay.n_spaces)
+    hints = megakernel.hint_table(cfg, lay)
     out = np.zeros((len(seeds), lay.n_views, n_rows, cfg.width, 3), np.float32)
     args = (ptr(packed), lay.size if packed.ndim == 2 else 0, ptr(seeds), len(seeds),
             ctypes.addressof(table), ctypes.addressof(hints), cfg.width, cfg.height, row0,
@@ -60,6 +60,9 @@ def launch(lib, packed, lay, cfg, seeds, rows=None, variant=None):
 def configs(scene):
     cfg = renderer.RenderConfig(**SHAPE)
     return {"unhinted": cfg, "hinted": megakernel.with_hints(scene, cfg)}
+
+
+COMPOSITE = ["hypercube", "duocylinder", "tiger"]
 
 
 @pytest.mark.parametrize("hints", ["hinted", "unhinted"])
@@ -145,3 +148,76 @@ def test_launch_refuses_a_bad_descriptor(lib):
         with pytest.raises(AssertionError):
             launch(lib, packed, lay, dataclasses.replace(cfg, plane_pairs=plane_pairs), SEEDS)
     launch(lib, packed, lay, cfg, SEEDS)
+
+
+def custom_scenes():
+    """test_torch_composites.py's custom scenes: the rotated (unaligned)
+    tiger and two cylinders, one aligned (the generic instance), and the
+    library's axes with unequal radii (the library's instances)."""
+    from test_torch_composites import scenes
+
+    return {name: scenes(name)[1]
+            for name in ("tiger_rotated", "cylinders", "duocylinder_radii", "tiger_radii")}
+
+
+@pytest.mark.parametrize("hints", ["hinted", "unhinted"])
+@pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
+@pytest.mark.parametrize("name", COMPOSITE + ["tiger_rotated", "cylinders", "duocylinder_radii",
+                                               "tiger_radii"])
+def test_composite_launches_are_bitwise_the_plain_pipeline(lib, name, views, hints):
+    """K1 over a (2,) seed vector, K2 over two params rows (the scene and
+    a copy with its floor moved) at one seed, and K3 row blocks of both:
+    each bitwise the plain render, with the hints (plane and axis) the
+    entry point derives and without."""
+    scene = library.SCENES[name](CPU) if name in library.SCENES else custom_scenes()[name]
+    camera = camera_of(views)
+    cfg = configs(scene)[hints]
+    assert (cfg.axis_hints is not None) == (hints == "hinted" and name != "tiger_rotated")
+    packed, lay = params.pack(scene, camera).numpy(), params.layout(scene, camera)
+    out = launch(lib, packed, lay, cfg, SEEDS)
+    ref = renderer.render_light(scene, camera, cfg, SEEDS).numpy()
+    one = (lambda x: x) if len(views) > 1 else (lambda x: x[:, 0])
+    np.testing.assert_array_equal(one(out), ref)
+    assert float(np.abs(ref).max()) > 0.0
+    np.testing.assert_array_equal(one(launch(lib, packed, lay, cfg, SEEDS, rows=(5, 13))),
+                                  ref[..., 5:18, :, :])
+    floor = scene.spaces[0]
+    moved = scene._replace(spaces=(floor._replace(point=floor.point._replace(
+        z=floor.point.z - 0.25)),))
+    rows_p = params.stack_rows((scene, moved), camera).numpy()
+    seeds = SEEDS[:1].repeat(2)
+    whole = launch(lib, rows_p, lay, cfg, seeds)
+    block = launch(lib, rows_p, lay, cfg, seeds, rows=(3, 9))
+    for k, sc in enumerate((scene, moved)):
+        ref_k = renderer.render_light(sc, camera, cfg, int(SEEDS[0])).numpy()
+        np.testing.assert_array_equal(one(whole)[k], ref_k)
+        np.testing.assert_array_equal(one(block)[k], ref_k[..., 3:12, :, :])
+    assert not np.array_equal(whole[0], whole[1])
+
+
+@pytest.mark.parametrize("name", COMPOSITE)
+def test_composite_generic_instance_folds_alike(lib, name):
+    """The library scene's hinted launch through its own instance, the
+    generic instance (the variant launch's flag) and the unhinted launch:
+    bitwise one image."""
+    scene, camera = library.SCENES[name](CPU), camera_of(("yxz",))
+    cfgs = configs(scene)
+    packed, lay = params.pack(scene, camera).numpy(), params.layout(scene, camera)
+    base = launch(lib, packed, lay, cfgs["hinted"], SEEDS)
+    np.testing.assert_array_equal(launch(lib, packed, lay, cfgs["hinted"], SEEDS,
+                                         variant="generic_fold"), base)
+    np.testing.assert_array_equal(launch(lib, packed, lay, cfgs["unhinted"], SEEDS), base)
+
+
+def test_launch_refuses_a_bad_composite_descriptor(lib):
+    """A descriptor whose composite lies outside the params, or whose axis
+    hint names one component twice, is refused, not traced."""
+    scene, camera = library.tiger(CPU), camera_of(("yxz",))
+    packed, lay = params.pack(scene, camera).numpy(), params.layout(scene, camera)
+    cfg = configs(scene)["hinted"]
+    launch(lib, packed, lay, cfg, SEEDS)
+    with pytest.raises(AssertionError):
+        launch(lib, packed, lay._replace(tiger=lay.size - 10), cfg, SEEDS)
+    bad = cfg.axis_hints._replace(tiger=(((0, 1.0), (0, 1.0)), cfg.axis_hints.tiger[1]))
+    with pytest.raises(AssertionError):
+        launch(lib, packed, lay, dataclasses.replace(cfg, axis_hints=bad), SEEDS)

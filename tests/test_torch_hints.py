@@ -215,28 +215,50 @@ def test_with_hints_over_rows():
 def test_hint_table_is_the_kernels_descriptor():
     """The descriptor's layout is csrc/trace.cuh's Hints: the pairs as i |
     j << 8 | axis << 16, then the singles as plane | live mask << 8; -1
-    singles without hints."""
+    singles without hints; then the composites' count, offsets and axis
+    hints (a family k1 | k2 << 2, the hypercube's axes k_i << 2i)."""
     from pathlib import Path
 
     src = (Path(build.CSRC_DIR) / "trace.cuh").read_text()
     assert f"kMaxHintPlanes = {build.MAX_HINT_PLANES};" in src
-    assert "kHintInts = 2 + kMaxHintPlanes / 2 + kMaxHintPlanes;" in src
+    assert f"kMaxCylinders = {build.MAX_CYLINDERS};" in src
+    assert "kHintComposites = 2 + kMaxHintPlanes / 2 + kMaxHintPlanes;" in src
+    assert "kHintInts = kHintComposites + 5 + kMaxCylinders + 2 + 1 + 2;" in src
     cfg = trenderer.RenderConfig(**SHAPE)
-    words = list(megakernel.hint_table(megakernel.with_hints(tlib.room_with_sphere(CPU), cfg), 8))
+    _, tc = cameras()
+
+    def table(scene, c):
+        return list(megakernel.hint_table(c, params.layout(scene, tc)))
+
+    room = tlib.room_with_sphere(CPU)
+    words = table(room, megakernel.with_hints(room, cfg))
     assert len(words) == build.HINT_INTS
     assert words[:6] == [4, 0, 1 | 0 << 8 | 0 << 16, 3 | 2 << 8 | 1 << 16,
                          5 | 4 << 8 | 2 << 16, 7 | 6 << 8 | 3 << 16]
-    lamp = list(megakernel.hint_table(megakernel.with_hints(tlib.sphere_plane_light(CPU), cfg), 1))
+    comp = build.HINT_COMPOSITES
+    assert words[comp:comp + 5] == [0, -1, -1, -1, -1] and set(words[comp + 5:]) == {-1}
+    lamp_scene = tlib.sphere_plane_light(CPU)
+    lamp = table(lamp_scene, megakernel.with_hints(lamp_scene, cfg))
     assert lamp[:2] == [0, 1] and lamp[2 + build.MAX_HINT_PLANES // 2] == 0 | 0b0100 << 8
-    assert list(megakernel.hint_table(cfg, 8))[:2] == [0, -1]
+    assert table(room, cfg)[:2] == [0, -1]
     _, tsc = mixed_scenes()
     mixed = megakernel.with_hints(tsc, cfg)
-    words = list(megakernel.hint_table(mixed, 5))
+    words = table(tsc, mixed)
     singles = words[2 + build.MAX_HINT_PLANES // 2:][:3]
     assert words[:3] == [1, 3, 2 | 0 << 8 | 0 << 16]
     assert singles == [1 | 0b0010 << 8, 3 | 0b0100 << 8, 4 | 0b0100 << 8]
     with pytest.raises(ValueError, match="entries for 8"):
-        megakernel.hint_table(dataclasses.replace(cfg, plane_hints=((True,) * 4,)), 8)
+        megakernel.hint_table(dataclasses.replace(cfg, plane_hints=((True,) * 4,)),
+                              params.layout(room, tc))
+    tiger, cube = tlib.tiger(CPU), tlib.hypercube(CPU)
+    lay = params.layout(tiger, tc)
+    words = table(tiger, megakernel.with_hints(tiger, cfg))
+    axes = comp + 5 + build.MAX_CYLINDERS
+    assert words[comp:comp + 5] == [0, -1, -1, -1, lay.tiger] and lay.tiger == 13
+    assert words[axes:axes + 5] == [-1, -1, -1, 0 | 3 << 2, 2 | 1 << 2]
+    assert table(tiger, cfg)[axes:axes + 5] == [-1] * 5
+    words = table(cube, megakernel.with_hints(cube, cfg))
+    assert words[comp + 3] == 13 and words[axes + 2] == 0 | 1 << 2 | 2 << 4 | 3 << 6
 
 
 def test_engine_derives_the_hints_once(monkeypatch):
@@ -274,13 +296,17 @@ def test_engine_derives_the_hints_once(monkeypatch):
 
 
 def test_config_checks():
-    """axis_hints and freeze_hints still raise, naming their ROADMAP items;
-    the gradient paths refuse the forward's hints."""
+    """The forward takes axis hints; freeze_hints still raises, naming its
+    ROADMAP item; the gradient paths refuse the forward's hints."""
     cfg = trenderer.RenderConfig(**SHAPE)
     hinted = megakernel.with_hints(tlib.room_with_sphere(CPU), cfg)
     trenderer.check_supported(hinted)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        trenderer.check_supported(dataclasses.replace(cfg, axis_hints=((0, 1.0),)))
+    tiger = megakernel.with_hints(tlib.tiger(CPU), cfg)
+    assert tiger.axis_hints is not None
+    trenderer.check_supported(tiger)
+    _, tc = cameras()
+    assert torch.equal(trenderer.render_light(tlib.tiger(CPU), tc, tiger, 3),
+                       trenderer.render_light(tlib.tiger(CPU), tc, cfg, 3))
     with pytest.raises(NotImplementedError, match="item 4a, training half"):
         trenderer.check_supported(dataclasses.replace(cfg, freeze_hints=True))
     scene = tlib.room_with_sphere(CPU)

@@ -124,8 +124,15 @@ def test_launch_forward_refuses_cpu_tensors():
     dict(intersect="spec"),
 ])
 def test_unported_configs_raise(change):
+    """Configurations still to be ported raise, naming their ROADMAP item;
+    axis_hints, which the forward now takes, are refused by the gradient
+    paths (their frozen-hints contract is item 4a's training half)."""
     _, tc = cameras(("yxz",))
     cfg = dataclasses.replace(T_CFG, **change)
+    if "axis_hints" in change:
+        with pytest.raises(ValueError, match="ROADMAP queue 1, item 4a, training half"):
+            trenderer.check_trainable(cfg, tlib.sphere_plane_light(CPU))
+        return
     for render in (trenderer.render_light, tkernel.render_light_cuda):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render(tlib.sphere_plane_light(CPU), tc, cfg, 1)

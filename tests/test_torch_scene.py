@@ -18,6 +18,7 @@ from fourd_ray_tracing_tpu_torch import camera as tcam
 from fourd_ray_tracing_tpu_torch.models import library as tlib
 from fourd_ray_tracing_tpu_torch.models import params
 from fourd_ray_tracing_tpu_torch.models import renderer as trenderer
+from fourd_ray_tracing_tpu_torch.models import scene as tscene
 from fourd_ray_tracing_tpu_torch.models.scene import Scene, intersect_scene_fast as t_intersect
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4 as TVec4
 
@@ -79,17 +80,20 @@ def test_layout_points_at_the_leaves(name):
 
 
 def test_layout_matches_the_kernel_struct():
-    """The offset table crosses to CUDA as int[14] in Layout's field
-    order: it must be the field order of the kernels' struct Layout
-    (csrc/trace.cuh)."""
+    """The offset table crosses to CUDA as an int array in Layout's field
+    order: its first kLayoutInts fields must be the field order of the
+    kernels' struct Layout (csrc/trace.cuh); the composite offsets after
+    them go to the forward kernel in its hints descriptor."""
     import re
     from pathlib import Path
 
     src = (Path(params.__file__).resolve().parents[1] / "csrc" / "trace.cuh").read_text()
     body = re.search(r"struct Layout \{(.*?)\};", src, re.S).group(1)
     fields = re.findall(r"\b([a-z_]+)\s*[,;]", body.replace("int ", ""))
-    assert tuple(fields) == params.Layout._fields
-    assert f"kLayoutInts = {len(params.Layout._fields)};" in src
+    assert tuple(fields) == params.Layout._fields[:params.KERNEL_LAYOUT_INTS]
+    assert f"kLayoutInts = {params.KERNEL_LAYOUT_INTS};" in src
+    assert params.Layout._fields[params.KERNEL_LAYOUT_INTS:] == (
+        "n_cylinders", "cylinders", "cylinders_union", "hypercube", "tiger")
     assert f"kSpaceFloats = {params.SPACE_FLOATS};" in src
     assert f"kSphereFloats = {params.SPHERE_FLOATS};" in src
 
@@ -138,26 +142,68 @@ def test_intersect_scene_fast_matches_jax(name, rng_np):
         np.testing.assert_allclose(a.numpy()[both], np.asarray(b)[both], rtol=0, atol=1e-5)
 
 
+def composite_scene(field):
+    """A scene holding one composite primitive of ``field``: a library
+    scene, or for the cylinders sphere_plane_light with one."""
+    if field == "cylinders":
+        mat = tscene.material(0, 0, (1, 1, 1), CPU)
+        return tlib.sphere_plane_light(CPU)._replace(cylinders=(
+            tscene.cylinder((0, 2, 0, 0), (1, 0, 0, 0), (0, 0, 0, 1), 0.8, mat, CPU),))
+    name = {"cylinders_union": "duocylinder", "hypercube": "hypercube", "tiger": "tiger"}[field]
+    return tlib.SCENES[name](CPU)
+
+
 @pytest.mark.parametrize("field", ["cylinders", "cylinders_union", "hypercube", "tiger"])
 def test_composite_primitives_raise(field):
-    scene = tlib.sphere_plane_light(CPU)._replace(**{field: (object(),)})
-    d = TVec4(*(torch.ones(3) for _ in range(4)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_intersect(scene, d, d)
+    """The forward renders each composite primitive; every gradient path
+    (plain autograd, K4, K5, K6, K8 and the train steps, on the CPU their
+    plain versions; the kernels' own shape check) refuses it, naming
+    item 4b's training half."""
+    from fourd_ray_tracing_tpu_torch import diff
+    from fourd_ray_tracing_tpu_torch.ops.cuda import ablate, gradkernel
+
+    scene = composite_scene(field)
     _, tc = cameras(("yxz",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        params.layout(scene, tc)
+    cfg = dataclasses.replace(trenderer.RenderConfig(width=8, height=4, samples=1,
+                                                     reflections_amount=1, rng_mode="per_sample"))
+    assert torch.isfinite(trenderer.render_light(scene, tc, cfg, 1)).all()
+    packed, lay = params.pack(scene, tc), params.layout(scene, tc)
+    assert lay.composite_kinds() == (field,) == scene.composite_kinds()
+    target, cot = torch.zeros((4, 8, 3)), torch.ones((4, 8, 3))
+    paths = {
+        "image_loss": lambda: diff.image_loss(scene, tc, cfg, 1, target),
+        "k4_plain": lambda: gradkernel.loss_and_grad_plain(packed, scene, tc, cfg, 1, target),
+        "k4": lambda: gradkernel.loss_and_grad_cuda(packed, scene, tc, cfg, 1, target),
+        "k4_shape": lambda: gradkernel.check_shape(lay, cfg),
+        "k5": lambda: gradkernel.render_light_vjp_cuda(packed, scene, tc, cfg, 1, cot),
+        "k6_plain": lambda: gradkernel.render_soft_loss_and_grad_plain(
+            packed, scene, tc, cfg, 1, target, torch.ones((4, 8)), ()),
+        "k8": lambda: ablate.variant_plain("loss", scene, tc, cfg, 1, target),
+        "packed_step": lambda: diff.make_packed_train_step(cfg, 1e-3, tc, scene),
+        "train_step": lambda: diff.make_train_step(cfg, 1e-3, tc)[1](scene),
+        "soft_loss": lambda: diff.soft_image_loss(scene, tc, cfg, 1, target),
+    }
+    for name, fn in paths.items():
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4b, training half"):
+            fn()
 
 
-@pytest.mark.parametrize("name", tlib.NOT_PORTED)
+@pytest.mark.parametrize("name", ["hypercube", "duocylinder", "tiger"])
 def test_unported_library_scenes_raise(name):
-    assert name in jlib.SCENES
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlib.scene_by_name(name, CPU)
+    """Once raising, now in the library: each composite scene's leaves
+    equal the JAX library scene's, in tree_flatten order."""
+    import jax
+
+    ref = [np.asarray(leaf) for leaf in jax.tree_util.tree_leaves(jlib.SCENES[name]())]
+    ours = [t.numpy() for t in params.tree_leaves(tlib.scene_by_name(name, CPU))]
+    assert len(ours) == len(ref)
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+    assert tlib.scene_by_name(name, CPU).composite_kinds() != ()
 
 
 def test_library_has_the_slice_scenes():
-    assert sorted(tlib.SCENES) == SCENES
+    assert sorted(tlib.SCENES) == sorted(jlib.SCENES)
     assert isinstance(tlib.scene_by_name("room_with_sphere", CPU), Scene)
     with pytest.raises(KeyError):
         tlib.scene_by_name("no_such_scene", CPU)

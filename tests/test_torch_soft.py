@@ -206,7 +206,7 @@ def test_composite_kinds_raise(kind):
                lambda: diff.zero_object(ts, (kind, 0)),
                lambda: diff.soft_image_loss(ts, tc, T_CFG, SEED, torch.zeros(16, 32, 3),
                                             object_ref=(kind, 0))):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4b, training half"):
             fn()
     with pytest.raises(ValueError, match="unknown object kind"):
         diff.object_coverage(ts, ("cones", 0), tc, T_CFG, EDGE)
