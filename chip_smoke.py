@@ -9,7 +9,9 @@ on any failure, or when no CUDA device is available. Phases:
 2. build: the kernels from fourd_ray_tracing_tpu_torch/csrc; every
    kernel's registers, stack frame and spill stores from the build log, the
    resident warps per SM that the gradient kernels K4, K5 and K6 reach at
-   the training shape, and those of every instance of the forward kernel K1
+   the training shape (their unhinted instances, and those of the
+   freeze_hints contract at the room's fold table: the room's RoomFold, the
+   generic AnyFold), and those of every instance of the forward kernel K1
    at the headline launch (the composite instances at the tiger's 3-view
    launch);
 3. kernel vs plain torch pipeline on the card, 256x144, 4 spp, 4 bounces,
@@ -47,13 +49,22 @@ on any failure, or when no CUDA device is available. Phases:
    256x144x8spp x4 bounces; at phase 9's shape (1280x720x8spp x4, 1 and 4
    frames) K4 bitwise across two launches and held against the plain
    version taken in row bands, both timed; at phase 10's shape the forward
-   kernel's target render and K4 held against their plain versions;
-9. the training main path: make_packed_train_step (Adam on the packed
-   vector, one K4 launch per step) on room_with_sphere at 1280x720, 8 spp,
-   4 bounces, a zero target, lr 1e-3, timed with CUDA events, for 1 and 4
-   frames per step;
-10. the entry point: ``inverse_render --param glow --impl kernel`` with
-   and without ``--packed`` recovers the lamp's glow;
+   kernel's target render and K4 held against their plain versions. Each
+   check runs K4 under the freeze_hints contract too (diff.with_frozen_hints:
+   the forward's hints, the hyperplane normals' gradients frozen): the loss
+   bitwise the unhinted launch's, every kept slot bitwise, every frozen slot
+   0, bitwise across launches, within GRAD_BOUNDS of the unhinted plain
+   version with the slots frozen; at 1280x720 the hinted and the unhinted
+   launch timed in turns;
+9. the training main path in the production configuration:
+   make_packed_train_step under the frozen hints (Adam on the packed
+   vector, one hinted K4 launch per step, the frozen slots bitwise
+   constant) on room_with_sphere at 1280x720, 8 spp, 4 bounces, a zero
+   target, lr 1e-3, timed with CUDA events, for 1 and 4 frames per step;
+   the unhinted step timed beside it;
+10. the entry point: ``inverse_render --param glow --impl kernel`` plain,
+   with ``--packed`` (the frozen hints forced) and with ``--freeze-hints``
+   recovers the lamp's glow, the hinted launches counted;
 11. the light-VJP kernel K5 against its plain version (torch autograd of
    sum(render_light * cot)) on the card: the gradient scenes, 1 and 3 views,
    256x144, 4 spp, 4 bounces, a seeded random cotangent; bitwise across
@@ -61,7 +72,9 @@ on any failure, or when no CUDA device is available. Phases:
    its zero_object copy) row by row bitwise single K1 renders, and K5's
    two-row launch row by row bitwise single K5 launches and held against
    the plain version; then K5 at the soft main path's 1280x720x8spp x4,
-   bitwise across two launches, against the plain version, both timed;
+   bitwise across two launches, against the plain version, both timed; K5
+   (one row and two) under the contract as K4 in phase 8, hinted and
+   unhinted timed at 1280x720;
 12. the fused soft value-and-grad kernel K6 against its plain version
    (autograd over the plain blend, alpha an independent leaf): the room's
    sphere 0 and the lamp scene's sphere 1, 1 and 3 views, 256x144, 4 spp,
@@ -72,22 +85,30 @@ on any failure, or when no CUDA device is available. Phases:
    1280x720x8spp x4,
    bitwise across two launches, against the plain version in row bands,
    both timed beside the pair K6 fused (K2 over both rows and the two-row
-   K5), and at ``inverse_render --param position``'s shape;
-13. the soft training main path: make_train_step(impl="kernel",
-   soft_object_ref=("spheres", 0)) on room_with_sphere at 1280x720, 8 spp,
-   4 bounces, a zero target, edge width 0.05, lr 1e-3, one K6 launch per
-   step, timed with CUDA events beside K6 alone, the coverage's forward
-   and backward alone and Adam alone; the hyperplane fallback
-   (("spaces", 0): two K1 and two K5 launches per step), timed; then
-   ``inverse_render --param position --impl kernel`` recovers the lamp's
-   x;
+   K5), and at ``inverse_render --param position``'s shape; K6 under the
+   contract as K4 in phase 8 (its loss and alpha cotangent bitwise the
+   unhinted launch's), hinted and unhinted timed at 1280x720;
+13. the soft training main path in the production configuration:
+   make_train_step(impl="kernel", soft_object_ref=("spheres", 0)) under
+   the frozen hints on room_with_sphere at 1280x720, 8 spp, 4 bounces, a
+   zero target, edge width 0.05, lr 1e-3, one hinted K6 launch per step,
+   timed with CUDA events beside K6 alone, the coverage's forward and
+   backward alone and Adam alone; the production and the unhinted step
+   in turns, each step's host part (the host clock when the call returns,
+   the card idle at its start) and its wall time, and the host work the
+   contract adds to a step, timed alone; the
+   hyperplane fallback (("spaces", 0): two hinted K1 and two hinted K5
+   launches per step, the wall's hint row dropped for the row without it),
+   timed; then ``inverse_render --param position --impl kernel
+   --freeze-hints`` recovers the lamp's x;
 14. the row-sharded launches (K3) in one process: K1 and K2 with the
    room's hints (K2's two rows share them) against their unhinted launches;
    cut into 2 and 4 row blocks (``parallel.mesh.row_block``) bitwise the
    single launch at 1280x720x8spp x4 (4 frames) and at 256x144 with 3
    views; the tiger's hinted 3-view launch at 1280x720x8spp x4 (4 frames)
    in 2 and 4 row blocks bitwise its single launch; the
-   blocks of K4 (1 and 4 frames), K5 (two rows) and K6 at 1280x720x8spp x4,
+   blocks of K4 (1 and 4 frames), K5 (two rows) and K6 at 1280x720x8spp x4
+   under the frozen hints,
    added in rank order, within ``GRAD_BOUNDS`` of the single launch, K6's
    alpha cotangent blocks bitwise its rows; each of the ``PLAIN_SPLIT``
    blocks of K1, K2 (both shapes; against both plain pipelines), K4 (1
@@ -101,7 +122,9 @@ on any failure, or when no CUDA device is available. Phases:
    hard loss and the soft loss (sphere 0) within loss and parameter rtol
    1e-5 of the single process with one K4 (K6) launch per rank and step,
    the soft pair's gradient (K2 + two-row K5 on each rank's rows), and
-   ``inverse_render --mesh --impl kernel`` recovering the glow. Both ranks
+   ``inverse_render --mesh --impl kernel --freeze-hints`` recovering the
+   glow, every item in the production configuration, the frozen hints
+   (each gradient launch counted hinted). Both ranks
    share one card, so its step times are no scaling figure;
 16. the fp32 FMA-peak kernel K7: its main loop in the built library's SASS
    (cuobjdump) is FFMAs with no FMUL/FADD, for each n_acc; its block sums
@@ -114,7 +137,8 @@ on any failure, or when no CUDA device is available. Phases:
    peak's n_acc against the same at half its steps;
 17. the value-and-grad pass-budget kernel K8 against its plain version
    (acc, loss, vjp) and loss and vjp against K4's loss, at 256x144x4spp x4
-   bounces, the gradient scenes, 1 and 3 views; K1's stub variants with the
+   bounces, the gradient scenes, 1 and 3 views, and each mode under the
+   frozen hints bitwise the unhinted launch; K1's stub variants with the
    hints (tools/fwd_ablate.py's own functions, 8 frames a launch) against
    the plain pipeline under the same patches at 256x144 (all five scenes)
    and at
@@ -122,20 +146,26 @@ on any failure, or when no CUDA device is available. Phases:
    the unhinted launch bitwise the hinted K1; then the attribution tools
    grad_ablate, train_ablate, soft_ablate and fwd_ablate at 1280x720x8spp
    x4 bounces (rounds cut, ``TOOL_ROUNDS``), each from zeroed counts, with
-   every kernel launch each tool's variants must make checked; then the K8
-   values grad_ablate printed against the plain version on the same
-   inputs, and its loss x scale against K4's.
+   every kernel launch each tool's variants must make checked (the
+   training tools run the frozen hints, as the JAX tools do: every
+   gradient launch hinted); then the K8 values grad_ablate printed against
+   the plain version on the same inputs, and its loss x scale against
+   K4's, and each K8 mode timed unhinted beside the tool's hinted times.
 
 Every kernel's entry in the summary carries its bound: the larger of its
 plain version's flops (utils/flops.py, counted on the card over
 ``BOUND_ROWS`` rows of the timed shape and scaled to the whole image) over
 NVIDIA's published fp32 peak and the bytes it must move (each input read
 once, each output written once) over the published memory rate
-(``PEAKS``). The entries of K4, K5 and K6 also name the kernels each
+(``PEAKS``); K4-K6's and K8's plain versions run the frozen hints, the
+production work. The entries of K4, K5 and K6 also name the kernels each
 launch runs (a pass-1 kernel, then a sweep) and carry the registers, stack
-frame and spill stores of the sweep's main-path instance, the resident
-warps per SM it reaches, and the same of its generic instance and of the
-pass-1 kernel. Beside it stand the shares of two peaks that the kernel's
+frame and spill stores of the sweep's production instance (the room under
+the frozen hints), the resident warps per SM it reaches, and the same of
+its other instances and of the pass-1 kernel. The entries of K4-K6 and K8
+give the production (hinted) time as ``ms`` and the unhinted launch's
+beside it, the hinted launches, and the count of contract checks that
+held. Beside it stand the shares of two peaks that the kernel's
 achieved fp32 rate reaches: the published 67 TFLOP/s (data sheet, H100
 SXM at 700 W) and the rate K7 sustained on this card in this run (phase
 16), which is what the card really offers a kernel of plain FMAs.
@@ -666,6 +696,50 @@ def compare_grad(label: str, kernel, plain):
     return err, rel
 
 
+def frozen_setup(scene, camera, cfg: RenderConfig):
+    """(cfg under the freeze_hints contract, the launch's keep mask, the
+    frozen slots) of the scene: the production configuration
+    (diff.with_frozen_hints) with the packed mask the wrappers hand the
+    kernels."""
+    hcfg = diff.with_frozen_hints(cfg, scene)
+    assert hcfg.plane_hints is not None, "no hints to freeze by"
+    keep = params.freeze_mask(hcfg, scene, params.layout(scene, camera).size,
+                              camera.focus.x.device)
+    return hcfg, keep, keep == 0
+
+
+# Every check of the freeze_hints contract: the hinted launch against the
+# unhinted one (loss and other outputs bitwise, every kept slot bitwise,
+# every frozen slot 0), by label.
+CONTRACT = {}
+
+
+def check_contract(label: str, hinted, unhinted, frozen: torch.Tensor) -> None:
+    """The freeze_hints contract of a gradient launch: ``hinted`` and
+    ``unhinted`` are its outputs (a gradient, or a tuple whose gradient is
+    the element of the packed width, the rest compared whole), the hinted
+    launch's bitwise the unhinted's but for the frozen slots, which are
+    exactly 0 (== takes -0 for +0)."""
+    hinted = hinted if isinstance(hinted, tuple) else (hinted,)
+    unhinted = unhinted if isinstance(unhinted, tuple) else (unhinted,)
+    n = frozen.numel()
+    ok = True
+    for h, u in zip(hinted, unhinted):
+        if h.dim() >= 1 and h.shape[-1] == n:
+            kept = torch.equal(h[..., ~frozen], u[..., ~frozen])
+            zero = bool((h[..., frozen] == 0).all())
+            moved = int((u[..., frozen] != 0).sum())
+            print(f"contract {label}: kept slots bitwise={kept} frozen slots 0={zero} "
+                  f"(the unhinted launch has {moved} of them non-zero)", flush=True)
+            ok = ok and kept and zero
+        else:
+            same = torch.equal(h, u)
+            print(f"contract {label}: {tuple(h.shape) or 'loss'} bitwise={same}", flush=True)
+            ok = ok and same
+    CONTRACT[label] = ok
+    assert ok, f"{label}: the freeze_hints contract does not hold"
+
+
 def check_grad_kernel(device):
     """Phase 8 checks; returns (max |K4 - plain| over loss and gradients,
     max mixed-scale relative gradient error)."""
@@ -701,6 +775,18 @@ def check_grad_kernel(device):
             np.testing.assert_allclose(
                 grad.cpu().numpy(), mean_g, rtol=GRAD_BOUNDS["minibatch_rtol"],
                 atol=1e-7 * max(1.0, float(np.abs(mean_g).max())))
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+            # Under the freeze_hints contract: bitwise the unhinted launch
+            # but for the frozen slots, bitwise across launches, and within
+            # GRAD_BOUNDS of the unhinted plain version with them frozen.
+            hcfg, keep, frozen = frozen_setup(scene, camera, cfg)
+            hinted = gradkernel.launch_loss_grad(packed, lay, hcfg, words, target, keep=keep)
+            again = gradkernel.launch_loss_grad(packed, lay, hcfg, words, target, keep=keep)
+            assert all(torch.equal(a, b) for a, b in zip(hinted, again)), \
+                f"{label} frozen hints: launches differ"
+            check_contract(f"K4 {label}", hinted, (loss, grad), frozen)
+            err, rel = compare_grad(f"{label} frozen hints", hinted,
+                                    (plain[0], gradkernel.freeze(plain[1], scene, hcfg)))
             worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
     return worst_abs, worst_rel
 
@@ -739,7 +825,8 @@ def time_grad_kernel(device):
                          f"x{small.reflections_amount} F=1", out[-1], plain[-1])]
     full = RenderConfig(**TRAIN)
     target = torch.zeros((full.height, full.width, 3), device=device)
-    for key in ("k4_full_ms", "plain_full_ms", "plain_band_peak_gb"):
+    hcfg, keep, frozen = frozen_setup(scene, camera, full)
+    for key in ("k4_full_ms", "k4_hinted_full_ms", "plain_full_ms", "plain_band_peak_gb"):
         res[key] = {}
     for frames in TRAIN_FRAMES:
         seeds = list(range(1, frames + 1))
@@ -748,6 +835,11 @@ def time_grad_kernel(device):
         again = gradkernel.launch_loss_grad(packed, lay, full, words, target)
         assert all(torch.equal(a, b) for a, b in zip(kernel, again)), \
             f"K4 1280x720 F={frames}: two launches differ"
+        hinted = gradkernel.launch_loss_grad(packed, lay, hcfg, words, target, keep=keep)
+        assert all(torch.equal(a, b) for a, b in zip(hinted, gradkernel.launch_loss_grad(
+            packed, lay, hcfg, words, target, keep=keep))), \
+            f"K4 1280x720 F={frames} frozen hints: two launches differ"
+        check_contract(f"K4 room 1280x720x8spp x4 F={frames}", hinted, kernel, frozen)
         plain = []
         ms, res["plain_band_peak_gb"][frames] = peak_gb(lambda: cuda_ms(
             lambda: plain.append(gradkernel.loss_and_grad_plain(
@@ -756,9 +848,15 @@ def time_grad_kernel(device):
         res["plain_full_ms"][frames] = ms[0]
         errs.append(compare_grad(f"room 1280x720x8spp x4 F={frames} (plain in {BAND_ROWS}-row "
                                  "bands)", kernel, plain[0]))
-        res["k4_full_ms"][frames] = cuda_ms(
-            lambda: gradkernel.launch_loss_grad(packed, lay, full, words, target),
-            calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)
+        errs.append(compare_grad(f"room 1280x720x8spp x4 F={frames} frozen hints (plain in "
+                                 f"{BAND_ROWS}-row bands, frozen)", hinted,
+                                 (plain[0][0], gradkernel.freeze(plain[0][1], scene, hcfg))))
+        # The production (hinted) launch and the unhinted one, in turns.
+        for key, c, k in (("k4_hinted_full_ms", hcfg, keep), ("k4_full_ms", full, None)):
+            res[key][frames] = cuda_ms(
+                lambda c=c, k=k: gradkernel.launch_loss_grad(packed, lay, c, words, target,
+                                                             keep=k),
+                calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)
     res["err"], res["rel"] = max(e for e, _ in errs), max(r for _, r in errs)
     print(f"plain version peak memory: {res['plain_small_peak_gb']:.3f} GB whole at 256x144, "
           f"{res['plain_band_peak_gb'][1]:.3f} GB per {BAND_ROWS}-row band at 1280x720", flush=True)
@@ -782,41 +880,61 @@ def check_inverse_render_shapes(device):
     return light_err, err, rel
 
 
-def train_main_path(device, frames: int) -> list:
-    """Phase 9: the packed train step at TRAIN, ``frames`` frames per step;
-    one warm-up step, then timed steps. Returns ms per step."""
+def train_main_path(device, frames: int, frozen: bool = True) -> list:
+    """Phase 9: the packed train step at TRAIN, ``frames`` frames per step,
+    in the production configuration (the frozen static hints: one hinted
+    K4 launch per step, the frozen slots of the packed vector bitwise
+    constant), or unhinted (``frozen`` False); one warm-up step, then timed
+    steps. Returns ms per step."""
     cfg = RenderConfig(**TRAIN)
     scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
+    if frozen:
+        cfg = diff.with_frozen_hints(cfg, scene)
     target = torch.zeros((cfg.height, cfg.width, 3), device=device)
     step, init, unpack = diff.make_packed_train_step(cfg, 1e-3, camera, scene,
                                                      frames_per_step=frames)
     model, opt = init(scene)
     vec0 = model.scene_vec.detach().clone()
-    before = gradkernel.LAUNCHES
+    before = gradkernel.LAUNCHES, gradkernel.HINTED_LAUNCHES
     losses = []
     losses.append(step(model, opt, 1, target))  # warm-up
     ms = cuda_ms(lambda: losses.append(step(model, opt, len(losses) + 1, target)),
                  calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)
-    assert gradkernel.LAUNCHES - before == len(losses), "one K4 launch per step"
+    assert gradkernel.LAUNCHES - before[0] == len(losses), "one K4 launch per step"
+    assert gradkernel.HINTED_LAUNCHES - before[1] == (len(losses) if frozen else 0), \
+        "the production step runs the hinted K4"
     losses = torch.stack(losses).cpu().numpy()
     assert np.isfinite(losses).all(), losses
-    assert not torch.equal(model.scene_vec.detach(), vec0), "the step did not move the scene"
+    vec = model.scene_vec.detach()
+    assert not torch.equal(vec, vec0), "the step did not move the scene"
+    if frozen:
+        held = params.freeze_mask(cfg, scene).to(device) == 0
+        assert torch.equal(vec[held], vec0[held]), "a frozen slot moved"
     assert np.isfinite(params.pack(unpack(model), camera).cpu().numpy()).all()
     rays = cfg.width * cfg.height * cfg.samples * frames
     med = statistics.median(ms)
-    print(f"train step F={frames}: ms={ms} median={med} grad_mrays_per_s={rays / med / 1e3} "
-          f"losses {losses[0]} -> {losses[-1]}", flush=True)
+    print(f"train step F={frames} {'frozen hints' if frozen else 'unhinted'}: ms={ms} "
+          f"median={med} grad_mrays_per_s={rays / med / 1e3} losses {losses[0]} -> "
+          f"{losses[-1]}", flush=True)
     return ms
 
 
+# Phase 10's runs of inverse_render --impl kernel: plain, the packed loop
+# (which forces the frozen hints) and --freeze-hints; the hinted K4
+# launches each makes (60 steps).
+INVERSE_RUNS = (([], 0), (["--packed"], 60), (["--freeze-hints"], 60))
+
+
 def run_inverse_render() -> None:
-    """Phase 10: the entry point on the card, with and without --packed."""
-    for extra in ([], ["--packed"]):
-        before = gradkernel.LAUNCHES
+    """Phase 10: the entry point on the card, unhinted, with --packed (the
+    frozen hints forced) and with --freeze-hints."""
+    for extra, hinted in INVERSE_RUNS:
+        before = gradkernel.LAUNCHES, gradkernel.HINTED_LAUNCHES
         rc = inverse_render.main(["--param", "glow", "--impl", "kernel", "--device", "cuda",
                                   *extra])
         assert rc == 0, f"inverse_render {extra}: glow not recovered"
-        assert gradkernel.LAUNCHES - before == 60, "one K4 launch per step"
+        assert gradkernel.LAUNCHES - before[0] == 60, "one K4 launch per step"
+        assert gradkernel.HINTED_LAUNCHES - before[1] == hinted, f"{extra}: hinted launches"
 
 
 def run_app() -> None:
@@ -835,17 +953,23 @@ def run_app() -> None:
 def reset_counts() -> None:
     megakernel.LAUNCHES = megakernel.ROW_LAUNCHES = megakernel.SHARD_LAUNCHES = 0
     megakernel.HINTED_LAUNCHES = 0
-    megakernel.VARIANT_LAUNCHES = k7.LAUNCHES = ablate.LAUNCHES = 0
+    megakernel.VARIANT_LAUNCHES = k7.LAUNCHES = ablate.LAUNCHES = ablate.HINTED_LAUNCHES = 0
     gradkernel.LAUNCHES = gradkernel.VJP_LAUNCHES = gradkernel.SOFT_LAUNCHES = 0
     gradkernel.SHARD_LAUNCHES = gradkernel.SHARD_VJP_LAUNCHES = gradkernel.SHARD_SOFT_LAUNCHES = 0
+    gradkernel.HINTED_LAUNCHES = gradkernel.HINTED_VJP_LAUNCHES = 0
+    gradkernel.HINTED_SOFT_LAUNCHES = 0
 
 
 def counts() -> dict:
     """Launches since the last reset_counts, per kernel (K2 = the forward
-    kernel's launches over params rows, counted among K1's too)."""
+    kernel's launches over params rows, counted among K1's too), and those
+    of the gradient kernels under the freeze_hints contract (``*_hinted``,
+    counted among theirs too)."""
     return {"k1": megakernel.LAUNCHES, "k2_rows": megakernel.ROW_LAUNCHES,
             "k4": gradkernel.LAUNCHES, "k5": gradkernel.VJP_LAUNCHES,
-            "k6": gradkernel.SOFT_LAUNCHES}
+            "k6": gradkernel.SOFT_LAUNCHES, "k4_hinted": gradkernel.HINTED_LAUNCHES,
+            "k5_hinted": gradkernel.HINTED_VJP_LAUNCHES,
+            "k6_hinted": gradkernel.HINTED_SOFT_LAUNCHES}
 
 
 def image_shape(views, cfg) -> tuple:
@@ -931,6 +1055,20 @@ def check_light_vjp(device):
                 errs.append(compare_vec(f"K5 {label} row {f} of 2", multi[f], plain[f]))
             print(f"K2 {label}: rows bitwise single K1 renders; K5 two-row launch bitwise "
                   "single launches", flush=True)
+            # Under the freeze_hints contract, one row and both (each row
+            # folds over its own table).
+            hcfg, keep, frozen = frozen_setup(scene, camera, cfg)
+            for tag, vec, c, ref_grad, ref_plain in (
+                    ("", packed, cot, grad, gradkernel.render_light_vjp_plain(
+                        packed, scene, camera, cfg, seed, cot)),
+                    (" two rows", rows, cots, multi, plain)):
+                hinted = gradkernel.launch_light_vjp(vec, lay, hcfg, seed, c, keep=keep)
+                assert torch.equal(hinted, gradkernel.launch_light_vjp(vec, lay, hcfg, seed, c,
+                                                                       keep=keep)), \
+                    f"K5 {label}{tag} frozen hints: launches differ"
+                check_contract(f"K5 {label}{tag}", hinted, ref_grad, frozen)
+                errs.append(compare_vec(f"K5 {label}{tag} frozen hints", hinted,
+                                        gradkernel.freeze(ref_plain, scene, hcfg)))
     return max(e for e, _ in errs), max(r for _, r in errs)
 
 
@@ -951,10 +1089,21 @@ def time_light_vjp(device):
     ms, peak = peak_gb(lambda: cuda_ms(lambda: plain.append(gradkernel.render_light_vjp_plain(
         packed, scene, camera, cfg, 1, cot)), calls=1, repeats=1))
     err, rel = compare_vec("K5 room 1280x720x8spp x4 (plain whole)", kernel, plain[0])
+    hcfg, keep, frozen = frozen_setup(scene, camera, cfg)
+    hinted = gradkernel.launch_light_vjp(packed, lay, hcfg, 1, cot, keep=keep)
+    check_contract("K5 room 1280x720x8spp x4", hinted, kernel, frozen)
+    e, r = compare_vec("K5 room 1280x720x8spp x4 frozen hints (plain whole, frozen)", hinted,
+                       gradkernel.freeze(plain[0], scene, hcfg))
+    # The production (hinted) launch and the unhinted one, in turns.
+    k5_hinted_ms = cuda_ms(lambda: gradkernel.launch_light_vjp(packed, lay, hcfg, 1, cot,
+                                                               keep=keep),
+                           calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)
     k5_ms = cuda_ms(lambda: gradkernel.launch_light_vjp(packed, lay, cfg, 1, cot),
                     calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)
-    print(f"K5 1280x720: ms={k5_ms} plain_ms={ms[0]} plain_peak_gb={peak:.3f}", flush=True)
-    return {"ms": k5_ms, "plain_ms": ms[0], "plain_peak_gb": peak, "err": err, "rel": rel}
+    print(f"K5 1280x720: frozen hints ms={k5_hinted_ms} unhinted ms={k5_ms} plain_ms={ms[0]} "
+          f"plain_peak_gb={peak:.3f}", flush=True)
+    return {"ms": k5_hinted_ms, "unhinted_ms": k5_ms, "plain_ms": ms[0], "plain_peak_gb": peak,
+            "err": max(err, e), "rel": max(rel, r)}
 
 
 def soft_inputs(scene, camera, cfg, ref, edge, target):
@@ -988,6 +1137,19 @@ def check_soft_kernel(device):
             torch.cuda.synchronize()
             assert all(torch.equal(a, b) for a, b in zip(out, again)), f"K6 {label}: launches differ"
             errs.append(compare_soft(label, out, plain))
+            # Under the freeze_hints contract (row b's table built from row
+            # b's params): the loss and alpha's cotangent bitwise the
+            # unhinted launch's, the kept slots bitwise, the frozen ones 0.
+            hcfg, keep, frozen = frozen_setup(scene, camera, cfg)
+            hinted = gradkernel.launch_soft_loss_grad(packed, lay, hcfg, seed, target, alpha,
+                                                      zero_map, keep=keep)
+            assert all(torch.equal(a, b) for a, b in zip(hinted, gradkernel.launch_soft_loss_grad(
+                packed, lay, hcfg, seed, target, alpha, zero_map, keep=keep))), \
+                f"K6 {label} frozen hints: launches differ"
+            check_contract(f"K6 {label}", hinted, out, frozen)
+            errs.append(compare_soft(f"{label} frozen hints", hinted,
+                                     (plain[0], gradkernel.freeze(plain[1], scene, hcfg),
+                                      plain[2])))
             zeroed = megakernel.render_light_cuda(diff.zero_object(scene, ref), camera, cfg, seed)
             dropped = megakernel.render_light_cuda(diff.drop_object(scene, ref), camera, cfg, seed)
             assert torch.equal(zeroed, dropped), f"{label}: zeroed light != drop_object light"
@@ -1026,24 +1188,40 @@ def time_soft_kernel(device):
         calls=1, repeats=1))
     errs = [compare_soft(f"room 1280x720x8spp x4 (plain in {BAND_ROWS}-row bands)", kernel,
                          plain[0])]
+    hcfg, keep, frozen = frozen_setup(scene, camera, cfg)
+    hinted = gradkernel.launch_soft_loss_grad(packed, lay, hcfg, 1, target, alpha, zero_map,
+                                              keep=keep)
+    assert all(torch.equal(a, b) for a, b in zip(hinted, gradkernel.launch_soft_loss_grad(
+        packed, lay, hcfg, 1, target, alpha, zero_map, keep=keep))), \
+        "K6 1280x720 frozen hints: launches differ"
+    check_contract("K6 room 1280x720x8spp x4", hinted, kernel, frozen)
+    errs.append(compare_soft(f"room 1280x720x8spp x4 frozen hints (plain in {BAND_ROWS}-row "
+                             "bands, frozen)", hinted,
+                             (plain[0][0], gradkernel.freeze(plain[0][1], scene, hcfg),
+                              plain[0][2])))
+    # The production (hinted) launch and the unhinted one, in turns.
+    k6_hinted_ms = cuda_ms(lambda: gradkernel.launch_soft_loss_grad(
+        packed, lay, hcfg, 1, target, alpha, zero_map, keep=keep),
+        calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)
     k6_ms = cuda_ms(lambda: gradkernel.launch_soft_loss_grad(packed, lay, cfg, 1, target, alpha,
                                                              zero_map),
                     calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)
-    print(f"K6 1280x720: ms={k6_ms} plain_banded_ms={ms[0]} plain_band_peak_gb={peak:.3f}",
-          flush=True)
+    print(f"K6 1280x720: frozen hints ms={k6_hinted_ms} unhinted ms={k6_ms} "
+          f"plain_banded_ms={ms[0]} plain_band_peak_gb={peak:.3f}", flush=True)
     # The pair K6 fused, at the same shape: K2 over the scene and its
     # zero_object row, and the two-row K5 (a seeded random cotangent).
     rows = params.stack_rows((scene, diff.zero_object(scene, ref)), camera)
     words = megakernel.seed_tensor([1, 1], device)
     cots = torch.from_numpy(np.random.default_rng(5).normal(
         0, 1, (2, cfg.height, cfg.width, 3)).astype(np.float32)).to(device)
-    pair_ms = {"k2": cuda_ms(lambda: megakernel.launch_forward(rows, lay, cfg, words),
+    pair_ms = {"k2": cuda_ms(lambda: megakernel.launch_forward(rows, lay, hcfg, words),
                              calls=TRAIN_CALLS, repeats=TRAIN_REPEATS),
-               "k5_two_rows": cuda_ms(lambda: gradkernel.launch_light_vjp(rows, lay, cfg, 1, cots),
+               "k5_two_rows": cuda_ms(lambda: gradkernel.launch_light_vjp(rows, lay, hcfg, 1, cots,
+                                                                          keep=keep),
                                       calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)}
     pair_med = sum(statistics.median(v) for v in pair_ms.values())
-    print(f"K6 {statistics.median(k6_ms)} ms against the pair it fused, K2 + two-row K5: "
-          f"{pair_med} ms ({pair_ms})", flush=True)
+    print(f"K6 {statistics.median(k6_hinted_ms)} ms against the pair it fused, K2 + two-row K5, "
+          f"both with the frozen hints: {pair_med} ms ({pair_ms})", flush=True)
     args = inverse_render.parse_args(["--param", "position"])
     ir_cfg, ir_camera, ir_target, scene0 = inverse_render.setup(args, device)
     truth = inverse_render.make_scene(inverse_render.TRUE_X, inverse_render.TRUE_GLOW, device)
@@ -1058,17 +1236,21 @@ def time_soft_kernel(device):
         packed, scene0, ir_camera, ir_cfg, args.seed, target, alpha, zero_map),
         gradkernel.render_soft_loss_and_grad_plain(packed, scene0, ir_camera, ir_cfg, args.seed,
                                                    target, alpha, zero_map)))
-    return {"ms": k6_ms, "plain_ms": ms[0], "plain_band_peak_gb": peak, "light_err": light_err,
+    return {"ms": k6_hinted_ms, "unhinted_ms": k6_ms, "plain_ms": ms[0],
+            "plain_band_peak_gb": peak, "light_err": light_err,
             "err": max(e for e, _ in errs), "rel": max(r for _, r in errs),
             "pair_ms": pair_med, "pair_split_ms": pair_ms}
 
 
 def soft_train(device, ref, calls: int, repeats: int):
     """Phase 13: make_train_step(impl="kernel", soft_object_ref=ref) at
-    TRAIN; one warm-up step, then timed steps. Returns (ms per step, the
-    trained scene, its optimizer, the target)."""
+    TRAIN, in the production configuration (the frozen static hints); one
+    warm-up step, then timed steps.
+    Returns (ms per step, the steps, the trained scene and its optimizer,
+    the target)."""
     cfg = RenderConfig(**TRAIN)
     scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
+    cfg = diff.with_frozen_hints(cfg, scene)
     target = torch.zeros((cfg.height, cfg.width, 3), device=device)
     step, init = diff.make_train_step(cfg, 1e-3, camera, impl="kernel", soft_object_ref=ref,
                                       edge_width=SOFT_EDGE)
@@ -1087,11 +1269,84 @@ def soft_train(device, ref, calls: int, repeats: int):
     vec = params.pack(state[0], camera).detach()
     assert np.isfinite(vec.cpu().numpy()).all() and not torch.equal(vec, start), \
         f"{ref}: the step did not move the scene"
+    held = params.freeze_mask(cfg, scene).to(device) == 0
+    n = held.numel()
+    assert torch.equal(vec[:n][held], start[:n][held]), f"{ref}: a frozen slot moved"
     rays = cfg.width * cfg.height * cfg.samples
     med = statistics.median(ms)
-    print(f"soft train step {ref}: ms={ms} median={med} grad_mrays_per_s={rays / med / 1e3} "
-          f"losses {out[0]} -> {out[-1]}", flush=True)
+    print(f"soft train step {ref} frozen hints: ms={ms} "
+          f"median={med} grad_mrays_per_s={rays / med / 1e3} losses {out[0]} -> {out[-1]}",
+          flush=True)
     return ms, len(losses), state, target
+
+
+SOFT_TURNS, SOFT_TURN_STEPS = 6, 5
+
+
+def soft_step_turns(device, ref) -> dict:
+    """Phase 13: the sphere soft step at TRAIN in the production
+    configuration (the frozen static hints) and unhinted, in turns (hinted,
+    unhinted, then unhinted, hinted, ...), SOFT_TURN_STEPS steps a turn
+    after one warm-up turn each. Each step starts with the card idle and
+    is read on the host clock twice: when the call returns (``host_ms``,
+    the host's part: the step issues its launches without waiting for the
+    card) and when the card has finished (``wall_ms``). They run after the
+    main path's counts are read. Returns {"hinted" | "unhinted":
+    {"host_ms": [...], "wall_ms": [...]}}."""
+    runs = {}
+    for name in ("hinted", "unhinted"):
+        scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
+        cfg = RenderConfig(**TRAIN)
+        if name == "hinted":
+            cfg = diff.with_frozen_hints(cfg, scene)
+        step, init = diff.make_train_step(cfg, 1e-3, camera, impl="kernel", soft_object_ref=ref,
+                                          edge_width=SOFT_EDGE)
+        runs[name] = (step, list(init(scene)), torch.zeros((cfg.height, cfg.width, 3),
+                                                           device=device))
+    out = {name: {"host_ms": [], "wall_ms": []} for name in runs}
+    order = [("hinted", "unhinted") if t % 2 == 0 else ("unhinted", "hinted")
+             for t in range(SOFT_TURNS)]
+    for k, name in enumerate(["hinted", "unhinted"] + [n for turn in order for n in turn]):
+        step, state, target = runs[name]
+        for i in range(SOFT_TURN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state[0], state[1], _, _ = step(state[0], state[1], i + 1, target)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if k >= 2:  # after the warm-up turns
+                out[name]["host_ms"].append((t1 - t0) * 1e3)
+                out[name]["wall_ms"].append((t2 - t0) * 1e3)
+    return out
+
+
+def contract_host_ms(device, reps: int = 200) -> float:
+    """Phase 13: the host work the freeze_hints contract adds to one sphere
+    soft step on the kernel route, the calls the unhinted step does not
+    make, timed alone on the host clock (median of ``reps``): the hints
+    derived where the cfg has none (soft_image_loss_kernel and K6's
+    wrapper), the frozen leaves stopped for the coverage, the packed mask
+    looked up, and K6's hints descriptor built."""
+    scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
+    cfg = diff.with_frozen_hints(RenderConfig(**TRAIN), scene)
+    leaves = params.map_leaves(lambda t: t.detach().clone().requires_grad_(True), scene)
+    lay = params.layout(scene, camera)
+
+    def once():
+        gradkernel._auto_hints(leaves, cfg)
+        diff.stop_frozen(leaves, cfg)
+        gradkernel._auto_hints(leaves, cfg)
+        params.freeze_mask(cfg, leaves, lay.size, device)
+        megakernel.hint_table(cfg, lay)
+
+    once()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        once()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def soft_step_split(device, state, target):
@@ -1099,9 +1354,10 @@ def soft_step_split(device, state, target):
     K6, the coverage's forward and backward, and Adam. It runs after the
     main path's counts are read: its launches are timing runs. Returns a
     dict of ms lists."""
-    cfg = RenderConfig(**TRAIN)
     camera = camera_for(("yxz",), device)
     scene, opt = state
+    cfg = diff.with_frozen_hints(RenderConfig(**TRAIN), scene)
+    keep = params.freeze_mask(cfg, scene, params.layout(scene, camera).size, device)
     ref = SOFT_REFS["room_with_sphere"]
     packed, lay, zero_map, alpha, target = soft_inputs(scene, camera, cfg, ref, SOFT_EDGE, target)
 
@@ -1113,7 +1369,7 @@ def soft_step_split(device, state, target):
 
     return {
         "k6": cuda_ms(lambda: gradkernel.launch_soft_loss_grad(packed, lay, cfg, 1, target, alpha,
-                                                               zero_map),
+                                                               zero_map, keep=keep),
                       calls=TRAIN_CALLS, repeats=TRAIN_REPEATS),
         "coverage_fwd_bwd": cuda_ms(coverage, calls=TRAIN_CALLS, repeats=TRAIN_REPEATS),
         "adam": cuda_ms(opt.step, calls=TRAIN_CALLS, repeats=TRAIN_REPEATS),
@@ -1121,13 +1377,15 @@ def soft_step_split(device, state, target):
 
 
 def run_inverse_render_position() -> int:
-    """Phase 13: the entry point of the soft path on the card. Returns its
-    steps."""
+    """Phase 13: the entry point of the soft path on the card, in the
+    production configuration (--freeze-hints). Returns its steps."""
     args = inverse_render.parse_args(["--param", "position"])
-    before = gradkernel.SOFT_LAUNCHES
-    rc = inverse_render.main(["--param", "position", "--impl", "kernel", "--device", "cuda"])
+    before = gradkernel.SOFT_LAUNCHES, gradkernel.HINTED_SOFT_LAUNCHES
+    rc = inverse_render.main(["--param", "position", "--impl", "kernel", "--device", "cuda",
+                              "--freeze-hints"])
     assert rc == 0, "inverse_render --param position: x not recovered"
-    assert gradkernel.SOFT_LAUNCHES - before == args.steps, "one K6 launch per step"
+    assert gradkernel.SOFT_LAUNCHES - before[0] == args.steps, "one K6 launch per step"
+    assert gradkernel.HINTED_SOFT_LAUNCHES - before[1] == args.steps, "K6 ran no hints"
     return args.steps
 
 
@@ -1144,7 +1402,8 @@ def bound(flops: float, nbytes: float) -> dict:
 def kernel_bounds(device) -> dict:
     """Each kernel's bound at the shape its summary time was taken: K1 at
     the headline 4-frame launch (hinted, and unhinted beside it), K4, K5
-    (one row), K6 and K8 at TRAIN. The
+    (one row), K6 and K8 at TRAIN under the frozen hints (unhinted beside
+    K4-K6). The
     flops are its plain version's over the first BOUND_ROWS rows (K4, K5
     and K6: forward and autograd backward), counted here and scaled to the
     image's rows; the plain versions are dense, so masked lanes count, but
@@ -1167,23 +1426,35 @@ def kernel_bounds(device) -> dict:
                                    slice(0, BOUND_ROWS))
     f1_unhinted = count_flops(renderer.render_light, scene, camera, head, frames,
                               slice(0, BOUND_ROWS))[1]
-    f4 = count_flops(gradkernel.loss_and_grad_plain, packed, scene, camera, cfg, [1], block,
-                     rows=rows)[1]
-    f5 = count_flops(gradkernel.render_light_vjp_plain, packed, scene, camera, cfg, 1, block,
-                     rows=rows)[1]
-    f6 = count_flops(gradkernel.render_soft_loss_and_grad_plain, packed, scene, camera, cfg, 1,
-                     block, alpha, zero_map, rows=rows)[1]
+    # K4-K6 and K8 count the flops of their plain versions in the
+    # production configuration, the frozen static hints (the hinted fold's
+    # work), the unhinted count beside each.
+    hcfg = diff.with_frozen_hints(cfg, scene)
+
+    def grad_flops(c):
+        return (count_flops(gradkernel.loss_and_grad_plain, packed, scene, camera, c, [1], block,
+                            rows=rows)[1],
+                count_flops(gradkernel.render_light_vjp_plain, packed, scene, camera, c, 1, block,
+                            rows=rows)[1],
+                count_flops(gradkernel.render_soft_loss_and_grad_plain, packed, scene, camera, c,
+                            1, block, alpha, zero_map, rows=rows)[1])
+
+    f4, f5, f6 = grad_flops(hcfg)
     rays = pixels * cfg.samples
+    grad_bytes = {"k4": 4 * (p + 1 + pixels * 3 + p + 1), "k5": 4 * (p + pixels * 3 + p),
+                  "k6": 4 * (p + pixels * 3 + pixels + p + 1 + pixels)}
     out = {
         "k1": bound(f1 * scale, 4 * (p + FRAMES_PER_LAUNCH + FRAMES_PER_LAUNCH * pixels * 3)),
-        "k4": bound(f4 * scale, 4 * (p + 1 + pixels * 3 + p + 1)),
-        "k5": bound(f5 * scale, 4 * (p + pixels * 3 + p)),
-        "k6": bound(f6 * scale, 4 * (p + pixels * 3 + pixels + p + 1 + pixels)),
+        "k4": bound(f4 * scale, grad_bytes["k4"]),
+        "k5": bound(f5 * scale, grad_bytes["k5"]),
+        "k6": bound(f6 * scale, grad_bytes["k6"]),
     }
+    for k, f in zip(("k4", "k5", "k6"), grad_flops(cfg)):
+        out[k]["unhinted"] = bound(f * scale, grad_bytes[k])
     # K8 (each mode, one frame): the params, the target (loss and vjp) and
     # the value.
-    out["k8"] = {mode: bound(count_flops(ablate.variant_plain, mode, scene, camera, cfg, 1, block,
-                                         rows)[1] * scale,
+    out["k8"] = {mode: bound(count_flops(ablate.variant_plain, mode, scene, camera, hcfg, 1,
+                                         block, rows)[1] * scale,
                              4 * (p + 1 + (0 if mode == "acc" else pixels * 3)))
                  for mode in ablate.MODES}
     # K1's bound counts the hinted plain version's flops, the production
@@ -1223,9 +1494,10 @@ def rows_of(x: torch.Tensor, block) -> torch.Tensor:
 def check_row_shards(device) -> dict:
     """Phase 14: every kernel's row blocks against its single launch, each
     block of PLAIN_SPLIT against its plain version on the same rows, and
-    their times. Returns the largest errors of the block sums against the
-    single launch (``sum_errs``) and of the blocks against their plain
-    versions (``block_errs``), and the times."""
+    their times; the gradient kernels' under the freeze_hints contract.
+    Returns the largest errors of the block sums against the single launch
+    (``sum_errs``) and of the blocks against their plain versions
+    (``block_errs``), and the times."""
     room = library.room_with_sphere(device)
     ref = SOFT_REFS["room_with_sphere"]
     sum_errs = {"k1": 0.0, "k4": 0.0, "k5": 0.0, "k6": 0.0}
@@ -1297,7 +1569,10 @@ def check_row_shards(device) -> dict:
         megakernel.launch_forward(packed, lay, cfg, words)), lambda b: megakernel.launch_forward(
         packed, lay, cfg, words, b), cfg.height)
 
-    cfg, camera = RenderConfig(**TRAIN), camera_for(("yxz",), device)
+    # The gradient kernels' blocks in the production configuration, the
+    # frozen static hints: every block and the single launch hinted.
+    camera = camera_for(("yxz",), device)
+    cfg, keep, _ = frozen_setup(room, camera, RenderConfig(**TRAIN))
     packed, lay = params.pack(room, camera), params.layout(room, camera)
     rng = np.random.default_rng(9)
     target = torch.from_numpy(rng.uniform(0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)
@@ -1305,11 +1580,11 @@ def check_row_shards(device) -> dict:
     for frames in TRAIN_FRAMES:
         seeds = list(range(1, frames + 1))
         words = megakernel.seed_tensor(seeds, device)
-        whole = gradkernel.launch_loss_grad(packed, lay, cfg, words, target)
+        whole = gradkernel.launch_loss_grad(packed, lay, cfg, words, target, keep=keep)
         for n in SHARDS:
             blocks = shard_blocks(cfg.height, n)
-            parts = [gradkernel.launch_loss_grad(packed, lay, cfg, words, rows_of(target, b), b)
-                     for b in blocks]
+            parts = [gradkernel.launch_loss_grad(packed, lay, cfg, words, rows_of(target, b), b,
+                                                 keep=keep) for b in blocks]
             summed = (sum(p[0] for p in parts), sum(p[1] for p in parts))
             sum_errs["k4"] = max(sum_errs["k4"], compare_grad(
                 f"{n} row blocks summed, 1280x720x8spp x4 F={frames}", summed, whole)[0])
@@ -1322,16 +1597,16 @@ def check_row_shards(device) -> dict:
                                                          rows_of(target, b), BAND_ROWS, b))[0])
         if frames == 1:
             ms["k4"] = time_shards("K4 1 frame 1280x720", lambda: gradkernel.launch_loss_grad(
-                packed, lay, cfg, words, target), lambda b: gradkernel.launch_loss_grad(
-                packed, lay, cfg, words, rows_of(target, b), b), cfg.height)
+                packed, lay, cfg, words, target, keep=keep), lambda b: gradkernel.launch_loss_grad(
+                packed, lay, cfg, words, rows_of(target, b), b, keep=keep), cfg.height)
 
     pair = params.stack_rows((room, diff.zero_object(room, ref)), camera)
     cot = torch.from_numpy(rng.normal(0, 1, (2, cfg.height, cfg.width, 3)).astype(np.float32)
                            ).to(device)
-    whole = gradkernel.launch_light_vjp(pair, lay, cfg, 1, cot)
+    whole = gradkernel.launch_light_vjp(pair, lay, cfg, 1, cot, keep=keep)
     for n in SHARDS:
         blocks = shard_blocks(cfg.height, n)
-        parts = [gradkernel.launch_light_vjp(pair, lay, cfg, 1, rows_of(cot, b), b)
+        parts = [gradkernel.launch_light_vjp(pair, lay, cfg, 1, rows_of(cot, b), b, keep=keep)
                  for b in blocks]
         sum_errs["k5"] = max(sum_errs["k5"], compare_vec(
             f"K5 two rows, {n} row blocks summed, 1280x720x8spp x4", sum(parts), whole)[0])
@@ -1342,8 +1617,8 @@ def check_row_shards(device) -> dict:
                     gradkernel.render_light_vjp_plain(pair, room, camera, cfg, 1,
                                                       rows_of(cot, b), b))[0])
     ms["k5"] = time_shards("K5 two rows 1280x720", lambda: gradkernel.launch_light_vjp(
-        pair, lay, cfg, 1, cot), lambda b: gradkernel.launch_light_vjp(
-        pair, lay, cfg, 1, rows_of(cot, b), b), cfg.height)
+        pair, lay, cfg, 1, cot, keep=keep), lambda b: gradkernel.launch_light_vjp(
+        pair, lay, cfg, 1, rows_of(cot, b), b, keep=keep), cfg.height)
 
     packed, lay, zero_map, alpha, target = soft_inputs(room, camera, cfg, ref, SOFT_EDGE, target)
 
@@ -1352,9 +1627,10 @@ def check_row_shards(device) -> dict:
 
     def k6_block(b):
         return gradkernel.launch_soft_loss_grad(packed, lay, cfg, 1, rows_of(target, b),
-                                                alpha_of(b), zero_map, b)
+                                                alpha_of(b), zero_map, b, keep=keep)
 
-    whole = gradkernel.launch_soft_loss_grad(packed, lay, cfg, 1, target, alpha, zero_map)
+    whole = gradkernel.launch_soft_loss_grad(packed, lay, cfg, 1, target, alpha, zero_map,
+                                             keep=keep)
     for n in SHARDS:
         blocks = shard_blocks(cfg.height, n)
         parts = [k6_block(b) for b in blocks]
@@ -1372,14 +1648,15 @@ def check_row_shards(device) -> dict:
                         packed, room, camera, cfg, 1, rows_of(target, b), alpha_of(b), zero_map,
                         BAND_ROWS, b), block=True)[0])
     ms["k6"] = time_shards("K6 1280x720", lambda: gradkernel.launch_soft_loss_grad(
-        packed, lay, cfg, 1, target, alpha, zero_map), k6_block, cfg.height)
+        packed, lay, cfg, 1, target, alpha, zero_map, keep=keep), k6_block, cfg.height)
     return {"sum_errs": sum_errs, "block_errs": block_errs, "ms": ms}
 
 
 def run_distributed(card: str) -> dict:
     """Phase 15: multihost_run on RANKS ranks at TRAIN, 3 steps, against
-    the single process; checks the launches of every rank. Returns the
-    runner's summary."""
+    the single process, the gradient items in the production configuration
+    (the frozen static hints); checks the launches of every rank. Returns
+    the runner's summary."""
     backend = "nccl" if torch.cuda.device_count() >= RANKS else "gloo"
     work = multihost_run.Work(width=TRAIN["width"], height=TRAIN["height"],
                               samples=TRAIN["samples"], bounces=TRAIN["reflections_amount"],
@@ -1396,15 +1673,17 @@ def run_distributed(card: str) -> dict:
     steps = work.steps
     for rank, launches in enumerate(summary["launches_per_rank"]):
         expect = {"image": {"k1": 1, "k1_shard": 1},
-                  "kernel_hard": {"k4": steps, "k4_shard": steps},
-                  "kernel_soft": {"k6": steps, "k6_shard": steps},
-                  "pair": {"k1": 1, "k1_shard": 1, "k2": 1, "k5": 1, "k5_shard": 1}}
+                  "kernel_hard": {"k4": steps, "k4_shard": steps, "k4_hinted": steps},
+                  "kernel_soft": {"k6": steps, "k6_shard": steps, "k6_hinted": steps},
+                  "pair": {"k1": 1, "k1_shard": 1, "k2": 1, "k5": 1, "k5_shard": 1,
+                           "k5_hinted": 1}}
         for item, want in expect.items():
             assert launches[item] == want, (rank, item, launches[item], want)
         ir = launches["inverse_render"]
-        assert ir.get("k4") == ir.get("k4_shard") == 60 and ir.get("k1") == 1, (rank, ir)
-    print(f"phase 15 backend={backend}: every rank made one K4 (K6) launch per step on its "
-          f"rows; step ms per rank {summary['step_ms_per_rank']}, single process "
+        assert (ir.get("k4") == ir.get("k4_shard") == ir.get("k4_hinted") == 60
+                and ir.get("k1") == 1), (rank, ir)
+    print(f"phase 15 backend={backend}: every rank made one hinted K4 (K6) launch per step on "
+          f"its rows; step ms per rank {summary['step_ms_per_rank']}, single process "
           f"{summary['single_step_ms']}", flush=True)
     return summary
 
@@ -1467,7 +1746,7 @@ def measure_counts() -> dict:
     """Launches since the last reset_counts of every kernel the
     measurement tools run."""
     return {**counts(), "k1_variant": megakernel.VARIANT_LAUNCHES, "k7": k7.LAUNCHES,
-            "k8": ablate.LAUNCHES}
+            "k8": ablate.LAUNCHES, "k8_hinted": ablate.HINTED_LAUNCHES}
 
 
 def check_ablate_kernel(device) -> dict:
@@ -1496,9 +1775,21 @@ def check_ablate_kernel(device) -> dict:
                 values[mode] = k
                 errs[mode] = [max(errs[mode][0], abs(k - p)), max(errs[mode][1], rel)]
             assert values["vjp"] == values["loss"], f"{label}: vjp changed the loss"
+            # Under the freeze_hints contract, as the JAX tool runs them:
+            # bitwise the unhinted variants, and so is K4's hinted loss.
+            hcfg, keep, _ = frozen_setup(scene, camera, cfg)
+            for mode in ablate.MODES:
+                h = ablate.launch_variant(mode, packed, lay, hcfg, seed, target)
+                check_contract(f"K8 {name} views={len(views)} {mode}", h.reshape(1),
+                               torch.tensor([values[mode]], device=device),
+                               torch.zeros(0, dtype=torch.bool, device=device))
+            hinted_k4 = gradkernel.launch_loss_grad(packed, lay, hcfg,
+                                                    megakernel.seed_tensor([seed], device),
+                                                    target, keep=keep)[0]
             k4 = float(gradkernel.launch_loss_grad(packed, lay, cfg,
                                                    megakernel.seed_tensor([seed], device),
                                                    target)[0])
+            assert float(hinted_k4) == k4, f"{label}: K4's hinted loss is not the unhinted one"
             scaled = float(np.float32(values["loss"])
                            * np.float32(1.0 / (lay.n_views * cfg.height * cfg.width * 3)))
             print(f"{label} loss * scale={scaled} K4 loss={k4} rel={abs(scaled - k4) / k4:.3g} "
@@ -1559,6 +1850,19 @@ def check_ablate_at_tool_shape(device, values: dict) -> dict:
     return {"errs": errs, "plain_ms": plain_ms}
 
 
+def time_ablate_unhinted(device) -> dict:
+    """Phase 17: each K8 mode at grad_ablate's shape, inputs and seeds
+    without the hints, beside the tool's hinted times: ms per launch by
+    mode (timing runs, after the tool's counts are read)."""
+    scene, camera, hcfg, target = grad_ablate.workload(device)
+    cfg = replace(hcfg, freeze_hints=False, plane_hints=None, plane_pairs=None, axis_hints=None)
+    packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+    seeds = iter(range(2, 1000))
+    return {mode: statistics.median(cuda_ms(lambda m=mode: ablate.launch_variant(
+        m, packed, lay, cfg, next(seeds), target), calls=4, repeats=3))
+        for mode in ablate.MODES}
+
+
 def run_tools(device) -> dict:
     """Phase 17: the four attribution tools at 1280x720x8spp x4 bounces,
     each from zeroed counts, every tool's launches checked against the
@@ -1573,10 +1877,12 @@ def run_tools(device) -> dict:
         print(json.dumps({"tool": tool, "launches": got}), flush=True)
         assert got == want, (tool, got, want)
 
+    # The training tools run the frozen static hints, as the JAX tools do:
+    # every launch of K4-K6 and K8 hinted.
     reset_counts()
     res["grad_ablate"] = grad_ablate.run(device)
     n = 1 + 4 * 3  # its defaults: 4 calls x 3 rounds
-    ran("grad_ablate", {"k8": 3 * n, "k4": n})
+    ran("grad_ablate", {"k8": 3 * n, "k4": n, "k8_hinted": 3 * n, "k4_hinted": n})
 
     rounds, calls = TOOL_ROUNDS["train_ablate"]
     reset_counts()
@@ -1584,7 +1890,8 @@ def run_tools(device) -> dict:
     n = 1 + rounds * calls
     scan = (1 + rounds * max(1, calls // train_ablate.SCAN)) * train_ablate.SCAN
     # fwd: K1; pass1: K8; kernel, loss_grad, vg, step: K4; scan4: SCAN K4 a call
-    ran("train_ablate", {"k1": n, "k8": n, "k4": 4 * n + scan})
+    ran("train_ablate", {"k1": n, "k8": n, "k4": 4 * n + scan, "k8_hinted": n,
+                         "k4_hinted": 4 * n + scan})
 
     rounds, calls = TOOL_ROUNDS["soft_ablate"]
     reset_counts()
@@ -1592,7 +1899,8 @@ def run_tools(device) -> dict:
     n = 1 + rounds * calls
     # fwd_pair (+ the premade rows' launch), pair_vg and pair_soft: K2;
     # pair_vg and pair_soft: two-row K5; soft_full: K6; glue_only: none
-    ran("soft_ablate", {"k1": 3 * n + 1, "k2_rows": 3 * n + 1, "k5": 2 * n, "k6": n})
+    ran("soft_ablate", {"k1": 3 * n + 1, "k2_rows": 3 * n + 1, "k5": 2 * n, "k6": n,
+                        "k5_hinted": 2 * n, "k6_hinted": n})
 
     rounds, calls = TOOL_ROUNDS["fwd_ablate"]
     reset_counts()
@@ -1617,10 +1925,19 @@ def with_shares(entry: dict) -> dict:
     return entry
 
 
+# The folds of the gradient kernels' instances (csrc/gradkernel.cu), as
+# their mangled names spell them: without hints (ParamsFold, the key's
+# plain name), and under the freeze_hints contract the room's 4 wall pairs
+# (RoomFold, "_room": the production main path's) and any other pattern
+# (AnyFold, "_any").
+GRAD_FOLDS = {"": "NS_10ParamsFoldE", "_room": "NS_13GradTableFoldILi4ELi0EEE",
+              "_any": "NS_13GradTableFoldILin1ELin1EEE"}
+
+
 def grad_resources(log: str) -> dict:
     """Prints every kernel's registers, stack frame and spill stores from
     the build log; returns those of the gradient launches' kernels, keyed as
-    GRAD_KERNELS (a sweep's generic instance with the suffix "_generic")."""
+    grad_patterns. Fails if an instance K4 runs on a main path spills."""
     res = build.kernel_resources(log)
     for name, r in sorted(res.items()):
         if r:
@@ -1630,59 +1947,84 @@ def grad_resources(log: str) -> dict:
         hits = [r for n, r in res.items() if pattern in n]
         assert len(hits) == 1, (k, hits)
         out[k] = hits[0]
-    assert out["sweep"]["spill_bytes"] == out["loss_cot"]["spill_bytes"] == 0, \
-        f"K4's kernels spill: {out}"
+    k4_main = ("sweep", "loss_cot", "sweep_room", "loss_cot_room", "sweep_any")
+    assert all(out[k]["spill_bytes"] == 0 for k in k4_main), \
+        f"K4's kernels spill: {[(k, out[k]) for k in k4_main]}"
     return out
 
 
 def grad_patterns() -> dict:
-    """A part of the mangled name of each gradient launch kernel's instance,
-    keyed as GRAD_KERNELS: a sweep's main-path instance (MAIN_BOUNCES),
-    and its generic one with the suffix "_generic"."""
+    """A part of the mangled name of each gradient launch kernel's
+    instance: per kernel of GRAD_KERNELS and fold of GRAD_FOLDS, a sweep's
+    main-path instance (MAIN_BOUNCES; the key and the fold's suffix) and
+    its generic one (suffix "_generic"; RoomFold has none: other bounce
+    counts take AnyFold), and each pass-1 kernel's."""
     out = {}
     for key, name in GRAD_KERNELS.items():
         mangled = f"{len(name)}{name}"
-        out.update({key: f"{mangled}ILi{gradkernel.MAIN_BOUNCES}E",
-                    key + "_generic": f"{mangled}ILi{gradkernel.MAX_BOUNCES}E"}
-                   if key in SWEEPS else {key: f"{mangled}E"})
+        for suffix, fold in GRAD_FOLDS.items():
+            if key not in SWEEPS:
+                out[key + suffix] = f"{mangled}I{fold}"
+                continue
+            out[key + suffix] = f"{mangled}ILi{gradkernel.MAIN_BOUNCES}E{fold}"
+            if suffix != "_room":
+                out[key + suffix + "_generic"] = f"{mangled}ILi{gradkernel.MAX_BOUNCES}E{fold}"
     return out
 
 
 def resident_warps(lib_path: Path, device) -> dict:
     """Resident warps per SM of the gradient launches' kernels (their
-    main-path instances) at the training shape (room, one view):
-    build.resident_warps at each launch's block and shared memory. Prints
+    main-path instances, unhinted and hinted) at the training shape (room,
+    one view): build.resident_warps at each launch's block and shared
+    memory, the hinted instances' with the room's fold table. Prints
     them."""
     scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
     assert TRAIN["reflections_amount"] == gradkernel.MAIN_BOUNCES, TRAIN
-    shapes = gradkernel.launch_shapes(params.layout(scene, camera))
+    lay = params.layout(scene, camera)
+    shapes = {"": gradkernel.launch_shapes(lay),
+              "_hinted": gradkernel.launch_shapes(
+                  lay, diff.with_frozen_hints(RenderConfig(**TRAIN), scene))}
     patterns = {k: p for k, p in grad_patterns().items() if not k.endswith("_generic")}
-    warps = build.resident_warps(lib_path, {re.escape(p): shapes[GRAD_KERNELS[k]]
+
+    def shape_of(key):
+        base = next(k for k in GRAD_KERNELS if key == k or key.startswith(k + "_"))
+        return shapes["" if key == base else "_hinted"][GRAD_KERNELS[base]]
+
+    warps = build.resident_warps(lib_path, {re.escape(p): shape_of(k)
                                             for k, p in patterns.items()})
     out = {}
     for key, pattern in patterns.items():
         hits = [w for n, w in warps.items() if pattern in n]
         assert len(hits) == 1 and hits[0] > 0, (key, warps)
         out[key] = hits[0]
-    print(json.dumps({"resident_warps_per_sm_at_train_shape": out}), flush=True)
+    print(json.dumps({"resident_warps_per_sm_at_train_shape": out,
+                      "smem_bytes": {k: {n: v[1] for n, v in sh.items()}
+                                     for k, sh in shapes.items()}}), flush=True)
     return out
 
 
 def kernel_resources(key: str, resources: dict, warps: dict) -> dict:
     """A gradient launch's summary keys from the build and the occupancy
-    query: its main sweep's main-path instance's registers, stack and spill
-    bytes and resident warps per SM, its generic instance's resources, and
-    those of the launch's pass-1 kernel and other sweep."""
+    query: its main sweep's production instance's (RoomFold: the frozen
+    hints on the room at the main bounce count) registers, stack and spill
+    bytes and resident warps per SM; every instance of that sweep (the
+    unhinted ParamsFold ones, AnyFold's), and the production instances of
+    the launch's pass-1 kernel and other sweep."""
     sweep_key = MAIN_SWEEP[key]
-    sweep = resources[sweep_key]
+    sweep = resources[sweep_key + "_room"]
     out = {"kernels": [GRAD_KERNELS[k] for k in GRAD_LAUNCHES[key]],
+           "instance": "GradTableFold<4, 0> (the room's wall pairs, the frozen hints)",
            "registers": sweep["registers"], "stack_bytes": sweep["stack_bytes"],
-           "spill_bytes": sweep["spill_bytes"], "resident_warps_per_sm": warps[sweep_key],
-           "generic_instance": resources[sweep_key + "_generic"]}
+           "spill_bytes": sweep["spill_bytes"],
+           "resident_warps_per_sm": warps[sweep_key + "_room"],
+           "instances": {sweep_key + s: {**resources[sweep_key + s],
+                                         "resident_warps_per_sm": warps.get(sweep_key + s)}
+                         for s in ("", "_generic", "_room", "_any", "_any_generic")}}
     for kernel in (k for k in GRAD_LAUNCHES[key] if k != sweep_key):
         part = "other_sweep" if kernel in SWEEPS else "pass1"
-        out[part] = {"kernel": GRAD_KERNELS[kernel], **resources[kernel],
-                     "resident_warps_per_sm": warps[kernel]}
+        out[part] = {"kernel": GRAD_KERNELS[kernel], **resources[kernel + "_room"],
+                     "resident_warps_per_sm": warps[kernel + "_room"],
+                     "unhinted": {**resources[kernel], "resident_warps_per_sm": warps[kernel]}}
     return out
 
 
@@ -1759,21 +2101,39 @@ def main() -> int:
     run_inverse_render()
     launches["train"] = (megakernel.LAUNCHES, gradkernel.LAUNCHES)
     n_steps = (1 + TRAIN_CALLS * TRAIN_REPEATS) * len(TRAIN_FRAMES)
-    assert launches["train"] == (2, n_steps + 2 * 60), launches
+    n_runs = len(INVERSE_RUNS)
+    assert launches["train"] == (n_runs, n_steps + n_runs * 60), launches
+    launches["train_hinted"] = gradkernel.HINTED_LAUNCHES
+    assert launches["train_hinted"] == n_steps + sum(h for _, h in INVERSE_RUNS), launches
     assert counts()["k2_rows"] == counts()["k5"] == counts()["k6"] == 0, counts()
+    # The unhinted step beside the production one, at the same shape, in
+    # turns after the counted run: unhinted, then hinted again.
+    train_unhinted_ms = {f: train_main_path(device, f, frozen=False) for f in TRAIN_FRAMES}
+    train_turn_ms = {f: train_main_path(device, f) for f in TRAIN_FRAMES}
     train_rays = TRAIN["width"] * TRAIN["height"] * TRAIN["samples"]
     small_rays = TRAIN_SMALL["width"] * TRAIN_SMALL["height"] * TRAIN_SMALL["samples"]
     med_small, med_plain = statistics.median(k4["k4_small_ms"]), statistics.median(k4["plain_small_ms"])
-    k4_full_med = {f: statistics.median(k4["k4_full_ms"][f]) for f in TRAIN_FRAMES}
+    k4_full_med = {f: statistics.median(k4["k4_hinted_full_ms"][f]) for f in TRAIN_FRAMES}
+    k4_unhinted_med = {f: statistics.median(k4["k4_full_ms"][f]) for f in TRAIN_FRAMES}
     print(json.dumps({
         "cell": "room_with_sphere 1280x720 8spp 4 bounces, packed Adam train step",
         "card": card,
+        "config": "the production configuration: the frozen static hints "
+                  "(diff.with_frozen_hints)",
         "train_step_ms": {str(f): train_ms[f] for f in TRAIN_FRAMES},
         "train_step_ms_median": {str(f): statistics.median(train_ms[f]) for f in TRAIN_FRAMES},
         "train_grad_mrays_per_s": {str(f): train_rays * f / statistics.median(train_ms[f]) / 1e3
                                    for f in TRAIN_FRAMES},
-        "k4_ms_1280x720": {str(f): k4["k4_full_ms"][f] for f in TRAIN_FRAMES},
+        "unhinted_train_step_ms": {str(f): train_unhinted_ms[f] for f in TRAIN_FRAMES},
+        "unhinted_train_step_ms_median": {str(f): statistics.median(train_unhinted_ms[f])
+                                          for f in TRAIN_FRAMES},
+        "train_step_ms_after_unhinted": {str(f): train_turn_ms[f] for f in TRAIN_FRAMES},
+        "train_step_ms_after_unhinted_median": {str(f): statistics.median(train_turn_ms[f])
+                                                for f in TRAIN_FRAMES},
+        "k4_ms_1280x720": {str(f): k4["k4_hinted_full_ms"][f] for f in TRAIN_FRAMES},
         "k4_ms_1280x720_median": {str(f): k4_full_med[f] for f in TRAIN_FRAMES},
+        "unhinted_k4_ms_1280x720": {str(f): k4["k4_full_ms"][f] for f in TRAIN_FRAMES},
+        "unhinted_k4_ms_1280x720_median": {str(f): k4_unhinted_med[f] for f in TRAIN_FRAMES},
         "plain_banded_ms_1280x720": {str(f): k4["plain_full_ms"][f] for f in TRAIN_FRAMES},
         "plain_band_peak_gb_1280x720": k4["plain_band_peak_gb"][1],
         "k4_ms_256x144": k4["k4_small_ms"], "k4_ms_256x144_median": med_small,
@@ -1802,22 +2162,33 @@ def main() -> int:
     n_ir = run_inverse_render_position()
     launches["soft"] = counts()
     expect = {"k1": 2 * n_fallback + 1, "k2_rows": 0, "k4": 0, "k5": 2 * n_fallback,
-              "k6": n_soft + n_ir}
+              "k6": n_soft + n_ir, "k4_hinted": 0, "k5_hinted": 2 * n_fallback,
+              "k6_hinted": n_soft + n_ir}
     assert launches["soft"] == expect, (launches["soft"], expect)
     split = soft_step_split(device, soft_state, soft_target)
+    # The unhinted sphere step beside the production one, at the same
+    # shape, in turns after the counted run, with the host's part of each.
+    turns = soft_step_turns(device, SOFT_REFS["room_with_sphere"])
+    contract_ms = contract_host_ms(device)
     soft_med = statistics.median(soft_ms)
     split_med = {k: statistics.median(v) for k, v in split.items()}
     print(json.dumps({
         "cell": "room_with_sphere 1280x720 8spp 4 bounces, soft train step, sphere 0, zero "
-                "target, edge width 0.05, lr 1e-3, no hints",
+                "target, edge width 0.05, lr 1e-3, the frozen static hints",
         "card": card,
         "soft_step_ms": soft_ms, "soft_step_ms_median": soft_med,
+        "soft_step_turns": turns,
+        "soft_step_turns_median": {name: {k: statistics.median(v) for k, v in t.items()}
+                                   for name, t in turns.items()},
+        "contract_host_ms": contract_ms,
         "soft_grad_mrays_per_s": train_rays / soft_med / 1e3,
         "split_ms": split, "split_ms_median": split_med,
         "split_rest_ms": soft_med - sum(split_med.values()),
         "fallback_spaces0_step_ms": fallback_ms,
         "fallback_step_ms_median": statistics.median(fallback_ms),
         "k6_ms_1280x720": k6["ms"], "k6_ms_1280x720_median": statistics.median(k6["ms"]),
+        "unhinted_k6_ms_1280x720_median": statistics.median(k6["unhinted_ms"]),
+        "unhinted_k5_ms_1280x720_median": statistics.median(k5["unhinted_ms"]),
         "k6_plain_banded_ms_1280x720": k6["plain_ms"],
         "k6_plain_band_peak_gb": k6["plain_band_peak_gb"],
         "k5_ms_1280x720": k5["ms"], "k5_ms_1280x720_median": statistics.median(k5["ms"]),
@@ -1835,7 +2206,7 @@ def main() -> int:
     ranks = dist_summary["launches_per_rank"]
     launches["sharded"] = {key: sum(item.get(key, 0) for rank in ranks for item in rank.values())
                            for key in ("k1", "k1_shard", "k2", "k4", "k4_shard", "k5", "k5_shard",
-                                       "k6", "k6_shard")}
+                                       "k6", "k6_shard", "k4_hinted", "k5_hinted", "k6_hinted")}
     print(json.dumps({"sharded_path_launches_all_ranks": launches["sharded"]}), flush=True)
     sharded = launches["sharded"]
 
@@ -1868,16 +2239,27 @@ def main() -> int:
     max_err = max(max_err, variant_err)
     tools = run_tools(device)
     measure = {k: sum(t[k] for t in tools["launches"].values())
-               for k in ("k1", "k1_variant", "k4", "k5", "k6", "k8")}
+               for k in ("k1", "k1_variant", "k4", "k5", "k6", "k8", "k4_hinted", "k5_hinted",
+                         "k6_hinted", "k8_hinted")}
     k8_ms = tools["results"]["grad_ablate"]["ms"]
+    k8_unhinted_ms = time_ablate_unhinted(device)
     k8_tool = check_ablate_at_tool_shape(device, tools["results"]["grad_ablate"]["values"])
     for mode, (err, rel) in k8_tool["errs"].items():
         ablate_errs[mode] = [max(ablate_errs[mode][0], err), max(ablate_errs[mode][1], rel)]
     k8_plain_ms = k8_tool["plain_ms"]["vjp"]
     print(json.dumps({"phase": 17, "card": card, "k4_split_ms":
                       tools["results"]["grad_ablate"]["split_ms"], "k8_ms": k8_ms,
+                      "k8_unhinted_ms": k8_unhinted_ms,
                       "k8_plain_ms": k8_tool["plain_ms"], "measure_path_launches": measure}),
           flush=True)
+
+    def contract_of(kernel: str) -> dict:
+        """The freeze_hints contract checks of ``kernel`` (K4-K6, K8)."""
+        checks = [ok for label, ok in CONTRACT.items() if label.startswith(kernel + " ")]
+        assert checks and all(checks), (kernel, CONTRACT)
+        return {"checks": len(checks), "all_held": True,
+                "what": "the hinted launch against the unhinted one: the loss and alpha's "
+                        "cotangent bitwise, every kept slot bitwise, every frozen slot 0"}
 
     no_library = {"library_ms": None,
                   "library_note": "no single PyTorch call computes a path trace or its adjoint"}
@@ -1944,11 +2326,15 @@ def main() -> int:
         "max_grad_mixed_rel_err": grad_rel,
         "tolerance": GRAD_BOUNDS,
         "ms": k4_full_med[1],
+        "unhinted_ms": k4_unhinted_med[1],
         "plain_ms": k4["plain_full_ms"][1],
         **bounds["k4"], **no_library,
-        "shape": "room_with_sphere 1280x720 8spp 4 bounces, 1 frame, zero target "
-                 f"(plain version in {BAND_ROWS}-row bands)",
+        "shape": "room_with_sphere 1280x720 8spp 4 bounces, 1 frame, zero target, the frozen "
+                 f"static hints (plain version in {BAND_ROWS}-row bands)",
+        "hinted_launches": launches["train_hinted"] + sharded["k4_hinted"] + measure["k4_hinted"],
+        "contract": contract_of("K4"),
         "ms_4_frames": k4_full_med[4],
+        "unhinted_ms_4_frames": k4_unhinted_med[4],
         "plain_ms_4_frames": k4["plain_full_ms"][4],
         "ms_256x144": med_small,
         "plain_ms_256x144": med_plain,
@@ -1970,10 +2356,14 @@ def main() -> int:
         "max_grad_mixed_rel_err": vjp_rel,
         "tolerance": GRAD_BOUNDS,
         "ms": statistics.median(k5["ms"]),
+        "unhinted_ms": statistics.median(k5["unhinted_ms"]),
         "plain_ms": k5["plain_ms"],
         **bounds["k5"], **no_library,
-        "shape": "room_with_sphere 1280x720 8spp 4 bounces, 1 row, seeded random cotangent "
-                 "(plain version whole)",
+        "shape": "room_with_sphere 1280x720 8spp 4 bounces, 1 row, seeded random cotangent, "
+                 "the frozen static hints (plain version whole)",
+        "hinted_launches": (launches["soft"]["k5_hinted"] + sharded["k5_hinted"]
+                            + measure["k5_hinted"]),
+        "contract": contract_of("K5"),
         "build_s": build_s,
     }, {
         "name": "soft_loss_grad_kernel",
@@ -1992,12 +2382,16 @@ def main() -> int:
         "max_grad_mixed_rel_err": soft_rel,
         "tolerance": GRAD_BOUNDS,
         "ms": statistics.median(k6["ms"]),
+        "unhinted_ms": statistics.median(k6["unhinted_ms"]),
         "plain_ms": k6["plain_ms"],
+        "hinted_launches": (launches["soft"]["k6_hinted"] + sharded["k6_hinted"]
+                            + measure["k6_hinted"]),
+        "contract": contract_of("K6"),
         "pair_ms": k6["pair_ms"],
         "pair_note": "K2 over both rows + the two-row K5, the launches K6 fused, same shape",
         **bounds["k6"], **no_library,
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, sphere 0, zero target, edge "
-                 f"width 0.05 (plain version in {BAND_ROWS}-row bands)",
+                 f"width 0.05, the frozen static hints (plain version in {BAND_ROWS}-row bands)",
         "build_s": build_s,
     }, {
         "name": "fp32_peak_kernel",
@@ -2032,12 +2426,16 @@ def main() -> int:
         "tolerance": {"acc_rtol": ACC_RTOL, "loss_rtol": GRAD_BOUNDS["loss_rtol"]},
         "ms": k8_ms["vjp"],
         "ms_by_mode": {m: k8_ms[m] for m in ablate.MODES},
+        "unhinted_ms": k8_unhinted_ms["vjp"],
+        "unhinted_ms_by_mode": k8_unhinted_ms,
+        "hinted_launches": measure["k8_hinted"],
+        "contract": contract_of("K8"),
         "plain_ms": k8_plain_ms,
         **bounds["k8"]["vjp"],
         "bound_ms_by_mode": {m: bounds["k8"][m]["bound_ms"] for m in ablate.MODES},
         **no_library,
-        "shape": "room_with_sphere 1280x720 8spp 4 bounces, zero target, mode vjp (plain "
-                 "version whole)",
+        "shape": "room_with_sphere 1280x720 8spp 4 bounces, zero target, mode vjp, the frozen "
+                 "static hints, as grad_ablate runs it (plain version whole)",
         "build_s": build_s,
     }]}
     for entry in summary["kernels"]:

@@ -28,6 +28,11 @@
 //
 // What bounds them: pass 1's arithmetic, as K1's (acc is one K1 frame plus
 // a reduction of 4 bytes per pixel).
+//
+// With a hints descriptor the variants run K4's pass 1 under the
+// freeze_hints contract, as the JAX tool times them (with_frozen_hints,
+// grad_ablate.py:153-163): K4's pass-1 fold (reduce.cuh fold_kind: RoomFold
+// or AnyFold over K1's table, built by each block after the params).
 
 #include "reduce.cuh"
 
@@ -37,14 +42,16 @@ constexpr int kModeAcc = 0;
 constexpr int kModeLoss = 1;
 constexpr int kModeVjp = 2;
 
-template <int kMode>
+template <int kMode, class Fold>
 __global__ void __launch_bounds__(kGradBlock)
 ablate_kernel(const float* __restrict__ params, uint32_t seed, Layout L, int width, int height,
               int samples, int reflections, float small_indent, float light_coefficient,
-              const float* __restrict__ target, double* __restrict__ loss_parts, int n_cols) {
+              const float* __restrict__ target, double* __restrict__ loss_parts, int n_cols,
+              Hints H) {
   extern __shared__ float P[];
   for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = params[i];
   __syncthreads();
+  build_table_for<Fold>(P, L, H);
 
   const long long total = static_cast<long long>(L.n_views) * height * width;
   const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -55,8 +62,8 @@ ablate_kernel(const float* __restrict__ params, uint32_t seed, Layout L, int wid
     const int rem = static_cast<int>(lin - static_cast<long long>(view) * hw);
     const int py = rem / width;
     const int px = rem - py * width;
-    const Pixel p = setup_pixel(P, L, view, px, py, width, height, small_indent);
-    const V3 acc = pixel_light_sum(P, L, p, samples, reflections, small_indent, seed);
+    const Pixel p = setup_pixel<Fold>(P, L, view, px, py, width, height, small_indent);
+    const V3 acc = pixel_light_sum<Fold>(P, L, p, samples, reflections, small_indent, seed);
     if constexpr (kMode == kModeAcc) {
       value = acc.x + acc.y + acc.z;
     } else {
@@ -71,13 +78,15 @@ ablate_kernel(const float* __restrict__ params, uint32_t seed, Layout L, int wid
   reduce_block(nullptr, 0, value, nullptr, loss_parts, n_cols, blockIdx.x);
 }
 
-template <int kMode>
-void launch(const float* params, uint32_t seed, const Layout& L, int width, int height,
-            int samples, int reflections, float small_indent, float light_coefficient,
-            const float* target, double* loss_parts, int n_cols, size_t smem, cudaStream_t s) {
-  ablate_kernel<kMode><<<n_cols, kGradBlock, smem, s>>>(params, seed, L, width, height, samples,
-                                                    reflections, small_indent, light_coefficient,
-                                                    target, loss_parts, n_cols);
+template <int kMode, class Fold>
+void launch_fold(const float* params, uint32_t seed, const Layout& L, const Hints& H, int width,
+                 int height, int samples, int reflections, float small_indent,
+                 float light_coefficient, const float* target, double* loss_parts, int n_cols,
+                 cudaStream_t s) {
+  const size_t smem = params_table_bytes(L.size, table_recs_for<Fold>(L, H));
+  ablate_kernel<kMode, Fold><<<n_cols, kGradBlock, smem, s>>>(
+      params, seed, L, width, height, samples, reflections, small_indent, light_coefficient,
+      target, loss_parts, n_cols, H);
 }
 
 }  // namespace
@@ -85,8 +94,11 @@ void launch(const float* params, uint32_t seed, const Layout& L, int width, int 
 // K8 on ``stream``: value_out () float32, the unscaled sum over the image's
 // pixels of the variant's per-pixel value (mode 0 acc, 1 loss, 2 vjp), from
 // params (P,) float32, one seed and the target (V, H, W, 3) float32 (not
-// read by mode 0). The arguments keep fourd_loss_grad_launch's order, less
-// what the variants do not take (frames, row offset, scale, gradients).
+// read by mode 0), with the static hints of the host int[kHintInts]
+// descriptor ``hints`` (null: none; reduce.cuh fold_kind picks the fold
+// and refuses a descriptor as K4's launch does).
+// The arguments keep fourd_loss_grad_launch's order, less what the
+// variants do not take (frames, row offset, scale, gradients, the mask).
 // loss_parts (n_cols,) float64 is scratch of the caller's, n_cols as
 // fourd_grad_scratch_cols(layout, width, height, 1) gives it (one column
 // per block). Returns cudaGetLastError() after each launch.
@@ -94,35 +106,42 @@ extern "C" int fourd_ablate_launch(int mode, const float* params, uint32_t seed,
                                    int width, int height, int samples, int reflections,
                                    float small_indent, float light_coefficient,
                                    const float* target, double* loss_parts, float* value_out,
-                                   void* stream) {
+                                   const int* hints, void* stream) {
   const Layout L = layout_from(layout);
   const long long blocks = pixel_blocks(L, width, height);
   const int n_cols = static_cast<int>(blocks);
-  const size_t smem = static_cast<size_t>(L.size) * sizeof(float);
   if (blocks <= 0 || blocks > 0x7FFFFFFFLL || samples <= 0 || reflections < 0 || L.size <= 0 ||
       L.size > kMaxParams) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  Hints H;
+  const FoldKind kind = fold_kind(L, hints, reflections, H);
+  if (mode < kModeAcc || mode > kModeVjp) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kModeAcc:
-      launch<kModeAcc>(params, seed, L, width, height, samples, reflections, small_indent,
-                       light_coefficient, target, loss_parts, n_cols, smem, s);
-      break;
-    case kModeLoss:
-      launch<kModeLoss>(params, seed, L, width, height, samples, reflections, small_indent,
-                        light_coefficient, target, loss_parts, n_cols, smem, s);
-      break;
-    case kModeVjp:
-      launch<kModeVjp>(params, seed, L, width, height, samples, reflections, small_indent,
-                       light_coefficient, target, loss_parts, n_cols, smem, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int rc = with_fold(kind, [&](auto fold) {
+    using Fold = decltype(fold);
+    switch (mode) {
+      case kModeAcc:
+        launch_fold<kModeAcc, Fold>(params, seed, L, H, width, height, samples, reflections,
+                                    small_indent, light_coefficient, target, loss_parts, n_cols,
+                                    s);
+        break;
+      case kModeLoss:
+        launch_fold<kModeLoss, Fold>(params, seed, L, H, width, height, samples, reflections,
+                                     small_indent, light_coefficient, target, loss_parts, n_cols,
+                                     s);
+        break;
+      default:
+        launch_fold<kModeVjp, Fold>(params, seed, L, H, width, height, samples, reflections,
+                                    small_indent, light_coefficient, target, loss_parts, n_cols,
+                                    s);
+    }
+    return 0;
+  });
+  if (rc != 0) return rc;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   sum_parts_kernel<<<1, kSumThreads, 0, s>>>(nullptr, loss_parts, 0, n_cols, 1.0f, nullptr,
-                                             value_out);
+                                             value_out, nullptr, 1);
   return static_cast<int>(cudaGetLastError());
 }

@@ -306,9 +306,10 @@ struct Bounce {
 };
 
 // Re-trace sample ``s`` (trace.cuh trace_sample's rays and draws, without
-// the light) while recording bounces 1..R into rec[0..n); returns n, and
-// bounce 0's scatter outcome in mirror0 / v0. R = reflections.
-template <int kB>
+// the light, with the fold Fold) while recording bounces 1..R into
+// rec[0..n); returns n, and bounce 0's scatter outcome in mirror0 / v0.
+// R = reflections.
+template <int kB, class Fold = ParamsFold>
 __device__ int record_sample(const float* P, const Layout& L, const Pixel& p, int s, uint32_t seed,
                              int R, float small_indent, Bounce (&rec)[kB], bool& mirror0,
                              V4& v0) {
@@ -325,7 +326,7 @@ __device__ int record_sample(const float* P, const Layout& L, const Pixel& p, in
 #pragma unroll (kB == kMaxBounces ? 1 : kB)  // rolled: the generic instance
   for (int i = 0; i < kB; ++i) {
     if (i >= R || !alive) break;
-    const Hit h = intersect(P, L, o, d);
+    const Hit h = fold(Fold{}, P, L, o, d);
     Bounce& r = rec[i];
     r.o = o;
     r.d = d;
@@ -442,11 +443,12 @@ __device__ void bounce_adj(const float* P, const Layout& L, const Pixel& p,
 
 // Pass 1: the pixel's light summed over its samples, bitwise the forward
 // kernel's sum.
+template <class Fold = ParamsFold>
 __device__ V3 pixel_light_sum(const float* P, const Layout& L, const Pixel& p, int samples,
                               int reflections, float small_indent, uint32_t seed) {
   V3 acc = {0.0f, 0.0f, 0.0f};
   for (int s = 0; s < samples; ++s) {
-    acc = add3(acc, trace_sample(P, L, p, s, seed, reflections, small_indent));
+    acc = add3(acc, trace_sample<kStubNone, Fold>(P, L, p, s, seed, reflections, small_indent));
   }
   return acc;
 }
@@ -463,14 +465,15 @@ struct Bounce0Cot {
 // sweep its records in reverse with light cotangent g_light: the parameter
 // cotangents go to acc, those of bounce 0's outputs are added to b0.
 // Returns whether the recorded path hit primitive ``obj`` (never, for -1).
-template <int kB, class Acc>
+template <int kB, class Fold, class Acc>
 __device__ bool sample_sweep(const float* P, const Layout& L, const Pixel& p, int s,
                              uint32_t seed, int R, float small_indent, int obj, V3 g_light,
                              V3 g_shared, Acc& acc, Bounce0Cot& b0) {
   Bounce rec[kB];
   bool mirror0 = false;
   V4 v0 = {0.0f, 0.0f, 0.0f, 0.0f};
-  const int n_rec = record_sample<kB>(P, L, p, s, seed, R, small_indent, rec, mirror0, v0);
+  const int n_rec =
+      record_sample<kB, Fold>(P, L, p, s, seed, R, small_indent, rec, mirror0, v0);
   bool hits = false;
 #pragma unroll (kB == kMaxBounces ? 1 : kB)
   for (int i = 0; i < kB; ++i) hits = hits || (i < n_rec && rec[i].hit && rec[i].idx == obj);
@@ -548,7 +551,10 @@ __device__ void bounce0_sweep(const float* P, const Layout& L, const Pixel& p, i
 // pixel's sample lights, each with cotangent g_light (the cotangent of the
 // light summed over samples), and of bounce 0's light, which every sample's
 // light starts from. kB is kMainBounces, with reflections equal to it, or
-// kMaxBounces for any count up to it.
+// kMaxBounces for any count up to it. Fold is the fold of the re-trace,
+// pass 1's (the Pixel's bounce 0 comes from setup_pixel<Fold>), so the
+// recorded hits and distances are bitwise pass 1's; the reverse reads the
+// packed params alone (hit_adj, resolve_hit), whichever fold found the hit.
 //
 // K6 sweeps its two rows with it. The rows of a pixel whose bounce 0
 // misses primitive obj, which row b never hits (zero_map_object), trace
@@ -559,7 +565,7 @@ __device__ void bounce0_sweep(const float* P, const Layout& L, const Pixel& p, i
 // obj. Row b (Pb, obj -1) then sweeps those samples ``only``, and not
 // bounce 0's light, which row a carried; or, where bounce 0 hits obj or
 // obj is -1, all of its samples and bounce 0.
-template <int kB, class Acc>
+template <int kB, class Fold = ParamsFold, class Acc>
 __device__ unsigned pixel_sweep(const float* P, const Layout& L, const Pixel& p, int view,
                                 int samples, int reflections, float small_indent, uint32_t seed,
                                 V3 g_light, Acc& acc, unsigned only = 0u, int obj = -1,
@@ -576,7 +582,8 @@ __device__ unsigned pixel_sweep(const float* P, const Layout& L, const Pixel& p,
         s = __ffs(static_cast<int>(left)) - 1;
         left &= left - 1;
       }
-      if (sample_sweep<kB>(P, L, p, s, seed, R, small_indent, obj, g_light, g_shared, acc, b0)) {
+      if (sample_sweep<kB, Fold>(P, L, p, s, seed, R, small_indent, obj, g_light, g_shared, acc,
+                                 b0)) {
         hit_obj |= 1u << s;
       }
     }

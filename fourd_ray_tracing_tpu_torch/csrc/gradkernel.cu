@@ -73,8 +73,25 @@
 // 48 KB a launch opts in to more shared memory). Pass 1 runs apart: fused
 // into the sweep it ran at the sweep's occupancy and cost 1.5-2.2 ms more
 // than its own kernel's 1.0 at the bench shape (PERF.md).
+//
+// Under the freeze_hints contract (diff.with_frozen_hints) a launch takes
+// the forward's static hints (a trace.cuh Hints descriptor): every kernel
+// of it folds over K1's fold table, which each block builds from its own
+// params row after them in shared memory (K6's row b from the row with the
+// zero map applied), so pass 1's light is K1's hinted light and the
+// sweep's re-trace finds pass 1's hits and distances bitwise
+// (trace.cuh GradTableFold: intersect_table, the winner numbered as
+// intersect numbers it). The reverse partials stay those of the unhinted
+// fold over the packed params: the hinted fold finds the same hits, and
+// the contract defines the hyperplane normals' gradients zero, which
+// sum_parts_kernel writes from the packed mask (keep) after the fixed-order
+// sums. The instances: the room's 4 wall pairs on axes x, y, z, w
+// (RoomFold, at the main bounce count), any other hint pattern (AnyFold,
+// e.g. sphere_plane_light's single plane, or a room whose dropped wall
+// turned its pairs off), and without hints the unhinted ParamsFold ones.
 
 #include <cstddef>
+#include <type_traits>
 
 #include "reduce.cuh"
 
@@ -83,23 +100,25 @@ namespace {
 // K4's pass 1. Grid (blocks, frames): block (x, f) writes the cotangent of
 // its pixels' mean light of frame f (g_mean, (F, V, n_rows, W, 3)) and
 // column f * gridDim.x + x of loss_parts.
+template <class Fold>
 __global__ void __launch_bounds__(kGradBlock)
 loss_cot_kernel(const float* __restrict__ params, const uint32_t* __restrict__ seeds, Layout L,
                 int width, int height, int row0, int n_rows, int samples, int reflections,
                 float small_indent, float light_coefficient, const float* __restrict__ target,
-                float* __restrict__ g_mean, double* __restrict__ loss_parts) {
+                float* __restrict__ g_mean, double* __restrict__ loss_parts, Hints H) {
   extern __shared__ float P[];
   for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = params[i];
   __syncthreads();
+  build_table_for<Fold>(P, L, H);
 
   const long long total = static_cast<long long>(L.n_views) * n_rows * width;
   const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   float loss = 0.0f;
   if (lin < total) {  // no early return: every thread joins the reduction
     const PixelIndex px = pixel_index(lin, width, row0, n_rows);
-    const Pixel p = setup_pixel(P, L, px.view, px.px, px.py, width, height, small_indent);
+    const Pixel p = setup_pixel<Fold>(P, L, px.view, px.px, px.py, width, height, small_indent);
     const V3 sum =
-        pixel_light_sum(P, L, p, samples, reflections, small_indent, seeds[blockIdx.y]);
+        pixel_light_sum<Fold>(P, L, p, samples, reflections, small_indent, seeds[blockIdx.y]);
     const LossCot lc = loss_cot(sum, target + lin * 3, light_coefficient, samples);
     loss = lc.loss;
     float* out = g_mean + (static_cast<long long>(blockIdx.y) * total + lin) * 3;
@@ -114,10 +133,11 @@ loss_cot_kernel(const float* __restrict__ params, const uint32_t* __restrict__ s
 // K6's pass 1. Grid (blocks, 2): row r of blockIdx.y (0: params, 1: params
 // with the zero map applied) writes its pixels' light summed over samples
 // to sums, (2, V, n_rows, W, 3).
+template <class Fold>
 __global__ void __launch_bounds__(kGradBlock)
 soft_sum_kernel(const float* __restrict__ params, uint32_t seed, Layout L, ZeroMap zm, int width,
                 int height, int row0, int n_rows, int samples, int reflections,
-                float small_indent, float* __restrict__ sums) {
+                float small_indent, float* __restrict__ sums, Hints H) {
   extern __shared__ float P[];
   for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = params[i];
   __syncthreads();
@@ -125,13 +145,14 @@ soft_sum_kernel(const float* __restrict__ params, uint32_t seed, Layout L, ZeroM
     for (int i = 0; i < zm.n; ++i) P[zm.idx[i]] = zm.val[i];
   }
   __syncthreads();
+  build_table_for<Fold>(P, L, H);  // row b's table from row b's params
 
   const long long total = static_cast<long long>(L.n_views) * n_rows * width;
   const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lin >= total) return;
   const PixelIndex px = pixel_index(lin, width, row0, n_rows);
-  const Pixel p = setup_pixel(P, L, px.view, px.px, px.py, width, height, small_indent);
-  const V3 sum = pixel_light_sum(P, L, p, samples, reflections, small_indent, seed);
+  const Pixel p = setup_pixel<Fold>(P, L, px.view, px.px, px.py, width, height, small_indent);
+  const V3 sum = pixel_light_sum<Fold>(P, L, p, samples, reflections, small_indent, seed);
   float* out = sums + (blockIdx.y * total + lin) * 3;
   out[0] = sum.x;
   out[1] = sum.y;
@@ -143,29 +164,31 @@ soft_sum_kernel(const float* __restrict__ params, uint32_t seed, Layout L, ZeroM
 // null) and row f of the cotangent of the mean light, and writes column
 // f * col_offset + x of the (P, n_cols) partials at grad_parts +
 // f * row_offset.
-template <int kB>
+template <int kB, class Fold>
 __global__ void __launch_bounds__(kGradBlock, kGradMinBlocks)
 sweep_kernel(const float* __restrict__ params, long long row_stride,
              const uint32_t* __restrict__ seeds, uint32_t seed, Layout L, int width, int height,
              int row0, int n_rows, int samples, int reflections, float small_indent,
              const float* __restrict__ g_mean, float* __restrict__ grad_parts,
-             long long row_offset, int col_offset, int n_cols) {
+             long long row_offset, int col_offset, int n_cols, Hints H) {
   extern __shared__ float smem[];
-  const GradSmem sm = grad_smem(smem, L.size);
+  const GradSmem sm = grad_smem(smem, L.size, table_recs_for<Fold>(L, H));
   const int row = blockIdx.y;
   for (int i = threadIdx.x; i < L.size; i += blockDim.x) sm.params[i] = params[row * row_stride + i];
   __syncthreads();
+  build_table_for<Fold>(sm.params, L, H);
 
   const long long total = static_cast<long long>(L.n_views) * n_rows * width;
   const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lin < total) {  // no early return: every thread joins the reduction
     const PixelIndex px = pixel_index(lin, width, row0, n_rows);
-    const Pixel p = setup_pixel(sm.params, L, px.view, px.px, px.py, width, height, small_indent);
+    const Pixel p =
+        setup_pixel<Fold>(sm.params, L, px.view, px.px, px.py, width, height, small_indent);
     const V3 g = ld3(g_mean + (static_cast<long long>(row) * total + lin) * 3);
     ColumnAcc acc = ColumnAcc::of(sm, nullptr);
-    pixel_sweep<kB>(sm.params, L, p, px.view, samples, reflections, small_indent,
-                    seeds != nullptr ? seeds[row] : seed,
-                    mul3s(g, 1.0f / static_cast<float>(samples)), acc);
+    pixel_sweep<kB, Fold>(sm.params, L, p, px.view, samples, reflections, small_indent,
+                          seeds != nullptr ? seeds[row] : seed,
+                          mul3s(g, 1.0f / static_cast<float>(samples)), acc);
   }
   reduce_block(sm.cols, L.size, 0.0f, grad_parts + row * row_offset, nullptr, n_cols,
                static_cast<long long>(row) * col_offset + blockIdx.x);
@@ -189,18 +212,20 @@ __device__ __forceinline__ SoftBlend blend_of(const float* __restrict__ sums, lo
 // (adjoint.cuh pixel_sweep), which carries row b's cotangent where the
 // rows trace alike: where bounce 0 misses the zero map's sphere obj. Writes
 // row_b[lin], row b's work, and column x of the (P, n_cols) partials.
-template <int kB>
+template <int kB, class Fold>
 __global__ void __launch_bounds__(kGradBlock, kGradMinBlocks)
 soft_row_a_kernel(const float* __restrict__ params, uint32_t seed, Layout L, int obj, int width,
                   int height, int row0, int n_rows, int samples, int reflections,
                   float small_indent, float light_coefficient, const float* __restrict__ target,
                   const float* __restrict__ alpha, float scale, const float* __restrict__ sums,
                   float* __restrict__ alpha_cot, uint32_t* __restrict__ row_b,
-                  float* __restrict__ grad_parts, double* __restrict__ loss_parts, int n_cols) {
+                  float* __restrict__ grad_parts, double* __restrict__ loss_parts, int n_cols,
+                  Hints H) {
   extern __shared__ float smem[];
-  const GradSmem sm = grad_smem(smem, L.size);
+  const GradSmem sm = grad_smem(smem, L.size, table_recs_for<Fold>(L, H));
   for (int i = threadIdx.x; i < L.size; i += blockDim.x) sm.params[i] = params[i];
   __syncthreads();
+  build_table_for<Fold>(sm.params, L, H);
 
   const long long total = static_cast<long long>(L.n_views) * n_rows * width;
   const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -213,13 +238,14 @@ soft_row_a_kernel(const float* __restrict__ params, uint32_t seed, Layout L, int
     const float inv = 1.0f / static_cast<float>(samples);
     const V3 g_a = mul3s(b.g_a, inv);
     const V3 g_b = mul3s(b.g_b, inv);
-    const Pixel p = setup_pixel(sm.params, L, px.view, px.px, px.py, width, height, small_indent);
+    const Pixel p =
+        setup_pixel<Fold>(sm.params, L, px.view, px.px, px.py, width, height, small_indent);
     const bool whole = obj < 0 || (p.h0.hit && p.h0.idx == obj);
     const V3 g_shared = whole ? V3{0.0f, 0.0f, 0.0f} : g_b;
     ColumnAcc acc = ColumnAcc::of(sm, nullptr);
-    const unsigned alone = pixel_sweep<kB>(sm.params, L, p, px.view, samples, reflections,
-                                           small_indent, seed, g_a, acc, 0u, whole ? -1 : obj,
-                                           g_shared);
+    const unsigned alone = pixel_sweep<kB, Fold>(sm.params, L, p, px.view, samples, reflections,
+                                                 small_indent, seed, g_a, acc, 0u,
+                                                 whole ? -1 : obj, g_shared);
     row_b[lin] = whole ? kRowBWhole : alone;
   }
   reduce_block(sm.cols, L.size, loss, grad_parts, loss_parts, n_cols, blockIdx.x);
@@ -230,16 +256,16 @@ soft_row_a_kernel(const float* __restrict__ params, uint32_t seed, Layout L, int
 // samples row a's sweep left to it, with none of bounce 0's light, or all
 // of them and bounce 0. Writes column col0 + x of the partials and of
 // loss_parts (a zero: the loss is row a's).
-template <int kB>
+template <int kB, class Fold>
 __global__ void __launch_bounds__(kGradBlock, kGradMinBlocks)
 soft_row_b_kernel(const float* __restrict__ params, uint32_t seed, Layout L, ZeroMap zm, int width,
                   int height, int row0, int n_rows, int samples, int reflections,
                   float small_indent, float light_coefficient, const float* __restrict__ target,
                   const float* __restrict__ alpha, const float* __restrict__ sums,
                   const uint32_t* __restrict__ row_b, float* __restrict__ grad_parts,
-                  double* __restrict__ loss_parts, int n_cols, int col0) {
+                  double* __restrict__ loss_parts, int n_cols, int col0, Hints H) {
   extern __shared__ float smem[];
-  const GradSmem sm = grad_smem(smem, L.size);
+  const GradSmem sm = grad_smem(smem, L.size, table_recs_for<Fold>(L, H));
   for (int i = threadIdx.x; i < L.size; i += blockDim.x) {
     sm.params[i] = params[i];
     sm.skip[i] = 0;
@@ -252,6 +278,7 @@ soft_row_b_kernel(const float* __restrict__ params, uint32_t seed, Layout L, Zer
     }
   }
   __syncthreads();
+  build_table_for<Fold>(sm.params, L, H);  // row b's table from row b's params
 
   const long long total = static_cast<long long>(L.n_views) * n_rows * width;
   const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -260,28 +287,44 @@ soft_row_b_kernel(const float* __restrict__ params, uint32_t seed, Layout L, Zer
     const PixelIndex px = pixel_index(lin, width, row0, n_rows);
     const SoftBlend b = blend_of(sums, total, lin, alpha, target, light_coefficient, samples);
     const V3 g_b = mul3s(b.g_b, 1.0f / static_cast<float>(samples));
-    const Pixel p = setup_pixel(sm.params, L, px.view, px.px, px.py, width, height, small_indent);
+    const Pixel p =
+        setup_pixel<Fold>(sm.params, L, px.view, px.px, px.py, width, height, small_indent);
     ColumnAcc acc = ColumnAcc::of(sm, sm.skip);
-    pixel_sweep<kB>(sm.params, L, p, px.view, samples, reflections, small_indent, seed, g_b, acc,
-                    work == kRowBWhole ? 0u : work);
+    pixel_sweep<kB, Fold>(sm.params, L, p, px.view, samples, reflections, small_indent, seed,
+                          g_b, acc, work == kRowBWhole ? 0u : work);
   }
   reduce_block(sm.cols, L.size, 0.0f, grad_parts, loss_parts, n_cols, col0 + blockIdx.x);
 }
 
-// The sweeps' instances for ``reflections`` bounces.
-using SweepFn = decltype(&sweep_kernel<kMainBounces>);
-SweepFn sweep_for(int reflections) {
-  return reflections == kMainBounces ? sweep_kernel<kMainBounces> : sweep_kernel<kMaxBounces>;
+// The sweeps' instances for ``reflections`` bounces: the unrolled one at
+// kMainBounces, the generic one otherwise (RoomFold runs at kMainBounces
+// only: the launch takes AnyFold for any other count).
+template <class Fold>
+auto sweep_for(int reflections) {
+  if constexpr (std::is_same_v<Fold, RoomFold>) {
+    return sweep_kernel<kMainBounces, RoomFold>;
+  } else {
+    return reflections == kMainBounces ? sweep_kernel<kMainBounces, Fold>
+                                       : sweep_kernel<kMaxBounces, Fold>;
+  }
 }
-using SoftRowAFn = decltype(&soft_row_a_kernel<kMainBounces>);
-SoftRowAFn soft_row_a_for(int reflections) {
-  return reflections == kMainBounces ? soft_row_a_kernel<kMainBounces>
-                                     : soft_row_a_kernel<kMaxBounces>;
+template <class Fold>
+auto soft_row_a_for(int reflections) {
+  if constexpr (std::is_same_v<Fold, RoomFold>) {
+    return soft_row_a_kernel<kMainBounces, RoomFold>;
+  } else {
+    return reflections == kMainBounces ? soft_row_a_kernel<kMainBounces, Fold>
+                                       : soft_row_a_kernel<kMaxBounces, Fold>;
+  }
 }
-using SoftRowBFn = decltype(&soft_row_b_kernel<kMainBounces>);
-SoftRowBFn soft_row_b_for(int reflections) {
-  return reflections == kMainBounces ? soft_row_b_kernel<kMainBounces>
-                                     : soft_row_b_kernel<kMaxBounces>;
+template <class Fold>
+auto soft_row_b_for(int reflections) {
+  if constexpr (std::is_same_v<Fold, RoomFold>) {
+    return soft_row_b_kernel<kMainBounces, RoomFold>;
+  } else {
+    return reflections == kMainBounces ? soft_row_b_kernel<kMainBounces, Fold>
+                                       : soft_row_b_kernel<kMaxBounces, Fold>;
+  }
 }
 
 // The launch arguments every gradient launch checks.
@@ -293,20 +336,21 @@ bool bad_shape(const Layout& L, int height, int row0, int n_rows, int samples,
 
 // Launches the sweep over ``n_param_rows`` rows (see sweep_kernel); returns
 // cudaGetLastError() after it.
+template <class Fold>
 int launch_sweep(const float* params, long long row_stride, int n_param_rows,
-                 const uint32_t* seeds, uint32_t seed, const Layout& L, int width, int height,
-                 int row0, int n_rows, int samples, int reflections, float small_indent,
-                 const float* g_mean, float* grad_parts, long long row_offset, int col_offset,
-                 int n_cols, cudaStream_t s) {
-  const SweepFn kernel = sweep_for(reflections);
-  const size_t smem = grad_smem_bytes(L.size, false);
+                 const uint32_t* seeds, uint32_t seed, const Layout& L, const Hints& H,
+                 int width, int height, int row0, int n_rows, int samples, int reflections,
+                 float small_indent, const float* g_mean, float* grad_parts, long long row_offset,
+                 int col_offset, int n_cols, cudaStream_t s) {
+  const auto kernel = sweep_for<Fold>(reflections);
+  const size_t smem = grad_smem_bytes(L.size, false, table_recs_for<Fold>(L, H));
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(static_cast<unsigned>(pixel_blocks(L, width, n_rows)),
             static_cast<unsigned>(n_param_rows));
   kernel<<<grid, kGradBlock, smem, s>>>(params, row_stride, seeds, seed, L, width, height, row0,
                                         n_rows, samples, reflections, small_indent, g_mean,
-                                        grad_parts, row_offset, col_offset, n_cols);
+                                        grad_parts, row_offset, col_offset, n_cols, H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -322,6 +366,13 @@ extern "C" int fourd_grad_scratch_cols(const int* layout, int width, int n_rows,
   return static_cast<int>(cols);
 }
 
+// The gradient launches below take ``hints``, the host int[kHintInts]
+// descriptor of the static hints (ops/cuda/megakernel.py hint_table), or
+// null for none, and ``keep``, the device's packed 0/1 mask of P floats of
+// the freeze_hints contract (models/params.py freeze_mask; sum_parts_kernel
+// writes the slots it zeroes as 0), or null. A descriptor with composites,
+// or one the table cannot hold, is refused (cudaErrorInvalidValue).
+
 // K4 on ``stream``: loss (1,) and grad (P,) float32, both scaled by
 // ``scale``, of image rows [row0, row0 + n_rows) of H, from params (P,)
 // float32, seeds (F,) uint32 and that block of the target (V, n_rows, W, 3)
@@ -335,26 +386,33 @@ extern "C" int fourd_loss_grad_launch(const float* params, const uint32_t* seeds
                                       float small_indent, float light_coefficient,
                                       const float* target, float scale, float* g_mean,
                                       float* grad_parts, double* loss_parts, float* grad_out,
-                                      float* loss_out, void* stream) {
+                                      float* loss_out, const int* hints, const float* keep,
+                                      void* stream) {
   const Layout L = layout_from(layout);
   const int n_cols = fourd_grad_scratch_cols(layout, width, n_rows, n_frames);
   if (n_cols < 0 || bad_shape(L, height, row0, n_rows, samples, reflections)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  Hints H;
+  const FoldKind kind = fold_kind(L, hints, reflections, H);
   const int blocks = n_cols / n_frames;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  loss_cot_kernel<<<dim3(blocks, n_frames), kGradBlock, L.size * sizeof(float), s>>>(
-      params, seeds, L, width, height, row0, n_rows, samples, reflections, small_indent,
-      light_coefficient, target, g_mean, loss_parts);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rc = launch_sweep(params, 0, n_frames, seeds, 0u, L, width, height, row0, n_rows,
-                              samples, reflections, small_indent, g_mean, grad_parts, 0, blocks,
-                              n_cols, s);
-  if (rc != 0) return rc;
-  sum_parts_kernel<<<L.size + 1, kSumThreads, 0, s>>>(grad_parts, loss_parts, L.size, n_cols,
-                                                      scale, grad_out, loss_out);
-  return static_cast<int>(cudaGetLastError());
+  return with_fold(kind, [&](auto fold) {
+    using Fold = decltype(fold);
+    const size_t smem = params_table_bytes(L.size, table_recs_for<Fold>(L, H));
+    loss_cot_kernel<Fold><<<dim3(blocks, n_frames), kGradBlock, smem, s>>>(
+        params, seeds, L, width, height, row0, n_rows, samples, reflections, small_indent,
+        light_coefficient, target, g_mean, loss_parts, H);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int rc = launch_sweep<Fold>(params, 0, n_frames, seeds, 0u, L, H, width, height, row0,
+                                      n_rows, samples, reflections, small_indent, g_mean,
+                                      grad_parts, 0, blocks, n_cols, s);
+    if (rc != 0) return rc;
+    sum_parts_kernel<<<L.size + 1, kSumThreads, 0, s>>>(grad_parts, loss_parts, L.size, n_cols,
+                                                        scale, grad_out, loss_out, keep, L.size);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // K5 on ``stream``: grad_out (F, P) float32, the unscaled parameter
@@ -363,28 +421,36 @@ extern "C" int fourd_loss_grad_launch(const float* params, const uint32_t* seeds
 // ``row_stride`` apart: 0 for one shared row), one seed and that block of
 // the cotangent (F, V, n_rows, W, 3) float32. grad_parts (F*P, n_cols)
 // float32 is scratch of the caller's, n_cols as
-// fourd_grad_scratch_cols(layout, width, n_rows, 1) gives it. Returns
-// cudaGetLastError() after each launch.
+// fourd_grad_scratch_cols(layout, width, n_rows, 1) gives it. Every row
+// shares the hints and the mask. Returns cudaGetLastError() after each
+// launch.
 extern "C" int fourd_light_vjp_launch(const float* params, long long row_stride, int n_params_rows,
                                       uint32_t seed, const int* layout, int width, int height,
                                       int row0, int n_rows, int samples, int reflections,
                                       float small_indent, const float* cot, float* grad_parts,
-                                      float* grad_out, void* stream) {
+                                      float* grad_out, const int* hints, const float* keep,
+                                      void* stream) {
   const Layout L = layout_from(layout);
   const int n_cols = fourd_grad_scratch_cols(layout, width, n_rows, 1);
   if (n_cols < 0 || bad_shape(L, height, row0, n_rows, samples, reflections) ||
       n_params_rows <= 0 || n_params_rows > 65535 || row_stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  Hints H;
+  const FoldKind kind = fold_kind(L, hints, reflections, H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = launch_sweep(params, row_stride, n_params_rows, nullptr, seed, L, width, height,
-                              row0, n_rows, samples, reflections, small_indent, cot, grad_parts,
-                              static_cast<long long>(L.size) * n_cols, 0, n_cols, s);
-  if (rc != 0) return rc;
-  const int n_sums = n_params_rows * L.size;
-  sum_parts_kernel<<<n_sums, kSumThreads, 0, s>>>(grad_parts, nullptr, n_sums, n_cols, 1.0f,
-                                                  grad_out, nullptr);
-  return static_cast<int>(cudaGetLastError());
+  return with_fold(kind, [&](auto fold) {
+    using Fold = decltype(fold);
+    const int rc = launch_sweep<Fold>(params, row_stride, n_params_rows, nullptr, seed, L, H,
+                                      width, height, row0, n_rows, samples, reflections,
+                                      small_indent, cot, grad_parts,
+                                      static_cast<long long>(L.size) * n_cols, 0, n_cols, s);
+    if (rc != 0) return rc;
+    const int n_sums = n_params_rows * L.size;
+    sum_parts_kernel<<<n_sums, kSumThreads, 0, s>>>(grad_parts, nullptr, n_sums, n_cols, 1.0f,
+                                                    grad_out, nullptr, keep, L.size);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // K6 on ``stream``: loss (1,), grad (P,) and alpha_cot (V, n_rows, W)
@@ -394,7 +460,8 @@ extern "C" int fourd_light_vjp_launch(const float* params, long long row_stride,
 // of alpha (V, n_rows, W) float32. sums (2, V, n_rows, W, 3) float32,
 // row_b (V, n_rows, W) uint32, grad_parts (P, n_cols) float32 and
 // loss_parts (n_cols,) float64 are scratch of the caller's, n_cols as
-// fourd_grad_scratch_cols(layout, width, n_rows, 2) gives it. Returns
+// fourd_grad_scratch_cols(layout, width, n_rows, 2) gives it. Both rows
+// share the hints (zero_object keeps every wall). Returns
 // cudaGetLastError() after each launch.
 extern "C" int fourd_soft_loss_grad_launch(const float* params, uint32_t seed, const int* layout,
                                            int n_zero, const int* zero_idx,
@@ -404,7 +471,8 @@ extern "C" int fourd_soft_loss_grad_launch(const float* params, uint32_t seed, c
                                            const float* target, const float* alpha, float scale,
                                            float* sums, uint32_t* row_b, float* grad_parts,
                                            double* loss_parts, float* grad_out, float* loss_out,
-                                           float* alpha_cot, void* stream) {
+                                           float* alpha_cot, const int* hints, const float* keep,
+                                           void* stream) {
   const Layout L = layout_from(layout);
   const int n_cols = fourd_grad_scratch_cols(layout, width, n_rows, 2);
   if (n_cols < 0 || bad_shape(L, height, row0, n_rows, samples, reflections) || n_zero <= 0 ||
@@ -421,32 +489,40 @@ extern "C" int fourd_soft_loss_grad_launch(const float* params, uint32_t seed, c
   // Row b's samples fit 31 bits of row_b beside kRowBWhole.
   const int obj = samples < 32 ? zero_map_object(L, zm) : -1;
   const int blocks = n_cols / 2;
+  Hints H;
+  const FoldKind kind = fold_kind(L, hints, reflections, H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  soft_sum_kernel<<<dim3(blocks, 2), kGradBlock, L.size * sizeof(float), s>>>(
-      params, seed, L, zm, width, height, row0, n_rows, samples, reflections, small_indent, sums);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const SoftRowAFn row_a = soft_row_a_for(reflections);
-  const size_t smem_a = grad_smem_bytes(L.size, false);
-  err = allow_smem(reinterpret_cast<const void*>(row_a), smem_a);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  row_a<<<blocks, kGradBlock, smem_a, s>>>(params, seed, L, obj, width, height, row0, n_rows,
-                                           samples, reflections, small_indent, light_coefficient,
-                                           target, alpha, scale, sums, alpha_cot, row_b,
-                                           grad_parts, loss_parts, n_cols);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const SoftRowBFn row_b_sweep = soft_row_b_for(reflections);
-  const size_t smem_b = grad_smem_bytes(L.size, true);
-  err = allow_smem(reinterpret_cast<const void*>(row_b_sweep), smem_b);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  row_b_sweep<<<blocks, kGradBlock, smem_b, s>>>(params, seed, L, zm, width, height, row0, n_rows,
-                                                 samples, reflections, small_indent,
-                                                 light_coefficient, target, alpha, sums, row_b,
-                                                 grad_parts, loss_parts, n_cols, blocks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sum_parts_kernel<<<L.size + 1, kSumThreads, 0, s>>>(grad_parts, loss_parts, L.size, n_cols,
-                                                      scale, grad_out, loss_out);
-  return static_cast<int>(cudaGetLastError());
+  return with_fold(kind, [&](auto fold) {
+    using Fold = decltype(fold);
+    const int recs = table_recs_for<Fold>(L, H);
+    const size_t smem_sum = params_table_bytes(L.size, recs);
+    soft_sum_kernel<Fold><<<dim3(blocks, 2), kGradBlock, smem_sum, s>>>(
+        params, seed, L, zm, width, height, row0, n_rows, samples, reflections, small_indent,
+        sums, H);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const auto row_a = soft_row_a_for<Fold>(reflections);
+    const size_t smem_a = grad_smem_bytes(L.size, false, recs);
+    err = allow_smem(reinterpret_cast<const void*>(row_a), smem_a);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    row_a<<<blocks, kGradBlock, smem_a, s>>>(params, seed, L, obj, width, height, row0, n_rows,
+                                             samples, reflections, small_indent,
+                                             light_coefficient, target, alpha, scale, sums,
+                                             alpha_cot, row_b, grad_parts, loss_parts, n_cols, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const auto row_b_sweep = soft_row_b_for<Fold>(reflections);
+    const size_t smem_b = grad_smem_bytes(L.size, true, recs);
+    err = allow_smem(reinterpret_cast<const void*>(row_b_sweep), smem_b);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    row_b_sweep<<<blocks, kGradBlock, smem_b, s>>>(params, seed, L, zm, width, height, row0,
+                                                   n_rows, samples, reflections, small_indent,
+                                                   light_coefficient, target, alpha, sums, row_b,
+                                                   grad_parts, loss_parts, n_cols, blocks, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sum_parts_kernel<<<L.size + 1, kSumThreads, 0, s>>>(grad_parts, loss_parts, L.size, n_cols,
+                                                        scale, grad_out, loss_out, keep, L.size);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -153,66 +153,6 @@ size_t shared_bytes(const Layout& L, const Hints& H) {
   return static_cast<size_t>((L.size + 3) / 4) * sizeof(Rec) + recs * sizeof(Rec);
 }
 
-// Whether a composite's offset is none (-1) or holds ``floats`` floats
-// inside the params.
-bool offset_valid(const Layout& L, int offset, int floats) {
-  return offset == -1 || (offset >= 0 && offset + floats <= L.size);
-}
-
-// Whether a family's axis hint is none (-1) or two different components.
-bool family_hint_valid(int code) {
-  return code == -1 || (code >= 0 && code < 16 && (code & 3) != (code >> 2));
-}
-
-// Whether the descriptor's composites are ones the table can hold: counts
-// in range, every spec inside the params, every axis hint well formed.
-bool composites_valid(const Layout& L, const Hints& H) {
-  if (H.n_cylinders < 0 || H.n_cylinders > kMaxCylinders ||
-      (H.n_cylinders > 0) != (H.cylinders >= 0) ||
-      !offset_valid(L, H.cylinders, kCylinderFloats * H.n_cylinders) ||
-      !offset_valid(L, H.cylinders_union, 2 * kCylinderFloats) ||
-      !offset_valid(L, H.hypercube, kHypercubeFloats) || !offset_valid(L, H.tiger, kTigerFloats) ||
-      H.hypercube_axes < -1 || H.hypercube_axes > 0xFFF) {
-    return false;
-  }
-  for (int i = 0; i < H.n_cylinders; ++i) {
-    if (!family_hint_valid(H.cylinder_axes[i])) return false;
-  }
-  return family_hint_valid(H.union_axes[0]) && family_hint_valid(H.union_axes[1]) &&
-         family_hint_valid(H.tiger_axes[0]) && family_hint_valid(H.tiger_axes[1]);
-}
-
-// Whether the descriptor is one the table can hold and fold: the
-// composites valid, counts in range, pairs' axes 0-3, live masks 0-15, and
-// the pairs' and singles' plane indices cover each of the layout's planes
-// exactly once (a pair's two planes differ). Without hints (n_singles -1)
-// the fold covers every plane itself.
-bool hints_valid(const Layout& L, const Hints& H) {
-  if (!composites_valid(L, H)) return false;
-  if (H.n_singles < 0) return H.n_singles == -1 && H.n_pairs == 0;
-  if (H.n_pairs < 0 || H.n_pairs > kMaxHintPlanes / 2 || H.n_singles > kMaxHintPlanes ||
-      L.n_spaces > kMaxHintPlanes || 2 * H.n_pairs + H.n_singles != L.n_spaces) {
-    return false;
-  }
-  uint64_t seen = 0;
-  const auto cover = [&](int plane) {
-    const uint64_t bit = uint64_t{1} << plane;
-    const bool fresh = plane < L.n_spaces && (seen & bit) == 0;
-    seen |= bit;
-    return fresh;
-  };
-  for (int k = 0; k < H.n_pairs; ++k) {
-    const int i = H.pair[k] & 0xFF, j = (H.pair[k] >> 8) & 0xFF, axis = H.pair[k] >> 16;
-    if (!cover(i) || !cover(j) || axis < 0 || axis > 3) return false;
-  }
-  for (int k = 0; k < H.n_singles; ++k) {
-    const int live = H.single[k] >> 8;
-    if (!cover(H.single[k] & 0xFF) || live < 0 || live > 15) return false;
-  }
-  // 2 * n_pairs + n_singles planes, none repeated, all below n_spaces: all.
-  return true;
-}
-
 // Validates the arguments and launches forward_kernel<kStub, Fold>;
 // returns cudaGetLastError() after the launch.
 template <int kStub, class Fold>
@@ -232,14 +172,6 @@ int launch_forward(const float* params, long long row_stride, const uint32_t* se
       params, row_stride, seeds, L, H, width, height, row0, n_rows, samples, reflections,
       small_indent, out);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Whether pair k of the descriptor lies on axis k, for every pair.
-bool pairs_in_axis_order(const Hints& H) {
-  for (int k = 0; k < H.n_pairs; ++k) {
-    if ((H.pair[k] >> 16) != k) return false;
-  }
-  return true;
 }
 
 // The library's composite scenes' axis hints (models/library.py): the
@@ -297,11 +229,9 @@ int launch_fold(bool generic, const float* params, long long row_stride, const u
                 int row0, int n_rows, int samples, int reflections, float small_indent,
                 float* out, void* stream) {
   Layout L;
-  Hints H;
   int* dst = reinterpret_cast<int*>(&L);
   for (int i = 0; i < kLayoutInts; ++i) dst[i] = layout[i];
-  dst = reinterpret_cast<int*>(&H);
-  for (int i = 0; i < kHintInts; ++i) dst[i] = hints[i];
+  const Hints H = hints_from(hints);
   if (composite_kinds(H) != 0) {
     return launch_composites<kStub>(generic, params, row_stride, seeds, n_frames, L, H, width,
                                     height, row0, n_rows, samples, reflections, small_indent, out,

@@ -37,25 +37,37 @@ constexpr int kGradPitch = kGradBlock + 1;
 constexpr int kSumThreads = 256;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// A sweep block's dynamic shared memory: the packed params row, the
-// threads' columns and, with skip, one byte per slot (K6's row b: the zero
-// map's).
-inline size_t grad_smem_bytes(int P, bool skip) {
-  return sizeof(float) * static_cast<size_t>(1 + kGradPitch) * P +
+// A sweep block's dynamic shared memory: the packed params row (padded to
+// 16 bytes and followed by the fold table when the fold reads one, ``recs``
+// records: trace.cuh params_table_bytes), the threads' columns and, with
+// skip, one byte per slot (K6's row b: the zero map's).
+inline size_t grad_smem_bytes(int P, bool skip, int recs = 0) {
+  return params_table_bytes(P, recs) + sizeof(float) * static_cast<size_t>(kGradPitch) * P +
          (skip ? static_cast<size_t>(P) : 0);
 }
 struct GradSmem {
-  float* params;  // P
+  float* params;  // P (then the fold table)
   float* cols;    // P x kGradPitch, zeroed
   unsigned char* skip;
 };
-__device__ __forceinline__ GradSmem grad_smem(float* base, int P) {
+__device__ __forceinline__ GradSmem grad_smem(float* base, int P, int recs = 0) {
   GradSmem s;
   s.params = base;
-  s.cols = base + P;
+  s.cols = base + params_table_bytes(P, recs) / sizeof(float);
   s.skip = reinterpret_cast<unsigned char*>(s.cols + P * kGradPitch);
   for (int i = threadIdx.x; i < P * kGradPitch; i += blockDim.x) s.cols[i] = 0.0f;
   return s;
+}
+
+// A gradient kernel's block builds its fold's table from the params in
+// shared memory P, if the fold reads one, and synchronises. Every thread
+// calls it.
+template <class Fold>
+__device__ __forceinline__ void build_table_for(const float* P, const Layout& L, const Hints& H) {
+  if constexpr (kGradTable<Fold>) {
+    build_fold_table(P, L, H, threadIdx.x, blockDim.x);
+    __syncthreads();
+  }
 }
 
 // The card's accumulator of adjoint.cuh: this thread's column; with skip,
@@ -118,10 +130,14 @@ __device__ __forceinline__ void reduce_block(const float* cols, int n, float los
 // Block k < n_rows sums row k of grad_parts, block n_rows (launched only
 // when loss_parts is not null) sums loss_parts; each in a fixed order
 // (strided per thread, then a tree), in double, then scaled in float32.
+// With ``keep`` (the freeze_hints contract's packed 0/1 mask of
+// ``keep_n`` slots: models/params.py freeze_mask, the camera's slots 1),
+// row k's sum is written as 0 where keep[k % keep_n] is 0: the frozen
+// slots are exactly zero, whatever their partials held.
 __global__ void __launch_bounds__(kSumThreads)
 sum_parts_kernel(const float* __restrict__ grad_parts, const double* __restrict__ loss_parts,
                  int n_rows, int n_cols, float scale, float* __restrict__ grad_out,
-                 float* __restrict__ loss_out) {
+                 float* __restrict__ loss_out, const float* __restrict__ keep, int keep_n) {
   __shared__ double buf[kSumThreads];
   const int k = blockIdx.x;
   double s = 0.0;
@@ -140,10 +156,50 @@ sum_parts_kernel(const float* __restrict__ grad_parts, const double* __restrict_
   if (threadIdx.x == 0) {
     const float total = static_cast<float>(buf[0]) * scale;
     if (k < n_rows) {
-      grad_out[k] = total;
+      grad_out[k] = keep == nullptr || keep[k % keep_n] != 0.0f ? total : 0.0f;
     } else {
       loss_out[0] = total;
     }
+  }
+}
+
+// The hinted folds of the gradient kernels (gradkernel.cu, ablate.cu)
+// under the freeze_hints contract: the room's 4 wall pairs on axes x, y,
+// z, w, and any other pattern. On the room the room's instance takes
+// 8-18% less time than the generic one in K4, K5 and K6 (PERF.md,
+// tools/compare_trees.py).
+using RoomFold = GradTableFold<4, 0>;
+using AnyFold = GradTableFold<-1, -1>;
+
+// The fold of a gradient launch: ParamsFold without hints (``hints``
+// null), RoomFold for the room's pattern (4 wall pairs on the axes in
+// order, no single plane) at the main bounce count, AnyFold for any other
+// valid descriptor of hyperplanes and spheres; kBadFold for a descriptor
+// the table cannot hold or one with composites (their adjoint is not
+// ported).
+enum FoldKind { kParamsFold, kRoomFold, kAnyFold, kBadFold };
+inline FoldKind fold_kind(const Layout& L, const int* hints, int reflections, Hints& H) {
+  H = {};
+  if (hints == nullptr) return kParamsFold;
+  H = hints_from(hints);
+  if (!hints_valid(L, H) || composite_kinds(H) != 0 || H.n_singles < 0) return kBadFold;
+  const bool room = H.n_pairs == 4 && H.n_singles == 0 && pairs_in_axis_order(H);
+  return room && reflections == kMainBounces ? kRoomFold : kAnyFold;
+}
+
+// Returns ``launch(Fold{})`` for the launch's fold (fold_kind), or
+// cudaErrorInvalidValue for a bad descriptor.
+template <class F>
+int with_fold(FoldKind kind, F&& launch) {
+  switch (kind) {
+    case kParamsFold:
+      return launch(ParamsFold{});
+    case kRoomFold:
+      return launch(RoomFold{});
+    case kAnyFold:
+      return launch(AnyFold{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

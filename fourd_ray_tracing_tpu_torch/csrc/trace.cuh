@@ -3,10 +3,13 @@
 //
 // Counterpart of the JAX package's ops/{vec4,rng,fastmath,sampler,sky}.py,
 // models/scene.py:intersect_scene_fast (hyperplanes and spheres unhinted
-// over the packed params, ``intersect``, which the gradient kernels run;
-// every primitive, composites included, with the static hints over a
-// per-block table, ``intersect_table``, which K1 runs) and the per-pixel
-// body of ops/pallas/megakernel.py::_kernel with _trace_rays_kernel. Every operation keeps the order of the plain torch
+// over the packed params, ``intersect``, which the gradient kernels run
+// without hints; every primitive, composites included, with the static
+// hints over a per-block table, ``intersect_table``, which K1 runs, and
+// the gradient kernels under the freeze_hints contract, hyperplanes and
+// spheres only, ``GradTableFold``) and the per-pixel body of
+// ops/pallas/megakernel.py::_kernel with _trace_rays_kernel. Every
+// operation keeps the order of the plain torch
 // pipeline (models/renderer.py); the build passes -fmad=false, so on the
 // card a kernel built from this header rounds like its plain version.
 // Float constants are hex literals of the JAX package's float32 values.
@@ -949,15 +952,46 @@ __device__ __forceinline__ Hit intersect_table(const float* P, const Layout& L, 
   return h;
 }
 
+// The primitive of intersect_table's winning candidate ``k`` (a table
+// without composites), numbered as intersect numbers it: plane i, sphere j
+// as n_spaces + j. A pair's primitive is the wall its fold took.
+template <int kPairs, int kSingles>
+__device__ __forceinline__ int table_primitive(const float* P, const Layout& L, int k, V4 o,
+                                               V4 d) {
+  const Rec* T = fold_table(P, L);
+  const Rec head = T[0];
+  const int np = kPairs >= 0 ? kPairs : static_cast<int>(__float_as_uint(head.x));
+  const int ns = kSingles >= 0 ? kSingles : static_cast<int>(__float_as_uint(head.y));
+  uint32_t off;
+  if (k < np) {
+    const Rec r = T[1 + k];
+    const int axis = kPairs > 0 ? k : static_cast<int>(__float_as_uint(r.z));
+    const uint32_t walls = __float_as_uint(r.w);
+    off = pair_takes_a(r.x, r.y, axis_of(o, axis), axis_of(d, axis)) ? walls & 0xFFFFu
+                                                                       : walls >> 16;
+  } else if (k < np + ns) {
+    off = __float_as_uint(T[1 + np + 2 * (k - np) + 1].z);
+  } else {
+    return L.n_spaces + (k - np - ns);
+  }
+  return (static_cast<int>(off) - L.spaces) / kSpaceFloats;
+}
+
 // The fold a trace runs, as a template argument of setup_pixel and
 // trace_sample: ParamsFold is intersect over the packed params, no hints
-// (the gradient kernels); TableFold<kPairs, kSingles> is intersect_table
-// without composites (K1; negative: the counts read from the table);
-// CompositeFold<kPairs, kSingles, kComp, kFams, kCube> intersect_table
-// with them.
+// (the gradient kernels without hints); TableFold<kPairs, kSingles> is
+// intersect_table without composites (K1; negative: the counts read from
+// the table); CompositeFold<kPairs, kSingles, kComp, kFams, kCube>
+// intersect_table with them; GradTableFold<kPairs, kSingles> is TableFold
+// with the winner numbered as intersect numbers it (table_primitive), which
+// the adjoint reads the params by (the gradient kernels under the
+// freeze_hints contract). The table folds find every hit, distance and
+// material of intersect, bitwise, and every normal component equal (the
+// hinted resolvers write +0 where intersect writes flip * 0.0).
 struct ParamsFold {};
 template <int kPairs, int kSingles> struct TableFold {};
 template <int kPairs, int kSingles, int kComp, int kFams, int kCube> struct CompositeFold {};
+template <int kPairs, int kSingles> struct GradTableFold {};
 
 __device__ __forceinline__ Hit fold(ParamsFold, const float* P, const Layout& L, V4 o, V4 d) {
   return intersect(P, L, o, d);
@@ -971,6 +1005,38 @@ template <int kPairs, int kSingles, int kComp, int kFams, int kCube>
 __device__ __forceinline__ Hit fold(CompositeFold<kPairs, kSingles, kComp, kFams, kCube>,
                                     const float* P, const Layout& L, V4 o, V4 d) {
   return intersect_table<kPairs, kSingles, kComp, kFams, kCube>(P, L, o, d);
+}
+template <int kPairs, int kSingles>
+__device__ __forceinline__ Hit fold(GradTableFold<kPairs, kSingles>, const float* P,
+                                    const Layout& L, V4 o, V4 d) {
+  Hit h = intersect_table<kPairs, kSingles>(P, L, o, d);
+  h.idx = h.hit ? table_primitive<kPairs, kSingles>(P, L, h.idx, o, d) : 0;
+  return h;
+}
+
+// Whether a gradient kernel's fold reads a table (GradTableFold), which
+// its blocks build after the params (build_table_for).
+template <class Fold> constexpr bool kGradTable = false;
+template <int kPairs, int kSingles>
+constexpr bool kGradTable<GradTableFold<kPairs, kSingles>> = true;
+
+// Records of a fold table without composites (build_fold_table): the
+// header, one a pair, two a single plane and two a sphere.
+__host__ __device__ __forceinline__ int plane_table_recs(const Layout& L, const Hints& H) {
+  return 1 + H.n_pairs + 2 * (H.n_singles < 0 ? L.n_spaces : H.n_singles) + 2 * L.n_spheres;
+}
+
+// The records of Fold's table over L and H (0: the fold reads no table).
+template <class Fold>
+__host__ __device__ __forceinline__ int table_recs_for(const Layout& L, const Hints& H) {
+  return kGradTable<Fold> ? plane_table_recs(L, H) : 0;
+}
+
+// Bytes of the params, padded to 16 when a table of ``recs`` records
+// follows them (fold_table), and of the table.
+__host__ __device__ __forceinline__ size_t params_table_bytes(int P, int recs) {
+  return recs > 0 ? static_cast<size_t>((P + 3) / 4 + recs) * sizeof(Rec)
+                  : static_cast<size_t>(P) * sizeof(float);
 }
 
 // Direction update of one bounce on a live lane: Bernoulli mirror vs
@@ -1071,6 +1137,86 @@ __device__ V3 trace_sample(const float* P, const Layout& L, const Pixel& p, int 
     if (h.hit) result = add3(result, mul3(mul3s(h.color, h.glow), throughput));
   }
   return result;
+}
+
+// --- the host's checks of a hints descriptor (K1's launch and the
+// gradient kernels') -------------------------------------------------
+
+// Whether a composite's offset is none (-1) or holds ``floats`` floats
+// inside the params.
+inline bool offset_valid(const Layout& L, int offset, int floats) {
+  return offset == -1 || (offset >= 0 && offset + floats <= L.size);
+}
+
+// Whether a family's axis hint is none (-1) or two different components.
+inline bool family_hint_valid(int code) {
+  return code == -1 || (code >= 0 && code < 16 && (code & 3) != (code >> 2));
+}
+
+// Whether the descriptor's composites are ones the table can hold: counts
+// in range, every spec inside the params, every axis hint well formed.
+inline bool composites_valid(const Layout& L, const Hints& H) {
+  if (H.n_cylinders < 0 || H.n_cylinders > kMaxCylinders ||
+      (H.n_cylinders > 0) != (H.cylinders >= 0) ||
+      !offset_valid(L, H.cylinders, kCylinderFloats * H.n_cylinders) ||
+      !offset_valid(L, H.cylinders_union, 2 * kCylinderFloats) ||
+      !offset_valid(L, H.hypercube, kHypercubeFloats) || !offset_valid(L, H.tiger, kTigerFloats) ||
+      H.hypercube_axes < -1 || H.hypercube_axes > 0xFFF) {
+    return false;
+  }
+  for (int i = 0; i < H.n_cylinders; ++i) {
+    if (!family_hint_valid(H.cylinder_axes[i])) return false;
+  }
+  return family_hint_valid(H.union_axes[0]) && family_hint_valid(H.union_axes[1]) &&
+         family_hint_valid(H.tiger_axes[0]) && family_hint_valid(H.tiger_axes[1]);
+}
+
+// Whether the descriptor is one the table can hold and fold: the
+// composites valid, counts in range, pairs' axes 0-3, live masks 0-15, and
+// the pairs' and singles' plane indices cover each of the layout's planes
+// exactly once (a pair's two planes differ). Without hints (n_singles -1)
+// the fold covers every plane itself.
+inline bool hints_valid(const Layout& L, const Hints& H) {
+  if (!composites_valid(L, H)) return false;
+  if (H.n_singles < 0) return H.n_singles == -1 && H.n_pairs == 0;
+  if (H.n_pairs < 0 || H.n_pairs > kMaxHintPlanes / 2 || H.n_singles > kMaxHintPlanes ||
+      L.n_spaces > kMaxHintPlanes || 2 * H.n_pairs + H.n_singles != L.n_spaces) {
+    return false;
+  }
+  uint64_t seen = 0;
+  const auto cover = [&](int plane) {
+    const uint64_t bit = uint64_t{1} << plane;
+    const bool fresh = plane < L.n_spaces && (seen & bit) == 0;
+    seen |= bit;
+    return fresh;
+  };
+  for (int k = 0; k < H.n_pairs; ++k) {
+    const int i = H.pair[k] & 0xFF, j = (H.pair[k] >> 8) & 0xFF, axis = H.pair[k] >> 16;
+    if (!cover(i) || !cover(j) || axis < 0 || axis > 3) return false;
+  }
+  for (int k = 0; k < H.n_singles; ++k) {
+    const int live = H.single[k] >> 8;
+    if (!cover(H.single[k] & 0xFF) || live < 0 || live > 15) return false;
+  }
+  // 2 * n_pairs + n_singles planes, none repeated, all below n_spaces: all.
+  return true;
+}
+
+// The descriptor from the host's int[kHintInts] (ops/cuda/megakernel.py
+// hint_table).
+inline Hints hints_from(const int* words) {
+  Hints H;
+  int* dst = reinterpret_cast<int*>(&H);
+  for (int i = 0; i < kHintInts; ++i) dst[i] = words[i];
+  return H;
+}
+
+// Whether pair k of the descriptor lies on axis k, for every pair.
+inline bool pairs_in_axis_order(const Hints& H) {
+  for (int k = 0; k < H.n_pairs; ++k) {
+    if ((H.pair[k] >> 16) != k) return false;
+  }
+  return true;
 }
 
 }  // namespace

@@ -43,21 +43,27 @@ With a ``mesh`` (parallel/mesh.py) rank (r, s) holds rows block r
   The soft loss's coverage is differentiated through each rank's rows and
   summed over the ranks in its backward (``pmesh.SumGrad``).
 
-Every gradient path runs without static hints (renderer.check_trainable
-refuses a config that carries them, as the JAX gradient kernels do
-outside their freeze_hints contract), so the kernel route's K1 and K2
-launches in ``RenderLight`` render the unhinted fold too, as the JAX
-custom_vjp forward does on traced values. Not ported yet, and raising:
-that contract, ``freeze_hints`` (ROADMAP queue 1, item 4a, training
-half), and the gradient of a scene with composite primitives, with their
-coverage, ``drop_object`` and ``zero_object`` (item 4b, training half;
-renderer.check_trainable refuses such a scene on every gradient path).
-Without frozen hints the JAX package's
-``_stop_frozen_for_coverage`` and ``_hints_for_dropped`` are the
-identity, so they are left out.
+Every gradient path takes the static hints under the freeze_hints
+contract (``with_frozen_hints``, diff.py:415-455: the production
+configuration of every JAX bench training line), and refuses them without
+it (renderer.check_trainable). Under it the kernel route launches K1/K2,
+K4, K5 and K6 with the forward's hinted fold, and the kernels write the
+frozen slots (every hyperplane normal; the hinted composite axes) as 0,
+every other gradient and the loss being the unhinted launch's; the plain
+route folds the plain pipeline with the same hints and stops the frozen
+leaves (``stop_frozen``, the JAX package's _stop_frozen_for_coverage,
+diff.py:774-792), where the JAX package's jnp route refuses hints. The
+coverage of the soft loss stops them too; a hyperplane's soft fallback
+renders the scene without the wall with the wall's hint row dropped and
+the pairs off (``hints_for_dropped``, diff.py:795-827). Not ported yet,
+and raising: the gradient of a scene with composite primitives, with their
+coverage, ``drop_object`` and ``zero_object`` (ROADMAP queue 1, item 4b,
+training half; renderer.check_trainable refuses such a scene on every
+gradient path).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
@@ -76,6 +82,63 @@ from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh
 IMPLS = ("plain", "kernel")
 
 
+def with_frozen_hints(cfg: RenderConfig, scene: Scene) -> RenderConfig:
+    """``cfg`` with the freeze_hints contract on and the forward's static
+    hints of ``scene`` derived where it has none (diff.py:415-455): the
+    production training configuration. The gradient kernels then fold
+    with the forward's hints (loss and every other gradient bitwise the
+    unhinted launch's) and write the hyperplane normals' and the hinted
+    axes' gradients as 0. ``grad_sample_chunk`` becomes the largest divisor
+    of ``samples`` up to 8, as in the JAX package; the port's sweep has no
+    chunks, so nothing depends on it. The hints come from the scene's
+    values (its leaves may require grad); call it once, before building the
+    train step."""
+    cfg = dataclasses.replace(cfg, freeze_hints=True)
+    if cfg.grad_sample_chunk == 1:
+        g = max(g for g in range(1, min(cfg.samples, 8) + 1) if cfg.samples % g == 0)
+        cfg = dataclasses.replace(cfg, grad_sample_chunk=g)
+    if cfg.intersect != "fast":
+        return cfg
+    return megakernel.with_hints(params.map_leaves(torch.Tensor.detach, scene), cfg)
+
+
+def stop_frozen(scene: Scene, cfg: RenderConfig) -> Scene:
+    """``scene`` with the leaves the freeze_hints contract freezes detached
+    (the JAX package's _stop_frozen_for_coverage, diff.py:774-792): values
+    bitwise the same, no gradient through them. The plain route and the
+    soft loss's coverage differentiate through it, so that no gradient path
+    reaches a frozen leaf. ``scene`` as it is when ``cfg`` freezes
+    nothing."""
+    frozen = params.frozen_leaves(cfg, scene)
+    if frozen is None:
+        return scene
+    it = iter(frozen)
+    return params.map_leaves(lambda t: t.detach() if next(it) else t, scene)
+
+
+def hints_for_dropped(cfg: RenderConfig, object_ref) -> RenderConfig:
+    """``cfg``'s static hints remapped for ``drop_object(scene,
+    object_ref)`` (diff.py:795-827): a dropped hyperplane loses its
+    plane_hints row and the wall pairs go off (their indices shift); a
+    dropped cylinder its axis-hint entry; a dropped duocylinder, hypercube
+    or tiger its field. A dropped sphere changes nothing."""
+    kind, idx = object_ref
+    if kind == "spaces" and cfg.plane_hints is not None:
+        hints = tuple(h for k, h in enumerate(cfg.plane_hints) if k != idx)
+        cfg = dataclasses.replace(cfg, plane_hints=hints or None, plane_pairs=None)
+    ah = cfg.axis_hints
+    if ah is not None:
+        if kind == "cylinders" and ah.cylinders:
+            ah = ah._replace(cylinders=tuple(h for k, h in enumerate(ah.cylinders) if k != idx))
+        elif kind in ("cylinders_union", "hypercube", "tiger"):
+            ah = ah._replace(**{kind: None})
+        if (not any(ah.cylinders) and ah.cylinders_union is None and ah.hypercube is None
+                and ah.tiger is None):
+            ah = None
+        cfg = dataclasses.replace(cfg, axis_hints=ah)
+    return cfg
+
+
 def _rows_part(image_rows: torch.Tensor, target, rows, height: int) -> torch.Tensor:
     """The part of mean((image - target)^2) over the whole image that image
     rows [row0, row0 + n_rows) make: ``image_rows`` those rows of the
@@ -91,8 +154,10 @@ def image_loss(scene: Scene, camera: Camera, cfg: RenderConfig, seed, target,
     """MSE between the rendered (tone-mapped) image and a target,
     differentiable by torch autograd. With a mesh, this rank's part of it:
     its rows of the image, rendered over the mesh (the rows' parts sum to
-    the MSE over the rays group)."""
+    the MSE over the rays group). Under the freeze_hints contract the
+    pipeline folds with the hints and the frozen leaves get no gradient."""
     renderer.check_trainable(cfg, scene)
+    scene = stop_frozen(scene, cfg)
     if mesh is None:
         return renderer.image_loss(scene, camera, cfg, seed, target)
     image = pmesh.sharded_render_image(scene, camera, cfg, seed, mesh, gather=False)
@@ -243,14 +308,17 @@ def soft_image_loss(scene: Scene, camera: Camera, cfg: RenderConfig, seed, targe
     renderer.check_trainable(cfg, scene)
     if object_ref is None:
         object_ref = ("spheres", sphere_index)
+    scene = stop_frozen(scene, cfg)
     without = drop_object(scene, object_ref)
+    cfg_without = hints_for_dropped(cfg, object_ref)
     alpha = object_coverage(scene, object_ref, camera, cfg, edge_width)
     if mesh is None:
         img_with = renderer.render_image(scene, camera, cfg, seed)
-        img_without = renderer.render_image(without, camera, cfg, seed)
+        img_without = renderer.render_image(without, camera, cfg_without, seed)
         return _blend_loss(alpha, img_with, img_without, target)
     img_with = pmesh.sharded_render_image(scene, camera, cfg, seed, mesh, gather=False)
-    img_without = pmesh.sharded_render_image(without, camera, cfg, seed, mesh, gather=False)
+    img_without = pmesh.sharded_render_image(without, camera, cfg_without, seed, mesh,
+                                             gather=False)
     rows = mesh.rows(cfg.height)
     alpha = alpha[..., rows[0]:rows[0] + rows[1], :]
     if mesh.sample_index:  # the rows' coverage is differentiated once per samples group
@@ -294,7 +362,8 @@ def image_loss_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camera,
         return ImageLoss.apply(vec, like_scene, like_camera, cfg, seed, target, mesh)
     if vec.device.type == "cpu":
         scene, camera = params.unpack(vec, like_scene, like_camera)
-        return renderer.image_loss(scene, camera, cfg, seed, target)
+        cfg = gradkernel._auto_hints(like_scene, cfg)
+        return renderer.image_loss(stop_frozen(scene, cfg), camera, cfg, seed, target)
     if vec.device.type != "cuda":
         raise ValueError(f"image_loss_kernel takes CPU or CUDA tensors, got {vec.device}")
     return ImageLoss.apply(vec, like_scene, like_camera, cfg, seed, target)
@@ -315,6 +384,7 @@ class RenderLight(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, vec, like_scene, like_camera, cfg, seed, mesh=None):
+        cfg = gradkernel._auto_hints(like_scene, cfg)
         renderer.check_trainable(cfg, like_scene)
         words, batched = renderer.seed_words(seed)
         if batched:
@@ -349,11 +419,14 @@ def render_light_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camer
                         cfg: RenderConfig, seed) -> torch.Tensor:
     """Mean light (H, W, 3) or (V, H, W, 3) of the scene and camera packed
     in ``vec`` (P,), differentiable w.r.t. ``vec``: K1 forward and K5
-    backward for a CUDA vector, the plain pipeline for a CPU one."""
+    backward for a CUDA vector, the plain pipeline for a CPU one. Under the
+    freeze_hints contract both fold with the hints and the frozen slots
+    get no gradient."""
+    cfg = gradkernel._auto_hints(like_scene, cfg)
     renderer.check_trainable(cfg, like_scene)
     if vec.device.type == "cpu":
         scene, camera = params.unpack(vec, like_scene, like_camera)
-        return renderer.render_light(scene, camera, cfg, seed)
+        return renderer.render_light(stop_frozen(scene, cfg), camera, cfg, seed)
     if vec.device.type != "cuda":
         raise ValueError(f"render_light_kernel takes CPU or CUDA tensors, got {vec.device}")
     return RenderLight.apply(vec, like_scene, like_camera, cfg, seed)
@@ -376,8 +449,10 @@ def render_light_pair(scene_a: Scene, scene_b: Scene, camera: Camera, cfg: Rende
     if mesh is not None:
         return RenderLight.apply(vecs, scene_a, camera, cfg, seed, mesh)
     if vecs.device.type == "cpu":
-        return torch.stack([renderer.render_light(*params.unpack(v, scene_a, camera), cfg, seed)
-                            for v in vecs])
+        cfg = gradkernel._auto_hints(scene_a, cfg)
+        rows = [params.unpack(v, scene_a, camera) for v in vecs]
+        return torch.stack([renderer.render_light(stop_frozen(s, cfg), c, cfg, seed)
+                            for s, c in rows])
     if vecs.device.type != "cuda":
         raise ValueError(f"render_light_pair takes CPU or CUDA tensors, got {vecs.device}")
     return RenderLight.apply(vecs, scene_a, camera, cfg, seed)
@@ -429,12 +504,13 @@ def soft_image_loss_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Ca
     CPU, K6's plain version on them), the coverage differentiated through
     the rank's rows and summed over the ranks; a hyperplane with a mesh
     raises ValueError, as in the JAX package."""
+    cfg = gradkernel._auto_hints(like_scene, cfg)
     if mesh is not None:
         if object_ref[0] == "spaces":
             raise ValueError("mesh-sharded soft training supports zero-emulatable object "
                              "kinds only (hyperplanes have no miss radius)")
         scene, camera = params.unpack(pmesh.SumGrad.apply(vec, mesh), like_scene, like_camera)
-        alpha = object_coverage(scene, object_ref, camera, cfg, edge_width)
+        alpha = object_coverage(stop_frozen(scene, cfg), object_ref, camera, cfg, edge_width)
         zero_map = params.soft_zero_map(like_scene, like_camera, object_ref)
         return SoftImageLoss.apply(vec, alpha, like_scene, like_camera, cfg, seed, target,
                                    zero_map, mesh)
@@ -444,13 +520,13 @@ def soft_image_loss_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Ca
                                object_ref=object_ref)
     if vec.device.type != "cuda":
         raise ValueError(f"soft_image_loss_kernel takes CPU or CUDA tensors, got {vec.device}")
-    alpha = object_coverage(scene, object_ref, camera, cfg, edge_width)
+    alpha = object_coverage(stop_frozen(scene, cfg), object_ref, camera, cfg, edge_width)
     if object_ref[0] == "spaces":
         without = drop_object(scene, object_ref)
         light_with = render_light_kernel(vec, like_scene, like_camera, cfg, seed)
         light_without = render_light_kernel(params.pack(without, camera),
                                             drop_object(like_scene, object_ref), like_camera,
-                                            cfg, seed)
+                                            hints_for_dropped(cfg, object_ref), seed)
         return _blend_loss(alpha, light_to_color(light_with, cfg.light_coefficient),
                            light_to_color(light_without, cfg.light_coefficient),
                            torch.as_tensor(target, dtype=torch.float32, device=vec.device))
@@ -582,12 +658,21 @@ def make_packed_train_step(cfg: RenderConfig, lr: float, camera: Camera, scene_t
     * ``unpack(model or scene_vec) -> Scene``.
 
     ``param_filter`` (the make_train_step contract) becomes a packed 0/1
-    vector that multiplies the gradient before the optimizer.
+    vector that multiplies the gradient before the optimizer; so does the
+    freeze_hints contract's mask (params.freeze_mask, gradkernel.py:1011-1017),
+    which keeps the frozen slots bitwise constant under Adam. ``cfg``
+    should come from ``with_frozen_hints``, the production configuration;
+    its hints are derived here when it asks for the contract and has none.
     """
+    cfg = gradkernel._auto_hints(scene_template, cfg)
     renderer.check_trainable(cfg, scene_template)
     n = params.n_scene(scene_template)
     cam_vec = params.pack(scene_template, camera).detach()[n:]
-    mask = None if param_filter is None else params.leaf_mask(param_filter, scene_template)
+    masks = [m for m in (None if param_filter is None else
+                         params.leaf_mask(param_filter, scene_template),
+                         params.freeze_mask(cfg, scene_template)) if m is not None]
+    # On the template's device once: a copy a step would wait for the step's kernels.
+    mask = None if not masks else torch.stack(masks).prod(0).to(cam_vec.device)
 
     def init(scene: Scene):
         vec = params.pack(scene, camera).detach()

@@ -10,8 +10,11 @@ through its silhouette, with the soft-silhouette loss of the lamp
 (one K4 launch per step for glow, one K6 launch per step for position),
 ``--impl plain`` through torch autograd over the plain pipeline;
 ``--packed`` runs the packed-space loop (diff.make_packed_train_step,
-hard loss only). Exits 0 when the recovered value is within ``--tol`` of
-the truth.
+hard loss only) in the production configuration, the frozen static hints
+(diff.with_frozen_hints), as the JAX tool forces them there;
+``--freeze-hints`` runs the kernels under that contract
+(inverse_render.py:147-172 of the JAX tools). Exits 0 when the recovered
+value is within ``--tol`` of the truth.
 
 ``--mesh`` shards the steps over the ranks of a torch.distributed process
 group (parallel/mesh.py: rows over every rank, one all-reduce of the loss
@@ -25,8 +28,7 @@ neither, a 1-rank mesh. Only rank 0 prints.
     python -m fourd_ray_tracing_tpu_torch.inverse_render --param position --impl kernel
     torchrun --nproc-per-node 2 -m fourd_ray_tracing_tpu_torch.inverse_render --mesh
 
-Not ported yet, and raising: ``--freeze-hints`` (ROADMAP queue 1, item 4a,
-training half) and ``--ckpt`` (item 13).
+Not ported yet, and raising: ``--ckpt`` (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -126,14 +128,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "K6 launch per step for position, on the card); plain = torch autograd "
                     "over the plain pipeline")
     ap.add_argument("--freeze-hints", action="store_true",
-                    help="not ported yet (ROADMAP queue 1, item 4a, training half)")
+                    help="with --impl kernel: the production configuration "
+                    "(diff.with_frozen_hints): the kernels fold with the forward's static "
+                    "hints and the hyperplane normals' gradients are defined zero, every "
+                    "other gradient exact; the gradient filter freezes all but the target "
+                    "parameter anyway")
     ap.add_argument("--packed", action="store_true",
-                    help="with --impl kernel: the packed-space loop "
+                    help="with --impl kernel: the packed-space production loop "
                     "(diff.make_packed_train_step, Adam on the kernel's flat parameter "
-                    "vector). Unlike the JAX tool's --packed, which forces the frozen "
-                    "static hints, this trains without hints, with exact gradients for "
-                    "every parameter; for --param glow that changes nothing, since the "
-                    "gradient filter zeroes every other gradient")
+                    "vector), always with the frozen static hints of --freeze-hints, as "
+                    "the JAX tool runs it")
     ap.add_argument("--ckpt", default=None, help="not ported yet (ROADMAP queue 1, item 13)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--tol", type=float, default=None,
@@ -177,9 +181,6 @@ def join_mesh(args: argparse.Namespace, device: torch.device):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.freeze_hints:
-        raise NotImplementedError("--freeze-hints (the hinted gradient kernels) is not "
-                                  "ported yet (ROADMAP queue 1, item 4a, training half)")
     if args.ckpt:
         raise NotImplementedError("--ckpt is not ported yet (ROADMAP queue 1, item 13)")
     if args.packed and (args.impl != "kernel" or args.param != "glow" or args.mesh):
@@ -191,12 +192,14 @@ def main(argv=None) -> int:
     if args.mesh:
         mesh, device, joined = join_mesh(args, device)
     cfg, camera, target, scene0 = setup(args, device)
+    if args.impl == "kernel" and (args.freeze_hints or args.packed):
+        cfg = diff.with_frozen_hints(cfg, scene0)
     t = task(args.param)
     lr = args.lr or t.lr
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     log0(f"inverse_render param={args.param} impl={args.impl} packed={args.packed} "
-         f"{cfg.width}x{cfg.height}x{cfg.samples}spp x{cfg.reflections_amount} device={name}",
-         flush=True)
+         f"freeze_hints={cfg.freeze_hints} {cfg.width}x{cfg.height}x{cfg.samples}spp "
+         f"x{cfg.reflections_amount} device={name}", flush=True)
 
     if args.packed:
         step, init, unpack = diff.make_packed_train_step(cfg, lr, camera, scene0,

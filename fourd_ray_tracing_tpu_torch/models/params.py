@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from fourd_ray_tracing_tpu_torch.camera import Camera
-from fourd_ray_tracing_tpu_torch.models.scene import COMPOSITE_KINDS, Scene, check_supported
+from fourd_ray_tracing_tpu_torch.models.scene import (COMPOSITE_KINDS, Scene, check_supported,
+                                                       freeze_hint_grads)
 from fourd_ray_tracing_tpu_torch.ops.sky import Environment
 
 # Floats per packed primitive: point(4) norm(4) glow refl color(3), and
@@ -165,8 +166,71 @@ def leaf_mask(filter_fn, like_scene: Scene) -> torch.Tensor:
     packed space: ``filter_fn`` (a Scene -> Scene map that zeroes the
     gradients of frozen parameters) applied to an all-ones scene, packed
     (diff.py:1035-1044)."""
-    ones = map_leaves(lambda t: torch.ones_like(t, dtype=torch.float32), like_scene)
+    ones = map_leaves(lambda t: torch.ones_like(t, dtype=torch.float32, device="cpu"),
+                      like_scene)
     return torch.cat([t.to(torch.float32).reshape(-1) for t in tree_leaves(filter_fn(ones))])
+
+
+def freezes(cfg) -> bool:
+    """Whether ``cfg`` (a RenderConfig) freezes any gradient: the
+    freeze_hints contract with static hints to freeze by."""
+    return cfg.freeze_hints and (cfg.plane_hints is not None or cfg.axis_hints is not None)
+
+
+# The freeze_hints contract's masks, made on first use: one entry per scene
+# structure, hints and form (freeze_mask's vectors, frozen_leaves' flags).
+_FREEZE_MASKS = {}
+
+
+def _frozen_memo(cfg, like_scene: Scene, form, make):
+    hc = like_scene.hypercube
+    structure = (len(like_scene.spaces), len(like_scene.spheres), len(like_scene.cylinders),
+                 like_scene.cylinders_union is not None,
+                 None if hc is None else hc.point is not None, like_scene.tiger is not None,
+                 like_scene.environment is not None)
+    key = (structure, cfg.plane_hints, cfg.axis_hints, form)
+    if key not in _FREEZE_MASKS:
+        _FREEZE_MASKS[key] = make()
+    return _FREEZE_MASKS[key]
+
+
+def freeze_mask(cfg, like_scene: Scene, size: int | None = None, device="cpu"):
+    """The float32 0/1 vector of the freeze_hints contract on ``device``:
+    0 on the slots ``scene.freeze_hint_grads`` zeroes under ``cfg``'s
+    hints, the packed all-ones scene it leaves (gradkernel.py:1011-1017);
+    (n_scene,), or padded with 1s to ``size`` slots (the camera's, for a
+    launch over the packed (P,) vector). None when ``cfg`` freezes
+    nothing. Made once per scene structure, hints, size and device, so a
+    training loop builds and copies it once (callers must not write to
+    it)."""
+    if not freezes(cfg):
+        return None
+    if size is None and str(device) == "cpu":
+        return _frozen_memo(cfg, like_scene, None, lambda: leaf_mask(
+            lambda g: freeze_hint_grads(g, cfg.plane_hints, cfg.axis_hints), like_scene))
+
+    def make():
+        base = freeze_mask(cfg, like_scene)
+        pad = torch.ones((base.numel() if size is None else size) - base.numel())
+        return torch.cat([base, pad]).to(device)
+
+    return _frozen_memo(cfg, like_scene, (size, str(device)), make)
+
+
+def frozen_leaves(cfg, like_scene: Scene):
+    """Per leaf of ``like_scene`` (tree_leaves order), whether the
+    freeze_hints contract freezes a slot of it (each frozen leaf freezes
+    whole); None when ``cfg`` freezes nothing. Made once per scene
+    structure and hints, beside freeze_mask."""
+    if not freezes(cfg):
+        return None
+
+    def make():
+        mask = freeze_mask(cfg, like_scene).numpy()
+        sizes = [t.numel() for t in tree_leaves(like_scene)]
+        return tuple(bool(f) for f in np.minimum.reduceat(mask, np.cumsum([0] + sizes[:-1])) == 0)
+
+    return _frozen_memo(cfg, like_scene, "leaves", make)
 
 
 # The fields of Layout that the kernels' struct Layout holds (csrc/trace.cuh

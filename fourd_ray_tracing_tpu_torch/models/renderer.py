@@ -45,14 +45,14 @@ class RenderConfig:
     renders rng_mode="per_sample", sampler_method="poly", intersect="fast",
     with or without the static hints (``plane_hints``, ``plane_pairs``,
     ``axis_hints``: models/scene.py); other values raise (check_supported).
-    The hints are the forward's: the gradient paths refuse them
-    (check_trainable). The Mosaic-only knobs (bounce_loop,
-    tile_sublanes, tiles_per_program) and ``remat`` are carried and
-    ignored. Of the training knobs, ``freeze_hints`` raises (the training
-    half of the hints is not ported), and ``grad_sample_chunk`` must divide
+    The gradient paths take the hints only under ``freeze_hints``, the
+    contract that defines the hyperplane normals' and the hinted axes'
+    gradients zero (check_trainable, diff.with_frozen_hints). The
+    Mosaic-only knobs (bounce_loop, tile_sublanes, tiles_per_program) and
+    ``remat`` are carried and ignored. ``grad_sample_chunk`` must divide
     ``samples`` as in the JAX package, but changes nothing here: on the TPU
     it only chunked the grad kernel's VMEM residuals, which re-associates
-    its sums."""
+    its sums; the port's sweep has no chunks."""
 
     width: int = 256
     height: int = 256
@@ -92,12 +92,6 @@ def check_supported(cfg: RenderConfig) -> None:
             f"intersect={cfg.intersect!r} (the literal per-primitive fold) is not "
             "ported yet (ROADMAP queue 1, items 5-6, with the oracle goldens); use 'fast'"
         )
-    if cfg.freeze_hints:
-        raise NotImplementedError(
-            "freeze_hints (the hinted folds in the gradient kernels) is not ported "
-            "yet (ROADMAP queue 1, item 4a, training half); train without it: "
-            "every gradient is exact"
-        )
     if cfg.samples % max(1, cfg.grad_sample_chunk):
         raise ValueError(
             f"samples ({cfg.samples}) must be divisible by grad_sample_chunk "
@@ -107,19 +101,22 @@ def check_supported(cfg: RenderConfig) -> None:
 
 def check_trainable(cfg: RenderConfig, scene) -> None:
     """The gradient paths' check (the plain autograd route, K4-K6, K8):
-    check_supported; ValueError when ``cfg`` carries static hints (hinted
-    normal and axis components would get no gradient and the pair fold
-    rewrites the walls' math; the JAX package refuses them there too,
-    gradkernel.py:663-671); NotImplementedError when ``scene`` (a Scene or
-    its params.Layout) holds a composite primitive, whose adjoint is not
-    ported yet (scene.check_trainable_scene). ``scene`` is None only where
-    the scene comes later (make_train_step, whose steps check it)."""
+    check_supported; ValueError when ``cfg`` carries static hints without
+    ``freeze_hints`` (hinted normal and axis components would get no
+    gradient and the pair fold rewrites the walls' math: the JAX gradient
+    kernel refuses them outside that contract too, gradkernel.py:653-671);
+    NotImplementedError when ``scene`` (a Scene or its params.Layout) holds
+    a composite primitive, whose adjoint is not ported yet
+    (scene.check_trainable_scene). ``scene`` is None only where the scene
+    comes later (make_train_step, whose steps check it)."""
     check_supported(cfg)
-    if cfg.plane_hints is not None or cfg.plane_pairs is not None or cfg.axis_hints is not None:
+    if (cfg.plane_hints is not None or cfg.plane_pairs is not None
+            or cfg.axis_hints is not None) and not cfg.freeze_hints:
         raise ValueError(
-            "static scene hints are the forward's: the gradient paths run without "
-            "them (their freeze_hints contract is ROADMAP queue 1, item 4a, "
-            "training half, not ported yet)"
+            "static scene hints distort the hinted components' gradients; the gradient "
+            "paths run them only under the freeze_hints contract (hyperplane normals and "
+            "hinted axes get zero gradients, every other gradient stays exact): see "
+            "diff.with_frozen_hints"
         )
     if scene is not None:
         check_trainable_scene(scene)

@@ -3,7 +3,8 @@
 Counterpart of fourd_ray_tracing_tpu/models/scene.py: hyperplanes,
 hyperspheres, cylinders, the duocylinder, the hypercube and the tiger,
 with the static hints of the production fold (``plane_norm_hints``,
-``plane_pair_hints``, ``axis_alignment_hints``). `Scene` keeps the JAX
+``plane_pair_hints``, ``axis_alignment_hints``) and the gradient
+contract under them (``freeze_hint_grads``). `Scene` keeps the JAX
 package's field layout, so a scene packs to the same flat vector
 (models/params.py). The forward renders every primitive; the gradient
 paths refuse the composite ones (``check_trainable_scene``: ROADMAP queue
@@ -252,6 +253,46 @@ def axis_alignment_hints(scene: Scene):
             and tiger_hints is None):
         return None
     return AxisHints(cyl_hints, union_hints, hc_hints, tiger_hints)
+
+
+def freeze_hint_grads(grads: Scene, plane_hints, axis_hints) -> Scene:
+    """``grads`` (a Scene of gradients) with the leaves the freeze_hints
+    contract freezes made zero (scene.py:219-259): every hyperplane normal
+    when there are plane hints, and the axis vectors of each hinted
+    composite primitive (a hinted cylinder's, both duocylinder families',
+    the hypercube's, the tiger's four cylinders'). Under the static hints
+    the gradient kernels' gradients are exact for every other leaf: the
+    pair fold rewrites the walls' math, so the normals' cotangents are not
+    the unhinted fold's, and a hinted axis's dropped projection terms
+    would get none."""
+
+    def zvec(v: Vec4) -> Vec4:
+        return Vec4(*(torch.zeros_like(c) for c in v))
+
+    def zcyl(c: CylinderSpec) -> CylinderSpec:
+        return c._replace(axis1=zvec(c.axis1), axis2=zvec(c.axis2))
+
+    if plane_hints is not None and grads.spaces:
+        grads = grads._replace(spaces=tuple(sp._replace(norm=zvec(sp.norm))
+                                            for sp in grads.spaces))
+    ah = axis_hints
+    if ah is None:
+        return grads
+    if grads.cylinders and any(h is not None for h in ah.cylinders):
+        grads = grads._replace(cylinders=tuple(
+            zcyl(c) if k < len(ah.cylinders) and ah.cylinders[k] is not None else c
+            for k, c in enumerate(grads.cylinders)))
+    if grads.cylinders_union is not None and ah.cylinders_union is not None:
+        grads = grads._replace(cylinders_union=tuple(zcyl(c) for c in grads.cylinders_union))
+    if grads.hypercube is not None and ah.hypercube is not None:
+        hc = grads.hypercube
+        grads = grads._replace(hypercube=hc._replace(axes=tuple(zvec(a) for a in hc.axes)))
+    if grads.tiger is not None and ah.tiger is not None:
+        tg = grads.tiger
+        grads = grads._replace(tiger=tg._replace(
+            inner_cyl1=zcyl(tg.inner_cyl1), outer_cyl1=zcyl(tg.outer_cyl1),
+            inner_cyl2=zcyl(tg.inner_cyl2), outer_cyl2=zcyl(tg.outer_cyl2)))
+    return grads
 
 
 def _cyl_family_aligned(point: Vec4, pair, ray_o: Vec4, ray_d: Vec4) -> geo._CylFamily:

@@ -17,6 +17,9 @@ process group through a ``file://`` rendezvous in a temporary directory
   one two-row K5 launch backward per rank, whose wrapper all-reduces the
   gradient).
 
+Every item runs the production configuration, the frozen static hints
+(diff.with_frozen_hints).
+
 The parent runs the same work in one process without a mesh, compares
 (the image bitwise; losses and parameters within ``TOL``), and prints one
 JSON line; it exits non-zero when a rank fails or a result disagrees.
@@ -99,13 +102,15 @@ class Work:
 
 
 def _setup(w: Work, device):
+    """(scene, camera, cfg, zero target) of the work; the cfg in the
+    production configuration, the frozen static hints."""
     scene = library.SCENES[w.scene](device)
     orient = cam.orientation_from_angles(*cam.CameraAngles.of(0.0, 0.0, 0.0, device=device),
                                          device)
     camera = cam.make_camera(Vec4.of(0.0, -2.0, 0.0, 0.0, device=device), orient, 1.5, 2.0,
                              w.views, device)
     shape = (w.height, w.width, 3) if len(w.views) == 1 else (len(w.views), w.height, w.width, 3)
-    return scene, camera, w.cfg(), torch.zeros(shape, device=device)
+    return scene, camera, diff.with_frozen_hints(w.cfg(), scene), torch.zeros(shape, device=device)
 
 
 def _counts() -> dict:
@@ -113,7 +118,9 @@ def _counts() -> dict:
             "k2": megakernel.ROW_LAUNCHES, "k4": gradkernel.LAUNCHES,
             "k4_shard": gradkernel.SHARD_LAUNCHES, "k5": gradkernel.VJP_LAUNCHES,
             "k5_shard": gradkernel.SHARD_VJP_LAUNCHES, "k6": gradkernel.SOFT_LAUNCHES,
-            "k6_shard": gradkernel.SHARD_SOFT_LAUNCHES}
+            "k6_shard": gradkernel.SHARD_SOFT_LAUNCHES, "k4_hinted": gradkernel.HINTED_LAUNCHES,
+            "k5_hinted": gradkernel.HINTED_VJP_LAUNCHES,
+            "k6_hinted": gradkernel.HINTED_SOFT_LAUNCHES}
 
 
 def _sync(device) -> None:
@@ -176,9 +183,10 @@ def _pair(mesh, w: Work, device) -> dict:
 
 
 def _inverse_render(mesh, w: Work, device, impl: str) -> dict:
-    """inverse_render --param glow at its defaults (--mesh with a mesh):
-    its exit code."""
-    argv = ["--impl", impl, "--device", device.type, *(["--mesh"] if mesh is not None else [])]
+    """inverse_render --param glow --freeze-hints at its defaults (--mesh
+    with a mesh): its exit code."""
+    argv = ["--impl", impl, "--device", device.type, "--freeze-hints",
+            *(["--mesh"] if mesh is not None else [])]
     return {"rc": inverse_render.main(argv)}
 
 

@@ -13,8 +13,11 @@ over the image's pixels, unscaled:
 
 ``launch_variant`` is one kernel launch on CUDA tensors; ``variant_plain``
 the same sums over the plain pipeline (models/renderer.py), in double
-(tools/grad_ablate.py's ``build`` routes by device). ``LAUNCHES`` counts
-kernel launches.
+(tools/grad_ablate.py's ``build`` routes by device). Under the
+freeze_hints contract (diff.with_frozen_hints, as the JAX tool runs them,
+grad_ablate.py:153-163) the variants fold with the static hints, as K4's
+pass 1 does, and so does their plain version. ``LAUNCHES`` counts kernel
+launches, ``HINTED_LAUNCHES`` those with static hints.
 """
 from __future__ import annotations
 
@@ -28,10 +31,10 @@ from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
 from fourd_ray_tracing_tpu_torch.models.scene import Scene
 from fourd_ray_tracing_tpu_torch.ops.cuda import build, gradkernel
-from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import launch_rows
+from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import hint_table, hinted, launch_rows
 from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
 
-LAUNCHES = 0
+LAUNCHES = HINTED_LAUNCHES = 0
 MODES = ("acc", "loss", "vjp")
 
 
@@ -62,7 +65,7 @@ def launch_variant(mode: str, packed: torch.Tensor, lay: params.Layout, cfg: Ren
     ``mode``'s per-pixel values, from the packed (P,) params, one uint32
     seed and the (V, H, W, 3) or (H, W, 3) float32 target, on their CUDA
     device (``acc`` does not read the target)."""
-    global LAUNCHES
+    global LAUNCHES, HINTED_LAUNCHES
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     gradkernel._check_launch(packed, lay, cfg, target)
@@ -71,6 +74,7 @@ def launch_variant(mode: str, packed: torch.Tensor, lay: params.Layout, cfg: Ren
     if target.numel() != lay.n_views * cfg.height * cfg.width * 3 or target.shape[-1] != 3:
         raise ValueError(f"target must hold {lay.n_views} x {cfg.height} x {cfg.width} x 3 "
                          f"values, got {tuple(target.shape)}")
+    hints = hint_table(cfg, lay) if hinted(cfg) else None
     lib = build.load()
     table = (ctypes.c_int * len(lay))(*lay)
     n_cols = gradkernel._scratch_cols(lib, table, cfg, cfg.height)
@@ -83,10 +87,12 @@ def launch_variant(mode: str, packed: torch.Tensor, lay: params.Layout, cfg: Ren
             MODES.index(mode), packed.data_ptr(), seed & 0xFFFFFFFF, ctypes.addressof(table),
             cfg.width, cfg.height, cfg.samples, cfg.reflections_amount,
             float(np.float32(cfg.small_indent)), float(np.float32(cfg.light_coefficient)),
-            target.data_ptr(), loss_parts.data_ptr(), value.data_ptr(), stream,
+            target.data_ptr(), loss_parts.data_ptr(), value.data_ptr(),
+            None if hints is None else ctypes.addressof(hints), stream,
         )
     if err != 0:
         raise RuntimeError(f"variant kernel launch failed: cudaError {err}")
     LAUNCHES += 1
+    HINTED_LAUNCHES += int(hints is not None)
     return value
 

@@ -239,6 +239,7 @@ SIGNATURES = {
         ctypes.c_void_p,                  # target (V, H, W, 3) float32, device
         ctypes.c_void_p,                  # loss_parts (n_cols,) float64, device
         ctypes.c_void_p,                  # value out () float32, device
+        ctypes.c_void_p,                  # static hints (int[HINT_INTS]), host, or null
         ctypes.c_void_p,                  # cudaStream_t
     ], ctypes.c_int),
     "fourd_loss_grad_launch": ([
@@ -257,6 +258,8 @@ SIGNATURES = {
         ctypes.c_void_p,                  # loss_parts (n_cols,) float64, device
         ctypes.c_void_p,                  # grad out (P,) float32, device
         ctypes.c_void_p,                  # loss out () float32, device
+        ctypes.c_void_p,                  # static hints (int[HINT_INTS]), host, or null
+        ctypes.c_void_p,                  # keep: the frozen-slot mask (P,) float32, device, or null
         ctypes.c_void_p,                  # cudaStream_t
     ], ctypes.c_int),
     "fourd_grad_scratch_cols": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int],
@@ -274,6 +277,8 @@ SIGNATURES = {
         ctypes.c_void_p,                  # cot (F, V, n_rows, W, 3) float32, device
         ctypes.c_void_p,                  # grad_parts (F*P, n_cols) float32, device
         ctypes.c_void_p,                  # grad out (F, P) float32, device
+        ctypes.c_void_p,                  # static hints (int[HINT_INTS]), host, or null
+        ctypes.c_void_p,                  # keep: the frozen-slot mask (P,) float32, device, or null
         ctypes.c_void_p,                  # cudaStream_t
     ], ctypes.c_int),
     "fourd_soft_loss_grad_launch": ([
@@ -296,6 +301,8 @@ SIGNATURES = {
         ctypes.c_void_p,                  # grad out (P,) float32, device
         ctypes.c_void_p,                  # loss out () float32, device
         ctypes.c_void_p,                  # alpha_cot out (V, n_rows, W) float32, device
+        ctypes.c_void_p,                  # static hints (int[HINT_INTS]), host, or null
+        ctypes.c_void_p,                  # keep: the frozen-slot mask (P,) float32, device, or null
         ctypes.c_void_p,                  # cudaStream_t
     ], ctypes.c_int),
 }

@@ -17,6 +17,17 @@ Counterpart of fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:
   scene blended by a coverage alpha with its zero-map copy, the gradient
   of every packed parameter and the cotangent of alpha.
 
+Under the freeze_hints contract (``cfg.freeze_hints`` with the static
+hints, diff.with_frozen_hints) every launch folds with the forward's hints
+(K1's fold table, one per block) and its gradient is exact for every slot
+but the frozen ones, which it writes as 0 (the packed mask of
+models/params.py ``freeze_mask``); its loss and every other slot
+are the unhinted launch's. The entry points that take a scene derive the
+hints from it when the config asks for the contract and has none
+(``_auto_hints``, gradkernel.py:674-700); a launch is handed them and the
+mask. The plain versions run the hinted plain pipeline and zero the same
+slots.
+
 Each takes ``rows`` = (row0, n_rows): image rows [row0, row0 + n_rows)
 only, with the target, cotangent, alpha and alpha cotangent the blocks of
 those rows, and the loss and gradient those rows' part of the whole
@@ -35,7 +46,8 @@ shapes whose whole graph would not fit. ``LAUNCHES``,
 K6, each raised once per ``launch_*`` call, so a run can show that its
 main path went through them; ``SHARD_LAUNCHES``, ``SHARD_VJP_LAUNCHES``
 and ``SHARD_SOFT_LAUNCHES`` count those of them over fewer rows than the
-image.
+image, ``HINTED_LAUNCHES``, ``HINTED_VJP_LAUNCHES`` and
+``HINTED_SOFT_LAUNCHES`` those that ran the static hints.
 """
 from __future__ import annotations
 
@@ -48,19 +60,60 @@ from fourd_ray_tracing_tpu_torch.camera import Camera
 from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
 from fourd_ray_tracing_tpu_torch.models.scene import Scene
-from fourd_ray_tracing_tpu_torch.ops.cuda import build
-from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import launch_rows, seed_tensor
+from fourd_ray_tracing_tpu_torch.ops.cuda import build, megakernel
+from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import (hint_table, hinted, launch_rows,
+                                                             seed_tensor, with_hints)
 from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh
 
 LAUNCHES = 0  # K4
 VJP_LAUNCHES = 0  # K5
 SOFT_LAUNCHES = 0  # K6
 SHARD_LAUNCHES = SHARD_VJP_LAUNCHES = SHARD_SOFT_LAUNCHES = 0  # of them, on a block of rows
+HINTED_LAUNCHES = HINTED_VJP_LAUNCHES = HINTED_SOFT_LAUNCHES = 0  # of them, with static hints
 # The kernels' caps on packed parameters and bounces and K6's zero-map
 # slots, which the build passes to them.
 MAX_PARAMS, MAX_BOUNCES = build.K4_MAX_PARAMS, build.K4_MAX_BOUNCES
 MAIN_BOUNCES = build.K4_MAIN_BOUNCES  # the bounce count with an unrolled instance
 MAX_ZERO_SLOTS = build.K6_MAX_ZERO_SLOTS
+
+
+def _auto_hints(scene: Scene, cfg: RenderConfig) -> RenderConfig:
+    """``cfg`` with the static hints of ``scene`` derived where it asks for
+    the freeze_hints contract and has none (gradkernel.py:674-700, as
+    megakernel.with_hints derives them); as it is otherwise. A scene whose
+    leaves require grad gives none, as a traced scene gives none in the JAX
+    package: a training step takes its hints from diff.with_frozen_hints."""
+    return with_hints(scene, cfg) if cfg.freeze_hints else cfg
+
+
+def freeze(grad: torch.Tensor, like_scene: Scene, cfg: RenderConfig) -> torch.Tensor:
+    """The packed gradient (P,) or (F, P) with the slots the freeze_hints
+    contract freezes set to 0 (gradkernel.py:703-710 on the packed vector);
+    as it is when ``cfg`` freezes nothing."""
+    mask = params.freeze_mask(cfg, like_scene, grad.shape[-1], grad.device)
+    if mask is None:
+        return grad
+    return torch.where(mask != 0, grad, torch.zeros((), dtype=grad.dtype, device=grad.device))
+
+
+def _launch_hints(lay: params.Layout, cfg: RenderConfig, keep, device):
+    """(hints descriptor or None, keep pointer or None) of a gradient
+    launch: the descriptor when ``cfg`` carries hints (it then carries the
+    contract: check_trainable); the mask ``keep`` is required when ``cfg``
+    freezes a slot and must be a (P,) float32 tensor on the launch's
+    device (params.freeze_mask(cfg, scene, P, device))."""
+    if not hinted(cfg):
+        return None, None
+    if keep is None:
+        raise ValueError("a launch under the freeze_hints contract takes the packed mask of its "
+                         "frozen slots (params.freeze_mask)")
+    if keep.device != device or keep.dtype != torch.float32 or keep.shape != (lay.size,):
+        raise ValueError(f"keep must be a ({lay.size},) float32 tensor on {device}")
+    return hint_table(cfg, lay), keep.data_ptr()
+
+
+def _addr(words):
+    return None if words is None else ctypes.addressof(words)
 
 
 @torch.enable_grad()
@@ -75,14 +128,16 @@ def loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Ca
     in float64: the same values (up to the order of the sums) with the
     autograd graph of one band in memory, for shapes whose whole graph
     would not fit. ``rows`` (the module's docstring) sums over those rows
-    alone, ``target`` their block."""
+    alone, ``target`` their block. Under the freeze_hints contract the
+    pipeline folds with the hints and the frozen slots come out 0."""
+    cfg = _auto_hints(like_scene, cfg)
     renderer.check_trainable(cfg, like_scene)
     if band_rows is None and rows is None:
         vec = packed.detach().clone().requires_grad_(True)
         scene, camera = params.unpack(vec, like_scene, like_camera)
         loss = renderer.image_loss(scene, camera, cfg, seed, target)
         (grad,) = torch.autograd.grad(loss, vec)
-        return loss.detach(), grad
+        return loss.detach(), freeze(grad, like_scene, cfg)
     row0, n_rows = launch_rows(cfg, rows)
     band_rows = band_rows or n_rows
     words, _ = renderer.seed_words(seed)
@@ -99,12 +154,12 @@ def loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Ca
             part = torch.sum(((image - target[..., band, :, :]) ** 2).double()) / count
             (g,) = torch.autograd.grad(part, vec)
             loss, grad = loss + part.detach(), grad + g.double()
-    return loss.float(), grad.float()
+    return loss.float(), freeze(grad.float(), like_scene, cfg)
 
 
 def check_shape(lay: params.Layout, cfg: RenderConfig) -> None:
     """Raise for what the gradient kernels cannot hold, and for static
-    hints (renderer.check_trainable)."""
+    hints outside the freeze_hints contract (renderer.check_trainable)."""
     renderer.check_trainable(cfg, lay)
     if lay.size > MAX_PARAMS:
         raise ValueError(f"the gradient kernels hold at most {MAX_PARAMS} packed "
@@ -135,17 +190,22 @@ def _check_launch(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig, *
 GRAD_BLOCK, GRAD_PITCH = 64, 65
 
 
-def launch_shapes(lay: params.Layout) -> dict:
+def launch_shapes(lay: params.Layout, cfg: RenderConfig | None = None) -> dict:
     """(threads a block, dynamic shared-memory bytes) of each kernel of the
-    gradient launches over ``lay`` (csrc/gradkernel.cu, reduce.cuh
-    grad_smem_bytes): the sweeps (K4's and K5's, K6's rows a and b) hold
-    the params row and their threads' columns, row b one byte a slot more;
-    the pass-1 kernels (K4's loss_cot, K6's soft_sum) the params row."""
-    sweep = 4 * (1 + GRAD_PITCH) * lay.size
-    row = 4 * lay.size
+    gradient launches over ``lay`` under ``cfg``'s hints (none by default)
+    (csrc/gradkernel.cu, reduce.cuh grad_smem_bytes): the sweeps (K4's and
+    K5's, K6's rows a and b) hold the params row, with hints padded to 16
+    bytes and followed by the fold table, and their threads' columns, row b
+    one byte a slot more; the pass-1 kernels (K4's loss_cot, K6's soft_sum)
+    the params row and the table."""
+    if cfg is not None and hinted(cfg):
+        head = megakernel.shared_bytes(lay, hint_table(cfg, lay))
+    else:
+        head = 4 * lay.size
+    sweep = head + 4 * GRAD_PITCH * lay.size
     return {"sweep_kernel": (GRAD_BLOCK, sweep), "soft_row_a_kernel": (GRAD_BLOCK, sweep),
             "soft_row_b_kernel": (GRAD_BLOCK, sweep + lay.size),
-            "loss_cot_kernel": (GRAD_BLOCK, row), "soft_sum_kernel": (GRAD_BLOCK, row)}
+            "loss_cot_kernel": (GRAD_BLOCK, head), "soft_sum_kernel": (GRAD_BLOCK, head)}
 
 
 def _scratch_cols(lib, table, cfg: RenderConfig, n_rows: int, n_frames: int = 1) -> int:
@@ -160,14 +220,16 @@ def _scratch_cols(lib, table, cfg: RenderConfig, n_rows: int, n_frames: int = 1)
 
 
 def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
-                     seeds: torch.Tensor, target: torch.Tensor, rows=None):
+                     seeds: torch.Tensor, target: torch.Tensor, rows=None, keep=None):
     """One kernel launch: (loss (), grad (P,)) float32, both scaled to the
     mean over F frames, views, pixels and channels, from the packed (P,)
     params, (F,) int32 seed words and the (V, H, W, 3) or (H, W, 3) float32
     target, on their CUDA device; with ``rows``, those rows' part, the
-    target their (V, n_rows, W, 3) block."""
-    global LAUNCHES, SHARD_LAUNCHES
+    target their (V, n_rows, W, 3) block. Under the freeze_hints contract
+    ``keep`` is the packed mask (params.freeze_mask)."""
+    global LAUNCHES, SHARD_LAUNCHES, HINTED_LAUNCHES
     _check_launch(packed, lay, cfg, target)
+    hints, keep_ptr = _launch_hints(lay, cfg, keep, packed.device)
     row0, n_rows = launch_rows(cfg, rows)
     device = packed.device
     if packed.dim() != 1:
@@ -197,12 +259,14 @@ def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
             cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
             float(np.float32(cfg.small_indent)), float(np.float32(cfg.light_coefficient)),
             target.data_ptr(), scale, g_mean.data_ptr(), grad_parts.data_ptr(),
-            loss_parts.data_ptr(), grad.data_ptr(), loss.data_ptr(), stream,
+            loss_parts.data_ptr(), grad.data_ptr(), loss.data_ptr(), _addr(hints), keep_ptr,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"value-and-grad kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     SHARD_LAUNCHES += int(n_rows < cfg.height)
+    HINTED_LAUNCHES += int(hints is not None)
     return loss, grad
 
 
@@ -211,12 +275,14 @@ def loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: Cam
     """(loss, (P,) gradient) of the packed CUDA vector by one kernel
     launch (with ``rows``, those rows' part, ``target`` their block); a
     vector on another device raises."""
+    cfg = _auto_hints(like_scene, cfg)
     renderer.check_trainable(cfg, like_scene)
     lay = params.layout(like_scene, like_camera)
     target = torch.as_tensor(target, dtype=torch.float32, device=packed.device).contiguous()
     words, _ = renderer.seed_words(seed)
     return launch_loss_grad(packed.detach().contiguous(), lay, cfg,
-                            seed_tensor(words, packed.device), target, rows)
+                            seed_tensor(words, packed.device), target, rows,
+                            params.freeze_mask(cfg, like_scene, lay.size, packed.device))
 
 
 def loss_and_grad_packed(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
@@ -246,7 +312,11 @@ def make_packed_loss_and_grad(scene: Scene, camera: Camera, cfg: RenderConfig):
       camera rides along as a constant;
     * ``scene_vec0`` the scene's slice of the packed vector;
     * ``unpack(scene_vec) -> Scene``.
+
+    Under the freeze_hints contract the hints are derived here, once, and
+    the frozen slots of the gradient are 0 (gradkernel.py:990-1017).
     """
+    cfg = _auto_hints(scene, cfg)
     renderer.check_trainable(cfg, scene)
     packed = params.pack(scene, camera).detach()
     n = params.n_scene(scene)
@@ -280,7 +350,9 @@ def render_light_vjp_plain(packed: torch.Tensor, like_scene: Scene, like_camera:
     vector takes an (H, W, 3) or (V, H, W, 3) cotangent and gives (P,);
     (F, P) rows of same-structure scenes take (F, ...) cotangents and give
     (F, P). With ``rows``, over those image rows, the cotangent their
-    block."""
+    block. Under the freeze_hints contract the pipeline folds with the
+    hints and the frozen slots come out 0."""
+    cfg = _auto_hints(like_scene, cfg)
     renderer.check_trainable(cfg, like_scene)
     seed = _scalar_seed(seed)
     row0, n_rows = launch_rows(cfg, rows)
@@ -291,17 +363,19 @@ def render_light_vjp_plain(packed: torch.Tensor, like_scene: Scene, like_camera:
                                                seed, band) for v in vecs])
     cot = torch.as_tensor(cot_light, dtype=torch.float32, device=vec.device).reshape(light.shape)
     (grad,) = torch.autograd.grad(light, vec, cot)
-    return grad
+    return freeze(grad, like_scene, cfg)
 
 
 def launch_light_vjp(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig, seed: int,
-                     cot: torch.Tensor, rows=None) -> torch.Tensor:
+                     cot: torch.Tensor, rows=None, keep=None) -> torch.Tensor:
     """One K5 launch: the unscaled packed gradient, (P,) or (F, P) like
     ``packed``, from the light cotangent ``cot`` ((F,) V, H, W, 3 float32;
     with ``rows``, the block of those rows) at one uint32 seed, on their
-    CUDA device."""
-    global VJP_LAUNCHES, SHARD_VJP_LAUNCHES
+    CUDA device. Under the freeze_hints contract ``keep`` is the packed
+    mask (params.freeze_mask), which every params row shares."""
+    global VJP_LAUNCHES, SHARD_VJP_LAUNCHES, HINTED_VJP_LAUNCHES
     _check_launch(packed, lay, cfg, cot)
+    hints, keep_ptr = _launch_hints(lay, cfg, keep, packed.device)
     row0, n_rows = launch_rows(cfg, rows)
     multi = packed.dim() == 2
     n_vecs = packed.shape[0] if multi else 1
@@ -319,12 +393,13 @@ def launch_light_vjp(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
             packed.data_ptr(), lay.size if multi else 0, n_vecs, seed, ctypes.addressof(table),
             cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
             float(np.float32(cfg.small_indent)), cot.data_ptr(), grad_parts.data_ptr(),
-            grad.data_ptr(), stream,
+            grad.data_ptr(), _addr(hints), keep_ptr, stream,
         )
     if err != 0:
         raise RuntimeError(f"light-VJP kernel launch failed: cudaError {err}")
     VJP_LAUNCHES += 1
     SHARD_VJP_LAUNCHES += int(n_rows < cfg.height)
+    HINTED_VJP_LAUNCHES += int(hints is not None)
     return grad
 
 
@@ -332,10 +407,12 @@ def render_light_vjp_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: 
                           cfg: RenderConfig, seed, cot_light, rows=None) -> torch.Tensor:
     """K5 on a CUDA vector, as ``render_light_vjp_plain`` computes it: one
     launch for (P,) or for (F, P) rows; another device raises."""
+    cfg = _auto_hints(like_scene, cfg)
     renderer.check_trainable(cfg, like_scene)
     cot = torch.as_tensor(cot_light, dtype=torch.float32, device=packed.device).contiguous()
-    return launch_light_vjp(packed.detach().contiguous(), params.layout(like_scene, like_camera),
-                            cfg, _scalar_seed(seed), cot, rows)
+    lay = params.layout(like_scene, like_camera)
+    return launch_light_vjp(packed.detach().contiguous(), lay, cfg, _scalar_seed(seed), cot, rows,
+                            params.freeze_mask(cfg, like_scene, lay.size, packed.device))
 
 
 # --- K6: the fused soft value-and-grad kernel --------------------------------
@@ -360,7 +437,10 @@ def render_soft_loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene,
     an independent leaf. The loss sums in float64 over row bands of
     ``band_rows`` rows (the whole image by default), as
     ``loss_and_grad_plain`` does; with ``rows``, over those image rows,
-    target, alpha and the alpha cotangent their blocks."""
+    target, alpha and the alpha cotangent their blocks. Under the
+    freeze_hints contract the pipeline folds with the hints and the frozen
+    slots come out 0."""
+    cfg = _auto_hints(like_scene, cfg)
     renderer.check_trainable(cfg, like_scene)
     seed = _scalar_seed(seed)
     device = packed.device
@@ -386,19 +466,23 @@ def render_soft_loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene,
         g, ga = torch.autograd.grad(part, (vec, a))
         loss, grad = loss + part.detach(), grad + g.double()
         g_alpha[..., band, :] = ga
-    return loss.float(), grad.float(), g_alpha
+    return loss.float(), freeze(grad.float(), like_scene, cfg), g_alpha
 
 
 def launch_soft_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig, seed: int,
-                          target: torch.Tensor, alpha: torch.Tensor, zero_map, rows=None):
+                          target: torch.Tensor, alpha: torch.Tensor, zero_map, rows=None,
+                          keep=None):
     """One K6 launch: (loss (), grad (P,), alpha cotangent shaped like
     ``alpha``) float32, all scaled to the mean over views, pixels and
     channels, from the packed (P,) params, one uint32 seed, the
     (V,) H, W, 3 target, the (V,) H, W coverage alpha and the zero map's
     static (slot, value) pairs, on their CUDA device; with ``rows``, those
-    rows' part, target, alpha and alpha cotangent their blocks."""
-    global SOFT_LAUNCHES, SHARD_SOFT_LAUNCHES
+    rows' part, target, alpha and alpha cotangent their blocks. Under the
+    freeze_hints contract ``keep`` is the packed mask (params.freeze_mask); both rows
+    fold with the hints (zero_object keeps every wall)."""
+    global SOFT_LAUNCHES, SHARD_SOFT_LAUNCHES, HINTED_SOFT_LAUNCHES
     _check_launch(packed, lay, cfg, target, alpha)
+    hints, keep_ptr = _launch_hints(lay, cfg, keep, packed.device)
     row0, n_rows = launch_rows(cfg, rows)
     total = lay.n_views * cfg.height * cfg.width
     block = lay.n_views * n_rows * cfg.width
@@ -434,12 +518,13 @@ def launch_soft_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderC
             float(np.float32(cfg.light_coefficient)), target.data_ptr(), alpha.data_ptr(), scale,
             sums.data_ptr(), row_b.data_ptr(), grad_parts.data_ptr(), loss_parts.data_ptr(),
             grad.data_ptr(),
-            loss.data_ptr(), alpha_cot.data_ptr(), stream,
+            loss.data_ptr(), alpha_cot.data_ptr(), _addr(hints), keep_ptr, stream,
         )
     if err != 0:
         raise RuntimeError(f"soft value-and-grad kernel launch failed: cudaError {err}")
     SOFT_LAUNCHES += 1
     SHARD_SOFT_LAUNCHES += int(n_rows < cfg.height)
+    HINTED_SOFT_LAUNCHES += int(hints is not None)
     return loss, grad, alpha_cot
 
 
@@ -447,13 +532,15 @@ def render_soft_loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like
                                    cfg: RenderConfig, seed, target, alpha, zero_map, rows=None):
     """K6 on a CUDA vector, as ``render_soft_loss_and_grad_plain``
     computes it, in one launch; another device raises."""
+    cfg = _auto_hints(like_scene, cfg)
     renderer.check_trainable(cfg, like_scene)
     device = packed.device
     target = torch.as_tensor(target, dtype=torch.float32, device=device).contiguous()
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device).detach().contiguous()
-    return launch_soft_loss_grad(packed.detach().contiguous(),
-                                 params.layout(like_scene, like_camera), cfg, _scalar_seed(seed),
-                                 target, alpha, zero_map, rows)
+    lay = params.layout(like_scene, like_camera)
+    return launch_soft_loss_grad(packed.detach().contiguous(), lay, cfg, _scalar_seed(seed),
+                                 target, alpha, zero_map, rows,
+                                 params.freeze_mask(cfg, like_scene, lay.size, device))
 
 
 # --- K3: the row-sharded launches of K4, K5 and K6 -------------------------------

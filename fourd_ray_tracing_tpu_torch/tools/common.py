@@ -17,17 +17,16 @@ import torch
 from fourd_ray_tracing_tpu_torch import camera as cam
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
 
-# What each tool runs of the static hints. The forward tool times K1 with
+# What each tool runs of the static hints: the forward tool times K1 with
 # the hints its entry points derive (each line names them); the training
-# tools time the gradient paths, whose kernels (K4-K6, K8, and the K1/K2
-# launches of diff.RenderLight) run no hints: their frozen-hints contract
-# is not ported yet (ROADMAP queue 1, item 4a, training half). The training
-# tools take the scenes without composite primitives only (ROADMAP queue 1,
-# item 4b, training half).
-_UNHINTED = ("none: the gradient paths' frozen-hints contract is ROADMAP queue 1, item 4a, "
-             "training half")
+# tools time the gradient paths in the production configuration of the JAX
+# tools, the frozen static hints (diff.with_frozen_hints: K1/K2, K4-K6 and
+# K8 fold with the forward's hints, the hyperplane normals' gradients
+# defined zero). The training tools take the scenes without composite
+# primitives only (ROADMAP queue 1, item 4b, training half).
+_FROZEN = "the frozen static hints (diff.with_frozen_hints), as the JAX tool runs them"
 HINTS_NOTE = {"fwd_ablate": "the static hints derived from each variant's scene",
-              "grad_ablate": _UNHINTED, "train_ablate": _UNHINTED, "soft_ablate": _UNHINTED}
+              "grad_ablate": _FROZEN, "train_ablate": _FROZEN, "soft_ablate": _FROZEN}
 
 
 SHAPE = (1280, 720, 8, 4)  # the JAX tools' width, height, samples, bounces

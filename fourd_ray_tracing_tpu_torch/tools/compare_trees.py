@@ -12,7 +12,12 @@ headline 4-frame launch (with the static hints where the tree has them)
 and the engine's ``step_frames(4)``; at light_coefficient 0.12, sphere 0,
 edge width 0.05 and a zero target, K4 at 1 and 4 frames, K5 over 1 and 2
 rows (a seeded random cotangent), K2 over the scene and its zero_object
-row, and K6. Each figure is ms per call, the median of ``--repeats`` runs
+row, and K6; where the tree has the freeze_hints contract
+(diff.with_frozen_hints), K4, K5 and K6 under it too (``*_hinted``: the
+room's instance of the hinted fold), and the same on the room with its
+walls listed y, x, z, w (``*_hinted_generic``: its pairs off the axis
+order, so the launches take the generic instance of the fold over the
+same walls). Each figure is ms per call, the median of ``--repeats`` runs
 of 4 back-to-back calls, CUDA events; one JSON line a turn. Then each
 tree's kernels' registers, stack and spill (its build log) and K1's
 resident warps per SM (libcuda's occupancy query on its cubins), and
@@ -100,6 +105,28 @@ def time_tree(tree: Path, repeats: int) -> dict:
                                                           zero_map)),
     }
     out["pair_k2_plus_k5"] = out["k2_pair"] + out["k5_2rows"]
+    if hasattr(diff, "with_frozen_hints"):
+        walls = scene.spaces
+        off_order = scene._replace(spaces=(*walls[2:4], *walls[:2], *walls[4:]))
+        for tag, s in (("_hinted", scene), ("_hinted_generic", off_order)):
+            hcfg = diff.with_frozen_hints(cfg, s)
+            p, lay_s = params.pack(s, camera), params.layout(s, camera)
+            keep = params.freeze_mask(hcfg, s, lay_s.size, dev)
+            rows2 = params.stack_rows((s, diff.zero_object(s, ref)), camera)
+            a_s = diff.object_coverage(s, ref, camera, hcfg, 0.05).detach().contiguous()
+            zm = params.soft_zero_map(s, camera, ref)
+            out.update({
+                "k4_1f" + tag: ms(lambda: gradkernel.launch_loss_grad(p, lay_s, hcfg, w1, target,
+                                                                      keep=keep)),
+                "k4_4f" + tag: ms(lambda: gradkernel.launch_loss_grad(p, lay_s, hcfg, w4, target,
+                                                                      keep=keep), calls=2),
+                "k5_1row" + tag: ms(lambda: gradkernel.launch_light_vjp(p, lay_s, hcfg, 1, cot1,
+                                                                        keep=keep)),
+                "k5_2rows" + tag: ms(lambda: gradkernel.launch_light_vjp(rows2, lay_s, hcfg, 1,
+                                                                         cot2, keep=keep)),
+                "k6" + tag: ms(lambda: gradkernel.launch_soft_loss_grad(
+                    p, lay_s, hcfg, 1, target, a_s, zm, keep=keep)),
+            })
     out["card"] = common.smi("name,power.limit")
     return out
 

@@ -15,9 +15,9 @@ One JSON line per variant (mode, ms, grays_per_s, value at seed 1), then
 the split. Defaults: room_with_sphere, the bench camera, 1280x720, 8 spp,
 4 bounces, light_coefficient 0.12, a zero target; CUDA events around
 ``--calls`` launches (4) per round, ``--rounds`` rounds (3), the median
-round. The JAX tool ran with the static hints (with_frozen_hints); the
-port's gradient kernels run none yet (ROADMAP queue 1, item 4a, training
-half).
+round. Like the JAX tool (grad_ablate.py:153-163) it runs them under
+the frozen static hints (diff.with_frozen_hints), the production
+configuration.
 
     python -m fourd_ray_tracing_tpu_torch.tools.grad_ablate [width height samples bounces]
     python -m fourd_ray_tracing_tpu_torch.tools.grad_ablate 32 16 2 2 --device cpu --rounds 1 --calls 1
@@ -30,6 +30,7 @@ import sys
 import numpy as np
 import torch
 
+from fourd_ray_tracing_tpu_torch import diff
 from fourd_ray_tracing_tpu_torch.app import resolve_device
 from fourd_ray_tracing_tpu_torch.models import library, params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
@@ -60,18 +61,21 @@ def build(scene, camera, cfg: RenderConfig, target, mode: str):
     lay = params.layout(scene, camera)
     if mode == "k4":
         words = seed_tensor(np.arange(MAX_SEED), device)
+        keep = params.freeze_mask(cfg, scene, lay.size, device)
         return lambda seed: gradkernel.launch_loss_grad(packed, lay, cfg, words[seed:seed + 1],
-                                                        target)[0]
+                                                        target, keep=keep)[0]
     return lambda seed: ablate.launch_variant(mode, packed, lay, cfg, seed, target)
 
 
 def workload(device, width=1280, height=720, samples=8, bounces=4) -> tuple:
     """(scene, camera, cfg, target) the tool times: the room, the bench
-    camera, light_coefficient 0.12, a zero target."""
+    camera, light_coefficient 0.12, a zero target, the frozen static
+    hints."""
     cfg = RenderConfig(width=width, height=height, samples=samples, reflections_amount=bounces,
                        light_coefficient=0.12, rng_mode="per_sample")
     target = torch.zeros((height, width, 3), dtype=torch.float32, device=device)
-    return library.room_with_sphere(device), common.default_camera(device), cfg, target
+    scene = library.room_with_sphere(device)
+    return scene, common.default_camera(device), diff.with_frozen_hints(cfg, scene), target
 
 
 def run(device, width=1280, height=720, samples=8, bounces=4, calls=4, rounds=3) -> dict:

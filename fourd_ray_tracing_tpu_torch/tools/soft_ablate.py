@@ -12,7 +12,8 @@ light_coefficient 0.12, edge width 0.05, a zero target):
   soft_full  value and gradient of diff.soft_image_loss_kernel: one K6
              launch (the fused step)
 
-Each prints one JSON line (ms per call: median of ``--rounds`` rounds of
+Every variant runs the frozen static hints (diff.with_frozen_hints), as
+the JAX tool does. Each prints one JSON line (ms per call: median of ``--rounds`` rounds of
 ``--calls`` back-to-back calls, CUDA events; grays/s; the loss), and the
 tool ends with ``fusion_win_ms`` = pair_soft - soft_full, with its
 spread: the win of each round (the variants' rounds paired in order) and
@@ -57,7 +58,7 @@ def variant_fns(scene, camera, cfg: RenderConfig, target) -> dict:
     def glue(s, pair):
         img_w = light_to_color(pair[0], cfg.light_coefficient)
         img_wo = light_to_color(pair[1], cfg.light_coefficient)
-        alpha = diff.object_coverage(s, REF, camera, cfg, EDGE)
+        alpha = diff.object_coverage(diff.stop_frozen(s, cfg), REF, camera, cfg, EDGE)
         return diff._blend_loss(alpha, img_w, img_wo, target)
 
     def fwd_pair():
@@ -97,6 +98,7 @@ def run(device, width=1280, height=720, samples=8, bounces=4, calls=8, rounds=30
     cfg = RenderConfig(width=width, height=height, samples=samples, reflections_amount=bounces,
                        light_coefficient=0.12, rng_mode="per_sample")
     scene, camera = library.room_with_sphere(device), common.default_camera(device)
+    cfg = diff.with_frozen_hints(cfg, scene)
     target = torch.zeros((height, width, 3), dtype=torch.float32, device=device)
     rays = width * height * samples
     card = common.card(device)

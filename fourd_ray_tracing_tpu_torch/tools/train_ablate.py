@@ -17,7 +17,8 @@ bounces, light_coefficient 0.12, a zero target):
   scan4      four make_packed_train_step steps issued back to back, one
              sync (the port has no scan; per-step figures)
 
-Each stage prints one JSON line: ms per step (median of ``--rounds``
+Every stage runs the frozen static hints (diff.with_frozen_hints), as the
+JAX tool does. Each stage prints one JSON line: ms per step (median of ``--rounds``
 rounds of ``--calls`` steps, CUDA events), grays/s, and its factor
 against the previous stage; then the deltas against ``fwd``.
 
@@ -52,6 +53,7 @@ def stage_fns(scene, camera, cfg: RenderConfig, target) -> dict:
     lay = params.layout(scene, camera)
     cuda = device.type == "cuda"
     words = megakernel.seed_tensor(np.arange(MAX_SEED), device) if cuda else None
+    keep = params.freeze_mask(cfg, scene, lay.size, device)
 
     def fwd(seed):
         if cuda:
@@ -65,7 +67,8 @@ def stage_fns(scene, camera, cfg: RenderConfig, target) -> dict:
 
     def kernel(seed):
         if cuda:
-            return gradkernel.launch_loss_grad(packed, lay, cfg, words[seed:seed + 1], target)
+            return gradkernel.launch_loss_grad(packed, lay, cfg, words[seed:seed + 1], target,
+                                               keep=keep)
         return gradkernel.loss_and_grad_plain(packed, scene, camera, cfg, seed, target)
 
     def loss_grad(seed):
@@ -100,6 +103,7 @@ def run(device, width=1280, height=720, samples=8, bounces=4, calls=8, rounds=5)
     cfg = RenderConfig(width=width, height=height, samples=samples, reflections_amount=bounces,
                        light_coefficient=0.12, rng_mode="per_sample")
     scene, camera = library.room_with_sphere(device), common.default_camera(device)
+    cfg = diff.with_frozen_hints(cfg, scene)
     target = torch.zeros((height, width, 3), dtype=torch.float32, device=device)
     rays = width * height * samples
     card = common.card(device)

@@ -211,17 +211,53 @@ def test_frame_seeds_follow_the_jax_minibatch():
     assert diff.frame_seeds(7, 1) == 7
 
 
-@pytest.mark.parametrize("make", [
-    lambda c, cam, s: diff.make_train_step(dataclasses.replace(c, freeze_hints=True), LR, cam),
-    lambda c, cam, s: diff.make_packed_train_step(dataclasses.replace(c, freeze_hints=True), LR,
-                                                  cam, s),
-    lambda c, cam, s: diff.render_grad(s, cam, dataclasses.replace(c, freeze_hints=True), 1,
-                                       torch.zeros(16, 32, 3)),
-], ids=["freeze_hints", "packed_freeze_hints", "grad_freeze_hints"])
+def _frozen_step_grad(cfg, cam, scene):
+    """One make_train_step(impl="kernel") step on the CPU, the config from
+    with_frozen_hints when it asks for the contract (a step's scene
+    requires grad, so the step derives no hints itself, as a jitted JAX
+    step does not): the scene's packed gradient."""
+    if cfg.freeze_hints:
+        cfg = diff.with_frozen_hints(cfg, scene)
+    step, init = diff.make_train_step(cfg, LR, cam, impl="kernel")
+    state, opt = init(scene)
+    step(state, opt, 1, torch.zeros(16, 32, 3))
+    return torch.cat([t.grad.reshape(-1) for t in params.tree_leaves(state)])
+
+
+def _frozen_packed_grad(cfg, cam, scene):
+    """One make_packed_train_step step on the CPU: the scene's packed
+    gradient, and the frozen slots unchanged by Adam."""
+    step, init, _ = diff.make_packed_train_step(cfg, LR, cam, scene)
+    model, opt = init(scene)
+    before = model.scene_vec.detach().clone()
+    step(model, opt, 1, torch.zeros(16, 32, 3))
+    frozen = params.freeze_mask(diff.with_frozen_hints(cfg, scene), scene) == 0
+    assert torch.equal(model.scene_vec.detach()[frozen], before[frozen])
+    return model.scene_vec.grad
+
+
+def _frozen_render_grad(cfg, cam, scene):
+    """render_grad's scene gradient, packed."""
+    _, (g_scene, _) = diff.render_grad(scene, cam, cfg, 1, torch.zeros(16, 32, 3))
+    return torch.cat([t.reshape(-1) for t in params.tree_leaves(g_scene)])
+
+
+@pytest.mark.parametrize("make", [_frozen_step_grad, _frozen_packed_grad, _frozen_render_grad],
+                         ids=["freeze_hints", "packed_freeze_hints", "grad_freeze_hints"])
 def test_unported_options_raise(make):
+    """The freeze_hints contract, once refused here, now runs on every
+    gradient path (the hints derived from the scene where the config has
+    none): the hyperplane normals' gradients 0, others flowing. The
+    forward's hints without the contract still raise ValueError, as in the
+    JAX package (test_gradkernel_rejects_hints)."""
     _, _, ts, tc = crossed("sphere_plane_light")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        make(T_CFG, tc, ts)
+    grad = make(dataclasses.replace(T_CFG, freeze_hints=True), tc, ts)
+    frozen = params.freeze_mask(diff.with_frozen_hints(T_CFG, ts), ts) == 0
+    assert frozen.sum() == 4 and torch.all(grad[frozen] == 0.0)
+    assert grad[~frozen].abs().max() > 0.0
+    hinted = diff.with_frozen_hints(T_CFG, ts)
+    with pytest.raises(ValueError, match="freeze_hints"):
+        make(dataclasses.replace(hinted, freeze_hints=False), tc, ts)
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -238,9 +274,18 @@ def test_bad_training_arguments_raise(kwargs):
 
 
 @pytest.mark.parametrize("flags", [["--freeze-hints"], ["--ckpt", "ckpt"]])
-def test_inverse_render_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        inverse_render.main(["--device", "cpu", *flags])
+def test_inverse_render_unported_flags_raise(flags, capsys):
+    """--ckpt is still to be ported and raises, naming its ROADMAP item;
+    --freeze-hints, once refused, now trains the kernel route under the
+    contract and recovers the glow."""
+    argv = ["--device", "cpu", "--impl", "kernel", "--width", "32", "--height", "20",
+            "--steps", "40", *flags]
+    if flags[0] == "--ckpt":
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
+            inverse_render.main(argv)
+        return
+    assert inverse_render.main(argv) == 0
+    assert "freeze_hints=True" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flags", [["--impl", "plain"], ["--impl", "kernel"],

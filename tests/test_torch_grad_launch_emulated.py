@@ -29,7 +29,7 @@ import torch
 from fourd_ray_tracing_tpu_torch import camera as tcam
 from fourd_ray_tracing_tpu_torch import diff
 from fourd_ray_tracing_tpu_torch.models import library, params, renderer
-from fourd_ray_tracing_tpu_torch.ops.cuda import build, gradkernel
+from fourd_ray_tracing_tpu_torch.ops.cuda import build, gradkernel, megakernel
 
 from test_torch_adjoint_host import assert_grad_close, camera_of, image_shape, ptr
 
@@ -204,9 +204,10 @@ def f32(x):
     return float(np.float32(x))
 
 
-def soft_launch(lib, packed, lay, cfg, seed, target, alpha, zero_map, rows):
+def soft_launch(lib, packed, lay, cfg, seed, target, alpha, zero_map, rows, hints=None):
     """fourd_soft_loss_grad_launch on host arrays, as launch_soft_loss_grad
-    makes it on the card: (loss, grad, alpha cotangent)."""
+    makes it on the card: (loss, grad, alpha cotangent). ``hints``: the
+    (descriptor, keep mask) of a launch under the freeze_hints contract."""
     row0, n_rows = rows
     table = layout_table(lay)
     n_cols = scratch_cols(lib, table, cfg, n_rows, n_frames=2)
@@ -224,9 +225,36 @@ def soft_launch(lib, packed, lay, cfg, seed, target, alpha, zero_map, rows):
         ctypes.addressof(values), cfg.width, cfg.height, row0, n_rows, cfg.samples,
         cfg.reflections_amount, f32(cfg.small_indent), f32(cfg.light_coefficient), ptr(target),
         ptr(alpha), scale, ptr(sums), ptr(row_b), ptr(grad_parts), ptr(loss_parts), ptr(grad),
-        ptr(loss), ptr(alpha_cot), None)
+        ptr(loss), ptr(alpha_cot), *hint_args(hints), None)
     assert err == 0
     return loss[0], grad, alpha_cot
+
+
+def hint_args(hints):
+    """The launch's hints and keep arguments: null, or the descriptor's
+    address and the mask's pointer."""
+    if hints is None:
+        return None, None
+    words, keep = hints
+    return ctypes.addressof(words), ptr(keep)
+
+
+def frozen_hints(scene, camera, cfg):
+    """(cfg under the freeze_hints contract, (descriptor, keep mask), frozen
+    slots) of the scene: the kernels' hints, as the wrappers hand them."""
+    hcfg = diff.with_frozen_hints(cfg, scene)
+    lay = params.layout(scene, camera)
+    keep = params.freeze_mask(hcfg, scene, lay.size).numpy()
+    return hcfg, (megakernel.hint_table(hcfg, lay), keep), keep == 0
+
+
+def assert_contract(hinted, unhinted, frozen):
+    """The freeze_hints contract on a packed gradient (P,) or (F, P): every
+    kept slot equal to the unhinted launch's (== takes -0 for +0), some of
+    them not 0, and every frozen slot 0."""
+    assert np.array_equal(hinted[..., ~frozen], unhinted[..., ~frozen])
+    assert np.abs(hinted[..., ~frozen]).max() > 0.0
+    assert np.all(hinted[..., frozen] == 0.0)
 
 
 def rows_of(x, rows, channels):
@@ -270,15 +298,8 @@ def test_soft_launch_matches_autograd(lib, name, ref, views, bounces, rows, wide
     assert_grad_close(out[2], ref_acot.numpy())
 
 
-def test_loss_grad_launch_matches_autograd(lib):
-    """K4's launch over two frames (its pass-1 kernel with the loss
-    reduction, the sweep over frame rows, sum_parts) against
-    loss_and_grad_plain."""
-    cfg = config()
-    scene, camera = library.room_with_sphere(CPU), camera_of(VIEWS_1)
-    lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
-    target = np.random.default_rng(4).uniform(0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)
-    seeds = np.array([0x12345678, 9], np.uint32)
+def loss_grad_launch(lib, packed, lay, cfg, seeds, target, hints=None):
+    """fourd_loss_grad_launch on host arrays: (loss, grad)."""
     table = layout_table(lay)
     n_cols = scratch_cols(lib, table, cfg, cfg.height, len(seeds))
     g_mean = np.zeros((len(seeds), *target.shape), np.float32)
@@ -289,12 +310,79 @@ def test_loss_grad_launch_matches_autograd(lib):
         ptr(packed), ptr(seeds), len(seeds), ctypes.addressof(table), cfg.width, cfg.height, 0,
         cfg.height, cfg.samples, cfg.reflections_amount, f32(cfg.small_indent),
         f32(cfg.light_coefficient), ptr(target), f32(1.0 / (len(seeds) * target.size)),
-        ptr(g_mean), ptr(grad_parts), ptr(loss_parts), ptr(grad), ptr(loss), None)
+        ptr(g_mean), ptr(grad_parts), ptr(loss_parts), ptr(grad), ptr(loss), *hint_args(hints),
+        None)
     assert err == 0
+    return loss[0], grad
+
+
+def test_loss_grad_launch_matches_autograd(lib):
+    """K4's launch over two frames (its pass-1 kernel with the loss
+    reduction, the sweep over frame rows, sum_parts) against
+    loss_and_grad_plain."""
+    cfg = config()
+    scene, camera = library.room_with_sphere(CPU), camera_of(VIEWS_1)
+    lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
+    target = np.random.default_rng(4).uniform(0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)
+    seeds = np.array([0x12345678, 9], np.uint32)
+    loss, grad = loss_grad_launch(lib, packed, lay, cfg, seeds, target)
     ref_loss, ref_grad = gradkernel.loss_and_grad_plain(
         torch.from_numpy(packed), scene, camera, cfg, seeds, torch.from_numpy(target))
-    np.testing.assert_allclose(loss[0], float(ref_loss), rtol=1e-6)
+    np.testing.assert_allclose(loss, float(ref_loss), rtol=1e-6)
     assert_grad_close(grad, ref_grad.numpy())
+
+
+# The launches under the freeze_hints contract: the room at the main bounce
+# count (its own instance, RoomFold) and at 3 (AnyFold), the lamp scene's
+# single floor plane (AnyFold), 1 and 3 views.
+HINTED = [("room_with_sphere", VIEWS_1, 4), ("room_with_sphere", VIEWS_1, 3),
+          ("sphere_plane_light", tcam.VIEWS_ALL, 4)]
+HINTED_IDS = ["room_main", "room_generic", "lamp_3view"]
+
+
+@pytest.mark.parametrize("name,views,bounces", HINTED, ids=HINTED_IDS)
+def test_hinted_loss_grad_launch_keeps_the_unhinted_values(lib, name, views, bounces):
+    """K4 under the contract: the loss bitwise the unhinted launch's, every
+    kept slot equal, the frozen ones (the hyperplane normals) 0; bitwise
+    across launches; within the mixed-scale bound of autograd over the
+    unhinted plain pipeline with the slots frozen."""
+    cfg = config(reflections_amount=bounces)
+    scene, camera = library.SCENES[name](CPU), camera_of(views)
+    lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
+    target = np.random.default_rng(4).uniform(
+        0, 1, (*image_shape(views, cfg), 3)).astype(np.float32)
+    seeds = np.array([0x12345678, 9], np.uint32)
+    hcfg, hints, frozen = frozen_hints(scene, camera, cfg)
+    loss, grad = loss_grad_launch(lib, packed, lay, hcfg, seeds, target, hints)
+    again = loss_grad_launch(lib, packed, lay, hcfg, seeds, target, hints)
+    loss_u, grad_u = loss_grad_launch(lib, packed, lay, cfg, seeds, target)
+    assert loss == loss_u and loss == again[0] and np.array_equal(grad, again[1])
+    assert_contract(grad, grad_u, frozen)
+    # The mask alone decides which slots come out 0: freeze a live slot too.
+    live = int(np.flatnonzero(grad)[0])
+    words, keep = hints
+    keep = keep.copy()
+    keep[live] = 0.0
+    _, masked = loss_grad_launch(lib, packed, lay, hcfg, seeds, target, (words, keep))
+    assert masked[live] == 0.0 and np.array_equal(np.delete(masked, live), np.delete(grad, live))
+    _, ref = gradkernel.loss_and_grad_plain(torch.from_numpy(packed), scene, camera, cfg, seeds,
+                                            torch.from_numpy(target))
+    assert_grad_close(grad, np.where(frozen, 0.0, ref.numpy()).astype(np.float32))
+
+
+def light_vjp_launch(lib, rows, lay, cfg, cot, hints=None):
+    """fourd_light_vjp_launch on host arrays over (F, P) params rows: the
+    (F, P) gradient."""
+    table = layout_table(lay)
+    n_cols = scratch_cols(lib, table, cfg, cfg.height)
+    grad_parts = np.zeros((len(rows) * lay.size, n_cols), np.float32)
+    grad = np.zeros((len(rows), lay.size), np.float32)
+    err = lib.fourd_light_vjp_launch(
+        ptr(rows), lay.size, len(rows), 9, ctypes.addressof(table), cfg.width, cfg.height, 0,
+        cfg.height, cfg.samples, cfg.reflections_amount, f32(cfg.small_indent), ptr(cot),
+        ptr(grad_parts), ptr(grad), *hint_args(hints), None)
+    assert err == 0
+    return grad
 
 
 def test_light_vjp_launch_matches_autograd(lib):
@@ -305,15 +393,103 @@ def test_light_vjp_launch_matches_autograd(lib):
     lay = params.layout(scene, camera)
     rows = params.stack_rows([scene, diff.zero_object(scene, ("spheres", 0))], camera).numpy()
     cot = np.random.default_rng(7).normal(0, 1, (2, cfg.height, cfg.width, 3)).astype(np.float32)
-    table = layout_table(lay)
-    n_cols = scratch_cols(lib, table, cfg, cfg.height)
-    grad_parts = np.zeros((2 * lay.size, n_cols), np.float32)
-    grad = np.zeros((2, lay.size), np.float32)
-    err = lib.fourd_light_vjp_launch(
-        ptr(rows), lay.size, 2, 9, ctypes.addressof(table), cfg.width, cfg.height, 0, cfg.height,
-        cfg.samples, cfg.reflections_amount, f32(cfg.small_indent), ptr(cot), ptr(grad_parts),
-        ptr(grad), None)
-    assert err == 0
+    grad = light_vjp_launch(lib, rows, lay, cfg, cot)
     ref = gradkernel.render_light_vjp_plain(torch.from_numpy(rows), scene, camera, cfg, 9,
                                             torch.from_numpy(cot)).numpy()
     assert_grad_close(grad, ref)
+
+
+@pytest.mark.parametrize("name,views,bounces", HINTED, ids=HINTED_IDS)
+def test_hinted_light_vjp_launch_keeps_the_unhinted_values(lib, name, views, bounces):
+    """K5 under the contract over the scene and its zero_object copy (each
+    row builds its own table): every kept slot of both rows equal to the
+    unhinted launch's, the frozen ones 0."""
+    cfg = config(reflections_amount=bounces)
+    scene, camera = library.SCENES[name](CPU), camera_of(views)
+    ref_obj = ("spheres", 0)
+    lay = params.layout(scene, camera)
+    rows = params.stack_rows([scene, diff.zero_object(scene, ref_obj)], camera).numpy()
+    cot = np.random.default_rng(7).normal(
+        0, 1, (2, *image_shape(views, cfg), 3)).astype(np.float32)
+    hcfg, hints, frozen = frozen_hints(scene, camera, cfg)
+    grad = light_vjp_launch(lib, rows, lay, hcfg, cot, hints)
+    assert_contract(grad, light_vjp_launch(lib, rows, lay, cfg, cot), frozen)
+    assert np.array_equal(grad, light_vjp_launch(lib, rows, lay, hcfg, cot, hints))
+
+
+@pytest.mark.parametrize("name,views,bounces", HINTED, ids=HINTED_IDS)
+def test_hinted_soft_launch_keeps_the_unhinted_values(lib, name, views, bounces):
+    """K6 under the contract (both rows fold over their own tables, row b's
+    with the zero map applied): the loss and the alpha cotangent bitwise
+    the unhinted launch's, every kept slot equal, the frozen ones 0."""
+    cfg = config(reflections_amount=bounces)
+    scene, camera = library.SCENES[name](CPU), camera_of(views)
+    ref = ("spheres", 0) if name == "room_with_sphere" else ("spheres", 1)
+    rng = np.random.default_rng(5)
+    target = rng.uniform(0, 1, (*image_shape(views, cfg), 3)).astype(np.float32)
+    alpha = rng.uniform(0, 1, image_shape(views, cfg)).astype(np.float32)
+    lay = params.layout(scene, camera)
+    zero_map = params.soft_zero_map(scene, camera, ref)
+    packed = params.pack(scene, camera).numpy()
+    rows = (0, cfg.height)
+    hcfg, hints, frozen = frozen_hints(scene, camera, cfg)
+    out = soft_launch(lib, packed, lay, hcfg, 3, target, alpha, zero_map, rows, hints)
+    plain = soft_launch(lib, packed, lay, cfg, 3, target, alpha, zero_map, rows)
+    assert out[0] == plain[0] and np.array_equal(out[2], plain[2])
+    assert_contract(out[1], plain[1], frozen)
+
+
+def ablate_launch(lib, mode, packed, lay, cfg, target, words=None):
+    """fourd_ablate_launch (K8) on host arrays: the variant's sum."""
+    table = layout_table(lay)
+    loss_parts = np.zeros(scratch_cols(lib, table, cfg, cfg.height), np.float64)
+    value = np.zeros(1, np.float32)
+    err = lib.fourd_ablate_launch(
+        mode, ptr(packed), 3, ctypes.addressof(table), cfg.width, cfg.height, cfg.samples,
+        cfg.reflections_amount, f32(cfg.small_indent), f32(cfg.light_coefficient), ptr(target),
+        ptr(loss_parts), ptr(value), None if words is None else ctypes.addressof(words), None)
+    assert err == 0
+    return value[0]
+
+
+@pytest.mark.parametrize("name,views,bounces", HINTED, ids=HINTED_IDS)
+def test_hinted_ablate_launch_keeps_the_unhinted_values(lib, name, views, bounces):
+    """K8 under the contract, every mode: bitwise the unhinted launch (the
+    hinted fold's light is the unhinted fold's)."""
+    cfg = config(reflections_amount=bounces)
+    scene, camera = library.SCENES[name](CPU), camera_of(views)
+    lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
+    target = np.random.default_rng(4).uniform(
+        0, 1, (*image_shape(views, cfg), 3)).astype(np.float32)
+    hcfg, (words, _), _ = frozen_hints(scene, camera, cfg)
+    for mode in range(3):
+        assert (ablate_launch(lib, mode, packed, lay, hcfg, target, words)
+                == ablate_launch(lib, mode, packed, lay, cfg, target)), mode
+
+
+def test_launches_refuse_composite_hints(lib):
+    """A descriptor with composite primitives is refused by every gradient
+    launch (their adjoint is ROADMAP item 4b): cudaErrorInvalidValue."""
+    cfg = config(reflections_amount=2, width=8, height=4)
+    scene, camera = library.tiger(CPU), camera_of(VIEWS_1)
+    lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
+    hcfg = diff.with_frozen_hints(cfg, scene)
+    words = megakernel.hint_table(hcfg, lay)
+    target = np.zeros((cfg.height, cfg.width, 3), np.float32)
+    table = layout_table(lay)
+    loss_parts = np.zeros(scratch_cols(lib, table, cfg, cfg.height), np.float64)
+    value = np.zeros(1, np.float32)
+    err = lib.fourd_ablate_launch(
+        0, ptr(packed), 3, ctypes.addressof(table), cfg.width, cfg.height, cfg.samples,
+        cfg.reflections_amount, f32(cfg.small_indent), f32(cfg.light_coefficient), ptr(target),
+        ptr(loss_parts), ptr(value), ctypes.addressof(words), None)
+    assert err != 0
+    keep = np.ones(lay.size, np.float32)
+    cot = np.zeros((1, cfg.height, cfg.width, 3), np.float32)
+    grad_parts = np.zeros((lay.size, scratch_cols(lib, table, cfg, cfg.height)), np.float32)
+    grad = np.zeros((1, lay.size), np.float32)
+    err = lib.fourd_light_vjp_launch(
+        ptr(packed), 0, 1, 9, ctypes.addressof(table), cfg.width, cfg.height, 0, cfg.height,
+        cfg.samples, cfg.reflections_amount, f32(cfg.small_indent), ptr(cot), ptr(grad_parts),
+        ptr(grad), ctypes.addressof(words), ptr(keep), None)
+    assert err != 0

@@ -296,8 +296,9 @@ def test_engine_derives_the_hints_once(monkeypatch):
 
 
 def test_config_checks():
-    """The forward takes axis hints; freeze_hints still raises, naming its
-    ROADMAP item; the gradient paths refuse the forward's hints."""
+    """The forward takes axis hints and the freeze_hints contract; the
+    gradient paths refuse the forward's hints without the contract (as the
+    JAX gradient kernel does) and take them under it."""
     cfg = trenderer.RenderConfig(**SHAPE)
     hinted = megakernel.with_hints(tlib.room_with_sphere(CPU), cfg)
     trenderer.check_supported(hinted)
@@ -307,14 +308,14 @@ def test_config_checks():
     _, tc = cameras()
     assert torch.equal(trenderer.render_light(tlib.tiger(CPU), tc, tiger, 3),
                        trenderer.render_light(tlib.tiger(CPU), tc, cfg, 3))
-    with pytest.raises(NotImplementedError, match="item 4a, training half"):
-        trenderer.check_supported(dataclasses.replace(cfg, freeze_hints=True))
+    trenderer.check_supported(dataclasses.replace(cfg, freeze_hints=True))
     scene = tlib.room_with_sphere(CPU)
     _, tc = cameras()
     target = torch.zeros((16, 32, 3))
-    for fn in (lambda: diff.image_loss(scene, tc, hinted, 1, target),
-               lambda: gradkernel.loss_and_grad_plain(params.pack(scene, tc), scene, tc, hinted,
-                                                      1, target),
-               lambda: diff.make_train_step(hinted, 1e-3, tc)):
-        with pytest.raises(ValueError, match="item 4a, training half"):
-            fn()
+    for fn in (lambda c: diff.image_loss(scene, tc, c, 1, target),
+               lambda c: gradkernel.loss_and_grad_plain(params.pack(scene, tc), scene, tc, c,
+                                                        1, target),
+               lambda c: diff.make_train_step(c, 1e-3, tc)):
+        with pytest.raises(ValueError, match="freeze_hints contract"):
+            fn(hinted)
+        fn(dataclasses.replace(hinted, freeze_hints=True))

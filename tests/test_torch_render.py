@@ -125,13 +125,17 @@ def test_launch_forward_refuses_cpu_tensors():
 ])
 def test_unported_configs_raise(change):
     """Configurations still to be ported raise, naming their ROADMAP item;
-    axis_hints, which the forward now takes, are refused by the gradient
-    paths (their frozen-hints contract is item 4a's training half)."""
+    axis_hints, which the forward takes, are refused by the gradient paths
+    outside the freeze_hints contract, and under it a composite scene still
+    raises, naming item 4b (its adjoint)."""
     _, tc = cameras(("yxz",))
     cfg = dataclasses.replace(T_CFG, **change)
     if "axis_hints" in change:
-        with pytest.raises(ValueError, match="ROADMAP queue 1, item 4a, training half"):
+        with pytest.raises(ValueError, match="freeze_hints contract"):
             trenderer.check_trainable(cfg, tlib.sphere_plane_light(CPU))
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4b"):
+            trenderer.check_trainable(dataclasses.replace(cfg, freeze_hints=True),
+                                      tlib.tiger(CPU))
         return
     for render in (trenderer.render_light, tkernel.render_light_cuda):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
