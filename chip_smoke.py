@@ -13,7 +13,9 @@ on any failure, or when no CUDA device is available. Phases:
    freeze_hints contract at the room's fold table: the room's RoomFold, the
    generic AnyFold), and those of every instance of the forward kernel K1
    at the headline launch (the composite instances at the tiger's 3-view
-   launch);
+   launch); the composite folds of K4, K5 and K8 (the generic one and
+   each library scene's): registers, stack, spill and resident warps at
+   each scene's training launch (the hypercube's 3-view one too);
 3. kernel vs plain torch pipeline on the card, 256x144, 4 spp, 4 bounces,
    all five library scenes, 1 and 3 views, a (2,) seed vector: K1 with the
    static hints its entry point derives (plane and axis hints) against K1
@@ -40,9 +42,8 @@ on any failure, or when no CUDA device is available. Phases:
    and held against each other; the hinted plain pipeline in 144-row
    bands, timed once and held against K1; each scene's bound;
 8. the value-and-grad kernel K4 against its plain version (torch autograd
-   over the plain pipeline) on the card: the two scenes the gradient paths
-   take (room_with_sphere, sphere_plane_light; a composite scene is
-   refused there), 1 and 3 views,
+   over the plain pipeline) on the card: room_with_sphere and
+   sphere_plane_light, 1 and 3 views,
    256x144, 4 spp, 4 bounces, a (2,) seed vector, a seeded random target;
    bitwise across two launches; the (2,) launch against the mean of the
    two scalar-seed launches; K4 and its plain version timed at
@@ -55,13 +56,22 @@ on any failure, or when no CUDA device is available. Phases:
    bitwise the unhinted launch's, every kept slot bitwise, every frozen slot
    0, bitwise across launches, within GRAD_BOUNDS of the unhinted plain
    version with the slots frozen; at 1280x720 the hinted and the unhinted
-   launch timed in turns;
+   launch timed in turns. The composites (``COMPOSITE_GRAD``: the
+   duocylinder, the hypercube, the tiger and a floor with two standalone
+   cylinders, one hinted, one not) at 256x144, 1 and 3 views, unhinted
+   against the plain version and under the contract the same way; then
+   bench.py's ``inverse_step_tiger`` (1280x720x8spp x4, 1 view, 1 frame,
+   the frozen hints) and the hypercube and duocylinder at its shape: K4
+   bitwise across launches, under the contract, hinted and unhinted timed
+   in turns, each one's bound; the tiger's also against its plain version
+   in row bands;
 9. the training main path in the production configuration:
    make_packed_train_step under the frozen hints (Adam on the packed
    vector, one hinted K4 launch per step, the frozen slots bitwise
    constant) on room_with_sphere at 1280x720, 8 spp, 4 bounces, a zero
    target, lr 1e-3, timed with CUDA events, for 1 and 4 frames per step;
-   the unhinted step timed beside it;
+   the unhinted step timed beside it; 9b: the same step on the tiger at 1
+   frame, from zeroed counts (one hinted K4 launch a step);
 10. the entry point: ``inverse_render --param glow --impl kernel`` plain,
    with ``--packed`` (the frozen hints forced) and with ``--freeze-hints``
    recovers the lamp's glow, the hinted launches counted;
@@ -74,7 +84,10 @@ on any failure, or when no CUDA device is available. Phases:
    the plain version; then K5 at the soft main path's 1280x720x8spp x4,
    bitwise across two launches, against the plain version, both timed; K5
    (one row and two) under the contract as K4 in phase 8, hinted and
-   unhinted timed at 1280x720;
+   unhinted timed at 1280x720; K5 on ``COMPOSITE_GRAD`` at 256x144 (one
+   row in 1 and 3 views, two rows, the scene and a copy with its floor
+   moved, in 1), unhinted against the plain version and under the
+   contract;
 12. the fused soft value-and-grad kernel K6 against its plain version
    (autograd over the plain blend, alpha an independent leaf): the room's
    sphere 0 and the lamp scene's sphere 1, 1 and 3 views, 256x144, 4 spp,
@@ -114,7 +127,10 @@ on any failure, or when no CUDA device is available. Phases:
    blocks of K1, K2 (both shapes; against both plain pipelines), K4 (1
    frame), K5 and K6 held against its plain version on the same rows
    (CHECK_BOUNDS, GRAD_BOUNDS); each
-   block's launch and the single launch timed with CUDA events;
+   block's launch and the single launch timed with CUDA events; the
+   tiger's K4 under the frozen hints at 256x144 in ``PLAIN_SPLIT`` row
+   blocks, each bitwise across launches and against its plain version,
+   their sum within ``GRAD_BOUNDS`` of the single launch;
 15. the distributed main path: ``multihost_run`` with 2 ranks (gloo, both
    on this card; NCCL, one card each, when there are two): the sharded
    image bitwise the single-process K1 render, 3 steps of
@@ -137,8 +153,8 @@ on any failure, or when no CUDA device is available. Phases:
    peak's n_acc against the same at half its steps;
 17. the value-and-grad pass-budget kernel K8 against its plain version
    (acc, loss, vjp) and loss and vjp against K4's loss, at 256x144x4spp x4
-   bounces, the gradient scenes, 1 and 3 views, and each mode under the
-   frozen hints bitwise the unhinted launch; K1's stub variants with the
+   bounces, the gradient scenes and ``COMPOSITE_GRAD``, 1 and 3 views, and
+   each mode under the frozen hints bitwise the unhinted launch; K1's stub variants with the
    hints (tools/fwd_ablate.py's own functions, 8 frames a launch) against
    the plain pipeline under the same patches at 256x144 (all five scenes)
    and at
@@ -228,9 +244,22 @@ CHECK_BOUNDS = dict(atol=1e-5, boundary_frac=0.01, mean_atol=0.005)
 APP_CONFIG = ROOT / "configs" / "properties.txt"
 HEADLINE = dict(width=1280, height=720, samples=8, reflections_amount=4, rng_mode="per_sample")
 FRAMES_PER_LAUNCH = 4
-# The scenes the gradient kernels take (the composite primitives' adjoint
-# is not ported yet: ROADMAP queue 1, item 4b, training half).
+# The scenes of hyperplanes and spheres, which every gradient kernel takes
+# (K6, the soft half, takes these only: ROADMAP queue 1, item 4b, soft half).
 GRAD_SCENES = ("room_with_sphere", "sphere_plane_light")
+# The composite primitives on the hard-loss gradient paths (K4, K5, K8):
+# the library's three composite scenes and "cylinders", a floor and two
+# standalone cylinders (one on unit axes, hinted; one turned, not) under
+# sphere_plane_light's sun and sky. Their gradients' non-zero patterns are
+# compared above COMPOSITE_PATTERN_FLOOR of the largest slot (as the CPU
+# tests: a face radius's and an aligned family's cancelling cotangents
+# leave float32 residues, 0 in one order of sums and not in the other).
+COMPOSITE_GRAD = ("duocylinder", "hypercube", "tiger", "cylinders")
+COMPOSITE_PATTERN_FLOOR = 1e-7
+# bench.py's inverse_step_tiger (:621-625, run_grad_workload :258-291): K4
+# on the tiger at TRAIN, one view, a zero target, the frozen hints, one
+# frame; the hypercube and the duocylinder at the same shape beside it.
+INVERSE_STEP_SCENES = ("tiger", "hypercube", "duocylinder")
 # Phase 7b: the JAX bench's composite forward lines (bench.py:602-614), at
 # the headline shape, 4 frames a launch, with their views; the plain
 # pipeline renders them in BAND_ROWS-row bands.
@@ -675,17 +704,19 @@ def mixed_rel(a: np.ndarray, b: np.ndarray) -> float:
     return float((np.abs(a - b) / scale).max())
 
 
-def compare_grad(label: str, kernel, plain):
+def compare_grad(label: str, kernel, plain, floor: float = 0.0):
     """Hold K4's (loss, grad) against the plain version's within
-    GRAD_BOUNDS; prints the comparison and returns (max |K4 - plain| over
-    loss and gradient, mixed-scale relative gradient error)."""
+    GRAD_BOUNDS, the non-zero patterns on the slots above ``floor`` of the
+    largest; prints the comparison and returns (max |K4 - plain| over loss
+    and gradient, mixed-scale relative gradient error)."""
     k_l, p_l = float(kernel[0]), float(plain[0])
     k_g, p_g = kernel[1].cpu().numpy(), plain[1].cpu().numpy()
     assert k_g.shape == p_g.shape, f"{label}: {k_g.shape} vs {p_g.shape}"
     assert np.isfinite(k_g).all() and np.isfinite(k_l), f"{label}: non-finite K4 output"
     rel = mixed_rel(k_g, p_g)
     err = max(abs(k_l - p_l), float(np.abs(k_g - p_g).max()))
-    same_nz = bool(((k_g != 0) == (p_g != 0)).all())
+    big = np.maximum(np.abs(k_g), np.abs(p_g)) > floor * np.abs(p_g).max()
+    same_nz = bool(((k_g != 0) == (p_g != 0))[big].all())
     print(f"K4 {label} P={k_g.size} loss={k_l} plain={p_l} loss_rel={abs(k_l - p_l) / abs(p_l):.3g} "
           f"grad_mixed_rel={rel:.3g} max_abs_err={err:.3g} "
           f"nonzero={int((k_g != 0).sum())}/{int((p_g != 0).sum())} same_pattern={same_nz}",
@@ -880,14 +911,314 @@ def check_inverse_render_shapes(device):
     return light_err, err, rel
 
 
-def train_main_path(device, frames: int, frozen: bool = True) -> list:
-    """Phase 9: the packed train step at TRAIN, ``frames`` frames per step,
-    in the production configuration (the frozen static hints: one hinted
-    K4 launch per step, the frozen slots of the packed vector bitwise
-    constant), or unhinted (``frozen`` False); one warm-up step, then timed
-    steps. Returns ms per step."""
+def composite_scene(name: str, device):
+    """A scene of COMPOSITE_GRAD: a library scene, or "cylinders" (a floor,
+    a cylinder on the x and w axes and one on w and x turned 0.3 rad toward
+    z, sphere_plane_light's environment). The turned cylinder's axis plane
+    is kept off the camera's view direction (+y): a family whose plane
+    holds it is met by rays nearly parallel to the plane, hit far away,
+    whose partials, orders of magnitude above a slot's total, round apart
+    in the kernel and in autograd by more than GRAD_BOUNDS of that total
+    (tests/test_torch_freeze_hints.py's turn in the x-y plane did so in K5
+    at 256x144; PERF.md section 6)."""
+    if name != "cylinders":
+        return library.SCENES[name](device)
+    from fourd_ray_tracing_tpu_torch.models import scene as sc
+
+    c, s = float(np.float32(np.cos(0.3))), float(np.float32(np.sin(0.3)))
+
+    def mat(color):
+        return sc.material(0, 0, color, device)
+
+    return sc.Scene(
+        spaces=(sc.space((0, 0, -1.5, 0), (0, 0, 1, 0), mat((0.4, 0.25, 0.07)), device),),
+        cylinders=(sc.cylinder((0, 2, 0, 0), (1, 0, 0, 0), (0, 0, 0, 1), 0.8,
+                               mat((1.0, 0.2, 0.2)), device),
+                   sc.cylinder((0.5, 2, 0, 0), (0, 0, 0, 1), (c, 0, s, 0), 0.6,
+                               mat((0.2, 0.9, 0.3)), device)),
+        environment=library.sphere_plane_light(device).environment)
+
+
+def reordered(name: str, scene):
+    """The library composite scene ``name`` listed in another order that
+    leaves the object alone: the tiger's two families swapped, the
+    duocylinder's two cylinders swapped (equal radii), the hypercube's
+    x and y axes swapped with their cells. Its hints then match no
+    library instance, so the gradient launches take the generic composite
+    fold for the same work (as tools/compare_trees.py times RoomFold on the
+    room with its walls reordered)."""
+    if name == "tiger":
+        t = scene.tiger
+        return scene._replace(tiger=t._replace(inner_cyl1=t.inner_cyl2, outer_cyl1=t.outer_cyl2,
+                                               inner_cyl2=t.inner_cyl1, outer_cyl2=t.outer_cyl1))
+    if name == "duocylinder":
+        c1, c2 = scene.cylinders_union
+        assert float(c1.r) == float(c2.r)
+        return scene._replace(cylinders_union=(c2, c1))
+    hc = scene.hypercube
+    order = (1, 0, 2, 3, 5, 4, 6, 7)
+    return scene._replace(hypercube=hc._replace(
+        cubes=tuple(hc.cubes[i] for i in order), axes=(hc.axes[1], hc.axes[0], *hc.axes[2:])))
+
+
+def moved_floor(scene):
+    """``scene`` with its floor (hyperplane 0) 0.25 lower: K5's second
+    params row on a composite scene (same structure; the composites' soft
+    half, zero_object, is not ported)."""
+    floor = scene.spaces[0]
+    return scene._replace(spaces=(floor._replace(point=floor.point._replace(
+        z=floor.point.z - 0.25)), *scene.spaces[1:]))
+
+
+def check_composite_k4(device):
+    """Phase 8 on COMPOSITE_GRAD at GRAD_CHECK, 1 and 3 views, one seed
+    (the room and the lamp scene hold the (F,) seed vector): K4 unhinted (the composite descriptor without hints) against
+    its plain version, bitwise across two launches; under the frozen hints
+    (each library scene's own instance) the contract against the unhinted
+    launch, bitwise across launches, and within GRAD_BOUNDS of the
+    unhinted plain version with the slots frozen. Returns (max abs error,
+    max mixed-scale relative error)."""
+    cfg = RenderConfig(**GRAD_CHECK)
+    seeds = np.array([0x12345678], np.uint32)
+    words = megakernel.seed_tensor(seeds, device)
+    errs = []
+    for name in COMPOSITE_GRAD:
+        scene = composite_scene(name, device)
+        for views in (("yxz",), cam.VIEWS_ALL):
+            label = f"{name} views={len(views)}"
+            camera = camera_for(views, device)
+            packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+            target = torch.from_numpy(np.random.default_rng(1).uniform(
+                0, 1, (*image_shape(views, cfg), 3)).astype(np.float32)).to(device)
+            out = gradkernel.launch_loss_grad(packed, lay, cfg, words, target)
+            again = gradkernel.launch_loss_grad(packed, lay, cfg, words, target)
+            assert all(torch.equal(a, b) for a, b in zip(out, again)), f"{label}: launches differ"
+            plain = gradkernel.loss_and_grad_plain(packed, scene, camera, cfg, seeds, target)
+            errs.append(compare_grad(label, out, plain, COMPOSITE_PATTERN_FLOOR))
+            hcfg, keep, frozen = frozen_setup(scene, camera, cfg)
+            hinted = gradkernel.launch_loss_grad(packed, lay, hcfg, words, target, keep=keep)
+            again = gradkernel.launch_loss_grad(packed, lay, hcfg, words, target, keep=keep)
+            assert all(torch.equal(a, b) for a, b in zip(hinted, again)), \
+                f"{label} frozen hints: launches differ"
+            check_contract(f"K4 {label}", hinted, out, frozen)
+            errs.append(compare_grad(f"{label} frozen hints", hinted,
+                                     (plain[0], gradkernel.freeze(plain[1], scene, hcfg)),
+                                     COMPOSITE_PATTERN_FLOOR))
+    return max(e for e, _ in errs), max(r for _, r in errs)
+
+
+def k4_bound(scene, camera, cfg: RenderConfig, packed, lay) -> dict:
+    """K4's bound at ``cfg`` (one frame, one view) under the frozen hints:
+    the hinted plain version's flops (forward and autograd backward) over
+    BOUND_ROWS rows, scaled to the image, times the share of the dense
+    work that the hinted forward's live lanes need over the whole image
+    (live_lane_flops in BAND_ROWS-row bands, one band counted, as
+    composite_cells: the sweep re-traces and reverses a live lane's
+    bounces only); the dense count and the live share beside it."""
+    hcfg = diff.with_frozen_hints(cfg, scene)
+    rows, scale = (0, BOUND_ROWS), cfg.height / BOUND_ROWS
+    block = torch.zeros((BOUND_ROWS, cfg.width, 3), device=packed.device)
+    dense = count_flops(gradkernel.loss_and_grad_plain, packed, scene, camera, hcfg, [1], block,
+                        rows=rows)[1] * scale
+    with FlopCounter() as counter:
+        _, _, flops = lane_calls(scene, camera, hcfg, [1], slice(0, BAND_ROWS), counter)
+    bands = [lane_calls(scene, camera, hcfg, [1], slice(r, r + BAND_ROWS))[1]
+             for r in range(0, cfg.height, BAND_ROWS)]
+    share = sum(live_of(counter.flops, c, flops) for c in bands) / (counter.flops * len(bands))
+    pixels = cfg.height * cfg.width
+    nbytes = 4 * (2 * lay.size + 2 + pixels * 3)
+    out = bound(dense * share, nbytes)
+    out["live_share"] = share
+    out["dense"] = bound(dense, nbytes)
+    return out
+
+
+def inverse_step_cells(device) -> dict:
+    """Phase 8 at bench.py's inverse_step_tiger shape (TRAIN, 1 view, a
+    zero target, one frame) on INVERSE_STEP_SCENES: K4 under the frozen
+    hints bitwise across two launches and under the contract against the
+    unhinted launch, the tiger's also against its plain version in
+    BAND_ROWS-row bands (timed once); the hinted launch (the scene's own
+    instance), the unhinted one and the hinted one on the scene listed in
+    another order (``reordered``: the generic composite fold) timed in
+    turns; the tiger's bound. Returns the cells by scene."""
     cfg = RenderConfig(**TRAIN)
-    scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
+    camera = camera_for(("yxz",), device)
+    words = megakernel.seed_tensor([1], device)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=device)
+    cells = {}
+    for name in INVERSE_STEP_SCENES:
+        scene = library.SCENES[name](device)
+        packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+        hcfg, keep, frozen = frozen_setup(scene, camera, cfg)
+        label = f"{name} 1280x720x8spp x4 F=1"
+        hinted = gradkernel.launch_loss_grad(packed, lay, hcfg, words, target, keep=keep)
+        again = gradkernel.launch_loss_grad(packed, lay, hcfg, words, target, keep=keep)
+        assert all(torch.equal(a, b) for a, b in zip(hinted, again)), f"K4 {label}: launches differ"
+        check_contract(f"K4 {label}", hinted,
+                       gradkernel.launch_loss_grad(packed, lay, cfg, words, target), frozen)
+        cell = {"P": lay.size}
+        if name == "tiger":
+            plain = []
+            cell["plain_ms"] = cuda_ms(lambda: plain.append(gradkernel.loss_and_grad_plain(
+                packed, scene, camera, hcfg, [1], target, band_rows=BAND_ROWS)),
+                calls=1, repeats=1)[0]
+            cell["max_abs_err"], cell["grad_mixed_rel"] = compare_grad(
+                f"{label} frozen hints (plain in {BAND_ROWS}-row bands)", hinted, plain[0],
+                COMPOSITE_PATTERN_FLOOR)
+        other = reordered(name, scene)
+        o_cfg, o_keep, _ = frozen_setup(other, camera, cfg)
+        assert o_cfg.axis_hints != hcfg.axis_hints
+        runs = (("ms", packed, hcfg, keep), ("unhinted_ms", packed, cfg, None),
+                ("generic_ms", params.pack(other, camera), o_cfg, o_keep))
+        for key, vec, c, k in runs:
+            cell[key + "_all"] = cuda_ms(
+                lambda vec=vec, c=c, k=k: gradkernel.launch_loss_grad(vec, lay, c, words, target,
+                                                                      keep=k),
+                calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)
+            cell[key] = statistics.median(cell[key + "_all"])
+        # K4's pass 1 alone: K8's vjp mode on the same inputs (hinted).
+        cell["pass1_ms"] = statistics.median(cuda_ms(
+            lambda: ablate.launch_variant("vjp", packed, lay, hcfg, 1, target),
+            calls=TRAIN_CALLS, repeats=TRAIN_REPEATS))
+        if name == "tiger":
+            cell.update(k4_bound(scene, camera, cfg, packed, lay))
+        rays = cfg.width * cfg.height * cfg.samples
+        cell["grad_mrays_per_s"] = rays / cell["ms"] / 1e3
+        cells[name] = cell
+        print(json.dumps({"cell": f"inverse_step {label}, zero target, the frozen hints",
+                          **cell}), flush=True)
+    return cells
+
+
+def check_composite_k5(device):
+    """Phase 11 on COMPOSITE_GRAD at GRAD_CHECK: K5 (one row, 1 and 3
+    views; two rows, the scene and its moved_floor copy, 1 view) unhinted
+    against its plain version, bitwise across launches, a row of the
+    two-row launch bitwise its single launch; under the frozen hints the
+    contract against the unhinted launch and the frozen plain version.
+    Returns (max abs error, max mixed-scale relative error)."""
+    cfg = RenderConfig(**GRAD_CHECK)
+    seed = 0x2468ACE1
+    errs = []
+    for name in COMPOSITE_GRAD:
+        scene = composite_scene(name, device)
+        for views in (("yxz",), cam.VIEWS_ALL):
+            camera = camera_for(views, device)
+            lay = params.layout(scene, camera)
+            rng = np.random.default_rng(2)
+            shape = (*image_shape(views, cfg), 3)
+            cases = [("", params.pack(scene, camera), rng.normal(0, 1, shape))]
+            if len(views) == 1:
+                cases.append((" two rows", params.stack_rows((scene, moved_floor(scene)), camera),
+                              rng.normal(0, 1, (2, *shape))))
+            hcfg, keep, frozen = frozen_setup(scene, camera, cfg)
+            for tag, vec, cot in cases:
+                label = f"K5 {name} views={len(views)}{tag}"
+                cot = torch.from_numpy(cot.astype(np.float32)).to(device)
+                grad = gradkernel.launch_light_vjp(vec, lay, cfg, seed, cot)
+                assert torch.equal(grad, gradkernel.launch_light_vjp(vec, lay, cfg, seed, cot)), \
+                    f"{label}: launches differ"
+                plain = gradkernel.render_light_vjp_plain(vec, scene, camera, cfg, seed, cot)
+                errs.append(compare_vec(label, grad, plain, floor=COMPOSITE_PATTERN_FLOOR))
+                if vec.dim() == 2:
+                    for f in range(vec.shape[0]):
+                        single = gradkernel.launch_light_vjp(vec[f].contiguous(), lay, cfg, seed,
+                                                             cot[f].contiguous())
+                        assert torch.equal(grad[f], single), f"{label}: row {f} != its launch"
+                hinted = gradkernel.launch_light_vjp(vec, lay, hcfg, seed, cot, keep=keep)
+                assert torch.equal(hinted, gradkernel.launch_light_vjp(vec, lay, hcfg, seed, cot,
+                                                                       keep=keep)), \
+                    f"{label} frozen hints: launches differ"
+                check_contract(label, hinted, grad, frozen)
+                errs.append(compare_vec(f"{label} frozen hints", hinted,
+                                        gradkernel.freeze(plain, scene, hcfg),
+                                        floor=COMPOSITE_PATTERN_FLOOR))
+    return max(e for e, _ in errs), max(r for _, r in errs)
+
+
+def check_composite_k8(device) -> dict:
+    """Phase 17 on COMPOSITE_GRAD at GRAD_CHECK, 1 and 3 views: each K8
+    mode unhinted against its plain version (acc within ACC_RTOL, loss and
+    vjp within the loss bound), and under the frozen hints bitwise the
+    unhinted launch. Returns the largest absolute and relative errors by
+    mode."""
+    cfg = RenderConfig(**GRAD_CHECK)
+    seed = 0x2468ACE1
+    errs = {m: [0.0, 0.0] for m in ablate.MODES}
+    for name in COMPOSITE_GRAD:
+        scene = composite_scene(name, device)
+        for views in (("yxz",), cam.VIEWS_ALL):
+            label = f"K8 {name} views={len(views)}"
+            camera = camera_for(views, device)
+            packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+            target = torch.from_numpy(np.random.default_rng(6).uniform(
+                0, 1, (*image_shape(views, cfg), 3)).astype(np.float32)).to(device)
+            hcfg, _, _ = frozen_setup(scene, camera, cfg)
+            plain = {}
+            for mode in ablate.MODES:
+                k = ablate.launch_variant(mode, packed, lay, cfg, seed, target)
+                # vjp's plain value is loss's (its extra term is zero).
+                if mode != "vjp":
+                    plain[mode] = float(ablate.variant_plain(mode, scene, camera, cfg, seed,
+                                                             target))
+                p = plain["loss" if mode == "vjp" else mode]
+                rel = abs(float(k) - p) / abs(p)
+                print(f"{label} {mode}: kernel={float(k)} plain={p} rel={rel:.3g}", flush=True)
+                assert rel <= (ACC_RTOL if mode == "acc" else GRAD_BOUNDS["loss_rtol"]), label
+                errs[mode] = [max(errs[mode][0], abs(float(k) - p)), max(errs[mode][1], rel)]
+                check_contract(f"{label} {mode}",
+                               ablate.launch_variant(mode, packed, lay, hcfg, seed,
+                                                     target).reshape(1), k.reshape(1),
+                               torch.zeros(0, dtype=torch.bool, device=device))
+    return errs
+
+
+def tiger_row_shards(device) -> dict:
+    """Phase 14 on the tiger: K4 at GRAD_CHECK, 1 view, under the frozen
+    hints, cut into PLAIN_SPLIT row blocks: each block bitwise across two
+    launches and within GRAD_BOUNDS of its plain version on the same rows
+    (frozen), their sum (in rank order) within GRAD_BOUNDS of the single
+    launch (the blocks' sums run in another order, so not bitwise).
+    Returns the errors and each block's and the single launch's times."""
+    cfg = RenderConfig(**GRAD_CHECK)
+    scene, camera = library.tiger(device), camera_for(("yxz",), device)
+    packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+    words = megakernel.seed_tensor([5, 6], device)
+    target = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)).to(device)
+    hcfg, keep, _ = frozen_setup(scene, camera, cfg)
+    whole = gradkernel.launch_loss_grad(packed, lay, hcfg, words, target, keep=keep)
+    out = {"block_err": 0.0, "ms": {"whole": cuda_ms(lambda: gradkernel.launch_loss_grad(
+        packed, lay, hcfg, words, target, keep=keep))}}
+    loss, grad = 0.0, 0.0
+    for b in shard_blocks(cfg.height, PLAIN_SPLIT):
+        block = rows_of(target, b).contiguous()
+        part = gradkernel.launch_loss_grad(packed, lay, hcfg, words, block, rows=b, keep=keep)
+        again = gradkernel.launch_loss_grad(packed, lay, hcfg, words, block, rows=b, keep=keep)
+        assert all(torch.equal(x, y) for x, y in zip(part, again)), f"K4 tiger rows {b} differ"
+        plain = gradkernel.loss_and_grad_plain(packed, scene, camera, hcfg, [5, 6], block,
+                                               rows=b)
+        err, _ = compare_grad(f"tiger rows {b} frozen hints", part, plain,
+                              COMPOSITE_PATTERN_FLOOR)
+        out["block_err"] = max(out["block_err"], err)
+        out["ms"][str(b)] = cuda_ms(lambda b=b, block=block: gradkernel.launch_loss_grad(
+            packed, lay, hcfg, words, block, rows=b, keep=keep))
+        loss, grad = loss + part[0], grad + part[1]
+    out["sum_err"], out["sum_rel"] = compare_grad(
+        f"tiger {PLAIN_SPLIT} row blocks summed", (loss, grad), whole, COMPOSITE_PATTERN_FLOOR)
+    return out
+
+
+def train_main_path(device, frames: int, frozen: bool = True,
+                    name: str = "room_with_sphere") -> list:
+    """Phase 9: the packed train step at TRAIN on scene ``name``, ``frames``
+    frames per step, in the production configuration (the frozen static
+    hints: one hinted K4 launch per step, the frozen slots of the packed
+    vector bitwise constant), or unhinted (``frozen`` False); one warm-up
+    step, then timed steps. Returns ms per step."""
+    cfg = RenderConfig(**TRAIN)
+    scene, camera = library.SCENES[name](device), camera_for(("yxz",), device)
     if frozen:
         cfg = diff.with_frozen_hints(cfg, scene)
     target = torch.zeros((cfg.height, cfg.width, 3), device=device)
@@ -913,7 +1244,7 @@ def train_main_path(device, frames: int, frozen: bool = True) -> list:
     assert np.isfinite(params.pack(unpack(model), camera).cpu().numpy()).all()
     rays = cfg.width * cfg.height * cfg.samples * frames
     med = statistics.median(ms)
-    print(f"train step F={frames} {'frozen hints' if frozen else 'unhinted'}: ms={ms} "
+    print(f"train step {name} F={frames} {'frozen hints' if frozen else 'unhinted'}: ms={ms} "
           f"median={med} grad_mrays_per_s={rays / med / 1e3} losses {losses[0]} -> "
           f"{losses[-1]}", flush=True)
     return ms
@@ -976,19 +1307,22 @@ def image_shape(views, cfg) -> tuple:
     return (cfg.height, cfg.width) if len(views) == 1 else (len(views), cfg.height, cfg.width)
 
 
-def compare_vec(label: str, kernel, plain, same_pattern: bool = True, nonzero: bool = True):
+def compare_vec(label: str, kernel, plain, same_pattern: bool = True, nonzero: bool = True,
+                floor: float = 0.0):
     """Hold a gradient kernel's output array against its plain version's
     within GRAD_BOUNDS' mixed-scale relative error and, if
-    ``same_pattern``, with the same non-zero pattern; unless ``nonzero``
-    is False, the plain version must not be all zeros (a block of rows
-    the object does not reach may be). Prints the comparison and returns
-    (max |kernel - plain|, mixed-scale relative error)."""
+    ``same_pattern``, with the same non-zero pattern on the entries above
+    ``floor`` of the largest; unless ``nonzero`` is False, the plain
+    version must not be all zeros (a block of rows the object does not
+    reach may be). Prints the comparison and returns (max |kernel -
+    plain|, mixed-scale relative error)."""
     k, p = kernel.detach().cpu().numpy(), plain.detach().cpu().numpy()
     assert k.shape == p.shape, f"{label}: {k.shape} vs {p.shape}"
     assert np.isfinite(k).all() and np.isfinite(p).all(), f"{label}: non-finite values"
     assert not nonzero or np.abs(p).max() > 0, f"{label}: the plain version is all zeros"
     rel, err = mixed_rel(k, p), float(np.abs(k - p).max())
-    mismatch = int(((k != 0) != (p != 0)).sum())
+    big = np.maximum(np.abs(k), np.abs(p)) > floor * np.abs(p).max()
+    mismatch = int(((k != 0) != (p != 0))[big].sum())
     print(f"{label} size={k.size} mixed_rel={rel:.3g} max_abs_err={err:.3g} "
           f"nonzero={int((k != 0).sum())}/{int((p != 0).sum())} pattern_mismatches={mismatch}",
           flush=True)
@@ -2003,6 +2337,53 @@ def resident_warps(lib_path: Path, device) -> dict:
     return out
 
 
+# The composite folds of K4, K5 and K8 (csrc/reduce.cuh) as their mangled
+# names spell them, with the scene and views whose launch at TRAIN (under
+# the frozen hints; the generic one unhinted, as every composite scene
+# without hints takes it) sets each one's shared memory.
+COMPOSITE_FOLDS = {"generic": ("17GradCompositeFoldILin1ELin1ELin1E", "tiger", ("yxz",)),
+                   "duocylinder": ("17GradCompositeFoldILin1ELin1ELi2E", "duocylinder", ("yxz",)),
+                   "tiger": ("17GradCompositeFoldILin1ELin1ELi8E", "tiger", ("yxz",)),
+                   "hypercube": ("17GradCompositeFoldILin1ELin1ELi4E", "hypercube", ("yxz",)),
+                   "hypercube_3view": ("17GradCompositeFoldILin1ELin1ELi4E", "hypercube",
+                                       cam.VIEWS_ALL)}
+
+
+def composite_resources(lib_path: Path, device) -> dict:
+    """Phase 2 on the composite folds: the registers, stack frame and spill
+    stores of each instance of K4's pass 1, the K4/K5 sweep (the unrolled
+    instance and, for the generic fold, the rolled one) and K8's modes, and
+    the resident warps per SM each reaches at its scene's launch
+    (COMPOSITE_FOLDS; the hypercube's 3-view launch, P = 288, beside its
+    1-view one). Prints them."""
+    res = build.kernel_resources(build.build_log())
+    kernels = {"sweep": f"12sweep_kernelILi{gradkernel.MAIN_BOUNCES}E",
+               "sweep_generic": f"12sweep_kernelILi{gradkernel.MAX_BOUNCES}E",
+               "loss_cot": "15loss_cot_kernelI", "k8": "13ablate_kernelILi2E"}
+    cfg = RenderConfig(**TRAIN)
+    out = {}
+    for fold, (mangled, name, views) in COMPOSITE_FOLDS.items():
+        scene, camera = library.SCENES[name](device), camera_for(views, device)
+        lay = params.layout(scene, camera)
+        shapes = gradkernel.launch_shapes(lay, cfg if fold == "generic"
+                                          else diff.with_frozen_hints(cfg, scene))
+        launch = {"sweep": shapes["sweep_kernel"], "sweep_generic": shapes["sweep_kernel"],
+                  "loss_cot": shapes["loss_cot_kernel"], "k8": shapes["loss_cot_kernel"]}
+        patterns = {k: f"{p}NS_{mangled}" for k, p in kernels.items()}
+        warps = build.resident_warps(lib_path, {re.escape(p): launch[k]
+                                                for k, p in patterns.items()})
+        entry = {"P": lay.size, "smem_bytes": {k: v[1] for k, v in launch.items()}}
+        for k, pattern in patterns.items():
+            hits = [n for n in res if pattern in n]
+            if not hits:  # the library instances run at the main bounce count only
+                continue
+            assert len(hits) == 1, (fold, k, hits)
+            entry[k] = {**res[hits[0]], "resident_warps_per_sm": warps.get(hits[0])}
+        out[fold] = entry
+    print(json.dumps({"composite_grad_instances": out}), flush=True)
+    return out
+
+
 def kernel_resources(key: str, resources: dict, warps: dict) -> dict:
     """A gradient launch's summary keys from the build and the occupancy
     query: its main sweep's production instance's (RoomFold: the frozen
@@ -2050,6 +2431,7 @@ def main() -> int:
     resources = grad_resources(build.build_log())
     warps = resident_warps(lib_path, device)
     k1_res = k1_resources(device, lib_path)
+    comp_res = composite_resources(lib_path, device)
 
     phase("3 kernel vs plain on the card")
     max_err = check_kernel_against_plain(device)
@@ -2089,7 +2471,10 @@ def main() -> int:
 
     phase("8 value-and-grad kernel vs plain on the card")
     grad_err, grad_rel = check_grad_kernel(device)
+    comp_err, comp_rel = check_composite_k4(device)
+    grad_err, grad_rel = max(grad_err, comp_err), max(grad_rel, comp_rel)
     k4 = time_grad_kernel(device)
+    inverse_cells = inverse_step_cells(device)
     light_err, ir_err, ir_rel = check_inverse_render_shapes(device)
     max_err = max(max_err, light_err)
     grad_err, grad_rel = max(grad_err, k4["err"], ir_err), max(grad_rel, k4["rel"], ir_rel)
@@ -2110,6 +2495,12 @@ def main() -> int:
     # turns after the counted run: unhinted, then hinted again.
     train_unhinted_ms = {f: train_main_path(device, f, frozen=False) for f in TRAIN_FRAMES}
     train_turn_ms = {f: train_main_path(device, f) for f in TRAIN_FRAMES}
+    phase("9b training main path on the tiger: packed Adam step -> K4, 1280x720, 1 frame")
+    reset_counts()
+    tiger_train_ms = train_main_path(device, 1, name="tiger")
+    launches["train_tiger"] = counts()
+    assert (launches["train_tiger"]["k4"] == launches["train_tiger"]["k4_hinted"]
+            == 1 + TRAIN_CALLS * TRAIN_REPEATS), launches["train_tiger"]
     train_rays = TRAIN["width"] * TRAIN["height"] * TRAIN["samples"]
     small_rays = TRAIN_SMALL["width"] * TRAIN_SMALL["height"] * TRAIN_SMALL["samples"]
     med_small, med_plain = statistics.median(k4["k4_small_ms"]), statistics.median(k4["plain_small_ms"])
@@ -2146,6 +2537,8 @@ def main() -> int:
 
     phase("11 light-VJP kernel K5 and rows kernel K2 vs plain on the card")
     vjp_err, vjp_rel = check_light_vjp(device)
+    comp_err, comp_rel = check_composite_k5(device)
+    vjp_err, vjp_rel = max(vjp_err, comp_err), max(vjp_rel, comp_rel)
     k5 = time_light_vjp(device)
     vjp_err, vjp_rel = max(vjp_err, k5["err"]), max(vjp_rel, k5["rel"])
     phase("12 soft value-and-grad kernel K6 vs plain on the card")
@@ -2198,6 +2591,7 @@ def main() -> int:
 
     phase("14 row-sharded launches (K3) on one card")
     shards = check_row_shards(device)
+    tiger_shards = tiger_row_shards(device)
     bounds = kernel_bounds(device)
 
     phase("15 distributed main path: multihost_run, 2 ranks")
@@ -2232,6 +2626,8 @@ def main() -> int:
 
     phase("17 K8, the forward stub variants, and the attribution tools")
     ablate_errs = check_ablate_kernel(device)
+    for mode, (err, rel) in check_composite_k8(device).items():
+        ablate_errs[mode] = [max(ablate_errs[mode][0], err), max(ablate_errs[mode][1], rel)]
     variant_err = max(check_forward_variants(device, RenderConfig(**VARIANT_CHECK),
                                              sorted(library.SCENES)),
                       check_forward_variants(device, RenderConfig(**TRAIN),
@@ -2315,8 +2711,10 @@ def main() -> int:
         **kernel_resources("k4", resources, warps),
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:117",
-        "launches": launches["train"][1] + sharded["k4"] + measure["k4"],
+        "launches": (launches["train"][1] + launches["train_tiger"]["k4"] + sharded["k4"]
+                     + measure["k4"]),
         "launches_by_path": {"render": launches["render"][1], "train": launches["train"][1],
+                             "train_tiger": launches["train_tiger"]["k4"],
                              "sharded": sharded["k4"], "measure": measure["k4"]},
         "sharded_launches": sharded["k4_shard"],
         "shard_max_abs_err": shards["block_errs"]["k4"],
@@ -2331,8 +2729,19 @@ def main() -> int:
         **bounds["k4"], **no_library,
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, 1 frame, zero target, the frozen "
                  f"static hints (plain version in {BAND_ROWS}-row bands)",
-        "hinted_launches": launches["train_hinted"] + sharded["k4_hinted"] + measure["k4_hinted"],
+        "hinted_launches": (launches["train_hinted"] + launches["train_tiger"]["k4_hinted"]
+                            + sharded["k4_hinted"] + measure["k4_hinted"]),
         "contract": contract_of("K4"),
+        # The composite primitives: bench.py's inverse_step_tiger and the
+        # hypercube and duocylinder at its shape (the frozen hints, 1 view,
+        # 1 frame), the packed Adam step on the tiger, the tiger's row
+        # blocks, and the composite instances' resources.
+        "inverse_step": {n: with_shares(dict(c)) if "flops" in c else c
+                         for n, c in inverse_cells.items()},
+        "train_step_tiger_ms": tiger_train_ms,
+        "train_step_tiger_ms_median": statistics.median(tiger_train_ms),
+        "tiger_row_shards": tiger_shards,
+        "composite_instances": comp_res,
         "ms_4_frames": k4_full_med[4],
         "unhinted_ms_4_frames": k4_unhinted_med[4],
         "plain_ms_4_frames": k4["plain_full_ms"][4],

@@ -32,7 +32,9 @@
 // With a hints descriptor the variants run K4's pass 1 under the
 // freeze_hints contract, as the JAX tool times them (with_frozen_hints,
 // grad_ablate.py:153-163): K4's pass-1 fold (reduce.cuh fold_kind: RoomFold
-// or AnyFold over K1's table, built by each block after the params).
+// or AnyFold over K1's table, built by each block after the params). A
+// scene with composite primitives takes K4's composite folds, hinted or
+// not (CompFold, or a library scene's instance under its hints).
 
 #include "reduce.cuh"
 
@@ -95,8 +97,9 @@ void launch_fold(const float* params, uint32_t seed, const Layout& L, const Hint
 // pixels of the variant's per-pixel value (mode 0 acc, 1 loss, 2 vjp), from
 // params (P,) float32, one seed and the target (V, H, W, 3) float32 (not
 // read by mode 0), with the static hints of the host int[kHintInts]
-// descriptor ``hints`` (null: none; reduce.cuh fold_kind picks the fold
-// and refuses a descriptor as K4's launch does).
+// descriptor ``hints`` (null: none; a scene with composites always has
+// one; reduce.cuh fold_kind picks the fold and refuses a descriptor as K4's
+// launch does).
 // The arguments keep fourd_loss_grad_launch's order, less what the
 // variants do not take (frames, row offset, scale, gradients, the mask).
 // loss_parts (n_cols,) float64 is scratch of the caller's, n_cols as
@@ -115,10 +118,10 @@ extern "C" int fourd_ablate_launch(int mode, const float* params, uint32_t seed,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Hints H;
-  const FoldKind kind = fold_kind(L, hints, reflections, H);
+  const FoldKind kind = fold_kind(L, hints, reflections, H, true);
   if (mode < kModeAcc || mode > kModeVjp) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = with_fold(kind, [&](auto fold) {
+  const auto run = [&](auto fold) {
     using Fold = decltype(fold);
     switch (mode) {
       case kModeAcc:
@@ -137,7 +140,8 @@ extern "C" int fourd_ablate_launch(int mode, const float* params, uint32_t seed,
                                     s);
     }
     return 0;
-  });
+  };
+  const int rc = composite_fold(kind) ? with_composite_fold(kind, run) : with_fold(kind, run);
   if (rc != 0) return rc;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

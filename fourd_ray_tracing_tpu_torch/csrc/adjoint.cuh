@@ -29,9 +29,11 @@
 //
 // The sweep's parameter cotangents leave it as Slots: one step of one
 // thread touches the slots of one primitive (or of the environment, or a
-// camera vector) and nothing else. The sweep hands each step's Slots to an
-// accumulator, a template parameter with one member, add(const Slots&),
-// which adds the slots' values to the thread's parameter cotangents: on
+// camera vector) and nothing else; a composite hit's slots, which lie in
+// several runs, go as several Slots (composite_adj). The sweep hands each
+// step's Slots to an accumulator, a template parameter with one member,
+// add(const Slots&), which adds the slots' values to the thread's
+// parameter cotangents: on
 // the card a per-thread column in shared memory (reduce.cuh ColumnAcc), on
 // the host a dense array. The bounce records are a template on the bounce
 // count kB: the main paths' count (kMainBounces) is unrolled, so every
@@ -347,13 +349,192 @@ __device__ int record_sample(const float* P, const Layout& L, const Pixel& p, in
   return n;
 }
 
+// --- the composites (models/scene.py intersect_scene_fast :453-546) -----
+//
+// The reverse reads the packed params alone, never the fold table's values
+// (only its material offsets, composite_ref): a family face is
+// differentiated through geometry._cyl_family's full projections, which
+// compute every value the aligned family of the hints does (the dropped
+// terms are exact zeros), so the partials do not depend on the hints; the
+// contract then writes the hinted axes' slots 0 (sum_parts_kernel).
+
+// Whether Hit.idx numbers a composite candidate (GradCompositeFold), and
+// which: composite_ref's candidate c and branch aux.
+__device__ __forceinline__ bool is_composite(const Layout& L, int idx) {
+  return idx >= L.n_spaces + L.n_spheres;
+}
+__device__ __forceinline__ bool composite_aux(const Layout& L, int idx) {
+  return ((idx - L.n_spaces - L.n_spheres) & 1) != 0;
+}
+__device__ __forceinline__ CompRef composite_of(const float* P, const Layout& L, int idx) {
+  const int q = idx - L.n_spaces - L.n_spheres;
+  return composite_ref(P, L, q >> 1, (q & 1) != 0);
+}
+
+// A family face's forward at a hit (geometry._cyl_family, _family_circle),
+// in the plain pipeline's operation order over the packed params: the
+// family at spec, the face's radius at slot r. A hit has proj_ok and a
+// positive discriminant.
+struct FaceFwd {
+  V4 co, a1, a2, po, d1, d12;
+  float a1c, a2c, da1, da2, len12, inv_len, l2, b_raw, b, r, sq;
+  bool degenerate;
+};
+__device__ __forceinline__ FaceFwd face_forward(const float* P, const CompRef& ref, V4 o, V4 d) {
+  FaceFwd f;
+  const float* c = P + ref.spec;
+  f.a1 = ld4(c + 4);
+  f.a2 = ld4(c + 8);
+  f.co = sub4(ld4(c), o);                                  // geometry.py:166
+  f.a1c = dot4(f.co, f.a1);
+  f.a2c = dot4(f.co, f.a2);
+  f.po = sub4(sub4(f.co, mul4s(f.a1, f.a1c)), mul4s(f.a2, f.a2c));  // :169
+  f.da1 = dot4(d, f.a1);
+  f.d1 = sub4(d, mul4s(f.a1, f.da1));                      // :171
+  f.da2 = dot4(f.d1, f.a2);
+  f.d12 = sub4(f.d1, mul4s(f.a2, f.da2));                  // :174
+  f.len12 = sqrtf(dot4(f.d12, f.d12));
+  f.inv_len = 1.0f / f.len12;                              // :177, rsqrt
+  f.l2 = dot4(f.po, f.po) + kTiny37;                       // :178
+  f.b_raw = dot4(f.po, f.d12);
+  f.degenerate = f.l2 < kSmall2;
+  f.b = f.degenerate ? 0.0f : f.b_raw * f.inv_len;         // :181
+  f.r = P[ref.r];
+  f.sq = sqrtf(f.r * f.r - (f.l2 - f.b * f.b));            // :190-194
+  return f;
+}
+
+// A composite hit's normal and material: geometry._family_norm at the
+// folded distance with the face's flip (its branch), or the hypercube
+// pair's sgn * axis (scene.py:511-516); the trace's values.
+__device__ __forceinline__ const float* composite_resolve(const float* P, const Layout& L, V4 o,
+                                                          V4 d, int idx, float dist, V4& norm) {
+  const CompRef ref = composite_of(P, L, idx);
+  const bool aux = composite_aux(L, idx);
+  if (ref.cube) {
+    const V4 a = ld4(P + ref.spec + 4 + 4 * ref.r);
+    const float sgn = aux ? 1.0f : -1.0f;
+    norm = {sgn * a.x, sgn * a.y, sgn * a.z, sgn * a.w};
+  } else {
+    const FaceFwd f = face_forward(P, ref, o, d);
+    const float inv_r = 1.0f / fmaxf(f.r, kTiny30);
+    const float scale = aux ? -inv_r : inv_r;
+    norm = mul4s(sub4(f.po, mul4s(f.d12, dist)), scale);
+  }
+  return P + ref.mat;
+}
+
+// Adjoint of a composite hit: the cotangents of the fold's distance and of
+// the resolved normal, glow and color reach the winning candidate's slots
+// alone, handed to acc in runs (a family's point and axes, the face's
+// radius, the material; the hypercube's point, the pair's axis, r, the
+// cell's material); refl_prob gets 0, and the clips and inside tests,
+// comparisons, give none.
+template <class Acc>
+__device__ void composite_adj(const float* P, const Layout& L, V4 o, V4 d, const Hit& h,
+                              float g_dist, V4 g_norm, float g_glow, V3 g_color, V4& g_o,
+                              V4& g_d, Acc& acc) {
+  const CompRef ref = composite_of(P, L, h.idx);
+  const bool aux = composite_aux(L, h.idx);
+  Slots m;
+  m.key = ref.mat;
+  m.n = 5;
+  m.stride = 1;
+  m.v[0] = g_glow;
+  m.v[1] = 0.0f;
+  put3(m.v + 2, g_color);
+  acc.add(m);
+  if (ref.cube) {
+    // The opposite-cell pair of axis i (scene.py:493-516): co_i = dot(c -
+    // o, a_i), dd_i = dot(d, a_i), h = pos ? -(co_i + r) : co_i - r,
+    // dist = h / where(|dd_i| == 0, 1e-30, |dd_i|), norm = sgn * a_i.
+    const int i = ref.r;
+    const V4 cmo = sub4(ld4(P + ref.spec), o);
+    const V4 a = ld4(P + ref.spec + 4 + 4 * i);
+    const float dd = dot4(d, a);
+    const float cos_dn = fabsf(dd);
+    const float q = cos_dn == 0.0f ? kTiny30 : cos_dn;
+    const float g_h = g_dist / q;
+    const float g_q = -g_dist * h.dist / q;
+    const float g_dd = cos_dn == 0.0f ? 0.0f : g_q * sign_of(dd);  // |x|' = sign(x)
+    const float g_co = aux ? -g_h : g_h;
+    const V4 g_a = add4(mul4s(g_norm, aux ? 1.0f : -1.0f), add4(mul4s(cmo, g_co), mul4s(d, g_dd)));
+    const V4 g_c = mul4s(a, g_co);
+    g_d = add4(g_d, mul4s(a, g_dd));
+    g_o = sub4(g_o, g_c);
+    acc.add(slots4(ref.spec, 1, g_c));
+    acc.add(slots4(ref.spec + 4 + 4 * i, 1, g_a));
+    acc.add(slot1(ref.spec + 20, -g_h));
+    return;
+  }
+  // A family face (scene.py:453-546): dist = aux ? near : far, the roots
+  // (b -+ sq) * inv_len (geometry._family_circle); norm = (po - d12 dist)
+  // * (aux ? -1/r : 1/r) (geometry._family_norm).
+  const FaceFwd f = face_forward(P, ref, o, d);
+  const float inv_r = 1.0f / fmaxf(f.r, kTiny30);
+  const float scale = aux ? -inv_r : inv_r;
+  const V4 g_u = mul4s(g_norm, scale);                     // u = po - d12 dist
+  V4 g_po = g_u;
+  V4 g_d12 = mul4s(g_u, -h.dist);
+  const float g_root = g_dist - dot4(g_u, f.d12);
+  const float g_scale = dot4(g_norm, sub4(f.po, mul4s(f.d12, h.dist)));
+  const float g_inv_r = aux ? -g_scale : g_scale;
+  float g_r = f.r >= kTiny30 ? -g_inv_r * inv_r * inv_r : 0.0f;  // clamp_min passes r >= 1e-30
+  // root = (b -+ sq) * inv_len                              geometry.py:196-197
+  const float g_bs = g_root * f.inv_len;
+  float g_inv_len = g_root * (aux ? f.b - f.sq : f.b + f.sq);
+  float g_b = g_bs;
+  // sq = sqrt(disc), disc = r^2 - (l2 - b^2)               geometry.py:190-194
+  const float g_disc = (aux ? -g_bs : g_bs) * 0.5f / f.sq;
+  g_r += 2.0f * f.r * g_disc;
+  const float g_l2 = -g_disc;
+  g_b += 2.0f * f.b * g_disc;
+  // b = degenerate ? 0 : b_raw * inv_len                    geometry.py:181
+  const float g_b_raw = f.degenerate ? 0.0f : g_b * f.inv_len;
+  if (!f.degenerate) g_inv_len += g_b * f.b_raw;
+  // inv_len = 1 / sqrt(len12_sq)                            geometry.py:140-145, :177
+  const float g_len12_sq = -g_inv_len * f.inv_len * f.inv_len * 0.5f / f.len12;
+  // l2 = dot(po, po) + 1e-37, b_raw = dot(po, d12), len12_sq = dot(d12, d12)
+  g_po = add4(g_po, add4(mul4s(f.d12, g_b_raw), mul4s(f.po, 2.0f * g_l2)));
+  g_d12 = add4(g_d12, add4(mul4s(f.po, g_b_raw), mul4s(f.d12, 2.0f * g_len12_sq)));
+  // d12 = d1 - a2 da2, da2 = dot(d1, a2)                    geometry.py:173-174
+  const float g_da2 = -dot4(g_d12, f.a2);
+  const V4 g_d1 = add4(g_d12, mul4s(f.a2, g_da2));
+  V4 g_a2 = add4(mul4s(g_d12, -f.da2), mul4s(f.d1, g_da2));
+  // d1 = d - a1 da1, da1 = dot(d, a1)                       geometry.py:170-171
+  const float g_da1 = -dot4(g_d1, f.a1);
+  V4 g_a1 = add4(mul4s(g_d1, -f.da1), mul4s(d, g_da1));
+  g_d = add4(g_d, add4(g_d1, mul4s(f.a1, g_da1)));
+  // po = co - a1 a1c - a2 a2c, aN c = dot(co, aN)           geometry.py:166-169
+  const float g_a1c = -dot4(g_po, f.a1);
+  const float g_a2c = -dot4(g_po, f.a2);
+  g_a1 = add4(g_a1, add4(mul4s(g_po, -f.a1c), mul4s(f.co, g_a1c)));
+  g_a2 = add4(g_a2, add4(mul4s(g_po, -f.a2c), mul4s(f.co, g_a2c)));
+  const V4 g_co = add4(g_po, add4(mul4s(f.a1, g_a1c), mul4s(f.a2, g_a2c)));
+  g_o = sub4(g_o, g_co);                                   // co = point - o
+  Slots fam;
+  fam.key = ref.spec;
+  fam.n = 12;
+  fam.stride = 1;
+  put4(fam.v, g_co);
+  put4(fam.v + 4, g_a1);
+  put4(fam.v + 8, g_a2);
+  acc.add(fam);
+  acc.add(slot1(ref.r, g_r));
+}
+
 // A recorded hit's normal and material: the resolver at the end of
 // trace.cuh intersect, operation for operation, so the rebuilt normal is
-// bitwise the trace's. (intersect keeps its own copy: factoring it out
-// changes the forward kernel's code.)
+// bitwise the trace's; kC (a composite fold's sweep): a composite's too,
+// composite_resolve, equal to the trace's (a zero's sign aside under the
+// hints). (intersect keeps its own copy: factoring it out changes the
+// forward kernel's code.)
+template <bool kC = false>
 __device__ __forceinline__ void resolve_hit(const float* P, const Layout& L, V4 o, V4 d, Hit& h) {
   const float* mat;
-  if (h.idx < L.n_spaces) {
+  if (kC && is_composite(L, h.idx)) {
+    mat = composite_resolve(P, L, o, d, h.idx, h.dist, h.norm);
+  } else if (h.idx < L.n_spaces) {
     const float* sp = P + L.spaces + kSpaceFloats * h.idx;
     float flip = -sign_of(plane_dot_vn(sp, o));
     h.norm = {flip * sp[4], flip * sp[5], flip * sp[6], flip * sp[7]};
@@ -377,7 +558,9 @@ __device__ __forceinline__ void resolve_hit(const float* P, const Layout& L, V4 
 }
 
 // The color of primitive idx (its resolver's ld3(mat + 2)).
+template <bool kC = false>
 __device__ __forceinline__ V3 color_of(const float* P, const Layout& L, int idx) {
+  if (kC && is_composite(L, idx)) return ld3(P + composite_of(P, L, idx).mat + 2);
   return ld3(idx < L.n_spaces ? P + L.spaces + kSpaceFloats * idx + 10
                               : P + L.spheres + kSphereFloats * (idx - L.n_spaces) + 7);
 }
@@ -385,15 +568,16 @@ __device__ __forceinline__ V3 color_of(const float* P, const Layout& L, int idx)
 // Adjoint of recorded bounce i (renderer.py trace_rays / _shade,
 // :186-211): (g_o, g_d, g_thr) are the cotangents of the ray and the
 // throughput leaving it (zeros after the last) and become those entering
-// it; its parameter cotangents go to c. g_light is the sample's light
+// it; its parameter cotangents go to c (kC, a composite fold's sweep: a
+// composite hit's to acc, composite_adj). g_light is the sample's light
 // cotangent.
-template <int kB>
+template <int kB, bool kC, class Acc>
 __device__ void bounce_adj(const float* P, const Layout& L, const Pixel& p,
                            const Bounce (&rec)[kB], int i, bool last, float small_indent,
-                           V3 g_light, V4& g_o, V4& g_d, V3& g_thr, Slots& c) {
+                           V3 g_light, V4& g_o, V4& g_d, V3& g_thr, Slots& c, Acc& acc) {
   const Bounce& r = rec[i];
   V3 throughput = p.throughput0;  // throughput' = throughput * color, bounce by bounce
-  for (int j = 0; j < i; ++j) throughput = mul3(throughput, color_of(P, L, rec[j].idx));
+  for (int j = 0; j < i; ++j) throughput = mul3(throughput, color_of<kC>(P, L, rec[j].idx));
   V4 g_o_in = {0.0f, 0.0f, 0.0f, 0.0f};
   V4 g_d_in = {0.0f, 0.0f, 0.0f, 0.0f};
   if (!r.hit) {
@@ -412,7 +596,7 @@ __device__ void bounce_adj(const float* P, const Layout& L, const Pixel& p,
   h.hit = true;
   h.idx = r.idx;
   h.dist = r.dist;
-  resolve_hit(P, L, r.o, r.d, h);
+  resolve_hit<kC>(P, L, r.o, r.d, h);
   // result += color * glow * throughput                   renderer.py:190
   V3 g_thr_in = mul3(g_light, mul3s(h.color, h.glow));
   V3 g_color = mul3s(mul3(g_light, throughput), h.glow);
@@ -435,7 +619,11 @@ __device__ void bounce_adj(const float* P, const Layout& L, const Pixel& p,
       redirect_adj(r.v, h.norm, g_d, g_norm);
     }
   }
-  hit_adj(P, L, r.o, r.d, h, g_dist, g_norm, g_glow, g_color, c, g_o_in, g_d_in);
+  if (kC && is_composite(L, h.idx)) {
+    composite_adj(P, L, r.o, r.d, h, g_dist, g_norm, g_glow, g_color, g_o_in, g_d_in, acc);
+  } else {
+    hit_adj(P, L, r.o, r.d, h, g_dist, g_norm, g_glow, g_color, c, g_o_in, g_d_in);
+  }
   g_o = g_o_in;
   g_d = g_d_in;
   g_thr = g_thr_in;
@@ -486,7 +674,8 @@ __device__ bool sample_sweep(const float* P, const Layout& L, const Pixel& p, in
   for (int i = kB - 1; i >= 0; --i) {
     if (i >= n_rec) continue;
     Slots c = no_slots();
-    bounce_adj<kB>(P, L, p, rec, i, i == R - 1, small_indent, g_light, g_o, g_d, g_thr, c);
+    bounce_adj<kB, kGradComposite<Fold>>(P, L, p, rec, i, i == R - 1, small_indent, g_light, g_o,
+                                         g_d, g_thr, c, acc);
     acc.add(c);
   }
   b0.g_o0 = add4(b0.g_o0, g_o);
@@ -503,7 +692,7 @@ __device__ bool sample_sweep(const float* P, const Layout& L, const Pixel& p, in
 // Bounce 0 (renderer.py:143-157), the primary ray and the camera, for the
 // cotangent g_result0 of bounce 0's light (every sample's light starts from
 // it) and the samples' b0. Linear in (g_result0, b0).
-template <class Acc>
+template <bool kC, class Acc>
 __device__ void bounce0_sweep(const float* P, const Layout& L, const Pixel& p, int view,
                               V3 g_result0, const Bounce0Cot& b0, float small_indent, Acc& acc) {
   V4 g_d0 = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -522,7 +711,11 @@ __device__ void bounce0_sweep(const float* P, const Layout& L, const Pixel& p, i
     V4 g_norm0 = add4(b0.g_norm0, mul4s(b0.g_o0, small_indent));
     // mirrored0 = reflect(d0, norm0)                        renderer.py:156
     reflect_adj(p.d0, h.norm, b0.g_mirrored0, g_d0, g_norm0);
-    hit_adj(P, L, p.focus, p.d0, h, g_dist, g_norm0, g_glow, g_color, c, g_focus, g_d0);
+    if (kC && is_composite(L, h.idx)) {
+      composite_adj(P, L, p.focus, p.d0, h, g_dist, g_norm0, g_glow, g_color, g_focus, g_d0, acc);
+    } else {
+      hit_adj(P, L, p.focus, p.d0, h, g_dist, g_norm0, g_glow, g_color, c, g_focus, g_d0);
+    }
   }
   acc.add(c);
 
@@ -590,7 +783,7 @@ __device__ unsigned pixel_sweep(const float* P, const Layout& L, const Pixel& p,
   }
   const V3 g_result0 = only != 0 ? V3{0.0f, 0.0f, 0.0f}
                                  : mul3s(add3(g_light, g_shared), static_cast<float>(samples));
-  bounce0_sweep(P, L, p, view, g_result0, b0, small_indent, acc);
+  bounce0_sweep<kGradComposite<Fold>>(P, L, p, view, g_result0, b0, small_indent, acc);
   return hit_obj;
 }
 

@@ -89,46 +89,17 @@
 // (RoomFold, at the main bounce count), any other hint pattern (AnyFold,
 // e.g. sphere_plane_light's single plane, or a room whose dropped wall
 // turned its pairs off), and without hints the unhinted ParamsFold ones.
+//
+// A scene with composite primitives (cylinders, the duocylinder, the
+// hypercube, the tiger) folds over K1's composite table in K4 and K5,
+// hinted or not (GradCompositeFold: the winner numbered with its branch,
+// which the adjoint's composite partials read, adjoint.cuh composite_adj);
+// those instances live in gradcomposite.cu, K4's and K5's kernels in
+// gradlaunch.cuh. K6 refuses composites (their soft half is not ported).
 
-#include <cstddef>
-#include <type_traits>
-
-#include "reduce.cuh"
+#include "gradlaunch.cuh"
 
 namespace {
-
-// K4's pass 1. Grid (blocks, frames): block (x, f) writes the cotangent of
-// its pixels' mean light of frame f (g_mean, (F, V, n_rows, W, 3)) and
-// column f * gridDim.x + x of loss_parts.
-template <class Fold>
-__global__ void __launch_bounds__(kGradBlock)
-loss_cot_kernel(const float* __restrict__ params, const uint32_t* __restrict__ seeds, Layout L,
-                int width, int height, int row0, int n_rows, int samples, int reflections,
-                float small_indent, float light_coefficient, const float* __restrict__ target,
-                float* __restrict__ g_mean, double* __restrict__ loss_parts, Hints H) {
-  extern __shared__ float P[];
-  for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = params[i];
-  __syncthreads();
-  build_table_for<Fold>(P, L, H);
-
-  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
-  const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float loss = 0.0f;
-  if (lin < total) {  // no early return: every thread joins the reduction
-    const PixelIndex px = pixel_index(lin, width, row0, n_rows);
-    const Pixel p = setup_pixel<Fold>(P, L, px.view, px.px, px.py, width, height, small_indent);
-    const V3 sum =
-        pixel_light_sum<Fold>(P, L, p, samples, reflections, small_indent, seeds[blockIdx.y]);
-    const LossCot lc = loss_cot(sum, target + lin * 3, light_coefficient, samples);
-    loss = lc.loss;
-    float* out = g_mean + (static_cast<long long>(blockIdx.y) * total + lin) * 3;
-    out[0] = lc.g_mean.x;
-    out[1] = lc.g_mean.y;
-    out[2] = lc.g_mean.z;
-  }
-  reduce_block(nullptr, 0, loss, nullptr, loss_parts,
-               0, static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x);
-}
 
 // K6's pass 1. Grid (blocks, 2): row r of blockIdx.y (0: params, 1: params
 // with the zero map applied) writes its pixels' light summed over samples
@@ -157,41 +128,6 @@ soft_sum_kernel(const float* __restrict__ params, uint32_t seed, Layout L, ZeroM
   out[0] = sum.x;
   out[1] = sum.y;
   out[2] = sum.z;
-}
-
-// The sweep of K4 and K5. Grid (blocks, rows): block (x, f) takes params
-// row f (at f * row_stride), the seed seeds[f] (or ``seed`` when seeds is
-// null) and row f of the cotangent of the mean light, and writes column
-// f * col_offset + x of the (P, n_cols) partials at grad_parts +
-// f * row_offset.
-template <int kB, class Fold>
-__global__ void __launch_bounds__(kGradBlock, kGradMinBlocks)
-sweep_kernel(const float* __restrict__ params, long long row_stride,
-             const uint32_t* __restrict__ seeds, uint32_t seed, Layout L, int width, int height,
-             int row0, int n_rows, int samples, int reflections, float small_indent,
-             const float* __restrict__ g_mean, float* __restrict__ grad_parts,
-             long long row_offset, int col_offset, int n_cols, Hints H) {
-  extern __shared__ float smem[];
-  const GradSmem sm = grad_smem(smem, L.size, table_recs_for<Fold>(L, H));
-  const int row = blockIdx.y;
-  for (int i = threadIdx.x; i < L.size; i += blockDim.x) sm.params[i] = params[row * row_stride + i];
-  __syncthreads();
-  build_table_for<Fold>(sm.params, L, H);
-
-  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
-  const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lin < total) {  // no early return: every thread joins the reduction
-    const PixelIndex px = pixel_index(lin, width, row0, n_rows);
-    const Pixel p =
-        setup_pixel<Fold>(sm.params, L, px.view, px.px, px.py, width, height, small_indent);
-    const V3 g = ld3(g_mean + (static_cast<long long>(row) * total + lin) * 3);
-    ColumnAcc acc = ColumnAcc::of(sm, nullptr);
-    pixel_sweep<kB, Fold>(sm.params, L, p, px.view, samples, reflections, small_indent,
-                          seeds != nullptr ? seeds[row] : seed,
-                          mul3s(g, 1.0f / static_cast<float>(samples)), acc);
-  }
-  reduce_block(sm.cols, L.size, 0.0f, grad_parts + row * row_offset, nullptr, n_cols,
-               static_cast<long long>(row) * col_offset + blockIdx.x);
 }
 
 // K6's row-b work of a pixel, as its row-a sweep leaves it in row_b: the
@@ -296,18 +232,6 @@ soft_row_b_kernel(const float* __restrict__ params, uint32_t seed, Layout L, Zer
   reduce_block(sm.cols, L.size, 0.0f, grad_parts, loss_parts, n_cols, col0 + blockIdx.x);
 }
 
-// The sweeps' instances for ``reflections`` bounces: the unrolled one at
-// kMainBounces, the generic one otherwise (RoomFold runs at kMainBounces
-// only: the launch takes AnyFold for any other count).
-template <class Fold>
-auto sweep_for(int reflections) {
-  if constexpr (std::is_same_v<Fold, RoomFold>) {
-    return sweep_kernel<kMainBounces, RoomFold>;
-  } else {
-    return reflections == kMainBounces ? sweep_kernel<kMainBounces, Fold>
-                                       : sweep_kernel<kMaxBounces, Fold>;
-  }
-}
 template <class Fold>
 auto soft_row_a_for(int reflections) {
   if constexpr (std::is_same_v<Fold, RoomFold>) {
@@ -327,33 +251,6 @@ auto soft_row_b_for(int reflections) {
   }
 }
 
-// The launch arguments every gradient launch checks.
-bool bad_shape(const Layout& L, int height, int row0, int n_rows, int samples,
-               int reflections) {
-  return row0 < 0 || n_rows <= 0 || row0 + n_rows > height || samples <= 0 || reflections < 0 ||
-         reflections > kMaxBounces || L.size <= 0 || L.size > kMaxParams;
-}
-
-// Launches the sweep over ``n_param_rows`` rows (see sweep_kernel); returns
-// cudaGetLastError() after it.
-template <class Fold>
-int launch_sweep(const float* params, long long row_stride, int n_param_rows,
-                 const uint32_t* seeds, uint32_t seed, const Layout& L, const Hints& H,
-                 int width, int height, int row0, int n_rows, int samples, int reflections,
-                 float small_indent, const float* g_mean, float* grad_parts, long long row_offset,
-                 int col_offset, int n_cols, cudaStream_t s) {
-  const auto kernel = sweep_for<Fold>(reflections);
-  const size_t smem = grad_smem_bytes(L.size, false, table_recs_for<Fold>(L, H));
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(static_cast<unsigned>(pixel_blocks(L, width, n_rows)),
-            static_cast<unsigned>(n_param_rows));
-  kernel<<<grid, kGradBlock, smem, s>>>(params, row_stride, seeds, seed, L, width, height, row0,
-                                        n_rows, samples, reflections, small_indent, g_mean,
-                                        grad_parts, row_offset, col_offset, n_cols, H);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Columns of a gradient launch's partials over n_rows image rows: n_frames
@@ -370,8 +267,10 @@ extern "C" int fourd_grad_scratch_cols(const int* layout, int width, int n_rows,
 // descriptor of the static hints (ops/cuda/megakernel.py hint_table), or
 // null for none, and ``keep``, the device's packed 0/1 mask of P floats of
 // the freeze_hints contract (models/params.py freeze_mask; sum_parts_kernel
-// writes the slots it zeroes as 0), or null. A descriptor with composites,
-// or one the table cannot hold, is refused (cudaErrorInvalidValue).
+// writes the slots it zeroes as 0), or null. K4 and K5 hand a descriptor
+// with composites (hinted, or n_singles -1 and axis hints -1 without the
+// contract) to their composite folds (gradcomposite.cu); K6 refuses it, and
+// every launch refuses one the table cannot hold (cudaErrorInvalidValue).
 
 // K4 on ``stream``: loss (1,) and grad (P,) float32, both scaled by
 // ``scale``, of image rows [row0, row0 + n_rows) of H, from params (P,)
@@ -394,24 +293,19 @@ extern "C" int fourd_loss_grad_launch(const float* params, const uint32_t* seeds
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Hints H;
-  const FoldKind kind = fold_kind(L, hints, reflections, H);
-  const int blocks = n_cols / n_frames;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const FoldKind kind = fold_kind(L, hints, reflections, H, true);
+  if (composite_fold(kind)) {
+    return fourd_loss_grad_composite(params, seeds, n_frames, layout, width, height, row0, n_rows,
+                                     samples, reflections, small_indent, light_coefficient,
+                                     target, scale, g_mean, grad_parts, loss_parts, grad_out,
+                                     loss_out, hints, keep, stream);
+  }
   return with_fold(kind, [&](auto fold) {
-    using Fold = decltype(fold);
-    const size_t smem = params_table_bytes(L.size, table_recs_for<Fold>(L, H));
-    loss_cot_kernel<Fold><<<dim3(blocks, n_frames), kGradBlock, smem, s>>>(
-        params, seeds, L, width, height, row0, n_rows, samples, reflections, small_indent,
-        light_coefficient, target, g_mean, loss_parts, H);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int rc = launch_sweep<Fold>(params, 0, n_frames, seeds, 0u, L, H, width, height, row0,
-                                      n_rows, samples, reflections, small_indent, g_mean,
-                                      grad_parts, 0, blocks, n_cols, s);
-    if (rc != 0) return rc;
-    sum_parts_kernel<<<L.size + 1, kSumThreads, 0, s>>>(grad_parts, loss_parts, L.size, n_cols,
-                                                        scale, grad_out, loss_out, keep, L.size);
-    return static_cast<int>(cudaGetLastError());
+    return k4_launch<decltype(fold)>(params, seeds, n_frames, L, H, width, height, row0, n_rows,
+                                     samples, reflections, small_indent, light_coefficient,
+                                     target, scale, g_mean, grad_parts, loss_parts, grad_out,
+                                     loss_out, keep, n_cols / n_frames, n_cols,
+                                     static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -437,19 +331,17 @@ extern "C" int fourd_light_vjp_launch(const float* params, long long row_stride,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Hints H;
-  const FoldKind kind = fold_kind(L, hints, reflections, H);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const FoldKind kind = fold_kind(L, hints, reflections, H, true);
+  if (composite_fold(kind)) {
+    return fourd_light_vjp_composite(params, row_stride, n_params_rows, seed, layout, width,
+                                     height, row0, n_rows, samples, reflections, small_indent,
+                                     cot, grad_parts, grad_out, hints, keep, stream);
+  }
   return with_fold(kind, [&](auto fold) {
-    using Fold = decltype(fold);
-    const int rc = launch_sweep<Fold>(params, row_stride, n_params_rows, nullptr, seed, L, H,
-                                      width, height, row0, n_rows, samples, reflections,
-                                      small_indent, cot, grad_parts,
-                                      static_cast<long long>(L.size) * n_cols, 0, n_cols, s);
-    if (rc != 0) return rc;
-    const int n_sums = n_params_rows * L.size;
-    sum_parts_kernel<<<n_sums, kSumThreads, 0, s>>>(grad_parts, nullptr, n_sums, n_cols, 1.0f,
-                                                    grad_out, nullptr, keep, L.size);
-    return static_cast<int>(cudaGetLastError());
+    return k5_launch<decltype(fold)>(params, row_stride, n_params_rows, seed, L, H, width, height,
+                                     row0, n_rows, samples, reflections, small_indent, cot,
+                                     grad_parts, grad_out, keep, n_cols,
+                                     static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -490,7 +382,7 @@ extern "C" int fourd_soft_loss_grad_launch(const float* params, uint32_t seed, c
   const int obj = samples < 32 ? zero_map_object(L, zm) : -1;
   const int blocks = n_cols / 2;
   Hints H;
-  const FoldKind kind = fold_kind(L, hints, reflections, H);
+  const FoldKind kind = fold_kind(L, hints, reflections, H, false);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_fold(kind, [&](auto fold) {
     using Fold = decltype(fold);

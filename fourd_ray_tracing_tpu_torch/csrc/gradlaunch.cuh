@@ -1,0 +1,195 @@
+// The value-and-grad launch (K4) and the light-VJP launch (K5) over any
+// fold: their kernels (K4's pass 1, the sweep shared by both) and their
+// launches. gradkernel.cu launches them over the folds of hyperplanes and
+// spheres and K6, gradcomposite.cu over the composite folds, each source in
+// its own nvcc process (ops/cuda/build.py), so that the composite
+// instances compile beside the others. The kernels' design is
+// gradkernel.cu's.
+#pragma once
+
+#include <cstddef>
+#include <type_traits>
+
+#include "reduce.cuh"
+
+namespace {
+
+// K4's pass 1. Grid (blocks, frames): block (x, f) writes the cotangent of
+// its pixels' mean light of frame f (g_mean, (F, V, n_rows, W, 3)) and
+// column f * gridDim.x + x of loss_parts.
+template <class Fold>
+__global__ void __launch_bounds__(kGradBlock)
+loss_cot_kernel(const float* __restrict__ params, const uint32_t* __restrict__ seeds, Layout L,
+                int width, int height, int row0, int n_rows, int samples, int reflections,
+                float small_indent, float light_coefficient, const float* __restrict__ target,
+                float* __restrict__ g_mean, double* __restrict__ loss_parts, Hints H) {
+  extern __shared__ float P[];
+  for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = params[i];
+  __syncthreads();
+  build_table_for<Fold>(P, L, H);
+
+  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
+  const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  float loss = 0.0f;
+  if (lin < total) {  // no early return: every thread joins the reduction
+    const PixelIndex px = pixel_index(lin, width, row0, n_rows);
+    const Pixel p = setup_pixel<Fold>(P, L, px.view, px.px, px.py, width, height, small_indent);
+    const V3 sum =
+        pixel_light_sum<Fold>(P, L, p, samples, reflections, small_indent, seeds[blockIdx.y]);
+    const LossCot lc = loss_cot(sum, target + lin * 3, light_coefficient, samples);
+    loss = lc.loss;
+    float* out = g_mean + (static_cast<long long>(blockIdx.y) * total + lin) * 3;
+    out[0] = lc.g_mean.x;
+    out[1] = lc.g_mean.y;
+    out[2] = lc.g_mean.z;
+  }
+  reduce_block(nullptr, 0, loss, nullptr, loss_parts,
+               0, static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x);
+}
+
+// The sweep of K4 and K5. Grid (blocks, rows): block (x, f) takes params
+// row f (at f * row_stride), the seed seeds[f] (or ``seed`` when seeds is
+// null) and row f of the cotangent of the mean light, and writes column
+// f * col_offset + x of the (P, n_cols) partials at grad_parts +
+// f * row_offset.
+template <int kB, class Fold>
+__global__ void __launch_bounds__(kGradBlock, kGradMinBlocks)
+sweep_kernel(const float* __restrict__ params, long long row_stride,
+             const uint32_t* __restrict__ seeds, uint32_t seed, Layout L, int width, int height,
+             int row0, int n_rows, int samples, int reflections, float small_indent,
+             const float* __restrict__ g_mean, float* __restrict__ grad_parts,
+             long long row_offset, int col_offset, int n_cols, Hints H) {
+  extern __shared__ float smem[];
+  const GradSmem sm = grad_smem(smem, L.size, table_recs_for<Fold>(L, H));
+  const int row = blockIdx.y;
+  for (int i = threadIdx.x; i < L.size; i += blockDim.x) sm.params[i] = params[row * row_stride + i];
+  __syncthreads();
+  build_table_for<Fold>(sm.params, L, H);
+
+  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
+  const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (lin < total) {  // no early return: every thread joins the reduction
+    const PixelIndex px = pixel_index(lin, width, row0, n_rows);
+    const Pixel p =
+        setup_pixel<Fold>(sm.params, L, px.view, px.px, px.py, width, height, small_indent);
+    const V3 g = ld3(g_mean + (static_cast<long long>(row) * total + lin) * 3);
+    ColumnAcc acc = ColumnAcc::of(sm, nullptr);
+    pixel_sweep<kB, Fold>(sm.params, L, p, px.view, samples, reflections, small_indent,
+                          seeds != nullptr ? seeds[row] : seed,
+                          mul3s(g, 1.0f / static_cast<float>(samples)), acc);
+  }
+  reduce_block(sm.cols, L.size, 0.0f, grad_parts + row * row_offset, nullptr, n_cols,
+               static_cast<long long>(row) * col_offset + blockIdx.x);
+}
+
+// Whether Fold runs at the main bounce count only (the launch takes the
+// generic instance of its kind at any other count): the room's and the
+// library composite scenes'.
+template <class Fold>
+constexpr bool kMainOnly = std::is_same_v<Fold, RoomFold> || std::is_same_v<Fold, UnionFold> ||
+                           std::is_same_v<Fold, TigerFold> || std::is_same_v<Fold, CubeFold>;
+
+// The sweeps' instances for ``reflections`` bounces: the unrolled one at
+// kMainBounces, the generic one otherwise (kMainOnly folds: the unrolled
+// one alone).
+template <class Fold>
+auto sweep_for(int reflections) {
+  if constexpr (kMainOnly<Fold>) {
+    return sweep_kernel<kMainBounces, Fold>;
+  } else {
+    return reflections == kMainBounces ? sweep_kernel<kMainBounces, Fold>
+                                       : sweep_kernel<kMaxBounces, Fold>;
+  }
+}
+
+// The launch arguments every gradient launch checks.
+bool bad_shape(const Layout& L, int height, int row0, int n_rows, int samples,
+               int reflections) {
+  return row0 < 0 || n_rows <= 0 || row0 + n_rows > height || samples <= 0 || reflections < 0 ||
+         reflections > kMaxBounces || L.size <= 0 || L.size > kMaxParams;
+}
+
+// Launches the sweep over ``n_param_rows`` rows (see sweep_kernel); returns
+// cudaGetLastError() after it.
+template <class Fold>
+int launch_sweep(const float* params, long long row_stride, int n_param_rows,
+                 const uint32_t* seeds, uint32_t seed, const Layout& L, const Hints& H,
+                 int width, int height, int row0, int n_rows, int samples, int reflections,
+                 float small_indent, const float* g_mean, float* grad_parts, long long row_offset,
+                 int col_offset, int n_cols, cudaStream_t s) {
+  const auto kernel = sweep_for<Fold>(reflections);
+  const size_t smem = grad_smem_bytes(L.size, false, table_recs_for<Fold>(L, H));
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(static_cast<unsigned>(pixel_blocks(L, width, n_rows)),
+            static_cast<unsigned>(n_param_rows));
+  kernel<<<grid, kGradBlock, smem, s>>>(params, row_stride, seeds, seed, L, width, height, row0,
+                                        n_rows, samples, reflections, small_indent, g_mean,
+                                        grad_parts, row_offset, col_offset, n_cols, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4's kernels on ``s`` under the fold Fold: pass 1, the sweep of every
+// frame and sum_parts_kernel (fourd_loss_grad_launch, whose arguments
+// these are; ``blocks`` of a frame, n_cols of the partials).
+template <class Fold>
+int k4_launch(const float* params, const uint32_t* seeds, int n_frames, const Layout& L,
+              const Hints& H, int width, int height, int row0, int n_rows, int samples,
+              int reflections, float small_indent, float light_coefficient, const float* target,
+              float scale, float* g_mean, float* grad_parts, double* loss_parts, float* grad_out,
+              float* loss_out, const float* keep, int blocks, int n_cols, cudaStream_t s) {
+  const size_t smem = params_table_bytes(L.size, table_recs_for<Fold>(L, H));
+  loss_cot_kernel<Fold><<<dim3(blocks, n_frames), kGradBlock, smem, s>>>(
+      params, seeds, L, width, height, row0, n_rows, samples, reflections, small_indent,
+      light_coefficient, target, g_mean, loss_parts, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rc = launch_sweep<Fold>(params, 0, n_frames, seeds, 0u, L, H, width, height, row0,
+                                    n_rows, samples, reflections, small_indent, g_mean,
+                                    grad_parts, 0, blocks, n_cols, s);
+  if (rc != 0) return rc;
+  sum_parts_kernel<<<L.size + 1, kSumThreads, 0, s>>>(grad_parts, loss_parts, L.size, n_cols,
+                                                      scale, grad_out, loss_out, keep, L.size);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5's kernels on ``s`` under the fold Fold: the sweep of every params row
+// and sum_parts_kernel (fourd_light_vjp_launch, whose arguments these are).
+template <class Fold>
+int k5_launch(const float* params, long long row_stride, int n_params_rows, uint32_t seed,
+              const Layout& L, const Hints& H, int width, int height, int row0, int n_rows,
+              int samples, int reflections, float small_indent, const float* cot,
+              float* grad_parts, float* grad_out, const float* keep, int n_cols, cudaStream_t s) {
+  const int rc = launch_sweep<Fold>(params, row_stride, n_params_rows, nullptr, seed, L, H, width,
+                                    height, row0, n_rows, samples, reflections, small_indent, cot,
+                                    grad_parts, static_cast<long long>(L.size) * n_cols, 0,
+                                    n_cols, s);
+  if (rc != 0) return rc;
+  const int n_sums = n_params_rows * L.size;
+  sum_parts_kernel<<<n_sums, kSumThreads, 0, s>>>(grad_parts, nullptr, n_sums, n_cols, 1.0f,
+                                                  grad_out, nullptr, keep, L.size);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Columns of a gradient launch's partials (gradkernel.cu).
+extern "C" int fourd_grad_scratch_cols(const int* layout, int width, int n_rows, int n_frames);
+
+// K4 and K5 over the composite folds (gradcomposite.cu): the arguments of
+// fourd_loss_grad_launch and fourd_light_vjp_launch, which check them and
+// call these for a descriptor with composites.
+extern "C" int fourd_loss_grad_composite(const float* params, const uint32_t* seeds, int n_frames,
+                                         const int* layout, int width, int height, int row0,
+                                         int n_rows, int samples, int reflections,
+                                         float small_indent, float light_coefficient,
+                                         const float* target, float scale, float* g_mean,
+                                         float* grad_parts, double* loss_parts, float* grad_out,
+                                         float* loss_out, const int* hints, const float* keep,
+                                         void* stream);
+extern "C" int fourd_light_vjp_composite(const float* params, long long row_stride,
+                                         int n_params_rows, uint32_t seed, const int* layout,
+                                         int width, int height, int row0, int n_rows, int samples,
+                                         int reflections, float small_indent, const float* cot,
+                                         float* grad_parts, float* grad_out, const int* hints,
+                                         const float* keep, void* stream);

@@ -174,12 +174,6 @@ int launch_forward(const float* params, long long row_stride, const uint32_t* se
   return static_cast<int>(cudaGetLastError());
 }
 
-// The library's composite scenes' axis hints (models/library.py): the
-// duocylinder's and the tiger's families on axes (x, w) and (z, y), as an
-// instance's kFams, and the hypercube's axes x, y, z, w, all +, as kCube.
-constexpr int kLibraryFams = (0 | 3 << 2) | (2 | 1 << 2) << 4;
-constexpr int kLibraryCube = 0 | 1 << 2 | 2 << 4 | 3 << 6;
-
 // The composite instance of the fold: one for each library composite
 // scene with its hints (its single kind, its families' hints fixed; its
 // floor plane by the table) in the production kernel, the generic one
@@ -196,23 +190,16 @@ int launch_composites(bool generic, const float* params, long long row_stride,
   return launch_forward<kStub, __VA_ARGS__>(params, row_stride, seeds, n_frames, L, H, width, \
                                             height, row0, n_rows, samples, reflections,       \
                                             small_indent, out, stream)
-  const int kinds = composite_kinds(H);
   if constexpr (kStub == kStubNone) {
-    if (!generic && H.n_singles >= 0) {
-      const bool lib_fams = kinds == kCompUnion
-                                ? H.union_axes[0] == (kLibraryFams & 15) &&
-                                      H.union_axes[1] == kLibraryFams >> 4
-                                : H.tiger_axes[0] == (kLibraryFams & 15) &&
-                                      H.tiger_axes[1] == kLibraryFams >> 4;
-      if (kinds == kCompUnion && lib_fams) {
+    switch (generic ? 0 : library_composite(H)) {
+      case kCompUnion:
         FOURD_LAUNCH(CompositeFold<-1, -1, kCompUnion, kLibraryFams, -1>);
-      }
-      if (kinds == kCompTiger && lib_fams) {
+      case kCompTiger:
         FOURD_LAUNCH(CompositeFold<-1, -1, kCompTiger, kLibraryFams, -1>);
-      }
-      if (kinds == kCompHypercube && H.hypercube_axes == kLibraryCube) {
+      case kCompHypercube:
         FOURD_LAUNCH(CompositeFold<-1, -1, kCompHypercube, -1, kLibraryCube>);
-      }
+      default:
+        break;
     }
   }
   FOURD_LAUNCH(CompositeFold<-1, -1, -1, -1, -1>);

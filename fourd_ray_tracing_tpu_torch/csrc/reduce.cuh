@@ -170,25 +170,54 @@ sum_parts_kernel(const float* __restrict__ grad_parts, const double* __restrict_
 // tools/compare_trees.py).
 using RoomFold = GradTableFold<4, 0>;
 using AnyFold = GradTableFold<-1, -1>;
+// The composite folds of K4, K5 (gradcomposite.cu) and K8, hinted or not:
+// the generic one (kinds and hints read from the table), and one for each
+// library composite scene under the contract, its kind and axis hints
+// fixed, as K1's instances (megakernel.cu launch_composites).
+using CompFold = GradCompositeFold<-1, -1, -1, -1, -1>;
+using UnionFold = GradCompositeFold<-1, -1, kCompUnion, kLibraryFams, -1>;
+using TigerFold = GradCompositeFold<-1, -1, kCompTiger, kLibraryFams, -1>;
+using CubeFold = GradCompositeFold<-1, -1, kCompHypercube, -1, kLibraryCube>;
 
 // The fold of a gradient launch: ParamsFold without hints (``hints``
-// null), RoomFold for the room's pattern (4 wall pairs on the axes in
-// order, no single plane) at the main bounce count, AnyFold for any other
-// valid descriptor of hyperplanes and spheres; kBadFold for a descriptor
-// the table cannot hold or one with composites (their adjoint is not
-// ported).
-enum FoldKind { kParamsFold, kRoomFold, kAnyFold, kBadFold };
-inline FoldKind fold_kind(const Layout& L, const int* hints, int reflections, Hints& H) {
+// null: a scene of hyperplanes and spheres), RoomFold for the room's
+// pattern (4 wall pairs on the axes in order, no single plane) at the main
+// bounce count, AnyFold for any other valid descriptor of hyperplanes and
+// spheres; with ``composites`` (K4, K5, K8), for a descriptor with
+// composites (n_singles -1 and axis hints -1 without the contract) a
+// library scene's instance under its hints at the main bounce count, else
+// CompFold; kBadFold for a descriptor the table cannot hold, a plane
+// descriptor without hints, and one with composites without
+// ``composites`` (K6: their soft half is not ported).
+enum FoldKind { kParamsFold, kRoomFold, kAnyFold, kCompFold, kUnionFold, kTigerFold, kCubeFold,
+                kBadFold };
+inline FoldKind fold_kind(const Layout& L, const int* hints, int reflections, Hints& H,
+                          bool composites) {
   H = {};
   if (hints == nullptr) return kParamsFold;
   H = hints_from(hints);
-  if (!hints_valid(L, H) || composite_kinds(H) != 0 || H.n_singles < 0) return kBadFold;
+  if (!hints_valid(L, H)) return kBadFold;
+  if (composite_kinds(H) != 0) {
+    if (!composites) return kBadFold;
+    switch (reflections == kMainBounces ? library_composite(H) : 0) {
+      case kCompUnion:
+        return kUnionFold;
+      case kCompTiger:
+        return kTigerFold;
+      case kCompHypercube:
+        return kCubeFold;
+      default:
+        return kCompFold;
+    }
+  }
+  if (H.n_singles < 0) return kBadFold;
   const bool room = H.n_pairs == 4 && H.n_singles == 0 && pairs_in_axis_order(H);
   return room && reflections == kMainBounces ? kRoomFold : kAnyFold;
 }
+inline bool composite_fold(FoldKind kind) { return kind >= kCompFold && kind < kBadFold; }
 
-// Returns ``launch(Fold{})`` for the launch's fold (fold_kind), or
-// cudaErrorInvalidValue for a bad descriptor.
+// Returns ``launch(Fold{})`` for the launch's fold of hyperplanes and
+// spheres (fold_kind), or cudaErrorInvalidValue for any other kind.
 template <class F>
 int with_fold(FoldKind kind, F&& launch) {
   switch (kind) {
@@ -198,6 +227,24 @@ int with_fold(FoldKind kind, F&& launch) {
       return launch(RoomFold{});
     case kAnyFold:
       return launch(AnyFold{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Returns ``launch(Fold{})`` for a composite fold, or
+// cudaErrorInvalidValue for any other kind.
+template <class F>
+int with_composite_fold(FoldKind kind, F&& launch) {
+  switch (kind) {
+    case kCompFold:
+      return launch(CompFold{});
+    case kUnionFold:
+      return launch(UnionFold{});
+    case kTigerFold:
+      return launch(TigerFold{});
+    case kCubeFold:
+      return launch(CubeFold{});
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -6,8 +6,9 @@
 // over the packed params, ``intersect``, which the gradient kernels run
 // without hints; every primitive, composites included, with the static
 // hints over a per-block table, ``intersect_table``, which K1 runs, and
-// the gradient kernels under the freeze_hints contract, hyperplanes and
-// spheres only, ``GradTableFold``) and the per-pixel body of
+// the gradient kernels under the freeze_hints contract, ``GradTableFold``,
+// and on a scene with composites, hinted or not, ``GradCompositeFold``)
+// and the per-pixel body of
 // ops/pallas/megakernel.py::_kernel with _trace_rays_kernel. Every
 // operation keeps the order of the plain torch
 // pipeline (models/renderer.py); the build passes -fmad=false, so on the
@@ -363,6 +364,12 @@ constexpr int kTigerFloats = 4 * kCylinderFloats;
 constexpr int kCompCylinders = 1, kCompUnion = 2, kCompHypercube = 4, kCompTiger = 8;
 // The composites' records in the table.
 constexpr int kCylinderRecs = 5, kUnionRecs = 10, kHypercubeRecs = 8, kTigerRecs = 12;
+// The library's composite scenes' axis hints (models/library.py): the
+// duocylinder's and the tiger's families on axes (x, w) and (z, y), as an
+// instance's kFams, and the hypercube's axes x, y, z, w, all +, as kCube
+// (K1's instances and the gradient kernels').
+constexpr int kLibraryFams = (0 | 3 << 2) | (2 | 1 << 2) << 4;
+constexpr int kLibraryCube = 0 | 1 << 2 | 2 << 4 | 3 << 6;
 
 // The table's records (1 + pairs + 2 singles + 2 spheres + the
 // composites'): [0] the header (pairs, singles, cylinders, composite
@@ -843,8 +850,10 @@ __device__ __forceinline__ const float* resolve_composite(const float* P, const 
 // 0xF. kComp (0: none; -1: the header's), kFams and kCube fix the
 // composites' kinds and hints (fold_composites). Inlined at each of its
 // three sites: a call kept its live values on the stack.
+// ``aux_out`` is the winning composite candidate's flip or +cell (take).
 template <int kPairs, int kSingles, int kComp = 0, int kFams = -1, int kCube = -1>
-__device__ __forceinline__ Hit intersect_table(const float* P, const Layout& L, V4 o, V4 d) {
+__device__ __forceinline__ Hit intersect_table(const float* P, const Layout& L, V4 o, V4 d,
+                                               bool& aux_out) {
   const Rec* T = fold_table(P, L);
   const Rec head = T[0];
   const int np = kPairs >= 0 ? kPairs : static_cast<int>(__float_as_uint(head.x));
@@ -897,6 +906,7 @@ __device__ __forceinline__ Hit intersect_table(const float* P, const Layout& L, 
     fold_composites<kComp, kFams, kCube>(spheres + 2 * L.n_spheres, head, o, d, k, best, idx,
                                          aux);
   }
+  aux_out = aux;
 
   Hit h;
   h.hit = best < kHalfFar;
@@ -951,13 +961,21 @@ __device__ __forceinline__ Hit intersect_table(const float* P, const Layout& L, 
   h.color = ld3(mat + 2);
   return h;
 }
+template <int kPairs, int kSingles, int kComp = 0, int kFams = -1, int kCube = -1>
+__device__ __forceinline__ Hit intersect_table(const float* P, const Layout& L, V4 o, V4 d) {
+  bool aux;
+  return intersect_table<kPairs, kSingles, kComp, kFams, kCube>(P, L, o, d, aux);
+}
 
-// The primitive of intersect_table's winning candidate ``k`` (a table
-// without composites), numbered as intersect numbers it: plane i, sphere j
-// as n_spaces + j. A pair's primitive is the wall its fold took.
-template <int kPairs, int kSingles>
+// The primitive of intersect_table's winning candidate ``k`` (its ``aux``
+// for a composite), numbered as intersect numbers it: plane i, sphere j as
+// n_spaces + j; then composite candidate c (numbered as fold_composites
+// numbers them) as n_spaces + n_spheres + 2c + aux, which the adjoint
+// reads the params by (composite_ref; kC: a table with composites). A
+// pair's primitive is the wall its fold took.
+template <int kPairs, int kSingles, bool kC = false>
 __device__ __forceinline__ int table_primitive(const float* P, const Layout& L, int k, V4 o,
-                                               V4 d) {
+                                               V4 d, bool aux = false) {
   const Rec* T = fold_table(P, L);
   const Rec head = T[0];
   const int np = kPairs >= 0 ? kPairs : static_cast<int>(__float_as_uint(head.x));
@@ -971,6 +989,8 @@ __device__ __forceinline__ int table_primitive(const float* P, const Layout& L, 
                                                                        : walls >> 16;
   } else if (k < np + ns) {
     off = __float_as_uint(T[1 + np + 2 * (k - np) + 1].z);
+  } else if (kC && k >= np + ns + L.n_spheres) {
+    return L.n_spaces + L.n_spheres + 2 * (k - np - ns - L.n_spheres) + (aux ? 1 : 0);
   } else {
     return L.n_spaces + (k - np - ns);
   }
@@ -985,13 +1005,17 @@ __device__ __forceinline__ int table_primitive(const float* P, const Layout& L, 
 // intersect_table with them; GradTableFold<kPairs, kSingles> is TableFold
 // with the winner numbered as intersect numbers it (table_primitive), which
 // the adjoint reads the params by (the gradient kernels under the
-// freeze_hints contract). The table folds find every hit, distance and
-// material of intersect, bitwise, and every normal component equal (the
-// hinted resolvers write +0 where intersect writes flip * 0.0).
+// freeze_hints contract); GradCompositeFold<...> is CompositeFold with the
+// winner numbered so, a composite candidate with its branch (the gradient
+// kernels on a scene with composites, hinted or not). The table folds find
+// every hit, distance and material of intersect, bitwise, and every normal
+// component equal (the hinted resolvers write +0 where intersect writes
+// flip * 0.0).
 struct ParamsFold {};
 template <int kPairs, int kSingles> struct TableFold {};
 template <int kPairs, int kSingles, int kComp, int kFams, int kCube> struct CompositeFold {};
 template <int kPairs, int kSingles> struct GradTableFold {};
+template <int kPairs, int kSingles, int kComp, int kFams, int kCube> struct GradCompositeFold {};
 
 __device__ __forceinline__ Hit fold(ParamsFold, const float* P, const Layout& L, V4 o, V4 d) {
   return intersect(P, L, o, d);
@@ -1013,12 +1037,26 @@ __device__ __forceinline__ Hit fold(GradTableFold<kPairs, kSingles>, const float
   h.idx = h.hit ? table_primitive<kPairs, kSingles>(P, L, h.idx, o, d) : 0;
   return h;
 }
+template <int kPairs, int kSingles, int kComp, int kFams, int kCube>
+__device__ __forceinline__ Hit fold(GradCompositeFold<kPairs, kSingles, kComp, kFams, kCube>,
+                                    const float* P, const Layout& L, V4 o, V4 d) {
+  bool aux;
+  Hit h = intersect_table<kPairs, kSingles, kComp, kFams, kCube>(P, L, o, d, aux);
+  h.idx = h.hit ? table_primitive<kPairs, kSingles, true>(P, L, h.idx, o, d, aux) : 0;
+  return h;
+}
 
-// Whether a gradient kernel's fold reads a table (GradTableFold), which
-// its blocks build after the params (build_table_for).
+// Whether a gradient kernel's fold reads a table (GradTableFold,
+// GradCompositeFold), which its blocks build after the params
+// (build_table_for), and whether it folds composites.
 template <class Fold> constexpr bool kGradTable = false;
 template <int kPairs, int kSingles>
 constexpr bool kGradTable<GradTableFold<kPairs, kSingles>> = true;
+template <int kPairs, int kSingles, int kComp, int kFams, int kCube>
+constexpr bool kGradTable<GradCompositeFold<kPairs, kSingles, kComp, kFams, kCube>> = true;
+template <class Fold> constexpr bool kGradComposite = false;
+template <int kPairs, int kSingles, int kComp, int kFams, int kCube>
+constexpr bool kGradComposite<GradCompositeFold<kPairs, kSingles, kComp, kFams, kCube>> = true;
 
 // Records of a fold table without composites (build_fold_table): the
 // header, one a pair, two a single plane and two a sphere.
@@ -1026,10 +1064,85 @@ __host__ __device__ __forceinline__ int plane_table_recs(const Layout& L, const 
   return 1 + H.n_pairs + 2 * (H.n_singles < 0 ? L.n_spaces : H.n_singles) + 2 * L.n_spheres;
 }
 
+// Records of a fold table with the descriptor's composites too.
+__host__ __device__ __forceinline__ int composite_table_recs(const Layout& L, const Hints& H) {
+  return plane_table_recs(L, H) + kCylinderRecs * (H.n_cylinders > 0 ? H.n_cylinders : 0) +
+         (H.cylinders_union >= 0 ? kUnionRecs : 0) + (H.hypercube >= 0 ? kHypercubeRecs : 0) +
+         (H.tiger >= 0 ? kTigerRecs : 0);
+}
+
 // The records of Fold's table over L and H (0: the fold reads no table).
 template <class Fold>
 __host__ __device__ __forceinline__ int table_recs_for(const Layout& L, const Hints& H) {
+  if constexpr (kGradComposite<Fold>) return composite_table_recs(L, H);
   return kGradTable<Fold> ? plane_table_recs(L, H) : 0;
+}
+
+// Where composite candidate ``c`` of the table's composite records (numbered
+// as fold_composites numbers them) reads the params, for the adjoint: a
+// family face's family spec (point, axis1, axis2 at spec..spec+11), its
+// radius slot and its material; a hypercube pair's generators (point at
+// spec, axes at spec+4, r at spec+20), its axis (in r) and the material of
+// the cell its branch ``aux`` took. Read from the records' material
+// offsets: a face's material lies at its family spec + 13 (the tiger's
+// outer faces take their inner cylinder's), a cell's at hypercube + 26i + 21.
+struct CompRef {
+  bool cube;
+  int spec, r, mat;
+};
+__device__ __forceinline__ CompRef composite_ref(const float* P, const Layout& L, int c,
+                                                 bool aux) {
+  const Rec* T = fold_table(P, L);
+  const Rec head = T[0];
+  const int np = static_cast<int>(__float_as_uint(head.x));
+  const int ns = static_cast<int>(__float_as_uint(head.y));
+  const int kinds = static_cast<int>(__float_as_uint(head.w));
+  const Rec* rec = T + 1 + np + 2 * ns + 2 * L.n_spheres;
+  CompRef out;
+  out.cube = false;
+  Rec face;
+  bool outer = false;
+  if (kinds & kCompCylinders) {
+    const int n_cyl = static_cast<int>(__float_as_uint(head.z));
+    if (c < n_cyl) {
+      face = rec[kCylinderRecs * c + 4];
+      c = -1;
+    } else {
+      c -= n_cyl;
+      rec += kCylinderRecs * n_cyl;
+    }
+  }
+  if (c >= 0 && (kinds & kCompUnion)) {
+    if (c < 2) {
+      face = rec[8 + c];
+      c = -1;
+    } else {
+      c -= 2;
+      rec += kUnionRecs;
+    }
+  }
+  if (c >= 0 && (kinds & kCompHypercube)) {
+    if (c < 4) {
+      const Rec m = rec[7];
+      const uint32_t mats = __float_as_uint(c == 0 ? m.x : c == 1 ? m.y : c == 2 ? m.z : m.w);
+      const int hc = static_cast<int>(__float_as_uint(m.x) & 0xFFFFu) - 21;
+      out.cube = true;
+      out.spec = hc + 8 * kCubeFloats;
+      out.r = c;
+      out.mat = static_cast<int>(aux ? mats & 0xFFFFu : mats >> 16);
+      return out;
+    }
+    c -= 4;
+    rec += kHypercubeRecs;
+  }
+  if (c >= 0) {  // the tiger: candidates 0-1 on family A, 2-3 on family B; odd: r_out
+    face = rec[8 + c];
+    outer = (c & 1) != 0;
+  }
+  out.mat = static_cast<int>(__float_as_uint(face.w));
+  out.spec = out.mat - 13;
+  out.r = out.spec + (outer ? kCylinderFloats : 0) + 12;
+  return out;
 }
 
 // Bytes of the params, padded to 16 when a table of ``recs`` records
@@ -1209,6 +1322,22 @@ inline Hints hints_from(const int* words) {
   int* dst = reinterpret_cast<int*>(&H);
   for (int i = 0; i < kHintInts; ++i) dst[i] = words[i];
   return H;
+}
+
+// The library composite scene whose own fold instance a descriptor takes
+// (K1's and the gradient kernels'): its one composite kind when the
+// descriptor is hinted (n_singles >= 0) and that kind's axis hints are the
+// library's (kLibraryFams, kLibraryCube); 0 otherwise (the generic
+// instance).
+inline int library_composite(const Hints& H) {
+  const int kinds = composite_kinds(H);
+  if (H.n_singles < 0) return 0;
+  const bool fams =
+      kinds == kCompUnion
+          ? H.union_axes[0] == (kLibraryFams & 15) && H.union_axes[1] == kLibraryFams >> 4
+          : H.tiger_axes[0] == (kLibraryFams & 15) && H.tiger_axes[1] == kLibraryFams >> 4;
+  if ((kinds == kCompUnion || kinds == kCompTiger) && fams) return kinds;
+  return kinds == kCompHypercube && H.hypercube_axes == kLibraryCube ? kinds : 0;
 }
 
 // Whether pair k of the descriptor lies on axis k, for every pair.

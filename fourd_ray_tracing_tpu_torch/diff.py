@@ -55,11 +55,16 @@ leaves (``stop_frozen``, the JAX package's _stop_frozen_for_coverage,
 diff.py:774-792), where the JAX package's jnp route refuses hints. The
 coverage of the soft loss stops them too; a hyperplane's soft fallback
 renders the scene without the wall with the wall's hint row dropped and
-the pairs off (``hints_for_dropped``, diff.py:795-827). Not ported yet,
-and raising: the gradient of a scene with composite primitives, with their
-coverage, ``drop_object`` and ``zero_object`` (ROADMAP queue 1, item 4b,
-training half; renderer.check_trainable refuses such a scene on every
-gradient path).
+the pairs off (``hints_for_dropped``, diff.py:795-827).
+
+The hard-loss paths (``image_loss``, ``render_grad``, the kernel route's
+K4 and K5, ``make_train_step`` without a soft object,
+``make_packed_train_step``) take every primitive, the composite ones
+(cylinders, the duocylinder, the hypercube, the tiger) included, hinted or
+not. Not ported yet, and raising: the soft loss of a scene with composite
+primitives, with their coverage, ``drop_object`` and ``zero_object``
+(ROADMAP queue 1, item 4b, soft half; renderer.check_soft_trainable
+refuses such a scene on every soft path).
 """
 from __future__ import annotations
 
@@ -73,7 +78,7 @@ from torch import nn
 from fourd_ray_tracing_tpu_torch.camera import Camera
 from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
-from fourd_ray_tracing_tpu_torch.models.scene import COMPOSITE_KINDS, Scene, check_trainable_scene
+from fourd_ray_tracing_tpu_torch.models.scene import COMPOSITE_KINDS, Scene, check_soft_scene
 from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel, megakernel
 from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4, dot
@@ -156,7 +161,7 @@ def image_loss(scene: Scene, camera: Camera, cfg: RenderConfig, seed, target,
     its rows of the image, rendered over the mesh (the rows' parts sum to
     the MSE over the rays group). Under the freeze_hints contract the
     pipeline folds with the hints and the frozen leaves get no gradient."""
-    renderer.check_trainable(cfg, scene)
+    renderer.check_trainable(cfg)
     scene = stop_frozen(scene, cfg)
     if mesh is None:
         return renderer.image_loss(scene, camera, cfg, seed, target)
@@ -305,7 +310,7 @@ def soft_image_loss(scene: Scene, camera: Camera, cfg: RenderConfig, seed, targe
     blend by ``object_coverage``. ``object_ref`` defaults to ("spheres",
     sphere_index). The plain reference of the soft training slice. With a
     mesh, this rank's part: its rows, rendered over the mesh."""
-    renderer.check_trainable(cfg, scene)
+    renderer.check_soft_trainable(cfg, scene)
     if object_ref is None:
         object_ref = ("spheres", sphere_index)
     scene = stop_frozen(scene, cfg)
@@ -385,7 +390,7 @@ class RenderLight(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vec, like_scene, like_camera, cfg, seed, mesh=None):
         cfg = gradkernel._auto_hints(like_scene, cfg)
-        renderer.check_trainable(cfg, like_scene)
+        renderer.check_trainable(cfg)
         words, batched = renderer.seed_words(seed)
         if batched:
             raise ValueError("the light-VJP path takes one scalar seed")
@@ -423,7 +428,7 @@ def render_light_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camer
     freeze_hints contract both fold with the hints and the frozen slots
     get no gradient."""
     cfg = gradkernel._auto_hints(like_scene, cfg)
-    renderer.check_trainable(cfg, like_scene)
+    renderer.check_trainable(cfg)
     if vec.device.type == "cpu":
         scene, camera = params.unpack(vec, like_scene, like_camera)
         return renderer.render_light(stop_frozen(scene, cfg), camera, cfg, seed)
@@ -444,7 +449,7 @@ def render_light_pair(scene_a: Scene, scene_b: Scene, camera: Camera, cfg: Rende
     a loss over each rank's block gives every rank the whole image's
     gradient (the counterpart of pallas_render_light_pair_sharded,
     diff.py:631-673)."""
-    renderer.check_trainable(cfg, scene_a)
+    renderer.check_trainable(cfg)
     vecs = params.stack_rows((scene_a, scene_b), camera)
     if mesh is not None:
         return RenderLight.apply(vecs, scene_a, camera, cfg, seed, mesh)
@@ -505,6 +510,7 @@ def soft_image_loss_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Ca
     the rank's rows and summed over the ranks; a hyperplane with a mesh
     raises ValueError, as in the JAX package."""
     cfg = gradkernel._auto_hints(like_scene, cfg)
+    renderer.check_soft_trainable(cfg, like_scene)
     if mesh is not None:
         if object_ref[0] == "spaces":
             raise ValueError("mesh-sharded soft training supports zero-emulatable object "
@@ -586,11 +592,12 @@ def make_train_step(cfg: RenderConfig, lr: float, camera: Camera,
     """
     soft = soft_sphere_index is not None or soft_object_ref is not None
     _check_impl(impl, frames_per_step, soft)
-    renderer.check_trainable(cfg, None)
+    renderer.check_trainable(cfg)
     ref = soft_object_ref or ("spheres", soft_sphere_index or 0)
 
     def init(scene: Scene):
-        check_trainable_scene(scene)
+        if soft:
+            check_soft_scene(scene)
         scene = params.map_leaves(
             lambda t: t.detach().to(torch.float32).clone().requires_grad_(True), scene)
         return scene, torch.optim.Adam(list(params.tree_leaves(scene)), lr=lr)
@@ -665,7 +672,7 @@ def make_packed_train_step(cfg: RenderConfig, lr: float, camera: Camera, scene_t
     its hints are derived here when it asks for the contract and has none.
     """
     cfg = gradkernel._auto_hints(scene_template, cfg)
-    renderer.check_trainable(cfg, scene_template)
+    renderer.check_trainable(cfg)
     n = params.n_scene(scene_template)
     cam_vec = params.pack(scene_template, camera).detach()[n:]
     masks = [m for m in (None if param_filter is None else

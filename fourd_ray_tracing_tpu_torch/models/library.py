@@ -1,9 +1,9 @@
 """The five canonical scenes, with the JAX package's numbers.
 
-Counterpart of fourd_ray_tracing_tpu/models/library.py. The forward
-renders all five; the gradient paths take the two without composite
-primitives (sphere_plane_light, room_with_sphere) and refuse the others
-(ROADMAP queue 1, item 4b, training half).
+Counterpart of fourd_ray_tracing_tpu/models/library.py. The forward and
+the hard-loss gradient paths take all five; the soft paths take the two
+without composite primitives (sphere_plane_light, room_with_sphere) and
+refuse the others (ROADMAP queue 1, item 4b, soft half).
 """
 from __future__ import annotations
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from fourd_ray_tracing_tpu_torch.camera import Camera
-from fourd_ray_tracing_tpu_torch.models.scene import (Scene, check_trainable_scene,
+from fourd_ray_tracing_tpu_torch.models.scene import (Scene, check_soft_scene,
                                                        intersect_scene_fast)
 from fourd_ray_tracing_tpu_torch.ops import rng
 from fourd_ray_tracing_tpu_torch.ops.sampler import direction_from_uniforms
@@ -99,16 +99,14 @@ def check_supported(cfg: RenderConfig) -> None:
         )
 
 
-def check_trainable(cfg: RenderConfig, scene) -> None:
-    """The gradient paths' check (the plain autograd route, K4-K6, K8):
+def check_trainable(cfg: RenderConfig) -> None:
+    """The hard-loss gradient paths' check (the plain autograd route, K4,
+    K5, K8, the hard train steps), which take every primitive:
     check_supported; ValueError when ``cfg`` carries static hints without
     ``freeze_hints`` (hinted normal and axis components would get no
     gradient and the pair fold rewrites the walls' math: the JAX gradient
-    kernel refuses them outside that contract too, gradkernel.py:653-671);
-    NotImplementedError when ``scene`` (a Scene or its params.Layout) holds
-    a composite primitive, whose adjoint is not ported yet
-    (scene.check_trainable_scene). ``scene`` is None only where the scene
-    comes later (make_train_step, whose steps check it)."""
+    kernel refuses them outside that contract too, gradkernel.py:653-671).
+    The soft paths check their scene too (``check_soft_trainable``)."""
     check_supported(cfg)
     if (cfg.plane_hints is not None or cfg.plane_pairs is not None
             or cfg.axis_hints is not None) and not cfg.freeze_hints:
@@ -118,8 +116,15 @@ def check_trainable(cfg: RenderConfig, scene) -> None:
             "hinted axes get zero gradients, every other gradient stays exact): see "
             "diff.with_frozen_hints"
         )
-    if scene is not None:
-        check_trainable_scene(scene)
+
+
+def check_soft_trainable(cfg: RenderConfig, scene) -> None:
+    """The soft paths' check (the soft loss, its kernel route, K6, the soft
+    train step): check_trainable, and NotImplementedError when ``scene`` (a
+    Scene or its params.Layout) holds a composite primitive, whose soft
+    half is not ported yet (scene.check_soft_scene)."""
+    check_trainable(cfg)
+    check_soft_scene(scene)
 
 
 def screen_coords(cfg: RenderConfig, device, row0: int = 0, n_rows: int | None = None):

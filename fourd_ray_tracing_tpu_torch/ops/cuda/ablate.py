@@ -16,8 +16,9 @@ the same sums over the plain pipeline (models/renderer.py), in double
 (tools/grad_ablate.py's ``build`` routes by device). Under the
 freeze_hints contract (diff.with_frozen_hints, as the JAX tool runs them,
 grad_ablate.py:153-163) the variants fold with the static hints, as K4's
-pass 1 does, and so does their plain version. ``LAUNCHES`` counts kernel
-launches, ``HINTED_LAUNCHES`` those with static hints.
+pass 1 does, and so does their plain version; a scene with composite
+primitives folds as K4's pass 1 folds it, hinted or not. ``LAUNCHES``
+counts kernel launches, ``HINTED_LAUNCHES`` those with static hints.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
 from fourd_ray_tracing_tpu_torch.models.scene import Scene
 from fourd_ray_tracing_tpu_torch.ops.cuda import build, gradkernel
-from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import hint_table, hinted, launch_rows
+from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import hinted, launch_rows
 from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
 
 LAUNCHES = HINTED_LAUNCHES = 0
@@ -49,7 +50,7 @@ def variant_plain(mode: str, scene: Scene, camera: Camera, cfg: RenderConfig, se
     over those image rows only, ``target`` their block."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    renderer.check_trainable(cfg, scene)
+    renderer.check_trainable(cfg)
     seed = gradkernel._scalar_seed(seed)
     light_sum = renderer.render_light_tile(scene, camera, cfg, seed, *launch_rows(cfg, rows))
     if mode == "acc":
@@ -74,7 +75,7 @@ def launch_variant(mode: str, packed: torch.Tensor, lay: params.Layout, cfg: Ren
     if target.numel() != lay.n_views * cfg.height * cfg.width * 3 or target.shape[-1] != 3:
         raise ValueError(f"target must hold {lay.n_views} x {cfg.height} x {cfg.width} x 3 "
                          f"values, got {tuple(target.shape)}")
-    hints = hint_table(cfg, lay) if hinted(cfg) else None
+    hints = gradkernel.launch_words(lay, cfg)
     lib = build.load()
     table = (ctypes.c_int * len(lay))(*lay)
     n_cols = gradkernel._scratch_cols(lib, table, cfg, cfg.height)
@@ -93,6 +94,6 @@ def launch_variant(mode: str, packed: torch.Tensor, lay: params.Layout, cfg: Ren
     if err != 0:
         raise RuntimeError(f"variant kernel launch failed: cudaError {err}")
     LAUNCHES += 1
-    HINTED_LAUNCHES += int(hints is not None)
+    HINTED_LAUNCHES += int(hinted(cfg))
     return value
 

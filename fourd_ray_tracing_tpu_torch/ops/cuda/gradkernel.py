@@ -22,8 +22,11 @@ hints, diff.with_frozen_hints) every launch folds with the forward's hints
 (K1's fold table, one per block) and its gradient is exact for every slot
 but the frozen ones, which it writes as 0 (the packed mask of
 models/params.py ``freeze_mask``); its loss and every other slot
-are the unhinted launch's. The entry points that take a scene derive the
-hints from it when the config asks for the contract and has none
+are the unhinted launch's. K4 and K5 take every primitive, the composite
+ones (cylinders, the duocylinder, the hypercube, the tiger) folded over
+K1's table whether hinted or not (``launch_words``); K6, the soft half,
+refuses a scene with composites (renderer.check_soft_trainable). The
+entry points that take a scene derive the hints from it when the config asks for the contract and has none
 (``_auto_hints``, gradkernel.py:674-700); a launch is handed them and the
 mask. The plain versions run the hinted plain pipeline and zero the same
 slots.
@@ -96,20 +99,35 @@ def freeze(grad: torch.Tensor, like_scene: Scene, cfg: RenderConfig) -> torch.Te
     return torch.where(mask != 0, grad, torch.zeros((), dtype=grad.dtype, device=grad.device))
 
 
+def launch_words(lay: params.Layout, cfg: RenderConfig):
+    """The hints descriptor of a gradient launch (hint_table), or None for
+    the unhinted fold over the params. A scene with composite primitives
+    always takes one, its fold being K1's table (their hints when ``cfg``
+    carries them, none otherwise); a scene of hyperplanes and spheres takes
+    one when ``cfg`` carries hints (it then carries the contract:
+    check_trainable), unless it has more than build.MAX_HINT_PLANES
+    hyperplanes, whose hints the table cannot hold (the rule of the plane
+    count: it launches with the unhinted fold, which finds the hinted
+    fold's hits, and its frozen slots are written 0 all the same)."""
+    if lay.composite_kinds() or (hinted(cfg) and lay.n_spaces <= build.MAX_HINT_PLANES):
+        return hint_table(cfg, lay)
+    return None
+
+
 def _launch_hints(lay: params.Layout, cfg: RenderConfig, keep, device):
     """(hints descriptor or None, keep pointer or None) of a gradient
-    launch: the descriptor when ``cfg`` carries hints (it then carries the
-    contract: check_trainable); the mask ``keep`` is required when ``cfg``
-    freezes a slot and must be a (P,) float32 tensor on the launch's
-    device (params.freeze_mask(cfg, scene, P, device))."""
+    launch: ``launch_words``, and the mask ``keep``, which is required
+    when ``cfg`` freezes a slot and must be a (P,) float32 tensor on the
+    launch's device (params.freeze_mask(cfg, scene, P, device))."""
+    words = launch_words(lay, cfg)
     if not hinted(cfg):
-        return None, None
+        return words, None
     if keep is None:
         raise ValueError("a launch under the freeze_hints contract takes the packed mask of its "
                          "frozen slots (params.freeze_mask)")
     if keep.device != device or keep.dtype != torch.float32 or keep.shape != (lay.size,):
         raise ValueError(f"keep must be a ({lay.size},) float32 tensor on {device}")
-    return hint_table(cfg, lay), keep.data_ptr()
+    return words, keep.data_ptr()
 
 
 def _addr(words):
@@ -131,7 +149,7 @@ def loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Ca
     alone, ``target`` their block. Under the freeze_hints contract the
     pipeline folds with the hints and the frozen slots come out 0."""
     cfg = _auto_hints(like_scene, cfg)
-    renderer.check_trainable(cfg, like_scene)
+    renderer.check_trainable(cfg)
     if band_rows is None and rows is None:
         vec = packed.detach().clone().requires_grad_(True)
         scene, camera = params.unpack(vec, like_scene, like_camera)
@@ -160,7 +178,7 @@ def loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Ca
 def check_shape(lay: params.Layout, cfg: RenderConfig) -> None:
     """Raise for what the gradient kernels cannot hold, and for static
     hints outside the freeze_hints contract (renderer.check_trainable)."""
-    renderer.check_trainable(cfg, lay)
+    renderer.check_trainable(cfg)
     if lay.size > MAX_PARAMS:
         raise ValueError(f"the gradient kernels hold at most {MAX_PARAMS} packed "
                          f"parameters in shared memory; this scene and camera have {lay.size}")
@@ -194,12 +212,13 @@ def launch_shapes(lay: params.Layout, cfg: RenderConfig | None = None) -> dict:
     """(threads a block, dynamic shared-memory bytes) of each kernel of the
     gradient launches over ``lay`` under ``cfg``'s hints (none by default)
     (csrc/gradkernel.cu, reduce.cuh grad_smem_bytes): the sweeps (K4's and
-    K5's, K6's rows a and b) hold the params row, with hints padded to 16
-    bytes and followed by the fold table, and their threads' columns, row b
-    one byte a slot more; the pass-1 kernels (K4's loss_cot, K6's soft_sum)
-    the params row and the table."""
-    if cfg is not None and hinted(cfg):
-        head = megakernel.shared_bytes(lay, hint_table(cfg, lay))
+    K5's, K6's rows a and b) hold the params row, with a fold table
+    (``launch_words``) padded to 16 bytes and followed by the table, and
+    their threads' columns, row b one byte a slot more; the pass-1 kernels
+    (K4's loss_cot, K6's soft_sum) the params row and the table."""
+    words = launch_words(lay, cfg or RenderConfig())
+    if words is not None:
+        head = megakernel.shared_bytes(lay, words)
     else:
         head = 4 * lay.size
     sweep = head + 4 * GRAD_PITCH * lay.size
@@ -266,7 +285,7 @@ def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
         raise RuntimeError(f"value-and-grad kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     SHARD_LAUNCHES += int(n_rows < cfg.height)
-    HINTED_LAUNCHES += int(hints is not None)
+    HINTED_LAUNCHES += int(hinted(cfg))
     return loss, grad
 
 
@@ -276,7 +295,7 @@ def loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: Cam
     launch (with ``rows``, those rows' part, ``target`` their block); a
     vector on another device raises."""
     cfg = _auto_hints(like_scene, cfg)
-    renderer.check_trainable(cfg, like_scene)
+    renderer.check_trainable(cfg)
     lay = params.layout(like_scene, like_camera)
     target = torch.as_tensor(target, dtype=torch.float32, device=packed.device).contiguous()
     words, _ = renderer.seed_words(seed)
@@ -317,7 +336,7 @@ def make_packed_loss_and_grad(scene: Scene, camera: Camera, cfg: RenderConfig):
     the frozen slots of the gradient are 0 (gradkernel.py:990-1017).
     """
     cfg = _auto_hints(scene, cfg)
-    renderer.check_trainable(cfg, scene)
+    renderer.check_trainable(cfg)
     packed = params.pack(scene, camera).detach()
     n = params.n_scene(scene)
     cam_vec = packed[n:]
@@ -353,7 +372,7 @@ def render_light_vjp_plain(packed: torch.Tensor, like_scene: Scene, like_camera:
     block. Under the freeze_hints contract the pipeline folds with the
     hints and the frozen slots come out 0."""
     cfg = _auto_hints(like_scene, cfg)
-    renderer.check_trainable(cfg, like_scene)
+    renderer.check_trainable(cfg)
     seed = _scalar_seed(seed)
     row0, n_rows = launch_rows(cfg, rows)
     band = slice(row0, row0 + n_rows)
@@ -399,7 +418,7 @@ def launch_light_vjp(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
         raise RuntimeError(f"light-VJP kernel launch failed: cudaError {err}")
     VJP_LAUNCHES += 1
     SHARD_VJP_LAUNCHES += int(n_rows < cfg.height)
-    HINTED_VJP_LAUNCHES += int(hints is not None)
+    HINTED_VJP_LAUNCHES += int(hinted(cfg))
     return grad
 
 
@@ -408,7 +427,7 @@ def render_light_vjp_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: 
     """K5 on a CUDA vector, as ``render_light_vjp_plain`` computes it: one
     launch for (P,) or for (F, P) rows; another device raises."""
     cfg = _auto_hints(like_scene, cfg)
-    renderer.check_trainable(cfg, like_scene)
+    renderer.check_trainable(cfg)
     cot = torch.as_tensor(cot_light, dtype=torch.float32, device=packed.device).contiguous()
     lay = params.layout(like_scene, like_camera)
     return launch_light_vjp(packed.detach().contiguous(), lay, cfg, _scalar_seed(seed), cot, rows,
@@ -441,7 +460,7 @@ def render_soft_loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene,
     freeze_hints contract the pipeline folds with the hints and the frozen
     slots come out 0."""
     cfg = _auto_hints(like_scene, cfg)
-    renderer.check_trainable(cfg, like_scene)
+    renderer.check_soft_trainable(cfg, like_scene)
     seed = _scalar_seed(seed)
     device = packed.device
     row0, n_rows = launch_rows(cfg, rows)
@@ -481,6 +500,7 @@ def launch_soft_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderC
     freeze_hints contract ``keep`` is the packed mask (params.freeze_mask); both rows
     fold with the hints (zero_object keeps every wall)."""
     global SOFT_LAUNCHES, SHARD_SOFT_LAUNCHES, HINTED_SOFT_LAUNCHES
+    renderer.check_soft_trainable(cfg, lay)
     _check_launch(packed, lay, cfg, target, alpha)
     hints, keep_ptr = _launch_hints(lay, cfg, keep, packed.device)
     row0, n_rows = launch_rows(cfg, rows)
@@ -524,7 +544,7 @@ def launch_soft_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderC
         raise RuntimeError(f"soft value-and-grad kernel launch failed: cudaError {err}")
     SOFT_LAUNCHES += 1
     SHARD_SOFT_LAUNCHES += int(n_rows < cfg.height)
-    HINTED_SOFT_LAUNCHES += int(hints is not None)
+    HINTED_SOFT_LAUNCHES += int(hinted(cfg))
     return loss, grad, alpha_cot
 
 
@@ -533,7 +553,7 @@ def render_soft_loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like
     """K6 on a CUDA vector, as ``render_soft_loss_and_grad_plain``
     computes it, in one launch; another device raises."""
     cfg = _auto_hints(like_scene, cfg)
-    renderer.check_trainable(cfg, like_scene)
+    renderer.check_soft_trainable(cfg, like_scene)
     device = packed.device
     target = torch.as_tensor(target, dtype=torch.float32, device=device).contiguous()
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device).detach().contiguous()

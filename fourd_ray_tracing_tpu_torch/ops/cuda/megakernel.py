@@ -77,8 +77,9 @@ def with_hints(scenes, cfg: RenderConfig) -> RenderConfig:
     same-structure scenes that one launch renders as rows) where it has
     none and they can be derived: the hyperplanes' (plane_hints and
     plane_pairs: one set that every scene gives, a soft pair's zero_object
-    row keeps the walls; at most build.MAX_HINT_PLANES hyperplanes; no
-    normal that requires grad) and, apart from them, the composite
+    row keeps the walls; no normal that requires grad; any number of
+    hyperplanes, hint_table decides what a launch folds) and, apart from
+    them, the composite
     primitives' axes (axis_hints, one set that every scene gives), as
     megakernel.py:426-436 derives both. Otherwise ``cfg`` as it is. Reads
     the scenes' hyperplanes and axes, a copy to the host each."""
@@ -86,7 +87,7 @@ def with_hints(scenes, cfg: RenderConfig) -> RenderConfig:
         return cfg
     scenes = [scenes] if isinstance(scenes, Scene) else list(scenes)
     updates = {}
-    if cfg.plane_hints is None and all(len(s.spaces) <= build.MAX_HINT_PLANES for s in scenes):
+    if cfg.plane_hints is None:
         found = set()
         for scene in scenes:
             hints = plane_norm_hints(scene)
@@ -120,18 +121,21 @@ def hint_table(cfg: RenderConfig, lay: params.Layout):
     components << 8), in the fold's order, n_singles -1 without plane
     hints; then the cylinder count, the composites' offsets in the params
     (``lay``; -1: none) and their axis hints (a family k1 | k2 << 2, the
-    hypercube k_i << 2i | (s_i < 0) << (8 + i); -1: not aligned)."""
+    hypercube k_i << 2i | (s_i < 0) << (8 + i); -1: not aligned).
+
+    The table holds the hints of at most build.MAX_HINT_PLANES hyperplanes:
+    a scene with more folds its hyperplanes unhinted (n_singles -1), which
+    gives every hit, distance and material the hinted fold gives (the
+    freeze_hints contract's frozen slots stay frozen: the gradient launches
+    take the mask whatever the descriptor holds)."""
     words = (ctypes.c_int * build.HINT_INTS)()
     n_spaces = lay.n_spaces
-    if cfg.plane_hints is None:
+    if cfg.plane_hints is not None and len(cfg.plane_hints) != n_spaces:
+        raise ValueError(f"plane_hints has {len(cfg.plane_hints)} entries for {n_spaces} "
+                         "hyperplanes")
+    if cfg.plane_hints is None or n_spaces > build.MAX_HINT_PLANES:
         words[1] = -1
     else:
-        if len(cfg.plane_hints) != n_spaces:
-            raise ValueError(f"plane_hints has {len(cfg.plane_hints)} entries for {n_spaces} "
-                             "hyperplanes")
-        if n_spaces > build.MAX_HINT_PLANES:
-            raise ValueError(f"the forward kernel takes the hints of at most "
-                             f"{build.MAX_HINT_PLANES} hyperplanes, got {n_spaces}")
         pairs, singles = cfg.plane_pairs or ((), range(n_spaces))
         words[0], words[1] = len(pairs), len(singles)
         for k, (i, j, axis) in enumerate(pairs):

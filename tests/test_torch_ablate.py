@@ -16,6 +16,7 @@ would move the sum by a quantum (5e-4 of it) and fail.
 """
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -151,9 +152,16 @@ def test_stub_variants_match_jax_patches(variant, monkeypatch):
         monkeypatch.setattr(jrenderer, "direction_from_uniforms", const_dir)
     if code & 2:
         monkeypatch.setattr(jrng, "masked_uniform01", const_mu)
-    ref = np.asarray(jrenderer.render_light(jlib.room_with_sphere(), jax_camera(),
-                                            jrenderer.RenderConfig(**SHAPE), 7))
-    monkeypatch.undo()
+    # JAX caches what it traced: clear it on both sides of the stubbed run,
+    # so the reference traces the stubs and later renders trace the real
+    # functions again.
+    jax.clear_caches()
+    try:
+        ref = np.asarray(jrenderer.render_light(jlib.room_with_sphere(), jax_camera(),
+                                                jrenderer.RenderConfig(**SHAPE), 7))
+    finally:
+        monkeypatch.undo()
+        jax.clear_caches()
     cfg = trenderer.RenderConfig(**SHAPE)
     scene, camera = tlib.room_with_sphere(CPU), torch_camera()
     real = (trenderer.direction_from_uniforms, megakernel.rng.masked_uniform01)

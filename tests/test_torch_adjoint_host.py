@@ -21,7 +21,10 @@ call each kernel's per-pixel functions for every pixel and sum in double:
 
 each at SHAPE's 3 bounces through the generic instance of the bounce
 records, and at the main paths' count through the unrolled instance the
-card runs there (K4 through the generic one too).
+card runs there (K4 through the generic one too). K4 and K5 also run on
+the composite scenes, over K1's fold table as the card's composite folds
+do (the harness builds it, HostRow), unhinted and, for K4, under the
+freeze_hints contract through each library scene's own instance.
 
 That holds the hand-written adjoint (every partial derivative of the
 trace) to autograd on the CPU: losses within rtol 1e-6, every gradient
@@ -43,13 +46,17 @@ from helpers import assert_images_close
 from fourd_ray_tracing_tpu_torch import camera as tcam
 from fourd_ray_tracing_tpu_torch import diff
 from fourd_ray_tracing_tpu_torch.models import library, params, renderer
+from fourd_ray_tracing_tpu_torch.models import scene as tscene
+from fourd_ray_tracing_tpu_torch.ops import geometry
 from fourd_ray_tracing_tpu_torch.ops.cuda import build, gradkernel
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
 
 CPU = torch.device("cpu")
-# The scenes the gradient paths take (the composite primitives' adjoint is
-# not ported yet: ROADMAP queue 1, item 4b, training half).
+# The scenes of hyperplanes and spheres, the composite library scenes and a
+# floor with two standalone cylinders, one on unit axes, one turned
+# (test_torch_freeze_hints.py custom_scene).
 GRAD_SCENES = ["room_with_sphere", "sphere_plane_light"]
+COMPOSITE_SCENES = ["duocylinder", "tiger", "hypercube", "cylinders"]
 SHAPE = dict(width=32, height=16, samples=2, reflections_amount=3, rng_mode="per_sample",
              light_coefficient=0.7)
 
@@ -88,68 +95,107 @@ struct DenseAcc {
 };
 
 // The pixel sweep's instance: kMainBounces (reflections must equal it) or
-// the generic kMaxBounces; only, obj and g_shared as K6's rows take them.
+// the generic kMaxBounces; only, obj and g_shared as K6's rows take them;
+// Fold the fold of the re-trace (ParamsFold without a table).
+template <class Fold = ParamsFold>
 static unsigned sweep(bool generic, const float* P, const Layout& L, const Pixel& p, int view,
                       int samples, int reflections, float indent, uint32_t seed, V3 g_light,
                       DenseAcc& acc, unsigned only = 0u, int obj = -1,
                       V3 g_shared = {0.0f, 0.0f, 0.0f}) {
   if (generic) {
-    return pixel_sweep<kMaxBounces>(P, L, p, view, samples, reflections, indent, seed, g_light,
-                                    acc, only, obj, g_shared);
+    return pixel_sweep<kMaxBounces, Fold>(P, L, p, view, samples, reflections, indent, seed,
+                                          g_light, acc, only, obj, g_shared);
   }
-  return pixel_sweep<kMainBounces>(P, L, p, view, samples, reflections, indent, seed, g_light,
-                                   acc, only, obj, g_shared);
+  return pixel_sweep<kMainBounces, Fold>(P, L, p, view, samples, reflections, indent, seed,
+                                         g_light, acc, only, obj, g_shared);
 }
 
-extern "C" void host_loss_grad(int generic, const float* P, const uint32_t* seeds, int n_frames,
+// A launch's fold and its params row: fold 0 is ParamsFold over P; 1-4
+// the composite folds of the gradient kernels (reduce.cuh CompFold,
+// UnionFold, TigerFold, CubeFold), over a copy of P followed by K1's fold
+// table of the descriptor ``hints``, as a block builds it (one thread).
+struct HostRow {
+  alignas(16) float buf[kMaxParams + 4 + 4 * 512];
+  const float* P;
+};
+static void host_row(HostRow& row, int fold, const float* P, const Layout& L, const int* hints) {
+  row.P = P;
+  if (fold == 0) return;
+  for (int k = 0; k < L.size; ++k) row.buf[k] = P[k];
+  build_fold_table(row.buf, L, hints_from(hints), 0, 1);
+  row.P = row.buf;
+}
+template <class F> static void with_host_fold(int fold, F&& f) {
+  switch (fold) {
+    case 0: f(ParamsFold{}); break;
+    case 1: f(GradCompositeFold<-1, -1, -1, -1, -1>{}); break;
+    case 2: f(GradCompositeFold<-1, -1, kCompUnion, kLibraryFams, -1>{}); break;
+    case 3: f(GradCompositeFold<-1, -1, kCompTiger, kLibraryFams, -1>{}); break;
+    default: f(GradCompositeFold<-1, -1, kCompHypercube, -1, kLibraryCube>{}); break;
+  }
+}
+
+extern "C" void host_loss_grad(int generic, const float* P0, const uint32_t* seeds, int n_frames,
                                const int* layout, int width, int height, int samples,
                                int reflections, float indent, float coef, const float* target,
-                               double* loss_out, double* grad_out, float* light_out) {
+                               double* loss_out, double* grad_out, float* light_out, int fold,
+                               const int* hints) {
   Layout L;
   memcpy(&L, layout, sizeof(int) * kLayoutInts);
+  static HostRow row;
+  host_row(row, fold, P0, L, hints);
+  const float* P = row.P;
   const long long total = (long long)L.n_views * height * width;
-  for (long long f = 0; f < n_frames; ++f) {
-    for (long long lin = 0; lin < total; ++lin) {
-      const int view = lin / (height * width), rem = lin % (height * width);
-      const int py = rem / width, px = rem % width;
-      float g[kMaxParams] = {0.0f};
-      DenseAcc acc{g, nullptr};
-      const Pixel p = setup_pixel(P, L, view, px, py, width, height, indent);
-      const V3 sum = pixel_light_sum(P, L, p, samples, reflections, indent, seeds[f]);
-      const LossCot lc = loss_cot(sum, target + lin * 3, coef, samples);
-      *loss_out += lc.loss;
-      sweep(generic, P, L, p, view, samples, reflections, indent, seeds[f],
-            mul3s(lc.g_mean, 1.0f / (float)samples), acc);
-      for (int k = 0; k < L.size; ++k) grad_out[k] += g[k];
-      const float inv = 1.0f / (float)samples;
-      float* out = light_out + (f * total + lin) * 3;
-      out[0] = sum.x * inv;
-      out[1] = sum.y * inv;
-      out[2] = sum.z * inv;
+  with_host_fold(fold, [&](auto fold_tag) {
+    using Fold = decltype(fold_tag);
+    for (long long f = 0; f < n_frames; ++f) {
+      for (long long lin = 0; lin < total; ++lin) {
+        const int view = lin / (height * width), rem = lin % (height * width);
+        const int py = rem / width, px = rem % width;
+        float g[kMaxParams] = {0.0f};
+        DenseAcc acc{g, nullptr};
+        const Pixel p = setup_pixel<Fold>(P, L, view, px, py, width, height, indent);
+        const V3 sum = pixel_light_sum<Fold>(P, L, p, samples, reflections, indent, seeds[f]);
+        const LossCot lc = loss_cot(sum, target + lin * 3, coef, samples);
+        *loss_out += lc.loss;
+        sweep<Fold>(generic, P, L, p, view, samples, reflections, indent, seeds[f],
+                    mul3s(lc.g_mean, 1.0f / (float)samples), acc);
+        for (int k = 0; k < L.size; ++k) grad_out[k] += g[k];
+        const float inv = 1.0f / (float)samples;
+        float* out = light_out + (f * total + lin) * 3;
+        out[0] = sum.x * inv;
+        out[1] = sum.y * inv;
+        out[2] = sum.z * inv;
+      }
     }
-  }
+  });
 }
 
 extern "C" void host_light_vjp(int generic, const float* P, int n_rows, uint32_t seed,
                                const int* layout, int width, int height, int samples,
                                int reflections, float indent, const float* cot,
-                               double* grad_out) {
+                               double* grad_out, int fold, const int* hints) {
   Layout L;
   memcpy(&L, layout, sizeof(int) * kLayoutInts);
   const long long total = (long long)L.n_views * height * width;
-  for (long long r = 0; r < n_rows; ++r) {
-    for (long long lin = 0; lin < total; ++lin) {
-      const int view = lin / (height * width), rem = lin % (height * width);
-      const int py = rem / width, px = rem % width;
-      float g[kMaxParams] = {0.0f};
-      DenseAcc acc{g, nullptr};
-      const float* Pr = P + r * L.size;
-      const Pixel p = setup_pixel(Pr, L, view, px, py, width, height, indent);
-      const V3 g_light = mul3s(ld3(cot + (r * total + lin) * 3), 1.0f / (float)samples);
-      sweep(generic, Pr, L, p, view, samples, reflections, indent, seed, g_light, acc);
-      for (int k = 0; k < L.size; ++k) grad_out[r * L.size + k] += g[k];
+  with_host_fold(fold, [&](auto fold_tag) {
+    using Fold = decltype(fold_tag);
+    for (long long r = 0; r < n_rows; ++r) {
+      static HostRow row;
+      host_row(row, fold, P + r * L.size, L, hints);
+      const float* Pr = row.P;
+      for (long long lin = 0; lin < total; ++lin) {
+        const int view = lin / (height * width), rem = lin % (height * width);
+        const int py = rem / width, px = rem % width;
+        float g[kMaxParams] = {0.0f};
+        DenseAcc acc{g, nullptr};
+        const Pixel p = setup_pixel<Fold>(Pr, L, view, px, py, width, height, indent);
+        const V3 g_light = mul3s(ld3(cot + (r * total + lin) * 3), 1.0f / (float)samples);
+        sweep<Fold>(generic, Pr, L, p, view, samples, reflections, indent, seed, g_light, acc);
+        for (int k = 0; k < L.size; ++k) grad_out[r * L.size + k] += g[k];
+      }
     }
-  }
+  });
 }
 
 // K6 split as the card splits it: pass 1 on each row (soft_sum_kernel's
@@ -243,8 +289,42 @@ def host_lib(tmp_path_factory):
     return ctypes.CDLL(str(lib))
 
 
-def host_loss_grad(lib, scene, camera, cfg, seeds, target, instance="generic"):
+def grad_scene(name):
+    """A library scene, or "cylinders": test_torch_freeze_hints.py's floor
+    and two standalone cylinders (the first on unit axes, hinted; the
+    second turned, not) under sphere_plane_light's sun and sky."""
+    if name in library.SCENES:
+        return library.SCENES[name](CPU)
+    from test_torch_freeze_hints import custom_scene
+
+    scene = custom_scene(name, tscene, geometry, Vec4, CPU)
+    return scene._replace(environment=library.sphere_plane_light(CPU).environment)
+
+
+# The harness's folds (HostRow): 0 ParamsFold, 1 the generic composite
+# fold, 2-4 the library duocylinder's, tiger's and hypercube's instances.
+LIBRARY_FOLDS = {"duocylinder": 2, "tiger": 3, "hypercube": 4}
+
+
+def fold_args(scene, camera, cfg, library_instance=False):
+    """(fold, descriptor or None) of the harness for ``scene`` under
+    ``cfg``: a scene with composites folds over K1's table of cfg's
+    descriptor (gradkernel.launch_words), through its library instance
+    when asked (the card takes it under the hints at the main bounce
+    count), else the generic one."""
     lay = params.layout(scene, camera)
+    words = gradkernel.launch_words(lay, cfg)
+    if not lay.composite_kinds():
+        return 0, words
+    name = next((n for n, f in LIBRARY_FOLDS.items()
+                 if lay.composite_kinds() == library.SCENES[n](CPU).composite_kinds()), None)
+    return (LIBRARY_FOLDS[name] if library_instance else 1), words
+
+
+def host_loss_grad(lib, scene, camera, cfg, seeds, target, instance="generic",
+                   library_instance=False):
+    lay = params.layout(scene, camera)
+    fold, words = fold_args(scene, camera, cfg, library_instance)
     packed = params.pack(scene, camera).numpy()
     seeds = np.asarray(seeds, np.uint32)
     total = lay.n_views * cfg.height * cfg.width
@@ -255,7 +335,8 @@ def host_loss_grad(lib, scene, camera, cfg, seeds, target, instance="generic"):
                        table, ctypes.c_int(cfg.width), ctypes.c_int(cfg.height),
                        ctypes.c_int(cfg.samples), ctypes.c_int(cfg.reflections_amount),
                        ctypes.c_float(cfg.small_indent), ctypes.c_float(cfg.light_coefficient),
-                       ptr(target), ctypes.byref(loss), ptr(grad), ptr(light))
+                       ptr(target), ctypes.byref(loss), ptr(grad), ptr(light),
+                       ctypes.c_int(fold), words)
     scale = 1.0 / (len(seeds) * total * 3)
     return loss.value * scale, (grad * scale).astype(np.float32), light
 
@@ -263,7 +344,7 @@ def host_loss_grad(lib, scene, camera, cfg, seeds, target, instance="generic"):
 def check_loss_grad(lib, name, views, cfg, instance):
     """K4's pass 1, loss_cot and sweep over every pixel against autograd,
     and its pass-1 light against the plain render."""
-    scene = library.SCENES[name](CPU)
+    scene = grad_scene(name)
     camera = camera_of(views)
     shape = (len(views), cfg.height, cfg.width, 3) if len(views) > 1 else (cfg.height, cfg.width, 3)
     target = np.random.default_rng(4).uniform(0, 1, shape).astype(np.float32)
@@ -272,21 +353,22 @@ def check_loss_grad(lib, name, views, cfg, instance):
     ref_loss, ref_grad = gradkernel.loss_and_grad_plain(
         params.pack(scene, camera), scene, camera, cfg, seeds, torch.from_numpy(target))
     np.testing.assert_allclose(loss, float(ref_loss), rtol=1e-6)
-    assert_grad_close(grad, ref_grad.numpy())
+    assert_grad_close(grad, ref_grad.numpy(), pattern_floor(scene))
     ref_light = renderer.render_light(scene, camera, cfg, seeds).numpy()
     assert_images_close(light.reshape(ref_light.shape), ref_light, atol=1e-5,
                         boundary_frac=0.02, mean_atol=0.05)
 
 
 @pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
-@pytest.mark.parametrize("name", GRAD_SCENES)
+@pytest.mark.parametrize("name", GRAD_SCENES + COMPOSITE_SCENES)
 def test_host_adjoint_matches_autograd(host_lib, name, views):
-    """K4's per-pixel body, generic instance, at SHAPE's 3 bounces."""
+    """K4's per-pixel body, generic instance, at SHAPE's 3 bounces; a
+    scene with composites through the generic composite fold, unhinted."""
     check_loss_grad(host_lib, name, views, config(), "generic")
 
 
 @pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
-@pytest.mark.parametrize("name", GRAD_SCENES)
+@pytest.mark.parametrize("name", GRAD_SCENES + COMPOSITE_SCENES)
 @pytest.mark.parametrize("bounces,instance", INSTANCES, ids=[i for _, i in INSTANCES])
 def test_host_adjoint_instances_match_autograd(host_lib, name, views, bounces, instance):
     """K4's per-pixel body at the main paths' bounce count, through the
@@ -307,19 +389,44 @@ def image_shape(views, cfg):
     return (len(views), cfg.height, cfg.width) if len(views) > 1 else (cfg.height, cfg.width)
 
 
-def assert_grad_close(grad, ref):
-    """Mixed-scale relative error under 1e-3 and the same non-zero pattern."""
+def assert_grad_close(grad, ref, pattern_floor=0.0):
+    """Mixed-scale relative error under 1e-3 and the same non-zero pattern
+    on the slots above ``pattern_floor`` times the largest. A composite
+    scene takes a floor of 1e-7: a face's radius and the axis-aligned
+    families' point components collect cotangents that cancel to a
+    residue of float32 rounding (the near-cancelling terms of the
+    normal's 1/r and the circle's sqrt), exactly 0 in one order of sums
+    and up to 1e-8 of the largest slot in the other (the tiger's inner
+    radius); the mixed-scale bound holds on those slots too."""
     assert grad.shape == ref.shape and np.isfinite(grad).all()
     scale = np.maximum(np.abs(ref), 1e-3 * np.abs(ref).max() + 1e-8)
     assert (np.abs(grad - ref) / scale).max() < 1e-3
-    np.testing.assert_array_equal(grad != 0, ref != 0)
+    big = np.maximum(np.abs(grad), np.abs(ref)) > pattern_floor * np.abs(ref).max()
+    np.testing.assert_array_equal((grad != 0)[big], (ref != 0)[big])
     assert np.abs(ref).max() > 0
 
 
+def pattern_floor(scene):
+    """assert_grad_close's floor of the non-zero pattern for ``scene``."""
+    return 1e-7 if scene.composite_kinds() else 0.0
+
+
+def second_row(scene):
+    """The second params row of a two-row K5: the scene's zero_object copy
+    (sphere 0) as the soft pair sends it, or, for a scene with composites
+    (whose soft half is not ported), the scene with its floor moved."""
+    if not scene.composite_kinds():
+        return diff.zero_object(scene, ("spheres", 0))
+    floor = scene.spaces[0]
+    return scene._replace(spaces=(floor._replace(point=floor.point._replace(
+        z=floor.point.z - 0.25)), *scene.spaces[1:]))
+
+
 def check_light_vjp(lib, name, views, rows, cfg, instance):
-    scene = library.SCENES[name](CPU)
+    scene = grad_scene(name)
     camera = camera_of(views)
-    scenes = [scene, diff.zero_object(scene, ("spheres", 0))][:rows]
+    scenes = [scene, second_row(scene)][:rows]
+    fold, words = fold_args(scene, camera, cfg)
     packed = params.stack_rows(scenes, camera)
     cot = np.random.default_rng(7).normal(
         0, 1, (rows, *image_shape(views, cfg), 3)).astype(np.float32)
@@ -330,25 +437,26 @@ def check_light_vjp(lib, name, views, rows, cfg, instance):
                        ctypes.c_uint32(9), table, ctypes.c_int(cfg.width),
                        ctypes.c_int(cfg.height), ctypes.c_int(cfg.samples),
                        ctypes.c_int(cfg.reflections_amount), ctypes.c_float(cfg.small_indent),
-                       ptr(cot), ptr(grad))
+                       ptr(cot), ptr(grad), ctypes.c_int(fold), words)
     ref = gradkernel.render_light_vjp_plain(packed, scene, camera, cfg, 9,
                                             torch.from_numpy(cot)).numpy()
-    assert_grad_close(grad.astype(np.float32).reshape(rows, lay.size), ref)
+    assert_grad_close(grad.astype(np.float32).reshape(rows, lay.size), ref, pattern_floor(scene))
 
 
 @pytest.mark.parametrize("rows", [1, 2], ids=["single", "two_rows"])
 @pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
-@pytest.mark.parametrize("name", GRAD_SCENES)
+@pytest.mark.parametrize("name", GRAD_SCENES + COMPOSITE_SCENES)
 def test_host_light_vjp_matches_autograd(host_lib, name, views, rows):
     """K5's pixel sweep (generic instance, 3 bounces) with a seeded random
     light cotangent; two rows are the scene and its zero_object copy
-    (sphere 0), as the soft pair sends."""
+    (sphere 0), as the soft pair sends, or with composites the scene and a
+    copy with its floor moved."""
     check_light_vjp(host_lib, name, views, rows, config(), "generic")
 
 
 @pytest.mark.parametrize("rows", [1, 2], ids=["single", "two_rows"])
 @pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])
-@pytest.mark.parametrize("name", GRAD_SCENES)
+@pytest.mark.parametrize("name", GRAD_SCENES + COMPOSITE_SCENES)
 def test_host_light_vjp_main_instance_matches_autograd(host_lib, name, views, rows):
     """K5's pixel sweep through the unrolled instance, at its bounce count."""
     check_light_vjp(host_lib, name, views, rows, config(MAIN_BOUNCES), "main")
@@ -438,3 +546,33 @@ def test_host_soft_rows_skip_zero_map(host_lib, name, ref, views, rows):
                              extra=[(wall + k, 0.25) for k in range(3)])
     assert np.abs(grad[wall:wall + 3]).max() > 0 or rows == "row_b"
     assert paths[0] == pixels(views, config(MAIN_BOUNCES))
+
+
+@pytest.mark.parametrize("name", COMPOSITE_SCENES)
+def test_host_adjoint_under_the_contract(host_lib, name):
+    """K4's per-pixel body on a composite scene under with_frozen_hints,
+    through the instance the card takes there (a library scene's own at
+    the main bounce count, else the generic composite fold) with the
+    mask applied as sum_parts_kernel applies it: the loss and the light
+    bitwise the unhinted fold's, every kept slot equal (== takes -0 for
+    +0), the frozen slots (the hyperplane normals, the hinted axes) 0 and
+    some of them not 0 unhinted; and within the mixed-scale bound of
+    autograd over the unhinted plain pipeline with them frozen."""
+    cfg = config(MAIN_BOUNCES)
+    scene, camera = grad_scene(name), camera_of(("yxz",))
+    hcfg = diff.with_frozen_hints(cfg, scene)
+    keep = params.freeze_mask(hcfg, scene, params.layout(scene, camera).size).numpy()
+    frozen = keep == 0
+    target = np.random.default_rng(4).uniform(0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)
+    seeds = np.array([0x12345678, 9], np.uint32)
+    loss_h, grad_h, light_h = host_loss_grad(host_lib, scene, camera, hcfg, seeds, target, "main",
+                                             library_instance=name in LIBRARY_FOLDS)
+    loss_u, grad_u, light_u = host_loss_grad(host_lib, scene, camera, cfg, seeds, target, "main")
+    assert loss_h == loss_u and np.array_equal(light_h, light_u)
+    grad_h = np.where(frozen, np.float32(0.0), grad_h)
+    assert np.array_equal(grad_h[~frozen], grad_u[~frozen])
+    assert np.abs(grad_u[frozen]).max() > 0.0 and np.abs(grad_h[~frozen]).max() > 0.0
+    _, ref = gradkernel.loss_and_grad_plain(params.pack(scene, camera), scene, camera, cfg, seeds,
+                                            torch.from_numpy(target))
+    assert_grad_close(grad_h, np.where(frozen, 0.0, ref.numpy()).astype(np.float32),
+                      pattern_floor(scene))

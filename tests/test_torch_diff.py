@@ -23,6 +23,7 @@ from fourd_ray_tracing_tpu import diff as jdiff
 from fourd_ray_tracing_tpu import camera as jcam
 from fourd_ray_tracing_tpu.models import library as jlib
 from fourd_ray_tracing_tpu.models import renderer as jrenderer
+from fourd_ray_tracing_tpu.models import scene as jscene
 from fourd_ray_tracing_tpu.ops.vec4 import Vec4 as JVec4
 
 from fourd_ray_tracing_tpu_torch import camera as tcam
@@ -35,7 +36,10 @@ from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4 as TVec4
 from fourd_ray_tracing_tpu_torch.utils.logging import log_metrics
 
 CPU = torch.device("cpu")
-SCENES = ["room_with_sphere", "sphere_plane_light"]
+# The hard-loss paths take every library scene; the composite ones also
+# under the frozen hints.
+COMPOSITE = ["duocylinder", "tiger", "hypercube"]
+SCENES = ["room_with_sphere", "sphere_plane_light", *COMPOSITE]
 SHAPE = dict(width=32, height=16, samples=2, reflections_amount=2, rng_mode="per_sample",
              light_coefficient=0.7)
 J_CFG = jrenderer.RenderConfig(**SHAPE)
@@ -98,17 +102,51 @@ def jax_packed_step():
     return float(loss), np.asarray(vec)
 
 
-@pytest.mark.parametrize("name", SCENES)
-def test_render_grad_matches_jax_value_and_grad(name, jax_value_and_grad):
-    _, _, ts, tc = crossed(name)
-    loss, (gs, gc) = diff.render_grad(ts, tc, T_CFG, SEED, torch.from_numpy(target_image()))
-    grad = params.pack(gs, gc).numpy()
-    ref_loss, ref_grad = jax_value_and_grad[name]
+def assert_matches_jax(loss, grad, ref_loss, ref_grad, composite):
+    """Loss rtol 1e-5, gradient mixed-scale 1e-3 and the same non-zero
+    pattern; with composites the pattern above 1e-7 of the largest slot
+    (test_torch_adjoint_host.assert_grad_close: a face radius's and an
+    aligned family's cancelling cotangents leave float32 residues)."""
     np.testing.assert_allclose(float(loss), ref_loss, rtol=1e-5)
     assert grad.shape == ref_grad.shape and np.isfinite(grad).all()
     assert mixed_rel(grad, ref_grad) < 1e-3
-    np.testing.assert_array_equal(grad != 0, ref_grad != 0)
+    floor = 1e-7 * np.abs(ref_grad).max() if composite else 0.0
+    big = np.maximum(np.abs(grad), np.abs(ref_grad)) > floor
+    np.testing.assert_array_equal((grad != 0)[big], (ref_grad != 0)[big])
     assert np.abs(ref_grad).max() > 1e-6
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_render_grad_matches_jax_value_and_grad(name, jax_value_and_grad):
+    """The plain route (autograd over the plain pipeline) against
+    jax.value_and_grad(diff.image_loss) on every library scene."""
+    _, _, ts, tc = crossed(name)
+    loss, (gs, gc) = diff.render_grad(ts, tc, T_CFG, SEED, torch.from_numpy(target_image()))
+    assert_matches_jax(loss, params.pack(gs, gc).numpy(), *jax_value_and_grad[name],
+                       name in COMPOSITE)
+
+
+@pytest.mark.parametrize("name", COMPOSITE)
+def test_frozen_render_grad_matches_jax(name, jax_value_and_grad):
+    """The plain route under with_frozen_hints (the hinted plain pipeline,
+    the frozen leaves detached) against the JAX jnp gradient with the JAX
+    freeze_hint_grads applied (its jnp route refuses hints;
+    test_gradkernel.py:101-138 holds its kernel so): the frozen slots (the
+    floor's normal, the hinted axes) exactly 0 on both sides."""
+    js, _, ts, tc = crossed(name)
+    cfg = diff.with_frozen_hints(T_CFG, ts)
+    assert cfg.axis_hints is not None
+    loss, (gs, gc) = diff.render_grad(ts, tc, cfg, SEED, torch.from_numpy(target_image()))
+    grad = params.pack(gs, gc).numpy()
+    ref_loss, ref_grad = jax_value_and_grad[name]
+    j_cfg = jdiff.with_frozen_hints(J_CFG, js)
+    mask = np.ones(ref_grad.size, np.float32)
+    n = params.n_scene(ts)
+    mask[:n] = flat(jscene.freeze_hint_grads(jax.tree_util.tree_map(jnp.ones_like, js),
+                                             j_cfg.plane_hints, j_cfg.axis_hints))
+    ref_grad = np.where(mask == 0, np.float32(0.0), ref_grad)
+    assert_matches_jax(loss, grad, ref_loss, ref_grad, True)
+    assert (mask == 0).sum() > 4 and np.all(grad[mask == 0] == 0.0)
 
 
 def test_image_loss_kernel_on_cpu_is_differentiable_plain_loss():

@@ -221,3 +221,25 @@ def test_launch_refuses_a_bad_composite_descriptor(lib):
     bad = cfg.axis_hints._replace(tiger=(((0, 1.0), (0, 1.0)), cfg.axis_hints.tiger[1]))
     with pytest.raises(AssertionError):
         launch(lib, packed, lay, dataclasses.replace(cfg, axis_hints=bad), SEEDS)
+
+
+def test_many_planes_render_unhinted_through_the_hints(lib):
+    """The forward past the hint cap: room_with_sphere with 57 more floor
+    planes (65 hyperplanes) gets its plane hints (with_hints derives them
+    for any number of planes); the descriptor holds at most
+    build.MAX_HINT_PLANES planes' hints, so hint_table folds the planes
+    unhinted (n_singles -1) instead of raising, and the launch is bitwise
+    the plain render under the same config (which folds with the hints)."""
+    from test_torch_freeze_hints import many_planes
+
+    from fourd_ray_tracing_tpu_torch.models import scene as tscene
+
+    scene, camera = many_planes(tscene, CPU), camera_of(("yxz",))
+    cfg = configs(scene)["hinted"]
+    lay = params.layout(scene, camera)
+    assert cfg.plane_hints is not None and len(cfg.plane_hints) == 65 > build.MAX_HINT_PLANES
+    assert megakernel.hint_table(cfg, lay)[1] == -1
+    out = launch(lib, params.pack(scene, camera).numpy(), lay, cfg, SEEDS)
+    ref = renderer.render_light(scene, camera, cfg, SEEDS).numpy()
+    np.testing.assert_array_equal(out[:, 0], ref)
+    assert float(np.abs(ref).max()) > 0.0

@@ -191,6 +191,18 @@ def custom_scene(name, mod, geo, vec, device=None):
 CUSTOM = ["cylinders", "hypercube_tiger"]
 
 
+def many_planes(mod, device=None):
+    """room_with_sphere with 57 more floor planes below the room, 65
+    hyperplanes: more than the kernels' fold table holds hints for
+    (build.MAX_HINT_PLANES), built by one package's constructors."""
+    extra = () if device is None else (device,)
+    room = (tlib.room_with_sphere(device) if device is not None else jlib.room_with_sphere())
+    floors = tuple(mod.space((0, 0, -3.625 - 0.125 * k, 0), (0, 0, 1, 0),
+                             mod.material(0, 0, (0.5, 0.5, 0.5), *extra), *extra)
+                   for k in range(57))
+    return room._replace(spaces=room.spaces + floors)
+
+
 @pytest.mark.parametrize("name", CUSTOM)
 def test_freeze_hint_grads_matches_jax_on_custom_scenes(name):
     """freeze_hint_grads against the JAX function on the branches the
@@ -360,3 +372,32 @@ def test_packed_adam_step_keeps_frozen_slots_bitwise():
                                params.pack(scene, tc).detach().numpy()[:after.numel()],
                                rtol=1e-6, atol=1e-7)
     assert torch.equal(params.pack(unpack(model), tc)[:after.numel()], after)
+
+
+def test_many_planes_freeze_like_jax():
+    """The hint cap: a scene with more hyperplanes than the kernels' table
+    holds hints for (room_with_sphere and 57 more floor planes, 65) gets
+    the plane hints under the contract as the JAX package does: the port's
+    with_frozen_hints (and the kernel route's _auto_hints) equal JAX's, and
+    params.freeze_mask equals the JAX packed mask (gradkernel.py:1011-1017),
+    all 260 normal components frozen. The launch rule of the plane count
+    then hands the gradient kernels no descriptor (the unhinted fold) and
+    the mask; the forward's descriptor folds the planes unhinted."""
+    from fourd_ray_tracing_tpu_torch.ops.cuda import build, megakernel
+
+    js, ts = many_planes(jscene), many_planes(tscene, CPU)
+    assert len(ts.spaces) == 65 > build.MAX_HINT_PLANES
+    j_cfg = jdiff.with_frozen_hints(J_CFG, js)
+    t_cfg = diff.with_frozen_hints(T_CFG, ts)
+    assert (t_cfg.plane_hints, t_cfg.plane_pairs) == (j_cfg.plane_hints, j_cfg.plane_pairs)
+    assert t_cfg.plane_hints is not None
+    auto = tgrad._auto_hints(ts, dataclasses.replace(T_CFG, freeze_hints=True))
+    assert (auto.plane_hints, auto.plane_pairs) == (t_cfg.plane_hints, t_cfg.plane_pairs)
+    fn, _, _ = jgrad.make_packed_loss_and_grad(js, jax_camera(), j_cfg)
+    cells = dict(zip(fn.__code__.co_freevars, (c.cell_contents for c in fn.__closure__)))
+    mask = params.freeze_mask(t_cfg, ts).numpy()
+    np.testing.assert_array_equal(mask, np.asarray(cells["mask_vec"]))
+    assert (mask == 0).sum() == 4 * 65
+    lay = params.layout(ts, torch_camera())
+    assert tgrad.launch_words(lay, t_cfg) is None
+    assert megakernel.hint_table(t_cfg, lay)[1] == -1

@@ -29,9 +29,11 @@ import torch
 from fourd_ray_tracing_tpu_torch import camera as tcam
 from fourd_ray_tracing_tpu_torch import diff
 from fourd_ray_tracing_tpu_torch.models import library, params, renderer
-from fourd_ray_tracing_tpu_torch.ops.cuda import build, gradkernel, megakernel
+from fourd_ray_tracing_tpu_torch.models import scene as tscene
+from fourd_ray_tracing_tpu_torch.ops.cuda import ablate, build, gradkernel, megakernel
 
-from test_torch_adjoint_host import assert_grad_close, camera_of, image_shape, ptr
+from test_torch_adjoint_host import (assert_grad_close, camera_of, grad_scene, image_shape,
+                                     pattern_floor, ptr, second_row)
 
 CPU = torch.device("cpu")
 VIEWS_1 = ("yxz",)
@@ -154,6 +156,18 @@ def config(**kw):
     return renderer.RenderConfig(**dict(SHAPE, **kw))
 
 
+# The composite scenes' launches run at a smaller shape (a launch of the
+# CPU stand-in costs its pixels times its threads).
+COMPOSITE_SHAPE = dict(width=32, height=16, samples=2)
+
+
+def config_for(name, **kw):
+    """config(**kw), at COMPOSITE_SHAPE for a scene with composites."""
+    if name not in ("room_with_sphere", "sphere_plane_light"):
+        kw = dict(COMPOSITE_SHAPE, **kw)
+    return config(**kw)
+
+
 def emulated_library(work, names=None):
     """g++ builds the csrc/*.cu files ``names`` (all by default) behind EMU
     in ``work`` and links them; returns the shared library's path. Skips
@@ -232,20 +246,32 @@ def soft_launch(lib, packed, lay, cfg, seed, target, alpha, zero_map, rows, hint
 
 def hint_args(hints):
     """The launch's hints and keep arguments: null, or the descriptor's
-    address and the mask's pointer."""
+    address (null for none) and the mask's pointer (null for none)."""
     if hints is None:
         return None, None
     words, keep = hints
-    return ctypes.addressof(words), ptr(keep)
+    return (None if words is None else ctypes.addressof(words)), \
+        (None if keep is None else ptr(keep))
+
+
+def launch_args(scene, camera, cfg):
+    """The (descriptor, keep mask) a wrapper hands a launch under ``cfg``
+    (gradkernel.launch_words: a scene with composites always takes one;
+    the mask under the contract), or None for neither."""
+    lay = params.layout(scene, camera)
+    words = gradkernel.launch_words(lay, cfg)
+    keep = params.freeze_mask(cfg, scene, lay.size)
+    if words is None and keep is None:
+        return None
+    return words, None if keep is None else keep.numpy()
 
 
 def frozen_hints(scene, camera, cfg):
     """(cfg under the freeze_hints contract, (descriptor, keep mask), frozen
     slots) of the scene: the kernels' hints, as the wrappers hand them."""
     hcfg = diff.with_frozen_hints(cfg, scene)
-    lay = params.layout(scene, camera)
-    keep = params.freeze_mask(hcfg, scene, lay.size).numpy()
-    return hcfg, (megakernel.hint_table(hcfg, lay), keep), keep == 0
+    hints = launch_args(scene, camera, hcfg)
+    return hcfg, hints, hints[1] == 0
 
 
 def assert_contract(hinted, unhinted, frozen):
@@ -298,56 +324,78 @@ def test_soft_launch_matches_autograd(lib, name, ref, views, bounces, rows, wide
     assert_grad_close(out[2], ref_acot.numpy())
 
 
-def loss_grad_launch(lib, packed, lay, cfg, seeds, target, hints=None):
-    """fourd_loss_grad_launch on host arrays: (loss, grad)."""
+def loss_grad_launch(lib, packed, lay, cfg, seeds, target, hints=None, rows=None):
+    """fourd_loss_grad_launch on host arrays: (loss, grad); ``rows`` =
+    (row0, n_rows), the launch over those image rows, ``target`` their
+    block."""
+    row0, n_rows = rows or (0, cfg.height)
     table = layout_table(lay)
-    n_cols = scratch_cols(lib, table, cfg, cfg.height, len(seeds))
+    n_cols = scratch_cols(lib, table, cfg, n_rows, len(seeds))
     g_mean = np.zeros((len(seeds), *target.shape), np.float32)
     grad_parts = np.zeros((lay.size, n_cols), np.float32)
     loss_parts = np.zeros(n_cols, np.float64)
     grad, loss = np.zeros(lay.size, np.float32), np.zeros(1, np.float32)
     err = lib.fourd_loss_grad_launch(
-        ptr(packed), ptr(seeds), len(seeds), ctypes.addressof(table), cfg.width, cfg.height, 0,
-        cfg.height, cfg.samples, cfg.reflections_amount, f32(cfg.small_indent),
-        f32(cfg.light_coefficient), ptr(target), f32(1.0 / (len(seeds) * target.size)),
+        ptr(packed), ptr(seeds), len(seeds), ctypes.addressof(table), cfg.width, cfg.height, row0,
+        n_rows, cfg.samples, cfg.reflections_amount, f32(cfg.small_indent),
+        f32(cfg.light_coefficient), ptr(target),
+        f32(1.0 / (len(seeds) * target.size // n_rows * cfg.height)),
         ptr(g_mean), ptr(grad_parts), ptr(loss_parts), ptr(grad), ptr(loss), *hint_args(hints),
         None)
     assert err == 0
     return loss[0], grad
 
 
-def test_loss_grad_launch_matches_autograd(lib):
+@pytest.mark.parametrize("name,bounces,rows", [
+    ("room_with_sphere", 4, None), ("duocylinder", 4, None), ("tiger", 4, None),
+    ("hypercube", 3, None), ("cylinders", 4, None), ("tiger", 4, (3, 9))],
+    ids=["room", "duocylinder", "tiger", "hypercube_generic", "cylinders", "tiger_row_block"])
+def test_loss_grad_launch_matches_autograd(lib, name, bounces, rows):
     """K4's launch over two frames (its pass-1 kernel with the loss
     reduction, the sweep over frame rows, sum_parts) against
-    loss_and_grad_plain."""
-    cfg = config()
-    scene, camera = library.room_with_sphere(CPU), camera_of(VIEWS_1)
+    loss_and_grad_plain; a scene with composites unhinted, through the
+    generic composite fold (its descriptor: n_singles -1, no axis hint);
+    ``rows`` a row block (K3's sharded launch) against its plain rows."""
+    cfg = config_for(name, reflections_amount=bounces)
+    scene, camera = grad_scene(name), camera_of(VIEWS_1)
     lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
     target = np.random.default_rng(4).uniform(0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)
+    if rows is not None:
+        target = rows_of(target, rows, True)
     seeds = np.array([0x12345678, 9], np.uint32)
-    loss, grad = loss_grad_launch(lib, packed, lay, cfg, seeds, target)
+    loss, grad = loss_grad_launch(lib, packed, lay, cfg, seeds, target,
+                                  launch_args(scene, camera, cfg), rows)
     ref_loss, ref_grad = gradkernel.loss_and_grad_plain(
-        torch.from_numpy(packed), scene, camera, cfg, seeds, torch.from_numpy(target))
+        torch.from_numpy(packed), scene, camera, cfg, seeds, torch.from_numpy(target), rows=rows)
     np.testing.assert_allclose(loss, float(ref_loss), rtol=1e-6)
-    assert_grad_close(grad, ref_grad.numpy())
+    assert_grad_close(grad, ref_grad.numpy(), pattern_floor(scene))
 
 
 # The launches under the freeze_hints contract: the room at the main bounce
 # count (its own instance, RoomFold) and at 3 (AnyFold), the lamp scene's
-# single floor plane (AnyFold), 1 and 3 views.
+# single floor plane (AnyFold), 1 and 3 views; the composites (K4, K5 and
+# K8): the duocylinder and the tiger at the main bounce count (their own
+# instances) and the two cylinders (the generic composite fold under the
+# hints: one hinted, one not). The hypercube's hinted instance runs in
+# tests/test_torch_adjoint_host.py (a launch here costs about its P in
+# sum_parts blocks of the CPU stand-in).
 HINTED = [("room_with_sphere", VIEWS_1, 4), ("room_with_sphere", VIEWS_1, 3),
           ("sphere_plane_light", tcam.VIEWS_ALL, 4)]
 HINTED_IDS = ["room_main", "room_generic", "lamp_3view"]
+COMPOSITE_HINTED = [("duocylinder", VIEWS_1, 4), ("tiger", VIEWS_1, 4),
+                    ("cylinders", VIEWS_1, 4)]
+COMPOSITE_HINTED_IDS = ["duocylinder", "tiger", "cylinders"]
 
 
-@pytest.mark.parametrize("name,views,bounces", HINTED, ids=HINTED_IDS)
+@pytest.mark.parametrize("name,views,bounces", HINTED + COMPOSITE_HINTED,
+                         ids=HINTED_IDS + COMPOSITE_HINTED_IDS)
 def test_hinted_loss_grad_launch_keeps_the_unhinted_values(lib, name, views, bounces):
     """K4 under the contract: the loss bitwise the unhinted launch's, every
     kept slot equal, the frozen ones (the hyperplane normals) 0; bitwise
     across launches; within the mixed-scale bound of autograd over the
     unhinted plain pipeline with the slots frozen."""
-    cfg = config(reflections_amount=bounces)
-    scene, camera = library.SCENES[name](CPU), camera_of(views)
+    cfg = config_for(name, reflections_amount=bounces)
+    scene, camera = grad_scene(name), camera_of(views)
     lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
     target = np.random.default_rng(4).uniform(
         0, 1, (*image_shape(views, cfg), 3)).astype(np.float32)
@@ -355,7 +403,8 @@ def test_hinted_loss_grad_launch_keeps_the_unhinted_values(lib, name, views, bou
     hcfg, hints, frozen = frozen_hints(scene, camera, cfg)
     loss, grad = loss_grad_launch(lib, packed, lay, hcfg, seeds, target, hints)
     again = loss_grad_launch(lib, packed, lay, hcfg, seeds, target, hints)
-    loss_u, grad_u = loss_grad_launch(lib, packed, lay, cfg, seeds, target)
+    loss_u, grad_u = loss_grad_launch(lib, packed, lay, cfg, seeds, target,
+                                      launch_args(scene, camera, cfg))
     assert loss == loss_u and loss == again[0] and np.array_equal(grad, again[1])
     assert_contract(grad, grad_u, frozen)
     # The mask alone decides which slots come out 0: freeze a live slot too.
@@ -367,7 +416,8 @@ def test_hinted_loss_grad_launch_keeps_the_unhinted_values(lib, name, views, bou
     assert masked[live] == 0.0 and np.array_equal(np.delete(masked, live), np.delete(grad, live))
     _, ref = gradkernel.loss_and_grad_plain(torch.from_numpy(packed), scene, camera, cfg, seeds,
                                             torch.from_numpy(target))
-    assert_grad_close(grad, np.where(frozen, 0.0, ref.numpy()).astype(np.float32))
+    assert_grad_close(grad, np.where(frozen, 0.0, ref.numpy()).astype(np.float32),
+                      pattern_floor(scene))
 
 
 def light_vjp_launch(lib, rows, lay, cfg, cot, hints=None):
@@ -385,35 +435,39 @@ def light_vjp_launch(lib, rows, lay, cfg, cot, hints=None):
     return grad
 
 
-def test_light_vjp_launch_matches_autograd(lib):
+@pytest.mark.parametrize("name", ["room_with_sphere", "duocylinder", "tiger", "cylinders"])
+def test_light_vjp_launch_matches_autograd(lib, name):
     """K5's launch over two params rows (the scene and its zero_object
-    copy, as the soft pair sends them) against render_light_vjp_plain."""
-    cfg = config()
-    scene, camera = library.room_with_sphere(CPU), camera_of(VIEWS_1)
+    copy, as the soft pair sends them; a scene with composites and a copy
+    with its floor moved, unhinted) against render_light_vjp_plain."""
+    cfg = config_for(name)
+    scene, camera = grad_scene(name), camera_of(VIEWS_1)
     lay = params.layout(scene, camera)
-    rows = params.stack_rows([scene, diff.zero_object(scene, ("spheres", 0))], camera).numpy()
+    rows = params.stack_rows([scene, second_row(scene)], camera).numpy()
     cot = np.random.default_rng(7).normal(0, 1, (2, cfg.height, cfg.width, 3)).astype(np.float32)
-    grad = light_vjp_launch(lib, rows, lay, cfg, cot)
+    grad = light_vjp_launch(lib, rows, lay, cfg, cot, launch_args(scene, camera, cfg))
     ref = gradkernel.render_light_vjp_plain(torch.from_numpy(rows), scene, camera, cfg, 9,
                                             torch.from_numpy(cot)).numpy()
-    assert_grad_close(grad, ref)
+    assert_grad_close(grad, ref, pattern_floor(scene))
 
 
-@pytest.mark.parametrize("name,views,bounces", HINTED, ids=HINTED_IDS)
+@pytest.mark.parametrize("name,views,bounces", HINTED + COMPOSITE_HINTED,
+                         ids=HINTED_IDS + COMPOSITE_HINTED_IDS)
 def test_hinted_light_vjp_launch_keeps_the_unhinted_values(lib, name, views, bounces):
-    """K5 under the contract over the scene and its zero_object copy (each
-    row builds its own table): every kept slot of both rows equal to the
-    unhinted launch's, the frozen ones 0."""
-    cfg = config(reflections_amount=bounces)
-    scene, camera = library.SCENES[name](CPU), camera_of(views)
-    ref_obj = ("spheres", 0)
+    """K5 under the contract over the scene and its zero_object copy (a
+    scene with composites: a copy with its floor moved; each row builds its
+    own table): every kept slot of both rows equal to the unhinted
+    launch's, the frozen ones 0."""
+    cfg = config_for(name, reflections_amount=bounces)
+    scene, camera = grad_scene(name), camera_of(views)
     lay = params.layout(scene, camera)
-    rows = params.stack_rows([scene, diff.zero_object(scene, ref_obj)], camera).numpy()
+    rows = params.stack_rows([scene, second_row(scene)], camera).numpy()
     cot = np.random.default_rng(7).normal(
         0, 1, (2, *image_shape(views, cfg), 3)).astype(np.float32)
     hcfg, hints, frozen = frozen_hints(scene, camera, cfg)
     grad = light_vjp_launch(lib, rows, lay, hcfg, cot, hints)
-    assert_contract(grad, light_vjp_launch(lib, rows, lay, cfg, cot), frozen)
+    assert_contract(grad, light_vjp_launch(lib, rows, lay, cfg, cot,
+                                           launch_args(scene, camera, cfg)), frozen)
     assert np.array_equal(grad, light_vjp_launch(lib, rows, lay, hcfg, cot, hints))
 
 
@@ -452,29 +506,38 @@ def ablate_launch(lib, mode, packed, lay, cfg, target, words=None):
     return value[0]
 
 
-@pytest.mark.parametrize("name,views,bounces", HINTED, ids=HINTED_IDS)
+@pytest.mark.parametrize("name,views,bounces", HINTED + COMPOSITE_HINTED,
+                         ids=HINTED_IDS + COMPOSITE_HINTED_IDS)
 def test_hinted_ablate_launch_keeps_the_unhinted_values(lib, name, views, bounces):
     """K8 under the contract, every mode: bitwise the unhinted launch (the
-    hinted fold's light is the unhinted fold's)."""
-    cfg = config(reflections_amount=bounces)
-    scene, camera = library.SCENES[name](CPU), camera_of(views)
+    hinted fold's light is the unhinted fold's; a scene with composites
+    unhinted folds over its descriptor without hints), and the loss mode
+    within the plain version's rounding of its double sum (a scene with
+    composites)."""
+    cfg = config_for(name, reflections_amount=bounces)
+    scene, camera = grad_scene(name), camera_of(views)
     lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
     target = np.random.default_rng(4).uniform(
         0, 1, (*image_shape(views, cfg), 3)).astype(np.float32)
     hcfg, (words, _), _ = frozen_hints(scene, camera, cfg)
+    unhinted = gradkernel.launch_words(lay, cfg)
     for mode in range(3):
         assert (ablate_launch(lib, mode, packed, lay, hcfg, target, words)
-                == ablate_launch(lib, mode, packed, lay, cfg, target)), mode
+                == ablate_launch(lib, mode, packed, lay, cfg, target, unhinted)), mode
+    if lay.composite_kinds():
+        ref = ablate.variant_plain("loss", scene, camera, cfg, 3, torch.from_numpy(target))
+        np.testing.assert_allclose(ablate_launch(lib, 1, packed, lay, cfg, target, unhinted),
+                                   float(ref), rtol=1e-6)
 
 
 def test_launches_refuse_composite_hints(lib):
-    """A descriptor with composite primitives is refused by every gradient
-    launch (their adjoint is ROADMAP item 4b): cudaErrorInvalidValue."""
+    """The tiger's descriptor under the contract: K4, K5 and K8 take it
+    (their composite folds); K6 refuses it (the composites' soft half,
+    ROADMAP item 4b: cudaErrorInvalidValue), whatever its zero map."""
     cfg = config(reflections_amount=2, width=8, height=4)
     scene, camera = library.tiger(CPU), camera_of(VIEWS_1)
     lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
-    hcfg = diff.with_frozen_hints(cfg, scene)
-    words = megakernel.hint_table(hcfg, lay)
+    hcfg, (words, keep), _ = frozen_hints(scene, camera, cfg)
     target = np.zeros((cfg.height, cfg.width, 3), np.float32)
     table = layout_table(lay)
     loss_parts = np.zeros(scratch_cols(lib, table, cfg, cfg.height), np.float64)
@@ -483,13 +546,50 @@ def test_launches_refuse_composite_hints(lib):
         0, ptr(packed), 3, ctypes.addressof(table), cfg.width, cfg.height, cfg.samples,
         cfg.reflections_amount, f32(cfg.small_indent), f32(cfg.light_coefficient), ptr(target),
         ptr(loss_parts), ptr(value), ctypes.addressof(words), None)
-    assert err != 0
-    keep = np.ones(lay.size, np.float32)
-    cot = np.zeros((1, cfg.height, cfg.width, 3), np.float32)
+    assert err == 0 and value[0] > 0.0
+    cot = np.ones((1, cfg.height, cfg.width, 3), np.float32)
     grad_parts = np.zeros((lay.size, scratch_cols(lib, table, cfg, cfg.height)), np.float32)
     grad = np.zeros((1, lay.size), np.float32)
     err = lib.fourd_light_vjp_launch(
         ptr(packed), 0, 1, 9, ctypes.addressof(table), cfg.width, cfg.height, 0, cfg.height,
         cfg.samples, cfg.reflections_amount, f32(cfg.small_indent), ptr(cot), ptr(grad_parts),
         ptr(grad), ctypes.addressof(words), ptr(keep), None)
-    assert err != 0
+    assert err == 0 and np.abs(grad).max() > 0.0
+    loss, grad = loss_grad_launch(lib, packed, lay, hcfg, np.array([3], np.uint32), target,
+                                  (words, keep))
+    assert loss > 0.0 and np.abs(grad).max() > 0.0
+    alpha = np.full((cfg.height, cfg.width), 0.5, np.float32)
+    for zero_map in ([(lay.tiger + 12, 0.0)], [(lay.spaces + 10, 0.25)]):
+        with pytest.raises(AssertionError, match="assert 1 == 0"):  # cudaErrorInvalidValue
+            soft_launch(lib, packed, lay, hcfg, 3, target, alpha, zero_map, (0, cfg.height),
+                        (words, keep))
+
+
+def test_many_planes_launch_writes_the_frozen_slots(lib):
+    """The hint cap: room_with_sphere with 57 more floor planes (65
+    hyperplanes, more than the table holds hints for) under the contract.
+    The wrapper's rule of the plane count gives it no descriptor (the
+    unhinted fold) and the mask of all 260 normal slots. Its 895 packed
+    floats are more than the gradient kernels hold (build.K4_MAX_PARAMS):
+    the launch refuses it (cudaErrorInvalidValue) and the wrapper raises
+    first. K4's plain version under the contract: the loss and every kept
+    slot the unhinted plain gradient's, the frozen slots 0."""
+    from test_torch_freeze_hints import many_planes
+
+    cfg = config(width=16, height=8)
+    scene, camera = many_planes(tscene, CPU), camera_of(VIEWS_1)
+    lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
+    hcfg, hints, frozen = frozen_hints(scene, camera, cfg)
+    assert hcfg.plane_hints is not None and hints[0] is None and frozen.sum() == 4 * 65
+    assert lay.size > gradkernel.MAX_PARAMS
+    target = np.random.default_rng(4).uniform(0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)
+    seeds = np.array([0x12345678, 9], np.uint32)
+    with pytest.raises(AssertionError, match="assert 1 == 0"):  # cudaErrorInvalidValue
+        loss_grad_launch(lib, packed, lay, hcfg, seeds, target, hints)
+    with pytest.raises(ValueError, match="packed parameters"):
+        gradkernel.check_shape(lay, hcfg)
+    args = (torch.from_numpy(packed), scene, camera)
+    loss, grad = gradkernel.loss_and_grad_plain(*args, hcfg, seeds, torch.from_numpy(target))
+    loss_u, grad_u = gradkernel.loss_and_grad_plain(*args, cfg, seeds, torch.from_numpy(target))
+    assert torch.equal(loss, loss_u)
+    assert_contract(grad.numpy(), grad_u.numpy(), frozen)

@@ -126,16 +126,18 @@ def test_launch_forward_refuses_cpu_tensors():
 def test_unported_configs_raise(change):
     """Configurations still to be ported raise, naming their ROADMAP item;
     axis_hints, which the forward takes, are refused by the gradient paths
-    outside the freeze_hints contract, and under it a composite scene still
-    raises, naming item 4b (its adjoint)."""
+    outside the freeze_hints contract; under it the hard-loss paths take a
+    composite scene, and the soft paths still refuse it, naming item 4b's
+    soft half."""
     _, tc = cameras(("yxz",))
     cfg = dataclasses.replace(T_CFG, **change)
     if "axis_hints" in change:
         with pytest.raises(ValueError, match="freeze_hints contract"):
-            trenderer.check_trainable(cfg, tlib.sphere_plane_light(CPU))
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4b"):
-            trenderer.check_trainable(dataclasses.replace(cfg, freeze_hints=True),
-                                      tlib.tiger(CPU))
+            trenderer.check_trainable(cfg)
+        frozen = dataclasses.replace(cfg, freeze_hints=True)
+        trenderer.check_trainable(frozen)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4b, soft half"):
+            trenderer.check_soft_trainable(frozen, tlib.tiger(CPU))
         return
     for render in (trenderer.render_light, tkernel.render_light_cuda):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -154,37 +154,67 @@ def composite_scene(field):
 
 
 @pytest.mark.parametrize("field", ["cylinders", "cylinders_union", "hypercube", "tiger"])
-def test_composite_primitives_raise(field):
-    """The forward renders each composite primitive; every gradient path
-    (plain autograd, K4, K5, K6, K8 and the train steps, on the CPU their
-    plain versions; the kernels' own shape check) refuses it, naming
-    item 4b's training half."""
+def test_composite_primitives_train_on_the_hard_paths(field):
+    """The forward renders each composite primitive, and every hard-loss
+    gradient path takes it, unhinted and under the frozen hints: plain
+    autograd, K4, K5 and K8 on the CPU (their plain versions), the kernels'
+    shape check, the packed and the pytree hard train steps. Each gives a
+    finite gradient that reaches the primitive's slots."""
     from fourd_ray_tracing_tpu_torch import diff
     from fourd_ray_tracing_tpu_torch.ops.cuda import ablate, gradkernel
 
     scene = composite_scene(field)
     _, tc = cameras(("yxz",))
-    cfg = dataclasses.replace(trenderer.RenderConfig(width=8, height=4, samples=1,
-                                                     reflections_amount=1, rng_mode="per_sample"))
-    assert torch.isfinite(trenderer.render_light(scene, tc, cfg, 1)).all()
+    base = trenderer.RenderConfig(width=8, height=4, samples=1, reflections_amount=2,
+                                  rng_mode="per_sample")
     packed, lay = params.pack(scene, tc), params.layout(scene, tc)
     assert lay.composite_kinds() == (field,) == scene.composite_kinds()
-    target, cot = torch.zeros((4, 8, 3)), torch.ones((4, 8, 3))
+    first = getattr(lay, field)
+    target, cot = torch.full((4, 8, 3), 0.5), torch.ones((4, 8, 3))
+    for cfg in (base, diff.with_frozen_hints(base, scene)):
+        assert torch.isfinite(trenderer.render_light(scene, tc, cfg, 1)).all()
+        gradkernel.check_shape(lay, cfg)
+        loss, grad = gradkernel.loss_and_grad_packed(packed, scene, tc, cfg, 1, target)
+        vjp = gradkernel.render_light_vjp_plain(packed, scene, tc, cfg, 1, cot)
+        for g in (grad, vjp):
+            assert torch.isfinite(g).all() and g[first:].abs().max() > 0.0
+        assert torch.isfinite(diff.image_loss(scene, tc, cfg, 1, target))
+        assert float(ablate.variant_plain("loss", scene, tc, cfg, 1, target)) > 0.0
+        step, init, _ = diff.make_packed_train_step(cfg, 1e-3, tc, scene)
+        model, opt = init(scene)
+        assert torch.isfinite(step(model, opt, 1, target))
+        step, init = diff.make_train_step(cfg, 1e-3, tc)
+        state, opt = init(scene)
+        assert torch.isfinite(step(state, opt, 1, target)[2])
+
+
+@pytest.mark.parametrize("field", ["cylinders", "cylinders_union", "hypercube", "tiger"])
+def test_composite_primitives_raise(field):
+    """The soft paths (the soft loss, its kernel route, K6's plain version
+    and launch check, the soft zero map, the soft train step) refuse a
+    scene with a composite primitive, naming item 4b's soft half."""
+    from fourd_ray_tracing_tpu_torch import diff
+    from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel
+
+    scene = composite_scene(field)
+    _, tc = cameras(("yxz",))
+    cfg = trenderer.RenderConfig(width=8, height=4, samples=1, reflections_amount=1,
+                                 rng_mode="per_sample")
+    packed, lay = params.pack(scene, tc), params.layout(scene, tc)
+    target = torch.zeros((4, 8, 3))
+    ref = ("spaces", 0)
     paths = {
-        "image_loss": lambda: diff.image_loss(scene, tc, cfg, 1, target),
-        "k4_plain": lambda: gradkernel.loss_and_grad_plain(packed, scene, tc, cfg, 1, target),
-        "k4": lambda: gradkernel.loss_and_grad_cuda(packed, scene, tc, cfg, 1, target),
-        "k4_shape": lambda: gradkernel.check_shape(lay, cfg),
-        "k5": lambda: gradkernel.render_light_vjp_cuda(packed, scene, tc, cfg, 1, cot),
+        "soft_loss": lambda: diff.soft_image_loss(scene, tc, cfg, 1, target, object_ref=ref),
+        "soft_kernel": lambda: diff.soft_image_loss_kernel(packed, scene, tc, cfg, 1, target,
+                                                           ref),
         "k6_plain": lambda: gradkernel.render_soft_loss_and_grad_plain(
             packed, scene, tc, cfg, 1, target, torch.ones((4, 8)), ()),
-        "k8": lambda: ablate.variant_plain("loss", scene, tc, cfg, 1, target),
-        "packed_step": lambda: diff.make_packed_train_step(cfg, 1e-3, tc, scene),
-        "train_step": lambda: diff.make_train_step(cfg, 1e-3, tc)[1](scene),
-        "soft_loss": lambda: diff.soft_image_loss(scene, tc, cfg, 1, target),
+        "k6_check": lambda: trenderer.check_soft_trainable(cfg, lay),
+        "zero_map": lambda: params.soft_zero_map(scene, tc, ("spheres", 0)),
+        "soft_step": lambda: diff.make_train_step(cfg, 1e-3, tc, soft_object_ref=ref)[1](scene),
     }
     for name, fn in paths.items():
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4b, training half"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4b, soft half"):
             fn()
 
 
