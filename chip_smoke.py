@@ -13,7 +13,7 @@ on any failure, or when no CUDA device is available. Phases:
    freeze_hints contract at the room's fold table: the room's RoomFold, the
    generic AnyFold), and those of every instance of the forward kernel K1
    at the headline launch (the composite instances at the tiger's 3-view
-   launch); the composite folds of K4, K5 and K8 (the generic one and
+   launch); the composite folds of K4, K5, K6 and K8 (the generic one and
    each library scene's): registers, stack, spill and resident warps at
    each scene's training launch (the hypercube's 3-view one too);
 3. kernel vs plain torch pipeline on the card, 256x144, 4 spp, 4 bounces,
@@ -100,7 +100,14 @@ on any failure, or when no CUDA device is available. Phases:
    both timed beside the pair K6 fused (K2 over both rows and the two-row
    K5), and at ``inverse_render --param position``'s shape; K6 under the
    contract as K4 in phase 8 (its loss and alpha cotangent bitwise the
-   unhinted launch's), hinted and unhinted timed at 1280x720;
+   unhinted launch's), hinted and unhinted timed at 1280x720. K6 on
+   ``COMPOSITE_GRAD`` at 256x144, 1 and 3 views, each scene's composite
+   the object (``COMPOSITE_SOFT_REFS``: row b zeroes its radii), unhinted
+   against the plain version, bitwise across launches, and under the
+   contract the same way; the zeroed row's light bitwise the drop_object
+   light (unhinted and hinted, the dropped scene under hints_for_dropped),
+   and K2 over the scene and its zero_object copy row by row bitwise the
+   single renders;
 13. the soft training main path in the production configuration:
    make_train_step(impl="kernel", soft_object_ref=("spheres", 0)) under
    the frozen hints on room_with_sphere at 1280x720, 8 spp, 4 bounces, a
@@ -114,6 +121,22 @@ on any failure, or when no CUDA device is available. Phases:
    launches per step, the wall's hint row dropped for the row without it),
    timed; then ``inverse_render --param position --impl kernel
    --freeze-hints`` recovers the lamp's x;
+13b. the slice's soft main path on the composites: bench.py's soft_step
+   with the room's sphere replaced by the tiger, make_train_step(impl=
+   "kernel", soft_object_ref=("tiger", None)) under the frozen hints at
+   1280x720x8spp x4 from zeroed counts, one hinted K6 launch per step on
+   the tiger's composite fold, its hyperplane fallback (("spaces", 0): two
+   hinted K1 and two hinted K5 launches per step on the composite folds),
+   and the same soft step on the hypercube and the duocylinder, each
+   timed; the tiger step's parts alone (K6, the coverage's forward and
+   backward, Adam) and its host part; K6 on the tiger, the hypercube and
+   the duocylinder at that shape, hinted and unhinted timed in turns, each
+   under the contract and against its plain version in row bands, the
+   tiger's bound (the live share of both rows); the fallback's kernels on
+   the tiger at that shape: K5 on the tiger and on the tiger without wall
+   0 under hints_for_dropped, each against its plain version in row bands
+   and timed, and K1 of the scene without the wall against the plain
+   pipeline;
 14. the row-sharded launches (K3) in one process: K1 and K2 with the
    room's hints (K2's two rows share them) against their unhinted launches;
    cut into 2 and 4 row blocks (``parallel.mesh.row_block``) bitwise the
@@ -130,7 +153,12 @@ on any failure, or when no CUDA device is available. Phases:
    block's launch and the single launch timed with CUDA events; the
    tiger's K4 under the frozen hints at 256x144 in ``PLAIN_SPLIT`` row
    blocks, each bitwise across launches and against its plain version,
-   their sum within ``GRAD_BOUNDS`` of the single launch;
+   their sum within ``GRAD_BOUNDS`` of the single launch; the tiger's K6
+   under the frozen hints at 256x144 in ``PLAIN_SPLIT`` row blocks, each
+   bitwise across launches and against its plain version, and at
+   1280x720x8spp x4 in 2 and 4 row blocks, timed, their sums within
+   ``GRAD_BOUNDS`` of the single launch, their alpha cotangents bitwise
+   its rows;
 15. the distributed main path: ``multihost_run`` with 2 ranks (gloo, both
    on this card; NCCL, one card each, when there are two): the sharded
    image bitwise the single-process K1 render, 3 steps of
@@ -197,7 +225,8 @@ counts); the dense and the unhinted counts stand beside them. The kernel
 launch counts are
 set to 0 before each main path (phases 4-5: rendering; phase 7b: each
 composite cell's engine; phases 9-10:
-training; phase 13: soft training; phase 15: the ranks, fresh processes,
+training; phase 13: soft training; phase 13b: soft training on the
+composites; phase 15: the ranks, fresh processes,
 count their own; phase 16: the peak sweep; phase 17: each tool) and read
 after it.
 
@@ -244,10 +273,9 @@ CHECK_BOUNDS = dict(atol=1e-5, boundary_frac=0.01, mean_atol=0.005)
 APP_CONFIG = ROOT / "configs" / "properties.txt"
 HEADLINE = dict(width=1280, height=720, samples=8, reflections_amount=4, rng_mode="per_sample")
 FRAMES_PER_LAUNCH = 4
-# The scenes of hyperplanes and spheres, which every gradient kernel takes
-# (K6, the soft half, takes these only: ROADMAP queue 1, item 4b, soft half).
+# The scenes of hyperplanes and spheres.
 GRAD_SCENES = ("room_with_sphere", "sphere_plane_light")
-# The composite primitives on the hard-loss gradient paths (K4, K5, K8):
+# The composite primitives on the gradient paths (K4, K5, K6, K8):
 # the library's three composite scenes and "cylinders", a floor and two
 # standalone cylinders (one on unit axes, hinted; one turned, not) under
 # sphere_plane_light's sun and sky. Their gradients' non-zero patterns are
@@ -308,6 +336,15 @@ TRAIN_CALLS, TRAIN_REPEATS = 3, 3
 SOFT_REFS = {"room_with_sphere": ("spheres", 0), "sphere_plane_light": ("spheres", 1)}
 SOFT_EDGE = 0.05
 FALLBACK_REF = ("spaces", 0)
+# The soft object of each COMPOSITE_GRAD scene (phase 12): the composite
+# itself (zero_object: its radii 0, the hypercube's -1); of "cylinders",
+# the one on unit axes, hinted. Phase 13b: the slice's main path, bench.py's
+# soft_step (:468-516) with the room's sphere replaced by the tiger, and
+# the hypercube's and the duocylinder's soft steps at its shape beside it.
+COMPOSITE_SOFT_REFS = {"duocylinder": ("cylinders_union", None),
+                       "hypercube": ("hypercube", None), "tiger": ("tiger", None),
+                       "cylinders": ("cylinders", 0)}
+SOFT_STEP_SCENES = ("tiger", "hypercube", "duocylinder")
 # Phase 14: the row shards (K3), and the split whose blocks are each held
 # against their plain version on the same rows (phase 15's, one block per
 # rank); phase 15: the ranks of the distributed run.
@@ -1210,6 +1247,65 @@ def tiger_row_shards(device) -> dict:
     return out
 
 
+def tiger_soft_row_shards(device) -> dict:
+    """Phase 14 on the tiger's soft step: K6 under the frozen hints, the
+    tiger the object, at GRAD_CHECK (1 view) cut into PLAIN_SPLIT row
+    blocks, each bitwise across two launches and within GRAD_BOUNDS of its
+    plain version on the same rows; then at TRAIN in 2 and 4 row blocks,
+    their sums (in rank order) within GRAD_BOUNDS of the single launch and
+    their alpha cotangents bitwise its rows, every block timed. Returns
+    the errors and the times."""
+    ref = COMPOSITE_SOFT_REFS["tiger"]
+    scene, camera = library.tiger(device), camera_for(("yxz",), device)
+    out = {"block_err": 0.0, "sum_err": 0.0, "sum_rel": 0.0}
+    for base, splits in ((RenderConfig(**GRAD_CHECK), (PLAIN_SPLIT,)),
+                         (RenderConfig(**TRAIN), SHARDS)):
+        target = torch.from_numpy(np.random.default_rng(3).uniform(
+            0, 1, (base.height, base.width, 3)).astype(np.float32)).to(device)
+        packed, lay, zero_map, alpha, target = soft_inputs(scene, camera, base, ref, SOFT_EDGE,
+                                                           target)
+        hcfg, keep, _ = frozen_setup(scene, camera, base)
+        whole = gradkernel.launch_soft_loss_grad(packed, lay, hcfg, 5, target, alpha, zero_map,
+                                                 keep=keep)
+        shape = f"{base.width}x{base.height}"
+        for n in splits:
+            loss, grad = 0.0, 0.0
+            for b in shard_blocks(base.height, n):
+                t_block = rows_of(target, b)
+                a_block = alpha[b[0]:b[0] + b[1]].contiguous()
+                part = gradkernel.launch_soft_loss_grad(packed, lay, hcfg, 5, t_block, a_block,
+                                                        zero_map, rows=b, keep=keep)
+                again = gradkernel.launch_soft_loss_grad(packed, lay, hcfg, 5, t_block, a_block,
+                                                         zero_map, rows=b, keep=keep)
+                assert all(torch.equal(x, y) for x, y in zip(part, again)), \
+                    f"K6 tiger {shape} rows {b} differ"
+                assert torch.equal(part[2], whole[2][b[0]:b[0] + b[1]]), \
+                    f"K6 tiger {shape} rows {b}: alpha cotangent"
+                if base.width == GRAD_CHECK["width"]:
+                    plain = gradkernel.render_soft_loss_and_grad_plain(
+                        packed, scene, camera, hcfg, 5, t_block, a_block, zero_map, rows=b)
+                    err, _ = compare_soft(f"tiger {shape} rows {b} frozen hints", part, plain,
+                                          block=True, floor=COMPOSITE_PATTERN_FLOOR)
+                    out["block_err"] = max(out["block_err"], err)
+                else:
+                    out.setdefault("ms", {})[f"{n} blocks {b}"] = statistics.median(cuda_ms(
+                        lambda b=b, t_block=t_block, a_block=a_block:
+                        gradkernel.launch_soft_loss_grad(packed, lay, hcfg, 5, t_block, a_block,
+                                                         zero_map, rows=b, keep=keep),
+                        calls=TRAIN_CALLS, repeats=TRAIN_REPEATS))
+                loss, grad = loss + part[0], grad + part[1]
+            err, rel = compare_grad(f"K6 tiger {shape} {n} row blocks summed", (loss, grad),
+                                    whole[:2], COMPOSITE_PATTERN_FLOOR)
+            out["sum_err"], out["sum_rel"] = max(out["sum_err"], err), max(out["sum_rel"], rel)
+        if base.width == TRAIN["width"]:
+            out.setdefault("ms", {})["whole"] = statistics.median(cuda_ms(
+                lambda: gradkernel.launch_soft_loss_grad(packed, lay, hcfg, 5, target, alpha,
+                                                         zero_map, keep=keep),
+                calls=TRAIN_CALLS, repeats=TRAIN_REPEATS))
+    print(json.dumps({"k6_tiger_row_shards": out}), flush=True)
+    return out
+
+
 def train_main_path(device, frames: int, frozen: bool = True,
                     name: str = "room_with_sphere") -> list:
     """Phase 9: the packed train step at TRAIN on scene ``name``, ``frames``
@@ -1331,21 +1427,22 @@ def compare_vec(label: str, kernel, plain, same_pattern: bool = True, nonzero: b
     return err, rel
 
 
-def compare_soft(label: str, kernel, plain, block: bool = False):
+def compare_soft(label: str, kernel, plain, block: bool = False, floor: float = 0.0):
     """Hold K6's (loss, grad, alpha cotangent) against the plain version's
     within GRAD_BOUNDS. The alpha cotangent's pattern is not required to
     match: it is sum_ch 2 (img - t)(c_with - c_without), which the plain
     version's autograd takes as a difference of two channel sums, so a
     pixel whose two rows differ by an ulp may round to 0 on one side only;
     the mixed-scale bound still holds every pixel. A ``block`` of rows may
-    have an alpha cotangent of zeros. Returns (max abs error, max
-    mixed-scale relative error)."""
+    have an alpha cotangent of zeros; the gradient's pattern is compared
+    above ``floor`` of its largest slot (COMPOSITE_PATTERN_FLOOR with
+    composites). Returns (max abs error, max mixed-scale relative error)."""
     k_l, p_l = float(kernel[0]), float(plain[0])
     assert np.isfinite(k_l), f"{label}: non-finite loss"
     loss_rel = abs(k_l - p_l) / abs(p_l)
     print(f"K6 {label} loss={k_l} plain={p_l} loss_rel={loss_rel:.3g}", flush=True)
     assert loss_rel <= GRAD_BOUNDS["loss_rtol"], f"{label}: loss"
-    e_g, r_g = compare_vec(f"K6 {label} grad", kernel[1], plain[1])
+    e_g, r_g = compare_vec(f"K6 {label} grad", kernel[1], plain[1], floor=floor)
     e_a, r_a = compare_vec(f"K6 {label} alpha_cot", kernel[2], plain[2], same_pattern=False,
                            nonzero=not block)
     return max(abs(k_l - p_l), e_g, e_a), max(r_g, r_a)
@@ -1501,6 +1598,70 @@ def check_soft_kernel(device):
     return max(e for e, _ in errs), max(r for _, r in errs)
 
 
+def check_zero_rows(label: str, scene, ref, camera, cfg: RenderConfig, seed) -> None:
+    """The soft kernel's row b is a guaranteed miss of the object: K1 of
+    the zero_object scene bitwise K1 of the drop_object scene (rendered
+    under hints_for_dropped), and K2 over the scene and its zero_object
+    copy in one launch row by row bitwise those single renders."""
+    zeroed = diff.zero_object(scene, ref)
+    light = megakernel.render_light_cuda(zeroed, camera, cfg, seed)
+    dropped = megakernel.render_light_cuda(diff.drop_object(scene, ref), camera,
+                                           diff.hints_for_dropped(cfg, ref), seed)
+    assert torch.equal(light, dropped), f"{label}: zeroed light != drop_object light"
+    rows = megakernel.render_light_cuda_multi((scene, zeroed), camera, cfg, seed)
+    assert torch.equal(rows[1], light) and torch.equal(
+        rows[0], megakernel.render_light_cuda(scene, camera, cfg, seed)), \
+        f"{label}: K2's rows differ from the single renders"
+
+
+def check_composite_k6(device):
+    """Phase 12 on COMPOSITE_GRAD at GRAD_CHECK, 1 and 3 views, each
+    scene's composite the soft object (COMPOSITE_SOFT_REFS; row b zeroes it
+    by its radii and is swept whole): K6 unhinted (the composite
+    descriptor without hints) against its plain version, bitwise across
+    two launches; under the frozen hints (each library scene's own
+    instance) the contract against the unhinted launch, bitwise across
+    launches, within GRAD_BOUNDS of the plain version with the slots
+    frozen; the zeroed row's light bitwise the drop_object light, unhinted
+    and hinted, and K2's rows bitwise the single renders. Returns (max abs
+    error, max mixed-scale relative error)."""
+    cfg = RenderConfig(**GRAD_CHECK)
+    seed = 0x13579BDF
+    errs = []
+    for name, ref in COMPOSITE_SOFT_REFS.items():
+        scene = composite_scene(name, device)
+        for views in (("yxz",), cam.VIEWS_ALL):
+            label = f"{name} {ref} views={len(views)}"
+            camera = camera_for(views, device)
+            target = torch.from_numpy(np.random.default_rng(3).uniform(
+                0, 1, (*image_shape(views, cfg), 3)).astype(np.float32)).to(device)
+            packed, lay, zero_map, alpha, target = soft_inputs(scene, camera, cfg, ref,
+                                                               SOFT_EDGE, target)
+            out = gradkernel.launch_soft_loss_grad(packed, lay, cfg, seed, target, alpha, zero_map)
+            again = gradkernel.launch_soft_loss_grad(packed, lay, cfg, seed, target, alpha,
+                                                     zero_map)
+            assert all(torch.equal(a, b) for a, b in zip(out, again)), f"K6 {label}: launches differ"
+            plain = gradkernel.render_soft_loss_and_grad_plain(packed, scene, camera, cfg, seed,
+                                                               target, alpha, zero_map)
+            errs.append(compare_soft(label, out, plain, floor=COMPOSITE_PATTERN_FLOOR))
+            hcfg, keep, frozen = frozen_setup(scene, camera, cfg)
+            hinted = gradkernel.launch_soft_loss_grad(packed, lay, hcfg, seed, target, alpha,
+                                                      zero_map, keep=keep)
+            assert all(torch.equal(a, b) for a, b in zip(hinted, gradkernel.launch_soft_loss_grad(
+                packed, lay, hcfg, seed, target, alpha, zero_map, keep=keep))), \
+                f"K6 {label} frozen hints: launches differ"
+            check_contract(f"K6 {label}", hinted, out, frozen)
+            errs.append(compare_soft(f"{label} frozen hints", hinted,
+                                     (plain[0], gradkernel.freeze(plain[1], scene, hcfg),
+                                      plain[2]), floor=COMPOSITE_PATTERN_FLOOR))
+            for c in (cfg, hcfg):
+                check_zero_rows(f"{label} hints={c.axis_hints is not None}", scene, ref, camera,
+                                c, seed)
+    print("composites: zero_object light bitwise drop_object light, K2's rows bitwise K1, on "
+          "every K6 check", flush=True)
+    return max(e for e, _ in errs), max(r for _, r in errs)
+
+
 def time_soft_kernel(device):
     """Phase 12 at the soft main path's shape (TRAIN, the room's sphere 0,
     a zero target): K6 and its plain version in row bands, held against
@@ -1576,14 +1737,157 @@ def time_soft_kernel(device):
             "pair_ms": pair_med, "pair_split_ms": pair_ms}
 
 
-def soft_train(device, ref, calls: int, repeats: int):
-    """Phase 13: make_train_step(impl="kernel", soft_object_ref=ref) at
-    TRAIN, in the production configuration (the frozen static hints); one
-    warm-up step, then timed steps.
-    Returns (ms per step, the steps, the trained scene and its optimizer,
-    the target)."""
+def k6_bound(scene, camera, cfg: RenderConfig, ref, packed, lay) -> dict:
+    """K6's bound at ``cfg`` (one view) under the frozen hints, as k4_bound
+    counts K4's: the hinted plain version's flops (both rows' forward and
+    autograd backward) over BOUND_ROWS rows, scaled to the image, times the
+    live share of the forward over the whole image, the mean of row a's
+    (the scene) and row b's (its zero_object copy); the dense count and
+    both shares beside it."""
+    hcfg = diff.with_frozen_hints(cfg, scene)
+    rows, scale = (0, BOUND_ROWS), cfg.height / BOUND_ROWS
+    block = torch.zeros((BOUND_ROWS, cfg.width, 3), device=packed.device)
+    alpha = diff.object_coverage(scene, ref, camera, cfg, SOFT_EDGE).detach()[:BOUND_ROWS]
+    dense = count_flops(gradkernel.render_soft_loss_and_grad_plain, packed, scene, camera, hcfg,
+                        1, block, alpha, params.soft_zero_map(scene, camera, ref),
+                        rows=rows)[1] * scale
+    shares = []
+    for row in (scene, diff.zero_object(scene, ref)):
+        with FlopCounter() as counter:
+            _, _, flops = lane_calls(row, camera, hcfg, [1], slice(0, BAND_ROWS), counter)
+        bands = [lane_calls(row, camera, hcfg, [1], slice(r, r + BAND_ROWS))[1]
+                 for r in range(0, cfg.height, BAND_ROWS)]
+        shares.append(sum(live_of(counter.flops, c, flops) for c in bands)
+                      / (counter.flops * len(bands)))
+    pixels = cfg.height * cfg.width
+    nbytes = 4 * (2 * lay.size + 1 + pixels * 3 + 2 * pixels)
+    share = sum(shares) / 2
+    out = bound(dense * share, nbytes)
+    out["live_share"] = share
+    out["live_share_rows"] = shares
+    out["dense"] = bound(dense, nbytes)
+    return out
+
+
+def vjp_plain_in_bands(packed, scene, camera, cfg: RenderConfig, seed, cot) -> torch.Tensor:
+    """K5's plain version over the whole image, BAND_ROWS rows at a time:
+    the sum of each band's gradient (the bands' rows are the image's)."""
+    return sum(gradkernel.render_light_vjp_plain(packed, scene, camera, cfg, seed,
+                                                 cot[r:r + BAND_ROWS].contiguous(),
+                                                 rows=(r, BAND_ROWS))
+               for r in range(0, cfg.height, BAND_ROWS))
+
+
+def soft_composite_cells(device) -> tuple:
+    """Phase 13b beside the composites' soft steps: K6 at TRAIN (1 view, a
+    zero target, the coverage alpha) on SOFT_STEP_SCENES, each scene's
+    composite the object, under the frozen hints bitwise across two
+    launches, under the contract against the unhinted launch and within
+    GRAD_BOUNDS of its plain version in BAND_ROWS-row bands (timed once);
+    the hinted and the unhinted launch timed in turns; the tiger's bound.
+    Then the hyperplane fallback's kernels on the tiger at TRAIN, as its
+    step launches them: K5 (one row, a seeded random cotangent) on the
+    tiger under the frozen hints and on the tiger without wall 0 under
+    hints_for_dropped, each bitwise across launches, within GRAD_BOUNDS of
+    its plain version in bands and timed; K1 of the scene without the wall
+    against the plain pipeline in bands. Returns (K6 cells by scene, K5
+    cells, K1's largest light difference)."""
     cfg = RenderConfig(**TRAIN)
-    scene, camera = library.room_with_sphere(device), camera_for(("yxz",), device)
+    camera = camera_for(("yxz",), device)
+    cells = {}
+    for name in SOFT_STEP_SCENES:
+        scene, ref = library.SCENES[name](device), COMPOSITE_SOFT_REFS[name]
+        packed, lay, zero_map, alpha, target = soft_inputs(
+            scene, camera, cfg, ref, SOFT_EDGE,
+            torch.zeros((cfg.height, cfg.width, 3), device=device))
+        hcfg, keep, frozen = frozen_setup(scene, camera, cfg)
+        label = f"{name} {ref} 1280x720x8spp x4"
+        hinted = gradkernel.launch_soft_loss_grad(packed, lay, hcfg, 1, target, alpha, zero_map,
+                                                  keep=keep)
+        again = gradkernel.launch_soft_loss_grad(packed, lay, hcfg, 1, target, alpha, zero_map,
+                                                 keep=keep)
+        assert all(torch.equal(a, b) for a, b in zip(hinted, again)), f"K6 {label}: launches differ"
+        check_contract(f"K6 {label}", hinted, gradkernel.launch_soft_loss_grad(
+            packed, lay, cfg, 1, target, alpha, zero_map), frozen)
+        cell = {"P": lay.size, "zero_slots": len(zero_map)}
+        plain = []
+        cell["plain_ms"] = cuda_ms(lambda: plain.append(
+            gradkernel.render_soft_loss_and_grad_plain(packed, scene, camera, hcfg, 1, target,
+                                                       alpha, zero_map, band_rows=BAND_ROWS)),
+            calls=1, repeats=1)[0]
+        cell["max_abs_err"], cell["grad_mixed_rel"] = compare_soft(
+            f"{label} frozen hints (plain in {BAND_ROWS}-row bands)", hinted, plain[0],
+            floor=COMPOSITE_PATTERN_FLOOR)
+        for key, c, k in (("ms", hcfg, keep), ("unhinted_ms", cfg, None)) * 2:
+            cell.setdefault(key + "_all", []).extend(cuda_ms(
+                lambda c=c, k=k: gradkernel.launch_soft_loss_grad(packed, lay, c, 1, target,
+                                                                  alpha, zero_map, keep=k),
+                calls=TRAIN_CALLS, repeats=TRAIN_REPEATS))
+        for key in ("ms", "unhinted_ms"):
+            cell[key] = statistics.median(cell[key + "_all"])
+        if name == "tiger":
+            cell.update(k6_bound(scene, camera, cfg, ref, packed, lay))
+        cell["soft_grad_mrays_per_s"] = cfg.width * cfg.height * cfg.samples / cell["ms"] / 1e3
+        cells[name] = cell
+        print(json.dumps({"cell": f"soft K6 {label}, zero target, edge width {SOFT_EDGE}, the "
+                                  "frozen hints", **cell}), flush=True)
+    scene = library.tiger(device)
+    hcfg = diff.with_frozen_hints(cfg, scene)
+    dropped, dcfg = diff.drop_object(scene, FALLBACK_REF), diff.hints_for_dropped(hcfg,
+                                                                                   FALLBACK_REF)
+    cot = torch.from_numpy(np.random.default_rng(5).normal(
+        0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)).to(device)
+    k5 = {}
+    for key, s, c in (("tiger", scene, hcfg), ("tiger_without_wall0", dropped, dcfg)):
+        packed, lay = params.pack(s, camera), params.layout(s, camera)
+        keep = params.freeze_mask(c, s, lay.size, device)
+        label = f"K5 {key} 1280x720x8spp x4, 1 row"
+        grad = gradkernel.launch_light_vjp(packed, lay, c, 1, cot, keep=keep)
+        assert torch.equal(grad, gradkernel.launch_light_vjp(packed, lay, c, 1, cot, keep=keep)), \
+            f"{label}: launches differ"
+        plain = []
+        plain_ms = cuda_ms(lambda: plain.append(vjp_plain_in_bands(packed, s, camera, c, 1, cot)),
+                           calls=1, repeats=1)[0]
+        err, rel = compare_vec(f"{label} frozen hints (plain in {BAND_ROWS}-row bands)", grad,
+                               plain[0], floor=COMPOSITE_PATTERN_FLOOR)
+        ms = cuda_ms(lambda: gradkernel.launch_light_vjp(packed, lay, c, 1, cot, keep=keep),
+                     calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)
+        k5[key] = {"P": lay.size, "ms_all": ms, "ms": statistics.median(ms), "plain_ms": plain_ms,
+                   "max_abs_err": err, "grad_mixed_rel": rel}
+        print(json.dumps({"cell": f"{label}, seeded random cotangent, the frozen hints",
+                          **k5[key]}), flush=True)
+    k1_err = check_close(
+        f"K1 tiger without wall 0 1280x720x8spp x4 hints_for_dropped vs plain in {BAND_ROWS}-row "
+        "bands", megakernel.render_light_cuda(dropped, camera, dcfg, 1),
+        plain_in_bands(dropped, camera, dcfg, 1)[0])
+    return cells, k5, k1_err
+
+
+def soft_step_host(step, state, target, steps: int) -> dict:
+    """``steps`` soft steps (seeds 1, 2, ...), each started with the card
+    idle and read on the host clock twice: when the call returns
+    (``host_ms``, the host's part: the step issues its launches without
+    waiting for the card) and when the card has finished (``wall_ms``)."""
+    out = {"host_ms": [], "wall_ms": []}
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state[0], state[1], _, _ = step(state[0], state[1], i + 1, target)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        out["host_ms"].append((t1 - t0) * 1e3)
+        out["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def soft_train(device, ref, calls: int, repeats: int, name: str = "room_with_sphere"):
+    """Phase 13: make_train_step(impl="kernel", soft_object_ref=ref) at
+    TRAIN on scene ``name``, in the production configuration (the frozen
+    static hints); one warm-up step, then timed steps.
+    Returns (ms per step, the steps, the trained scene and its optimizer,
+    the target, the step)."""
+    cfg = RenderConfig(**TRAIN)
+    scene, camera = library.SCENES[name](device), camera_for(("yxz",), device)
     cfg = diff.with_frozen_hints(cfg, scene)
     target = torch.zeros((cfg.height, cfg.width, 3), device=device)
     step, init = diff.make_train_step(cfg, 1e-3, camera, impl="kernel", soft_object_ref=ref,
@@ -1608,10 +1912,10 @@ def soft_train(device, ref, calls: int, repeats: int):
     assert torch.equal(vec[:n][held], start[:n][held]), f"{ref}: a frozen slot moved"
     rays = cfg.width * cfg.height * cfg.samples
     med = statistics.median(ms)
-    print(f"soft train step {ref} frozen hints: ms={ms} "
+    print(f"soft train step {name} {ref} frozen hints: ms={ms} "
           f"median={med} grad_mrays_per_s={rays / med / 1e3} losses {out[0]} -> {out[-1]}",
           flush=True)
-    return ms, len(losses), state, target
+    return ms, len(losses), state, target, step
 
 
 SOFT_TURNS, SOFT_TURN_STEPS = 6, 5
@@ -1621,11 +1925,8 @@ def soft_step_turns(device, ref) -> dict:
     """Phase 13: the sphere soft step at TRAIN in the production
     configuration (the frozen static hints) and unhinted, in turns (hinted,
     unhinted, then unhinted, hinted, ...), SOFT_TURN_STEPS steps a turn
-    after one warm-up turn each. Each step starts with the card idle and
-    is read on the host clock twice: when the call returns (``host_ms``,
-    the host's part: the step issues its launches without waiting for the
-    card) and when the card has finished (``wall_ms``). They run after the
-    main path's counts are read. Returns {"hinted" | "unhinted":
+    after one warm-up turn each, each step read by soft_step_host. They
+    run after the main path's counts are read. Returns {"hinted" | "unhinted":
     {"host_ms": [...], "wall_ms": [...]}}."""
     runs = {}
     for name in ("hinted", "unhinted"):
@@ -1641,17 +1942,10 @@ def soft_step_turns(device, ref) -> dict:
     order = [("hinted", "unhinted") if t % 2 == 0 else ("unhinted", "hinted")
              for t in range(SOFT_TURNS)]
     for k, name in enumerate(["hinted", "unhinted"] + [n for turn in order for n in turn]):
-        step, state, target = runs[name]
-        for i in range(SOFT_TURN_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state[0], state[1], _, _ = step(state[0], state[1], i + 1, target)
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            if k >= 2:  # after the warm-up turns
-                out[name]["host_ms"].append((t1 - t0) * 1e3)
-                out[name]["wall_ms"].append((t2 - t0) * 1e3)
+        times = soft_step_host(*runs[name], SOFT_TURN_STEPS)
+        if k >= 2:  # after the warm-up turns
+            for key, v in times.items():
+                out[name][key].extend(v)
     return out
 
 
@@ -1683,16 +1977,15 @@ def contract_host_ms(device, reps: int = 200) -> float:
     return statistics.median(times)
 
 
-def soft_step_split(device, state, target):
-    """Phase 13: the parts of the sphere soft step alone, at its state:
-    K6, the coverage's forward and backward, and Adam. It runs after the
-    main path's counts are read: its launches are timing runs. Returns a
-    dict of ms lists."""
+def soft_step_split(device, state, target, ref=SOFT_REFS["room_with_sphere"]):
+    """Phase 13: the parts of a soft step alone, at its state: K6, the
+    coverage's forward and backward, and Adam (the room's sphere 0 by
+    default; phase 13b the tiger). It runs after the main path's counts
+    are read: its launches are timing runs. Returns a dict of ms lists."""
     camera = camera_for(("yxz",), device)
     scene, opt = state
     cfg = diff.with_frozen_hints(RenderConfig(**TRAIN), scene)
     keep = params.freeze_mask(cfg, scene, params.layout(scene, camera).size, device)
-    ref = SOFT_REFS["room_with_sphere"]
     packed, lay, zero_map, alpha, target = soft_inputs(scene, camera, cfg, ref, SOFT_EDGE, target)
 
     def coverage():
@@ -2337,7 +2630,7 @@ def resident_warps(lib_path: Path, device) -> dict:
     return out
 
 
-# The composite folds of K4, K5 and K8 (csrc/reduce.cuh) as their mangled
+# The composite folds of K4, K5, K6 and K8 (csrc/reduce.cuh) as their mangled
 # names spell them, with the scene and views whose launch at TRAIN (under
 # the frozen hints; the generic one unhinted, as every composite scene
 # without hints takes it) sets each one's shared memory.
@@ -2351,15 +2644,20 @@ COMPOSITE_FOLDS = {"generic": ("17GradCompositeFoldILin1ELin1ELin1E", "tiger", (
 
 def composite_resources(lib_path: Path, device) -> dict:
     """Phase 2 on the composite folds: the registers, stack frame and spill
-    stores of each instance of K4's pass 1, the K4/K5 sweep (the unrolled
-    instance and, for the generic fold, the rolled one) and K8's modes, and
+    stores of each instance of K4's pass 1, the K4/K5 sweep, K6's pass 1
+    and its row-a and row-b sweeps (the unrolled instances and, for the
+    generic fold, the rolled ones) and K8's modes, and
     the resident warps per SM each reaches at its scene's launch
     (COMPOSITE_FOLDS; the hypercube's 3-view launch, P = 288, beside its
     1-view one). Prints them."""
     res = build.kernel_resources(build.build_log())
-    kernels = {"sweep": f"12sweep_kernelILi{gradkernel.MAIN_BOUNCES}E",
-               "sweep_generic": f"12sweep_kernelILi{gradkernel.MAX_BOUNCES}E",
-               "loss_cot": "15loss_cot_kernelI", "k8": "13ablate_kernelILi2E"}
+    main_b, max_b = gradkernel.MAIN_BOUNCES, gradkernel.MAX_BOUNCES
+    kernels = {"sweep": f"12sweep_kernelILi{main_b}E", "sweep_generic": f"12sweep_kernelILi{max_b}E",
+               "loss_cot": "15loss_cot_kernelI", "k8": "13ablate_kernelILi2E",
+               "soft_sum": "15soft_sum_kernelI", "soft_row_a": f"17soft_row_a_kernelILi{main_b}E",
+               "soft_row_a_generic": f"17soft_row_a_kernelILi{max_b}E",
+               "soft_row_b": f"17soft_row_b_kernelILi{main_b}E",
+               "soft_row_b_generic": f"17soft_row_b_kernelILi{max_b}E"}
     cfg = RenderConfig(**TRAIN)
     out = {}
     for fold, (mangled, name, views) in COMPOSITE_FOLDS.items():
@@ -2368,7 +2666,11 @@ def composite_resources(lib_path: Path, device) -> dict:
         shapes = gradkernel.launch_shapes(lay, cfg if fold == "generic"
                                           else diff.with_frozen_hints(cfg, scene))
         launch = {"sweep": shapes["sweep_kernel"], "sweep_generic": shapes["sweep_kernel"],
-                  "loss_cot": shapes["loss_cot_kernel"], "k8": shapes["loss_cot_kernel"]}
+                  "loss_cot": shapes["loss_cot_kernel"], "k8": shapes["loss_cot_kernel"],
+                  "soft_sum": shapes["soft_sum_kernel"], "soft_row_a": shapes["soft_row_a_kernel"],
+                  "soft_row_a_generic": shapes["soft_row_a_kernel"],
+                  "soft_row_b": shapes["soft_row_b_kernel"],
+                  "soft_row_b_generic": shapes["soft_row_b_kernel"]}
         patterns = {k: f"{p}NS_{mangled}" for k, p in kernels.items()}
         warps = build.resident_warps(lib_path, {re.escape(p): launch[k]
                                                 for k, p in patterns.items()})
@@ -2417,9 +2719,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     card = smi_line()
-    print(f"device={name} count={torch.cuda.device_count()} torch={torch.__version__} "
+    print(f"device={kind} count={torch.cuda.device_count()} torch={torch.__version__} "
           f"cuda={torch.version.cuda} nvidia-smi: {card}", flush=True)
 
     phase("2 build")
@@ -2543,15 +2845,17 @@ def main() -> int:
     vjp_err, vjp_rel = max(vjp_err, k5["err"]), max(vjp_rel, k5["rel"])
     phase("12 soft value-and-grad kernel K6 vs plain on the card")
     soft_err, soft_rel = check_soft_kernel(device)
+    comp_err, comp_rel = check_composite_k6(device)
+    soft_err, soft_rel = max(soft_err, comp_err), max(soft_rel, comp_rel)
     k6 = time_soft_kernel(device)
     max_err = max(max_err, k6["light_err"])
     soft_err, soft_rel = max(soft_err, k6["err"]), max(soft_rel, k6["rel"])
 
     phase("13 soft training main path: make_train_step(soft) -> K6, 1280x720")
     reset_counts()
-    soft_ms, n_soft, soft_state, soft_target = soft_train(
+    soft_ms, n_soft, soft_state, soft_target, _ = soft_train(
         device, SOFT_REFS["room_with_sphere"], TRAIN_CALLS, TRAIN_REPEATS)
-    fallback_ms, n_fallback, _, _ = soft_train(device, FALLBACK_REF, TRAIN_CALLS, 1)
+    fallback_ms, n_fallback, _, _, _ = soft_train(device, FALLBACK_REF, TRAIN_CALLS, 1)
     n_ir = run_inverse_render_position()
     launches["soft"] = counts()
     expect = {"k1": 2 * n_fallback + 1, "k2_rows": 0, "k4": 0, "k5": 2 * n_fallback,
@@ -2589,9 +2893,55 @@ def main() -> int:
         "launches": launches["soft"],
     }), flush=True)
 
+    phase("13b soft training main path on the composites: make_train_step(soft, tiger | "
+          "hypercube | duocylinder) -> K6, 1280x720")
+    reset_counts()
+    tiger_ref = COMPOSITE_SOFT_REFS["tiger"]
+    tiger_soft_ms, n_tiger, tiger_state, tiger_target, tiger_step = soft_train(
+        device, tiger_ref, TRAIN_CALLS, TRAIN_REPEATS, name="tiger")
+    tiger_fb_ms, n_tiger_fb, _, _, _ = soft_train(device, FALLBACK_REF, TRAIN_CALLS, 1,
+                                                  name="tiger")
+    step_ms = {"tiger": tiger_soft_ms}
+    n_comp = n_tiger
+    for scene_name in SOFT_STEP_SCENES[1:]:
+        step_ms[scene_name], n, _, _, _ = soft_train(
+            device, COMPOSITE_SOFT_REFS[scene_name], TRAIN_CALLS, 1, name=scene_name)
+        n_comp += n
+    launches["soft_composites"] = counts()
+    expect = {"k1": 2 * n_tiger_fb, "k2_rows": 0, "k4": 0, "k5": 2 * n_tiger_fb, "k6": n_comp,
+              "k4_hinted": 0, "k5_hinted": 2 * n_tiger_fb, "k6_hinted": n_comp}
+    assert launches["soft_composites"] == expect, (launches["soft_composites"], expect)
+    tiger_split = soft_step_split(device, tiger_state, tiger_target, tiger_ref)
+    tiger_host = soft_step_host(tiger_step, list(tiger_state), tiger_target, SOFT_TURN_STEPS)
+    soft_cells, k5_cells, fallback_k1_err = soft_composite_cells(device)
+    max_err = max(max_err, fallback_k1_err)
+    soft_err = max(soft_err, *(c["max_abs_err"] for c in soft_cells.values()))
+    soft_rel = max(soft_rel, *(c["grad_mixed_rel"] for c in soft_cells.values()))
+    vjp_err = max(vjp_err, *(c["max_abs_err"] for c in k5_cells.values()))
+    vjp_rel = max(vjp_rel, *(c["grad_mixed_rel"] for c in k5_cells.values()))
+    tiger_soft_med = statistics.median(tiger_soft_ms)
+    print(json.dumps({
+        "cell": "tiger 1280x720 8spp 4 bounces, soft train step, the tiger, zero target, edge "
+                "width 0.05, lr 1e-3, the frozen static hints",
+        "card": card,
+        "soft_step_ms": tiger_soft_ms, "soft_step_ms_median": tiger_soft_med,
+        "soft_grad_mrays_per_s": train_rays / tiger_soft_med / 1e3,
+        "soft_step_ms_by_scene": step_ms,
+        "soft_step_ms_median_by_scene": {k: statistics.median(v) for k, v in step_ms.items()},
+        "step_host": tiger_host,
+        "step_host_median": {k: statistics.median(v) for k, v in tiger_host.items()},
+        "split_ms": tiger_split,
+        "split_ms_median": {k: statistics.median(v) for k, v in tiger_split.items()},
+        "fallback_spaces0_step_ms": tiger_fb_ms,
+        "fallback_step_ms_median": statistics.median(tiger_fb_ms),
+        "k6_cells": soft_cells, "k5_cells": k5_cells,
+        "launches": launches["soft_composites"],
+    }), flush=True)
+
     phase("14 row-sharded launches (K3) on one card")
     shards = check_row_shards(device)
     tiger_shards = tiger_row_shards(device)
+    tiger_soft_shards = tiger_soft_row_shards(device)
     bounds = kernel_bounds(device)
 
     phase("15 distributed main path: multihost_run, 2 ranks")
@@ -2666,10 +3016,11 @@ def main() -> int:
         "source": "fourd_ray_tracing_tpu_torch/csrc/megakernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/megakernel.py:316",
         "launches": (launches["render"][0] + launches["composite"] + launches["train"][0]
-                     + launches["soft"]["k1"] + sharded["k1"] + measure["k1"]
-                     + measure["k1_variant"]),
+                     + launches["soft"]["k1"] + launches["soft_composites"]["k1"] + sharded["k1"]
+                     + measure["k1"] + measure["k1_variant"]),
         "launches_by_path": {"render": launches["render"][0], "composite": launches["composite"],
                              "train": launches["train"][0], "soft": launches["soft"]["k1"],
+                             "soft_composites": launches["soft_composites"]["k1"],
                              "sharded": sharded["k1"], "measure": measure["k1"]},
         # The stub variants of tools/fwd_ablate.py: this kernel with stubs
         # compiled in, held against the plain pipeline under the same
@@ -2754,9 +3105,11 @@ def main() -> int:
         **kernel_resources("k5", resources, warps),
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:294",
-        "launches": launches["soft"]["k5"] + sharded["k5"] + measure["k5"],
-        "launches_by_path": {"soft": launches["soft"]["k5"], "sharded": sharded["k5"],
-                             "measure": measure["k5"]},
+        "launches": (launches["soft"]["k5"] + launches["soft_composites"]["k5"] + sharded["k5"]
+                     + measure["k5"]),
+        "launches_by_path": {"soft": launches["soft"]["k5"],
+                             "soft_composites": launches["soft_composites"]["k5"],
+                             "sharded": sharded["k5"], "measure": measure["k5"]},
         "sharded_launches": sharded["k5_shard"],
         "shard_max_abs_err": shards["block_errs"]["k5"],
         "shard_sum_max_abs_err": shards["sum_errs"]["k5"],
@@ -2770,9 +3123,14 @@ def main() -> int:
         **bounds["k5"], **no_library,
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, 1 row, seeded random cotangent, "
                  "the frozen static hints (plain version whole)",
-        "hinted_launches": (launches["soft"]["k5_hinted"] + sharded["k5_hinted"]
-                            + measure["k5_hinted"]),
+        "hinted_launches": (launches["soft"]["k5_hinted"]
+                            + launches["soft_composites"]["k5_hinted"]
+                            + sharded["k5_hinted"] + measure["k5_hinted"]),
         "contract": contract_of("K5"),
+        # The hyperplane fallback's K5 on the tiger at the same shape, and
+        # on the tiger without wall 0 (phase 13b).
+        "tiger_ms": k5_cells["tiger"]["ms"],
+        "composite_cells": k5_cells,
         "build_s": build_s,
     }, {
         "name": "soft_loss_grad_kernel",
@@ -2780,9 +3138,11 @@ def main() -> int:
         **kernel_resources("k6", resources, warps),
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:1207",
-        "launches": launches["soft"]["k6"] + sharded["k6"] + measure["k6"],
-        "launches_by_path": {"soft": launches["soft"]["k6"], "sharded": sharded["k6"],
-                             "measure": measure["k6"]},
+        "launches": (launches["soft"]["k6"] + launches["soft_composites"]["k6"] + sharded["k6"]
+                     + measure["k6"]),
+        "launches_by_path": {"soft": launches["soft"]["k6"],
+                             "soft_composites": launches["soft_composites"]["k6"],
+                             "sharded": sharded["k6"], "measure": measure["k6"]},
         "sharded_launches": sharded["k6_shard"],
         "shard_max_abs_err": shards["block_errs"]["k6"],
         "shard_sum_max_abs_err": shards["sum_errs"]["k6"],
@@ -2793,9 +3153,18 @@ def main() -> int:
         "ms": statistics.median(k6["ms"]),
         "unhinted_ms": statistics.median(k6["unhinted_ms"]),
         "plain_ms": k6["plain_ms"],
-        "hinted_launches": (launches["soft"]["k6_hinted"] + sharded["k6_hinted"]
-                            + measure["k6_hinted"]),
+        "hinted_launches": (launches["soft"]["k6_hinted"]
+                            + launches["soft_composites"]["k6_hinted"]
+                            + sharded["k6_hinted"] + measure["k6_hinted"]),
         "contract": contract_of("K6"),
+        # The composites (phase 13b): K6 on the tiger, the hypercube and the
+        # duocylinder at the same shape, the tiger's soft step and its row
+        # blocks (phase 14).
+        "composite_cells": {n: with_shares(dict(c)) if "flops" in c else c
+                            for n, c in soft_cells.items()},
+        "soft_step_tiger_ms_median": tiger_soft_med,
+        "soft_step_ms_median_by_scene": {k: statistics.median(v) for k, v in step_ms.items()},
+        "tiger_row_shards": tiger_soft_shards,
         "pair_ms": k6["pair_ms"],
         "pair_note": "K2 over both rows + the two-row K5, the launches K6 fused, same shape",
         **bounds["k6"], **no_library,
@@ -2854,7 +3223,7 @@ def main() -> int:
         k1["unhinted"]["flops"] / (k1["ms"] * 1e-3) / PEAKS["fp32_flops_per_s"])
     print(json.dumps(summary), flush=True)
     print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

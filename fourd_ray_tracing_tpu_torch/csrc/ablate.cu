@@ -118,7 +118,7 @@ extern "C" int fourd_ablate_launch(int mode, const float* params, uint32_t seed,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Hints H;
-  const FoldKind kind = fold_kind(L, hints, reflections, H, true);
+  const FoldKind kind = fold_kind(L, hints, reflections, H);
   if (mode < kModeAcc || mode > kModeVjp) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto run = [&](auto fold) {

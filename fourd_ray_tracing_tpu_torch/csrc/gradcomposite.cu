@@ -4,7 +4,8 @@
 // freeze_hints contract) or not. Replaces the composite part of
 // fourd_ray_tracing_tpu/ops/pallas/gradkernel.py::_loss_grad_kernel and
 // ::_light_vjp_kernel, whose jax.vjp runs over the whole scene fold
-// (gradkernel.py:216-231, 256-257).
+// (gradkernel.py:216-231, 256-257). K6 over the same folds is
+// softcomposite.cu.
 //
 // Design: gradkernel.cu's kernels (gradlaunch.cuh) with a GradCompositeFold
 // (trace.cuh): each block builds K1's fold table after its params, the
@@ -39,7 +40,7 @@ extern "C" int fourd_loss_grad_composite(const float* params, const uint32_t* se
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Hints H;
-  const FoldKind kind = fold_kind(L, hints, reflections, H, true);
+  const FoldKind kind = fold_kind(L, hints, reflections, H);
   return with_composite_fold(kind, [&](auto fold) {
     return k4_launch<decltype(fold)>(params, seeds, n_frames, L, H, width, height, row0, n_rows,
                                      samples, reflections, small_indent, light_coefficient,
@@ -62,7 +63,7 @@ extern "C" int fourd_light_vjp_composite(const float* params, long long row_stri
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Hints H;
-  const FoldKind kind = fold_kind(L, hints, reflections, H, true);
+  const FoldKind kind = fold_kind(L, hints, reflections, H);
   return with_composite_fold(kind, [&](auto fold) {
     return k5_launch<decltype(fold)>(params, row_stride, n_params_rows, seed, L, H, width, height,
                                      row0, n_rows, samples, reflections, small_indent, cot,

@@ -91,167 +91,17 @@
 // turned its pairs off), and without hints the unhinted ParamsFold ones.
 //
 // A scene with composite primitives (cylinders, the duocylinder, the
-// hypercube, the tiger) folds over K1's composite table in K4 and K5,
+// hypercube, the tiger) folds over K1's composite table in K4, K5 and K6,
 // hinted or not (GradCompositeFold: the winner numbered with its branch,
 // which the adjoint's composite partials read, adjoint.cuh composite_adj);
-// those instances live in gradcomposite.cu, K4's and K5's kernels in
-// gradlaunch.cuh. K6 refuses composites (their soft half is not ported).
+// those instances live in gradcomposite.cu (K4, K5) and softcomposite.cu
+// (K6), the kernels of all three in gradlaunch.cuh. K6's row b zeroes a
+// composite by its radii (0 for the circle families, -1 for the
+// hypercube: diff.zero_object), so row b's table, built from row b's
+// params, folds it to a guaranteed miss; its zero map names no sphere
+// (zero_map_object -1), so both rows are swept whole.
 
 #include "gradlaunch.cuh"
-
-namespace {
-
-// K6's pass 1. Grid (blocks, 2): row r of blockIdx.y (0: params, 1: params
-// with the zero map applied) writes its pixels' light summed over samples
-// to sums, (2, V, n_rows, W, 3).
-template <class Fold>
-__global__ void __launch_bounds__(kGradBlock)
-soft_sum_kernel(const float* __restrict__ params, uint32_t seed, Layout L, ZeroMap zm, int width,
-                int height, int row0, int n_rows, int samples, int reflections,
-                float small_indent, float* __restrict__ sums, Hints H) {
-  extern __shared__ float P[];
-  for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = params[i];
-  __syncthreads();
-  if (blockIdx.y == 1 && threadIdx.x == 0) {
-    for (int i = 0; i < zm.n; ++i) P[zm.idx[i]] = zm.val[i];
-  }
-  __syncthreads();
-  build_table_for<Fold>(P, L, H);  // row b's table from row b's params
-
-  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
-  const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lin >= total) return;
-  const PixelIndex px = pixel_index(lin, width, row0, n_rows);
-  const Pixel p = setup_pixel<Fold>(P, L, px.view, px.px, px.py, width, height, small_indent);
-  const V3 sum = pixel_light_sum<Fold>(P, L, p, samples, reflections, small_indent, seed);
-  float* out = sums + (blockIdx.y * total + lin) * 3;
-  out[0] = sum.x;
-  out[1] = sum.y;
-  out[2] = sum.z;
-}
-
-// K6's row-b work of a pixel, as its row-a sweep leaves it in row_b: the
-// samples row b sweeps alone, or kRowBWhole for all of them with bounce 0.
-constexpr uint32_t kRowBWhole = 1u << 31;
-
-// The blend of K6's pixel lin from pass 1's sums (2, V, n_rows, W, 3).
-__device__ __forceinline__ SoftBlend blend_of(const float* __restrict__ sums, long long total,
-                                              long long lin, const float* __restrict__ alpha,
-                                              const float* __restrict__ target,
-                                              float light_coefficient, int samples) {
-  return soft_blend(ld3(sums + lin * 3), ld3(sums + (total + lin) * 3), alpha[lin],
-                    target + lin * 3, light_coefficient, samples);
-}
-
-// K6's sweep of row a (params), one thread per pixel: the blend, the loss
-// (column x of loss_parts) and alpha's cotangent, then row a's sweep
-// (adjoint.cuh pixel_sweep), which carries row b's cotangent where the
-// rows trace alike: where bounce 0 misses the zero map's sphere obj. Writes
-// row_b[lin], row b's work, and column x of the (P, n_cols) partials.
-template <int kB, class Fold>
-__global__ void __launch_bounds__(kGradBlock, kGradMinBlocks)
-soft_row_a_kernel(const float* __restrict__ params, uint32_t seed, Layout L, int obj, int width,
-                  int height, int row0, int n_rows, int samples, int reflections,
-                  float small_indent, float light_coefficient, const float* __restrict__ target,
-                  const float* __restrict__ alpha, float scale, const float* __restrict__ sums,
-                  float* __restrict__ alpha_cot, uint32_t* __restrict__ row_b,
-                  float* __restrict__ grad_parts, double* __restrict__ loss_parts, int n_cols,
-                  Hints H) {
-  extern __shared__ float smem[];
-  const GradSmem sm = grad_smem(smem, L.size, table_recs_for<Fold>(L, H));
-  for (int i = threadIdx.x; i < L.size; i += blockDim.x) sm.params[i] = params[i];
-  __syncthreads();
-  build_table_for<Fold>(sm.params, L, H);
-
-  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
-  const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float loss = 0.0f;
-  if (lin < total) {  // no early return: every thread joins the reduction
-    const PixelIndex px = pixel_index(lin, width, row0, n_rows);
-    const SoftBlend b = blend_of(sums, total, lin, alpha, target, light_coefficient, samples);
-    loss = b.loss;
-    alpha_cot[lin] = b.g_alpha * scale;
-    const float inv = 1.0f / static_cast<float>(samples);
-    const V3 g_a = mul3s(b.g_a, inv);
-    const V3 g_b = mul3s(b.g_b, inv);
-    const Pixel p =
-        setup_pixel<Fold>(sm.params, L, px.view, px.px, px.py, width, height, small_indent);
-    const bool whole = obj < 0 || (p.h0.hit && p.h0.idx == obj);
-    const V3 g_shared = whole ? V3{0.0f, 0.0f, 0.0f} : g_b;
-    ColumnAcc acc = ColumnAcc::of(sm, nullptr);
-    const unsigned alone = pixel_sweep<kB, Fold>(sm.params, L, p, px.view, samples, reflections,
-                                                 small_indent, seed, g_a, acc, 0u,
-                                                 whole ? -1 : obj, g_shared);
-    row_b[lin] = whole ? kRowBWhole : alone;
-  }
-  reduce_block(sm.cols, L.size, loss, grad_parts, loss_parts, n_cols, blockIdx.x);
-}
-
-// K6's sweep of row b (params with the zero map applied, its slots'
-// cotangents dropped), one thread per pixel with row-b work (row_b): the
-// samples row a's sweep left to it, with none of bounce 0's light, or all
-// of them and bounce 0. Writes column col0 + x of the partials and of
-// loss_parts (a zero: the loss is row a's).
-template <int kB, class Fold>
-__global__ void __launch_bounds__(kGradBlock, kGradMinBlocks)
-soft_row_b_kernel(const float* __restrict__ params, uint32_t seed, Layout L, ZeroMap zm, int width,
-                  int height, int row0, int n_rows, int samples, int reflections,
-                  float small_indent, float light_coefficient, const float* __restrict__ target,
-                  const float* __restrict__ alpha, const float* __restrict__ sums,
-                  const uint32_t* __restrict__ row_b, float* __restrict__ grad_parts,
-                  double* __restrict__ loss_parts, int n_cols, int col0, Hints H) {
-  extern __shared__ float smem[];
-  const GradSmem sm = grad_smem(smem, L.size, table_recs_for<Fold>(L, H));
-  for (int i = threadIdx.x; i < L.size; i += blockDim.x) {
-    sm.params[i] = params[i];
-    sm.skip[i] = 0;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < zm.n; ++i) {
-      sm.params[zm.idx[i]] = zm.val[i];
-      sm.skip[zm.idx[i]] = 1;
-    }
-  }
-  __syncthreads();
-  build_table_for<Fold>(sm.params, L, H);  // row b's table from row b's params
-
-  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
-  const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const uint32_t work = lin < total ? row_b[lin] : 0u;
-  if (work != 0) {  // no early return: every thread joins the reduction
-    const PixelIndex px = pixel_index(lin, width, row0, n_rows);
-    const SoftBlend b = blend_of(sums, total, lin, alpha, target, light_coefficient, samples);
-    const V3 g_b = mul3s(b.g_b, 1.0f / static_cast<float>(samples));
-    const Pixel p =
-        setup_pixel<Fold>(sm.params, L, px.view, px.px, px.py, width, height, small_indent);
-    ColumnAcc acc = ColumnAcc::of(sm, sm.skip);
-    pixel_sweep<kB, Fold>(sm.params, L, p, px.view, samples, reflections, small_indent, seed,
-                          g_b, acc, work == kRowBWhole ? 0u : work);
-  }
-  reduce_block(sm.cols, L.size, 0.0f, grad_parts, loss_parts, n_cols, col0 + blockIdx.x);
-}
-
-template <class Fold>
-auto soft_row_a_for(int reflections) {
-  if constexpr (std::is_same_v<Fold, RoomFold>) {
-    return soft_row_a_kernel<kMainBounces, RoomFold>;
-  } else {
-    return reflections == kMainBounces ? soft_row_a_kernel<kMainBounces, Fold>
-                                       : soft_row_a_kernel<kMaxBounces, Fold>;
-  }
-}
-template <class Fold>
-auto soft_row_b_for(int reflections) {
-  if constexpr (std::is_same_v<Fold, RoomFold>) {
-    return soft_row_b_kernel<kMainBounces, RoomFold>;
-  } else {
-    return reflections == kMainBounces ? soft_row_b_kernel<kMainBounces, Fold>
-                                       : soft_row_b_kernel<kMaxBounces, Fold>;
-  }
-}
-
-}  // namespace
 
 // Columns of a gradient launch's partials over n_rows image rows: n_frames
 // (K4's frames, K5's 1, K6's 2 rows) times the blocks of a row,
@@ -267,10 +117,11 @@ extern "C" int fourd_grad_scratch_cols(const int* layout, int width, int n_rows,
 // descriptor of the static hints (ops/cuda/megakernel.py hint_table), or
 // null for none, and ``keep``, the device's packed 0/1 mask of P floats of
 // the freeze_hints contract (models/params.py freeze_mask; sum_parts_kernel
-// writes the slots it zeroes as 0), or null. K4 and K5 hand a descriptor
-// with composites (hinted, or n_singles -1 and axis hints -1 without the
-// contract) to their composite folds (gradcomposite.cu); K6 refuses it, and
-// every launch refuses one the table cannot hold (cudaErrorInvalidValue).
+// writes the slots it zeroes as 0), or null. K4, K5 and K6 hand a
+// descriptor with composites (hinted, or n_singles -1 and axis hints -1
+// without the contract) to their composite folds (gradcomposite.cu,
+// softcomposite.cu), and every launch refuses one the table cannot hold
+// (cudaErrorInvalidValue).
 
 // K4 on ``stream``: loss (1,) and grad (P,) float32, both scaled by
 // ``scale``, of image rows [row0, row0 + n_rows) of H, from params (P,)
@@ -293,7 +144,7 @@ extern "C" int fourd_loss_grad_launch(const float* params, const uint32_t* seeds
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Hints H;
-  const FoldKind kind = fold_kind(L, hints, reflections, H, true);
+  const FoldKind kind = fold_kind(L, hints, reflections, H);
   if (composite_fold(kind)) {
     return fourd_loss_grad_composite(params, seeds, n_frames, layout, width, height, row0, n_rows,
                                      samples, reflections, small_indent, light_coefficient,
@@ -331,7 +182,7 @@ extern "C" int fourd_light_vjp_launch(const float* params, long long row_stride,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Hints H;
-  const FoldKind kind = fold_kind(L, hints, reflections, H, true);
+  const FoldKind kind = fold_kind(L, hints, reflections, H);
   if (composite_fold(kind)) {
     return fourd_light_vjp_composite(params, row_stride, n_params_rows, seed, layout, width,
                                      height, row0, n_rows, samples, reflections, small_indent,
@@ -367,54 +218,26 @@ extern "C" int fourd_soft_loss_grad_launch(const float* params, uint32_t seed, c
                                            void* stream) {
   const Layout L = layout_from(layout);
   const int n_cols = fourd_grad_scratch_cols(layout, width, n_rows, 2);
-  if (n_cols < 0 || bad_shape(L, height, row0, n_rows, samples, reflections) || n_zero <= 0 ||
-      n_zero > kMaxZeroSlots) {
+  ZeroMap zm;
+  int obj = -1;
+  if (n_cols < 0 || bad_shape(L, height, row0, n_rows, samples, reflections) ||
+      !zero_map_from(L, n_zero, zero_idx, zero_val, samples, zm, obj)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  ZeroMap zm;
-  zm.n = n_zero;
-  for (int i = 0; i < kMaxZeroSlots; ++i) {
-    zm.idx[i] = i < n_zero ? zero_idx[i] : 0;
-    zm.val[i] = i < n_zero ? zero_val[i] : 0.0f;
-    if (zm.idx[i] < 0 || zm.idx[i] >= L.size) return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // Row b's samples fit 31 bits of row_b beside kRowBWhole.
-  const int obj = samples < 32 ? zero_map_object(L, zm) : -1;
-  const int blocks = n_cols / 2;
   Hints H;
-  const FoldKind kind = fold_kind(L, hints, reflections, H, false);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const FoldKind kind = fold_kind(L, hints, reflections, H);
+  if (composite_fold(kind)) {
+    return fourd_soft_loss_grad_composite(params, seed, layout, n_zero, zero_idx, zero_val, width,
+                                          height, row0, n_rows, samples, reflections,
+                                          small_indent, light_coefficient, target, alpha, scale,
+                                          sums, row_b, grad_parts, loss_parts, grad_out, loss_out,
+                                          alpha_cot, hints, keep, stream);
+  }
   return with_fold(kind, [&](auto fold) {
-    using Fold = decltype(fold);
-    const int recs = table_recs_for<Fold>(L, H);
-    const size_t smem_sum = params_table_bytes(L.size, recs);
-    soft_sum_kernel<Fold><<<dim3(blocks, 2), kGradBlock, smem_sum, s>>>(
-        params, seed, L, zm, width, height, row0, n_rows, samples, reflections, small_indent,
-        sums, H);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const auto row_a = soft_row_a_for<Fold>(reflections);
-    const size_t smem_a = grad_smem_bytes(L.size, false, recs);
-    err = allow_smem(reinterpret_cast<const void*>(row_a), smem_a);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    row_a<<<blocks, kGradBlock, smem_a, s>>>(params, seed, L, obj, width, height, row0, n_rows,
-                                             samples, reflections, small_indent,
-                                             light_coefficient, target, alpha, scale, sums,
-                                             alpha_cot, row_b, grad_parts, loss_parts, n_cols, H);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const auto row_b_sweep = soft_row_b_for<Fold>(reflections);
-    const size_t smem_b = grad_smem_bytes(L.size, true, recs);
-    err = allow_smem(reinterpret_cast<const void*>(row_b_sweep), smem_b);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    row_b_sweep<<<blocks, kGradBlock, smem_b, s>>>(params, seed, L, zm, width, height, row0,
-                                                   n_rows, samples, reflections, small_indent,
-                                                   light_coefficient, target, alpha, sums, row_b,
-                                                   grad_parts, loss_parts, n_cols, blocks, H);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sum_parts_kernel<<<L.size + 1, kSumThreads, 0, s>>>(grad_parts, loss_parts, L.size, n_cols,
-                                                        scale, grad_out, loss_out, keep, L.size);
-    return static_cast<int>(cudaGetLastError());
+    return k6_launch<decltype(fold)>(params, seed, L, H, zm, obj, width, height, row0, n_rows,
+                                     samples, reflections, small_indent, light_coefficient,
+                                     target, alpha, scale, sums, row_b, grad_parts, loss_parts,
+                                     grad_out, loss_out, alpha_cot, keep, n_cols / 2, n_cols,
+                                     static_cast<cudaStream_t>(stream));
   });
 }

@@ -170,7 +170,8 @@ sum_parts_kernel(const float* __restrict__ grad_parts, const double* __restrict_
 // tools/compare_trees.py).
 using RoomFold = GradTableFold<4, 0>;
 using AnyFold = GradTableFold<-1, -1>;
-// The composite folds of K4, K5 (gradcomposite.cu) and K8, hinted or not:
+// The composite folds of K4, K5 (gradcomposite.cu), K6 (softcomposite.cu)
+// and K8, hinted or not:
 // the generic one (kinds and hints read from the table), and one for each
 // library composite scene under the contract, its kind and axis hints
 // fixed, as K1's instances (megakernel.cu launch_composites).
@@ -183,22 +184,18 @@ using CubeFold = GradCompositeFold<-1, -1, kCompHypercube, -1, kLibraryCube>;
 // null: a scene of hyperplanes and spheres), RoomFold for the room's
 // pattern (4 wall pairs on the axes in order, no single plane) at the main
 // bounce count, AnyFold for any other valid descriptor of hyperplanes and
-// spheres; with ``composites`` (K4, K5, K8), for a descriptor with
-// composites (n_singles -1 and axis hints -1 without the contract) a
-// library scene's instance under its hints at the main bounce count, else
-// CompFold; kBadFold for a descriptor the table cannot hold, a plane
-// descriptor without hints, and one with composites without
-// ``composites`` (K6: their soft half is not ported).
+// spheres; for a descriptor with composites (n_singles -1 and axis hints
+// -1 without the contract) a library scene's instance under its hints at
+// the main bounce count, else CompFold; kBadFold for a descriptor the
+// table cannot hold and a plane descriptor without hints.
 enum FoldKind { kParamsFold, kRoomFold, kAnyFold, kCompFold, kUnionFold, kTigerFold, kCubeFold,
                 kBadFold };
-inline FoldKind fold_kind(const Layout& L, const int* hints, int reflections, Hints& H,
-                          bool composites) {
+inline FoldKind fold_kind(const Layout& L, const int* hints, int reflections, Hints& H) {
   H = {};
   if (hints == nullptr) return kParamsFold;
   H = hints_from(hints);
   if (!hints_valid(L, H)) return kBadFold;
   if (composite_kinds(H) != 0) {
-    if (!composites) return kBadFold;
     switch (reflections == kMainBounces ? library_composite(H) : 0) {
       case kCompUnion:
         return kUnionFold;

@@ -408,10 +408,15 @@ __device__ __forceinline__ void write_family(Rec* r, const float* c, int code) {
 }
 
 // A face's record: the radius of the spec at ``c`` and the material at
-// ``mat`` (both in the params P).
+// ``mat`` (both in the params P). A face whose r^2 is 0 (diff.zero_object)
+// stores r2 = -kFar, a guaranteed miss (geometry._family_circle's r^2 > 0):
+// on a ray through the axis plane perp2 rounds below 0, where r2 = 0 would
+// give disc = -perp2 > 0.
 __device__ __forceinline__ Rec face_rec(const float* P, const float* c, const float* mat) {
   const float r = c[12];
-  return {r * r, 1.0f / fmaxf(r, kTiny30), r, bits(static_cast<uint32_t>(mat - P))};
+  const float r2 = r * r;
+  return {r2 > 0.0f ? r2 : -kFar, 1.0f / fmaxf(r, kTiny30), r,
+          bits(static_cast<uint32_t>(mat - P))};
 }
 
 // Writes the records of the composite kind ``kind`` (one cylinder, index
@@ -653,7 +658,8 @@ __device__ __forceinline__ Fam family(const Rec* f, V4 o, V4 d) {
 
 // The family's circle test at radius^2 r2 (geometry._family_circle): the
 // two roots as ray parameters, the hit mask and the outer face's near-root
-// select.
+// select. A face of radius 0 never hits: its record holds r2 = -kFar
+// (face_rec), so disc < 0 and every clip against it fails.
 __device__ __forceinline__ void circle(const Fam& F, float r2, float& near, float& far,
                                        bool& hit, bool& use_near) {
   const bool receding = !F.degenerate && (F.l2 >= r2 && F.b < 0.0f);

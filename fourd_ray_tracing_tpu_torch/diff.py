@@ -16,9 +16,10 @@ the plain pipeline (models/renderer.py), the counterpart of
 
 * ``ImageLoss`` (hard loss) launches the value-and-grad kernel K4 once in
   its forward and scales the saved gradient in its backward;
-* ``SoftImageLoss`` (soft loss of a sphere) launches the fused soft
-  kernel K6 once; the coverage alpha is plain torch outside it, and the
-  kernel returns alpha's cotangent for autograd to carry back;
+* ``SoftImageLoss`` (soft loss of a sphere or a composite) launches the
+  fused soft kernel K6 once; the coverage alpha is plain torch outside
+  it, and the kernel returns alpha's cotangent for autograd to carry
+  back;
 * ``RenderLight`` renders the mean light with K1 (K2 for params rows) and
   differentiates it with the light-VJP kernel K5, so any torch loss over
   rendered light trains on the kernels: the soft loss of a hyperplane,
@@ -57,14 +58,11 @@ coverage of the soft loss stops them too; a hyperplane's soft fallback
 renders the scene without the wall with the wall's hint row dropped and
 the pairs off (``hints_for_dropped``, diff.py:795-827).
 
-The hard-loss paths (``image_loss``, ``render_grad``, the kernel route's
-K4 and K5, ``make_train_step`` without a soft object,
-``make_packed_train_step``) take every primitive, the composite ones
-(cylinders, the duocylinder, the hypercube, the tiger) included, hinted or
-not. Not ported yet, and raising: the soft loss of a scene with composite
-primitives, with their coverage, ``drop_object`` and ``zero_object``
-(ROADMAP queue 1, item 4b, soft half; renderer.check_soft_trainable
-refuses such a scene on every soft path).
+Every gradient path, hard and soft, takes every primitive, the composite
+ones (cylinders, the duocylinder, the hypercube, the tiger) included,
+hinted or not; the soft loss takes each of them as its object
+(``object_coverage``, ``drop_object``, ``zero_object``): a composite runs
+one K6 launch a step, as a sphere does.
 """
 from __future__ import annotations
 
@@ -78,7 +76,8 @@ from torch import nn
 from fourd_ray_tracing_tpu_torch.camera import Camera
 from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
-from fourd_ray_tracing_tpu_torch.models.scene import COMPOSITE_KINDS, Scene, check_soft_scene
+from fourd_ray_tracing_tpu_torch.models.scene import COMPOSITE_KINDS, Scene
+from fourd_ray_tracing_tpu_torch.ops import geometry as geo
 from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel, megakernel
 from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4, dot
@@ -195,12 +194,13 @@ def render_grad(scene: Scene, camera: Camera, cfg: RenderConfig, seed, target, m
 
 # --- Soft-silhouette boundary gradients --------------------------------------
 
+# The object kinds of an object_ref: the tuples indexed by i, then the
+# composites that a scene holds at most once (index None).
+OBJECT_KINDS = ("spheres", "spaces") + COMPOSITE_KINDS
+
+
 def _check_kind(kind) -> None:
-    if kind in COMPOSITE_KINDS:
-        raise NotImplementedError(
-            f"the soft loss of {kind!r} (its coverage, drop_object and zero_object) is "
-            "not ported yet (ROADMAP queue 1, item 4b, training half)")
-    if kind not in ("spheres", "spaces"):
+    if kind not in OBJECT_KINDS:
         raise ValueError(f"unknown object kind: {kind!r}")
 
 
@@ -218,14 +218,21 @@ def _primary_rays(camera: Camera, cfg: RenderConfig):
     return Vec4(*(c.expand(d.x.shape) for c in o)), d
 
 
+def _max0(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0) as jnp.maximum(x, 0.0) differentiates it: at x == 0 the
+    gradient is halved between the two sides (torch.clamp_min passes it
+    whole), which decides a pixel whose primary ray meets an axis plane
+    exactly (perp2 == 0, where sqrt(perp2 + 1e-20) is steepest)."""
+    return torch.maximum(x, torch.zeros_like(x))
+
+
 def _sphere_coverage(center: Vec4, r, o: Vec4, d: Vec4, inv_w: float) -> torch.Tensor:
     """sigmoid((r - d_perp) / w), d_perp the distance of the center from
     the ray line, gated by the approach margin; 1 inside the sphere."""
     po = center - o
     b = dot(po, d)
     l2 = dot(po, po)
-    perp2 = torch.clamp_min(l2 - b * b, 0.0)
-    perp = torch.sqrt(perp2 + 1e-20)
+    perp = torch.sqrt(_max0(l2 - b * b) + 1e-20)
     alpha = torch.sigmoid((r - perp) * inv_w)
     # Receding rays cannot see the sphere: gate on the approach margin.
     approaching = torch.sigmoid((b + r) * inv_w)
@@ -241,6 +248,85 @@ def _plane_coverage(sp, o: Vec4, d: Vec4, inv_w: float) -> torch.Tensor:
     return torch.sigmoid(s * cos_n * inv_w * 4.0)
 
 
+def _circle_coverage(fam: geo._CylFamily, r, inv_w: float) -> torch.Tensor:
+    """sigmoid((r - d_perp) / w) of a cylinder family's circle, d_perp the
+    distance of the projected ray line from the axis plane; 1 where the
+    projected origin lies inside the circle."""
+    perp = torch.sqrt(_max0(fam.perp2) + 1e-20)
+    alpha = torch.sigmoid((r - perp) * inv_w)
+    return torch.where(fam.l2 < r * r, torch.ones_like(alpha), alpha)
+
+
+def _cylinder_coverage(spec, o: Vec4, d: Vec4, inv_w: float) -> torch.Tensor:
+    """The circle coverage in the plane orthogonal to both axes, gated by
+    the approach margin (diff.py:162-173)."""
+    fam = geo._cyl_family(spec.point, spec.axis1, spec.axis2, o, d)
+    perp = torch.sqrt(_max0(fam.perp2) + 1e-20)
+    alpha = torch.sigmoid((spec.r - perp) * inv_w)
+    approaching = torch.sigmoid((fam.b + spec.r) * inv_w)
+    inside = fam.l2 < spec.r * spec.r
+    return torch.where(inside, torch.ones_like(alpha), alpha * approaching)
+
+
+def _clipped_face(fam: geo._CylFamily, other: geo._CylFamily, r, clip_in, clip_out,
+                  inv_w: float) -> torch.Tensor:
+    """A family's outer face: its circle coverage times a soft clip of the
+    hit point's squared distance to the other family's axis plane below
+    clip_out^2 (and, with ``clip_in``, above clip_in^2), the squared-space
+    band scaled by 2 clip_out so that it is about edge_width wide."""
+    circ = _circle_coverage(fam, r, inv_w)
+    dist, _, _ = geo._family_circle_dist(fam, r, True)
+    clip_sq = geo._family_clip_sq(other, dist)
+    inv_w_sq = inv_w / (2.0 * clip_out + 1e-20)
+    soft = torch.sigmoid((clip_out * clip_out - clip_sq) * inv_w_sq)
+    if clip_in is not None:
+        soft = soft * torch.sigmoid((clip_sq - clip_in * clip_in) * inv_w_sq)
+    return circ * soft
+
+
+def _duocylinder_coverage(cyl1, cyl2, o: Vec4, d: Vec4, inv_w: float) -> torch.Tensor:
+    """Each face's circle coverage soft-clipped by the other cylinder, the
+    faces' soft union (diff.py:176-196). Face 2 is clipped by cyl2.r, as
+    in the JAX package (its C6i quirk)."""
+    fam1 = geo._cyl_family(cyl1.point, cyl1.axis1, cyl1.axis2, o, d)
+    fam2 = geo._cyl_family(cyl2.point, cyl2.axis1, cyl2.axis2, o, d)
+    a1 = _clipped_face(fam1, fam2, cyl1.r, None, cyl2.r, inv_w)
+    a2 = _clipped_face(fam2, fam1, cyl2.r, None, cyl2.r, inv_w)
+    return a1 + a2 - a1 * a2
+
+
+def _hypercube_coverage(hc, o: Vec4, d: Vec4, inv_w: float) -> torch.Tensor:
+    """The soft union of the 8 cells: each cell's facing and its three
+    extent tests relaxed to sigmoids (diff.py:199-221)."""
+    c, axes, r = hc.point, hc.axes, hc.r
+    co = [dot(c - o, a) for a in axes]
+    dd = [dot(d, a) for a in axes]
+    alpha = None
+    for sign in (1.0, -1.0):
+        for i in range(4):
+            h = -(co[i] + r) if sign > 0 else co[i] - r
+            cos_dn = -dd[i] if sign > 0 else dd[i]
+            denom = torch.where(torch.abs(cos_dn) < 1e-6, 1e-6, cos_dn)
+            dist = _max0(h) / torch.abs(denom)
+            a_cell = torch.sigmoid(h * inv_w) * torch.where(cos_dn > 0.0, 1.0, 0.0)
+            for j in range(4):
+                if j != i:
+                    e = dist * dd[j] - co[j]
+                    a_cell = a_cell * torch.sigmoid((r - torch.abs(e)) * inv_w)
+            alpha = a_cell if alpha is None else alpha + a_cell - alpha * a_cell
+    return alpha
+
+
+def _tiger_coverage(tg, o: Vec4, d: Vec4, inv_w: float) -> torch.Tensor:
+    """The outer faces of both cylinder families, each soft-clipped to the
+    other family's annulus, and their soft union (diff.py:224-249)."""
+    fam_a = geo._cyl_family(tg.outer_cyl1.point, tg.outer_cyl1.axis1, tg.outer_cyl1.axis2, o, d)
+    fam_b = geo._cyl_family(tg.outer_cyl2.point, tg.outer_cyl2.axis1, tg.outer_cyl2.axis2, o, d)
+    a1 = _clipped_face(fam_a, fam_b, tg.outer_cyl1.r, tg.inner_cyl2.r, tg.outer_cyl2.r, inv_w)
+    a2 = _clipped_face(fam_b, fam_a, tg.outer_cyl2.r, tg.inner_cyl1.r, tg.outer_cyl1.r, inv_w)
+    return a1 + a2 - a1 * a2
+
+
 def primary_coverage(center: Vec4, r, camera: Camera, cfg: RenderConfig,
                      edge_width: float) -> torch.Tensor:
     """Differentiable per-pixel coverage of a sphere by the primary rays,
@@ -251,8 +337,10 @@ def primary_coverage(center: Vec4, r, camera: Camera, cfg: RenderConfig,
 
 def object_coverage(scene: Scene, object_ref, camera: Camera, cfg: RenderConfig,
                     edge_width: float) -> torch.Tensor:
-    """Differentiable primary-ray coverage of one scene object,
-    ``object_ref`` = ("spheres", i) or ("spaces", i); (H, W) or (V, H, W)."""
+    """Differentiable primary-ray coverage of one scene object (diff.py
+    :261-287), ``object_ref`` = ("spheres", i), ("spaces", i),
+    ("cylinders", i), ("cylinders_union", None), ("hypercube", None) or
+    ("tiger", None); (H, W) or (V, H, W)."""
     kind, idx = object_ref
     _check_kind(kind)
     o, d = _primary_rays(camera, cfg)
@@ -260,7 +348,15 @@ def object_coverage(scene: Scene, object_ref, camera: Camera, cfg: RenderConfig,
     if kind == "spheres":
         sp = scene.spheres[idx]
         return _sphere_coverage(sp.center, sp.r, o, d, inv_w)
-    return _plane_coverage(scene.spaces[idx], o, d, inv_w)
+    if kind == "spaces":
+        return _plane_coverage(scene.spaces[idx], o, d, inv_w)
+    if kind == "cylinders":
+        return _cylinder_coverage(scene.cylinders[idx], o, d, inv_w)
+    if kind == "cylinders_union":
+        return _duocylinder_coverage(*scene.cylinders_union, o, d, inv_w)
+    if kind == "hypercube":
+        return _hypercube_coverage(scene.hypercube, o, d, inv_w)
+    return _tiger_coverage(scene.tiger, o, d, inv_w)
 
 
 def drop_sphere(scene: Scene, sphere_index: int) -> Scene:
@@ -270,27 +366,47 @@ def drop_sphere(scene: Scene, sphere_index: int) -> Scene:
 
 
 def drop_object(scene: Scene, object_ref) -> Scene:
-    """The scene without the referenced object (a change of structure)."""
+    """The scene without the referenced object (a change of structure,
+    diff.py:290-300): the entry of a tuple kind, or the composite's field
+    set to None."""
     kind, idx = object_ref
     _check_kind(kind)
-    items = getattr(scene, kind)
-    return scene._replace(**{kind: tuple(x for k, x in enumerate(items) if k != idx)})
+    if kind in ("spheres", "spaces", "cylinders"):
+        items = getattr(scene, kind)
+        return scene._replace(**{kind: tuple(x for k, x in enumerate(items) if k != idx)})
+    return scene._replace(**{kind: None})
+
+
+def _with_r(spec, r: float):
+    return spec._replace(r=torch.zeros_like(spec.r) + r)
 
 
 def zero_object(scene: Scene, object_ref) -> Scene:
-    """The scene with the referenced sphere made a guaranteed miss, keeping
-    its structure: radius 0, so the discriminant is never positive and
-    every ray is tangent (models/scene.py). The light is bitwise that of
-    ``drop_object``. A hyperplane has no miss radius: ("spaces", i) raises
-    ValueError, and the soft loss falls back to drop_object for it."""
+    """The scene with the referenced object made a guaranteed miss, keeping
+    its structure (diff.py:303-364): radius 0 for a sphere, a cylinder,
+    both duocylinder cylinders and all four tiger cylinders (the
+    discriminant is never positive, every ray tangent); -1 for the
+    hypercube's generator r and every cell's r (no extent test |e| <= r
+    passes). The light is bitwise that of ``drop_object``. A hyperplane
+    has no miss radius: ("spaces", i) raises ValueError, and the soft loss
+    falls back to drop_object for it."""
     kind, idx = object_ref
     _check_kind(kind)
-    if kind == "spaces":
-        raise ValueError("zero_object does not support kind 'spaces' (hyperplanes fall back "
-                         "to drop_object)")
-    spheres = tuple(s._replace(r=torch.zeros_like(s.r)) if k == idx else s
-                    for k, s in enumerate(scene.spheres))
-    return scene._replace(spheres=spheres)
+    if kind in ("spheres", "cylinders"):
+        items = getattr(scene, kind)
+        return scene._replace(**{kind: tuple(_with_r(x, 0.0) if k == idx else x
+                                             for k, x in enumerate(items))})
+    if kind == "cylinders_union":
+        return scene._replace(cylinders_union=tuple(_with_r(c, 0.0)
+                                                    for c in scene.cylinders_union))
+    if kind == "tiger":
+        return scene._replace(tiger=scene.tiger._make(_with_r(c, 0.0) for c in scene.tiger))
+    if kind == "hypercube":  # the generators' r and each cell's own copy
+        hc = scene.hypercube
+        return scene._replace(hypercube=_with_r(hc, -1.0)._replace(
+            cubes=tuple(_with_r(c, -1.0) for c in hc.cubes)))
+    raise ValueError("zero_object does not support kind 'spaces' (hyperplanes fall back "
+                     "to drop_object)")
 
 
 def _blend(alpha, img_with, img_without) -> torch.Tensor:
@@ -310,7 +426,7 @@ def soft_image_loss(scene: Scene, camera: Camera, cfg: RenderConfig, seed, targe
     blend by ``object_coverage``. ``object_ref`` defaults to ("spheres",
     sphere_index). The plain reference of the soft training slice. With a
     mesh, this rank's part: its rows, rendered over the mesh."""
-    renderer.check_soft_trainable(cfg, scene)
+    renderer.check_trainable(cfg)
     if object_ref is None:
         object_ref = ("spheres", sphere_index)
     scene = stop_frozen(scene, cfg)
@@ -500,17 +616,18 @@ def soft_image_loss_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Ca
                            edge_width: float = 0.05, mesh=None) -> torch.Tensor:
     """``soft_image_loss`` of the scene and camera packed in ``vec`` (P,),
     differentiable w.r.t. ``vec`` (the counterpart of soft_image_loss_pallas,
-    diff.py:829-892). On the card, a sphere runs one K6 launch, its coverage
-    alpha plain torch; a hyperplane, which cannot be zeroed into a miss,
-    renders with and without itself through two ``render_light_kernel``
-    nodes (two K1 and two K5 launches) and blends in torch. A CPU vector
+    diff.py:829-892). On the card, a sphere or a composite runs one K6
+    launch, its coverage alpha plain torch; a hyperplane, which cannot be
+    zeroed into a miss, renders with and without itself through two
+    ``render_light_kernel`` nodes (two K1 and two K5 launches) and blends
+    in torch. A CPU vector
     takes the plain expression. With a mesh, the whole image's loss and
     gradient on every rank from one K6 launch per rank on its rows (on the
     CPU, K6's plain version on them), the coverage differentiated through
     the rank's rows and summed over the ranks; a hyperplane with a mesh
     raises ValueError, as in the JAX package."""
     cfg = gradkernel._auto_hints(like_scene, cfg)
-    renderer.check_soft_trainable(cfg, like_scene)
+    renderer.check_trainable(cfg)
     if mesh is not None:
         if object_ref[0] == "spaces":
             raise ValueError("mesh-sharded soft training supports zero-emulatable object "
@@ -579,8 +696,9 @@ def make_train_step(cfg: RenderConfig, lr: float, camera: Camera,
     launch. ``soft_sphere_index`` or ``soft_object_ref`` switches to the
     soft-silhouette loss of that object, with coverage band ``edge_width``
     (``soft_image_loss``; with ``impl="kernel"`` ``soft_image_loss_kernel``,
-    one K6 launch per step for a sphere), which gives silhouette-driven
-    position and radius gradients; it takes one frame per step.
+    one K6 launch per step for a sphere or a composite), which gives
+    silhouette-driven position and radius gradients; it takes one frame
+    per step.
 
     ``mesh`` (parallel/mesh.py) shards the step over the mesh's ranks, each
     with its rows (the module's docstring): ``impl="plain"`` takes the
@@ -596,8 +714,6 @@ def make_train_step(cfg: RenderConfig, lr: float, camera: Camera,
     ref = soft_object_ref or ("spheres", soft_sphere_index or 0)
 
     def init(scene: Scene):
-        if soft:
-            check_soft_scene(scene)
         scene = params.map_leaves(
             lambda t: t.detach().to(torch.float32).clone().requires_grad_(True), scene)
         return scene, torch.optim.Adam(list(params.tree_leaves(scene)), lr=lr)

@@ -1,9 +1,7 @@
 """The five canonical scenes, with the JAX package's numbers.
 
 Counterpart of fourd_ray_tracing_tpu/models/library.py. The forward and
-the hard-loss gradient paths take all five; the soft paths take the two
-without composite primitives (sphere_plane_light, room_with_sphere) and
-refuse the others (ROADMAP queue 1, item 4b, soft half).
+every gradient path, hard and soft, take all five.
 """
 from __future__ import annotations
 

@@ -18,8 +18,8 @@ import numpy as np
 import torch
 
 from fourd_ray_tracing_tpu_torch.camera import Camera
-from fourd_ray_tracing_tpu_torch.models.scene import (COMPOSITE_KINDS, Scene, check_soft_scene,
-                                                       check_supported, freeze_hint_grads)
+from fourd_ray_tracing_tpu_torch.models.scene import (COMPOSITE_KINDS, Scene, check_supported,
+                                                       freeze_hint_grads)
 from fourd_ray_tracing_tpu_torch.ops.sky import Environment
 
 # Floats per packed primitive: point(4) norm(4) glow refl color(3), and
@@ -138,13 +138,13 @@ def soft_zero_map(scene: Scene, camera: Camera, object_ref) -> tuple:
     """The static ``(packed_index, miss_value)`` pairs that turn
     ``pack(scene, camera)`` into ``pack(diff.zero_object(scene, object_ref),
     camera)`` (gradkernel.py:1177-1204): for sphere j the single radius slot
-    ``layout.spheres + 10*j + 4``, set to 0.0. Computed, as in the JAX
-    package, on an all-ones template of the same structure, so every slot
-    the zeroing rewrites differs from 1.0 there and no other slot does. A
-    scene with composite primitives raises (scene.check_soft_scene)."""
+    ``layout.spheres + 10*j + 4`` and for cylinder j ``layout.cylinders +
+    18*j + 12``, set to 0.0; the duocylinder's 2 radius slots and the
+    tiger's 4, set to 0.0; the hypercube's 9, the generators' r and each
+    of its 8 cells' r, set to -1.0. Computed, as in the JAX package, on an
+    all-ones template of the same structure, so every slot the zeroing
+    rewrites differs from 1.0 there and no other slot does."""
     from fourd_ray_tracing_tpu_torch.diff import zero_object
-
-    check_soft_scene(scene)
 
     def ones(t):
         return torch.ones(t.shape, dtype=torch.float32)

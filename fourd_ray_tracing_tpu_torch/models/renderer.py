@@ -30,8 +30,7 @@ import numpy as np
 import torch
 
 from fourd_ray_tracing_tpu_torch.camera import Camera
-from fourd_ray_tracing_tpu_torch.models.scene import (Scene, check_soft_scene,
-                                                       intersect_scene_fast)
+from fourd_ray_tracing_tpu_torch.models.scene import Scene, intersect_scene_fast
 from fourd_ray_tracing_tpu_torch.ops import rng
 from fourd_ray_tracing_tpu_torch.ops.sampler import direction_from_uniforms
 from fourd_ray_tracing_tpu_torch.ops.sky import final_light, light_to_color
@@ -100,13 +99,12 @@ def check_supported(cfg: RenderConfig) -> None:
 
 
 def check_trainable(cfg: RenderConfig) -> None:
-    """The hard-loss gradient paths' check (the plain autograd route, K4,
-    K5, K8, the hard train steps), which take every primitive:
+    """The gradient paths' check (the plain autograd route, K4, K5, K6, K8,
+    the hard and soft losses and train steps), which take every primitive:
     check_supported; ValueError when ``cfg`` carries static hints without
     ``freeze_hints`` (hinted normal and axis components would get no
     gradient and the pair fold rewrites the walls' math: the JAX gradient
-    kernel refuses them outside that contract too, gradkernel.py:653-671).
-    The soft paths check their scene too (``check_soft_trainable``)."""
+    kernel refuses them outside that contract too, gradkernel.py:653-671)."""
     check_supported(cfg)
     if (cfg.plane_hints is not None or cfg.plane_pairs is not None
             or cfg.axis_hints is not None) and not cfg.freeze_hints:
@@ -116,15 +114,6 @@ def check_trainable(cfg: RenderConfig) -> None:
             "hinted axes get zero gradients, every other gradient stays exact): see "
             "diff.with_frozen_hints"
         )
-
-
-def check_soft_trainable(cfg: RenderConfig, scene) -> None:
-    """The soft paths' check (the soft loss, its kernel route, K6, the soft
-    train step): check_trainable, and NotImplementedError when ``scene`` (a
-    Scene or its params.Layout) holds a composite primitive, whose soft
-    half is not ported yet (scene.check_soft_scene)."""
-    check_trainable(cfg)
-    check_soft_scene(scene)
 
 
 def screen_coords(cfg: RenderConfig, device, row0: int = 0, n_rows: int | None = None):

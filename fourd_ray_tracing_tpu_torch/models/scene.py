@@ -6,9 +6,8 @@ with the static hints of the production fold (``plane_norm_hints``,
 ``plane_pair_hints``, ``axis_alignment_hints``) and the gradient
 contract under them (``freeze_hint_grads``). `Scene` keeps the JAX
 package's field layout, so a scene packs to the same flat vector
-(models/params.py). The forward and the hard-loss gradient paths take
-every primitive; the soft paths refuse the composite ones
-(``check_soft_scene``: ROADMAP queue 1, item 4b, soft half).
+(models/params.py). The forward, the hard-loss and the soft gradient
+paths take every primitive.
 """
 from __future__ import annotations
 
@@ -78,20 +77,6 @@ def check_supported(scene: Scene) -> None:
             "a hypercube without generator parameters (point, axes, r) folds cell by "
             "cell, which is not ported yet (ROADMAP queue 1, items 5-6, with "
             "intersect='spec'); build it with make_hypercube"
-        )
-
-
-def check_soft_scene(scene) -> None:
-    """The soft paths' check of a scene (or of a params.Layout, which knows
-    the same): NotImplementedError for a composite primitive, whose soft
-    half (its coverage, drop_object and zero_object, its zero map, K6) is
-    not ported yet. The hard-loss gradient paths take them."""
-    kinds = scene.composite_kinds()
-    if kinds:
-        raise NotImplementedError(
-            f"the soft loss of a scene with the composite primitives {list(kinds)} is not "
-            "ported yet (ROADMAP queue 1, item 4b, soft half: their coverage, drop_object, "
-            "zero_object, zero maps and K6); the hard-loss gradient paths take them"
         )
 
 

@@ -22,13 +22,14 @@ hints, diff.with_frozen_hints) every launch folds with the forward's hints
 (K1's fold table, one per block) and its gradient is exact for every slot
 but the frozen ones, which it writes as 0 (the packed mask of
 models/params.py ``freeze_mask``); its loss and every other slot
-are the unhinted launch's. K4 and K5 take every primitive, the composite
-ones (cylinders, the duocylinder, the hypercube, the tiger) folded over
-K1's table whether hinted or not (``launch_words``); K6, the soft half,
-refuses a scene with composites (renderer.check_soft_trainable). The
-entry points that take a scene derive the hints from it when the config asks for the contract and has none
-(``_auto_hints``, gradkernel.py:674-700); a launch is handed them and the
-mask. The plain versions run the hinted plain pipeline and zero the same
+are the unhinted launch's. K4, K5 and K6 take every primitive, the
+composite ones (cylinders, the duocylinder, the hypercube, the tiger)
+folded over K1's table whether hinted or not (``launch_words``); K6's row
+b zeroes a composite by its radii (``params.soft_zero_map``: up to the
+hypercube's 9 slots of build.K6_MAX_ZERO_SLOTS). The entry points that
+take a scene derive the hints from it when the config asks for the
+contract and has none (``_auto_hints``, gradkernel.py:674-700); a launch
+is handed them and the mask. The plain versions run the hinted plain pipeline and zero the same
 slots.
 
 Each takes ``rows`` = (row0, n_rows): image rows [row0, row0 + n_rows)
@@ -460,7 +461,7 @@ def render_soft_loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene,
     freeze_hints contract the pipeline folds with the hints and the frozen
     slots come out 0."""
     cfg = _auto_hints(like_scene, cfg)
-    renderer.check_soft_trainable(cfg, like_scene)
+    renderer.check_trainable(cfg)
     seed = _scalar_seed(seed)
     device = packed.device
     row0, n_rows = launch_rows(cfg, rows)
@@ -488,6 +489,15 @@ def render_soft_loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene,
     return loss.float(), freeze(grad.float(), like_scene, cfg), g_alpha
 
 
+def check_zero_map(zero_map, lay: params.Layout) -> None:
+    """Raise for a zero map K6 cannot take: 1 to MAX_ZERO_SLOTS slots of
+    the packed vector (the launch holds them in a fixed array; a longer
+    map is refused, never cut)."""
+    if not 0 < len(zero_map) <= MAX_ZERO_SLOTS or any(not 0 <= i < lay.size for i, _ in zero_map):
+        raise ValueError(f"the zero map needs 1 to {MAX_ZERO_SLOTS} slots of the packed vector, "
+                         f"got {zero_map!r}")
+
+
 def launch_soft_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig, seed: int,
                           target: torch.Tensor, alpha: torch.Tensor, zero_map, rows=None,
                           keep=None):
@@ -498,9 +508,11 @@ def launch_soft_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderC
     static (slot, value) pairs, on their CUDA device; with ``rows``, those
     rows' part, target, alpha and alpha cotangent their blocks. Under the
     freeze_hints contract ``keep`` is the packed mask (params.freeze_mask); both rows
-    fold with the hints (zero_object keeps every wall)."""
+    fold with the hints (zero_object keeps every wall), each over a table of
+    its own params, so row b's folds a zeroed composite to a miss. A scene
+    with composites takes the composite folds (softcomposite.cu)."""
     global SOFT_LAUNCHES, SHARD_SOFT_LAUNCHES, HINTED_SOFT_LAUNCHES
-    renderer.check_soft_trainable(cfg, lay)
+    check_zero_map(zero_map, lay)
     _check_launch(packed, lay, cfg, target, alpha)
     hints, keep_ptr = _launch_hints(lay, cfg, keep, packed.device)
     row0, n_rows = launch_rows(cfg, rows)
@@ -511,9 +523,6 @@ def launch_soft_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderC
     if target.numel() != block * 3 or target.shape[-1] != 3 or alpha.numel() != block:
         raise ValueError(f"target and alpha must hold {lay.n_views} x {n_rows} x {cfg.width} "
                          f"(x 3) values, got {tuple(target.shape)} and {tuple(alpha.shape)}")
-    if not 0 < len(zero_map) <= MAX_ZERO_SLOTS or any(not 0 <= i < lay.size for i, _ in zero_map):
-        raise ValueError(f"the zero map needs 1 to {MAX_ZERO_SLOTS} slots of the packed vector, "
-                         f"got {zero_map!r}")
     lib = build.load()
     table = (ctypes.c_int * len(lay))(*lay)
     n_cols = _scratch_cols(lib, table, cfg, n_rows, n_frames=2)
@@ -553,7 +562,7 @@ def render_soft_loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like
     """K6 on a CUDA vector, as ``render_soft_loss_and_grad_plain``
     computes it, in one launch; another device raises."""
     cfg = _auto_hints(like_scene, cfg)
-    renderer.check_soft_trainable(cfg, like_scene)
+    renderer.check_trainable(cfg)
     device = packed.device
     target = torch.as_tensor(target, dtype=torch.float32, device=device).contiguous()
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device).detach().contiguous()

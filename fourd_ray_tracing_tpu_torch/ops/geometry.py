@@ -186,7 +186,12 @@ def _cyl_family(point: Vec4, axis1: Vec4, axis2: Vec4, ray_o: Vec4, ray_d: Vec4)
 def _family_circle(fam: _CylFamily, r):
     """The radius-dependent part of a family's circle test: (near, far,
     hit, use_near_outer), the two unscaled roots as ray parameters, the
-    circle-hit mask and the outer face's near-root select (l2 > r^2)."""
+    circle-hit mask and the outer face's near-root select (l2 > r^2).
+
+    A face of radius 0 never hits, so that diff.zero_object's zeroed
+    composite is a guaranteed miss (its light drop_object's): on a ray
+    through the axis plane perp2 = l2 - b^2 rounds below 0, where the JAX
+    package's test (geometry.py:474-486, disc = r^2 - perp2 > 0) hits it."""
     r2 = r * r
     receding = ~fam.degenerate & ((fam.l2 >= r2) & (fam.b < 0.0))
     disc = r2 - fam.perp2
@@ -195,7 +200,7 @@ def _family_circle(fam: _CylFamily, r):
     sq = torch.where(tangent, 0.0, sq)
     near = (fam.b - sq) * fam.inv_len
     far = (fam.b + sq) * fam.inv_len
-    hit = fam.proj_ok & ~(receding | tangent)
+    hit = fam.proj_ok & ~(receding | tangent) & (r2 > 0.0)
     return near, far, hit, fam.l2 > r2
 
 

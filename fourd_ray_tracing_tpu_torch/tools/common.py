@@ -22,9 +22,8 @@ from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
 # tools time the gradient paths in the production configuration of the JAX
 # tools, the frozen static hints (diff.with_frozen_hints: K1/K2, K4-K6 and
 # K8 fold with the forward's hints, the hyperplane normals' gradients
-# defined zero). The soft tool takes the scenes without composite
-# primitives only (ROADMAP queue 1, item 4b, soft half); the JAX tools time
-# the room, which stays every training tool's default.
+# defined zero). The JAX tools time the room, which stays every training
+# tool's default.
 _FROZEN = "the frozen static hints (diff.with_frozen_hints), as the JAX tool runs them"
 HINTS_NOTE = {"fwd_ablate": "the static hints derived from each variant's scene",
               "grad_ablate": _FROZEN, "train_ablate": _FROZEN, "soft_ablate": _FROZEN}

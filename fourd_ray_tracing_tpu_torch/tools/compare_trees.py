@@ -17,7 +17,10 @@ row, and K6; where the tree has the freeze_hints contract
 room's instance of the hinted fold), and the same on the room with its
 walls listed y, x, z, w (``*_hinted_generic``: its pairs off the axis
 order, so the launches take the generic instance of the fold over the
-same walls). Each figure is ms per call, the median of ``--repeats`` runs
+same walls); then on the tiger under the frozen hints, K1 at bench.py's
+tiger_3view launch (3 views, 4 frames), K4 at its inverse_step_tiger (1
+view, 1 frame) and, where the tree's soft paths take composites, K6 with
+the tiger the object. Each figure is ms per call, the median of ``--repeats`` runs
 of 4 back-to-back calls, CUDA events; one JSON line a turn. Then each
 tree's kernels' registers, stack and spill (its build log) and K1's
 resident warps per SM (libcuda's occupancy query on its cubins), and
@@ -127,6 +130,27 @@ def time_tree(tree: Path, repeats: int) -> dict:
                 "k6" + tag: ms(lambda: gradkernel.launch_soft_loss_grad(
                     p, lay_s, hcfg, 1, target, a_s, zm, keep=keep)),
             })
+    # The composite folds: the tiger's 3-view forward launch (bench.py's
+    # tiger_3view, 4 frames) and its K4 at bench.py's inverse_step_tiger
+    # (1 view, 1 frame), under the frozen hints; K6 on the tiger (the
+    # tiger the object) where the tree's soft paths take composites.
+    if hasattr(diff, "with_frozen_hints") and hasattr(megakernel, "with_hints"):
+        tiger = library.tiger(dev)
+        cam3 = common.default_camera(dev, cam.VIEWS_ALL)
+        t_cfg = diff.with_frozen_hints(cfg, tiger)
+        t_packed, t_lay = params.pack(tiger, camera), params.layout(tiger, camera)
+        keep = params.freeze_mask(t_cfg, tiger, t_lay.size, dev)
+        p3, lay3 = params.pack(tiger, cam3), params.layout(tiger, cam3)
+        h3 = megakernel.with_hints(tiger, head)
+        out["k1_tiger_3view_4f"] = ms(lambda: megakernel.launch_forward(p3, lay3, h3, w4))
+        out["k4_tiger_1f_hinted"] = ms(lambda: gradkernel.launch_loss_grad(
+            t_packed, t_lay, t_cfg, w1, target, keep=keep))
+        if hasattr(diff, "_tiger_coverage"):
+            t_ref = ("tiger", None)
+            t_alpha = diff.object_coverage(tiger, t_ref, camera, t_cfg, 0.05).detach().contiguous()
+            t_zm = params.soft_zero_map(tiger, camera, t_ref)
+            out["k6_tiger_hinted"] = ms(lambda: gradkernel.launch_soft_loss_grad(
+                t_packed, t_lay, t_cfg, 1, target, t_alpha, t_zm, keep=keep))
     out["card"] = common.smi("name,power.limit")
     return out
 

@@ -290,15 +290,33 @@ def host_lib(tmp_path_factory):
 
 
 def grad_scene(name):
-    """A library scene, or "cylinders": test_torch_freeze_hints.py's floor
+    """A library scene, or test_torch_freeze_hints.py's custom scene
+    ``name`` under sphere_plane_light's sun and sky: "cylinders", a floor
     and two standalone cylinders (the first on unit axes, hinted; the
-    second turned, not) under sphere_plane_light's sun and sky."""
+    second turned, not); "hypercube_tiger"; or "sphere_composites",
+    hypercube_tiger with a sphere between the camera and the composites."""
     if name in library.SCENES:
         return library.SCENES[name](CPU)
     from test_torch_freeze_hints import custom_scene
 
-    scene = custom_scene(name, tscene, geometry, Vec4, CPU)
-    return scene._replace(environment=library.sphere_plane_light(CPU).environment)
+    base = "hypercube_tiger" if name == "sphere_composites" else name
+    scene = custom_scene(base, tscene, geometry, Vec4, CPU)
+    scene = scene._replace(environment=library.sphere_plane_light(CPU).environment)
+    if name == "sphere_composites":
+        ball = tscene.sphere((0.0, 0.2, 0.3, 0.1), 0.6,
+                             tscene.material(0, 0, (0.9, 0.9, 0.2), CPU), CPU)
+        scene = scene._replace(spheres=(ball,))
+    return scene
+
+
+def axis_plane_scene():
+    """(scene, camera): grad_scene("cylinders") seen level from (0, -2, 0,
+    0), one view. Some of its sampled rays pass through the turned
+    cylinder's axis plane, where perp2 = l2 - b^2 rounds below 0."""
+    orient = tcam.orientation_from_angles(*tcam.CameraAngles.of(0.0, 0.0, 0.0, device=CPU), CPU)
+    camera = tcam.make_camera(Vec4.of(0.0, -2.0, 0.0, 0.0, device=CPU), orient, 1.5, 2.0,
+                              ("yxz",), CPU)
+    return grad_scene("cylinders"), camera
 
 
 # The harness's folds (HostRow): 0 ParamsFold, 1 the generic composite
@@ -413,8 +431,8 @@ def pattern_floor(scene):
 
 def second_row(scene):
     """The second params row of a two-row K5: the scene's zero_object copy
-    (sphere 0) as the soft pair sends it, or, for a scene with composites
-    (whose soft half is not ported), the scene with its floor moved."""
+    (sphere 0) as the soft pair sends it, or, for a scene with composites,
+    the scene with its floor moved."""
     if not scene.composite_kinds():
         return diff.zero_object(scene, ("spheres", 0))
     floor = scene.spaces[0]

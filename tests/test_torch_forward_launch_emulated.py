@@ -23,7 +23,7 @@ from fourd_ray_tracing_tpu_torch import diff
 from fourd_ray_tracing_tpu_torch.models import library, params, renderer
 from fourd_ray_tracing_tpu_torch.ops.cuda import build, megakernel
 
-from test_torch_adjoint_host import camera_of, ptr
+from test_torch_adjoint_host import axis_plane_scene, camera_of, ptr
 from test_torch_grad_launch_emulated import emulated_library
 
 CPU = torch.device("cpu")
@@ -243,3 +243,40 @@ def test_many_planes_render_unhinted_through_the_hints(lib):
     ref = renderer.render_light(scene, camera, cfg, SEEDS).numpy()
     np.testing.assert_array_equal(out[:, 0], ref)
     assert float(np.abs(ref).max()) > 0.0
+
+
+# The soft kernel's row b of each composite: the scene with its composite
+# zeroed (diff.zero_object), and the two-cylinder scene whose sampled rays
+# pass through a cylinder's axis plane (axis_plane_scene).
+ZEROED = {"hypercube": ("hypercube", None), "duocylinder": ("cylinders_union", None),
+          "tiger": ("tiger", None), "axis_plane": ("cylinders", 1)}
+
+
+@pytest.mark.parametrize("hints", ["hinted", "unhinted"])
+@pytest.mark.parametrize("name", list(ZEROED))
+def test_zeroed_composite_renders_as_dropped(lib, name, hints):
+    """K2 over the scene and its zero_object copy in one launch (the rows
+    K6's pass 1 traces): row 0 bitwise the plain render of the scene, row 1
+    bitwise the plain render of the drop_object scene under
+    hints_for_dropped: the zeroed composite, whose table is built from the
+    zeroed row (radii 0, the hypercube's -1), is a guaranteed miss, hinted
+    (the library scene's own instance) or not."""
+    ref = ZEROED[name]
+    if name == "axis_plane":
+        scene, camera = axis_plane_scene()
+        cfg = renderer.RenderConfig(width=64, height=36, samples=1, reflections_amount=2,
+                                    rng_mode="per_sample")
+        cfg = {"unhinted": cfg, "hinted": megakernel.with_hints(scene, cfg)}[hints]
+        seed = 5
+    else:
+        scene, camera = library.SCENES[name](CPU), camera_of(("yxz",))
+        cfg, seed = configs(scene)[hints], int(SEEDS[0])
+    assert (cfg.axis_hints is not None) == (hints == "hinted")
+    zeroed = diff.zero_object(scene, ref)
+    rows = params.stack_rows((scene, zeroed), camera).numpy()
+    out = launch(lib, rows, params.layout(scene, camera), cfg, np.array([seed, seed], np.uint32))
+    dropped = renderer.render_light(diff.drop_object(scene, ref), camera,
+                                    diff.hints_for_dropped(cfg, ref), seed).numpy()
+    np.testing.assert_array_equal(out[0, 0], renderer.render_light(scene, camera, cfg, seed))
+    np.testing.assert_array_equal(out[1, 0], dropped)
+    assert not np.array_equal(out[0, 0], out[1, 0])

@@ -324,6 +324,84 @@ def test_soft_launch_matches_autograd(lib, name, ref, views, bounces, rows, wide
     assert_grad_close(out[2], ref_acot.numpy())
 
 
+# The soft object of each scene of the K6 launches.
+SOFT_REFS = {"room_with_sphere": ("spheres", 0), "sphere_plane_light": ("spheres", 1),
+             "duocylinder": ("cylinders_union", None), "tiger": ("tiger", None),
+             "hypercube": ("hypercube", None), "cylinders": ("cylinders", 1),
+             "sphere_composites": ("spheres", 0)}
+
+
+@pytest.mark.parametrize("name,views,bounces,rows,frozen", [
+    ("tiger", VIEWS_1, 4, None, True),
+    ("hypercube", VIEWS_1, 4, (3, 9), False),
+    ("duocylinder", tcam.VIEWS_ALL, 4, None, False),
+    ("cylinders", VIEWS_1, 3, None, False),
+    ("sphere_composites", VIEWS_1, 4, None, False),
+    ("sphere_composites", VIEWS_1, 4, None, True),
+], ids=["tiger_library", "hypercube_row_block", "duocylinder_3view", "cylinders_generic",
+        "sphere_beside_composites", "sphere_beside_composites_frozen"])
+def test_composite_soft_launch_matches_autograd(lib, name, views, bounces, rows, frozen):
+    """K6's launch over the composite folds, its row b the scene with the
+    object zeroed by its radii (0, the hypercube's -1), swept whole: the
+    tiger under its frozen hints at the main bounce count (its library
+    instance), the hypercube on a row block and the duocylinder on 3 views
+    unhinted (the generic composite fold), the two cylinders at 3 bounces
+    (the generic fold's rolled instance), the turned one zeroed. A sphere
+    in front of a hypercube and a tiger, the soft object, unhinted and
+    under the frozen hints: the composite fold with a sample-level split,
+    row a's sweep carrying row b's cotangent where the sphere is not the
+    primary hit (zero_map_object). Against
+    autograd over the plain blend (loss rtol 1e-6, gradient and alpha
+    cotangent the mixed-scale 1e-3 with the composites' pattern floor),
+    every output finite, bitwise across two launches."""
+    cfg = config_for(name, reflections_amount=bounces)
+    scene, camera = grad_scene(name), camera_of(views)
+    hints = launch_args(scene, camera, cfg)
+    if frozen:
+        cfg, hints, _ = frozen_hints(scene, camera, cfg)
+    rows = rows or (0, cfg.height)
+    rng = np.random.default_rng(5)
+    target = rng.uniform(0, 1, (*image_shape(views, cfg), 3)).astype(np.float32)
+    alpha = rng.uniform(0, 1, image_shape(views, cfg)).astype(np.float32)
+    lay = params.layout(scene, camera)
+    zero_map = params.soft_zero_map(scene, camera, SOFT_REFS[name])
+    packed = params.pack(scene, camera).numpy()
+    block_t, block_a = rows_of(target, rows, True), rows_of(alpha, rows, False)
+    out = soft_launch(lib, packed, lay, cfg, 3, block_t, block_a, zero_map, rows, hints)
+    again = soft_launch(lib, packed, lay, cfg, 3, block_t, block_a, zero_map, rows, hints)
+    assert all(np.array_equal(a, b) for a, b in zip(out, again))
+    assert all(np.isfinite(x).all() for x in out)
+    ref_loss, ref_grad, ref_acot = gradkernel.render_soft_loss_and_grad_plain(
+        torch.from_numpy(packed), scene, camera, cfg, 3, torch.from_numpy(block_t),
+        torch.from_numpy(block_a), zero_map, rows=rows)
+    np.testing.assert_allclose(out[0], float(ref_loss), rtol=1e-6)
+    assert_grad_close(out[1], ref_grad.numpy(), pattern_floor(scene))
+    assert_grad_close(out[2], ref_acot.numpy())
+
+
+def test_soft_launch_refuses_a_long_zero_map(lib):
+    """K6 holds at most FOURD_K6_MAX_ZERO_SLOTS zero-map slots: a map of
+    one more is refused (cudaErrorInvalidValue), never cut, and the
+    wrapper raises before it launches; the hypercube's 9 slots fit."""
+    cfg = config(reflections_amount=2, width=8, height=4)
+    scene, camera = library.hypercube(CPU), camera_of(VIEWS_1)
+    lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
+    zero_map = list(params.soft_zero_map(scene, camera, ("hypercube", None)))
+    longer = zero_map + [(lay.spaces + k, 0.5)
+                         for k in range(gradkernel.MAX_ZERO_SLOTS + 1 - len(zero_map))]
+    assert len(zero_map) == 9 and len(longer) == gradkernel.MAX_ZERO_SLOTS + 1
+    target = np.zeros((cfg.height, cfg.width, 3), np.float32)
+    alpha = np.full((cfg.height, cfg.width), 0.5, np.float32)
+    args = (lib, packed, lay, cfg, 3, target, alpha)
+    hints = launch_args(scene, camera, cfg)
+    loss, grad, _ = soft_launch(*args, longer[:-1], (0, cfg.height), hints)
+    assert np.isfinite(loss) and np.isfinite(grad).all()
+    with pytest.raises(AssertionError, match="assert 1 == 0"):  # cudaErrorInvalidValue
+        soft_launch(*args, longer, (0, cfg.height), hints)
+    with pytest.raises(ValueError, match="zero map"):
+        gradkernel.check_zero_map(longer, lay)
+
+
 def loss_grad_launch(lib, packed, lay, cfg, seeds, target, hints=None, rows=None):
     """fourd_loss_grad_launch on host arrays: (loss, grad); ``rows`` =
     (row0, n_rows), the launch over those image rows, ``target`` their
@@ -471,14 +549,17 @@ def test_hinted_light_vjp_launch_keeps_the_unhinted_values(lib, name, views, bou
     assert np.array_equal(grad, light_vjp_launch(lib, rows, lay, hcfg, cot, hints))
 
 
-@pytest.mark.parametrize("name,views,bounces", HINTED, ids=HINTED_IDS)
+@pytest.mark.parametrize("name,views,bounces", HINTED + COMPOSITE_HINTED,
+                         ids=HINTED_IDS + COMPOSITE_HINTED_IDS)
 def test_hinted_soft_launch_keeps_the_unhinted_values(lib, name, views, bounces):
     """K6 under the contract (both rows fold over their own tables, row b's
-    with the zero map applied): the loss and the alpha cotangent bitwise
-    the unhinted launch's, every kept slot equal, the frozen ones 0."""
-    cfg = config(reflections_amount=bounces)
-    scene, camera = library.SCENES[name](CPU), camera_of(views)
-    ref = ("spheres", 0) if name == "room_with_sphere" else ("spheres", 1)
+    with the zero map applied; a composite's: the zeroed object's library
+    instance or the generic composite fold): the loss and the alpha
+    cotangent bitwise the unhinted launch's, every kept slot equal, the
+    frozen ones 0."""
+    cfg = config_for(name, reflections_amount=bounces)
+    scene, camera = grad_scene(name), camera_of(views)
+    ref = SOFT_REFS[name]
     rng = np.random.default_rng(5)
     target = rng.uniform(0, 1, (*image_shape(views, cfg), 3)).astype(np.float32)
     alpha = rng.uniform(0, 1, image_shape(views, cfg)).astype(np.float32)
@@ -488,7 +569,8 @@ def test_hinted_soft_launch_keeps_the_unhinted_values(lib, name, views, bounces)
     rows = (0, cfg.height)
     hcfg, hints, frozen = frozen_hints(scene, camera, cfg)
     out = soft_launch(lib, packed, lay, hcfg, 3, target, alpha, zero_map, rows, hints)
-    plain = soft_launch(lib, packed, lay, cfg, 3, target, alpha, zero_map, rows)
+    plain = soft_launch(lib, packed, lay, cfg, 3, target, alpha, zero_map, rows,
+                        launch_args(scene, camera, cfg))
     assert out[0] == plain[0] and np.array_equal(out[2], plain[2])
     assert_contract(out[1], plain[1], frozen)
 
@@ -531,9 +613,11 @@ def test_hinted_ablate_launch_keeps_the_unhinted_values(lib, name, views, bounce
 
 
 def test_launches_refuse_composite_hints(lib):
-    """The tiger's descriptor under the contract: K4, K5 and K8 take it
-    (their composite folds); K6 refuses it (the composites' soft half,
-    ROADMAP item 4b: cudaErrorInvalidValue), whatever its zero map."""
+    """Once refused by K6, now taken by every gradient launch: the tiger's
+    descriptor under the contract goes to K4's, K5's, K6's and K8's
+    composite folds. K6 takes it with the tiger's own zero map and with a
+    map that names no radius (wall 0's color: both rows keep the tiger),
+    each with a finite loss and gradient, the frozen slots 0."""
     cfg = config(reflections_amount=2, width=8, height=4)
     scene, camera = library.tiger(CPU), camera_of(VIEWS_1)
     lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
@@ -559,10 +643,12 @@ def test_launches_refuse_composite_hints(lib):
                                   (words, keep))
     assert loss > 0.0 and np.abs(grad).max() > 0.0
     alpha = np.full((cfg.height, cfg.width), 0.5, np.float32)
-    for zero_map in ([(lay.tiger + 12, 0.0)], [(lay.spaces + 10, 0.25)]):
-        with pytest.raises(AssertionError, match="assert 1 == 0"):  # cudaErrorInvalidValue
-            soft_launch(lib, packed, lay, hcfg, 3, target, alpha, zero_map, (0, cfg.height),
-                        (words, keep))
+    for zero_map in (params.soft_zero_map(scene, camera, ("tiger", None)),
+                     [(lay.spaces + 10, 0.25)]):
+        loss, grad, alpha_cot = soft_launch(lib, packed, lay, hcfg, 3, target, alpha, zero_map,
+                                            (0, cfg.height), (words, keep))
+        assert loss > 0.0 and np.abs(grad).max() > 0.0 and np.isfinite(alpha_cot).all()
+        assert np.all(grad[keep == 0] == 0.0)
 
 
 def test_many_planes_launch_writes_the_frozen_slots(lib):

@@ -126,9 +126,9 @@ def test_launch_forward_refuses_cpu_tensors():
 def test_unported_configs_raise(change):
     """Configurations still to be ported raise, naming their ROADMAP item;
     axis_hints, which the forward takes, are refused by the gradient paths
-    outside the freeze_hints contract; under it the hard-loss paths take a
-    composite scene, and the soft paths still refuse it, naming item 4b's
-    soft half."""
+    outside the freeze_hints contract; under it every gradient path, the
+    soft ones included, takes a composite scene: the tiger's soft loss
+    under its frozen hints is finite."""
     _, tc = cameras(("yxz",))
     cfg = dataclasses.replace(T_CFG, **change)
     if "axis_hints" in change:
@@ -136,8 +136,13 @@ def test_unported_configs_raise(change):
             trenderer.check_trainable(cfg)
         frozen = dataclasses.replace(cfg, freeze_hints=True)
         trenderer.check_trainable(frozen)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4b, soft half"):
-            trenderer.check_soft_trainable(frozen, tlib.tiger(CPU))
+        from fourd_ray_tracing_tpu_torch import diff
+
+        tiger = tlib.tiger(CPU)
+        small = diff.with_frozen_hints(dataclasses.replace(T_CFG, width=8, height=4), tiger)
+        loss = diff.soft_image_loss(tiger, tc, small, 1, torch.zeros((4, 8, 3)),
+                                    object_ref=("tiger", None))
+        assert small.axis_hints is not None and torch.isfinite(loss)
         return
     for render in (trenderer.render_light, tkernel.render_light_cuda):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -190,32 +190,44 @@ def test_composite_primitives_train_on_the_hard_paths(field):
 
 @pytest.mark.parametrize("field", ["cylinders", "cylinders_union", "hypercube", "tiger"])
 def test_composite_primitives_raise(field):
-    """The soft paths (the soft loss, its kernel route, K6's plain version
-    and launch check, the soft zero map, the soft train step) refuse a
-    scene with a composite primitive, naming item 4b's soft half."""
+    """Once refused, now taken: the soft paths (the soft loss, its kernel
+    route, K6's plain version and launch check, the soft zero map, the soft
+    train step) take a scene with a composite primitive as their object,
+    unhinted and under the frozen hints, each with a finite loss and a
+    gradient that reaches the primitive's slots."""
     from fourd_ray_tracing_tpu_torch import diff
     from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel
 
     scene = composite_scene(field)
     _, tc = cameras(("yxz",))
-    cfg = trenderer.RenderConfig(width=8, height=4, samples=1, reflections_amount=1,
-                                 rng_mode="per_sample")
+    base = trenderer.RenderConfig(width=8, height=4, samples=1, reflections_amount=1,
+                                  rng_mode="per_sample")
     packed, lay = params.pack(scene, tc), params.layout(scene, tc)
+    first = getattr(lay, field)
     target = torch.zeros((4, 8, 3))
-    ref = ("spaces", 0)
-    paths = {
-        "soft_loss": lambda: diff.soft_image_loss(scene, tc, cfg, 1, target, object_ref=ref),
-        "soft_kernel": lambda: diff.soft_image_loss_kernel(packed, scene, tc, cfg, 1, target,
-                                                           ref),
-        "k6_plain": lambda: gradkernel.render_soft_loss_and_grad_plain(
-            packed, scene, tc, cfg, 1, target, torch.ones((4, 8)), ()),
-        "k6_check": lambda: trenderer.check_soft_trainable(cfg, lay),
-        "zero_map": lambda: params.soft_zero_map(scene, tc, ("spheres", 0)),
-        "soft_step": lambda: diff.make_train_step(cfg, 1e-3, tc, soft_object_ref=ref)[1](scene),
-    }
-    for name, fn in paths.items():
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4b, soft half"):
-            fn()
+    ref = (field, 0 if field == "cylinders" else None)
+    zero_map = params.soft_zero_map(scene, tc, ref)
+    gradkernel.check_zero_map(zero_map, lay)
+    for cfg in (base, diff.with_frozen_hints(base, scene)):
+        trenderer.check_trainable(cfg)
+        vec = packed.clone().requires_grad_(True)
+        losses = {
+            "soft_loss": diff.soft_image_loss(*params.unpack(vec, scene, tc), cfg, 1, target,
+                                              object_ref=ref),
+            "soft_kernel": diff.soft_image_loss_kernel(vec, scene, tc, cfg, 1, target, ref),
+        }
+        for name, loss in losses.items():
+            (grad,) = torch.autograd.grad(loss, vec)
+            assert torch.isfinite(loss) and torch.isfinite(grad).all(), name
+            assert grad[first:lay.env].abs().max() > 0, name
+        alpha = diff.object_coverage(scene, ref, tc, cfg, 0.05)
+        loss, grad, g_alpha = gradkernel.render_soft_loss_and_grad_plain(
+            packed, scene, tc, cfg, 1, target, alpha, zero_map)
+        assert torch.isfinite(grad).all() and torch.isfinite(g_alpha).all()
+        np.testing.assert_allclose(float(loss), float(losses["soft_loss"].detach()), rtol=1e-5)
+        step, init = diff.make_train_step(cfg, 1e-3, tc, soft_object_ref=ref)
+        state, opt = init(scene)
+        assert torch.isfinite(step(state, opt, 1, target)[2])
 
 
 @pytest.mark.parametrize("name", ["hypercube", "duocylinder", "tiger"])

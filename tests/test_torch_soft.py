@@ -62,6 +62,25 @@ SPHERE_CASES = [("room_with_sphere", ("spheres", 0)), ("room_with_sphere", ("sph
                 ("sphere_plane_light", ("spheres", 0)), ("sphere_plane_light", ("spheres", 1))]
 
 
+def scene_pair(name):
+    """(JAX scene, port scene) of a library scene, or of "cylinders": a
+    floor and two standalone cylinders, the first on unit axes, the second
+    turned, under sphere_plane_light's sun and sky
+    (test_torch_freeze_hints.custom_scene)."""
+    if name != "cylinders":
+        return jlib.SCENES[name](), tlib.SCENES[name](CPU)
+    from fourd_ray_tracing_tpu.models import scene as jscene
+    from fourd_ray_tracing_tpu.ops import geometry as jgeo
+    from fourd_ray_tracing_tpu_torch.models import scene as tscene
+    from fourd_ray_tracing_tpu_torch.ops import geometry as tgeo
+    from test_torch_freeze_hints import custom_scene
+
+    js = custom_scene(name, jscene, jgeo, JVec4)
+    ts = custom_scene(name, tscene, tgeo, TVec4, CPU)
+    return (js._replace(environment=jlib.sphere_plane_light().environment),
+            ts._replace(environment=tlib.sphere_plane_light(CPU).environment))
+
+
 def crossed(name, views=("yxz",)):
     """(JAX scene, JAX camera, port scene, port camera): a tilted camera,
     the port's leaves crossed over from the JAX pair as numpy."""
@@ -74,9 +93,9 @@ def crossed(name, views=("yxz",)):
     to = tcam.orientation_from_angles(*tcam.CameraAngles.of(0.1, -0.2, 0.3, device=CPU), CPU)
     tc_like = tcam.make_camera(TVec4.of(0.0, -2.0, 0.3, 0.1, device=CPU), to, 1.5, 2.0, views,
                                CPU)
-    js = jlib.SCENES[name]()
+    js, ts_like = scene_pair(name)
     np_leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves((js, jc))]
-    ts, tc = params.from_numpy_leaves(np_leaves, tlib.SCENES[name](CPU), tc_like)
+    ts, tc = params.from_numpy_leaves(np_leaves, ts_like, tc_like)
     return js, jc, ts, tc
 
 
@@ -198,18 +217,48 @@ def test_stack_rows_needs_same_structure():
         params.stack_rows((ts, diff.drop_object(ts, ("spheres", 0))), tc)
 
 
+# A scene and an object_ref of each composite kind.
+KIND_CASES = {"cylinders": ("cylinders", ("cylinders", 0)),
+              "cylinders_union": ("duocylinder", ("cylinders_union", None)),
+              "hypercube": ("hypercube", ("hypercube", None)),
+              "tiger": ("tiger", ("tiger", None))}
+
+
 @pytest.mark.parametrize("kind", diff.COMPOSITE_KINDS)
 def test_composite_kinds_raise(kind):
-    _, _, ts, tc = crossed("room_with_sphere")
-    for fn in (lambda: diff.object_coverage(ts, (kind, 0), tc, T_CFG, EDGE),
-               lambda: diff.drop_object(ts, (kind, 0)),
-               lambda: diff.zero_object(ts, (kind, 0)),
-               lambda: diff.soft_image_loss(ts, tc, T_CFG, SEED, torch.zeros(16, 32, 3),
-                                            object_ref=(kind, 0))):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4b, training half"):
+    """Once refused, now taken: each composite kind's coverage (finite, in
+    [0, 1], some pixel covered), drop_object (the field gone or the entry
+    dropped), zero_object (the same structure, its light bitwise
+    drop_object's) and the soft loss (finite, a gradient on the object's
+    slots). An unknown kind still raises ValueError."""
+    name, ref = KIND_CASES[kind]
+    _, _, ts, tc = crossed(name)
+    alpha = diff.object_coverage(ts, ref, tc, T_CFG, EDGE)
+    assert alpha.shape == (16, 32) and torch.isfinite(alpha).all()
+    assert 0.0 <= alpha.min() and alpha.max() <= 1.0 and alpha.max() > 0.5
+    dropped = diff.drop_object(ts, ref)
+    if kind == "cylinders":
+        assert len(dropped.cylinders) == len(ts.cylinders) - 1
+    else:
+        assert getattr(dropped, kind) is None
+    zeroed = diff.zero_object(ts, ref)
+    assert params.layout(zeroed, tc) == params.layout(ts, tc)
+    assert torch.equal(trenderer.render_light(zeroed, tc, T_CFG, SEED),
+                       trenderer.render_light(dropped, tc, T_CFG, SEED))
+    vec = params.pack(ts, tc).clone().requires_grad_(True)
+    loss = diff.soft_image_loss(*params.unpack(vec, ts, tc), T_CFG, SEED,
+                                torch.from_numpy(target_image()), edge_width=EDGE, object_ref=ref)
+    (grad,) = torch.autograd.grad(loss, vec)
+    first = getattr(params.layout(ts, tc), kind)
+    floats = {"cylinders": params.CYLINDER_FLOATS, "cylinders_union": 2 * params.CYLINDER_FLOATS,
+              "hypercube": params.HYPERCUBE_FLOATS, "tiger": params.TIGER_FLOATS}[kind]
+    assert torch.isfinite(loss) and torch.isfinite(grad).all()
+    assert grad[first:first + floats].abs().max() > 0
+    for fn in (lambda: diff.object_coverage(ts, ("cones", 0), tc, T_CFG, EDGE),
+               lambda: diff.drop_object(ts, ("cones", 0)),
+               lambda: diff.zero_object(ts, ("cones", 0))):
+        with pytest.raises(ValueError, match="unknown object kind"):
             fn()
-    with pytest.raises(ValueError, match="unknown object kind"):
-        diff.object_coverage(ts, ("cones", 0), tc, T_CFG, EDGE)
 
 
 @pytest.mark.parametrize("case", SOFT_CASES, ids=case_id)
