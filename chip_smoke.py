@@ -41,6 +41,24 @@ on any failure, or when no CUDA device is available. Phases:
    with the hints the engine derived and without, timed with CUDA events
    and held against each other; the hinted plain pipeline in 144-row
    bands, timed once and held against K1; each scene's bound;
+7c. K1's other configurations (csrc/forwardmodes.cu): RenderEngine on
+   room_with_sphere at 1280x720, 8 spp, 4 bounces, 4 frames a launch in
+   RenderConfig()'s modes (the sequential stream, the poly sampler, the
+   fast fold, the engine's hints: every launch hinted) and in the
+   oracle's (sequential, newton, trig: no hints), from zeroed counts, each
+   launch counted by its configuration (megakernel.CONFIG_LAUNCHES),
+   timed; K1 alone at that shape on the room and on the tiger with 3 views
+   in the production configuration and in each of the sequential stream,
+   the kepler and the newton sampler and the spec and the trig fold
+   (``MODE_TIMED``), timed with CUDA events beside its plain version over
+   the whole image (timed once, and held against K1), its bound from the
+   plain version's flops (the live lanes; newton's steps per lane as its
+   data needs them); at 256x144, 4 spp, 4 bounces every
+   configuration rng x sampler x fold on the five library scenes and a
+   hypercube without generators against its plain version (CHECK_BOUNDS;
+   bitwise where no transcendental runs), and the sequential stream's K2
+   rows (a scene and a copy with a wall moved) and K3 blocks (2 and 4)
+   bitwise its single launches;
 8. the value-and-grad kernel K4 against its plain version (torch autograd
    over the plain pipeline) on the card: room_with_sphere and
    sphere_plane_light, 1 and 3 views,
@@ -224,7 +242,8 @@ K1 stops a lane that left the scene; in the closed room every lane
 counts); the dense and the unhinted counts stand beside them. The kernel
 launch counts are
 set to 0 before each main path (phases 4-5: rendering; phase 7b: each
-composite cell's engine; phases 9-10:
+composite cell's engine; phase 7c: the engine in each of its two
+configurations; phases 9-10:
 training; phase 13: soft training; phase 13b: soft training on the
 composites; phase 15: the ranks, fresh processes,
 count their own; phase 16: the peak sweep; phase 17: each tool) and read
@@ -293,6 +312,21 @@ INVERSE_STEP_SCENES = ("tiger", "hypercube", "duocylinder")
 # pipeline renders them in BAND_ROWS-row bands.
 COMPOSITE_CELLS = (("hypercube", ("yxz",)), ("duocylinder", cam.VIEWS_ALL),
                    ("tiger", cam.VIEWS_ALL))
+# Phase 7c: K1's other configurations. The engine drives RenderConfig()'s
+# modes (the sequential stream, poly, fast) and the oracle's; K1 is timed at
+# the headline shape in each MODE_TIMED configuration (each one axis off
+# the production configuration) on MODE_CELLS, and held against its plain
+# version at MODES_CHECK in every configuration, on every library scene
+# and a hypercube without generators ("hypercube_cells").
+ORACLE_MODES = dict(rng_mode="sequential", sampler_method="newton", intersect="trig")
+MODE_TIMED = {"per_sample/poly/fast": {}, "sequential/poly/fast": dict(rng_mode="sequential"),
+              "per_sample/kepler/fast": dict(sampler_method="kepler"),
+              "per_sample/newton/fast": dict(sampler_method="newton"),
+              "per_sample/poly/spec": dict(intersect="spec"),
+              "per_sample/poly/trig": dict(intersect="trig")}
+MODE_CELLS = (("room_with_sphere", ("yxz",)), ("tiger", cam.VIEWS_ALL))
+MODES_CHECK = dict(width=256, height=144, samples=4, reflections_amount=4)
+MODE_CALLS, MODE_REPEATS = 3, 3
 CALLS, REPEATS = 5, 5  # timed: REPEATS runs of CALLS back-to-back calls
 # K4 against its plain version: loss within rtol, every gradient within a
 # mixed-scale relative error (|a - b| / max(|b|, 1e-3 max|b| + 1e-8), as
@@ -494,15 +528,22 @@ def check_kernel_against_plain(device) -> float:
 
 def short_k1(name: str) -> str:
     """A K1 instance's mangled name as ``stub S fold (pairs, singles)`` (-1:
-    read from the table; -2: every single plane all live), or ``stub S
+    read from the table; -2: every single plane all live), ``stub S
     composite fold (pairs, singles, kinds, families, hypercube)`` (trace.cuh
-    CompositeFold)."""
-    m = re.search(r"forward_kernelILi(\d+)E\w*?(TableFold|CompositeFold)I((?:Lin?\d+E)+)E", name)
+    CompositeFold; hypercube -2: its cells) or ``stub S spec fold (trig)``,
+    followed for the instances of forwardmodes.cu by ``sampler K rng R``
+    (0 poly, 1 kepler, 2 newton; R -1: the launch's argument)."""
+    m = re.search(r"forward_kernelILi(\d+)E\w*?(TableFold|CompositeFold|SpecFold)I"
+                  r"((?:L[ib]n?\d+E)+)EE(?:Li(n?\d+)ELi(n?\d+)E)?", name)
     if m is None:
         return name
-    args = [int(a.replace("n", "-")) for a in re.findall(r"Li(n?\d+)E", m.group(3))]
-    kind = "fold" if m.group(2) == "TableFold" else "composite fold"
-    return f"stub {m.group(1)} {kind} ({', '.join(map(str, args))})"
+    args = [int(a.replace("n", "-")) for a in re.findall(r"L[ib](n?\d+)E", m.group(3))]
+    kind = {"TableFold": "fold", "CompositeFold": "composite fold",
+            "SpecFold": "spec fold"}[m.group(2)]
+    out = f"stub {m.group(1)} {kind} ({', '.join(map(str, args))})"
+    if m.group(4) is not None:
+        out += f" sampler {m.group(4)} rng {m.group(5).replace('n', '-')}"
+    return out
 
 
 def k1_resources(device, lib_path: Path) -> dict:
@@ -659,8 +700,10 @@ def live_lane_flops(scene, camera, cfg: RenderConfig, seeds, rows) -> tuple:
     it, for the share alive after that bounce's shade (bounce 0's: the
     pixels whose primary ray hit). Both count final_light on every such
     lane, where K1 runs it on a lane that misses only. (A call's flops
-    depend on the shapes alone, not on the data: composite_cells counts
-    one band and takes every band's shares.)"""
+    depend on the shapes alone, not on the data, but for the newton
+    sampler's, whose plain version steps the lanes still going: so
+    composite_cells, in the production configuration, counts one band and
+    takes every band's shares.)"""
     with FlopCounter() as counter:
         _, calls, flops = lane_calls(scene, camera, cfg, seeds, rows, counter)
     return counter.flops, live_of(counter.flops, calls, flops)
@@ -734,6 +777,163 @@ def composite_cells(device) -> dict:
         print(json.dumps({"cell": f"{name} {label} per_sample, hints derived by the engine",
                           **cells[name]}), flush=True)
     return cells
+
+
+def modes_engine(device) -> dict:
+    """Phase 7c's main path: RenderEngine on the room at the headline shape
+    in RenderConfig()'s modes and in the oracle's, step_frames(4) timed,
+    from zeroed counts: one K1 launch a step, every launch counted by its
+    configuration, the default's all hinted. Returns each drive's times
+    and counts."""
+    out = {}
+    for label, modes in (("default", {}), ("oracle", ORACLE_MODES)):
+        cfg = RenderConfig(width=HEADLINE["width"], height=HEADLINE["height"],
+                           samples=HEADLINE["samples"],
+                           reflections_amount=HEADLINE["reflections_amount"], **modes)
+        assert cfg.rng_mode == "sequential"
+        reset_counts()
+        engine = RenderEngine(
+            library.room_with_sphere(device), cfg, Vec4.of(0.0, -2.0, 0.0, 0.0, device=device),
+            cam.CameraAngles.of(0.0, 0.0, 0.0, device=device), device=device,
+            deterministic=True)
+        engine.step_frames(FRAMES_PER_LAUNCH)  # warm-up launch
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: engine.step_frames(FRAMES_PER_LAUNCH), MODE_CALLS, MODE_REPEATS)
+        n = 1 + MODE_CALLS * MODE_REPEATS
+        key = megakernel.launch_config(engine.cfg, params.layout(engine.scene, engine.groups[0]
+                                                                 .camera(engine)))
+        assert megakernel.LAUNCHES == n and megakernel.CONFIG_LAUNCHES == {key: n}, \
+            (label, megakernel.LAUNCHES, megakernel.CONFIG_LAUNCHES)
+        hinted = megakernel.HINTED_LAUNCHES
+        assert hinted == (n if label == "default" else 0), (label, hinted)
+        img = engine.accum
+        assert img.shape == (720, 1280, 3) and bool(torch.isfinite(img).all())
+        assert float(img.std()) > 0.0, f"{label}: the image is constant"
+        out[label] = {"config": key, "launches": n, "hinted_launches": hinted,
+                      "engine_step_frames_ms": ms, "engine_ms_median": statistics.median(ms)}
+        print(json.dumps({"cell": f"room_with_sphere 1280x720 8spp 4 bounces {key}, 4 frames a "
+                                  "launch, RenderEngine", **out[label]}), flush=True)
+    return out
+
+
+def modes_timed(device) -> dict:
+    """Phase 7c: K1 at the headline shape, 4 frames a launch, on MODE_CELLS
+    in each MODE_TIMED configuration (the fast fold with the hints the
+    entry point derives), timed with CUDA events; the plain version of the
+    whole image timed once and held against K1; each one's bound from the
+    plain version's flops over the whole image (live_lane_flops: the live
+    lanes; the plain newton steps the lanes still going alone, so its
+    count is the work this data needs). Returns them by scene and
+    configuration."""
+    cells = {}
+    frames = np.arange(1, FRAMES_PER_LAUNCH + 1, dtype=np.uint32)
+    words = megakernel.seed_tensor(frames, device)
+    for name, views in MODE_CELLS:
+        scene, camera = library.SCENES[name](device), camera_for(views, device)
+        packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+        pixels = len(views) * HEADLINE["height"] * HEADLINE["width"]
+        rays = pixels * HEADLINE["samples"] * FRAMES_PER_LAUNCH
+        one = (lambda x: x[:, 0]) if len(views) == 1 else (lambda x: x)
+        for key, modes in MODE_TIMED.items():
+            cfg = megakernel.with_hints(scene, RenderConfig(**dict(HEADLINE, **modes)))
+            before = dict(megakernel.CONFIG_LAUNCHES)
+            out = one(megakernel.launch_forward(packed, lay, cfg, words))
+            assert megakernel.CONFIG_LAUNCHES.get(key, 0) == before.get(key, 0) + 1, key
+            ms = cuda_ms(lambda: megakernel.launch_forward(packed, lay, cfg, words),
+                         MODE_CALLS, MODE_REPEATS)
+            plain = []
+            plain_ms = cuda_ms(lambda: plain.append(renderer.render_light(scene, camera, cfg,
+                                                                          frames)),
+                               calls=1, repeats=1)[0]
+            label = f"{name} views={len(views)} {key} 1280x720 4 frames"
+            err = check_close(f"{label} K1 vs plain", out, plain.pop())
+            dense, live = live_lane_flops(scene, camera, cfg, frames, slice(None))
+            med = statistics.median(ms)
+            cell = {"views": len(views), "hinted": megakernel.hinted(cfg), "kernel_ms": ms,
+                    "ms": med, "kernel_mrays_per_s": rays / med / 1e3, "plain_ms": plain_ms,
+                    "max_abs_err": err, "bitwise": BITWISE[f"{label} K1 vs plain"],
+                    **bound(live, 4 * (lay.size + FRAMES_PER_LAUNCH
+                                       + FRAMES_PER_LAUNCH * pixels * 3)),
+                    "dense_flops": dense, "flops_per_ray": live / rays}
+            cell["share_of_published_peak"] = live / (med * 1e-3) / PEAKS["fp32_flops_per_s"]
+            cells.setdefault(name, {})[key] = cell
+            print(json.dumps({"cell": label, **cell}), flush=True)
+    return cells
+
+
+def moved_wall(scene):
+    """``scene`` with hyperplane 0 moved 0.25 against its normal: a second
+    params row of the same structure."""
+    wall = scene.spaces[0]
+    return scene._replace(spaces=(wall._replace(point=wall.point - wall.norm * 0.25),
+                                  *scene.spaces[1:]))
+
+
+def modes_scene(name: str, device):
+    """A library scene, or "hypercube_cells": the hypercube built from its
+    cells alone (no generators)."""
+    if name == "hypercube_cells":
+        scene = library.hypercube(device)
+        return scene._replace(hypercube=type(scene.hypercube)(scene.hypercube.cubes))
+    return library.SCENES[name](device)
+
+
+def check_modes(device) -> dict:
+    """Phase 7c: at MODES_CHECK, every configuration rng x sampler x fold
+    on every library scene and a hypercube without generators, K1 over a
+    (2,) seed vector against its plain version (CHECK_BOUNDS; bitwise where
+    no transcendental runs: the poly sampler off the trig fold); then the
+    sequential stream's K2 rows (the scene and moved_wall's copy) and K3
+    blocks (2 and 4 of mesh.row_block) bitwise its single launches, on the
+    room, the tiger and the cells-only hypercube. Returns the worst
+    difference, the configurations checked with their launches, and
+    whether every check without a transcendental was bitwise."""
+    seeds = np.array([0x2468ACE0, 0x13579BDF], np.uint32)
+    words = megakernel.seed_tensor(seeds, device)
+    camera = camera_for(("yxz",), device)
+    worst, checked, exact = 0.0, {}, True
+    for name in sorted(library.SCENES) + ["hypercube_cells"]:
+        scene = modes_scene(name, device)
+        packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+        for rng_mode in renderer.RNG_MODES:
+            for sampler in megakernel.SAMPLER_CODES:
+                for fold in megakernel.FOLD_CODES:
+                    cfg = megakernel.with_hints(scene, RenderConfig(
+                        **MODES_CHECK, rng_mode=rng_mode, sampler_method=sampler,
+                        intersect=fold))
+                    key = megakernel.launch_config(cfg, lay)
+                    out = megakernel.launch_forward(packed, lay, cfg, words)[:, 0]
+                    label = f"7c {name} {key} 256x144"
+                    worst = max(worst, check_close(f"{label} K1 vs plain", out,
+                                                   renderer.render_light(scene, camera, cfg,
+                                                                         seeds)))
+                    if sampler == "poly" and fold != "trig":
+                        exact = exact and BITWISE[f"{label} K1 vs plain"]
+                    checked[key] = checked.get(key, 0) + 1
+        if name not in ("room_with_sphere", "tiger", "hypercube_cells"):
+            continue
+        for sampler, fold in (("poly", "fast"), ("newton", "trig")):
+            cfg = megakernel.with_hints(scene, RenderConfig(
+                **MODES_CHECK, rng_mode="sequential", sampler_method=sampler, intersect=fold))
+            one = words[:1]
+            singles = [megakernel.launch_forward(params.pack(sc, camera), lay, cfg, one)[0]
+                       for sc in (scene, moved_wall(scene))]
+            rows = params.stack_rows((scene, moved_wall(scene)), camera)
+            both = megakernel.launch_forward(rows, lay, cfg, one.repeat(2))
+            for k in range(2):
+                assert torch.equal(both[k], singles[k]), f"{name} {sampler}/{fold}: K2 row {k}"
+            assert not torch.equal(singles[0], singles[1])
+            for n in SHARDS:
+                for i in range(n):
+                    row0, n_rows = pmesh.row_block(cfg.height, n, i)
+                    block = megakernel.launch_forward(rows, lay, cfg, one.repeat(2),
+                                                      (row0, n_rows))
+                    assert torch.equal(block, both[..., row0:row0 + n_rows, :, :]), \
+                        f"{name} {sampler}/{fold}: K3 block {i} of {n}"
+            print(f"7c {name} sequential/{sampler}/{fold}: K2 rows and K3 blocks (2, 4) "
+                  "bitwise the single launches", flush=True)
+    assert exact, "a launch without a transcendental differed from its plain version"
+    return {"max_abs_err": worst, "checked": checked, "exact_without_transcendentals": exact}
 
 
 def mixed_rel(a: np.ndarray, b: np.ndarray) -> float:
@@ -1378,6 +1578,7 @@ def run_app() -> None:
 
 
 def reset_counts() -> None:
+    megakernel.CONFIG_LAUNCHES.clear()
     megakernel.LAUNCHES = megakernel.ROW_LAUNCHES = megakernel.SHARD_LAUNCHES = 0
     megakernel.HINTED_LAUNCHES = 0
     megakernel.VARIANT_LAUNCHES = k7.LAUNCHES = ablate.LAUNCHES = ablate.HINTED_LAUNCHES = 0
@@ -2771,6 +2972,16 @@ def main() -> int:
     launches["composite"] = sum(c["engine_launches"] for c in cells.values())
     max_err = max(max_err, max(c["max_abs_err"] for c in cells.values()))
 
+    phase("7c K1's other configurations: the engine in RenderConfig()'s modes and the "
+          "oracle's, K1 by configuration at 1280x720x8spp x4, every configuration vs plain")
+    modes_main = modes_engine(device)
+    launches["modes"] = sum(d["launches"] for d in modes_main.values())
+    mode_configs = {d["config"]: d["launches"] for d in modes_main.values()}
+    mode_cells = modes_timed(device)
+    mode_checks = check_modes(device)
+    max_err = max(max_err, mode_checks["max_abs_err"],
+                  max(c["max_abs_err"] for cell in mode_cells.values() for c in cell.values()))
+
     phase("8 value-and-grad kernel vs plain on the card")
     grad_err, grad_rel = check_grad_kernel(device)
     comp_err, comp_rel = check_composite_k4(device)
@@ -3015,10 +3226,12 @@ def main() -> int:
         "route": "cuda",
         "source": "fourd_ray_tracing_tpu_torch/csrc/megakernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/megakernel.py:316",
-        "launches": (launches["render"][0] + launches["composite"] + launches["train"][0]
-                     + launches["soft"]["k1"] + launches["soft_composites"]["k1"] + sharded["k1"]
-                     + measure["k1"] + measure["k1_variant"]),
+        "launches": (launches["render"][0] + launches["composite"] + launches["modes"]
+                     + launches["train"][0] + launches["soft"]["k1"]
+                     + launches["soft_composites"]["k1"] + sharded["k1"] + measure["k1"]
+                     + measure["k1_variant"]),
         "launches_by_path": {"render": launches["render"][0], "composite": launches["composite"],
+                             "modes": launches["modes"],
                              "train": launches["train"][0], "soft": launches["soft"]["k1"],
                              "soft_composites": launches["soft_composites"]["k1"],
                              "sharded": sharded["k1"], "measure": measure["k1"]},
@@ -3055,6 +3268,19 @@ def main() -> int:
         # engine (its launches counted) and K1 alone, hinted and unhinted.
         "composite_cells": {name: with_shares(dict(cell)) for name, cell in cells.items()},
         "tiger_3view_shard_ms": shards["ms"]["k1_tiger_3view"],
+        # Phase 7c: the configurations K1 ran besides the production one.
+        # The engine's main path in RenderConfig()'s modes and the oracle's
+        # (launches by configuration); K1 by configuration at the headline
+        # shape on the room and the tiger (3 views); every configuration
+        # checked against its plain version at 256x144 (launches there by
+        # configuration, compare launches, not counted above).
+        "configurations": {"main_path": mode_configs, "engine": modes_main,
+                           "timed": {name: {k: with_shares(dict(c)) for k, c in cell.items()}
+                                     for name, cell in mode_cells.items()},
+                           "checked": mode_checks["checked"],
+                           "checked_max_abs_err": mode_checks["max_abs_err"],
+                           "exact_without_transcendentals":
+                               mode_checks["exact_without_transcendentals"]},
         "build_s": build_s,
     }, {
         "name": "loss_grad_kernel",

@@ -92,87 +92,23 @@
 // instance of the fold (kGenericFold); the production launch instantiates
 // no stub, so its code is the trace alone.
 //
+// The kernel and its launch are forward.cuh's; this source instantiates
+// them in the production configuration (per-sample RNG streams, the poly
+// sampler, the fast fold) and for the measurement variants. Every other
+// configuration the JAX kernel reads from cfg (the sequential stream, the
+// kepler and newton samplers, the spec and trig folds, a hypercube without
+// generators) launches through forwardmodes.cu, whose instances build in
+// their own nvcc process; the production instances compile as before.
+//
 // Still to do for speed (later work): FMA contraction once its effect on
 // the image is measured, and a persistent-block schedule.
 
-#include "trace.cuh"
+#include "forward.cuh"
 
 namespace {
 
-constexpr int kK1Block = 128;
 // The variant launch's flag that forces the generic instance of the fold.
 constexpr int kGenericFold = 4;
-
-// kStub selects a measurement variant's stubs (trace.cuh); the production
-// kernel is kStubNone. Fold is the table fold's instance.
-template <int kStub, class Fold>
-__global__ void __launch_bounds__(kK1Block)
-forward_kernel(const float* __restrict__ params, long long row_stride,
-               const uint32_t* __restrict__ seeds, Layout L, Hints H, int width, int height,
-               int row0, int n_rows, int samples, int reflections, float small_indent,
-               float* __restrict__ out) {
-  extern __shared__ float P[];
-  const float* row = params + blockIdx.y * row_stride;
-  for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = row[i];
-  __syncthreads();
-  build_fold_table(P, L, H, threadIdx.x, blockDim.x);
-  __syncthreads();
-
-  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
-  const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lin >= total) return;
-  const int frame = blockIdx.y;
-  const int hw = n_rows * width;
-  const int view = static_cast<int>(lin / hw);
-  const int rem = static_cast<int>(lin - static_cast<long long>(view) * hw);
-  const int ly = rem / width;
-  const int px = rem - ly * width;
-  const int py = row0 + ly;
-  const uint32_t seed = seeds[frame];
-
-  const Pixel p = setup_pixel<Fold>(P, L, view, px, py, width, height, small_indent);
-  V3 acc = {0.0f, 0.0f, 0.0f};
-  for (int s = 0; s < samples; ++s) {
-    acc = add3(acc, trace_sample<kStub, Fold>(P, L, p, s, seed, reflections, small_indent));
-  }
-  const float inv = 1.0f / static_cast<float>(samples);
-  float* px_out = out + (static_cast<long long>(frame) * total + lin) * 3;
-  px_out[0] = acc.x * inv;
-  px_out[1] = acc.y * inv;
-  px_out[2] = acc.z * inv;
-}
-
-// The launch's dynamic shared memory: the params, padded to 16 bytes, and
-// the fold table.
-size_t shared_bytes(const Layout& L, const Hints& H) {
-  const int singles = H.n_singles < 0 ? L.n_spaces : H.n_singles;
-  const size_t recs = 1 + H.n_pairs + 2 * singles + 2 * L.n_spheres +
-                      kCylinderRecs * (H.n_cylinders > 0 ? H.n_cylinders : 0) +
-                      (H.cylinders_union >= 0 ? kUnionRecs : 0) +
-                      (H.hypercube >= 0 ? kHypercubeRecs : 0) + (H.tiger >= 0 ? kTigerRecs : 0);
-  return static_cast<size_t>((L.size + 3) / 4) * sizeof(Rec) + recs * sizeof(Rec);
-}
-
-// Validates the arguments and launches forward_kernel<kStub, Fold>;
-// returns cudaGetLastError() after the launch.
-template <int kStub, class Fold>
-int launch_forward(const float* params, long long row_stride, const uint32_t* seeds, int n_frames,
-                   const Layout& L, const Hints& H, int width, int height, int row0, int n_rows,
-                   int samples, int reflections, float small_indent, float* out, void* stream) {
-  const long long total = static_cast<long long>(L.n_views) * n_rows * width;
-  const size_t smem = shared_bytes(L, H);
-  if (total <= 0 || row0 < 0 || n_rows <= 0 || row0 + n_rows > height || n_frames <= 0 ||
-      samples <= 0 || row_stride < 0 || smem > 48 * 1024 || !hints_valid(L, H) ||
-      (total + kK1Block - 1) / kK1Block > 0x7FFFFFFFLL || n_frames > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  dim3 grid(static_cast<unsigned>((total + kK1Block - 1) / kK1Block),
-            static_cast<unsigned>(n_frames));
-  forward_kernel<kStub, Fold><<<grid, kK1Block, smem, static_cast<cudaStream_t>(stream)>>>(
-      params, row_stride, seeds, L, H, width, height, row0, n_rows, samples, reflections,
-      small_indent, out);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // The composite instance of the fold: one for each library composite
 // scene with its hints (its single kind, its families' hints fixed; its

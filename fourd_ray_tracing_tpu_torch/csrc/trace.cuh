@@ -191,20 +191,88 @@ __device__ __forceinline__ float w_by_volume_poly(float v) {
   return mirrored ? -acc : acc;
 }
 
-template <int kStub = kStubNone>
-__device__ __forceinline__ V4 direction_from_uniforms(float u_w, float u_z, float u_fi) {
+// --- ops/sampler.py ("kepler", "newton") ------------------------------
+// The sampler of a trace, a template argument: "poly" (the production
+// mode), "kepler" (Halley steps on Kepler's equation, their count a launch
+// argument) and "newton" (the reference's finite-difference do-while, the
+// oracle's mode). The last two call the CUDA math library's expf, logf,
+// sinf, cosf and acosf, as torch's CUDA ops do; never their fast
+// intrinsics.
+constexpr int kSamplerPoly = 0, kSamplerKepler = 1, kSamplerNewton = 2;
+// Newton's cap on a lane's steps (sampler.py w_by_volume_newton).
+constexpr int kNewtonMaxIters = 64;
+
+// The CDF of the w-marginal of the uniform S^3 distribution.
+__device__ __forceinline__ float volume_by_w(float w) {
+  return (w * sqrtf(1.0f - w * w) - acosf(w)) / kPi + 1.0f;
+}
+
+// Newton from w = 0 with the one-sided difference of step SMALL_FLOAT,
+// until the lane's first |dw| < SMALL_FLOAT (that step taken) or after
+// kNewtonMaxIters steps: the JAX while_loop's per-lane semantics.
+__device__ __forceinline__ float w_by_volume_newton(float v) {
+  float w = 0.0f;
+  for (int it = 0; it < kNewtonMaxIters; ++it) {
+    const float old_v = volume_by_w(w);
+    const float df = w > 0.0f ? old_v - volume_by_w(w - kSmallFloat)
+                              : volume_by_w(w + kSmallFloat) - old_v;
+    const float new_w = w - kSmallFloat / df * (old_v - v);
+    const bool keep_going = fabsf(new_w - w) >= kSmallFloat;
+    w = new_w;
+    if (!keep_going) break;
+  }
+  return w;
+}
+
+// x - sin(x) = c on [0, pi] from the cube-root seed exp(log(6c) / 3) by
+// ``iters`` Halley steps, mirrored for c > pi; w = cos(x / 2).
+__device__ __forceinline__ float w_by_volume_kepler(float v, int iters) {
+  const float c = kTwoPi * (1.0f - v);
+  const bool mirrored = c > kPi;
+  const float c_half = mirrored ? kTwoPi - c : c;
+  const float c6 = 6.0f * c_half;
+  float x = c6 > 0.0f ? expf(logf(c6) * kThird) : 0.0f;
+  for (int i = 0; i < iters; ++i) {
+    const float s = sinf(x);
+    const float co = cosf(x);
+    const float f = x - s - c_half;
+    const float fp = 1.0f - co;
+    const float denom = 2.0f * fp * fp - f * s;
+    x = x - 2.0f * f * fp / (fabsf(denom) < kTiny30 ? kTiny30 : denom);
+  }
+  x = mirrored ? kTwoPi - x : x;
+  return cosf(0.5f * x);
+}
+
+template <int kStub = kStubNone, int kSampler = kSamplerPoly>
+__device__ __forceinline__ V4 direction_from_uniforms(float u_w, float u_z, float u_fi,
+                                                      int iters = 0) {
   if constexpr ((kStub & kStubSampler) != 0) {
     // 0 * (u_w + u_z + u_fi) keeps the three draws live; the uniforms are
     // finite, so the value is 0.5 exactly.
     const float half = 0.0f * (u_w + u_z + u_fi) + 0.5f;
     return {half, half, half, half};
   }
-  float w = w_by_volume_poly(u_w);
+  float w;
+  if constexpr (kSampler == kSamplerNewton) {
+    w = w_by_volume_newton(u_w);
+  } else if constexpr (kSampler == kSamplerKepler) {
+    w = w_by_volume_kepler(u_w, iters);
+  } else {
+    w = w_by_volume_poly(u_w);
+  }
   float r = sqrtf(fmaxf(1.0f - w * w, 0.0f));
   float z = (u_z * 2.0f - 1.0f) * r;
   float rho = sqrtf(fmaxf(r * r - z * z, 0.0f));
   float sin_fi, cos_fi;
-  sincos_2pi(u_fi, sin_fi, cos_fi);
+  if constexpr (kSampler == kSamplerNewton) {
+    // The exact circular functions of fi = u_fi * 2 pi (the oracle's).
+    const float fi = u_fi * kTwoPi;
+    sin_fi = sinf(fi);
+    cos_fi = cosf(fi);
+  } else {
+    sincos_2pi(u_fi, sin_fi, cos_fi);
+  }
   return {rho * cos_fi, rho * sin_fi, z, w};
 }
 
@@ -419,8 +487,23 @@ __device__ __forceinline__ Rec face_rec(const float* P, const float* c, const fl
           bits(static_cast<uint32_t>(mat - P))};
 }
 
+// The hypercube's axis hint for one built from its cells alone (no
+// generators), which only the folds that read its cells take: the fast
+// fold's instance with kCube == kCubeCells and the spec fold (kTableCells).
+constexpr int kCubeCells = -2;
+
+// Per axis i, the +cell's material offset | the -cell's << 16, of the
+// hypercube at ``hc`` in the params.
+__device__ __forceinline__ uint32_t cell_mats(int hc, int i) {
+  const uint32_t pos = static_cast<uint32_t>(kCubeFloats * i + 21 + hc);
+  return pos | (pos + 4u * kCubeFloats) << 16;
+}
+
 // Writes the records of the composite kind ``kind`` (one cylinder, index
-// ``j``) at ``T`` from the descriptor.
+// ``j``) at ``T`` from the descriptor. kCells: a hypercube may come
+// without generators (its axis hint kCubeCells), whose records are its
+// hint and its cells' materials only.
+template <bool kCells = false>
 __device__ void write_composite(Rec* T, const float* P, const Hints& H, int kind, int j) {
   if (kind == kCompCylinders) {
     const float* c = P + H.cylinders + kCylinderFloats * j;
@@ -437,14 +520,21 @@ __device__ void write_composite(Rec* T, const float* P, const Hints& H, int kind
     const float* hc = P + H.hypercube;
     const float* g = hc + 8 * kCubeFloats;  // the generators: point, axes, r
     const int code = H.hypercube_axes;
+    if constexpr (kCells) {
+      if (code == kCubeCells) {
+        T[5] = {0.0f, bits(static_cast<uint32_t>(code)), 0.0f, 0.0f};
+        T[7] = {bits(cell_mats(H.hypercube, 0)), bits(cell_mats(H.hypercube, 1)),
+                bits(cell_mats(H.hypercube, 2)), bits(cell_mats(H.hypercube, 3))};
+        return;
+      }
+    }
     for (int i = 0; i < 5; ++i) T[i] = {g[4 * i], g[4 * i + 1], g[4 * i + 2], g[4 * i + 3]};
     T[5] = {g[20], bits(static_cast<uint32_t>(code)), 0.0f, 0.0f};
     float sg[4];
     uint32_t mats[4];
     for (int i = 0; i < 4; ++i) {
       sg[i] = code >= 0 && ((code >> (8 + i)) & 1) ? -1.0f : 1.0f;
-      const uint32_t pos = static_cast<uint32_t>(kCubeFloats * i + 21 + H.hypercube);
-      mats[i] = pos | (pos + 4u * kCubeFloats) << 16;
+      mats[i] = cell_mats(H.hypercube, i);
     }
     T[6] = {sg[0], sg[1], sg[2], sg[3]};
     T[7] = {bits(mats[0]), bits(mats[1]), bits(mats[2]), bits(mats[3])};
@@ -472,7 +562,8 @@ __host__ __device__ __forceinline__ int composite_kinds(const Hints& H) {
 
 // Writes the fold table from the params P (both in shared memory); thread
 // ``t`` of ``n_threads`` writes every n_threads-th record. The caller
-// synchronises after it.
+// synchronises after it. kCells: as write_composite's.
+template <bool kCells = false>
 __device__ void build_fold_table(const float* P, const Layout& L, const Hints& H, int t,
                                  int n_threads) {
   Rec* T = const_cast<Rec*>(fold_table(P, L));
@@ -521,7 +612,7 @@ __device__ void build_fold_table(const float* P, const Layout& L, const Hints& H
     k -= L.n_spheres;
     Rec* rec = T + 1 + np + 2 * ns + 2 * L.n_spheres;
     if (k < n_cyl) {
-      write_composite(rec + kCylinderRecs * k, P, H, kCompCylinders, k);
+      write_composite<kCells>(rec + kCylinderRecs * k, P, H, kCompCylinders, k);
       continue;
     }
     k -= n_cyl;
@@ -531,7 +622,7 @@ __device__ void build_fold_table(const float* P, const Layout& L, const Hints& H
       const int kind = order[q];
       if (!(kinds & kind)) continue;
       if (k-- == 0) {
-        write_composite(rec, P, H, kind, 0);
+        write_composite<kCells>(rec, P, H, kind, 0);
         break;
       }
       rec += kind == kCompUnion ? kUnionRecs : kind == kCompHypercube ? kHypercubeRecs : kTigerRecs;
@@ -572,6 +663,182 @@ __device__ __forceinline__ void live_dots(V4 o, V4 d, const Rec& n, uint32_t mas
 // kSingles of a table without hints: the count read from the table, every
 // single plane's four components live.
 constexpr int kAllLive = -2;
+
+// --- ops/geometry.py: the literal per-primitive intersections -----------
+//
+// The records of the literal fold (geometry.Intersection): the hit, its
+// distance and normal, and the material's place in the params; every
+// operation in the plain version's order. kTrig takes the reference's
+// trigonometric solution of the sphere, and of a cylinder's circle
+// (acosf, sinf, asinf, cosf).
+struct Lit {
+  bool hit;
+  float dist;
+  V4 norm;
+  const float* mat;
+};
+
+__device__ __forceinline__ V4 neg4(V4 a) { return {-a.x, -a.y, -a.z, -a.w}; }
+
+// geometry.closest(c, acc): a strictly nearer hit replaces the record.
+__device__ __forceinline__ void closest(const Lit& c, Lit& acc) {
+  if (c.hit && (!acc.hit || c.dist < acc.dist)) acc = c;
+}
+
+__device__ __forceinline__ float safe_length(V4 v) { return sqrtf(dot4(v, v) + kTiny37); }
+
+// vec4.point_in_space and vec4.vec_in_space.
+__device__ __forceinline__ V4 point_in_space(V4 p, V4 sp, V4 sn) {
+  return add4(p, mul4s(sn, dot4(sub4(sp, p), sn)));
+}
+__device__ __forceinline__ V4 vec_in_space(V4 v, V4 n) { return sub4(v, mul4s(n, dot4(v, n))); }
+
+// geometry.sphere_intersection (quadratic) or sphere_intersection_trig.
+template <bool kTrig>
+__device__ __forceinline__ Lit sphere_lit(V4 center, float r, const float* mat, V4 o, V4 d,
+                                          bool outer) {
+  const V4 po = sub4(center, o);
+  bool use_near, hit;
+  float dist;
+  if constexpr (kTrig) {
+    const float l = sqrtf(dot4(po, po));
+    const bool degenerate = l < kSmallFloat;
+    const float dot_pord = dot4(po, d);
+    const bool miss_receding = !degenerate && (l >= r && dot_pord < 0.0f);
+    const float cos_opa =
+        degenerate ? 0.0f : fminf(fmaxf(dot_pord / fmaxf(l, kTiny30), -1.0f), 1.0f);
+    const float angle_opa = acosf(cos_opa);
+    const float sin_oap = l * sinf(angle_opa) / r;
+    const bool miss_tangent = sin_oap >= 1.0f;
+    float angle_oap = asinf(fminf(fmaxf(sin_oap, -1.0f), 1.0f));
+    use_near = outer && l > r;
+    angle_oap = use_near ? kPi - angle_oap : angle_oap;
+    const float angle_aop = kPi - angle_opa - angle_oap;
+    dist = sqrtf(fmaxf(r * r + l * l - 2.0f * r * l * cosf(angle_aop), 0.0f));
+    hit = !(miss_receding || miss_tangent);
+  } else {
+    const float l2 = dot4(po, po);
+    const float l = sqrtf(l2 + kTiny37);
+    const bool degenerate = l < kSmallFloat;
+    const float b = degenerate ? 0.0f : dot4(po, d);
+    const bool miss_receding = !degenerate && (l >= r && b < 0.0f);
+    const float disc = r * r - (l2 - b * b);
+    const bool miss_tangent = disc <= 0.0f;
+    const float sq = miss_tangent ? 0.0f : sqrtf(disc);
+    use_near = outer && l > r;
+    dist = use_near ? b - sq : b + sq;
+    hit = !(miss_receding || miss_tangent);
+  }
+  const V4 n = mul4s(sub4(center, add4(o, mul4s(d, dist))), 1.0f / r);
+  return {hit, dist, use_near ? neg4(n) : n, mat};
+}
+
+// geometry.space_intersection of the plane at ``sp`` in the params.
+__device__ __forceinline__ Lit space_lit(const float* sp, V4 o, V4 d) {
+  const V4 n = ld4(sp + 4);
+  const float dot_vn = dot4(sub4(ld4(sp), o), n);
+  const V4 drct_h = mul4s(n, sign_of(dot_vn));
+  const float cos_dh = dot4(drct_h, d);
+  const bool hit = cos_dh >= kSmallFloat;
+  return {hit, fabsf(dot_vn) / (hit ? cos_dh : 1.0f), neg4(drct_h), sp + 8};
+}
+
+// geometry.cylinder_intersection of the cylinder spec at ``c`` (point,
+// axis1, axis2, r, material).
+template <bool kTrig>
+__device__ __forceinline__ Lit cylinder_lit(const float* c, V4 o, V4 d, bool outer) {
+  const V4 point = ld4(c), a1 = ld4(c + 4), a2 = ld4(c + 8);
+  const V4 o1 = point_in_space(o, point, a1);
+  const V4 d1 = vec_in_space(d, a1);
+  const bool miss1 = safe_length(d1) < kSmallFloat;
+  const V4 o12 = point_in_space(o1, point, a2);
+  const V4 d12 = vec_in_space(d1, a2);
+  const float d12_len = safe_length(d12);
+  const bool miss2 = d12_len < kSmallFloat;
+  const float inv_len = 1.0f / (miss2 ? 1.0f : d12_len);
+  Lit s = sphere_lit<kTrig>(point, c[12], c + 13, o12, mul4s(d12, inv_len), outer);
+  s.hit = s.hit && !(miss1 || miss2);
+  s.dist = s.dist * inv_len;
+  return s;
+}
+
+// geometry.dist_to_axes_plane: from the ray's point at ``dist`` to the
+// axis plane of the cylinder spec at ``c``.
+__device__ __forceinline__ float dist_to_axes_plane(float dist, V4 o, V4 d, const float* c) {
+  const V4 point = ld4(c);
+  const V4 p = add4(o, mul4s(d, dist));
+  return safe_length(
+      sub4(point, point_in_space(point_in_space(p, point, ld4(c + 4)), point, ld4(c + 8))));
+}
+
+// geometry.cylinders_union_intersection: both arms clipped at cylinder 2's
+// radius (the reference's quirk).
+template <bool kTrig>
+__device__ __forceinline__ Lit union_lit(const float* c1, const float* c2, V4 o, V4 d) {
+  Lit a = cylinder_lit<kTrig>(c1, o, d, true);
+  a.hit = a.hit && dist_to_axes_plane(a.dist, o, d, c2) <= c2[12];
+  Lit b = cylinder_lit<kTrig>(c2, o, d, true);
+  b.hit = b.hit && dist_to_axes_plane(b.dist, o, d, c1) <= c2[12];
+  closest(a, b);
+  return b;
+}
+
+// geometry.tiger_intersection of the tiger at ``t`` (inner_cyl1,
+// outer_cyl1, inner_cyl2, outer_cyl2): the closest of its 8 faces, each
+// cylinder's hit clipped to the other family's annulus.
+template <bool kTrig>
+__device__ __forceinline__ Lit tiger_lit(const float* t, V4 o, V4 d) {
+  Lit acc;
+  acc.hit = false;
+#pragma unroll 1
+  for (int q = 0; q < 4; ++q) {
+    const float* cyl = t + kCylinderFloats * q;
+    const float* other = t + (q < 2 ? 2 : 0) * kCylinderFloats;  // the other inner cylinder
+    const float* other_out = other + kCylinderFloats;
+#pragma unroll 1
+    for (int f = 0; f < 2; ++f) {
+      Lit face = cylinder_lit<kTrig>(cyl, o, d, f == 0);
+      const float d_out = dist_to_axes_plane(face.dist, o, d, other_out);
+      const float d_in = dist_to_axes_plane(face.dist, o, d, other);
+      face.hit = face.hit && (d_out <= other_out[12] && d_in >= other[12]);
+      closest(face, acc);
+    }
+  }
+  return acc;
+}
+
+// geometry.cube_intersection of the cell at ``c`` (space_point,
+// space_norm, x, y, z, r, material): the front-facing hit within its
+// extents, its normal the cell's, unflipped.
+__device__ __forceinline__ Lit cube_lit(const float* c, V4 o, V4 d) {
+  const V4 sp = ld4(c), sn = ld4(c + 4);
+  const V4 vec_n = neg4(sn);
+  const float h = dot4(sub4(sp, o), vec_n);
+  const float cos_dn = dot4(d, vec_n);
+  const bool facing = h >= 0.0f && cos_dn >= 0.0f;
+  const float dist = h / (cos_dn == 0.0f ? kTiny30 : cos_dn);
+  const V4 vec_cp = sub4(add4(o, mul4s(d, dist)), sp);
+  const float r = c[20];
+  const bool inside = fabsf(dot4(vec_cp, ld4(c + 8))) <= r &&
+                      fabsf(dot4(vec_cp, ld4(c + 12))) <= r &&
+                      fabsf(dot4(vec_cp, ld4(c + 16))) <= r;
+  return {facing && inside, dist, sn, c + 21};
+}
+
+// geometry.hypercube_intersection of the 8 cells at ``hc``: the first cell
+// hit in their order, not the closest.
+__device__ __forceinline__ Lit hypercube_lit(const float* hc, V4 o, V4 d) {
+  Lit acc;
+  acc.hit = false;
+#pragma unroll 1
+  for (int i = 0; i < 8 && !acc.hit; ++i) acc = cube_lit(hc + kCubeFloats * i, o, d);
+  return acc;
+}
+
+// The cells of the hypercube whose records are ``rec``, in the params P.
+__device__ __forceinline__ const float* hypercube_cells(const float* P, const Rec* rec) {
+  return P + (__float_as_uint(rec[7].x) & 0xFFFFu) - 21;
+}
 
 // --- The composites' fold (scene.py:495-653, geometry.py:419-524) -------
 //
@@ -703,8 +970,8 @@ __device__ __forceinline__ void take(float cand, int k, bool a, float& best, int
 // present, kFams the duocylinder's or tiger's family hints and kCube the
 // hypercube's (-1: read from the records).
 template <int kComp, int kFams, int kCube>
-__device__ __forceinline__ void fold_composites(const Rec* C, Rec head, V4 o, V4 d, int& k,
-                                                float& best, int& idx, bool& aux) {
+__device__ __forceinline__ void fold_composites(const float* P, const Rec* C, Rec head, V4 o,
+                                                V4 d, int& k, float& best, int& idx, bool& aux) {
   const int kinds = kComp >= 0 ? kComp : static_cast<int>(__float_as_uint(head.w));
   const Rec* rec = C;
   if (kinds & kCompCylinders) {
@@ -731,7 +998,15 @@ __device__ __forceinline__ void fold_composites(const Rec* C, Rec head, V4 o, V4
     take(hit && clip_sq(F1, dist) <= r2sq ? dist : kFar, k++, use_near, best, idx, aux);
     rec += kUnionRecs;
   }
-  if (kinds & kCompHypercube) {
+  if constexpr (kCube == kCubeCells) {
+    // Without generators: the literal cell-by-cell test as one candidate
+    // (scene.py:543-545).
+    if (kinds & kCompHypercube) {
+      const Lit c = hypercube_lit(hypercube_cells(P, rec), o, d);
+      take(c.hit ? c.dist : kFar, k++, false, best, idx, aux);
+      rec += kHypercubeRecs;
+    }
+  } else if (kinds & kCompHypercube) {
     const Rec meta = rec[5];
     const float r = meta.x;
     const int code = kCube >= 0 ? kCube : static_cast<int>(__float_as_uint(meta.y));
@@ -832,7 +1107,17 @@ __device__ __forceinline__ const float* resolve_composite(const float* P, const 
     c -= 2;
     rec += kUnionRecs;
   }
-  if (kinds & kCompHypercube) {
+  if constexpr (kCube == kCubeCells) {
+    if (kinds & kCompHypercube) {
+      if (c < 1) {
+        const Lit l = hypercube_lit(hypercube_cells(P, rec), o, d);
+        norm = l.norm;
+        return l.mat;
+      }
+      c -= 1;
+      rec += kHypercubeRecs;
+    }
+  } else if (kinds & kCompHypercube) {
     if (c < 4) {
       const V4 a = v4(rec[1 + c]);
       const float sgn = aux ? 1.0f : -1.0f;
@@ -909,8 +1194,8 @@ __device__ __forceinline__ Hit intersect_table(const float* P, const Layout& L, 
   }
   bool aux = false;
   if constexpr (kComp != 0) {
-    fold_composites<kComp, kFams, kCube>(spheres + 2 * L.n_spheres, head, o, d, k, best, idx,
-                                         aux);
+    fold_composites<kComp, kFams, kCube>(P, spheres + 2 * L.n_spheres, head, o, d, k, best,
+                                         idx, aux);
   }
   aux_out = aux;
 
@@ -1052,6 +1337,82 @@ __device__ __forceinline__ Hit fold(GradCompositeFold<kPairs, kSingles, kComp, k
   return h;
 }
 
+// --- models/scene.py:intersect_scene_spec, the literal fold ---------------
+//
+// The closest hit over every primitive, each by its literal intersection,
+// folded by ``closest`` in the JAX order: the planes, the spheres, the
+// cylinders, the duocylinder, the hypercube (its first cell hit), the
+// tiger. The planes and spheres come from the params by the layout; the
+// composites' specs by the offsets that the fold table's records hold (a
+// launch of this fold carries no hints, so the table's planes are all
+// singles). kTrig: the reference's trigonometric sphere solution, in the
+// spheres and in the cylinders.
+template <bool kTrig>
+__device__ Hit intersect_spec(const float* P, const Layout& L, V4 o, V4 d) {
+  Lit acc;
+  acc.hit = false;
+  for (int i = 0; i < L.n_spaces; ++i) closest(space_lit(P + L.spaces + kSpaceFloats * i, o, d), acc);
+  for (int j = 0; j < L.n_spheres; ++j) {
+    const float* s = P + L.spheres + kSphereFloats * j;
+    closest(sphere_lit<kTrig>(ld4(s), s[4], s + 5, o, d, true), acc);
+  }
+  const Rec* T = fold_table(P, L);
+  const Rec head = T[0];
+  const int kinds = static_cast<int>(__float_as_uint(head.w));
+  const int np = static_cast<int>(__float_as_uint(head.x));
+  const int ns = static_cast<int>(__float_as_uint(head.y));
+  const Rec* rec = T + 1 + np + 2 * ns + 2 * L.n_spheres;
+  // A face record's material lies at its cylinder's spec + 13.
+  const auto spec_of = [P](Rec face) { return P + __float_as_uint(face.w) - 13; };
+  if (kinds & kCompCylinders) {
+    const int n_cyl = static_cast<int>(__float_as_uint(head.z));
+    for (int c = 0; c < n_cyl; ++c, rec += kCylinderRecs) {
+      closest(cylinder_lit<kTrig>(spec_of(rec[4]), o, d, true), acc);
+    }
+  }
+  if (kinds & kCompUnion) {
+    closest(union_lit<kTrig>(spec_of(rec[8]), spec_of(rec[9]), o, d), acc);
+    rec += kUnionRecs;
+  }
+  if (kinds & kCompHypercube) {
+    closest(hypercube_lit(hypercube_cells(P, rec), o, d), acc);
+    rec += kHypercubeRecs;
+  }
+  if (kinds & kCompTiger) closest(tiger_lit<kTrig>(spec_of(rec[8]), o, d), acc);
+
+  Hit h;
+  h.hit = acc.hit;
+  h.idx = 0;
+  if (!acc.hit) {
+    h.dist = 0.0f;
+    h.norm = {0.0f, 0.0f, 0.0f, 0.0f};
+    h.glow = h.refl = 0.0f;
+    h.color = {0.0f, 0.0f, 0.0f};
+    return h;
+  }
+  h.dist = acc.dist;
+  h.norm = acc.norm;
+  h.glow = acc.mat[0];
+  h.refl = acc.mat[1];
+  h.color = ld3(acc.mat + 2);
+  return h;
+}
+
+// SpecFold<kTrig>: intersect_spec (K1's spec and trig launches).
+template <bool kTrig> struct SpecFold {};
+template <bool kTrig>
+__device__ __forceinline__ Hit fold(SpecFold<kTrig>, const float* P, const Layout& L, V4 o, V4 d) {
+  return intersect_spec<kTrig>(P, L, o, d);
+}
+
+// Whether a fold reads a hypercube's cells from its table (build_fold_table
+// then writes a hypercube without generators): the fast fold's cells
+// instance and the spec folds.
+template <class Fold> constexpr bool kTableCells = false;
+template <int kPairs, int kSingles, int kComp, int kFams>
+constexpr bool kTableCells<CompositeFold<kPairs, kSingles, kComp, kFams, kCubeCells>> = true;
+template <bool kTrig> constexpr bool kTableCells<SpecFold<kTrig>> = true;
+
 // Whether a gradient kernel's fold reads a table (GradTableFold,
 // GradCompositeFold), which its blocks build after the params
 // (build_table_for), and whether it folds composites.
@@ -1162,17 +1523,30 @@ __host__ __device__ __forceinline__ size_t params_table_bytes(int P, int recs) {
 // diffuse; a diffuse lane draws three more uniforms for the sampler.
 // ``mirror`` and ``v`` (the diffuse sample before redirect) report the
 // outcome, for the adjoint.
-template <int kStub = kStubNone>
+template <int kStub = kStubNone, int kSampler = kSamplerPoly>
 __device__ __forceinline__ V4 scatter(V4 norm, V4 mirrored, float refl_prob, uint32_t bits,
-                                      uint32_t seed, uint32_t& counter, bool& mirror, V4& v) {
+                                      uint32_t seed, uint32_t& counter, bool& mirror, V4& v,
+                                      int iters = 0) {
   float u_refl = draw<kStub>(bits, seed, counter);
   mirror = u_refl <= refl_prob;
   if (mirror) return mirrored;
   float u_w = draw<kStub>(bits, seed, counter);
   float u_z = draw<kStub>(bits, seed, counter);
   float u_fi = draw<kStub>(bits, seed, counter);
-  v = direction_from_uniforms<kStub>(u_w, u_z, u_fi);
+  v = direction_from_uniforms<kStub, kSampler>(u_w, u_z, u_fi, iters);
   return redirect(v, norm);
+}
+
+// The reference's draws on a trace's final iteration, whose direction is
+// never used (renderer.py:365-375): one Bernoulli on a live lane, three
+// more on a diffuse one. Only a sequential stream pays them, so that the
+// next sample's stream is the reference's.
+template <int kStub = kStubNone>
+__device__ __forceinline__ void dead_draws(float refl_prob, uint32_t bits, uint32_t seed,
+                                           uint32_t& counter) {
+  if (draw<kStub>(bits, seed, counter) > refl_prob) {
+    for (int k = 0; k < 3; ++k) draw<kStub>(bits, seed, counter);
+  }
 }
 
 // --- one pixel: primary ray and bounce 0 (renderer.precompute_bounce0) --
@@ -1221,21 +1595,39 @@ __device__ Pixel setup_pixel(const float* P, const Layout& L, int view, int px, 
   return p;
 }
 
+// The RNG stream of a trace, a template argument: kRngPerSample, sample
+// s's own stream from the seed (the production kernels); kRngArg, a launch
+// argument picks that or the sequential stream.
+constexpr int kRngPerSample = 0, kRngArg = -1;
+
 // The trace of sample ``s`` from the hoisted bounce 0 (renderer.trace_rays);
 // returns its light. kStub selects a measurement variant's stubs
-// (kStubNone: the production trace), Fold the fold.
-template <int kStub = kStubNone, class Fold = ParamsFold>
+// (kStubNone: the production trace), Fold the fold, kSampler the sampler
+// (``iters``: kepler's Halley steps). With kRngArg and ``sequential`` the
+// sample draws from the pixel's bits and ``carried``'s counter, pays the
+// dead draws of its final iteration and leaves its counter in ``carried``
+// for the next sample; otherwise from its own stream.
+template <int kStub, class Fold, int kSampler, int kRng>
 __device__ V3 trace_sample(const float* P, const Layout& L, const Pixel& p, int s, uint32_t seed,
-                           int reflections, float small_indent) {
+                           int reflections, float small_indent, bool sequential, int iters,
+                           uint32_t& carried) {
+  const bool seq = kRng != kRngPerSample && sequential;
   V3 result = p.result0;
-  if (reflections <= 0 || !p.h0.hit) return result;
+  if (reflections <= 0 || !p.h0.hit) {
+    if constexpr (kRng != kRngPerSample) {
+      if (seq && p.h0.hit) dead_draws<kStub>(p.h0.refl, p.bits, seed, carried);
+    }
+    return result;
+  }
   const bool env_on = L.env_enabled != 0;
   const float* env = P + L.env;
-  const uint32_t bits = p.bits ^ hash_u32((static_cast<uint32_t>(s) + 1u) * kSampleFold);
-  uint32_t counter = seed;
+  const uint32_t bits =
+      seq ? p.bits : p.bits ^ hash_u32((static_cast<uint32_t>(s) + 1u) * kSampleFold);
+  uint32_t counter = seq ? carried : seed;
   bool mirror;
   V4 v = {0.0f, 0.0f, 0.0f, 0.0f};
-  V4 d = scatter<kStub>(p.h0.norm, p.mirrored0, p.h0.refl, bits, seed, counter, mirror, v);
+  V4 d = scatter<kStub, kSampler>(p.h0.norm, p.mirrored0, p.h0.refl, bits, seed, counter, mirror,
+                                  v, iters);
   V4 o = p.o0;
   V3 throughput = p.throughput0;
   bool alive = true;
@@ -1247,15 +1639,33 @@ __device__ V3 trace_sample(const float* P, const Layout& L, const Pixel& p, int 
       result = add3(result, mul3(mul3s(h.color, h.glow), throughput));
       throughput = mul3(throughput, h.color);
       o = add4(add4(o, mul4s(d, h.dist)), mul4s(h.norm, small_indent));
-      d = scatter<kStub>(h.norm, reflect(d, h.norm), h.refl, bits, seed, counter, mirror, v);
+      d = scatter<kStub, kSampler>(h.norm, reflect(d, h.norm), h.refl, bits, seed, counter,
+                                   mirror, v, iters);
     }
   }
   if (alive) {  // the last bounce only shades
     Hit h = fold(Fold{}, P, L, o, d);
     if (env_on && !h.hit) result = add3(result, mul3(throughput, final_light(env, d)));
-    if (h.hit) result = add3(result, mul3(mul3s(h.color, h.glow), throughput));
+    if (h.hit) {
+      result = add3(result, mul3(mul3s(h.color, h.glow), throughput));
+      if constexpr (kRng != kRngPerSample) {
+        if (seq) dead_draws<kStub>(h.refl, bits, seed, counter);
+      }
+    }
+  }
+  if constexpr (kRng != kRngPerSample) {
+    if (seq) carried = counter;
   }
   return result;
+}
+
+// The production trace: sample s's own stream, the poly sampler.
+template <int kStub = kStubNone, class Fold = ParamsFold>
+__device__ __forceinline__ V3 trace_sample(const float* P, const Layout& L, const Pixel& p, int s,
+                                           uint32_t seed, int reflections, float small_indent) {
+  uint32_t unused = seed;
+  return trace_sample<kStub, Fold, kSamplerPoly, kRngPerSample>(P, L, p, s, seed, reflections,
+                                                               small_indent, false, 0, unused);
 }
 
 // --- the host's checks of a hints descriptor (K1's launch and the
@@ -1273,14 +1683,18 @@ inline bool family_hint_valid(int code) {
 }
 
 // Whether the descriptor's composites are ones the table can hold: counts
-// in range, every spec inside the params, every axis hint well formed.
-inline bool composites_valid(const Layout& L, const Hints& H) {
+// in range, every spec inside the params, every axis hint well formed; a
+// hypercube without generators (kCubeCells) only where ``cells`` allows it
+// (a launch of a fold that reads cells: kTableCells).
+inline bool composites_valid(const Layout& L, const Hints& H, bool cells = false) {
+  const bool bare = cells && H.hypercube_axes == kCubeCells;
   if (H.n_cylinders < 0 || H.n_cylinders > kMaxCylinders ||
       (H.n_cylinders > 0) != (H.cylinders >= 0) ||
       !offset_valid(L, H.cylinders, kCylinderFloats * H.n_cylinders) ||
       !offset_valid(L, H.cylinders_union, 2 * kCylinderFloats) ||
-      !offset_valid(L, H.hypercube, kHypercubeFloats) || !offset_valid(L, H.tiger, kTigerFloats) ||
-      H.hypercube_axes < -1 || H.hypercube_axes > 0xFFF) {
+      !offset_valid(L, H.hypercube, bare ? 8 * kCubeFloats : kHypercubeFloats) ||
+      !offset_valid(L, H.tiger, kTigerFloats) || (H.hypercube_axes < -1 && !bare) ||
+      H.hypercube_axes > 0xFFF) {
     return false;
   }
   for (int i = 0; i < H.n_cylinders; ++i) {
@@ -1294,9 +1708,9 @@ inline bool composites_valid(const Layout& L, const Hints& H) {
 // composites valid, counts in range, pairs' axes 0-3, live masks 0-15, and
 // the pairs' and singles' plane indices cover each of the layout's planes
 // exactly once (a pair's two planes differ). Without hints (n_singles -1)
-// the fold covers every plane itself.
-inline bool hints_valid(const Layout& L, const Hints& H) {
-  if (!composites_valid(L, H)) return false;
+// the fold covers every plane itself. ``cells``: as composites_valid's.
+inline bool hints_valid(const Layout& L, const Hints& H, bool cells = false) {
+  if (!composites_valid(L, H, cells)) return false;
   if (H.n_singles < 0) return H.n_singles == -1 && H.n_pairs == 0;
   if (H.n_pairs < 0 || H.n_pairs > kMaxHintPlanes / 2 || H.n_singles > kMaxHintPlanes ||
       L.n_spaces > kMaxHintPlanes || 2 * H.n_pairs + H.n_singles != L.n_spaces) {

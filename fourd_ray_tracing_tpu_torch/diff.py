@@ -47,7 +47,12 @@ With a ``mesh`` (parallel/mesh.py) rank (r, s) holds rows block r
 Every gradient path takes the static hints under the freeze_hints
 contract (``with_frozen_hints``, diff.py:415-455: the production
 configuration of every JAX bench training line), and refuses them without
-it (renderer.check_trainable). Under it the kernel route launches K1/K2,
+it (renderer.check_trainable). The plain route takes every configuration
+the plain pipeline renders; the kernel route refuses those the gradient
+kernels do not take (gradkernel.check_kernel_config: the sequential
+stream, the kepler and newton samplers, the spec and trig folds, a
+hypercube without generators), on either device. Under the contract the
+kernel route launches K1/K2,
 K4, K5 and K6 with the forward's hinted fold, and the kernels write the
 frozen slots (every hyperplane normal; the hinted composite axes) as 0,
 every other gradient and the loss being the unhinted launch's; the plain
@@ -76,7 +81,7 @@ from torch import nn
 from fourd_ray_tracing_tpu_torch.camera import Camera
 from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
-from fourd_ray_tracing_tpu_torch.models.scene import COMPOSITE_KINDS, Scene
+from fourd_ray_tracing_tpu_torch.models.scene import COMPOSITE_KINDS, Scene, cells_only
 from fourd_ray_tracing_tpu_torch.ops import geometry as geo
 from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel, megakernel
 from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
@@ -478,7 +483,9 @@ def image_loss_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camera,
     differentiable w.r.t. ``vec``: K4 for a CUDA vector, the plain
     expression for a CPU one. With a mesh, the whole image's loss and
     gradient on every rank from one K4 launch per rank on its rows (on
-    the CPU, K4's plain version on them)."""
+    the CPU, K4's plain version on them). Either device takes what K4 takes
+    (gradkernel.check_kernel_config)."""
+    gradkernel.check_kernel_config(cfg, cells_only(like_scene))
     if mesh is not None:
         return ImageLoss.apply(vec, like_scene, like_camera, cfg, seed, target, mesh)
     if vec.device.type == "cpu":
@@ -506,7 +513,7 @@ class RenderLight(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vec, like_scene, like_camera, cfg, seed, mesh=None):
         cfg = gradkernel._auto_hints(like_scene, cfg)
-        renderer.check_trainable(cfg)
+        gradkernel.check_kernel_config(cfg, cells_only(like_scene))
         words, batched = renderer.seed_words(seed)
         if batched:
             raise ValueError("the light-VJP path takes one scalar seed")
@@ -542,9 +549,10 @@ def render_light_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camer
     in ``vec`` (P,), differentiable w.r.t. ``vec``: K1 forward and K5
     backward for a CUDA vector, the plain pipeline for a CPU one. Under the
     freeze_hints contract both fold with the hints and the frozen slots
-    get no gradient."""
+    get no gradient. Either device takes what K5 takes
+    (gradkernel.check_kernel_config)."""
     cfg = gradkernel._auto_hints(like_scene, cfg)
-    renderer.check_trainable(cfg)
+    gradkernel.check_kernel_config(cfg, cells_only(like_scene))
     if vec.device.type == "cpu":
         scene, camera = params.unpack(vec, like_scene, like_camera)
         return renderer.render_light(stop_frozen(scene, cfg), camera, cfg, seed)
@@ -625,9 +633,10 @@ def soft_image_loss_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Ca
     gradient on every rank from one K6 launch per rank on its rows (on the
     CPU, K6's plain version on them), the coverage differentiated through
     the rank's rows and summed over the ranks; a hyperplane with a mesh
-    raises ValueError, as in the JAX package."""
+    raises ValueError, as in the JAX package. Either device takes what K6
+    takes (gradkernel.check_kernel_config)."""
     cfg = gradkernel._auto_hints(like_scene, cfg)
-    renderer.check_trainable(cfg)
+    gradkernel.check_kernel_config(cfg, cells_only(like_scene))
     if mesh is not None:
         if object_ref[0] == "spaces":
             raise ValueError("mesh-sharded soft training supports zero-emulatable object "
@@ -710,7 +719,10 @@ def make_train_step(cfg: RenderConfig, lr: float, camera: Camera,
     """
     soft = soft_sphere_index is not None or soft_object_ref is not None
     _check_impl(impl, frames_per_step, soft)
-    renderer.check_trainable(cfg)
+    if impl == "kernel":
+        gradkernel.check_kernel_config(cfg)
+    else:
+        renderer.check_trainable(cfg)
     ref = soft_object_ref or ("spheres", soft_sphere_index or 0)
 
     def init(scene: Scene):
@@ -788,7 +800,7 @@ def make_packed_train_step(cfg: RenderConfig, lr: float, camera: Camera, scene_t
     its hints are derived here when it asks for the contract and has none.
     """
     cfg = gradkernel._auto_hints(scene_template, cfg)
-    renderer.check_trainable(cfg)
+    gradkernel.check_kernel_config(cfg, cells_only(scene_template))
     n = params.n_scene(scene_template)
     cam_vec = params.pack(scene_template, camera).detach()[n:]
     masks = [m for m in (None if param_filter is None else

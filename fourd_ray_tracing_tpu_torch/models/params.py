@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from fourd_ray_tracing_tpu_torch.camera import Camera
-from fourd_ray_tracing_tpu_torch.models.scene import (COMPOSITE_KINDS, Scene, check_supported,
+from fourd_ray_tracing_tpu_torch.models.scene import (COMPOSITE_KINDS, Scene, cells_only,
                                                        freeze_hint_grads)
 from fourd_ray_tracing_tpu_torch.ops.sky import Environment
 
@@ -26,8 +26,10 @@ from fourd_ray_tracing_tpu_torch.ops.sky import Environment
 # center(4) r glow refl color(3); a cylinder point(4) axis1(4) axis2(4) r
 # glow refl color(3); the duocylinder two cylinders, the tiger four; the
 # hypercube 8 cells of space_point(4) space_norm(4) x(4) y(4) z(4) r glow
-# refl color(3), then its point(4), axes(16) and r. The environment is sun
-# drct(4), angular_size, light(3), sharpness, sky_light(3).
+# refl color(3), then its point(4), axes(16) and r (a hypercube built from
+# its cells alone packs the cells only, as the JAX package's _pack_pytree
+# packs the leaves that exist). The environment is sun drct(4),
+# angular_size, light(3), sharpness, sky_light(3).
 SPACE_FLOATS = 13
 SPHERE_FLOATS = 10
 CYLINDER_FLOATS = 18
@@ -246,7 +248,8 @@ class Layout(NamedTuple):
     ``top``/``right`` component c of view v sits at top + c*n_views + v.
     The first KERNEL_LAYOUT_INTS fields are the kernels' Layout; the
     composite primitives' count and offsets follow (-1 when the scene has
-    none), which the forward kernel takes in its hints descriptor."""
+    none), which the forward kernel takes in its hints descriptor, and
+    whether the hypercube is one without generators (its 8 cells only)."""
 
     n_spaces: int
     n_spheres: int
@@ -267,6 +270,7 @@ class Layout(NamedTuple):
     cylinders_union: int = -1
     hypercube: int = -1
     tiger: int = -1
+    hypercube_cells: int = 0
 
     def composite_kinds(self) -> tuple:
         """The composite primitives' fields the scene holds (as
@@ -278,7 +282,6 @@ class Layout(NamedTuple):
 
 def layout(scene: Scene, camera: Camera) -> Layout:
     """The static offset table of pack(scene, camera)."""
-    check_supported(scene)
     n_views = camera.top.x.numel()
     if camera.top.x.dim() > 1 or camera.right.x.numel() != n_views:
         raise ValueError("camera top/right must be scalars or share one (V,) view axis")
@@ -289,7 +292,8 @@ def layout(scene: Scene, camera: Camera) -> Layout:
     for name, floats, present in (
             ("cylinders", CYLINDER_FLOATS * len(scene.cylinders), bool(scene.cylinders)),
             ("cylinders_union", 2 * CYLINDER_FLOATS, scene.cylinders_union is not None),
-            ("hypercube", HYPERCUBE_FLOATS, scene.hypercube is not None),
+            ("hypercube", 8 * CUBE_FLOATS if cells_only(scene) else HYPERCUBE_FLOATS,
+             scene.hypercube is not None),
             ("tiger", TIGER_FLOATS, scene.tiger is not None)):
         composite[name] = offset if present else -1
         offset += floats if present else 0
@@ -304,6 +308,7 @@ def layout(scene: Scene, camera: Camera) -> Layout:
         spaces=0, spheres=spheres, env=env_off, focus=focus, vec_to_mtr=focus + 4,
         top=top, right=right, mtr_width=mtr_width, mtr_height=mtr_width + 1,
         size=mtr_width + 2, n_cylinders=len(scene.cylinders), **composite,
+        hypercube_cells=int(cells_only(scene)),
     )
     sizes = [t.numel() for t in leaves(scene, camera)]
     if sum(sizes) != out.size:

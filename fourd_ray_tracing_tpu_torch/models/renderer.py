@@ -1,8 +1,8 @@
 """The forward path tracer in plain torch: camera rays -> bounces -> light.
 
-Counterpart of fourd_ray_tracing_tpu/models/renderer.py with
-rng_mode="per_sample", the mode the production engine runs. This
-pipeline is the plain version of the hand-written forward kernel
+Counterpart of fourd_ray_tracing_tpu/models/renderer.py, in both RNG
+modes, with the three samplers and the three folds. This pipeline is the
+plain version of the hand-written forward kernel
 (ops/cuda/megakernel.py, csrc/megakernel.cu): the kernel's wrapper runs
 it for tensors on the CPU, the tests hold it against the JAX package,
 and the chip smoke test holds the kernel against it on the card.
@@ -18,8 +18,13 @@ Behavior contract (shared with the kernel):
 * per bounce one Bernoulli draw picks mirror (u <= refl_prob) or diffuse;
   diffuse draws three more uniforms for the S^3 sampler; lanes that do
   not draw do not advance their counters; the last bounce only shades;
-* sample s of a pixel draws from its own stream, keyed by the pixel's
-  bits xor hash((s+1) * 0x9E3779B9).
+* rng_mode="per_sample": sample s of a pixel draws from its own stream,
+  keyed by the pixel's bits xor hash((s+1) * 0x9E3779B9), its counter
+  starting at the seed;
+* rng_mode="sequential" (the reference's stream): every sample draws from
+  the pixel's bits, its counter carried on from the sample before, and
+  the last bounce pays the reference's dead draws (one Bernoulli on live
+  lanes, three more on diffuse ones), bounce 0 too when it is the last.
 """
 from __future__ import annotations
 
@@ -30,9 +35,9 @@ import numpy as np
 import torch
 
 from fourd_ray_tracing_tpu_torch.camera import Camera
-from fourd_ray_tracing_tpu_torch.models.scene import Scene, intersect_scene_fast
+from fourd_ray_tracing_tpu_torch.models.scene import INTERSECT_MODES, Scene, intersect_scene
 from fourd_ray_tracing_tpu_torch.ops import rng
-from fourd_ray_tracing_tpu_torch.ops.sampler import direction_from_uniforms
+from fourd_ray_tracing_tpu_torch.ops.sampler import SAMPLER_METHODS, direction_from_uniforms
 from fourd_ray_tracing_tpu_torch.ops.sky import final_light, light_to_color
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec3, Vec4, normalize, redirect, reflect
 
@@ -40,11 +45,16 @@ from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec3, Vec4, normalize, redirect
 @dataclass(frozen=True)
 class RenderConfig:
     """Static render parameters, field for field the JAX package's
-    RenderConfig (renderer.py:48-147) with the same defaults. This port
-    renders rng_mode="per_sample", sampler_method="poly", intersect="fast",
-    with or without the static hints (``plane_hints``, ``plane_pairs``,
-    ``axis_hints``: models/scene.py); other values raise (check_supported).
-    The gradient paths take the hints only under ``freeze_hints``, the
+    RenderConfig (renderer.py:48-147) with the same defaults. Every value
+    of ``rng_mode`` ("sequential", "per_sample"), ``sampler_method``
+    ("poly", "kepler" with ``sampler_iters`` Halley steps, "newton") and
+    ``intersect`` ("fast", "spec", "trig") renders; the fast fold takes the
+    static hints (``plane_hints``, ``plane_pairs``, ``axis_hints``:
+    models/scene.py), the literal folds ignore them, as the JAX package's
+    do. The gradient kernels take per_sample, poly and fast only
+    (gradkernel.check_kernel_config); the plain gradient route takes
+    everything. The gradient paths take the hints only under
+    ``freeze_hints``, the
     contract that defines the hyperplane normals' and the hinted axes'
     gradients zero (check_trainable, diff.with_frozen_hints). The
     Mosaic-only knobs (bounce_loop, tile_sublanes, tiles_per_program) and
@@ -74,23 +84,16 @@ class RenderConfig:
     grad_sample_chunk: int = 1
 
 
+RNG_MODES = ("sequential", "per_sample")
+
+
 def check_supported(cfg: RenderConfig) -> None:
-    """Raise for the configurations this port does not render yet."""
-    if cfg.rng_mode != "per_sample":
-        raise NotImplementedError(
-            f"rng_mode={cfg.rng_mode!r} is not ported yet (ROADMAP queue 1, "
-            "items 5-6); use 'per_sample'"
-        )
-    if cfg.sampler_method != "poly":
-        raise NotImplementedError(
-            f"sampler_method={cfg.sampler_method!r} is not ported yet (ROADMAP "
-            "queue 1, item 2); use 'poly'"
-        )
-    if cfg.intersect != "fast":
-        raise NotImplementedError(
-            f"intersect={cfg.intersect!r} (the literal per-primitive fold) is not "
-            "ported yet (ROADMAP queue 1, items 5-6, with the oracle goldens); use 'fast'"
-        )
+    """Raise ValueError for a configuration no renderer takes."""
+    for name, value, allowed in (("rng_mode", cfg.rng_mode, RNG_MODES),
+                                 ("sampler_method", cfg.sampler_method, SAMPLER_METHODS),
+                                 ("intersect", cfg.intersect, INTERSECT_MODES)):
+        if value not in allowed:
+            raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
     if cfg.samples % max(1, cfg.grad_sample_chunk):
         raise ValueError(
             f"samples ({cfg.samples}) must be divisible by grad_sample_chunk "
@@ -169,9 +172,14 @@ class Bounce0(NamedTuple):
     norm: Vec4
 
 
+def _intersect(scene: Scene, o: Vec4, d: Vec4, cfg: RenderConfig):
+    return intersect_scene(scene, o, d, cfg.intersect, cfg.plane_hints, cfg.plane_pairs,
+                           cfg.axis_hints)
+
+
 def precompute_bounce0(scene: Scene, ray_o: Vec4, ray_d: Vec4, cfg: RenderConfig) -> Bounce0:
     o, d = ray_o, ray_d
-    inter = intersect_scene_fast(scene, o, d, cfg.plane_hints, cfg.plane_pairs, cfg.axis_hints)
+    inter = _intersect(scene, o, d, cfg)
     zero3 = Vec3.full(0.0, like=d.x)
     result = zero3
     env = scene.environment
@@ -186,7 +194,7 @@ def precompute_bounce0(scene: Scene, ray_o: Vec4, ray_d: Vec4, cfg: RenderConfig
                    inter.refl_prob, inter.norm)
 
 
-def _scatter(d, norm, mirrored, alive, refl_prob, pixel_bits, seed, counter):
+def _scatter(d, norm, mirrored, alive, refl_prob, pixel_bits, seed, counter, cfg: RenderConfig):
     """The direction update of one bounce: Bernoulli mirror vs uniform
     S^3 diffuse, with masked counters. Returns (new_d, counter)."""
     u_refl, counter = rng.masked_uniform01(pixel_bits, seed, counter, alive)
@@ -195,21 +203,34 @@ def _scatter(d, norm, mirrored, alive, refl_prob, pixel_bits, seed, counter):
     u_w, counter = rng.masked_uniform01(pixel_bits, seed, counter, diffuse)
     u_z, counter = rng.masked_uniform01(pixel_bits, seed, counter, diffuse)
     u_fi, counter = rng.masked_uniform01(pixel_bits, seed, counter, diffuse)
-    rand_dir = direction_from_uniforms(u_w, u_z, u_fi)
+    rand_dir = direction_from_uniforms(u_w, u_z, u_fi, method=cfg.sampler_method,
+                                       kepler_iters=cfg.sampler_iters)
     scattered = redirect(rand_dir, norm)
     return mirrored.where(mirror, scattered).where(alive, d), counter
 
 
-def bounce0_direction_update(pre0: Bounce0, ray_d: Vec4, pixel_bits, seed, counter):
+def _dead_draws(alive, refl_prob, pixel_bits, seed, counter):
+    """The reference's draws on the final iteration, whose direction is
+    never used: one Bernoulli on live lanes, three more on diffuse ones.
+    Only a sequential stream pays them (renderer.py:365-375)."""
+    u_refl, counter = rng.masked_uniform01(pixel_bits, seed, counter, alive)
+    diffuse = alive & (u_refl > refl_prob)
+    for _ in range(3):
+        _, counter = rng.masked_uniform01(pixel_bits, seed, counter, diffuse)
+    return counter
+
+
+def bounce0_direction_update(pre0: Bounce0, ray_d: Vec4, pixel_bits, seed, counter,
+                             cfg: RenderConfig):
     """Bounce 0's per-sample direction update. Returns (new_d, counter)."""
     return _scatter(ray_d, pre0.norm, pre0.mirrored, pre0.alive, pre0.refl_prob,
-                    pixel_bits, seed, counter)
+                    pixel_bits, seed, counter, cfg)
 
 
 def _shade(scene: Scene, o, d, result, throughput, alive, cfg: RenderConfig):
     """Intersect; add escaped environment light, then emission.
     Returns (intersection, result, alive)."""
-    inter = intersect_scene_fast(scene, o, d, cfg.plane_hints, cfg.plane_pairs, cfg.axis_hints)
+    inter = _intersect(scene, o, d, cfg)
     zero3 = Vec3.full(0.0, like=result.x)
     env = scene.environment
     if env is not None and env.enabled:
@@ -222,10 +243,14 @@ def _shade(scene: Scene, o, d, result, throughput, alive, cfg: RenderConfig):
 
 def trace_rays(scene: Scene, ray_d: Vec4, pixel_bits, seed, counter, cfg: RenderConfig,
                pre0: Bounce0):
-    """One per-sample trace from the hoisted bounce 0. Returns the light."""
+    """One sample's trace from the hoisted bounce 0. Returns (light,
+    counter): a sequential stream's counter goes on to the next sample."""
+    sequential = cfg.rng_mode == "sequential"
     if cfg.reflections_amount == 0:
-        return pre0.result
-    d, counter = bounce0_direction_update(pre0, ray_d, pixel_bits, seed, counter)
+        if sequential:
+            counter = _dead_draws(pre0.alive, pre0.refl_prob, pixel_bits, seed, counter)
+        return pre0.result, counter
+    d, counter = bounce0_direction_update(pre0, ray_d, pixel_bits, seed, counter, cfg)
     o, result, throughput, alive = pre0.o, pre0.result, pre0.throughput, pre0.alive
     small_indent = float(np.float32(cfg.small_indent))
     for _ in range(1, cfg.reflections_amount):
@@ -234,10 +259,12 @@ def trace_rays(scene: Scene, ray_d: Vec4, pixel_bits, seed, counter, cfg: Render
         new_o = o + d * inter.dist + inter.norm * small_indent
         o = new_o.where(alive, o)
         d, counter = _scatter(d, inter.norm, reflect(d, inter.norm), alive,
-                              inter.refl_prob, pixel_bits, seed, counter)
-    # Final bounce: shade only; its direction draws would be dead.
-    _, result, _ = _shade(scene, o, d, result, throughput, alive, cfg)
-    return result
+                              inter.refl_prob, pixel_bits, seed, counter, cfg)
+    # Final bounce: shade only; its direction draws are dead.
+    inter, result, alive = _shade(scene, o, d, result, throughput, alive, cfg)
+    if sequential:
+        counter = _dead_draws(alive, inter.refl_prob, pixel_bits, seed, counter)
+    return result, counter
 
 
 def sample_stream_bits(pixel_bits: torch.Tensor, sample_index: int) -> torch.Tensor:
@@ -256,20 +283,30 @@ def render_light_tile(scene: Scene, camera: Camera, cfg: RenderConfig, seed: int
     (the counterpart of the JAX renderer's render_light_tile,
     renderer.py:409-496). Row and sample offsets are absolute, so any
     partition of rows x samples reassembles into the same image: the unit
-    of the row-sharded path (parallel/mesh.py)."""
+    of the row-sharded path (parallel/mesh.py). A sequential stream
+    carries its counter across the samples and cannot start mid-stream
+    (``sample0`` must be 0)."""
     n_rows = cfg.height if n_rows is None else n_rows
     n_samples = cfg.samples if n_samples is None else n_samples
+    sequential = cfg.rng_mode == "sequential"
+    if sequential and sample0 != 0:
+        raise ValueError('rng_mode="sequential" carries RNG state across samples and cannot '
+                         'start mid-stream; use rng_mode="per_sample" to split the sample axis')
     scr_x, scr_y = screen_coords(cfg, camera.focus.x.device, row0, n_rows)
     d = primary_directions(camera, scr_x, scr_y)
     pixel_bits = rng.pixel_stream_bits(scr_x, scr_y).expand(d.x.shape)
     o = _expand_cam_vec(camera.focus, d.x.dim())
     o = Vec4(*(c.expand(d.x.shape) for c in o))
-    counter0 = rng.init_counter(seed, d.x)
+    counter0 = counter = rng.init_counter(seed, d.x)
     pre0 = precompute_bounce0(scene, o, d, cfg)
     acc = Vec3.full(0.0, like=d.x)
     for s in range(sample0, sample0 + n_samples):
-        bits = sample_stream_bits(pixel_bits, s)
-        acc = acc + trace_rays(scene, d, bits, seed, counter0, cfg, pre0)
+        if sequential:
+            light, counter = trace_rays(scene, d, pixel_bits, seed, counter, cfg, pre0)
+        else:
+            light, _ = trace_rays(scene, d, sample_stream_bits(pixel_bits, s), seed, counter0,
+                                  cfg, pre0)
+        acc = acc + light
     return acc.stack(-1)
 
 

@@ -4,10 +4,12 @@ Counterpart of fourd_ray_tracing_tpu/models/scene.py: hyperplanes,
 hyperspheres, cylinders, the duocylinder, the hypercube and the tiger,
 with the static hints of the production fold (``plane_norm_hints``,
 ``plane_pair_hints``, ``axis_alignment_hints``) and the gradient
-contract under them (``freeze_hint_grads``). `Scene` keeps the JAX
-package's field layout, so a scene packs to the same flat vector
-(models/params.py). The forward, the hard-loss and the soft gradient
-paths take every primitive.
+contract under them (``freeze_hint_grads``), and the literal
+per-primitive fold (``intersect_scene_spec``, with the reference's
+trigonometric sphere solution or not) that ``intersect_scene`` picks by
+the config's ``intersect``. `Scene` keeps the JAX package's field layout,
+so a scene packs to the same flat vector (models/params.py). The
+forward, the hard-loss and the soft gradient paths take every primitive.
 """
 from __future__ import annotations
 
@@ -67,17 +69,16 @@ FAR = float(np.float32(1e30))
 SMALL2 = geo.SMALL2
 
 
-def check_supported(scene: Scene) -> None:
-    """Raise for a hypercube without its generator parameters: its fold is
-    the literal cell-by-cell one, which belongs with intersect="spec"
-    (ROADMAP queue 1, items 5-6)."""
-    hc = scene.hypercube
-    if hc is not None and (hc.point is None or hc.axes is None or hc.r is None):
-        raise NotImplementedError(
-            "a hypercube without generator parameters (point, axes, r) folds cell by "
-            "cell, which is not ported yet (ROADMAP queue 1, items 5-6, with "
-            "intersect='spec'); build it with make_hypercube"
-        )
+def has_generators(hc: Optional[HypercubeSpec]) -> bool:
+    """Whether a hypercube carries its generator parameters (center, axes,
+    half-width), which the production fold's shared dots read; one built
+    from its cells alone folds cell by cell (scene.py:543-545)."""
+    return hc is not None and hc.point is not None and hc.axes is not None and hc.r is not None
+
+
+def cells_only(scene: "Scene") -> bool:
+    """Whether ``scene`` has a hypercube built from its cells alone."""
+    return scene.hypercube is not None and not has_generators(scene.hypercube)
 
 
 def _host_values(tensors) -> np.ndarray:
@@ -329,7 +330,8 @@ def intersect_scene_fast(scene: Scene, ray_o: Vec4, ray_d: Vec4, plane_hints=Non
     ``plane_pairs`` (and ``plane_hints``) the wall pairs, then the single
     planes; without, the planes in scene order; then the spheres, the
     cylinders, the duocylinder's two faces, the hypercube's four
-    opposite-cell candidates and the tiger's four merged candidates.
+    opposite-cell candidates (one, the literal cell-by-cell test, for a
+    hypercube without generators) and the tiger's four merged candidates.
     ``plane_hints`` drops the hinted normal components from a single
     plane's dots, and its resolver writes +0 there, where the unhinted one
     writes flip * 0.0; the pair fold picks the nearer wall with two
@@ -339,7 +341,6 @@ def intersect_scene_fast(scene: Scene, ray_o: Vec4, ray_d: Vec4, plane_hints=Non
     unhinted fold computes them, and every normal component equal (a
     zero's sign aside).
     """
-    check_supported(scene)
     if plane_hints is not None:
         check_plane_hints(scene, plane_hints)
     o, d = ray_o, ray_d
@@ -469,7 +470,14 @@ def intersect_scene_fast(scene: Scene, ray_o: Vec4, ray_d: Vec4, plane_hints=Non
             hit_c = hit_c & (geo._family_clip_sq(other, dist_c) <= r2sq)
             add_family_face(fam, dist_c, hit_c, use_near, r, mat)
 
-    if scene.hypercube is not None:
+    if cells_only(scene):
+        # Built from its cells alone: the literal cell-by-cell test as one
+        # candidate, its record resolving itself.
+        rec = geo.hypercube_intersection(scene.hypercube, o, d)
+        dists.append(torch.where(rec.hit, rec.dist, FAR))
+        resolvers.append(lambda dist, hit_p, rec=rec: (rec.norm, rec.glow, rec.refl_prob,
+                                                       rec.color))
+    elif scene.hypercube is not None:
         # Opposite cells paired per axis: the +cell faces the ray iff
         # dd_i <= 0, the -cell iff dd_i >= 0, so each axis folds one
         # candidate with its h and material picked by that sign; at most
@@ -555,6 +563,50 @@ def intersect_scene_fast(scene: Scene, ray_o: Vec4, ray_d: Vec4, plane_hints=Non
         refl = torch.where(mask, rk, refl)
         color = ck.where(mask, color)
     return Intersection(hit, dist, norm, glow, refl, color)
+
+
+def intersect_scene_spec(scene: Scene, ray_o: Vec4, ray_d: Vec4, trig: bool = False) -> Intersection:
+    """The closest hit over every primitive, each by its literal
+    intersection, folded by ``geometry.closest`` in scene order
+    (scene.py:753-794); ``trig`` takes the reference's trigonometric
+    sphere solution for the spheres and inside the cylinders."""
+    sphere_fn = geo.sphere_intersection_trig if trig else geo.sphere_intersection
+    inter = miss_like(ray_o.x)
+    for sp in scene.spaces:
+        inter = geo.closest(geo.space_intersection(sp.point, sp.norm, sp.material, ray_o, ray_d),
+                            inter)
+    for s in scene.spheres:
+        inter = geo.closest(sphere_fn(s.center, s.r, s.material, ray_o, ray_d, True), inter)
+    for c in scene.cylinders:
+        inter = geo.closest(geo.cylinder_intersection(c.point, c.axis1, c.axis2, c.r, c.material,
+                                                      ray_o, ray_d, True, trig), inter)
+    if scene.cylinders_union is not None:
+        c1, c2 = scene.cylinders_union
+        inter = geo.closest(geo.cylinders_union_intersection(c1, c2, ray_o, ray_d, trig), inter)
+    if scene.hypercube is not None:
+        inter = geo.closest(geo.hypercube_intersection(scene.hypercube, ray_o, ray_d), inter)
+    if scene.tiger is not None:
+        inter = geo.closest(geo.tiger_intersection(scene.tiger, ray_o, ray_d, trig), inter)
+    return inter
+
+
+INTERSECT_MODES = ("fast", "spec", "trig")
+
+
+def intersect_scene(scene: Scene, ray_o: Vec4, ray_d: Vec4, mode: str = "fast", plane_hints=None,
+                    plane_pairs=None, axis_hints=None) -> Intersection:
+    """The fold ``mode`` names (scene.py:797-816): "fast", the production
+    fold with the static hints it is given; "spec", the literal
+    per-primitive fold; "trig", the literal fold with the reference's
+    trigonometric sphere solution (the oracle's configuration). The
+    literal folds take no hints."""
+    if mode == "spec":
+        return intersect_scene_spec(scene, ray_o, ray_d)
+    if mode == "trig":
+        return intersect_scene_spec(scene, ray_o, ray_d, trig=True)
+    if mode != "fast":
+        raise ValueError(f"intersect must be one of {INTERSECT_MODES}, got {mode!r}")
+    return intersect_scene_fast(scene, ray_o, ray_d, plane_hints, plane_pairs, axis_hints)
 
 
 # --- constructors (Python floats -> 0-d float32 tensors on ``device``) ---

@@ -221,6 +221,9 @@ _FORWARD_ARGS = [
 SIGNATURES = {
     "fourd_forward_launch": (_FORWARD_ARGS, ctypes.c_int),
     "fourd_forward_variant_launch": ([ctypes.c_int, *_FORWARD_ARGS], ctypes.c_int),  # variant
+    # fold (0 fast, 1 spec, 2 trig), sampler (0 poly, 1 kepler, 2 newton),
+    # sequential (0/1), kepler's sampler_iters (csrc/forwardmodes.cu)
+    "fourd_forward_modes_launch": ([ctypes.c_int] * 4 + _FORWARD_ARGS, ctypes.c_int),
     "fourd_peak_launch": ([
         ctypes.c_int,                     # n_acc: 8, 16, 32 or 48
         ctypes.c_float,                   # b

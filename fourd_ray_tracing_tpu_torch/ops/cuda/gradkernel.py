@@ -32,6 +32,15 @@ contract and has none (``_auto_hints``, gradkernel.py:674-700); a launch
 is handed them and the mask. The plain versions run the hinted plain pipeline and zero the same
 slots.
 
+The kernels render per-sample RNG streams with the poly sampler over the
+fast fold, as K1's production launch does (``check_kernel_config``): the
+sequential stream raises ValueError, as in the JAX package
+(gradkernel.py:653-657); the kepler and newton samplers, the literal spec
+and trig folds and a hypercube without generators raise
+NotImplementedError naming their ROADMAP item (the plain autograd route,
+diff's impl="plain", takes them all). No entry point falls back to
+another route.
+
 Each takes ``rows`` = (row0, n_rows): image rows [row0, row0 + n_rows)
 only, with the target, cotangent, alpha and alpha cotangent the blocks of
 those rows, and the loss and gradient those rows' part of the whole
@@ -63,7 +72,7 @@ import torch
 from fourd_ray_tracing_tpu_torch.camera import Camera
 from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
-from fourd_ray_tracing_tpu_torch.models.scene import Scene
+from fourd_ray_tracing_tpu_torch.models.scene import Scene, cells_only
 from fourd_ray_tracing_tpu_torch.ops.cuda import build, megakernel
 from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import (hint_table, hinted, launch_rows,
                                                              seed_tensor, with_hints)
@@ -79,6 +88,9 @@ HINTED_LAUNCHES = HINTED_VJP_LAUNCHES = HINTED_SOFT_LAUNCHES = 0  # of them, wit
 MAX_PARAMS, MAX_BOUNCES = build.K4_MAX_PARAMS, build.K4_MAX_BOUNCES
 MAIN_BOUNCES = build.K4_MAIN_BOUNCES  # the bounce count with an unrolled instance
 MAX_ZERO_SLOTS = build.K6_MAX_ZERO_SLOTS
+# Where the gradient kernels over K1's other configurations stand in the
+# ROADMAP.
+CONFIG_ITEM = "ROADMAP queue 1, item 15"
 
 
 def _auto_hints(scene: Scene, cfg: RenderConfig) -> RenderConfig:
@@ -176,10 +188,31 @@ def loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Ca
     return loss.float(), freeze(grad.float(), like_scene, cfg)
 
 
-def check_shape(lay: params.Layout, cfg: RenderConfig) -> None:
-    """Raise for what the gradient kernels cannot hold, and for static
-    hints outside the freeze_hints contract (renderer.check_trainable)."""
+def check_kernel_config(cfg: RenderConfig, cells: bool = False) -> None:
+    """Raise for a configuration the gradient kernels do not take
+    (renderer.check_trainable's, and): the sequential stream, ValueError as
+    in the JAX package; the kepler and newton samplers, the spec and trig
+    folds and (``cells``) a hypercube without generators,
+    NotImplementedError: K4, K5, K6 and K8 over them are CONFIG_ITEM."""
     renderer.check_trainable(cfg)
+    if cfg.rng_mode != "per_sample":
+        raise ValueError('the gradient kernels render per-sample RNG streams (rng_mode='
+                         '"per_sample"), as the JAX value-and-grad kernel does')
+    unported = [what for what, bad in (
+        (f"sampler_method={cfg.sampler_method!r}", cfg.sampler_method != "poly"),
+        (f"intersect={cfg.intersect!r}", cfg.intersect != "fast"),
+        ("a hypercube without generators", cells)) if bad]
+    if unported:
+        raise NotImplementedError(
+            f"the gradient kernels over {', '.join(unported)} are not ported yet ({CONFIG_ITEM}); "
+            "the plain autograd route (impl='plain') takes them")
+
+
+def check_shape(lay: params.Layout, cfg: RenderConfig) -> None:
+    """Raise for what the gradient kernels cannot hold or do not take
+    (check_kernel_config), and for static hints outside the freeze_hints
+    contract (renderer.check_trainable)."""
+    check_kernel_config(cfg, bool(lay.hypercube_cells))
     if lay.size > MAX_PARAMS:
         raise ValueError(f"the gradient kernels hold at most {MAX_PARAMS} packed "
                          f"parameters in shared memory; this scene and camera have {lay.size}")
@@ -296,7 +329,7 @@ def loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: Cam
     launch (with ``rows``, those rows' part, ``target`` their block); a
     vector on another device raises."""
     cfg = _auto_hints(like_scene, cfg)
-    renderer.check_trainable(cfg)
+    check_kernel_config(cfg, cells_only(like_scene))
     lay = params.layout(like_scene, like_camera)
     target = torch.as_tensor(target, dtype=torch.float32, device=packed.device).contiguous()
     words, _ = renderer.seed_words(seed)
@@ -308,7 +341,9 @@ def loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: Cam
 def loss_and_grad_packed(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
                          cfg: RenderConfig, seed, target, rows=None):
     """(loss, (P,) gradient) of the packed vector: the plain version for a
-    CPU vector, the kernel for a CUDA one."""
+    CPU vector, the kernel for a CUDA one; both take what the kernel takes
+    (check_kernel_config)."""
+    check_kernel_config(cfg, cells_only(like_scene))
     if packed.device.type == "cpu":
         return loss_and_grad_plain(packed, like_scene, like_camera, cfg, seed, target, rows=rows)
     if packed.device.type != "cuda":
@@ -337,7 +372,7 @@ def make_packed_loss_and_grad(scene: Scene, camera: Camera, cfg: RenderConfig):
     the frozen slots of the gradient are 0 (gradkernel.py:990-1017).
     """
     cfg = _auto_hints(scene, cfg)
-    renderer.check_trainable(cfg)
+    check_kernel_config(cfg, cells_only(scene))
     packed = params.pack(scene, camera).detach()
     n = params.n_scene(scene)
     cam_vec = packed[n:]
@@ -428,7 +463,7 @@ def render_light_vjp_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: 
     """K5 on a CUDA vector, as ``render_light_vjp_plain`` computes it: one
     launch for (P,) or for (F, P) rows; another device raises."""
     cfg = _auto_hints(like_scene, cfg)
-    renderer.check_trainable(cfg)
+    check_kernel_config(cfg, cells_only(like_scene))
     cot = torch.as_tensor(cot_light, dtype=torch.float32, device=packed.device).contiguous()
     lay = params.layout(like_scene, like_camera)
     return launch_light_vjp(packed.detach().contiguous(), lay, cfg, _scalar_seed(seed), cot, rows,
@@ -562,7 +597,7 @@ def render_soft_loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like
     """K6 on a CUDA vector, as ``render_soft_loss_and_grad_plain``
     computes it, in one launch; another device raises."""
     cfg = _auto_hints(like_scene, cfg)
-    renderer.check_trainable(cfg)
+    check_kernel_config(cfg, cells_only(like_scene))
     device = packed.device
     target = torch.as_tensor(target, dtype=torch.float32, device=device).contiguous()
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device).detach().contiguous()
@@ -610,6 +645,7 @@ def sharded_render_light_vjp_multi(packed: torch.Tensor, like_scene: Scene, like
     (F, ..., n_rows, W, 3) of the light cotangent of (F, P) params rows
     (or (P,)), and one all-reduce gives every rank the whole image's
     gradient (the backward of ``diff.render_light_pair`` with a mesh)."""
+    check_kernel_config(cfg, cells_only(like_scene))
     rows, _ = _shard(packed, cfg, mesh)
     if packed.device.type == "cpu":
         grad = render_light_vjp_plain(packed, like_scene, like_camera, cfg, seed, cot_block, rows)
@@ -628,6 +664,7 @@ def sharded_soft_loss_and_grad(packed: torch.Tensor, like_scene: Scene, like_cam
     and one all-reduce of the packed [loss, grad] gives every rank the
     whole image's (the forward of ``diff.soft_image_loss_kernel`` with a
     mesh). The alpha cotangent stays the rank's block of rows."""
+    check_kernel_config(cfg, cells_only(like_scene))
     rows, band = _shard(packed, cfg, mesh)
     target = _as_block(target, band, packed.device, channels=True)
     alpha = _as_block(alpha, band, packed.device, channels=False)

@@ -12,7 +12,16 @@ the call raises. ``LAUNCHES`` counts kernel launches, so a run can show
 that its main path went through the kernel; ``HINTED_LAUNCHES`` counts
 those of them that ran static hints, ``ROW_LAUNCHES`` those that read
 per-frame params rows (K2), ``SHARD_LAUNCHES`` those that render a block
-of rows smaller than the image (K3).
+of rows smaller than the image (K3), and ``CONFIG_LAUNCHES`` every launch
+by its configuration (``launch_config``: rng_mode/sampler_method/intersect,
+"/cells" for a hypercube without generators).
+
+The production configuration (per-sample streams, the poly sampler, the
+fast fold) launches fourd_forward_launch (csrc/megakernel.cu); every other
+one fourd_forward_modes_launch (csrc/forwardmodes.cu), whose instances
+take the sequential stream, the kepler and newton samplers, the literal
+spec and trig folds, and the fast fold over a hypercube without
+generators.
 
 The static hints (``cfg.plane_hints``, ``cfg.plane_pairs``: the
 hyperplanes'; ``cfg.axis_hints``: the composite primitives' axes) select
@@ -54,6 +63,13 @@ HINTED_LAUNCHES = 0
 ROW_LAUNCHES = 0
 SHARD_LAUNCHES = 0
 VARIANT_LAUNCHES = 0
+CONFIG_LAUNCHES: dict = {}
+# The launch's codes of the folds and samplers (csrc/forwardmodes.cu).
+FOLD_CODES = {"fast": 0, "spec": 1, "trig": 2}
+SAMPLER_CODES = {"poly": 0, "kepler": 1, "newton": 2}
+# The hypercube's axis hint for one without generators (csrc/trace.cuh
+# kCubeCells).
+CUBE_CELLS = -2
 # The stub variants and their kStub codes (csrc/trace.cuh); with
 # GENERIC_FOLD, the variant launch's code for the fold's generic instance
 # (megakernel.cu kGenericFold), which computes what the production kernel
@@ -104,8 +120,24 @@ def with_hints(scenes, cfg: RenderConfig) -> RenderConfig:
 
 
 def hinted(cfg: RenderConfig) -> bool:
-    """Whether ``cfg`` carries any static hint."""
-    return cfg.plane_hints is not None or cfg.axis_hints is not None
+    """Whether ``cfg`` carries any static hint that its fold reads (the
+    literal folds read none)."""
+    return cfg.intersect == "fast" and (cfg.plane_hints is not None
+                                        or cfg.axis_hints is not None)
+
+
+def production(cfg: RenderConfig, lay: params.Layout) -> bool:
+    """Whether a launch of ``cfg`` over ``lay`` takes the production
+    instances (fourd_forward_launch): per-sample streams, the poly sampler,
+    the fast fold, no hypercube without generators."""
+    return (cfg.rng_mode == "per_sample" and cfg.sampler_method == "poly"
+            and cfg.intersect == "fast" and not lay.hypercube_cells)
+
+
+def launch_config(cfg: RenderConfig, lay: params.Layout) -> str:
+    """The key of a launch in CONFIG_LAUNCHES."""
+    key = f"{cfg.rng_mode}/{cfg.sampler_method}/{cfg.intersect}"
+    return key + "/cells" if lay.hypercube_cells else key
 
 
 def _family_code(pair) -> int:
@@ -121,7 +153,10 @@ def hint_table(cfg: RenderConfig, lay: params.Layout):
     components << 8), in the fold's order, n_singles -1 without plane
     hints; then the cylinder count, the composites' offsets in the params
     (``lay``; -1: none) and their axis hints (a family k1 | k2 << 2, the
-    hypercube k_i << 2i | (s_i < 0) << (8 + i); -1: not aligned).
+    hypercube k_i << 2i | (s_i < 0) << (8 + i); -1: not aligned;
+    CUBE_CELLS: a hypercube without generators). A literal fold (``cfg``'s
+    intersect "spec" or "trig") takes no hints: its descriptor holds the
+    composites' offsets alone.
 
     The table holds the hints of at most build.MAX_HINT_PLANES hyperplanes:
     a scene with more folds its hyperplanes unhinted (n_singles -1), which
@@ -129,6 +164,8 @@ def hint_table(cfg: RenderConfig, lay: params.Layout):
     freeze_hints contract's frozen slots stay frozen: the gradient launches
     take the mask whatever the descriptor holds)."""
     words = (ctypes.c_int * build.HINT_INTS)()
+    if cfg.intersect != "fast":
+        cfg = dataclasses.replace(cfg, plane_hints=None, plane_pairs=None, axis_hints=None)
     n_spaces = lay.n_spaces
     if cfg.plane_hints is not None and len(cfg.plane_hints) != n_spaces:
         raise ValueError(f"plane_hints has {len(cfg.plane_hints)} entries for {n_spaces} "
@@ -153,7 +190,9 @@ def hint_table(cfg: RenderConfig, lay: params.Layout):
     union = (ah.cylinders_union if ah is not None else None) or (None, None)
     tiger = (ah.tiger if ah is not None else None) or (None, None)
     cube = -1
-    if ah is not None and ah.hypercube is not None:
+    if lay.hypercube_cells:
+        cube = CUBE_CELLS
+    elif ah is not None and ah.hypercube is not None:
         cube = sum(k << 2 * i | int(s < 0) << 8 + i for i, (k, s) in enumerate(ah.hypercube))
     c = build.HINT_COMPOSITES
     words[c:c + 5] = [lay.n_cylinders, lay.cylinders, lay.cylinders_union, lay.hypercube, lay.tiger]
@@ -211,8 +250,10 @@ def launch_forward(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
     one scene rendered at every seed (K1), or (F, P), frame f rendering
     row f at seeds[f] (K2). A block of rows is bitwise those rows of the
     whole image (K3). The fold takes ``cfg``'s static hints, if any, which
-    every row shares."""
+    every row shares. The production configuration (``production``) runs
+    the production instances, any other forwardmodes.cu's."""
     global LAUNCHES, HINTED_LAUNCHES, ROW_LAUNCHES, SHARD_LAUNCHES
+    renderer.check_supported(cfg)
     row0, n_rows = launch_rows(cfg, rows)
     if packed.device.type != "cuda" or seeds.device != packed.device:
         raise ValueError(f"kernel inputs must share one CUDA device, got {packed.device}, {seeds.device}")
@@ -234,19 +275,29 @@ def launch_forward(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
     table = (ctypes.c_int * len(lay))(*lay)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fourd_forward_launch(
-            packed.data_ptr(), lay.size if multi else 0, seeds.data_ptr(), n_frames,
-            ctypes.addressof(table), ctypes.addressof(hints),
-            cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
-            float(np.float32(cfg.small_indent)), out.data_ptr(), stream,
-        )
+        args = (packed.data_ptr(), lay.size if multi else 0, seeds.data_ptr(), n_frames,
+                ctypes.addressof(table), ctypes.addressof(hints),
+                cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
+                float(np.float32(cfg.small_indent)), out.data_ptr(), stream)
+        if production(cfg, lay):
+            err = lib.fourd_forward_launch(*args)
+        else:
+            err = lib.fourd_forward_modes_launch(*mode_codes(cfg), *args)
     if err != 0:
         raise RuntimeError(f"forward kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     HINTED_LAUNCHES += int(hinted(cfg))
     ROW_LAUNCHES += int(multi)
     SHARD_LAUNCHES += int(n_rows < cfg.height)
+    key = launch_config(cfg, lay)
+    CONFIG_LAUNCHES[key] = CONFIG_LAUNCHES.get(key, 0) + 1
     return out
+
+
+def mode_codes(cfg: RenderConfig) -> tuple:
+    """(fold, sampler, sequential, sampler_iters) of fourd_forward_modes_launch."""
+    return (FOLD_CODES[cfg.intersect], SAMPLER_CODES[cfg.sampler_method],
+            int(cfg.rng_mode == "sequential"), cfg.sampler_iters)
 
 
 def render_light_cuda(scene: Scene, camera: Camera, cfg: RenderConfig, seeds) -> torch.Tensor:

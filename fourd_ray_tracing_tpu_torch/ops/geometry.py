@@ -1,14 +1,18 @@
-"""Materials, the SoA hit record, the composite primitives' specs and
-their shared-projection helpers.
+"""Materials, the SoA hit record, the per-primitive intersections, the
+composite primitives' specs and their shared-projection helpers.
 
 Counterpart of fourd_ray_tracing_tpu/ops/geometry.py: Material,
-Intersection and miss_like (:62-118), the specs and constructors of the
-cylinder, duocylinder, tiger and hypercube (CylinderSpec :290, TigerSpec
-and make_tiger :324-351, CubeSpec :626, HypercubeSpec and make_hypercube
-:661-696), and the cylinder family's projected-ray quantities that the
-production fold shares between a family's faces (_CylFamily and the
-_family_* helpers, :419-524), in the JAX order of operations. The fold
-itself lives in models/scene.py:intersect_scene_fast.
+Intersection and miss_like (:62-118), the literal per-primitive
+intersections of the spec fold (closest, the hypersphere with the
+quadratic and with the reference's trigonometric solution, the
+hyperplane, the cylinder, the duocylinder, the tiger's faces, the cube
+cell and the hypercube, :43-420 and :626-709), the specs and constructors
+of the cylinder, duocylinder, tiger and hypercube (CylinderSpec :290,
+TigerSpec and make_tiger :324-351, CubeSpec :626, HypercubeSpec and
+make_hypercube :661-696), and the cylinder family's projected-ray
+quantities that the production fold shares between a family's faces
+(_CylFamily and the _family_* helpers, :419-524), in the JAX order of
+operations. The folds themselves live in models/scene.py.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import numpy as np
 import torch
 
 from fourd_ray_tracing_tpu_torch.ops.sampler import SMALL_FLOAT
-from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec3, Vec4, dot, f32, sqrt
+from fourd_ray_tracing_tpu_torch.ops.vec4 import (Vec3, Vec4, dot, f32, length, point_in_space,
+                                                  sqrt, vec_in_space)
 
 
 class Material(NamedTuple):
@@ -55,6 +60,200 @@ def miss_like(ref: torch.Tensor) -> Intersection:
         zero,
         Vec3(zero, zero, zero),
     )
+
+
+def select(mask: torch.Tensor, a: Intersection, b: Intersection) -> Intersection:
+    """Fieldwise mask ? a : b (Intersection.where, geometry.py:80-90)."""
+    return Intersection(torch.where(mask, a.hit, b.hit), torch.where(mask, a.dist, b.dist),
+                        a.norm.where(mask, b.norm), torch.where(mask, a.glow, b.glow),
+                        torch.where(mask, a.refl_prob, b.refl_prob),
+                        a.color.where(mask, b.color))
+
+
+# --- The literal per-primitive intersections (geometry.py:43-420) --------
+
+_PI = float(np.float32(np.pi))
+
+
+def _safe_length(v: Vec4) -> torch.Tensor:
+    """|v| with a 1e-37 floor inside the square root."""
+    return sqrt(dot(v, v) + 1e-37)
+
+
+def _safe_sqrt_pos(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """sqrt(x) where valid, exactly 0 elsewhere."""
+    return torch.where(valid, sqrt(torch.where(valid, x, 1.0)), 0.0)
+
+
+def _masked(hit: torch.Tensor, dist, norm: Vec4, material: Material) -> Intersection:
+    """A record with every field broadcast to the ray batch's shape."""
+    def bc(t):
+        return torch.broadcast_to(torch.as_tensor(t), hit.shape)
+
+    return Intersection(hit, bc(dist), Vec4(*map(bc, norm)), bc(material.glow),
+                        bc(material.refl_prob), Vec3(*map(bc, material.color)))
+
+
+def closest(a: Intersection, b: Intersection) -> Intersection:
+    """The nearer valid hit; ties keep ``b``."""
+    return select(a.hit & (~b.hit | (a.dist < b.dist)), a, b)
+
+
+def sphere_intersection(center: Vec4, r, material: Material, ray_o: Vec4, ray_d: Vec4,
+                        outer: bool = True) -> Intersection:
+    """Ray / 3-sphere by the quadratic (geometry.py:136-181): the near root
+    from outside an outer sphere, else the far root; a receding ray from
+    outside and a tangent or missing line miss; the normal points to the
+    ray's side."""
+    po = center - ray_o
+    l2 = dot(po, po)
+    l = _safe_length(po)
+    degenerate = l < SMALL_FLOAT
+    b = torch.where(degenerate, 0.0, dot(po, ray_d))
+    miss_receding = ~degenerate & (l >= r) & (b < 0.0)
+    disc = r * r - (l2 - b * b)
+    miss_tangent = disc <= 0.0
+    s = _safe_sqrt_pos(disc, ~miss_tangent)
+    use_near = (l > r) if outer else torch.zeros_like(miss_tangent)
+    dist = torch.where(use_near, b - s, b + s)
+    hit = ~(miss_receding | miss_tangent)
+    norm = (center - (ray_o + ray_d * dist)) * (1.0 / r)
+    return _masked(hit, dist, (-norm).where(use_near, norm), material)
+
+
+def sphere_intersection_trig(center: Vec4, r, material: Material, ray_o: Vec4, ray_d: Vec4,
+                             outer: bool = True) -> Intersection:
+    """The reference's trigonometric solution, literally (geometry.py:
+    184-215): the angles at the origin and at the hit by arccos and
+    arcsin, the distance by the law of cosines."""
+    po = center - ray_o
+    l = length(po)
+    degenerate = l < SMALL_FLOAT
+    dot_pord = dot(po, ray_d)
+    miss_receding = ~degenerate & (l >= r) & (dot_pord < 0.0)
+    cos_opa = torch.where(degenerate, 0.0,
+                          torch.clamp(dot_pord / torch.clamp_min(l, 1e-30), -1.0, 1.0))
+    angle_opa = torch.acos(cos_opa)
+    sin_oap = l * torch.sin(angle_opa) / r
+    miss_tangent = sin_oap >= 1.0
+    angle_oap = torch.asin(torch.clamp(sin_oap, -1.0, 1.0))
+    use_near = (l > r) if outer else torch.zeros_like(miss_tangent)
+    angle_oap = torch.where(use_near, _PI - angle_oap, angle_oap)
+    angle_aop = _PI - angle_opa - angle_oap
+    dist = sqrt(torch.clamp_min(r * r + l * l - 2.0 * r * l * torch.cos(angle_aop), 0.0))
+    hit = ~(miss_receding | miss_tangent)
+    norm = (center - (ray_o + ray_d * dist)) * (1.0 / r)
+    return _masked(hit, dist, (-norm).where(use_near, norm), material)
+
+
+def space_intersection(point: Vec4, norm: Vec4, material: Material, ray_o: Vec4,
+                       ray_d: Vec4) -> Intersection:
+    """Double-sided hyperplane, its normal turned toward the ray's origin
+    (geometry.py:220-231)."""
+    dot_vn = dot(point - ray_o, norm)
+    drct_h = norm * torch.sign(dot_vn)
+    cos_dh = dot(drct_h, ray_d)
+    hit = cos_dh >= SMALL_FLOAT
+    dist = torch.abs(dot_vn) / torch.where(hit, cos_dh, 1.0)
+    return _masked(hit, dist, -drct_h, material)
+
+
+def cylinder_intersection(point: Vec4, axis1: Vec4, axis2: Vec4, r, material: Material,
+                          ray_o: Vec4, ray_d: Vec4, outer: bool = True,
+                          trig: bool = False) -> Intersection:
+    """A cylinder infinite along two axes: the ray projected into the
+    2-plane orthogonal to both, a circle test there, the distance unscaled
+    by the projected direction's length (geometry.py:236-271)."""
+    o1 = point_in_space(ray_o, point, axis1)
+    d1 = vec_in_space(ray_d, axis1)
+    miss1 = _safe_length(d1) < SMALL_FLOAT
+    o12 = point_in_space(o1, point, axis2)
+    d12 = vec_in_space(d1, axis2)
+    d12_len = _safe_length(d12)
+    miss2 = d12_len < SMALL_FLOAT
+    inv_len = 1.0 / torch.where(miss2, 1.0, d12_len)
+    sphere_fn = sphere_intersection_trig if trig else sphere_intersection
+    inter = sphere_fn(point, r, material, o12, d12 * inv_len, outer)
+    return inter._replace(hit=inter.hit & ~(miss1 | miss2), dist=inter.dist * inv_len)
+
+
+def dist_to_axes_plane(dist, ray_o: Vec4, ray_d: Vec4, point: Vec4, axis1: Vec4,
+                       axis2: Vec4) -> torch.Tensor:
+    """Distance from the ray's point at ``dist`` to a cylinder's axis
+    2-plane (geometry.py:274-282)."""
+    p = ray_o + ray_d * dist
+    p12 = point_in_space(point_in_space(p, point, axis1), point, axis2)
+    return _safe_length(point - p12)
+
+
+def cylinders_union_intersection(cyl1: "CylinderSpec", cyl2: "CylinderSpec", ray_o: Vec4,
+                                 ray_d: Vec4, trig: bool = False) -> Intersection:
+    """The duocylinder: each cylinder's hit kept within the other's axis
+    plane at cylinder 2's radius, both arms (the reference's quirk,
+    geometry.py:293-316)."""
+    inter1 = cylinder_intersection(cyl1.point, cyl1.axis1, cyl1.axis2, cyl1.r, cyl1.material,
+                                   ray_o, ray_d, True, trig)
+    d1 = dist_to_axes_plane(inter1.dist, ray_o, ray_d, cyl2.point, cyl2.axis1, cyl2.axis2)
+    inter1 = inter1._replace(hit=inter1.hit & (d1 <= cyl2.r))
+    inter2 = cylinder_intersection(cyl2.point, cyl2.axis1, cyl2.axis2, cyl2.r, cyl2.material,
+                                   ray_o, ray_d, True, trig)
+    d2 = dist_to_axes_plane(inter2.dist, ray_o, ray_d, cyl1.point, cyl1.axis1, cyl1.axis2)
+    inter2 = inter2._replace(hit=inter2.hit & (d2 <= cyl2.r))
+    return closest(inter1, inter2)
+
+
+def _tiger_face(cyl: "CylinderSpec", outer_cyl: "CylinderSpec", inner_cyl: "CylinderSpec",
+                ray_o: Vec4, ray_d: Vec4, outer: bool, trig: bool = False) -> Intersection:
+    """One face: the cylinder's hit clipped to the annulus between the
+    other family's inner and outer radii (geometry.py:354-376)."""
+    inter = cylinder_intersection(cyl.point, cyl.axis1, cyl.axis2, cyl.r, cyl.material, ray_o,
+                                  ray_d, outer, trig)
+    d_out = dist_to_axes_plane(inter.dist, ray_o, ray_d, outer_cyl.point, outer_cyl.axis1,
+                               outer_cyl.axis2)
+    d_in = dist_to_axes_plane(inter.dist, ray_o, ray_d, inner_cyl.point, inner_cyl.axis1,
+                              inner_cyl.axis2)
+    return inter._replace(hit=inter.hit & (d_out <= outer_cyl.r) & (d_in >= inner_cyl.r))
+
+
+def tiger_intersection(tiger: "TigerSpec", ray_o: Vec4, ray_d: Vec4,
+                       trig: bool = False) -> Intersection:
+    """The closest of the 8 faces, 4 cylinders x outer in (True, False), in
+    the reference's order (geometry.py:379-395)."""
+    inter = None
+    for cyl, ocyl, icyl in ((tiger.inner_cyl1, tiger.outer_cyl2, tiger.inner_cyl2),
+                            (tiger.outer_cyl1, tiger.outer_cyl2, tiger.inner_cyl2),
+                            (tiger.inner_cyl2, tiger.outer_cyl1, tiger.inner_cyl1),
+                            (tiger.outer_cyl2, tiger.outer_cyl1, tiger.inner_cyl1)):
+        for outer in (True, False):
+            face = _tiger_face(cyl, ocyl, icyl, ray_o, ray_d, outer, trig)
+            inter = face if inter is None else closest(face, inter)
+    return inter
+
+
+def cube_intersection(cube: "CubeSpec", ray_o: Vec4, ray_d: Vec4) -> Intersection:
+    """A cell: the front-facing hit of its hyperplane within the three
+    axis extents; the normal is the cell's hyperplane normal, unflipped
+    (geometry.py:637-658)."""
+    vec_n = -cube.space_norm
+    h = dot(cube.space_point - ray_o, vec_n)
+    cos_dn = dot(ray_d, vec_n)
+    facing = (h >= 0.0) & (cos_dn >= 0.0)
+    dist = h / torch.where(cos_dn == 0.0, 1e-30, cos_dn)
+    vec_cp = ray_o + ray_d * dist - cube.space_point
+    inside = ((torch.abs(dot(vec_cp, cube.x)) <= cube.r)
+              & ((torch.abs(dot(vec_cp, cube.y)) <= cube.r)
+                 & (torch.abs(dot(vec_cp, cube.z)) <= cube.r)))
+    return _masked(facing & inside, dist, cube.space_norm, cube.material)
+
+
+def hypercube_intersection(hypercube: "HypercubeSpec", ray_o: Vec4, ray_d: Vec4) -> Intersection:
+    """The first cell hit in the cells' order, not the closest
+    (geometry.py:697-708)."""
+    inter = cube_intersection(hypercube.cubes[0], ray_o, ray_d)
+    for cell in hypercube.cubes[1:]:
+        cand = cube_intersection(cell, ray_o, ray_d)
+        inter = select(~inter.hit & cand.hit, cand, inter)
+    return inter
 
 
 # --- Composite primitives (geometry.py:282-351, :622-696) -----------------

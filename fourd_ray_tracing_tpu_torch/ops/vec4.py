@@ -130,3 +130,18 @@ def redirect(v: Vec4, n: Vec4) -> Vec4:
     d = dot(v, n)
     flipped = v - n * (2.0 * d)
     return v.where(d >= 0.0, flipped)
+
+
+def vec_in_space(v: Vec4, norm: Vec4) -> Vec4:
+    """v without its component along norm."""
+    return v - norm * dot(v, norm)
+
+
+def vec_to_space(point: Vec4, space_point: Vec4, space_norm: Vec4) -> Vec4:
+    """The vector from point to the hyperplane {space_point, space_norm}."""
+    return space_norm * dot(space_point - point, space_norm)
+
+
+def point_in_space(point: Vec4, space_point: Vec4, space_norm: Vec4) -> Vec4:
+    """point projected onto the hyperplane {space_point, space_norm}."""
+    return point + vec_to_space(point, space_point, space_norm)

@@ -363,15 +363,26 @@ def test_table_records_are_the_kernels():
 
 
 def test_hypercube_without_generators_raises():
-    """The generator-less hypercube folds cell by cell (the literal fold,
-    with intersect="spec"): not ported, and refused by name."""
+    """The generator-less hypercube folds cell by cell in the fast fold and
+    packs its cells alone (tests/test_torch_spec_fold.py holds both against
+    the JAX package); the gradient kernels, which read the generators, are
+    not ported over it and refuse it by name, on either device."""
+    from fourd_ray_tracing_tpu_torch import diff
+    from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel
+
     scene = tlib.hypercube(CPU)
     bare = scene._replace(hypercube=tgeo.HypercubeSpec(scene.hypercube.cubes))
     d = TVec4(*(torch.ones(3) for _ in range(4)))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, items 5-6"):
-        tscene.intersect_scene_fast(bare, d, d)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, items 5-6"):
-        params.layout(bare, cameras(("yxz",))[1])
+    assert tscene.intersect_scene_fast(bare, d, d).hit.shape == (3,)
+    tc = cameras(("yxz",))[1]
+    lay = params.layout(bare, tc)
+    assert lay.hypercube_cells == 1 and lay.size == params.layout(scene, tc).size - 21
+    cfg = trenderer.RenderConfig(width=8, height=4, rng_mode="per_sample")
+    vec = params.pack(bare, tc)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
+        diff.image_loss_kernel(vec, bare, tc, cfg, 1, torch.zeros((4, 8, 3)))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
+        gradkernel.check_shape(lay, cfg)
 
 
 @pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])

@@ -3,13 +3,21 @@ stride K2 and its row offset K3, with and without the static hints),
 compiled for the host and run by the CPU stand-in for the card of
 tests/test_torch_grad_launch_emulated.py, against the plain pipeline.
 
-g++ builds megakernel.cu alone, with -ffp-contract=off, behind EMU: a
-launch runs its blocks one after another, each block as its threads, so
-the per-block fold table (built by the block's threads, then a
-__syncthreads) and the kernel's pixel indexing run as on the card. Built
-so, the kernel rounds like torch's CPU pipeline: every launch is held
-bitwise against models/renderer.py with the same config, hinted or not.
-The card's own runs are chip_smoke.py's phases 3, 6, 7 and 14.
+g++ builds megakernel.cu and forwardmodes.cu, with -ffp-contract=off,
+behind EMU: a launch runs its blocks one after another, each block as its
+threads, so the per-block fold table (built by the block's threads, then
+a __syncthreads) and the kernel's pixel indexing run as on the card. Built
+so, the kernel rounds like torch's CPU pipeline: every launch of the
+production configuration is held bitwise against models/renderer.py with
+the same config, hinted or not, and so is every other configuration whose
+arithmetic has no transcendental: the sequential stream and the spec fold
+with the poly sampler. The kepler and newton samplers and the trig fold
+call glibc's expf, logf, sinf, cosf, acosf and asinf here, where torch's
+CPU ops take their own vectorized versions (they differ in the last bit
+on about 3% of arguments): those launches are held to test_pallas.py's
+image bounds (tests/test_torch_render.py BOUNDS). On the card both sides
+call CUDA's math library. The card's own runs are chip_smoke.py's phases
+3, 6, 7, 7c and 14.
 """
 import ctypes
 import dataclasses
@@ -23,7 +31,9 @@ from fourd_ray_tracing_tpu_torch import diff
 from fourd_ray_tracing_tpu_torch.models import library, params, renderer
 from fourd_ray_tracing_tpu_torch.ops.cuda import build, megakernel
 
+from helpers import assert_images_close
 from test_torch_adjoint_host import axis_plane_scene, camera_of, ptr
+from test_torch_render import BOUNDS
 from test_torch_grad_launch_emulated import emulated_library
 
 CPU = torch.device("cpu")
@@ -33,9 +43,11 @@ SEEDS = np.array([0x12345678, 9], np.uint32)
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    so = emulated_library(tmp_path_factory.mktemp("forward_launch_emulated"), ("megakernel.cu",))
+    so = emulated_library(tmp_path_factory.mktemp("forward_launch_emulated"),
+                          ("megakernel.cu", "forwardmodes.cu"))
     return build.bind(ctypes.CDLL(str(so)), ("fourd_forward_launch",
-                                             "fourd_forward_variant_launch"))
+                                             "fourd_forward_variant_launch",
+                                             "fourd_forward_modes_launch"))
 
 
 def launch(lib, packed, lay, cfg, seeds, rows=None, variant=None):
@@ -49,7 +61,9 @@ def launch(lib, packed, lay, cfg, seeds, rows=None, variant=None):
             ctypes.addressof(table), ctypes.addressof(hints), cfg.width, cfg.height, row0,
             n_rows, cfg.samples, cfg.reflections_amount, float(np.float32(cfg.small_indent)),
             ptr(out), None)
-    if variant is None:
+    if variant is None and not megakernel.production(cfg, lay):
+        err = lib.fourd_forward_modes_launch(*megakernel.mode_codes(cfg), *args)
+    elif variant is None:
         err = lib.fourd_forward_launch(*args)
     else:
         err = lib.fourd_forward_variant_launch(4 if variant == "generic_fold" else 0, *args)
@@ -280,3 +294,109 @@ def test_zeroed_composite_renders_as_dropped(lib, name, hints):
     np.testing.assert_array_equal(out[0, 0], renderer.render_light(scene, camera, cfg, seed))
     np.testing.assert_array_equal(out[1, 0], dropped)
     assert not np.array_equal(out[0, 0], out[1, 0])
+
+
+# --- K1's other configurations (csrc/forwardmodes.cu) ------------------------------
+
+RNG_MODES, SAMPLERS, FOLDS = ("per_sample", "sequential"), ("poly", "kepler", "newton"), (
+    "fast", "spec", "trig")
+MODES_SHAPE = dict(width=32, height=16, samples=3, reflections_amount=3)
+
+
+def transcendental(cfg) -> bool:
+    """Whether a configuration calls the math library's transcendentals."""
+    return cfg.sampler_method != "poly" or cfg.intersect == "trig"
+
+
+def assert_launch_matches(out, ref, cfg):
+    """Bitwise where the arithmetic is the plain pipeline's; within the
+    image bounds where glibc's transcendentals stand in for torch's."""
+    if transcendental(cfg):
+        assert_images_close(out, ref, **BOUNDS)
+    else:
+        np.testing.assert_array_equal(out, ref)
+
+
+def bare(scene):
+    """``scene`` with its hypercube built from its cells alone."""
+    return scene._replace(hypercube=type(scene.hypercube)(scene.hypercube.cubes))
+
+
+@pytest.mark.parametrize("intersect", FOLDS)
+@pytest.mark.parametrize("sampler", SAMPLERS)
+@pytest.mark.parametrize("rng_mode", RNG_MODES)
+@pytest.mark.parametrize("name", sorted(library.SCENES) + ["hypercube_cells"])
+def test_every_configuration_launch_matches_the_plain_pipeline(lib, name, rng_mode, sampler,
+                                                               intersect):
+    """K1 in every configuration the JAX K1 renders, rng x sampler x fold,
+    on every library scene and a hypercube without generators, with the
+    hints the entry point derives (the fast fold's; the literal folds
+    carry none): through the production instances for per_sample, poly,
+    fast, else through forwardmodes.cu's, over a (2,) seed vector."""
+    scene = (bare(library.hypercube(CPU)) if name == "hypercube_cells"
+             else library.SCENES[name](CPU))
+    camera = camera_of(("yxz",))
+    cfg = megakernel.with_hints(scene, renderer.RenderConfig(
+        **MODES_SHAPE, rng_mode=rng_mode, sampler_method=sampler, intersect=intersect))
+    assert megakernel.hinted(cfg) == (intersect == "fast")
+    packed, lay = params.pack(scene, camera).numpy(), params.layout(scene, camera)
+    out = launch(lib, packed, lay, cfg, SEEDS)[:, 0]
+    ref = renderer.render_light(scene, camera, cfg, SEEDS).numpy()
+    assert float(np.abs(ref).max()) > 0.0
+    assert_launch_matches(out, ref, cfg)
+
+
+@pytest.mark.parametrize("sampler,intersect", [("poly", "fast"), ("poly", "spec"),
+                                               ("newton", "trig")])
+@pytest.mark.parametrize("name", ["room_with_sphere", "tiger", "hypercube_cells"])
+def test_sequential_rows_and_blocks_are_the_launch(lib, name, sampler, intersect):
+    """The sequential stream's K2 rows (the scene and a copy with a wall or
+    the floor moved, at one seed) and K3 blocks of rows: each bitwise the
+    rows of its single launch, which holds its plain render."""
+    scene = (bare(library.hypercube(CPU)) if name == "hypercube_cells"
+             else library.SCENES[name](CPU))
+    camera = camera_of(("yxz",))
+    cfg = megakernel.with_hints(scene, renderer.RenderConfig(
+        **MODES_SHAPE, rng_mode="sequential", sampler_method=sampler, intersect=intersect))
+    wall = scene.spaces[0]
+    moved = scene._replace(spaces=(wall._replace(point=wall.point - wall.norm * 0.25),
+                                   *scene.spaces[1:]))
+    lay = params.layout(scene, camera)
+    seed = SEEDS[:1]
+    singles = [launch(lib, params.pack(sc, camera).numpy(), lay, cfg, seed)[0, 0]
+               for sc in (scene, moved)]
+    rows_p = params.stack_rows((scene, moved), camera).numpy()
+    whole = launch(lib, rows_p, lay, cfg, seed.repeat(2))[:, 0]
+    block = launch(lib, rows_p, lay, cfg, seed.repeat(2), rows=(5, 7))[:, 0]
+    for k in range(2):
+        np.testing.assert_array_equal(whole[k], singles[k])
+        np.testing.assert_array_equal(block[k], singles[k][5:12])
+    assert not np.array_equal(singles[0], singles[1])
+    assert_launch_matches(singles[0], renderer.render_light(scene, camera, cfg,
+                                                            int(seed[0])).numpy(), cfg)
+
+
+def test_launch_refuses_what_its_instances_do_not_take(lib):
+    """A hypercube without generators (kCubeCells) through the production
+    launch, hints with a literal fold, an unknown fold, sampler or RNG
+    code, and a Halley count past 16 are refused, not traced."""
+    scene, camera = bare(library.hypercube(CPU)), camera_of(("yxz",))
+    packed, lay = params.pack(scene, camera).numpy(), params.layout(scene, camera)
+    cfg = renderer.RenderConfig(**MODES_SHAPE, rng_mode="per_sample")
+    table = (ctypes.c_int * len(lay))(*lay)
+    out = np.zeros((1, 1, cfg.height, cfg.width, 3), np.float32)
+
+    def call(entry, *codes, hints=None):
+        hints = megakernel.hint_table(cfg, lay) if hints is None else hints
+        return getattr(lib, entry)(*codes, ptr(packed), 0, ptr(SEEDS[:1]), 1,
+                                   ctypes.addressof(table), ctypes.addressof(hints), cfg.width,
+                                   cfg.height, 0, cfg.height, cfg.samples,
+                                   cfg.reflections_amount, 0.005, ptr(out), None)
+
+    assert call("fourd_forward_modes_launch", 0, 0, 0, 2) == 0
+    assert call("fourd_forward_launch") != 0
+    hinted_words = megakernel.hint_table(megakernel.with_hints(scene, cfg), lay)
+    assert hinted_words[1] >= 0
+    assert call("fourd_forward_modes_launch", 1, 0, 0, 2, hints=hinted_words) != 0
+    for codes in ((3, 0, 0, 2), (0, 3, 0, 2), (0, 0, 2, 2), (0, 1, 0, 17)):
+        assert call("fourd_forward_modes_launch", *codes) != 0

@@ -59,13 +59,14 @@ def run(code, tmp_path, env_extra=None):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """With jax and the JAX package blocked, every module imports and the
-    app renders on the CPU."""
+    """With jax, the JAX package and the oracle (the tests' alone) blocked,
+    every module of the port, its tools and chip_smoke.py import, every
+    configuration of the forward renders on the CPU, and the app renders."""
     (tmp_path / "properties.txt").write_text(TINY_CONFIG)
     code = textwrap.dedent(f"""
-        import importlib, sys
+        import importlib, importlib.util, sys
 
-        BLOCKED = ("jax", "jaxlib", "fourd_ray_tracing_tpu")
+        BLOCKED = ("jax", "jaxlib", "fourd_ray_tracing_tpu", "oracle")
 
         class BlockJax:
             def find_spec(self, name, path=None, target=None):
@@ -76,6 +77,21 @@ def test_port_never_imports_jax(tmp_path):
         sys.meta_path.insert(0, BlockJax())
         for mod in {port_modules()!r}:
             importlib.import_module(mod)
+        spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / "chip_smoke.py")!r})
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        import torch
+        from fourd_ray_tracing_tpu_torch.models import library, renderer
+        from fourd_ray_tracing_tpu_torch import camera as cam
+        from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
+        camera = cam.camera_from_state(Vec4.of(0.0, -2.0, 0.0, 0.0, device="cpu"),
+                                       cam.CameraAngles.of(0.0, 0.0, 0.0, device="cpu"), 1.5,
+                                       2.0, device="cpu")
+        for modes in (dict(), dict(sampler_method="newton", intersect="trig"),
+                      dict(rng_mode="per_sample", sampler_method="kepler", intersect="spec")):
+            cfg = renderer.RenderConfig(width=8, height=4, samples=2, reflections_amount=2,
+                                        **modes)
+            assert torch.isfinite(renderer.render_light(library.tiger("cpu"), camera, cfg,
+                                                        1)).all()
         from fourd_ray_tracing_tpu_torch import app
         assert app.main(["--config", "properties.txt", "--frames", "2", "--out", "out",
                          "--device", "cpu", "--deterministic"]) == 0

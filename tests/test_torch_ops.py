@@ -136,9 +136,20 @@ def test_direction_from_uniforms_poly(rng_np):
 
 @pytest.mark.parametrize("method", ["kepler", "newton"])
 def test_unported_sampler_methods_raise(method):
-    u = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsampler.direction_from_uniforms(u, u, u, method=method)
+    """The kepler and newton samplers render (tests/test_torch_sampler.py
+    holds them against the JAX package); the gradient kernels are not
+    ported over them and refuse them by name."""
+    from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
+    from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel
+
+    u = torch.full((4,), 0.25)
+    d = tsampler.direction_from_uniforms(u, u, u, method=method)
+    norm = torch.sqrt(sum(c * c for c in d))
+    assert torch.allclose(norm, torch.ones(4), atol=1e-5)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
+        gradkernel.check_kernel_config(RenderConfig(rng_mode="per_sample", sampler_method=method))
+    with pytest.raises(ValueError):
+        tsampler.direction_from_uniforms(u, u, u, method="bisection")
 
 
 def _directions(rng_np, n=8192):

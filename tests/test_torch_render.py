@@ -124,11 +124,15 @@ def test_launch_forward_refuses_cpu_tensors():
     dict(intersect="spec"),
 ])
 def test_unported_configs_raise(change):
-    """Configurations still to be ported raise, naming their ROADMAP item;
-    axis_hints, which the forward takes, are refused by the gradient paths
-    outside the freeze_hints contract; under it every gradient path, the
-    soft ones included, takes a composite scene: the tiger's soft loss
-    under its frozen hints is finite."""
+    """The forward renders every configuration, on the CPU through the
+    plain pipeline (the kernel wrapper's CPU route); the gradient kernels
+    refuse the sequential stream (ValueError, as in the JAX package) and
+    the kepler sampler and the spec fold, still to be ported for them,
+    naming their ROADMAP item, on either device. axis_hints, which the
+    forward takes, are refused by the gradient paths outside the
+    freeze_hints contract; under it every gradient path, the soft ones
+    included, takes a composite scene: the tiger's soft loss under its
+    frozen hints is finite."""
     _, tc = cameras(("yxz",))
     cfg = dataclasses.replace(T_CFG, **change)
     if "axis_hints" in change:
@@ -144,6 +148,113 @@ def test_unported_configs_raise(change):
                                     object_ref=("tiger", None))
         assert small.axis_hints is not None and torch.isfinite(loss)
         return
-    for render in (trenderer.render_light, tkernel.render_light_cuda):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render(tlib.sphere_plane_light(CPU), tc, cfg, 1)
+    from fourd_ray_tracing_tpu_torch import diff
+
+    scene = tlib.sphere_plane_light(CPU)
+    small = dataclasses.replace(cfg, width=8, height=4)
+    ref = trenderer.render_light(scene, tc, small, 1)
+    assert ref.shape == (4, 8, 3) and bool(torch.isfinite(ref).all())
+    assert torch.equal(tkernel.render_light_cuda(scene, tc, small, 1), ref)
+    error = ValueError if "rng_mode" in change else NotImplementedError
+    with pytest.raises(error, match="per-sample" if "rng_mode" in change else "item 15"):
+        diff.image_loss_kernel(params.pack(scene, tc), scene, tc, small, 1,
+                               torch.zeros((4, 8, 3)))
+
+
+# --- The sequential stream (rng_mode="sequential", RenderConfig()'s) ----------
+
+ALL_SCENES = sorted(tlib.SCENES)
+SEQ_SHAPE = dict(width=32, height=16, samples=3, rng_mode="sequential")
+
+
+@pytest.mark.parametrize("bounces", [2, 0])
+@pytest.mark.parametrize("name", ALL_SCENES)
+def test_default_config_renders_match_jax(name, bounces):
+    """RenderConfig()'s modes (the sequential stream, the poly sampler, the
+    fast fold) at 32x16, 3 spp, against JAX's jnp render_light; at 0
+    bounces bounce 0 is the final iteration, whose dead draws the stream
+    pays (their counters: test_sequential_counters_are_bitwise_jax)."""
+    assert trenderer.RenderConfig().rng_mode == "sequential"
+    shape = dict(SEQ_SHAPE, reflections_amount=bounces)
+    jc, tc = cameras(("yxz",))
+    ref = np.asarray(jrenderer.render_light(jlib.SCENES[name](), jc,
+                                            jrenderer.RenderConfig(**shape), 7))
+    out = trenderer.render_light(tlib.SCENES[name](CPU), tc, trenderer.RenderConfig(**shape),
+                                 7).numpy()
+    assert float(np.abs(out).max()) > 0.0 or (name, bounces) == ("room_with_sphere", 0)
+    assert_images_close(out, ref, **BOUNDS)
+
+
+def _counters(rng, renderer, renderer_name, scene, camera, cfg, seed):
+    """The pixel bits and each sample's counter of a sequential stream,
+    through ``renderer``'s own trace_rays (JAX or the port)."""
+    if renderer_name == "jax":
+        scr_x, scr_y = renderer.screen_coords(cfg)
+        d = renderer.primary_directions(camera, scr_x, scr_y)
+        bits = jnp.broadcast_to(rng.pixel_stream_bits(scr_x, scr_y), d.x.shape)
+        o = JVec4(*(jnp.broadcast_to(c, d.x.shape) for c in camera.focus))
+        counter = rng.init_counter(jnp.uint32(seed), bits.shape)
+        pre0 = renderer.precompute_bounce0(scene, o, d, cfg)
+        trace = lambda c: renderer.trace_rays(scene, o, d, bits, jnp.uint32(seed), c, cfg,  # noqa
+                                              pre0)
+    else:
+        scr_x, scr_y = renderer.screen_coords(cfg, CPU)
+        d = renderer.primary_directions(camera, scr_x, scr_y)
+        bits = rng.pixel_stream_bits(scr_x, scr_y).expand(d.x.shape)
+        o = TVec4(*(c.expand(d.x.shape) for c in camera.focus))
+        counter = rng.init_counter(seed, d.x)
+        pre0 = renderer.precompute_bounce0(scene, o, d, cfg)
+        trace = lambda c: renderer.trace_rays(scene, d, bits, seed, c, cfg, pre0)  # noqa
+    out = [np.asarray(bits).astype(np.int64)]
+    for _ in range(cfg.samples):
+        _, counter = trace(counter)
+        out.append(np.asarray(counter).astype(np.int64))
+    return out
+
+
+@pytest.mark.parametrize("config", [dict(reflections_amount=0),
+                                    dict(reflections_amount=2, sampler_method="newton",
+                                         intersect="trig")], ids=["0b-poly-fast", "2b-newton-trig"])
+@pytest.mark.parametrize("name", ALL_SCENES)
+def test_sequential_counters_are_bitwise_jax(name, config):
+    """The sequential stream's RNG words: the pixel bits and the counter
+    after each of 3 samples, bitwise the JAX renderer's, the dead draws of
+    the final iteration included (0 bounces: bounce 0's)."""
+    from fourd_ray_tracing_tpu.ops import rng as jrng
+
+    from fourd_ray_tracing_tpu_torch.ops import rng as trng
+
+    shape = dict(SEQ_SHAPE, **config)
+    jc, tc = cameras(("yxz",))
+    ref = _counters(jrng, jrenderer, "jax", jlib.SCENES[name](), jc,
+                    jrenderer.RenderConfig(**shape), 7)
+    out = _counters(trng, trenderer, "port", tlib.SCENES[name](CPU), tc,
+                    trenderer.RenderConfig(**shape), 7)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a, b)
+    assert (out[1] != 7).any() and (out[2] != out[1]).any()
+
+
+def test_sequential_refuses_a_mid_stream_start():
+    """A sequential stream carries its counter across the samples, so a
+    tile cannot start at sample 1 (renderer.py:480-486)."""
+    _, tc = cameras(("yxz",))
+    cfg = trenderer.RenderConfig(width=8, height=4, samples=2)
+    with pytest.raises(ValueError, match="mid-stream"):
+        trenderer.render_light_tile(tlib.room_with_sphere(CPU), tc, cfg, 1, sample0=1,
+                                    n_samples=1)
+
+
+@pytest.mark.parametrize("name", ["sphere_plane_light"])
+def test_oracle_config_matches_the_pallas_kernel(name):
+    """The oracle's configuration (the sequential stream, the newton
+    sampler, the trig fold) against the JAX forward kernel K1 in interpret
+    mode, as tests/test_pallas.py runs it."""
+    shape = dict(width=16, height=8, samples=2, reflections_amount=2, rng_mode="sequential",
+                 sampler_method="newton", intersect="trig")
+    jc, tc = cameras(("yxz",))
+    ref = np.asarray(render_light_pallas(jlib.SCENES[name](), jc,
+                                         jrenderer.RenderConfig(**shape), 3, interpret=True))
+    out = trenderer.render_light(tlib.SCENES[name](CPU), tc, trenderer.RenderConfig(**shape),
+                                 3).numpy()
+    assert_images_close(out, ref, **BOUNDS)

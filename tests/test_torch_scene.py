@@ -79,11 +79,18 @@ def test_layout_points_at_the_leaves(name):
     assert lay.env_enabled == int(name == "sphere_plane_light")
 
 
+def megakernel_cells() -> int:
+    from fourd_ray_tracing_tpu_torch.ops.cuda import megakernel
+
+    return megakernel.CUBE_CELLS
+
+
 def test_layout_matches_the_kernel_struct():
     """The offset table crosses to CUDA as an int array in Layout's field
     order: its first kLayoutInts fields must be the field order of the
     kernels' struct Layout (csrc/trace.cuh); the composite offsets after
-    them go to the forward kernel in its hints descriptor."""
+    them go to the forward kernel in its hints descriptor, and so does
+    whether the hypercube has generators (its axis hint kCubeCells)."""
     import re
     from pathlib import Path
 
@@ -93,7 +100,8 @@ def test_layout_matches_the_kernel_struct():
     assert tuple(fields) == params.Layout._fields[:params.KERNEL_LAYOUT_INTS]
     assert f"kLayoutInts = {params.KERNEL_LAYOUT_INTS};" in src
     assert params.Layout._fields[params.KERNEL_LAYOUT_INTS:] == (
-        "n_cylinders", "cylinders", "cylinders_union", "hypercube", "tiger")
+        "n_cylinders", "cylinders", "cylinders_union", "hypercube", "tiger", "hypercube_cells")
+    assert f"kCubeCells = {megakernel_cells()};" in src
     assert f"kSpaceFloats = {params.SPACE_FLOATS};" in src
     assert f"kSphereFloats = {params.SPHERE_FLOATS};" in src
 
