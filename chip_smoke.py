@@ -83,6 +83,26 @@ on any failure, or when no CUDA device is available. Phases:
    bitwise across launches, under the contract, hinted and unhinted timed
    in turns, each one's bound; the tiger's also against its plain version
    in row bands;
+8c. K4, K5 and K6 over K1's other configurations (csrc/modes.cuh):
+   each GRAD_MODES configuration (per-sample streams; kepler, newton,
+   spec, trig) on the five library scenes and a hypercube without
+   generators (there also the production modes) at 256x144x4spp x4
+   against their plain versions (GRAD_BOUNDS, the non-zero patterns,
+   bitwise across launches), K4's loss against the loss over K1's image,
+   with_frozen_hints (the contract, or under a literal fold bitwise the
+   unhinted launch), and the tiger's K4 and K6 in trig in 2 row blocks;
+   then the main path at 1280x720x8spp x4 from zeroed counts: the packed
+   step under with_frozen_hints on the room and the tiger in the oracle's
+   sampler and fold (newton, trig), the soft step on the room's sphere 0
+   in trig and its hyperplane fallback, each launch counted by
+   configuration; then at that shape the kernels of those steps against
+   their plain versions (K4 and K6 in row bands, K5 whole; GRAD_BOUNDS,
+   the non-zero patterns, bitwise across launches) and timed beside them:
+   K4 on the room in each configuration and on the tiger in newton +
+   trig, K6 on the room's sphere 0 in trig and K5 in trig, with the room's
+   bounds (the summary's
+   ``configurations`` of K4, K5 and K6, and the modes instances'
+   resources from phase 2);
 9. the training main path in the production configuration:
    make_packed_train_step under the frozen hints (Adam on the packed
    vector, one hinted K4 launch per step, the frozen slots bitwise
@@ -243,7 +263,7 @@ counts); the dense and the unhinted counts stand beside them. The kernel
 launch counts are
 set to 0 before each main path (phases 4-5: rendering; phase 7b: each
 composite cell's engine; phase 7c: the engine in each of its two
-configurations; phases 9-10:
+configurations; phase 8c: the steps by configuration; phases 9-10:
 training; phase 13: soft training; phase 13b: soft training on the
 composites; phase 15: the ranks, fresh processes,
 count their own; phase 16: the peak sweep; phase 17: each tool) and read
@@ -278,6 +298,7 @@ from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig  # noqa: E4
 from fourd_ray_tracing_tpu_torch.ops.cuda import build  # noqa: E402
 from fourd_ray_tracing_tpu_torch.ops.cuda import ablate, gradkernel, megakernel  # noqa: E402
 from fourd_ray_tracing_tpu_torch.ops.cuda import vpu_peak as k7  # noqa: E402
+from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color  # noqa: E402
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4  # noqa: E402
 from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from fourd_ray_tracing_tpu_torch.tools import (  # noqa: E402
@@ -327,6 +348,23 @@ MODE_TIMED = {"per_sample/poly/fast": {}, "sequential/poly/fast": dict(rng_mode=
 MODE_CELLS = (("room_with_sphere", ("yxz",)), ("tiger", cam.VIEWS_ALL))
 MODES_CHECK = dict(width=256, height=144, samples=4, reflections_amount=4)
 MODE_CALLS, MODE_REPEATS = 3, 3
+# Phase 8c: K4, K5 and K6 over K1's other configurations (csrc/modes.cuh),
+# per-sample streams with one axis off the production configuration at a
+# time (GRAD_MODES), held against their plain versions at GRAD_CHECK on
+# every library scene and a hypercube without generators (there also the
+# fast fold with the poly sampler); the main path at TRAIN: the packed step
+# on the room and on the tiger in the oracle's sampler and fold
+# (GRAD_ORACLE, per-sample streams), the soft step on the room's sphere 0
+# and its hyperplane fallback in trig; K4 on the room in each GRAD_MODES
+# configuration and on the tiger in GRAD_ORACLE, K6 on the room's sphere 0
+# and K5 one row in trig, each against its plain version and timed.
+GRAD_MODES = {"per_sample/kepler/fast": dict(sampler_method="kepler"),
+              "per_sample/newton/fast": dict(sampler_method="newton"),
+              "per_sample/poly/spec": dict(intersect="spec"),
+              "per_sample/poly/trig": dict(intersect="trig")}
+GRAD_ORACLE = dict(sampler_method="newton", intersect="trig")
+GRAD_TRIG = dict(intersect="trig")
+GRAD_MODE_SCENES = tuple(sorted(library.SCENES)) + ("hypercube_cells",)
 CALLS, REPEATS = 5, 5  # timed: REPEATS runs of CALLS back-to-back calls
 # K4 against its plain version: loss within rtol, every gradient within a
 # mixed-scale relative error (|a - b| / max(|b|, 1e-3 max|b| + 1e-8), as
@@ -1507,13 +1545,16 @@ def tiger_soft_row_shards(device) -> dict:
 
 
 def train_main_path(device, frames: int, frozen: bool = True,
-                    name: str = "room_with_sphere") -> list:
+                    name: str = "room_with_sphere", modes: dict | None = None) -> list:
     """Phase 9: the packed train step at TRAIN on scene ``name``, ``frames``
     frames per step, in the production configuration (the frozen static
     hints: one hinted K4 launch per step, the frozen slots of the packed
     vector bitwise constant), or unhinted (``frozen`` False); one warm-up
-    step, then timed steps. Returns ms per step."""
-    cfg = RenderConfig(**TRAIN)
+    step, then timed steps. ``modes`` (phase 8c): the sampler and fold off
+    the production ones, under with_frozen_hints (a literal fold's carries
+    no hints: its launches are unhinted, nothing frozen). Returns ms per
+    step."""
+    cfg = RenderConfig(**TRAIN, **(modes or {}))
     scene, camera = library.SCENES[name](device), camera_for(("yxz",), device)
     if frozen:
         cfg = diff.with_frozen_hints(cfg, scene)
@@ -1528,19 +1569,21 @@ def train_main_path(device, frames: int, frozen: bool = True,
     ms = cuda_ms(lambda: losses.append(step(model, opt, len(losses) + 1, target)),
                  calls=TRAIN_CALLS, repeats=TRAIN_REPEATS)
     assert gradkernel.LAUNCHES - before[0] == len(losses), "one K4 launch per step"
-    assert gradkernel.HINTED_LAUNCHES - before[1] == (len(losses) if frozen else 0), \
+    assert gradkernel.HINTED_LAUNCHES - before[1] == (len(losses) if megakernel.hinted(cfg)
+                                                      else 0), \
         "the production step runs the hinted K4"
     losses = torch.stack(losses).cpu().numpy()
     assert np.isfinite(losses).all(), losses
     vec = model.scene_vec.detach()
     assert not torch.equal(vec, vec0), "the step did not move the scene"
-    if frozen:
+    if megakernel.hinted(cfg):
         held = params.freeze_mask(cfg, scene).to(device) == 0
         assert torch.equal(vec[held], vec0[held]), "a frozen slot moved"
     assert np.isfinite(params.pack(unpack(model), camera).cpu().numpy()).all()
     rays = cfg.width * cfg.height * cfg.samples * frames
     med = statistics.median(ms)
-    print(f"train step {name} F={frames} {'frozen hints' if frozen else 'unhinted'}: ms={ms} "
+    print(f"train step {name} F={frames} {'frozen hints' if frozen else 'unhinted'} "
+          f"{megakernel.launch_config(cfg, params.layout(scene, camera))}: ms={ms} "
           f"median={med} grad_mrays_per_s={rays / med / 1e3} losses {losses[0]} -> "
           f"{losses[-1]}", flush=True)
     return ms
@@ -1578,7 +1621,9 @@ def run_app() -> None:
 
 
 def reset_counts() -> None:
-    megakernel.CONFIG_LAUNCHES.clear()
+    for configs in (megakernel.CONFIG_LAUNCHES, gradkernel.CONFIG_LAUNCHES,
+                    gradkernel.CONFIG_VJP_LAUNCHES, gradkernel.CONFIG_SOFT_LAUNCHES):
+        configs.clear()
     megakernel.LAUNCHES = megakernel.ROW_LAUNCHES = megakernel.SHARD_LAUNCHES = 0
     megakernel.HINTED_LAUNCHES = 0
     megakernel.VARIANT_LAUNCHES = k7.LAUNCHES = ablate.LAUNCHES = ablate.HINTED_LAUNCHES = 0
@@ -2081,13 +2126,15 @@ def soft_step_host(step, state, target, steps: int) -> dict:
     return out
 
 
-def soft_train(device, ref, calls: int, repeats: int, name: str = "room_with_sphere"):
+def soft_train(device, ref, calls: int, repeats: int, name: str = "room_with_sphere",
+               modes: dict | None = None):
     """Phase 13: make_train_step(impl="kernel", soft_object_ref=ref) at
     TRAIN on scene ``name``, in the production configuration (the frozen
-    static hints); one warm-up step, then timed steps.
+    static hints); one warm-up step, then timed steps. ``modes`` (phase
+    8c): as train_main_path's.
     Returns (ms per step, the steps, the trained scene and its optimizer,
     the target, the step)."""
-    cfg = RenderConfig(**TRAIN)
+    cfg = RenderConfig(**TRAIN, **(modes or {}))
     scene, camera = library.SCENES[name](device), camera_for(("yxz",), device)
     cfg = diff.with_frozen_hints(cfg, scene)
     target = torch.zeros((cfg.height, cfg.width, 3), device=device)
@@ -2108,12 +2155,14 @@ def soft_train(device, ref, calls: int, repeats: int, name: str = "room_with_sph
     vec = params.pack(state[0], camera).detach()
     assert np.isfinite(vec.cpu().numpy()).all() and not torch.equal(vec, start), \
         f"{ref}: the step did not move the scene"
-    held = params.freeze_mask(cfg, scene).to(device) == 0
-    n = held.numel()
-    assert torch.equal(vec[:n][held], start[:n][held]), f"{ref}: a frozen slot moved"
+    if megakernel.hinted(cfg):
+        held = params.freeze_mask(cfg, scene).to(device) == 0
+        n = held.numel()
+        assert torch.equal(vec[:n][held], start[:n][held]), f"{ref}: a frozen slot moved"
     rays = cfg.width * cfg.height * cfg.samples
     med = statistics.median(ms)
-    print(f"soft train step {name} {ref} frozen hints: ms={ms} "
+    print(f"soft train step {name} {ref} frozen hints {cfg.sampler_method}/{cfg.intersect}: "
+          f"ms={ms} "
           f"median={med} grad_mrays_per_s={rays / med / 1e3} losses {out[0]} -> {out[-1]}",
           flush=True)
     return ms, len(losses), state, target, step
@@ -2202,6 +2251,263 @@ def soft_step_split(device, state, target, ref=SOFT_REFS["room_with_sphere"]):
         "coverage_fwd_bwd": cuda_ms(coverage, calls=TRAIN_CALLS, repeats=TRAIN_REPEATS),
         "adam": cuda_ms(opt.step, calls=TRAIN_CALLS, repeats=TRAIN_REPEATS),
     }
+
+
+def mode_soft_ref(name: str):
+    """The soft object of a GRAD_MODE_SCENES scene: a sphere of the plane
+    scenes, the composite itself (the cells-only hypercube's cells
+    zeroed)."""
+    if name == "hypercube_cells":
+        return COMPOSITE_SOFT_REFS["hypercube"]
+    return SOFT_REFS.get(name) or COMPOSITE_SOFT_REFS[name]
+
+
+def image_loss_of(light: torch.Tensor, target: torch.Tensor, cfg: RenderConfig) -> float:
+    """The loss of K4's definition over K1's light (F, H, W, 3): the mean
+    over frames, pixels and channels of (tone-mapped light - target)^2, in
+    double."""
+    image = light_to_color(light, cfg.light_coefficient)
+    return float(torch.mean(((image - target) ** 2).double()))
+
+
+def check_grad_modes(device) -> dict:
+    """Phase 8c's checks at GRAD_CHECK, one view, on every GRAD_MODE_SCENES
+    scene in each GRAD_MODES configuration (the cells-only hypercube in the
+    production one too): K4 over a (2,) seed vector, K5 with a seeded random
+    cotangent and K6 with a seeded random alpha (the scene's soft object
+    zeroed in row b) against their plain versions within GRAD_BOUNDS (the
+    composites' pattern floor), each bitwise across two launches; K4's loss
+    within loss_rtol of the loss over K1's image in the same configuration;
+    under diff.with_frozen_hints the fast fold's launches hold the contract
+    and the literal folds' (no hints) are bitwise the unhinted launches. Then
+    one K4 and one K6 launch in trig on the tiger cut into 2 row blocks: the
+    blocks' sums within GRAD_BOUNDS of the whole launch, K6's alpha
+    cotangent blocks bitwise its rows. Returns the worst errors by kernel
+    and the launches checked, by kernel and configuration."""
+    seeds = np.array([0x12345678, 0x9ABCDEF0], np.uint32)
+    words = megakernel.seed_tensor(seeds, device)
+    camera = camera_for(("yxz",), device)
+    worst = {"k4": [0.0, 0.0], "k5": [0.0, 0.0], "k6": [0.0, 0.0]}
+    checked = {"k4": {}, "k5": {}, "k6": {}}
+    for name in GRAD_MODE_SCENES:
+        scene = modes_scene(name, device)
+        packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+        floor = COMPOSITE_PATTERN_FLOOR if lay.composite_kinds() else 0.0
+        modes = list(GRAD_MODES.values()) + ([{}] if lay.hypercube_cells else [])
+        zero_map = params.soft_zero_map(scene, camera, mode_soft_ref(name))
+        for mode in modes:
+            cfg = RenderConfig(**GRAD_CHECK, **mode)
+            key = megakernel.launch_config(cfg, lay)
+            assert not megakernel.production(cfg, lay), key
+            rng = np.random.default_rng(3)
+            target = torch.from_numpy(rng.uniform(0, 1, (cfg.height, cfg.width, 3)).astype(
+                np.float32)).to(device)
+            cot = torch.from_numpy(rng.normal(0, 1, (cfg.height, cfg.width, 3)).astype(
+                np.float32)).to(device)
+            alpha = torch.from_numpy(rng.uniform(0, 1, (cfg.height, cfg.width)).astype(
+                np.float32)).to(device)
+            label = f"8c {name} {key}"
+            # K4
+            k4 = gradkernel.launch_loss_grad(packed, lay, cfg, words, target)
+            again = gradkernel.launch_loss_grad(packed, lay, cfg, words, target)
+            plain = gradkernel.loss_and_grad_plain(packed, scene, camera, cfg, seeds, target)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(k4, again)), f"{label}: K4 launches"
+            err, rel = compare_grad(label, k4, plain, floor)
+            image = image_loss_of(megakernel.launch_forward(packed, lay, cfg, words)[:, 0],
+                                  target, cfg)
+            print(f"K4 {label} loss={float(k4[0])} over K1's image={image}", flush=True)
+            assert abs(float(k4[0]) - image) <= GRAD_BOUNDS["loss_rtol"] * abs(image), label
+            # K5, K6
+            k5 = gradkernel.render_light_vjp_cuda(packed, scene, camera, cfg, 1, cot)
+            assert torch.equal(k5, gradkernel.render_light_vjp_cuda(packed, scene, camera, cfg,
+                                                                    1, cot)), f"{label}: K5"
+            e5, r5 = compare_vec(f"K5 {label}", k5, gradkernel.render_light_vjp_plain(
+                packed, scene, camera, cfg, 1, cot), floor=floor)
+            k6 = gradkernel.render_soft_loss_and_grad_cuda(packed, scene, camera, cfg, 1, target,
+                                                           alpha, zero_map)
+            again = gradkernel.render_soft_loss_and_grad_cuda(packed, scene, camera, cfg, 1,
+                                                              target, alpha, zero_map)
+            assert all(torch.equal(a, b) for a, b in zip(k6, again)), f"{label}: K6 launches"
+            e6, r6 = compare_soft(label, k6, gradkernel.render_soft_loss_and_grad_plain(
+                packed, scene, camera, cfg, 1, target, alpha, zero_map), floor=floor)
+            for k, e, r in (("k4", err, rel), ("k5", e5, r5), ("k6", e6, r6)):
+                worst[k] = [max(worst[k][0], e), max(worst[k][1], r)]
+            for k in checked:
+                checked[k][key] = checked[k].get(key, 0) + 1
+            # The contract: the fast fold's hints frozen, the literal folds' none.
+            hcfg = diff.with_frozen_hints(cfg, scene)
+            if megakernel.hinted(hcfg):
+                keep = params.freeze_mask(hcfg, scene, lay.size, device)
+                frozen = keep == 0
+                check_contract(f"K4 {label}", gradkernel.launch_loss_grad(
+                    packed, lay, hcfg, words, target, keep=keep), k4, frozen)
+                check_contract(f"K5 {label}", gradkernel.render_light_vjp_cuda(
+                    packed, scene, camera, hcfg, 1, cot), k5, frozen)
+                check_contract(f"K6 {label}", gradkernel.render_soft_loss_and_grad_cuda(
+                    packed, scene, camera, hcfg, 1, target, alpha, zero_map), k6, frozen)
+            else:
+                assert params.freeze_mask(hcfg, scene, lay.size, device) is None, label
+                same = all(torch.equal(a, b) for a, b in zip(
+                    gradkernel.render_soft_loss_and_grad_cuda(packed, scene, camera, hcfg, 1,
+                                                              target, alpha, zero_map), k6))
+                same = same and all(torch.equal(a, b) for a, b in zip(
+                    gradkernel.launch_loss_grad(packed, lay, hcfg, words, target), k4))
+                print(f"{label}: under with_frozen_hints no hints, nothing frozen, K4 and K6 "
+                      f"bitwise the unhinted launches={same}", flush=True)
+                assert same, label
+    # Row blocks: K4 and K6 in trig on the tiger, 2 blocks.
+    scene = library.tiger(device)
+    packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+    cfg = RenderConfig(**GRAD_CHECK, **GRAD_TRIG)
+    rng = np.random.default_rng(4)
+    target = torch.from_numpy(rng.uniform(0, 1, (cfg.height, cfg.width, 3)).astype(
+        np.float32)).to(device)
+    alpha = torch.from_numpy(rng.uniform(0, 1, (cfg.height, cfg.width)).astype(
+        np.float32)).to(device)
+    zero_map = params.soft_zero_map(scene, camera, COMPOSITE_SOFT_REFS["tiger"])
+    whole4 = gradkernel.launch_loss_grad(packed, lay, cfg, words, target)
+    whole6 = gradkernel.render_soft_loss_and_grad_cuda(packed, scene, camera, cfg, 1, target,
+                                                       alpha, zero_map)
+    parts4, parts6 = [], []
+    for row0, n_rows in shard_blocks(cfg.height, 2):
+        rows = (row0, n_rows)
+        parts4.append(gradkernel.launch_loss_grad(packed, lay, cfg, words,
+                                                  target[row0:row0 + n_rows].contiguous(), rows))
+        parts6.append(gradkernel.render_soft_loss_and_grad_cuda(
+            packed, scene, camera, cfg, 1, target[row0:row0 + n_rows],
+            alpha[row0:row0 + n_rows], zero_map, rows))
+    err, rel = compare_grad("8c tiger trig K4 2 row blocks summed",
+                            (sum(p[0] for p in parts4), sum(p[1] for p in parts4)), whole4,
+                            COMPOSITE_PATTERN_FLOOR)
+    acot = torch.cat([p[2] for p in parts6])
+    assert torch.equal(acot, whole6[2]), "8c tiger trig K6 row blocks: alpha cotangent"
+    e6, r6 = compare_soft("8c tiger trig 2 row blocks summed",
+                          (sum(p[0] for p in parts6), sum(p[1] for p in parts6), acot), whole6,
+                          floor=COMPOSITE_PATTERN_FLOOR)
+    for k, e, r in (("k4", err, rel), ("k6", e6, r6)):
+        worst[k] = [max(worst[k][0], e), max(worst[k][1], r)]
+    return {"max_abs_err": {k: v[0] for k, v in worst.items()},
+            "max_grad_mixed_rel": {k: v[1] for k, v in worst.items()}, "checked": checked,
+            "row_blocks": {"k4": 2, "k6": 2}}
+
+
+def mode_bound(kernel: str, scene, camera, cfg: RenderConfig, packed, lay) -> dict:
+    """The bound of K4 (one frame) or K5 (one row) at ``cfg`` on the closed
+    room (every lane lives): the plain version's flops over BOUND_ROWS rows
+    (forward and autograd backward, newton's steps as its data needs them),
+    scaled to the image, and K4's or K5's bytes (kernel_bounds')."""
+    rows, scale = (0, BOUND_ROWS), cfg.height / BOUND_ROWS
+    block = torch.zeros((BOUND_ROWS, cfg.width, 3), device=packed.device)
+    pixels, p = cfg.height * cfg.width, lay.size
+    if kernel == "k4":
+        flops = count_flops(gradkernel.loss_and_grad_plain, packed, scene, camera, cfg, [1],
+                            block, rows=rows)[1]
+        return bound(flops * scale, 4 * (p + 1 + pixels * 3 + p + 1))
+    flops = count_flops(gradkernel.render_light_vjp_plain, packed, scene, camera, cfg, 1, block,
+                        rows=rows)[1]
+    return bound(flops * scale, 4 * (p + pixels * 3 + p))
+
+
+def grad_modes_main(device, card: str) -> dict:
+    """Phase 8c's main path at TRAIN (1 frame, one view), from zeroed counts:
+    the packed Adam step under with_frozen_hints on the room and on the
+    tiger in GRAD_ORACLE (one K4 launch a step), the soft step on the room's
+    sphere 0 in trig (one K6 launch a step) and its hyperplane fallback
+    ("spaces", 0: two K1 and two K5 launches a step), every launch counted
+    by configuration. Then, at the same shape, each kernel those steps run
+    held against its plain version (K4 and K6 in BAND_ROWS-row bands, K5
+    whole) within GRAD_BOUNDS and timed beside it (CUDA-event medians of
+    MODE_CALLS x MODE_REPEATS, the plain version once) with its bound: K4 on
+    the room in each GRAD_MODES configuration (with_frozen_hints: the fast
+    fold's hints frozen) and on the tiger in GRAD_ORACLE, K6 on the room's
+    sphere 0 in trig and K5 one row in trig. Returns the counts, the times
+    and the worst errors by kernel."""
+    reset_counts()
+    steps = {"room": train_main_path(device, 1, modes=GRAD_ORACLE),
+             "tiger": train_main_path(device, 1, name="tiger", modes=GRAD_ORACLE)}
+    soft_ms, n_soft, _, _, _ = soft_train(device, SOFT_REFS["room_with_sphere"], TRAIN_CALLS, 1,
+                                          modes=GRAD_TRIG)
+    fallback_ms, n_fallback, _, _, _ = soft_train(device, FALLBACK_REF, TRAIN_CALLS, 1,
+                                                  modes=GRAD_TRIG)
+    n_train = 1 + TRAIN_CALLS * TRAIN_REPEATS
+    launches = {"counts": counts(), "k4": dict(gradkernel.CONFIG_LAUNCHES),
+                "k5": dict(gradkernel.CONFIG_VJP_LAUNCHES),
+                "k6": dict(gradkernel.CONFIG_SOFT_LAUNCHES),
+                "k1": dict(megakernel.CONFIG_LAUNCHES)}
+    oracle, trig = "per_sample/newton/trig", "per_sample/poly/trig"
+    expect = {"k4": {oracle: 2 * n_train}, "k5": {trig: 2 * n_fallback},
+              "k6": {trig: n_soft}, "k1": {trig: 2 * n_fallback}}
+    assert {k: launches[k] for k in expect} == expect, (launches, expect)
+    print(json.dumps({"phase": "8c main path", "card": card, "launches": launches}), flush=True)
+    camera = camera_for(("yxz",), device)
+    words = megakernel.seed_tensor([1], device)
+    target = torch.zeros((TRAIN["height"], TRAIN["width"], 3), device=device)
+    worst = {"k4": [0.0, 0.0], "k5": [0.0, 0.0], "k6": [0.0, 0.0]}
+
+    def timed_against_plain(kernel: str, label: str, launch, plain_fn, compare) -> dict:
+        """``launch`` twice (bitwise), against ``plain_fn``'s result, then
+        timed beside it."""
+        out = launch()
+        assert all(torch.equal(a, b) for a, b in zip(out, launch())), f"{label}: launches differ"
+        ms = cuda_ms(launch, calls=MODE_CALLS, repeats=MODE_REPEATS)
+        plain = [None]
+        plain_ms = cuda_ms(lambda: plain.__setitem__(0, plain_fn()), calls=1, repeats=1)[0]
+        err, rel = compare(label, out, plain[0])
+        worst[kernel] = [max(worst[kernel][0], err), max(worst[kernel][1], rel)]
+        print(f"{label}: ms={ms} plain_ms={plain_ms}", flush=True)
+        return {"ms": statistics.median(ms), "ms_runs": ms, "plain_ms": plain_ms,
+                "max_abs_err": err, "grad_mixed_rel": rel}
+
+    timed = {}
+    for name, modes in (("room_with_sphere", GRAD_MODES),
+                        ("tiger", {oracle: GRAD_ORACLE})):
+        scene = library.SCENES[name](device)
+        packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+        floor = COMPOSITE_PATTERN_FLOOR if lay.composite_kinds() else 0.0
+        for key, mode in modes.items():
+            cfg = diff.with_frozen_hints(RenderConfig(**TRAIN, **mode), scene)
+            keep = params.freeze_mask(cfg, scene, lay.size, device)
+            cell = timed_against_plain(
+                "k4", f"8c K4 {name} {key} 1280x720x8spp x4 (plain in {BAND_ROWS}-row bands)",
+                lambda cfg=cfg, keep=keep: gradkernel.launch_loss_grad(
+                    packed, lay, cfg, words, target, keep=keep),
+                lambda cfg=cfg: gradkernel.loss_and_grad_plain(
+                    packed, scene, camera, cfg, [1], target, band_rows=BAND_ROWS),
+                lambda label, k, p, floor=floor: compare_grad(label, k, p, floor))
+            if name == "room_with_sphere":
+                timed[key] = {**cell, **mode_bound("k4", scene, camera, cfg, packed, lay)}
+                print(f"8c K4 room {key} 1280x720: bound_ms={timed[key]['bound_ms']}", flush=True)
+            else:
+                tiger = cell
+    scene = library.room_with_sphere(device)
+    packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+    cfg = RenderConfig(**TRAIN, **GRAD_TRIG)
+    ref = SOFT_REFS["room_with_sphere"]
+    _, _, zero_map, alpha, _ = soft_inputs(scene, camera, cfg, ref, SOFT_EDGE, target)
+    k6 = timed_against_plain(
+        "k6", f"8c K6 room {ref} trig 1280x720x8spp x4 (plain in {BAND_ROWS}-row bands)",
+        lambda: gradkernel.launch_soft_loss_grad(packed, lay, cfg, 1, target, alpha, zero_map),
+        lambda: gradkernel.render_soft_loss_and_grad_plain(
+            packed, scene, camera, cfg, 1, target, alpha, zero_map, band_rows=BAND_ROWS),
+        lambda label, k, p: compare_soft(label, k, p))
+    cot = torch.from_numpy(np.random.default_rng(6).normal(
+        0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)).to(device)
+    k5 = timed_against_plain(
+        "k5", "8c K5 room trig 1 row 1280x720x8spp x4 (plain whole)",
+        lambda: (gradkernel.render_light_vjp_cuda(packed, scene, camera, cfg, 1, cot),),
+        lambda: (gradkernel.render_light_vjp_plain(packed, scene, camera, cfg, 1, cot),),
+        lambda label, k, p: compare_vec(label, k[0], p[0]))
+    k5.update(mode_bound("k5", scene, camera, cfg, packed, lay))
+    print(f"8c K5 room trig 1 row 1280x720: bound_ms={k5['bound_ms']}", flush=True)
+    return {"launches": launches,
+            "packed_step_ms": {k: statistics.median(v) for k, v in steps.items()},
+            "packed_step_ms_runs": steps, "oracle": oracle,
+            "soft_step_trig_ms": statistics.median(soft_ms), "soft_step_trig_ms_runs": soft_ms,
+            "fallback_step_trig_ms": statistics.median(fallback_ms),
+            "k4_room": timed, "k4_tiger_oracle": tiger, "k6_room_trig": k6, "k5_room_trig": k5,
+            "max_abs_err": {k: v[0] for k, v in worst.items()},
+            "max_grad_mixed_rel": {k: v[1] for k, v in worst.items()}}
 
 
 def run_inverse_render_position() -> int:
@@ -2781,6 +3087,30 @@ def grad_resources(log: str) -> dict:
     return out
 
 
+# The folds of the modes sources' instances (the gradient kernels over
+# Modes<Fold>), as their mangled names spell them.
+MODE_FOLDS = {"spec": "8SpecFoldILb0EE", "trig": "8SpecFoldILb1EE",
+              "cells": "GradCompositeFoldILin1ELin1ELin1ELin1ELin2EE",
+              "composite": "GradCompositeFoldILin1ELin1ELin1ELin1ELin1EE",
+              "table": "13GradTableFoldILin1ELin1EE"}
+
+
+def modes_resources(log: str) -> dict:
+    """Registers, stack frame and spill stores of the modes instances
+    (each kernel of GRAD_KERNELS over Modes of each MODE_FOLDS fold, at
+    kMaxBounces), by kernel and fold; prints them."""
+    res = build.kernel_resources(log)
+    out = {}
+    for key, name in GRAD_KERNELS.items():
+        for fold, pattern in MODE_FOLDS.items():
+            hits = [r for n, r in res.items()
+                    if f"{len(name)}{name}I" in n and "5ModesI" in n and pattern in n]
+            assert len(hits) == 1, (key, fold, hits)
+            out.setdefault(key, {})[fold] = hits[0]
+    print(json.dumps({"modes_instances": out}), flush=True)
+    return out
+
+
 def grad_patterns() -> dict:
     """A part of the mangled name of each gradient launch kernel's
     instance: per kernel of GRAD_KERNELS and fold of GRAD_FOLDS, a sweep's
@@ -2935,6 +3265,7 @@ def main() -> int:
     warps = resident_warps(lib_path, device)
     k1_res = k1_resources(device, lib_path)
     comp_res = composite_resources(lib_path, device)
+    mode_res = modes_resources(build.build_log())
 
     phase("3 kernel vs plain on the card")
     max_err = check_kernel_against_plain(device)
@@ -2991,6 +3322,27 @@ def main() -> int:
     light_err, ir_err, ir_rel = check_inverse_render_shapes(device)
     max_err = max(max_err, light_err)
     grad_err, grad_rel = max(grad_err, k4["err"], ir_err), max(grad_rel, k4["rel"], ir_rel)
+
+    phase("8c gradient kernels by configuration: K4, K5 and K6 over K1's other "
+          "configurations, every scene vs plain at 256x144; the packed and soft steps and the "
+          "kernels at 1280x720")
+    t_8c = time.perf_counter()
+    grad_mode_checks = check_grad_modes(device)
+    grad_mode_main = grad_modes_main(device, card)
+    mode_launches = grad_mode_main["launches"]
+    # The worst errors of phase 8c by kernel, at 256x144 and at TRAIN.
+    mode_errs = {k: (max(grad_mode_checks["max_abs_err"][k], grad_mode_main["max_abs_err"][k]),
+                     max(grad_mode_checks["max_grad_mixed_rel"][k],
+                         grad_mode_main["max_grad_mixed_rel"][k]))
+                 for k in ("k4", "k5", "k6")}
+    print(json.dumps({"phase": "8c", "card": card, "seconds": time.perf_counter() - t_8c,
+                      "max_abs_err": {k: e for k, (e, _) in mode_errs.items()},
+                      "max_grad_mixed_rel": {k: r for k, (_, r) in mode_errs.items()},
+                      "checked": grad_mode_checks["checked"],
+                      **{k: v for k, v in grad_mode_main.items()
+                         if k not in ("launches", "max_abs_err", "max_grad_mixed_rel")}}),
+          flush=True)
+    grad_err, grad_rel = max(grad_err, mode_errs["k4"][0]), max(grad_rel, mode_errs["k4"][1])
 
     phase("9 training main path: packed Adam step -> K4, 1280x720")
     reset_counts()
@@ -3054,6 +3406,7 @@ def main() -> int:
     vjp_err, vjp_rel = max(vjp_err, comp_err), max(vjp_rel, comp_rel)
     k5 = time_light_vjp(device)
     vjp_err, vjp_rel = max(vjp_err, k5["err"]), max(vjp_rel, k5["rel"])
+    vjp_err, vjp_rel = max(vjp_err, mode_errs["k5"][0]), max(vjp_rel, mode_errs["k5"][1])
     phase("12 soft value-and-grad kernel K6 vs plain on the card")
     soft_err, soft_rel = check_soft_kernel(device)
     comp_err, comp_rel = check_composite_k6(device)
@@ -3061,6 +3414,7 @@ def main() -> int:
     k6 = time_soft_kernel(device)
     max_err = max(max_err, k6["light_err"])
     soft_err, soft_rel = max(soft_err, k6["err"]), max(soft_rel, k6["rel"])
+    soft_err, soft_rel = max(soft_err, mode_errs["k6"][0]), max(soft_rel, mode_errs["k6"][1])
 
     phase("13 soft training main path: make_train_step(soft) -> K6, 1280x720")
     reset_counts()
@@ -3218,6 +3572,23 @@ def main() -> int:
                 "what": "the hinted launch against the unhinted one: the loss and alpha's "
                         "cotangent bitwise, every kept slot bitwise, every frozen slot 0"}
 
+    def grad_configurations(kernel: str, timed=None) -> dict:
+        """Phase 8c's record of K4, K5 or K6 over K1's other
+        configurations: the main path's launches by configuration, the
+        launches checked against the plain version at GRAD_CHECK by
+        configuration and their worst errors, the modes instances'
+        resources, and what was timed at TRAIN."""
+        out = {"main_path": mode_launches[kernel],
+               "checked": grad_mode_checks["checked"][kernel],
+               "checked_max_abs_err": grad_mode_checks["max_abs_err"][kernel],
+               "checked_max_grad_mixed_rel": grad_mode_checks["max_grad_mixed_rel"][kernel],
+               "max_abs_err": mode_errs[kernel][0],
+               "max_grad_mixed_rel": mode_errs[kernel][1],
+               "instances": {k: mode_res[k] for k in GRAD_LAUNCHES[kernel]}}
+        if timed is not None:
+            out["timed"] = timed
+        return out
+
     no_library = {"library_ms": None,
                   "library_note": "no single PyTorch call computes a path trace or its adjoint"}
 
@@ -3227,11 +3598,13 @@ def main() -> int:
         "source": "fourd_ray_tracing_tpu_torch/csrc/megakernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/megakernel.py:316",
         "launches": (launches["render"][0] + launches["composite"] + launches["modes"]
+                     + mode_launches["counts"]["k1"]
                      + launches["train"][0] + launches["soft"]["k1"]
                      + launches["soft_composites"]["k1"] + sharded["k1"] + measure["k1"]
                      + measure["k1_variant"]),
         "launches_by_path": {"render": launches["render"][0], "composite": launches["composite"],
                              "modes": launches["modes"],
+                             "grad_modes": mode_launches["counts"]["k1"],
                              "train": launches["train"][0], "soft": launches["soft"]["k1"],
                              "soft_composites": launches["soft_composites"]["k1"],
                              "sharded": sharded["k1"], "measure": measure["k1"]},
@@ -3289,8 +3662,9 @@ def main() -> int:
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:117",
         "launches": (launches["train"][1] + launches["train_tiger"]["k4"] + sharded["k4"]
-                     + measure["k4"]),
+                     + measure["k4"] + mode_launches["counts"]["k4"]),
         "launches_by_path": {"render": launches["render"][1], "train": launches["train"][1],
+                             "grad_modes": mode_launches["counts"]["k4"],
                              "train_tiger": launches["train_tiger"]["k4"],
                              "sharded": sharded["k4"], "measure": measure["k4"]},
         "sharded_launches": sharded["k4_shard"],
@@ -3324,6 +3698,15 @@ def main() -> int:
         "plain_ms_4_frames": k4["plain_full_ms"][4],
         "ms_256x144": med_small,
         "plain_ms_256x144": med_plain,
+        # Phase 8c: the packed step on the room and the tiger in the
+        # oracle's sampler and fold, K4 on the room one axis off the
+        # production configuration at a time and on the tiger in the
+        # oracle's modes.
+        "configurations": grad_configurations("k4", {
+            "room": {k: with_shares(dict(c)) for k, c in grad_mode_main["k4_room"].items()},
+            "tiger_oracle": grad_mode_main["k4_tiger_oracle"],
+            "packed_step_ms": grad_mode_main["packed_step_ms"],
+            "packed_step_config": grad_mode_main["oracle"]}),
         "build_s": build_s,
     }, {
         "name": "light_vjp_kernel",
@@ -3332,8 +3715,9 @@ def main() -> int:
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:294",
         "launches": (launches["soft"]["k5"] + launches["soft_composites"]["k5"] + sharded["k5"]
-                     + measure["k5"]),
+                     + measure["k5"] + mode_launches["counts"]["k5"]),
         "launches_by_path": {"soft": launches["soft"]["k5"],
+                             "grad_modes": mode_launches["counts"]["k5"],
                              "soft_composites": launches["soft_composites"]["k5"],
                              "sharded": sharded["k5"], "measure": measure["k5"]},
         "sharded_launches": sharded["k5_shard"],
@@ -3357,6 +3741,9 @@ def main() -> int:
         # on the tiger without wall 0 (phase 13b).
         "tiger_ms": k5_cells["tiger"]["ms"],
         "composite_cells": k5_cells,
+        "configurations": grad_configurations("k5", {
+            "room_trig_1_row": with_shares(dict(grad_mode_main["k5_room_trig"])),
+            "fallback_step_trig_ms": grad_mode_main["fallback_step_trig_ms"]}),
         "build_s": build_s,
     }, {
         "name": "soft_loss_grad_kernel",
@@ -3365,8 +3752,9 @@ def main() -> int:
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:1207",
         "launches": (launches["soft"]["k6"] + launches["soft_composites"]["k6"] + sharded["k6"]
-                     + measure["k6"]),
+                     + measure["k6"] + mode_launches["counts"]["k6"]),
         "launches_by_path": {"soft": launches["soft"]["k6"],
+                             "grad_modes": mode_launches["counts"]["k6"],
                              "soft_composites": launches["soft_composites"]["k6"],
                              "sharded": sharded["k6"], "measure": measure["k6"]},
         "sharded_launches": sharded["k6_shard"],
@@ -3393,6 +3781,9 @@ def main() -> int:
         "tiger_row_shards": tiger_soft_shards,
         "pair_ms": k6["pair_ms"],
         "pair_note": "K2 over both rows + the two-row K5, the launches K6 fused, same shape",
+        "configurations": grad_configurations("k6", {
+            "room_trig": grad_mode_main["k6_room_trig"],
+            "soft_step_trig_ms": grad_mode_main["soft_step_trig_ms"]}),
         **bounds["k6"], **no_library,
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, sphere 0, zero target, edge "
                  f"width 0.05, the frozen static hints (plain version in {BAND_ROWS}-row bands)",

@@ -41,6 +41,12 @@
 // registers; kB == kMaxBounces is the generic instance for any count up to
 // it, with the loops rolled.
 //
+// The literal folds' winners (SpecFold, and a hypercube's cells in
+// the fast fold without generators) are resolved and differentiated
+// through their own literal test (lit_test, lit_adj); the re-trace runs
+// the fold's sampler (trace.cuh kFoldSampler: a Modes fold's the launch's),
+// which needs no adjoint.
+//
 // This header uses no CUDA API beyond what trace.cuh does, so the tests
 // compile it for the host behind a shim header, with a dense accumulator,
 // and hold it against torch autograd (tests/test_torch_adjoint_host.py).
@@ -311,6 +317,9 @@ struct Bounce {
 // the light, with the fold Fold) while recording bounces 1..R into
 // rec[0..n); returns n, and bounce 0's scatter outcome in mirror0 / v0.
 // R = reflections.
+// The sampler is the fold's (trace.cuh kFoldSampler: a Modes fold's the
+// launch's, sampler_arg); it needs no adjoint: its direction depends on the
+// hashed uniforms alone.
 template <int kB, class Fold = ParamsFold>
 __device__ int record_sample(const float* P, const Layout& L, const Pixel& p, int s, uint32_t seed,
                              int R, float small_indent, Bounce (&rec)[kB], bool& mirror0,
@@ -319,7 +328,9 @@ __device__ int record_sample(const float* P, const Layout& L, const Pixel& p, in
   uint32_t counter = seed;
   bool mirror;
   V4 v = {0.0f, 0.0f, 0.0f, 0.0f};
-  V4 d = scatter(p.h0.norm, p.mirrored0, p.h0.refl, bits, seed, counter, mirror, v);
+  const int iters = sampler_arg<Fold>();
+  V4 d = scatter<kStubNone, kFoldSampler<Fold>>(p.h0.norm, p.mirrored0, p.h0.refl, bits, seed,
+                                                counter, mirror, v, iters);
   mirror0 = mirror;
   v0 = v;
   V4 o = p.o0;
@@ -341,7 +352,8 @@ __device__ int record_sample(const float* P, const Layout& L, const Pixel& p, in
     alive = h.hit;
     if (alive && i < R - 1) {  // the last bounce only shades
       o = add4(add4(o, mul4s(d, h.dist)), mul4s(h.norm, small_indent));
-      d = scatter(h.norm, reflect(d, h.norm), h.refl, bits, seed, counter, mirror, v);
+      d = scatter<kStubNone, kFoldSampler<Fold>>(h.norm, reflect(d, h.norm), h.refl, bits, seed,
+                                                 counter, mirror, v, iters);
       r.mirror = mirror;
       r.v = v;
     }
@@ -523,14 +535,320 @@ __device__ void composite_adj(const float* P, const Layout& L, V4 o, V4 d, const
   acc.add(slot1(ref.r, g_r));
 }
 
+// --- the literal folds (models/scene.py intersect_scene_spec, ops/geometry.py)
+//
+// A winner numbered by lit_code (trace.cuh: every winner of the spec and
+// trig folds, a cell of a hypercube without generators in the fast fold)
+// is resolved by re-running its own literal test on the recorded ray, so
+// its normal and material are the fold's bitwise (a cylinder's normal is
+// formed in its projected space from the unscaled distance: no rebuild
+// from the recorded distance could be), and differentiated through that
+// test alone: the clips of the duocylinder's and the tiger's faces and the
+// cells' extents are masks. Each partial below names the line of
+// ops/geometry.py it differentiates, and where the derivative is singular
+// (acos' at +-1, asin' at 1, sqrt' at 0) it takes the value the plain
+// version's autograd takes there (geometry._zero_safe): the formula's, inf
+// or nan included, but 0 for a cotangent of 0; acos' at +-1 is 0
+// (geometry._acos), and the trigonometric sphere's l = |po| takes the
+// norm's subgradient 0 at po = 0 (geometry._Norm).
+
+__device__ __forceinline__ bool is_lit(int idx) { return idx >= kLitBase; }
+
+// g * deriv, and 0 where g is 0 whatever deriv is (geometry._zero_safe).
+__device__ __forceinline__ float zero_safe(float g, float deriv) {
+  return g == 0.0f ? 0.0f : g * deriv;
+}
+
+// The spec offset, kind and root of a lit_code winner.
+struct LitRef {
+  int off, kind;
+  bool outer;
+};
+__device__ __forceinline__ LitRef lit_ref(int idx) {
+  return {(idx - kLitBase) >> 3, (idx >> 1) & 3, (idx & 1) != 0};
+}
+
+// The material's offset of a lit_code winner's primitive: a hyperplane's at
+// its spec + 8, a sphere's + 5, a cylinder's + 13, a cell's + 21.
+__device__ __forceinline__ int lit_mat(const LitRef& r) {
+  return r.off + (r.kind == kLitPlane ? 8 : r.kind == kLitSphere ? 5 : r.kind == kLitCylinder ? 13
+                                                                                              : 21);
+}
+
+// The literal test of a lit_code winner, as the fold ran it.
+template <bool kTrig>
+__device__ __forceinline__ Lit lit_test(const float* P, const LitRef& r, V4 o, V4 d) {
+  const float* c = P + r.off;
+  switch (r.kind) {
+    case kLitPlane:
+      return space_lit(c, o, d);
+    case kLitSphere:
+      return sphere_lit<kTrig>(ld4(c), c[4], c + 5, o, d, true);
+    case kLitCylinder:
+      return cylinder_lit<kTrig>(c, o, d, r.outer);
+    default:
+      return cube_lit(c, o, d);
+  }
+}
+
+// Adjoint of sphere_lit<kTrig> (geometry.sphere_intersection :120-139,
+// sphere_intersection_trig :142-164) at a hit, for the cotangents of its
+// distance and normal: adds those of the center, r and the ray to the g_*.
+// Returns the distance, as sphere_lit computes it.
+template <bool kTrig>
+__device__ float sphere_lit_adj(V4 center, float r, V4 o, V4 d, bool outer, float g_dist,
+                                V4 g_norm, V4& g_center, float& g_r, V4& g_o, V4& g_d) {
+  const V4 po = sub4(center, o);
+  const float l2 = dot4(po, po);
+  V4 g_po = {0.0f, 0.0f, 0.0f, 0.0f};
+  float dist, l, g_l = 0.0f;
+  bool use_near;
+  // The forward, as sphere_lit computes it.
+  float b = 0.0f, sq = 0.0f, lm = 0.0f, q = 0.0f, cos_opa = 0.0f, A = 0.0f, S = 0.0f;
+  float sin_oap = 0.0f, c2 = 0.0f, C = 0.0f, K = 0.0f, inner = 0.0f;
+  bool degenerate;
+  if constexpr (kTrig) {
+    l = sqrtf(l2);                                         // length(po)
+    degenerate = l < kSmallFloat;
+    b = dot4(po, d);                                       // dot_pord
+    lm = fmaxf(l, kTiny30);
+    q = b / lm;
+    cos_opa = degenerate ? 0.0f : fminf(fmaxf(q, -1.0f), 1.0f);
+    A = acosf(cos_opa);                                    // angle_opa
+    S = sinf(A);
+    sin_oap = l * S / r;
+    c2 = fminf(fmaxf(sin_oap, -1.0f), 1.0f);
+    float B = asinf(c2);                                   // angle_oap
+    use_near = outer && l > r;
+    B = use_near ? kPi - B : B;
+    C = kPi - A - B;                                       // angle_aop
+    K = cosf(C);
+    inner = r * r + l * l - 2.0f * r * l * K;
+    dist = sqrtf(fmaxf(inner, 0.0f));
+  } else {
+    l = sqrtf(l2 + kTiny37);                               // _safe_length(po): masks only
+    degenerate = l < kSmallFloat;
+    b = degenerate ? 0.0f : dot4(po, d);
+    sq = sqrtf(r * r - (l2 - b * b));                      // a hit: disc > 0
+    use_near = outer && l > r;
+    dist = use_near ? b - sq : b + sq;
+  }
+  // norm = (center - (o + d dist)) * (1 / r), negated on the near root
+  const float inv_r = 1.0f / r;
+  const V4 u = sub4(center, add4(o, mul4s(d, dist)));
+  const V4 g_n = use_near ? neg4(g_norm) : g_norm;
+  const V4 g_u = mul4s(g_n, inv_r);
+  g_r += -dot4(g_n, u) * inv_r * inv_r;                    // d(1/r)/dr = -1/r^2
+  g_center = add4(g_center, g_u);
+  g_o = sub4(g_o, g_u);
+  g_d = sub4(g_d, mul4s(g_u, dist));
+  g_dist -= dot4(g_u, d);
+  if constexpr (kTrig) {
+    // dist = sqrt(clamp_min(inner, 0)): clamp_min passes at inner >= 0
+    const float g_inner = inner >= 0.0f ? zero_safe(g_dist, 1.0f / (2.0f * dist)) : 0.0f;
+    // inner = r r + l l - 2 r l cos(angle_aop)
+    g_r += g_inner * (2.0f * r) - g_inner * (2.0f * l * K);
+    g_l += g_inner * (2.0f * l) - g_inner * (2.0f * r * K);
+    const float g_K = -g_inner * (2.0f * r * l);
+    const float g_C = -g_K * sinf(C);                      // cos' = -sin
+    // angle_aop = pi - angle_opa - angle_oap; angle_oap = pi - B on the near root
+    float g_A = -g_C;
+    const float g_B = use_near ? g_C : -g_C;
+    // angle_oap = asin(clamp(sin_oap, -1, 1)): asin' = 1 / sqrt(1 - x^2); clamp passes in [-1, 1]
+    const float g_c2 = zero_safe(g_B, 1.0f / sqrtf(1.0f - c2 * c2));
+    const float g_sin = (sin_oap >= -1.0f && sin_oap <= 1.0f) ? g_c2 : 0.0f;
+    // sin_oap = l sin(angle_opa) / r
+    g_r -= g_sin * sin_oap / r;
+    const float g_lS = g_sin / r;
+    g_l += g_lS * S;
+    g_A += g_lS * l * cosf(A);
+    // angle_opa = acos(cos_opa): acos' = -1 / sqrt(1 - x^2)
+    // (0 at cos_opa = +-1, a ray aimed at the center: geometry._acos)
+    const float g_cos = fabsf(cos_opa) == 1.0f
+                            ? 0.0f
+                            : zero_safe(g_A, -1.0f / sqrtf(1.0f - cos_opa * cos_opa));
+    // cos_opa = where(degenerate, 0, clamp(dot_pord / clamp_min(l, 1e-30), -1, 1))
+    const float g_q = (!degenerate && q >= -1.0f && q <= 1.0f) ? g_cos : 0.0f;
+    const float g_b = g_q / lm;
+    if (l >= kTiny30) g_l -= g_q * q / lm;
+    g_po = add4(g_po, mul4s(d, g_b));
+    g_d = add4(g_d, mul4s(po, g_b));
+    // l = |po|: po * (g_l / l), 0 at po = 0 (the norm's subgradient, geometry._Norm)
+    if (l > 0.0f) g_po = add4(g_po, mul4s(po, g_l / l));
+  } else {
+    // dist = b -+ sq, sq = sqrt(disc), disc = r r - (l2 - b b)
+    const float g_disc = (use_near ? -g_dist : g_dist) / (2.0f * sq);
+    g_r += 2.0f * r * g_disc;
+    const float g_b = g_dist + 2.0f * b * g_disc;
+    g_po = add4(g_po, mul4s(po, -2.0f * g_disc));          // l2 = dot(po, po)
+    if (!degenerate) {                                     // b = where(degenerate, 0, dot(po, d))
+      g_po = add4(g_po, mul4s(d, g_b));
+      g_d = add4(g_d, mul4s(po, g_b));
+    }
+  }
+  g_center = add4(g_center, g_po);                         // po = center - o
+  g_o = sub4(g_o, g_po);
+  return dist;
+}
+
+// Adjoint of space_lit (geometry.space_intersection :167-176): the plane's
+// point and normal to g_p, g_n; the ray's to g_o, g_d.
+__device__ void space_lit_adj(const float* sp, V4 o, V4 d, float g_dist, V4 g_norm, V4& g_p,
+                              V4& g_n, V4& g_o, V4& g_d) {
+  const V4 p = ld4(sp), n = ld4(sp + 4);
+  const V4 pmo = sub4(p, o);
+  const float dot_vn = dot4(pmo, n);
+  const float s = sign_of(dot_vn);                         // sign: no gradient
+  const V4 drct_h = mul4s(n, s);
+  const float cos_dh = dot4(drct_h, d);
+  // dist = |dot_vn| / cos_dh on a hit; abs' = sign
+  const float g_abs = g_dist / cos_dh;
+  const float g_cos = -g_abs * (fabsf(dot_vn) / cos_dh);
+  const float g_dot_vn = g_abs * s;
+  // norm = -drct_h, cos_dh = dot(drct_h, d), drct_h = n sign(dot_vn)
+  const V4 g_drct = sub4(mul4s(d, g_cos), g_norm);
+  g_d = add4(g_d, mul4s(drct_h, g_cos));
+  g_n = add4(mul4s(g_drct, s), mul4s(pmo, g_dot_vn));
+  g_p = mul4s(n, g_dot_vn);                                // dot_vn = dot(p - o, n)
+  g_o = sub4(g_o, g_p);
+}
+
+// Adjoint of cylinder_lit (geometry.cylinder_intersection :179-195) of the
+// spec at ``c``: its point, axes and r to g_c[0..13); the ray's to g_o, g_d.
+template <bool kTrig>
+__device__ void cylinder_lit_adj(const float* c, V4 o, V4 d, bool outer, float g_dist, V4 g_norm,
+                                 float* g_c, V4& g_o, V4& g_d) {
+  const V4 point = ld4(c), a1 = ld4(c + 4), a2 = ld4(c + 8);
+  // o1 = o + a1 dot(point - o, a1), d1 = d - a1 dot(d, a1)  vec4.point_in_space, vec_in_space
+  const V4 w1 = sub4(point, o);
+  const float t1 = dot4(w1, a1);
+  const V4 o1 = add4(o, mul4s(a1, t1));
+  const float u1 = dot4(d, a1);
+  const V4 d1 = sub4(d, mul4s(a1, u1));
+  const V4 w2 = sub4(point, o1);
+  const float t2 = dot4(w2, a2);
+  const V4 o12 = add4(o1, mul4s(a2, t2));
+  const float u2 = dot4(d1, a2);
+  const V4 d12 = sub4(d1, mul4s(a2, u2));
+  const float len = safe_length(d12);
+  const float inv_len = 1.0f / len;                        // a hit: not miss2
+  const V4 dn = mul4s(d12, inv_len);
+  // dist = the sphere's distance * inv_len
+  V4 g_point = {0.0f, 0.0f, 0.0f, 0.0f}, g_o12 = g_point, g_dn = g_point;
+  float g_r = 0.0f;
+  const float s_dist = sphere_lit_adj<kTrig>(point, c[12], o12, dn, outer, g_dist * inv_len,
+                                             g_norm, g_point, g_r, g_o12, g_dn);
+  // dn = d12 * inv_len, inv_len = 1 / len, len = sqrt(dot(d12, d12) + 1e-37)
+  const float g_inv_len = g_dist * s_dist + dot4(g_dn, d12);
+  const float g_len = -g_inv_len * inv_len * inv_len;
+  V4 g_d12 = add4(mul4s(g_dn, inv_len), mul4s(d12, g_len / len));
+  // d12 = d1 - a2 u2, u2 = dot(d1, a2)
+  const float g_u2 = -dot4(g_d12, a2);
+  V4 g_d1 = add4(g_d12, mul4s(a2, g_u2));
+  V4 g_a2 = add4(mul4s(g_d12, -u2), mul4s(d1, g_u2));
+  // o12 = o1 + a2 t2, t2 = dot(point - o1, a2)
+  const float g_t2 = dot4(g_o12, a2);
+  g_a2 = add4(g_a2, add4(mul4s(g_o12, t2), mul4s(w2, g_t2)));
+  g_point = add4(g_point, mul4s(a2, g_t2));
+  const V4 g_o1 = sub4(g_o12, mul4s(a2, g_t2));
+  // d1 = d - a1 u1, u1 = dot(d, a1)
+  const float g_u1 = -dot4(g_d1, a1);
+  g_d = add4(g_d, add4(g_d1, mul4s(a1, g_u1)));
+  V4 g_a1 = add4(mul4s(g_d1, -u1), mul4s(d, g_u1));
+  // o1 = o + a1 t1, t1 = dot(point - o, a1)
+  const float g_t1 = dot4(g_o1, a1);
+  g_a1 = add4(g_a1, add4(mul4s(g_o1, t1), mul4s(w1, g_t1)));
+  g_point = add4(g_point, mul4s(a1, g_t1));
+  g_o = add4(g_o, sub4(g_o1, mul4s(a1, g_t1)));
+  put4(g_c, g_point);
+  put4(g_c + 4, g_a1);
+  put4(g_c + 8, g_a2);
+  g_c[12] = g_r;
+}
+
+// Adjoint of cube_lit (geometry.cube_intersection :241-253) of the cell at
+// ``c``: its space point and normal (the unflipped normal's cotangent goes
+// to the latter as it is) to g_c[0..8); x, y, z and r only mask.
+__device__ void cube_lit_adj(const float* c, V4 o, V4 d, float g_dist, V4 g_norm, float* g_c,
+                             V4& g_o, V4& g_d) {
+  const V4 sp = ld4(c);
+  const V4 vec_n = neg4(ld4(c + 4));
+  const V4 spo = sub4(sp, o);
+  const float h = dot4(spo, vec_n);
+  const float cos_dn = dot4(d, vec_n);
+  // dist = h / where(cos_dn == 0, 1e-30, cos_dn)
+  const float q = cos_dn == 0.0f ? kTiny30 : cos_dn;
+  const float g_h = g_dist / q;
+  const float g_q = cos_dn == 0.0f ? 0.0f : -g_h * (h / q);
+  const V4 g_vn = add4(mul4s(spo, g_h), mul4s(d, g_q));    // h, cos_dn = dot(., vec_n)
+  g_d = add4(g_d, mul4s(vec_n, g_q));
+  g_o = sub4(g_o, mul4s(vec_n, g_h));
+  put4(g_c, mul4s(vec_n, g_h));
+  put4(g_c + 4, sub4(g_norm, g_vn));                       // vec_n = -space_norm
+}
+
+// Adjoint of a lit_code winner's hit: the cotangents of its distance and
+// normal reach its spec's slots, its glow's and color's its material's
+// (refl_prob gets 0), handed to acc; the ray's are added to g_o, g_d.
+template <bool kTrig, class Acc>
+__device__ void lit_adj(const float* P, V4 o, V4 d, int idx, float g_dist, V4 g_norm,
+                        float g_glow, V3 g_color, V4& g_o, V4& g_d, Acc& acc) {
+  const LitRef r = lit_ref(idx);
+  const float* c = P + r.off;
+  Slots m;
+  m.key = lit_mat(r);
+  m.n = 5;
+  m.stride = 1;
+  m.v[0] = g_glow;
+  m.v[1] = 0.0f;
+  put3(m.v + 2, g_color);
+  acc.add(m);
+  Slots g;
+  g.key = r.off;
+  g.stride = 1;
+  if (r.kind == kLitPlane) {
+    V4 g_p, g_n;
+    space_lit_adj(c, o, d, g_dist, g_norm, g_p, g_n, g_o, g_d);
+    g.n = 8;
+    put4(g.v, g_p);
+    put4(g.v + 4, g_n);
+  } else if (r.kind == kLitSphere) {
+    V4 g_c = {0.0f, 0.0f, 0.0f, 0.0f};
+    float g_r = 0.0f;
+    sphere_lit_adj<kTrig>(ld4(c), c[4], o, d, true, g_dist, g_norm, g_c, g_r, g_o, g_d);
+    g.n = 5;
+    put4(g.v, g_c);
+    g.v[4] = g_r;
+  } else if (r.kind == kLitCylinder) {
+    g.n = 13;
+    cylinder_lit_adj<kTrig>(c, o, d, r.outer, g_dist, g_norm, g.v, g_o, g_d);
+  } else {
+    g.n = 8;
+    cube_lit_adj(c, o, d, g_dist, g_norm, g.v, g_o, g_d);
+  }
+  acc.add(g);
+}
+
 // A recorded hit's normal and material: the resolver at the end of
 // trace.cuh intersect, operation for operation, so the rebuilt normal is
 // bitwise the trace's; kC (a composite fold's sweep): a composite's too,
 // composite_resolve, equal to the trace's (a zero's sign aside under the
 // hints). (intersect keeps its own copy: factoring it out changes the
 // forward kernel's code.)
-template <bool kC = false>
+// kLit (a literal fold's sweep: trace.cuh kLitFold): a lit_code winner's
+// too, by its own literal test (lit_test).
+template <bool kC = false, int kLit = kLitNone>
 __device__ __forceinline__ void resolve_hit(const float* P, const Layout& L, V4 o, V4 d, Hit& h) {
+  if constexpr (kLit != kLitNone) {
+    if (is_lit(h.idx)) {
+      const Lit l = lit_test<kLit == kLitTrig>(P, lit_ref(h.idx), o, d);
+      h.norm = l.norm;
+      h.glow = l.mat[0];
+      h.refl = l.mat[1];
+      h.color = ld3(l.mat + 2);
+      return;
+    }
+  }
   const float* mat;
   if (kC && is_composite(L, h.idx)) {
     mat = composite_resolve(P, L, o, d, h.idx, h.dist, h.norm);
@@ -558,8 +876,11 @@ __device__ __forceinline__ void resolve_hit(const float* P, const Layout& L, V4 
 }
 
 // The color of primitive idx (its resolver's ld3(mat + 2)).
-template <bool kC = false>
+template <bool kC = false, int kLit = kLitNone>
 __device__ __forceinline__ V3 color_of(const float* P, const Layout& L, int idx) {
+  if constexpr (kLit != kLitNone) {
+    if (is_lit(idx)) return ld3(P + lit_mat(lit_ref(idx)) + 2);
+  }
   if (kC && is_composite(L, idx)) return ld3(P + composite_of(P, L, idx).mat + 2);
   return ld3(idx < L.n_spaces ? P + L.spaces + kSpaceFloats * idx + 10
                               : P + L.spheres + kSphereFloats * (idx - L.n_spaces) + 7);
@@ -569,15 +890,16 @@ __device__ __forceinline__ V3 color_of(const float* P, const Layout& L, int idx)
 // :186-211): (g_o, g_d, g_thr) are the cotangents of the ray and the
 // throughput leaving it (zeros after the last) and become those entering
 // it; its parameter cotangents go to c (kC, a composite fold's sweep: a
-// composite hit's to acc, composite_adj). g_light is the sample's light
+// composite hit's to acc, composite_adj; kLit, a literal fold's: a
+// lit_code winner's to acc, lit_adj). g_light is the sample's light
 // cotangent.
-template <int kB, bool kC, class Acc>
+template <int kB, bool kC, int kLit, class Acc>
 __device__ void bounce_adj(const float* P, const Layout& L, const Pixel& p,
                            const Bounce (&rec)[kB], int i, bool last, float small_indent,
                            V3 g_light, V4& g_o, V4& g_d, V3& g_thr, Slots& c, Acc& acc) {
   const Bounce& r = rec[i];
   V3 throughput = p.throughput0;  // throughput' = throughput * color, bounce by bounce
-  for (int j = 0; j < i; ++j) throughput = mul3(throughput, color_of<kC>(P, L, rec[j].idx));
+  for (int j = 0; j < i; ++j) throughput = mul3(throughput, color_of<kC, kLit>(P, L, rec[j].idx));
   V4 g_o_in = {0.0f, 0.0f, 0.0f, 0.0f};
   V4 g_d_in = {0.0f, 0.0f, 0.0f, 0.0f};
   if (!r.hit) {
@@ -596,7 +918,7 @@ __device__ void bounce_adj(const float* P, const Layout& L, const Pixel& p,
   h.hit = true;
   h.idx = r.idx;
   h.dist = r.dist;
-  resolve_hit<kC>(P, L, r.o, r.d, h);
+  resolve_hit<kC, kLit>(P, L, r.o, r.d, h);
   // result += color * glow * throughput                   renderer.py:190
   V3 g_thr_in = mul3(g_light, mul3s(h.color, h.glow));
   V3 g_color = mul3s(mul3(g_light, throughput), h.glow);
@@ -619,7 +941,16 @@ __device__ void bounce_adj(const float* P, const Layout& L, const Pixel& p,
       redirect_adj(r.v, h.norm, g_d, g_norm);
     }
   }
-  if (kC && is_composite(L, h.idx)) {
+  if constexpr (kLit != kLitNone) {
+    if (is_lit(h.idx)) {
+      lit_adj<kLit == kLitTrig>(P, r.o, r.d, h.idx, g_dist, g_norm, g_glow, g_color, g_o_in,
+                                g_d_in, acc);
+    } else if (kC && is_composite(L, h.idx)) {
+      composite_adj(P, L, r.o, r.d, h, g_dist, g_norm, g_glow, g_color, g_o_in, g_d_in, acc);
+    } else {
+      hit_adj(P, L, r.o, r.d, h, g_dist, g_norm, g_glow, g_color, c, g_o_in, g_d_in);
+    }
+  } else if (kC && is_composite(L, h.idx)) {
     composite_adj(P, L, r.o, r.d, h, g_dist, g_norm, g_glow, g_color, g_o_in, g_d_in, acc);
   } else {
     hit_adj(P, L, r.o, r.d, h, g_dist, g_norm, g_glow, g_color, c, g_o_in, g_d_in);
@@ -631,12 +962,20 @@ __device__ void bounce_adj(const float* P, const Layout& L, const Pixel& p,
 
 // Pass 1: the pixel's light summed over its samples, bitwise the forward
 // kernel's sum.
+// The sampler is the fold's, as record_sample's.
 template <class Fold = ParamsFold>
 __device__ V3 pixel_light_sum(const float* P, const Layout& L, const Pixel& p, int samples,
                               int reflections, float small_indent, uint32_t seed) {
   V3 acc = {0.0f, 0.0f, 0.0f};
   for (int s = 0; s < samples; ++s) {
-    acc = add3(acc, trace_sample<kStubNone, Fold>(P, L, p, s, seed, reflections, small_indent));
+    if constexpr (kFoldSampler<Fold> == kSamplerPoly) {
+      acc = add3(acc, trace_sample<kStubNone, Fold>(P, L, p, s, seed, reflections, small_indent));
+    } else {
+      uint32_t unused = seed;
+      acc = add3(acc, trace_sample<kStubNone, Fold, kFoldSampler<Fold>, kRngPerSample>(
+                          P, L, p, s, seed, reflections, small_indent, false, sampler_arg<Fold>(),
+                          unused));
+    }
   }
   return acc;
 }
@@ -674,8 +1013,9 @@ __device__ bool sample_sweep(const float* P, const Layout& L, const Pixel& p, in
   for (int i = kB - 1; i >= 0; --i) {
     if (i >= n_rec) continue;
     Slots c = no_slots();
-    bounce_adj<kB, kGradComposite<Fold>>(P, L, p, rec, i, i == R - 1, small_indent, g_light, g_o,
-                                         g_d, g_thr, c, acc);
+    bounce_adj<kB, kGradComposite<Fold>, kLitFold<Fold>>(P, L, p, rec, i, i == R - 1,
+                                                         small_indent, g_light, g_o, g_d, g_thr,
+                                                         c, acc);
     acc.add(c);
   }
   b0.g_o0 = add4(b0.g_o0, g_o);
@@ -692,7 +1032,7 @@ __device__ bool sample_sweep(const float* P, const Layout& L, const Pixel& p, in
 // Bounce 0 (renderer.py:143-157), the primary ray and the camera, for the
 // cotangent g_result0 of bounce 0's light (every sample's light starts from
 // it) and the samples' b0. Linear in (g_result0, b0).
-template <bool kC, class Acc>
+template <bool kC, int kLit, class Acc>
 __device__ void bounce0_sweep(const float* P, const Layout& L, const Pixel& p, int view,
                               V3 g_result0, const Bounce0Cot& b0, float small_indent, Acc& acc) {
   V4 g_d0 = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -711,7 +1051,17 @@ __device__ void bounce0_sweep(const float* P, const Layout& L, const Pixel& p, i
     V4 g_norm0 = add4(b0.g_norm0, mul4s(b0.g_o0, small_indent));
     // mirrored0 = reflect(d0, norm0)                        renderer.py:156
     reflect_adj(p.d0, h.norm, b0.g_mirrored0, g_d0, g_norm0);
-    if (kC && is_composite(L, h.idx)) {
+    if constexpr (kLit != kLitNone) {
+      if (is_lit(h.idx)) {
+        lit_adj<kLit == kLitTrig>(P, p.focus, p.d0, h.idx, g_dist, g_norm0, g_glow, g_color,
+                                  g_focus, g_d0, acc);
+      } else if (kC && is_composite(L, h.idx)) {
+        composite_adj(P, L, p.focus, p.d0, h, g_dist, g_norm0, g_glow, g_color, g_focus, g_d0,
+                      acc);
+      } else {
+        hit_adj(P, L, p.focus, p.d0, h, g_dist, g_norm0, g_glow, g_color, c, g_focus, g_d0);
+      }
+    } else if (kC && is_composite(L, h.idx)) {
       composite_adj(P, L, p.focus, p.d0, h, g_dist, g_norm0, g_glow, g_color, g_focus, g_d0, acc);
     } else {
       hit_adj(P, L, p.focus, p.d0, h, g_dist, g_norm0, g_glow, g_color, c, g_focus, g_d0);
@@ -783,7 +1133,8 @@ __device__ unsigned pixel_sweep(const float* P, const Layout& L, const Pixel& p,
   }
   const V3 g_result0 = only != 0 ? V3{0.0f, 0.0f, 0.0f}
                                  : mul3s(add3(g_light, g_shared), static_cast<float>(samples));
-  bounce0_sweep<kGradComposite<Fold>>(P, L, p, view, g_result0, b0, small_indent, acc);
+  bounce0_sweep<kGradComposite<Fold>, kLitFold<Fold>>(P, L, p, view, g_result0, b0, small_indent,
+                                                       acc);
   return hit_obj;
 }
 

@@ -100,17 +100,19 @@
 // hypercube: diff.zero_object), so row b's table, built from row b's
 // params, folds it to a guaranteed miss; its zero map names no sphere
 // (zero_map_object -1), so both rows are swept whole.
+//
+// K1's other configurations (the kepler and newton samplers, the literal
+// spec and trig folds, a hypercube without generators) launch the same
+// kernels' modes instances from gradmodes.cu and softmodes.cu (modes.cuh);
+// these production instances
+// run per-sample streams, the poly sampler and the fast fold.
 
 #include "gradlaunch.cuh"
 
-// Columns of a gradient launch's partials over n_rows image rows: n_frames
-// (K4's frames, K5's 1, K6's 2 rows) times the blocks of a row,
-// ceil(V * n_rows * W / kGradBlock); or -1 for a shape the launch refuses.
+// Columns of a gradient launch's partials over n_rows image rows
+// (gradlaunch.cuh grad_scratch_cols).
 extern "C" int fourd_grad_scratch_cols(const int* layout, int width, int n_rows, int n_frames) {
-  const long long blocks = pixel_blocks(layout_from(layout), width, n_rows);
-  const long long cols = blocks * n_frames;
-  if (blocks <= 0 || n_frames <= 0 || n_frames > 65535 || cols > 0x7FFFFFFFLL) return -1;
-  return static_cast<int>(cols);
+  return grad_scratch_cols(layout_from(layout), width, n_rows, n_frames);
 }
 
 // The gradient launches below take ``hints``, the host int[kHintInts]

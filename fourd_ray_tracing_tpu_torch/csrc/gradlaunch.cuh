@@ -4,8 +4,10 @@
 // launches. gradkernel.cu launches them over the folds of hyperplanes and
 // spheres, gradcomposite.cu (K4, K5) and softcomposite.cu (K6) over the
 // composite folds, each source in its own nvcc process (ops/cuda/build.py),
-// so that the composite instances compile beside the others. The kernels'
-// design is gradkernel.cu's.
+// so that the composite instances compile beside the others, and over K1's
+// other configurations (a Modes fold) in gradmodes.cu and softmodes.cu. The
+// kernels' design
+// is gradkernel.cu's.
 #pragma once
 
 #include <cstddef>
@@ -92,15 +94,28 @@ constexpr bool kMainOnly = std::is_same_v<Fold, RoomFold> || std::is_same_v<Fold
 
 // The sweeps' instances for ``reflections`` bounces: the unrolled one at
 // kMainBounces, the generic one otherwise (kMainOnly folds: the unrolled
-// one alone).
+// one alone; a Modes fold: the generic one alone).
 template <class Fold>
 auto sweep_for(int reflections) {
-  if constexpr (kMainOnly<Fold>) {
+  if constexpr (kModes<Fold>) {
+    return sweep_kernel<kMaxBounces, Fold>;
+  } else if constexpr (kMainOnly<Fold>) {
     return sweep_kernel<kMainBounces, Fold>;
   } else {
     return reflections == kMainBounces ? sweep_kernel<kMainBounces, Fold>
                                        : sweep_kernel<kMaxBounces, Fold>;
   }
+}
+
+// Columns of a gradient launch's partials over n_rows image rows: n_frames
+// (K4's frames, K5's 1, K6's 2 rows) times the blocks of a row,
+// ceil(V * n_rows * W / kGradBlock); or -1 for a shape the launch refuses
+// (fourd_grad_scratch_cols).
+inline int grad_scratch_cols(const Layout& L, int width, int n_rows, int n_frames) {
+  const long long blocks = pixel_blocks(L, width, n_rows);
+  const long long cols = blocks * n_frames;
+  if (blocks <= 0 || n_frames <= 0 || n_frames > 65535 || cols > 0x7FFFFFFFLL) return -1;
+  return static_cast<int>(cols);
 }
 
 // The launch arguments every gradient launch checks.
@@ -306,7 +321,9 @@ soft_row_b_kernel(const float* __restrict__ params, uint32_t seed, Layout L, Zer
 // K6's row sweeps for ``reflections`` bounces, as sweep_for picks them.
 template <class Fold>
 auto soft_row_a_for(int reflections) {
-  if constexpr (kMainOnly<Fold>) {
+  if constexpr (kModes<Fold>) {
+    return soft_row_a_kernel<kMaxBounces, Fold>;
+  } else if constexpr (kMainOnly<Fold>) {
     return soft_row_a_kernel<kMainBounces, Fold>;
   } else {
     return reflections == kMainBounces ? soft_row_a_kernel<kMainBounces, Fold>
@@ -315,7 +332,9 @@ auto soft_row_a_for(int reflections) {
 }
 template <class Fold>
 auto soft_row_b_for(int reflections) {
-  if constexpr (kMainOnly<Fold>) {
+  if constexpr (kModes<Fold>) {
+    return soft_row_b_kernel<kMaxBounces, Fold>;
+  } else if constexpr (kMainOnly<Fold>) {
     return soft_row_b_kernel<kMainBounces, Fold>;
   } else {
     return reflections == kMainBounces ? soft_row_b_kernel<kMainBounces, Fold>

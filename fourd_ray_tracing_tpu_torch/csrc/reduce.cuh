@@ -60,11 +60,16 @@ __device__ __forceinline__ GradSmem grad_smem(float* base, int P, int recs = 0) 
 }
 
 // A gradient kernel's block builds its fold's table from the params in
-// shared memory P, if the fold reads one, and synchronises. Every thread
-// calls it.
+// shared memory P, if the fold reads one, and synchronises; under a Modes
+// fold it also copies the launch's sampler from the descriptor. Every
+// thread calls it before its first trace.
 template <class Fold>
 __device__ __forceinline__ void build_table_for(const float* P, const Layout& L, const Hints& H) {
+  static_assert(!kModes<Fold> || kGradTable<Fold>, "a Modes fold reads its sampler here");
   if constexpr (kGradTable<Fold>) {
+    if constexpr (kModes<Fold>) {
+      if (threadIdx.x == 0) modes_sampler(Fold{}) = sampler_slot(H);
+    }
     build_fold_table(P, L, H, threadIdx.x, blockDim.x);
     __syncthreads();
   }

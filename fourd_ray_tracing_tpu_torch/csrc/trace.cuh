@@ -7,8 +7,9 @@
 // without hints; every primitive, composites included, with the static
 // hints over a per-block table, ``intersect_table``, which K1 runs, and
 // the gradient kernels under the freeze_hints contract, ``GradTableFold``,
-// and on a scene with composites, hinted or not, ``GradCompositeFold``)
-// and the per-pixel body of
+// and on a scene with composites, hinted or not, ``GradCompositeFold``;
+// the literal folds of intersect_scene_spec, ``SpecFold``, in K1 and in
+// the gradient kernels) and the per-pixel body of
 // ops/pallas/megakernel.py::_kernel with _trace_rays_kernel. Every
 // operation keeps the order of the plain torch
 // pipeline (models/renderer.py); the build passes -fmad=false, so on the
@@ -199,6 +200,11 @@ __device__ __forceinline__ float w_by_volume_poly(float v) {
 // sinf, cosf and acosf, as torch's CUDA ops do; never their fast
 // intrinsics.
 constexpr int kSamplerPoly = 0, kSamplerKepler = 1, kSamplerNewton = 2;
+// The sampler a launch argument (the gradient kernels over a Modes fold):
+// ``iters`` carries the sampler's code | kepler's Halley steps << 2, and
+// each sampler's own code runs, so the direction is the template
+// instance's bitwise.
+constexpr int kSamplerArg = -1;
 // Newton's cap on a lane's steps (sampler.py w_by_volume_newton).
 constexpr int kNewtonMaxIters = 64;
 
@@ -252,6 +258,16 @@ __device__ __forceinline__ V4 direction_from_uniforms(float u_w, float u_z, floa
     // finite, so the value is 0.5 exactly.
     const float half = 0.0f * (u_w + u_z + u_fi) + 0.5f;
     return {half, half, half, half};
+  }
+  if constexpr (kSampler == kSamplerArg) {
+    const int code = iters & 3;
+    if (code == kSamplerNewton) {
+      return direction_from_uniforms<kStub, kSamplerNewton>(u_w, u_z, u_fi);
+    }
+    if (code == kSamplerKepler) {
+      return direction_from_uniforms<kStub, kSamplerKepler>(u_w, u_z, u_fi, iters >> 2);
+    }
+    return direction_from_uniforms<kStub, kSamplerPoly>(u_w, u_z, u_fi);
   }
   float w;
   if constexpr (kSampler == kSamplerNewton) {
@@ -678,11 +694,29 @@ struct Lit {
   const float* mat;
 };
 
+// A literal fold's winner as the gradient kernels number it (Hit.idx of
+// intersect_spec, and of the fast fold's cells-only hypercube): the
+// primitive whose own literal test found the hit, by its spec's offset in
+// the params, its kind and (a cylinder) the root its face takes, so that
+// the sweep re-runs that test alone on the recorded ray (adjoint.cuh
+// lit_test) and differentiates it (lit_adj).
+constexpr int kLitBase = 1 << 28;
+constexpr int kLitPlane = 0, kLitSphere = 1, kLitCylinder = 2, kLitCell = 3;
+__host__ __device__ __forceinline__ int lit_code(long long offset, int kind, bool outer = false) {
+  return kLitBase | static_cast<int>(offset) << 3 | kind << 1 | (outer ? 1 : 0);
+}
+
 __device__ __forceinline__ V4 neg4(V4 a) { return {-a.x, -a.y, -a.z, -a.w}; }
 
-// geometry.closest(c, acc): a strictly nearer hit replaces the record.
-__device__ __forceinline__ void closest(const Lit& c, Lit& acc) {
-  if (c.hit && (!acc.hit || c.dist < acc.dist)) acc = c;
+// geometry.closest(c, acc): a strictly nearer hit replaces the record;
+// with ``code``, the winner's number follows it into ``win``.
+__device__ __forceinline__ bool closest(const Lit& c, Lit& acc) {
+  const bool take = c.hit && (!acc.hit || c.dist < acc.dist);
+  if (take) acc = c;
+  return take;
+}
+__device__ __forceinline__ void closest(const Lit& c, int code, Lit& acc, int& win) {
+  if (closest(c, acc)) win = code;
 }
 
 __device__ __forceinline__ float safe_length(V4 v) { return sqrtf(dot4(v, v) + kTiny37); }
@@ -693,7 +727,10 @@ __device__ __forceinline__ V4 point_in_space(V4 p, V4 sp, V4 sn) {
 }
 __device__ __forceinline__ V4 vec_in_space(V4 v, V4 n) { return sub4(v, mul4s(n, dot4(v, n))); }
 
-// geometry.sphere_intersection (quadratic) or sphere_intersection_trig.
+// geometry.sphere_intersection (quadratic) or sphere_intersection_trig. A
+// circle of radius 0 (diff.zero_object) never hits (geometry._radius_guard:
+// on a ray through its center the quadratic's disc rounds above 0, the
+// trigonometric sin_oap is nan).
 template <bool kTrig>
 __device__ __forceinline__ Lit sphere_lit(V4 center, float r, const float* mat, V4 o, V4 d,
                                           bool outer) {
@@ -730,7 +767,7 @@ __device__ __forceinline__ Lit sphere_lit(V4 center, float r, const float* mat, 
     hit = !(miss_receding || miss_tangent);
   }
   const V4 n = mul4s(sub4(center, add4(o, mul4s(d, dist))), 1.0f / r);
-  return {hit, dist, use_near ? neg4(n) : n, mat};
+  return {hit && r != 0.0f, dist, use_near ? neg4(n) : n, mat};
 }
 
 // geometry.space_intersection of the plane at ``sp`` in the params.
@@ -773,23 +810,28 @@ __device__ __forceinline__ float dist_to_axes_plane(float dist, V4 o, V4 d, cons
 
 // geometry.cylinders_union_intersection: both arms clipped at cylinder 2's
 // radius (the reference's quirk).
+// ``arm``: the winning cylinder's spec.
 template <bool kTrig>
-__device__ __forceinline__ Lit union_lit(const float* c1, const float* c2, V4 o, V4 d) {
+__device__ __forceinline__ Lit union_lit(const float* c1, const float* c2, V4 o, V4 d,
+                                         const float*& arm) {
   Lit a = cylinder_lit<kTrig>(c1, o, d, true);
   a.hit = a.hit && dist_to_axes_plane(a.dist, o, d, c2) <= c2[12];
   Lit b = cylinder_lit<kTrig>(c2, o, d, true);
   b.hit = b.hit && dist_to_axes_plane(b.dist, o, d, c1) <= c2[12];
-  closest(a, b);
+  arm = closest(a, b) ? c1 : c2;
   return b;
 }
 
 // geometry.tiger_intersection of the tiger at ``t`` (inner_cyl1,
 // outer_cyl1, inner_cyl2, outer_cyl2): the closest of its 8 faces, each
 // cylinder's hit clipped to the other family's annulus.
+// ``win``: the winning face's cylinder | its root (1: the outer face's) << 2,
+// as (q, f) index the loops.
 template <bool kTrig>
-__device__ __forceinline__ Lit tiger_lit(const float* t, V4 o, V4 d) {
+__device__ __forceinline__ Lit tiger_lit(const float* t, V4 o, V4 d, int& win) {
   Lit acc;
   acc.hit = false;
+  win = 0;
 #pragma unroll 1
   for (int q = 0; q < 4; ++q) {
     const float* cyl = t + kCylinderFloats * q;
@@ -801,7 +843,7 @@ __device__ __forceinline__ Lit tiger_lit(const float* t, V4 o, V4 d) {
       const float d_out = dist_to_axes_plane(face.dist, o, d, other_out);
       const float d_in = dist_to_axes_plane(face.dist, o, d, other);
       face.hit = face.hit && (d_out <= other_out[12] && d_in >= other[12]);
-      closest(face, acc);
+      closest(face, q | (f == 0 ? 4 : 0), acc, win);
     }
   }
   return acc;
@@ -827,12 +869,19 @@ __device__ __forceinline__ Lit cube_lit(const float* c, V4 o, V4 d) {
 
 // geometry.hypercube_intersection of the 8 cells at ``hc``: the first cell
 // hit in their order, not the closest.
-__device__ __forceinline__ Lit hypercube_lit(const float* hc, V4 o, V4 d) {
+// ``cell``: the cell hit (8: none).
+__device__ __forceinline__ Lit hypercube_lit(const float* hc, V4 o, V4 d, int& cell) {
   Lit acc;
   acc.hit = false;
+  int i = 0;
 #pragma unroll 1
-  for (int i = 0; i < 8 && !acc.hit; ++i) acc = cube_lit(hc + kCubeFloats * i, o, d);
+  for (; i < 8 && !acc.hit; ++i) acc = cube_lit(hc + kCubeFloats * i, o, d);
+  cell = acc.hit ? i - 1 : 8;
   return acc;
+}
+__device__ __forceinline__ Lit hypercube_lit(const float* hc, V4 o, V4 d) {
+  int cell;
+  return hypercube_lit(hc, o, d, cell);
 }
 
 // The cells of the hypercube whose records are ``rec``, in the params P.
@@ -1346,15 +1395,23 @@ __device__ __forceinline__ Hit fold(GradCompositeFold<kPairs, kSingles, kComp, k
 // composites' specs by the offsets that the fold table's records hold (a
 // launch of this fold carries no hints, so the table's planes are all
 // singles). kTrig: the reference's trigonometric sphere solution, in the
-// spheres and in the cylinders.
+// spheres and in the cylinders. The winner is numbered by lit_code (the
+// gradient kernels' sweep re-runs its test; K1 reads no number).
 template <bool kTrig>
 __device__ Hit intersect_spec(const float* P, const Layout& L, V4 o, V4 d) {
   Lit acc;
   acc.hit = false;
-  for (int i = 0; i < L.n_spaces; ++i) closest(space_lit(P + L.spaces + kSpaceFloats * i, o, d), acc);
+  int win = 0;
+  // Folds c, numbered ``code``, into the closest hit (geometry.closest).
+  const auto take = [&](const Lit& c, int code) { closest(c, code, acc, win); };
+  for (int i = 0; i < L.n_spaces; ++i) {
+    const int off = L.spaces + kSpaceFloats * i;
+    take(space_lit(P + off, o, d), lit_code(off, kLitPlane));
+  }
   for (int j = 0; j < L.n_spheres; ++j) {
-    const float* s = P + L.spheres + kSphereFloats * j;
-    closest(sphere_lit<kTrig>(ld4(s), s[4], s + 5, o, d, true), acc);
+    const int off = L.spheres + kSphereFloats * j;
+    const float* s = P + off;
+    take(sphere_lit<kTrig>(ld4(s), s[4], s + 5, o, d, true), lit_code(off, kLitSphere, true));
   }
   const Rec* T = fold_table(P, L);
   const Rec head = T[0];
@@ -1367,22 +1424,33 @@ __device__ Hit intersect_spec(const float* P, const Layout& L, V4 o, V4 d) {
   if (kinds & kCompCylinders) {
     const int n_cyl = static_cast<int>(__float_as_uint(head.z));
     for (int c = 0; c < n_cyl; ++c, rec += kCylinderRecs) {
-      closest(cylinder_lit<kTrig>(spec_of(rec[4]), o, d, true), acc);
+      const float* spec = spec_of(rec[4]);
+      take(cylinder_lit<kTrig>(spec, o, d, true), lit_code(spec - P, kLitCylinder, true));
     }
   }
   if (kinds & kCompUnion) {
-    closest(union_lit<kTrig>(spec_of(rec[8]), spec_of(rec[9]), o, d), acc);
+    const float* arm;
+    const Lit u = union_lit<kTrig>(spec_of(rec[8]), spec_of(rec[9]), o, d, arm);
+    take(u, lit_code(arm - P, kLitCylinder, true));
     rec += kUnionRecs;
   }
   if (kinds & kCompHypercube) {
-    closest(hypercube_lit(hypercube_cells(P, rec), o, d), acc);
+    const float* cells = hypercube_cells(P, rec);
+    int cell;
+    const Lit c = hypercube_lit(cells, o, d, cell);
+    take(c, lit_code(cells + kCubeFloats * cell - P, kLitCell));
     rec += kHypercubeRecs;
   }
-  if (kinds & kCompTiger) closest(tiger_lit<kTrig>(spec_of(rec[8]), o, d), acc);
+  if (kinds & kCompTiger) {
+    const float* t = spec_of(rec[8]);
+    int face;
+    const Lit f = tiger_lit<kTrig>(t, o, d, face);
+    take(f, lit_code(t + kCylinderFloats * (face & 3) - P, kLitCylinder, (face & 4) != 0));
+  }
 
   Hit h;
   h.hit = acc.hit;
-  h.idx = 0;
+  h.idx = acc.hit ? win : 0;
   if (!acc.hit) {
     h.dist = 0.0f;
     h.norm = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -1398,20 +1466,71 @@ __device__ Hit intersect_spec(const float* P, const Layout& L, V4 o, V4 d) {
   return h;
 }
 
-// SpecFold<kTrig>: intersect_spec (K1's spec and trig launches).
+// SpecFold<kTrig>: intersect_spec (K1's spec and trig launches, and the
+// gradient kernels', whose blocks build its table, build_table_for, and
+// whose sweep reads its winners' numbers, lit_code).
 template <bool kTrig> struct SpecFold {};
 template <bool kTrig>
 __device__ __forceinline__ Hit fold(SpecFold<kTrig>, const float* P, const Layout& L, V4 o, V4 d) {
   return intersect_spec<kTrig>(P, L, o, d);
 }
 
+// The gradient kernels' fast fold over a hypercube without generators: the
+// composite fold numbered as GradCompositeFold numbers it, but for the
+// hypercube's candidate (the literal cell-by-cell test), whose winner is
+// the cell that test hits, numbered by lit_code.
+template <int kPairs, int kSingles, int kComp, int kFams>
+__device__ __forceinline__ Hit fold(GradCompositeFold<kPairs, kSingles, kComp, kFams, kCubeCells>,
+                                    const float* P, const Layout& L, V4 o, V4 d) {
+  bool aux;
+  Hit h = intersect_table<kPairs, kSingles, kComp, kFams, kCubeCells>(P, L, o, d, aux);
+  if (!h.hit) {
+    h.idx = 0;
+    return h;
+  }
+  const Rec* T = fold_table(P, L);
+  const Rec head = T[0];
+  const int np = kPairs >= 0 ? kPairs : static_cast<int>(__float_as_uint(head.x));
+  const int ns = kSingles >= 0 ? kSingles : static_cast<int>(__float_as_uint(head.y));
+  const int kinds = static_cast<int>(__float_as_uint(head.w));
+  const int n_cyl = (kinds & kCompCylinders) ? static_cast<int>(__float_as_uint(head.z)) : 0;
+  const bool duo = (kinds & kCompUnion) != 0;
+  // The hypercube's candidate and records follow the cylinders' and the
+  // duocylinder's.
+  if ((kinds & kCompHypercube) && h.idx == np + ns + L.n_spheres + n_cyl + (duo ? 2 : 0)) {
+    const Rec* rec = T + 1 + np + 2 * ns + 2 * L.n_spheres + kCylinderRecs * n_cyl +
+                     (duo ? kUnionRecs : 0);
+    const float* cells = hypercube_cells(P, rec);
+    int cell;
+    hypercube_lit(cells, o, d, cell);
+    h.idx = lit_code(cells + kCubeFloats * cell - P, kLitCell);
+  } else {
+    h.idx = table_primitive<kPairs, kSingles, true>(P, L, h.idx, o, d, aux);
+  }
+  return h;
+}
+
 // Whether a fold reads a hypercube's cells from its table (build_fold_table
 // then writes a hypercube without generators): the fast fold's cells
-// instance and the spec folds.
+// instances and the spec folds.
 template <class Fold> constexpr bool kTableCells = false;
 template <int kPairs, int kSingles, int kComp, int kFams>
 constexpr bool kTableCells<CompositeFold<kPairs, kSingles, kComp, kFams, kCubeCells>> = true;
+template <int kPairs, int kSingles, int kComp, int kFams>
+constexpr bool kTableCells<GradCompositeFold<kPairs, kSingles, kComp, kFams, kCubeCells>> = true;
 template <bool kTrig> constexpr bool kTableCells<SpecFold<kTrig>> = true;
+
+// How a gradient fold numbers its winners, for the sweep: kLitNone, as
+// intersect numbers them (and a composite candidate with its branch);
+// kLitCells, so but for the cells of a hypercube without generators
+// (lit_code); kLitSpec and kLitTrig, every winner by lit_code, its test the
+// literal fold's (the trigonometric sphere solution under kLitTrig).
+constexpr int kLitNone = 0, kLitCells = 1, kLitSpec = 2, kLitTrig = 3;
+template <class Fold> constexpr int kLitFold = kLitNone;
+template <int kPairs, int kSingles, int kComp, int kFams>
+constexpr int kLitFold<GradCompositeFold<kPairs, kSingles, kComp, kFams, kCubeCells>> = kLitCells;
+template <> constexpr int kLitFold<SpecFold<false>> = kLitSpec;
+template <> constexpr int kLitFold<SpecFold<true>> = kLitTrig;
 
 // Whether a gradient kernel's fold reads a table (GradTableFold,
 // GradCompositeFold), which its blocks build after the params
@@ -1421,9 +1540,55 @@ template <int kPairs, int kSingles>
 constexpr bool kGradTable<GradTableFold<kPairs, kSingles>> = true;
 template <int kPairs, int kSingles, int kComp, int kFams, int kCube>
 constexpr bool kGradTable<GradCompositeFold<kPairs, kSingles, kComp, kFams, kCube>> = true;
+template <bool kTrig> constexpr bool kGradTable<SpecFold<kTrig>> = true;
 template <class Fold> constexpr bool kGradComposite = false;
 template <int kPairs, int kSingles, int kComp, int kFams, int kCube>
 constexpr bool kGradComposite<GradCompositeFold<kPairs, kSingles, kComp, kFams, kCube>> = true;
+
+// Modes<Fold>: Fold in the gradient kernels over K1's other configurations
+// (modes.cuh), whose sampler is the launch's (kSamplerArg: the sampler's
+// code | kepler's Halley steps << 2, read by sampler_arg), and every trait
+// Fold's. The production kernels' folds run the poly sampler; the sampler
+// needs no adjoint (its direction depends on the hashed uniforms alone).
+// The launch's sampler rides in its descriptor (sampler_slot), which each
+// kernel takes by value, and each block copies it to shared memory
+// (build_table_for, modes_sampler): no state outlives a launch, so
+// launches in several streams at once never read each other's sampler.
+template <class Fold> struct Modes {};
+template <class Fold>
+__device__ __forceinline__ Hit fold(Modes<Fold>, const float* P, const Layout& L, V4 o, V4 d) {
+  return fold(Fold{}, P, L, o, d);
+}
+template <class Fold> constexpr bool kModes = false;
+template <class Fold> constexpr bool kModes<Modes<Fold>> = true;
+template <class Fold> constexpr bool kTableCells<Modes<Fold>> = kTableCells<Fold>;
+template <class Fold> constexpr bool kGradTable<Modes<Fold>> = kGradTable<Fold>;
+template <class Fold> constexpr bool kGradComposite<Modes<Fold>> = kGradComposite<Fold>;
+template <class Fold> constexpr int kLitFold<Modes<Fold>> = kLitFold<Fold>;
+template <class Fold> constexpr int kFoldSampler = kSamplerPoly;
+template <class Fold> constexpr int kFoldSampler<Modes<Fold>> = kSamplerArg;
+// The block's copy of the launch's sampler argument under a Modes fold
+// (modes.cuh defines it).
+template <class Fold> __device__ int& modes_sampler(Modes<Fold>);
+template <class Fold>
+__device__ __forceinline__ int sampler_arg() {
+  if constexpr (kModes<Fold>) {
+    return modes_sampler(Fold{});
+  } else {
+    return 0;
+  }
+}
+
+// The descriptor's word that carries a Modes launch's sampler argument: a
+// slot the descriptor leaves empty, the last single plane's (2 n_pairs +
+// n_singles planes are at most kMaxHintPlanes) or, with kMaxHintPlanes
+// single planes and so no pair, the last pair's. Production launches
+// never read it.
+template <class HintsT>
+__host__ __device__ __forceinline__ auto& sampler_slot(HintsT& H) {
+  return H.n_singles < kMaxHintPlanes ? H.single[kMaxHintPlanes - 1]
+                                      : H.pair[kMaxHintPlanes / 2 - 1];
+}
 
 // Records of a fold table without composites (build_fold_table): the
 // header, one a pair, two a single plane and two a sphere.
@@ -1441,7 +1606,9 @@ __host__ __device__ __forceinline__ int composite_table_recs(const Layout& L, co
 // The records of Fold's table over L and H (0: the fold reads no table).
 template <class Fold>
 __host__ __device__ __forceinline__ int table_recs_for(const Layout& L, const Hints& H) {
-  if constexpr (kGradComposite<Fold>) return composite_table_recs(L, H);
+  if constexpr (kGradComposite<Fold> || kLitFold<Fold> >= kLitSpec) {
+    return composite_table_recs(L, H);
+  }
   return kGradTable<Fold> ? plane_table_recs(L, H) : 0;
 }
 

@@ -48,10 +48,12 @@ Every gradient path takes the static hints under the freeze_hints
 contract (``with_frozen_hints``, diff.py:415-455: the production
 configuration of every JAX bench training line), and refuses them without
 it (renderer.check_trainable). The plain route takes every configuration
-the plain pipeline renders; the kernel route refuses those the gradient
-kernels do not take (gradkernel.check_kernel_config: the sequential
-stream, the kepler and newton samplers, the spec and trig folds, a
-hypercube without generators), on either device. Under the contract the
+the plain pipeline renders; the kernel route every one with per-sample
+streams (gradkernel.check_kernel_config refuses the sequential stream, as
+the JAX package does), on either device: every sampler, the fast and the
+literal spec and trig folds, a hypercube with or without generators. Under
+a literal fold ``with_frozen_hints`` derives no hints, so nothing is
+frozen. Under the contract the
 kernel route launches K1/K2,
 K4, K5 and K6 with the forward's hinted fold, and the kernels write the
 frozen slots (every hyperplane normal; the hinted composite axes) as 0,
@@ -81,7 +83,7 @@ from torch import nn
 from fourd_ray_tracing_tpu_torch.camera import Camera
 from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
-from fourd_ray_tracing_tpu_torch.models.scene import COMPOSITE_KINDS, Scene, cells_only
+from fourd_ray_tracing_tpu_torch.models.scene import COMPOSITE_KINDS, Scene
 from fourd_ray_tracing_tpu_torch.ops import geometry as geo
 from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel, megakernel
 from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
@@ -406,9 +408,10 @@ def zero_object(scene: Scene, object_ref) -> Scene:
                                                     for c in scene.cylinders_union))
     if kind == "tiger":
         return scene._replace(tiger=scene.tiger._make(_with_r(c, 0.0) for c in scene.tiger))
-    if kind == "hypercube":  # the generators' r and each cell's own copy
+    if kind == "hypercube":  # the generators' r (if it has them) and each cell's own copy
         hc = scene.hypercube
-        return scene._replace(hypercube=_with_r(hc, -1.0)._replace(
+        hc = hc if hc.r is None else _with_r(hc, -1.0)
+        return scene._replace(hypercube=hc._replace(
             cubes=tuple(_with_r(c, -1.0) for c in hc.cubes)))
     raise ValueError("zero_object does not support kind 'spaces' (hyperplanes fall back "
                      "to drop_object)")
@@ -485,7 +488,7 @@ def image_loss_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camera,
     gradient on every rank from one K4 launch per rank on its rows (on
     the CPU, K4's plain version on them). Either device takes what K4 takes
     (gradkernel.check_kernel_config)."""
-    gradkernel.check_kernel_config(cfg, cells_only(like_scene))
+    gradkernel.check_kernel_config(cfg)
     if mesh is not None:
         return ImageLoss.apply(vec, like_scene, like_camera, cfg, seed, target, mesh)
     if vec.device.type == "cpu":
@@ -513,7 +516,7 @@ class RenderLight(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vec, like_scene, like_camera, cfg, seed, mesh=None):
         cfg = gradkernel._auto_hints(like_scene, cfg)
-        gradkernel.check_kernel_config(cfg, cells_only(like_scene))
+        gradkernel.check_kernel_config(cfg)
         words, batched = renderer.seed_words(seed)
         if batched:
             raise ValueError("the light-VJP path takes one scalar seed")
@@ -552,7 +555,7 @@ def render_light_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camer
     get no gradient. Either device takes what K5 takes
     (gradkernel.check_kernel_config)."""
     cfg = gradkernel._auto_hints(like_scene, cfg)
-    gradkernel.check_kernel_config(cfg, cells_only(like_scene))
+    gradkernel.check_kernel_config(cfg)
     if vec.device.type == "cpu":
         scene, camera = params.unpack(vec, like_scene, like_camera)
         return renderer.render_light(stop_frozen(scene, cfg), camera, cfg, seed)
@@ -636,7 +639,7 @@ def soft_image_loss_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Ca
     raises ValueError, as in the JAX package. Either device takes what K6
     takes (gradkernel.check_kernel_config)."""
     cfg = gradkernel._auto_hints(like_scene, cfg)
-    gradkernel.check_kernel_config(cfg, cells_only(like_scene))
+    gradkernel.check_kernel_config(cfg)
     if mesh is not None:
         if object_ref[0] == "spaces":
             raise ValueError("mesh-sharded soft training supports zero-emulatable object "
@@ -800,7 +803,7 @@ def make_packed_train_step(cfg: RenderConfig, lr: float, camera: Camera, scene_t
     its hints are derived here when it asks for the contract and has none.
     """
     cfg = gradkernel._auto_hints(scene_template, cfg)
-    gradkernel.check_kernel_config(cfg, cells_only(scene_template))
+    gradkernel.check_kernel_config(cfg)
     n = params.n_scene(scene_template)
     cam_vec = params.pack(scene_template, camera).detach()[n:]
     masks = [m for m in (None if param_filter is None else

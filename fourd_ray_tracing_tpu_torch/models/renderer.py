@@ -51,8 +51,8 @@ class RenderConfig:
     ``intersect`` ("fast", "spec", "trig") renders; the fast fold takes the
     static hints (``plane_hints``, ``plane_pairs``, ``axis_hints``:
     models/scene.py), the literal folds ignore them, as the JAX package's
-    do. The gradient kernels take per_sample, poly and fast only
-    (gradkernel.check_kernel_config); the plain gradient route takes
+    do. The gradient kernels take every configuration with per_sample
+    streams (gradkernel.check_kernel_config); the plain gradient route takes
     everything. The gradient paths take the hints only under
     ``freeze_hints``, the
     contract that defines the hyperplane normals' and the hinted axes'

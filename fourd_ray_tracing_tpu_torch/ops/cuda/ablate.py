@@ -32,11 +32,26 @@ from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
 from fourd_ray_tracing_tpu_torch.models.scene import Scene
 from fourd_ray_tracing_tpu_torch.ops.cuda import build, gradkernel
-from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import hinted, launch_rows
+from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import (hinted, launch_config, launch_rows,
+                                                             production)
 from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
 
 LAUNCHES = HINTED_LAUNCHES = 0
 MODES = ("acc", "loss", "vjp")
+# Where K8 over K1's other configurations stands in the ROADMAP.
+CONFIG_ITEM = "ROADMAP queue 1, item 15 (K8's part)"
+
+
+def check_config(cfg: RenderConfig, lay: params.Layout) -> None:
+    """Raise NotImplementedError for a configuration K8 does not take: any
+    but the production one (megakernel.production: per-sample streams, the
+    poly sampler, the fast fold, a hypercube with generators), which the
+    JAX tool's ``main`` alone runs (grad_ablate.py:157-163); the plain
+    version takes them all."""
+    if not production(cfg, lay):
+        raise NotImplementedError(
+            f"K8 over {launch_config(cfg, lay)} is not ported yet ({CONFIG_ITEM}); "
+            "variant_plain takes it")
 
 
 def variant_plain(mode: str, scene: Scene, camera: Camera, cfg: RenderConfig, seed: int,
@@ -70,6 +85,7 @@ def launch_variant(mode: str, packed: torch.Tensor, lay: params.Layout, cfg: Ren
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     gradkernel._check_launch(packed, lay, cfg, target)
+    check_config(cfg, lay)
     if packed.dim() != 1:
         raise ValueError("the variant kernel takes one (P,) params vector")
     if target.numel() != lay.n_views * cfg.height * cfg.width * 3 or target.shape[-1] != 3:

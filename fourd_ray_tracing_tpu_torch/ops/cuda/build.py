@@ -245,7 +245,7 @@ SIGNATURES = {
         ctypes.c_void_p,                  # static hints (int[HINT_INTS]), host, or null
         ctypes.c_void_p,                  # cudaStream_t
     ], ctypes.c_int),
-    "fourd_loss_grad_launch": ([
+    "fourd_loss_grad_launch": (_LOSS_GRAD_ARGS := [
         ctypes.c_void_p,                  # params (P,) float32, device
         ctypes.c_void_p,                  # seeds (F,) uint32, device
         ctypes.c_int,                     # n_frames
@@ -267,7 +267,7 @@ SIGNATURES = {
     ], ctypes.c_int),
     "fourd_grad_scratch_cols": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int],
                                 ctypes.c_int),
-    "fourd_light_vjp_launch": ([
+    "fourd_light_vjp_launch": (_LIGHT_VJP_ARGS := [
         ctypes.c_void_p,                  # params (P,) or (F, P) float32, device
         ctypes.c_longlong,                # row_stride: 0, or P for (F, P) rows
         ctypes.c_int,                     # params rows F
@@ -284,7 +284,7 @@ SIGNATURES = {
         ctypes.c_void_p,                  # keep: the frozen-slot mask (P,) float32, device, or null
         ctypes.c_void_p,                  # cudaStream_t
     ], ctypes.c_int),
-    "fourd_soft_loss_grad_launch": ([
+    "fourd_soft_loss_grad_launch": (_SOFT_ARGS := [
         ctypes.c_void_p,                  # params (P,) float32, device
         ctypes.c_uint32,                  # seed
         ctypes.c_void_p,                  # layout table (int[14]), host
@@ -308,6 +308,13 @@ SIGNATURES = {
         ctypes.c_void_p,                  # keep: the frozen-slot mask (P,) float32, device, or null
         ctypes.c_void_p,                  # cudaStream_t
     ], ctypes.c_int),
+    # K4, K5 (csrc/gradmodes.cu) and K6 (softmodes.cu) over K1's other
+    # configurations: fold
+    # (0 fast, 1 spec, 2 trig), sampler (0 poly, 1 kepler, 2 newton),
+    # kepler's sampler_iters, then the launch's arguments (hints never null)
+    "fourd_loss_grad_modes": ([ctypes.c_int] * 3 + _LOSS_GRAD_ARGS, ctypes.c_int),
+    "fourd_light_vjp_modes": ([ctypes.c_int] * 3 + _LIGHT_VJP_ARGS, ctypes.c_int),
+    "fourd_soft_loss_grad_modes": ([ctypes.c_int] * 3 + _SOFT_ARGS, ctypes.c_int),
 }
 
 

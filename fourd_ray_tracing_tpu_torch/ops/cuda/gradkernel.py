@@ -1,5 +1,6 @@
-"""Wrappers of the gradient kernels (csrc/gradkernel.cu), each with its plain
-version.
+"""Wrappers of the gradient kernels (csrc/gradkernel.cu, gradcomposite.cu,
+softcomposite.cu and, over K1's other configurations, gradmodes.cu and
+softmodes.cu), each with its plain version.
 
 Counterpart of fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:
 
@@ -32,13 +33,17 @@ contract and has none (``_auto_hints``, gradkernel.py:674-700); a launch
 is handed them and the mask. The plain versions run the hinted plain pipeline and zero the same
 slots.
 
-The kernels render per-sample RNG streams with the poly sampler over the
-fast fold, as K1's production launch does (``check_kernel_config``): the
-sequential stream raises ValueError, as in the JAX package
-(gradkernel.py:653-657); the kepler and newton samplers, the literal spec
-and trig folds and a hypercube without generators raise
-NotImplementedError naming their ROADMAP item (the plain autograd route,
-diff's impl="plain", takes them all). No entry point falls back to
+The kernels render per-sample RNG streams (``check_kernel_config``: the
+sequential stream raises ValueError, as in the JAX package,
+gradkernel.py:653-671) in every configuration K1 renders them: the poly,
+kepler and newton samplers, the fast fold and the literal spec and trig
+folds, and a hypercube with or without generators. The production
+configuration (megakernel.production: poly, fast, generators) launches the
+production instances; any other the modes entry points (``*_modes``,
+gradmodes.cu and softmodes.cu: their sampler a launch argument), with the
+descriptor of
+``launch_words`` (a literal fold's holds no hints, so nothing is frozen:
+diff.with_frozen_hints derives none there). No entry point falls back to
 another route.
 
 Each takes ``rows`` = (row0, n_rows): image rows [row0, row0 + n_rows)
@@ -60,7 +65,11 @@ K6, each raised once per ``launch_*`` call, so a run can show that its
 main path went through them; ``SHARD_LAUNCHES``, ``SHARD_VJP_LAUNCHES``
 and ``SHARD_SOFT_LAUNCHES`` count those of them over fewer rows than the
 image, ``HINTED_LAUNCHES``, ``HINTED_VJP_LAUNCHES`` and
-``HINTED_SOFT_LAUNCHES`` those that ran the static hints.
+``HINTED_SOFT_LAUNCHES`` those that ran the static hints, and
+``CONFIG_LAUNCHES``, ``CONFIG_VJP_LAUNCHES`` and ``CONFIG_SOFT_LAUNCHES``
+every launch by its configuration (megakernel.launch_config:
+rng_mode/sampler_method/intersect, "/cells" for a hypercube without
+generators).
 """
 from __future__ import annotations
 
@@ -72,9 +81,10 @@ import torch
 from fourd_ray_tracing_tpu_torch.camera import Camera
 from fourd_ray_tracing_tpu_torch.models import params, renderer
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
-from fourd_ray_tracing_tpu_torch.models.scene import Scene, cells_only
+from fourd_ray_tracing_tpu_torch.models.scene import Scene
 from fourd_ray_tracing_tpu_torch.ops.cuda import build, megakernel
-from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import (hint_table, hinted, launch_rows,
+from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import (hint_table, hinted, launch_config,
+                                                             launch_rows, mode_codes, production,
                                                              seed_tensor, with_hints)
 from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh
 
@@ -83,14 +93,14 @@ VJP_LAUNCHES = 0  # K5
 SOFT_LAUNCHES = 0  # K6
 SHARD_LAUNCHES = SHARD_VJP_LAUNCHES = SHARD_SOFT_LAUNCHES = 0  # of them, on a block of rows
 HINTED_LAUNCHES = HINTED_VJP_LAUNCHES = HINTED_SOFT_LAUNCHES = 0  # of them, with static hints
+CONFIG_LAUNCHES: dict = {}  # K4's, by launch_config
+CONFIG_VJP_LAUNCHES: dict = {}  # K5's
+CONFIG_SOFT_LAUNCHES: dict = {}  # K6's
 # The kernels' caps on packed parameters and bounces and K6's zero-map
 # slots, which the build passes to them.
 MAX_PARAMS, MAX_BOUNCES = build.K4_MAX_PARAMS, build.K4_MAX_BOUNCES
 MAIN_BOUNCES = build.K4_MAIN_BOUNCES  # the bounce count with an unrolled instance
 MAX_ZERO_SLOTS = build.K6_MAX_ZERO_SLOTS
-# Where the gradient kernels over K1's other configurations stand in the
-# ROADMAP.
-CONFIG_ITEM = "ROADMAP queue 1, item 15"
 
 
 def _auto_hints(scene: Scene, cfg: RenderConfig) -> RenderConfig:
@@ -114,17 +124,37 @@ def freeze(grad: torch.Tensor, like_scene: Scene, cfg: RenderConfig) -> torch.Te
 
 def launch_words(lay: params.Layout, cfg: RenderConfig):
     """The hints descriptor of a gradient launch (hint_table), or None for
-    the unhinted fold over the params. A scene with composite primitives
-    always takes one, its fold being K1's table (their hints when ``cfg``
-    carries them, none otherwise); a scene of hyperplanes and spheres takes
-    one when ``cfg`` carries hints (it then carries the contract:
-    check_trainable), unless it has more than build.MAX_HINT_PLANES
-    hyperplanes, whose hints the table cannot hold (the rule of the plane
-    count: it launches with the unhinted fold, which finds the hinted
-    fold's hits, and its frozen slots are written 0 all the same)."""
-    if lay.composite_kinds() or (hinted(cfg) and lay.n_spaces <= build.MAX_HINT_PLANES):
+    the unhinted fold over the params. A launch over K1's other
+    configurations (not megakernel.production) always takes one: a literal
+    fold's holds the composites' offsets and no hints, a hypercube without
+    generators the axis hint CUBE_CELLS. A production launch over a scene
+    with composite primitives always takes one, its fold being K1's table
+    (their hints when ``cfg`` carries them, none otherwise); a scene of
+    hyperplanes and spheres takes one when ``cfg`` carries hints (it then
+    carries the contract: check_trainable), unless it has more than
+    build.MAX_HINT_PLANES hyperplanes, whose hints the table cannot hold
+    (the rule of the plane count: it launches with the unhinted fold, which
+    finds the hinted fold's hits, and its frozen slots are written 0 all
+    the same)."""
+    if (not production(cfg, lay) or lay.composite_kinds()
+            or (hinted(cfg) and lay.n_spaces <= build.MAX_HINT_PLANES)):
         return hint_table(cfg, lay)
     return None
+
+
+def _modes(cfg: RenderConfig, lay: params.Layout):
+    """(fold, sampler, sampler_iters) codes of a modes launch (gradmodes.cu,
+    softmodes.cu), or
+    None for the production instances (megakernel.production)."""
+    if production(cfg, lay):
+        return None
+    fold, sampler, _, iters = mode_codes(cfg)
+    return fold, sampler, iters
+
+
+def _count(counts: dict, cfg: RenderConfig, lay: params.Layout) -> None:
+    key = launch_config(cfg, lay)
+    counts[key] = counts.get(key, 0) + 1
 
 
 def _launch_hints(lay: params.Layout, cfg: RenderConfig, keep, device):
@@ -188,31 +218,22 @@ def loss_and_grad_plain(packed: torch.Tensor, like_scene: Scene, like_camera: Ca
     return loss.float(), freeze(grad.float(), like_scene, cfg)
 
 
-def check_kernel_config(cfg: RenderConfig, cells: bool = False) -> None:
+def check_kernel_config(cfg: RenderConfig) -> None:
     """Raise for a configuration the gradient kernels do not take
-    (renderer.check_trainable's, and): the sequential stream, ValueError as
-    in the JAX package; the kepler and newton samplers, the spec and trig
-    folds and (``cells``) a hypercube without generators,
-    NotImplementedError: K4, K5, K6 and K8 over them are CONFIG_ITEM."""
+    (renderer.check_trainable's, and the sequential stream, ValueError as
+    the JAX package's _check_cfg raises it, gradkernel.py:653-671). Every
+    sampler and fold, and a hypercube without generators, they take."""
     renderer.check_trainable(cfg)
     if cfg.rng_mode != "per_sample":
         raise ValueError('the gradient kernels render per-sample RNG streams (rng_mode='
                          '"per_sample"), as the JAX value-and-grad kernel does')
-    unported = [what for what, bad in (
-        (f"sampler_method={cfg.sampler_method!r}", cfg.sampler_method != "poly"),
-        (f"intersect={cfg.intersect!r}", cfg.intersect != "fast"),
-        ("a hypercube without generators", cells)) if bad]
-    if unported:
-        raise NotImplementedError(
-            f"the gradient kernels over {', '.join(unported)} are not ported yet ({CONFIG_ITEM}); "
-            "the plain autograd route (impl='plain') takes them")
 
 
 def check_shape(lay: params.Layout, cfg: RenderConfig) -> None:
     """Raise for what the gradient kernels cannot hold or do not take
     (check_kernel_config), and for static hints outside the freeze_hints
     contract (renderer.check_trainable)."""
-    check_kernel_config(cfg, bool(lay.hypercube_cells))
+    check_kernel_config(cfg)
     if lay.size > MAX_PARAMS:
         raise ValueError(f"the gradient kernels hold at most {MAX_PARAMS} packed "
                          f"parameters in shared memory; this scene and camera have {lay.size}")
@@ -244,12 +265,15 @@ GRAD_BLOCK, GRAD_PITCH = 64, 65
 
 def launch_shapes(lay: params.Layout, cfg: RenderConfig | None = None) -> dict:
     """(threads a block, dynamic shared-memory bytes) of each kernel of the
-    gradient launches over ``lay`` under ``cfg``'s hints (none by default)
-    (csrc/gradkernel.cu, reduce.cuh grad_smem_bytes): the sweeps (K4's and
-    K5's, K6's rows a and b) hold the params row, with a fold table
-    (``launch_words``) padded to 16 bytes and followed by the table, and
-    their threads' columns, row b one byte a slot more; the pass-1 kernels
-    (K4's loss_cot, K6's soft_sum) the params row and the table."""
+    gradient launches over ``lay`` under ``cfg`` (RenderConfig() by
+    default: the production fold, no hints) (csrc/gradkernel.cu,
+    reduce.cuh grad_smem_bytes): the sweeps (K4's and K5's, K6's rows a and
+    b) hold the params row, with a fold table (``launch_words``: hints, a
+    scene's composites, or any other configuration's descriptor) padded to
+    16 bytes and followed by the table, and their threads' columns, row b
+    one byte a slot more; the pass-1 kernels (K4's loss_cot, K6's soft_sum)
+    the params row and the table. The modes sources' instances (the same
+    kernels over a Modes fold) take these shapes too."""
     words = launch_words(lay, cfg or RenderConfig())
     if words is not None:
         head = megakernel.shared_bytes(lay, words)
@@ -305,21 +329,25 @@ def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
     grad = torch.empty((lay.size,), dtype=torch.float32, device=device)
     loss = torch.empty((), dtype=torch.float32, device=device)
     scale = float(np.float32(1.0 / (n_frames * total * 3)))
+    modes = _modes(cfg, lay)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fourd_loss_grad_launch(
-            packed.data_ptr(), seeds.data_ptr(), n_frames, ctypes.addressof(table),
-            cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
-            float(np.float32(cfg.small_indent)), float(np.float32(cfg.light_coefficient)),
-            target.data_ptr(), scale, g_mean.data_ptr(), grad_parts.data_ptr(),
-            loss_parts.data_ptr(), grad.data_ptr(), loss.data_ptr(), _addr(hints), keep_ptr,
-            stream,
-        )
+        args = (packed.data_ptr(), seeds.data_ptr(), n_frames, ctypes.addressof(table),
+                cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
+                float(np.float32(cfg.small_indent)), float(np.float32(cfg.light_coefficient)),
+                target.data_ptr(), scale, g_mean.data_ptr(), grad_parts.data_ptr(),
+                loss_parts.data_ptr(), grad.data_ptr(), loss.data_ptr(), _addr(hints), keep_ptr,
+                stream)
+        if modes is None:
+            err = lib.fourd_loss_grad_launch(*args)
+        else:
+            err = lib.fourd_loss_grad_modes(*modes, *args)
     if err != 0:
         raise RuntimeError(f"value-and-grad kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     SHARD_LAUNCHES += int(n_rows < cfg.height)
     HINTED_LAUNCHES += int(hinted(cfg))
+    _count(CONFIG_LAUNCHES, cfg, lay)
     return loss, grad
 
 
@@ -329,7 +357,7 @@ def loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: Cam
     launch (with ``rows``, those rows' part, ``target`` their block); a
     vector on another device raises."""
     cfg = _auto_hints(like_scene, cfg)
-    check_kernel_config(cfg, cells_only(like_scene))
+    check_kernel_config(cfg)
     lay = params.layout(like_scene, like_camera)
     target = torch.as_tensor(target, dtype=torch.float32, device=packed.device).contiguous()
     words, _ = renderer.seed_words(seed)
@@ -343,7 +371,7 @@ def loss_and_grad_packed(packed: torch.Tensor, like_scene: Scene, like_camera: C
     """(loss, (P,) gradient) of the packed vector: the plain version for a
     CPU vector, the kernel for a CUDA one; both take what the kernel takes
     (check_kernel_config)."""
-    check_kernel_config(cfg, cells_only(like_scene))
+    check_kernel_config(cfg)
     if packed.device.type == "cpu":
         return loss_and_grad_plain(packed, like_scene, like_camera, cfg, seed, target, rows=rows)
     if packed.device.type != "cuda":
@@ -372,7 +400,7 @@ def make_packed_loss_and_grad(scene: Scene, camera: Camera, cfg: RenderConfig):
     the frozen slots of the gradient are 0 (gradkernel.py:990-1017).
     """
     cfg = _auto_hints(scene, cfg)
-    check_kernel_config(cfg, cells_only(scene))
+    check_kernel_config(cfg)
     packed = params.pack(scene, camera).detach()
     n = params.n_scene(scene)
     cam_vec = packed[n:]
@@ -442,19 +470,23 @@ def launch_light_vjp(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
     n_cols = _scratch_cols(lib, table, cfg, n_rows)
     grad_parts = torch.empty((n_vecs * lay.size, n_cols), dtype=torch.float32, device=packed.device)
     grad = torch.empty(packed.shape, dtype=torch.float32, device=packed.device)
+    modes = _modes(cfg, lay)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fourd_light_vjp_launch(
-            packed.data_ptr(), lay.size if multi else 0, n_vecs, seed, ctypes.addressof(table),
-            cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
-            float(np.float32(cfg.small_indent)), cot.data_ptr(), grad_parts.data_ptr(),
-            grad.data_ptr(), _addr(hints), keep_ptr, stream,
-        )
+        args = (packed.data_ptr(), lay.size if multi else 0, n_vecs, seed, ctypes.addressof(table),
+                cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
+                float(np.float32(cfg.small_indent)), cot.data_ptr(), grad_parts.data_ptr(),
+                grad.data_ptr(), _addr(hints), keep_ptr, stream)
+        if modes is None:
+            err = lib.fourd_light_vjp_launch(*args)
+        else:
+            err = lib.fourd_light_vjp_modes(*modes, *args)
     if err != 0:
         raise RuntimeError(f"light-VJP kernel launch failed: cudaError {err}")
     VJP_LAUNCHES += 1
     SHARD_VJP_LAUNCHES += int(n_rows < cfg.height)
     HINTED_VJP_LAUNCHES += int(hinted(cfg))
+    _count(CONFIG_VJP_LAUNCHES, cfg, lay)
     return grad
 
 
@@ -463,7 +495,7 @@ def render_light_vjp_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: 
     """K5 on a CUDA vector, as ``render_light_vjp_plain`` computes it: one
     launch for (P,) or for (F, P) rows; another device raises."""
     cfg = _auto_hints(like_scene, cfg)
-    check_kernel_config(cfg, cells_only(like_scene))
+    check_kernel_config(cfg)
     cot = torch.as_tensor(cot_light, dtype=torch.float32, device=packed.device).contiguous()
     lay = params.layout(like_scene, like_camera)
     return launch_light_vjp(packed.detach().contiguous(), lay, cfg, _scalar_seed(seed), cot, rows,
@@ -573,22 +605,26 @@ def launch_soft_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderC
     loss = torch.empty((), dtype=torch.float32, device=device)
     alpha_cot = torch.empty_like(alpha)
     scale = float(np.float32(1.0 / (total * 3)))
+    modes = _modes(cfg, lay)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fourd_soft_loss_grad_launch(
-            packed.data_ptr(), seed, ctypes.addressof(table), n, ctypes.addressof(slots),
-            ctypes.addressof(values), cfg.width, cfg.height, row0, n_rows, cfg.samples,
-            cfg.reflections_amount, float(np.float32(cfg.small_indent)),
-            float(np.float32(cfg.light_coefficient)), target.data_ptr(), alpha.data_ptr(), scale,
-            sums.data_ptr(), row_b.data_ptr(), grad_parts.data_ptr(), loss_parts.data_ptr(),
-            grad.data_ptr(),
-            loss.data_ptr(), alpha_cot.data_ptr(), _addr(hints), keep_ptr, stream,
-        )
+        args = (packed.data_ptr(), seed, ctypes.addressof(table), n, ctypes.addressof(slots),
+                ctypes.addressof(values), cfg.width, cfg.height, row0, n_rows, cfg.samples,
+                cfg.reflections_amount, float(np.float32(cfg.small_indent)),
+                float(np.float32(cfg.light_coefficient)), target.data_ptr(), alpha.data_ptr(),
+                scale, sums.data_ptr(), row_b.data_ptr(), grad_parts.data_ptr(),
+                loss_parts.data_ptr(), grad.data_ptr(), loss.data_ptr(), alpha_cot.data_ptr(),
+                _addr(hints), keep_ptr, stream)
+        if modes is None:
+            err = lib.fourd_soft_loss_grad_launch(*args)
+        else:
+            err = lib.fourd_soft_loss_grad_modes(*modes, *args)
     if err != 0:
         raise RuntimeError(f"soft value-and-grad kernel launch failed: cudaError {err}")
     SOFT_LAUNCHES += 1
     SHARD_SOFT_LAUNCHES += int(n_rows < cfg.height)
     HINTED_SOFT_LAUNCHES += int(hinted(cfg))
+    _count(CONFIG_SOFT_LAUNCHES, cfg, lay)
     return loss, grad, alpha_cot
 
 
@@ -597,7 +633,7 @@ def render_soft_loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like
     """K6 on a CUDA vector, as ``render_soft_loss_and_grad_plain``
     computes it, in one launch; another device raises."""
     cfg = _auto_hints(like_scene, cfg)
-    check_kernel_config(cfg, cells_only(like_scene))
+    check_kernel_config(cfg)
     device = packed.device
     target = torch.as_tensor(target, dtype=torch.float32, device=device).contiguous()
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device).detach().contiguous()
@@ -645,7 +681,7 @@ def sharded_render_light_vjp_multi(packed: torch.Tensor, like_scene: Scene, like
     (F, ..., n_rows, W, 3) of the light cotangent of (F, P) params rows
     (or (P,)), and one all-reduce gives every rank the whole image's
     gradient (the backward of ``diff.render_light_pair`` with a mesh)."""
-    check_kernel_config(cfg, cells_only(like_scene))
+    check_kernel_config(cfg)
     rows, _ = _shard(packed, cfg, mesh)
     if packed.device.type == "cpu":
         grad = render_light_vjp_plain(packed, like_scene, like_camera, cfg, seed, cot_block, rows)
@@ -664,7 +700,7 @@ def sharded_soft_loss_and_grad(packed: torch.Tensor, like_scene: Scene, like_cam
     and one all-reduce of the packed [loss, grad] gives every rank the
     whole image's (the forward of ``diff.soft_image_loss_kernel`` with a
     mesh). The alpha cotangent stays the rank's block of rows."""
-    check_kernel_config(cfg, cells_only(like_scene))
+    check_kernel_config(cfg)
     rows, band = _shard(packed, cfg, mesh)
     target = _as_block(target, band, packed.device, channels=True)
     alpha = _as_block(alpha, band, packed.device, channels=False)

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from fourd_ray_tracing_tpu_torch.ops.sampler import SMALL_FLOAT
-from fourd_ray_tracing_tpu_torch.ops.vec4 import (Vec3, Vec4, dot, f32, length, point_in_space,
+from fourd_ray_tracing_tpu_torch.ops.vec4 import (Vec3, Vec4, dot, f32, point_in_space,
                                                   sqrt, vec_in_space)
 
 
@@ -99,12 +99,83 @@ def closest(a: Intersection, b: Intersection) -> Intersection:
     return select(a.hit & (~b.hit | (a.dist < b.dist)), a, b)
 
 
+def _zero_safe(fn, deriv):
+    """``fn`` whose backward is the formula torch's own takes, grad *
+    deriv(x, fn(x)), but exactly 0 where the cotangent is 0: a lane the
+    fold masks out gets no gradient even where ``deriv`` is infinite (acos'
+    and asin' at +-1, sqrt' at 0), where torch's 0 * inf is nan and reaches
+    the winning lanes' leaves. A lane whose cotangent is not 0 gets torch's
+    value, inf or nan included (the gradient kernels' literal adjoint
+    computes the same, csrc/adjoint.cuh sphere_lit_adj)."""
+    class ZeroSafe(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            y = fn(x)
+            ctx.save_for_backward(x, y)
+            return y
+
+        @staticmethod
+        def backward(ctx, g):
+            x, y = ctx.saved_tensors
+            return torch.where(g == 0.0, torch.zeros((), dtype=g.dtype), g * deriv(x, y))
+
+    return ZeroSafe.apply
+
+
+# torch's derivatives of acos, asin (tools/autograd/derivatives.yaml) and
+# sqrt. acos' at +-1, where the formula is infinite, is taken as 0: the
+# trigonometric sphere's cos_opa is exactly 1 on a ray aimed within float32
+# rounding (3.4e-4 rad) of the center, a hit, where the distance's
+# derivative is finite (its sin(angle_aop) is 0 there) but the chain's is
+# 0 * inf; with 0 that path adds nothing and the others carry the
+# gradient (JAX's is nan there: ROADMAP queue 3).
+_acos = _zero_safe(torch.acos, lambda x, _: torch.where(
+    x.abs() == 1.0, torch.zeros((), dtype=x.dtype), -((-x * x + 1.0).rsqrt())))
+_asin = _zero_safe(torch.asin, lambda x, _: (-x * x + 1.0).rsqrt())
+_sqrt = _zero_safe(sqrt, lambda _, y: 1.0 / (2.0 * y))
+
+
+class _Norm(torch.autograd.Function):
+    """|v| = sqrt(dot(v, v)) (vec4.length's value), whose backward is that of
+    torch.linalg.vector_norm: v * (g / |v|), and 0 at v = 0 (the norm's
+    subgradient; sqrt' at 0 would give 0 * inf = nan). The trigonometric
+    sphere's l is 0 on a ray from its center, or from a cylinder's axis
+    plane: a camera on a tiger's or a duocylinder's axis plane."""
+
+    @staticmethod
+    def forward(ctx, x, y, z, w):
+        n = sqrt(x * x + y * y + z * z + w * w)
+        ctx.save_for_backward(x, y, z, w, n)
+        return n
+
+    @staticmethod
+    def backward(ctx, g):
+        *v, n = ctx.saved_tensors
+        k = torch.where(n == 0.0, torch.zeros((), dtype=g.dtype), g / torch.where(n == 0.0, 1.0, n))
+        return tuple(c * k for c in v)
+
+
+def _radius_guard(r):
+    """(r is not 0, r where it is not 0 and 1 where it is) of a sphere's or
+    a cylinder's circle. A circle of radius 0 (diff.zero_object) never
+    hits: on a ray through its center (a cylinder's: through its axis
+    plane) l2 - b^2 rounds below 0, where the quadratic's disc = -(l2 -
+    b^2) > 0, and the trigonometric l sin(opa) / 0 is nan, which
+    ``sin_oap >= 1`` does not count as a miss. The second divides in its
+    place, so that no gradient through the masked lanes is 0 * inf; every
+    other radius computes as before. The JAX package's literal
+    intersections have no such guard (ROADMAP queue 3)."""
+    live = torch.as_tensor(r) != 0.0
+    return live, torch.where(live, r, 1.0)
+
+
 def sphere_intersection(center: Vec4, r, material: Material, ray_o: Vec4, ray_d: Vec4,
                         outer: bool = True) -> Intersection:
     """Ray / 3-sphere by the quadratic (geometry.py:136-181): the near root
     from outside an outer sphere, else the far root; a receding ray from
     outside and a tangent or missing line miss; the normal points to the
-    ray's side."""
+    ray's side. Radius 0 misses (``_radius_guard``)."""
+    live, r_div = _radius_guard(r)
     po = center - ray_o
     l2 = dot(po, po)
     l = _safe_length(po)
@@ -116,8 +187,8 @@ def sphere_intersection(center: Vec4, r, material: Material, ray_o: Vec4, ray_d:
     s = _safe_sqrt_pos(disc, ~miss_tangent)
     use_near = (l > r) if outer else torch.zeros_like(miss_tangent)
     dist = torch.where(use_near, b - s, b + s)
-    hit = ~(miss_receding | miss_tangent)
-    norm = (center - (ray_o + ray_d * dist)) * (1.0 / r)
+    hit = ~(miss_receding | miss_tangent) & live
+    norm = (center - (ray_o + ray_d * dist)) * (1.0 / r_div)
     return _masked(hit, dist, (-norm).where(use_near, norm), material)
 
 
@@ -125,24 +196,26 @@ def sphere_intersection_trig(center: Vec4, r, material: Material, ray_o: Vec4, r
                              outer: bool = True) -> Intersection:
     """The reference's trigonometric solution, literally (geometry.py:
     184-215): the angles at the origin and at the hit by arccos and
-    arcsin, the distance by the law of cosines."""
+    arcsin, the distance by the law of cosines. Radius 0 misses
+    (``_radius_guard``)."""
+    live, r_div = _radius_guard(r)
     po = center - ray_o
-    l = length(po)
+    l = _Norm.apply(*po)
     degenerate = l < SMALL_FLOAT
     dot_pord = dot(po, ray_d)
     miss_receding = ~degenerate & (l >= r) & (dot_pord < 0.0)
     cos_opa = torch.where(degenerate, 0.0,
                           torch.clamp(dot_pord / torch.clamp_min(l, 1e-30), -1.0, 1.0))
-    angle_opa = torch.acos(cos_opa)
-    sin_oap = l * torch.sin(angle_opa) / r
+    angle_opa = _acos(cos_opa)
+    sin_oap = l * torch.sin(angle_opa) / r_div
     miss_tangent = sin_oap >= 1.0
-    angle_oap = torch.asin(torch.clamp(sin_oap, -1.0, 1.0))
+    angle_oap = _asin(torch.clamp(sin_oap, -1.0, 1.0))
     use_near = (l > r) if outer else torch.zeros_like(miss_tangent)
     angle_oap = torch.where(use_near, _PI - angle_oap, angle_oap)
     angle_aop = _PI - angle_opa - angle_oap
-    dist = sqrt(torch.clamp_min(r * r + l * l - 2.0 * r * l * torch.cos(angle_aop), 0.0))
-    hit = ~(miss_receding | miss_tangent)
-    norm = (center - (ray_o + ray_d * dist)) * (1.0 / r)
+    dist = _sqrt(torch.clamp_min(r * r + l * l - 2.0 * r * l * torch.cos(angle_aop), 0.0))
+    hit = ~(miss_receding | miss_tangent) & live
+    norm = (center - (ray_o + ray_d * dist)) * (1.0 / r_div)
     return _masked(hit, dist, (-norm).where(use_near, norm), material)
 
 

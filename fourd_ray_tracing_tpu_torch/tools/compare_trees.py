@@ -24,9 +24,14 @@ the tiger the object. Each figure is ms per call, the median of ``--repeats`` ru
 of 4 back-to-back calls, CUDA events; one JSON line a turn. Then each
 tree's kernels' registers, stack and spill (its build log) and K1's
 resident warps per SM (libcuda's occupancy query on its cubins), and
-last the SASS of every kernel but K1 in both builds, instruction for
-instruction (cuobjdump): the gradient kernels K4-K6 and K8, which a change
-of the forward fold must leave as they are, and K7.
+last the SASS of every kernel in both builds, instruction for instruction
+(cuobjdump): every function the two builds share is compared, K1's
+instances included; one line reads whether every shared kernel but K1's
+is identical (the gradient kernels K4-K6 and K8, which a change of the
+forward fold must leave as they are, and K7), one whether K1's
+production and measurement instances are (every forward_kernel instance
+but those of K1's other configurations, forwardmodes.cu's, whose RNG mode
+is a launch argument), and the kernels only one tree has are listed.
 """
 from __future__ import annotations
 
@@ -42,6 +47,9 @@ from pathlib import Path
 HERE = Path(__file__).resolve()
 ROOT = HERE.parents[2]
 K1 = r"forward_kernel"  # every instance of K1 and of its measurement variants
+# K1's instances over its other configurations (forwardmodes.cu): the RNG
+# mode kRngArg (-1), their last template argument.
+K1_MODES = r"forward_kernel\w*Lin1EEEv"
 
 
 def time_tree(tree: Path, repeats: int) -> dict:
@@ -216,27 +224,40 @@ def sass(lib: str) -> dict:
     return out
 
 
-def compare_others(other_lib: str, this_lib: str) -> bool:
-    """Prints, for every function of the two builds but K1's, how many SASS
-    instructions differ; True when none does and both builds have the same
-    such functions. Names are compared from the kernel's own name on, without
-    the anonymous namespace's per-build prefix."""
+def compare_others(other_lib: str, this_lib: str) -> dict:
+    """Prints, for every function the two builds share, how many SASS
+    instructions differ, and lists the functions only one build has.
+    Returns {"sass_identical_but_k1": every shared function but K1's
+    identical and none of the other build's missing here,
+    "k1_production_identical": the same for K1's instances but those of
+    its other configurations (K1_MODES), "only_this": the functions only
+    this build has}. Names are compared from the kernel's own name on,
+    without the anonymous namespace's per-build prefix."""
     def key(name):
         for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", name):
             if m.group(2)[:int(m.group(1))].endswith("_kernel"):
                 return name[m.start():]
         return name
 
-    old = {key(n): f for n, f in sass(other_lib).items() if not re.search(K1, n)}
-    new = {key(n): f for n, f in sass(this_lib).items() if not re.search(K1, n)}
-    same = old.keys() == new.keys()
-    for name in sorted(old.keys() | new.keys()):
-        a, b = old.get(name, []), new.get(name, [])
+    old = {key(n): f for n, f in sass(other_lib).items()}
+    new = {key(n): f for n, f in sass(this_lib).items()}
+    others = k1 = True
+    for name in sorted(old.keys() & new.keys()):
+        a, b = old[name], new[name]
         diff = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
         print(json.dumps({"sass": name, "other": len(a), "this": len(b), "differing": diff}),
               flush=True)
-        same = same and diff == 0
-    return same
+        if not re.search(K1, name):
+            others = others and diff == 0
+        elif not re.search(K1_MODES, name):
+            k1 = k1 and diff == 0
+    missing = sorted(old.keys() - new.keys())
+    only_this = sorted(new.keys() - old.keys())
+    print(json.dumps({"sass_only_other": missing, "sass_only_this": only_this}), flush=True)
+    others = others and not [n for n in missing if not re.search(K1, n)]
+    k1 = k1 and not [n for n in missing if re.search(K1, n) and not re.search(K1_MODES, n)]
+    return {"sass_identical_but_k1": others, "k1_production_identical": k1,
+            "only_this": len(only_this)}
 
 
 def main(argv=None) -> int:
@@ -262,8 +283,7 @@ def main(argv=None) -> int:
                         "--repeats", str(args.repeats)], check=True)
     for tree in (other, ROOT):
         print(json.dumps({"resources": str(tree), **resources(tree, libs[tree])}), flush=True)
-    same = compare_others(libs[other], libs[ROOT])
-    print(json.dumps({"sass_identical_but_k1": same}), flush=True)
+    print(json.dumps(compare_others(libs[other], libs[ROOT])), flush=True)
     return 0
 
 

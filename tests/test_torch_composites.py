@@ -365,10 +365,13 @@ def test_table_records_are_the_kernels():
 def test_hypercube_without_generators_raises():
     """The generator-less hypercube folds cell by cell in the fast fold and
     packs its cells alone (tests/test_torch_spec_fold.py holds both against
-    the JAX package); the gradient kernels, which read the generators, are
-    not ported over it and refuse it by name, on either device."""
+    the JAX package); the gradient kernels take it (csrc/gradmodes.cu's
+    cells fold: a cell's hit differentiated through its literal test), so
+    the kernel route on the CPU is the plain version, bitwise, with the
+    gradient on the cells; K8 refuses it by its ROADMAP item, and the
+    sequential stream stays refused."""
     from fourd_ray_tracing_tpu_torch import diff
-    from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel
+    from fourd_ray_tracing_tpu_torch.ops.cuda import ablate, gradkernel
 
     scene = tlib.hypercube(CPU)
     bare = scene._replace(hypercube=tgeo.HypercubeSpec(scene.hypercube.cubes))
@@ -379,10 +382,16 @@ def test_hypercube_without_generators_raises():
     assert lay.hypercube_cells == 1 and lay.size == params.layout(scene, tc).size - 21
     cfg = trenderer.RenderConfig(width=8, height=4, rng_mode="per_sample")
     vec = params.pack(bare, tc)
+    gradkernel.check_shape(lay, cfg)
+    target = torch.zeros((4, 8, 3))
+    loss = diff.image_loss_kernel(vec, bare, tc, cfg, 1, target)
+    ref_loss, ref_grad = gradkernel.loss_and_grad_plain(vec, bare, tc, cfg, 1, target)
+    assert torch.equal(loss, ref_loss)
+    assert ref_grad[lay.hypercube:lay.hypercube + 8 * 26].abs().max() > 0
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
-        diff.image_loss_kernel(vec, bare, tc, cfg, 1, torch.zeros((4, 8, 3)))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
-        gradkernel.check_shape(lay, cfg)
+        ablate.check_config(cfg, lay)
+    with pytest.raises(ValueError, match="per-sample"):
+        gradkernel.check_shape(lay, trenderer.RenderConfig(width=8, height=4))
 
 
 @pytest.mark.parametrize("views", [("yxz",), tcam.VIEWS_ALL], ids=["1view", "3view"])

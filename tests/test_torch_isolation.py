@@ -61,7 +61,10 @@ def run(code, tmp_path, env_extra=None):
 def test_port_never_imports_jax(tmp_path):
     """With jax, the JAX package and the oracle (the tests' alone) blocked,
     every module of the port, its tools and chip_smoke.py import, every
-    configuration of the forward renders on the CPU, and the app renders."""
+    configuration of the forward renders on the CPU, the gradient kernels'
+    routes take K1's other configurations there (the kernel route's loss
+    in trig with newton and in kepler, its gradient finite, and K6's soft
+    loss in trig), and the app renders."""
     (tmp_path / "properties.txt").write_text(TINY_CONFIG)
     code = textwrap.dedent(f"""
         import importlib, importlib.util, sys
@@ -92,6 +95,22 @@ def test_port_never_imports_jax(tmp_path):
                                         **modes)
             assert torch.isfinite(renderer.render_light(library.tiger("cpu"), camera, cfg,
                                                         1)).all()
+        from fourd_ray_tracing_tpu_torch import diff
+        from fourd_ray_tracing_tpu_torch.models import params
+        tiger = library.tiger("cpu")
+        for modes in (dict(sampler_method="newton", intersect="trig"),
+                      dict(sampler_method="kepler")):
+            cfg = renderer.RenderConfig(width=8, height=4, samples=2, reflections_amount=2,
+                                        rng_mode="per_sample", **modes)
+            vec = params.pack(tiger, camera).requires_grad_(True)
+            loss = diff.image_loss_kernel(vec, tiger, camera, cfg, 1, torch.zeros(4, 8, 3))
+            loss.backward()
+            assert torch.isfinite(loss) and torch.isfinite(vec.grad).all()
+        trig = renderer.RenderConfig(width=8, height=4, samples=2, reflections_amount=2,
+                                     rng_mode="per_sample", intersect="trig")
+        soft = diff.soft_image_loss_kernel(params.pack(tiger, camera), tiger, camera, trig, 1,
+                                           torch.zeros(4, 8, 3), object_ref=("tiger", None))
+        assert torch.isfinite(soft)
         from fourd_ray_tracing_tpu_torch import app
         assert app.main(["--config", "properties.txt", "--frames", "2", "--out", "out",
                          "--device", "cpu", "--deterministic"]) == 0
@@ -159,6 +178,25 @@ def test_build_key_follows_sources_and_flags(monkeypatch):
     key = build.build_key()
     assert build.library_path().parent.name == key
     assert any(p.name == "megakernel.cu" for p in build.sources())
+    assert {"gradmodes.cu", "softmodes.cu"} <= {p.name for p in build.sources()}
+    assert {"fourd_loss_grad_modes", "fourd_light_vjp_modes",
+            "fourd_soft_loss_grad_modes"} <= set(build.SIGNATURES)
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
     assert build.build_key() != key
     assert "-fmad=false" in build.NVCC_FLAGS and "--use_fast_math" not in build.NVCC_FLAGS
+
+
+def test_kernels_keep_no_state_between_launches():
+    """No kernel source holds device state that outlives a launch: no
+    namespace-scope __device__ variable, no __constant__ table the host
+    writes. A launch's configuration (the modes launches' sampler included,
+    trace.cuh sampler_slot) travels in its arguments, so launches in
+    several streams at once never read each other's."""
+    import re
+
+    for src in sorted((PACKAGE / "csrc").iterdir()):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        assert not re.search(r"^\s*(?:static\s+)?__device__\s+[^(;{]*;", text, re.M), src.name
+        assert "cudaMemcpyToSymbol" not in text, src.name
+        for decl in re.findall(r"__constant__[^;]*;", text, re.S):
+            assert "=" in decl, (src.name, decl)

@@ -137,17 +137,31 @@ def test_direction_from_uniforms_poly(rng_np):
 @pytest.mark.parametrize("method", ["kepler", "newton"])
 def test_unported_sampler_methods_raise(method):
     """The kepler and newton samplers render (tests/test_torch_sampler.py
-    holds them against the JAX package); the gradient kernels are not
-    ported over them and refuse them by name."""
+    holds them against the JAX package), and the gradient kernels take them
+    with per-sample streams (csrc/gradmodes.cu); the sequential stream they
+    still refuse, with a ValueError as the JAX package does, and K8 names
+    its ROADMAP item for them."""
+    from fourd_ray_tracing_tpu_torch import camera as tcam
+    from fourd_ray_tracing_tpu_torch.models import library, params
     from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
-    from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel
+    from fourd_ray_tracing_tpu_torch.ops.cuda import ablate, gradkernel
+    from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
 
     u = torch.full((4,), 0.25)
     d = tsampler.direction_from_uniforms(u, u, u, method=method)
     norm = torch.sqrt(sum(c * c for c in d))
     assert torch.allclose(norm, torch.ones(4), atol=1e-5)
+    cfg = RenderConfig(rng_mode="per_sample", sampler_method=method)
+    gradkernel.check_kernel_config(cfg)
+    with pytest.raises(ValueError, match="per-sample"):
+        gradkernel.check_kernel_config(RenderConfig(rng_mode="sequential", sampler_method=method))
+    cpu = torch.device("cpu")
+    orient = tcam.orientation_from_angles(*tcam.CameraAngles.of(0.0, 0.0, 0.0, device=cpu), cpu)
+    camera = tcam.make_camera(Vec4.of(0.0, -2.0, 0.0, 0.0, device=cpu), orient, 1.5, 2.0,
+                              ("yxz",), cpu)
+    lay = params.layout(library.room_with_sphere(cpu), camera)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
-        gradkernel.check_kernel_config(RenderConfig(rng_mode="per_sample", sampler_method=method))
+        ablate.check_config(cfg, lay)
     with pytest.raises(ValueError):
         tsampler.direction_from_uniforms(u, u, u, method="bisection")
 

@@ -125,11 +125,12 @@ def test_launch_forward_refuses_cpu_tensors():
 ])
 def test_unported_configs_raise(change):
     """The forward renders every configuration, on the CPU through the
-    plain pipeline (the kernel wrapper's CPU route); the gradient kernels
-    refuse the sequential stream (ValueError, as in the JAX package) and
-    the kepler sampler and the spec fold, still to be ported for them,
-    naming their ROADMAP item, on either device. axis_hints, which the
-    forward takes, are refused by the gradient paths outside the
+    plain pipeline (the kernel wrapper's CPU route). The gradient kernels
+    refuse the sequential stream alone (ValueError, as in the JAX package,
+    on either device) and take the kepler sampler and the spec fold
+    (csrc/gradmodes.cu): on the CPU the kernel route is the plain version,
+    bitwise, and K8 still refuses them by their ROADMAP item. axis_hints,
+    which the forward takes, are refused by the gradient paths outside the
     freeze_hints contract; under it every gradient path, the soft ones
     included, takes a composite scene: the tiger's soft loss under its
     frozen hints is finite."""
@@ -149,16 +150,26 @@ def test_unported_configs_raise(change):
         assert small.axis_hints is not None and torch.isfinite(loss)
         return
     from fourd_ray_tracing_tpu_torch import diff
+    from fourd_ray_tracing_tpu_torch.ops.cuda import ablate, gradkernel
 
     scene = tlib.sphere_plane_light(CPU)
     small = dataclasses.replace(cfg, width=8, height=4)
     ref = trenderer.render_light(scene, tc, small, 1)
     assert ref.shape == (4, 8, 3) and bool(torch.isfinite(ref).all())
     assert torch.equal(tkernel.render_light_cuda(scene, tc, small, 1), ref)
-    error = ValueError if "rng_mode" in change else NotImplementedError
-    with pytest.raises(error, match="per-sample" if "rng_mode" in change else "item 15"):
-        diff.image_loss_kernel(params.pack(scene, tc), scene, tc, small, 1,
-                               torch.zeros((4, 8, 3)))
+    vec, target = params.pack(scene, tc), torch.zeros((4, 8, 3))
+    if "rng_mode" in change:
+        with pytest.raises(ValueError, match="per-sample"):
+            diff.image_loss_kernel(vec, scene, tc, small, 1, target)
+        with pytest.raises(ValueError, match="per-sample"):
+            gradkernel.check_kernel_config(small)
+        return
+    gradkernel.check_kernel_config(small)
+    loss = diff.image_loss_kernel(vec.clone().requires_grad_(True), scene, tc, small, 1, target)
+    ref_loss, _ = gradkernel.loss_and_grad_plain(vec, scene, tc, small, 1, target)
+    assert torch.equal(loss.detach(), ref_loss)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
+        ablate.check_config(small, params.layout(scene, tc))
 
 
 # --- The sequential stream (rng_mode="sequential", RenderConfig()'s) ----------
