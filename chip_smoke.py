@@ -99,8 +99,8 @@ on any failure, or when no CUDA device is available. Phases:
    their plain versions (K4 and K6 in row bands, K5 whole; GRAD_BOUNDS,
    the non-zero patterns, bitwise across launches) and timed beside them:
    K4 on the room in each configuration and on the tiger in newton +
-   trig, K6 on the room's sphere 0 in trig and K5 in trig, with the room's
-   bounds (the summary's
+   trig, K6 on the room's sphere 0 in trig and K5 in trig, with their
+   bounds (the tiger's over its live lanes) (the summary's
    ``configurations`` of K4, K5 and K6, and the modes instances'
    resources from phase 2);
 9. the training main path in the production configuration:
@@ -220,7 +220,16 @@ on any failure, or when no CUDA device is available. Phases:
 17. the value-and-grad pass-budget kernel K8 against its plain version
    (acc, loss, vjp) and loss and vjp against K4's loss, at 256x144x4spp x4
    bounces, the gradient scenes and ``COMPOSITE_GRAD``, 1 and 3 views, and
-   each mode under the frozen hints bitwise the unhinted launch; K1's stub variants with the
+   each mode under the frozen hints bitwise the unhinted launch; K8 over
+   K1's other configurations (csrc/ablatemodes.cu) from zeroed counts: each
+   GRAD_MODES configuration on the five library scenes and a hypercube
+   without generators (there also the production modes), and the
+   sequential stream (production and the oracle's sampler and fold) on the
+   room, at 256x144x4spp x4, each mode against its plain version, bitwise
+   across launches and under the frozen hints bitwise the unhinted launch,
+   acc against the float64 sum of K1's light in the same configuration, a
+   sequential configuration bitwise its per-sample launch, every
+   configuration counted (ablate.CONFIG_LAUNCHES); K1's stub variants with the
    hints (tools/fwd_ablate.py's own functions, 8 frames a launch) against
    the plain pipeline under the same patches at 256x144 (all five scenes)
    and at
@@ -232,7 +241,13 @@ on any failure, or when no CUDA device is available. Phases:
    training tools run the frozen hints, as the JAX tools do: every
    gradient launch hinted); then the K8 values grad_ablate printed against
    the plain version on the same inputs, and its loss x scale against
-   K4's, and each K8 mode timed unhinted beside the tool's hinted times.
+   K4's, and each K8 mode timed unhinted beside the tool's hinted times;
+   then, from zeroed counts, through grad_ablate.build at 1280x720x8spp x4
+   under the frozen hints on the room, K8's three modes and K4 in the
+   production configuration and each GRAD_MODES one, timed as the tool
+   times, each mode against its plain version (timed once) with its bound,
+   K4 with its bound, and K4 - vjp, the sweep's share; the launches
+   counted by configuration.
 
 Every kernel's entry in the summary carries its bound: the larger of its
 plain version's flops (utils/flops.py, counted on the card over
@@ -266,8 +281,8 @@ composite cell's engine; phase 7c: the engine in each of its two
 configurations; phase 8c: the steps by configuration; phases 9-10:
 training; phase 13: soft training; phase 13b: soft training on the
 composites; phase 15: the ranks, fresh processes,
-count their own; phase 16: the peak sweep; phase 17: each tool) and read
-after it.
+count their own; phase 16: the peak sweep; phase 17: K8's configurations
+checked, each tool, K8 and K4 timed by configuration) and read after it.
 
 The line before the last is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.
@@ -445,6 +460,16 @@ PEAK_CHECK_ROUNDS, PEAK_RTOL, PEAK_RESOLVE = 64, 1e-5, 10
 # width with their rounds cut (rounds, calls per round) to keep the
 # script's time.
 ACC_RTOL = 1e-6
+# K8 over K1's other configurations (csrc/ablatemodes.cu): checked at
+# GRAD_CHECK in each GRAD_MODES configuration on GRAD_MODE_SCENES and, on
+# the room, in the sequential stream's configurations below (launched as
+# their per-sample ones); acc equal to the float64 sum of K1's light in the
+# same configuration rounded to float32 (the same float32 pixel values,
+# summed in double in another order; K8 returns its double sum as a
+# float32); timed at TRAIN as grad_ablate times (ABLATE_ROUNDS rounds of
+# ABLATE_CALLS calls after a warm-up).
+ABLATE_SEQUENTIAL = (dict(rng_mode="sequential"), dict(rng_mode="sequential", **GRAD_ORACLE))
+ABLATE_CALLS, ABLATE_ROUNDS = 4, 3
 # K1's stub variants against the plain pipeline: all five scenes at this
 # shape, and the room at fwd_ablate's own (TRAIN: 1280x720x8spp x4).
 VARIANT_CHECK = dict(width=256, height=144, samples=4, reflections_amount=4, rng_mode="per_sample")
@@ -1622,7 +1647,8 @@ def run_app() -> None:
 
 def reset_counts() -> None:
     for configs in (megakernel.CONFIG_LAUNCHES, gradkernel.CONFIG_LAUNCHES,
-                    gradkernel.CONFIG_VJP_LAUNCHES, gradkernel.CONFIG_SOFT_LAUNCHES):
+                    gradkernel.CONFIG_VJP_LAUNCHES, gradkernel.CONFIG_SOFT_LAUNCHES,
+                    ablate.CONFIG_LAUNCHES):
         configs.clear()
     megakernel.LAUNCHES = megakernel.ROW_LAUNCHES = megakernel.SHARD_LAUNCHES = 0
     megakernel.HINTED_LAUNCHES = 0
@@ -2420,9 +2446,9 @@ def grad_modes_main(device, card: str) -> dict:
     whole) within GRAD_BOUNDS and timed beside it (CUDA-event medians of
     MODE_CALLS x MODE_REPEATS, the plain version once) with its bound: K4 on
     the room in each GRAD_MODES configuration (with_frozen_hints: the fast
-    fold's hints frozen) and on the tiger in GRAD_ORACLE, K6 on the room's
-    sphere 0 in trig and K5 one row in trig. Returns the counts, the times
-    and the worst errors by kernel."""
+    fold's hints frozen) and on the tiger in GRAD_ORACLE (k4_bound: its live
+    lanes), K6 on the room's sphere 0 in trig (k6_bound) and K5 one row in
+    trig. Returns the counts, the times and the worst errors by kernel."""
     reset_counts()
     steps = {"room": train_main_path(device, 1, modes=GRAD_ORACLE),
              "tiger": train_main_path(device, 1, name="tiger", modes=GRAD_ORACLE)}
@@ -2479,7 +2505,9 @@ def grad_modes_main(device, card: str) -> dict:
                 timed[key] = {**cell, **mode_bound("k4", scene, camera, cfg, packed, lay)}
                 print(f"8c K4 room {key} 1280x720: bound_ms={timed[key]['bound_ms']}", flush=True)
             else:
-                tiger = cell
+                tiger = {**cell, **k4_bound(scene, camera, cfg, packed, lay)}
+                print(f"8c K4 tiger {key} 1280x720: bound_ms={tiger['bound_ms']} (live share "
+                      f"{tiger['live_share']})", flush=True)
     scene = library.room_with_sphere(device)
     packed, lay = params.pack(scene, camera), params.layout(scene, camera)
     cfg = RenderConfig(**TRAIN, **GRAD_TRIG)
@@ -2491,6 +2519,8 @@ def grad_modes_main(device, card: str) -> dict:
         lambda: gradkernel.render_soft_loss_and_grad_plain(
             packed, scene, camera, cfg, 1, target, alpha, zero_map, band_rows=BAND_ROWS),
         lambda label, k, p: compare_soft(label, k, p))
+    k6.update(k6_bound(scene, camera, cfg, ref, packed, lay))
+    print(f"8c K6 room trig 1280x720: bound_ms={k6['bound_ms']}", flush=True)
     cot = torch.from_numpy(np.random.default_rng(6).normal(
         0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)).to(device)
     k5 = timed_against_plain(
@@ -2932,6 +2962,141 @@ def check_ablate_kernel(device) -> dict:
     return errs
 
 
+def check_ablate_modes(device) -> dict:
+    """Phase 17: K8 over K1's other configurations at GRAD_CHECK, one view,
+    on every GRAD_MODE_SCENES scene in each GRAD_MODES configuration (the
+    cells-only hypercube in the production one too) and ABLATE_SEQUENTIAL on
+    the room, from zeroed counts. Each mode against its plain version (acc
+    within ACC_RTOL, loss and vjp within the loss bound), bitwise across two
+    launches and, under diff.with_frozen_hints, bitwise the unhinted launch
+    (the fast fold's hints; the literal folds have none); acc the float64
+    sum of K1's light (times the samples: exact at 4) in the same
+    configuration and seed rounded to float32, which only that
+    configuration's instances give; vjp bitwise loss; a sequential
+    configuration's values bitwise its per-sample launch's (the JAX kernel
+    draws per-sample streams). ablate.CONFIG_LAUNCHES must show every
+    configuration key. Returns the worst errors by mode, the launches by
+    configuration and the checks made."""
+    reset_counts()
+    seed = 0x2468ACE1
+    camera = camera_for(("yxz",), device)
+    errs = {m: [0.0, 0.0] for m in ablate.MODES}
+    k1_rel, checked = 0.0, {}
+    cases = [(name, mode) for name in GRAD_MODE_SCENES
+             for mode in list(GRAD_MODES.values()) + ([{}] if name == "hypercube_cells" else [])]
+    cases += [("room_with_sphere", mode) for mode in ABLATE_SEQUENTIAL]
+    for name, mode in cases:
+        scene = modes_scene(name, device)
+        packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+        cfg = RenderConfig(**dict(GRAD_CHECK, **mode))
+        key = megakernel.launch_config(cfg, lay)
+        label = f"K8 modes {name} {key}"
+        target = torch.from_numpy(np.random.default_rng(6).uniform(
+            0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)).to(device)
+        hcfg = diff.with_frozen_hints(cfg, scene)
+        values = {}
+        for m in ablate.MODES:
+            k = ablate.launch_variant(m, packed, lay, cfg, seed, target)
+            assert torch.equal(k, ablate.launch_variant(m, packed, lay, cfg, seed, target)), \
+                f"{label} {m}: launches differ"
+            h = ablate.launch_variant(m, packed, lay, hcfg, seed, target)
+            if megakernel.hinted(hcfg):
+                check_contract(f"{label} {m}", h.reshape(1), k.reshape(1),
+                               torch.zeros(0, dtype=torch.bool, device=device))
+            else:
+                assert torch.equal(h, k), f"{label} {m}: with_frozen_hints changed the value"
+            values[m] = float(k)
+            if m == "vjp":
+                assert values["vjp"] == values["loss"], f"{label}: vjp changed the loss"
+                continue
+            p = float(ablate.variant_plain(m, scene, camera, cfg, seed, target))
+            rel = abs(values[m] - p) / abs(p)
+            print(f"{label} {m}: kernel={values[m]} plain={p} rel={rel:.3g}", flush=True)
+            assert rel <= (ACC_RTOL if m == "acc" else GRAD_BOUNDS["loss_rtol"]), (label, m)
+            for mm in ((m, "vjp") if m == "loss" else (m,)):
+                errs[mm] = [max(errs[mm][0], abs(values[m] - p)), max(errs[mm][1], rel)]
+        per_sample = ablate.per_sample(cfg)
+        light = megakernel.launch_forward(packed, lay, per_sample,
+                                          megakernel.seed_tensor([seed], device))[0]
+        light = light * torch.tensor(float(cfg.samples), device=device)
+        k1 = float((light[..., 0] + light[..., 1] + light[..., 2]).double().sum())
+        rel = abs(values["acc"] - k1) / abs(k1)
+        k1_rel = max(k1_rel, rel)
+        print(f"{label} acc={values['acc']} K1's light sum={k1} rel={rel:.3g}", flush=True)
+        assert values["acc"] == float(np.float32(k1)), (label, values["acc"], k1)
+        if cfg.rng_mode == "sequential":
+            for m in ablate.MODES:
+                assert values[m] == float(ablate.launch_variant(m, packed, lay, per_sample, seed,
+                                                                target)), (label, m)
+            print(f"{label}: every mode bitwise the per-sample launch's", flush=True)
+        checked[key] = checked.get(key, 0) + 1
+    launches = dict(ablate.CONFIG_LAUNCHES)
+    keys = {megakernel.launch_config(ablate.per_sample(RenderConfig(**dict(GRAD_CHECK, **mode))),
+                                     params.layout(modes_scene(name, device), camera))
+            for name, mode in cases}
+    print(json.dumps({"phase": "17 K8 modes", "launches_by_config": launches}), flush=True)
+    assert set(launches) == keys and not any(k.startswith("sequential") for k in launches), \
+        (launches, keys)
+    return {"errs": errs, "k1_max_rel": k1_rel, "launches": launches, "checked": checked,
+            "launches_total": ablate.LAUNCHES}
+
+
+def time_ablate_modes(device, card: str) -> dict:
+    """Phase 17 at TRAIN (1 frame, one view, the room, with_frozen_hints):
+    through grad_ablate.build, the tool's entry point, from zeroed counts,
+    K8's acc, loss and vjp and K4 in the production configuration and in
+    each GRAD_MODES one (seeds as the tool's: one warm-up, then
+    ABLATE_ROUNDS rounds of ABLATE_CALLS calls, the median round), each K8
+    mode held once against its plain version (timed once, whole image) and
+    its bound (kernel_bounds' count over the plain version's flops); K4's
+    bound (mode_bound). K4 - vjp is the sweep and the parameter reduction,
+    its share of K4 the sweep's. Returns, by configuration, the times,
+    bounds and launches."""
+    scene, camera, _, target = grad_ablate.workload(device)
+    packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+    pixels, p = TRAIN["height"] * TRAIN["width"], lay.size
+    rows, scale = (0, BOUND_ROWS), TRAIN["height"] / BOUND_ROWS
+    block = torch.zeros((BOUND_ROWS, TRAIN["width"], 3), device=device)
+    configs = {"per_sample/poly/fast": {}, **GRAD_MODES}
+    reset_counts()
+    out = {}
+    for key, mode in configs.items():
+        cfg = diff.with_frozen_hints(RenderConfig(**TRAIN, **mode), scene)
+        cell = {}
+        for variant in grad_ablate.TIMED:
+            fn = grad_ablate.build(scene, camera, cfg, target, variant)
+            value, times = tool_common.time_seeded(fn, device, ABLATE_CALLS, ABLATE_ROUNDS)
+            cell[variant] = {"ms": statistics.median(times), "ms_rounds": times,
+                             "value": float(value)}
+        for m in ablate.MODES:
+            got = []
+            plain_ms = cuda_ms(lambda m=m: got.append(ablate.variant_plain(
+                m, scene, camera, cfg, 1, target)), calls=1, repeats=1)[0]
+            k, pv = cell[m]["value"], float(got[0])
+            rel = abs(k - pv) / max(abs(pv), 1e-30)
+            assert rel <= (ACC_RTOL if m == "acc" else GRAD_BOUNDS["loss_rtol"]), (key, m, k, pv)
+            flops = count_flops(ablate.variant_plain, m, scene, camera, cfg, 1, block, rows)[1]
+            cell[m].update(plain_ms=plain_ms, rel_err=rel,
+                           **bound(flops * scale, 4 * (p + 1 + (0 if m == "acc" else pixels * 3))))
+        cell["k4"].update(mode_bound("k4", scene, camera, cfg, packed, lay))
+        sweep = cell["k4"]["ms"] - cell["vjp"]["ms"]
+        cell["split_ms"] = {"pass1": cell["acc"]["ms"],
+                            "tone_map_loss": cell["loss"]["ms"] - cell["acc"]["ms"],
+                            "cotangent": cell["vjp"]["ms"] - cell["loss"]["ms"],
+                            "sweep_reduction": sweep}
+        cell["sweep_share_of_k4"] = sweep / cell["k4"]["ms"]
+        out[key] = cell
+        print(json.dumps({"phase": "17 K8 by configuration", "card": card, "config": key,
+                          "shape": "room_with_sphere 1280x720 8spp 4 bounces, 1 frame, zero "
+                                   "target, with_frozen_hints", **cell}), flush=True)
+    launches = {"k8": dict(ablate.CONFIG_LAUNCHES), "k4": dict(gradkernel.CONFIG_LAUNCHES),
+                "counts": measure_counts()}
+    n = 1 + ABLATE_CALLS * ABLATE_ROUNDS
+    expect = {"k8": {k: 3 * n for k in configs}, "k4": {k: n for k in configs}}
+    assert {k: launches[k] for k in expect} == expect, (launches, expect)
+    return {"timed": out, "launches": launches}
+
+
 def check_forward_variants(device, cfg: RenderConfig, scenes) -> float:
     """Phase 17: K1 with each stub variant compiled in, with the static
     hints fwd_ablate derives, against the plain pipeline under the same
@@ -3111,6 +3276,22 @@ def modes_resources(log: str) -> dict:
     return out
 
 
+def ablate_modes_resources(log: str) -> dict:
+    """Registers, stack frame and spill stores of K8's modes instances
+    (ablate_kernel of each mode over Modes of each MODE_FOLDS fold), by mode
+    and fold; prints them."""
+    res = build.kernel_resources(log)
+    out = {}
+    for code, mode in enumerate(ablate.MODES):
+        for fold, pattern in MODE_FOLDS.items():
+            hits = [r for n, r in res.items()
+                    if f"13ablate_kernelILi{code}EN" in n and "5ModesI" in n and pattern in n]
+            assert len(hits) == 1, (mode, fold, hits)
+            out.setdefault(mode, {})[fold] = hits[0]
+    print(json.dumps({"k8_modes_instances": out}), flush=True)
+    return out
+
+
 def grad_patterns() -> dict:
     """A part of the mangled name of each gradient launch kernel's
     instance: per kernel of GRAD_KERNELS and fold of GRAD_FOLDS, a sweep's
@@ -3266,6 +3447,7 @@ def main() -> int:
     k1_res = k1_resources(device, lib_path)
     comp_res = composite_resources(lib_path, device)
     mode_res = modes_resources(build.build_log())
+    ablate_res = ablate_modes_resources(build.build_log())
 
     phase("3 kernel vs plain on the card")
     max_err = check_kernel_against_plain(device)
@@ -3543,6 +3725,9 @@ def main() -> int:
     ablate_errs = check_ablate_kernel(device)
     for mode, (err, rel) in check_composite_k8(device).items():
         ablate_errs[mode] = [max(ablate_errs[mode][0], err), max(ablate_errs[mode][1], rel)]
+    ablate_modes = check_ablate_modes(device)
+    for mode, (err, rel) in ablate_modes["errs"].items():
+        ablate_errs[mode] = [max(ablate_errs[mode][0], err), max(ablate_errs[mode][1], rel)]
     variant_err = max(check_forward_variants(device, RenderConfig(**VARIANT_CHECK),
                                              sorted(library.SCENES)),
                       check_forward_variants(device, RenderConfig(**TRAIN),
@@ -3558,6 +3743,7 @@ def main() -> int:
     for mode, (err, rel) in k8_tool["errs"].items():
         ablate_errs[mode] = [max(ablate_errs[mode][0], err), max(ablate_errs[mode][1], rel)]
     k8_plain_ms = k8_tool["plain_ms"]["vjp"]
+    k8_modes = time_ablate_modes(device, card)
     print(json.dumps({"phase": 17, "card": card, "k4_split_ms":
                       tools["results"]["grad_ablate"]["split_ms"], "k8_ms": k8_ms,
                       "k8_unhinted_ms": k8_unhinted_ms,
@@ -3704,7 +3890,7 @@ def main() -> int:
         # oracle's modes.
         "configurations": grad_configurations("k4", {
             "room": {k: with_shares(dict(c)) for k, c in grad_mode_main["k4_room"].items()},
-            "tiger_oracle": grad_mode_main["k4_tiger_oracle"],
+            "tiger_oracle": with_shares(dict(grad_mode_main["k4_tiger_oracle"])),
             "packed_step_ms": grad_mode_main["packed_step_ms"],
             "packed_step_config": grad_mode_main["oracle"]}),
         "build_s": build_s,
@@ -3782,7 +3968,7 @@ def main() -> int:
         "pair_ms": k6["pair_ms"],
         "pair_note": "K2 over both rows + the two-row K5, the launches K6 fused, same shape",
         "configurations": grad_configurations("k6", {
-            "room_trig": grad_mode_main["k6_room_trig"],
+            "room_trig": with_shares(dict(grad_mode_main["k6_room_trig"])),
             "soft_step_trig_ms": grad_mode_main["soft_step_trig_ms"]}),
         **bounds["k6"], **no_library,
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, sphere 0, zero target, edge "
@@ -3814,8 +4000,11 @@ def main() -> int:
         "route": "cuda",
         "source": "fourd_ray_tracing_tpu_torch/csrc/ablate.cu",
         "replaces": "tools/grad_ablate.py:57",
-        "launches": measure["k8"],
-        "launches_by_path": {"measure": measure["k8"]},
+        "launches": (measure["k8"] + ablate_modes["launches_total"]
+                     + k8_modes["launches"]["counts"]["k8"]),
+        "launches_by_path": {"measure": measure["k8"],
+                             "modes_checked": ablate_modes["launches_total"],
+                             "modes_timed": k8_modes["launches"]["counts"]["k8"]},
         "max_abs_err": max(e for e, _ in ablate_errs.values()),
         "max_rel_err_by_mode": {m: r for m, (_, r) in ablate_errs.items()},
         "tolerance": {"acc_rtol": ACC_RTOL, "loss_rtol": GRAD_BOUNDS["loss_rtol"]},
@@ -3831,6 +4020,19 @@ def main() -> int:
         **no_library,
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, zero target, mode vjp, the frozen "
                  "static hints, as grad_ablate runs it (plain version whole)",
+        # K8 over K1's other configurations (csrc/ablatemodes.cu): the
+        # launches by configuration of the checks at GRAD_CHECK and of the
+        # timed path through grad_ablate.build at TRAIN, acc against K1's
+        # light, the instances' resources, and each configuration's times,
+        # bounds and K4 - vjp split at TRAIN.
+        "configurations": {
+            "source": "fourd_ray_tracing_tpu_torch/csrc/ablatemodes.cu",
+            "checked": ablate_modes["checked"],
+            "checked_launches_by_config": ablate_modes["launches"],
+            "acc_vs_k1_light_max_rel": ablate_modes["k1_max_rel"],
+            "timed_launches_by_config": k8_modes["launches"]["k8"],
+            "instances": ablate_res,
+            "timed": k8_modes["timed"]},
         "build_s": build_s,
     }]}
     for entry in summary["kernels"]:

@@ -36,62 +36,7 @@
 // scene with composite primitives takes K4's composite folds, hinted or
 // not (CompFold, or a library scene's instance under its hints).
 
-#include "reduce.cuh"
-
-namespace {
-
-constexpr int kModeAcc = 0;
-constexpr int kModeLoss = 1;
-constexpr int kModeVjp = 2;
-
-template <int kMode, class Fold>
-__global__ void __launch_bounds__(kGradBlock)
-ablate_kernel(const float* __restrict__ params, uint32_t seed, Layout L, int width, int height,
-              int samples, int reflections, float small_indent, float light_coefficient,
-              const float* __restrict__ target, double* __restrict__ loss_parts, int n_cols,
-              Hints H) {
-  extern __shared__ float P[];
-  for (int i = threadIdx.x; i < L.size; i += blockDim.x) P[i] = params[i];
-  __syncthreads();
-  build_table_for<Fold>(P, L, H);
-
-  const long long total = static_cast<long long>(L.n_views) * height * width;
-  const long long lin = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float value = 0.0f;
-  if (lin < total) {  // no early return: every lane joins the reduction
-    const int hw = height * width;
-    const int view = static_cast<int>(lin / hw);
-    const int rem = static_cast<int>(lin - static_cast<long long>(view) * hw);
-    const int py = rem / width;
-    const int px = rem - py * width;
-    const Pixel p = setup_pixel<Fold>(P, L, view, px, py, width, height, small_indent);
-    const V3 acc = pixel_light_sum<Fold>(P, L, p, samples, reflections, small_indent, seed);
-    if constexpr (kMode == kModeAcc) {
-      value = acc.x + acc.y + acc.z;
-    } else {
-      // K4's pass 1 (gradkernel.cu loss_cot_kernel): adjoint.cuh loss_cot.
-      const LossCot lc = loss_cot(acc, target + lin * 3, light_coefficient, samples);
-      value = lc.loss;
-      if constexpr (kMode == kModeVjp) {
-        value = value + 0.0f * (lc.g_mean.x + lc.g_mean.y + lc.g_mean.z);
-      }
-    }
-  }
-  reduce_block(nullptr, 0, value, nullptr, loss_parts, n_cols, blockIdx.x);
-}
-
-template <int kMode, class Fold>
-void launch_fold(const float* params, uint32_t seed, const Layout& L, const Hints& H, int width,
-                 int height, int samples, int reflections, float small_indent,
-                 float light_coefficient, const float* target, double* loss_parts, int n_cols,
-                 cudaStream_t s) {
-  const size_t smem = params_table_bytes(L.size, table_recs_for<Fold>(L, H));
-  ablate_kernel<kMode, Fold><<<n_cols, kGradBlock, smem, s>>>(
-      params, seed, L, width, height, samples, reflections, small_indent, light_coefficient,
-      target, loss_parts, n_cols, H);
-}
-
-}  // namespace
+#include "ablate.cuh"
 
 // K8 on ``stream``: value_out () float32, the unscaled sum over the image's
 // pixels of the variant's per-pixel value (mode 0 acc, 1 loss, 2 vjp), from
@@ -111,41 +56,18 @@ extern "C" int fourd_ablate_launch(int mode, const float* params, uint32_t seed,
                                    const float* target, double* loss_parts, float* value_out,
                                    const int* hints, void* stream) {
   const Layout L = layout_from(layout);
-  const long long blocks = pixel_blocks(L, width, height);
-  const int n_cols = static_cast<int>(blocks);
-  if (blocks <= 0 || blocks > 0x7FFFFFFFLL || samples <= 0 || reflections < 0 || L.size <= 0 ||
-      L.size > kMaxParams) {
+  const int n_cols = k8_cols(L, width, height);
+  if (n_cols < 0 || samples <= 0 || reflections < 0 || L.size <= 0 || L.size > kMaxParams ||
+      mode < kModeAcc || mode > kModeVjp) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Hints H;
   const FoldKind kind = fold_kind(L, hints, reflections, H);
-  if (mode < kModeAcc || mode > kModeVjp) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto run = [&](auto fold) {
-    using Fold = decltype(fold);
-    switch (mode) {
-      case kModeAcc:
-        launch_fold<kModeAcc, Fold>(params, seed, L, H, width, height, samples, reflections,
-                                    small_indent, light_coefficient, target, loss_parts, n_cols,
-                                    s);
-        break;
-      case kModeLoss:
-        launch_fold<kModeLoss, Fold>(params, seed, L, H, width, height, samples, reflections,
-                                     small_indent, light_coefficient, target, loss_parts, n_cols,
-                                     s);
-        break;
-      default:
-        launch_fold<kModeVjp, Fold>(params, seed, L, H, width, height, samples, reflections,
-                                    small_indent, light_coefficient, target, loss_parts, n_cols,
-                                    s);
-    }
-    return 0;
+    return k8_launch<decltype(fold)>(mode, params, seed, L, H, width, height, samples,
+                                     reflections, small_indent, light_coefficient, target,
+                                     loss_parts, value_out, n_cols,
+                                     static_cast<cudaStream_t>(stream));
   };
-  const int rc = composite_fold(kind) ? with_composite_fold(kind, run) : with_fold(kind, run);
-  if (rc != 0) return rc;
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sum_parts_kernel<<<1, kSumThreads, 0, s>>>(nullptr, loss_parts, 0, n_cols, 1.0f, nullptr,
-                                             value_out, nullptr, 1);
-  return static_cast<int>(cudaGetLastError());
+  return composite_fold(kind) ? with_composite_fold(kind, run) : with_fold(kind, run);
 }

@@ -231,7 +231,7 @@ SIGNATURES = {
         ctypes.c_void_p,                  # block_sums (blocks,) float32, device
         ctypes.c_void_p,                  # cudaStream_t
     ], ctypes.c_int),
-    "fourd_ablate_launch": ([
+    "fourd_ablate_launch": (_ABLATE_ARGS := [
         ctypes.c_int,                     # mode: 0 acc, 1 loss, 2 vjp
         ctypes.c_void_p,                  # params (P,) float32, device
         ctypes.c_uint32,                  # seed
@@ -308,13 +308,14 @@ SIGNATURES = {
         ctypes.c_void_p,                  # keep: the frozen-slot mask (P,) float32, device, or null
         ctypes.c_void_p,                  # cudaStream_t
     ], ctypes.c_int),
-    # K4, K5 (csrc/gradmodes.cu) and K6 (softmodes.cu) over K1's other
-    # configurations: fold
-    # (0 fast, 1 spec, 2 trig), sampler (0 poly, 1 kepler, 2 newton),
-    # kepler's sampler_iters, then the launch's arguments (hints never null)
+    # K4, K5 (csrc/gradmodes.cu), K6 (softmodes.cu) and K8 (ablatemodes.cu)
+    # over K1's other configurations: fold (0 fast, 1 spec, 2 trig), sampler
+    # (0 poly, 1 kepler, 2 newton), kepler's sampler_iters, then the
+    # launch's arguments (hints never null)
     "fourd_loss_grad_modes": ([ctypes.c_int] * 3 + _LOSS_GRAD_ARGS, ctypes.c_int),
     "fourd_light_vjp_modes": ([ctypes.c_int] * 3 + _LIGHT_VJP_ARGS, ctypes.c_int),
     "fourd_soft_loss_grad_modes": ([ctypes.c_int] * 3 + _SOFT_ARGS, ctypes.c_int),
+    "fourd_ablate_modes": ([ctypes.c_int] * 3 + _ABLATE_ARGS, ctypes.c_int),
 }
 
 

@@ -368,8 +368,8 @@ def test_hypercube_without_generators_raises():
     the JAX package); the gradient kernels take it (csrc/gradmodes.cu's
     cells fold: a cell's hit differentiated through its literal test), so
     the kernel route on the CPU is the plain version, bitwise, with the
-    gradient on the cells; K8 refuses it by its ROADMAP item, and the
-    sequential stream stays refused."""
+    gradient on the cells; K8 takes it (csrc/ablatemodes.cu's cells fold,
+    the modes launches' codes), and the sequential stream stays refused."""
     from fourd_ray_tracing_tpu_torch import diff
     from fourd_ray_tracing_tpu_torch.ops.cuda import ablate, gradkernel
 
@@ -388,8 +388,9 @@ def test_hypercube_without_generators_raises():
     ref_loss, ref_grad = gradkernel.loss_and_grad_plain(vec, bare, tc, cfg, 1, target)
     assert torch.equal(loss, ref_loss)
     assert ref_grad[lay.hypercube:lay.hypercube + 8 * 26].abs().max() > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
-        ablate.check_config(cfg, lay)
+    assert gradkernel._modes(cfg, lay) == (0, 0, cfg.sampler_iters)
+    value = ablate.variant_plain("loss", bare, tc, cfg, 1, target)
+    np.testing.assert_allclose(float(value) / target.numel(), float(ref_loss), rtol=1e-6)
     with pytest.raises(ValueError, match="per-sample"):
         gradkernel.check_shape(lay, trenderer.RenderConfig(width=8, height=4))
 

@@ -1,7 +1,7 @@
 """The forward kernel's launch itself (csrc/megakernel.cu: K1, its row
 stride K2 and its row offset K3, with and without the static hints),
 compiled for the host and run by the CPU stand-in for the card of
-tests/test_torch_grad_launch_emulated.py, against the plain pipeline.
+tests/test_torch_emulated_runtime.py, against the plain pipeline.
 
 g++ builds megakernel.cu and forwardmodes.cu, with -ffp-contract=off,
 behind EMU: a launch runs its blocks one after another, each block as its
@@ -34,7 +34,7 @@ from fourd_ray_tracing_tpu_torch.ops.cuda import build, megakernel
 from helpers import assert_images_close
 from test_torch_adjoint_host import axis_plane_scene, camera_of, ptr
 from test_torch_render import BOUNDS
-from test_torch_grad_launch_emulated import emulated_library
+from test_torch_emulated_runtime import emulated_library
 
 CPU = torch.device("cpu")
 SHAPE = dict(width=48, height=24, samples=3, reflections_amount=4, rng_mode="per_sample")

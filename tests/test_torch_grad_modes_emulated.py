@@ -2,7 +2,7 @@
 softmodes.cu: K4, K5 and K6 with the kepler and newton samplers, the
 literal spec and trig folds, and the fast fold over a hypercube without
 generators), compiled for the host and run by the CPU stand-in for the
-card of tests/test_torch_grad_launch_emulated.py (EMU), against torch
+card of tests/test_torch_emulated_runtime.py (EMU), against torch
 autograd over the plain pipeline.
 
 g++ builds gradmodes.cu and softmodes.cu alone behind EMU (their launches
@@ -36,7 +36,7 @@ from fourd_ray_tracing_tpu_torch.ops.cuda import build, gradkernel, megakernel
 
 from test_torch_adjoint_host import assert_grad_close, camera_of, pattern_floor, ptr
 from test_torch_forward_launch_emulated import bare
-from test_torch_grad_launch_emulated import SOFT_REFS, emulated_library
+from test_torch_emulated_runtime import SOFT_REFS, emulated_library
 
 CPU = torch.device("cpu")
 VIEWS_1 = ("yxz",)

@@ -7,6 +7,7 @@ into fused multiply-adds and torch's eager ops do not, so where an
 expression cancels or an inverse function is ill-conditioned, a one-ulp
 difference of the reference grows; those tests say how far.
 """
+import dataclasses
 import re
 from pathlib import Path
 
@@ -139,8 +140,9 @@ def test_unported_sampler_methods_raise(method):
     """The kepler and newton samplers render (tests/test_torch_sampler.py
     holds them against the JAX package), and the gradient kernels take them
     with per-sample streams (csrc/gradmodes.cu); the sequential stream they
-    still refuse, with a ValueError as the JAX package does, and K8 names
-    its ROADMAP item for them."""
+    still refuse, with a ValueError as the JAX package does. K8 takes them
+    too (csrc/ablatemodes.cu, with the modes launches' codes), and its
+    plain version runs them."""
     from fourd_ray_tracing_tpu_torch import camera as tcam
     from fourd_ray_tracing_tpu_torch.models import library, params
     from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
@@ -159,9 +161,11 @@ def test_unported_sampler_methods_raise(method):
     orient = tcam.orientation_from_angles(*tcam.CameraAngles.of(0.0, 0.0, 0.0, device=cpu), cpu)
     camera = tcam.make_camera(Vec4.of(0.0, -2.0, 0.0, 0.0, device=cpu), orient, 1.5, 2.0,
                               ("yxz",), cpu)
-    lay = params.layout(library.room_with_sphere(cpu), camera)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
-        ablate.check_config(cfg, lay)
+    scene = library.room_with_sphere(cpu)
+    lay = params.layout(scene, camera)
+    assert gradkernel._modes(cfg, lay) == (0, 1 if method == "kepler" else 2, cfg.sampler_iters)
+    small = dataclasses.replace(cfg, width=8, height=4)
+    assert torch.isfinite(ablate.variant_plain("acc", scene, camera, small, 1))
     with pytest.raises(ValueError):
         tsampler.direction_from_uniforms(u, u, u, method="bisection")
 

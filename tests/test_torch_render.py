@@ -129,7 +129,10 @@ def test_unported_configs_raise(change):
     refuse the sequential stream alone (ValueError, as in the JAX package,
     on either device) and take the kepler sampler and the spec fold
     (csrc/gradmodes.cu): on the CPU the kernel route is the plain version,
-    bitwise, and K8 still refuses them by their ROADMAP item. axis_hints,
+    bitwise, and so do K8's launches (csrc/ablatemodes.cu, the modes
+    launches' codes), whose plain loss variant is K4's loss unscaled; K8
+    takes the sequential stream as its per-sample one, as the JAX tool
+    does. axis_hints,
     which the forward takes, are refused by the gradient paths outside the
     freeze_hints contract; under it every gradient path, the soft ones
     included, takes a composite scene: the tiger's soft loss under its
@@ -163,13 +166,19 @@ def test_unported_configs_raise(change):
             diff.image_loss_kernel(vec, scene, tc, small, 1, target)
         with pytest.raises(ValueError, match="per-sample"):
             gradkernel.check_kernel_config(small)
+        per_sample = dataclasses.replace(small, rng_mode="per_sample")
+        assert torch.equal(ablate.variant_plain("acc", scene, tc, small, 1),
+                           ablate.variant_plain("acc", scene, tc, per_sample, 1))
         return
     gradkernel.check_kernel_config(small)
     loss = diff.image_loss_kernel(vec.clone().requires_grad_(True), scene, tc, small, 1, target)
     ref_loss, _ = gradkernel.loss_and_grad_plain(vec, scene, tc, small, 1, target)
     assert torch.equal(loss.detach(), ref_loss)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
-        ablate.check_config(small, params.layout(scene, tc))
+    assert gradkernel._modes(small, params.layout(scene, tc)) == (
+        tkernel.FOLD_CODES[small.intersect], tkernel.SAMPLER_CODES[small.sampler_method],
+        small.sampler_iters)
+    value = ablate.variant_plain("loss", scene, tc, small, 1, target)
+    np.testing.assert_allclose(float(value) / target.numel(), float(ref_loss), rtol=1e-6)
 
 
 # --- The sequential stream (rng_mode="sequential", RenderConfig()'s) ----------
