@@ -28,6 +28,26 @@ on any failure, or when no CUDA device is available. Phases:
 5. the batch app on configs/properties.txt (121x75 + 2x60x37, 100 spp,
    its own scene: the tiger); the kernel launches of phases 4-5 are
    counted;
+5b. the live session: app.main --interactive --deterministic --serve 0
+   --save-state on the same config, max_fps 60, a stdin script (a look
+   before capture, which is ignored; capture, a move, two mouse deltas, one
+   of them beyond the border, a wheel click, frames 16; then save, stats,
+   quit) while a second thread fetches /frame.png?view=yxz at 127.0.0.1
+   and posts one /cmd line (frames 1): K1 launched once per view group by
+   the precompile and once per rendered frame per view group, all hinted,
+   the controls native, the windows and the state written (the state
+   loads into a fresh engine); precompile's seconds in the session (warm:
+   phase 5 loaded the tiger's K1) and the session's frames per second are
+   printed beside the card, and so is the time to the first frame of a
+   fresh process (its imports, the engine's build, precompile and the
+   first frame of every view group on the host). Then the resumes at the
+   headline shape: an engine on the room renders 4 frames, checkpoints,
+   and a fresh engine loads it and renders 4 more, bitwise an
+   uninterrupted 8; inverse_render --packed --ckpt writes its train state
+   at step 20, and one K4 step from it restored is bitwise the
+   uninterrupted step 21. After the counts are read, that run's K1 target
+   render and its first K4 step (the first step's loss bitwise) are held
+   against their plain versions at that shape, under the frozen hints;
 6. the kernel alone, hinted and unhinted, and the plain pipeline timed at
    phase 4's shape, and their 4 frames held against each other as in
    phase 3;
@@ -276,7 +296,8 @@ production forward's work, on the lanes still alive (``live_lane_flops``:
 K1 stops a lane that left the scene; in the closed room every lane
 counts); the dense and the unhinted counts stand beside them. The kernel
 launch counts are
-set to 0 before each main path (phases 4-5: rendering; phase 7b: each
+set to 0 before each main path (phases 4-5: rendering; phase 5b: the
+live session and the resumes; phase 7b: each
 composite cell's engine; phase 7c: the engine in each of its two
 configurations; phase 8c: the steps by configuration; phases 9-10:
 training; phase 13: soft training; phase 13b: soft training on the
@@ -289,12 +310,19 @@ The line before the last is the kernels' JSON summary, the last line
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import re
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
+import zlib
 from dataclasses import replace
 from pathlib import Path
 
@@ -319,6 +347,7 @@ from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from fourd_ray_tracing_tpu_torch.tools import (  # noqa: E402
     fwd_ablate, grad_ablate, soft_ablate, train_ablate, vpu_peak)
 from fourd_ray_tracing_tpu_torch.tools import common as tool_common  # noqa: E402
+from fourd_ray_tracing_tpu_torch.utils import checkpoint  # noqa: E402
 from fourd_ray_tracing_tpu_torch.utils.config import AppConfig  # noqa: E402
 from fourd_ray_tracing_tpu_torch.utils.flops import FlopCounter, count_flops  # noqa: E402
 
@@ -1643,6 +1672,282 @@ def run_app() -> None:
         assert (out / f"{view}.png").stat().st_size > 0, view
     assert (out / "layout.json").exists()
     assert megakernel.LAUNCHES == before + 2, "one 8-frame launch per view group"
+
+
+# Phase 5b: the stdin script of the live session, in two parts: the second
+# goes in once the preview thread has fetched its frame and posted
+# LIVE_POST, so that the posted line runs before the save and the quit.
+LIVE_HEAD = ("look 0.1 0 0", "capture", "w 0.25", "mouse 5 3", "mouse 9999 0", "wheel 1",
+             "frames 16")
+LIVE_TAIL = ("save {save}", "stats", "quit")
+LIVE_POST = "frames 1"
+LIVE_TIMEOUT_S = 120
+# The resume checks: N frames, a checkpoint, M more frames (the engine);
+# the packed train state at inverse_render's CKPT_EVERY steps, one more.
+RESUME_FRAMES = (4, 4)
+# 127.0.0.1 directly, whatever proxy the environment names.
+LOCAL = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+# Phase 5b's fresh process, which a viewer's new session is: the seconds
+# from its start (the interpreter's own start-up excluded) to the first
+# frame of every view group on the host, split into the imports, the
+# engine's build (the CUDA context, the native controls), precompile and
+# the frame. The kernels and the controls are built on disk by then.
+FIRST_FRAME = """
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from fourd_ray_tracing_tpu_torch import app
+from fourd_ray_tracing_tpu_torch.utils.config import AppConfig
+t_import = time.perf_counter()
+engine = app.build_engine(AppConfig.load(sys.argv[1]), app.resolve_device("cuda"),
+                          deterministic=True)
+torch.cuda.synchronize()
+t_engine = time.perf_counter()
+precompile_s = engine.precompile()
+t_precompile = time.perf_counter()
+engine.step_frame()
+frames = [g.accum.cpu() for g in engine.groups]
+t_frame = time.perf_counter()
+assert all(torch.isfinite(f).all() for f in frames)
+print(json.dumps({"first_frame_s": t_frame - t0, "import_s": t_import - t0,
+                  "engine_s": t_engine - t_import, "precompile_s": precompile_s,
+                  "precompile_wall_s": t_precompile - t_engine,
+                  "frame_s": t_frame - t_precompile, "controls": engine.controls}))
+"""
+
+
+class ScriptedStdin:
+    """The live session's stdin: LIVE_HEAD, then LIVE_TAIL once ``ready``
+    is set (or after LIVE_TIMEOUT_S, so that the session ends either way)."""
+
+    def __init__(self, save: Path, ready: threading.Event):
+        self.save, self.ready = save, ready
+
+    def __iter__(self):
+        for line in LIVE_HEAD:
+            yield line + "\n"
+        self.ready.wait(LIVE_TIMEOUT_S)
+        for line in LIVE_TAIL:
+            yield line.format(save=self.save) + "\n"
+
+
+def png_size(data: bytes) -> tuple:
+    """(width, height) of an 8-bit RGB PNG, after checking that its pixel
+    data inflates to that size."""
+    assert data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG"
+    w, h = struct.unpack(">II", data[16:24])
+    pos, idat = 8, b""
+    while pos < len(data):
+        (n,), tag = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        if tag == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    assert len(zlib.decompress(idat)) == h * (1 + 3 * w), "PNG pixel data"
+    return w, h
+
+
+def preview_client(servers: list, result: dict, ready: threading.Event) -> None:
+    """The second thread of phase 5b: once the session serves, fetch
+    /frame.png?view=yxz and POST LIVE_POST to /cmd."""
+    try:
+        t0 = time.perf_counter()
+        while not servers and time.perf_counter() - t0 < LIVE_TIMEOUT_S:
+            time.sleep(0.01)
+        url = servers[0].url
+        result["url"] = url
+        result["png_size"] = png_size(LOCAL.open(url + "frame.png?view=yxz", timeout=30).read())
+        req = urllib.request.Request(url + "cmd", data=LIVE_POST.encode(), method="POST")
+        result["post_status"] = LOCAL.open(req, timeout=30).status
+    except Exception as exc:  # the session must end; the phase reports it
+        result["error"] = repr(exc)
+    finally:
+        ready.set()
+
+
+def live_session() -> dict:
+    """Phase 5b: app.main --interactive --deterministic --serve 0
+    --save-state on configs/properties.txt (the tiger, 121x75 + 2 x 60x37,
+    100 spp, max_fps 60), fed LIVE_HEAD and LIVE_TAIL on stdin while a
+    second thread reads the preview and posts LIVE_POST. Every K1 launch is
+    precompile's (one per view group) or one per rendered frame per view
+    group, all hinted; the controls are native; the windows and the state
+    are written, and the state loads into a fresh engine."""
+    out = ROOT / "out" / "chip_smoke_live"
+    shutil.rmtree(out, ignore_errors=True)
+    engines, servers, meters, precompile_s = [], [], [], []
+    build_engine, make_preview, meter_cls = app.build_engine, app.make_preview, app.Meter
+
+    def spy_build(*args, **kwargs):
+        engine = build_engine(*args, **kwargs)
+        warm = engine.precompile
+        engine.precompile = lambda: precompile_s.append(warm()) or precompile_s[-1]
+        engines.append(engine)
+        return engine
+
+    def spy_preview(*args, **kwargs):
+        servers.append(make_preview(*args, **kwargs))
+        return servers[-1]
+
+    def spy_meter():
+        meters.append(meter_cls())
+        return meters[-1]
+
+    ready, client = threading.Event(), {}
+    thread = threading.Thread(target=preview_client, args=(servers, client, ready), daemon=True)
+    log, stdin = io.StringIO(), sys.stdin
+    app.build_engine, app.make_preview, app.Meter = spy_build, spy_preview, spy_meter
+    sys.stdin = ScriptedStdin(out / "windows", ready)
+    thread.start()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            rc = app.main(["--config", str(APP_CONFIG), "--interactive", "--deterministic",
+                           "--serve", "0", "--out", str(out), "--save-state", str(out / "state")])
+    finally:
+        session_s = time.perf_counter() - t0
+        app.build_engine, app.make_preview, app.Meter = build_engine, make_preview, meter_cls
+        sys.stdin = stdin
+        thread.join(timeout=LIVE_TIMEOUT_S)
+        print(log.getvalue(), end="", flush=True)
+    assert rc == 0 and not thread.is_alive(), "the live session did not end"
+    assert "error" not in client, client
+    (engine,), (meter,) = engines, meters
+    lines = log.getvalue().splitlines()
+    assert "look ignored: cursor not captured (use 'capture')" in lines, "look before capture"
+    assert "cursor recentered" in lines, "mouse 9999 0 must only recenter"
+    assert engine.controls == "native", "the native controls did not build"
+    main_group = engine.groups[0].cfg
+    assert client["png_size"] == (main_group.width, main_group.height), client
+    assert client["post_status"] == 204, client
+    frames = meter.stats.frames
+    groups = len(engine.groups)
+    assert frames >= 1 + 1 + 1 + 16 + 1, f"{frames} frames rendered"
+    assert megakernel.LAUNCHES == groups * (1 + frames), (megakernel.LAUNCHES, groups, frames)
+    assert megakernel.HINTED_LAUNCHES == megakernel.LAUNCHES, "a live launch ran no hints"
+    assert counts()["k4"] == counts()["k5"] == counts()["k6"] == 0, counts()
+    for view in ("yxz", "ywz", "yxw"):
+        assert (out / "windows" / f"{view}.png").stat().st_size > 0, view
+    resumed = app.build_engine(AppConfig.load(APP_CONFIG), engine.device, deterministic=True)
+    resumed.load_checkpoint(out / "state")
+    assert (resumed.seed, resumed.frame_number, resumed._rng_draws) == \
+        (engine.seed, engine.frame_number, engine._rng_draws), "--save-state"
+    for g_r, g_e in zip(resumed.groups, engine.groups):
+        assert g_r.accum.device == g_e.accum.device and torch.equal(g_r.accum, g_e.accum)
+    return {"precompile_warm_s": precompile_s[0], "frames": frames, "session_s": session_s,
+            "session_fps": frames / session_s, "render_fps": meter.stats.fps,
+            "k1_launches": megakernel.LAUNCHES, "groups": groups,
+            "window": [main_group.width, main_group.height], "preview": client}
+
+
+def first_frame_fresh() -> dict:
+    """Phase 5b: FIRST_FRAME in a fresh process on the config."""
+    proc = subprocess.run([sys.executable, "-c", FIRST_FRAME, str(APP_CONFIG)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=LIVE_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["controls"] == "native", out
+    return out
+
+
+def engine_resume(device) -> dict:
+    """Phase 5b: an engine on the room at the headline shape renders N
+    frames and checkpoints; a fresh engine loads the checkpoint onto the
+    card and renders M more: bitwise an uninterrupted N + M."""
+    n, m = RESUME_FRAMES
+    path = ROOT / "out" / "chip_smoke_resume"
+
+    def make():
+        return RenderEngine(library.room_with_sphere(device), RenderConfig(**HEADLINE),
+                            Vec4.of(0.0, -2.0, 0.0, 0.0, device=device),
+                            cam.CameraAngles.of(0.0, 0.0, 0.0, device=device), device=device,
+                            deterministic=True)
+
+    straight, first = make(), make()
+    for engine in (straight, first):
+        assert engine.mouse_moved(5, 3)
+        engine.step_frames(n)
+    first.save_checkpoint(path)
+    resumed = make()
+    resumed.load_checkpoint(path)
+    assert resumed.accum.device == straight.accum.device and torch.equal(resumed.accum, first.accum)
+    for engine in (straight, resumed):
+        engine.step_frames(m)
+    assert (resumed.seed, resumed.frame_number) == (straight.seed, straight.frame_number)
+    assert torch.equal(resumed.accum, straight.accum), "the resumed engine is not bitwise"
+    return {"frames": [n, m], "bitwise": True, "controls": resumed.controls}
+
+
+def train_resume(device) -> dict:
+    """Phase 5b: inverse_render --packed --ckpt at the headline shape
+    writes its train state at step CKPT_EVERY; restored into a fresh loop,
+    one more K4 step is bitwise the uninterrupted loop's step CKPT_EVERY +
+    1 (loss, vector, Adam's moments and step count)."""
+    path = ROOT / "out" / "chip_smoke_train_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    k = inverse_render.CKPT_EVERY
+    # --tol: CKPT_EVERY steps do not reach the glow; the check is the resume.
+    argv = ["--param", "glow", "--impl", "kernel", "--packed", "--device", "cuda",
+            "--width", str(HEADLINE["width"]), "--height", str(HEADLINE["height"]),
+            "--samples", str(HEADLINE["samples"]), "--bounces", str(HEADLINE["reflections_amount"]),
+            "--steps", str(k), "--tol", "100", "--ckpt", str(path)]
+    assert inverse_render.main(argv) == 0
+    args = inverse_render.parse_args(argv)
+    cfg, camera, target, scene0 = inverse_render.setup(args, device)
+    step, init, _ = inverse_render.packed_train_step(args, cfg, camera, scene0)
+    assert cfg.freeze_hints, "--packed trains under the frozen hints"
+    model, opt = init(scene0)
+    first = step(model, opt, args.seed, target)
+    for _ in range(k - 1):
+        step(model, opt, args.seed, target)
+    at_k = model.scene_vec.detach().clone()
+    loss = step(model, opt, args.seed, target)
+    fresh, fresh_opt = init(scene0)
+    vec, opt_state, saved_step = checkpoint.restore_train_state(path, fresh.scene_vec,
+                                                                fresh_opt.state_dict())
+    assert saved_step == k and torch.equal(vec, at_k), "the saved train state"
+    with torch.no_grad():
+        fresh.scene_vec.copy_(vec)
+    fresh_opt.load_state_dict(opt_state)
+    assert torch.equal(step(fresh, fresh_opt, args.seed, target), loss), "resumed loss"
+    assert torch.equal(fresh.scene_vec, model.scene_vec), "resumed vector"
+    ours, ref = fresh_opt.state_dict()["state"][0], opt.state_dict()["state"][0]
+    for key in ("step", "exp_avg", "exp_avg_sq"):
+        assert torch.equal(ours[key], ref[key]), key
+    return {"steps": k, "bitwise": True, "loss": float(loss), "argv": argv,
+            "first_loss": first}
+
+
+def check_train_resume_kernels(device, argv: list, first_loss: torch.Tensor) -> dict:
+    """Phase 5b, after its counts are read: train_resume's inverse_render
+    run (``argv``) at its shape, the target's K1 launch against the plain
+    pipeline (BAND_ROWS-row bands), its light bitwise the target the run
+    trained on, and the first step's K4 launch (its loss bitwise the
+    run's ``first_loss``) against the plain version in BAND_ROWS-row bands
+    under the frozen hints. Returns the errors."""
+    args = inverse_render.parse_args(argv)
+    cfg, camera, target, scene0 = inverse_render.setup(args, device)
+    t = inverse_render.task(args.param)
+    truth = t.scene(t.true, device)
+    label = f"train_resume {cfg.width}x{cfg.height}x{cfg.samples}spp x{cfg.reflections_amount}"
+    # The target's configuration: setup's before diff.with_frozen_hints.
+    light_cfg = unhinted(replace(cfg, freeze_hints=False, grad_sample_chunk=1))
+    light = megakernel.render_light_cuda(truth, camera, light_cfg, args.seed)
+    assert torch.equal(light_to_color(light, light_cfg.light_coefficient), target), \
+        f"{label}: the checked K1 launch is not the target's"
+    plain_light = torch.cat([renderer.render_light(truth, camera, light_cfg, args.seed,
+                                                   slice(r, r + BAND_ROWS))
+                             for r in range(0, cfg.height, BAND_ROWS)], dim=-3)
+    light_err = check_close(f"{label} target K1 vs plain ({BAND_ROWS}-row bands)", light,
+                            plain_light)
+    packed = params.pack(scene0, camera)
+    kernel = gradkernel.loss_and_grad_cuda(packed, scene0, camera, cfg, args.seed, target)
+    assert torch.equal(kernel[0], first_loss), f"{label}: the checked K4 launch is not step 1's"
+    plain = gradkernel.loss_and_grad_plain(packed, scene0, camera, light_cfg, args.seed, target,
+                                           band_rows=BAND_ROWS)
+    err, rel = compare_grad(f"{label} step 1 frozen hints (plain in {BAND_ROWS}-row bands, "
+                            "frozen)", kernel,
+                            (plain[0], gradkernel.freeze(plain[1], scene0, cfg)))
+    return {"k1_max_abs_err": light_err, "k4_max_abs_err": err, "k4_grad_mixed_rel": rel}
 
 
 def reset_counts() -> None:
@@ -3462,6 +3767,34 @@ def main() -> int:
     assert megakernel.HINTED_LAUNCHES == megakernel.LAUNCHES, "a render launch ran no hints"
     assert counts()["k2_rows"] == counts()["k5"] == counts()["k6"] == 0, counts()
 
+    phase("5b live session: app --interactive --serve on the config, engine and train-state "
+          "resume at the headline shape")
+    reset_counts()
+    live = live_session()
+    print(f"5b precompile in the session {live['precompile_warm_s']:.3f} s (warm: phase 5 loaded "
+          f"its kernel instance), live session {live['frames']} frames in "
+          f"{live['session_s']:.3f} s = {live['session_fps']:.2f} fps (paced at max_fps; "
+          f"rendering alone {live['render_fps']:.2f} fps) on {card}", flush=True)
+    live["engine_resume"] = engine_resume(device)
+    live["train_resume"] = train_resume(device)
+    launches["live"] = counts()
+    first_loss = live["train_resume"].pop("first_loss")
+    live["train_resume"]["checked"] = check_train_resume_kernels(
+        device, live["train_resume"].pop("argv"), first_loss)
+    fresh = live["fresh_process"] = first_frame_fresh()
+    print(f"5b time to the first frame of a fresh process {fresh['first_frame_s']:.3f} s "
+          f"(imports {fresh['import_s']:.3f} s, engine {fresh['engine_s']:.3f} s, precompile "
+          f"{fresh['precompile_s']:.3f} s, first frame {fresh['frame_s']:.3f} s) on {card}",
+          flush=True)
+    n_resume = 2 + 1 + 1  # the uninterrupted engine's two launches, the saved and the resumed
+    k_ckpt = inverse_render.CKPT_EVERY
+    assert launches["live"]["k1"] == live["k1_launches"] + n_resume + 2, launches["live"]
+    assert launches["live"]["k4"] == launches["live"]["k4_hinted"] == 2 * k_ckpt + 2, \
+        launches["live"]
+    assert megakernel.HINTED_LAUNCHES == megakernel.LAUNCHES, "a 5b launch ran no hints"
+    print(json.dumps({"phase": "5b", "card": card, **live, "launches": launches["live"]}),
+          flush=True)
+
     phase("6 kernel alone and plain pipeline, headline shape")
     kernel_ms, unhinted_ms, plain_ms, headline_err = time_kernel_and_plain(engine)
     phase("7 app view groups: kernel vs plain on the card")
@@ -3783,12 +4116,13 @@ def main() -> int:
         "route": "cuda",
         "source": "fourd_ray_tracing_tpu_torch/csrc/megakernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/megakernel.py:316",
-        "launches": (launches["render"][0] + launches["composite"] + launches["modes"]
-                     + mode_launches["counts"]["k1"]
+        "launches": (launches["render"][0] + launches["live"]["k1"] + launches["composite"]
+                     + launches["modes"] + mode_launches["counts"]["k1"]
                      + launches["train"][0] + launches["soft"]["k1"]
                      + launches["soft_composites"]["k1"] + sharded["k1"] + measure["k1"]
                      + measure["k1_variant"]),
-        "launches_by_path": {"render": launches["render"][0], "composite": launches["composite"],
+        "launches_by_path": {"render": launches["render"][0], "live": launches["live"]["k1"],
+                             "composite": launches["composite"],
                              "modes": launches["modes"],
                              "grad_modes": mode_launches["counts"]["k1"],
                              "train": launches["train"][0], "soft": launches["soft"]["k1"],
@@ -3847,9 +4181,10 @@ def main() -> int:
         **kernel_resources("k4", resources, warps),
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:117",
-        "launches": (launches["train"][1] + launches["train_tiger"]["k4"] + sharded["k4"]
-                     + measure["k4"] + mode_launches["counts"]["k4"]),
+        "launches": (launches["train"][1] + launches["live"]["k4"] + launches["train_tiger"]["k4"]
+                     + sharded["k4"] + measure["k4"] + mode_launches["counts"]["k4"]),
         "launches_by_path": {"render": launches["render"][1], "train": launches["train"][1],
+                             "live": launches["live"]["k4"],
                              "grad_modes": mode_launches["counts"]["k4"],
                              "train_tiger": launches["train_tiger"]["k4"],
                              "sharded": sharded["k4"], "measure": measure["k4"]},

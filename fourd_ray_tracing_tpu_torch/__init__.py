@@ -16,10 +16,15 @@ Module names mirror the JAX package's:
   rendering;
 * ``parallel/mesh.py``, ``multihost_run.py`` — the row-sharded path over
   torch.distributed ranks and its multi-process runner;
-* ``engine.py``, ``app.py`` — progressive accumulation and batch PNGs;
+* ``engine.py``, ``app.py`` — progressive accumulation, the camera's
+  controls and checkpoints; batch PNGs and the live session;
+* ``native/`` — the viewer's C++ camera controls and properties parser,
+  built with g++ at first use and bound through ctypes;
 * ``utils/`` — the properties/AppConfig parser, the PNG writer, the
-  JSON-line logger and the flop counter.
+  JSON-line logger, the flop counter, checkpoints, the FPS overlay and
+  the HTTP preview server.
 
 This package never imports jax, nor anything of the JAX package: its
-properties parser and PNG writer (``utils/``) are its own copies.
+properties parser, PNG writer, overlay and C++ sources are its own
+copies.
 """

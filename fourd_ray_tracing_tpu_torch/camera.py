@@ -5,6 +5,8 @@ identity (forward=y, top=z, right=x, w=w) and takes three Givens
 rotations: psi in the (top, w) plane, fi in (forward, right), te in
 (forward, top). A camera's ``top``/``right`` may carry a leading view
 axis (batched_view_bases), so one launch renders several 3D sections.
+Movement (``move_focus``) goes along the partially rotated bases, so W/S
+stay in the horizontal plane whatever the pitch.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4, f32
+from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4, f32, length
 
 PI = float(np.float32(np.pi))
 # width/height ratio of windows and camera film.
@@ -63,6 +65,11 @@ def normalize_angle(angle: torch.Tensor) -> torch.Tensor:
     return torch.where(wrapped <= -PI, wrapped + float(np.float32(2.0) * np.float32(PI)), wrapped)
 
 
+def pull_into_range(value, center, radius):
+    """Clamp to [center - radius, center + radius]."""
+    return torch.clamp(value, center - radius, center + radius)
+
+
 class CameraAngles(NamedTuple):
     """fi / te / psi as 0-d float32 tensors."""
 
@@ -78,9 +85,9 @@ class CameraAngles(NamedTuple):
         """fi wraps, te clamps to [-pi/2, pi/2], psi wraps or clamps to
         [center - radius, center + radius]."""
         fi = normalize_angle(self.fi)
-        te = torch.clamp(self.te, -PI / 2, PI / 2)
+        te = pull_into_range(self.te, 0.0, PI / 2)
         if psi_center is not None:
-            psi = torch.clamp(self.psi, psi_center - psi_radius, psi_center + psi_radius)
+            psi = pull_into_range(self.psi, psi_center, psi_radius)
         else:
             psi = normalize_angle(self.psi)
         return CameraAngles(fi, te, psi)
@@ -143,3 +150,44 @@ def camera_from_state(focus: Vec4, angles: CameraAngles, focus_to_matrix_distanc
                       matrix_height: float, view: str = "yxz", *, device) -> Camera:
     orient = orientation_from_angles(angles.fi, angles.te, angles.psi, device)
     return make_camera(focus, orient, focus_to_matrix_distance, matrix_height, (view,), device)
+
+
+class MoveKeys(NamedTuple):
+    """Held-key state for 8-direction movement."""
+
+    forward: bool = False
+    back: bool = False
+    right: bool = False
+    left: bool = False
+    top: bool = False
+    down: bool = False
+    w_pos: bool = False
+    w_neg: bool = False
+
+
+def move_focus(focus: Vec4, orient: Orientation, keys: MoveKeys, seconds,
+               speed) -> tuple:
+    """(new focus, moved): the focus translated by ``seconds * speed``
+    along the sum of the held keys' bases (the horizontal forward and
+    right, the vertical top, w). ``moved`` is a 0-d bool tensor on the
+    focus's device, true exactly when the keys' directions do not cancel
+    (the accumulation must reset then)."""
+    device = focus.x.device
+    drct = Vec4.of(0.0, 0.0, 0.0, 0.0, device=device)
+    pairs = (
+        (keys.forward, keys.back, orient.horizontal_forward),
+        (keys.top, keys.down, orient.vertical_top),
+        (keys.right, keys.left, orient.horizontal_right),
+        (keys.w_pos, keys.w_neg, orient.w_drct),
+    )
+    for pos, neg, basis in pairs:
+        if pos:
+            drct = drct + basis
+        if neg:
+            drct = drct - basis
+    norm = length(drct)
+    step = torch.as_tensor(seconds, dtype=torch.float32, device=device) * torch.as_tensor(
+        speed, dtype=torch.float32, device=device)
+    moved = norm > 0.0
+    scale = torch.where(moved, step / torch.clamp_min(norm, 1e-30), 0.0)
+    return focus + drct * scale, moved

@@ -1,7 +1,7 @@
 """Differentiable rendering: losses, gradients, training steps.
 
 Counterpart of fourd_ray_tracing_tpu/diff.py:67-402, 457-484, 542-627,
-690-726 and 829-1065. Gradients are those of the estimator at a fixed seed
+690-726 and 829-1080. Gradients are those of the estimator at a fixed seed
 (the JAX package's diff.py:8-24): uniforms are constants, hit/miss and
 mirror/diffuse decisions stay at their sampled outcomes, and cotangents
 flow through the continuous geometry and shading. So an object whose only
@@ -833,3 +833,20 @@ def make_packed_train_step(cfg: RenderConfig, lr: float, camera: Camera, scene_t
         return params.unpack(full, scene_template, camera)[0]
 
     return step, init, unpack
+
+
+def finite_difference_grad(f: Callable[[torch.Tensor], torch.Tensor], x0,
+                           eps: float = 1e-3) -> torch.Tensor:
+    """Central finite differences of a scalar ``f`` at ``x0``, element by
+    element, in float32 (the JAX package's diff.py:1068-1080), for
+    gradient tests."""
+    x0 = torch.as_tensor(x0, dtype=torch.float32)
+    flat = x0.reshape(-1)
+    grads = []
+    for i in range(flat.numel()):
+        dx = torch.zeros_like(flat)
+        dx[i] = eps
+        fp = f((flat + dx).reshape(x0.shape))
+        fm = f((flat - dx).reshape(x0.shape))
+        grads.append((fp - fm) / (2 * eps))
+    return torch.stack(grads).reshape(x0.shape)

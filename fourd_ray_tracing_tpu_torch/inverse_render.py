@@ -16,6 +16,12 @@ hard loss only) in the production configuration, the frozen static hints
 (inverse_render.py:147-172 of the JAX tools). Exits 0 when the recovered
 value is within ``--tol`` of the truth.
 
+``--ckpt DIR`` checkpoints the run every 20 steps (utils/checkpoint.py):
+on the packed route the train state (``save_train_state``: the packed
+vector, Adam's state dict and the step, which ``restore_train_state``
+reads back), on the others ``{"scene": the scene's leaves, "opt": Adam's
+state dict}``; rank 0 writes.
+
 ``--mesh`` shards the steps over the ranks of a torch.distributed process
 group (parallel/mesh.py: rows over every rank, one all-reduce of the loss
 and gradients per step). Under torchrun it joins the group the
@@ -27,14 +33,13 @@ neither, a 1-rank mesh. Only rank 0 prints.
     python -m fourd_ray_tracing_tpu_torch.inverse_render --param glow --impl kernel
     python -m fourd_ray_tracing_tpu_torch.inverse_render --param position --impl kernel
     torchrun --nproc-per-node 2 -m fourd_ray_tracing_tpu_torch.inverse_render --mesh
-
-Not ported yet, and raising: ``--ckpt`` (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
 import argparse
 import os
 import sys
+from pathlib import Path
 from typing import Callable, NamedTuple
 
 import torch
@@ -49,10 +54,12 @@ from fourd_ray_tracing_tpu_torch.models.scene import Scene, material, sphere
 from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import render_image_cuda
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
 from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh
-from fourd_ray_tracing_tpu_torch.utils.logging import log0, log_metrics
+from fourd_ray_tracing_tpu_torch.utils import checkpoint
+from fourd_ray_tracing_tpu_torch.utils.logging import is_rank0, log0, log_metrics
 
 TRUE_GLOW, INIT_GLOW = 20.0, 8.0
 TRUE_X, INIT_X = 1.4, 1.0
+CKPT_EVERY = 20
 SOFT_SPHERE, EDGE_WIDTH = 1, 0.08  # the lamp, and the soft loss's coverage band
 
 
@@ -138,7 +145,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "(diff.make_packed_train_step, Adam on the kernel's flat parameter "
                     "vector), always with the frozen static hints of --freeze-hints, as "
                     "the JAX tool runs it")
-    ap.add_argument("--ckpt", default=None, help="not ported yet (ROADMAP queue 1, item 13)")
+    ap.add_argument("--ckpt", default=None,
+                    help=f"checkpoint directory, written every {CKPT_EVERY} steps")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--tol", type=float, default=None,
                     help="success threshold on |recovered - true| (default 2.0 glow, 0.1 "
@@ -150,7 +158,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 def setup(args: argparse.Namespace, device):
     """(cfg, camera, target image, starting scene) of the run: the target
     renders the lamp at the parameter's true value through the forward
-    kernel."""
+    kernel; ``cfg`` is the run's training configuration, under the
+    freeze_hints contract (diff.with_frozen_hints, called here alone) with
+    --impl kernel and --freeze-hints or --packed, which always runs it."""
     cfg = RenderConfig(width=args.width, height=args.height, samples=args.samples,
                        reflections_amount=args.bounces, rng_mode="per_sample")
     camera = cam.camera_from_state(Vec4.of(0.0, -2.0, 0.0, 0.0, device=device),
@@ -158,7 +168,26 @@ def setup(args: argparse.Namespace, device):
                                    1.5, 2.0, device=device)
     t = task(args.param)
     target = render_image_cuda(t.scene(t.true, device), camera, cfg, args.seed)
-    return cfg, camera, target, t.scene(t.init, device)
+    scene0 = t.scene(t.init, device)
+    if args.impl == "kernel" and (args.freeze_hints or args.packed):
+        cfg = diff.with_frozen_hints(cfg, scene0)
+    return cfg, camera, target, scene0
+
+
+def packed_train_step(args: argparse.Namespace, cfg: RenderConfig, camera, scene0: Scene):
+    """(step, init, unpack) of ``--packed``: diff.make_packed_train_step
+    with the task's learning rate and gradient filter, in setup's
+    configuration (``cfg``: the production one, with the frozen static
+    hints)."""
+    t = task(args.param)
+    return diff.make_packed_train_step(cfg, args.lr or t.lr, camera, scene0,
+                                       param_filter=t.param_filter)
+
+
+def save_due(args: argparse.Namespace, k: int) -> bool:
+    """Whether step ``k`` (0-based) ends with a checkpoint: every
+    CKPT_EVERY steps, on rank 0."""
+    return bool(args.ckpt) and k % CKPT_EVERY == CKPT_EVERY - 1 and is_rank0()
 
 
 def join_mesh(args: argparse.Namespace, device: torch.device):
@@ -181,8 +210,6 @@ def join_mesh(args: argparse.Namespace, device: torch.device):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError("--ckpt is not ported yet (ROADMAP queue 1, item 13)")
     if args.packed and (args.impl != "kernel" or args.param != "glow" or args.mesh):
         raise SystemExit("--packed is the kernel's hard-loss packed-space loop on one device "
                          "(use --impl kernel, --param glow, no --mesh)")
@@ -192,8 +219,6 @@ def main(argv=None) -> int:
     if args.mesh:
         mesh, device, joined = join_mesh(args, device)
     cfg, camera, target, scene0 = setup(args, device)
-    if args.impl == "kernel" and (args.freeze_hints or args.packed):
-        cfg = diff.with_frozen_hints(cfg, scene0)
     t = task(args.param)
     lr = args.lr or t.lr
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -202,13 +227,15 @@ def main(argv=None) -> int:
          f"x{cfg.reflections_amount} device={name}", flush=True)
 
     if args.packed:
-        step, init, unpack = diff.make_packed_train_step(cfg, lr, camera, scene0,
-                                                         param_filter=t.param_filter)
+        step, init, unpack = packed_train_step(args, cfg, camera, scene0)
         model, opt = init(scene0)
         for k in range(args.steps):
             loss = step(model, opt, args.seed, target)
             if k % args.log_every == 0 or k == args.steps - 1:
                 log_metrics(k, {"loss": loss, "value": t.read(unpack(model))})
+            if save_due(args, k):
+                checkpoint.save_train_state(Path(args.ckpt), model.scene_vec, opt.state_dict(),
+                                            step=k + 1)
         scene = unpack(model)
     else:
         soft = SOFT_SPHERE if args.param == "position" else None
@@ -220,6 +247,9 @@ def main(argv=None) -> int:
             scene, opt, loss, metrics = step(scene, opt, args.seed, target)
             if k % args.log_every == 0 or k == args.steps - 1:
                 log_metrics(k, {**metrics, "value": t.read(scene)})
+            if save_due(args, k):
+                checkpoint.save(Path(args.ckpt), {"scene": list(params.tree_leaves(scene)),
+                                                  "opt": opt.state_dict()})
     err = abs(t.read(scene) - t.true)
     log0(f"recovered {args.param}={t.read(scene):.4f} (true {t.true}, err {err:.4f})", flush=True)
     tol = args.tol if args.tol is not None else t.tol

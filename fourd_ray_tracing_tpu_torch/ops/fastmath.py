@@ -100,6 +100,11 @@ def arccos(x: torch.Tensor) -> torch.Tensor:
     return arctan2(s, x)
 
 
+def arcsin(x: torch.Tensor) -> torch.Tensor:
+    """asin(x) = pi/2 - acos(x); inputs clamp to [-1, 1]."""
+    return _HALF_PI - arccos(x)
+
+
 def sincos_2pi(u: torch.Tensor):
     """(sin(2*pi*u), cos(2*pi*u)) for u in turns: one quadrant reduction
     (round half to even, like jnp.round) and two small polynomials."""

@@ -312,18 +312,33 @@ def test_bad_training_arguments_raise(kwargs):
 
 
 @pytest.mark.parametrize("flags", [["--freeze-hints"], ["--ckpt", "ckpt"]])
-def test_inverse_render_unported_flags_raise(flags, capsys):
-    """--ckpt is still to be ported and raises, naming its ROADMAP item;
-    --freeze-hints, once refused, now trains the kernel route under the
-    contract and recovers the glow."""
+def test_inverse_render_unported_flags_raise(flags, capsys, tmp_path, monkeypatch):
+    """Both flags, once refused, now run: --freeze-hints trains the kernel
+    route under the contract and recovers the glow; --ckpt writes the run's
+    checkpoint at steps 20 and 40, which utils/checkpoint.restore reads
+    back against the step's structure."""
+    from fourd_ray_tracing_tpu_torch.utils import checkpoint
+
+    monkeypatch.chdir(tmp_path)
     argv = ["--device", "cpu", "--impl", "kernel", "--width", "32", "--height", "20",
             "--steps", "40", *flags]
-    if flags[0] == "--ckpt":
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-            inverse_render.main(argv)
-        return
     assert inverse_render.main(argv) == 0
-    assert "freeze_hints=True" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    if flags[0] == "--freeze-hints":
+        assert "freeze_hints=True" in out
+        return
+    args = inverse_render.parse_args(argv)
+    cfg, camera, _, scene0 = inverse_render.setup(args, CPU)
+    t = inverse_render.task(args.param)
+    _, init = diff.make_train_step(cfg, t.lr, camera, param_filter=t.param_filter, impl="kernel")
+    scene, opt = init(scene0)
+    leaves = list(params.tree_leaves(scene))
+    got = checkpoint.restore("ckpt", {"scene": leaves,
+                                      "opt": checkpoint.adam_state_like(opt.state_dict(), leaves)})
+    saved = iter(got["scene"])
+    final = [json.loads(line) for line in out.splitlines() if line.startswith("{")][-1]
+    assert final["step"] == 39
+    assert t.read(params.map_leaves(lambda _: next(saved), scene)) == final["value"]
 
 
 @pytest.mark.parametrize("flags", [["--impl", "plain"], ["--impl", "kernel"],
@@ -345,3 +360,21 @@ def test_log_metrics_is_one_json_line(capsys):
     log_metrics(3, {"loss": torch.tensor(0.5), "note": object}, prefix="train/")
     line = json.loads(capsys.readouterr().out)
     assert line["step"] == 3 and line["train/loss"] == 0.5 and "train/note" in line
+
+
+@pytest.mark.parametrize("shape", [(5,), (2, 3)])
+def test_finite_difference_grad_matches_jax(shape, rng_np):
+    """Central differences of a smooth float32 function: the port's equal
+    the JAX package's within 2 ulps of f's largest value over 2 eps (the
+    two libraries' sin round apart), the input's shape kept, and both
+    within 1e-2 of the analytic gradient."""
+    eps = 1e-3
+    x0 = rng_np.uniform(-1.0, 1.0, shape).astype(np.float32)
+    got = diff.finite_difference_grad(lambda x: torch.sum(torch.sin(x) * x),
+                                      torch.from_numpy(x0), eps)
+    want = np.asarray(jdiff.finite_difference_grad(lambda x: jnp.sum(jnp.sin(x) * x),
+                                                   jnp.asarray(x0), eps))
+    assert got.shape == shape and got.dtype == torch.float32
+    f_max = np.float32(np.sum(np.abs(x0)) + 2 * eps * x0.size)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2 * np.spacing(f_max) / (2 * eps))
+    np.testing.assert_allclose(got.numpy(), np.sin(x0) + x0 * np.cos(x0), rtol=0, atol=1e-2)

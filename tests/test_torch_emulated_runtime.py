@@ -178,18 +178,20 @@ def emulated_library(work, names=None):
     if cxx is None:
         pytest.skip("no g++ to build the kernels for the host")
     (work / "cuda_runtime.h").write_text(EMU)
-    procs = []
-    for src in sorted(build.CSRC_DIR.iterdir()):
+    # Every rewritten file is written before any compiler starts: a source
+    # includes headers that sort after it.
+    sources = sorted(build.CSRC_DIR.iterdir())
+    for src in sources:
         text = src.read_text()
         text = re.sub(r"extern __shared__ float (\w+)\[\];", r"float* \1 = emu_smem.data();", text)
         text = re.sub(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\(",
                       lambda m: f"emu_launch({m.group(1)}, {m.group(2)}, ", text, flags=re.S)
         (work / src.name).write_text('#include "cuda_runtime.h"\n' + text)
-        if src.suffix == ".cu" and (names is None or src.name in names):
-            procs.append(subprocess.Popen(
-                [cxx, "-O2", "-std=c++20", "-ffp-contract=off", "-fPIC", "-pthread",
-                 *build.DEFINES, f"-I{work}", "-c", "-o", str(work / f"{src.stem}.o"), "-x",
-                 "c++", str(work / src.name)], stderr=subprocess.PIPE, text=True))
+    procs = [subprocess.Popen(
+        [cxx, "-O2", "-std=c++20", "-ffp-contract=off", "-fPIC", "-pthread",
+         *build.DEFINES, f"-I{work}", "-c", "-o", str(work / f"{src.stem}.o"), "-x",
+         "c++", str(work / src.name)], stderr=subprocess.PIPE, text=True)
+        for src in sources if src.suffix == ".cu" and (names is None or src.name in names)]
     for proc in procs:
         _, err = proc.communicate(timeout=600)
         assert proc.returncode == 0, err[-4000:]

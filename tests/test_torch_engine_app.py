@@ -1,5 +1,6 @@
 """The port's engine and batch app against the JAX package's, on the CPU."""
 import dataclasses
+import io
 import json
 from pathlib import Path
 
@@ -245,10 +246,26 @@ def test_app_upscale(tiny_config, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--interactive", "--serve=0", "--precompile", "--save-state=x"])
-def test_app_rejects_unported_flags(flag, tiny_config, capsys):
-    with pytest.raises(SystemExit):
-        tapp.main(["--config", str(tiny_config), "--device", "cpu", flag])
-    assert "ROADMAP" in capsys.readouterr().err
+def test_app_rejects_unported_flags(flag, tiny_config, tmp_path, capsys, monkeypatch):
+    """The four flags the batch-only port once refused now run on the CPU:
+    a stdin session, the preview server, the precompile, and a checkpoint
+    that --load-state resumes."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr("sys.stdin", io.StringIO("capture\nframes 2\nstats\nquit\n"))
+    assert tapp.main(["--config", str(tiny_config), "--device", "cpu", "--deterministic",
+                      "--frames", "1", "--out", "o", flag]) == 0
+    out = capsys.readouterr().out
+    expect = {"--interactive": ["cursor captured (hidden)", "precompile done",
+                                '{"frames": 2'],
+              "--serve=0": ["live preview at http://127.0.0.1:", "precompile done",
+                            "wrote o/yxz.png"],
+              "--precompile": ["precompile done", "wrote o/yxz.png"],
+              "--save-state=x": ["saved state to x"]}[flag]
+    assert all(line in out for line in expect), out
+    if flag == "--save-state=x":
+        assert tapp.main(["--config", str(tiny_config), "--device", "cpu", "--frames", "1",
+                          "--out", "o2", "--load-state", "x"]) == 0
+        assert "resumed from x at frame 2" in capsys.readouterr().out
 
 
 def test_app_cuda_without_a_card_raises(tiny_config, tmp_path, monkeypatch):

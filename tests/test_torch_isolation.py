@@ -64,7 +64,11 @@ def test_port_never_imports_jax(tmp_path):
     configuration of the forward renders on the CPU, the gradient kernels'
     routes take K1's other configurations there (the kernel route's loss
     in trig with newton and in kepler, its gradient finite, and K6's soft
-    loss in trig), and the app renders."""
+    loss in trig), and the app renders; then a short --interactive stdin
+    session with the preview server, the FPS overlay and --save-state, a
+    --load-state resume, and a packed train state written by
+    inverse_render --ckpt and read back (a lazy import inside a function
+    shows only when the function runs)."""
     (tmp_path / "properties.txt").write_text(TINY_CONFIG)
     code = textwrap.dedent(f"""
         import importlib, importlib.util, sys
@@ -114,6 +118,24 @@ def test_port_never_imports_jax(tmp_path):
         from fourd_ray_tracing_tpu_torch import app
         assert app.main(["--config", "properties.txt", "--frames", "2", "--out", "out",
                          "--device", "cpu", "--deterministic"]) == 0
+        import io
+        sys.stdin = io.StringIO("capture\\nw 0.1\\nmouse 4 2\\nwheel 1\\nframes 2\\n"
+                                "save live\\nquit\\n")
+        assert app.main(["--config", "properties.txt", "--interactive", "--serve", "0",
+                         "--device", "cpu", "--deterministic", "--fps-overlay",
+                         "--save-state", "state"]) == 0
+        assert app.main(["--config", "properties.txt", "--frames", "1", "--out", "resumed",
+                         "--device", "cpu", "--load-state", "state", "--fps-overlay"]) == 0
+        from fourd_ray_tracing_tpu_torch import inverse_render
+        from fourd_ray_tracing_tpu_torch.utils import checkpoint
+        argv = ["--device", "cpu", "--impl", "kernel", "--packed", "--width", "8", "--height",
+                "4", "--bounces", "1", "--steps", "20", "--tol", "100", "--ckpt", "ckpt"]
+        assert inverse_render.main(argv) == 0
+        args = inverse_render.parse_args(argv)
+        cfg, camera, _, scene0 = inverse_render.setup(args, "cpu")
+        _, init, _ = inverse_render.packed_train_step(args, cfg, camera, scene0)
+        model, opt = init(scene0)
+        assert checkpoint.restore_train_state("ckpt", model.scene_vec, opt.state_dict())[2] == 20
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         print("isolated-ok")
     """)
@@ -122,6 +144,8 @@ def test_port_never_imports_jax(tmp_path):
     assert "isolated-ok" in proc.stdout
     for name in ("yxz.png", "ywz.png", "yxw.png", "layout.json"):
         assert (tmp_path / "out" / name).is_file()
+        assert name == "layout.json" or (tmp_path / "live" / name).is_file()
+    assert (tmp_path / "state" / "state.pt").is_file()
     assert len(port_modules()) >= 15
 
 

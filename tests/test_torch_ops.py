@@ -121,6 +121,18 @@ def test_arccos(rng_np):
                                     np.asarray(jfast.arccos(jnp.asarray(x))), maxulp=2)
 
 
+def test_arcsin(rng_np):
+    """pi/2 - arccos on both sides: within 2 ulps of pi (absolute; near
+    0 the subtraction cancels, so the arccos ulps show unscaled), and
+    within 1e-6 of float64 arcsin, as the JAX package's test holds its own."""
+    x = (rng_np.random(N, dtype=np.float32) * 2.0 - 1.0).astype(np.float32)
+    x[:5] = (-1.0, 1.0, 0.0, -0.0, 1.5)
+    got = tfast.arcsin(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jfast.arcsin(jnp.asarray(x))), rtol=0,
+                               atol=2 * np.spacing(np.float32(np.pi)))
+    assert np.abs(got - np.arcsin(np.clip(x, -1.0, 1.0).astype(np.float64))).max() < 1e-6
+
+
 def test_direction_from_uniforms_poly(rng_np):
     """99.9% of components within ATOL_F32 and all within 2e-6: rho =
     sqrt(r*r - z*z) cancels when |z| is close to r, where the reference's
