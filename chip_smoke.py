@@ -228,6 +228,22 @@ on any failure, or when no CUDA device is available. Phases:
    glow, every item in the production configuration, the frozen hints
    (each gradient launch counted hinted). Both ranks
    share one card, so its step times are no scaling figure;
+15b. the multi-device dry run: ``dryrun.entry``'s flagship forward (one
+   K1 launch, bitwise its plain version), ``dryrun.dryrun_multichip(4)``
+   (a plain step, two hard and one soft kernel-route step and the K3
+   image on a (2, 2) mesh of 4 ranks against one process, every rank's
+   launches checked), phase 15's items on a (2, 2) mesh of 4 ranks at
+   1280x720x8spp x4 (the kernel route's rows split over every rank of a
+   mesh with a samples axis; 3 steps, the frozen hints) against one
+   process with each rank's launches checked (one K1 shard, one hinted K4
+   (K6) shard a step, the pair's K2 and K5 shards), and ``multihost_run
+   --scaling`` (the measurement at 1 and 2 ranks: the ranks share the
+   card, so its ratio is a plumbing check); the phase's seconds and the
+   rays/s printed beside the card's name and power limit; then, after
+   the phase's counts are read, K1, K4 and K6 against their plain
+   versions at the dry run's inputs and K1 and K4 at the measurement's,
+   and each scaling line's kernel_loss, kernel_grad_norm and mean lights
+   against the plain version's (``check_dryrun_kernels``);
 16. the fp32 FMA-peak kernel K7: its main loop in the built library's SASS
    (cuobjdump) is FFMAs with no FMUL/FADD, for each n_acc; its block sums
    against its plain version at 64 steps on the sweep's grid; then the
@@ -302,7 +318,8 @@ composite cell's engine; phase 7c: the engine in each of its two
 configurations; phase 8c: the steps by configuration; phases 9-10:
 training; phase 13: soft training; phase 13b: soft training on the
 composites; phase 15: the ranks, fresh processes,
-count their own; phase 16: the peak sweep; phase 17: K8's configurations
+count their own; phase 15b: the entry's launch and each run's ranks and
+single-process references; phase 16: the peak sweep; phase 17: K8's configurations
 checked, each tool, K8 and K4 timed by configuration) and read after it.
 
 The line before the last is the kernels' JSON summary, the last line
@@ -334,7 +351,7 @@ sys.path.insert(0, str(ROOT))
 
 from fourd_ray_tracing_tpu_torch import app  # noqa: E402
 from fourd_ray_tracing_tpu_torch import camera as cam  # noqa: E402
-from fourd_ray_tracing_tpu_torch import diff, inverse_render, multihost_run  # noqa: E402
+from fourd_ray_tracing_tpu_torch import diff, dryrun, inverse_render, multihost_run  # noqa: E402
 from fourd_ray_tracing_tpu_torch.engine import RenderEngine  # noqa: E402
 from fourd_ray_tracing_tpu_torch.models import library, params, renderer  # noqa: E402
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig  # noqa: E402
@@ -467,6 +484,8 @@ SOFT_STEP_SCENES = ("tiger", "hypercube", "duocylinder")
 SHARDS = (2, 4)
 RANKS = 2
 PLAIN_SPLIT = RANKS
+# Phase 15b: the kernel route on a mesh with a samples axis, 4 ranks.
+MESH_RANKS, MESH_SHAPE = 4, (2, 2)
 # Two fp32 peaks: NVIDIA's published H100 SXM rate at 700 W (data sheet;
 # fp32 outside the tensor cores), on which every bound_ms is computed, and
 # the rate K7 sustains on this card in this run (phase 16,
@@ -3121,16 +3140,31 @@ def check_row_shards(device) -> dict:
     return {"sum_errs": sum_errs, "block_errs": block_errs, "ms": ms}
 
 
+def distributed_work() -> "multihost_run.Work":
+    """Phases 15 and 15b: the room at TRAIN, 3 steps, sphere 0's soft loss."""
+    return multihost_run.Work(width=TRAIN["width"], height=TRAIN["height"],
+                              samples=TRAIN["samples"], bounces=TRAIN["reflections_amount"],
+                              light_coefficient=TRAIN["light_coefficient"], steps=3,
+                              soft_ref=SOFT_REFS["room_with_sphere"], edge_width=SOFT_EDGE)
+
+
+def rank_launches(steps: int) -> dict:
+    """The launches of one rank of several on multihost_run's default items:
+    one K1 shard for the image, one hinted K4 (K6) shard a step, and the
+    pair's K2 shard and two-row K5 shard."""
+    return {"image": {"k1": 1, "k1_shard": 1},
+            "kernel_hard": {"k4": steps, "k4_shard": steps, "k4_hinted": steps},
+            "kernel_soft": {"k6": steps, "k6_shard": steps, "k6_hinted": steps},
+            "pair": {"k1": 1, "k1_shard": 1, "k2": 1, "k5": 1, "k5_shard": 1, "k5_hinted": 1}}
+
+
 def run_distributed(card: str) -> dict:
     """Phase 15: multihost_run on RANKS ranks at TRAIN, 3 steps, against
     the single process, the gradient items in the production configuration
     (the frozen static hints); checks the launches of every rank. Returns
     the runner's summary."""
     backend = "nccl" if torch.cuda.device_count() >= RANKS else "gloo"
-    work = multihost_run.Work(width=TRAIN["width"], height=TRAIN["height"],
-                              samples=TRAIN["samples"], bounces=TRAIN["reflections_amount"],
-                              light_coefficient=TRAIN["light_coefficient"], steps=3,
-                              soft_ref=SOFT_REFS["room_with_sphere"], edge_width=SOFT_EDGE)
+    work = distributed_work()
     items = (*multihost_run.DEFAULT_ITEMS, "inverse_render")
     t0 = time.perf_counter()
     summary = multihost_run.run(RANKS, backend, "cuda", work, items, timeout=600)
@@ -3139,13 +3173,8 @@ def run_distributed(card: str) -> dict:
                                if backend == "gloo" else "one card per rank"),
                       **{k: v for k, v in summary.items() if k != "work"}}), flush=True)
     assert summary["ok"], summary["items"]
-    steps = work.steps
+    expect = rank_launches(work.steps)
     for rank, launches in enumerate(summary["launches_per_rank"]):
-        expect = {"image": {"k1": 1, "k1_shard": 1},
-                  "kernel_hard": {"k4": steps, "k4_shard": steps, "k4_hinted": steps},
-                  "kernel_soft": {"k6": steps, "k6_shard": steps, "k6_hinted": steps},
-                  "pair": {"k1": 1, "k1_shard": 1, "k2": 1, "k5": 1, "k5_shard": 1,
-                           "k5_hinted": 1}}
         for item, want in expect.items():
             assert launches[item] == want, (rank, item, launches[item], want)
         ir = launches["inverse_render"]
@@ -3155,6 +3184,148 @@ def run_distributed(card: str) -> dict:
           f"its rows; step ms per rank {summary['step_ms_per_rank']}, single process "
           f"{summary['single_step_ms']}", flush=True)
     return summary
+
+
+def rank_sums(per_rank) -> dict:
+    """The launches of a runner's ranks (each a dict of its items'
+    counts), summed by key."""
+    total = {}
+    for rank in per_rank:
+        for item in rank.values():
+            for key, n in item.items():
+                total[key] = total.get(key, 0) + n
+    return total
+
+
+def check_dryrun_kernels(device, lines) -> float:
+    """Phase 15b's kernels against their plain versions at the inputs its
+    runs give them, launched after the phase's counts are read so that
+    they do not count. At the dry run's work (dryrun.multichip_work): K1's
+    light under the image item's frozen hints, and from the scene after
+    the plain stage's step, K4 at the hard stages' seeds and K6 on the
+    soft stage's object and seed, all unhinted as there. At the
+    measurement's work (multihost_run.MEASURE): K1's light and K4 against
+    the zero target, and each scaling line's kernel_loss, kernel_grad_norm,
+    kernel_mean_light and mean_light against the plain version's, within
+    multihost_run.TOL (the ranks reassociate the sums). Returns the largest
+    absolute error."""
+    errs = []
+    for label, work in (("dry run", dryrun.multichip_work(MESH_RANKS)[1]),
+                        ("measure", multihost_run.MEASURE)):
+        scene, camera, frozen, target = multihost_run._setup(work, device)
+        cfg, seed = work.cfg(), work.seed()
+        at = f"{label} {work.scene} {work.width}x{work.height}x{work.samples}spp x{work.bounces}"
+        k1_cfg = frozen if label == "dry run" else cfg
+        light = megakernel.render_light_cuda(scene, camera, k1_cfg, seed)
+        plain_light = renderer.render_light(scene, camera, megakernel.with_hints(scene, k1_cfg),
+                                            seed)
+        errs.append(check_close(f"K1 {at}", light, plain_light))
+        if label == "measure":
+            packed = params.pack(scene, camera)
+            plain = gradkernel.loss_and_grad_plain(packed, scene, camera, cfg, seed, target)
+            errs.append(compare_grad(f"{at} zero target", gradkernel.loss_and_grad_cuda(
+                packed, scene, camera, cfg, seed, target), plain)[0])
+            tol, mean = multihost_run.TOL, float(torch.mean(plain_light))
+            norm = float(torch.linalg.vector_norm(plain[1][:params.n_scene(scene)]))
+            want = {"kernel_loss": (float(plain[0]), tol["loss_rtol"]),
+                    "kernel_grad_norm": (norm, tol["grad_mixed_rel"]),
+                    "kernel_mean_light": (mean, tol["loss_rtol"]),
+                    "mean_light": (mean, tol["loss_rtol"])}
+            for line in lines:
+                for key, (value, rtol) in want.items():
+                    assert abs(line[key] - value) <= rtol * abs(value), \
+                        (line["nprocs"], key, line[key], value)
+            print(f"{at}: every scaling line's figures within rtol of the plain version's "
+                  f"{want}", flush=True)
+            continue
+        step, init = diff.make_train_step(cfg, work.lr, camera)  # the plain stage
+        state, opt = init(scene)
+        state = params.map_leaves(torch.Tensor.detach, step(state, opt, 7, target)[0])
+        packed = params.pack(state, camera)
+        for s in (11, 12):
+            errs.append(compare_grad(f"{at} seed {s}", gradkernel.loss_and_grad_cuda(
+                packed, state, camera, cfg, s, target), gradkernel.loss_and_grad_plain(
+                packed, state, camera, cfg, s, target))[0])
+        packed, _, zero_map, alpha, target = soft_inputs(state, camera, cfg, work.soft_ref,
+                                                         work.edge_width, target)
+        errs.append(compare_soft(f"{at} {work.soft_ref} seed 13",
+                                 gradkernel.render_soft_loss_and_grad_cuda(
+                                     packed, state, camera, cfg, 13, target, alpha, zero_map),
+                                 gradkernel.render_soft_loss_and_grad_plain(
+                                     packed, state, camera, cfg, 13, target, alpha, zero_map))[0])
+    return max(errs)
+
+
+def run_mesh_dryrun(device, card: str) -> dict:
+    """Phase 15b: dryrun.entry's forward (one K1 launch, bitwise its plain
+    version), dryrun.dryrun_multichip(MESH_RANKS) (its own checks against
+    one process and of every rank's launches), phase 15's items on a
+    MESH_SHAPE mesh at TRAIN against the single process with every rank's
+    launches checked, and multihost_run's scaling measurement. Returns the
+    launches of every rank and of this process, by key, and prints the
+    phase's figures beside the card."""
+    t0 = time.perf_counter()
+    forward, example = dryrun.entry()
+    image = forward(*example)
+    torch.cuda.synchronize()
+    entry_launches = counts()
+    scene, camera, seed = example
+    plain = light_to_color(renderer.render_light(scene, camera,
+                                                 megakernel.with_hints(scene, dryrun.ENTRY),
+                                                 seed), dryrun.ENTRY.light_coefficient)
+    assert entry_launches["k1"] == 1 and sum(entry_launches.values()) == 1, entry_launches
+    assert torch.equal(image, plain), float((image - plain).abs().max())
+    entry_ms = statistics.median(cuda_ms(lambda: forward(*example)))
+    reset_counts()
+    t1 = time.perf_counter()
+    multichip = dryrun.dryrun_multichip(MESH_RANKS)
+    t2 = time.perf_counter()
+    backend = multihost_run.backend_for("cuda", MESH_RANKS)
+    work = distributed_work()
+    mesh = multihost_run.run(MESH_RANKS, backend, "cuda", work, timeout=600, mesh=MESH_SHAPE)
+    assert mesh["ok"], mesh["items"]
+    expect = rank_launches(work.steps)
+    for rank, got in enumerate(mesh["launches_per_rank"]):
+        assert got == expect, (rank, got, expect)
+    t3 = time.perf_counter()
+    scaling = multihost_run.scaling(multihost_run.backend_for("cuda", 2), "cuda")
+    for line in scaling[:2]:
+        # K3: the figure, the warm-up and the timed rounds; K4: the figures.
+        k1, shard = 2 + line["frames"], line["nprocs"] > 1
+        want = {"k1": k1, "k4": 1, **({"k1_shard": k1, "k4_shard": 1} if shard else {})}
+        assert line["launches_per_rank"] == [want] * line["nprocs"], line["launches_per_rank"]
+        assert abs(line["kernel_mean_light"] - line["mean_light"]) <= 1e-5 * line["mean_light"]
+    t4 = time.perf_counter()
+    local = counts()  # the single-process references of the runs above
+    kernel_err = check_dryrun_kernels(device, scaling[:2])
+    launches = rank_sums(multichip["launches_per_rank"])
+    for extra in (rank_sums(mesh["launches_per_rank"]),
+                  *(rank_sums({"measure": c} for c in line["launches_per_rank"])
+                    for line in scaling[:2]),
+                  {"k1": entry_launches["k1"] + local["k1"], "k2": local["k2_rows"],
+                   **{k: local[k] for k in ("k4", "k5", "k6", "k4_hinted", "k5_hinted",
+                                            "k6_hinted")}}):
+        for key, n in extra.items():
+            launches[key] = launches.get(key, 0) + n
+    print(json.dumps({
+        "phase": "15b", "card": card, "wall_s": t4 - t0,
+        "entry": {"shape": list(image.shape), "bitwise_plain": True, "ms": entry_ms,
+                  "launches": entry_launches},
+        "dryrun_multichip": {"s": t2 - t1, "mesh": multichip["mesh"],
+                             "backend": multichip["backend"], "items": multichip["items"],
+                             "launches_per_rank": multichip["launches_per_rank"]},
+        "mesh_items": {"s": t3 - t2, "mesh": mesh["mesh"], "backend": backend,
+                       "items": mesh["items"], "step_ms_per_rank": mesh["step_ms_per_rank"],
+                       "single_step_ms": mesh["single_step_ms"]},
+        "scaling": {"s": t4 - t3, "lines": scaling},
+        "kernels_vs_plain_max_abs_err": kernel_err,
+        "launches_all_ranks_and_references": launches}), flush=True)
+    rates = scaling[2]
+    print(f"phase 15b on {card}: {t4 - t0:.1f} s; rays/s 1 rank {rates['rays_per_s_1proc']:.4g} "
+          f"(kernel {rates['kernel_rays_per_s_1proc']:.4g}), 2 ranks "
+          f"{rates['rays_per_s_2proc']:.4g} (kernel {rates['kernel_rays_per_s_2proc']:.4g}); "
+          f"{rates['note']}", flush=True)
+    return launches
 
 
 def check_peak_kernel(device, lib_path) -> float:
@@ -4034,6 +4205,12 @@ def main() -> int:
     print(json.dumps({"sharded_path_launches_all_ranks": launches["sharded"]}), flush=True)
     sharded = launches["sharded"]
 
+    phase("15b the multi-device dry run: dryrun.entry, dryrun_multichip(4), the kernel route "
+          "on a (2, 2) mesh at 1280x720, multihost_run --scaling")
+    reset_counts()
+    mesh_path = run_mesh_dryrun(device, card)
+    mesh = {key: mesh_path.get(key, 0) for key in sharded}
+
     phase("16 fp32 FMA peak kernel K7: SASS, vs plain, the vpu_peak sweep")
     peak_err = check_peak_kernel(device, lib_path)
     reset_counts()
@@ -4119,7 +4296,8 @@ def main() -> int:
         "launches": (launches["render"][0] + launches["live"]["k1"] + launches["composite"]
                      + launches["modes"] + mode_launches["counts"]["k1"]
                      + launches["train"][0] + launches["soft"]["k1"]
-                     + launches["soft_composites"]["k1"] + sharded["k1"] + measure["k1"]
+                     + launches["soft_composites"]["k1"] + sharded["k1"] + mesh["k1"]
+                     + measure["k1"]
                      + measure["k1_variant"]),
         "launches_by_path": {"render": launches["render"][0], "live": launches["live"]["k1"],
                              "composite": launches["composite"],
@@ -4127,7 +4305,8 @@ def main() -> int:
                              "grad_modes": mode_launches["counts"]["k1"],
                              "train": launches["train"][0], "soft": launches["soft"]["k1"],
                              "soft_composites": launches["soft_composites"]["k1"],
-                             "sharded": sharded["k1"], "measure": measure["k1"]},
+                             "sharded": sharded["k1"], "mesh": mesh["k1"],
+                             "measure": measure["k1"]},
         # The stub variants of tools/fwd_ablate.py: this kernel with stubs
         # compiled in, held against the plain pipeline under the same
         # patches in phase 17.
@@ -4135,8 +4314,8 @@ def main() -> int:
         # K2 is this kernel over (F, P) params rows (render_light_pair): the
         # sharded path's soft pair renders rows; phases 11 and 14 hold them
         # bitwise single renders. K3 is this kernel on a block of rows.
-        "rows_launches": launches["soft"]["k2_rows"] + sharded["k2"],
-        "sharded_launches": sharded["k1_shard"],
+        "rows_launches": launches["soft"]["k2_rows"] + sharded["k2"] + mesh["k2"],
+        "sharded_launches": sharded["k1_shard"] + mesh["k1_shard"],
         "shard_max_abs_err": shards["block_errs"]["k1"],
         "shard_sum_max_abs_err": shards["sum_errs"]["k1"],
         "shard_ms": shards["ms"]["k1"],
@@ -4182,13 +4361,15 @@ def main() -> int:
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:117",
         "launches": (launches["train"][1] + launches["live"]["k4"] + launches["train_tiger"]["k4"]
-                     + sharded["k4"] + measure["k4"] + mode_launches["counts"]["k4"]),
+                     + sharded["k4"] + mesh["k4"] + measure["k4"]
+                     + mode_launches["counts"]["k4"]),
         "launches_by_path": {"render": launches["render"][1], "train": launches["train"][1],
                              "live": launches["live"]["k4"],
                              "grad_modes": mode_launches["counts"]["k4"],
                              "train_tiger": launches["train_tiger"]["k4"],
-                             "sharded": sharded["k4"], "measure": measure["k4"]},
-        "sharded_launches": sharded["k4_shard"],
+                             "sharded": sharded["k4"], "mesh": mesh["k4"],
+                             "measure": measure["k4"]},
+        "sharded_launches": sharded["k4_shard"] + mesh["k4_shard"],
         "shard_max_abs_err": shards["block_errs"]["k4"],
         "shard_sum_max_abs_err": shards["sum_errs"]["k4"],
         "shard_ms": shards["ms"]["k4"],
@@ -4202,7 +4383,7 @@ def main() -> int:
         "shape": "room_with_sphere 1280x720 8spp 4 bounces, 1 frame, zero target, the frozen "
                  f"static hints (plain version in {BAND_ROWS}-row bands)",
         "hinted_launches": (launches["train_hinted"] + launches["train_tiger"]["k4_hinted"]
-                            + sharded["k4_hinted"] + measure["k4_hinted"]),
+                            + sharded["k4_hinted"] + mesh["k4_hinted"] + measure["k4_hinted"]),
         "contract": contract_of("K4"),
         # The composite primitives: bench.py's inverse_step_tiger and the
         # hypercube and duocylinder at its shape (the frozen hints, 1 view,
@@ -4236,12 +4417,13 @@ def main() -> int:
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:294",
         "launches": (launches["soft"]["k5"] + launches["soft_composites"]["k5"] + sharded["k5"]
-                     + measure["k5"] + mode_launches["counts"]["k5"]),
+                     + mesh["k5"] + measure["k5"] + mode_launches["counts"]["k5"]),
         "launches_by_path": {"soft": launches["soft"]["k5"],
                              "grad_modes": mode_launches["counts"]["k5"],
                              "soft_composites": launches["soft_composites"]["k5"],
-                             "sharded": sharded["k5"], "measure": measure["k5"]},
-        "sharded_launches": sharded["k5_shard"],
+                             "sharded": sharded["k5"], "mesh": mesh["k5"],
+                             "measure": measure["k5"]},
+        "sharded_launches": sharded["k5_shard"] + mesh["k5_shard"],
         "shard_max_abs_err": shards["block_errs"]["k5"],
         "shard_sum_max_abs_err": shards["sum_errs"]["k5"],
         "shard_ms": shards["ms"]["k5"],
@@ -4256,7 +4438,7 @@ def main() -> int:
                  "the frozen static hints (plain version whole)",
         "hinted_launches": (launches["soft"]["k5_hinted"]
                             + launches["soft_composites"]["k5_hinted"]
-                            + sharded["k5_hinted"] + measure["k5_hinted"]),
+                            + sharded["k5_hinted"] + mesh["k5_hinted"] + measure["k5_hinted"]),
         "contract": contract_of("K5"),
         # The hyperplane fallback's K5 on the tiger at the same shape, and
         # on the tiger without wall 0 (phase 13b).
@@ -4273,12 +4455,13 @@ def main() -> int:
         "source": "fourd_ray_tracing_tpu_torch/csrc/gradkernel.cu",
         "replaces": "fourd_ray_tracing_tpu/ops/pallas/gradkernel.py:1207",
         "launches": (launches["soft"]["k6"] + launches["soft_composites"]["k6"] + sharded["k6"]
-                     + measure["k6"] + mode_launches["counts"]["k6"]),
+                     + mesh["k6"] + measure["k6"] + mode_launches["counts"]["k6"]),
         "launches_by_path": {"soft": launches["soft"]["k6"],
                              "grad_modes": mode_launches["counts"]["k6"],
                              "soft_composites": launches["soft_composites"]["k6"],
-                             "sharded": sharded["k6"], "measure": measure["k6"]},
-        "sharded_launches": sharded["k6_shard"],
+                             "sharded": sharded["k6"], "mesh": mesh["k6"],
+                             "measure": measure["k6"]},
+        "sharded_launches": sharded["k6_shard"] + mesh["k6_shard"],
         "shard_max_abs_err": shards["block_errs"]["k6"],
         "shard_sum_max_abs_err": shards["sum_errs"]["k6"],
         "shard_ms": shards["ms"]["k6"],
@@ -4290,7 +4473,7 @@ def main() -> int:
         "plain_ms": k6["plain_ms"],
         "hinted_launches": (launches["soft"]["k6_hinted"]
                             + launches["soft_composites"]["k6_hinted"]
-                            + sharded["k6_hinted"] + measure["k6_hinted"]),
+                            + sharded["k6_hinted"] + mesh["k6_hinted"] + measure["k6_hinted"]),
         "contract": contract_of("K6"),
         # The composites (phase 13b): K6 on the tiger, the hypercube and the
         # duocylinder at the same shape, the tiger's soft step and its row

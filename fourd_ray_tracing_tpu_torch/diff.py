@@ -28,21 +28,24 @@ the plain pipeline (models/renderer.py), the counterpart of
 On CPU tensors the kernel route runs the plain expression instead, as
 every kernel wrapper of the port does.
 
-With a ``mesh`` (parallel/mesh.py) rank (r, s) holds rows block r
-(``mesh.rows``), and every rank takes the same Adam step:
+With a ``mesh`` (parallel/mesh.py) of any (rays, samples) shape every
+rank takes the same Adam step:
 
-* the plain route renders samples block s of those rows and takes their
-  part of the global mean loss; ``make_train_step`` all-reduces the loss
-  and the parameter gradients after the local backward in one packed
-  collective. A term that every rank of a samples group computes alike
-  (the coverage of a rows block) is differentiated by one rank of the
-  group only, so the all-reduce counts it once;
-* the kernel route (a mesh with no samples axis) runs the sharded
-  wrappers inside its autograd Functions: one K4 or K6 launch per rank on
-  its rows, whose [loss, grad] the wrapper all-reduces, so the Function
+* the plain route: rank (r, s) renders samples block s of rows block r
+  (``mesh.rows``) and takes their part of the global mean loss;
+  ``make_train_step`` all-reduces the loss and the parameter gradients
+  after the local backward in one packed collective. A term that every
+  rank of a samples group computes alike (the coverage of a rows block)
+  is differentiated by one rank of the group only, so the all-reduce
+  counts it once;
+* the kernel route: a launch takes every sample, so each rank holds its
+  block of the rows split over every rank of the mesh
+  (``mesh.kernel_rows``, possibly empty), and the sharded wrappers run
+  inside the autograd Functions: one K4 or K6 launch per rank on its
+  block, whose [loss, grad] the wrapper all-reduces, so the Function
   returns the whole image's loss and scales the whole image's gradient.
-  The soft loss's coverage is differentiated through each rank's rows and
-  summed over the ranks in its backward (``pmesh.SumGrad``).
+  The soft loss's coverage is differentiated through each rank's block
+  and summed over the ranks in its backward (``pmesh.SumGrad``).
 
 Every gradient path takes the static hints under the freeze_hints
 contract (``with_frozen_hints``, diff.py:415-455: the production
@@ -484,9 +487,10 @@ def image_loss_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Camera,
                       cfg: RenderConfig, seed, target, mesh=None) -> torch.Tensor:
     """``image_loss`` of the scene and camera packed in ``vec`` (P,),
     differentiable w.r.t. ``vec``: K4 for a CUDA vector, the plain
-    expression for a CPU one. With a mesh, the whole image's loss and
-    gradient on every rank from one K4 launch per rank on its rows (on
-    the CPU, K4's plain version on them). Either device takes what K4 takes
+    expression for a CPU one. With a mesh of any shape, the whole image's
+    loss and gradient on every rank from one K4 launch per rank on its
+    block of rows (``mesh.kernel_rows``; on the CPU, K4's plain version on
+    them). Either device takes what K4 takes
     (gradkernel.check_kernel_config)."""
     gradkernel.check_kernel_config(cfg)
     if mesh is not None:
@@ -507,9 +511,9 @@ class RenderLight(torch.autograd.Function):
     diff.py:542-576); (F, P) params rows render with K2 and differentiate
     with K5's multi-row launch (pallas_render_light_pair, diff.py:589-627).
     CUDA only, but with a ``mesh`` (F, P) rows run row-sharded on either
-    device: the rank's rows of the light
-    (``megakernel.sharded_render_light_cuda_multi``), and the whole image's
-    gradient from the rank's rows of the cotangent
+    device: the rank's block of the light (``mesh.kernel_rows``,
+    ``megakernel.sharded_render_light_cuda_multi``), and the whole image's
+    gradient from the rank's block of the cotangent
     (``gradkernel.sharded_render_light_vjp_multi``;
     pallas_render_light_pair_sharded, diff.py:631-673)."""
 
@@ -570,8 +574,9 @@ def render_light_pair(scene_a: Scene, scene_b: Scene, camera: Camera, cfg: Rende
     ``zero_object`` copy) at one seed, stacked (2, ...): one K2 launch
     forward and one two-row K5 launch backward on the card. Row i equals
     ``render_light_kernel`` of scene i; differentiable w.r.t. both scenes
-    and the camera, whose gradient sums over the rows. With a mesh, the
-    rank's rows block (``mesh.rows``), one launch each way per rank (their
+    and the camera, whose gradient sums over the rows. With a mesh of any
+    shape, the rank's block of rows (``mesh.kernel_rows``, possibly empty),
+    one launch each way per rank (none on an empty block; their
     plain versions on the CPU), whose backward all-reduces the gradient:
     a loss over each rank's block gives every rank the whole image's
     gradient (the counterpart of pallas_render_light_pair_sharded,
@@ -598,7 +603,8 @@ class SoftImageLoss(torch.autograd.Function):
     custom_vjp, diff.py:690-726). CUDA only, but with a ``mesh`` K6
     row-sharded on either device (``gradkernel.sharded_soft_loss_and_grad``:
     the whole image's loss and parameter gradient on every rank, alpha's
-    cotangent on the rank's rows and 0 elsewhere; _soft_kernel_loss_sharded,
+    cotangent on the rank's block of rows (``mesh.kernel_rows``) and 0
+    elsewhere; _soft_kernel_loss_sharded,
     diff.py:730-770)."""
 
     @staticmethod
@@ -610,7 +616,7 @@ class SoftImageLoss(torch.autograd.Function):
         else:
             loss, grad, block = gradkernel.sharded_soft_loss_and_grad(
                 vec, like_scene, like_camera, cfg, seed, target, alpha, zero_map, mesh)
-            row0, n_rows = mesh.rows(cfg.height)
+            row0, n_rows = mesh.kernel_rows(cfg.height, vec.device)
             g_alpha = torch.zeros_like(alpha)
             g_alpha[..., row0:row0 + n_rows, :] = block
         ctx.save_for_backward(grad, g_alpha)
@@ -633,9 +639,10 @@ def soft_image_loss_kernel(vec: torch.Tensor, like_scene: Scene, like_camera: Ca
     ``render_light_kernel`` nodes (two K1 and two K5 launches) and blends
     in torch. A CPU vector
     takes the plain expression. With a mesh, the whole image's loss and
-    gradient on every rank from one K6 launch per rank on its rows (on the
-    CPU, K6's plain version on them), the coverage differentiated through
-    the rank's rows and summed over the ranks; a hyperplane with a mesh
+    gradient on every rank from one K6 launch per rank on its block of rows
+    (``mesh.kernel_rows``; on the CPU, K6's plain version on them), the
+    coverage differentiated through the rank's block and summed over the
+    ranks; a hyperplane with a mesh
     raises ValueError, as in the JAX package. Either device takes what K6
     takes (gradkernel.check_kernel_config)."""
     cfg = gradkernel._auto_hints(like_scene, cfg)
@@ -715,9 +722,10 @@ def make_train_step(cfg: RenderConfig, lr: float, camera: Camera,
     ``mesh`` (parallel/mesh.py) shards the step over the mesh's ranks, each
     with its rows (the module's docstring): ``impl="plain"`` takes the
     rows' part of the loss and all-reduces the packed loss and gradients
-    after the local backward; ``impl="kernel"`` (a mesh with no samples
-    axis) makes one K4 or K6 launch per rank whose wrapper all-reduces
-    them. Every rank takes the same step; the loss and ``grad_norm`` are
+    after the local backward; ``impl="kernel"`` (any mesh shape, as
+    make_train_step(impl="pallas", mesh=...), diff.py:895) makes one K4 or
+    K6 launch per rank on its block of the rows split over every rank,
+    whose wrapper all-reduces them. Every rank takes the same step; the loss and ``grad_norm`` are
     the whole image's.
     """
     soft = soft_sphere_index is not None or soft_object_ref is not None

@@ -53,8 +53,9 @@ image's (the scale stays the whole image's). The sharded wrappers
 (``sharded_loss_and_grad``, ``sharded_render_light_vjp_multi``,
 ``sharded_soft_loss_and_grad``: K3's launches of K4, K5 and K6, the
 counterparts of gradkernel.py:1060, :535 and :1456) launch once per rank
-on its rows (parallel/mesh.py) and all-reduce one packed [loss, grad]
-vector over the ranks.
+on its block of the rows split over every rank of the mesh, whatever its
+shape (parallel/mesh.py ``Mesh.kernel_rows``; no launch on an empty
+block), and all-reduce one packed [loss, grad] vector over the ranks.
 
 Each plain version is torch autograd over the plain pipeline
 (models/renderer.py), with grad mode on so that it runs inside an autograd
@@ -646,9 +647,11 @@ def render_soft_loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like
 # --- K3: the row-sharded launches of K4, K5 and K6 -------------------------------
 
 def _shard(packed: torch.Tensor, cfg: RenderConfig, mesh: pmesh.Mesh) -> tuple:
-    """The rank's (row0, n_rows) and the slice of them; raises for a
-    vector off the mesh's device."""
-    row0, n_rows = mesh.kernel_rows(cfg.height, packed.device)
+    """The rank's (row0, n_rows), its block of the rows split over every
+    rank of the mesh (``megakernel.kernel_block``: ``cfg`` validated by
+    check_kernel_config on every rank first; n_rows 0 launches nothing),
+    and the slice of them; raises for a vector off the mesh's device."""
+    row0, n_rows = megakernel.kernel_block(mesh, cfg, packed.device, check_kernel_config)
     return (row0, n_rows), slice(row0, row0 + n_rows)
 
 
@@ -657,33 +660,46 @@ def _as_block(x, band: slice, device, channels: bool) -> torch.Tensor:
     return (x[..., band, :, :] if channels else x[..., band, :]).contiguous()
 
 
+def _zeros_like_grad(packed: torch.Tensor) -> tuple:
+    """(loss, gradient) of an empty block of rows: exact zeros, the
+    all-reduce's share of a rank that makes no launch."""
+    return (torch.zeros((), dtype=torch.float32, device=packed.device),
+            torch.zeros(packed.shape, dtype=torch.float32, device=packed.device))
+
+
 def sharded_loss_and_grad(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
                           cfg: RenderConfig, seed, target, mesh: pmesh.Mesh):
-    """K4 row-sharded over the mesh's ranks (sharded_loss_and_grad_pallas,
-    gradkernel.py:1060-1137): each rank launches once on its rows of the
-    whole-image ``target``, then one all-reduce of the packed [loss, grad]
-    gives every rank the whole image's (loss, (P,) gradient), equal to the
-    single launch up to the order of the sums (the forward of
+    """K4 row-sharded over every rank of the mesh, whatever its shape
+    (sharded_loss_and_grad_pallas, gradkernel.py:1060-1137): each rank
+    launches once on its block of the rows of the whole-image ``target``
+    (none on an empty block), then one all-reduce of the packed [loss,
+    grad] gives every rank the whole image's (loss, (P,) gradient), equal
+    to the single launch up to the order of the sums (the forward of
     ``diff.image_loss_kernel`` with a mesh). CPU vectors run the plain
     version on the rank's rows."""
     rows, band = _shard(packed, cfg, mesh)
-    target = _as_block(target, band, packed.device, channels=True)
-    loss, grad = loss_and_grad_packed(packed, like_scene, like_camera, cfg, seed, target, rows)
+    if rows[1] == 0:
+        loss, grad = _zeros_like_grad(packed)
+    else:
+        target = _as_block(target, band, packed.device, channels=True)
+        loss, grad = loss_and_grad_packed(packed, like_scene, like_camera, cfg, seed, target, rows)
     loss, grad = pmesh.all_reduce_sum([loss, grad], mesh)
     return loss, grad
 
 
 def sharded_render_light_vjp_multi(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
                                    cfg: RenderConfig, seed, cot_block, mesh: pmesh.Mesh):
-    """K5 row-sharded over the mesh's ranks
+    """K5 row-sharded over every rank of the mesh
     (sharded_render_light_vjp_pallas_multi, gradkernel.py:535-622): each
-    rank launches once on its rows with ``cot_block``, its rows' block
-    (F, ..., n_rows, W, 3) of the light cotangent of (F, P) params rows
-    (or (P,)), and one all-reduce gives every rank the whole image's
-    gradient (the backward of ``diff.render_light_pair`` with a mesh)."""
-    check_kernel_config(cfg)
+    rank launches once on its block of rows with ``cot_block``, its rows'
+    block (F, ..., n_rows, W, 3) of the light cotangent of (F, P) params
+    rows (or (P,)), none on an empty block, and one all-reduce gives every
+    rank the whole image's gradient (the backward of
+    ``diff.render_light_pair`` with a mesh)."""
     rows, _ = _shard(packed, cfg, mesh)
-    if packed.device.type == "cpu":
+    if rows[1] == 0:
+        grad = _zeros_like_grad(packed)[1]
+    elif packed.device.type == "cpu":
         grad = render_light_vjp_plain(packed, like_scene, like_camera, cfg, seed, cot_block, rows)
     else:
         grad = render_light_vjp_cuda(packed, like_scene, like_camera, cfg, seed, cot_block, rows)
@@ -694,17 +710,20 @@ def sharded_render_light_vjp_multi(packed: torch.Tensor, like_scene: Scene, like
 def sharded_soft_loss_and_grad(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,
                                cfg: RenderConfig, seed, target, alpha, zero_map,
                                mesh: pmesh.Mesh):
-    """K6 row-sharded over the mesh's ranks
+    """K6 row-sharded over every rank of the mesh
     (sharded_soft_loss_and_grad_pallas, gradkernel.py:1456-1515): each rank
-    launches once on its rows of the whole-image ``target`` and ``alpha``,
-    and one all-reduce of the packed [loss, grad] gives every rank the
-    whole image's (the forward of ``diff.soft_image_loss_kernel`` with a
-    mesh). The alpha cotangent stays the rank's block of rows."""
-    check_kernel_config(cfg)
+    launches once on its block of the rows of the whole-image ``target``
+    and ``alpha`` (none on an empty block), and one all-reduce of the
+    packed [loss, grad] gives every rank the whole image's (the forward of
+    ``diff.soft_image_loss_kernel`` with a mesh). The alpha cotangent stays
+    the rank's block of rows (``mesh.kernel_rows``)."""
     rows, band = _shard(packed, cfg, mesh)
     target = _as_block(target, band, packed.device, channels=True)
     alpha = _as_block(alpha, band, packed.device, channels=False)
-    if packed.device.type == "cpu":
+    if rows[1] == 0:
+        loss, grad = _zeros_like_grad(packed)
+        g_alpha = torch.zeros_like(alpha)
+    elif packed.device.type == "cpu":
         loss, grad, g_alpha = render_soft_loss_and_grad_plain(
             packed, like_scene, like_camera, cfg, seed, target, alpha, zero_map, rows=rows)
     else:

@@ -347,28 +347,48 @@ def render_light_cuda_multi(scenes, camera: Camera, cfg: RenderConfig, seed) -> 
 
 # --- K3: the row-sharded launches ----------------------------------------------
 
+def kernel_block(mesh: pmesh.Mesh, cfg: RenderConfig, device,
+                 check=renderer.check_supported) -> tuple:
+    """(row0, n_rows) of this rank's sharded launch (``mesh.kernel_rows``),
+    ``cfg`` validated by ``check`` first. Every sharded wrapper takes its
+    block here and launches nothing when ``n_rows`` is 0 (fewer rows than
+    ranks), so every rank validates alike and none raises alone while the
+    others wait for it in a collective."""
+    check(cfg)
+    return mesh.kernel_rows(cfg.height, device)
+
+
+def _empty_rows(cfg: RenderConfig, camera: Camera, n_frames: int, device) -> torch.Tensor:
+    """The light of an empty block of rows: (n_frames, [V,] 0, W, 3)."""
+    views = () if camera.top.x.dim() == 0 else (camera.top.x.numel(),)
+    return torch.zeros((n_frames, *views, 0, cfg.width, 3), dtype=torch.float32, device=device)
+
+
 def sharded_render_light_cuda(scene: Scene, camera: Camera, cfg: RenderConfig, seeds,
                               mesh: pmesh.Mesh, gather: bool = True) -> torch.Tensor:
-    """``render_light_cuda`` row-sharded over the mesh's ranks (K3): each
-    rank makes one launch on its block of rows (``mesh.kernel_rows``: a
-    mesh with no samples axis), bitwise those rows of the single launch.
-    ``gather`` (the default) returns the whole light on every rank,
-    ``gather=False`` the rank's block. Tensors on the CPU run the plain pipeline on the rank's rows;
-    tensors off the mesh's device raise."""
+    """``render_light_cuda`` row-sharded over every rank of the mesh, whatever
+    its shape (K3, sharded_render_light_pallas, megakernel.py:619): each
+    rank makes one launch on its block of rows (``mesh.kernel_rows``; none
+    on an empty block), bitwise those rows of the single launch. ``gather``
+    (the default) returns the whole light on every rank, ``gather=False``
+    the rank's block. Tensors on the CPU run the plain pipeline on the
+    rank's rows; tensors off the mesh's device raise."""
     device = _device_of(scene, camera)
     cfg = with_hints(scene, cfg)
-    row0, n_rows = mesh.kernel_rows(cfg.height, device)
-    if device.type == "cpu":
+    row0, n_rows = kernel_block(mesh, cfg, device)
+    words, batched = renderer.seed_words(seeds)
+    if n_rows == 0:
+        out = _empty_rows(cfg, camera, len(words), device)
+        out = out if batched else out[0]
+    elif device.type == "cpu":
         out = renderer.render_light(scene, camera, cfg, seeds, slice(row0, row0 + n_rows))
     else:
-        renderer.check_supported(cfg)
-        words, batched = renderer.seed_words(seeds)
         out = launch_forward(params.pack(scene, camera), params.layout(scene, camera), cfg,
                              seed_tensor(words, device), (row0, n_rows))
         if camera.top.x.dim() == 0:
             out = out[:, 0]
         out = out if batched else out[0]
-    return pmesh.gather_rows(out, mesh, cfg.height) if gather else out
+    return pmesh.gather_kernel_rows(out, mesh, cfg.height) if gather else out
 
 
 def sharded_render_image_cuda(scene: Scene, camera: Camera, cfg: RenderConfig, seeds,
@@ -376,29 +396,31 @@ def sharded_render_image_cuda(scene: Scene, camera: Camera, cfg: RenderConfig, s
     """``sharded_render_light_cuda`` tone-mapped (plain torch)."""
     image = light_to_color(sharded_render_light_cuda(scene, camera, cfg, seeds, mesh, gather=False),
                            cfg.light_coefficient)
-    return pmesh.gather_rows(image, mesh, cfg.height) if gather else image
+    return pmesh.gather_kernel_rows(image, mesh, cfg.height) if gather else image
 
 
 def sharded_render_light_cuda_multi(scenes, camera: Camera, cfg: RenderConfig, seed,
                                     mesh: pmesh.Mesh, gather: bool = True) -> torch.Tensor:
-    """``render_light_cuda_multi`` (K2) row-sharded over the mesh's ranks:
-    one launch per rank on its block of rows, (F, [V,] rows, W, 3) (the
-    forward of ``diff.render_light_pair`` with a mesh)."""
+    """``render_light_cuda_multi`` (K2) row-sharded over every rank of the
+    mesh (megakernel.py:725): one launch per rank on its block of rows
+    (none on an empty block), (F, [V,] rows, W, 3) (the forward of
+    ``diff.render_light_pair`` with a mesh)."""
     device = _device_of(scenes[0], camera)
     cfg = with_hints(scenes, cfg)
-    row0, n_rows = mesh.kernel_rows(cfg.height, device)
-    if device.type == "cpu":
+    row0, n_rows = kernel_block(mesh, cfg, device)
+    words, batched = renderer.seed_words(seed)
+    if batched:
+        raise ValueError("the multi-scene render takes one scalar seed")
+    if n_rows == 0:
+        out = _empty_rows(cfg, camera, len(scenes), device)
+    elif device.type == "cpu":
         out = torch.stack([renderer.render_light(s, camera, cfg, seed, slice(row0, row0 + n_rows))
                            for s in scenes])
     else:
-        renderer.check_supported(cfg)
-        words, batched = renderer.seed_words(seed)
-        if batched:
-            raise ValueError("the multi-scene render takes one scalar seed")
         out = launch_forward(params.stack_rows(scenes, camera), params.layout(scenes[0], camera),
                              cfg, seed_tensor(words * len(scenes), device), (row0, n_rows))
         out = out[:, 0] if camera.top.x.dim() == 0 else out
-    return pmesh.gather_rows(out, mesh, cfg.height) if gather else out
+    return pmesh.gather_kernel_rows(out, mesh, cfg.height) if gather else out
 
 
 # --- the measurement variants (tools/fwd_ablate.py) ---------------------------

@@ -16,16 +16,23 @@ sample's global index, so any split renders the same image, bitwise when
 the samples axis is 1 (a split samples axis reassociates the per-pixel
 sum).
 
-Rank (r, s) holds rows block r (``Mesh.rows``: the rows split as evenly
-as the rays axis allows, so no block needs padding). Two routes shard:
+Two routes shard, each with its own split of the rows:
 
 * the plain route (``sharded_render_light``/``sharded_render_image``):
-  rank (r, s) renders rows block r with samples block s through
-  ``renderer.render_light_tile``;
+  rank (r, s) renders rows block r (``Mesh.rows``: the rows split as
+  evenly as the rays axis allows, so no block needs padding) with samples
+  block s through ``renderer.render_light_tile``, and gathers the image
+  over its rays group (``gather_rows``);
 * the kernel route (the ``sharded_*`` wrappers of ops/cuda/megakernel.py
-  and ops/cuda/gradkernel.py): every rank launches the kernel once on its
-  rows block, with every sample (``kernel_rows``: a mesh whose samples
-  axis is 1).
+  and ops/cuda/gradkernel.py): a launch takes every sample, so the rows
+  split over every rank of the mesh, whatever its shape. The block of rank
+  ``ray_index * samples + sample_index`` (the rank itself, as the JAX
+  package's linear device index over the mesh axes) is block ``rank`` of
+  ``world`` (``Mesh.kernel_rows``), each rank launches once on it, and the
+  image gathers over the world (``gather_kernel_rows``). A rank whose
+  block is empty (fewer rows than ranks) makes no launch, adds zeros to
+  the all-reduce and an empty block to the gather, and joins every
+  collective.
 
 Training (diff.py): on the plain route every rank takes its rows' part of
 the global loss and all-reduces the parameter gradients after the local
@@ -121,17 +128,15 @@ class Mesh:
         return row_block(height, self.rays, self.ray_index)
 
     def kernel_rows(self, height: int, device) -> tuple:
-        """``rows(height)`` of a kernel launch on ``device``, the device of
+        """(row0, n_rows) of this rank's kernel launch: block ``rank`` of
+        the rows split over every rank of the mesh, ``device`` the device of
         the tensors to render. Raises unless it is the mesh's (a sharded
-        call never moves them) and the samples axis is 1 (a launch takes
-        every sample)."""
+        call never moves them). ``n_rows`` is 0 when there are fewer rows
+        than ranks."""
         if torch.device(device) != self.device:
             raise ValueError(f"the sharded kernel route runs on the mesh's device {self.device}; "
                              f"the tensors lie on {device}")
-        if self.samples != 1:
-            raise ValueError(f"the sharded kernel route shards rows only; this mesh splits "
-                             f"samples {self.samples} ways")
-        return self.rows(height)
+        return row_block(height, self.world, self.rank)
 
 
 def make_mesh(rays: Optional[int] = None, samples: int = 1, device=None) -> Mesh:
@@ -206,24 +211,35 @@ def all_reduce_sum(parts, mesh: Mesh) -> list:
     return out
 
 
-def gather_rows(block: torch.Tensor, mesh: Mesh, height: int) -> torch.Tensor:
-    """The whole image (..., height, W, C) on every rank from each rank's
-    rows block (..., n_rows, W, C), gathered over its rays group (whose
-    k-th rank holds block k, as ``Mesh.rows`` splits them). Not
-    differentiable."""
-    group, n = mesh.rays_group, mesh.rays
+def _gather(block: torch.Tensor, mesh: Mesh, height: int, group, n: int) -> torch.Tensor:
+    """The whole image (..., height, W, C) from the rows blocks
+    (..., n_rows, W, C) of the n ranks of ``group``, its k-th rank holding
+    ``row_block(height, n, k)``."""
     if _group_size(mesh, group) == 1:
         return block
     staged = mesh.backend == "gloo" and block.device.type == "cuda"
-    tall = -(-height // n)
     pad = list(block.shape)
-    pad[-3] = tall
+    pad[-3] = -(-height // n)
     buf = block.new_zeros(pad, device="cpu" if staged else block.device)
     buf[..., :block.shape[-3], :, :] = block.detach()
     parts = [torch.empty_like(buf) for _ in range(n)]
     dist.all_gather(parts, buf, group=group)
     rows = [p[..., :row_block(height, n, i)[1], :, :] for i, p in enumerate(parts)]
     return torch.cat(rows, dim=-3).to(block.device)
+
+
+def gather_rows(block: torch.Tensor, mesh: Mesh, height: int) -> torch.Tensor:
+    """The whole image (..., height, W, C) on every rank from each rank's
+    plain-route rows block (``Mesh.rows``), gathered over its rays group.
+    Not differentiable."""
+    return _gather(block, mesh, height, mesh.rays_group, mesh.rays)
+
+
+def gather_kernel_rows(block: torch.Tensor, mesh: Mesh, height: int) -> torch.Tensor:
+    """The whole image (..., height, W, C) on every rank from each rank's
+    kernel-route block (``Mesh.kernel_rows``, possibly empty), gathered over
+    the world. Not differentiable."""
+    return _gather(block, mesh, height, None, mesh.world)
 
 
 class SampleSum(torch.autograd.Function):
@@ -296,7 +312,8 @@ def sharded_render_image(scene: Scene, camera: Camera, cfg: RenderConfig, seed, 
 def sharded_renderer(cfg: RenderConfig, mesh: Mesh, tonemap: bool = True, impl: str = "plain"):
     """(scene, camera, seed) -> the whole image (or light) on every rank:
     the plain route, or with ``impl="kernel"`` the row-sharded forward
-    kernel, one launch per rank (megakernel.sharded_render_*_cuda). The
+    kernel, at most one launch per rank on its block of the world's split
+    (megakernel.sharded_render_*_cuda). The
     counterpart of jit_sharded_renderer (mesh.py:145-175)."""
     if impl == "kernel":
         # Imported here: the kernel wrappers import this module.

@@ -66,9 +66,9 @@ def test_port_never_imports_jax(tmp_path):
     in trig with newton and in kepler, its gradient finite, and K6's soft
     loss in trig), and the app renders; then a short --interactive stdin
     session with the preview server, the FPS overlay and --save-state, a
-    --load-state resume, and a packed train state written by
-    inverse_render --ckpt and read back (a lazy import inside a function
-    shows only when the function runs)."""
+    --load-state resume, a packed train state written by inverse_render
+    --ckpt and read back, and dryrun's flagship forward (a lazy import
+    inside a function shows only when the function runs)."""
     (tmp_path / "properties.txt").write_text(TINY_CONFIG)
     code = textwrap.dedent(f"""
         import importlib, importlib.util, sys
@@ -136,6 +136,9 @@ def test_port_never_imports_jax(tmp_path):
         _, init, _ = inverse_render.packed_train_step(args, cfg, camera, scene0)
         model, opt = init(scene0)
         assert checkpoint.restore_train_state("ckpt", model.scene_vec, opt.state_dict())[2] == 20
+        from fourd_ray_tracing_tpu_torch import dryrun
+        forward, example = dryrun.entry("cpu")
+        assert torch.isfinite(forward(*example)).all()
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         print("isolated-ok")
     """)

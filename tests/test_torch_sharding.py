@@ -9,7 +9,10 @@ CPU the kernel route runs the kernels' plain versions on each rank's rows.
 Tolerances (the counterparts of tests/test_sharding.py): images bitwise
 when the samples axis is 1, within 2e-6 when it is split (the per-pixel
 sum reassociates); gradients within rtol 1e-4, atol 1e-7; losses and
-parameters after 3 Adam steps within rtol 1e-5 (multihost_run.TOL).
+parameters after 3 Adam steps within rtol 1e-5 (multihost_run.TOL). The
+kernel route splits the rows over every rank whatever the mesh's shape, so
+its images stay bitwise on (2, 2), (1, 4) and (4, 1) meshes too, and on 3
+rows over 4 ranks, where rank 0's block is empty.
 render_light_tile is held against the JAX package's within
 tests/helpers.py:assert_images_close (XLA on the CPU fuses multiply-adds).
 """
@@ -39,6 +42,9 @@ Work = multihost_run.Work
 W = Work(steps=3)  # room, 32x16, 4 spp, 2 bounces, seed 7
 W3 = Work(views=tcam.VIEWS_ALL, seeds=(5, 6), steps=1)  # 3 views, a (2,) seed vector
 TRAIN = ("kernel_hard", "kernel_soft", "plain_hard", "plain_soft")
+KERNEL = ("image", "kernel_hard", "kernel_soft", "pair")
+W_EMPTY = Work(height=3, steps=1)  # 3 rows over 4 ranks: blocks of 0, 1, 1 and 1 rows
+MESHES = {"2x2": 0, "1x4": 1, "4x1": 2, "empty": 3}  # the kernel route's tasks of world4
 
 
 @pytest.fixture(scope="module")
@@ -56,16 +62,20 @@ def world3():
 
 @pytest.fixture(scope="module")
 def world4():
-    """4 ranks: the (2, 2) and (1, 4) meshes."""
-    return multihost_run.spawn([(2, 2, W, ["plain_image", "plain_hard", "plain_soft"]),
-                                (1, 4, W, ["plain_image"])], nprocs=4)
+    """4 ranks: the (2, 2), (1, 4) and (4, 1) meshes, and 3 rows on a (2, 2)
+    mesh."""
+    return multihost_run.spawn([(2, 2, W, ["plain_image", "plain_hard", "plain_soft", *KERNEL]),
+                                (1, 4, W, ["plain_image", *KERNEL]),
+                                (4, 1, W, KERNEL),
+                                (2, 2, W_EMPTY, KERNEL)], nprocs=4)
 
 
 @pytest.fixture(scope="module")
 def single():
     items = ["plain_image", "image", *TRAIN, "pair"]
     return {"W": multihost_run.run_items(None, W, items, CPU),
-            "W3": multihost_run.run_items(None, W3, ["image", "kernel_hard"], CPU)}
+            "W3": multihost_run.run_items(None, W3, ["image", "kernel_hard"], CPU),
+            "W_EMPTY": multihost_run.run_items(None, W_EMPTY, KERNEL, CPU)}
 
 
 def room_and_camera(views=("yxz",)):
@@ -180,14 +190,23 @@ def test_sharded_calls_off_the_mesh_device_raise():
         diff.image_loss_kernel(vec, scene, camera, cfg, 1, torch.zeros(16, 32, 3), mesh)
 
 
-def test_kernel_route_refuses_a_samples_axis():
-    """A kernel launch takes every sample: the kernel route shards rows
-    only, with the plain route's row rule."""
-    mesh = pmesh.Mesh(rays=2, samples=2, rank=3, device=CPU)
-    assert mesh.rows(16) == pmesh.row_block(16, 2, 1) == (8, 8)
-    with pytest.raises(ValueError, match="shards rows only"):
-        mesh.kernel_rows(16, CPU)
-    assert pmesh.Mesh(rays=4, samples=1, rank=3, device=CPU).kernel_rows(16, CPU) == (12, 4)
+@pytest.mark.parametrize("rays,samples", [(2, 2), (4, 1), (1, 4)])
+def test_kernel_blocks_split_the_rows_over_the_whole_mesh(rays, samples):
+    """A kernel launch takes every sample, so the kernel route's blocks
+    split the rows over every rank of the mesh, whatever its shape: rank
+    ray_index * samples + sample_index holds block rank of world, as the
+    JAX package's linear device index; 3 rows over 4 ranks leave rank 0
+    an empty block. The plain route keeps its (rays block, samples block)
+    layout; a tensor off the mesh's device raises."""
+    meshes = [pmesh.Mesh(rays=rays, samples=samples, rank=r, device=CPU) for r in range(4)]
+    for r, mesh in enumerate(meshes):
+        assert mesh.ray_index * samples + mesh.sample_index == r
+        assert mesh.kernel_rows(16, CPU) == pmesh.row_block(16, 4, r) == (4 * r, 4)
+        assert mesh.rows(16) == pmesh.row_block(16, rays, r // samples)
+    assert [m.kernel_rows(3, CPU) for m in meshes] == [(0, 0), (0, 1), (1, 1), (2, 1)]
+    on_card = pmesh.Mesh(rays=rays, samples=samples, rank=1, device=torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="mesh's device"):
+        on_card.kernel_rows(16, CPU)
 
 
 def test_kernel_route_with_a_mesh_runs_the_sharded_wrappers(monkeypatch):
@@ -316,7 +335,7 @@ def test_plain_versions_by_rows_sum_to_the_whole():
 
 def test_every_rank_returns_every_task(world2, world3, world4):
     assert [len(world2), len(world3), len(world4)] == [2, 3, 4]
-    assert [len(r) for r in world2] == [2, 2] and [len(r) for r in world4] == [2] * 4
+    assert [len(r) for r in world2] == [2, 2] and [len(r) for r in world4] == [4] * 4
 
 
 @pytest.mark.parametrize("shape", ["2x1", "2x2", "1x4"])
@@ -377,6 +396,26 @@ def test_uneven_kernel_route_grads(world3, single):
         res = rank[0]["kernel_hard"]
         np.testing.assert_allclose(res["grad"], ref["grad"], rtol=1e-4, atol=1e-7)
         np.testing.assert_allclose(res["losses"], ref["losses"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("item", KERNEL)
+@pytest.mark.parametrize("shape", list(MESHES))
+def test_kernel_route_on_any_mesh(shape, item, world4, single):
+    """The kernel route on (2, 2), (1, 4) and (4, 1) meshes of 4 ranks, and
+    on 3 rows over a (2, 2) mesh (rank 0's block empty: no launch, zeros to
+    the all-reduce, an empty block to the gather): the image bitwise the
+    single process, the hard (K4) and soft (K6) steps' losses and
+    parameters within multihost_run.TOL, the pair's gradient (K2 + K5)
+    within mixed 1e-4."""
+    ref = single["W_EMPTY" if shape == "empty" else "W"][item]
+    for rank in world4:
+        res = rank[MESHES[shape]][item]
+        if item == "image":
+            np.testing.assert_array_equal(res["image"], ref["image"])
+        else:
+            assert multihost_run.compare({item: res}, {item: ref}, W.lr)[item]["ok"]
+        if item == "pair":
+            assert np.abs(res["grad"]).max() > 0
 
 
 def test_sharded_pair_grads(world2, single):
