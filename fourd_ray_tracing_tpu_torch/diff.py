@@ -92,6 +92,7 @@ from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel, megakernel
 from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4, dot
 from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh
+from fourd_ray_tracing_tpu_torch.utils import profiling
 
 IMPLS = ("plain", "kernel")
 
@@ -800,7 +801,11 @@ def make_packed_train_step(cfg: RenderConfig, lr: float, camera: Camera, scene_t
       over its one parameter;
     * ``step(model, optimizer, seed, target) -> loss`` updates the model in
       place; a scalar seed, from which a minibatch step derives its
-      ``frames_per_step`` frame seeds;
+      ``frames_per_step`` frame seeds. Under a profiler it records the span
+      ``train.step`` and inside it ``train.adam`` (the gradient's zeroing,
+      then the mask and the update), ``k4.pack``, the launch's
+      (gradkernel.loss_and_grad_cuda) and ``train.backward``
+      (utils/profiling.py);
     * ``unpack(model or scene_vec) -> Scene``.
 
     ``param_filter`` (the make_train_step contract) becomes a packed 0/1
@@ -826,14 +831,20 @@ def make_packed_train_step(cfg: RenderConfig, lr: float, camera: Camera, scene_t
         return model, torch.optim.Adam(model.parameters(), lr=lr)
 
     def step(model: PackedScene, optimizer, seed, target):
-        optimizer.zero_grad(set_to_none=False)
-        loss = image_loss_kernel(model.packed(), scene_template, camera, cfg,
-                                 frame_seeds(seed, frames_per_step), target)
-        loss.backward()
-        if mask is not None:
-            model.scene_vec.grad.mul_(mask.to(model.scene_vec.device))
-        optimizer.step()
-        return loss.detach()
+        with profiling.span("train.step"):
+            with profiling.span("train.adam"):
+                optimizer.zero_grad(set_to_none=False)
+            with profiling.span("k4.pack"):
+                vec = model.packed()
+            loss = image_loss_kernel(vec, scene_template, camera, cfg,
+                                     frame_seeds(seed, frames_per_step), target)
+            with profiling.span("train.backward"):
+                loss.backward()
+            with profiling.span("train.adam"):
+                if mask is not None:
+                    model.scene_vec.grad.mul_(mask.to(model.scene_vec.device))
+                optimizer.step()
+            return loss.detach()
 
     def unpack(state) -> Scene:
         vec = state.scene_vec if isinstance(state, PackedScene) else state

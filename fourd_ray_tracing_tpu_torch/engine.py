@@ -40,13 +40,17 @@ import numpy as np
 import torch
 
 from fourd_ray_tracing_tpu_torch import camera as cam
-from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig, accumulate, render_image
+from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig, accumulate, render_light
 from fourd_ray_tracing_tpu_torch.models.scene import Scene
 from fourd_ray_tracing_tpu_torch.ops.cuda import build
-from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import hinted, render_image_cuda, with_hints
+from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import hinted, render_light_cuda, with_hints
+from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4, f32
+from fourd_ray_tracing_tpu_torch.utils import profiling
 
-RENDERERS = {"cuda": render_image_cuda, "torch": render_image}
+# The light renderers; a group tone-maps their light itself, as
+# render_image_cuda and render_image do.
+RENDERERS = {"cuda": render_light_cuda, "torch": render_light}
 
 
 def generate_seed(rng: np.random.Generator, wall_clock: bool = True) -> int:
@@ -75,12 +79,19 @@ class _ViewGroup:
             engine.matrix_height, self.views, engine.device,
         )
 
+    def render(self, scene: Scene, camera: cam.Camera, seeds) -> torch.Tensor:
+        """The tone-mapped frames of ``seeds`` (one kernel launch)."""
+        light = self._render(scene, camera, self.cfg, seeds)
+        with profiling.span("engine.tonemap"):
+            return light_to_color(light, self.cfg.light_coefficient)
+
     def step_n(self, scene: Scene, camera: cam.Camera, seeds: np.ndarray, parts) -> None:
         """K frames rendered in one call (one kernel launch), then blended
         in order: bitwise K single steps."""
-        frames = self._render(scene, camera, self.cfg, seeds)
-        for frame, part in zip(frames, parts):
-            accumulate(self.accum, frame, part)
+        frames = self.render(scene, camera, seeds)
+        with profiling.span("engine.blend"):
+            for frame, part in zip(frames, parts):
+                accumulate(self.accum, frame, part)
 
 
 def _host(x) -> np.ndarray:
@@ -182,7 +193,9 @@ class RenderEngine:
     def _floats(self, values) -> List[torch.Tensor]:
         """Host floats as 0-d float32 tensors on the engine's device, in
         one copy."""
-        return list(torch.tensor(list(values), dtype=torch.float32, device=self.device).unbind())
+        values = list(values)
+        with profiling.sync("camera", self.device):
+            return list(torch.tensor(values, dtype=torch.float32, device=self.device).unbind())
 
     @property
     def focus(self) -> Vec4:
@@ -302,14 +315,21 @@ class RenderEngine:
     def step_frames(self, n: int) -> torch.Tensor:
         """Render ``n`` frames in one launch per group (per
         MAX_FRAMES_PER_LAUNCH frames); bitwise equal to ``n`` step_frame
-        calls."""
-        while n > 0:
-            chunk = min(n, self.MAX_FRAMES_PER_LAUNCH)
-            seeds, parts = zip(*(self._next_seed() for _ in range(chunk)))
-            seeds = np.asarray(seeds, np.uint32)
-            for g in self.groups:
-                g.step_n(self.scene, g.camera(self), seeds, parts)
-            n -= chunk
+        calls. Under a profiler it records the span ``engine.step`` and
+        inside it ``engine.seeds``, and per group ``engine.camera``, the
+        launch's (megakernel.render_light_cuda), ``engine.tonemap`` and
+        ``engine.blend`` (utils/profiling.py)."""
+        with profiling.span("engine.step"):
+            while n > 0:
+                chunk = min(n, self.MAX_FRAMES_PER_LAUNCH)
+                with profiling.span("engine.seeds"):
+                    seeds, parts = zip(*(self._next_seed() for _ in range(chunk)))
+                    seeds = np.asarray(seeds, np.uint32)
+                for g in self.groups:
+                    with profiling.span("engine.camera"):
+                        camera = g.camera(self)
+                    g.step_n(self.scene, camera, seeds, parts)
+                n -= chunk
         return self.accum
 
     def precompile(self) -> float:
@@ -327,7 +347,7 @@ class RenderEngine:
         if cuda and self.impl == "cuda":
             build.load()
         for g in self.groups:
-            g._render(self.scene, g.camera(self), g.cfg, np.ones(1, np.uint32))
+            g.render(self.scene, g.camera(self), np.ones(1, np.uint32))
         if cuda:
             torch.cuda.synchronize(self.device)
         return time.monotonic() - t0

@@ -21,6 +21,7 @@ from fourd_ray_tracing_tpu_torch.camera import Camera
 from fourd_ray_tracing_tpu_torch.models.scene import (COMPOSITE_KINDS, Scene, cells_only,
                                                        freeze_hint_grads)
 from fourd_ray_tracing_tpu_torch.ops.sky import Environment
+from fourd_ray_tracing_tpu_torch.utils import profiling
 
 # Floats per packed primitive: point(4) norm(4) glow refl color(3), and
 # center(4) r glow refl color(3); a cylinder point(4) axis1(4) axis2(4) r
@@ -217,7 +218,9 @@ def freeze_mask(cfg, like_scene: Scene, size: int | None = None, device="cpu"):
     def make():
         base = freeze_mask(cfg, like_scene)
         pad = torch.ones((base.numel() if size is None else size) - base.numel())
-        return torch.cat([base, pad]).to(device)
+        mask = torch.cat([base, pad])
+        with profiling.sync("mask", device):
+            return mask.to(device)
 
     return _frozen_memo(cfg, like_scene, (size, str(device)), make)
 

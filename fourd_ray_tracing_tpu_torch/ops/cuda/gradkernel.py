@@ -88,6 +88,7 @@ from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import (hint_table, hinted,
                                                              launch_rows, mode_codes, production,
                                                              seed_tensor, with_hints)
 from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh
+from fourd_ray_tracing_tpu_torch.utils import profiling
 
 LAUNCHES = 0  # K4
 VJP_LAUNCHES = 0  # K5
@@ -320,29 +321,30 @@ def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
     if target.numel() != lay.n_views * n_rows * cfg.width * 3 or target.shape[-1] != 3:
         raise ValueError(f"target must hold {lay.n_views} x {n_rows} x {cfg.width} x 3 "
                          f"values, got {tuple(target.shape)}")
-    lib = build.load()
-    n_frames = seeds.numel()
-    table = (ctypes.c_int * len(lay))(*lay)
-    n_cols = _scratch_cols(lib, table, cfg, n_rows, n_frames)
-    g_mean = torch.empty((n_frames, *target.shape), dtype=torch.float32, device=device)
-    grad_parts = torch.empty((lay.size, n_cols), dtype=torch.float32, device=device)
-    loss_parts = torch.empty((n_cols,), dtype=torch.float64, device=device)
-    grad = torch.empty((lay.size,), dtype=torch.float32, device=device)
-    loss = torch.empty((), dtype=torch.float32, device=device)
-    scale = float(np.float32(1.0 / (n_frames * total * 3)))
-    modes = _modes(cfg, lay)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        args = (packed.data_ptr(), seeds.data_ptr(), n_frames, ctypes.addressof(table),
-                cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
-                float(np.float32(cfg.small_indent)), float(np.float32(cfg.light_coefficient)),
-                target.data_ptr(), scale, g_mean.data_ptr(), grad_parts.data_ptr(),
-                loss_parts.data_ptr(), grad.data_ptr(), loss.data_ptr(), _addr(hints), keep_ptr,
-                stream)
-        if modes is None:
-            err = lib.fourd_loss_grad_launch(*args)
-        else:
-            err = lib.fourd_loss_grad_modes(*modes, *args)
+    with profiling.span("k4.launch"):
+        lib = build.load()
+        n_frames = seeds.numel()
+        table = (ctypes.c_int * len(lay))(*lay)
+        n_cols = _scratch_cols(lib, table, cfg, n_rows, n_frames)
+        g_mean = torch.empty((n_frames, *target.shape), dtype=torch.float32, device=device)
+        grad_parts = torch.empty((lay.size, n_cols), dtype=torch.float32, device=device)
+        loss_parts = torch.empty((n_cols,), dtype=torch.float64, device=device)
+        grad = torch.empty((lay.size,), dtype=torch.float32, device=device)
+        loss = torch.empty((), dtype=torch.float32, device=device)
+        scale = float(np.float32(1.0 / (n_frames * total * 3)))
+        modes = _modes(cfg, lay)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream().cuda_stream
+            args = (packed.data_ptr(), seeds.data_ptr(), n_frames, ctypes.addressof(table),
+                    cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
+                    float(np.float32(cfg.small_indent)), float(np.float32(cfg.light_coefficient)),
+                    target.data_ptr(), scale, g_mean.data_ptr(), grad_parts.data_ptr(),
+                    loss_parts.data_ptr(), grad.data_ptr(), loss.data_ptr(), _addr(hints),
+                    keep_ptr, stream)
+            if modes is None:
+                err = lib.fourd_loss_grad_launch(*args)
+            else:
+                err = lib.fourd_loss_grad_modes(*modes, *args)
     if err != 0:
         raise RuntimeError(f"value-and-grad kernel launch failed: cudaError {err}")
     LAUNCHES += 1
@@ -356,15 +358,19 @@ def loss_and_grad_cuda(packed: torch.Tensor, like_scene: Scene, like_camera: Cam
                        cfg: RenderConfig, seed, target, rows=None):
     """(loss, (P,) gradient) of the packed CUDA vector by one kernel
     launch (with ``rows``, those rows' part, ``target`` their block); a
-    vector on another device raises."""
-    cfg = _auto_hints(like_scene, cfg)
-    check_kernel_config(cfg)
-    lay = params.layout(like_scene, like_camera)
-    target = torch.as_tensor(target, dtype=torch.float32, device=packed.device).contiguous()
-    words, _ = renderer.seed_words(seed)
-    return launch_loss_grad(packed.detach().contiguous(), lay, cfg,
-                            seed_tensor(words, packed.device), target, rows,
-                            params.freeze_mask(cfg, like_scene, lay.size, packed.device))
+    vector on another device raises. The launch's inputs are the span
+    ``k4.pack``, the seeds' upload ``k4.upload``, the launch ``k4.launch``."""
+    with profiling.span("k4.pack"):
+        cfg = _auto_hints(like_scene, cfg)
+        check_kernel_config(cfg)
+        lay = params.layout(like_scene, like_camera)
+        target = torch.as_tensor(target, dtype=torch.float32, device=packed.device).contiguous()
+        packed = packed.detach().contiguous()
+        keep = params.freeze_mask(cfg, like_scene, lay.size, packed.device)
+    with profiling.span("k4.upload"):
+        words, _ = renderer.seed_words(seed)
+        seeds = seed_tensor(words, packed.device)
+    return launch_loss_grad(packed, lay, cfg, seeds, target, rows, keep)
 
 
 def loss_and_grad_packed(packed: torch.Tensor, like_scene: Scene, like_camera: Camera,

@@ -57,6 +57,7 @@ from fourd_ray_tracing_tpu_torch.ops.cuda import build
 from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
 from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh
+from fourd_ray_tracing_tpu_torch.utils import profiling
 
 LAUNCHES = 0
 HINTED_LAUNCHES = 0
@@ -229,8 +230,12 @@ def launch_shape(scene: Scene, lay: params.Layout) -> tuple:
 
 
 def seed_tensor(words, device) -> torch.Tensor:
-    """uint32 seed words as the kernels' (F,) int32 tensor on ``device``."""
-    return torch.from_numpy(np.asarray(words, np.uint32).view(np.int32)).to(device)
+    """uint32 seed words as the kernels' (F,) int32 tensor on ``device``:
+    a copy from pageable memory, which waits for the device's stream
+    (the span ``sync.seeds``)."""
+    host = torch.from_numpy(np.asarray(words, np.uint32).view(np.int32))
+    with profiling.sync("seeds", device):
+        return host.to(device)
 
 
 def launch_rows(cfg: RenderConfig, rows) -> tuple:
@@ -251,7 +256,8 @@ def launch_forward(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
     row f at seeds[f] (K2). A block of rows is bitwise those rows of the
     whole image (K3). The fold takes ``cfg``'s static hints, if any, which
     every row shares. The production configuration (``production``) runs
-    the production instances, any other forwardmodes.cu's."""
+    the production instances, any other forwardmodes.cu's. The launch's
+    host work is the span ``k1.launch``."""
     global LAUNCHES, HINTED_LAUNCHES, ROW_LAUNCHES, SHARD_LAUNCHES
     renderer.check_supported(cfg)
     row0, n_rows = launch_rows(cfg, rows)
@@ -267,22 +273,23 @@ def launch_forward(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
     multi = packed.dim() == 2
     if multi and packed.shape[0] != seeds.numel():
         raise ValueError(f"{packed.shape[0]} params rows for {seeds.numel()} seeds")
-    hints = hint_table(cfg, lay)
-    lib = build.load()
-    n_frames = seeds.numel()
-    out = torch.empty((n_frames, lay.n_views, n_rows, cfg.width, 3),
-                      dtype=torch.float32, device=packed.device)
-    table = (ctypes.c_int * len(lay))(*lay)
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        args = (packed.data_ptr(), lay.size if multi else 0, seeds.data_ptr(), n_frames,
-                ctypes.addressof(table), ctypes.addressof(hints),
-                cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
-                float(np.float32(cfg.small_indent)), out.data_ptr(), stream)
-        if production(cfg, lay):
-            err = lib.fourd_forward_launch(*args)
-        else:
-            err = lib.fourd_forward_modes_launch(*mode_codes(cfg), *args)
+    with profiling.span("k1.launch"):
+        hints = hint_table(cfg, lay)
+        lib = build.load()
+        n_frames = seeds.numel()
+        out = torch.empty((n_frames, lay.n_views, n_rows, cfg.width, 3),
+                          dtype=torch.float32, device=packed.device)
+        table = (ctypes.c_int * len(lay))(*lay)
+        with torch.cuda.device(packed.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            args = (packed.data_ptr(), lay.size if multi else 0, seeds.data_ptr(), n_frames,
+                    ctypes.addressof(table), ctypes.addressof(hints),
+                    cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
+                    float(np.float32(cfg.small_indent)), out.data_ptr(), stream)
+            if production(cfg, lay):
+                err = lib.fourd_forward_launch(*args)
+            else:
+                err = lib.fourd_forward_modes_launch(*mode_codes(cfg), *args)
     if err != 0:
         raise RuntimeError(f"forward kernel launch failed: cudaError {err}")
     LAUNCHES += 1
@@ -304,7 +311,8 @@ def render_light_cuda(scene: Scene, camera: Camera, cfg: RenderConfig, seeds) ->
     """Sample-averaged light: (H, W, 3), (V, H, W, 3), or with a (K,)
     seed vector (K, H, W, 3) / (K, V, H, W, 3) from ONE launch; frame k
     is bitwise the launch with the scalar seed seeds[k]. The static hints
-    are derived when ``cfg`` has none (``with_hints``)."""
+    are derived when ``cfg`` has none (``with_hints``). On the card the
+    packing is the span ``k1.pack``, the seeds' upload ``k1.upload``."""
     device = _device_of(scene, camera)
     cfg = with_hints(scene, cfg)
     if device.type == "cpu":
@@ -312,9 +320,13 @@ def render_light_cuda(scene: Scene, camera: Camera, cfg: RenderConfig, seeds) ->
     if device.type != "cuda":
         raise ValueError(f"render_light_cuda takes CPU or CUDA tensors, got {device}")
     renderer.check_supported(cfg)
-    lay = params.layout(scene, camera)
-    words, batched = renderer.seed_words(seeds)
-    out = launch_forward(params.pack(scene, camera), lay, cfg, seed_tensor(words, device))
+    with profiling.span("k1.pack"):
+        lay = params.layout(scene, camera)
+        packed = params.pack(scene, camera)
+    with profiling.span("k1.upload"):
+        words, batched = renderer.seed_words(seeds)
+        seeds_on_card = seed_tensor(words, device)
+    out = launch_forward(packed, lay, cfg, seeds_on_card)
     if camera.top.x.dim() == 0:
         out = out[:, 0]
     return out if batched else out[0]

@@ -14,12 +14,16 @@ from typing import NamedTuple, Union
 
 import torch
 
+from fourd_ray_tracing_tpu_torch.utils import profiling
+
 Scalar = Union[torch.Tensor, float, int]
 
 
 def f32(value, device) -> torch.Tensor:
-    """A 0-d float32 tensor on ``device``."""
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    """A 0-d float32 tensor on ``device``: on a card, a copy that waits for
+    the device's stream (the span ``sync.scalar``)."""
+    with profiling.sync("scalar", device):
+        return torch.tensor(value, dtype=torch.float32, device=device)
 
 
 class Vec3(NamedTuple):

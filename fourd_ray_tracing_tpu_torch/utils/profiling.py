@@ -1,22 +1,36 @@
-"""Profiling: rays/s counters and torch.profiler trace capture.
+"""Profiling: rays/s counters and the program's host spans.
 
 Counterpart of fourd_ray_tracing_tpu/utils/profiling.py: ``FrameStats``
-(frames, seconds, rays and the rates over them), ``Meter`` (a wall-clock
-meter of render steps that waits for the device before it reads the
-clock) and ``trace_capture`` (a Chrome trace of the block it wraps, the
-counterpart of jax.profiler's capture; viewable in Perfetto or
-chrome://tracing).
+(frames, seconds, rays and the rates over them) and ``Meter`` (a
+wall-clock meter of render steps that waits for the device before it
+reads the clock).
+
+The span recorder: ``span(name)`` wraps a piece of the program's host
+work, ``sync(site, device)`` a host-device copy that blocks the host
+until the device's stream drains (``span("sync.<site>")``, on a CUDA
+device only). They record while a torch.profiler session records (the
+autograd profiler's enabled flag), so any profiler an operator or a
+benchmark opens sees the program's spans, and nothing otherwise: off,
+each returns one shared no-op context after that single check, reads no
+clock and allocates nothing. A record holds the span's name, its start
+and end on ``time.perf_counter`` (the clock a benchmark times its window
+with), the index in ``records()`` of its parent span (-1 for a top-level
+span) and its step: the sequence number of its top-level span, which its
+descendants share. Records stay in memory, at most ``CAP`` of them;
+``dropped()`` counts the spans past the cap (and their children), and
+``clear()`` empties both. Spans nest per thread.
 """
 from __future__ import annotations
 
 import contextlib
 import json
-import os
+import threading
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 @dataclass
@@ -24,7 +38,6 @@ class FrameStats:
     frames: int = 0
     seconds: float = 0.0
     rays: int = 0
-    traces: int = 0  # rays * samples-weighted bounce segments upper bound
 
     @property
     def fps(self) -> float:
@@ -84,18 +97,101 @@ class Meter:
             self.stats.rays += rays
 
 
-@contextlib.contextmanager
-def trace_capture(log_dir: Optional[str]):
-    """torch.profiler capture of the block: CPU ops, and the card's kernels
-    when there is one, written as a Chrome trace ``trace_<pid>_<ns>.json``
-    into ``log_dir``. Does nothing for an empty ``log_dir``."""
-    if not log_dir:
-        yield
-        return
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+CAP = 1_000_000
+
+
+class Record(NamedTuple):
+    """One span: ``name``, ``start`` and ``end`` (time.perf_counter
+    seconds; ``end`` None while it is open), ``parent`` (its parent's
+    index in ``records()``, -1 at the top) and ``step`` (its top-level
+    span's sequence number)."""
+
+    name: str
+    start: float
+    end: Optional[float]
+    parent: int
+    step: int
+
+
+# [name, start, end, parent, step] of every span, in the order opened: a
+# list, so that a span's end is one item set, and records() reads them.
+_records: list = []
+_dropped = 0
+_steps = 0
+_open = threading.local()  # .stack: the indices of the thread's open spans (None: dropped)
+_OFF = contextlib.nullcontext()
+
+
+def _stack() -> list:
+    stack = getattr(_open, "stack", None)
+    if stack is None:
+        stack = _open.stack = []
+    return stack
+
+
+class _Span:
+    __slots__ = ("name", "index", "stack")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _dropped, _steps
+        self.stack = stack = _stack()
+        parent = stack[-1] if stack else -1
+        index = None
+        if parent is None or len(_records) >= CAP:
+            _dropped += 1
+        else:
+            if parent == -1:
+                step = _steps
+                _steps += 1
+            else:
+                step = _records[parent][4]
+            index = len(_records)
+            _records.append([self.name, time.perf_counter(), None, parent, step])
+        self.index = index
+        stack.append(index)
+
+    def __exit__(self, *exc):
+        end = time.perf_counter()
+        self.stack.pop()
+        if self.index is not None:
+            _records[self.index][2] = end
+
+
+def span(name: str):
+    """A context manager that records the block as the span ``name`` while
+    a profiler records; the shared no-op context otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def sync(site: str, device):
+    """``span("sync." + site)`` around a copy between the host and
+    ``device`` that blocks the host until the device's stream drains (a
+    copy from pageable host memory, a read-back); the no-op context when
+    ``device`` is not a CUDA device."""
+    if not _autograd_profiler._is_profiler_enabled or torch.device(device).type != "cuda":
+        return _OFF
+    return _Span("sync." + site)
+
+
+def records() -> list:
+    """The recorded spans (``Record``), in the order they were opened."""
+    return [Record(*r) for r in _records]
+
+
+def dropped() -> int:
+    """Spans not recorded because ``CAP`` records were held."""
+    return _dropped
+
+
+def clear() -> None:
+    """Forget every record and the dropped count; call it with no span
+    open."""
+    global _dropped, _steps
+    _records.clear()
+    _dropped = _steps = 0
+    _stack().clear()
