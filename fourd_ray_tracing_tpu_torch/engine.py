@@ -29,6 +29,19 @@ the composite primitives' axes) from the scene once, at construction,
 into every group's config (the JAX engine, engine.py:196-228), so a step
 reads nothing back from the card to derive them. Accumulation buffers live on the engine's device and update in
 place.
+
+Launch inputs: each view group keeps its camera and, on a CUDA device
+with ``impl="cuda"``, the forward kernel's packed params with their
+layout, hint and offset tables (``megakernel.pack_inputs``), and renders
+every step from them (``megakernel.render_packed``). It rebuilds them at
+the first step (or in ``precompile``) and at the first step after the
+pose or the scene changed: a rotation, a move that moved the focus, the
+``angles`` or ``focus`` setters, ``load_state_dict``, a new
+``engine.scene``, an in-place write to a scene tensor (each tensor's
+version counter) or, under the Python controls, to a pose tensor. A still
+camera over an unchanged scene packs nothing and copies no camera to the
+card; every frame is bitwise the one a freshly built camera and packed
+vector give.
 """
 from __future__ import annotations
 
@@ -40,10 +53,13 @@ import numpy as np
 import torch
 
 from fourd_ray_tracing_tpu_torch import camera as cam
+from fourd_ray_tracing_tpu_torch.models import params
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig, accumulate, render_light
 from fourd_ray_tracing_tpu_torch.models.scene import Scene
 from fourd_ray_tracing_tpu_torch.ops.cuda import build
-from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import hinted, render_light_cuda, with_hints
+from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import (K1Inputs, hinted, pack_inputs,
+                                                             render_light_cuda, render_packed,
+                                                             with_hints)
 from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4, f32
 from fourd_ray_tracing_tpu_torch.utils import profiling
@@ -62,9 +78,11 @@ def generate_seed(rng: np.random.Generator, wall_clock: bool = True) -> int:
 
 
 class _ViewGroup:
-    """Views sharing one render resolution and one accumulation buffer."""
+    """Views sharing one render resolution and one accumulation buffer,
+    with the launch inputs of the pose and scene they were last built for
+    (``prepare``)."""
 
-    def __init__(self, cfg: RenderConfig, views: Tuple[str, ...], render, device):
+    def __init__(self, cfg: RenderConfig, views: Tuple[str, ...], render, device, kernel: bool):
         self.cfg = cfg
         self.views = views
         shape = (cfg.height, cfg.width, 3)
@@ -72,16 +90,45 @@ class _ViewGroup:
             shape = (len(views),) + shape
         self.accum = torch.zeros(shape, dtype=torch.float32, device=device)
         self._render = render
+        self._kernel = kernel  # launch from the packed params (megakernel.render_packed)
+        self._key = None
+        self._scene: Optional[Scene] = None  # kept alive: the key holds its id
+        self._camera: Optional[cam.Camera] = None
+        self._inputs: Optional[K1Inputs] = None
+        self.builds = 0  # launch inputs built (prepare's misses)
 
     def camera(self, engine: "RenderEngine") -> cam.Camera:
+        """The group's camera at the engine's pose, built anew."""
         return cam.make_camera(
             engine.focus, engine.orientation(), engine.focus_to_matrix_distance,
             engine.matrix_height, self.views, engine.device,
         )
 
+    def prepare(self, engine: "RenderEngine", key: tuple) -> cam.Camera:
+        """The group's camera at ``key`` (``RenderEngine._inputs_key``), with
+        its launch inputs: the ones kept if they were built for ``key``,
+        else the camera (the span ``engine.camera``, which is around the
+        lookup too) and on the kernel path the packed params (``k1.pack``)
+        built anew."""
+        with profiling.span("engine.camera"):
+            if key == self._key:
+                return self._camera
+            self._key = None
+            self._camera = self.camera(engine)
+        self._scene = engine.scene
+        self._inputs = pack_inputs(self._scene, self._camera, self.cfg) if self._kernel else None
+        self._key = key
+        self.builds += 1
+        return self._camera
+
     def render(self, scene: Scene, camera: cam.Camera, seeds) -> torch.Tensor:
-        """The tone-mapped frames of ``seeds`` (one kernel launch)."""
-        light = self._render(scene, camera, self.cfg, seeds)
+        """The tone-mapped frames of ``seeds`` (one kernel launch): from the
+        launch inputs ``prepare`` keeps when ``scene`` and ``camera`` are
+        the ones they were built for, else through the group's renderer."""
+        if self._inputs is not None and scene is self._scene and camera is self._camera:
+            light = render_packed(self._inputs, seeds)
+        else:
+            light = self._render(scene, camera, self.cfg, seeds)
         with profiling.span("engine.tonemap"):
             return light_to_color(light, self.cfg.light_coefficient)
 
@@ -151,6 +198,8 @@ class RenderEngine:
         self._deterministic = deterministic
         self._np_rng = np.random.default_rng(0 if deterministic else None)
         self._rng_draws = 0  # replayed by load_state_dict
+        self._pose = 0  # the pose's generation: bumped by every change of the pose
+        self._watched = None  # (scene, pose, the tensors whose versions _inputs_key reads)
 
         self._native = None
         norm_angles = angles.normalized(*(psi_constraint or (None, None)))
@@ -178,10 +227,11 @@ class RenderEngine:
                 additional = (replace(additional[0], plane_hints=cfg.plane_hints,
                                       plane_pairs=cfg.plane_pairs, axis_hints=cfg.axis_hints),
                               additional[1])
-        self.groups: List[_ViewGroup] = [_ViewGroup(cfg, self.views, render, self.device)]
+        kernel = impl == "cuda" and self.device.type == "cuda"
+        self.groups: List[_ViewGroup] = [_ViewGroup(cfg, self.views, render, self.device, kernel)]
         if additional is not None:
             add_cfg, add_views = additional
-            self.groups.append(_ViewGroup(add_cfg, tuple(add_views), render, self.device))
+            self.groups.append(_ViewGroup(add_cfg, tuple(add_views), render, self.device, kernel))
 
     # --- camera state ---------------------------------------------------
 
@@ -210,6 +260,7 @@ class RenderEngine:
                 self._native.focus[i] = float(c)
         else:
             self._focus = v
+        self._pose += 1
 
     @property
     def angles(self) -> cam.CameraAngles:
@@ -226,6 +277,7 @@ class RenderEngine:
             self._binding.update(s)
         else:
             self._angles = a
+        self._pose += 1
 
     def orientation(self) -> cam.Orientation:
         """The camera's bases: from the native state when it drives the
@@ -252,6 +304,7 @@ class RenderEngine:
                 self._angles.psi + f32(d_psi, self.device),
             )
             self._angles = a.normalized(*(self.psi_constraint or (None, None)))
+        self._pose += 1
         self.reset_accumulation()
 
     def mouse_moved(self, dx: int, dy: int) -> bool:
@@ -286,12 +339,14 @@ class RenderEngine:
                 if flag:
                     mask |= bit
             if b.move(self._native, mask, float(seconds), self.movement_speed):
+                self._pose += 1
                 self.reset_accumulation()
             return
         new_focus, moved = cam.move_focus(self._focus, self.orientation(), keys,
                                           float(seconds), self.movement_speed)
         if bool(moved):
             self._focus = new_focus
+            self._pose += 1
             self.reset_accumulation()
 
     # --- frame step ----------------------------------------------------
@@ -312,23 +367,38 @@ class RenderEngine:
         """Render one frame into every group's buffer; returns the main one."""
         return self.step_frames(1)
 
+    def _inputs_key(self) -> tuple:
+        """What the groups' launch inputs derive from, read on the host: the
+        pose's generation, the scene's identity, the camera's two lengths
+        and the version counters of the scene's tensors (and of the Python
+        controls' pose tensors), which an in-place write bumps. The tensors
+        are collected again only when the scene or the pose changed."""
+        watched = self._watched
+        if watched is None or watched[0] is not self.scene or watched[1] != self._pose:
+            tensors = list(params.tree_leaves(self.scene))
+            if self._native is None:
+                tensors += [*self._angles, *self._focus]
+            watched = self._watched = (self.scene, self._pose, tensors)
+        return (self._pose, id(self.scene), self.focus_to_matrix_distance, self.matrix_height,
+                [t._version for t in watched[2]])
+
     def step_frames(self, n: int) -> torch.Tensor:
         """Render ``n`` frames in one launch per group (per
         MAX_FRAMES_PER_LAUNCH frames); bitwise equal to ``n`` step_frame
         calls. Under a profiler it records the span ``engine.step`` and
-        inside it ``engine.seeds``, and per group ``engine.camera``, the
-        launch's (megakernel.render_light_cuda), ``engine.tonemap`` and
-        ``engine.blend`` (utils/profiling.py)."""
+        inside it ``engine.seeds``, and per group ``engine.camera`` (and
+        ``k1.pack`` when the launch inputs are built anew,
+        ``_ViewGroup.prepare``), the launch's (megakernel.render_packed),
+        ``engine.tonemap`` and ``engine.blend`` (utils/profiling.py)."""
         with profiling.span("engine.step"):
             while n > 0:
                 chunk = min(n, self.MAX_FRAMES_PER_LAUNCH)
                 with profiling.span("engine.seeds"):
                     seeds, parts = zip(*(self._next_seed() for _ in range(chunk)))
                     seeds = np.asarray(seeds, np.uint32)
+                key = self._inputs_key()
                 for g in self.groups:
-                    with profiling.span("engine.camera"):
-                        camera = g.camera(self)
-                    g.step_n(self.scene, camera, seeds, parts)
+                    g.step_n(self.scene, g.prepare(self, key), seeds, parts)
                 n -= chunk
         return self.accum
 
@@ -340,14 +410,16 @@ class RenderEngine:
         scene and the group's config and hints, not the frame count; a
         CUDA launch takes any frame count, so there are no step sizes to
         warm). The seed sequence, frame counter and accumulation are left
-        bitwise as they were. Returns the seconds spent (the time to the
-        first frame that the app logs)."""
+        bitwise as they were; the groups keep the launch inputs they built,
+        so a first step at this pose and scene builds none. Returns the
+        seconds spent (the time to the first frame that the app logs)."""
         t0 = time.monotonic()
         cuda = self.device.type == "cuda"
         if cuda and self.impl == "cuda":
             build.load()
+        key = self._inputs_key()
         for g in self.groups:
-            g.render(self.scene, g.camera(self), np.ones(1, np.uint32))
+            g.render(self.scene, g.prepare(self, key), np.ones(1, np.uint32))
         if cuda:
             torch.cuda.synchronize(self.device)
         return time.monotonic() - t0

@@ -43,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -247,8 +248,14 @@ def launch_rows(cfg: RenderConfig, rows) -> tuple:
     return row0, n_rows
 
 
+def layout_table(lay: params.Layout):
+    """The kernels' int[] offset table of ``lay`` (csrc/trace.cuh Layout,
+    then the composites' fields)."""
+    return (ctypes.c_int * len(lay))(*lay)
+
+
 def launch_forward(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
-                   seeds: torch.Tensor, rows=None) -> torch.Tensor:
+                   seeds: torch.Tensor, rows=None, tables=None) -> torch.Tensor:
     """One kernel launch: (F, V, n_rows, W, 3) float32 light of image rows
     ``rows`` = (row0, n_rows) (all H by default) from the packed params
     and (F,) int32 seed words, on their CUDA device. ``packed`` is (P,),
@@ -256,8 +263,9 @@ def launch_forward(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
     row f at seeds[f] (K2). A block of rows is bitwise those rows of the
     whole image (K3). The fold takes ``cfg``'s static hints, if any, which
     every row shares. The production configuration (``production``) runs
-    the production instances, any other forwardmodes.cu's. The launch's
-    host work is the span ``k1.launch``."""
+    the production instances, any other forwardmodes.cu's. ``tables`` is
+    (``hint_table(cfg, lay)``, ``layout_table(lay)``) made ahead, or None
+    to make them here. The launch's host work is the span ``k1.launch``."""
     global LAUNCHES, HINTED_LAUNCHES, ROW_LAUNCHES, SHARD_LAUNCHES
     renderer.check_supported(cfg)
     row0, n_rows = launch_rows(cfg, rows)
@@ -274,12 +282,11 @@ def launch_forward(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
     if multi and packed.shape[0] != seeds.numel():
         raise ValueError(f"{packed.shape[0]} params rows for {seeds.numel()} seeds")
     with profiling.span("k1.launch"):
-        hints = hint_table(cfg, lay)
+        hints, table = tables if tables is not None else (hint_table(cfg, lay), layout_table(lay))
         lib = build.load()
         n_frames = seeds.numel()
         out = torch.empty((n_frames, lay.n_views, n_rows, cfg.width, 3),
                           dtype=torch.float32, device=packed.device)
-        table = (ctypes.c_int * len(lay))(*lay)
         with torch.cuda.device(packed.device):
             stream = torch.cuda.current_stream().cuda_stream
             args = (packed.data_ptr(), lay.size if multi else 0, seeds.data_ptr(), n_frames,
@@ -307,29 +314,64 @@ def mode_codes(cfg: RenderConfig) -> tuple:
             int(cfg.rng_mode == "sequential"), cfg.sampler_iters)
 
 
+class K1Inputs(NamedTuple):
+    """What a K1 launch reads besides its seeds, made by ``pack_inputs``:
+    the hinted config, the (P,) packed params and their layout, the hint
+    and offset tables (``launch_forward``'s ``tables``) and whether the
+    camera carries a view axis. A launch leaves them as they are, so they
+    serve any number of launches of one scene and camera."""
+
+    cfg: RenderConfig
+    packed: torch.Tensor
+    lay: params.Layout
+    hints: ctypes.Array
+    table: ctypes.Array
+    view_axis: bool
+
+
+def pack_inputs(scene: Scene, camera: Camera, cfg: RenderConfig) -> K1Inputs:
+    """The packing half of ``render_light_cuda``: the launch inputs of
+    ``scene`` seen by ``camera`` on their CUDA device, the static hints
+    derived when ``cfg`` has none (``with_hints``); raises for tensors on
+    any other device."""
+    return _pack(scene, camera, with_hints(scene, cfg), _device_of(scene, camera))
+
+
+def _pack(scene: Scene, camera: Camera, cfg: RenderConfig, device) -> K1Inputs:
+    if device.type != "cuda":
+        raise ValueError(f"the forward kernel takes CUDA tensors, got {device}")
+    renderer.check_supported(cfg)
+    with profiling.span("k1.pack"):
+        lay = params.layout(scene, camera)
+        return K1Inputs(cfg, params.pack(scene, camera), lay, hint_table(cfg, lay),
+                        layout_table(lay), camera.top.x.dim() > 0)
+
+
+def render_packed(inputs: K1Inputs, seeds) -> torch.Tensor:
+    """The launch half of ``render_light_cuda``: the seeds' upload (the span
+    ``k1.upload``) and one launch of ``inputs``, the light shaped as
+    ``render_light_cuda`` shapes it."""
+    with profiling.span("k1.upload"):
+        words, batched = renderer.seed_words(seeds)
+        seeds_on_card = seed_tensor(words, inputs.packed.device)
+    out = launch_forward(inputs.packed, inputs.lay, inputs.cfg, seeds_on_card,
+                         tables=(inputs.hints, inputs.table))
+    if not inputs.view_axis:
+        out = out[:, 0]
+    return out if batched else out[0]
+
+
 def render_light_cuda(scene: Scene, camera: Camera, cfg: RenderConfig, seeds) -> torch.Tensor:
     """Sample-averaged light: (H, W, 3), (V, H, W, 3), or with a (K,)
     seed vector (K, H, W, 3) / (K, V, H, W, 3) from ONE launch; frame k
     is bitwise the launch with the scalar seed seeds[k]. The static hints
-    are derived when ``cfg`` has none (``with_hints``). On the card the
-    packing is the span ``k1.pack``, the seeds' upload ``k1.upload``."""
+    are derived when ``cfg`` has none (``with_hints``). On the card it is
+    ``pack_inputs`` (the span ``k1.pack``), then ``render_packed``."""
     device = _device_of(scene, camera)
     cfg = with_hints(scene, cfg)
     if device.type == "cpu":
         return renderer.render_light(scene, camera, cfg, seeds)
-    if device.type != "cuda":
-        raise ValueError(f"render_light_cuda takes CPU or CUDA tensors, got {device}")
-    renderer.check_supported(cfg)
-    with profiling.span("k1.pack"):
-        lay = params.layout(scene, camera)
-        packed = params.pack(scene, camera)
-    with profiling.span("k1.upload"):
-        words, batched = renderer.seed_words(seeds)
-        seeds_on_card = seed_tensor(words, device)
-    out = launch_forward(packed, lay, cfg, seeds_on_card)
-    if camera.top.x.dim() == 0:
-        out = out[:, 0]
-    return out if batched else out[0]
+    return render_packed(_pack(scene, camera, cfg, device), seeds)
 
 
 def render_image_cuda(scene: Scene, camera: Camera, cfg: RenderConfig, seeds) -> torch.Tensor:
@@ -486,7 +528,7 @@ def launch_forward_variant(variant: str, packed: torch.Tensor, lay: params.Layou
     n_frames = seeds.numel()
     out = torch.empty((n_frames, lay.n_views, cfg.height, cfg.width, 3),
                       dtype=torch.float32, device=packed.device)
-    table = (ctypes.c_int * len(lay))(*lay)
+    table = layout_table(lay)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fourd_forward_variant_launch(

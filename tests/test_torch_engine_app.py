@@ -45,12 +45,12 @@ def jax_engine():
     )
 
 
-def torch_engine(impl="torch"):
+def torch_engine(impl="torch", scene=None, controls="auto"):
     return tengine.RenderEngine(
-        tlib.room_with_sphere(CPU), trenderer.RenderConfig(**MAIN),
+        tlib.room_with_sphere(CPU) if scene is None else scene, trenderer.RenderConfig(**MAIN),
         TVec4.of(0.0, -2.0, 0.0, 0.0, device=CPU), tcam.CameraAngles.of(0.0, 0.0, 0.0, device=CPU),
         device=CPU, impl=impl, deterministic=True, psi_constraint=(0.0, 0.785),
-        additional=(trenderer.RenderConfig(**ADD), ("ywz", "yxw")),
+        additional=(trenderer.RenderConfig(**ADD), ("ywz", "yxw")), use_native_controls=controls,
     )
 
 
@@ -115,6 +115,72 @@ def test_rotate_resets_accumulation():
     assert abs(float(te.angles.fi) - 0.1) < 1e-7
     assert float(te.angles.psi) == pytest.approx(0.785, abs=1e-6)  # clamped by the constraint
     assert te.rays_per_frame() == 32 * 20 * 2 + 2 * 20 * 12 * 2
+
+
+def test_still_camera_builds_each_groups_inputs_once():
+    """Over several steps with the camera still each group builds its
+    camera once, and the frames are bitwise those of an engine that
+    rebuilds them every step."""
+    kept, rebuilt = torch_engine("cuda"), torch_engine("cuda")
+    for _ in range(3):
+        kept.step_frames(2)
+        rebuilt._pose += 1  # a new pose generation: every group rebuilds
+        rebuilt.step_frames(2)
+    assert [g.builds for g in kept.groups] == [1, 1]
+    assert [g.builds for g in rebuilt.groups] == [3, 3]
+    for g_k, g_r in zip(kept.groups, rebuilt.groups):
+        assert torch.equal(g_k.accum, g_r.accum)
+
+
+def _smaller_sphere(scene):
+    s0 = scene.spheres[0]
+    return scene._replace(spheres=(s0._replace(r=s0.r * 0.8),) + scene.spheres[1:])
+
+
+def _load_rotated_state(engine):
+    other = torch_engine("cuda", controls=engine.controls)
+    other.rotate(d_fi=-0.15, d_te=0.05)
+    other.step_frame()
+    engine.load_state_dict(other.state_dict())
+
+
+# (controls, what changes, whether the next step rebuilds the launch inputs)
+CHANGES = {
+    "rotate": ("auto", lambda e: e.rotate(d_fi=0.1, d_psi=0.05), True),
+    "move": ("auto", lambda e: e.move(tcam.MoveKeys(forward=True, w_pos=True), 0.1), True),
+    "move_cancelled": ("auto", lambda e: e.move(tcam.MoveKeys(forward=True, back=True), 0.1),
+                       False),
+    "angles_setter": ("auto", lambda e: setattr(
+        e, "angles", tcam.CameraAngles.of(0.05, -0.02, 0.1, device=CPU)), True),
+    "focus_setter": ("auto", lambda e: setattr(
+        e, "focus", TVec4.of(0.1, -1.8, 0.05, 0.0, device=CPU)), True),
+    "load_state_dict": ("auto", _load_rotated_state, True),
+    "new_scene": ("auto", lambda e: setattr(e, "scene", _smaller_sphere(e.scene)), True),
+    "scene_in_place": ("auto", lambda e: e.scene.spheres[0].r.mul_(0.8), True),
+    "python_rotate": ("python", lambda e: e.rotate(d_fi=0.1), True),
+    "python_pose_in_place": ("python", lambda e: e._angles.fi.add_(0.1), True),
+    "python_move_cancelled": ("python", lambda e: e.move(
+        tcam.MoveKeys(right=True, left=True), 0.1), False),
+}
+
+
+@pytest.mark.parametrize("change", sorted(CHANGES))
+def test_a_change_of_pose_or_scene_rebuilds_the_launch_inputs(change):
+    """After each change of pose or scene the next step builds each group's
+    camera anew (a cancelled move is none), and its accumulations are
+    bitwise those of a freshly built engine at that pose and scene from
+    the same state."""
+    controls, apply, rebuilds = CHANGES[change]
+    engine = torch_engine("cuda", controls=controls)
+    engine.step_frame()
+    apply(engine)
+    fresh = torch_engine("cuda", scene=engine.scene, controls=controls)
+    fresh.load_state_dict(engine.state_dict())
+    engine.step_frames(2)
+    fresh.step_frames(2)
+    assert [g.builds for g in engine.groups] == [1 + rebuilds] * 2
+    for g_e, g_f in zip(engine.groups, fresh.groups):
+        assert torch.equal(g_e.accum, g_f.accum)
 
 
 def test_engine_rejects_unknown_impl():

@@ -319,19 +319,55 @@ def warm_packed(device):
 
 @pytest.mark.card
 def test_card_spans_under_the_cuda_only_profiler(card):
+    """A first step and a step after a rotation pack both groups' params
+    and copy their cameras to the card; a warm, still step does neither."""
     engine, packed = warm_engine(card), warm_packed(card)
+    first = make_engine(card, controls="auto")
     with cuda_profiler():
+        first.step_frames(4)
+        engine.step_frames(4)
+        engine.rotate(d_fi=0.01)
         engine.step_frames(4)
         train(packed, 11)
-    names = [r.name for r in profiling.records()]
-    assert names.count("engine.step") == 1 and names.count("train.step") == 1
-    for name in ("k1.pack", "k1.upload", "k1.launch"):
-        assert names.count(name) == 2, name
-    for name in ("k4.upload", "k4.launch", "train.backward"):
+    records = profiling.records()
+    steps = [[r.name for r in records if r.step == top.step]
+             for top in records if top.parent == -1]
+    assert [names[0] for names in steps] == ["engine.step"] * 3 + ["train.step"]
+    camera_copies = 4 if engine.controls == "native" else 0
+    for names, packs, copies in zip(steps, (2, 0, 2), (camera_copies, 0, camera_copies)):
+        assert names.count("k1.pack") == packs
+        assert names.count("sync.camera") == copies
+        assert names.count("k1.upload") == names.count("k1.launch") == 2
+        assert names.count("sync.seeds") == 2
+    names = steps[3]
+    for name in ("k4.upload", "k4.launch", "train.backward", "sync.seeds"):
         assert names.count(name) == 1, name
     assert names.count("k4.pack") == 2 and names.count("train.adam") == 2
-    assert names.count("sync.seeds") == 3
-    assert names.count("sync.camera") == (4 if engine.controls == "native" else 0)
+
+
+@pytest.mark.card
+def test_card_still_step_is_bitwise_the_direct_launch(card):
+    """A warm, still step_frames(4) gives bitwise the accumulations of
+    render_light_cuda called with freshly built cameras, packs nothing and
+    makes two synchronizing copies (the groups' seeds)."""
+    from fourd_ray_tracing_tpu_torch.models.renderer import accumulate
+    from fourd_ray_tracing_tpu_torch.ops.cuda.megakernel import render_light_cuda
+    from fourd_ray_tracing_tpu_torch.ops.sky import light_to_color
+
+    engine = warm_engine(card)
+    twin = make_engine(card, controls="auto")
+    twin.load_state_dict(engine.state_dict())
+    with cuda_profiler():
+        assert synchronizing_warnings(lambda: engine.step_frames(4)) == 2
+    names = [r.name for r in profiling.records()]
+    assert names.count("k1.pack") == 0 and names.count("sync.seeds") == 2
+    seeds, parts = zip(*(twin._next_seed() for _ in range(4)))
+    for g, g_twin in zip(engine.groups, twin.groups):
+        light = render_light_cuda(twin.scene, g_twin.camera(twin), g_twin.cfg,
+                                  np.asarray(seeds, np.uint32))
+        for frame, part in zip(light_to_color(light, g_twin.cfg.light_coefficient), parts):
+            accumulate(g_twin.accum, frame, part)
+        assert torch.equal(g.accum, g_twin.accum)
 
 
 @pytest.mark.card
