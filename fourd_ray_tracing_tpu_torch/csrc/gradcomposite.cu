@@ -50,6 +50,16 @@ extern "C" int fourd_loss_grad_composite(const float* params, const uint32_t* se
   });
 }
 
+extern "C" int fourd_loss_grad_composite_occupancy(const int* layout, int reflections,
+                                                   const int* hints, int* out) {
+  const Layout L = layout_from(layout);
+  Hints H;
+  const FoldKind kind = fold_kind(L, hints, reflections, H);
+  return with_composite_fold(kind, [&](auto fold) {
+    return sweep_occupancy<decltype(fold)>(L, H, reflections, out);
+  });
+}
+
 extern "C" int fourd_light_vjp_composite(const float* params, long long row_stride,
                                          int n_params_rows, uint32_t seed, const int* layout,
                                          int width, int height, int row0, int n_rows, int samples,

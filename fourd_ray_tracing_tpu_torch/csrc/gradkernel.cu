@@ -162,6 +162,26 @@ extern "C" int fourd_loss_grad_launch(const float* params, const uint32_t* seeds
   });
 }
 
+// The occupancy of the sweep that fourd_loss_grad_launch runs for this
+// layout, bounce count and descriptor (gradlaunch.cuh sweep_occupancy):
+// out[0] its resident blocks a SM, out[1] its dynamic shared-memory bytes.
+// Launches nothing.
+extern "C" int fourd_loss_grad_occupancy(const int* layout, int reflections, const int* hints,
+                                         int* out) {
+  const Layout L = layout_from(layout);
+  if (L.size <= 0 || L.size > kMaxParams || reflections < 0 || reflections > kMaxBounces) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Hints H;
+  const FoldKind kind = fold_kind(L, hints, reflections, H);
+  if (composite_fold(kind)) {
+    return fourd_loss_grad_composite_occupancy(layout, reflections, hints, out);
+  }
+  return with_fold(kind, [&](auto fold) {
+    return sweep_occupancy<decltype(fold)>(L, H, reflections, out);
+  });
+}
+
 // K5 on ``stream``: grad_out (F, P) float32, the unscaled parameter
 // cotangents of each params row's mean light over image rows
 // [row0, row0 + n_rows) of H, from params (F rows of P floats,

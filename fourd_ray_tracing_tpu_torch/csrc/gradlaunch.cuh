@@ -145,6 +145,23 @@ int launch_sweep(const float* params, long long row_stride, int n_param_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The occupancy of the sweep instance that launch_sweep runs under Fold at
+// ``reflections`` bounces: out[0] its resident blocks a SM at its dynamic
+// shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the
+// current device), out[1] those bytes. Returns the query's error.
+template <class Fold>
+int sweep_occupancy(const Layout& L, const Hints& H, int reflections, int* out) {
+  const auto kernel = sweep_for<Fold>(reflections);
+  const size_t smem = grad_smem_bytes(L.size, false, table_recs_for<Fold>(L, H));
+  out[1] = static_cast<int>(smem);
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  cudaError_t err = allow_smem(fn, smem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, kGradBlock, smem);
+  }
+  return static_cast<int>(err);
+}
+
 // K4's kernels on ``s`` under the fold Fold: pass 1, the sweep of every
 // frame and sum_parts_kernel (fourd_loss_grad_launch, whose arguments
 // these are; ``blocks`` of a frame, n_cols of the partials).
@@ -426,6 +443,8 @@ extern "C" int fourd_light_vjp_composite(const float* params, long long row_stri
                                          int reflections, float small_indent, const float* cot,
                                          float* grad_parts, float* grad_out, const int* hints,
                                          const float* keep, void* stream);
+extern "C" int fourd_loss_grad_composite_occupancy(const int* layout, int reflections,
+                                                   const int* hints, int* out);
 extern "C" int fourd_soft_loss_grad_composite(
     const float* params, uint32_t seed, const int* layout, int n_zero, const int* zero_idx,
     const float* zero_val, int width, int height, int row0, int n_rows, int samples,

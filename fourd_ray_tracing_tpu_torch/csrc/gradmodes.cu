@@ -33,6 +33,23 @@ extern "C" int fourd_loss_grad_modes(int fold, int sampler, int sampler_iters,
   });
 }
 
+// The occupancy of the sweep that fourd_loss_grad_modes runs (gradkernel.cu
+// fourd_loss_grad_occupancy). Launches nothing.
+extern "C" int fourd_loss_grad_modes_occupancy(int fold, int sampler, int sampler_iters,
+                                               const int* layout, int reflections,
+                                               const int* hints, int* out) {
+  const Layout L = layout_from(layout);
+  const int mode = mode_of(sampler, sampler_iters);
+  if (mode < 0 || L.size <= 0 || L.size > kMaxParams || reflections < 0 ||
+      reflections > kMaxBounces) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Hints H;
+  return with_modes_fold(fold, mode, L, hints, H, [&](auto fold_tag) {
+    return sweep_occupancy<decltype(fold_tag)>(L, H, reflections, out);
+  });
+}
+
 extern "C" int fourd_light_vjp_modes(int fold, int sampler, int sampler_iters,
                                      const float* params, long long row_stride,
                                      int n_params_rows, uint32_t seed, const int* layout,

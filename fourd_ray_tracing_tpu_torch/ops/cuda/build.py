@@ -267,6 +267,12 @@ SIGNATURES = {
     ], ctypes.c_int),
     "fourd_grad_scratch_cols": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int],
                                 ctypes.c_int),
+    # the occupancy of K4's sweep: layout table, reflections, static hints
+    # (or null), out int[2] (resident blocks a SM, dynamic shared bytes);
+    # the modes one after fold, sampler and sampler_iters
+    "fourd_loss_grad_occupancy": (_OCCUPANCY_ARGS := [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
+    "fourd_loss_grad_modes_occupancy": ([ctypes.c_int] * 3 + _OCCUPANCY_ARGS, ctypes.c_int),
     "fourd_light_vjp_launch": (_LIGHT_VJP_ARGS := [
         ctypes.c_void_p,                  # params (P,) or (F, P) float32, device
         ctypes.c_longlong,                # row_stride: 0, or P for (F, P) rows

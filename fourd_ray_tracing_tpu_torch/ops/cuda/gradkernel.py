@@ -298,6 +298,45 @@ def _scratch_cols(lib, table, cfg: RenderConfig, n_rows: int, n_frames: int = 1)
     return n_cols
 
 
+# The occupancy of K4's sweep by launch (layout, descriptor, bounce count,
+# modes codes, device): (resident blocks a SM, the card's SMs), queried at
+# the first such launch; OCCUPANCY_QUERIES counts the queries.
+_SWEEP_OCCUPANCY: dict = {}
+OCCUPANCY_QUERIES = 0
+
+
+def sweep_waves(blocks: int, resident_blocks: int, sms: int) -> float:
+    """The waves a launch of ``blocks`` blocks takes on ``sms`` SMs that
+    hold ``resident_blocks`` of them each at once."""
+    return blocks / (resident_blocks * sms)
+
+
+def _sweep_occupancy(lib, table, lay: params.Layout, cfg: RenderConfig, hints, modes,
+                     device) -> tuple:
+    """(resident blocks a SM, SMs) of the sweep instance that a K4 launch
+    runs, at its dynamic shared memory (launch_shapes' sweep bytes), by the
+    runtime's occupancy query on the current device (fourd_loss_grad_occupancy);
+    queried once per launch key and kept, so a warm launch makes no CUDA
+    runtime call for it."""
+    global OCCUPANCY_QUERIES
+    key = (lay, None if hints is None else bytes(hints), cfg.reflections_amount, modes,
+           device.index)
+    got = _SWEEP_OCCUPANCY.get(key)
+    if got is None:
+        out = (ctypes.c_int * 2)()
+        if modes is None:
+            err = lib.fourd_loss_grad_occupancy(table, cfg.reflections_amount, _addr(hints), out)
+        else:
+            err = lib.fourd_loss_grad_modes_occupancy(*modes, table, cfg.reflections_amount,
+                                                      _addr(hints), out)
+        if err != 0:
+            raise RuntimeError(f"the sweep's occupancy query failed: cudaError {err}")
+        OCCUPANCY_QUERIES += 1
+        got = _SWEEP_OCCUPANCY[key] = (
+            out[0], torch.cuda.get_device_properties(device).multi_processor_count)
+    return got
+
+
 def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig,
                      seeds: torch.Tensor, target: torch.Tensor, rows=None, keep=None):
     """One kernel launch: (loss (), grad (P,)) float32, both scaled to the
@@ -305,7 +344,10 @@ def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
     params, (F,) int32 seed words and the (V, H, W, 3) or (H, W, 3) float32
     target, on their CUDA device; with ``rows``, those rows' part, the
     target their (V, n_rows, W, 3) block. Under the freeze_hints contract
-    ``keep`` is the packed mask (params.freeze_mask)."""
+    ``keep`` is the packed mask (params.freeze_mask). While a profiler
+    records, the span ``k4.launch`` holds the counters ``k4.resident_warps``
+    (the sweep's resident warps a SM) and ``k4.sweep_waves`` (its blocks
+    over the blocks the card holds at once)."""
     global LAUNCHES, SHARD_LAUNCHES, HINTED_LAUNCHES
     _check_launch(packed, lay, cfg, target)
     hints, keep_ptr = _launch_hints(lay, cfg, keep, packed.device)
@@ -341,10 +383,14 @@ def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
                     target.data_ptr(), scale, g_mean.data_ptr(), grad_parts.data_ptr(),
                     loss_parts.data_ptr(), grad.data_ptr(), loss.data_ptr(), _addr(hints),
                     keep_ptr, stream)
+            resident, sms = _sweep_occupancy(lib, table, lay, cfg, hints, modes, device)
             if modes is None:
                 err = lib.fourd_loss_grad_launch(*args)
             else:
                 err = lib.fourd_loss_grad_modes(*modes, *args)
+        if err == 0:
+            profiling.count("k4.resident_warps", resident * GRAD_BLOCK // 32)
+            profiling.count("k4.sweep_waves", sweep_waves(n_cols, resident, sms))
     if err != 0:
         raise RuntimeError(f"value-and-grad kernel launch failed: cudaError {err}")
     LAUNCHES += 1

@@ -1,4 +1,4 @@
-"""Profiling: rays/s counters and the program's host spans.
+"""Profiling: rays/s counters, the program's host spans and its counter readings.
 
 Counterpart of fourd_ray_tracing_tpu/utils/profiling.py: ``FrameStats``
 (frames, seconds, rays and the rates over them) and ``Meter`` (a
@@ -19,6 +19,13 @@ span) and its step: the sequence number of its top-level span, which its
 descendants share. Records stay in memory, at most ``CAP`` of them;
 ``dropped()`` counts the spans past the cap (and their children), and
 ``clear()`` empties both. Spans nest per thread.
+
+The counter recorder: ``count(name, value)`` records a number the
+program knows at that point (a launch's occupancy, say), gated as a span
+is: the name, the value, the clock's reading and the step of the span
+that encloses it (-1 outside every span). ``counters()`` reads them
+(``Counter``); ``clear()`` empties them too, and they share ``CAP`` and
+``dropped()`` with the spans.
 """
 from __future__ import annotations
 
@@ -113,9 +120,21 @@ class Record(NamedTuple):
     step: int
 
 
+class Counter(NamedTuple):
+    """One counter reading: ``name``, ``t`` (time.perf_counter seconds),
+    ``value`` and ``step`` (the enclosing span's step; -1 outside every
+    span)."""
+
+    name: str
+    t: float
+    value: float
+    step: int
+
+
 # [name, start, end, parent, step] of every span, in the order opened: a
 # list, so that a span's end is one item set, and records() reads them.
 _records: list = []
+_counters: list = []  # Counter of every reading, in the order recorded
 _dropped = 0
 _steps = 0
 _open = threading.local()  # .stack: the indices of the thread's open spans (None: dropped)
@@ -178,20 +197,41 @@ def sync(site: str, device):
     return _Span("sync." + site)
 
 
+def count(name: str, value: float) -> None:
+    """Record ``value`` as the counter ``name`` while a profiler records;
+    nothing otherwise."""
+    global _dropped
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    if len(_counters) >= CAP:
+        _dropped += 1
+        return
+    stack = _stack()
+    step = _records[stack[-1]][4] if stack and stack[-1] is not None else -1
+    _counters.append(Counter(name, time.perf_counter(), float(value), step))
+
+
+def counters() -> list:
+    """The recorded counter readings (``Counter``), in the order recorded."""
+    return list(_counters)
+
+
 def records() -> list:
     """The recorded spans (``Record``), in the order they were opened."""
     return [Record(*r) for r in _records]
 
 
 def dropped() -> int:
-    """Spans not recorded because ``CAP`` records were held."""
+    """Spans and counter readings not recorded because ``CAP`` of them
+    were held."""
     return _dropped
 
 
 def clear() -> None:
-    """Forget every record and the dropped count; call it with no span
-    open."""
+    """Forget every record, counter reading and the dropped count; call it
+    with no span open."""
     global _dropped, _steps
     _records.clear()
+    _counters.clear()
     _dropped = _steps = 0
     _stack().clear()

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from fourd_ray_tracing_tpu_torch import diff
 from fourd_ray_tracing_tpu_torch.models import library, params
 from fourd_ray_tracing_tpu_torch.models import scene as tscene
 from fourd_ray_tracing_tpu_torch.ops.cuda import build, gradkernel
@@ -144,3 +145,23 @@ def test_many_planes_launch_writes_the_frozen_slots(lib):
     loss_u, grad_u = gradkernel.loss_and_grad_plain(*args, cfg, seeds, torch.from_numpy(target))
     assert torch.equal(loss, loss_u)
     assert_contract(grad.numpy(), grad_u.numpy(), frozen)
+
+
+@pytest.mark.parametrize("name", ["room_with_sphere", "tiger", "hypercube", "sphere_plane_light"])
+@pytest.mark.parametrize("hinted", [True, False], ids=["frozen", "unhinted"])
+def test_occupancy_query_takes_the_launch_s_sweep(lib, name, hinted):
+    """fourd_loss_grad_occupancy answers for the sweep that
+    fourd_loss_grad_launch runs at that layout, bounce count and descriptor:
+    at its dynamic shared memory, launch_shapes' sweep bytes (the stand-in's
+    query gives 1 block a SM); a descriptor the launch refuses, it refuses."""
+    build.bind(lib, ("fourd_loss_grad_occupancy",))
+    cfg = config_for(name, reflections_amount=4)
+    scene, camera = grad_scene(name), camera_of(VIEWS_1)
+    cfg = diff.with_frozen_hints(cfg, scene) if hinted else cfg
+    lay = params.layout(scene, camera)
+    words = gradkernel.launch_words(lay, cfg)
+    out = (ctypes.c_int * 2)()
+    assert lib.fourd_loss_grad_occupancy(layout_table(lay), 4, words, out) == 0
+    assert list(out) == [1, gradkernel.launch_shapes(lay, cfg)["sweep_kernel"][1]]
+    assert lib.fourd_loss_grad_occupancy(layout_table(lay), gradkernel.MAX_BOUNCES + 1, words,
+                                         out) != 0

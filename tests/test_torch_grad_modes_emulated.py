@@ -356,3 +356,20 @@ def test_each_launch_reads_its_own_sampler(lib):
         assert_grad_close(grad, ref_grad.numpy(), pattern_floor(scene))
         plain.append(float(ref_loss))
     assert abs(plain[0] - plain[1]) > 1e-4 * abs(plain[1])
+
+
+@pytest.mark.parametrize("name", ["room_with_sphere", "hypercube", "hypercube_cells"])
+@pytest.mark.parametrize("sampler,intersect", CONFIGS, ids=CONFIG_IDS)
+def test_modes_occupancy_query_takes_the_launch_s_sweep(lib, name, sampler, intersect):
+    """fourd_loss_grad_modes_occupancy answers for the sweep that
+    fourd_loss_grad_modes runs: at launch_shapes' sweep bytes (the
+    stand-in's query gives 1 block a SM)."""
+    build.bind(lib, ("fourd_loss_grad_modes_occupancy",))
+    cfg = config(sampler, intersect, reflections_amount=4)
+    scene, camera = scene_of(name), camera_of(VIEWS_1)
+    lay = params.layout(scene, camera)
+    out = (ctypes.c_int * 2)()
+    err = lib.fourd_loss_grad_modes_occupancy(*codes(cfg), (ctypes.c_int * len(lay))(*lay), 4,
+                                              descriptor(lay, cfg), out)
+    assert err == 0
+    assert list(out) == [1, gradkernel.launch_shapes(lay, cfg)["sweep_kernel"][1]]
