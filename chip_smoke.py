@@ -102,6 +102,13 @@ on any failure, or when no CUDA device is available. Phases:
    the frozen hints) and the hypercube and duocylinder at its shape: K4
    bitwise across launches, under the contract, hinted and unhinted timed
    in turns, each one's bound; the tiger's also against its plain version
+   in row bands; at the benchmark's train cells' shape (``SPLIT_CHECK``,
+   121x75x100spp x4, 4 frames a launch), where the sweep splits each
+   pixel's samples over several blocks (gradkernel.sweep_split), K4 on
+   ``SPLIT_SCENES`` hinted and unhinted and on the tiger in one modes
+   configuration: the split read from its ``k4.sweep_split`` counter at
+   least 4 and one split for the hinted and the unhinted launch, bitwise
+   across launches, the contract, within GRAD_BOUNDS of the plain version
    in row bands;
 8c. K4, K5 and K6 over K1's other configurations (csrc/modes.cuh):
    each GRAD_MODES configuration (per-sample streams; kepler, newton,
@@ -364,7 +371,7 @@ from fourd_ray_tracing_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from fourd_ray_tracing_tpu_torch.tools import (  # noqa: E402
     fwd_ablate, grad_ablate, soft_ablate, train_ablate, vpu_peak)
 from fourd_ray_tracing_tpu_torch.tools import common as tool_common  # noqa: E402
-from fourd_ray_tracing_tpu_torch.utils import checkpoint  # noqa: E402
+from fourd_ray_tracing_tpu_torch.utils import checkpoint, profiling  # noqa: E402
 from fourd_ray_tracing_tpu_torch.utils.config import AppConfig  # noqa: E402
 from fourd_ray_tracing_tpu_torch.utils.flops import FlopCounter, count_flops  # noqa: E402
 
@@ -459,6 +466,15 @@ GRAD_CHECK = dict(width=256, height=144, samples=4, reflections_amount=4, rng_mo
 # at a time (gradkernel.loss_and_grad_plain's band_rows); at 256x144 it
 # runs whole.
 TRAIN = dict(HEADLINE, light_coefficient=0.12)
+# The benchmark's train cells' shape (the upstream's main window, 4 frames
+# a launch): 568 sweep blocks, which K4 splits into at least 4 sample
+# chunks a pixel on an H100; the scenes checked there hinted and unhinted
+# (the room's, the composites' own and the generic composite fold), and
+# the modes instance checked there unhinted.
+SPLIT_CHECK = dict(width=121, height=75, samples=100, reflections_amount=4, rng_mode="per_sample")
+SPLIT_FRAMES = 4
+SPLIT_SCENES = ("room_with_sphere", "tiger", "hypercube", "duocylinder")
+SPLIT_MODE = ("tiger", dict(sampler_method="kepler"))
 TRAIN_SMALL = dict(TRAIN, width=256, height=144)
 BAND_ROWS = 144
 TRAIN_FRAMES = (1, 4)
@@ -1353,6 +1369,62 @@ def check_composite_k4(device):
                                      (plain[0], gradkernel.freeze(plain[1], scene, hcfg)),
                                      COMPOSITE_PATTERN_FLOOR))
     return max(e for e, _ in errs), max(r for _, r in errs)
+
+
+def split_launch(packed, lay, cfg: RenderConfig, words, target, keep=None) -> tuple:
+    """((loss, grad) of one K4 launch, the sample split its sweep took, as
+    its ``k4.sweep_split`` counter recorded it under a CPU profiler)."""
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = gradkernel.launch_loss_grad(packed, lay, cfg, words, target, keep=keep)
+    (split,) = [c.value for c in profiling.counters() if c.name == "k4.sweep_split"]
+    profiling.clear()
+    return out, split
+
+
+def check_split_k4(device) -> tuple:
+    """Phase 8 at SPLIT_CHECK, one view, SPLIT_FRAMES frames a launch, where
+    the sweep splits each pixel's samples: on SPLIT_SCENES K4 unhinted and
+    under the frozen hints (each library scene's own instance), and on the
+    SPLIT_MODE scene in its modes instance unhinted; each launch's split at
+    least 4, the hinted launch's the unhinted one's, bitwise across two
+    launches, the contract against the unhinted launch, within GRAD_BOUNDS
+    of the plain version in BAND_ROWS-row bands (frozen with the hints).
+    Returns (max abs error, max mixed-scale relative error, the splits by
+    label)."""
+    seeds = np.arange(11, 11 + SPLIT_FRAMES, dtype=np.uint32)
+    words = megakernel.seed_tensor(seeds, device)
+    camera = camera_for(("yxz",), device)
+    target = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (SPLIT_CHECK["height"], SPLIT_CHECK["width"], 3)).astype(np.float32)).to(device)
+    errs, splits = [], {}
+    for name, mode in [(name, {}) for name in SPLIT_SCENES] + [SPLIT_MODE]:
+        scene = composite_scene(name, device)
+        packed, lay = params.pack(scene, camera), params.layout(scene, camera)
+        floor = COMPOSITE_PATTERN_FLOOR if lay.composite_kinds() else 0.0
+        cfg = RenderConfig(**SPLIT_CHECK, **mode)
+        label = (f"{name} {megakernel.launch_config(cfg, lay)} {cfg.width}x{cfg.height}x"
+                 f"{cfg.samples}spp x{cfg.reflections_amount} F={SPLIT_FRAMES}")
+        out, split = split_launch(packed, lay, cfg, words, target)
+        again = gradkernel.launch_loss_grad(packed, lay, cfg, words, target)
+        assert all(torch.equal(a, b) for a, b in zip(out, again)), f"{label}: launches differ"
+        assert split >= 4, f"{label}: the sweep split its samples {split} ways"
+        splits[label] = split
+        plain = gradkernel.loss_and_grad_plain(packed, scene, camera, cfg, seeds, target,
+                                               band_rows=BAND_ROWS)
+        errs.append(compare_grad(f"{label} split={split}", out, plain, floor))
+        if mode:
+            continue
+        hcfg, keep, frozen = frozen_setup(scene, camera, cfg)
+        hinted, h_split = split_launch(packed, lay, hcfg, words, target, keep)
+        again = gradkernel.launch_loss_grad(packed, lay, hcfg, words, target, keep=keep)
+        assert all(torch.equal(a, b) for a, b in zip(hinted, again)), \
+            f"{label} frozen hints: launches differ"
+        assert h_split == split, f"{label}: the hinted launch split {h_split} ways, not {split}"
+        check_contract(f"K4 {label} split={split}", hinted, out, frozen)
+        errs.append(compare_grad(f"{label} frozen hints split={split}", hinted,
+                                 (plain[0], gradkernel.freeze(plain[1], scene, hcfg)), floor))
+    return max(e for e, _ in errs), max(r for _, r in errs), splits
 
 
 def k4_bound(scene, camera, cfg: RenderConfig, packed, lay) -> dict:
@@ -4003,6 +4075,11 @@ def main() -> int:
     grad_err, grad_rel = check_grad_kernel(device)
     comp_err, comp_rel = check_composite_k4(device)
     grad_err, grad_rel = max(grad_err, comp_err), max(grad_rel, comp_rel)
+    split_err, split_rel, splits = check_split_k4(device)
+    print(json.dumps({"phase": "8", "split_check": SPLIT_CHECK, "frames": SPLIT_FRAMES,
+                      "splits": splits, "max_abs_err": split_err,
+                      "max_grad_mixed_rel": split_rel}), flush=True)
+    grad_err, grad_rel = max(grad_err, split_err), max(grad_rel, split_rel)
     k4 = time_grad_kernel(device)
     inverse_cells = inverse_step_cells(device)
     light_err, ir_err, ir_rel = check_inverse_render_shapes(device)

@@ -84,8 +84,8 @@ int k8_launch(int mode, const float* params, uint32_t seed, const Layout& L, con
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_parts_kernel<<<1, kSumThreads, 0, s>>>(nullptr, loss_parts, 0, n_cols, 1.0f, nullptr,
-                                             value_out, nullptr, 1);
+  sum_parts_kernel<<<1, kSumThreads, 0, s>>>(nullptr, loss_parts, 0, n_cols, n_cols, 1.0f,
+                                             nullptr, value_out, nullptr, 1);
   return static_cast<int>(cudaGetLastError());
 }
 

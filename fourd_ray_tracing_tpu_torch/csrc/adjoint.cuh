@@ -1091,9 +1091,12 @@ __device__ void bounce0_sweep(const float* P, const Layout& L, const Pixel& p, i
 }
 
 // Pass 2, the pixel sweep: hands to acc the parameter cotangents of the
-// pixel's sample lights, each with cotangent g_light (the cotangent of the
-// light summed over samples), and of bounce 0's light, which every sample's
-// light starts from. kB is kMainBounces, with reflections equal to it, or
+// lights of the pixel's samples [s0, s1), each with cotangent g_light (the
+// cotangent of the light summed over samples), and of bounce 0's light,
+// which each of those samples' light starts from. The sweep is linear in
+// its cotangents, so the sweeps of a partition of the samples sum to the
+// sweep of all of them (K4's sample split, gradlaunch.cuh sweep_kernel).
+// kB is kMainBounces, with reflections equal to it, or
 // kMaxBounces for any count up to it. Fold is the fold of the re-trace,
 // pass 1's (the Pixel's bounce 0 comes from setup_pixel<Fold>), so the
 // recorded hits and distances are bitwise pass 1's; the reverse reads the
@@ -1107,10 +1110,12 @@ __device__ void bounce0_sweep(const float* P, const Layout& L, const Pixel& p, i
 // alone, bounce 0 with both, and returns the mask of the samples that hit
 // obj. Row b (Pb, obj -1) then sweeps those samples ``only``, and not
 // bounce 0's light, which row a carried; or, where bounce 0 hits obj or
-// obj is -1, all of its samples and bounce 0.
+// obj is -1, all of its samples and bounce 0. A mask names samples of the
+// whole pixel and the range is not applied to it: a caller that passes
+// ``only`` != 0 passes s0 = 0, s1 = samples, as K6 does for every row.
 template <int kB, class Fold = ParamsFold, class Acc>
-__device__ unsigned pixel_sweep(const float* P, const Layout& L, const Pixel& p, int view,
-                                int samples, int reflections, float small_indent, uint32_t seed,
+__device__ unsigned pixel_sweep(const float* P, const Layout& L, const Pixel& p, int view, int s0,
+                                int s1, int reflections, float small_indent, uint32_t seed,
                                 V3 g_light, Acc& acc, unsigned only = 0u, int obj = -1,
                                 V3 g_shared = {0.0f, 0.0f, 0.0f}) {
   const int R = kB == kMaxBounces ? reflections : kB;
@@ -1118,7 +1123,7 @@ __device__ unsigned pixel_sweep(const float* P, const Layout& L, const Pixel& p,
   Bounce0Cot b0 = {};
   if (R > 0 && p.h0.hit) {
     unsigned left = only;
-    for (int k = 0; k < samples; ++k) {
+    for (int k = s0; k < s1; ++k) {
       int s = k;
       if (only != 0) {  // the mask's next sample: as many rounds as it has bits
         if (left == 0) break;
@@ -1132,7 +1137,7 @@ __device__ unsigned pixel_sweep(const float* P, const Layout& L, const Pixel& p,
     }
   }
   const V3 g_result0 = only != 0 ? V3{0.0f, 0.0f, 0.0f}
-                                 : mul3s(add3(g_light, g_shared), static_cast<float>(samples));
+                                 : mul3s(add3(g_light, g_shared), static_cast<float>(s1 - s0));
   bounce0_sweep<kGradComposite<Fold>, kLitFold<Fold>>(P, L, p, view, g_result0, b0, small_indent,
                                                        acc);
   return hit_obj;

@@ -27,8 +27,8 @@
 #include "gradlaunch.cuh"
 
 extern "C" int fourd_loss_grad_composite(const float* params, const uint32_t* seeds, int n_frames,
-                                         const int* layout, int width, int height, int row0,
-                                         int n_rows, int samples, int reflections,
+                                         int split, const int* layout, int width, int height,
+                                         int row0, int n_rows, int samples, int reflections,
                                          float small_indent, float light_coefficient,
                                          const float* target, float scale, float* g_mean,
                                          float* grad_parts, double* loss_parts, float* grad_out,
@@ -36,17 +36,18 @@ extern "C" int fourd_loss_grad_composite(const float* params, const uint32_t* se
                                          void* stream) {
   const Layout L = layout_from(layout);
   const int n_cols = fourd_grad_scratch_cols(layout, width, n_rows, n_frames);
-  if (n_cols < 0 || bad_shape(L, height, row0, n_rows, samples, reflections)) {
+  if (n_cols < 0 || bad_split(L, width, n_rows, n_frames, split) ||
+      bad_shape(L, height, row0, n_rows, samples, reflections)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Hints H;
   const FoldKind kind = fold_kind(L, hints, reflections, H);
   return with_composite_fold(kind, [&](auto fold) {
-    return k4_launch<decltype(fold)>(params, seeds, n_frames, L, H, width, height, row0, n_rows,
-                                     samples, reflections, small_indent, light_coefficient,
-                                     target, scale, g_mean, grad_parts, loss_parts, grad_out,
-                                     loss_out, keep, n_cols / n_frames, n_cols,
-                                     static_cast<cudaStream_t>(stream));
+    return k4_launch<decltype(fold)>(params, seeds, n_frames, split, L, H, width, height, row0,
+                                     n_rows, samples, reflections, small_indent,
+                                     light_coefficient, target, scale, g_mean, grad_parts,
+                                     loss_parts, grad_out, loss_out, keep, n_cols / n_frames,
+                                     n_cols, static_cast<cudaStream_t>(stream));
   });
 }
 

@@ -44,7 +44,9 @@
 //           runs them). Pass 1 is K1's trace (bitwise its light) at K1's
 //           occupancy. K5's cotangent is its input.
 //   sweep:  sweep_kernel (K4, K5): per (row, pixel) the re-trace of every
-//           sample with its bounce records in registers (the kMainBounces
+//           sample (K4 on a grid too small to fill the card: of a chunk
+//           of the pixel's samples a block, gradlaunch.cuh sweep_kernel)
+//           with its bounce records in registers (the kMainBounces
 //           instance, loops unrolled; any other count runs the generic
 //           kMaxBounces instance, records in local memory) and the reverse
 //           sweep, each step's cotangents (one primitive's, the
@@ -115,6 +117,11 @@ extern "C" int fourd_grad_scratch_cols(const int* layout, int width, int n_rows,
   return grad_scratch_cols(layout_from(layout), width, n_rows, n_frames);
 }
 
+// The sweeps' blocks a SM that their launch bounds ask for (reduce.cuh
+// kGradMinBlocks), which K4's sample split aims its waves at
+// (ops/cuda/gradkernel.py sweep_split).
+extern "C" int fourd_grad_min_blocks() { return kGradMinBlocks; }
+
 // The gradient launches below take ``hints``, the host int[kHintInts]
 // descriptor of the static hints (ops/cuda/megakernel.py hint_table), or
 // null for none, and ``keep``, the device's packed 0/1 mask of P floats of
@@ -128,13 +135,15 @@ extern "C" int fourd_grad_scratch_cols(const int* layout, int width, int n_rows,
 // K4 on ``stream``: loss (1,) and grad (P,) float32, both scaled by
 // ``scale``, of image rows [row0, row0 + n_rows) of H, from params (P,)
 // float32, seeds (F,) uint32 and that block of the target (V, n_rows, W, 3)
-// float32. g_mean (F, V, n_rows, W, 3) float32, grad_parts (P, n_cols)
+// float32, its sweep in ``split`` sample chunks a pixel (gradlaunch.cuh
+// sweep_kernel; the sum's order of additions alone depends on it).
+// g_mean (F, V, n_rows, W, 3) float32, grad_parts (P, n_cols x split)
 // float32 and loss_parts (n_cols,) float64 are scratch of the caller's,
 // n_cols as fourd_grad_scratch_cols(layout, width, n_rows, n_frames) gives
 // it. Returns cudaGetLastError() after each launch.
 extern "C" int fourd_loss_grad_launch(const float* params, const uint32_t* seeds, int n_frames,
-                                      const int* layout, int width, int height, int row0,
-                                      int n_rows, int samples, int reflections,
+                                      int split, const int* layout, int width, int height,
+                                      int row0, int n_rows, int samples, int reflections,
                                       float small_indent, float light_coefficient,
                                       const float* target, float scale, float* g_mean,
                                       float* grad_parts, double* loss_parts, float* grad_out,
@@ -142,23 +151,24 @@ extern "C" int fourd_loss_grad_launch(const float* params, const uint32_t* seeds
                                       void* stream) {
   const Layout L = layout_from(layout);
   const int n_cols = fourd_grad_scratch_cols(layout, width, n_rows, n_frames);
-  if (n_cols < 0 || bad_shape(L, height, row0, n_rows, samples, reflections)) {
+  if (n_cols < 0 || bad_split(L, width, n_rows, n_frames, split) ||
+      bad_shape(L, height, row0, n_rows, samples, reflections)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Hints H;
   const FoldKind kind = fold_kind(L, hints, reflections, H);
   if (composite_fold(kind)) {
-    return fourd_loss_grad_composite(params, seeds, n_frames, layout, width, height, row0, n_rows,
-                                     samples, reflections, small_indent, light_coefficient,
-                                     target, scale, g_mean, grad_parts, loss_parts, grad_out,
-                                     loss_out, hints, keep, stream);
+    return fourd_loss_grad_composite(params, seeds, n_frames, split, layout, width, height, row0,
+                                     n_rows, samples, reflections, small_indent,
+                                     light_coefficient, target, scale, g_mean, grad_parts,
+                                     loss_parts, grad_out, loss_out, hints, keep, stream);
   }
   return with_fold(kind, [&](auto fold) {
-    return k4_launch<decltype(fold)>(params, seeds, n_frames, L, H, width, height, row0, n_rows,
-                                     samples, reflections, small_indent, light_coefficient,
-                                     target, scale, g_mean, grad_parts, loss_parts, grad_out,
-                                     loss_out, keep, n_cols / n_frames, n_cols,
-                                     static_cast<cudaStream_t>(stream));
+    return k4_launch<decltype(fold)>(params, seeds, n_frames, split, L, H, width, height, row0,
+                                     n_rows, samples, reflections, small_indent,
+                                     light_coefficient, target, scale, g_mean, grad_parts,
+                                     loss_parts, grad_out, loss_out, keep, n_cols / n_frames,
+                                     n_cols, static_cast<cudaStream_t>(stream));
   });
 }
 

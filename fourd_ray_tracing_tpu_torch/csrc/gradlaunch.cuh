@@ -50,21 +50,28 @@ loss_cot_kernel(const float* __restrict__ params, const uint32_t* __restrict__ s
                0, static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x);
 }
 
-// The sweep of K4 and K5. Grid (blocks, rows): block (x, f) takes params
+// The sweep of K4 and K5. Grid (blocks, rows x split): block (x, y) takes
+// row f = y / split and sample chunk c = y % split, the samples
+// [c * samples / split, (c + 1) * samples / split) of its pixels: params
 // row f (at f * row_stride), the seed seeds[f] (or ``seed`` when seeds is
-// null) and row f of the cotangent of the mean light, and writes column
-// f * col_offset + x of the (P, n_cols) partials at grad_parts +
-// f * row_offset.
+// null) and row f of the cotangent of the mean light. It writes column
+// y * col_offset + x of the (P, n_cols) partials at grad_parts +
+// f * row_offset. K4 splits a small grid's samples so that the card
+// holds several waves of blocks (ops/cuda/gradkernel.py sweep_split); K5
+// sweeps whole pixels (split 1).
 template <int kB, class Fold>
 __global__ void __launch_bounds__(kGradBlock, kGradMinBlocks)
 sweep_kernel(const float* __restrict__ params, long long row_stride,
              const uint32_t* __restrict__ seeds, uint32_t seed, Layout L, int width, int height,
-             int row0, int n_rows, int samples, int reflections, float small_indent,
+             int row0, int n_rows, int samples, int split, int reflections, float small_indent,
              const float* __restrict__ g_mean, float* __restrict__ grad_parts,
              long long row_offset, int col_offset, int n_cols, Hints H) {
   extern __shared__ float smem[];
   const GradSmem sm = grad_smem(smem, L.size, table_recs_for<Fold>(L, H));
-  const int row = blockIdx.y;
+  const int row = blockIdx.y / split;
+  const long long chunk = blockIdx.y - row * split;
+  const int s0 = static_cast<int>(chunk * samples / split);
+  const int s1 = static_cast<int>((chunk + 1) * samples / split);
   for (int i = threadIdx.x; i < L.size; i += blockDim.x) sm.params[i] = params[row * row_stride + i];
   __syncthreads();
   build_table_for<Fold>(sm.params, L, H);
@@ -77,12 +84,12 @@ sweep_kernel(const float* __restrict__ params, long long row_stride,
         setup_pixel<Fold>(sm.params, L, px.view, px.px, px.py, width, height, small_indent);
     const V3 g = ld3(g_mean + (static_cast<long long>(row) * total + lin) * 3);
     ColumnAcc acc = ColumnAcc::of(sm, nullptr);
-    pixel_sweep<kB, Fold>(sm.params, L, p, px.view, samples, reflections, small_indent,
+    pixel_sweep<kB, Fold>(sm.params, L, p, px.view, s0, s1, reflections, small_indent,
                           seeds != nullptr ? seeds[row] : seed,
                           mul3s(g, 1.0f / static_cast<float>(samples)), acc);
   }
   reduce_block(sm.cols, L.size, 0.0f, grad_parts + row * row_offset, nullptr, n_cols,
-               static_cast<long long>(row) * col_offset + blockIdx.x);
+               static_cast<long long>(blockIdx.y) * col_offset + blockIdx.x);
 }
 
 // Whether Fold runs at the main bounce count only (the launch takes the
@@ -108,14 +115,21 @@ auto sweep_for(int reflections) {
 }
 
 // Columns of a gradient launch's partials over n_rows image rows: n_frames
-// (K4's frames, K5's 1, K6's 2 rows) times the blocks of a row,
-// ceil(V * n_rows * W / kGradBlock); or -1 for a shape the launch refuses
+// (K4's frames, times its sample split for its gradient partials; K5's 1,
+// K6's 2 rows) times the blocks of a row, ceil(V * n_rows * W /
+// kGradBlock); or -1 for a shape the launch refuses
 // (fourd_grad_scratch_cols).
 inline int grad_scratch_cols(const Layout& L, int width, int n_rows, int n_frames) {
   const long long blocks = pixel_blocks(L, width, n_rows);
   const long long cols = blocks * n_frames;
   if (blocks <= 0 || n_frames <= 0 || n_frames > 65535 || cols > 0x7FFFFFFFLL) return -1;
   return static_cast<int>(cols);
+}
+
+// Whether K4's launch refuses a sample split: below 1, or a sweep grid of
+// more rows than a grid holds (grad_scratch_cols of n_frames x split).
+inline bool bad_split(const Layout& L, int width, int n_rows, int n_frames, int split) {
+  return split < 1 || split > 65535 || grad_scratch_cols(L, width, n_rows, n_frames * split) < 0;
 }
 
 // The launch arguments every gradient launch checks.
@@ -125,10 +139,10 @@ bool bad_shape(const Layout& L, int height, int row0, int n_rows, int samples,
          reflections > kMaxBounces || L.size <= 0 || L.size > kMaxParams;
 }
 
-// Launches the sweep over ``n_param_rows`` rows (see sweep_kernel); returns
-// cudaGetLastError() after it.
+// Launches the sweep over ``n_param_rows`` rows, each in ``split`` sample
+// chunks (see sweep_kernel); returns cudaGetLastError() after it.
 template <class Fold>
-int launch_sweep(const float* params, long long row_stride, int n_param_rows,
+int launch_sweep(const float* params, long long row_stride, int n_param_rows, int split,
                  const uint32_t* seeds, uint32_t seed, const Layout& L, const Hints& H,
                  int width, int height, int row0, int n_rows, int samples, int reflections,
                  float small_indent, const float* g_mean, float* grad_parts, long long row_offset,
@@ -138,9 +152,9 @@ int launch_sweep(const float* params, long long row_stride, int n_param_rows,
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(static_cast<unsigned>(pixel_blocks(L, width, n_rows)),
-            static_cast<unsigned>(n_param_rows));
+            static_cast<unsigned>(n_param_rows * split));
   kernel<<<grid, kGradBlock, smem, s>>>(params, row_stride, seeds, seed, L, width, height, row0,
-                                        n_rows, samples, reflections, small_indent, g_mean,
+                                        n_rows, samples, split, reflections, small_indent, g_mean,
                                         grad_parts, row_offset, col_offset, n_cols, H);
   return static_cast<int>(cudaGetLastError());
 }
@@ -163,26 +177,31 @@ int sweep_occupancy(const Layout& L, const Hints& H, int reflections, int* out) 
 }
 
 // K4's kernels on ``s`` under the fold Fold: pass 1, the sweep of every
-// frame and sum_parts_kernel (fourd_loss_grad_launch, whose arguments
-// these are; ``blocks`` of a frame, n_cols of the partials).
+// frame in ``split`` sample chunks and sum_parts_kernel
+// (fourd_loss_grad_launch, whose arguments these are; ``blocks`` of a
+// frame, n_cols of loss_parts, blocks x n_frames, and n_cols x split of
+// grad_parts).
 template <class Fold>
-int k4_launch(const float* params, const uint32_t* seeds, int n_frames, const Layout& L,
-              const Hints& H, int width, int height, int row0, int n_rows, int samples,
-              int reflections, float small_indent, float light_coefficient, const float* target,
-              float scale, float* g_mean, float* grad_parts, double* loss_parts, float* grad_out,
-              float* loss_out, const float* keep, int blocks, int n_cols, cudaStream_t s) {
+int k4_launch(const float* params, const uint32_t* seeds, int n_frames, int split,
+              const Layout& L, const Hints& H, int width, int height, int row0, int n_rows,
+              int samples, int reflections, float small_indent, float light_coefficient,
+              const float* target, float scale, float* g_mean, float* grad_parts,
+              double* loss_parts, float* grad_out, float* loss_out, const float* keep, int blocks,
+              int n_cols, cudaStream_t s) {
   const size_t smem = params_table_bytes(L.size, table_recs_for<Fold>(L, H));
   loss_cot_kernel<Fold><<<dim3(blocks, n_frames), kGradBlock, smem, s>>>(
       params, seeds, L, width, height, row0, n_rows, samples, reflections, small_indent,
       light_coefficient, target, g_mean, loss_parts, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rc = launch_sweep<Fold>(params, 0, n_frames, seeds, 0u, L, H, width, height, row0,
-                                    n_rows, samples, reflections, small_indent, g_mean,
-                                    grad_parts, 0, blocks, n_cols, s);
+  const int grad_cols = n_cols * split;
+  const int rc = launch_sweep<Fold>(params, 0, n_frames, split, seeds, 0u, L, H, width, height,
+                                    row0, n_rows, samples, reflections, small_indent, g_mean,
+                                    grad_parts, 0, blocks, grad_cols, s);
   if (rc != 0) return rc;
-  sum_parts_kernel<<<L.size + 1, kSumThreads, 0, s>>>(grad_parts, loss_parts, L.size, n_cols,
-                                                      scale, grad_out, loss_out, keep, L.size);
+  sum_parts_kernel<<<L.size + 1, kSumThreads, 0, s>>>(grad_parts, loss_parts, L.size, grad_cols,
+                                                      n_cols, scale, grad_out, loss_out, keep,
+                                                      L.size);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -193,13 +212,13 @@ int k5_launch(const float* params, long long row_stride, int n_params_rows, uint
               const Layout& L, const Hints& H, int width, int height, int row0, int n_rows,
               int samples, int reflections, float small_indent, const float* cot,
               float* grad_parts, float* grad_out, const float* keep, int n_cols, cudaStream_t s) {
-  const int rc = launch_sweep<Fold>(params, row_stride, n_params_rows, nullptr, seed, L, H, width,
-                                    height, row0, n_rows, samples, reflections, small_indent, cot,
-                                    grad_parts, static_cast<long long>(L.size) * n_cols, 0,
-                                    n_cols, s);
+  const int rc = launch_sweep<Fold>(params, row_stride, n_params_rows, 1, nullptr, seed, L, H,
+                                    width, height, row0, n_rows, samples, reflections,
+                                    small_indent, cot, grad_parts,
+                                    static_cast<long long>(L.size) * n_cols, 0, n_cols, s);
   if (rc != 0) return rc;
   const int n_sums = n_params_rows * L.size;
-  sum_parts_kernel<<<n_sums, kSumThreads, 0, s>>>(grad_parts, nullptr, n_sums, n_cols, 1.0f,
+  sum_parts_kernel<<<n_sums, kSumThreads, 0, s>>>(grad_parts, nullptr, n_sums, n_cols, 0, 1.0f,
                                                   grad_out, nullptr, keep, L.size);
   return static_cast<int>(cudaGetLastError());
 }
@@ -282,8 +301,8 @@ soft_row_a_kernel(const float* __restrict__ params, uint32_t seed, Layout L, int
     const bool whole = obj < 0 || (p.h0.hit && p.h0.idx == obj);
     const V3 g_shared = whole ? V3{0.0f, 0.0f, 0.0f} : g_b;
     ColumnAcc acc = ColumnAcc::of(sm, nullptr);
-    const unsigned alone = pixel_sweep<kB, Fold>(sm.params, L, p, px.view, samples, reflections,
-                                                 small_indent, seed, g_a, acc, 0u,
+    const unsigned alone = pixel_sweep<kB, Fold>(sm.params, L, p, px.view, 0, samples,
+                                                 reflections, small_indent, seed, g_a, acc, 0u,
                                                  whole ? -1 : obj, g_shared);
     row_b[lin] = whole ? kRowBWhole : alone;
   }
@@ -329,7 +348,7 @@ soft_row_b_kernel(const float* __restrict__ params, uint32_t seed, Layout L, Zer
     const Pixel p =
         setup_pixel<Fold>(sm.params, L, px.view, px.px, px.py, width, height, small_indent);
     ColumnAcc acc = ColumnAcc::of(sm, sm.skip);
-    pixel_sweep<kB, Fold>(sm.params, L, p, px.view, samples, reflections, small_indent, seed,
+    pixel_sweep<kB, Fold>(sm.params, L, p, px.view, 0, samples, reflections, small_indent, seed,
                           g_b, acc, work == kRowBWhole ? 0u : work);
   }
   reduce_block(sm.cols, L.size, 0.0f, grad_parts, loss_parts, n_cols, col0 + blockIdx.x);
@@ -415,7 +434,8 @@ int k6_launch(const float* params, uint32_t seed, const Layout& L, const Hints& 
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   sum_parts_kernel<<<L.size + 1, kSumThreads, 0, s>>>(grad_parts, loss_parts, L.size, n_cols,
-                                                      scale, grad_out, loss_out, keep, L.size);
+                                                      n_cols, scale, grad_out, loss_out, keep,
+                                                      L.size);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -430,8 +450,8 @@ extern "C" int fourd_grad_scratch_cols(const int* layout, int width, int n_rows,
 // fourd_soft_loss_grad_launch, which check them and call these for a
 // descriptor with composites.
 extern "C" int fourd_loss_grad_composite(const float* params, const uint32_t* seeds, int n_frames,
-                                         const int* layout, int width, int height, int row0,
-                                         int n_rows, int samples, int reflections,
+                                         int split, const int* layout, int width, int height,
+                                         int row0, int n_rows, int samples, int reflections,
                                          float small_indent, float light_coefficient,
                                          const float* target, float scale, float* g_mean,
                                          float* grad_parts, double* loss_parts, float* grad_out,

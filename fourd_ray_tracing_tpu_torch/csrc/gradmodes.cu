@@ -9,8 +9,8 @@
 
 extern "C" int fourd_loss_grad_modes(int fold, int sampler, int sampler_iters,
                                      const float* params, const uint32_t* seeds, int n_frames,
-                                     const int* layout, int width, int height, int row0,
-                                     int n_rows, int samples, int reflections,
+                                     int split, const int* layout, int width, int height,
+                                     int row0, int n_rows, int samples, int reflections,
                                      float small_indent, float light_coefficient,
                                      const float* target, float scale, float* g_mean,
                                      float* grad_parts, double* loss_parts, float* grad_out,
@@ -19,14 +19,15 @@ extern "C" int fourd_loss_grad_modes(int fold, int sampler, int sampler_iters,
   const Layout L = layout_from(layout);
   const int n_cols = grad_scratch_cols(L, width, n_rows, n_frames);
   const int mode = mode_of(sampler, sampler_iters);
-  if (n_cols < 0 || mode < 0 || bad_shape(L, height, row0, n_rows, samples, reflections)) {
+  if (n_cols < 0 || mode < 0 || bad_split(L, width, n_rows, n_frames, split) ||
+      bad_shape(L, height, row0, n_rows, samples, reflections)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Hints H;
   const auto s = static_cast<cudaStream_t>(stream);
   return with_modes_fold(fold, mode, L, hints, H, [&](auto fold_tag) {
-    return k4_launch<decltype(fold_tag)>(params, seeds, n_frames, L, H, width, height, row0,
-                                         n_rows, samples, reflections, small_indent,
+    return k4_launch<decltype(fold_tag)>(params, seeds, n_frames, split, L, H, width, height,
+                                         row0, n_rows, samples, reflections, small_indent,
                                          light_coefficient, target, scale, g_mean, grad_parts,
                                          loss_parts, grad_out, loss_out, keep, n_cols / n_frames,
                                          n_cols, s);

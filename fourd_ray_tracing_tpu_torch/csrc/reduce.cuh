@@ -132,17 +132,20 @@ __device__ __forceinline__ void reduce_block(const float* cols, int n, float los
   }
 }
 
-// Block k < n_rows sums row k of grad_parts, block n_rows (launched only
-// when loss_parts is not null) sums loss_parts; each in a fixed order
-// (strided per thread, then a tree), in double, then scaled in float32.
+// Block k < n_rows sums row k of grad_parts (n_cols columns), block n_rows
+// (launched only when loss_parts is not null) sums loss_parts (loss_cols
+// columns: fewer than n_cols where K4 splits its sweep's samples and not
+// its pass 1); each in a fixed order (strided per thread, then a tree), in
+// double, then scaled in float32.
 // With ``keep`` (the freeze_hints contract's packed 0/1 mask of
 // ``keep_n`` slots: models/params.py freeze_mask, the camera's slots 1),
 // row k's sum is written as 0 where keep[k % keep_n] is 0: the frozen
 // slots are exactly zero, whatever their partials held.
 __global__ void __launch_bounds__(kSumThreads)
 sum_parts_kernel(const float* __restrict__ grad_parts, const double* __restrict__ loss_parts,
-                 int n_rows, int n_cols, float scale, float* __restrict__ grad_out,
-                 float* __restrict__ loss_out, const float* __restrict__ keep, int keep_n) {
+                 int n_rows, int n_cols, int loss_cols, float scale,
+                 float* __restrict__ grad_out, float* __restrict__ loss_out,
+                 const float* __restrict__ keep, int keep_n) {
   __shared__ double buf[kSumThreads];
   const int k = blockIdx.x;
   double s = 0.0;
@@ -150,7 +153,7 @@ sum_parts_kernel(const float* __restrict__ grad_parts, const double* __restrict_
     const float* row = grad_parts + static_cast<long long>(k) * n_cols;
     for (int i = threadIdx.x; i < n_cols; i += blockDim.x) s += row[i];
   } else {
-    for (int i = threadIdx.x; i < n_cols; i += blockDim.x) s += loss_parts[i];
+    for (int i = threadIdx.x; i < loss_cols; i += blockDim.x) s += loss_parts[i];
   }
   buf[threadIdx.x] = s;
   __syncthreads();

@@ -249,6 +249,7 @@ SIGNATURES = {
         ctypes.c_void_p,                  # params (P,) float32, device
         ctypes.c_void_p,                  # seeds (F,) uint32, device
         ctypes.c_int,                     # n_frames
+        ctypes.c_int,                     # split: the sweep's sample chunks a pixel
         ctypes.c_void_p,                  # layout table (int[14]), host
         ctypes.c_int, ctypes.c_int,       # width, height
         ctypes.c_int, ctypes.c_int,       # row0, n_rows: the launch's block of image rows
@@ -257,7 +258,7 @@ SIGNATURES = {
         ctypes.c_void_p,                  # target (V, n_rows, W, 3) float32, device
         ctypes.c_float,                   # scale
         ctypes.c_void_p,                  # g_mean (F, V, n_rows, W, 3) float32, device
-        ctypes.c_void_p,                  # grad_parts (P, n_cols) float32, device
+        ctypes.c_void_p,                  # grad_parts (P, n_cols x split) float32, device
         ctypes.c_void_p,                  # loss_parts (n_cols,) float64, device
         ctypes.c_void_p,                  # grad out (P,) float32, device
         ctypes.c_void_p,                  # loss out () float32, device
@@ -267,6 +268,8 @@ SIGNATURES = {
     ], ctypes.c_int),
     "fourd_grad_scratch_cols": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int],
                                 ctypes.c_int),
+    # the sweeps' blocks a SM that their launch bounds ask for
+    "fourd_grad_min_blocks": ([], ctypes.c_int),
     # the occupancy of K4's sweep: layout table, reflections, static hints
     # (or null), out int[2] (resident blocks a SM, dynamic shared bytes);
     # the modes one after fold, sampler and sampler_iters

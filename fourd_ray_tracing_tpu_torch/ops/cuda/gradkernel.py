@@ -311,6 +311,34 @@ def sweep_waves(blocks: int, resident_blocks: int, sms: int) -> float:
     return blocks / (resident_blocks * sms)
 
 
+# K4's sweep splits each pixel's samples into chunks, a block each, where
+# its grid would leave the card with few waves of blocks: the waves it
+# aims for at the blocks a SM that the sweep's launch bounds ask for
+# (csrc/reduce.cuh kGradMinBlocks, which the library's
+# fourd_grad_min_blocks returns), and the fewest samples a chunk keeps,
+# since each chunk repeats bounce 0's setup and its block zeroes and sums
+# its P columns. At the train cells' 568 blocks on an H100 a
+# split of 4 (4.3 waves) was the fastest of 1-16 on the hypercube and
+# within 3% of the fastest on the room and the tiger (PERF.md).
+SPLIT_WAVES = 4
+SPLIT_MIN_SAMPLES = 8
+
+
+def sweep_split(blocks: int, sms: int, samples: int, min_blocks: int) -> int:
+    """The sample chunks a pixel of K4's sweep takes (csrc/gradlaunch.cuh
+    sweep_kernel): the smallest power of two that gives the sweep's
+    ``blocks`` (a frame's pixel blocks times the frames) SPLIT_WAVES waves
+    on ``sms`` SMs at ``min_blocks`` blocks a SM, as long as each chunk
+    keeps SPLIT_MIN_SAMPLES of the ``samples``; 1 where the grid fills the
+    card already. Independent of the fold instance's own occupancy, so
+    that every launch of one shape sums in one order, hinted or not."""
+    split = 1
+    while (blocks * split < SPLIT_WAVES * min_blocks * sms
+           and samples // (2 * split) >= SPLIT_MIN_SAMPLES):
+        split *= 2
+    return split
+
+
 def _sweep_occupancy(lib, table, lay: params.Layout, cfg: RenderConfig, hints, modes,
                      device) -> tuple:
     """(resident blocks a SM, SMs) of the sweep instance that a K4 launch
@@ -344,10 +372,12 @@ def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
     params, (F,) int32 seed words and the (V, H, W, 3) or (H, W, 3) float32
     target, on their CUDA device; with ``rows``, those rows' part, the
     target their (V, n_rows, W, 3) block. Under the freeze_hints contract
-    ``keep`` is the packed mask (params.freeze_mask). While a profiler
-    records, the span ``k4.launch`` holds the counters ``k4.resident_warps``
-    (the sweep's resident warps a SM) and ``k4.sweep_waves`` (its blocks
-    over the blocks the card holds at once)."""
+    ``keep`` is the packed mask (params.freeze_mask). The sweep takes
+    ``sweep_split`` sample chunks a pixel. While a profiler records, the
+    span ``k4.launch`` holds the counters ``k4.resident_warps`` (the sweep's
+    resident warps a SM), ``k4.sweep_split`` (its chunks a pixel) and
+    ``k4.sweep_waves`` (its blocks over the blocks the card holds at
+    once)."""
     global LAUNCHES, SHARD_LAUNCHES, HINTED_LAUNCHES
     _check_launch(packed, lay, cfg, target)
     hints, keep_ptr = _launch_hints(lay, cfg, keep, packed.device)
@@ -368,29 +398,32 @@ def launch_loss_grad(packed: torch.Tensor, lay: params.Layout, cfg: RenderConfig
         n_frames = seeds.numel()
         table = (ctypes.c_int * len(lay))(*lay)
         n_cols = _scratch_cols(lib, table, cfg, n_rows, n_frames)
-        g_mean = torch.empty((n_frames, *target.shape), dtype=torch.float32, device=device)
-        grad_parts = torch.empty((lay.size, n_cols), dtype=torch.float32, device=device)
-        loss_parts = torch.empty((n_cols,), dtype=torch.float64, device=device)
-        grad = torch.empty((lay.size,), dtype=torch.float32, device=device)
-        loss = torch.empty((), dtype=torch.float32, device=device)
-        scale = float(np.float32(1.0 / (n_frames * total * 3)))
         modes = _modes(cfg, lay)
         with torch.cuda.device(device):
+            resident, sms = _sweep_occupancy(lib, table, lay, cfg, hints, modes, device)
+            split = sweep_split(n_cols, sms, cfg.samples, lib.fourd_grad_min_blocks())
+            g_mean = torch.empty((n_frames, *target.shape), dtype=torch.float32, device=device)
+            grad_parts = torch.empty((lay.size, n_cols * split), dtype=torch.float32,
+                                     device=device)
+            loss_parts = torch.empty((n_cols,), dtype=torch.float64, device=device)
+            grad = torch.empty((lay.size,), dtype=torch.float32, device=device)
+            loss = torch.empty((), dtype=torch.float32, device=device)
+            scale = float(np.float32(1.0 / (n_frames * total * 3)))
             stream = torch.cuda.current_stream().cuda_stream
-            args = (packed.data_ptr(), seeds.data_ptr(), n_frames, ctypes.addressof(table),
+            args = (packed.data_ptr(), seeds.data_ptr(), n_frames, split, ctypes.addressof(table),
                     cfg.width, cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount,
                     float(np.float32(cfg.small_indent)), float(np.float32(cfg.light_coefficient)),
                     target.data_ptr(), scale, g_mean.data_ptr(), grad_parts.data_ptr(),
                     loss_parts.data_ptr(), grad.data_ptr(), loss.data_ptr(), _addr(hints),
                     keep_ptr, stream)
-            resident, sms = _sweep_occupancy(lib, table, lay, cfg, hints, modes, device)
             if modes is None:
                 err = lib.fourd_loss_grad_launch(*args)
             else:
                 err = lib.fourd_loss_grad_modes(*modes, *args)
         if err == 0:
             profiling.count("k4.resident_warps", resident * GRAD_BLOCK // 32)
-            profiling.count("k4.sweep_waves", sweep_waves(n_cols, resident, sms))
+            profiling.count("k4.sweep_split", split)
+            profiling.count("k4.sweep_waves", sweep_waves(n_cols * split, resident, sms))
     if err != 0:
         raise RuntimeError(f"value-and-grad kernel launch failed: cudaError {err}")
     LAUNCHES += 1

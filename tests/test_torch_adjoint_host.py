@@ -103,10 +103,10 @@ static unsigned sweep(bool generic, const float* P, const Layout& L, const Pixel
                       DenseAcc& acc, unsigned only = 0u, int obj = -1,
                       V3 g_shared = {0.0f, 0.0f, 0.0f}) {
   if (generic) {
-    return pixel_sweep<kMaxBounces, Fold>(P, L, p, view, samples, reflections, indent, seed,
+    return pixel_sweep<kMaxBounces, Fold>(P, L, p, view, 0, samples, reflections, indent, seed,
                                           g_light, acc, only, obj, g_shared);
   }
-  return pixel_sweep<kMainBounces, Fold>(P, L, p, view, samples, reflections, indent, seed,
+  return pixel_sweep<kMainBounces, Fold>(P, L, p, view, 0, samples, reflections, indent, seed,
                                          g_light, acc, only, obj, g_shared);
 }
 

@@ -293,26 +293,29 @@ SOFT_REFS = {"room_with_sphere": ("spheres", 0), "sphere_plane_light": ("spheres
              "sphere_composites": ("spheres", 0)}
 
 
-def loss_grad_launch(lib, packed, lay, cfg, seeds, target, hints=None, rows=None):
+def loss_grad_launch(lib, packed, lay, cfg, seeds, target, hints=None, rows=None, split=1,
+                     scratch=False):
     """fourd_loss_grad_launch on host arrays: (loss, grad); ``rows`` =
     (row0, n_rows), the launch over those image rows, ``target`` their
-    block."""
+    block; ``split`` the sweep's sample chunks a pixel; with ``scratch``,
+    the (P, n_cols x split) gradient partials, zeroed before the launch,
+    after them."""
     row0, n_rows = rows or (0, cfg.height)
     table = layout_table(lay)
     n_cols = scratch_cols(lib, table, cfg, n_rows, len(seeds))
     g_mean = np.zeros((len(seeds), *target.shape), np.float32)
-    grad_parts = np.zeros((lay.size, n_cols), np.float32)
+    grad_parts = np.zeros((lay.size, n_cols * split), np.float32)
     loss_parts = np.zeros(n_cols, np.float64)
     grad, loss = np.zeros(lay.size, np.float32), np.zeros(1, np.float32)
     err = lib.fourd_loss_grad_launch(
-        ptr(packed), ptr(seeds), len(seeds), ctypes.addressof(table), cfg.width, cfg.height, row0,
-        n_rows, cfg.samples, cfg.reflections_amount, f32(cfg.small_indent),
+        ptr(packed), ptr(seeds), len(seeds), split, ctypes.addressof(table), cfg.width,
+        cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount, f32(cfg.small_indent),
         f32(cfg.light_coefficient), ptr(target),
         f32(1.0 / (len(seeds) * target.size // n_rows * cfg.height)),
         ptr(g_mean), ptr(grad_parts), ptr(loss_parts), ptr(grad), ptr(loss), *hint_args(hints),
         None)
     assert err == 0
-    return loss[0], grad
+    return (loss[0], grad, grad_parts) if scratch else (loss[0], grad)
 
 
 def light_vjp_launch(lib, rows, lay, cfg, cot, hints=None):

@@ -62,6 +62,63 @@ def test_loss_grad_launch_matches_autograd(lib, name, bounces, rows):
     assert_grad_close(grad, ref_grad.numpy(), pattern_floor(scene))
 
 
+@pytest.mark.parametrize("name,bounces,split", [
+    ("room_with_sphere", 4, 4), ("room_with_sphere", 3, 3), ("tiger", 4, 4), ("hypercube", 4, 2)],
+    ids=["room", "room_generic_uneven", "tiger", "hypercube"])
+def test_split_loss_grad_launch_matches_autograd(lib, name, bounces, split):
+    """K4's launch with its sweep split into ``split`` sample chunks a pixel
+    (3: chunks of 1, 1 and 2 of 4 samples) over two frames: every chunk's
+    blocks write their own columns of the partials (frame-major, then
+    chunk, then block); within the file's bound of autograd and bitwise
+    across two launches; its loss bitwise the whole-pixel launch's (pass 1
+    and the loss sum are not split), its gradient within float
+    re-association of that launch's."""
+    cfg = config_for(name, reflections_amount=bounces, samples=4, width=32, height=16)
+    scene, camera = grad_scene(name), camera_of(VIEWS_1)
+    lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
+    target = np.random.default_rng(4).uniform(0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)
+    seeds = np.array([0x12345678, 9], np.uint32)
+    args = (lib, packed, lay, cfg, seeds, target, launch_args(scene, camera, cfg))
+    loss, grad, parts = loss_grad_launch(*args, split=split, scratch=True)
+    again = loss_grad_launch(*args, split=split)
+    whole_loss, whole = loss_grad_launch(*args)
+    chunks = parts.reshape(lay.size, len(seeds), split, -1)
+    assert chunks.shape[-1] == scratch_cols(lib, layout_table(lay), cfg, cfg.height, 1)
+    assert all((chunks[:, f, c] != 0).any() for f in range(len(seeds)) for c in range(split))
+    assert loss == again[0] and np.array_equal(grad, again[1])
+    assert loss == whole_loss
+    scale = np.maximum(np.abs(whole), 1e-3 * np.abs(whole).max())
+    assert (np.abs(grad - whole) / scale).max() < 1e-5
+    ref_loss, ref_grad = gradkernel.loss_and_grad_plain(
+        torch.from_numpy(packed), scene, camera, cfg, seeds, torch.from_numpy(target))
+    np.testing.assert_allclose(loss, float(ref_loss), rtol=1e-6)
+    assert_grad_close(grad, ref_grad.numpy(), pattern_floor(scene))
+
+
+def test_sweep_split_reads_the_launch_bound_of_the_build(lib):
+    """fourd_grad_min_blocks returns the blocks a SM that the sweeps'
+    launch bounds ask for (reduce.cuh kGradMinBlocks), and at the train
+    cells' 568 blocks on an H100's 132 SMs the split it gives is 4."""
+    build.bind(lib, ("fourd_grad_min_blocks",))
+    min_blocks = lib.fourd_grad_min_blocks()
+    assert min_blocks == 4
+    assert gradkernel.sweep_split(568, 132, 100, min_blocks) == 4
+
+
+def test_launch_refuses_a_split_the_grid_cannot_hold(lib):
+    """A split below 1, or one whose frames x split rows pass a grid's
+    65535, is refused (cudaErrorInvalidValue) before any kernel runs."""
+    cfg = config(width=8, height=4)
+    scene, camera = grad_scene("room_with_sphere"), camera_of(VIEWS_1)
+    lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
+    target = np.zeros((cfg.height, cfg.width, 3), np.float32)
+    seeds = np.array([1, 2], np.uint32)
+    for split in (0, 32768):
+        with pytest.raises(AssertionError, match="assert 1 == 0"):
+            loss_grad_launch(lib, packed, lay, cfg, seeds, target, split=split)
+    assert loss_grad_launch(lib, packed, lay, cfg, seeds, target, split=5)[0] > 0.0
+
+
 @pytest.mark.parametrize("name", ["room_with_sphere", "duocylinder", "tiger", "cylinders"])
 def test_light_vjp_launch_matches_autograd(lib, name):
     """K5's launch over two params rows (the scene and its zero_object

@@ -96,7 +96,7 @@ def loss_grad(lib, packed, lay, cfg, seeds, target, rows=None, keep=None):
     grad, loss = np.zeros(lay.size, np.float32), np.zeros(1, np.float32)
     words = descriptor(lay, cfg)
     err = lib.fourd_loss_grad_modes(
-        *codes(cfg), ptr(packed), ptr(seeds), len(seeds), ctypes.addressof(table), cfg.width,
+        *codes(cfg), ptr(packed), ptr(seeds), len(seeds), 1, ctypes.addressof(table), cfg.width,
         cfg.height, row0, n_rows, cfg.samples, cfg.reflections_amount, f32(cfg.small_indent),
         f32(cfg.light_coefficient), ptr(target),
         f32(1.0 / (len(seeds) * target.size // n_rows * cfg.height)), ptr(g_mean),
@@ -299,7 +299,8 @@ def test_modes_launches_refuse_what_they_do_not_take(lib):
 
     def call(fold, sampler, iters, words):
         return lib.fourd_loss_grad_modes(
-            fold, sampler, iters, ptr(packed), ptr(seeds), 1, ctypes.addressof(table), cfg.width,
+            fold, sampler, iters, ptr(packed), ptr(seeds), 1, 1, ctypes.addressof(table),
+            cfg.width,
             cfg.height, 0, cfg.height, cfg.samples, cfg.reflections_amount,
             f32(cfg.small_indent), f32(cfg.light_coefficient), ptr(target), 1.0,
             *map(ptr, scratch), None if words is None else ctypes.addressof(words), None, None)

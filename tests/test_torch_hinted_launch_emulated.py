@@ -62,6 +62,29 @@ def test_hinted_loss_grad_launch_keeps_the_unhinted_values(lib, name, views, bou
                       pattern_floor(scene))
 
 
+@pytest.mark.parametrize("name,views,bounces", [HINTED[0], COMPOSITE_HINTED[1]],
+                         ids=[HINTED_IDS[0], COMPOSITE_HINTED_IDS[1]])
+def test_hinted_split_launch_keeps_the_unhinted_values(lib, name, views, bounces):
+    """K4 under the contract with its sweep split into 4 sample chunks a
+    pixel: the loss bitwise the unhinted split launch's, every kept slot
+    equal, the frozen ones 0, bitwise across launches. The hinted and the
+    unhinted instance take one split (gradkernel.sweep_split reads no
+    instance), so they sum in one order."""
+    cfg = config_for(name, reflections_amount=bounces, samples=4, width=32, height=16)
+    scene, camera = grad_scene(name), camera_of(views)
+    lay, packed = params.layout(scene, camera), params.pack(scene, camera).numpy()
+    target = np.random.default_rng(4).uniform(
+        0, 1, (*image_shape(views, cfg), 3)).astype(np.float32)
+    seeds = np.array([0x12345678, 9], np.uint32)
+    hcfg, hints, frozen = frozen_hints(scene, camera, cfg)
+    loss, grad = loss_grad_launch(lib, packed, lay, hcfg, seeds, target, hints, split=4)
+    again = loss_grad_launch(lib, packed, lay, hcfg, seeds, target, hints, split=4)
+    loss_u, grad_u = loss_grad_launch(lib, packed, lay, cfg, seeds, target,
+                                      launch_args(scene, camera, cfg), split=4)
+    assert loss == loss_u and loss == again[0] and np.array_equal(grad, again[1])
+    assert_contract(grad, grad_u, frozen)
+
+
 @pytest.mark.parametrize("name,views,bounces", HINTED + COMPOSITE_HINTED,
                          ids=HINTED_IDS + COMPOSITE_HINTED_IDS)
 def test_hinted_light_vjp_launch_keeps_the_unhinted_values(lib, name, views, bounces):

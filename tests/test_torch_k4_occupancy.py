@@ -1,7 +1,8 @@
 """The counter recorder (utils/profiling.py ``count``) and K4's occupancy
-counters (ops/cuda/gradkernel.py): ``k4.resident_warps`` and
-``k4.sweep_waves``, recorded inside ``k4.launch`` while a profiler
-records, from one occupancy query per launch key. The arithmetic runs here
+counters (ops/cuda/gradkernel.py): ``k4.resident_warps``,
+``k4.sweep_split`` and ``k4.sweep_waves``, recorded inside ``k4.launch``
+while a profiler records, from one occupancy query per launch key, and
+the sweep's sample split (``sweep_split``). The arithmetic runs here
 with the card's counts as given inputs; the test marked ``card`` runs a
 warm packed step on an NVIDIA card (``python3 -m pytest
 tests/test_torch_k4_occupancy.py -m card --noconftest -o addopts=""``) and
@@ -17,7 +18,7 @@ from fourd_ray_tracing_tpu_torch import camera as cam
 from fourd_ray_tracing_tpu_torch import diff
 from fourd_ray_tracing_tpu_torch.models import library, params
 from fourd_ray_tracing_tpu_torch.models.renderer import RenderConfig
-from fourd_ray_tracing_tpu_torch.ops.cuda import gradkernel
+from fourd_ray_tracing_tpu_torch.ops.cuda import build, gradkernel
 from fourd_ray_tracing_tpu_torch.ops.vec4 import Vec4
 from fourd_ray_tracing_tpu_torch.utils import profiling
 
@@ -26,6 +27,10 @@ from fourd_ray_tracing_tpu_torch.utils import profiling
 TRAIN = dict(width=121, height=75, samples=100, reflections_amount=4, rng_mode="per_sample")
 FRAMES = 4
 H100_SMS = 132
+# The sweeps' blocks a SM that their launch bounds ask for, as the
+# library's fourd_grad_min_blocks returns it
+# (tests/test_torch_grad_launch_emulated.py reads it from the build).
+MIN_BLOCKS = 4
 
 
 @pytest.fixture(autouse=True)
@@ -122,6 +127,42 @@ def test_sweep_waves_of_the_train_launch(resident, waves):
     assert gradkernel.sweep_waves(blocks, resident, H100_SMS) == pytest.approx(waves, abs=1e-4)
 
 
+CELL_BLOCKS = 568  # 4 frames of 121 x 75 pixels in blocks of 64
+
+
+@pytest.mark.parametrize("blocks, samples, split", [
+    (14400, 8, 1), (4 * 14400, 8, 1), (14400, 100, 1), (CELL_BLOCKS, 100, 4),
+    (CELL_BLOCKS, 16, 2), (CELL_BLOCKS, 8, 1), (CELL_BLOCKS, 4, 1), (142, 100, 8),
+    (1000, 100, 4), (3600, 100, 1)],
+    ids=["1280x720", "1280x720_4_frames", "1280x720_100spp", "train_cells", "cap_16_samples",
+         "cap_8_samples", "cap_4_samples", "one_frame", "1000_blocks",
+         "row_quarter_of_1280x720"])
+def test_sweep_split_policy(blocks, samples, split):
+    """The sweep's sample chunks on an H100's 132 SMs: 1 where the grid
+    already gives SPLIT_WAVES waves at 4 blocks a SM (chip_smoke's 1280x720:
+    14,400 blocks a frame, 27 waves); at the train cells' 568 blocks the
+    smallest power of two that reaches them; never below 8 samples a
+    chunk."""
+    got = gradkernel.sweep_split(blocks, H100_SMS, samples, MIN_BLOCKS)
+    assert got == split
+    assert samples // got >= gradkernel.SPLIT_MIN_SAMPLES or got == 1
+    waves = gradkernel.sweep_waves(blocks * got, MIN_BLOCKS, H100_SMS)
+    capped = samples // (2 * got) < gradkernel.SPLIT_MIN_SAMPLES
+    assert waves >= gradkernel.SPLIT_WAVES or capped
+    assert got == 1 or gradkernel.sweep_waves(blocks * got // 2, MIN_BLOCKS,
+                                              H100_SMS) < gradkernel.SPLIT_WAVES
+
+
+def test_train_cells_split_their_sweep():
+    """At the train cells' shape the split is at least 4 and the sweep
+    takes at least 4 waves at the room's and the tiger's 4 resident blocks
+    and the hypercube's 3."""
+    split = gradkernel.sweep_split(CELL_BLOCKS, H100_SMS, TRAIN["samples"], MIN_BLOCKS)
+    assert split >= 4
+    for resident in (4, 3):
+        assert gradkernel.sweep_waves(CELL_BLOCKS * split, resident, H100_SMS) >= 4
+
+
 class FakeLib:
     """The occupancy entry points of the kernels' library, counted."""
 
@@ -160,6 +201,34 @@ def test_occupancy_is_queried_once_per_launch_key(monkeypatch):
     assert gradkernel.OCCUPANCY_QUERIES == start + 3
 
 
+@pytest.mark.parametrize("name", ["room_with_sphere", "tiger", "hypercube"])
+def test_hinted_and_unhinted_launches_take_one_split(monkeypatch, name):
+    """A launch under the frozen hints and one without them: their
+    instances' occupancies differ (the fake answers 4, then 3 blocks a SM),
+    while the sample split reads only what the two share (the grid, the
+    SMs, the samples, the launch bound), so both sum in one order."""
+    props = type("Props", (), {"multi_processor_count": H100_SMS})()
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: props)
+    monkeypatch.setattr(gradkernel, "_SWEEP_OCCUPANCY", {})
+    answers = iter((4, 3))
+
+    class Lib:
+        def fourd_loss_grad_occupancy(self, table, reflections, hints, out):
+            out[0], out[1] = next(answers), 0
+            return 0
+
+    scene, camera, cfg = train_setup(name)
+    unhinted = RenderConfig(**TRAIN)
+    lay = params.layout(scene, camera)
+    occupancy = [gradkernel._sweep_occupancy(Lib(), None, lay, c, gradkernel.launch_words(lay, c),
+                                             None, torch.device("cuda", 0))
+                 for c in (cfg, unhinted)]
+    assert occupancy == [(4, H100_SMS), (3, H100_SMS)]
+    splits = {gradkernel.sweep_split(CELL_BLOCKS, sms, c.samples, MIN_BLOCKS)
+              for (_, sms), c in zip(occupancy, (cfg, unhinted))}
+    assert splits == {4}
+
+
 # --- on the card ------------------------------------------------------------
 
 @pytest.fixture
@@ -189,8 +258,9 @@ def test_card_warm_packed_step_records_the_counters(card, name):
     """At the train cells' shape a warm packed step records each counter
     once per K4 launch, inside ``k4.launch``, with no synchronizing
     operation beyond the step's one (the seeds' upload) and no occupancy
-    query; the hypercube's sweep holds at most 6 warps a SM and takes at
-    least 1.4 waves."""
+    query; the sweep splits each pixel's samples into at least 4 chunks
+    and takes the split grid's waves, above 2 (the hypercube's sweep
+    holds at most 6 warps a SM)."""
     scene, camera, cfg = train_setup(name, card)
     step, init, _ = diff.make_packed_train_step(cfg, 1e-3, camera, scene,
                                                 frames_per_step=FRAMES)
@@ -206,14 +276,17 @@ def test_card_warm_packed_step_records_the_counters(card, name):
     assert gradkernel.LAUNCHES == launches + 2
     records, got = profiling.records(), profiling.counters()
     (launch,) = [r for r in records if r.name == "k4.launch"]
-    assert [c.name for c in got] == ["k4.resident_warps", "k4.sweep_waves"]
+    assert [c.name for c in got] == ["k4.resident_warps", "k4.sweep_split", "k4.sweep_waves"]
     assert all(c.step == launch.step and launch.start <= c.t <= launch.end for c in got)
-    warps, waves = (c.value for c in got)
+    warps, split, waves = (c.value for c in got)
     blocks = warps * 32 // gradkernel.GRAD_BLOCK
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    assert waves == pytest.approx(gradkernel.sweep_waves(568, blocks, sms))
+    assert split == gradkernel.sweep_split(CELL_BLOCKS, sms, TRAIN["samples"],
+                                           build.load().fourd_grad_min_blocks()) >= 4
+    assert waves == pytest.approx(gradkernel.sweep_waves(CELL_BLOCKS * split, blocks, sms))
+    assert waves > 2
     if name == "hypercube":
-        assert warps <= 6 and waves >= 1.4
+        assert warps <= 6
 
 
 @pytest.mark.card
